@@ -1,0 +1,441 @@
+#!/usr/bin/env python3
+"""Chip smoke test of siddhi_tpu_torch, the PyTorch/CUDA port.
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. card     name and power limit (nvidia-smi), torch/CUDA versions;
+2. build    every CUDA kernel of the port, built from ``siddhi_tpu_torch/csrc``
+            with one nvcc per source started together; prints ``-Xptxas -v``;
+3. kernels  each kernel against its plain torch version on the card at the
+            shapes the routed flagship gives it (exact equality: the exchange
+            is a copy), timed with CUDA events beside its plain version, one
+            PyTorch library call of the same function and its byte bound;
+4. slice    the partitioned flagship (per-symbol ``#window.length(1000)``,
+            ``avg(price)``, ``sum(volume)``; 16,384 key slots, 573 MB of
+            window state) routed over 4 logical shards with
+            ``shard_exchange: pallas_ring``, fed 65,536-row batches of 10,000
+            string symbols through ``send_columns``. Checks: the exchange
+            kernel launched on that run, no route overflow, routed output
+            equal to an unrouted run on the card, the first two batches equal
+            to the port's own CPU run (plain versions), one output row per
+            input row, finite values. Prints events/s of both card runs;
+5. profile  where the routed step's time goes: device time by kernel and
+            the card's busy share (torch.profiler), host time by function
+            (cProfile);
+6. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
+
+Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+APP = """
+@app:name('chip_smoke')
+@app:precision('exact')
+define stream StockStream (symbol string, price float, volume long);
+partition with (symbol of StockStream)
+begin
+  @info(name = 'bench')
+  from StockStream#window.length({W})
+  select symbol, avg(price) as avgPrice, sum(volume) as totalVolume
+  insert into OutStream;
+end;
+"""
+WINDOW = 1000
+NUM_SYMBOLS = 10_000
+KEY_SLOTS = 16_384
+BATCH = 65_536
+N_BATCHES = 8
+N_SHARDS = 4
+ROWS_PER_SHARD = 20_480         # B / n * 1.25, as the flagship bench routes
+CPU_BATCHES = 2
+TIMED_RUNS = 30
+H100_BYTES_PER_S = 3.35e12      # HBM3 rate of one H100 SXM (data sheet)
+FLOAT_RTOL = 1e-12
+
+
+class Failure(Exception):
+    pass
+
+
+def _require(cond, msg):
+    if not cond:
+        raise Failure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    _require(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+# ------------------------------------------------------------------ feed
+
+def make_feed(seed: int, n_batches: int, batch: int, n_symbols: int):
+    """Seeded batches in the shape of bench.py's generator: uniform symbol
+    ids over ``n_symbols`` string symbols, price U(0, 100) float32, volume
+    U[1, 1000) int64, per-row timestamps."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    syms = np.array([f"S{i}" for i in range(n_symbols)], dtype=object)
+    feed = []
+    for i in range(n_batches):
+        ids = rng.integers(0, n_symbols, batch, dtype=np.int64)
+        feed.append(({
+            "symbol": syms[ids],
+            "price": (rng.random(batch) * 100.0).astype(np.float32),
+            "volume": rng.integers(1, 1000, batch, dtype=np.int64),
+        }, np.arange(i * batch, (i + 1) * batch, dtype=np.int64)))
+    return feed
+
+
+def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
+              key_slots: int = KEY_SLOTS, n_shards: int = N_SHARDS,
+              rows_per_shard: int = ROWS_PER_SHARD, on_route=None):
+    """Drive the flagship through the public API on ``device``. Returns
+    (per-batch output column dicts, per-batch seconds, runtime facts)."""
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager, StreamCallback
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+
+    class Cols(StreamCallback):
+        """Keeps each emitted batch as host columns of its valid rows."""
+
+        def __init__(self):
+            self.batches = []
+
+        def receive_batch(self, batch, junction):
+            valid = np.asarray(batch.cols["__valid__"])
+            self.batches.append({k: np.asarray(batch.cols[k])[valid] for k in
+                                 ("__ts__", "__type__", "symbol", "avgPrice",
+                                  "avgPrice?", "totalVolume", "totalVolume?")})
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager(
+        {"siddhi_tpu.shard_exchange": "pallas_ring"}))
+    rt = m.create_siddhi_app_runtime(APP.format(W=window))
+    _require(rt.app_context.precision == "exact", "precision is not exact")
+    cb = Cols()
+    rt.add_callback("OutStream", cb)
+    q = rt.query_runtimes["bench"]
+    q.selector_plan.num_keys = key_slots
+    q._win_keys = key_slots
+    facts = {}
+    if routed:
+        device_route_query_step(q, make_mesh(n_shards, device),
+                                rows_per_shard=rows_per_shard)
+    else:
+        q._state = q._init_state()
+    facts["state_bytes"] = sum(
+        t.numel() * t.element_size() for t in _leaves(q._state))
+    h = rt.get_input_handler("StockStream")
+    if on_route is not None:
+        on_route()
+    seconds = []           # per batch: a send returns after its emission
+    for cols, ts in feed:
+        t0 = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    if routed:
+        facts["route_overflow"] = q._route_layout.route_overflow_rows
+    facts["key_slots"] = (q.selector_plan.num_keys * (n_shards if routed else 1))
+    m.shutdown()
+    return cb.batches, seconds, facts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def compare_outputs(a, b, what: str):
+    """Ints, strings, timestamps, types and row order exactly; floats to
+    rtol 1e-12 (float sums run in another order on another device)."""
+    import numpy as np
+
+    _require(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} emitted batches")
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(a, b)):
+        for k in x:
+            u, v = x[k], y[k]
+            _require(u.shape == v.shape,
+                     f"{what}: batch {i} column {k} shape {u.shape} vs {v.shape}")
+            if u.dtype.kind == "f":
+                _require(np.all(np.isfinite(u)) and np.all(np.isfinite(v)),
+                         f"{what}: batch {i} column {k} not finite")
+                close = np.isclose(u, v, rtol=FLOAT_RTOL, atol=0.0)
+                _require(close.all(), f"{what}: batch {i} column {k} differs "
+                         f"beyond rtol {FLOAT_RTOL} at rows "
+                         f"{np.nonzero(~close)[0][:5].tolist()}")
+                denom = np.maximum(np.abs(v), 1e-300)
+                worst = max(worst, float(np.max(np.abs(u - v) / denom, initial=0.0)))
+            else:
+                _require(np.array_equal(u, v),
+                         f"{what}: batch {i} column {k} differs")
+    return worst
+
+
+# --------------------------------------------------------------- kernels
+
+def exchange_columns(device):
+    """One send buffer per column of the routed flagship step, at its
+    shapes: [n, n*Q] with Q = rows_per_shard // n, random bytes."""
+    import torch
+
+    n, Q = N_SHARDS, ROWS_PER_SHARD // N_SHARDS
+    g = torch.Generator(device="cpu").manual_seed(7)
+    dtypes = {
+        "symbol": torch.int32, "price": torch.float32, "volume": torch.int64,
+        "__ts__": torch.int64, "__type__": torch.int8, "__valid__": torch.bool,
+        "symbol?": torch.bool, "price?": torch.bool, "volume?": torch.bool,
+        "__gk__": torch.int32, "__pk__": torch.int32, "__ridx__": torch.int64,
+    }
+    bufs = {}
+    for name, dt in dtypes.items():
+        if dt.is_floating_point:
+            t = torch.rand((n, n * Q), generator=g, dtype=dt) * 100
+        else:
+            raw = torch.randint(0, 256, (n, n * Q * torch.empty(0, dtype=dt).element_size()),
+                                generator=g, dtype=torch.uint8)
+            t = raw % 2 == 1 if dt == torch.bool else raw.view(dt)
+        bufs[name] = t.to(device).contiguous()
+    # a float64 buffer too: other apps route double columns
+    bufs["double"] = torch.rand((n, n * Q), generator=g, dtype=torch.float64).to(device)
+    return bufs
+
+
+def steady_eps(seconds, batch: int) -> float:
+    """Events/s over every batch after the first (the first pays the
+    card's lazy kernel loading and allocator warm-up)."""
+    return batch * (len(seconds) - 1) / sum(seconds[1:])
+
+
+def profile_routed(device, feed, card: str):
+    """Where the routed step's time goes: torch.profiler over two warm
+    batches (device time by kernel, device busy share of the wall time)
+    and cProfile over two more (host time by function)."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager(
+        {"siddhi_tpu.shard_exchange": "pallas_ring"}))
+    rt = m.create_siddhi_app_runtime(APP.format(W=WINDOW))
+    q = rt.query_runtimes["bench"]
+    q.selector_plan.num_keys = KEY_SLOTS
+    q._win_keys = KEY_SLOTS
+    device_route_query_step(q, make_mesh(N_SHARDS, device),
+                            rows_per_shard=ROWS_PER_SHARD)
+    h = rt.get_input_handler("StockStream")
+    h.send_columns(feed[0][0], timestamps=feed[0][1])      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for cols, ts in feed[1:3]:
+            h.send_columns(cols, timestamps=ts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
+    print(f"[profile] routed, 2 batches: wall {wall * 1e3:.1f} ms, device busy "
+          f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}% of wall) [{card}]")
+    top = sorted(events, key=lambda e: -(getattr(e, "self_device_time_total", 0) or 0))
+    for e in top[:15]:
+        print(f"[profile]   device {e.self_device_time_total / 1e3:8.2f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    pr = cProfile.Profile()
+    pr.enable()
+    for cols, ts in feed[3:5]:
+        h.send_columns(cols, timestamps=ts)
+    torch.cuda.synchronize()
+    pr.disable()
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(20)
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"[host] {line}")
+    m.shutdown()
+
+
+def time_ms(fn, runs: int = TIMED_RUNS):
+    """Median of ``runs`` CUDA-event timings of ``fn`` (after a warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def check_exchange(device):
+    """Kernel vs plain on every column buffer; timings summed over the
+    column set of one routed batch (the main path's per-batch exchange)."""
+    import torch
+
+    from siddhi_tpu_torch.ops.exchange import ring_exchange, ring_exchange_plain
+
+    n = N_SHARDS
+    bufs = exchange_columns(device)
+    max_err = 0.0
+    for name, buf in bufs.items():
+        got = ring_exchange(buf, n)
+        torch.cuda.synchronize()
+        want = ring_exchange_plain(buf, n)
+        _require(torch.equal(got, want), f"ring_exchange differs from plain on {name}")
+        if buf.dtype.is_floating_point:
+            max_err = max(max_err, float((got - want).abs().max()))
+    batch_cols = [b for k, b in bufs.items() if k != "double"]
+    nbytes = sum(b.numel() * b.element_size() for b in batch_cols)
+    kernel_ms = time_ms(lambda: [ring_exchange(b, n) for b in batch_cols])
+    plain_ms = time_ms(lambda: [ring_exchange_plain(b, n) for b in batch_cols])
+    Q = batch_cols[0].shape[1] // n
+
+    def library():
+        # one PyTorch call of the same function (timed only; the port
+        # never calls it)
+        return [b.view(n, n, Q).transpose(0, 1).contiguous() for b in batch_cols]
+
+    library_ms = time_ms(library)
+    bound_ms = 2 * nbytes / H100_BYTES_PER_S * 1e3   # read once + write once
+    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bytes_each_way": nbytes, "columns": len(batch_cols)}
+
+
+# ------------------------------------------------------------------ main
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device — this script runs on the card",
+              file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parent
+    if not (root / "siddhi_tpu_torch" / "__init__.py").exists():
+        print("chip_smoke: siddhi_tpu_torch/ not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    from siddhi_tpu_torch.ops import _cuda
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+
+    # 1. card
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+          f"| python {sys.version.split()[0]}", flush=True)
+    device = torch.device("cuda", 0)
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = _cuda.build(["ring_exchange"])
+    print(f"[build] {len(built)} kernel(s) in {time.perf_counter() - t0:.1f} s")
+    for name, (so, log) in built.items():
+        print(f"[build] {name}: {so.name}")
+        for line in log.strip().splitlines():
+            print(f"[ptxas] {line}")
+
+    # 3. kernels at the flagship's shapes
+    ex = check_exchange(device)
+    print(f"[kernel] ring_exchange exact on {ex['columns'] + 1} buffers; "
+          f"one batch's {ex['columns']} columns: {ex['bytes_each_way']} bytes "
+          f"each way, kernel {ex['ms']:.4f} ms, plain {ex['plain_ms']:.4f} ms, "
+          f"library {ex['library_ms']:.4f} ms, bound {ex['bound_ms']:.4f} ms "
+          f"(bytes) [{card}]", flush=True)
+
+    # 4. the slice
+    feed = make_feed(5, N_BATCHES, BATCH, NUM_SYMBOLS)
+
+    def reset_counts():
+        ring_exchange.launches = 0
+
+    routed, routed_s, facts = run_slice(device, feed, routed=True,
+                                        on_route=reset_counts)
+    launches = ring_exchange.launches
+    _require(launches > 0, "routed run launched no ring_exchange kernel")
+    _require(facts["route_overflow"] == 0,
+             f"route overflow {facts['route_overflow']} on the routed run")
+    rows_out = sum(len(b["__ts__"]) for b in routed)
+    _require(rows_out == N_BATCHES * BATCH,
+             f"{rows_out} output rows for {N_BATCHES * BATCH} input rows")
+    print(f"[slice] routed x{N_SHARDS}: {facts['state_bytes']} state bytes on "
+          f"the card, {facts['key_slots']} key slots, {launches} exchange "
+          f"launches, {rows_out} rows out, first batch "
+          f"{routed_s[0] * 1e3:.1f} ms, then {steady_eps(routed_s, BATCH):.1f} "
+          f"events/s [{card}]", flush=True)
+
+    unrouted, unrouted_s, ufacts = run_slice(device, feed, routed=False)
+    worst = compare_outputs(routed, unrouted, "routed vs unrouted (card)")
+    print(f"[slice] unrouted: first batch {unrouted_s[0] * 1e3:.1f} ms, then "
+          f"{steady_eps(unrouted_s, BATCH):.1f} events/s [{card}]; routed == "
+          f"unrouted (max float rel err {worst:.3g})", flush=True)
+
+    cpu_out, _cpu_s, _ = run_slice(torch.device("cpu"), feed[:CPU_BATCHES],
+                                   routed=True)
+    worst_cpu = compare_outputs(routed[:CPU_BATCHES], cpu_out,
+                                "card vs cpu (first batches)")
+    print(f"[slice] first {CPU_BATCHES} batches equal the port's CPU run "
+          f"(max float rel err {worst_cpu:.3g})", flush=True)
+
+    # 5. where the time goes
+    profile_routed(device, feed, card)
+
+    # 6. result lines
+    kernels = [{
+        "name": "ring_exchange", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
+        "replaces": "siddhi_tpu/parallel/mesh.py:1242",
+        "launches": launches, "max_abs_err": ex["max_abs_err"],
+        "ms": ex["ms"], "kernel_ms": ex["ms"], "plain_ms": ex["plain_ms"],
+        "bound_ms": ex["bound_ms"], "bound_by": "bytes",
+        "library_ms": ex["library_ms"],
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,66 @@
+"""Per-manager and per-app contexts threaded through the runtime.
+
+Counterpart of ``siddhi_tpu/core/context.py``. The app context holds the
+``torch.device`` every state tensor and step of the app lives on.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from siddhi_tpu_torch.core.event import StringDictionary
+
+
+class SiddhiContext:
+    """Per-SiddhiManager shared services (reference ``SiddhiContext.java``)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.config_manager = None
+
+
+class TimestampGenerator:
+    """Event/wall clock: live mode returns wall time; playback mode
+    returns the last event timestamp."""
+
+    def __init__(self):
+        self.playback = False
+        self._last_event_ts: int = -1
+
+    def current_time(self) -> int:
+        if self.playback and self._last_event_ts >= 0:
+            return self._last_event_ts
+        return int(time.time() * 1000)
+
+    def set_current_timestamp(self, ts: int):
+        if ts > self._last_event_ts:
+            self._last_event_ts = ts
+
+
+class SiddhiAppContext:
+    """Per-app context (reference ``core/config/SiddhiAppContext.java``)."""
+
+    def __init__(self, siddhi_context: SiddhiContext, name: str):
+        self.siddhi_context = siddhi_context
+        self.name = name
+        self.device = siddhi_context.device
+        self.timestamp_generator = TimestampGenerator()
+        self.string_dictionary = StringDictionary()
+        self.stopped = False
+        # key-capacity default for dense state (padded, grows pow2)
+        self.initial_key_capacity = 16
+        # numeric precision: 'exact' = 64-bit accumulators (the reference's
+        # double math). The reference defaults to 'fast' (32-bit) on a TPU
+        # because the TPU emulates 64-bit floats in software; the H100 runs
+        # FP64 natively, so the port defaults to 'exact' on every device.
+        # @app:precision('fast') is accepted; no ported stage reads it
+        # (in the reference only the fused global-window stage does).
+        self.precision = "exact"
+        # dispatch pipeline depth: parsed so configs carry over; the port
+        # dispatches synchronously (depth 1)
+        self.pipeline_depth = 1
+        # exchange transport of device-routed queries; on one card both
+        # values run the ring_exchange kernel (parallel/mesh.py)
+        self.shard_exchange = "all_to_all"

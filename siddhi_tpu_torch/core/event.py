@@ -1,0 +1,337 @@
+"""Event model: user-facing Event rows and columnar batches.
+
+Counterpart of ``siddhi_tpu/core/event.py``: each stream batch is one
+numpy array per attribute plus timestamp, event-type and validity columns
+on the host, moved to the device as torch tensors for the query step. The
+CURRENT/EXPIRED/TIMER/RESET event types are an int8 column.
+
+The string dictionary is the reference's pure-Python path (the native
+``strdict.cpp`` mirror is not ported). Set-valued (OBJECT) attributes are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from siddhi_tpu_torch.ops.expressions import TS_KEY, TYPE_KEY, VALID_KEY
+from siddhi_tpu_torch.ops.types import dtype_of
+from siddhi_tpu_torch.query_api.definitions import AbstractDefinition, AttrType
+
+# ComplexEvent.Type (reference event/ComplexEvent.java)
+CURRENT = 0
+EXPIRED = 1
+TIMER = 2
+RESET = 3
+
+
+@dataclass
+class Event:
+    """User-facing event (reference ``core/event/Event.java``)."""
+
+    timestamp: int = -1
+    data: Sequence = field(default_factory=list)
+    is_expired: bool = False
+
+    def __repr__(self):
+        return f"Event{{timestamp={self.timestamp}, data={list(self.data)}, isExpired={self.is_expired}}}"
+
+
+class StringDictionary:
+    """App-global string <-> int32 id dictionary. Strings never reach the
+    device: keys and symbols travel as dense ids. Ids are assigned in
+    first-seen order and never change."""
+
+    NULL_ID = -1
+    _MISS = -2
+
+    def __init__(self):
+        self._to_id: Dict[str, int] = {}
+        self._to_str: List[str] = []
+        # id assignment is check-then-append: concurrent producers must
+        # not give one new string two ids
+        self._insert_lock = threading.Lock()
+
+    def encode(self, s: Optional[str]) -> int:
+        if s is None:
+            return self.NULL_ID
+        i = self._to_id.get(s)
+        if i is None:
+            with self._insert_lock:
+                i = self._to_id.get(s)
+                if i is None:
+                    i = len(self._to_str)
+                    self._to_str.append(s)
+                    self._to_id[s] = i
+        return i
+
+    def restore_strings(self, strings: List[str]):
+        """Replace the id space wholesale (state carried from elsewhere)."""
+        with self._insert_lock:
+            self._to_str = list(strings)
+            self._to_id = {s: i for i, s in enumerate(self._to_str)}
+
+    def decode(self, i: int) -> Optional[str]:
+        if i < 0:
+            return None
+        return self._to_str[i]
+
+    def encode_array(self, values: np.ndarray) -> np.ndarray:
+        """Bulk encoding: one dict probe per value; misses (new strings,
+        Nones, non-str values) are resolved serially in row order, so id
+        assignment matches per-value ``encode`` calls."""
+        arr = np.asarray(values, object)
+        get = self._to_id.get
+        out = np.fromiter((get(v, self._MISS) for v in arr), np.int64, len(arr))
+        for i in np.nonzero(out == self._MISS)[0]:
+            v = arr[i]
+            out[i] = (self.NULL_ID if v is None
+                      else self.encode(v if type(v) is str else str(v)))
+        return out
+
+    def __len__(self):
+        return len(self._to_str)
+
+
+def encode_key_tuples(arrays, rows: np.ndarray, id_of) -> np.ndarray:
+    """Dense ids for key tuples taken row-wise from ``arrays`` at ``rows``:
+    structured-array ``np.unique``, then one dictionary probe per unique
+    tuple (shared by GroupKeyer and ValuePartitionKeyer)."""
+    B = arrays[0].shape[0]
+    rec = np.empty(B, dtype=[(f"k{i}", a.dtype) for i, a in enumerate(arrays)])
+    for i, a in enumerate(arrays):
+        rec[f"k{i}"] = a
+    uniq, inv = np.unique(rec[rows], return_inverse=True)
+    lut = np.empty(len(uniq), np.int32)
+    for u_i in range(len(uniq)):
+        lut[u_i] = id_of(tuple(x.item() for x in uniq[u_i]))
+    return lut[inv.reshape(-1)]
+
+
+_NONE_MASK = np.frompyfunc(lambda v: v is None, 1, 1)
+
+
+def _pad_len(n: int, minimum: int = 8) -> int:
+    """Pad batch length to a power of two (the reference's recompile
+    bound; kept so batch shapes, and thus outputs, match it row for row)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def tensors_to_numpy(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Host copies of ``tensors``. Device tensors come over in ONE copy:
+    their bytes are packed into one flat device buffer, copied once, and
+    cut back into typed arrays on the host."""
+    out: List[Optional[np.ndarray]] = [None] * len(tensors)
+    dev = [i for i, t in enumerate(tensors) if t.device.type != "cpu"]
+    for i, t in enumerate(tensors):
+        if t.device.type == "cpu":
+            out[i] = t.numpy()
+    if dev:
+        flats = [tensors[i].contiguous().reshape(-1).view(torch.uint8)
+                 for i in dev]
+        host = torch.cat(flats).cpu().numpy()
+        off = 0
+        for i, f in zip(dev, flats):
+            t = tensors[i]
+            nb = f.numel()
+            np_dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+            out[i] = host[off:off + nb].view(np_dt).reshape(tuple(t.shape))
+            off += nb
+    return out
+
+
+class LazyColumns(dict):
+    """Column dict whose tensor values become numpy on first access. The
+    first touched tensor column pulls every remaining tensor column in one
+    device-to-host copy (``tensors_to_numpy``); consumers that read only
+    the meta's size hint pull nothing."""
+
+    def __getitem__(self, k):
+        v = super().__getitem__(k)
+        if not isinstance(v, np.ndarray):
+            self._materialize_all()
+            v = super().__getitem__(k)
+        return v
+
+    def _materialize_all(self):
+        pending = [(key, val) for key, val in super().items()
+                   if isinstance(val, torch.Tensor)]
+        if not pending:
+            return
+        pulled = tensors_to_numpy([v for _k, v in pending])
+        for (key, _v), arr in zip(pending, pulled):
+            super().__setitem__(key, arr)
+
+    def get(self, k, default=None):
+        if k in self:
+            return self[k]
+        return default
+
+    def pop(self, k, *default):
+        # pops pull ONLY the popped value (control scalars like __meta__
+        # must not drag every data column across)
+        if k in self:
+            v = super().__getitem__(k)
+            dict.pop(self, k)
+            if isinstance(v, torch.Tensor):
+                v = tensors_to_numpy([v])[0]
+            return v
+        if default:
+            return default[0]
+        raise KeyError(k)
+
+
+class HostBatch:
+    """Columnar batch on host. Column keys: attribute names, reserved
+    ``__ts__`` (i64), ``__type__`` (i8), ``__valid__`` (bool) and per-
+    attribute null masks under ``<key>?``. Columns may be device tensors
+    held in a ``LazyColumns`` that pull on first read."""
+
+    def __init__(self, cols: Dict[str, np.ndarray], size: Optional[int] = None):
+        self.cols = cols
+        self._size = size        # known valid-row count (avoids a pull)
+
+    @property
+    def size(self) -> int:
+        if self._size is None:
+            self._size = int(np.asarray(self.cols[VALID_KEY]).sum())
+        return self._size
+
+    @property
+    def capacity(self) -> int:
+        return self.cols[VALID_KEY].shape[0]
+
+    @staticmethod
+    def from_events(events: Sequence[Event], definition: AbstractDefinition,
+                    dictionary: StringDictionary, pad_to: Optional[int] = None,
+                    event_type: int = CURRENT) -> "HostBatch":
+        n = len(events)
+        b = pad_to if pad_to is not None else _pad_len(n)
+        cols: Dict[str, np.ndarray] = {
+            TS_KEY: np.zeros(b, np.int64),
+            TYPE_KEY: np.full(b, event_type, np.int8),
+            VALID_KEY: np.zeros(b, bool),
+        }
+        cols[VALID_KEY][:n] = True
+        if n:
+            cols[TS_KEY][:n] = np.fromiter(
+                (ev.timestamp for ev in events), np.int64, n)
+            expired = np.fromiter((ev.is_expired for ev in events), bool, n)
+            if expired.any():
+                cols[TYPE_KEY][:n][expired] = EXPIRED
+        rows = [ev.data for ev in events]
+        for pos, attr in enumerate(definition.attributes):
+            _require_ported_type(attr)
+            arr = np.zeros(b, dtype_of(attr.type))
+            # null masks are always present so the column set is static
+            mask = np.zeros(b, bool)
+            if n:
+                col = np.fromiter((r[pos] for r in rows), object, n)
+                if attr.type == AttrType.STRING:
+                    ids = dictionary.encode_array(col)
+                    mask[:n] = ids == StringDictionary.NULL_ID
+                    arr[:n] = np.where(mask[:n], 0, ids)
+                else:
+                    zero = False if attr.type == AttrType.BOOL else 0
+                    nulls = _NONE_MASK(col).astype(bool)
+                    if nulls.any():
+                        mask[:n] = nulls
+                        arr[:n] = np.where(nulls, zero, col)
+                    else:
+                        arr[:n] = col
+            cols[attr.name] = arr
+            cols[attr.name + "?"] = mask
+        return HostBatch(cols)
+
+    @staticmethod
+    def from_columns(data: Dict[str, np.ndarray], definition: AbstractDefinition,
+                     dictionary: StringDictionary,
+                     timestamps: Optional[np.ndarray] = None,
+                     default_ts: int = 0,
+                     pad_to: Optional[int] = None) -> "HostBatch":
+        """Columnar ingestion: ``data`` maps attribute names to arrays
+        (strings as object/str arrays, encoded here, or pre-encoded int
+        ids). ``<name>?`` null-mask arrays are optional."""
+        first = next(iter(data.values()))
+        n = len(first)
+        b = pad_to if pad_to is not None else _pad_len(n)
+        cols: Dict[str, np.ndarray] = {
+            TYPE_KEY: np.full(b, CURRENT, np.int8),
+            VALID_KEY: np.zeros(b, bool),
+        }
+        cols[VALID_KEY][:n] = True
+        ts = np.zeros(b, np.int64)
+        if timestamps is not None:
+            ts[:n] = np.asarray(timestamps, np.int64)[:n]
+        else:
+            ts[:n] = default_ts
+        cols[TS_KEY] = ts
+        for attr in definition.attributes:
+            _require_ported_type(attr)
+            if attr.name not in data:
+                raise KeyError(f"column '{attr.name}' missing from batch")
+            src = np.asarray(data[attr.name])
+            arr = np.zeros(b, dtype_of(attr.type))
+            mask = np.zeros(b, bool)
+            if attr.type == AttrType.STRING and not np.issubdtype(src.dtype, np.integer):
+                ids = dictionary.encode_array(src)[:n]
+                mask[:n] = ids == StringDictionary.NULL_ID
+                arr[:n] = np.where(mask[:n], 0, ids)
+            elif attr.type == AttrType.STRING:
+                ids = np.asarray(src[:n], np.int64)
+                mask[:n] = ids < 0  # pre-encoded: negative = null
+                arr[:n] = np.where(mask[:n], 0, ids)
+            else:
+                arr[:n] = src[:n]
+            user_mask = data.get(attr.name + "?")
+            if user_mask is not None:
+                mask[:n] |= np.asarray(user_mask, bool)[:n]
+            cols[attr.name] = arr
+            cols[attr.name + "?"] = mask
+        return HostBatch(cols)
+
+    def to_events(self, attr_order: Sequence[tuple],
+                  dictionary: StringDictionary) -> List[Event]:
+        """Decode valid rows into Events."""
+        types = np.asarray(self.cols[TYPE_KEY])
+        ts = np.asarray(self.cols[TS_KEY])
+        idx = np.nonzero(np.asarray(self.cols[VALID_KEY]))[0]
+        if idx.size == 0:
+            return []
+        col_lists: List[list] = []
+        for key, attr_type in attr_order:
+            vals = np.asarray(self.cols[key])[idx]
+            if attr_type == AttrType.STRING:
+                lst = [dictionary.decode(int(v)) for v in vals]
+            elif attr_type == AttrType.BOOL:
+                lst = [bool(v) for v in vals]
+            elif attr_type in (AttrType.INT, AttrType.LONG):
+                lst = vals.astype(np.int64).tolist()
+            else:
+                lst = vals.astype(np.float64).tolist()
+            mask = self.cols.get(key + "?")
+            if mask is not None:
+                mvals = np.asarray(mask)[idx]
+                if mvals.any():
+                    lst = [None if m else v for v, m in zip(lst, mvals)]
+            col_lists.append(lst)
+        ts_l = ts[idx].tolist()
+        exp_l = (types[idx] == EXPIRED).tolist()
+        rows = zip(*col_lists) if col_lists else ([] for _ in idx)
+        return [Event(timestamp=t, data=list(r), is_expired=e)
+                for t, e, r in zip(ts_l, exp_l, rows)]
+
+
+def _require_ported_type(attr) -> None:
+    if attr.type == AttrType.OBJECT:
+        raise ValueError(
+            f"attribute '{attr.name}': set-valued (object) attributes are "
+            f"not ported to siddhi_tpu_torch yet")

@@ -1,0 +1,105 @@
+"""The port stands alone: ``siddhi_tpu_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package ``siddhi_tpu``, and its entry points
+choose the CUDA card unless told otherwise."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+import torch_helpers  # noqa: F401 — one torch thread per test process
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "siddhi_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "siddhi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    """Top-level module names every import statement in ``path`` names."""
+    roots = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.extend(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.append(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_and_runs_with_jax_unimportable():
+    """With ``jax`` made unimportable, the port still imports, builds the
+    slice's app on the CPU and answers a few events."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["siddhi_tpu"] = None
+sys.path.insert(0, {str(ROOT)!r})
+import siddhi_tpu_torch
+from siddhi_tpu_torch import SiddhiManager, StreamCallback
+from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+APP = '''
+define stream StockStream (symbol string, price float, volume long);
+partition with (symbol of StockStream)
+begin
+  @info(name = 'bench')
+  from StockStream#window.length(2)
+  select symbol, avg(price) as avgPrice, sum(volume) as totalVolume
+  insert into OutStream;
+end;
+'''
+class C(StreamCallback):
+    def __init__(self): self.rows = []
+    def receive(self, events): self.rows.extend(e.data for e in events)
+m = SiddhiManager(device="cpu")
+rt = m.create_siddhi_app_runtime(APP)
+c = C(); rt.add_callback("OutStream", c)
+device_route_query_step(rt.query_runtimes["bench"], make_mesh(4), rows_per_shard=64)
+h = rt.get_input_handler("StockStream")
+for i, (s, p, v) in enumerate([("A", 1.0, 1), ("B", 2.0, 2), ("A", 3.0, 3), ("A", 5.0, 4)]):
+    h.send(i, [s, p, v])
+m.shutdown()
+assert c.rows == [["A", 1.0, 1], ["B", 2.0, 2], ["A", 2.0, 4], ["A", 4.0, 7]], c.rows
+assert "jax" not in {{k for k, v in sys.modules.items() if v is not None}}
+print("OK")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0 and out.stdout.strip() == "OK", out.stderr[-2000:]
+
+
+def test_manager_without_device_chooses_cuda():
+    from siddhi_tpu_torch import SiddhiManager
+
+    if torch.cuda.is_available():
+        assert SiddhiManager().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            SiddhiManager()
+
+
+def test_unported_constructs_are_named_not_skipped():
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.ops.expressions import CompileError
+
+    m = SiddhiManager(device="cpu")
+    for app, what in [
+        ("define stream S (a int); define table T (a int); "
+         "from S select a insert into T;", "tables"),
+        ("define stream S (a int); from S#window.time(1 sec) select a "
+         "insert into O;", "windows outside a partition"),
+        ("define stream S (a int); from S select a order by a "
+         "insert into O;", "order by"),
+    ]:
+        with pytest.raises(CompileError, match=what):
+            m.create_siddhi_app_runtime(app)
