@@ -12,14 +12,22 @@ Phases (any failure exits non-zero and prints no result line):
             with one nvcc per source started together; prints ``-Xptxas -v``;
 3. kernels  each kernel against its plain torch version on the card at the
             shapes the routed flagship gives it (exact equality: the exchange
-            is a copy), timed with CUDA events beside its plain version, one
-            PyTorch library call of the same function and its byte bound;
+            is a copy): ``ring_exchange_cols`` in one call over all 13
+            buffers of ``exchange_columns``, a call with odd and sub-16-byte
+            segments, and a call of 65 columns that must launch twice. Then
+            one routed batch's 12 columns timed with CUDA events (L2 flushed
+            before each run, and warm as the first port slice timed them)
+            beside the plain version, one PyTorch library call per column and
+            the byte bound; the host time of one call's enqueue; the
+            kernel's own device time from torch.profiler and its share of
+            the bound;
 4. slice    the partitioned flagship (per-symbol ``#window.length(1000)``,
             ``avg(price)``, ``sum(volume)``; 16,384 key slots, 573 MB of
             window state) routed over 4 logical shards with
             ``shard_exchange: pallas_ring``, fed 65,536-row batches of 10,000
             string symbols through ``send_columns``. Checks: the exchange
-            kernel launched on that run, no route overflow, routed output
+            kernel launched once per routed dispatch, no route overflow,
+            routed output
             equal to an unrouted run on the card, the first two batches equal
             to the port's own CPU run (plain versions), one output row per
             input row, finite values. Prints events/s of both card runs;
@@ -60,6 +68,7 @@ N_SHARDS = 4
 ROWS_PER_SHARD = 20_480         # B / n * 1.25, as the flagship bench routes
 CPU_BATCHES = 2
 TIMED_RUNS = 30
+L2_FLUSH_BYTES = 100 * 2 ** 20  # written before each flushed timing (L2: 50 MB)
 H100_BYTES_PER_S = 3.35e12      # HBM3 rate of one H100 SXM (data sheet)
 FLOAT_RTOL = 1e-12
 
@@ -155,6 +164,7 @@ def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
         seconds.append(time.perf_counter() - t0)
     if routed:
         facts["route_overflow"] = q._route_layout.route_overflow_rows
+        facts["dispatches"] = q._route_layout.dispatches
     facts["key_slots"] = (q.selector_plan.num_keys * (n_shards if routed else 1))
     m.shutdown()
     return cb.batches, seconds, facts
@@ -284,14 +294,35 @@ def profile_routed(device, feed, card: str):
     m.shutdown()
 
 
-def time_ms(fn, runs: int = TIMED_RUNS):
-    """Median of ``runs`` CUDA-event timings of ``fn`` (after a warm-up)."""
+def odd_columns(device):
+    """Send buffers whose segments are odd byte counts, under 16 bytes, or
+    over one chunk with unaligned ends: the kernel's byte path and the
+    heads and tails around its bulk copies."""
+    import torch
+
+    n = N_SHARDS
+    g = torch.Generator(device="cpu").manual_seed(11)
+    bufs = [torch.randint(-128, 127, (n, n * 7), generator=g, dtype=torch.int8),
+            torch.randint(0, 2, (n, n * 3), generator=g).bool(),
+            torch.randint(-99, 99, (n, n * 5, 3), generator=g, dtype=torch.int16),
+            torch.randint(-99, 99, (n, n * 7), generator=g, dtype=torch.int64),
+            torch.randint(-128, 127, (n, n * 20_483), generator=g, dtype=torch.int8),
+            torch.rand((n, n * 5_001), generator=g)]
+    return [b.to(device) for b in bufs]
+
+
+def time_ms(fn, runs: int = TIMED_RUNS, flush=None):
+    """Median of ``runs`` CUDA-event timings of ``fn`` (after a warm-up).
+    With ``flush`` (a large scratch tensor), it is written before each
+    start event so that ``fn`` finds its inputs outside the L2 cache."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(runs):
+    for i in range(runs):
+        if flush is not None:
+            flush.fill_(i & 0xFF)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -302,39 +333,107 @@ def time_ms(fn, runs: int = TIMED_RUNS):
     return statistics.median(times)
 
 
-def check_exchange(device):
-    """Kernel vs plain on every column buffer; timings summed over the
-    column set of one routed batch (the main path's per-batch exchange)."""
+def host_ms(fn, runs: int = TIMED_RUNS):
+    """Mean host time of one call of ``fn``: what it takes to enqueue its
+    work (host clock over ``runs`` calls, the card left to run behind)."""
     import torch
 
-    from siddhi_tpu_torch.ops.exchange import ring_exchange, ring_exchange_plain
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / runs
+
+
+def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS):
+    """Mean device time of the CUDA kernel whose name holds ``kernel``
+    over ``runs`` calls of ``fn``, each after an L2 flush (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(runs):
+            flush.fill_(i & 0xFF)
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
+    count = sum(e.count for e in events)
+    _require(count == runs and us > 0,
+             f"profiler saw {count} launches of {kernel} with {us} us of device "
+             f"time for {runs} calls")
+    return us / 1e3 / count
+
+
+def check_exchange(device):
+    """Kernel vs plain: every column buffer in one call, the odd-byte call
+    and the 65-column call; timings over the column set of one routed batch
+    (the main path's per-dispatch exchange)."""
+    import torch
+
+    from siddhi_tpu_torch.ops.exchange import (
+        ring_exchange, ring_exchange_cols, ring_exchange_cols_plain,
+        ring_exchange_plain)
 
     n = N_SHARDS
     bufs = exchange_columns(device)
+    every = list(bufs.values())
     max_err = 0.0
-    for name, buf in bufs.items():
-        got = ring_exchange(buf, n)
-        torch.cuda.synchronize()
-        want = ring_exchange_plain(buf, n)
-        _require(torch.equal(got, want), f"ring_exchange differs from plain on {name}")
-        if buf.dtype.is_floating_point:
-            max_err = max(max_err, float((got - want).abs().max()))
+    got = ring_exchange_cols(every, n)
+    torch.cuda.synchronize()
+    for name, g, w in zip(bufs, got, ring_exchange_cols_plain(every, n)):
+        _require(torch.equal(g, w), f"ring_exchange_cols differs from plain on {name}")
+        if g.dtype.is_floating_point:
+            max_err = max(max_err, float((g - w).abs().max()))
+    odd = odd_columns(device)
+    got = ring_exchange_cols(odd, n)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, ring_exchange_cols_plain(odd, n))):
+        _require(torch.equal(g, w), f"ring_exchange_cols differs from plain on "
+                 f"odd-byte buffer {i} {tuple(w.shape)} {w.dtype}")
+    many = every * 5                        # 65 columns: two launches
+    before = ring_exchange.launches
+    got = ring_exchange_cols(many, n)
+    torch.cuda.synchronize()
+    _require(ring_exchange.launches - before == 2,
+             f"{len(many)} columns took {ring_exchange.launches - before} "
+             f"launches, not 2")
+    for i, (g, w) in enumerate(zip(got, ring_exchange_cols_plain(many, n))):
+        _require(torch.equal(g, w), f"65-column call differs from plain at {i}")
+
     batch_cols = [b for k, b in bufs.items() if k != "double"]
     nbytes = sum(b.numel() * b.element_size() for b in batch_cols)
-    kernel_ms = time_ms(lambda: [ring_exchange(b, n) for b in batch_cols])
-    plain_ms = time_ms(lambda: [ring_exchange_plain(b, n) for b in batch_cols])
     Q = batch_cols[0].shape[1] // n
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+
+    def kernel():
+        return ring_exchange_cols(batch_cols, n)
+
+    def plain():
+        return [ring_exchange_plain(b, n) for b in batch_cols]
 
     def library():
-        # one PyTorch call of the same function (timed only; the port
-        # never calls it)
+        # one PyTorch call of the same function per column (timed only; the
+        # port never calls it)
         return [b.view(n, n, Q).transpose(0, 1).contiguous() for b in batch_cols]
 
-    library_ms = time_ms(library)
-    bound_ms = 2 * nbytes / H100_BYTES_PER_S * 1e3   # read once + write once
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bytes_each_way": nbytes, "columns": len(batch_cols)}
+    out = {}
+    for name, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        out[name] = time_ms(fn, flush=scratch)
+    for name, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        out[name + "_warm_l2"] = time_ms(fn)
+    out["host_ms"] = host_ms(kernel)
+    out["device_ms"] = device_ms(kernel, "ring_exchange_cols_kernel", scratch)
+    out["bound_ms"] = 2 * nbytes / H100_BYTES_PER_S * 1e3   # read once + write once
+    out["roofline_share"] = out["bound_ms"] / out["device_ms"]
+    out.update(max_abs_err=max_err, bytes_each_way=nbytes,
+               columns=len(batch_cols), buffers=len(every))
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -373,30 +472,40 @@ def main() -> int:
 
     # 3. kernels at the flagship's shapes
     ex = check_exchange(device)
-    print(f"[kernel] ring_exchange exact on {ex['columns'] + 1} buffers; "
-          f"one batch's {ex['columns']} columns: {ex['bytes_each_way']} bytes "
-          f"each way, kernel {ex['ms']:.4f} ms, plain {ex['plain_ms']:.4f} ms, "
-          f"library {ex['library_ms']:.4f} ms, bound {ex['bound_ms']:.4f} ms "
-          f"(bytes) [{card}]", flush=True)
+    print(f"[kernel] ring_exchange_cols exact on {ex['buffers']} buffers in one "
+          f"call, on odd-byte segments, and on 65 columns in 2 launches; one "
+          f"batch's {ex['columns']} columns, {ex['bytes_each_way']} bytes each "
+          f"way, L2 flushed: kernel {ex['ms']:.4f} ms, plain {ex['plain_ms']:.4f} "
+          f"ms, library {ex['library_ms']:.4f} ms; warm L2: kernel "
+          f"{ex['ms_warm_l2']:.4f} ms, plain {ex['plain_ms_warm_l2']:.4f} ms, "
+          f"library {ex['library_ms_warm_l2']:.4f} ms; host enqueue of one "
+          f"call {ex['host_ms']:.4f} ms; kernel on the device "
+          f"{ex['device_ms']:.4f} ms against a {ex['bound_ms']:.4f} ms byte "
+          f"bound (share {ex['roofline_share']:.3f}) [{card}]", flush=True)
 
     # 4. the slice
     feed = make_feed(5, N_BATCHES, BATCH, NUM_SYMBOLS)
 
     def reset_counts():
         ring_exchange.launches = 0
+        ring_exchange.columns = 0
 
     routed, routed_s, facts = run_slice(device, feed, routed=True,
                                         on_route=reset_counts)
-    launches = ring_exchange.launches
+    launches, columns = ring_exchange.launches, ring_exchange.columns
     _require(launches > 0, "routed run launched no ring_exchange kernel")
+    _require(launches == facts["dispatches"] >= N_BATCHES,
+             f"{launches} exchange launches for {facts['dispatches']} routed "
+             f"dispatches of {N_BATCHES} batches: want one per dispatch")
     _require(facts["route_overflow"] == 0,
              f"route overflow {facts['route_overflow']} on the routed run")
     rows_out = sum(len(b["__ts__"]) for b in routed)
     _require(rows_out == N_BATCHES * BATCH,
              f"{rows_out} output rows for {N_BATCHES * BATCH} input rows")
     print(f"[slice] routed x{N_SHARDS}: {facts['state_bytes']} state bytes on "
-          f"the card, {facts['key_slots']} key slots, {launches} exchange "
-          f"launches, {rows_out} rows out, first batch "
+          f"the card, {facts['key_slots']} key slots, {facts['dispatches']} "
+          f"dispatches, {launches} exchange launches of {columns} columns, "
+          f"{rows_out} rows out, first batch "
           f"{routed_s[0] * 1e3:.1f} ms, then {steady_eps(routed_s, BATCH):.1f} "
           f"events/s [{card}]", flush=True)
 
@@ -424,7 +533,13 @@ def main() -> int:
         "launches": launches, "max_abs_err": ex["max_abs_err"],
         "ms": ex["ms"], "kernel_ms": ex["ms"], "plain_ms": ex["plain_ms"],
         "bound_ms": ex["bound_ms"], "bound_by": "bytes",
-        "library_ms": ex["library_ms"],
+        "library_ms": ex["library_ms"], "device_ms": ex["device_ms"],
+        "roofline_share": ex["roofline_share"],
+        "columns_per_launch": columns / launches,
+        "ms_warm_l2": ex["ms_warm_l2"],
+        "plain_ms_warm_l2": ex["plain_ms_warm_l2"],
+        "library_ms_warm_l2": ex["library_ms_warm_l2"],
+        "host_ms": ex["host_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

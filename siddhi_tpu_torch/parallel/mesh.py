@@ -10,9 +10,10 @@ global arrays (``_canonical_to_routed``): shard s owns key rows
 ingress   the unrouted batch is cut into n source slices ``[n, B/n]``;
           ``owner = key % n`` per row, rows bucket per (source, owner)
           with a per-pair quota of ``rows_per_shard // n`` (over-quota rows
-          are counted, not silently dropped), and one ``ring_exchange``
-          per column moves every bucket to its owner. Rows arrive
-          source-major, i.e. in original batch order.
+          are counted, not silently dropped), and one
+          ``ring_exchange_cols`` call (one kernel launch) moves every
+          column's buckets, the row index included, to their owners. Rows
+          arrive source-major, i.e. in original batch order.
 local     partition- and group-key columns become per-shard local ids
           (pk // n; the group key through a host-kept LUT) and each shard
           steps views of its own state slice, in place.
@@ -22,10 +23,11 @@ egress    emitted rows of all shards are concatenated and sorted once by
           ``[overflow, notify, count, route_overflow, rows_0..rows_n-1]``.
 
 Both values of ``siddhi_tpu.shard_exchange`` (``all_to_all``,
-``pallas_ring``) run the ``ring_exchange`` CUDA kernel: on one card the
-exchange has one transport. The knob stays parsed so configs carry over;
-peer copies over NVLink across cards are later work and will keep the
-``ring_exchange(buf, n)`` signature. Unlike the reference, nothing swaps
+``pallas_ring``) take this one path on one card: one ``ring_exchange_cols``
+call per dispatch, which launches the CUDA kernel once for all columns.
+The exchange has one transport there; the knob stays parsed so configs
+carry over. Peer copies over NVLink across cards are later work and will
+keep the one-buffer ``ring_exchange(buf, n)`` signature. Unlike the reference, nothing swaps
 the exchange for another off the accelerator: a CPU runtime uses the
 kernel's plain version because its tensors lie on the CPU.
 """
@@ -38,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from siddhi_tpu_torch.ops.exchange import ring_exchange
+from siddhi_tpu_torch.ops.exchange import ring_exchange_cols
 from siddhi_tpu_torch.ops.expressions import (
     OKEY_KEY, PK_KEY, RIDX_KEY, VALID_KEY, CompileError)
 
@@ -128,6 +130,8 @@ class RouteLayout:
         self._lut_dirty = True
         # drained route-overflow lane: rows beyond quota so far
         self.route_overflow_rows = 0
+        # routed step calls (each makes one exchange call when n > 1)
+        self.dispatches = 0
 
     def _resize_gk(self, cap: int):
         if self.gk_owner.shape[0] >= cap:
@@ -455,6 +459,7 @@ def routed_step_for(runtime):
 
     if n == 1:
         def one_dev(state, cols, now):
+            layout.dispatches += 1
             cols = dict(cols)
             B = cols[VALID_KEY].shape[0]
             cols[RIDX_KEY] = torch.arange(B, dtype=torch.int64, device=dev)
@@ -470,6 +475,7 @@ def routed_step_for(runtime):
         return one_dev
 
     def step3(state, cols, now):
+        layout.dispatches += 1
         lut, inv = layout.device_luts()
         B = cols[VALID_KEY].shape[0]
         Bl = B // n
@@ -492,14 +498,15 @@ def routed_step_for(runtime):
         slot = torch.where(sent_row, src * (n * Q) + owner * Q + pos_row,
                            torch.full_like(pos_row, n * n * Q)).reshape(-1)
 
-        def exch(col):
+        def pack(col):
             tail = tuple(col.shape[1:])
             buf = torch.zeros((n * n * Q + 1,) + tail, dtype=col.dtype, device=dev)
             buf[slot] = col
-            return ring_exchange(buf[: n * n * Q].view((n, n * Q) + tail), n)
+            return buf[: n * n * Q].view((n, n * Q) + tail)
 
-        rcols = {k: exch(v) for k, v in cols.items()}
-        rcols[RIDX_KEY] = exch(ridx)
+        # every column and the row index in ONE exchange call
+        sent = [pack(v) for v in cols.values()] + [pack(ridx)]
+        rcols = dict(zip([*cols, RIDX_KEY], ring_exchange_cols(sent, n)))
         rows_here = rcols[VALID_KEY].sum(dim=1, dtype=torch.int64)   # [n]
         # global -> per-shard local ids (two separate dense spaces)
         if partitioned:

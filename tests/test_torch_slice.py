@@ -6,6 +6,7 @@ tolerance rule of ``torch_helpers``. Also the distinct-group-key app (the
 LUT path) and a skewed feed that splits batches host-side."""
 
 import pytest
+import torch
 from torch_helpers import (
     DISTINCT_GK_APP,
     PARTITIONED_APP,
@@ -86,11 +87,13 @@ def test_skewed_feed_splits_batches_and_agrees():
 
 @pytest.mark.parametrize("exchange", ["all_to_all", "pallas_ring"])
 def test_both_exchange_knob_values_route_through_ring_exchange(exchange):
-    """Both shard_exchange values take the ring_exchange wrapper (on one
-    card the exchange has one transport); on CPU tensors it runs the plain
-    version and counts no kernel launch."""
+    """Both shard_exchange values take the ring_exchange_cols wrapper (on
+    one card the exchange has one transport): one call per routed dispatch,
+    carrying every column of the dispatch plus the row index ``__ridx__``.
+    On CPU tensors it runs the plain version and counts no kernel launch."""
     from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.ops import exchange as ex
+    from siddhi_tpu_torch.ops.expressions import RIDX_KEY
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
     m = SiddhiManager(device="cpu")
@@ -100,22 +103,31 @@ def test_both_exchange_knob_values_route_through_ring_exchange(exchange):
     q = rt.query_runtimes["bench"]
     device_route_query_step(q, make_mesh(4), rows_per_shard=256)
     assert q._route_layout.exchange == exchange
-    calls = []
-    real = ex.ring_exchange
+    dispatched, calls = [], []
+    real_step, real = q._step, ex.ring_exchange_cols
 
-    def spy(buf, n):
-        calls.append(n)
-        return real(buf, n)
+    def step_spy(state, cols, now):
+        dispatched.append(set(cols))
+        return real_step(state, cols, now)
+
+    def spy(bufs, n):
+        calls.append((len(bufs), n, bufs[-1].dtype))
+        return real(bufs, n)
 
     import siddhi_tpu_torch.parallel.mesh as tmesh
 
-    tmesh.ring_exchange = spy
-    before = real.launches
+    q._step = step_spy
+    tmesh.ring_exchange_cols = spy
+    before = ex.ring_exchange.launches
     try:
-        rt.get_input_handler("StockStream").send(0, ["S1", 1.0, 2])
+        h = rt.get_input_handler("StockStream")
+        h.send(0, ["S1", 1.0, 2])
+        h.send(1, ["S2", 3.0, 4])
     finally:
-        tmesh.ring_exchange = real
+        tmesh.ring_exchange_cols = real
     m.shutdown()
-    assert calls and set(calls) == {4}
-    assert real.launches == before          # CPU tensors: plain version
-
+    assert len(dispatched) == 2 and q._route_layout.dispatches == 2
+    assert RIDX_KEY not in set().union(*dispatched)
+    # one call per dispatch: every column of the dispatch, then __ridx__
+    assert calls == [(len(cols) + 1, 4, torch.int64) for cols in dispatched]
+    assert ex.ring_exchange.launches == before      # CPU tensors: plain version
