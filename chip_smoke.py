@@ -10,6 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
 1. card     name and power limit (nvidia-smi), torch/CUDA versions;
 2. build    every CUDA kernel of the port, built from ``siddhi_tpu_torch/csrc``
             with one nvcc per source started together; prints ``-Xptxas -v``;
+            and the native string dictionary (``native/strdict.cpp``, g++);
 3. kernels  each kernel against its plain torch version on the card at the
             shapes the routed flagship gives it (exact equality: the exchange
             is a copy): ``ring_exchange_cols`` in one call over all 13
@@ -31,15 +32,33 @@ Phases (any failure exits non-zero and prints no result line):
             equal to an unrouted run on the card, the first two batches equal
             to the port's own CPU run (plain versions), one output row per
             input row, finite values. Prints events/s of both card runs;
-5. profile  where the routed step's time goes: device time by kernel and
-            the card's busy share (torch.profiler), host time by function
-            (cProfile);
-6. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+5. global   the global flagship, bench.py's ``_APP`` (one
+            ``#window.length(1000)`` over the whole stream, ``avg(price)``,
+            ``sum(volume)`` group by symbol, 16,384 key slots), on the fused
+            sliding-aggregation stage, same feed. Checks: the stage is the
+            fused one in exact precision, one finite output row per input
+            row, the first two batches equal the port's CPU run, all eight
+            equal a card run planned without fusion (the generic window ->
+            aggregator path). Prints events/s of both card runs;
+6. twin     the flagship's twin, ``__graft_entry__._APP`` (``[price > 0.0]
+            #window.length(128)``, avg/sum/count/min group by symbol), on the
+            generic path, on the same feed with prices lowered by 15 (about
+            15% fail the filter). Checks: the generic stage, rows out ==
+            rows with price > 0, the first two batches equal the CPU run;
+7. strdict  the native string dictionary against its plain Python probe over
+            the eight batches' symbol columns (ids equal, the first batch's
+            misses included); host ms per 65,536-row encode of each;
+8. profile  where the routed step's and the global flagship's time goes:
+            device time by torch op and the card's busy share, the sum of
+            its kernels and copies (torch.profiler),
+            host time by function (cProfile);
+9. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -58,6 +77,26 @@ begin
   select symbol, avg(price) as avgPrice, sum(volume) as totalVolume
   insert into OutStream;
 end;
+"""
+# bench.py _APP (a copy): one length window over the whole stream, which
+# the planner fuses into the invertible aggregators
+GLOBAL_APP = """
+define stream StockStream (symbol string, price float, volume long);
+@info(name = 'bench')
+from StockStream#window.length({W})
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume
+group by symbol
+insert into OutStream;
+"""
+# __graft_entry__._APP (a copy): min() keeps it on the generic path
+TWIN_APP = """
+define stream StockStream (symbol string, price float, volume long);
+@info(name = 'flagship')
+from StockStream[price > 0.0]#window.length(128)
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n,
+       min(price) as minPrice
+group by symbol
+insert into OutStream;
 """
 WINDOW = 1000
 NUM_SYMBOLS = 10_000
@@ -116,30 +155,15 @@ def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
               rows_per_shard: int = ROWS_PER_SHARD, on_route=None):
     """Drive the flagship through the public API on ``device``. Returns
     (per-batch output column dicts, per-batch seconds, runtime facts)."""
-    import numpy as np
-    import torch
-
-    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager, StreamCallback
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
-
-    class Cols(StreamCallback):
-        """Keeps each emitted batch as host columns of its valid rows."""
-
-        def __init__(self):
-            self.batches = []
-
-        def receive_batch(self, batch, junction):
-            valid = np.asarray(batch.cols["__valid__"])
-            self.batches.append({k: np.asarray(batch.cols[k])[valid] for k in
-                                 ("__ts__", "__type__", "symbol", "avgPrice",
-                                  "avgPrice?", "totalVolume", "totalVolume?")})
 
     m = SiddhiManager(device=device)
     m.set_config_manager(InMemoryConfigManager(
         {"siddhi_tpu.shard_exchange": "pallas_ring"}))
     rt = m.create_siddhi_app_runtime(APP.format(W=window))
     _require(rt.app_context.precision == "exact", "precision is not exact")
-    cb = Cols()
+    cb = collector()
     rt.add_callback("OutStream", cb)
     q = rt.query_runtimes["bench"]
     q.selector_plan.num_keys = key_slots
@@ -155,19 +179,132 @@ def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
     h = rt.get_input_handler("StockStream")
     if on_route is not None:
         on_route()
-    seconds = []           # per batch: a send returns after its emission
-    for cols, ts in feed:
-        t0 = time.perf_counter()
-        h.send_columns(cols, timestamps=ts)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
+    seconds = send_timed(h, feed, device)
     if routed:
         facts["route_overflow"] = q._route_layout.route_overflow_rows
         facts["dispatches"] = q._route_layout.dispatches
     facts["key_slots"] = (q.selector_plan.num_keys * (n_shards if routed else 1))
     m.shutdown()
     return cb.batches, seconds, facts
+
+
+def collector():
+    """A stream callback that keeps each emitted batch as host columns of
+    its valid rows: timestamps, types and every output attribute."""
+    import numpy as np
+
+    from siddhi_tpu_torch import StreamCallback
+
+    class Cols(StreamCallback):
+        def __init__(self):
+            self.batches = []
+
+        def receive_batch(self, batch, junction):
+            valid = np.asarray(batch.cols["__valid__"])
+            keep = [k for k in batch.cols
+                    if not k.startswith("__") or k in ("__ts__", "__type__")]
+            self.batches.append({k: np.asarray(batch.cols[k])[valid] for k in keep})
+
+    return Cols()
+
+
+def send_timed(h, feed, device):
+    """Send every batch; per batch seconds (a send returns after its
+    batch is emitted; the card is synchronised before the clock stops)."""
+    import torch
+
+    seconds = []
+    for cols, ts in feed:
+        t0 = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+@contextlib.contextmanager
+def fusion(enabled: bool):
+    """Plan apps with the fused window stage on or off: the planner reads
+    ``app_context.enable_fusion`` while the runtime is built, so the flag
+    is set as each app context is made."""
+    from siddhi_tpu_torch.core.context import SiddhiAppContext
+
+    orig = SiddhiAppContext.__init__
+
+    def init(self, *args, **kwargs):
+        orig(self, *args, **kwargs)
+        self.enable_fusion = enabled
+
+    SiddhiAppContext.__init__ = init
+    try:
+        yield
+    finally:
+        SiddhiAppContext.__init__ = orig
+
+
+def global_runtime(device, app: str, query: str, fused: bool = True):
+    """(manager, runtime, query runtime) of an unpartitioned app at the
+    bench's key capacity (bench.py sets 16,384 slots before the feed)."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device=device)
+    with fusion(fused):
+        rt = m.create_siddhi_app_runtime(app)
+    q = rt.query_runtimes[query]
+    q.selector_plan.num_keys = KEY_SLOTS
+    return m, rt, q
+
+
+def run_global(device, app: str, query: str, feed, fused: bool = True):
+    """Drive an unpartitioned app through the public API on ``device``.
+    Returns (per-batch output column dicts, per-batch seconds, facts)."""
+    m, rt, q = global_runtime(device, app, query, fused)
+    cb = collector()
+    rt.add_callback("OutStream", cb)
+    facts = {"stage": type(q.window_stage).__name__,
+             "precision": rt.app_context.precision,
+             "exact": getattr(q.window_stage, "exact", None)}
+    seconds = send_timed(rt.get_input_handler("StockStream"), feed, device)
+    facts["state_bytes"] = sum(t.numel() * t.element_size()
+                               for t in _leaves(q._state))
+    m.shutdown()
+    return cb.batches, seconds, facts
+
+
+def require_finite(batches, what: str):
+    import numpy as np
+
+    for i, b in enumerate(batches):
+        for k, v in b.items():
+            if v.dtype.kind == "f":
+                _require(np.all(np.isfinite(v)), f"{what}: batch {i} column {k} "
+                         f"not finite")
+
+
+def check_strdict(feed):
+    """Native vs plain dictionary ids over the feed's symbol columns, each
+    in its own fresh dictionary; host ms of each encode per batch."""
+    import numpy as np
+
+    from siddhi_tpu_torch.core.event import StringDictionary
+
+    native, plain = StringDictionary(), StringDictionary()
+    native_ms, plain_ms = [], []
+    for i, (cols, _ts) in enumerate(feed):
+        col = cols["symbol"]
+        t0 = time.perf_counter()
+        got = native.encode_array(col)
+        t1 = time.perf_counter()
+        want = plain.probe_array_plain(col)
+        plain.resolve_missing(want, lambda j: col[j])
+        t2 = time.perf_counter()
+        _require(np.array_equal(got, want),
+                 f"strdict: native ids differ from plain ids in batch {i}")
+        native_ms.append((t1 - t0) * 1e3)
+        plain_ms.append((t2 - t1) * 1e3)
+    _require(native._to_str == plain._to_str, "strdict: id spaces differ")
+    return native_ms, plain_ms
 
 
 def _leaves(tree):
@@ -240,17 +377,61 @@ def steady_eps(seconds, batch: int) -> float:
     return batch * (len(seconds) - 1) / sum(seconds[1:])
 
 
-def profile_routed(device, feed, card: str):
-    """Where the routed step's time goes: torch.profiler over two warm
-    batches (device time by kernel, device busy share of the wall time)
-    and cProfile over two more (host time by function)."""
+def profile_sends(label: str, h, feed, card: str):
+    """Where a path's time goes: after one warm batch, torch.profiler over
+    two batches (device time by torch op, device busy share of the wall
+    time) and cProfile over two more (host time by function)."""
     import cProfile
     import io
     import pstats
 
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    h.send_columns(feed[0][0], timestamps=feed[0][1])      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for cols, ts in feed[1:3]:
+            h.send_columns(cols, timestamps=ts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the profiler lists each kernel (and copy) twice: as a device event,
+    # and inside the self device time of the torch op that launched it.
+    # Busy time sums the device events only; the per-op table reads the ops
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type != DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_card)
+    op_us = sum(e.self_device_time_total for e in ops)
+    _require(dev_us > 0, f"profile {label}: the profiler saw no device time")
+    print(f"[profile] {label}, 2 batches: wall {wall * 1e3:.1f} ms, device busy "
+          f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}% of wall; "
+          f"{len(on_card)} kernel and copy names; the same time attributed to "
+          f"torch ops: {op_us / 1e3:.1f} ms) [{card}]")
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)
+    for e in top[:15]:
+        print(f"[profile]   {label} device {e.self_device_time_total / 1e3:8.2f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    pr = cProfile.Profile()
+    pr.enable()
+    t0 = time.perf_counter()
+    for cols, ts in feed[3:5]:
+        h.send_columns(cols, timestamps=ts)
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    pr.disable()
+    print(f"[host] {label}, 2 batches under cProfile: {host * 1e3:.1f} ms")
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(20)
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"[host] {label} {line}")
+
+
+def profile_routed(device, feed, card: str):
+    """profile_sends over the routed partitioned flagship."""
     from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
@@ -263,34 +444,14 @@ def profile_routed(device, feed, card: str):
     q._win_keys = KEY_SLOTS
     device_route_query_step(q, make_mesh(N_SHARDS, device),
                             rows_per_shard=ROWS_PER_SHARD)
-    h = rt.get_input_handler("StockStream")
-    h.send_columns(feed[0][0], timestamps=feed[0][1])      # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for cols, ts in feed[1:3]:
-            h.send_columns(cols, timestamps=ts)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
-    print(f"[profile] routed, 2 batches: wall {wall * 1e3:.1f} ms, device busy "
-          f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}% of wall) [{card}]")
-    top = sorted(events, key=lambda e: -(getattr(e, "self_device_time_total", 0) or 0))
-    for e in top[:15]:
-        print(f"[profile]   device {e.self_device_time_total / 1e3:8.2f} ms "
-              f"{e.count:6d}x  {e.key[:90]}")
-    pr = cProfile.Profile()
-    pr.enable()
-    for cols, ts in feed[3:5]:
-        h.send_columns(cols, timestamps=ts)
-    torch.cuda.synchronize()
-    pr.disable()
-    buf = io.StringIO()
-    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(20)
-    for line in buf.getvalue().splitlines():
-        if line.strip():
-            print(f"[host] {line}")
+    profile_sends("routed", rt.get_input_handler("StockStream"), feed, card)
+    m.shutdown()
+
+
+def profile_global(device, feed, card: str):
+    """profile_sends over the global flagship on the fused stage."""
+    m, rt, _q = global_runtime(device, GLOBAL_APP.format(W=WINDOW), "bench")
+    profile_sends("global", rt.get_input_handler("StockStream"), feed, card)
     m.shutdown()
 
 
@@ -438,6 +599,72 @@ def check_exchange(device):
 
 # ------------------------------------------------------------------ main
 
+def phase_global(device, feed, card: str):
+    """The global flagship on the fused stage: the card against the CPU
+    and against the generic path on the card."""
+    import torch
+
+    app = GLOBAL_APP.format(W=WINDOW)
+    fused, fused_s, facts = run_global(device, app, "bench", feed)
+    _require(facts["stage"] == "FusedSlidingAggStage",
+             f"global flagship planned on {facts['stage']}, not the fused stage")
+    _require(facts["precision"] == "exact" and facts["exact"] is True,
+             f"global flagship precision {facts['precision']}, not exact")
+    rows_out = sum(len(b["__ts__"]) for b in fused)
+    _require(rows_out == len(feed) * BATCH,
+             f"global: {rows_out} output rows for {len(feed) * BATCH} input rows")
+    require_finite(fused, "global fused (card)")
+    print(f"[global] fused stage, exact: {facts['state_bytes']} state bytes on "
+          f"the card, {KEY_SLOTS} key slots, {rows_out} rows out, first batch "
+          f"{fused_s[0] * 1e3:.1f} ms, then {steady_eps(fused_s, BATCH):.1f} "
+          f"events/s [{card}]", flush=True)
+
+    generic, generic_s, gfacts = run_global(device, app, "bench", feed, fused=False)
+    _require(gfacts["stage"] == "LengthWindowStage",
+             f"unfused global flagship planned on {gfacts['stage']}")
+    worst = compare_outputs(fused, generic, "global fused vs generic (card)")
+    print(f"[global] generic path (fusion off): {gfacts['state_bytes']} state "
+          f"bytes, first batch {generic_s[0] * 1e3:.1f} ms, then "
+          f"{steady_eps(generic_s, BATCH):.1f} events/s [{card}]; fused == "
+          f"generic over {len(feed)} batches (max float rel err {worst:.3g})",
+          flush=True)
+
+    cpu_out, _s, _f = run_global(torch.device("cpu"), app, "bench",
+                                 feed[:CPU_BATCHES])
+    worst_cpu = compare_outputs(fused[:CPU_BATCHES], cpu_out,
+                                "global card vs cpu (first batches)")
+    print(f"[global] first {CPU_BATCHES} batches equal the port's CPU run "
+          f"(max float rel err {worst_cpu:.3g})", flush=True)
+
+
+def phase_twin(device, feed, card: str):
+    """The twin on the generic window -> aggregator path. Its feed is the
+    bench feed with every price lowered by 15, so about 15% of the rows
+    fail the twin's ``price > 0.0`` filter."""
+    import numpy as np
+    import torch
+
+    feed = [({**cols, "price": cols["price"] - np.float32(15.0)}, ts)
+            for cols, ts in feed]
+    twin, twin_s, facts = run_global(device, TWIN_APP, "flagship", feed)
+    _require(facts["stage"] == "LengthWindowStage",
+             f"twin planned on {facts['stage']}, not the generic window")
+    rows_out = sum(len(b["__ts__"]) for b in twin)
+    positive = sum(int(np.count_nonzero(cols["price"] > 0)) for cols, _ts in feed)
+    _require(rows_out == positive,
+             f"twin: {rows_out} output rows for {positive} rows with price > 0")
+    require_finite(twin, "twin (card)")
+    cpu_out, _s, _f = run_global(torch.device("cpu"), TWIN_APP, "flagship",
+                                 feed[:CPU_BATCHES])
+    worst_cpu = compare_outputs(twin[:CPU_BATCHES], cpu_out,
+                                "twin card vs cpu (first batches)")
+    print(f"[twin] generic path: {facts['state_bytes']} state bytes, "
+          f"{rows_out} rows out of {len(feed) * BATCH}, first batch "
+          f"{twin_s[0] * 1e3:.1f} ms, then {steady_eps(twin_s, BATCH):.1f} "
+          f"events/s [{card}]; first {CPU_BATCHES} batches equal the CPU run "
+          f"(max float rel err {worst_cpu:.3g})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -451,6 +678,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
+    import sysconfig
+
+    from siddhi_tpu_torch import native
     from siddhi_tpu_torch.ops import _cuda
     from siddhi_tpu_torch.ops.exchange import ring_exchange
 
@@ -469,6 +699,11 @@ def main() -> int:
         print(f"[build] {name}: {so.name}")
         for line in log.strip().splitlines():
             print(f"[ptxas] {line}")
+    t0 = time.perf_counter()
+    so = native.build_strdict()
+    print(f"[build] native string dictionary {so.name} in "
+          f"{time.perf_counter() - t0:.1f} s (g++, CPython headers at "
+          f"{sysconfig.get_paths()['include']})", flush=True)
 
     # 3. kernels at the flagship's shapes
     ex = check_exchange(device)
@@ -522,10 +757,26 @@ def main() -> int:
     print(f"[slice] first {CPU_BATCHES} batches equal the port's CPU run "
           f"(max float rel err {worst_cpu:.3g})", flush=True)
 
-    # 5. where the time goes
-    profile_routed(device, feed, card)
+    # 5. the global flagship, fused
+    phase_global(device, feed, card)
 
-    # 6. result lines
+    # 6. the twin, generic
+    phase_twin(device, feed, card)
+
+    # 7. the native string dictionary
+    native_ms, plain_ms = check_strdict(feed)
+    print(f"[strdict] native ids == plain ids over {len(feed)} batches of "
+          f"{BATCH} symbols; host ms per encode, first batch ({NUM_SYMBOLS} "
+          f"new strings): native {native_ms[0]:.2f}, plain {plain_ms[0]:.2f}; "
+          f"later batches, mean: native "
+          f"{statistics.mean(native_ms[1:]):.2f}, plain "
+          f"{statistics.mean(plain_ms[1:]):.2f} [{card}]", flush=True)
+
+    # 8. where the time goes
+    profile_routed(device, feed, card)
+    profile_global(device, feed, card)
+
+    # 9. result lines
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",

@@ -51,13 +51,16 @@ class SiddhiAppContext:
         self.stopped = False
         # key-capacity default for dense state (padded, grows pow2)
         self.initial_key_capacity = 16
-        # numeric precision: 'exact' = 64-bit accumulators (the reference's
-        # double math). The reference defaults to 'fast' (32-bit) on a TPU
-        # because the TPU emulates 64-bit floats in software; the H100 runs
-        # FP64 natively, so the port defaults to 'exact' on every device.
-        # @app:precision('fast') is accepted; no ported stage reads it
-        # (in the reference only the fused global-window stage does).
+        # numeric precision of the fused sliding aggregation
+        # (ops/fused_agg.py, its one reader): 'exact' = 64-bit accumulators
+        # (the reference's double math), 'fast' = float32. The reference
+        # defaults to 'fast' on a TPU, which emulates 64-bit floats in
+        # software; the H100 runs FP64 natively, so the port defaults to
+        # 'exact' on every device. Overridable with @app:precision.
         self.precision = "exact"
+        # the planner may fuse a global length window into its invertible
+        # aggregators (reference core/context.py enable_fusion)
+        self.enable_fusion = True
         # dispatch pipeline depth: parsed so configs carry over; the port
         # dispatches synchronously (depth 1)
         self.pipeline_depth = 1

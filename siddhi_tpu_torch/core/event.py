@@ -5,14 +5,17 @@ numpy array per attribute plus timestamp, event-type and validity columns
 on the host, moved to the device as torch tensors for the query step. The
 CURRENT/EXPIRED/TIMER/RESET event types are an int8 column.
 
-The string dictionary is the reference's pure-Python path (the native
-``strdict.cpp`` mirror is not ported). Set-valued (OBJECT) attributes are
-not ported yet.
+The string dictionary encodes bulk columns through the native mirror
+(``native/strdict.cpp``), as the reference does; its pure-Python probe is
+kept as the plain version the tests hold the native one against.
+Set-valued (OBJECT) attributes are not ported yet.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -42,10 +45,18 @@ class Event:
         return f"Event{{timestamp={self.timestamp}, data={list(self.data)}, isExpired={self.is_expired}}}"
 
 
+_NATIVE_INIT_LOCK = threading.Lock()
+
+
 class StringDictionary:
     """App-global string <-> int32 id dictionary. Strings never reach the
     device: keys and symbols travel as dense ids. Ids are assigned in
-    first-seen order and never change."""
+    first-seen order and never change.
+
+    Bulk encodes probe a native mirror of the id map (``native/strdict.cpp``)
+    once per string. Python stays authoritative for the id space: the
+    mirror only ever holds (string, id) pairs that already exist in
+    ``_to_id``, and new strings are resolved serially in row order."""
 
     NULL_ID = -1
     _MISS = -2
@@ -56,6 +67,10 @@ class StringDictionary:
         # id assignment is check-then-append: concurrent producers must
         # not give one new string two ids
         self._insert_lock = threading.Lock()
+        # the native mirror, created on the first bulk encode
+        self._native = None
+        self._native_lib = None
+        self._rank_cache = None
 
     def encode(self, s: Optional[str]) -> int:
         if s is None:
@@ -67,31 +82,116 @@ class StringDictionary:
                 if i is None:
                     i = len(self._to_str)
                     self._to_str.append(s)
+                    if self._native is not None:
+                        self._mirror_insert(s, i)
+                    # publish the id last: a lock-free reader that sees the
+                    # dict entry must find _to_str[i] present
                     self._to_id[s] = i
         return i
 
+    def _mirror_insert(self, s: str, i: int):
+        try:
+            b = s.encode("utf-8")
+        except UnicodeEncodeError:
+            # lone surrogates cannot round-trip utf-8; the native probe
+            # reports them as misses and Python resolves them
+            return
+        self._native_lib.strdict_insert(self._native, b, len(b), i)
+
     def restore_strings(self, strings: List[str]):
-        """Replace the id space wholesale (state carried from elsewhere)."""
+        """Replace the id space wholesale (state carried from elsewhere);
+        the native mirror is rebuilt, or it would serve ids of the
+        discarded space."""
         with self._insert_lock:
             self._to_str = list(strings)
             self._to_id = {s: i for i, s in enumerate(self._to_str)}
+            if self._native is not None:
+                self._native_lib.strdict_clear(self._native)
+                for i, s in enumerate(self._to_str):
+                    self._mirror_insert(s, i)
 
     def decode(self, i: int) -> Optional[str]:
         if i < 0:
             return None
         return self._to_str[i]
 
-    def encode_array(self, values: np.ndarray) -> np.ndarray:
-        """Bulk encoding: one dict probe per value; misses (new strings,
-        Nones, non-str values) are resolved serially in row order, so id
-        assignment matches per-value ``encode`` calls."""
+    def rank_table(self, min_capacity: int = 16) -> np.ndarray:
+        """Lexicographic rank per id, padded to a pow2 capacity with at
+        least one pad slot (a negative id wraps to the end, which ranks
+        after every string, so nulls sort last). Ids follow arrival order,
+        so ``order by`` on a string column sorts by this rank, not the id.
+        Cached per dictionary size."""
+        n = len(self._to_str)
+        cap = max(min_capacity, 16)
+        while cap < n + 1:
+            cap *= 2
+        cached = self._rank_cache
+        if cached is not None and cached[0] == n and len(cached[1]) == cap:
+            return cached[1]
+        table = np.full(cap, n, np.int32)
+        if n:
+            order = sorted(range(n), key=lambda i: self._to_str[i])
+            table[np.asarray(order, np.int64)] = np.arange(n, dtype=np.int32)
+        self._rank_cache = (n, table)
+        return table
+
+    def _ensure_native(self):
+        """Build the native mirror once (concurrent first probes build it
+        exactly once); a failed library build raises."""
+        if self._native is not None:
+            return
+        with _NATIVE_INIT_LOCK:
+            if self._native is not None:
+                return
+            from siddhi_tpu_torch.native import strdict_lib
+
+            lib = strdict_lib()
+            handle = ctypes.c_void_p(lib.strdict_new())
+            weakref.finalize(self, lib.strdict_free, handle)
+            with self._insert_lock:
+                # a probe racing the backfill sees a miss at worst, which
+                # resolve_missing maps to the right id: never a wrong one
+                self._native_lib = lib
+                self._native = handle
+                for s, i in self._to_id.items():
+                    self._mirror_insert(s, i)
+
+    def probe_array(self, values: np.ndarray) -> np.ndarray:
+        """Read-only bulk probe through the native mirror: ids for known
+        strings, ``NULL_ID`` for None, ``_MISS`` for everything else (new
+        strings, non-str values). Nothing is inserted."""
+        arr = np.ascontiguousarray(np.asarray(values, object))
+        out = np.empty(len(arr), np.int64)
+        self._ensure_native()
+        self._native_lib.strdict_encode(
+            self._native, arr.ctypes.data_as(ctypes.c_void_p), len(arr),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            self.NULL_ID, self._MISS)
+        return out
+
+    def probe_array_plain(self, values: np.ndarray) -> np.ndarray:
+        """``probe_array`` as a Python dict probe per value: the plain
+        version the native probe is held against (None also misses here;
+        ``resolve_missing`` maps it to ``NULL_ID``)."""
         arr = np.asarray(values, object)
         get = self._to_id.get
-        out = np.fromiter((get(v, self._MISS) for v in arr), np.int64, len(arr))
-        for i in np.nonzero(out == self._MISS)[0]:
-            v = arr[i]
-            out[i] = (self.NULL_ID if v is None
+        return np.fromiter((get(v, self._MISS) for v in arr), np.int64, len(arr))
+
+    def resolve_missing(self, ids: np.ndarray, value_of) -> None:
+        """Second phase of a bulk encode: replace every ``_MISS`` in
+        ``ids``, in index order, by encoding ``value_of(i)``, so id
+        assignment matches per-value ``encode`` calls."""
+        for i in np.nonzero(ids == self._MISS)[0]:
+            v = value_of(int(i))
+            ids[i] = (self.NULL_ID if v is None
                       else self.encode(v if type(v) is str else str(v)))
+
+    def encode_array(self, values: np.ndarray) -> np.ndarray:
+        """Bulk encoding: one native probe pass, then the misses (new
+        strings, Nones, non-str values) resolved serially in row order."""
+        arr = np.ascontiguousarray(np.asarray(values, object))
+        out = self.probe_array(arr)
+        self.resolve_missing(out, lambda i: arr[i])
         return out
 
     def __len__(self):

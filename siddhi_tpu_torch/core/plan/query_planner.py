@@ -1,10 +1,13 @@
 """Query planner: query-api Query -> QueryRuntime.
 
 Counterpart of ``plan_query`` in ``siddhi_tpu/core/plan/query_planner.py``
-for the shapes this slice runs: a single input stream with filters and at
-most one window (the keyed length window inside a partition), a selector
-with ``sum``/``count``/``avg`` and ``group by``. Joins, patterns, stream
-functions, casts, ``in <table>`` probes and windows outside a partition are
+for the shapes the port runs: a single input stream with filters and at
+most one length window (keyed inside a partition, per query outside), a
+selector with every aggregator but distinctCount/unionSet, ``group by``,
+``having``, ``order by`` and ``limit``/``offset``. An unpartitioned
+length window whose aggregators are all invertible takes the fused stage
+(``ops/fused_agg.py``), as the reference decides it. Joins, patterns,
+stream functions, casts, ``in <table>`` probes and the other windows are
 not ported yet and raise ``CompileError`` naming the construct.
 """
 
@@ -16,6 +19,9 @@ from siddhi_tpu_torch.core.plan.resolvers import SingleStreamResolver
 from siddhi_tpu_torch.core.plan.selector_plan import plan_selector
 from siddhi_tpu_torch.core.query.runtime import GroupKeyer, QueryRuntime
 from siddhi_tpu_torch.ops.expressions import CompileError, compile_condition, compile_expr
+from siddhi_tpu_torch.ops.fused_agg import plan_fused_window
+from siddhi_tpu_torch.ops.keyed_windows import create_keyed_window_stage
+from siddhi_tpu_torch.ops.windows import LengthWindowStage, create_window_stage
 from siddhi_tpu_torch.query_api.definitions import StreamDefinition
 from siddhi_tpu_torch.query_api.execution import (
     Filter,
@@ -64,13 +70,11 @@ def plan_query(query: Query, query_name: str, app_context,
             if window_stage is not None:
                 raise CompileError("only one #window per stream is allowed")
             if partition_ctx is None:
-                raise CompileError(
-                    f"query '{query_name}': windows outside a partition are "
-                    f"not ported to siddhi_tpu_torch yet")
-            from siddhi_tpu_torch.ops.keyed_windows import create_keyed_window_stage
-
-            window_stage = create_keyed_window_stage(handler, input_def, resolver,
-                                                     app_context)
+                window_stage = create_window_stage(handler, input_def, resolver,
+                                                   app_context)
+            else:
+                window_stage = create_keyed_window_stage(handler, input_def,
+                                                         resolver, app_context)
         else:
             raise CompileError(
                 f"query '{query_name}': stream function "
@@ -91,6 +95,17 @@ def plan_query(query: Query, query_name: str, app_context,
     if selector_plan.group_by:
         keyer = GroupKeyer([compile_expr(var, resolver)
                             for var in query.selector.group_by_list])
+
+    # fuse window eviction into invertible aggregator deltas when the query
+    # shape qualifies (reference query_planner.py:1028-1045)
+    if (isinstance(window_stage, LengthWindowStage)
+            and not post_filters  # the fused stage never materializes emitted rows
+            and partition_ctx is None
+            and app_context.enable_fusion):
+        fused = plan_fused_window("length", [window_stage.length],
+                                  selector_plan, app_context)
+        if fused is not None:
+            window_stage = fused
 
     return QueryRuntime(
         name=query_name,

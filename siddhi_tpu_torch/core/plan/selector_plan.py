@@ -1,18 +1,21 @@
-"""Selector planning: select / group by / having -> device stage.
+"""Selector planning: select / group by / having / order by / limit ->
+device stage.
 
 Counterpart of ``siddhi_tpu/core/plan/selector_plan.py``. Aggregator call
 sites in the selection are split out and computed by segmented scans
-(``ops/aggregators.py``); the remaining scalar expressions become
-projections over the batch columns.
+(``ops/aggregators.py``), or upstream by the fused window stage
+(``ops/fused_agg.py``, precomputed mode); the remaining scalar
+expressions become projections over the batch columns.
 
 Semantics reproduced (reference ``QuerySelector.processGroupBy``):
 - every CURRENT/EXPIRED row updates aggregators and yields an output row;
 - RESET rows reset all group states and yield nothing;
 - TIMER rows are dropped;
-- currentOn/expiredOn filtering, then ``having``.
+- currentOn/expiredOn filtering, then ``having``;
+- ``order by`` / ``offset`` / ``limit`` apply per output chunk (batch),
+  limit after the sort.
 
-``order by``, ``limit``/``offset`` and batch-window chunk collapsing are
-not ported yet and raise ``CompileError``.
+Batch-window chunk collapsing is not ported yet (no batch window is).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from siddhi_tpu_torch.query_api.expressions import (
 
 CURRENT, EXPIRED, TIMER, RESET = 0, 1, 2, 3
 GK_KEY = "__gk__"
+STR_RANK = "__strrank__"   # [dict capacity] lexicographic rank per string id
 
 
 def _rewrite_aggregators(expr: Expression, specs: List[agg_ops.AggSpec],
@@ -66,10 +70,15 @@ def _rewrite_aggregators(expr: Expression, specs: List[agg_ops.AggSpec],
             arg_f, arg_t = compile_expr(expr.parameters[0], resolver)
         else:
             arg_f, arg_t = None, None
-        if kind in ("sum", "avg") and arg_t not in (
+        if kind in ("sum", "avg", "stddev", "min", "max",
+                    "minforever", "maxforever") and arg_t not in (
                 AttrType.INT, AttrType.LONG, AttrType.FLOAT, AttrType.DOUBLE):
             raise CompileError(
                 f"{kind}() expects a numeric attribute but found "
+                f"{arg_t.value if arg_t else None}")
+        if kind in ("and", "or") and arg_t != AttrType.BOOL:
+            raise CompileError(
+                f"{kind}() expects a bool attribute but found "
                 f"{arg_t.value if arg_t else None}")
         out_key = f"__agg{len(specs)}__"
         specs.append(agg_ops.AggSpec(
@@ -104,13 +113,28 @@ class SelectorPlan:
     group_by: bool
     current_on: bool
     expired_on: bool
+    order_by: List[Tuple[str, bool, bool]]  # (out col, descending, is_str)
+    limit: Optional[int]
+    offset: Optional[int]
     num_keys: int = 16
+    # a fused upstream stage (ops/fused_agg.py) already computed the
+    # aggregate columns: no state, no scans, just project and filter
+    precomputed: bool = False
+
+    @property
+    def needs_str_rank(self) -> bool:
+        """True when an order-by key is a string column: the runtime then
+        injects the dictionary's lexicographic rank table as
+        cols[STR_RANK]."""
+        return any(is_str for _c, _d, is_str in self.order_by)
 
     def init_state(self, device) -> dict:
+        if self.precomputed:
+            return {}
         return agg_ops.init_agg_state(self.specs, self.num_keys, device)
 
     def apply(self, state: dict, cols: dict, ctx: dict):
-        if self.specs:
+        if self.specs and not self.precomputed:
             state, cols = agg_ops.apply_aggregators(
                 self.specs, state, cols, ctx, self.num_keys)
 
@@ -148,16 +172,54 @@ class SelectorPlan:
         if self.having_fn is not None:
             valid = valid & self.having_fn(out, ctx)
         out[VALID_KEY] = valid
+
+        if self.order_by:
+            # the last key of _lexsort is the primary one
+            keys = []
+            for col, desc, is_str in reversed(self.order_by):
+                # order by may name an input column the selection does
+                # not project: input rows are index-aligned with outputs
+                k = out[col] if col in out else cols[col]
+                if is_str:
+                    # dictionary ids -> lexicographic ranks (ids count from
+                    # arrival; a negative id wraps to the table's end,
+                    # which ranks after every string)
+                    rank = cols[STR_RANK]
+                    k = k.to(torch.int64)
+                    k = rank[torch.where(k < 0, k + rank.shape[0], k)]
+                if k.dtype == torch.bool:
+                    k = k.to(torch.int32)
+                keys.append(-k if desc else k)
+            keys.append((~valid).to(torch.int32))    # valid rows first
+            order = _lexsort(keys)
+            out = {k: v[order] for k, v in out.items()}
+            valid = out[VALID_KEY]
+
+        # sort, then offset/limit (QuerySelector.java:192-198)
+        if self.limit is not None or self.offset is not None:
+            rank = torch.cumsum(valid.to(torch.int32), dim=0) - 1
+            lo = self.offset or 0
+            keep = rank >= lo
+            if self.limit is not None:
+                keep = keep & (rank < lo + self.limit)
+            out[VALID_KEY] = valid & keep
         return state, out
+
+
+def _lexsort(keys):
+    """Stable lexicographic order of equal-length [B] keys, the last key
+    primary (``jnp.lexsort``)."""
+    # least significant key first; each later stable sort keeps the order
+    # of the keys before it among its ties
+    order = torch.argsort(keys[0], stable=True)
+    for k in keys[1:]:
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
 
 
 def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
                   resolver: Resolver, output_event_type: str,
                   dictionary) -> SelectorPlan:
-    if selector.order_by_list or selector.limit is not None \
-            or selector.offset is not None:
-        raise CompileError(
-            "order by / limit / offset are not ported to siddhi_tpu_torch yet")
     specs: List[agg_ops.AggSpec] = []
     selections: List[Tuple[str, Expression]] = []
     if selector.select_all or not selector.selection_list:
@@ -179,11 +241,19 @@ def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
         output_attrs.append((name, t))
 
     having_fn = None
+    out_resolver = OutputColsResolver(output_attrs, dictionary, fallback=resolver)
     if selector.having is not None:
-        out_resolver = OutputColsResolver(output_attrs, dictionary, fallback=resolver)
         having = _rewrite_aggregators(selector.having, specs, resolver)
         _augment_synthetic(resolver, specs)
         having_fn = compile_condition(having, out_resolver)
+
+    order_by = []
+    for ob in selector.order_by_list:
+        ref = out_resolver.resolve(ob.variable)
+        # string keys are dictionary ids (arrival order): they sort by the
+        # lexicographic rank table the runtime injects per batch
+        order_by.append((ref.key, ob.order == "desc",
+                         ref.type == AttrType.STRING))
 
     return SelectorPlan(
         specs=specs,
@@ -193,6 +263,9 @@ def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
         group_by=bool(selector.group_by_list),
         current_on=output_event_type in ("current", "all"),
         expired_on=output_event_type in ("expired", "all"),
+        order_by=order_by,
+        limit=selector.limit,
+        offset=selector.offset,
     )
 
 

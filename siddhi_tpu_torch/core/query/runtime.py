@@ -23,10 +23,11 @@ import torch
 from siddhi_tpu_torch.core.event import (
     CURRENT, EXPIRED, Event, HostBatch, LazyColumns, StringDictionary,
     encode_key_tuples)
-from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY, SelectorPlan
+from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY, STR_RANK, SelectorPlan
 from siddhi_tpu_torch.core.stream.junction import FatalQueryError, Receiver
 from siddhi_tpu_torch.ops.expressions import (
     NUMPY_XP, PK_KEY, TYPE_KEY, VALID_KEY, TorchXP)
+from siddhi_tpu_torch.ops.windows import conform_cols
 from siddhi_tpu_torch.query_api.definitions import AttrType, StreamDefinition
 
 
@@ -193,17 +194,20 @@ class QueryRuntime(Receiver):
         def step(state, cols, current_time):
             ctx = {"xp": xp, "current_time": current_time}
             cols = dict(cols)
+            strrank = cols.pop(STR_RANK, None)   # window stages rebuild cols
             valid = cols[VALID_KEY]
             timer = cols[TYPE_KEY] == 2
             for f in filters:
                 valid = valid & (f(cols, ctx) | timer)
             cols[VALID_KEY] = valid
             if win is not None:
-                _st, cols = win.apply(state["win"], win.conform(cols), ctx)
+                _st, cols = win.apply(state["win"], conform_cols(win, cols), ctx)
                 cols = dict(cols)
                 ptimer = cols[TYPE_KEY] == 2
                 for f in post_filters:
                     cols[VALID_KEY] = cols[VALID_KEY] & (f(cols, ctx) | ptimer)
+            if strrank is not None:
+                cols[STR_RANK] = strrank
             _st, out = sel.apply(state["sel"], cols, ctx)
             return state, pack_meta(out)
 
@@ -270,6 +274,10 @@ class QueryRuntime(Receiver):
         ported stages never overflow nor ask for a timer, so only the
         routed overflow lane is checked."""
         now = self._now()
+        if self.selector_plan.needs_str_rank:
+            # string order-by keys sort by lexicographic rank, not by id
+            cols = dict(cols)
+            cols[STR_RANK] = self.dictionary.rank_table()
         self._state, out = step(self._state, self._to_device(cols), now)
         out_host = LazyColumns(out)
         meta = out_host.pop("__meta__")     # the one sync of the batch

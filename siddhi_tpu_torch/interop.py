@@ -27,7 +27,9 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
     order. ``partition_keys``: the partition key space as
     ``PartitionKeySpace.snapshot()`` gives it (``{"map", "free", "n"}``).
     ``group_keys``: the group keyer's ``{"map": {key tuple: id}, "next": n}``
-    when the query has a ``group by``.
+    when the query has a ``group by``. An unpartitioned query's window
+    state (the unkeyed length window's ``buf``/``total``, or the fused
+    stage's ring, with an empty ``sel``) is installed as it is.
 
     An unrouted runtime takes the capacities of the tree; a routed one
     (``device_route_query_step`` already installed) lays the canonical
@@ -44,8 +46,11 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
         runtime.keyer._next = int(group_keys["next"])
         runtime.keyer._lut = np.full(64, -1, np.int32)   # re-probe raw ids
     sel_keys = _sel_capacity(runtime, state_tree)
-    win_keys = (int(np.asarray(state_tree["win"]["total"]).shape[0])
-                if "win" in state_tree else 1)
+    # only a keyed window's state has a per-key axis ([K] totals); the
+    # unkeyed length window's total is 0-d and the fused stage has none
+    win_keys = 1
+    if runtime.partition_ctx is not None and "win" in state_tree:
+        win_keys = int(np.asarray(state_tree["win"]["total"]).shape[0])
     layout = runtime._route_layout
     if layout is not None:
         from siddhi_tpu_torch.parallel.mesh import _install_routed

@@ -1,9 +1,8 @@
 """Attribute aggregators as segmented prefix scans over dense keyed state.
 
-Counterpart of ``siddhi_tpu/ops/aggregators.py`` for ``sum``, ``count``
-and ``avg``, the invertible aggregators this slice runs; the others
-(min/max, stdDev, distinctCount, ...) raise ``CompileError`` until a later
-slice ports them.
+Counterpart of ``siddhi_tpu/ops/aggregators.py`` for every aggregator
+but distinctCount and unionSet (a sequential per-row scan in the
+reference), which raise ``CompileError`` until a later slice ports them.
 
 Per aggregator the state is one ``[slots, K]`` tensor. One batch:
 CURRENT rows add, EXPIRED rows subtract, RESET rows reset every group
@@ -12,11 +11,16 @@ value after it. Rows are sorted by (group, position); persistent state
 folds into each group's first row of epoch 0; segment starts and in-batch
 RESET epochs block the scan; the last row per group writes back.
 
+Invertible aggregators (sum/count/avg/stdDev/and/or) encode EXPIRED as
+negative deltas. min/max fold CURRENT rows only: like the reference they
+never drop an evicted value (ROADMAP queue C, R2); minForever/maxForever
+fold EXPIRED rows in as well, as the reference's forever executors do.
+
 The reference runs the segmented combine with ``lax.associative_scan``.
 Torch has no associative scan, so ``_segmented_scan`` is a log-step
 (Hillis-Steele) scan: ceil(log2 B) passes of elementwise torch ops. It
 adds in another order than the reference, so float sums agree to
-rounding, not bit for bit.
+rounding, not bit for bit; min/max are exact.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from siddhi_tpu_torch.ops import types as T
@@ -33,15 +38,34 @@ from siddhi_tpu_torch.query_api.definitions import AttrType
 
 CURRENT, EXPIRED, TIMER, RESET = 0, 1, 2, 3
 
-# every ported aggregator combines by addition; its fold identity is 0
-_SLOTS = {"sum": 2, "count": 1, "avg": 2}
+
+@dataclass
+class _AggDef:
+    slots: int
+    combine: str  # 'add' | 'min' | 'max'
+
+
+_AGG_DEFS = {
+    "sum": _AggDef(2, "add"),        # (sum, non-null count): empty -> null
+    "count": _AggDef(1, "add"),
+    "avg": _AggDef(2, "add"),        # (sum, count)
+    "stddev": _AggDef(3, "add"),     # (sum, sumsq, count)
+    "and": _AggDef(1, "add"),        # false-count
+    "or": _AggDef(1, "add"),         # true-count
+    # (extreme, non-null count): the presence slot tells "nothing folded"
+    # (null) from a datum equal to the fold identity
+    "min": _AggDef(2, "min"),
+    "max": _AggDef(2, "max"),
+    "minforever": _AggDef(2, "min"),
+    "maxforever": _AggDef(2, "max"),
+}
 
 
 @dataclass
 class AggSpec:
     """One aggregator call site in the selection list."""
 
-    kind: str                      # 'sum' | 'count' | 'avg'
+    kind: str                      # a key of _AGG_DEFS
     arg_fn: Optional[Callable]     # compiled arg fn(cols, ctx) -> (v, mask); None for count()
     arg_type: Optional[AttrType]
     out_key: str                   # synthetic output column name (__agg<i>__)
@@ -49,47 +73,103 @@ class AggSpec:
 
     @property
     def slots(self) -> int:
-        return _SLOTS[self.kind]
+        return _AGG_DEFS[self.kind].slots
 
 
 def agg_result_type(kind: str, arg_type: Optional[AttrType]) -> AttrType:
     """sum: LONG for int/long input, DOUBLE otherwise; count: LONG;
-    avg: DOUBLE (reference aggregator executors)."""
+    avg/stdDev: DOUBLE; and/or: BOOL; min/max keep the input type
+    (reference aggregator executors)."""
+    check_ported(kind)
     if kind == "count":
         return AttrType.LONG
-    if kind == "avg":
+    if kind in ("avg", "stddev"):
         return AttrType.DOUBLE
     if kind == "sum":
         if arg_type in (AttrType.INT, AttrType.LONG):
             return AttrType.LONG
         return AttrType.DOUBLE
-    raise CompileError(f"aggregator '{kind}' is not ported to siddhi_tpu_torch yet")
+    if kind in ("and", "or"):
+        return AttrType.BOOL
+    return arg_type
 
 
-def _slot_dtype(spec: AggSpec) -> torch.dtype:
-    """Accumulation dtype: Java accumulates in long/double."""
-    if spec.kind == "count":
-        return torch.int64
-    if spec.kind == "sum" and spec.arg_type in (AttrType.INT, AttrType.LONG):
-        return torch.int64
-    return torch.float64
+def _identity(kind: str, dtype) -> np.ndarray:
+    d = _AGG_DEFS[kind]
+    if d.combine == "add":
+        return np.zeros((), dtype)
+    floating = np.issubdtype(dtype, np.floating)
+    if d.combine == "min":
+        return np.asarray(np.inf if floating else np.iinfo(dtype).max, dtype)
+    return np.asarray(-np.inf if floating else np.iinfo(dtype).min, dtype)
+
+
+def _slot_dtype(spec: AggSpec):
+    """Accumulation dtype (numpy): Java accumulates sums in long/double;
+    the min/max family keeps the argument's own type."""
+    if _AGG_DEFS[spec.kind].combine == "add":
+        if spec.kind in ("count", "and", "or"):
+            return np.dtype(np.int64)
+        if spec.kind == "sum" and spec.arg_type in (AttrType.INT, AttrType.LONG):
+            return np.dtype(np.int64)
+        return np.dtype(np.float64)
+    return np.dtype(T.dtype_of(spec.arg_type))
+
+
+def _slot_identities(kind: str, dtype) -> np.ndarray:
+    """[slots] per-slot fold identities (extreme slots pair with an
+    add-combined presence counter at identity 0)."""
+    d = _AGG_DEFS[kind]
+    prim = _identity(kind, dtype)
+    if d.combine in ("min", "max"):
+        return np.stack([prim, np.zeros((), dtype)])
+    return np.broadcast_to(prim, (d.slots,)).copy()
+
+
+def _combine(kind: str):
+    """Combine fn over slot-FIRST tensors [slots, ...]: add, or the
+    extreme slot by min/max beside an added presence slot."""
+    d = _AGG_DEFS[kind]
+    if d.combine == "add":
+        return lambda a, b: a + b
+    prim = torch.minimum if d.combine == "min" else torch.maximum
+
+    def comb(a, b):
+        return torch.cat([prim(a[:1], b[:1]), a[1:] + b[1:]])
+
+    return comb
+
+
+def _reset_(st: torch.Tensor, kind: str, when: Optional[torch.Tensor] = None) -> None:
+    """Write each slot's fold identity into ``st`` [slots, K]: always, or
+    where the 0-d bool tensor ``when`` holds (no host sync)."""
+    idents = _slot_identities(kind, T.TORCH_TO_NUMPY[st.dtype]).tolist()
+    for s, ident in enumerate(idents):
+        if when is None:
+            st[s].fill_(ident)
+        else:
+            st[s].masked_fill_(when, ident)
 
 
 def init_agg_state(specs: List[AggSpec], num_keys: int, device) -> dict:
-    """State dict: per spec a [slots, K] tensor at the fold identity 0."""
-    return {f"a{i}": torch.zeros((spec.slots, num_keys), dtype=_slot_dtype(spec),
-                                 device=device)
-            for i, spec in enumerate(specs)}
+    """State dict: per spec a [slots, K] tensor at its fold identities."""
+    state = {}
+    for i, spec in enumerate(specs):
+        st = torch.empty((spec.slots, num_keys),
+                         dtype=T.to_torch_dtype(_slot_dtype(spec)), device=device)
+        _reset_(st, spec.kind)
+        state[f"a{i}"] = st
+    return state
 
 
 def _deltas(spec: AggSpec, cols, ctx):
     """Per-event delta tuple [slots, B]; non-participating rows (invalid,
-    TIMER, RESET, null argument) contribute 0."""
+    TIMER, RESET, null argument) contribute the fold identity."""
     types = cols[TYPE_KEY]
     valid = cols[VALID_KEY]
     is_cur = valid & (types == CURRENT)
     is_exp = valid & (types == EXPIRED)
-    dtype = _slot_dtype(spec)
+    dtype = T.to_torch_dtype(_slot_dtype(spec))
     v = None
     if spec.arg_fn is not None:
         v, null_mask = spec.arg_fn(cols, ctx)
@@ -98,38 +178,64 @@ def _deltas(spec: AggSpec, cols, ctx):
             # null arguments leave the state untouched
             is_cur = is_cur & ~null_mask
             is_exp = is_exp & ~null_mask
+    k = spec.kind
     sgn = is_cur.to(dtype) - is_exp.to(dtype)
-    if spec.kind == "count":
+    if k == "count":
         return sgn[None, :]
-    if spec.kind == "avg":
+    if k == "avg":
         return torch.stack([sgn * v, sgn])           # (sum, count)
-    zero = torch.zeros_like(v)
-    d = torch.where(is_cur, v, torch.where(is_exp, -v, zero))
-    return torch.stack([d, sgn])                     # (sum, non-null count)
+    if k == "stddev":
+        return torch.stack([sgn * v, sgn * v * v, sgn])
+    if k in ("and", "or"):
+        # and: false-count; or: true-count
+        hit = ~v.to(torch.bool) if k == "and" else v.to(torch.bool)
+        return ((is_cur & hit).to(dtype) - (is_exp & hit).to(dtype))[None, :]
+    if k == "sum":
+        d = torch.where(is_cur, v, torch.where(is_exp, -v, torch.zeros_like(v)))
+        return torch.stack([d, sgn])                 # (sum, non-null count)
+    # min/max family: (extreme, presence); the forever kinds fold EXPIRED too
+    folds = is_cur if k in ("min", "max") else is_cur | is_exp
+    ident = _identity(k, _slot_dtype(spec)).item()
+    return torch.stack([torch.where(folds, v, ident), folds.to(dtype)])
 
 
 def _output(spec: AggSpec, slots):
     """Running value -> (value, null_mask) per the reference return rules."""
-    if spec.kind == "sum":
+    k = spec.kind
+    if k == "sum":
         return slots[0], slots[1] == 0   # null until a non-null folds in
-    if spec.kind == "count":
+    if k == "count":
         return slots[0], None
-    s, c = slots[0], slots[1]
-    empty = c == 0
-    return s / torch.where(empty, torch.ones_like(c), c), empty
+    if k == "avg":
+        s, c = slots[0], slots[1]
+        empty = c == 0
+        return s / torch.where(empty, torch.ones_like(c), c), empty
+    if k == "stddev":
+        s, sq, c = slots
+        empty = c == 0
+        n = torch.where(empty, torch.ones_like(c), c)
+        mean = s / n
+        var = torch.clamp(sq / n - mean * mean, min=0.0)
+        return torch.sqrt(var), empty
+    if k == "and":
+        return slots[0] == 0, None
+    if k == "or":
+        return slots[0] > 0, None
+    # min/max family: null until a non-null datum folds in
+    return slots[0], slots[1] == 0
 
 
-def _segmented_scan(blocked, vals):
-    """Inclusive segmented sum along the last axis: ``out[:, i]`` is the
-    sum of ``vals[:, j..i]`` where j is the last blocked position <= i.
+def _segmented_scan(comb, blocked, vals):
+    """Inclusive segmented scan along the last axis: ``out[:, i]`` combines
+    ``vals[:, j..i]`` where j is the last blocked position <= i.
     Hillis-Steele: pass d combines each element with the one d to its left
     (the reference's op: (fa, va) . (fb, vb) = (fa | fb, vb if fb else
-    va + vb))."""
+    va . vb))."""
     B = vals.shape[-1]
     f, v = blocked, vals
     d = 1
     while d < B:
-        v_new = v[:, d:] + torch.where(f[d:], torch.zeros_like(v[:, d:]), v[:, :-d])
+        v_new = torch.where(f[d:], v[:, d:], comb(v[:, :-d], v[:, d:]))
         f_new = f[d:] | f[:-d]
         v = torch.cat([v[:, :d], v_new], dim=1)
         f = torch.cat([f[:d], f_new])
@@ -183,15 +289,16 @@ def apply_aggregators(specs: List[AggSpec], state: dict, cols: dict, ctx: dict,
     cols = dict(cols)
     for i, spec in enumerate(specs):
         st = state[f"a{i}"]                              # [slots, K]
+        comb = _combine(spec.kind)
         deltas_sorted = _deltas(spec, cols, ctx)[:, order]
-        folded = st[:, safe_gk] + deltas_sorted
+        folded = comb(st[:, safe_gk], deltas_sorted)
         vals = torch.where(fold_state[None, :], folded, deltas_sorted)
-        scanned = _segmented_scan(blocked, vals)          # [slots, B]
+        scanned = _segmented_scan(comb, blocked, vals)    # [slots, B]
         out = scanned[:, inv_order]                       # original row order
 
         # persistent state: all-identity on any RESET, then last-row-per-
         # group values for groups active in the final epoch (in place)
-        st.masked_fill_(any_reset, 0)
+        _reset_(st, spec.kind, any_reset)
         put_where_(st, 1, safe_gk, scanned, upd_mask)
 
         value, null_mask = _output(spec, [out[s] for s in range(spec.slots)])
@@ -202,8 +309,7 @@ def apply_aggregators(specs: List[AggSpec], state: dict, cols: dict, ctx: dict,
 
 
 def check_ported(kind: str) -> None:
-    if kind not in _SLOTS:
+    if kind not in _AGG_DEFS:
         raise CompileError(
             f"aggregator '{kind}()' is not ported to siddhi_tpu_torch yet "
-            f"(ported: {', '.join(_SLOTS)})")
-
+            f"(ported: {', '.join(_AGG_DEFS)})")

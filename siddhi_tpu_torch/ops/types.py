@@ -40,6 +40,7 @@ TORCH_OF_NUMPY = {
     np.dtype(np.float64): torch.float64,
     np.dtype(np.bool_): torch.bool,
 }
+TORCH_TO_NUMPY = {t: n for n, t in TORCH_OF_NUMPY.items()}
 
 _NUMERIC_ORDER = [AttrType.INT, AttrType.LONG, AttrType.FLOAT, AttrType.DOUBLE]
 

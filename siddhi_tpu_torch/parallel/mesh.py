@@ -233,6 +233,9 @@ def route_ineligibility(runtime) -> Optional[str]:
     window), and non-partitioned grouped queries without a window."""
     from siddhi_tpu_torch.ops.keyed_windows import KeyedLengthWindowStage
 
+    sp = runtime.selector_plan
+    if sp.order_by or sp.limit is not None or sp.offset is not None:
+        return "order by / limit (batch-global ordering)"
     win = runtime.window_stage
     if win is not None and not isinstance(win, KeyedLengthWindowStage):
         return (f"window stage {type(win).__name__} (emission-order keys "

@@ -1,8 +1,13 @@
-"""apply_aggregators for sum, count and avg: the port against the JAX
-package on the same state and columns. Rows mix CURRENT (add), EXPIRED
-(subtract), RESET (every group restarts), TIMER and invalid rows, and
-null arguments; prior state is random. Floats to rtol 1e-12 (the port's
-log-step scan adds in another order than lax.associative_scan)."""
+"""apply_aggregators for every ported kind (all but distinctCount and
+unionSet) over int, long, float and double arguments: the port against
+the JAX package on the same state and columns. Rows mix CURRENT (add),
+EXPIRED (subtract), RESET (every group restarts), TIMER and invalid rows,
+and null arguments; prior state is random. Floats to rtol 1e-12 (the
+port's log-step scan adds in another order than lax.associative_scan).
+stdDev's double argument ``w`` and its prior state are multiples of 1/8,
+so its sums are exact in any order: sqrt(sq/n - mean^2) cancels near a
+zero variance and would amplify a summation-order difference without
+bound. min/max are exact."""
 
 import functools
 
@@ -22,7 +27,18 @@ from siddhi_tpu_torch.query_api.definitions import AttrType as TT
 K, B = 16, 96
 # (kind, argument column, its type name)
 SPECS = [("sum", "n", "LONG"), ("sum", "v", "DOUBLE"), ("count", None, None),
-         ("avg", "f", "FLOAT"), ("avg", "n", "LONG")]
+         ("avg", "f", "FLOAT"), ("avg", "n", "LONG"),
+         ("sum", "i", "INT"), ("sum", "f", "FLOAT"), ("count", "v", "DOUBLE"),
+         ("stddev", "w", "DOUBLE"), ("stddev", "i", "INT"),
+         ("and", "b", "BOOL"), ("or", "b", "BOOL"),
+         ("min", "i", "INT"), ("max", "n", "LONG"), ("min", "f", "FLOAT"),
+         ("max", "v", "DOUBLE"), ("minforever", "v", "DOUBLE"),
+         ("maxforever", "i", "INT"), ("maxforever", "f", "FLOAT"),
+         ("minforever", "n", "LONG")]
+SLOTS = {"sum": 2, "count": 1, "avg": 2, "stddev": 3, "and": 1, "or": 1,
+         "min": 2, "max": 2, "minforever": 2, "maxforever": 2}
+ARG_DTYPE = {"INT": np.int32, "LONG": np.int64, "FLOAT": np.float32,
+             "DOUBLE": np.float64}
 
 
 def _arg_fn(col):
@@ -55,16 +71,32 @@ def _inputs(case, seed=0):
         "__ts__": np.arange(B, dtype=np.int64),
         "n": rng.integers(-500, 500, B), "n?": rng.random(B) < 0.1,
         "v": rng.standard_normal(B) * 50, "v?": rng.random(B) < 0.1,
+        "w": rng.integers(-800, 800, B) / 8.0, "w?": rng.random(B) < 0.1,
         "f": (rng.random(B) * 100).astype(np.float32), "f?": np.zeros(B, bool),
+        "i": rng.integers(-1000, 1000, B).astype(np.int32), "i?": rng.random(B) < 0.1,
+        "b": rng.random(B) < 0.5, "b?": rng.random(B) < 0.1,
     }
     state = {}
     for i, (kind, col, tname) in enumerate(SPECS):
-        slots = 1 if kind == "count" else 2
-        if kind == "count" or (kind == "sum" and tname == "LONG"):
+        slots = SLOTS[kind]
+        counts = rng.integers(0, 10, K)            # the count slot: integral
+        if kind in ("min", "max", "minforever", "maxforever"):
+            dt = ARG_DTYPE[tname]
+            ext = (rng.integers(-900, 900, K) if np.issubdtype(dt, np.integer)
+                   else rng.standard_normal(K) * 40)
+            # a group with nothing folded holds the identity
+            ident = jagg._identity(kind, np.dtype(dt))
+            st = np.stack([np.where(counts == 0, ident, ext), counts]).astype(dt)
+        elif kind in ("count", "and", "or") or (
+                kind == "sum" and tname in ("LONG", "INT")):
             st = rng.integers(0, 50, (slots, K)).astype(np.int64)
+        elif kind == "stddev":
+            s0 = rng.integers(-800, 800, K) / 8.0
+            st = np.stack([s0, s0 ** 2 + rng.integers(0, 5000, K) / 64.0,
+                           counts.astype(np.float64)])
         else:
             st = rng.random((slots, K)) * 100
-            st[-1] = rng.integers(0, 10, K)        # counts are integral
+            st[-1] = counts
         state[f"a{i}"] = st
     return state, cols
 
@@ -102,5 +134,5 @@ def test_apply_aggregators_matches_jax(case):
 def test_unported_aggregator_is_named():
     from siddhi_tpu_torch.ops.expressions import CompileError
 
-    with pytest.raises(CompileError, match="stddev"):
-        tagg.check_ported("stddev")
+    with pytest.raises(CompileError, match="distinctcount"):
+        tagg.check_ported("distinctcount")

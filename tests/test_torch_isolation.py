@@ -97,9 +97,9 @@ def test_unported_constructs_are_named_not_skipped():
         ("define stream S (a int); define table T (a int); "
          "from S select a insert into T;", "tables"),
         ("define stream S (a int); from S#window.time(1 sec) select a "
-         "insert into O;", "windows outside a partition"),
-        ("define stream S (a int); from S select a order by a "
-         "insert into O;", "order by"),
+         "insert into O;", "time window"),
+        ("define stream S (a int); from S select a output every 5 events "
+         "insert into O;", "rate limiting"),
     ]:
         with pytest.raises(CompileError, match=what):
             m.create_siddhi_app_runtime(app)

@@ -68,3 +68,52 @@ def test_state_carried_from_jax_continues_identically(app, stream, out, query,
     assert_rows_match(port_rows, jax_rows)
     if routed:
         assert port.query._route_layout.n == routed
+
+
+GLOBAL_FLAGSHIP = """
+define stream StockStream (symbol string, price float, volume long);
+@info(name = 'bench')
+from StockStream#window.length(40)
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume
+group by symbol
+insert into OutStream;
+"""
+
+# __graft_entry__._APP at a small window: the generic path
+GLOBAL_TWIN = """
+define stream StockStream (symbol string, price float, volume long);
+@info(name = 'flagship')
+from StockStream[price > 0.0]#window.length(40)
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n,
+       min(price) as minPrice
+group by symbol
+insert into OutStream;
+"""
+
+
+@pytest.mark.parametrize("app,query,stage", [
+    (GLOBAL_FLAGSHIP, "bench", "FusedSlidingAggStage"),
+    (GLOBAL_TWIN, "flagship", "LengthWindowStage"),
+], ids=["fused_flagship", "generic_twin"])
+def test_global_state_carried_from_jax_continues_identically(app, query, stage):
+    """Unpartitioned queries: the fused stage's ring (``s*_*``, ``rgk``,
+    ``fill``, ``head``, empty ``sel``) and the unkeyed length window
+    (``buf``, 0-d ``total``) install as they are, with the dictionary ids
+    and group keys, and both packages continue the feed alike."""
+    feed = stock_feed(seed=6, n_batches=4, batch=256, n_symbols=300, n_events=6)
+    first, second = feed[:2], feed[2:]
+    jax_run = Run("jax", app, "OutStream", query)
+    send_feed(jax_run.rt, "StockStream", first)
+    jq = jax_run.query
+    tree = _reference_state(jax_run, None)
+    port = Run("torch", app, "OutStream", query)
+    assert type(port.query.window_stage).__name__ == stage
+    load_reference_state(
+        port.query, tree,
+        dictionary_ids=list(jax_run.rt.app_context.string_dictionary._to_str),
+        group_keys={"map": dict(jq.keyer._map), "next": jq.keyer._next})
+    n_first = len(jax_run.collector.rows)
+    jax_rows = jax_run.feed("StockStream", second).close()[n_first:]
+    port_rows = port.feed("StockStream", second).close()
+    assert len(port_rows) == len(jax_rows) > 2 * 256 // 2
+    assert_rows_match(port_rows, jax_rows)

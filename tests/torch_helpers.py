@@ -9,6 +9,8 @@ the port's segmented scan adds in another order than
 ``lax.associative_scan``.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -107,24 +109,46 @@ def send_feed(rt, stream, feed):
             h.send(item[1], item[2])
 
 
+@contextlib.contextmanager
+def fusion(context_module, enabled):
+    """Plan apps with the fused window stage on or off: the planner reads
+    ``app_context.enable_fusion`` while the runtime is built, so the flag
+    is set as each app context is made (as tests/test_fused_agg.py does)."""
+    cls = context_module.SiddhiAppContext
+    orig = cls.__init__
+
+    def init(self, *args, **kwargs):
+        orig(self, *args, **kwargs)
+        self.enable_fusion = enabled
+
+    cls.__init__ = init
+    try:
+        yield
+    finally:
+        cls.__init__ = orig
+
+
 class Run:
     """One app runtime of either package, with its output collector."""
 
     def __init__(self, pkg, app, out_stream, query, routed_n=None,
-                 rows_per_shard=256):
+                 rows_per_shard=256, fused=True):
         if pkg == "jax":
             import siddhi_tpu
+            from siddhi_tpu.core import context
             from siddhi_tpu.parallel.mesh import device_route_query_step, make_mesh
 
             self.manager = siddhi_tpu.SiddhiManager()
             self.collector = make_collector(siddhi_tpu.StreamCallback)
         else:
             import siddhi_tpu_torch
+            from siddhi_tpu_torch.core import context
             from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
             self.manager = siddhi_tpu_torch.SiddhiManager(device="cpu")
             self.collector = make_collector(siddhi_tpu_torch.StreamCallback)
-        self.rt = self.manager.create_siddhi_app_runtime(app)
+        with fusion(context, fused):
+            self.rt = self.manager.create_siddhi_app_runtime(app)
         self.rt.add_callback(out_stream, self.collector)
         self.query = self.rt.query_runtimes[query]
         if routed_n is not None:
@@ -140,26 +164,28 @@ class Run:
         return self.collector.rows
 
 
-def assert_rows_match(got, want):
-    """Event rows (timestamp, data, is_expired) under the tolerance rule."""
+def assert_rows_match(got, want, rtol=FLOAT_RTOL):
+    """Event rows (timestamp, data, is_expired) under the tolerance rule
+    (floats to ``rtol``, 1e-12 unless a test states its own)."""
     assert len(got) == len(want), (len(got), len(want))
     for i, ((t1, d1, e1), (t2, d2, e2)) in enumerate(zip(got, want)):
         assert (t1, e1) == (t2, e2), (i, (t1, e1), (t2, e2))
         assert len(d1) == len(d2), i
         for a, b in zip(d1, d2):
             if isinstance(b, float) and isinstance(a, float):
-                assert np.isclose(a, b, rtol=FLOAT_RTOL, atol=0.0), (i, a, b)
+                assert np.isclose(a, b, rtol=rtol, atol=0.0), (i, a, b)
             else:
                 assert a == b and type(a) is type(b), (i, a, b)
 
 
-def assert_arrays_match(got, want, what=""):
-    """numpy arrays under the tolerance rule."""
+def assert_arrays_match(got, want, what="", rtol=FLOAT_RTOL, atol=0.0):
+    """numpy arrays under the tolerance rule (floats to ``rtol``/``atol``,
+    rtol 1e-12 unless a test states its own)."""
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, (what, got.shape, want.shape)
     if want.dtype.kind == "f":
         assert got.dtype.kind == "f", (what, got.dtype)
-        np.testing.assert_allclose(got, want, rtol=FLOAT_RTOL, atol=0.0,
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
                                    err_msg=what)
     else:
         assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
