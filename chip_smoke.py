@@ -52,8 +52,24 @@ Phases (any failure exits non-zero and prints no result line):
             device time by torch op and the card's busy share, the sum of
             its kernels and copies (torch.profiler),
             host time by function (cProfile);
-9. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+9. distinct distinctCount/unionSet and the function library, same feed:
+            D1, the global flagship's shape grouped by symbol with
+            ``distinctCount(volume)`` and functions (H = 64, 8 batches);
+            D2, ``distinctCount(symbol)`` over the whole window (one group,
+            H = 1024: the kernel's serial worst case); S, the unionSet
+            chain createSet -> ``#window.length(1000)`` unionSet group by
+            symbol -> sizeOfSet (3 batches). Checks: one distinct-scan
+            launch per batch, no overflow, one row out per row in; D1's
+            first two batches equal the port's CPU run; D2 kernel == plain
+            version on a cut of one batch, and every count equal to a numpy
+            count of distinct symbols over the trailing window; S's sizes
+            equal D1's counts row for row, and its first batch's unionSet
+            companions equal the CPU run's. Prints state bytes and events/s
+            of each, and the kernel at D1's and D2's shapes: CUDA-event ms
+            (L2 flushed), plain ms, host enqueue, device ms (torch.profiler),
+            byte bound and share, longest chain; a device profile of D1;
+10. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -98,6 +114,39 @@ select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n,
 group by symbol
 insert into OutStream;
 """
+# distinct phase (9): D1, the global flagship's shape with distinctCount
+# and the function library; D2, distinct symbols over the whole window;
+# S, the unionSet chain of tests/test_sets.py over a length window
+D1_APP = """
+define stream StockStream (symbol string, price float, volume long);
+@info(name = 'bench')
+from StockStream#window.length({W})
+select symbol, distinctCount(volume) as volumes, avg(price) as avgPrice,
+       ifThenElse(price > 50.0, 'high', 'low') as band,
+       maximum(cast(volume, 'double'), 500.0) as volFloor,
+       eventTimestamp() as ts
+group by symbol insert into OutStream;
+"""
+D2_APP = """
+define stream StockStream (symbol string, price float, volume long);
+@info(name = 'bench')
+from StockStream#window.length({W}) select distinctCount(symbol) as symbols
+insert into OutStream;
+"""
+S_APP = """
+define stream StockStream (symbol string, price float, volume long);
+@info(name = 'sets')
+from StockStream select symbol, createSet(volume) as vs insert into SetStream;
+@info(name = 'bench')
+from SetStream#window.length({W})
+select symbol, unionSet(vs) as volumes group by symbol insert into VolStream;
+@info(name = 'size')
+from VolStream select symbol, sizeOfSet(volumes) as n insert into OutStream;
+"""
+D2_H = 1024                     # ~950 symbols are live at a time
+D2_CUT = 2048                   # rows of the kernel-vs-plain check at D2
+D2_RUNS = 10                    # timed runs at D2 (~0.22 s of kernel each)
+S_BATCHES = 3
 WINDOW = 1000
 NUM_SYMBOLS = 10_000
 KEY_SLOTS = 16_384
@@ -511,7 +560,11 @@ def host_ms(fn, runs: int = TIMED_RUNS):
 
 def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS):
     """Mean device time of the CUDA kernel whose name holds ``kernel``
-    over ``runs`` calls of ``fn``, each after an L2 flush (torch.profiler)."""
+    over ``runs`` calls of ``fn``, each after an L2 flush (torch.profiler),
+    and how many of its launches the profiler recorded. The profiler can
+    miss a few launches of a kernel started through ctypes (on an H100 it
+    saw 27 of 30 distinct-scan launches in one run), so the mean is over
+    the launches it saw."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -525,10 +578,10 @@ def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS):
     events = [e for e in prof.key_averages() if kernel in e.key]
     us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
     count = sum(e.count for e in events)
-    _require(count == runs and us > 0,
+    _require(0 < count <= runs and us > 0,
              f"profiler saw {count} launches of {kernel} with {us} us of device "
              f"time for {runs} calls")
-    return us / 1e3 / count
+    return us / 1e3 / count, count
 
 
 def check_exchange(device):
@@ -589,12 +642,282 @@ def check_exchange(device):
     for name, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
         out[name + "_warm_l2"] = time_ms(fn)
     out["host_ms"] = host_ms(kernel)
-    out["device_ms"] = device_ms(kernel, "ring_exchange_cols_kernel", scratch)
+    out["device_ms"], out["device_seen"] = device_ms(
+        kernel, "ring_exchange_cols_kernel", scratch)
     out["bound_ms"] = 2 * nbytes / H100_BYTES_PER_S * 1e3   # read once + write once
     out["roofline_share"] = out["bound_ms"] / out["device_ms"]
     out.update(max_abs_err=max_err, bytes_each_way=nbytes,
                columns=len(batch_cols), buffers=len(every))
     return out
+
+
+# -------------------------------------------------------------- distinct
+
+class ScanRecorder:
+    """Stands in for ``distinct_scan`` where the aggregators call it: every
+    call goes through to the wrapper (which launches the kernel and
+    counts), and the arguments of call ``at`` are kept, the state cloned
+    before the call updates it in place, for the kernel's checks and
+    timings at the main path's shapes."""
+
+    def __init__(self, at: int):
+        self.at, self.calls, self.args, self.kwargs = at, 0, None, None
+
+    def __call__(self, *args, **kwargs):
+        from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+        if self.calls == self.at:
+            self.args = [a.clone() if a is not None else None for a in args]
+            self.kwargs = dict(kwargs)
+        self.calls += 1
+        return distinct_scan(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def recording(at: int):
+    from siddhi_tpu_torch.ops import aggregators
+
+    rec = ScanRecorder(at)
+    orig = aggregators.distinct_scan
+    aggregators.distinct_scan = rec
+    try:
+        yield rec
+    finally:
+        aggregators.distinct_scan = orig
+
+
+def run_app(device, app: str, feed, streams=("OutStream",), key_slots=KEY_SLOTS,
+            capacity=None, on_start=None):
+    """Drive an app's ``bench`` query (and any others) through the public
+    API; ``capacity`` sets the distinct value slots before the first send.
+    Returns ({stream: per-batch output columns}, per-batch seconds, facts)."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device=device)
+    rt = m.create_siddhi_app_runtime(app)
+    q = rt.query_runtimes["bench"]
+    if key_slots is not None:
+        q.selector_plan.num_keys = key_slots
+    if capacity is not None:
+        for spec in q.selector_plan.specs:
+            spec.distinct_capacity = capacity
+    cbs = {name: collector() for name in streams}
+    for name, cb in cbs.items():
+        rt.add_callback(name, cb)
+    if on_start is not None:
+        on_start()
+    seconds = send_timed(rt.get_input_handler("StockStream"), feed, device)
+    facts = {"stage": type(q.window_stage).__name__,
+             "state_bytes": sum(t.numel() * t.element_size()
+                                for r in rt.query_runtimes.values()
+                                if r._state is not None for t in _leaves(r._state))}
+    m.shutdown()
+    return {n: cb.batches for n, cb in cbs.items()}, seconds, facts
+
+
+def scan_facts(args, kwargs):
+    """Byte bound and longest chain of one distinct-scan call: each touched
+    group's table read and written once, every row input read once, the
+    counts (and unionSet snapshots) written once."""
+    import torch
+
+    vk = args[0]
+    g = args[3]
+    K, H = vk.shape
+    R = g.numel()
+    counts = torch.bincount(g, minlength=K)
+    touched = int((counts > 0).sum())
+    table = touched * (H * (8 + 4) + 8)
+    rows_in = sum(t.numel() * t.element_size() for t in args[3:] if t is not None)
+    out = R * 8 + (R * H * 9 if kwargs.get("emit_set") else 0)
+    nbytes = 2 * table + rows_in + out
+    return {"rows": R, "groups": touched, "H": H, "chain": int(counts.max()),
+            "bytes": nbytes, "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+
+
+def check_scan(args, kwargs, what: str, cut=None):
+    """Kernel against the plain version on the same inputs (on the first
+    ``cut`` rows when given): counts, snapshots, overflow and the updated
+    state exactly equal."""
+    import torch
+
+    from siddhi_tpu_torch.ops.distinct import distinct_scan, distinct_scan_plain
+
+    rows = [a if a is None or cut is None else a[:cut] for a in args[3:]]
+    st_k = [t.clone() for t in args[:3]]
+    st_p = [t.clone() for t in args[:3]]
+    got = distinct_scan(*st_k, *rows, **kwargs)
+    torch.cuda.synchronize()
+    want = distinct_scan_plain(*st_p, *rows, **kwargs)
+    for name, a, b in zip(("counts", "snapshot keys", "snapshot mask", "overflow"),
+                          got, want):
+        _require((a is None) == (b is None), f"{what}: kernel and plain disagree "
+                 f"on whether there are {name}")
+        if a is not None:
+            _require(torch.equal(a, b), f"{what}: kernel {name} differ from plain")
+    for name, a, b in zip(("vk", "vc", "stamp"), st_k, st_p):
+        _require(torch.equal(a, b), f"{what}: kernel state {name} differs from plain")
+    return float((got[0] - want[0]).abs().max()) if got[0].numel() else 0.0
+
+
+def time_scan(args, kwargs, flush, runs=TIMED_RUNS, plain_runs=TIMED_RUNS,
+              plain_cut=None):
+    """CUDA-event ms of the kernel and of the plain version (L2 flushed),
+    host enqueue ms and device ms of the kernel, each over ``runs`` calls
+    (``plain_runs`` for the plain version, on the first ``plain_cut``
+    rows when given). Every call gets a fresh copy of the pre-call state
+    (the scan updates it in place)."""
+    from siddhi_tpu_torch.ops.distinct import distinct_scan, distinct_scan_plain
+
+    state, rows = args[:3], args[3:]
+
+    def calls(fn, n, cut=None):
+        pool = [[t.clone() for t in state] for _ in range(n + 1)]
+        r = [a if a is None or cut is None else a[:cut] for a in rows]
+        return lambda: fn(*pool.pop(), *r, **kwargs)
+
+    out = {"ms": time_ms(calls(distinct_scan, runs), runs=runs, flush=flush),
+           "plain_ms": time_ms(calls(distinct_scan_plain, plain_runs, plain_cut),
+                               runs=plain_runs, flush=flush),
+           "host_ms": host_ms(calls(distinct_scan, runs), runs=runs)}
+    out["device_ms"], out["device_seen"] = device_ms(
+        calls(distinct_scan, runs), "distinct_scan_kernel", flush, runs=runs)
+    out["runs"] = runs
+    if plain_cut is not None:
+        out["cut_ms"] = time_ms(calls(distinct_scan, plain_runs, plain_cut),
+                                runs=plain_runs, flush=flush)
+    return out
+
+
+def sliding_distinct(symbols, window: int):
+    """Distinct symbols among the trailing ``window`` events after each
+    event, counted with a plain Python multiset (the independent check)."""
+    import numpy as np
+
+    _u, ids = np.unique(symbols, return_inverse=True)
+    ids = ids.tolist()
+    count = [0] * (max(ids) + 1)
+    live, out = 0, []
+    for t, s in enumerate(ids):
+        if count[s] == 0:
+            live += 1
+        count[s] += 1
+        if t >= window:
+            o = ids[t - window]
+            count[o] -= 1
+            if count[o] == 0:
+                live -= 1
+        out.append(live)
+    return np.asarray(out, np.int64)
+
+
+def phase_distinct(device, feed, card: str):
+    """D1, D2 and S on the card (see the module doc). Returns the distinct
+    kernel's measurements at D1's and D2's shapes and its launch count on
+    D1's run."""
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    def reset():
+        distinct_scan.launches = 0
+
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    d1_app, n = D1_APP.format(W=WINDOW), len(feed)
+
+    # D1: the flagship's shape, grouped, on the generic path
+    with recording(at=n - 1) as rec1:
+        d1, d1_s, f1 = run_app(device, d1_app, feed, on_start=reset)
+    d1_launches = distinct_scan.launches
+    _require(f1["stage"] == "LengthWindowStage",
+             f"D1 planned on {f1['stage']}, not the generic window")
+    _require(d1_launches == n, f"D1: {d1_launches} distinct-scan launches for "
+             f"{n} batches: want one per batch")
+    d1 = d1["OutStream"]
+    rows_out = sum(len(b["__ts__"]) for b in d1)
+    _require(rows_out == n * BATCH, f"D1: {rows_out} rows out for {n * BATCH} in")
+    require_finite(d1, "D1 (card)")
+    cpu, _s, _f = run_app(torch.device("cpu"), d1_app, feed[:CPU_BATCHES])
+    worst = compare_outputs(d1[:CPU_BATCHES], cpu["OutStream"], "D1 card vs cpu")
+    print(f"[distinct] D1 distinctCount(volume) + functions group by symbol, "
+          f"H=64, {KEY_SLOTS} key slots: {f1['state_bytes']} state bytes on the "
+          f"card, {d1_launches} kernel launches for {n} batches, no overflow, "
+          f"{rows_out} rows out, first batch {d1_s[0] * 1e3:.1f} ms, then "
+          f"{steady_eps(d1_s, BATCH):.1f} events/s [{card}]; first {CPU_BATCHES} "
+          f"batches equal the CPU run (max float rel err {worst:.3g})", flush=True)
+
+    a1, kw1 = rec1.args, rec1.kwargs
+    err1 = check_scan(a1, kw1, "D1 scan")
+    k1 = {**scan_facts(a1, kw1), **time_scan(a1, kw1, scratch)}
+    k1["share"] = k1["bound_ms"] / k1["device_ms"]
+    print(f"[distinct] kernel at D1's shape (batch {n}: {k1['rows']} rows, "
+          f"{k1['groups']} groups, H={k1['H']}, longest chain {k1['chain']}): "
+          f"== plain; L2 flushed: kernel {k1['ms']:.4f} ms, plain "
+          f"{k1['plain_ms']:.4f} ms; host enqueue {k1['host_ms']:.4f} ms; "
+          f"device {k1['device_ms']:.4f} ms ({k1['device_seen']} of "
+          f"{k1['runs']} launches seen) against a {k1['bound_ms']:.4f} ms "
+          f"byte bound ({k1['bytes']} bytes), share {k1['share']:.4f} [{card}]",
+          flush=True)
+
+    # D2: one group, H = 1024, the kernel's serial worst case
+    with recording(at=2) as rec2:
+        d2, d2_s, f2 = run_app(device, D2_APP.format(W=WINDOW), feed,
+                               key_slots=None, capacity=D2_H, on_start=reset)
+    d2_launches = distinct_scan.launches
+    _require(d2_launches == n, f"D2: {d2_launches} launches for {n} batches")
+    got = np.concatenate([b["symbols"] for b in d2["OutStream"]])
+    want = sliding_distinct(np.concatenate([c["symbol"] for c, _t in feed]), WINDOW)
+    _require(got.shape == want.shape and np.array_equal(got, want),
+             f"D2: distinct symbols differ from the numpy count at "
+             f"{np.nonzero(got != want)[0][:5].tolist() if got.shape == want.shape else 'shape'}")
+    a2, kw2 = rec2.args, rec2.kwargs
+    err2 = check_scan(a2, kw2, "D2 scan", cut=D2_CUT)
+    k2 = {**scan_facts(a2, kw2),
+          **time_scan(a2, kw2, scratch, runs=D2_RUNS, plain_runs=1,
+                      plain_cut=D2_CUT)}
+    k2["share"] = k2["bound_ms"] / k2["device_ms"]
+    print(f"[distinct] D2 distinctCount(symbol), one group, H={D2_H}: "
+          f"{f2['state_bytes']} state bytes, {d2_launches} launches, no "
+          f"overflow, every count == numpy's over {len(got)} rows, peak "
+          f"{int(got.max())}; first batch {d2_s[0] * 1e3:.1f} ms, then "
+          f"{steady_eps(d2_s, BATCH):.1f} events/s [{card}]", flush=True)
+    print(f"[distinct] kernel at D2's shape (batch 3: {k2['rows']} rows, one "
+          f"chain of {k2['chain']}): == plain on the first {D2_CUT} rows "
+          f"(kernel {k2['cut_ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms there); "
+          f"whole batch, L2 flushed: kernel {k2['ms']:.4f} ms; host enqueue "
+          f"{k2['host_ms']:.4f} ms; device {k2['device_ms']:.4f} ms "
+          f"({k2['device_seen']} of {k2['runs']} launches seen) against a "
+          f"{k2['bound_ms']:.4f} ms byte bound, share {k2['share']:.6f} [{card}]",
+          flush=True)
+
+    # S: createSet -> window unionSet group by symbol -> sizeOfSet
+    s_feed = feed[:S_BATCHES]
+    s_app = S_APP.format(W=WINDOW)
+    sets, s_s, fs = run_app(device, s_app, s_feed, ("OutStream", "VolStream"),
+                            on_start=reset)
+    s_launches = distinct_scan.launches
+    _require(s_launches == S_BATCHES,
+             f"S: {s_launches} launches for {S_BATCHES} batches")
+    for i, (sb, db) in enumerate(zip(sets["OutStream"], d1)):
+        # the rows align (one out per in, in order); the two apps' string
+        # ids differ (D1 encodes 'high' and 'low' first)
+        _require(np.array_equal(sb["n"], db["volumes"]),
+                 f"S: sizeOfSet differs from D1's distinctCount in batch {i}")
+    cpu_s, _s, _f = run_app(torch.device("cpu"), s_app, s_feed[:1], ("VolStream",))
+    compare_outputs(sets["VolStream"][:1], cpu_s["VolStream"],
+                    "S unionSet companions card vs cpu")
+    print(f"[distinct] S unionSet chain: {fs['state_bytes']} state bytes, "
+          f"{s_launches} launches for {S_BATCHES} batches; sizeOfSet == D1's "
+          f"distinctCount row for row; the first batch's [{2 * BATCH}, 64] "
+          f"companions equal the CPU run's; first batch {s_s[0] * 1e3:.1f} ms, "
+          f"then {steady_eps(s_s, BATCH):.1f} events/s [{card}]", flush=True)
+
+    m, rt, _q = global_runtime(device, d1_app, "bench")
+    profile_sends("distinct D1", rt.get_input_handler("StockStream"), feed, card)
+    m.shutdown()
+    return {"launches": d1_launches, "d1": k1, "d2": k2,
+            "max_abs_err": max(err1, err2)}
 
 
 # ------------------------------------------------------------------ main
@@ -666,6 +989,7 @@ def phase_twin(device, feed, card: str):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -693,7 +1017,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    built = _cuda.build(["ring_exchange"])
+    built = _cuda.build(["ring_exchange", "distinct_scan"])
     print(f"[build] {len(built)} kernel(s) in {time.perf_counter() - t0:.1f} s")
     for name, (so, log) in built.items():
         print(f"[build] {name}: {so.name}")
@@ -715,7 +1039,8 @@ def main() -> int:
           f"{ex['ms_warm_l2']:.4f} ms, plain {ex['plain_ms_warm_l2']:.4f} ms, "
           f"library {ex['library_ms_warm_l2']:.4f} ms; host enqueue of one "
           f"call {ex['host_ms']:.4f} ms; kernel on the device "
-          f"{ex['device_ms']:.4f} ms against a {ex['bound_ms']:.4f} ms byte "
+          f"{ex['device_ms']:.4f} ms ({ex['device_seen']} of {TIMED_RUNS} launches "
+          f"seen) against a {ex['bound_ms']:.4f} ms byte "
           f"bound (share {ex['roofline_share']:.3f}) [{card}]", flush=True)
 
     # 4. the slice
@@ -776,7 +1101,12 @@ def main() -> int:
     profile_routed(device, feed, card)
     profile_global(device, feed, card)
 
-    # 9. result lines
+    # 9. distinctCount / unionSet and the function library
+    dist = phase_distinct(device, feed, card)
+    d1, d2 = dist["d1"], dist["d2"]
+
+    # 10. result lines
+    print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
@@ -791,6 +1121,17 @@ def main() -> int:
         "plain_ms_warm_l2": ex["plain_ms_warm_l2"],
         "library_ms_warm_l2": ex["library_ms_warm_l2"],
         "host_ms": ex["host_ms"],
+    }, {
+        "name": "distinct_scan", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/distinct_scan.cu",
+        "replaces": "siddhi_tpu/ops/aggregators.py:291",
+        "launches": dist["launches"], "max_abs_err": dist["max_abs_err"],
+        "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "device_ms": d1["device_ms"],
+        "roofline_share": d1["share"], "host_ms": d1["host_ms"],
+        "chain": d1["chain"], "rows": d1["rows"], "H": d1["H"],
+        "d2": {k: d2[k] for k in ("ms", "device_ms", "bound_ms", "share",
+                                  "host_ms", "chain", "H", "cut_ms", "plain_ms")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

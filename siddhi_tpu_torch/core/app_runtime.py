@@ -1,12 +1,14 @@
 """SiddhiAppRuntime: one assembled app — junctions, queries, callbacks.
 
-Counterpart of ``siddhi_tpu/core/app_runtime.py``, reduced to what this
-slice runs: stream definitions, queries and value partitions, stream
-callbacks, ``@app:name``/``@app:playback``/``@app:precision`` and the
+Counterpart of ``siddhi_tpu/core/app_runtime.py``, reduced to what the
+port runs: stream definitions, queries and value partitions, stream and
+query callbacks, custom extension functions and ``define function``
+scripts, the set-element metadata of OBJECT attributes,
+``@app:name``/``@app:playback``/``@app:precision`` and the
 ``siddhi_tpu.*`` config knobs. Tables, named windows, triggers,
-incremental aggregations, functions, sources/sinks, ``@Async`` and
-``@purge`` are not ported yet and raise ``CompileError`` naming
-themselves, so an app never runs with a part silently missing.
+incremental aggregations, sources/sinks, ``@Async`` and ``@purge`` are
+not ported yet and raise ``CompileError`` naming themselves, so an app
+never runs with a part silently missing.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ from typing import Dict, List
 from siddhi_tpu_torch.compiler.errors import SiddhiAppValidationException
 from siddhi_tpu_torch.core.context import SiddhiAppContext, SiddhiContext
 from siddhi_tpu_torch.core.plan.query_planner import plan_query
+from siddhi_tpu_torch.core.query.callback import QueryCallback
 from siddhi_tpu_torch.core.query.runtime import QueryRuntime
 from siddhi_tpu_torch.core.stream.input.input_handler import InputHandler, InputManager
 from siddhi_tpu_torch.core.stream.junction import StreamJunction
 from siddhi_tpu_torch.core.stream.output.stream_callback import StreamCallback
-from siddhi_tpu_torch.ops.expressions import CompileError
+from siddhi_tpu_torch.ops.expressions import CompileError, set_active_extensions
 from siddhi_tpu_torch.query_api.annotations import find_annotation
 from siddhi_tpu_torch.query_api.definitions import Attribute, StreamDefinition
 from siddhi_tpu_torch.query_api.execution import (
@@ -30,7 +33,38 @@ from siddhi_tpu_torch.query_api.execution import (
     Query,
     ValuePartitionType,
 )
+from siddhi_tpu_torch.query_api.expressions import AttributeFunction, Variable
 from siddhi_tpu_torch.query_api.siddhi_app import SiddhiApp
+
+
+def _compile_script_function(fdef):
+    """``define function f[python] return <type> { <expression> }``: the
+    body is a Python expression over ``arg0..argN`` (also ``data0..``)
+    with ``xp`` (the port's array namespace, ``ops/expressions.TorchXP``
+    in a step) and ``np`` in scope, evaluated once per batch over whole
+    columns (the reference's ScriptFunctionExecutor runs per event).
+    String arguments arrive dictionary-encoded."""
+    if fdef.language.lower() not in ("python", "py"):
+        raise CompileError(
+            f"function '{fdef.id}': script language '{fdef.language}' is not "
+            f"supported (use [python])")
+    import numpy as _np
+
+    code = compile(fdef.body.strip(), f"<function {fdef.id}>", "eval")
+    rtype = fdef.return_type
+
+    class _Script:
+        return_type = rtype
+
+        @staticmethod
+        def apply(xp, *args):
+            ns = {"xp": xp, "np": _np}
+            for i, a in enumerate(args):
+                ns[f"arg{i}"] = a
+                ns[f"data{i}"] = a
+            return eval(code, ns)  # noqa: S307 — user-defined app function
+
+    return _Script
 
 
 def _default_app_name(siddhi_app: SiddhiApp) -> str:
@@ -55,8 +89,7 @@ class SiddhiAppRuntime:
                            ("named windows", siddhi_app.window_definitions),
                            ("triggers", siddhi_app.trigger_definitions),
                            ("incremental aggregations",
-                            siddhi_app.aggregation_definitions),
-                           ("functions", siddhi_app.function_definitions)):
+                            siddhi_app.aggregation_definitions)):
             if defs:
                 raise CompileError(f"{what} are not ported to siddhi_tpu_torch yet")
         if siddhi_app.app_annotation("playback") is not None:
@@ -75,6 +108,14 @@ class SiddhiAppRuntime:
 
         apply_app_knobs(siddhi_context.config_manager, self.app_context)
 
+        # the manager's extensions and this app's `define function` scripts
+        # are the registry every query of the app compiles against
+        self._extensions = {
+            **siddhi_context.extensions,
+            **{f"function:{fid}": _compile_script_function(fdef)
+               for fid, fdef in siddhi_app.function_definitions.items()}}
+        set_active_extensions(self._extensions)
+
         for sdef in self.stream_definitions.values():
             for ann in ("async", "OnError", "source", "sink"):
                 if find_annotation(sdef.annotations or [], ann) is not None:
@@ -86,6 +127,9 @@ class SiddhiAppRuntime:
         self.input_manager = InputManager(self.app_context, self.junctions,
                                           self._barrier)
 
+        # set metadata of explicitly defined target streams first, so a
+        # consumer query written before its producer compiles with it
+        self._prescan_object_metadata(siddhi_app)
         q_index = 0
         p_index = 0
         for element in siddhi_app.execution_elements:
@@ -150,8 +194,76 @@ class SiddhiAppRuntime:
                     f"query '{query_name}' inserts {list(runtime.output_attrs)} "
                     f"into stream '{target}' defined as {dattrs}")
         runtime.output_junction = self.junctions[target]
+        # record set-element types and multi-element sets on the target
+        # stream, for later queries (unionSet/sizeOfSet) and event decode
+        sp = runtime.selector_plan
+        ometa = {n: t for n, t in sp.object_meta.items() if t is not None}
+        if ometa or sp.object_multi:
+            tdef = self.stream_definitions[target]
+            tdef.object_elem_types = {
+                **(getattr(tdef, "object_elem_types", None) or {}), **ometa}
+            tdef.object_multi_attrs = (
+                set(getattr(tdef, "object_multi_attrs", None) or set())
+                | set(sp.object_multi))
         self.junctions[query.input_stream.unique_stream_id].subscribe(runtime)
         self.query_runtimes[query_name] = runtime
+
+    def _prescan_object_metadata(self, siddhi_app):
+        """A first pass over the query ASTs: record which object attributes
+        of explicitly defined streams are multi-element sets (unionSet
+        outputs) and their element types (createSet arguments), so query
+        text order does not change set semantics."""
+
+        def input_attr_type(query, var):
+            sid = getattr(getattr(query, "input_stream", None), "stream_id", None)
+            sdef = self.stream_definitions.get(sid) if sid else None
+            if sdef is None:
+                return None
+            try:
+                return sdef.attribute(var.attribute_name).type
+            except KeyError:
+                return None
+
+        def elem_of(query, expr):
+            # element type of createSet(<attribute>)
+            if not (isinstance(expr, AttributeFunction)
+                    and expr.name.lower() == "createset" and expr.parameters):
+                return None
+            arg = expr.parameters[0]
+            return input_attr_type(query, arg) if isinstance(arg, Variable) else None
+
+        def scan(query):
+            out = getattr(query, "output_stream", None)
+            if not isinstance(out, InsertIntoStream) or query.selector is None:
+                return
+            tdef = self.stream_definitions.get(out.target_id)
+            if tdef is None:
+                return
+            for oa in query.selector.selection_list or []:
+                expr = oa.expression
+                if not isinstance(expr, AttributeFunction):
+                    continue
+                name = expr.name.lower()
+                if name == "unionset" and expr.parameters:
+                    tdef.object_multi_attrs = (
+                        set(getattr(tdef, "object_multi_attrs", None) or set())
+                        | {oa.name})
+                    elem = elem_of(query, expr.parameters[0])
+                elif name == "createset":
+                    elem = elem_of(query, expr)
+                else:
+                    continue
+                if elem is not None:
+                    tdef.object_elem_types = {
+                        **(getattr(tdef, "object_elem_types", None) or {}),
+                        oa.name: elem}
+
+        for element in siddhi_app.execution_elements:
+            if isinstance(element, Query):
+                scan(element)
+            elif isinstance(element, Partition):
+                for q in element.queries:
+                    scan(q)
 
     # ------------------------------------------------------------- API
 
@@ -159,15 +271,36 @@ class SiddhiAppRuntime:
         return self.input_manager.get_input_handler(stream_id)
 
     def add_callback(self, id_: str, callback):
-        """addCallback(streamId, StreamCallback)."""
-        if not isinstance(callback, StreamCallback):
-            raise TypeError(
-                f"unsupported callback type {type(callback)} (query callbacks "
-                f"are not ported yet)")
-        if id_ not in self.junctions:
-            raise SiddhiAppValidationException(f"stream '{id_}' is not defined")
-        callback.stream_id = id_
-        self.junctions[id_].subscribe(callback)
+        """addCallback(streamId, StreamCallback) or (queryName,
+        QueryCallback), the reference SiddhiAppRuntimeImpl overloads."""
+        if isinstance(callback, StreamCallback):
+            if id_ not in self.junctions:
+                raise SiddhiAppValidationException(f"stream '{id_}' is not defined")
+            callback.stream_id = id_
+            self.junctions[id_].subscribe(callback)
+        elif isinstance(callback, QueryCallback):
+            if id_ not in self.query_runtimes:
+                raise SiddhiAppValidationException(f"query '{id_}' not found")
+            callback.query_name = id_
+            self.query_runtimes[id_].query_callbacks.append(callback)
+        else:
+            raise TypeError(f"unsupported callback type {type(callback)}")
+
+    addCallback = add_callback
+
+    def remove_callback(self, callback):
+        """Detach a Stream/QueryCallback: events sent after the removal no
+        longer reach it (reference SiddhiAppRuntimeImpl.removeCallback)."""
+        if isinstance(callback, StreamCallback):
+            j = self.junctions.get(getattr(callback, "stream_id", ""))
+            if j is not None and callback in j.receivers:
+                j.receivers.remove(callback)
+        elif isinstance(callback, QueryCallback):
+            for qr in self.query_runtimes.values():
+                if callback in qr.query_callbacks:
+                    qr.query_callbacks.remove(callback)
+
+    removeCallback = remove_callback
 
     def start(self):
         """Nothing to start in the ported slice: it has no triggers,

@@ -7,6 +7,7 @@ Counterpart of ``siddhi_tpu/core/context.py``. The app context holds the
 from __future__ import annotations
 
 import time
+from typing import Dict
 
 import torch
 
@@ -19,6 +20,9 @@ class SiddhiContext:
     def __init__(self, device: torch.device):
         self.device = device
         self.config_manager = None
+        # custom extensions by name (SiddhiManager.set_extension), e.g.
+        # 'function:custom:plus' -> a ScalarFunction class
+        self.extensions: Dict[str, type] = {}
 
 
 class TimestampGenerator:
@@ -67,3 +71,5 @@ class SiddhiAppContext:
         # exchange transport of device-routed queries; on one card both
         # values run the ring_exchange kernel (parallel/mesh.py)
         self.shard_exchange = "all_to_all"
+        # value slots per group of a distinctCount/unionSet table
+        self.distinct_values_capacity = 64

@@ -8,7 +8,11 @@ CURRENT/EXPIRED/TIMER/RESET event types are an int8 column.
 The string dictionary encodes bulk columns through the native mirror
 (``native/strdict.cpp``), as the reference does; its pure-Python probe is
 kept as the plain version the tests hold the native one against.
-Set-valued (OBJECT) attributes are not ported yet.
+
+Set-valued (OBJECT) attributes: a singleton set (a ``createSet`` output)
+is one int64 column holding its element's identity code; a multi-element
+set (a ``unionSet`` output) is its live count plus ``'<name>#set'``
+(element codes) and ``'<name>#setm'`` (live mask) ``[B, H]`` companions.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from siddhi_tpu_torch.ops.expressions import TS_KEY, TYPE_KEY, VALID_KEY
+from siddhi_tpu_torch.ops.expressions import (
+    TS_KEY, TYPE_KEY, VALID_KEY, decode_set_element, encode_set_value)
 from siddhi_tpu_torch.ops.types import dtype_of
 from siddhi_tpu_torch.query_api.definitions import AbstractDefinition, AttrType
 
@@ -329,11 +334,14 @@ class HostBatch:
                 cols[TYPE_KEY][:n][expired] = EXPIRED
         rows = [ev.data for ev in events]
         for pos, attr in enumerate(definition.attributes):
-            _require_ported_type(attr)
             arr = np.zeros(b, dtype_of(attr.type))
             # null masks are always present so the column set is static
             mask = np.zeros(b, bool)
-            if n:
+            if n and attr.type == AttrType.OBJECT:
+                _encode_object_column(cols, arr, mask, attr.name, b,
+                                      [r[pos] for r in rows], definition,
+                                      dictionary)
+            elif n:
                 col = np.fromiter((r[pos] for r in rows), object, n)
                 if attr.type == AttrType.STRING:
                     ids = dictionary.encode_array(col)
@@ -375,7 +383,6 @@ class HostBatch:
             ts[:n] = default_ts
         cols[TS_KEY] = ts
         for attr in definition.attributes:
-            _require_ported_type(attr)
             if attr.name not in data:
                 raise KeyError(f"column '{attr.name}' missing from batch")
             src = np.asarray(data[attr.name])
@@ -399,8 +406,14 @@ class HostBatch:
         return HostBatch(cols)
 
     def to_events(self, attr_order: Sequence[tuple],
-                  dictionary: StringDictionary) -> List[Event]:
-        """Decode valid rows into Events."""
+                  dictionary: StringDictionary,
+                  object_meta: Optional[Dict[str, object]] = None,
+                  object_multi: Optional[set] = None) -> List[Event]:
+        """Decode valid rows into Events. ``object_meta`` maps OBJECT (set-
+        valued) attributes to their element AttrType (raw int codes
+        without it); ``object_multi`` names the multi-element ones, whose
+        decode raises when their '#set' companions were dropped instead
+        of emitting the live count as a singleton."""
         types = np.asarray(self.cols[TYPE_KEY])
         ts = np.asarray(self.cols[TS_KEY])
         idx = np.nonzero(np.asarray(self.cols[VALID_KEY]))[0]
@@ -409,7 +422,11 @@ class HostBatch:
         col_lists: List[list] = []
         for key, attr_type in attr_order:
             vals = np.asarray(self.cols[key])[idx]
-            if attr_type == AttrType.STRING:
+            if attr_type == AttrType.OBJECT:
+                lst = self._decode_sets(key, vals, idx, dictionary,
+                                        (object_meta or {}).get(key),
+                                        bool(object_multi) and key in object_multi)
+            elif attr_type == AttrType.STRING:
                 lst = [dictionary.decode(int(v)) for v in vals]
             elif attr_type == AttrType.BOOL:
                 lst = [bool(v) for v in vals]
@@ -429,9 +446,64 @@ class HostBatch:
         return [Event(timestamp=t, data=list(r), is_expired=e)
                 for t, e, r in zip(ts_l, exp_l, rows)]
 
+    def _decode_sets(self, key, vals, idx, dictionary, elem_t, multi) -> list:
+        """Set values of the rows ``idx``: from the '#set'/'#setm'
+        companions (unionSet snapshots), else one singleton per row whose
+        value is the element code (createSet transport)."""
+        snap = self.cols.get(key + "#set")
+        if snap is not None:
+            sv = np.asarray(snap)[idx]
+            sm = np.asarray(self.cols[key + "#setm"])[idx]
+            return [frozenset(decode_set_element(c, elem_t, dictionary)
+                              for c in row_v[row_m])
+                    for row_v, row_m in zip(sv, sm)]
+        if multi:
+            # the base column of a multi set is its live COUNT: decoding it
+            # as an element would be silent garbage
+            raise ValueError(
+                f"multi-element set attribute '{key}' lost its '#set' "
+                f"element snapshot (a window buffers only the base column); "
+                f"project it before windowing")
+        return [frozenset([decode_set_element(v, elem_t, dictionary)])
+                for v in vals]
 
-def _require_ported_type(attr) -> None:
-    if attr.type == AttrType.OBJECT:
-        raise ValueError(
-            f"attribute '{attr.name}': set-valued (object) attributes are "
-            f"not ported to siddhi_tpu_torch yet")
+
+def _encode_object_column(cols, arr, mask, name, b, values, definition,
+                          dictionary) -> None:
+    """Set ingestion from Events (reference ``HostBatch.from_events``).
+    Element codes follow the stream's recorded element type; a multi-
+    element attribute (a unionSet output) becomes its live count plus
+    '#set'/'#setm' companions as wide as the largest set, a singleton its
+    element code. Fills ``arr``/``mask`` and adds the companions."""
+    elem_t = (getattr(definition, "object_elem_types", None) or {}).get(name)
+    multi = name in (getattr(definition, "object_multi_attrs", None) or set())
+    as_sets, nulls = [], []
+    for i, val in enumerate(values):
+        if val is None:
+            nulls.append(i)
+            as_sets.append(frozenset())
+        elif isinstance(val, (set, frozenset)):
+            as_sets.append(val)
+        else:
+            as_sets.append(frozenset([val]))
+    if multi:
+        H = max(1, max((len(s) for s in as_sets), default=1))
+        snap = np.zeros((b, H), np.int64)
+        snapm = np.zeros((b, H), bool)
+        for i, s in enumerate(as_sets):
+            for j, el in enumerate(s):
+                snap[i, j] = encode_set_value(el, elem_t, dictionary)
+                snapm[i, j] = True
+            arr[i] = len(s)
+        cols[name + "#set"] = snap
+        cols[name + "#setm"] = snapm
+    else:
+        for i, s in enumerate(as_sets):
+            if len(s) > 1:
+                raise ValueError(
+                    f"attribute '{name}' carries singleton sets (createSet "
+                    f"transport); got a multi-element set")
+            if s:
+                arr[i] = encode_set_value(next(iter(s)), elem_t, dictionary)
+    if nulls:
+        mask[nulls] = True

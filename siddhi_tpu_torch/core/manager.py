@@ -51,6 +51,13 @@ class SiddhiManager:
     def set_config_manager(self, config_manager):
         self.siddhi_context.config_manager = config_manager
 
+    def set_extension(self, name: str, clazz: type):
+        """Register a custom extension (reference SiddhiManager.java:213),
+        e.g. ``set_extension("function:custom:plus", Plus)``."""
+        self.siddhi_context.extensions[name] = clazz
+
+    setExtension = set_extension
+
     def shutdown(self):
         for rt in list(self.app_runtimes.values()):
             rt.shutdown()

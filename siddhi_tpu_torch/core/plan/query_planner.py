@@ -3,12 +3,14 @@
 Counterpart of ``plan_query`` in ``siddhi_tpu/core/plan/query_planner.py``
 for the shapes the port runs: a single input stream with filters and at
 most one length window (keyed inside a partition, per query outside), a
-selector with every aggregator but distinctCount/unionSet, ``group by``,
-``having``, ``order by`` and ``limit``/``offset``. An unpartitioned
-length window whose aggregators are all invertible takes the fused stage
-(``ops/fused_agg.py``), as the reference decides it. Joins, patterns,
-stream functions, casts, ``in <table>`` probes and the other windows are
-not ported yet and raise ``CompileError`` naming the construct.
+selector with every aggregator, ``group by``, ``having``, ``order by``
+and ``limit``/``offset``, and function calls anywhere an expression
+stands. An unpartitioned length window whose aggregators are all
+invertible takes the fused stage (``ops/fused_agg.py``), as the reference
+decides it. Joins, patterns, stream functions, casts between strings and
+numbers (host parse stages in the reference), ``in <table>`` probes and
+the other windows are not ported yet and raise ``CompileError`` naming
+the construct.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ def plan_query(query: Query, query_name: str, app_context,
         resolver=resolver,
         output_event_type=output_event_type,
         dictionary=dictionary,
+        app_context=app_context,
     )
     selector_plan.num_keys = app_context.initial_key_capacity
 

@@ -15,12 +15,16 @@ Semantics reproduced (reference ``QuerySelector.processGroupBy``):
 - ``order by`` / ``offset`` / ``limit`` apply per output chunk (batch),
   limit after the sort.
 
-Batch-window chunk collapsing is not ported yet (no batch window is).
+Set-valued (OBJECT) outputs carry their element type (``object_meta``)
+and, for multi-element sets, their '#set'/'#setm' companions
+(``set_cols``, ``object_multi``); ``uuid()`` outputs are filled on the
+host after the step (``uuid_cols``). Batch-window chunk collapsing is not
+ported yet (no batch window is).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -38,6 +42,8 @@ from siddhi_tpu_torch.ops.expressions import (
     Resolver,
     compile_condition,
     compile_expr,
+    take_object_elem_marker,
+    take_uuid_marker,
 )
 from siddhi_tpu_torch.query_api.definitions import AttrType
 from siddhi_tpu_torch.query_api.execution import Selector
@@ -57,9 +63,8 @@ def _rewrite_aggregators(expr: Expression, specs: List[agg_ops.AggSpec],
     """Replace aggregator calls with synthetic Variables bound to scan
     output columns."""
     if isinstance(expr, AttributeFunction) and not expr.namespace \
-            and expr.name.lower() in _KNOWN_AGGREGATORS:
+            and expr.name.lower() in agg_ops.supported_aggregators():
         kind = expr.name.lower()
-        agg_ops.check_ported(kind)
         if kind == "count":
             if len(expr.parameters) > 1:
                 raise CompileError("count() accepts at most one argument")
@@ -81,9 +86,25 @@ def _rewrite_aggregators(expr: Expression, specs: List[agg_ops.AggSpec],
                 f"{kind}() expects a bool attribute but found "
                 f"{arg_t.value if arg_t else None}")
         out_key = f"__agg{len(specs)}__"
-        specs.append(agg_ops.AggSpec(
+        spec = agg_ops.AggSpec(
             kind=kind, arg_fn=arg_f, arg_type=arg_t, out_key=out_key,
-            out_type=agg_ops.agg_result_type(kind, arg_t)))
+            out_type=agg_ops.agg_result_type(kind, arg_t))
+        if kind == "unionset":
+            if arg_t != AttrType.OBJECT:
+                raise CompileError(
+                    "Parameter passed to unionSet aggregator should be of "
+                    f"type object but found: {arg_t.value if arg_t else None}")
+            # element type for decode: a nested createSet() marks it; a
+            # bare set attribute carries it on its stream definition (and
+            # its column key locates the '#set' companions to re-union)
+            spec.elem_type = take_object_elem_marker()
+            param = expr.parameters[0]
+            if isinstance(param, Variable):
+                spec.arg_key = resolver.resolve(param).key
+                spec.arg_is_multi = _is_multi(resolver, param)
+                if spec.elem_type is None:
+                    spec.elem_type = _elem_type_of(resolver, param)
+        specs.append(spec)
         return Variable(attribute_name=out_key)
     for attr_name in ("left", "right", "expression"):
         child = getattr(expr, attr_name, None)
@@ -95,11 +116,20 @@ def _rewrite_aggregators(expr: Expression, specs: List[agg_ops.AggSpec],
     return expr
 
 
-# every aggregator name the reference knows, so an unported one is named
-# as such instead of failing as an unknown function
-_KNOWN_AGGREGATORS = ("sum", "count", "avg", "stddev", "and", "or", "min",
-                      "max", "minforever", "maxforever", "distinctcount",
-                      "unionset")
+def _elem_type_of(resolver, var: Variable):
+    """Set-element type of an object attribute, recorded on its stream
+    definition by the app assembler (None = decode raw codes)."""
+    defn = getattr(resolver, "definition", None)
+    meta = getattr(defn, "object_elem_types", None)
+    return meta.get(var.attribute_name) if meta else None
+
+
+def _is_multi(resolver, var: Variable) -> bool:
+    """Whether an object attribute is a multi-element set (a unionSet
+    output), per its stream definition's assembler metadata."""
+    defn = getattr(resolver, "definition", None)
+    multi = getattr(defn, "object_multi_attrs", None)
+    return bool(multi) and var.attribute_name in multi
 
 
 @dataclass
@@ -120,6 +150,17 @@ class SelectorPlan:
     # a fused upstream stage (ops/fused_agg.py) already computed the
     # aggregate columns: no state, no scans, just project and filter
     precomputed: bool = False
+    # output columns whose value is a host-generated UUID per row (the
+    # step emits placeholders; QueryRuntime._emit fills them)
+    uuid_cols: List[str] = field(default_factory=list)
+    # OBJECT set outputs: (out name, source column key) pairs whose
+    # '#set'/'#setm' companions ride along, and out name -> element
+    # AttrType for event decode (None = raw int codes)
+    set_cols: List[Tuple[str, str]] = field(default_factory=list)
+    object_meta: Dict[str, Optional[AttrType]] = field(default_factory=dict)
+    # outputs that are multi-element sets (unionSet results): their base
+    # column is the live count; a singleton's is the element code
+    object_multi: List[str] = field(default_factory=list)
 
     @property
     def needs_str_rank(self) -> bool:
@@ -156,6 +197,9 @@ class SelectorPlan:
             # no window stage: rows are input-aligned, so the original
             # batch position IS the emission order
             out[OKEY_KEY] = cols[RIDX_KEY]
+        if "__agg_overflow__" in cols:
+            # a full distinctCount/unionSet value table rides the meta
+            out["__overflow__"] = cols["__agg_overflow__"]
         B = ts.shape[0]
         xp = ctx["xp"]
         for name, fn, _t in self.projections:
@@ -164,6 +208,11 @@ class SelectorPlan:
             if m is not None:
                 # scalar masks (typed null literals) take row shape
                 out[name + "?"] = xp.asarray(m).expand(B)
+        for name, src in self.set_cols:
+            # a set-valued output's element snapshot rides beside its count
+            for suf in ("#set", "#setm"):
+                if src + suf in cols:
+                    out[name + suf] = cols[src + suf]
 
         types = cols[TYPE_KEY]
         type_ok = (((types == CURRENT) & self.current_on)
@@ -174,6 +223,7 @@ class SelectorPlan:
         out[VALID_KEY] = valid
 
         if self.order_by:
+            overflow = out.pop("__overflow__", None)   # 0-d: not row-shaped
             # the last key of _lexsort is the primary one
             keys = []
             for col, desc, is_str in reversed(self.order_by):
@@ -194,6 +244,8 @@ class SelectorPlan:
             order = _lexsort(keys)
             out = {k: v[order] for k, v in out.items()}
             valid = out[VALID_KEY]
+            if overflow is not None:
+                out["__overflow__"] = overflow
 
         # sort, then offset/limit (QuerySelector.java:192-198)
         if self.limit is not None or self.offset is not None:
@@ -219,7 +271,7 @@ def _lexsort(keys):
 
 def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
                   resolver: Resolver, output_event_type: str,
-                  dictionary) -> SelectorPlan:
+                  dictionary, app_context=None) -> SelectorPlan:
     specs: List[agg_ops.AggSpec] = []
     selections: List[Tuple[str, Expression]] = []
     if selector.select_all or not selector.selection_list:
@@ -229,14 +281,37 @@ def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
         for oa in selector.selection_list:
             selections.append((oa.name, oa.expression))
 
+    take_uuid_marker()          # clear stale markers (filters compile first)
+    take_object_elem_marker()
     projections = []
     output_attrs: List[Tuple[str, AttrType]] = []
+    uuid_cols: List[str] = []
+    set_cols: List[Tuple[str, str]] = []
+    object_meta: Dict[str, Optional[AttrType]] = {}
+    object_multi: List[str] = []
     for name, expr in selections:
+        n_specs = len(specs)
         rewritten = _rewrite_aggregators(expr, specs, resolver)
         _augment_synthetic(resolver, specs)
         fn, t = compile_expr(rewritten, resolver)
+        if take_uuid_marker():
+            uuid_cols.append(name)      # the host fills fresh UUIDs
         if t == AttrType.OBJECT:
-            raise CompileError("set-valued outputs are not ported yet")
+            # set-valued output: its element type (for decode) and source
+            # column (for the '#set' companions)
+            elem = take_object_elem_marker()     # a createSet in this expr
+            if isinstance(rewritten, Variable):
+                src = resolver.resolve(rewritten).key
+                for s in specs[n_specs:]:
+                    if s.out_key == src and s.kind == "unionset":
+                        elem = s.elem_type
+                        object_multi.append(name)
+                set_cols.append((name, src))
+                if elem is None:
+                    elem = _elem_type_of(resolver, rewritten)
+                if name not in object_multi and _is_multi(resolver, rewritten):
+                    object_multi.append(name)   # pass-through of a multi set
+            object_meta[name] = elem
         projections.append((name, fn, t))
         output_attrs.append((name, t))
 
@@ -255,6 +330,11 @@ def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
         order_by.append((ref.key, ob.order == "desc",
                          ref.type == AttrType.STRING))
 
+    if app_context is not None:
+        for spec in specs:
+            if spec.kind in agg_ops.DISTINCT_KINDS:
+                spec.distinct_capacity = app_context.distinct_values_capacity
+
     return SelectorPlan(
         specs=specs,
         projections=projections,
@@ -266,6 +346,10 @@ def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
         order_by=order_by,
         limit=selector.limit,
         offset=selector.offset,
+        uuid_cols=uuid_cols,
+        set_cols=set_cols,
+        object_meta=object_meta,
+        object_multi=object_multi,
     )
 
 

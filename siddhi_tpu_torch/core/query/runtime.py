@@ -5,7 +5,10 @@ the runtime a columnar batch, the runtime computes partition- and group-
 key ids host-side (dense dictionaries), moves the columns to its device,
 runs the step (filters + window + selector as torch ops, with the state
 updated in place), pulls the packed ``[overflow, notify, count]`` meta in
-one copy and emits the output rows.
+one copy, raises ``FatalQueryError`` on a capacity overflow and emits the
+output rows: columnar into the output stream, decoded to Events for the
+query's ``QueryCallback``s (CURRENT rows as ``in_events``, EXPIRED as
+``remove_events``), with ``uuid()`` columns filled on the host first.
 
 The port dispatches synchronously (the reference's ``pipeline_depth`` 1):
 ``siddhi_tpu.pipeline_depth`` is accepted, and with synchronous sends the
@@ -15,6 +18,7 @@ visible output is the same at any depth.
 from __future__ import annotations
 
 import threading
+import uuid
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -123,6 +127,7 @@ class QueryRuntime(Receiver):
         self._state: Optional[dict] = None
         self._step = None
         self._route_layout = None  # parallel.mesh.device_route_query_step
+        self.query_callbacks: List = []
         self._lock = threading.RLock()
 
     # ---------------------------------------------------------------- state
@@ -228,7 +233,10 @@ class QueryRuntime(Receiver):
 
     def process_batch(self, batch: HostBatch):
         with self._lock:
-            cols = dict(batch.cols)
+            # a re-published batch may hold device tensors: the keyers'
+            # reads pull them to the host in one copy, a step without
+            # keyers takes them as they are
+            cols = LazyColumns(batch.cols)
             partitioned = self.partition_ctx is not None
             pk = None
             if partitioned:
@@ -265,14 +273,22 @@ class QueryRuntime(Receiver):
                 f"pair than its quota; raise rows_per_shard={rps} "
                 f"(device_route_query_step) or split the batch")
 
-    def _to_device(self, cols: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in cols.items()}
+    def _to_device(self, cols: Dict) -> Dict[str, torch.Tensor]:
+        return {k: (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(v))).to(self.device)
+                for k, v in dict.items(cols)}
+
+    def overflow_knob_msg(self) -> str:
+        """The capacity-overflow message naming its knob. Of the ported
+        stages only a distinctCount/unionSet value table can fill (the
+        windows' rings never overflow)."""
+        return ("distinctCount/unionSet value table full — raise "
+                "app_context.distinct_values_capacity")
 
     def _finish_device_batch(self, step, cols) -> None:
-        """Run the step on the device, pull its meta, emit outputs. The
-        ported stages never overflow nor ask for a timer, so only the
-        routed overflow lane is checked."""
+        """Run the step on the device, pull its meta, raise on overflow
+        (a full value table is never clamped silently), emit outputs. The
+        ported stages never ask for a timer."""
         now = self._now()
         if self.selector_plan.needs_str_rank:
             # string order-by keys sort by lexicographic rank, not by id
@@ -287,6 +303,10 @@ class QueryRuntime(Receiver):
             rl.route_overflow_rows += int(meta[3])
             if int(meta[3]) > 0:
                 raise FatalQueryError(f"query '{self.name}': {self.route_overflow_msg()}")
+        if int(meta[0]) > 0:
+            raise FatalQueryError(
+                f"query '{self.name}': {self.overflow_knob_msg()} before "
+                f"creating the runtime")
         self._emit(HostBatch(out_host, size=int(meta[2])))
 
     def _emit(self, out: HostBatch):
@@ -296,11 +316,35 @@ class QueryRuntime(Receiver):
         if out.size == 0:
             return
         cols = out.cols
-        if self.selector_plan.expired_on:
+        sp = self.selector_plan
+        if sp.uuid_cols:
+            # uuid(): fresh UUID strings for every valid row of every uuid
+            # column, dictionary-encoded in one bulk pass
+            idx = np.nonzero(np.asarray(cols[VALID_KEY]))[0]
+            fresh = np.array([str(uuid.uuid4())
+                              for _ in range(idx.size * len(sp.uuid_cols))],
+                             dtype=object)
+            ids = self.dictionary.encode_array(fresh)
+            for ci, col in enumerate(sp.uuid_cols):
+                vals = np.asarray(cols[col]).copy()
+                vals[idx] = ids[ci * idx.size:(ci + 1) * idx.size]
+                cols[col] = vals
+        events = None
+        if self.query_callbacks:
+            # decoded before the EXPIRED -> CURRENT flip of the re-publish
+            events = out.to_events(self.output_attrs, self.dictionary,
+                                   object_meta=sp.object_meta or None,
+                                   object_multi=set(sp.object_multi) or None)
+        if sp.expired_on:
             # EXPIRED -> CURRENT on re-publish (InsertIntoStreamCallback)
             t = cols[TYPE_KEY]
             cols[TYPE_KEY] = np.where(t == EXPIRED, CURRENT, t).astype(np.int8)
         self.output_junction.send_batch(HostBatch(cols, size=out._size))
+        if events:
+            in_events = [e for e in events if not e.is_expired] or None
+            remove_events = [e for e in events if e.is_expired] or None
+            for cb in self.query_callbacks:
+                cb.receive(events[0].timestamp, in_events, remove_events)
 
 
 def backfill_null_masks(batch: HostBatch, definition) -> None:
@@ -314,12 +358,15 @@ def backfill_null_masks(batch: HostBatch, definition) -> None:
 
 def pack_meta(out: dict) -> dict:
     """Fold overflow/notify/valid-count into ONE int64 tensor so the host
-    pays a single device-to-host copy per batch. The ported stages never
-    overflow nor ask for a timer: overflow is 0 and notify -1."""
+    pays a single device-to-host copy per batch. The overflow lane carries
+    the selector's ``__overflow__`` (a full distinct value table); the
+    ported stages never ask for a timer, so notify is -1."""
     valid = out[VALID_KEY]
+    ov = out.pop("__overflow__", None)
+    ov = (torch.zeros((), dtype=torch.int64, device=valid.device) if ov is None
+          else ov.to(torch.int64).reshape(()))
     out["__meta__"] = torch.stack([
-        torch.zeros((), dtype=torch.int64, device=valid.device),
-        torch.full((), -1, dtype=torch.int64, device=valid.device),
+        ov, torch.full((), -1, dtype=torch.int64, device=valid.device),
         valid.sum(dtype=torch.int64)])
     return out
 

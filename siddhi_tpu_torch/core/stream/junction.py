@@ -59,7 +59,9 @@ class StreamJunction:
     def decode_events(self, batch) -> List[Event]:
         return batch.to_events(
             [(a.name, a.type) for a in self.definition.attributes],
-            self.app_context.string_dictionary)
+            self.app_context.string_dictionary,
+            object_meta=getattr(self.definition, "object_elem_types", None),
+            object_multi=getattr(self.definition, "object_multi_attrs", None))
 
     def send_batch(self, batch):
         """Columnar publish (no Event objects), delivered as one unit."""

@@ -58,6 +58,10 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
         _install_routed(runtime, layout, state_tree, sel_keys, win_keys)
         return
     runtime.selector_plan.num_keys = sel_keys
+    for i, spec in enumerate(runtime.selector_plan.specs):
+        st = (state_tree.get("sel") or {}).get(f"a{i}")
+        if isinstance(st, dict):       # a value table keeps its width H
+            spec.distinct_capacity = int(np.asarray(st["vk"]).shape[1])
     if runtime.partition_ctx is not None:
         runtime._win_keys = win_keys
     runtime._state = _to_tensors(state_tree, runtime.device)
@@ -65,10 +69,15 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
 
 
 def _sel_capacity(runtime, state_tree) -> int:
+    """Key capacity of the selector state: ``[slots, K]`` per aggregator,
+    or a distinctCount/unionSet table ``{vk [K, H], vc, stamp, eb}``."""
     sel = state_tree.get("sel") or {}
     if not sel:
         return runtime.selector_plan.num_keys
-    return int(np.asarray(next(iter(sel.values()))).shape[-1])
+    st = next(iter(sel.values()))
+    if isinstance(st, dict):
+        return int(np.asarray(st["vk"]).shape[0])
+    return int(np.asarray(st).shape[-1])
 
 
 def _to_tensors(tree, device):

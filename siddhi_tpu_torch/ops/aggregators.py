@@ -1,10 +1,9 @@
 """Attribute aggregators as segmented prefix scans over dense keyed state.
 
-Counterpart of ``siddhi_tpu/ops/aggregators.py`` for every aggregator
-but distinctCount and unionSet (a sequential per-row scan in the
-reference), which raise ``CompileError`` until a later slice ports them.
+Counterpart of ``siddhi_tpu/ops/aggregators.py``.
 
-Per aggregator the state is one ``[slots, K]`` tensor. One batch:
+Per aggregator the state is one ``[slots, K]`` tensor, but for
+distinctCount and unionSet (below). One batch:
 CURRENT rows add, EXPIRED rows subtract, RESET rows reset every group
 (the reference's ``cleanGroupByStates``), and every row gets the running
 value after it. Rows are sorted by (group, position); persistent state
@@ -21,6 +20,14 @@ Torch has no associative scan, so ``_segmented_scan`` is a log-step
 (Hillis-Steele) scan: ceil(log2 B) passes of elementwise torch ops. It
 adds in another order than the reference, so float sums agree to
 rounding, not bit for bit; min/max are exact.
+
+distinctCount and unionSet keep a per-group table of (value code, count)
+slots, ``{vk [K, H], vc [K, H], stamp [K], eb ()}``, and run the distinct
+scan of ``ops/distinct.py`` (a hand-written CUDA kernel on the card),
+exact and bit for bit with the reference's sequential ``lax.scan``.
+unionSet also emits each row's live-element snapshot as ``[B, H]``
+'#set'/'#setm' companions, and folds a multi-element input set (an
+upstream unionSet's companions) element by element.
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch.ops import types as T
-from siddhi_tpu_torch.ops.expressions import TYPE_KEY, VALID_KEY, CompileError
+from siddhi_tpu_torch.ops.distinct import distinct_scan
+from siddhi_tpu_torch.ops.expressions import (
+    TYPE_KEY, VALID_KEY, CompileError, _encode_set_element)
 from siddhi_tpu_torch.ops.scatter import put_where_
 from siddhi_tpu_torch.query_api.definitions import AttrType
 
@@ -58,7 +67,11 @@ _AGG_DEFS = {
     "max": _AggDef(2, "max"),
     "minforever": _AggDef(2, "min"),
     "maxforever": _AggDef(2, "max"),
+    # per-group value tables, run by the distinct scan (_apply_distinct)
+    "distinctcount": _AggDef(1, "add"),
+    "unionset": _AggDef(1, "add"),
 }
+DISTINCT_KINDS = ("distinctcount", "unionset")
 
 
 @dataclass
@@ -70,6 +83,12 @@ class AggSpec:
     arg_type: Optional[AttrType]
     out_key: str                   # synthetic output column name (__agg<i>__)
     out_type: AttrType = AttrType.DOUBLE
+    distinct_capacity: int = 64    # distinctCount/unionSet: value slots H
+    arg_key: Optional[str] = None  # unionSet: column key of a bare-Variable
+    #                                argument (to find its '#set' companions)
+    elem_type: Optional[AttrType] = None  # unionSet: set element type
+    arg_is_multi: bool = False     # unionSet: the argument is a multi-element
+    #                                set (companions required; base = count)
 
     @property
     def slots(self) -> int:
@@ -77,11 +96,11 @@ class AggSpec:
 
 
 def agg_result_type(kind: str, arg_type: Optional[AttrType]) -> AttrType:
-    """sum: LONG for int/long input, DOUBLE otherwise; count: LONG;
-    avg/stdDev: DOUBLE; and/or: BOOL; min/max keep the input type
-    (reference aggregator executors)."""
+    """sum: LONG for int/long input, DOUBLE otherwise; count and
+    distinctCount: LONG; avg/stdDev: DOUBLE; and/or: BOOL; unionSet:
+    OBJECT; min/max keep the input type (reference aggregator executors)."""
     check_ported(kind)
-    if kind == "count":
+    if kind in ("count", "distinctcount"):
         return AttrType.LONG
     if kind in ("avg", "stddev"):
         return AttrType.DOUBLE
@@ -91,6 +110,8 @@ def agg_result_type(kind: str, arg_type: Optional[AttrType]) -> AttrType:
         return AttrType.DOUBLE
     if kind in ("and", "or"):
         return AttrType.BOOL
+    if kind == "unionset":
+        return AttrType.OBJECT
     return arg_type
 
 
@@ -152,9 +173,20 @@ def _reset_(st: torch.Tensor, kind: str, when: Optional[torch.Tensor] = None) ->
 
 
 def init_agg_state(specs: List[AggSpec], num_keys: int, device) -> dict:
-    """State dict: per spec a [slots, K] tensor at its fold identities."""
+    """State dict: per spec a [slots, K] tensor at its fold identities, or
+    for distinctCount/unionSet an empty value table (``vc`` -1 = never
+    used; ``stamp``/``eb`` the lazy-RESET epochs)."""
     state = {}
     for i, spec in enumerate(specs):
+        if spec.kind in DISTINCT_KINDS:
+            H = spec.distinct_capacity
+            state[f"a{i}"] = {
+                "vk": torch.zeros((num_keys, H), dtype=torch.int64, device=device),
+                "vc": torch.full((num_keys, H), -1, dtype=torch.int32, device=device),
+                "stamp": torch.zeros((num_keys,), dtype=torch.int64, device=device),
+                "eb": torch.zeros((), dtype=torch.int64, device=device),
+            }
+            continue
         st = torch.empty((spec.slots, num_keys),
                          dtype=T.to_torch_dtype(_slot_dtype(spec)), device=device)
         _reset_(st, spec.kind)
@@ -243,6 +275,53 @@ def _segmented_scan(comb, blocked, vals):
     return v
 
 
+def _apply_distinct(spec: AggSpec, st: dict, cols: dict, ctx: dict,
+                    num_keys: int, gk, participates, epoch_before,
+                    final_epoch) -> dict:
+    """distinctCount / unionSet: the exact per-row running multiset of
+    live values per group (reference DistinctCount/UnionSet executors: +1
+    on a value's CURRENT, -1 on its EXPIRED; a value is live while its
+    count > 0), updating ``st`` in place. Adds the live count column,
+    unionSet's '#set'/'#setm' snapshots and ``__agg_overflow__``."""
+    types = cols[TYPE_KEY]
+    xp = ctx["xp"]
+    R = gk.shape[0]
+    v, null_m = spec.arg_fn(cols, ctx)
+    v = _encode_set_element(xp, v, spec.arg_type).expand(R).contiguous()
+    set_in = set_in_m = None
+    if spec.kind == "unionset" and spec.arg_key is not None:
+        set_in = cols.get(spec.arg_key + "#set")
+        if set_in is not None:
+            set_in_m = cols[spec.arg_key + "#setm"]
+        elif spec.arg_is_multi:
+            # the base column of a multi set is its live COUNT: folding
+            # counts as element codes would be silent garbage
+            raise CompileError(
+                f"unionSet over multi-element set attribute "
+                f"'{spec.arg_key}' requires its element snapshot, but the "
+                f"'#set' companions were dropped (a window between the "
+                f"producing unionSet and this one buffers only the base "
+                f"column); apply unionSet before the window instead")
+    part = participates
+    if null_m is not None and set_in is None:
+        part = part & ~xp.asarray(null_m)
+    delta = torch.where(types == CURRENT, 1, -1).to(torch.int32)
+    g = torch.clamp(gk, 0, num_keys - 1)
+    ep = st["eb"] + epoch_before.to(torch.int64)
+    nd, snap_vk, snap_live, overflow = distinct_scan(
+        st["vk"], st["vc"], st["stamp"], g, v, delta, part.expand(R).contiguous(),
+        ep, set_in, set_in_m, emit_set=spec.kind == "unionset")
+    st["eb"].add_(final_epoch.to(torch.int64))
+    cols[spec.out_key] = nd
+    if snap_vk is not None:
+        cols[spec.out_key + "#set"] = snap_vk
+        cols[spec.out_key + "#setm"] = snap_live
+    ov = overflow.to(torch.int32)
+    prev = cols.get("__agg_overflow__")
+    cols["__agg_overflow__"] = ov if prev is None else torch.maximum(prev, ov)
+    return cols
+
+
 def apply_aggregators(specs: List[AggSpec], state: dict, cols: dict, ctx: dict,
                       num_keys: int) -> Tuple[dict, dict]:
     """Run all aggregator scans for one batch, updating ``state`` in place.
@@ -259,6 +338,19 @@ def apply_aggregators(specs: List[AggSpec], state: dict, cols: dict, ctx: dict,
 
     participates = valid & ((types == CURRENT) | (types == EXPIRED))
     is_reset = valid & (types == RESET)
+    epoch = torch.cumsum(is_reset.to(torch.int32), dim=0)  # epoch AFTER each row
+    epoch_before = epoch - is_reset.to(torch.int32)        # resets strictly before
+    final_epoch = epoch[B - 1]
+
+    cols = dict(cols)
+    for i, spec in enumerate(specs):
+        if spec.kind in DISTINCT_KINDS:
+            cols = _apply_distinct(spec, state[f"a{i}"], cols, ctx, K, gk,
+                                   participates, epoch_before, final_epoch)
+    scans = [(i, spec) for i, spec in enumerate(specs)
+             if spec.kind not in DISTINCT_KINDS]
+    if not scans:
+        return state, cols
     any_reset = is_reset.any()
 
     # sort rows by group; pad/invalid rows and RESET rows (which act on ALL
@@ -269,10 +361,7 @@ def apply_aggregators(specs: List[AggSpec], state: dict, cols: dict, ctx: dict,
     inv_order[order] = torch.arange(B, dtype=torch.int64, device=dev)
 
     gk_sorted = sort_gk[order]
-    epoch = torch.cumsum(is_reset.to(torch.int32), dim=0)  # epoch AFTER each row
-    epoch_before = epoch - is_reset.to(torch.int32)        # resets strictly before
     epoch_sorted = epoch_before[order]
-    final_epoch = epoch[B - 1]
 
     first = torch.zeros(1, dtype=torch.bool, device=dev)
     last = torch.ones(1, dtype=torch.bool, device=dev)
@@ -286,8 +375,7 @@ def apply_aggregators(specs: List[AggSpec], state: dict, cols: dict, ctx: dict,
     upd_mask = last_of_group & (epoch_sorted == final_epoch) & live
     safe_gk = torch.clamp(gk_sorted, max=K - 1)
 
-    cols = dict(cols)
-    for i, spec in enumerate(specs):
+    for i, spec in scans:
         st = state[f"a{i}"]                              # [slots, K]
         comb = _combine(spec.kind)
         deltas_sorted = _deltas(spec, cols, ctx)[:, order]
@@ -306,6 +394,10 @@ def apply_aggregators(specs: List[AggSpec], state: dict, cols: dict, ctx: dict,
         if null_mask is not None:
             cols[spec.out_key + "?"] = null_mask
     return state, cols
+
+
+def supported_aggregators() -> Tuple[str, ...]:
+    return tuple(_AGG_DEFS)
 
 
 def check_ported(kind: str) -> None:

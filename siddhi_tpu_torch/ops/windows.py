@@ -34,9 +34,12 @@ _BIG = 2 ** 62
 
 def _data_keys(cols: Dict) -> List[str]:
     """The columns a window buffers and emits (not types, validity or
-    the routed order keys)."""
+    the routed order keys). The '#set'/'#setm' companions of multi-element
+    sets never enter a window, as in the reference: only the base column
+    is buffered, and a downstream unionSet that needs the elements raises."""
     return sorted(k for k in cols
-                  if k not in (TYPE_KEY, VALID_KEY, RIDX_KEY, OKEY_KEY))
+                  if k not in (TYPE_KEY, VALID_KEY, RIDX_KEY, OKEY_KEY)
+                  and "#set" not in k)
 
 
 def _order_emit(parts) -> Tuple[Dict, torch.Tensor]:

@@ -236,6 +236,10 @@ def route_ineligibility(runtime) -> Optional[str]:
     sp = runtime.selector_plan
     if sp.order_by or sp.limit is not None or sp.offset is not None:
         return "order by / limit (batch-global ordering)"
+    distinct = [s.kind for s in sp.specs if s.kind in ("distinctcount", "unionset")]
+    if distinct:
+        return (f"{'/'.join(sorted(set(distinct)))} (routing [K, H] value "
+                f"tables over shards is not ported yet)")
     win = runtime.window_stage
     if win is not None and not isinstance(win, KeyedLengthWindowStage):
         return (f"window stage {type(win).__name__} (emission-order keys "

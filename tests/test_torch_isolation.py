@@ -38,16 +38,22 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_port_imports_and_runs_with_jax_unimportable():
-    """With ``jax`` made unimportable, the port still imports, builds the
-    slice's app on the CPU and answers a few events."""
+    """With ``jax`` made unimportable, the port still imports (the distinct
+    scan, extension and query-callback modules included), builds the
+    routed slice's app and a distinctCount/unionSet/extension app on the
+    CPU and answers a few events."""
     code = f"""
 import sys
 sys.modules["jax"] = None
 sys.modules["siddhi_tpu"] = None
 sys.path.insert(0, {str(ROOT)!r})
 import siddhi_tpu_torch
-from siddhi_tpu_torch import SiddhiManager, StreamCallback
+from siddhi_tpu_torch import QueryCallback, SiddhiManager, StreamCallback
+from siddhi_tpu_torch.core.query.callback import QueryCallback as QC2
+from siddhi_tpu_torch.extension import ScalarFunction
+from siddhi_tpu_torch.ops.distinct import distinct_scan, distinct_scan_plain
 from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+from siddhi_tpu_torch.query_api.definitions import AttrType
 APP = '''
 define stream StockStream (symbol string, price float, volume long);
 partition with (symbol of StockStream)
@@ -70,6 +76,27 @@ for i, (s, p, v) in enumerate([("A", 1.0, 1), ("B", 2.0, 2), ("A", 3.0, 3), ("A"
     h.send(i, [s, p, v])
 m.shutdown()
 assert c.rows == [["A", 1.0, 1], ["B", 2.0, 2], ["A", 2.0, 4], ["A", 4.0, 7]], c.rows
+class Q(QueryCallback):
+    def __init__(self): self.rows = []
+    def receive(self, ts, ins, rems): self.rows.extend(e.data for e in ins or [])
+class Twice(ScalarFunction):
+    return_type = AttrType.LONG
+    @staticmethod
+    def apply(xp, a): return xp.where(a > 0, a * 2, a)
+m = SiddhiManager(device="cpu")
+m.set_extension("function:twice", Twice)
+rt = m.create_siddhi_app_runtime('''
+define stream S (sym string, v long);
+@info(name = 'q') from S#window.length(2)
+select distinctCount(sym) as d, unionSet(createSet(v)) as u, twice(v) as t
+insert into O;''')
+q = Q(); rt.add_callback("q", q)
+h = rt.get_input_handler("S")
+for s, v in [("a", 1), ("a", 2), ("b", 2)]:
+    h.send([s, v])
+m.shutdown()
+assert q.rows == [[1, frozenset({{1}}), 2], [1, frozenset({{1, 2}}), 4],
+                  [2, frozenset({{2}}), 4]], q.rows
 assert "jax" not in {{k for k, v in sys.modules.items() if v is not None}}
 print("OK")
 """

@@ -117,3 +117,38 @@ def test_global_state_carried_from_jax_continues_identically(app, query, stage):
     port_rows = port.feed("StockStream", second).close()
     assert len(port_rows) == len(jax_rows) > 2 * 256 // 2
     assert_rows_match(port_rows, jax_rows)
+
+
+GLOBAL_DISTINCT = """
+define stream StockStream (symbol string, price float, volume long);
+@info(name = 'bench')
+from StockStream#window.length(40)
+select symbol, distinctCount(volume % 7) as vols,
+       unionSet(createSet(volume % 5)) as vs, avg(price) as avgPrice
+group by symbol
+insert into OutStream;
+"""
+
+
+def test_distinct_state_carried_from_jax_continues_identically():
+    """distinctCount/unionSet value tables (``{vk, vc, stamp, eb}`` per
+    aggregator, nested in ``sel``) install beside the window's ring, and
+    both packages continue the feed alike, sets included."""
+    feed = stock_feed(seed=7, n_batches=4, batch=256, n_symbols=30, n_events=6)
+    first, second = feed[:2], feed[2:]
+    jax_run = Run("jax", GLOBAL_DISTINCT, "OutStream", "bench")
+    send_feed(jax_run.rt, "StockStream", first)
+    jq = jax_run.query
+    tree = _reference_state(jax_run, None)
+    assert set(tree["sel"]["a0"]) == {"vk", "vc", "stamp", "eb"}
+    port = Run("torch", GLOBAL_DISTINCT, "OutStream", "bench")
+    load_reference_state(
+        port.query, tree,
+        dictionary_ids=list(jax_run.rt.app_context.string_dictionary._to_str),
+        group_keys={"map": dict(jq.keyer._map), "next": jq.keyer._next})
+    assert port.query.selector_plan.num_keys == tree["sel"]["a0"]["vk"].shape[0]
+    n_first = len(jax_run.collector.rows)
+    jax_rows = jax_run.feed("StockStream", second).close()[n_first:]
+    port_rows = port.feed("StockStream", second).close()
+    assert len(port_rows) == len(jax_rows) == 2 * 256 + 6
+    assert_rows_match(port_rows, jax_rows)
