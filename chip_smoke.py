@@ -56,18 +56,23 @@ Phases (any failure exits non-zero and prints no result line):
             D1, the global flagship's shape grouped by symbol with
             ``distinctCount(volume)`` and functions (H = 64, 8 batches);
             D2, ``distinctCount(symbol)`` over the whole window (one group,
-            H = 1024: the kernel's serial worst case); S, the unionSet
-            chain createSet -> ``#window.length(1000)`` unionSet group by
-            symbol -> sizeOfSet (3 batches). Checks: one distinct-scan
-            launch per batch, no overflow, one row out per row in; D1's
-            first two batches equal the port's CPU run; D2 kernel == plain
-            version on a cut of one batch, and every count equal to a numpy
-            count of distinct symbols over the trailing window; S's sizes
-            equal D1's counts row for row, and its first batch's unionSet
-            companions equal the CPU run's. Prints state bytes and events/s
-            of each, and the kernel at D1's and D2's shapes: CUDA-event ms
-            (L2 flushed), plain ms, host enqueue, device ms (torch.profiler),
-            byte bound and share, longest chain; a device profile of D1;
+            H = 1024: one chain of every row); D3, the same over
+            ``#window.length(10000)`` at H = 8192 (~6,300 symbols live);
+            S, the unionSet chain createSet -> ``#window.length(1000)``
+            unionSet group by symbol -> sizeOfSet (3 batches). Checks: one
+            distinct-scan launch per batch, no overflow, one row out per
+            row in; D1's first two batches equal the port's CPU run; D2's
+            and D3's kernel == plain version on a cut of one batch and ==
+            the host oracle ``scan_oracle`` on the whole batch, and every
+            count equal to a numpy count of distinct symbols over the
+            trailing window; S's sizes equal D1's counts row for row, and
+            its first batch's unionSet companions equal the CPU run's.
+            Prints state bytes and events/s of each, and the kernel at D1's,
+            D2's and D3's shapes: CUDA-event ms (L2 flushed), plain ms, host
+            enqueue, device ms (torch.profiler), ns per chain row, byte
+            bound and share, longest chain; D1's rows through each of the
+            kernel's paths at H = 32 to 256 (the crossover); a device
+            profile of D1;
 10. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -144,8 +149,11 @@ select symbol, unionSet(vs) as volumes group by symbol insert into VolStream;
 from VolStream select symbol, sizeOfSet(volumes) as n insert into OutStream;
 """
 D2_H = 1024                     # ~950 symbols are live at a time
-D2_CUT = 2048                   # rows of the kernel-vs-plain check at D2
-D2_RUNS = 10                    # timed runs at D2 (~0.22 s of kernel each)
+D2_CUT = 2048                   # rows of the kernel-vs-plain check at D2, D3
+D3_WINDOW = 10_000              # D3: ~6,300 of the 10,000 symbols live
+D3_H = 8192
+CROSSOVER_H = (32, 64, 128, 256)
+CROSSOVER_RUNS = 10
 S_BATCHES = 3
 WINDOW = 1000
 NUM_SYMBOLS = 10_000
@@ -558,16 +566,18 @@ def host_ms(fn, runs: int = TIMED_RUNS):
     return (t1 - t0) * 1e3 / runs
 
 
-def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS):
-    """Mean device time of the CUDA kernel whose name holds ``kernel``
+def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS, main=None):
+    """Mean device time of the CUDA kernels whose names hold ``kernel``
     over ``runs`` calls of ``fn``, each after an L2 flush (torch.profiler),
-    and how many of its launches the profiler recorded. The profiler can
+    and how many launches of the call's main kernel (names holding any of
+    ``main``; default ``kernel``) the profiler recorded. The profiler can
     miss a few launches of a kernel started through ctypes (on an H100 it
     saw 27 of 30 distinct-scan launches in one run), so the mean is over
     the launches it saw."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    main = (kernel,) if main is None else main
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -577,9 +587,9 @@ def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if kernel in e.key]
     us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
-    count = sum(e.count for e in events)
+    count = sum(e.count for e in events if any(m in e.key for m in main))
     _require(0 < count <= runs and us > 0,
-             f"profiler saw {count} launches of {kernel} with {us} us of device "
+             f"profiler saw {count} launches of {main} with {us} us of device "
              f"time for {runs} calls")
     return us / 1e3 / count, count
 
@@ -766,7 +776,8 @@ def time_scan(args, kwargs, flush, runs=TIMED_RUNS, plain_runs=TIMED_RUNS,
     host enqueue ms and device ms of the kernel, each over ``runs`` calls
     (``plain_runs`` for the plain version, on the first ``plain_cut``
     rows when given). Every call gets a fresh copy of the pre-call state
-    (the scan updates it in place)."""
+    (the scan updates it in place). Device ms is the whole launch: the
+    offsets kernel and the scan."""
     from siddhi_tpu_torch.ops.distinct import distinct_scan, distinct_scan_plain
 
     state, rows = args[:3], args[3:]
@@ -781,11 +792,83 @@ def time_scan(args, kwargs, flush, runs=TIMED_RUNS, plain_runs=TIMED_RUNS,
                                runs=plain_runs, flush=flush),
            "host_ms": host_ms(calls(distinct_scan, runs), runs=runs)}
     out["device_ms"], out["device_seen"] = device_ms(
-        calls(distinct_scan, runs), "distinct_scan_kernel", flush, runs=runs)
+        calls(distinct_scan, runs), "distinct_scan_", flush, runs=runs,
+        main=("distinct_scan_registers", "distinct_scan_hash"))
     out["runs"] = runs
     if plain_cut is not None:
         out["cut_ms"] = time_ms(calls(distinct_scan, plain_runs, plain_cut),
                                 runs=plain_runs, flush=flush)
+    return out
+
+
+def check_oracle(args, kwargs, what: str):
+    """The kernel over one whole recorded batch against ``scan_oracle`` on
+    the host: counts, snapshots, overflow and the updated state exactly
+    equal. Returns the oracle's host seconds."""
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    st = [t.clone() for t in args[:3]]
+    host = [t.cpu().numpy().copy() for t in args[:3]]
+    rows = [None if a is None else a.cpu().numpy() for a in args[3:]]
+    got = distinct_scan(*st, *args[3:], **kwargs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = scan_oracle(*host, *rows, **kwargs)
+    seconds = time.perf_counter() - t0
+    for name, a, b in zip(("counts", "snapshot keys", "snapshot mask"), got, want):
+        _require((a is None) == (b is None), f"{what}: kernel and oracle disagree "
+                 f"on whether there are {name}")
+        if a is not None:
+            _require(np.array_equal(a.cpu().numpy(), b),
+                     f"{what}: kernel {name} differ from the host oracle")
+    _require(bool(got[3]) == want[3], f"{what}: kernel overflow {bool(got[3])}, "
+             f"oracle {want[3]}")
+    for name, a, b in zip(("vk", "vc", "stamp"), st, host):
+        _require(np.array_equal(a.cpu().numpy(), b),
+                 f"{what}: kernel state {name} differs from the host oracle")
+    return seconds
+
+
+def crossover(args, kwargs, flush):
+    """D1's recorded rows over tables of each H in ``CROSSOVER_H`` (the
+    carried table cut or padded with never-used slots), through each of
+    the kernel's paths: the launch's device ms (torch.profiler, L2
+    flushed; a whole call is host-bound here, so CUDA events would time
+    the host), and every path's counts and state equal to the first's."""
+    import torch
+
+    from siddhi_tpu_torch.ops import distinct
+
+    vk, vc, stamp = args[:3]
+    rows = args[3:]
+    emit = kwargs.get("emit_set", False)
+    paths = {"registers": distinct.PATH_REGISTERS, "hash": distinct.PATH_HASH}
+    out = {}
+    for H in CROSSOVER_H:
+        k = min(H, vk.shape[1])
+        vk_h = torch.zeros((vk.shape[0], H), dtype=vk.dtype, device=vk.device)
+        vc_h = torch.full((vc.shape[0], H), -1, dtype=vc.dtype, device=vc.device)
+        vk_h[:, :k], vc_h[:, :k] = vk[:, :k], vc[:, :k]
+        ref = None
+        for name, path in paths.items():
+            st = [vk_h.clone(), vc_h.clone(), stamp.clone()]
+            got = distinct.launch(*st, *rows, emit, path)
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = (got, st)
+            else:
+                _require(torch.equal(got[0], ref[0][0]) and all(
+                    torch.equal(a, b) for a, b in zip(st, ref[1])),
+                    f"crossover H={H}: the hash path differs from registers")
+            pool = [[vk_h.clone(), vc_h.clone(), stamp.clone()]
+                    for _ in range(CROSSOVER_RUNS + 1)]
+            out[(H, name)], _seen = device_ms(
+                lambda: distinct.launch(*pool.pop(), *rows, emit, path),
+                "distinct_scan_", flush, runs=CROSSOVER_RUNS,
+                main=("distinct_scan_registers", "distinct_scan_hash"))
     return out
 
 
@@ -811,10 +894,134 @@ def sliding_distinct(symbols, window: int):
     return np.asarray(out, np.int64)
 
 
+def scan_oracle(vk, vc, stamp, g, v, delta, part, ep, set_in=None,
+                set_in_m=None, emit_set=False):
+    """The distinct scan as a sequential host model, independent of the
+    port: row by row in arrival order, each touched group keeps a dict
+    from value to a heap of its live slots (a carried-in table may hold a
+    value live in more than one slot; the lowest wins) and a heap of its
+    free slots (count <= 0), under the rules of ops/distinct.py: a row
+    whose epoch differs from the group's stamp reads the table as empty
+    and writes the reset only when it applies; an EXPIRED value with no
+    live slot writes its key into the lowest free slot with count 0; a
+    participating row that finds no slot overflows. numpy in, ``vk``,
+    ``vc`` and ``stamp`` updated in place; returns ``(nd, snap_vk,
+    snap_live, overflow)`` (the snapshots None unless ``emit_set``)."""
+    import heapq
+
+    import numpy as np
+
+    K, H = vk.shape
+    R = len(g)
+    nd = np.zeros(R, np.int64)
+    snap_vk = np.zeros((R, H), np.int64) if emit_set else None
+    snap_live = np.zeros((R, H), bool) if emit_set else None
+    overflow = False
+    tables = {}                 # group -> [value -> live slots, free slots, live]
+    gl, dl, pl, el = g.tolist(), delta.tolist(), part.tolist(), ep.tolist()
+    if set_in is None:
+        rows = ([(x, p)] for x, p in zip(v.tolist(), pl))
+    else:
+        rows = ([(x, p and m) for x, m in zip(xs, ms)]
+                for xs, ms, p in zip(set_in.tolist(), set_in_m.tolist(), pl))
+    for i, elems in enumerate(rows):
+        gi = gl[i]
+        t = tables.get(gi)
+        if t is None:
+            live = {}
+            for s in np.flatnonzero(vc[gi] > 0).tolist():
+                heapq.heappush(live.setdefault(int(vk[gi, s]), []), s)
+            t = tables[gi] = [live, np.flatnonzero(vc[gi] <= 0).tolist(),
+                              int((vc[gi] > 0).sum())]
+        fresh = int(stamp[gi]) != el[i]
+        applied = False
+        for val, p in elems:
+            live, free = t[0], t[1]
+            slots = None if fresh else live.get(val)
+            slot = slots[0] if slots else 0 if fresh else free[0] if free else None
+            if slot is None:
+                overflow |= bool(p)
+                continue
+            if not p:
+                continue
+            if fresh:               # the reset, written by the first applied element
+                vc[gi] = -1
+                t[:] = [{}, list(range(H)), 0]
+                live, free, fresh = t[0], t[1], False
+            newc = max((int(vc[gi, slot]) if slots else 0) + dl[i], 0)
+            vk[gi, slot] = val
+            vc[gi, slot] = newc
+            if not slots and newc > 0:      # born: the lowest free slot
+                heapq.heappop(free)
+                live[val] = [slot]
+                t[2] += 1
+            elif slots and newc == 0:       # died: the slot is free again
+                heapq.heappop(slots)
+                if not slots:
+                    del live[val]
+                heapq.heappush(free, slot)
+                t[2] -= 1
+            applied = True
+        if applied:
+            stamp[gi] = el[i]
+        nd[i] = 0 if fresh else t[2]
+        if emit_set:
+            snap_vk[i] = vk[gi]
+            snap_live[i] = False if fresh else vc[gi] > 0
+    return nd, snap_vk, snap_live, overflow
+
+
+def one_group(device, feed, label: str, window: int, H: int, flush, card: str,
+              on_start):
+    """``distinctCount(symbol)`` over a ``#window.length(window)`` with no
+    ``group by`` (one chain of every row) at ``H`` value slots: one launch
+    per batch, every count equal to ``sliding_distinct``'s; the kernel on
+    batch 3 == plain on its first ``D2_CUT`` rows and == ``scan_oracle``
+    on the whole batch; its timings. Returns (kernel facts, launches, max
+    abs error)."""
+    import numpy as np
+
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    n = len(feed)
+    with recording(at=2) as rec:
+        out, secs, facts = run_app(device, D2_APP.format(W=window), feed,
+                                   key_slots=None, capacity=H, on_start=on_start)
+    launches = distinct_scan.launches
+    _require(launches == n, f"{label}: {launches} launches for {n} batches")
+    got = np.concatenate([b["symbols"] for b in out["OutStream"]])
+    want = sliding_distinct(np.concatenate([c["symbol"] for c, _t in feed]), window)
+    _require(got.shape == want.shape and np.array_equal(got, want),
+             f"{label}: distinct symbols differ from the numpy count at "
+             f"{np.nonzero(got != want)[0][:5].tolist() if got.shape == want.shape else 'shape'}")
+    a, kw = rec.args, rec.kwargs
+    err = check_scan(a, kw, f"{label} scan", cut=D2_CUT)
+    oracle_s = check_oracle(a, kw, f"{label} scan")
+    k = {**scan_facts(a, kw),
+         **time_scan(a, kw, flush, plain_runs=1, plain_cut=D2_CUT)}
+    k["share"] = k["bound_ms"] / k["device_ms"]
+    k["ns_per_row"] = k["device_ms"] * 1e6 / k["chain"]
+    print(f"[distinct] {label} distinctCount(symbol) over #window.length({window}), "
+          f"one group, H={H}: {facts['state_bytes']} state bytes, {launches} "
+          f"launches, no overflow, every count == numpy's over {len(got)} rows, "
+          f"peak {int(got.max())}; first batch {secs[0] * 1e3:.1f} ms, then "
+          f"{steady_eps(secs, BATCH):.1f} events/s [{card}]", flush=True)
+    print(f"[distinct] kernel at {label}'s shape (batch 3: {k['rows']} rows, one "
+          f"chain of {k['chain']}): == plain on the first {D2_CUT} rows (kernel "
+          f"{k['cut_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms there); == the host "
+          f"oracle on the whole batch (state, counts; oracle {oracle_s:.2f} s); "
+          f"whole batch, L2 flushed: kernel {k['ms']:.4f} ms; host enqueue "
+          f"{k['host_ms']:.4f} ms; device {k['device_ms']:.4f} ms "
+          f"({k['device_seen']} of {k['runs']} launches seen), "
+          f"{k['ns_per_row']:.1f} ns per chain row, against a {k['bound_ms']:.4f} "
+          f"ms byte bound, share {k['share']:.6f} [{card}]", flush=True)
+    return k, launches, err
+
+
 def phase_distinct(device, feed, card: str):
-    """D1, D2 and S on the card (see the module doc). Returns the distinct
-    kernel's measurements at D1's and D2's shapes and its launch count on
-    D1's run."""
+    """D1, D2, D3 and S on the card (see the module doc). Returns the
+    distinct kernel's measurements at D1's, D2's and D3's shapes and its
+    launch count on each main-path run."""
     import numpy as np
     import torch
 
@@ -851,45 +1058,29 @@ def phase_distinct(device, feed, card: str):
     err1 = check_scan(a1, kw1, "D1 scan")
     k1 = {**scan_facts(a1, kw1), **time_scan(a1, kw1, scratch)}
     k1["share"] = k1["bound_ms"] / k1["device_ms"]
+    k1["ns_per_row"] = k1["device_ms"] * 1e6 / k1["chain"]
     print(f"[distinct] kernel at D1's shape (batch {n}: {k1['rows']} rows, "
           f"{k1['groups']} groups, H={k1['H']}, longest chain {k1['chain']}): "
           f"== plain; L2 flushed: kernel {k1['ms']:.4f} ms, plain "
           f"{k1['plain_ms']:.4f} ms; host enqueue {k1['host_ms']:.4f} ms; "
           f"device {k1['device_ms']:.4f} ms ({k1['device_seen']} of "
-          f"{k1['runs']} launches seen) against a {k1['bound_ms']:.4f} ms "
-          f"byte bound ({k1['bytes']} bytes), share {k1['share']:.4f} [{card}]",
-          flush=True)
+          f"{k1['runs']} launches seen), {k1['ns_per_row']:.1f} ns per chain "
+          f"row, against a {k1['bound_ms']:.4f} ms byte bound ({k1['bytes']} "
+          f"bytes), share {k1['share']:.4f} [{card}]", flush=True)
+    cross = crossover(a1, kw1, scratch)
+    for H in CROSSOVER_H:
+        paths = " ".join(f"{name} {ms:.4f}" for (h, name), ms in cross.items()
+                         if h == H)
+        print(f"[distinct] crossover, D1's rows at H={H}, device ms of the "
+              f"launch (L2 flushed, {CROSSOVER_RUNS} runs), every path == registers: "
+              f"{paths} [{card}]", flush=True)
 
-    # D2: one group, H = 1024, the kernel's serial worst case
-    with recording(at=2) as rec2:
-        d2, d2_s, f2 = run_app(device, D2_APP.format(W=WINDOW), feed,
-                               key_slots=None, capacity=D2_H, on_start=reset)
-    d2_launches = distinct_scan.launches
-    _require(d2_launches == n, f"D2: {d2_launches} launches for {n} batches")
-    got = np.concatenate([b["symbols"] for b in d2["OutStream"]])
-    want = sliding_distinct(np.concatenate([c["symbol"] for c, _t in feed]), WINDOW)
-    _require(got.shape == want.shape and np.array_equal(got, want),
-             f"D2: distinct symbols differ from the numpy count at "
-             f"{np.nonzero(got != want)[0][:5].tolist() if got.shape == want.shape else 'shape'}")
-    a2, kw2 = rec2.args, rec2.kwargs
-    err2 = check_scan(a2, kw2, "D2 scan", cut=D2_CUT)
-    k2 = {**scan_facts(a2, kw2),
-          **time_scan(a2, kw2, scratch, runs=D2_RUNS, plain_runs=1,
-                      plain_cut=D2_CUT)}
-    k2["share"] = k2["bound_ms"] / k2["device_ms"]
-    print(f"[distinct] D2 distinctCount(symbol), one group, H={D2_H}: "
-          f"{f2['state_bytes']} state bytes, {d2_launches} launches, no "
-          f"overflow, every count == numpy's over {len(got)} rows, peak "
-          f"{int(got.max())}; first batch {d2_s[0] * 1e3:.1f} ms, then "
-          f"{steady_eps(d2_s, BATCH):.1f} events/s [{card}]", flush=True)
-    print(f"[distinct] kernel at D2's shape (batch 3: {k2['rows']} rows, one "
-          f"chain of {k2['chain']}): == plain on the first {D2_CUT} rows "
-          f"(kernel {k2['cut_ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms there); "
-          f"whole batch, L2 flushed: kernel {k2['ms']:.4f} ms; host enqueue "
-          f"{k2['host_ms']:.4f} ms; device {k2['device_ms']:.4f} ms "
-          f"({k2['device_seen']} of {k2['runs']} launches seen) against a "
-          f"{k2['bound_ms']:.4f} ms byte bound, share {k2['share']:.6f} [{card}]",
-          flush=True)
+    # D2: one group, H = 1,024: distinct symbols among the last 1,000 trades
+    k2, d2_launches, err2 = one_group(device, feed, "D2", WINDOW, D2_H, scratch,
+                                      card, reset)
+    # D3: one group, H = 8,192: distinct symbols among the last 10,000 trades
+    k3, d3_launches, err3 = one_group(device, feed, "D3", D3_WINDOW, D3_H, scratch,
+                                      card, reset)
 
     # S: createSet -> window unionSet group by symbol -> sizeOfSet
     s_feed = feed[:S_BATCHES]
@@ -916,8 +1107,9 @@ def phase_distinct(device, feed, card: str):
     m, rt, _q = global_runtime(device, d1_app, "bench")
     profile_sends("distinct D1", rt.get_input_handler("StockStream"), feed, card)
     m.shutdown()
-    return {"launches": d1_launches, "d1": k1, "d2": k2,
-            "max_abs_err": max(err1, err2)}
+    return {"launches": {"D1": d1_launches, "D2": d2_launches, "D3": d3_launches,
+                         "S": s_launches},
+            "d1": k1, "d2": k2, "d3": k3, "max_abs_err": max(err1, err2, err3)}
 
 
 # ------------------------------------------------------------------ main
@@ -1103,7 +1295,7 @@ def main() -> int:
 
     # 9. distinctCount / unionSet and the function library
     dist = phase_distinct(device, feed, card)
-    d1, d2 = dist["d1"], dist["d2"]
+    d1 = dist["d1"]
 
     # 10. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1125,13 +1317,16 @@ def main() -> int:
         "name": "distinct_scan", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/distinct_scan.cu",
         "replaces": "siddhi_tpu/ops/aggregators.py:291",
-        "launches": dist["launches"], "max_abs_err": dist["max_abs_err"],
+        "launches": sum(dist["launches"].values()),
+        "launches_by_run": dist["launches"], "max_abs_err": dist["max_abs_err"],
         "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "device_ms": d1["device_ms"],
         "roofline_share": d1["share"], "host_ms": d1["host_ms"],
         "chain": d1["chain"], "rows": d1["rows"], "H": d1["H"],
-        "d2": {k: d2[k] for k in ("ms", "device_ms", "bound_ms", "share",
-                                  "host_ms", "chain", "H", "cut_ms", "plain_ms")},
+        "ns_per_chain_row": d1["ns_per_row"],
+        **{name: {k: dist[name][k] for k in (
+            "ms", "device_ms", "bound_ms", "share", "host_ms", "chain", "H",
+            "ns_per_row", "cut_ms", "plain_ms")} for name in ("d2", "d3")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

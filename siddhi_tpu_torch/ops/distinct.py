@@ -21,12 +21,15 @@ last applied row. Row by row in arrival order, for row i of group g:
   ``set_in_m``) folds its elements into one row, in order.
 
 Rows of different groups are independent. ``distinct_scan`` launches the
-hand-written CUDA kernel (``csrc/distinct_scan.cu``, one warp per group)
-for CUDA tensors and runs ``distinct_scan_plain`` for CPU tensors; there
-is no fallback between them. Both update the state IN PLACE and agree
-with the reference bit for bit, state and outputs: the state crosses
-packages through ``interop.py``, and unionSet snapshots expose slot order.
-``distinct_scan.launches`` counts kernel launches.
+hand-written CUDA kernel (``csrc/distinct_scan.cu``, one warp per group:
+the table in registers up to ``SMALL_MAX_H`` slots, above it in shared
+memory with a hash index of live slots and a free-slot bitmap, up to
+``MAX_H``) for CUDA tensors and runs ``distinct_scan_plain`` for CPU
+tensors, which takes any H; there is no fallback between them. Both
+update the state IN PLACE and agree with the reference bit for bit,
+state and outputs: the state crosses packages through ``interop.py``,
+and unionSet snapshots expose slot order. ``distinct_scan.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ import torch
 
 from siddhi_tpu_torch.ops import _cuda
 
-MAX_H = 1024     # the kernel holds a group's table in registers: H/32 <= 32
+MAX_H = 16384         # slot ids are 16 bits in the kernel's hash index
+SMALL_MAX_H = 64      # the register table up to here, hash + bitmap above
+PATH_REGISTERS, PATH_HASH = 0, 1   # the kernel's designs, as in the source
 
 
 def _check(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m) -> None:
@@ -158,13 +163,15 @@ class _ScanArgs(ctypes.Structure):
 
     _fields_ = [("vk", ctypes.c_void_p), ("vc", ctypes.c_void_p),
                 ("stamp", ctypes.c_void_p), ("K", ctypes.c_longlong),
-                ("H", ctypes.c_longlong), ("offsets", ctypes.c_void_p),
-                ("order", ctypes.c_void_p), ("v", ctypes.c_void_p),
+                ("H", ctypes.c_longlong), ("R", ctypes.c_longlong),
+                ("gs", ctypes.c_void_p), ("order", ctypes.c_void_p),
+                ("offsets", ctypes.c_void_p), ("v", ctypes.c_void_p),
                 ("delta", ctypes.c_void_p), ("part", ctypes.c_void_p),
                 ("ep", ctypes.c_void_p), ("set_in", ctypes.c_void_p),
                 ("set_in_m", ctypes.c_void_p), ("cin", ctypes.c_longlong),
                 ("nd", ctypes.c_void_p), ("snap_vk", ctypes.c_void_p),
-                ("snap_live", ctypes.c_void_p), ("overflow", ctypes.c_void_p)]
+                ("snap_live", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
+                ("path", ctypes.c_longlong)]
 
 
 def _bind(lib) -> None:
@@ -176,6 +183,18 @@ def _bind(lib) -> None:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def kernel_path(H: int) -> int:
+    """The kernel's design for tables of ``H`` slots: ``PATH_REGISTERS``
+    up to ``SMALL_MAX_H``, ``PATH_HASH`` above. Raises ``ValueError``
+    above ``MAX_H``."""
+    if not 1 <= H <= MAX_H:
+        raise ValueError(
+            f"distinct_scan: the CUDA kernel takes 1 <= H <= {MAX_H} value "
+            f"slots per group, got {H}: set app_context.distinct_values_capacity "
+            f"to at most {MAX_H}")
+    return PATH_REGISTERS if H <= SMALL_MAX_H else PATH_HASH
 
 
 def distinct_scan(vk, vc, stamp, g, v, delta, part, ep, set_in=None,
@@ -191,31 +210,38 @@ def distinct_scan(vk, vc, stamp, g, v, delta, part, ep, set_in=None,
     if device.type != "cuda":
         raise ValueError(f"distinct_scan: unsupported device {device}")
     _check(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m)
+    return launch(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m,
+                  emit_set, kernel_path(vk.shape[1]))
+
+
+def launch(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m, emit_set,
+           path: int) -> Tuple:
+    """One launch of the kernel's ``path`` on checked CUDA tensors (what
+    ``distinct_scan`` does once it has chosen the path)."""
+    device = vk.device
     K, H = vk.shape
-    if not 1 <= H <= MAX_H:
-        raise ValueError(f"distinct_scan: the kernel takes 1 <= H <= {MAX_H} "
-                         f"value slots per group, got {H}")
     R = g.shape[0]
-    nd = torch.empty(R, dtype=torch.int64, device=device)
+    # one allocation: the counts, then each group's range of sorted rows
+    scratch = torch.empty(R + K + 1, dtype=torch.int64, device=device)
+    nd = scratch[:R]
     snap_vk = torch.empty((R, H), dtype=torch.int64, device=device) if emit_set else None
     snap_live = torch.empty((R, H), dtype=torch.bool, device=device) if emit_set else None
-    overflow = torch.zeros(1, dtype=torch.int32, device=device)
     if R == 0:
-        return nd, snap_vk, snap_live, overflow[0] != 0
+        return nd, snap_vk, snap_live, torch.zeros((), dtype=torch.bool, device=device)
+    overflow = torch.empty((), dtype=torch.bool, device=device)   # cleared by the launch
     lib = _cuda.load("distinct_scan", _bind)
-    # rows in group order (stable, so arrival order within a group), the
-    # per-row inputs gathered into that order, and each group's range
-    order = torch.argsort(g, stable=True)
-    offsets = torch.searchsorted(g[order], torch.arange(K + 1, device=device))
-    v_s = v[order] if set_in is None else None
-    d_s, p_s, e_s = delta[order], part[order], ep[order]
-    set_s = set_in[order].contiguous() if set_in is not None else None
-    setm_s = set_in_m[order].contiguous() if set_in is not None else None
+    v, delta, part, ep = (t.contiguous() for t in (v, delta, part, ep))
+    if set_in is not None:
+        set_in, set_in_m = set_in.contiguous(), set_in_m.contiguous()
+    # rows in group order (stable, so arrival order within a group); the
+    # kernel reads every row input through ``order``
+    gs, order = torch.sort(g, stable=True)
     args = _ScanArgs(
-        _ptr(vk), _ptr(vc), _ptr(stamp), K, H, _ptr(offsets), _ptr(order),
-        _ptr(v_s), _ptr(d_s), _ptr(p_s), _ptr(e_s), _ptr(set_s), _ptr(setm_s),
+        _ptr(vk), _ptr(vc), _ptr(stamp), K, H, R, _ptr(gs), _ptr(order),
+        _ptr(scratch) + 8 * R, _ptr(v if set_in is None else None), _ptr(delta),
+        _ptr(part), _ptr(ep), _ptr(set_in), _ptr(set_in_m),
         0 if set_in is None else set_in.shape[1], _ptr(nd), _ptr(snap_vk),
-        _ptr(snap_live), _ptr(overflow))
+        _ptr(snap_live), _ptr(overflow), path)
     guard = (torch.cuda.device(device) if device.index != torch.cuda.current_device()
              else contextlib.nullcontext())
     with guard:
@@ -223,7 +249,7 @@ def distinct_scan(vk, vc, stamp, g, v, delta, part, ep, set_in=None,
         code = lib.siddhi_distinct_scan(ctypes.byref(args), stream)
     _cuda.check(lib, code, "distinct_scan launch")
     distinct_scan.launches += 1
-    return nd, snap_vk, snap_live, overflow[0] != 0
+    return nd, snap_vk, snap_live, overflow
 
 
 distinct_scan.launches = 0

@@ -12,13 +12,21 @@ a nonzero epoch base; H = 4 overflows. New state (``vk``, ``vc``,
 exactly equal. App level: a partitioned keyed-length query with
 distinctCount, and the overflow ``FatalQueryError`` naming the knob.
 
+One-group chains at H = 1,024 and 2,048 (the emission of a length
+window, with RESETs, dead writes, hash churn through more than 4H
+values, overflow, -0.0 and 0.0): the reference's ``apply_aggregators``,
+the port's plain scan and the host oracle of ``chip_smoke.py``
+(``scan_oracle``, a dict and a heap per group) all exactly equal.
+
 The CUDA kernel is held against the plain version on the card
-(``cuda``-marked test, skipped here). jax is imported only inside the
+(``cuda``-marked tests, skipped here). jax is imported only inside the
 reference comparisons, so the card-side run needs neither jax nor the
 reference's conftest:
 ``pytest --noconftest -m cuda tests/test_torch_distinct.py``."""
 
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +34,7 @@ import torch
 from torch_helpers import Run, assert_arrays_match, assert_rows_match
 
 from siddhi_tpu_torch.ops import aggregators as tagg
+from siddhi_tpu_torch.ops import distinct as tdist
 from siddhi_tpu_torch.ops.distinct import distinct_scan, distinct_scan_plain
 from siddhi_tpu_torch.ops.expressions import TorchXP
 
@@ -316,27 +325,225 @@ def test_plain_scan_is_sequential():
     assert torch.equal(vk, vk0) and torch.equal(vc, vc0) and torch.equal(stamp, st0)
 
 
+def _window_stream(rng, R, W, U, resets_within=None):
+    """Types and value ids of a ``#window.length(W)`` emission over ``U``
+    values: CURRENT x_t, then EXPIRED x_(t-W) once the window is full, cut
+    to R rows; three RESET rows (among the first ``resets_within``), a few
+    TIMER rows, and some EXPIRED rows of values that were never current
+    (dead writes)."""
+    x = rng.integers(0, U, R)
+    x[rng.random(R) < 0.04] = 0                  # 0.0 and -0.0 often
+    x[rng.random(R) < 0.04] = 1
+    types, ids = [], []
+    for t in range(R):
+        types.append(0)
+        ids.append(x[t])
+        if t >= W:
+            types.append(1)
+            ids.append(x[t - W])
+        if len(types) >= R:
+            break
+    types, ids = np.array(types[:R], np.int8), np.array(ids[:R], np.int64)
+    dead = (types == 1) & (rng.random(R) < 0.03)
+    ids[dead] = U + rng.integers(0, U, int(dead.sum()))
+    types[rng.choice(resets_within or R, 3, replace=False)] = 3   # RESETs
+    types[rng.random(R) < 0.01] = 2              # TIMER rows
+    return types, ids
+
+
+def _double_codes(ids):
+    """Value ids as doubles (id 0 is 0.0 and id 1 is -0.0) and their codes,
+    the int64 bit patterns the scan compares."""
+    vals = ids * 0.5 + 1.0
+    vals[ids == 0] = 0.0
+    vals[ids == 1] = -0.0
+    return vals, vals.view(np.int64)
+
+
+# (case, kind, H, rows, window, values): one group of K_CHAIN; the
+# overflow case has its RESETs in its first 300 rows, so that its window
+# outgrows the table
+CHAINS = {
+    "h1024_churn": ("distinctcount", 1024, 9000, 500, 60_000),  # > 4H values
+    "h1024_overflow": ("distinctcount", 1024, 4000, 2000, 60_000),
+    "h2048": ("distinctcount", 2048, 5000, 1700, 4000),
+    "h2048_union": ("unionset", 2048, 1500, 600, 5000),
+}
+K_CHAIN = 2
+
+
+def _chain_cols(case):
+    """Columns of one batch whose rows all fall in group 0, and a carried
+    state whose table for group 0 is live (it holds values live in more
+    than one slot) and for group 1 stale, numpy."""
+    kind, H, R, W, U = CHAINS[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    types, ids = _window_stream(rng, R, W, U, 300 if "overflow" in case else None)
+    vals, codes = _double_codes(ids)
+    cols = {"__gk__": np.zeros(R, np.int32), "__type__": types,
+            "__valid__": rng.random(R) < 0.99, "__ts__": np.arange(R, dtype=np.int64),
+            "v": vals, "v?": rng.random(R) < 0.02,
+            "o": codes.copy(), "o?": rng.random(R) < 0.02}
+    _v, carried = _double_codes(rng.integers(0, U, (K_CHAIN, H)))
+    state = {"vk": carried.copy(),
+             "vc": rng.choice(np.array([-1, 0, 1, 2], np.int32), (K_CHAIN, H),
+                              p=[0.6, 0.3, 0.05, 0.05]),
+             "stamp": np.array([5, 3], np.int64), "eb": np.int64(5)}
+    return {"a0": state}, cols
+
+
+def _chain_spec(mod, types, case):
+    kind, H = CHAINS[case][:2]
+    col, tname = ("v", "DOUBLE") if kind == "distinctcount" else ("o", "OBJECT")
+    return _spec(mod, types, kind, col, tname, H)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_chain_step(case):
+    import jax
+    import jax.numpy as jnp
+
+    from siddhi_tpu.ops import aggregators as jagg
+    from siddhi_tpu.query_api.definitions import AttrType as JT
+
+    specs = [_chain_spec(jagg, JT, case)]
+    return jax.jit(lambda st, c: jagg.apply_aggregators(specs, st, c,
+                                                        {"xp": jnp}, K_CHAIN))
+
+
+def _smoke():
+    """chip_smoke.py as a module: it holds the host oracle ``scan_oracle``
+    (the script imports nothing at module level but the standard library)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", sorted(CHAINS))
+def test_chain_oracle_plain_and_reference_agree(case, monkeypatch):
+    import jax.numpy as jnp
+
+    from siddhi_tpu_torch.query_api.definitions import AttrType as TT
+
+    state, cols = _chain_cols(case)
+    jst, jcols = _jax_chain_step(case)(
+        {"a0": {k: jnp.asarray(v) for k, v in state["a0"].items()}},
+        {k: jnp.asarray(v) for k, v in cols.items()})
+    calls = []
+
+    def recorded(*args, **kwargs):
+        calls.append(([None if a is None else a.clone() for a in args], kwargs))
+        return distinct_scan(*args, **kwargs)
+
+    monkeypatch.setattr(tagg, "distinct_scan", recorded)
+    tstate = {"a0": {k: torch.from_numpy(np.array(v)) for k, v in state["a0"].items()}}
+    tst, tcols = tagg.apply_aggregators(
+        [_chain_spec(tagg, TT, case)], tstate,
+        {k: torch.from_numpy(v.copy()) for k, v in cols.items()},
+        {"xp": TorchXP("cpu")}, K_CHAIN)
+    want = {k: np.asarray(v) for k, v in jcols.items()}
+    for k in ("vk", "vc", "stamp", "eb"):
+        assert_arrays_match(tst["a0"][k].numpy(), np.asarray(jst["a0"][k]), k)
+    for k in ("__agg0__", "__agg0__#set", "__agg0__#setm", "__agg_overflow__"):
+        assert (k in tcols) == (k in want), k
+        if k in want:
+            assert_arrays_match(tcols[k].numpy(), want[k], k)
+    assert int(want["__agg_overflow__"]) == ("overflow" in case)
+
+    (args, kwargs), = calls
+    host = [t.numpy().copy() for t in args[:3]]
+    nd, snap_vk, snap_live, overflow = _smoke().scan_oracle(
+        *host, *[None if a is None else a.numpy() for a in args[3:]], **kwargs)
+    assert np.array_equal(nd, want["__agg0__"])
+    assert overflow == bool(want["__agg_overflow__"])
+    if "__agg0__#set" in want:
+        assert np.array_equal(snap_vk, want["__agg0__#set"])
+        assert np.array_equal(snap_live, want["__agg0__#setm"])
+    for k, got in zip(("vk", "vc", "stamp"), host):
+        assert np.array_equal(got, np.asarray(jst["a0"][k])), k
+    # the chain cycles through the table: births and deaths, dead writes
+    codes = args[4].numpy()
+    assert len(np.unique(codes)) > (4 * CHAINS[case][1] if "churn" in case else 0)
+
+
+def test_kernel_path_by_table_size():
+    assert tdist.kernel_path(1) == tdist.kernel_path(tdist.SMALL_MAX_H) == tdist.PATH_REGISTERS
+    assert tdist.kernel_path(tdist.SMALL_MAX_H + 1) == tdist.PATH_HASH
+    assert tdist.kernel_path(tdist.MAX_H) == tdist.PATH_HASH
+    assert tdist.MAX_H >= 16384
+    for H in (0, tdist.MAX_H + 1):
+        with pytest.raises(ValueError, match="app_context.distinct_values_capacity"):
+            tdist.kernel_path(H)
+
+
+def _chain_inputs(seed, H, R, W, U, device, resets_within=None):
+    """Scan inputs of a window stream through one group (see
+    ``_window_stream``) over a live carried table, on ``device``."""
+    rng = np.random.default_rng(seed)
+    types, ids = _window_stream(rng, R, W, U, resets_within)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    state = (t(rng.integers(0, U, (1, H)).astype(np.int64)),
+             t(rng.choice(np.array([-1, 0, 1, 2], np.int32), (1, H),
+                          p=[0.6, 0.3, 0.05, 0.05])),
+             t(np.full(1, 4, np.int64)))
+    rows = (t(np.zeros(R, np.int64)), t(ids), t(np.where(types == 0, 1, -1).astype(np.int32)),
+            t((types <= 1) & (rng.random(R) < 0.99)),
+            t(np.cumsum(types == 3).astype(np.int64) + 4))
+    return state, rows, (None, None)
+
+
+def _kernel_equals_plain(state, rows, sets, emit, what):
+    plain_state = [t.clone() for t in state]
+    before = distinct_scan.launches
+    got = distinct_scan(*state, *rows, *sets, emit_set=emit)
+    torch.cuda.synchronize()
+    assert distinct_scan.launches == before + 1
+    want = distinct_scan_plain(*plain_state, *rows, *sets, emit_set=emit)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None), what
+        if a is not None:
+            assert torch.equal(a, b), what
+    for a, b in zip(state, plain_state):
+        assert torch.equal(a, b), what
+    return bool(got[3])
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_equals_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel is CUDA C++ with no CPU mode")
     dev = torch.device("cuda")
+    # (K, H, R, values, Cin): random carried tables (values live in more
+    # than one slot), random rows; H = 256 with many groups straddles the
+    # crossover, H = 16,384 keeps its table in global memory
     shapes = [(64, 64, 5000, 40, 0), (16, 4, 800, 12, 0), (3, 100, 3000, 150, 0),
               (1, 1024, 6000, 1500, 0), (40, 64, 3000, 30, 3), (7, 8, 500, 20, 40),
-              (5, 33, 700, 60, 0), (1, 1, 300, 3, 0)]
+              (5, 33, 700, 60, 0), (1, 1, 300, 3, 0), (1, 2048, 6000, 3000, 0),
+              (1, 8192, 5000, 12000, 0), (1, 16384, 2000, 30000, 0),
+              (64, 256, 8000, 300, 0), (3, 1024, 2000, 1500, 4)]
     for seed, (K_, H, R, n_values, cin) in enumerate(shapes):
         for emit in (False, True):
             state, rows, sets = _scan_inputs(seed, K_, H, R, n_values, cin, dev)
-            plain_state = [t.clone() for t in state]
-            before = distinct_scan.launches
-            got = distinct_scan(*state, *rows, *sets, emit_set=emit)
-            torch.cuda.synchronize()
-            assert distinct_scan.launches == before + 1
-            want = distinct_scan_plain(*plain_state, *rows, *sets, emit_set=emit)
-            what = (K_, H, R, n_values, cin, emit)
-            for a, b in zip(got, want):
-                assert (a is None) == (b is None), what
-                if a is not None:
-                    assert torch.equal(a, b), what
-            for a, b in zip(state, plain_state):
-                assert torch.equal(a, b), what
+            _kernel_equals_plain(state, rows, sets, emit,
+                                 (K_, H, R, n_values, cin, emit))
+    # window streams through one group: churn through > 4H values, and a
+    # window wider than the table
+    for seed, (H, R, W, U, overflows) in enumerate(
+            [(1024, 12000, 500, 60_000, False), (1024, 4000, 2000, 60_000, True),
+             (8192, 8000, 3000, 60_000, False)]):
+        for emit in (False, True):
+            state, rows, sets = _chain_inputs(100 + seed, H, R, W, U, dev,
+                                              300 if overflows else None)
+            got = _kernel_equals_plain(state, rows, sets, emit, (H, R, W, U, emit))
+            assert got == overflows, (H, R, W, U)
+
+
+@pytest.mark.cuda
+def test_cuda_h_above_the_limit_raises_naming_the_knob():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ with no CPU mode")
+    state, rows, sets = _scan_inputs(0, 2, tdist.MAX_H + 1, 10, 5, 0, torch.device("cuda"))
+    with pytest.raises(ValueError, match="app_context.distinct_values_capacity"):
+        distinct_scan(*state, *rows, *sets)

@@ -1,5 +1,5 @@
-"""The port stands alone: ``siddhi_tpu_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package ``siddhi_tpu``, and its entry points
+"""The port stands alone: ``siddhi_tpu_torch``, ``chip_smoke.py`` and
+``distinct_bench.py`` import neither ``jax`` nor the JAX package ``siddhi_tpu``, and its entry points
 choose the CUDA card unless told otherwise."""
 
 import ast
@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "siddhi_tpu")
 
 
 def _port_sources():
-    return sorted((ROOT / "siddhi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "siddhi_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "distinct_bench.py"]
 
 
 def _imported_roots(path):
