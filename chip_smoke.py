@@ -73,8 +73,37 @@ Phases (any failure exits non-zero and prints no result line):
             bound and share, longest chain; D1's rows through each of the
             kernel's paths at H = 32 to 256 (the crossover); a device
             profile of D1;
-10. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-    ``{"ok": true, "device": {...}}``.
+10. pipeline bench.py's ``bench_pipeline_curve`` app (the global flagship behind
+            ``@Async(buffer.size='64')``, 16,384 key slots) at pipeline depths
+            1, 4 and 8, each twice: a timed pass and a pass under
+            torch.profiler and sync debug mode. Checks: output equal to phase
+            5's synchronous run, the pump holding >= 2 batches in flight at
+            depth > 1. Prints events/s from the first send until every row is
+            out, per-batch latency (send to arrival), metas per drain, the
+            card's busy share and host syncs per dispatch (with their sites);
+11. pipeline-routed: the routed flagship (x4, ``pallas_ring``) behind @Async
+            at depth 4: one exchange launch per routed dispatch, no route
+            overflow, output equal to phase 4's routed run;
+12. pipeline-distinct: D1 behind @Async at depth 4: one distinct-scan launch
+            per batch, output equal to phase 9's D1;
+13. ingest  the feed as wire frames (``WireEncoder`` -> ``decode_frame`` ->
+            ``send_columns``) and through an ingest pool of 4: output and
+            every dictionary id equal to columns ingest; host ms per batch of
+            encode, decode and pack, inline and pooled;
+14. onerror ``@OnError(action='stream')`` with a filter whose extension function
+            raises for one symbol, present in one batch: that batch's rows
+            arrive on ``!StockStream`` with ``_error``, the others flow; a
+            full distinct value table still raises ``FatalQueryError``;
+15. transport ``@source(type='inMemory')`` -> flagship -> ``@sink(type=
+            'inMemory')`` over one batch: the sink's payloads equal a
+            StreamCallback's rows;
+16. D4      ``distinctCount(account)`` over ``#window.length(30000)``, one group,
+            H = 32,768 (the distinct scan's global-index path), ``account``
+            uniform over 100,000 ids from its own generator: one_group's
+            checks (kernel == plain on a cut, == ``scan_oracle`` on a batch,
+            every count == numpy's) and timings;
+17. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"kernels": [...]}`` line,
+    the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -119,6 +148,8 @@ select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n,
 group by symbol
 insert into OutStream;
 """
+# pipeline phases: bench.py's bench_pipeline_curve app, behind @Async
+PIPE_APP = "@Async(buffer.size='64')\n" + GLOBAL_APP
 # distinct phase (9): D1, the global flagship's shape with distinctCount
 # and the function library; D2, distinct symbols over the whole window;
 # S, the unionSet chain of tests/test_sets.py over a length window
@@ -135,7 +166,15 @@ group by symbol insert into OutStream;
 D2_APP = """
 define stream StockStream (symbol string, price float, volume long);
 @info(name = 'bench')
-from StockStream#window.length({W}) select distinctCount(symbol) as symbols
+from StockStream#window.length({W}) select distinctCount(symbol) as distinct
+insert into OutStream;
+"""
+# D4: distinct cards among the last 30,000 transactions (the global-index
+# path of the distinct scan, H above the shared-memory index)
+D4_APP = """
+define stream StockStream (symbol string, price float, volume long, account long);
+@info(name = 'bench')
+from StockStream#window.length({W}) select distinctCount(account) as distinct
 insert into OutStream;
 """
 S_APP = """
@@ -152,6 +191,10 @@ D2_H = 1024                     # ~950 symbols are live at a time
 D2_CUT = 2048                   # rows of the kernel-vs-plain check at D2, D3
 D3_WINDOW = 10_000              # D3: ~6,300 of the 10,000 symbols live
 D3_H = 8192
+D4_WINDOW = 30_000              # D4: ~25,900 of 100,000 accounts live
+D4_H = 32_768
+D4_ACCOUNTS = 100_000
+D4_RUNS = 10
 CROSSOVER_H = (32, 64, 128, 256)
 CROSSOVER_RUNS = 10
 S_BATCHES = 3
@@ -248,6 +291,8 @@ def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
 def collector():
     """A stream callback that keeps each emitted batch as host columns of
     its valid rows: timestamps, types and every output attribute."""
+    import threading
+
     import numpy as np
 
     from siddhi_tpu_torch import StreamCallback
@@ -255,12 +300,20 @@ def collector():
     class Cols(StreamCallback):
         def __init__(self):
             self.batches = []
+            self.arrivals = []      # host clock at each batch's arrival
+            self.rows = 0
+            self.target = None      # wait_rows: set ``reached`` at this count
+            self.reached = threading.Event()
 
         def receive_batch(self, batch, junction):
             valid = np.asarray(batch.cols["__valid__"])
             keep = [k for k in batch.cols
                     if not k.startswith("__") or k in ("__ts__", "__type__")]
             self.batches.append({k: np.asarray(batch.cols[k])[valid] for k in keep})
+            self.rows += int(valid.sum())
+            self.arrivals.append(time.perf_counter())
+            if self.target is not None and self.rows >= self.target:
+                self.reached.set()
 
     return Cols()
 
@@ -325,6 +378,7 @@ def run_global(device, app: str, query: str, feed, fused: bool = True):
     seconds = send_timed(rt.get_input_handler("StockStream"), feed, device)
     facts["state_bytes"] = sum(t.numel() * t.element_size()
                                for t in _leaves(q._state))
+    facts["strings"] = list(rt.app_context.string_dictionary._to_str)
     m.shutdown()
     return cb.batches, seconds, facts
 
@@ -972,25 +1026,27 @@ def scan_oracle(vk, vc, stamp, g, v, delta, part, ep, set_in=None,
 
 
 def one_group(device, feed, label: str, window: int, H: int, flush, card: str,
-              on_start):
-    """``distinctCount(symbol)`` over a ``#window.length(window)`` with no
+              on_start, app: str = D2_APP, column: str = "symbol",
+              runs: int = TIMED_RUNS):
+    """``distinctCount(<column>)`` over a ``#window.length(window)`` with no
     ``group by`` (one chain of every row) at ``H`` value slots: one launch
     per batch, every count equal to ``sliding_distinct``'s; the kernel on
     batch 3 == plain on its first ``D2_CUT`` rows and == ``scan_oracle``
-    on the whole batch; its timings. Returns (kernel facts, launches, max
-    abs error)."""
+    on the whole batch; its timings over ``runs`` calls. Returns (kernel
+    facts with the app's state bytes and events/s, launches, max abs
+    error)."""
     import numpy as np
 
     from siddhi_tpu_torch.ops.distinct import distinct_scan
 
     n = len(feed)
     with recording(at=2) as rec:
-        out, secs, facts = run_app(device, D2_APP.format(W=window), feed,
+        out, secs, facts = run_app(device, app.format(W=window), feed,
                                    key_slots=None, capacity=H, on_start=on_start)
     launches = distinct_scan.launches
     _require(launches == n, f"{label}: {launches} launches for {n} batches")
-    got = np.concatenate([b["symbols"] for b in out["OutStream"]])
-    want = sliding_distinct(np.concatenate([c["symbol"] for c, _t in feed]), window)
+    got = np.concatenate([b["distinct"] for b in out["OutStream"]])
+    want = sliding_distinct(np.concatenate([c[column] for c, _t in feed]), window)
     _require(got.shape == want.shape and np.array_equal(got, want),
              f"{label}: distinct symbols differ from the numpy count at "
              f"{np.nonzero(got != want)[0][:5].tolist() if got.shape == want.shape else 'shape'}")
@@ -998,10 +1054,11 @@ def one_group(device, feed, label: str, window: int, H: int, flush, card: str,
     err = check_scan(a, kw, f"{label} scan", cut=D2_CUT)
     oracle_s = check_oracle(a, kw, f"{label} scan")
     k = {**scan_facts(a, kw),
-         **time_scan(a, kw, flush, plain_runs=1, plain_cut=D2_CUT)}
+         **time_scan(a, kw, flush, runs=runs, plain_runs=1, plain_cut=D2_CUT)}
     k["share"] = k["bound_ms"] / k["device_ms"]
     k["ns_per_row"] = k["device_ms"] * 1e6 / k["chain"]
-    print(f"[distinct] {label} distinctCount(symbol) over #window.length({window}), "
+    k["state_bytes"], k["eps"] = facts["state_bytes"], steady_eps(secs, BATCH)
+    print(f"[distinct] {label} distinctCount({column}) over #window.length({window}), "
           f"one group, H={H}: {facts['state_bytes']} state bytes, {launches} "
           f"launches, no overflow, every count == numpy's over {len(got)} rows, "
           f"peak {int(got.max())}; first batch {secs[0] * 1e3:.1f} ms, then "
@@ -1109,7 +1166,472 @@ def phase_distinct(device, feed, card: str):
     m.shutdown()
     return {"launches": {"D1": d1_launches, "D2": d2_launches, "D3": d3_launches,
                          "S": s_launches},
-            "d1": k1, "d2": k2, "d3": k3, "max_abs_err": max(err1, err2, err3)}
+            "d1": k1, "d2": k2, "d3": k3, "max_abs_err": max(err1, err2, err3),
+            "d1_out": d1}
+
+
+# -------------------------------------------------------------- pipeline
+
+PIPE_DEPTHS = (1, 4, 8)
+PIPE_TIMEOUT_S = 300
+
+
+def wait_rows(cb, rows: int, what: str):
+    """Wait, blocked on an event the collector sets (no polling thread
+    competing for the GIL), until it holds ``rows`` output rows (an @Async
+    worker delivers them); fails after PIPE_TIMEOUT_S."""
+    cb.target = rows
+    cb.reached.clear()
+    if cb.rows >= rows:
+        return
+    _require(cb.reached.wait(PIPE_TIMEOUT_S),
+             f"{what}: {cb.rows} of {rows} rows after {PIPE_TIMEOUT_S} s")
+
+
+@contextlib.contextmanager
+def counting_syncs(out: dict):
+    """Count the card's host syncs in the block: torch's sync debug mode
+    warns at each synchronizing call on any thread (``.item()``,
+    ``nonzero``, a copy to pageable memory, ...); the warnings are
+    recorded, counted and grouped by the Python line that made them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = {}
+    for w in syncs:
+        key = f"{Path(w.filename).name}:{w.lineno}"
+        sites[key] = sites.get(key, 0) + 1
+    out["syncs"] = len(syncs)
+    out["sync_sites"] = sorted(sites.items(), key=lambda kv: -kv[1])[:6]
+
+
+def run_async(device, app: str, query: str, feed, depth: int, *, cfg=None,
+              key_slots=KEY_SLOTS, setup=None, measure: str = "time"):
+    """Drive an @Async app at ``pipeline_depth`` ``depth`` through the
+    public API: the first batch is sent and drained alone (its new
+    strings and the card's first launches), then the others back to back,
+    from the first send until every output row has arrived. ``measure``:
+    "time" (the host clock only) or "profile" (the card's busy share from
+    torch.profiler and host syncs counted in sync debug mode; both slow
+    the host, so the timed pass runs without them). Returns (per-batch
+    output columns, facts)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager(
+        {"siddhi_tpu.pipeline_depth": str(depth), **(cfg or {})}))
+    rt = m.create_siddhi_app_runtime(app)
+    q = rt.query_runtimes[query]
+    if key_slots is not None:
+        q.selector_plan.num_keys = key_slots
+    if setup is not None:
+        setup(q)
+    cb = collector()
+    rt.add_callback("OutStream", cb)
+    h = rt.get_input_handler("StockStream")
+    h.send_columns(feed[0][0], timestamps=feed[0][1])
+    wait_rows(cb, BATCH, f"{query} depth {depth} first batch")
+    pump = rt.app_context.completion_pump
+    pump.high_water = 0
+    pulls0, metas0, stalls0 = pump.pulls, pump.metas, pump.stalls
+    facts = {}
+    sends = []
+    with contextlib.ExitStack() as stack:
+        if measure == "profile":
+            prof = stack.enter_context(profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            stack.enter_context(counting_syncs(facts))
+        t0 = time.perf_counter()
+        for cols, ts in feed[1:]:
+            sends.append(time.perf_counter())
+            h.send_columns(cols, timestamps=ts)
+        wait_rows(cb, BATCH * len(feed), f"{query} depth {depth}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = len(feed) - 1
+    facts.update(
+        wall_s=wall, eps=BATCH * n / wall, high_water=pump.high_water,
+        pulls=pump.pulls - pulls0, metas=pump.metas - metas0,
+        stalls=pump.stalls - stalls0, dispatches=n)
+    if len(cb.arrivals) == len(feed):        # one output batch per input batch
+        lat = [(a - s_) * 1e3 for a, s_ in zip(cb.arrivals[1:], sends)]
+        facts["latency_ms"] = (statistics.median(lat), max(lat))
+    if measure == "profile":
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+        facts["busy_share"] = dev_us / 1e6 / wall
+    facts["strings"] = list(rt.app_context.string_dictionary._to_str)
+    m.shutdown()
+    return cb.batches, facts
+
+
+def require_equal(a, b, what: str, exact_floats: bool = True) -> float:
+    """Per-batch outputs equal: ints, strings, timestamps, types and row
+    order exactly, floats bit for bit (``exact_floats``) or to the repo's
+    rtol. Returns the largest float relative difference."""
+    worst = compare_outputs(a, b, what)
+    if exact_floats:
+        _require(worst == 0.0, f"{what}: floats differ (max rel err {worst:.3g})")
+    return worst
+
+
+def phase_pipeline(device, feed, fused, card: str):
+    """bench.py's bench_pipeline_curve app (@Async, the global flagship)
+    at depths 1, 4 and 8: outputs equal across depths and to phase 5's
+    synchronous run, the pump holding >= 2 batches in flight at depth > 1;
+    events/s, per-batch latency, metas per pull, busy share and host
+    syncs per dispatch at each depth."""
+    app = PIPE_APP.format(W=WINDOW)
+    out = {}
+    for depth in PIPE_DEPTHS:
+        got, t = run_async(device, app, "bench", feed, depth)
+        _got, p = run_async(device, app, "bench", feed, depth, measure="profile")
+        worst = require_equal(got, fused, f"pipeline depth {depth} vs phase 5",
+                              exact_floats=False)
+        require_equal(_got, got, f"pipeline depth {depth}: profiled vs timed pass",
+                      exact_floats=False)
+        if depth > 1:
+            _require(t["high_water"] >= 2 and p["high_water"] >= 2,
+                     f"pipeline depth {depth}: the pump held at most "
+                     f"{max(t['high_water'], p['high_water'])} batch(es) in flight")
+        out[depth] = {**t, "busy_share": p["busy_share"], "syncs": p["syncs"],
+                      "sync_sites": p["sync_sites"], "max_rel_err": worst}
+        lat = t.get("latency_ms", (float("nan"), float("nan")))
+        print(f"[pipeline] depth {depth}: {t['eps']:.1f} events/s send to drained "
+              f"over {t['dispatches']} batches of {BATCH}; per-batch latency median "
+              f"{lat[0]:.2f} ms, max {lat[1]:.2f} ms; most in flight {t['high_water']}; "
+              f"{t['metas']} metas in {t['pulls']} pulls "
+              f"({t['metas'] / max(1, t['pulls']):.2f} per pull), {t['stalls']} "
+              f"stalled drains; card busy {100 * p['busy_share']:.1f}% of wall "
+              f"(profiled pass, {p['eps']:.1f} events/s); host syncs "
+              f"{p['syncs'] / p['dispatches']:.1f} per dispatch {p['sync_sites']}; "
+              f"== phase 5 (max float rel err {worst:.3g}) [{card}]", flush=True)
+    return out
+
+
+def phase_pipeline_routed(device, feed, routed, card: str):
+    """The routed partitioned flagship behind @Async at depth 4: one ring
+    exchange launch per routed dispatch, no route overflow, output equal
+    to phase 4's routed run."""
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+
+    layout = {}
+
+    def route(q):
+        q._win_keys = KEY_SLOTS
+        device_route_query_step(q, make_mesh(N_SHARDS, device),
+                                rows_per_shard=ROWS_PER_SHARD)
+        layout["rl"] = q._route_layout
+        ring_exchange.launches = 0
+
+    got, t = run_async(device, "@Async(buffer.size='64')\n" + APP.format(W=WINDOW),
+                       "bench", feed, 4,
+                       cfg={"siddhi_tpu.shard_exchange": "pallas_ring"}, setup=route)
+    rl = layout["rl"]
+    launches = ring_exchange.launches
+    _require(launches == rl.dispatches >= len(feed),
+             f"pipeline-routed: {launches} exchange launches for {rl.dispatches} "
+             f"routed dispatches: want one per dispatch")
+    _require(rl.route_overflow_rows == 0,
+             f"pipeline-routed: route overflow {rl.route_overflow_rows}")
+    _require(t["high_water"] >= 2,
+             f"pipeline-routed: the pump held at most {t['high_water']} batch(es)")
+    worst = require_equal(got, routed, "pipeline-routed vs phase 4", exact_floats=False)
+    print(f"[pipeline-routed] x{N_SHARDS} at depth 4: {launches} exchange launches for "
+          f"{rl.dispatches} routed dispatches, no route overflow, most in flight "
+          f"{t['high_water']}, {t['eps']:.1f} events/s send to drained; == phase 4 "
+          f"(max float rel err {worst:.3g}) [{card}]", flush=True)
+    return launches
+
+
+def phase_pipeline_distinct(device, feed, d1, card: str):
+    """D1 behind @Async at depth 4: one distinct-scan launch per batch,
+    output equal to phase 9's D1."""
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    def reset(_q):
+        distinct_scan.launches = 0
+
+    got, t = run_async(device, "@Async(buffer.size='64')\n" + D1_APP.format(W=WINDOW),
+                       "bench", feed, 4, setup=reset)
+    launches = distinct_scan.launches
+    _require(launches == len(feed),
+             f"pipeline-distinct: {launches} launches for {len(feed)} batches")
+    _require(t["high_water"] >= 2,
+             f"pipeline-distinct: the pump held at most {t['high_water']} batch(es)")
+    worst = require_equal(got, d1, "pipeline-distinct vs phase 9 D1", exact_floats=False)
+    print(f"[pipeline-distinct] D1 at depth 4: {launches} distinct-scan launches for "
+          f"{len(feed)} batches, most in flight {t['high_water']}, {t['eps']:.1f} "
+          f"events/s send to drained; == phase 9's D1 (max float rel err "
+          f"{worst:.3g}) [{card}]", flush=True)
+    return launches
+
+
+def phase_ingest(device, feed, fused, strings, card: str):
+    """The feed as wire frames (WireEncoder -> decode_frame ->
+    send_columns) and through a pool of 4 packers: the global flagship's
+    output equal to phase 5's columns ingest, every dictionary id equal;
+    host ms per 65,536-row decode and pack, inline and pooled."""
+    import numpy as np
+
+    from siddhi_tpu_torch import InMemoryConfigManager
+    from siddhi_tpu_torch.core.event import HostBatch, StringDictionary
+    from siddhi_tpu_torch.core.stream.input.pack_pool import IngestPackPool
+    from siddhi_tpu_torch.core.stream.input.wire import (
+        DecoderRegistry, WireEncoder, decode_frame)
+
+    app = GLOBAL_APP.format(W=WINDOW)
+    enc = WireEncoder(1)
+    t0 = time.perf_counter()
+    frames = [enc.encode(cols, timestamps=ts) for cols, ts in feed]
+    encode_ms = (time.perf_counter() - t0) * 1e3 / len(feed)
+    m, rt, _q = global_runtime(device, app, "bench")
+    cb = collector()
+    rt.add_callback("OutStream", cb)
+    h = rt.get_input_handler("StockStream")
+    reg, defn = DecoderRegistry(), rt.junctions["StockStream"].definition
+    decode_ms = []
+    for frame in frames:
+        t0 = time.perf_counter()
+        data, ts = decode_frame(frame, defn, rt.app_context.string_dictionary, reg)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        h.send_columns(data, timestamps=ts)
+    wire_strings = list(rt.app_context.string_dictionary._to_str)
+    m.shutdown()
+    require_equal(cb.batches, fused, "wire ingest vs columns ingest", exact_floats=False)
+    _require(wire_strings == strings, "wire ingest: dictionary ids differ from "
+             "columns ingest")
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device=device)
+    split = max(256, BATCH // 8)     # 8,192 rows, the default, at the full size
+    m.set_config_manager(InMemoryConfigManager({"siddhi_tpu.ingest_pool": "4",
+                                                "siddhi_tpu.ingest_split": str(split)}))
+    rt = m.create_siddhi_app_runtime(app)
+    rt.query_runtimes["bench"].selector_plan.num_keys = KEY_SLOTS
+    cb = collector()
+    rt.add_callback("OutStream", cb)
+    send_timed(rt.get_input_handler("StockStream"), feed, device)
+    pool = rt.app_context.ingest_pack_pool
+    _require(pool is not None and pool.subbatches >= 4 * len(feed),
+             f"ingest pool: {getattr(pool, 'subbatches', 0)} sub-batches packed")
+    pool_strings = list(rt.app_context.string_dictionary._to_str)
+    m.shutdown()
+    require_equal(cb.batches, fused, "pooled ingest vs inline", exact_floats=False)
+    _require(pool_strings == strings, "pooled ingest: dictionary ids differ from inline")
+
+    # the pack alone (HostBatch.from_columns, dictionary encode included),
+    # inline and pooled, each into its own dictionary
+    pool = IngestPackPool(rt.app_context, workers=4, split_rows=split)
+    times = {"inline": [], "pool": []}
+    dicts = {"inline": StringDictionary(), "pool": StringDictionary()}
+    try:
+        for cols, ts in feed:
+            for name, pl in (("inline", None), ("pool", pool)):
+                t0 = time.perf_counter()
+                b = HostBatch.from_columns(cols, defn, dicts[name], timestamps=ts, pool=pl)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                if name == "inline":
+                    ref = b
+            for k in ref.cols:
+                _require(np.array_equal(ref.cols[k], b.cols[k]),
+                         f"pooled pack column {k} differs from inline")
+    finally:
+        pool.shutdown()
+    _require(dicts["inline"]._to_str == dicts["pool"]._to_str,
+             "pooled pack: dictionary ids differ")
+    out = {"encode_ms": encode_ms, "decode_ms": statistics.mean(decode_ms[1:]),
+           "decode_first_ms": decode_ms[0],
+           "pack_ms": {k: statistics.mean(v[1:]) for k, v in times.items()},
+           "pack_first_ms": {k: v[0] for k, v in times.items()}}
+    print(f"[ingest] wire frames -> decode_frame -> send_columns == columns ingest, "
+          f"every dictionary id equal; pool of 4 == inline (output and ids); host "
+          f"ms per {BATCH}-row batch: encode {encode_ms:.2f}, decode "
+          f"{out['decode_ms']:.2f} (first batch, {NUM_SYMBOLS} new strings: "
+          f"{decode_ms[0]:.2f}); pack inline {out['pack_ms']['inline']:.2f}, pooled "
+          f"{out['pack_ms']['pool']:.2f} (first batch {times['inline'][0]:.2f} / "
+          f"{times['pool'][0]:.2f}) [{card}]", flush=True)
+    return out
+
+
+def phase_onerror(device, feed, card: str):
+    """@OnError(action='stream'): a filter calls an extension function
+    that raises when one symbol is present; that symbol is in one row of
+    batch 2 only. The failing batch's rows arrive on !StockStream with
+    _error, every other batch flows. A capacity overflow still raises
+    FatalQueryError."""
+    import numpy as np
+
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    from siddhi_tpu_torch.core.stream.junction import FatalQueryError
+    from siddhi_tpu_torch.extension import ScalarFunction
+    from siddhi_tpu_torch.query_api.definitions import AttrType
+
+    bad = {}
+
+    class Faults(StreamCallback):
+        def __init__(self):
+            self.events = []
+
+        def receive(self, events):
+            self.events.extend(events)
+
+    class Tripwire(ScalarFunction):
+        return_type = AttrType.BOOL
+
+        @staticmethod
+        def apply(xp, sym):
+            if bool((sym == bad["id"]).any()):   # a host sync, by design
+                raise ValueError("tripwire: symbol TRIP")
+            return xp.ones_like(sym, dtype=xp.bool_)
+
+    fail_at = 2
+    feed = [(dict(cols), ts) for cols, ts in feed]
+    sym = feed[fail_at][0]["symbol"].copy()
+    sym[BATCH // 2] = "TRIP"
+    feed[fail_at][0]["symbol"] = sym
+    m = SiddhiManager(device=device)
+    m.set_extension("function:tripwire", Tripwire)
+    rt = m.create_siddhi_app_runtime("@OnError(action='stream')" + GLOBAL_APP.replace(
+        "from StockStream#", "from StockStream[tripwire(symbol)]#").format(W=WINDOW))
+    rt.query_runtimes["bench"].selector_plan.num_keys = KEY_SLOTS
+    bad["id"] = rt.app_context.string_dictionary.encode("TRIP")
+    cb, faults = collector(), Faults()
+    rt.add_callback("OutStream", cb)
+    rt.add_callback("!StockStream", faults)
+    send_timed(rt.get_input_handler("StockStream"), feed, device)
+    m.shutdown()
+    fe = faults.events
+    _require(len(fe) == BATCH,
+             f"onerror: {len(fe)} fault rows, want the failing batch's {BATCH}")
+    _require(np.array_equal(np.array([e.timestamp for e in fe]), feed[fail_at][1])
+             and [e.data[0] for e in fe] == sym.tolist(),
+             "onerror: the fault rows are not the failing batch's")
+    _require(all("tripwire" in e.data[3] for e in fe),
+             "onerror: _error does not name the failure")
+    _require(cb.rows == BATCH * (len(feed) - 1) and len(cb.batches) == len(feed) - 1,
+             f"onerror: {cb.rows} rows out of the other {len(feed) - 1} batches")
+
+    over = SiddhiManager(device=device)
+    rt = over.create_siddhi_app_runtime("@OnError(action='stream')" + D2_APP.format(W=WINDOW))
+    for spec in rt.query_runtimes["bench"].selector_plan.specs:
+        spec.distinct_capacity = 64
+    try:
+        rt.get_input_handler("StockStream").send_columns(feed[0][0], timestamps=feed[0][1])
+        raised = None
+    except FatalQueryError as e:
+        raised = e
+    finally:
+        over.shutdown()
+    _require(raised is not None and "distinct_values_capacity" in str(raised),
+             "onerror: a full distinct value table did not raise FatalQueryError")
+    print(f"[onerror] batch {fail_at}'s {BATCH} rows arrived on !StockStream with "
+          f"_error, the other {len(feed) - 1} batches flowed ({cb.rows} rows); a "
+          f"full value table still raised FatalQueryError [{card}]", flush=True)
+
+
+def phase_transport(device, feed, card: str):
+    """@source(type='inMemory') -> the global flagship -> @sink(type=
+    'inMemory') over one batch of 65,536 rows, published one row a message
+    (an @Async source stream coalesces them into units): what the sink
+    publishes equals a StreamCallback's rows on the same stream."""
+    import numpy as np
+
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.extension import InMemoryBroker
+
+    app = (GLOBAL_APP.format(W=WINDOW)
+           .replace("define stream StockStream",
+                    f"@Async(buffer.size='{BATCH}', batch.size='{BATCH}')\n"
+                    "@source(type='inMemory', topic='smoke-in')\n"
+                    "define stream StockStream")
+           .replace("insert into OutStream;",
+                    "insert into OutStream;\n@sink(type='inMemory', topic='smoke-out')\n"
+                    "define stream OutStream (symbol string, avgPrice double, "
+                    "totalVolume long);"))
+    m = SiddhiManager(device=device)
+    rt = m.create_siddhi_app_runtime(app)
+    rt.query_runtimes["bench"].selector_plan.num_keys = KEY_SLOTS
+    cb = collector()
+    rt.add_callback("OutStream", cb)
+    published = []
+
+    class Sub(InMemoryBroker.Subscriber):
+        topic = "smoke-out"
+
+        def on_message(self, payload):
+            published.append(payload)
+
+    sub = Sub()
+    InMemoryBroker.subscribe(sub)
+    rt.start()
+    cols, _ts = feed[0]
+    rows = list(zip(cols["symbol"].tolist(), cols["price"].tolist(),
+                    cols["volume"].tolist()))
+    t0 = time.perf_counter()
+    for row in rows:
+        InMemoryBroker.publish("smoke-in", list(row))
+    wait_rows(cb, BATCH, "transport")
+    seconds = time.perf_counter() - t0
+    m.shutdown()
+    InMemoryBroker.unsubscribe(sub)
+    dic = rt.app_context.string_dictionary
+    want = [[dic.decode(int(i)), float(a), int(v)] for b in cb.batches
+            for i, a, v in zip(b["symbol"], b["avgPrice"].tolist(),
+                               b["totalVolume"].tolist())]
+    _require(len(published) == BATCH and published == want,
+             f"transport: the sink published {len(published)} rows, not the "
+             f"{len(want)} the callback received")
+    _require(np.isfinite(np.array([p[1] for p in published])).all(),
+             "transport: non-finite averages")
+    print(f"[transport] inMemory source -> flagship -> inMemory sink: {BATCH} rows in "
+          f"{len(cb.batches)} units, the sink's payloads == the callback's rows, "
+          f"{seconds:.2f} s from the first publish to the last row [{card}]", flush=True)
+
+
+def phase_d4(device, feed, card: str):
+    """D4: distinctCount(account) over #window.length(30000), one group,
+    H = 32,768: the distinct scan's global-index path (one_group's
+    checks). Returns (kernel facts with max_abs_err, launches)."""
+    import torch
+
+    from siddhi_tpu_torch.ops import distinct
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    def reset():
+        distinct_scan.launches = 0
+
+    _require(distinct.kernel_path(D4_H) == distinct.PATH_WIDE, "D4: H does not take the global-index path")
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    k, launches, err = one_group(device, d4_feed(feed), "D4", D4_WINDOW, D4_H, scratch,
+                                 card, reset, app=D4_APP, column="account", runs=D4_RUNS)
+    k["max_abs_err"] = err
+    return k, launches
+
+
+def d4_feed(feed):
+    """The feed with an ``account`` column: int64 ids drawn uniformly from
+    100,000 by their own seeded generator (the other columns unchanged)."""
+    import numpy as np
+
+    rng = np.random.default_rng(44)
+    return [({**cols, "account": rng.integers(0, D4_ACCOUNTS, BATCH, dtype=np.int64)}, ts)
+            for cols, ts in feed]
 
 
 # ------------------------------------------------------------------ main
@@ -1150,6 +1672,7 @@ def phase_global(device, feed, card: str):
                                 "global card vs cpu (first batches)")
     print(f"[global] first {CPU_BATCHES} batches equal the port's CPU run "
           f"(max float rel err {worst_cpu:.3g})", flush=True)
+    return fused, facts["strings"]
 
 
 def phase_twin(device, feed, card: str):
@@ -1275,7 +1798,7 @@ def main() -> int:
           f"(max float rel err {worst_cpu:.3g})", flush=True)
 
     # 5. the global flagship, fused
-    phase_global(device, feed, card)
+    fused, strings = phase_global(device, feed, card)
 
     # 6. the twin, generic
     phase_twin(device, feed, card)
@@ -1297,7 +1820,23 @@ def main() -> int:
     dist = phase_distinct(device, feed, card)
     d1 = dist["d1"]
 
-    # 10. result lines
+    # 10. pipelined dispatch: the flagship behind @Async at depths 1, 4, 8
+    pipe = phase_pipeline(device, feed, fused, card)
+    # 11. the routed flagship behind @Async at depth 4
+    routed_pipe_launches = phase_pipeline_routed(device, feed, routed, card)
+    # 12. D1 behind @Async at depth 4
+    dist["launches"]["D1_pipeline"] = phase_pipeline_distinct(
+        device, feed, dist["d1_out"], card)
+    # 13. the ingest front door: wire frames and the pack pool
+    ingest = phase_ingest(device, feed, fused, strings, card)
+    # 14. @OnError(action='stream')
+    phase_onerror(device, feed, card)
+    # 15. inMemory source -> flagship -> inMemory sink
+    phase_transport(device, feed, card)
+    # 16. D4: the distinct scan above H = 16,384
+    d4, d4_launches = phase_d4(device, feed, card)
+
+    # 17. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
@@ -1313,6 +1852,7 @@ def main() -> int:
         "plain_ms_warm_l2": ex["plain_ms_warm_l2"],
         "library_ms_warm_l2": ex["library_ms_warm_l2"],
         "host_ms": ex["host_ms"],
+        "launches_pipeline_routed": routed_pipe_launches,
     }, {
         "name": "distinct_scan", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/distinct_scan.cu",
@@ -1327,7 +1867,24 @@ def main() -> int:
         **{name: {k: dist[name][k] for k in (
             "ms", "device_ms", "bound_ms", "share", "host_ms", "chain", "H",
             "ns_per_row", "cut_ms", "plain_ms")} for name in ("d2", "d3")},
+    }, {
+        # the same kernel's global-index path (H > 16,384), at D4's shape:
+        # ms and bound_ms over one whole batch, plain_ms and cut_ms (the
+        # kernel) on its first D2_CUT rows
+        "name": "distinct_scan (H > 16,384)", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/distinct_scan.cu",
+        "replaces": "siddhi_tpu/ops/aggregators.py:291",
+        "launches": d4_launches, "max_abs_err": d4["max_abs_err"],
+        "ms": d4["ms"], "plain_ms": d4["plain_ms"], "bound_ms": d4["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "device_ms": d4["device_ms"],
+        "roofline_share": d4["share"], "host_ms": d4["host_ms"],
+        "chain": d4["chain"], "rows": d4["rows"], "H": d4["H"],
+        "ns_per_chain_row": d4["ns_per_row"], "cut_ms": d4["cut_ms"],
+        "plain_rows": D2_CUT, "state_bytes": d4["state_bytes"], "events_per_s": d4["eps"],
     }]
+    print(json.dumps({"pipeline": {
+        str(d): {k: v for k, v in f.items() if k != "strings"} for d, f in pipe.items()},
+        "ingest": ingest}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,18 @@ Counterpart of ``siddhi_tpu/core/app_runtime.py``, reduced to what the
 port runs: stream definitions, queries and value partitions, stream and
 query callbacks, custom extension functions and ``define function``
 scripts, the set-element metadata of OBJECT attributes,
-``@app:name``/``@app:playback``/``@app:precision`` and the
-``siddhi_tpu.*`` config knobs. Tables, named windows, triggers,
-incremental aggregations, sources/sinks, ``@Async`` and ``@purge`` are
-not ported yet and raise ``CompileError`` naming themselves, so an app
-never runs with a part silently missing.
+``@app:name``/``@app:playback``/``@app:precision``, ``@Async`` and
+``@OnError`` streams, ``@source``/``@sink`` transports, the dispatch
+pipeline and the ingest pack pool, and the ``siddhi_tpu.*`` config
+knobs. Tables, named windows, triggers, incremental aggregations and
+``@purge`` are not ported yet and raise ``CompileError`` naming
+themselves, so an app never runs with a part silently missing.
+
+The app starts at ``start()`` or at its first send: @Async workers, the
+ingest pool, sinks' connections and sources (each connecting with retry
+on its own thread). ``shutdown`` drains the pipeline, stops sources and
+workers (each delivers what its queue holds first), then drops the
+device state.
 """
 
 from __future__ import annotations
@@ -25,8 +32,8 @@ from siddhi_tpu_torch.core.stream.input.input_handler import InputHandler, Input
 from siddhi_tpu_torch.core.stream.junction import StreamJunction
 from siddhi_tpu_torch.core.stream.output.stream_callback import StreamCallback
 from siddhi_tpu_torch.ops.expressions import CompileError, set_active_extensions
-from siddhi_tpu_torch.query_api.annotations import find_annotation
-from siddhi_tpu_torch.query_api.definitions import Attribute, StreamDefinition
+from siddhi_tpu_torch.query_api.annotations import find_annotation, find_annotations
+from siddhi_tpu_torch.query_api.definitions import Attribute, AttrType, StreamDefinition
 from siddhi_tpu_torch.query_api.execution import (
     InsertIntoStream,
     Partition,
@@ -67,6 +74,19 @@ def _compile_script_function(fdef):
     return _Script
 
 
+def _parse_time_ms(s: str) -> float:
+    """'5 ms' / '1 sec' / '250' -> milliseconds (@Async max.delay and
+    latency.target)."""
+    from siddhi_tpu_torch.compiler.tokenizer import _TIME_UNIT_MS
+
+    parts = s.strip().lower().split()
+    if len(parts) == 2 and parts[1] in _TIME_UNIT_MS:
+        return float(parts[0]) * _TIME_UNIT_MS[parts[1]]
+    if len(parts) == 1 and parts[0].replace(".", "", 1).isdigit():
+        return float(parts[0])
+    raise SiddhiAppValidationException(f"cannot parse time '{s}'")
+
+
 def _default_app_name(siddhi_app: SiddhiApp) -> str:
     import hashlib
 
@@ -84,6 +104,9 @@ class SiddhiAppRuntime:
         self.junctions: Dict[str, StreamJunction] = {}
         self.query_runtimes: Dict[str, QueryRuntime] = {}
         self.partition_contexts: List = []
+        self.source_runtimes: List = []
+        self.sink_runtimes: List = []
+        self._started = False
 
         for what, defs in (("tables", siddhi_app.table_definitions),
                            ("named windows", siddhi_app.window_definitions),
@@ -106,7 +129,9 @@ class SiddhiAppRuntime:
         # typed knob registry (junk spellings raise naming the key)
         from siddhi_tpu_torch.core.util.knobs import apply_app_knobs
 
-        apply_app_knobs(siddhi_context.config_manager, self.app_context)
+        explicit = apply_app_knobs(siddhi_context.config_manager, self.app_context)
+        if self.app_context.defer_meta > 1:
+            self._map_defer_meta(explicit.get("pipeline_depth"))
 
         # the manager's extensions and this app's `define function` scripts
         # are the registry every query of the app compiles against
@@ -116,16 +141,12 @@ class SiddhiAppRuntime:
                for fid, fdef in siddhi_app.function_definitions.items()}}
         set_active_extensions(self._extensions)
 
-        for sdef in self.stream_definitions.values():
-            for ann in ("async", "OnError", "source", "sink"):
-                if find_annotation(sdef.annotations or [], ann) is not None:
-                    raise CompileError(
-                        f"stream '{sdef.id}': @{ann} is not ported to "
-                        f"siddhi_tpu_torch yet")
-            self.junctions[sdef.id] = StreamJunction(sdef, self.app_context)
+        for sdef in list(self.stream_definitions.values()):
+            self._create_junction(sdef)
 
         self.input_manager = InputManager(self.app_context, self.junctions,
                                           self._barrier)
+        self.input_manager.ensure_started = self.start
 
         # set metadata of explicitly defined target streams first, so a
         # consumer query written before its producer compiles with it
@@ -140,7 +161,74 @@ class SiddhiAppRuntime:
                 p_index += 1
                 q_index = self._add_partition(element, p_index, q_index)
 
+        # transport boundary: @source / @sink stream annotations
+        from siddhi_tpu_torch.core.stream.input.source import create_source_runtime
+        from siddhi_tpu_torch.core.stream.output.sink import create_sink_runtime
+
+        extensions = siddhi_context.extensions
+        for sid, sdef in list(self.stream_definitions.items()):
+            for ann in find_annotations(sdef.annotations or [], "source"):
+                self.source_runtimes.append(create_source_runtime(
+                    ann, sdef, self.get_input_handler(sid), self.app_context,
+                    extensions))
+            for ann in find_annotations(sdef.annotations or [], "sink"):
+                sr = create_sink_runtime(ann, sdef, self.app_context, extensions)
+                self.junctions[sid].subscribe(sr)
+                self.sink_runtimes.append(sr)
+
     # ------------------------------------------------------------ assembly
+
+    def _map_defer_meta(self, explicit_depth) -> None:
+        """``siddhi_tpu.defer_meta`` > 1 is deprecated: the dispatch
+        pipeline subsumes it. Without an explicit ``pipeline_depth`` it
+        becomes the depth; with one, the depth wins (the reference keeps
+        defer_meta for its legacy hold-N path, which the port lacks)."""
+        import warnings
+
+        ctx = self.app_context
+        if explicit_depth is None:
+            warnings.warn(
+                "siddhi_tpu.defer_meta is deprecated — use "
+                "siddhi_tpu.pipeline_depth (the dispatch pipeline subsumes "
+                f"meta-defer batching); mapping defer_meta={ctx.defer_meta} "
+                "onto pipeline_depth", DeprecationWarning, stacklevel=3)
+            ctx.pipeline_depth = max(ctx.pipeline_depth, ctx.defer_meta)
+        else:
+            warnings.warn(
+                "siddhi_tpu.defer_meta is deprecated — use "
+                f"siddhi_tpu.pipeline_depth; explicit pipeline_depth="
+                f"{explicit_depth} wins over defer_meta={ctx.defer_meta}",
+                DeprecationWarning, stacklevel=3)
+        ctx.defer_meta = 1
+
+    def _create_junction(self, sdef: StreamDefinition) -> StreamJunction:
+        """The stream's junction, with ``@Async(buffer.size, batch.size,
+        max.delay, latency.target)`` and ``@OnError(action='stream')``
+        (a ``!S`` fault junction: S's attributes and ``_error``)."""
+        j = StreamJunction(sdef, self.app_context)
+        anns = sdef.annotations or []
+        async_ann = find_annotation(anns, "async")
+        if async_ann is not None:
+            max_delay = async_ann.element("max.delay")
+            latency_target = async_ann.element("latency.target")
+            j.enable_async(
+                int(async_ann.element("buffer.size") or 1024),
+                int(async_ann.element("batch.size") or 256),
+                max_delay_ms=_parse_time_ms(max_delay) if max_delay else None,
+                latency_target_ms=(_parse_time_ms(latency_target)
+                                   if latency_target else None))
+        onerr = find_annotation(anns, "OnError")
+        if onerr is not None and (onerr.element("action") or "log").lower() == "stream":
+            fdef = StreamDefinition(
+                id="!" + sdef.id,
+                attributes=list(sdef.attributes) + [Attribute("_error", AttrType.STRING)])
+            fj = StreamJunction(fdef, self.app_context)
+            self.junctions[fdef.id] = fj
+            self.stream_definitions[fdef.id] = fdef
+            j.fault_junction = fj
+            j.on_error_action = "STREAM"
+        self.junctions[sdef.id] = j
+        return j
 
     def _add_partition(self, partition: Partition, p_index: int, q_index: int) -> int:
         from siddhi_tpu_torch.core.partition import PartitionContext, ValuePartitionKeyer
@@ -185,7 +273,7 @@ class SiddhiAppRuntime:
                 id=target,
                 attributes=[Attribute(n, t) for n, t in runtime.output_attrs])
             self.stream_definitions[target] = sdef
-            self.junctions[target] = StreamJunction(sdef, self.app_context)
+            self._create_junction(sdef)
         else:
             existing = self.stream_definitions[target]
             dattrs = [(a.name, a.type) for a in existing.attributes]
@@ -303,12 +391,52 @@ class SiddhiAppRuntime:
     removeCallback = remove_callback
 
     def start(self):
-        """Nothing to start in the ported slice: it has no triggers,
-        sources or @Async workers. Kept so reference call sites run."""
+        """Start @Async workers, the ingest pool, sinks and sources (also
+        done by the first send)."""
+        with self._barrier:   # a lazy start can race concurrent first sends
+            if self._started:
+                return
+            self._started = True
+            ctx = self.app_context
+            if ctx.ingest_pool > 0 and ctx.ingest_pack_pool is None:
+                from siddhi_tpu_torch.core.stream.input.pack_pool import IngestPackPool
+
+                ctx.ingest_pack_pool = IngestPackPool(
+                    ctx, workers=ctx.ingest_pool, split_rows=ctx.ingest_split)
+            for j in self.junctions.values():
+                j.start_processing()
+            for sr in self.sink_runtimes:
+                sr.connect()
+            for sr in self.source_runtimes:
+                # connect with retry/backoff off-thread (Source.java:155-185)
+                threading.Thread(target=sr.connect_with_retry, daemon=True).start()
+
     def shutdown(self):
+        import logging
+
+        ctx = self.app_context
+        ctx.stopped = True
+        if ctx.completion_pump.has_pending:
+            # batches still riding the pipeline emit before teardown
+            try:
+                ctx.completion_pump.flush()
+            except RuntimeError:
+                logging.getLogger(__name__).exception(
+                    "pipeline flush failed during shutdown")
+        for sr in self.source_runtimes:
+            sr.shutdown()
+        for j in self.junctions.values():
+            # an @Async worker delivers its queue, flushes, then exits
+            j.stop_processing()
+        for sr in self.sink_runtimes:
+            sr.shutdown()
+        if ctx.ingest_pack_pool is not None:
+            # after the workers stopped: no pack can be in flight
+            ctx.ingest_pack_pool.shutdown()
+            ctx.ingest_pack_pool = None
         with self._barrier:
-            self.app_context.stopped = True
             # drop device state so the app's memory is released now
             for q in self.query_runtimes.values():
                 q._state = None
                 q._step = None
+                q._staging = None

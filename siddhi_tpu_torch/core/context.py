@@ -12,6 +12,8 @@ from typing import Dict
 import torch
 
 from siddhi_tpu_torch.core.event import StringDictionary
+from siddhi_tpu_torch.core.query.completion import CompletionPump
+from siddhi_tpu_torch.core.util.knobs import env_knob
 
 
 class SiddhiContext:
@@ -65,9 +67,22 @@ class SiddhiAppContext:
         # the planner may fuse a global length window into its invertible
         # aggregators (reference core/context.py enable_fusion)
         self.enable_fusion = True
-        # dispatch pipeline depth: parsed so configs carry over; the port
-        # dispatches synchronously (depth 1)
-        self.pipeline_depth = 1
+        # dispatch pipeline depth: up to N batches per query ride in
+        # flight while the host packs the next (core/query/completion.py);
+        # 1 = fully synchronous. Set via siddhi_tpu.pipeline_depth;
+        # SIDDHI_TPU_PIPELINE_DEPTH overrides the process default, 2 as in
+        # the reference (a junk spelling raises naming the variable)
+        self.pipeline_depth = env_knob("SIDDHI_TPU_PIPELINE_DEPTH", "int", 2)
+        # deprecated: values > 1 are mapped onto pipeline_depth at app
+        # build (app_runtime.py), as the reference does
+        self.defer_meta = 1
+        self.completion_pump = CompletionPump(self)
+        # multicore ingest (core/stream/input/pack_pool.py): > 0 packs
+        # large batches on that many threads, in sub-batches of
+        # ingest_split rows; the pool starts with the app
+        self.ingest_pool = 0
+        self.ingest_split = 8192
+        self.ingest_pack_pool = None
         # exchange transport of device-routed queries; on one card both
         # values run the ring_exchange kernel (parallel/mesh.py)
         self.shard_exchange = "all_to_all"

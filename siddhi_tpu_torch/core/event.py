@@ -221,6 +221,14 @@ def encode_key_tuples(arrays, rows: np.ndarray, id_of) -> np.ndarray:
 _NONE_MASK = np.frompyfunc(lambda v: v is None, 1, 1)
 
 
+def pack_pool_of(app_context):
+    """The app's ingest pack pool, or None (``siddhi_tpu.ingest_pool`` 0,
+    or no context): the one accessor every pack call site uses."""
+    if app_context is None:
+        return None
+    return getattr(app_context, "ingest_pack_pool", None)
+
+
 def _pad_len(n: int, minimum: int = 8) -> int:
     """Pad batch length to a power of two (the reference's recompile
     bound; kept so batch shapes, and thus outputs, match it row for row)."""
@@ -317,7 +325,16 @@ class HostBatch:
     @staticmethod
     def from_events(events: Sequence[Event], definition: AbstractDefinition,
                     dictionary: StringDictionary, pad_to: Optional[int] = None,
-                    event_type: int = CURRENT) -> "HostBatch":
+                    event_type: int = CURRENT, pool=None) -> "HostBatch":
+        if pool is not None:
+            chunks = pool.plan_events(len(events), definition)
+            if chunks is not None:
+                # the encode work runs as sequence-numbered sub-batches on
+                # the app's ingest pool (core/stream/input/pack_pool.py);
+                # the ordered merge keeps outputs and dictionary ids
+                # bit-identical to this inline path
+                return _parallel_from_events(pool, chunks, events, definition,
+                                             dictionary, pad_to, event_type)
         n = len(events)
         b = pad_to if pad_to is not None else _pad_len(n)
         cols: Dict[str, np.ndarray] = {
@@ -364,10 +381,16 @@ class HostBatch:
                      dictionary: StringDictionary,
                      timestamps: Optional[np.ndarray] = None,
                      default_ts: int = 0,
-                     pad_to: Optional[int] = None) -> "HostBatch":
+                     pad_to: Optional[int] = None, pool=None) -> "HostBatch":
         """Columnar ingestion: ``data`` maps attribute names to arrays
         (strings as object/str arrays, encoded here, or pre-encoded int
         ids). ``<name>?`` null-mask arrays are optional."""
+        if pool is not None:
+            chunks = pool.plan_columns(data, definition)
+            if chunks is not None:
+                return _parallel_from_columns(pool, chunks, data, definition,
+                                              dictionary, timestamps,
+                                              default_ts, pad_to)
         first = next(iter(data.values()))
         n = len(first)
         b = pad_to if pad_to is not None else _pad_len(n)
@@ -507,3 +530,145 @@ def _encode_object_column(cols, arr, mask, name, b, values, definition,
                 arr[i] = encode_set_value(next(iter(s)), elem_t, dictionary)
     if nulls:
         mask[nulls] = True
+
+
+# ------------------------------------------------------ parallel ordered pack
+#
+# The multicore half of HostBatch.from_events / from_columns: the encode
+# work of ONE batch is split into sequence-numbered row-range sub-batches
+# that run on the app's IngestPackPool workers, each writing a disjoint
+# slice of the pre-allocated output columns. The ordered merge — waiting
+# the sub-batches out in sequence order, then resolving every NEW string
+# serially in attribute-major row order — keeps the produced arrays AND
+# the dictionary's id-assignment order bit-identical to the inline path.
+
+def _parallel_from_events(pool, chunks, events, definition, dictionary,
+                          pad_to, event_type) -> HostBatch:
+    n = len(events)
+    b = pad_to if pad_to is not None else _pad_len(n)
+    cols: Dict[str, np.ndarray] = {
+        TS_KEY: np.zeros(b, np.int64),
+        TYPE_KEY: np.full(b, event_type, np.int8),
+        VALID_KEY: np.zeros(b, bool),
+    }
+    cols[VALID_KEY][:n] = True
+    attrs = definition.attributes
+    arrs: Dict[str, np.ndarray] = {}
+    masks: Dict[str, np.ndarray] = {}
+    scratch: Dict[str, np.ndarray] = {}   # string probe ids (_MISS marked)
+    positions = {}
+    for pos, attr in enumerate(attrs):
+        arrs[attr.name] = np.zeros(b, dtype_of(attr.type))
+        masks[attr.name] = np.zeros(b, bool)
+        positions[attr.name] = pos
+        if attr.type == AttrType.STRING:
+            scratch[attr.name] = np.empty(n, np.int64)
+
+    def pack_chunk(lo: int, hi: int) -> None:
+        m = hi - lo
+        sub = events[lo:hi]
+        cols[TS_KEY][lo:hi] = np.fromiter(
+            (ev.timestamp for ev in sub), np.int64, m)
+        expired = np.fromiter((ev.is_expired for ev in sub), bool, m)
+        if expired.any():
+            cols[TYPE_KEY][lo:hi][expired] = EXPIRED
+        rows = [ev.data for ev in sub]
+        for pos, attr in enumerate(attrs):
+            col = np.fromiter((r[pos] for r in rows), object, m)
+            if attr.type == AttrType.STRING:
+                # probe only — new strings stay _MISS markers for the
+                # serial merge (deterministic id assignment)
+                scratch[attr.name][lo:hi] = dictionary.probe_array(col)
+            else:
+                zero = False if attr.type == AttrType.BOOL else 0
+                nulls = _NONE_MASK(col).astype(bool)
+                if nulls.any():
+                    masks[attr.name][lo:hi] = nulls
+                    arrs[attr.name][lo:hi] = np.where(nulls, zero, col)
+                else:
+                    arrs[attr.name][lo:hi] = col
+
+    pool.run_ordered(chunks, pack_chunk)
+    for attr in attrs:
+        if attr.type == AttrType.STRING:
+            ids = scratch[attr.name]
+            pos = positions[attr.name]
+            # serial miss resolution in row order, attributes in
+            # declaration order — the exact insertion order the inline
+            # per-attribute encode_array produces
+            dictionary.resolve_missing(
+                ids, lambda i, _p=pos: events[i].data[_p])
+            mask = ids == StringDictionary.NULL_ID
+            masks[attr.name][:n] = mask
+            arrs[attr.name][:n] = np.where(mask, 0, ids)
+        cols[attr.name] = arrs[attr.name]
+        cols[attr.name + "?"] = masks[attr.name]
+    return HostBatch(cols)
+
+
+def _parallel_from_columns(pool, chunks, data, definition, dictionary,
+                           timestamps, default_ts, pad_to) -> HostBatch:
+    first = next(iter(data.values()))
+    n = len(first)
+    b = pad_to if pad_to is not None else _pad_len(n)
+    cols: Dict[str, np.ndarray] = {
+        TYPE_KEY: np.full(b, CURRENT, np.int8),
+        VALID_KEY: np.zeros(b, bool),
+    }
+    cols[VALID_KEY][:n] = True
+    ts = np.zeros(b, np.int64)
+    if timestamps is not None:
+        ts_src = np.asarray(timestamps, np.int64)
+    else:
+        ts_src = None
+        ts[:n] = default_ts
+    cols[TS_KEY] = ts
+    attrs = definition.attributes
+    for attr in attrs:
+        if attr.name not in data:
+            raise KeyError(f"column '{attr.name}' missing from batch")
+    arrs: Dict[str, np.ndarray] = {}
+    masks: Dict[str, np.ndarray] = {}
+    scratch: Dict[str, np.ndarray] = {}
+    srcs = {attr.name: np.asarray(data[attr.name]) for attr in attrs}
+    str_obj = {attr.name: (attr.type == AttrType.STRING
+                           and not np.issubdtype(srcs[attr.name].dtype,
+                                                 np.integer))
+               for attr in attrs}
+    for attr in attrs:
+        arrs[attr.name] = np.zeros(b, dtype_of(attr.type))
+        masks[attr.name] = np.zeros(b, bool)
+        if str_obj[attr.name]:
+            scratch[attr.name] = np.empty(n, np.int64)
+
+    def pack_chunk(lo: int, hi: int) -> None:
+        if ts_src is not None:
+            ts[lo:hi] = ts_src[lo:hi]
+        for attr in attrs:
+            src = srcs[attr.name]
+            if str_obj[attr.name]:
+                scratch[attr.name][lo:hi] = dictionary.probe_array(
+                    src[lo:hi])
+            elif attr.type == AttrType.STRING:
+                ids = np.asarray(src[lo:hi], np.int64)
+                m = ids < 0           # pre-encoded: negative = null
+                masks[attr.name][lo:hi] = m
+                arrs[attr.name][lo:hi] = np.where(m, 0, ids)
+            else:
+                arrs[attr.name][lo:hi] = src[lo:hi]
+
+    pool.run_ordered(chunks, pack_chunk)
+    for attr in attrs:
+        if str_obj[attr.name]:
+            ids = scratch[attr.name]
+            src = srcs[attr.name]
+            dictionary.resolve_missing(ids, lambda i, _s=src: _s[i])
+            mask = ids == StringDictionary.NULL_ID
+            masks[attr.name][:n] = mask
+            arrs[attr.name][:n] = np.where(mask, 0, ids)
+        user_mask = data.get(attr.name + "?")
+        if user_mask is not None:
+            masks[attr.name][:n] |= np.asarray(user_mask, bool)[:n]
+        cols[attr.name] = arrs[attr.name]
+        cols[attr.name + "?"] = masks[attr.name]
+    return HostBatch(cols)

@@ -10,9 +10,15 @@ output rows: columnar into the output stream, decoded to Events for the
 query's ``QueryCallback``s (CURRENT rows as ``in_events``, EXPIRED as
 ``remove_events``), with ``uuid()`` columns filled on the host first.
 
-The port dispatches synchronously (the reference's ``pipeline_depth`` 1):
-``siddhi_tpu.pipeline_depth`` is accepted, and with synchronous sends the
-visible output is the same at any depth.
+At ``pipeline_depth`` > 1 the step's output rides the app's
+``CompletionPump`` (``core/query/completion.py``) instead: its meta
+travels to pinned host memory behind a CUDA event, and the pump emits in
+dispatch order once the meta has arrived, while the producer packs the
+next batch. Depth 1 pulls the meta at once, as the reference does. On the
+card, host columns reach the step through a ring of ``depth + 1`` pinned
+staging slots per column with ``non_blocking`` copies, so packing the
+next batch never waits behind the card's queue; a slot is written again
+only once the event recorded after its last copy has completed.
 """
 
 from __future__ import annotations
@@ -26,11 +32,14 @@ import torch
 
 from siddhi_tpu_torch.core.event import (
     CURRENT, EXPIRED, Event, HostBatch, LazyColumns, StringDictionary,
-    encode_key_tuples)
+    encode_key_tuples, pack_pool_of)
 from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY, STR_RANK, SelectorPlan
-from siddhi_tpu_torch.core.stream.junction import FatalQueryError, Receiver
+from siddhi_tpu_torch.core.query.completion import QueryCompletion, stage_meta
+from siddhi_tpu_torch.core.stream.junction import (
+    FatalQueryError, Receiver, current_delivering_junction)
 from siddhi_tpu_torch.ops.expressions import (
     NUMPY_XP, PK_KEY, TYPE_KEY, VALID_KEY, TorchXP)
+from siddhi_tpu_torch.ops.types import TORCH_OF_NUMPY
 from siddhi_tpu_torch.ops.windows import conform_cols
 from siddhi_tpu_torch.query_api.definitions import AttrType, StreamDefinition
 
@@ -129,6 +138,11 @@ class QueryRuntime(Receiver):
         self._route_layout = None  # parallel.mesh.device_route_query_step
         self.query_callbacks: List = []
         self._lock = threading.RLock()
+        self._staging: Optional[StagingRing] = None
+        # the delivering junction of the batch in process_batch, and its
+        # input batch when that junction routes errors to a fault stream
+        self._cur_junction = None
+        self._cur_fault_batch = None
 
     # ---------------------------------------------------------------- state
 
@@ -222,17 +236,26 @@ class QueryRuntime(Receiver):
 
     def receive(self, events: List[Event]):
         self.process_batch(HostBatch.from_events(
-            events, self.input_definition, self.dictionary))
+            events, self.input_definition, self.dictionary,
+            pool=pack_pool_of(self.app_context)))
 
     def receive_batch(self, batch: HostBatch, junction=None):
         backfill_null_masks(batch, self.input_definition)
-        self.process_batch(batch)
+        self.process_batch(batch, junction=junction)
 
     def _now(self) -> int:
         return int(self.app_context.timestamp_generator.current_time())
 
-    def process_batch(self, batch: HostBatch):
+    def process_batch(self, batch: HostBatch, junction=None):
         with self._lock:
+            # Event-path deliveries carry no junction parameter: the
+            # delivery loop's thread-local names it, so pipelined
+            # completions keep their error routing and latency feedback
+            j = junction or current_delivering_junction()
+            self._cur_junction = j
+            self._cur_fault_batch = batch if (
+                j is not None and j.on_error_action == "STREAM"
+                and j.fault_junction is not None) else None
             # a re-published batch may hold device tensors: the keyers'
             # reads pull them to the host in one copy, a step without
             # keyers takes them as they are
@@ -274,8 +297,12 @@ class QueryRuntime(Receiver):
                 f"(device_route_query_step) or split the batch")
 
     def _to_device(self, cols: Dict) -> Dict[str, torch.Tensor]:
+        if self.device.type == "cuda":
+            if self._staging is None:
+                self._staging = StagingRing(self.device)
+            return self._staging.put(cols, self.app_context.completion_pump.depth)
         return {k: (v if isinstance(v, torch.Tensor)
-                    else torch.from_numpy(np.ascontiguousarray(v))).to(self.device)
+                    else torch.from_numpy(np.ascontiguousarray(v)))
                 for k, v in dict.items(cols)}
 
     def overflow_knob_msg(self) -> str:
@@ -285,9 +312,20 @@ class QueryRuntime(Receiver):
         return ("distinctCount/unionSet value table full — raise "
                 "app_context.distinct_values_capacity")
 
+    def decode_meta_suffix(self, meta: np.ndarray) -> None:
+        """The routed step's meta carries [ov, notify, count,
+        route_overflow, rows_0..rows_n-1]: count the overflowed rows and
+        raise on any (an exchange overflow is fatal for the batch)."""
+        rl = self._route_layout
+        if rl is not None:
+            rl.route_overflow_rows += int(meta[3])
+            if int(meta[3]) > 0:
+                raise FatalQueryError(f"query '{self.name}': {self.route_overflow_msg()}")
+
     def _finish_device_batch(self, step, cols) -> None:
-        """Run the step on the device, pull its meta, raise on overflow
-        (a full value table is never clamped silently), emit outputs. The
+        """Run the step on the device, then either hand its output to the
+        pipeline (depth > 1) or pull its meta, raise on overflow (a full
+        value table is never clamped silently) and emit outputs. The
         ported stages never ask for a timer."""
         now = self._now()
         if self.selector_plan.needs_str_rank:
@@ -296,13 +334,15 @@ class QueryRuntime(Receiver):
             cols[STR_RANK] = self.dictionary.rank_table()
         self._state, out = step(self._state, self._to_device(cols), now)
         out_host = LazyColumns(out)
+        pump = self.app_context.completion_pump
+        if pump.depth > 1:
+            meta, event = stage_meta(dict.pop(out_host, "__meta__"))
+            pump.submit(QueryCompletion(
+                self, out_host, meta, event, self.overflow_knob_msg(),
+                junction=self._cur_junction, batch=self._cur_fault_batch))
+            return
         meta = out_host.pop("__meta__")     # the one sync of the batch
-        rl = self._route_layout
-        if rl is not None:
-            # [ov, notify, count, route_overflow, rows_0..rows_n-1]
-            rl.route_overflow_rows += int(meta[3])
-            if int(meta[3]) > 0:
-                raise FatalQueryError(f"query '{self.name}': {self.route_overflow_msg()}")
+        self.decode_meta_suffix(meta)
         if int(meta[0]) > 0:
             raise FatalQueryError(
                 f"query '{self.name}': {self.overflow_knob_msg()} before "
@@ -345,6 +385,57 @@ class QueryRuntime(Receiver):
             remove_events = [e for e in events if e.is_expired] or None
             for cb in self.query_callbacks:
                 cb.receive(events[0].timestamp, in_events, remove_events)
+
+
+class StagingRing:
+    """Pinned host staging for one runtime's columns on the card: ``depth
+    + 1`` slots, each a pinned buffer per column, and the event recorded
+    after the slot's host->device copies. A slot is reused only once its
+    event has completed, which it normally has: ``depth`` dispatches have
+    gone by since. A column's buffers are allocated in every slot at once,
+    by the first batch of a larger size, so pinning memory (slow) is not
+    spread over the batches that follow; a slot still in flight keeps its
+    old buffer alive through the copy that reads it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._bufs: Dict[str, List[torch.Tensor]] = {}
+        self._events: List[Optional[torch.cuda.Event]] = []
+        self._next = 0
+
+    def put(self, cols: Dict, depth: int) -> Dict[str, torch.Tensor]:
+        while len(self._events) < depth + 1:
+            self._events.append(None)
+        n_slots = len(self._events)
+        i = self._next % n_slots
+        self._next += 1
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        out = {}
+        for k, v in dict.items(cols):
+            if isinstance(v, torch.Tensor):
+                out[k] = v.to(self.device, non_blocking=True)
+                continue
+            a = np.asarray(v)
+            dt = TORCH_OF_NUMPY.get(a.dtype)
+            if dt is None:      # no column type of the port: copied as is
+                out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                continue
+            bufs = self._bufs.get(k)
+            if (bufs is None or len(bufs) < n_slots or bufs[0].dtype != dt
+                    or bufs[0].numel() < a.size):
+                bufs = self._bufs[k] = [
+                    torch.empty(max(a.size, 1), dtype=dt, pin_memory=True)
+                    for _ in range(n_slots)]
+            staged = bufs[i][:a.size]
+            # a read-only source (a wire frame's np.frombuffer view) is
+            # only read here
+            np.copyto(staged.numpy(), a.reshape(-1))
+            out[k] = staged.view(a.shape).to(self.device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._events[i] = event
+        return out
 
 
 def backfill_null_masks(batch: HostBatch, definition) -> None:

@@ -2,7 +2,9 @@
 
 Counterpart of ``siddhi_tpu/core/stream/input/input_handler.py``: ``send``
 variants set the app clock and forward into the junction; ``send_columns``
-is the columnar bulk path. The quiesce gate is a host-side RLock.
+is the columnar bulk path, packed on the app's ingest pool when it has one
+(``siddhi_tpu.ingest_pool``). The first send starts the app. The quiesce
+gate is a host-side RLock.
 """
 
 from __future__ import annotations
@@ -12,17 +14,18 @@ from typing import Dict
 
 import numpy as np
 
-from siddhi_tpu_torch.core.event import Event, HostBatch
+from siddhi_tpu_torch.core.event import Event, HostBatch, pack_pool_of
 from siddhi_tpu_torch.core.stream.junction import StreamJunction
 
 
 class InputHandler:
     def __init__(self, stream_id: str, junction: StreamJunction, app_context,
-                 barrier: threading.RLock):
+                 barrier: threading.RLock, ensure_started=None):
         self.stream_id = stream_id
         self.junction = junction
         self.app_context = app_context
         self._barrier = barrier
+        self._ensure_started = ensure_started
 
     def send(self, *args):
         """send(data_list) | send(ts, data_list) | send(Event) | send([Event,...])"""
@@ -30,6 +33,8 @@ class InputHandler:
             raise RuntimeError(
                 f"SiddhiApp '{self.app_context.name}' has been shut down — "
                 f"cannot send to '{self.stream_id}'")
+        if self._ensure_started is not None:
+            self._ensure_started()
         tsg = self.app_context.timestamp_generator
         if len(args) == 1:
             a = args[0]
@@ -59,10 +64,13 @@ class InputHandler:
             raise RuntimeError(
                 f"SiddhiApp '{self.app_context.name}' has been shut down — "
                 f"cannot send to '{self.stream_id}'")
+        if self._ensure_started is not None:
+            self._ensure_started()
         tsg = self.app_context.timestamp_generator
         batch = HostBatch.from_columns(
             data, self.junction.definition, self.app_context.string_dictionary,
-            timestamps=timestamps, default_ts=tsg.current_time())
+            timestamps=timestamps, default_ts=tsg.current_time(),
+            pool=pack_pool_of(self.app_context))
         with self._barrier:
             if timestamps is not None:
                 ts_arr = np.asarray(timestamps, np.int64)
@@ -79,6 +87,7 @@ class InputManager:
         self._junctions = junctions
         self._barrier = barrier
         self._handlers: Dict[str, InputHandler] = {}
+        self.ensure_started = None  # set by SiddhiAppRuntime (lazy app start)
 
     def get_input_handler(self, stream_id: str) -> InputHandler:
         h = self._handlers.get(stream_id)
@@ -86,6 +95,10 @@ class InputManager:
             if stream_id not in self._junctions:
                 raise KeyError(f"stream '{stream_id}' is not defined")
             h = InputHandler(stream_id, self._junctions[stream_id], self.app_context,
-                             self._barrier)
+                             self._barrier, ensure_started=self._start)
             self._handlers[stream_id] = h
         return h
+
+    def _start(self):
+        if self.ensure_started is not None:
+            self.ensure_started()

@@ -55,7 +55,11 @@
 //     A row costs one probe window, one write by one lane and a
 //     __syncwarp. The first port's register table walked H/32 columns
 //     with up to two dependent ballots each (64 at H = 1,024) and capped H
-//     at 1,024; 16-bit slot ids cap it at MAX_H (16,384) now.
+//     at 1,024; the 16-bit slot ids of this index cap it at MAX_H (16,384);
+//   - wider tables (H > MAX_H): the same design with the bitmap and an
+//     index of bare 32-bit slot ids in a global-memory workspace that the
+//     wrapper allocates, one slice per block, reused group after group;
+//     the table works in place in vk/vc. A simple path, not yet tuned.
 //
 // The wrapper (ops/distinct.py) sorts the row ids stably by group
 // (torch.sort) and gathers nothing: the entry's first kernel turns the
@@ -95,7 +99,9 @@ struct ScanArgs {
   int64_t* snap_vk;          // [R, H] keys after each row, or null
   uint8_t* snap_live;        // [R, H] live mask after each row, or null
   uint8_t* overflow;         // 0-d bool: set when a row found no slot
-  long long path;            // PATH_REGISTERS or PATH_HASH
+  long long path;            // PATH_REGISTERS, PATH_HASH or PATH_WIDE
+  uint32_t* workspace;       // PATH_WIDE: ws_blocks slices of NW + NE words
+  long long ws_blocks;       // PATH_WIDE: the grid, one slice a block
 };
 
 namespace {
@@ -103,7 +109,9 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr long long PATH_REGISTERS = 0;  // registers, H <= 32 * 8
 constexpr long long PATH_HASH = 1;       // hash + bitmap, any H <= MAX_H
+constexpr long long PATH_WIDE = 2;       // the same in global memory, H > MAX_H
 constexpr long long MAX_H = 16384;       // slot ids are 16 bits in the hash
+constexpr long long WIDE_MAX_H = 1LL << 26;  // slot << 5 | lane fits an int
 constexpr int WARPS_PER_BLOCK = 4;       // register path; the hash path: 1
 constexpr int MAX_BLOCKS = 8192;
 constexpr uint32_t EMPTY = 0xffffffffu;  // hash entries: slot field 0xffff
@@ -124,6 +132,7 @@ struct RegTable {
   int32_t cnt[C];
   int H, lane, live;
   static constexpr bool HASHED = false;
+  static constexpr bool WIDE = false;
 
   __device__ __forceinline__ void prehash(int64_t, uint32_t&, uint32_t&) const {}
 
@@ -209,6 +218,13 @@ struct RegTable {
 // ``ht`` [NE], both in shared memory. Lane l also holds bitmap word l in
 // ``word`` (the first 1,024 slots), so the usual free-slot search reads
 // no memory. Every lane holds the same scalars.
+//
+// WIDE (H > MAX_H): the bitmap and the index live in a global-memory
+// workspace, one slice per resident block reused group after group (at
+// H = 32,768: 4 KB + 256 KB, held in the 50 MB L2), and an entry is the
+// bare 32-bit slot id: no tag, since every candidate is confirmed against
+// the table anyway. Everything else is the shared-memory design.
+template <bool WIDE_INDEX>
 struct HashTable {
   int64_t* key;
   int32_t* cnt;
@@ -219,6 +235,11 @@ struct HashTable {
   int live, fill;             // live slots; hash entries that are not EMPTY
   uint32_t word;              // bm[lane] (0 past NW)
   static constexpr bool HASHED = true;
+  static constexpr bool WIDE = WIDE_INDEX;
+
+  __device__ __forceinline__ static uint32_t entry(uint32_t tg, uint32_t s) {
+    return WIDE ? s : tg << 16 | s;
+  }
 
   __device__ __forceinline__ void prehash(int64_t v, uint32_t& h, uint32_t& tg) const {
     const uint64_t x = (uint64_t)v * 0x9E3779B97F4A7C15ull;
@@ -236,7 +257,7 @@ struct HashTable {
       if (cnt[s] > 0) {
         uint32_t i, tg;
         prehash(key[s], i, tg);
-        const uint32_t ent = tg << 16 | (uint32_t)s;
+        const uint32_t ent = entry(tg, (uint32_t)s);
         for (;; i = (i + 1) & mask)
           if (atomicCAS(&ht[i], EMPTY, ent) == EMPTY) break;
       }
@@ -294,8 +315,8 @@ struct HashTable {
   __device__ __forceinline__ void window(uint32_t w0, int64_t val, uint32_t tg, int& b,
                                          int32_t& c, unsigned& em, unsigned& tm) const {
     const uint32_t ent = ht[(w0 + lane) & mask];
-    const uint32_t es = ent & 0xffffu;
-    const bool cand = es < 0xfffeu && (ent >> 16) == tg;
+    const uint32_t es = WIDE ? ent : ent & 0xffffu;
+    const bool cand = WIDE ? ent < TOMB : es < 0xfffeu && (ent >> 16) == tg;
     const uint32_t ss = cand ? es : 0;
     c = cnt[ss];
     const int64_t k = key[ss];
@@ -356,7 +377,7 @@ struct HashTable {
     if (lane == 0) {
       key[slot] = val;
       cnt[slot] = newc;
-      if (born || died) ht[born ? ipos : hpos] = born ? (tg << 16 | (uint32_t)slot) : TOMB;
+      if (born || died) ht[born ? ipos : hpos] = born ? entry(tg, (uint32_t)slot) : TOMB;
     }
     const int w = slot >> 5;
     if ((born || died) && lane == (w & 31)) {
@@ -404,7 +425,9 @@ __device__ __forceinline__ void scan_group(const ScanArgs& a, Table& t, int4* st
     __syncwarp();                   // the last chunk's rows are read
     stage[2 * lane] = make_int4((int)(uint32_t)my_v, (int)(uint32_t)((uint64_t)my_v >> 32),
                                 (int)(uint32_t)my_e, (int)(uint32_t)((uint64_t)my_e >> 32));
-    stage[2 * lane + 1] = make_int4((int)my_row, (int)(my_h | my_tg << 16),
+    // the home entry and the tag share a word; a WIDE index has no tag and
+    // needs every bit of the home entry
+    stage[2 * lane + 1] = make_int4((int)my_row, (int)(Table::WIDE ? my_h : my_h | my_tg << 16),
                                     in ? a.delta[my_row] : 0, in ? (int)a.part[my_row] : 0);
     __syncwarp();
     int64_t my_nd = 0;
@@ -420,8 +443,9 @@ __device__ __forceinline__ void scan_group(const ScanArgs& a, Table& t, int4* st
       bool applied = false;
       if (!SET) {
         const int64_t val = (int64_t)((uint64_t)(uint32_t)r0.y << 32 | (uint32_t)r0.x);
-        t.insert(val, (uint32_t)r1.y & 0xffffu, (uint32_t)r1.y >> 16, d, p, fresh, applied,
-                 overflowed);
+        const uint32_t hy = (uint32_t)r1.y;
+        t.insert(val, Table::WIDE ? hy : hy & 0xffffu, Table::WIDE ? 0u : hy >> 16, d, p, fresh,
+                 applied, overflowed);
       } else {
         for (long long c0 = 0; c0 < a.cin; c0 += 32) {
           const long long cc = c0 + lane;
@@ -490,13 +514,14 @@ distinct_scan_registers(const ScanArgs a) {
 
 // One warp a block. SHARED: the table lives in shared memory, copied in
 // and out once per group; otherwise the warp works in place on the
-// group's rows of vk/vc in global memory (they stay in L1/L2).
-template <bool SHARED, bool SET, bool EMIT>
+// group's rows of vk/vc in global memory (they stay in L1/L2). WIDE: the
+// bitmap and the index too, in the block's slice of the workspace.
+template <bool SHARED, bool WIDE, bool SET, bool EMIT>
 __global__ void __launch_bounds__(32) distinct_scan_hash(const ScanArgs a, int log_ne) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const int H = (int)a.H;
-  HashTable t;
+  HashTable<WIDE> t;
   t.H = H;
   t.NW = (H + 31) >> 5;
   t.lane = lane;
@@ -505,7 +530,8 @@ __global__ void __launch_bounds__(32) distinct_scan_hash(const ScanArgs a, int l
   int4* stage = reinterpret_cast<int4*>(smem);
   int64_t* skey = reinterpret_cast<int64_t*>(stage + 64);
   int32_t* scnt = reinterpret_cast<int32_t*>(skey + (SHARED ? H : 0));
-  t.bm = reinterpret_cast<uint32_t*>(scnt + (SHARED ? H : 0));
+  t.bm = WIDE ? a.workspace + blockIdx.x * ((size_t)t.NW + ((size_t)1 << log_ne))
+              : reinterpret_cast<uint32_t*>(scnt + (SHARED ? H : 0));
   t.ht = t.bm + t.NW;
   bool overflowed = false;
   for (long long g = blockIdx.x; g < a.K; g += gridDim.x) {
@@ -552,22 +578,25 @@ void launch_registers(const ScanArgs& a, dim3 grid, cudaStream_t s) {
   else distinct_scan_registers<8, SET, EMIT><<<grid, block, 0, s>>>(a);
 }
 
-template <bool SHARED, bool SET, bool EMIT>
-int launch_hash(const ScanArgs& a, int log_ne, size_t smem, cudaStream_t s) {
+template <bool SHARED, bool WIDE, bool SET, bool EMIT>
+int launch_hash(const ScanArgs& a, int log_ne, size_t smem, long long blocks, cudaStream_t s) {
   const cudaError_t e = cudaFuncSetAttribute(
-      distinct_scan_hash<SHARED, SET, EMIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      distinct_scan_hash<SHARED, WIDE, SET, EMIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)(a.K < MAX_BLOCKS ? a.K : MAX_BLOCKS)), block(32);
-  distinct_scan_hash<SHARED, SET, EMIT><<<grid, block, smem, s>>>(a, log_ne);
+  const dim3 grid((unsigned)blocks), block(32);
+  distinct_scan_hash<SHARED, WIDE, SET, EMIT><<<grid, block, smem, s>>>(a, log_ne);
   return 0;
 }
 
 template <bool SET, bool EMIT>
 int launch(const ScanArgs& a, cudaStream_t s) {
-  if (a.path == PATH_HASH) {
+  if (a.path == PATH_HASH || a.path == PATH_WIDE) {
     int log_ne = 5;                          // NE = 2^log_ne >= 2H, >= 32
     while ((1LL << log_ne) < 2 * a.H) ++log_ne;
+    if (a.path == PATH_WIDE)                 // only the row stage is shared
+      return launch_hash<false, true, SET, EMIT>(a, log_ne, 1024, a.ws_blocks, s);
+    const long long blocks = a.K < MAX_BLOCKS ? a.K : MAX_BLOCKS;
     // the row stage, the bitmap and the index; the table beside them if it fits
     const size_t index = 1024 + 4 * (size_t)((a.H + 31) / 32) + 4 * ((size_t)1 << log_ne);
     const size_t table = 12 * (size_t)a.H;
@@ -575,8 +604,8 @@ int launch(const ScanArgs& a, cudaStream_t s) {
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (index + table <= (size_t)optin)
-      return launch_hash<true, SET, EMIT>(a, log_ne, index + table, s);
-    return launch_hash<false, SET, EMIT>(a, log_ne, index, s);
+      return launch_hash<true, false, SET, EMIT>(a, log_ne, index + table, blocks, s);
+    return launch_hash<false, false, SET, EMIT>(a, log_ne, index, blocks, s);
   }
   long long blocks = (a.K + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
@@ -589,10 +618,14 @@ int launch(const ScanArgs& a, cudaStream_t s) {
 
 extern "C" int siddhi_distinct_scan(const ScanArgs* args, void* stream) {
   const ScanArgs a = *args;
-  if (a.K < 1 || a.H < 1 || a.H > MAX_H || a.R < 1 || a.R > INT_MAX || a.cin < 0)
+  if (a.K < 1 || a.H < 1 || a.R < 1 || a.R > INT_MAX || a.cin < 0)
     return (int)cudaErrorInvalidValue;
-  if (a.path != PATH_HASH && (a.path != PATH_REGISTERS || a.H > 32 * 8))
-    return (int)cudaErrorInvalidValue;
+  const bool ok = a.path == PATH_REGISTERS ? a.H <= 32 * 8
+                  : a.path == PATH_HASH    ? a.H <= MAX_H
+                  : a.path == PATH_WIDE    ? a.H < WIDE_MAX_H && a.workspace != nullptr &&
+                                              a.ws_blocks >= 1 && a.ws_blocks <= a.K
+                                           : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long ob = (a.K + 1 + 255) / 256;
   distinct_scan_offsets<<<(unsigned)(ob < 1024 ? ob : 1024), 256, 0, s>>>(a);

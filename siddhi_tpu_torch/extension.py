@@ -1,13 +1,26 @@
-"""Public extension surface: custom scalar functions.
+"""Public extension surface.
 
 Counterpart of ``siddhi_tpu/extension.py`` for the kinds the port runs.
-Register an implementation with ``SiddhiManager.set_extension(name, cls)``
-under ``function:<name>`` (or ``function:<namespace>:<name>``); a bare
-name matches any kind. Sources, sinks and stream functions wait for their
-modules.
+Register an implementation with ``SiddhiManager.set_extension(name, cls)``;
+kinds:
+
+- ``function:<name>`` (or ``function:<namespace>:<name>``) — a
+  :class:`ScalarFunction`;
+- ``source:<type>`` / ``sink:<type>`` — transports;
+- ``sourceMapper:<type>`` / ``sinkMapper:<type>`` — payload mappers.
+
+A bare name matches any kind. Stream functions wait for their module.
 """
 
 from __future__ import annotations
+
+from siddhi_tpu_torch.core.stream.input.source import (  # noqa: F401
+    ConnectionUnavailableException,
+    Source,
+    SourceMapper,
+)
+from siddhi_tpu_torch.core.stream.output.sink import Sink, SinkMapper  # noqa: F401
+from siddhi_tpu_torch.core.util.transport import InMemoryBroker  # noqa: F401
 
 
 class ScalarFunction:

@@ -24,8 +24,10 @@ Rows of different groups are independent. ``distinct_scan`` launches the
 hand-written CUDA kernel (``csrc/distinct_scan.cu``, one warp per group:
 the table in registers up to ``SMALL_MAX_H`` slots, above it in shared
 memory with a hash index of live slots and a free-slot bitmap, up to
-``MAX_H``) for CUDA tensors and runs ``distinct_scan_plain`` for CPU
-tensors, which takes any H; there is no fallback between them. Both
+``MAX_H``, and above that with the index and the bitmap in a global-memory
+workspace this wrapper allocates, up to ``WIDE_MAX_H``) for CUDA tensors
+and runs ``distinct_scan_plain`` for CPU tensors; there is no fallback
+between them. Both
 update the state IN PLACE and agree with the reference bit for bit,
 state and outputs: the state crosses packages through ``interop.py``,
 and unionSet snapshots expose slot order. ``distinct_scan.launches``
@@ -42,9 +44,11 @@ import torch
 
 from siddhi_tpu_torch.ops import _cuda
 
-MAX_H = 16384         # slot ids are 16 bits in the kernel's hash index
+MAX_H = 16384         # slot ids are 16 bits in the shared-memory hash index
 SMALL_MAX_H = 64      # the register table up to here, hash + bitmap above
-PATH_REGISTERS, PATH_HASH = 0, 1   # the kernel's designs, as in the source
+WIDE_MAX_H = 1 << 26  # the global-index path: slot << 5 | lane fits an int
+PATH_REGISTERS, PATH_HASH, PATH_WIDE = 0, 1, 2   # the kernel's designs
+WIDE_BLOCKS_PER_SM = 2    # resident blocks of the global-index path
 
 
 def _check(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m) -> None:
@@ -171,7 +175,8 @@ class _ScanArgs(ctypes.Structure):
                 ("set_in_m", ctypes.c_void_p), ("cin", ctypes.c_longlong),
                 ("nd", ctypes.c_void_p), ("snap_vk", ctypes.c_void_p),
                 ("snap_live", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
-                ("path", ctypes.c_longlong)]
+                ("path", ctypes.c_longlong), ("workspace", ctypes.c_void_p),
+                ("ws_blocks", ctypes.c_longlong)]
 
 
 def _bind(lib) -> None:
@@ -187,14 +192,37 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def kernel_path(H: int) -> int:
     """The kernel's design for tables of ``H`` slots: ``PATH_REGISTERS``
-    up to ``SMALL_MAX_H``, ``PATH_HASH`` above. Raises ``ValueError``
-    above ``MAX_H``."""
-    if not 1 <= H <= MAX_H:
+    up to ``SMALL_MAX_H``, ``PATH_HASH`` up to ``MAX_H``, ``PATH_WIDE``
+    above. Raises ``ValueError`` from ``WIDE_MAX_H`` on."""
+    if not 1 <= H < WIDE_MAX_H:
         raise ValueError(
-            f"distinct_scan: the CUDA kernel takes 1 <= H <= {MAX_H} value "
+            f"distinct_scan: the CUDA kernel takes 1 <= H < {WIDE_MAX_H} value "
             f"slots per group, got {H}: set app_context.distinct_values_capacity "
-            f"to at most {MAX_H}")
-    return PATH_REGISTERS if H <= SMALL_MAX_H else PATH_HASH
+            f"below {WIDE_MAX_H}")
+    if H <= SMALL_MAX_H:
+        return PATH_REGISTERS
+    return PATH_HASH if H <= MAX_H else PATH_WIDE
+
+
+def wide_workspace(K: int, H: int, device) -> Tuple[torch.Tensor, int]:
+    """The global-index path's workspace: one slice of the free-slot bitmap
+    (ceil(H / 32) words) and the hash index (the power of two >= 2H
+    entries) per resident block, and the block count (at most K). Raises,
+    naming the capacity knob, when the card cannot hold it."""
+    ne = 32
+    while ne < 2 * H:
+        ne *= 2
+    words = (H + 31) // 32 + ne
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = max(1, min(K, WIDE_BLOCKS_PER_SM * sms))
+    try:
+        ws = torch.empty(blocks * words, dtype=torch.int32, device=device)
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(
+            f"distinct_scan: no room for the {blocks * words * 4} byte index "
+            f"workspace of H = {H} value slots; lower "
+            f"app_context.distinct_values_capacity") from e
+    return ws, blocks
 
 
 def distinct_scan(vk, vc, stamp, g, v, delta, part, ep, set_in=None,
@@ -236,12 +264,14 @@ def launch(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m, emit_set,
     # rows in group order (stable, so arrival order within a group); the
     # kernel reads every row input through ``order``
     gs, order = torch.sort(g, stable=True)
+    ws, ws_blocks = (wide_workspace(K, H, device) if path == PATH_WIDE
+                     else (None, 0))
     args = _ScanArgs(
         _ptr(vk), _ptr(vc), _ptr(stamp), K, H, R, _ptr(gs), _ptr(order),
         _ptr(scratch) + 8 * R, _ptr(v if set_in is None else None), _ptr(delta),
         _ptr(part), _ptr(ep), _ptr(set_in), _ptr(set_in_m),
         0 if set_in is None else set_in.shape[1], _ptr(nd), _ptr(snap_vk),
-        _ptr(snap_live), _ptr(overflow), path)
+        _ptr(snap_live), _ptr(overflow), path, _ptr(ws), ws_blocks)
     guard = (torch.cuda.device(device) if device.index != torch.cuda.current_device()
              else contextlib.nullcontext())
     with guard:

@@ -94,7 +94,11 @@ class TorchXP:
         return torch.as_tensor(np.asarray(v), device=self.device)
 
     def astype(self, v, t: AttrType):
-        return self.asarray(v).to(T.torch_dtype_of(t))
+        v = self.asarray(v)
+        dt = T.torch_dtype_of(t)
+        if v.is_floating_point() and not dt.is_floating_point and dt != torch.bool:
+            return T.saturating_int(v, dt)
+        return v.to(dt)
 
     def zeros_bool(self, shape):
         return torch.zeros(shape, dtype=torch.bool, device=self.device)
@@ -166,7 +170,11 @@ class _NumpyXP:
 
     @staticmethod
     def astype(v, t: AttrType):
-        return np.asarray(v).astype(T.dtype_of(t))
+        v = np.asarray(v)
+        dt = np.dtype(T.dtype_of(t))
+        if v.dtype.kind == "f" and dt.kind in "iu":
+            return T.saturating_int(v, dt)
+        return v.astype(dt)
 
     @staticmethod
     def zeros_bool(shape):

@@ -73,18 +73,42 @@ def promote(a: AttrType, b: AttrType) -> AttrType:
     return _NUMERIC_ORDER[max(_NUMERIC_ORDER.index(a), _NUMERIC_ORDER.index(b))]
 
 
+def saturating_int(v, dtype):
+    """Float -> integer conversion with Java's ``(int)``/``(long)`` cast
+    semantics, for torch tensors and numpy arrays alike: NaN becomes 0,
+    values at or beyond the integer range clamp to its MIN/MAX, the rest
+    truncate toward zero. A bare ``.to(int)`` leaves NaN, infinities and
+    out-of-range values undefined (INT_MIN on a CPU)."""
+    if isinstance(v, torch.Tensor):
+        info = torch.iinfo(dtype)
+        v = v.to(torch.float64)
+        # float(info.max) rounds up to 2**63 for int64: >= catches it
+        hi, lo = v >= float(info.max), v <= float(info.min)
+        out = torch.where(hi | lo | torch.isnan(v), 0.0, v).to(dtype)
+        return torch.where(hi, info.max, torch.where(lo, info.min, out))
+    info = np.iinfo(dtype)
+    v = np.asarray(v, np.float64)
+    hi, lo = v >= float(info.max), v <= float(info.min)
+    out = np.where(hi | lo | np.isnan(v), 0.0, v).astype(dtype)
+    return np.where(hi, info.max, np.where(lo, info.min, out)).astype(dtype)
+
+
 def java_div(xp, a, b, t: AttrType):
     """Division with Java semantics for the promoted type ``t``."""
     if t in (AttrType.FLOAT, AttrType.DOUBLE):
         return a / b
-    # int/long: truncate toward zero (floor division floors, Java truncates)
-    q = xp.abs(a) // xp.abs(b)
-    return xp.astype(xp.sign(a) * xp.sign(b) * q, t)
+    # int/long: truncate toward zero (floor division floors, Java truncates).
+    # A zero divisor yields 0 (the reference's result) instead of raising:
+    # batch padding rows hold zeros, so it occurs in almost every batch
+    zero = b == 0
+    q = xp.abs(a) // xp.abs(xp.where(zero, 1, b))
+    return xp.astype(xp.where(zero, 0, xp.sign(a) * xp.sign(b) * q), t)
 
 
 def java_mod(xp, a, b, t: AttrType):
     """% with Java semantics (sign of the dividend)."""
     if t in (AttrType.FLOAT, AttrType.DOUBLE):
         return xp.fmod(a, b)
-    r = xp.abs(a) % xp.abs(b)
-    return xp.astype(xp.sign(a) * r, t)
+    zero = b == 0
+    r = xp.abs(a) % xp.abs(xp.where(zero, 1, b))
+    return xp.astype(xp.where(zero, 0, xp.sign(a) * r), t)

@@ -473,7 +473,10 @@ def test_kernel_path_by_table_size():
     assert tdist.kernel_path(tdist.SMALL_MAX_H + 1) == tdist.PATH_HASH
     assert tdist.kernel_path(tdist.MAX_H) == tdist.PATH_HASH
     assert tdist.MAX_H >= 16384
-    for H in (0, tdist.MAX_H + 1):
+    # above the shared-memory index: the global-index path, up to WIDE_MAX_H
+    for H in (tdist.MAX_H + 1, 32768, 65536, tdist.WIDE_MAX_H - 1):
+        assert tdist.kernel_path(H) == tdist.PATH_WIDE
+    for H in (0, tdist.WIDE_MAX_H):
         with pytest.raises(ValueError, match="app_context.distinct_values_capacity"):
             tdist.kernel_path(H)
 
@@ -540,10 +543,58 @@ def test_cuda_kernel_equals_plain():
             assert got == overflows, (H, R, W, U)
 
 
+def _full_table_inputs(seed, K, H, R, device):
+    """Every slot of K carried tables live (count 1, distinct values), then
+    rows that expire carried values and insert new ones at random: new
+    values overflow until an expiry frees a slot, and freed slots are
+    reborn (churn)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    vk = np.stack([rng.permutation(4 * H)[:H] for _ in range(K)]).astype(np.int64)
+    state = (t(vk), t(np.ones((K, H), np.int32)), t(np.full(K, 7, np.int64)))
+    g = rng.integers(0, K, R).astype(np.int64)
+    expire = rng.random(R) < 0.5
+    old = vk[g, rng.integers(0, H, R)]
+    new = rng.integers(4 * H, 5 * H, R).astype(np.int64)
+    rows = (t(g), t(np.where(expire, old, new)),
+            t(np.where(expire, -1, 1).astype(np.int32)), t(np.ones(R, bool)),
+            t(np.full(R, 7, np.int64)))
+    return state, rows, (None, None)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_tables_equal_plain():
+    """H above the shared-memory index (the global-index path): random
+    carried tables, a set input, a window stream's churn, and full tables
+    that overflow; kernel == plain, state and outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ with no CPU mode")
+    dev = torch.device("cuda")
+    for seed, (K_, H, R, n_values, cin) in enumerate(
+            [(2, 32768, 3000, 40000, 0), (1, 65536, 3000, 100000, 0),
+             (3, 32768, 1000, 50000, 3)]):
+        for emit in (False, True):
+            state, rows, sets = _scan_inputs(200 + seed, K_, H, R, n_values, cin, dev)
+            _kernel_equals_plain(state, rows, sets, emit, (K_, H, R, n_values, cin, emit))
+    for seed, H in enumerate((32768, 65536)):
+        state, rows, sets = _chain_inputs(300 + seed, H, 6000, 3000, 60_000, dev)
+        assert not _kernel_equals_plain(state, rows, sets, False, ("churn", H))
+        state, rows, sets = _full_table_inputs(400 + seed, 2, H, 3000, dev)
+        assert _kernel_equals_plain(state, rows, sets, seed == 0, ("full", H))
+
+
 @pytest.mark.cuda
 def test_cuda_h_above_the_limit_raises_naming_the_knob():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel is CUDA C++ with no CPU mode")
-    state, rows, sets = _scan_inputs(0, 2, tdist.MAX_H + 1, 10, 5, 0, torch.device("cuda"))
+    dev = torch.device("cuda")
+    H = tdist.WIDE_MAX_H
+    state = (torch.zeros((1, H), dtype=torch.int64, device=dev),
+             torch.full((1, H), -1, dtype=torch.int32, device=dev),
+             torch.zeros(1, dtype=torch.int64, device=dev))
+    rows = (torch.zeros(4, dtype=torch.int64, device=dev),
+            torch.arange(4, device=dev), torch.ones(4, dtype=torch.int32, device=dev),
+            torch.ones(4, dtype=torch.bool, device=dev),
+            torch.zeros(4, dtype=torch.int64, device=dev))
     with pytest.raises(ValueError, match="app_context.distinct_values_capacity"):
-        distinct_scan(*state, *rows, *sets)
+        distinct_scan(*state, *rows)

@@ -40,9 +40,11 @@ def test_no_jax_or_reference_import(path):
 
 def test_port_imports_and_runs_with_jax_unimportable():
     """With ``jax`` made unimportable, the port still imports (the distinct
-    scan, extension and query-callback modules included), builds the
-    routed slice's app and a distinctCount/unionSet/extension app on the
-    CPU and answers a few events."""
+    scan, extension and query-callback modules, the pipeline, the ingest
+    pool, the wire format, transports and retry included), builds the
+    routed slice's app, a distinctCount/unionSet/extension app and an
+    @Async/@OnError app with a sink fed by a wire frame through the pool at
+    depth 4 on the CPU, and answers them."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -98,6 +100,38 @@ for s, v in [("a", 1), ("a", 2), ("b", 2)]:
 m.shutdown()
 assert q.rows == [[1, frozenset({{1}}), 2], [1, frozenset({{1, 2}}), 4],
                   [2, frozenset({{2}}), 4]], q.rows
+import numpy as np
+from siddhi_tpu_torch import InMemoryConfigManager
+from siddhi_tpu_torch.core.query.completion import CompletionPump
+from siddhi_tpu_torch.core.stream.input.pack_pool import IngestPackPool
+from siddhi_tpu_torch.core.stream.input.wire import DecoderRegistry, WireEncoder, decode_frame
+from siddhi_tpu_torch.extension import InMemoryBroker
+from siddhi_tpu_torch.resilience import RetryPolicy, stat_count
+m = SiddhiManager(device="cpu")
+m.set_config_manager(InMemoryConfigManager({{"siddhi_tpu.pipeline_depth": "4",
+                                            "siddhi_tpu.ingest_pool": "2",
+                                            "siddhi_tpu.ingest_split": "256"}}))
+rt = m.create_siddhi_app_runtime('''
+@Async(buffer.size='8') @OnError(action='stream')
+define stream S (sym string, v long);
+@sink(type='inMemory', topic='iso')
+define stream O (sym string, t long);
+@info(name = 'q') from S#window.length(4) select sym, sum(v) as t group by sym
+insert into O;''')
+got = []
+class Sub(InMemoryBroker.Subscriber):
+    topic = "iso"
+    def on_message(self, payload): got.append(payload)
+InMemoryBroker.subscribe(Sub())
+h = rt.get_input_handler("S")
+d, ts = decode_frame(WireEncoder().encode({{"sym": np.array(["a", "b"] * 300, dtype=object),
+                                           "v": np.ones(600, np.int64)}}),
+                     rt.junctions["S"].definition, rt.app_context.string_dictionary,
+                     DecoderRegistry())
+h.send_columns(d)
+m.shutdown()
+assert len(got) == 600 and got[-1] == ["b", 2], got[-1:]
+assert rt.app_context.completion_pump.metas > 0
 assert "jax" not in {{k for k, v in sys.modules.items() if v is not None}}
 print("OK")
 """

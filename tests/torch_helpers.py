@@ -164,16 +164,18 @@ class Run:
         return self.collector.rows
 
 
-def assert_rows_match(got, want, rtol=FLOAT_RTOL):
+def assert_rows_match(got, want, rtol=FLOAT_RTOL, atol=0.0):
     """Event rows (timestamp, data, is_expired) under the tolerance rule
-    (floats to ``rtol``, 1e-12 unless a test states its own)."""
+    (floats to ``rtol``, 1e-12 unless a test states its own, and ``atol``,
+    0 unless a test states its own; NaN equals NaN, since both packages
+    may emit it)."""
     assert len(got) == len(want), (len(got), len(want))
     for i, ((t1, d1, e1), (t2, d2, e2)) in enumerate(zip(got, want)):
         assert (t1, e1) == (t2, e2), (i, (t1, e1), (t2, e2))
         assert len(d1) == len(d2), i
         for a, b in zip(d1, d2):
             if isinstance(b, float) and isinstance(a, float):
-                assert np.isclose(a, b, rtol=rtol, atol=0.0), (i, a, b)
+                assert np.isclose(a, b, rtol=rtol, atol=atol, equal_nan=True), (i, a, b)
             else:
                 assert a == b and type(a) is type(b), (i, a, b)
 
