@@ -102,8 +102,28 @@ Phases (any failure exits non-zero and prints no result line):
             uniform over 100,000 ids from its own generator: one_group's
             checks (kernel == plain on a cut, == ``scan_oracle`` on a batch,
             every count == numpy's) and timings;
-17. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"kernels": [...]}`` line,
-    the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+17. windows the time and batch windows under ``@app:playback`` over
+            StockStream with an event-time attribute ``ts`` (20,000 events/s
+            of event time, 65,536-row batches, 10,000 symbols): T
+            (``#window.time(1 min)`` avg/sum/count group by symbol, ring of
+            2,097,152 rows, 24 batches) and ET (``externalTime(ts, 1 min)``),
+            each row's n and sum == numpy's and avg to 1e-9; TD
+            (``distinctCount(symbol)`` over ``time(1 min)``, H = 16,384):
+            every count == numpy's, one distinct-scan launch per step, timer
+            steps included, and the kernel at its last batch step == plain
+            and the host oracle, timed; TB (``timeBatch(1 sec)``) and LB
+            (``lengthBatch(10000)``), 8 batches, == the CPU run; T and ET cut
+            to 10 s windows over 8 batches == the CPU run; the default ring
+            of 4,096 rows raises ``FatalQueryError`` naming
+            ``window_capacity``; L (``time(250 millisec)`` in live mode):
+            1,000 expired rows from the timer thread within 2 s; H (sort),
+            F (pol2Cart with casts both ways), R (``output last every 1
+            sec``) == the CPU run. Prints state bytes, steps per batch
+            (batch and TIMER), events/s (timer steps included) and a
+            profile of T's timer and batch steps;
+18. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+    a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -187,6 +207,57 @@ select symbol, unionSet(vs) as volumes group by symbol insert into VolStream;
 @info(name = 'size')
 from VolStream select symbol, sizeOfSet(volumes) as n insert into OutStream;
 """
+# phase 17: time and batch windows over StockStream with an event-time
+# attribute, under @app:playback (the event timestamp is ts)
+TW_HEAD = """
+@app:playback
+define stream StockStream (symbol string, price float, volume long, ts long);
+@info(name = 'bench')
+"""
+T_APP = TW_HEAD + """from StockStream#window.time({T})
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n
+group by symbol insert into OutStream;"""
+ET_APP = TW_HEAD + """from StockStream#window.externalTime(ts, {T})
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n
+group by symbol insert into OutStream;"""
+TD_APP = TW_HEAD + """from StockStream#window.time({T})
+select distinctCount(symbol) as distinct insert into OutStream;"""
+TB_APP = TW_HEAD + """from StockStream#window.timeBatch(1 sec)
+select symbol, sum(volume) as totalVolume, count() as n
+group by symbol insert into OutStream;"""
+LB_APP = TW_HEAD + """from StockStream#window.lengthBatch(10000)
+select symbol, sum(volume) as totalVolume, count() as n
+group by symbol insert into OutStream;"""
+# L: live mode (no playback): timers fire from the scheduler's thread
+L_APP = """
+define stream StockStream (symbol string, price float, volume long, ts long);
+@info(name = 'bench')
+from StockStream#window.time(250 millisec) select symbol, price
+insert expired events into OutStream;"""
+# H, F, R: a host window, a stream function with casts both ways, and a
+# grouped rate limit, each behind a device step
+H_APP = TW_HEAD + """from StockStream#window.sort(10, price, 'desc')
+select symbol, price, volume insert all events into OutStream;"""
+F_APP = TW_HEAD + """from StockStream#pol2Cart(price, volume)
+select symbol, x, y, cast(volume, 'string') as vs, convert(symbol, 'long') as sl
+insert into OutStream;"""
+R_APP = TW_HEAD + """from StockStream select symbol, sum(volume) as v
+group by symbol output last every 1 sec insert into OutStream;"""
+TW_RATE = 20                    # events per ms of event time
+TW_BASE = 1_700_000_000_000
+TW_BATCHES = 24                 # 78.6 s: a 1-minute window expires from batch 19
+TW_CAPACITY = 2_097_152         # 1,200,000 live rows + a batch, to a power of two
+TW_WINDOW, TW_MS = "1 min", 60_000
+TD_H = 16_384                   # all 10,000 symbols live
+TB_CAPACITY = 262_144
+TB_BATCHES = 8
+CUT_BATCHES = 8                 # the card-vs-CPU variant: 10 s windows
+CUT_WINDOW = "10 sec"
+CUT_CAPACITY = 262_144          # 200,000 live rows + a batch
+HFR_BATCH = 8_192
+HFR_RATE = 4                    # 2 s of event time a batch: R flushes
+L_ROWS = 1_000
+L_WAIT_S = 2.0
 D2_H = 1024                     # ~950 symbols are live at a time
 D2_CUT = 2048                   # rows of the kernel-vs-plain check at D2, D3
 D3_WINDOW = 10_000              # D3: ~6,300 of the 10,000 symbols live
@@ -1634,6 +1705,462 @@ def d4_feed(feed):
             for cols, ts in feed]
 
 
+# ----------------------------------------------- time and batch windows
+
+def tw_feed(seed: int, n_batches: int, batch: int = 0, rate: int = TW_RATE):
+    """make_feed's columns plus ``ts``, the event time: ``TW_BASE + row //
+    rate`` ms over the whole feed, which is also each row's timestamp.
+    Returns (feed, symbol ids of every row)."""
+    import numpy as np
+
+    batch = batch or BATCH
+    rng = np.random.default_rng(seed)
+    syms = np.array([f"S{i}" for i in range(NUM_SYMBOLS)], dtype=object)
+    feed, ids_all = [], []
+    for i in range(n_batches):
+        ids = rng.integers(0, NUM_SYMBOLS, batch, dtype=np.int64)
+        ts = TW_BASE + (i * batch + np.arange(batch, dtype=np.int64)) // rate
+        feed.append(({"symbol": syms[ids],
+                      "price": (rng.random(batch) * 100.0).astype(np.float32),
+                      "volume": rng.integers(1, 1000, batch, dtype=np.int64),
+                      "ts": ts}, ts))
+        ids_all.append(ids)
+    return feed, np.concatenate(ids_all)
+
+
+def run_window(device, app: str, feed, capacity=None, key_slots=-1,
+               distinct_h=None, on_start=None, keep=None):
+    """Drive an app's ``bench`` query through the public API with
+    ``siddhi_tpu.window_capacity`` = ``capacity``, counting its steps:
+    batch steps and TIMER steps (the scheduler's chunks), per send.
+    ``keep(rt, h)`` runs before the runtime shuts down. Returns
+    (per-batch output columns, per-batch seconds, facts)."""
+    import torch
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+    m = SiddhiManager(device=device)
+    if capacity is not None:
+        m.set_config_manager(InMemoryConfigManager(
+            {"siddhi_tpu.window_capacity": str(capacity)}))
+    rt = m.create_siddhi_app_runtime(app)
+    q = rt.query_runtimes["bench"]
+    if key_slots is not None:       # -1: the bench's key capacity
+        q.selector_plan.num_keys = KEY_SLOTS if key_slots < 0 else key_slots
+    if distinct_h is not None:
+        for spec in q.selector_plan.specs:
+            spec.distinct_capacity = distinct_h
+    cb = collector()
+    rt.add_callback("OutStream", cb)
+    steps = {"batch": 0, "timer": 0, "batch_s": 0.0, "timer_s": 0.0}
+    orig = q._finish_device_batch
+
+    def counted(step, cols):
+        kind = "timer" if q._now_override is not None else "batch"
+        t0 = time.perf_counter()
+        try:
+            return orig(step, cols)
+        finally:
+            steps[kind] += 1
+            steps[kind + "_s"] += time.perf_counter() - t0
+
+    q._finish_device_batch = counted
+    if on_start is not None:
+        on_start()
+    h = rt.get_input_handler("StockStream")
+    seconds, timers = [], []
+    for cols, ts in feed:
+        before = steps["timer"]
+        t0 = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        timers.append(steps["timer"] - before)
+    facts = {"stage": type(q.window_stage).__name__, "steps": dict(steps),
+             "timers": timers,
+             "state_bytes": sum(t.numel() * t.element_size()
+                                for t in _leaves(q._state))}
+    out = list(cb.batches)
+    if keep is not None:
+        facts["kept"] = keep(rt, h, steps)
+    m.shutdown()
+    return out, seconds, facts
+
+
+def window_oracle(ids, ts, vol, price, lo):
+    """For every row i: count, sum(volume) and the f64 mean of price over
+    the rows j in [lo[i], i] of row i's symbol (numpy prefix sums over the
+    rows sorted by symbol, then arrival; the price sums restart at each
+    symbol, so their rounding stays that of one symbol's rows)."""
+    import numpy as np
+
+    N = len(ids)
+    order = np.lexsort((np.arange(N), ids))
+    pos = np.empty(N, np.int64)
+    pos[order] = np.arange(N)
+    skey = ids[order] * N + order
+    pv = np.concatenate([[0], np.cumsum(vol[order])])
+    sp = price[order].astype(np.float64)
+    bounds = np.concatenate([[0], np.nonzero(np.diff(ids[order]))[0] + 1, [N]])
+    pp = np.zeros(N + 1)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        pp[a + 1:b + 1] = np.cumsum(sp[a:b])
+    start = np.searchsorted(skey, ids * N + lo)
+    end = pos + 1
+    n = end - start
+    first = np.searchsorted(bounds, start, side="right") - 1
+    # pp[k] is the sum over its block's rows before sorted position k;
+    # a block's first position reads 0
+    before = np.where(start == bounds[first], 0.0, pp[start])
+    return n, pv[end] - pv[start], (pp[end] - before) / n
+
+
+def check_window_batches(out, ids, feed, lo_of, label: str):
+    """``out``: one output batch per input batch, one row per input row in
+    order; n and totalVolume equal numpy's exactly, avgPrice its f64 mean
+    to rtol 1e-9, over the rows ``lo_of(row) .. row`` of the row's
+    symbol."""
+    import numpy as np
+
+    ts = np.concatenate([c["ts"] for c, _t in feed])
+    vol = np.concatenate([c["volume"] for c, _t in feed])
+    price = np.concatenate([c["price"] for c, _t in feed])
+    lo = lo_of(ts)
+    n, v, p = window_oracle(ids, ts, vol, price, lo)
+    worst = 0.0
+    _require(len(out) == len(feed), f"{label}: {len(out)} output batches for "
+             f"{len(feed)} sends")
+    B = len(feed[0][1])
+    for b, cols in enumerate(out):
+        s = slice(b * B, (b + 1) * B)
+        _require(len(cols["n"]) == B, f"{label}: batch {b} has {len(cols['n'])} rows")
+        _require(np.array_equal(cols["n"], n[s]) and np.array_equal(
+            cols["totalVolume"], v[s]), f"{label}: batch {b} count or sum differs "
+            f"from numpy at rows {np.nonzero(cols['n'] != n[s])[0][:5].tolist()}")
+        # avg is a running f64 sum: rows that expired leave their rounding
+        # behind (~1e-12 at these magnitudes), so a window left with one
+        # small price has no relative tolerance (ROADMAP C, F2)
+        err = np.abs(cols["avgPrice"] - p[s])
+        worst = max(worst, float(err.max()))
+        _require(np.all(err <= 1e-9 + 1e-9 * np.abs(p[s])),
+                 f"{label}: batch {b} avgPrice differs from numpy's mean by up to "
+                 f"{float(err.max()):.3g} at rows {np.nonzero(err > 1e-9)[0][:5].tolist()}")
+    return int(n.max()), worst
+
+
+def td_oracle(ids, feed):
+    """Distinct symbols among the rows [lo_b, i] for every row i of batch
+    b, lo_b the first row with ts > the batch's last ts - 60 s."""
+    import numpy as np
+
+    ts = np.concatenate([c["ts"] for c, _t in feed])
+    N = len(ids)
+    order = np.lexsort((np.arange(N), ids))
+    prev = np.full(N, -1, np.int64)
+    same = ids[order][1:] == ids[order][:-1]
+    prev[order[1:][same]] = order[:-1][same]
+    B = len(feed[0][1])
+    out = []
+    for b in range(len(feed)):
+        end = (b + 1) * B
+        lo = int(np.searchsorted(ts, ts[end - 1] - TW_MS, side="right"))
+        cum = np.cumsum(prev[lo:end] < lo)
+        out.append(cum[b * B - lo:])
+    return np.concatenate(out)
+
+
+@contextlib.contextmanager
+def recording_batch_step(min_rows: int):
+    """Keep the arguments of the last distinct-scan call with at least
+    ``min_rows`` rows (a batch step, not a timer step), the state cloned
+    before the call updates it."""
+    from siddhi_tpu_torch.ops import aggregators
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    rec = ScanRecorder(at=-1)
+
+    def call(*args, **kwargs):
+        if args[3].numel() >= min_rows:
+            rec.args = [a.clone() if a is not None else None for a in args]
+            rec.kwargs = dict(kwargs)
+        rec.calls += 1
+        return distinct_scan(*args, **kwargs)
+
+    orig = aggregators.distinct_scan
+    aggregators.distinct_scan = call
+    try:
+        yield rec
+    finally:
+        aggregators.distinct_scan = orig
+
+
+def profile_window_steps(label: str, rt, h, extra, steps, card: str):
+    """Where a time window's time goes on the card, on a runtime that has
+    run the feed: torch.profiler over the send of one more batch (its
+    TIMER steps, then its own step), device time by torch op and the
+    card's busy share of the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cols, ts = extra
+    before = dict(steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA)
+    _require(dev_us > 0, f"profile {label}: no device time seen")
+    ops = sorted((e for e in events if e.device_type != DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    n_timer = steps["timer"] - before["timer"]
+    n_batch = steps["batch"] - before["batch"]
+    print(f"[profile] {label}, one more batch ({n_timer} TIMER and {n_batch} batch "
+          f"steps, the TIMER steps' wall {1e3 * (steps['timer_s'] - before['timer_s']):.1f} "
+          f"ms): wall {wall * 1e3:.1f} ms, device busy {dev_us / 1e3:.3f} ms "
+          f"({100 * dev_us / 1e6 / wall:.1f}% of wall) [{card}]", flush=True)
+    for e in ops[:10]:
+        print(f"[profile]   {label} device {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:6d}x  {e.key[:80]}", flush=True)
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3}
+
+
+def phase_windows(device, card: str):
+    """Phase 17 (see the module doc): T, ET, TD, TB, LB at full width on the
+    card with their checks, the cut variants against the CPU, the ring
+    overflow, L in live mode, and H, F and R against the CPU. Returns the
+    distinct kernel's facts at TD's shape and TD's launch count."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch.core.stream.junction import FatalQueryError
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    t_phase = time.perf_counter()
+    feed, ids = tw_feed(17, TW_BATCHES + 1)
+    extra, feed = feed[-1], feed[:-1]        # T's profile batch, after the run
+    ids = ids[:TW_BATCHES * BATCH]
+    B = BATCH
+
+    def eps(secs):
+        return steady_eps(secs, B)
+
+    def show(label, facts, secs, extra_text=""):
+        st = facts["steps"]
+        print(f"[windows] {label}: {facts['state_bytes']} state bytes on the card, "
+              f"{st['batch']} batch steps and {st['timer']} timer steps "
+              f"(per batch: {facts['timers']}), steps' wall: batch "
+              f"{st['batch_s']:.2f} s, timer {st['timer_s']:.2f} s; first batch "
+              f"{secs[0] * 1e3:.1f} ms, then {eps(secs):.1f} events/s{extra_text} "
+              f"[{card}]", flush=True)
+
+    # T: the sliding time window, group by symbol, on the generic path
+    t_out, t_s, tf = run_window(
+        device, T_APP.format(T=TW_WINDOW), feed, TW_CAPACITY,
+        keep=lambda rt, h, steps: profile_window_steps("T", rt, h, extra, steps,
+                                                      card))
+    _require(tf["stage"] == "TimeWindowStage", f"T planned on {tf['stage']}")
+    fill = TW_MS * TW_RATE // B      # the batches before the first expiry
+    _require(sum(tf["timers"][:fill]) == 0 and min(tf["timers"][fill + 1:]) > 0,
+             f"T: timer steps per batch {tf['timers']}: want none before the "
+             f"window fills, some in every batch after batch {fill}")
+
+    def batch_lo(ts):
+        last = ts.reshape(-1, B)[:, -1]
+        return np.repeat(np.searchsorted(ts, last - TW_MS, side="right"), B)
+
+    peak, t_err = check_window_batches(t_out, ids, feed, batch_lo, "T")
+    show(f"T time({TW_WINDOW})", tf, t_s, f"; every n, totalVolume == numpy, avgPrice "
+         f"within 1e-9 (max abs err {t_err:.3g}; peak {peak} rows of one symbol live)")
+
+    # ET: externalTime at B = 65,536 and Wc = 2,097,152
+    et_out, et_s, ef = run_window(device, ET_APP.format(T=TW_WINDOW), feed,
+                                  TW_CAPACITY)
+    _require(ef["steps"]["timer"] == 0, "ET: externalTime asked for a timer")
+    _peak, et_err = check_window_batches(et_out, ids, feed, lambda ts: np.searchsorted(
+        ts, ts - TW_MS, side="right"), "ET")
+    show(f"ET externalTime(ts, {TW_WINDOW})", ef, et_s, "; every n, totalVolume == "
+         f"numpy (row's own cutoff), avgPrice within 1e-9 (max abs err {et_err:.3g})")
+
+    # TD: distinct symbols in the last minute, H = 16,384
+    def reset():
+        distinct_scan.launches = 0
+
+    with recording_batch_step(BATCH) as rec:
+        td_out, td_s, tdf = run_window(device, TD_APP.format(T=TW_WINDOW), feed,
+                                       TW_CAPACITY,
+                                       key_slots=None, distinct_h=TD_H,
+                                       on_start=reset)
+    td_launches = distinct_scan.launches
+    steps = tdf["steps"]["batch"] + tdf["steps"]["timer"]
+    _require(td_launches == steps, f"TD: {td_launches} distinct-scan launches for "
+             f"{steps} steps (timer steps included): want one per step")
+    got = np.concatenate([b["distinct"] for b in td_out])
+    want = td_oracle(ids, feed)
+    _require(got.shape == want.shape and np.array_equal(got, want),
+             "TD: distinct counts differ from numpy's")
+    show(f"TD distinctCount(symbol) time({TW_WINDOW}), H={TD_H}", tdf, td_s,
+         f"; every count == numpy's (peak {int(got.max())}); {td_launches} "
+         f"kernel launches for {steps} steps")
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    a, kw = rec.args, rec.kwargs
+    td_err = check_scan(a, kw, "TD scan", cut=D2_CUT)
+    oracle_s = check_oracle(a, kw, "TD scan")
+    k = {**scan_facts(a, kw),
+         **time_scan(a, kw, scratch, plain_runs=1, plain_cut=D2_CUT)}
+    k["share"] = k["bound_ms"] / k["device_ms"]
+    k["ns_per_row"] = k["device_ms"] * 1e6 / k["chain"]
+    print(f"[windows] kernel at TD's last batch step ({k['rows']} rows, one chain "
+          f"of {k['chain']}, H={k['H']}): == plain on the first {D2_CUT} rows, == "
+          f"the host oracle on the whole call ({oracle_s:.2f} s); L2 flushed: kernel "
+          f"{k['ms']:.4f} ms a call (CUDA events), host enqueue {k['host_ms']:.4f} "
+          f"ms, device {k['device_ms']:.4f} ms, {k['ns_per_row']:.1f} ns per chain "
+          f"row, byte bound {k['bound_ms']:.4f} ms, share {k['share']:.6f} [{card}]",
+          flush=True)
+    k["max_abs_err"] = td_err
+
+    # TB: per-second bars; LB: six or seven flushes inside one batch
+    tb_feed = feed[:TB_BATCHES]
+    tb_out, tb_s, tbf = run_window(device, TB_APP, tb_feed, TB_CAPACITY)
+    tb_rows = sum(len(b["n"]) for b in tb_out)
+    show("TB timeBatch(1 sec)", tbf, tb_s, f"; {tb_rows} bar rows")
+    lb_out, lb_s, lbf = run_window(device, LB_APP, tb_feed, TB_CAPACITY)
+    flushed = sum(int(b["n"].sum()) for b in lb_out)
+    want_flushed = (TB_BATCHES * BATCH) // 10_000 * 10_000
+    _require(flushed == want_flushed, f"LB: {flushed} rows flushed, want "
+             f"{want_flushed}")
+    show("LB lengthBatch(10000)", lbf, lb_s, f"; {flushed // 10_000} flushes, "
+         f"the collapse's counts sum to every flushed row")
+    cpu = torch.device("cpu")
+    for label, app, cap, out in (("TB", TB_APP, TB_CAPACITY, tb_out),
+                                 ("LB", LB_APP, TB_CAPACITY, lb_out)):
+        cpu_out, _s, _f = run_window(cpu, app, tb_feed, cap)
+        worst = compare_outputs(out, cpu_out, f"{label} card vs cpu")
+        print(f"[windows] {label}: card == the port's CPU run over {TB_BATCHES} "
+              f"batches (max float rel err {worst:.3g})", flush=True)
+
+    # T and ET cut to 10 s windows: the card against the CPU
+    cut = feed[:CUT_BATCHES]
+    for label, app in (("T", T_APP), ("ET", ET_APP)):
+        app = app.format(T=CUT_WINDOW)
+        card_out, _s, cf = run_window(device, app, cut, CUT_CAPACITY)
+        cpu_out, _s2, _f = run_window(cpu, app, cut, CUT_CAPACITY)
+        worst = compare_outputs(card_out, cpu_out, f"{label} 10 s card vs cpu")
+        print(f"[windows] {label} cut to a {CUT_WINDOW} window, {CUT_BATCHES} batches "
+              f"({cf['steps']['timer']} timer steps): card == the port's CPU run "
+              f"(max float rel err {worst:.3g}) [{card}]", flush=True)
+
+    # the default ring of 4,096 rows overflows, naming its knob
+    try:
+        run_window(device, T_APP.format(T=TW_WINDOW), feed[:1], None)
+        raise Failure("T at the default window_capacity did not overflow")
+    except FatalQueryError as e:
+        _require("window_capacity" in str(e), f"overflow names no knob: {e}")
+        print(f"[windows] T at the default capacity of 4,096: FatalQueryError "
+              f"'{str(e)[:110]}'", flush=True)
+
+    # L: live mode; the expired rows come from the timer thread
+    l_feed = [({**c, "symbol": c["symbol"][:L_ROWS], "price": c["price"][:L_ROWS],
+                "volume": c["volume"][:L_ROWS], "ts": c["ts"][:L_ROWS]}, None)
+              for c, _t in feed[:1]]
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device=device)
+    rt = m.create_siddhi_app_runtime(L_APP)
+    lcb = collector()
+    seen = []
+    orig_rb = lcb.receive_batch
+
+    def receive_batch(batch, junction):
+        seen.append((threading.get_ident(), time.perf_counter(),
+                     int(time.time() * 1000)))
+        orig_rb(batch, junction)
+
+    lcb.receive_batch = receive_batch
+    lcb.target = L_ROWS
+    rt.add_callback("OutStream", lcb)
+    # the rows' timestamp is the wall clock's millisecond at the send, at or
+    # after this one; they expire 250 ms after it
+    t0_ms = int(time.time() * 1000)
+    t0 = time.perf_counter()
+    rt.get_input_handler("StockStream").send_columns(l_feed[0][0])
+    sent = time.perf_counter()
+    arrived = lcb.reached.wait(L_WAIT_S)
+    m.shutdown()
+    _require(arrived and lcb.rows == L_ROWS,
+             f"L: {lcb.rows} expired rows within {L_WAIT_S} s, want {L_ROWS}")
+    first = seen[0][1] - t0
+    first_ms = seen[0][2] - t0_ms
+    _require(250 <= first_ms and first <= L_WAIT_S and all(
+        tid != threading.get_ident() for tid, _t, _w in seen),
+        f"L: expired rows {first_ms} ms after the send's millisecond, on "
+        f"threads {set(t for t, _, _w in seen)}")
+    print(f"[windows] L time(250 millisec), live: {L_ROWS} expired rows from the "
+          f"timer thread {first * 1e3:.1f} ms after the send (send returned after "
+          f"{(sent - t0) * 1e3:.1f} ms) [{card}]", flush=True)
+
+    # H, F, R: host stages behind a device step, against the CPU
+    hfr, _ids = tw_feed(23, 2, batch=HFR_BATCH, rate=HFR_RATE)
+    for label, app in (("H sort(10, price)", H_APP), ("F pol2Cart + casts", F_APP),
+                       ("R output last every 1 sec", R_APP)):
+        rows = []
+        for dev in (device, cpu):
+            mm = SiddhiManager(device=dev)
+            rr = mm.create_siddhi_app_runtime(app)
+            ev = event_rows()
+            rr.add_callback("OutStream", ev)
+            hh = rr.get_input_handler("StockStream")
+            t0 = time.perf_counter()
+            for c, ts in hfr:
+                hh.send_columns(c, timestamps=ts)
+            secs = time.perf_counter() - t0
+            mm.shutdown()
+            rows.append((ev.rows, secs))
+        _require(len(rows[0][0]) > 0, f"{label}: no output")
+        require_rows_equal(rows[0][0], rows[1][0], label)
+        print(f"[windows] {label}: {len(rows[0][0])} rows, card == the port's "
+              f"CPU run; {2 * HFR_BATCH} events in {rows[0][1] * 1e3:.1f} ms on "
+              f"the card [{card}]", flush=True)
+    print(f"[windows] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k, td_launches, {"T": tf, "ET": ef, "TD": tdf, "TB": tbf, "LB": lbf}
+
+
+def event_rows():
+    """A stream callback keeping every event as (timestamp, data, expired)."""
+    from siddhi_tpu_torch import StreamCallback
+
+    class Rows(StreamCallback):
+        def __init__(self):
+            self.rows = []
+
+        def receive(self, events):
+            self.rows.extend((e.timestamp, tuple(e.data), e.is_expired)
+                             for e in events)
+
+    return Rows()
+
+
+def require_rows_equal(a, b, what: str):
+    """Event rows equal: floats to rtol 1e-12, everything else exactly."""
+    import math
+
+    _require(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} rows")
+    for i, (x, y) in enumerate(zip(a, b)):
+        ok = x[0] == y[0] and x[2] == y[2] and len(x[1]) == len(y[1]) and all(
+            (u is None and v is None) or (
+                isinstance(u, float) and isinstance(v, float)
+                and math.isclose(u, v, rel_tol=FLOAT_RTOL, abs_tol=0.0))
+            or u == v for u, v in zip(x[1], y[1]))
+        _require(ok, f"{what}: row {i} differs: {x} vs {y}")
+
+
 # ------------------------------------------------------------------ main
 
 def phase_global(device, feed, card: str):
@@ -1835,8 +2362,11 @@ def main() -> int:
     phase_transport(device, feed, card)
     # 16. D4: the distinct scan above H = 16,384
     d4, d4_launches = phase_d4(device, feed, card)
+    # 17. time and batch windows, TIMER chunks, host stages
+    td, td_launches, win = phase_windows(device, card)
+    dist["launches"]["TD"] = td_launches
 
-    # 17. result lines
+    # 18. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
@@ -1858,7 +2388,8 @@ def main() -> int:
         "source": "siddhi_tpu_torch/csrc/distinct_scan.cu",
         "replaces": "siddhi_tpu/ops/aggregators.py:291",
         "launches": sum(dist["launches"].values()),
-        "launches_by_run": dist["launches"], "max_abs_err": dist["max_abs_err"],
+        "launches_by_run": dist["launches"],
+        "max_abs_err": max(dist["max_abs_err"], td["max_abs_err"]),
         "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "device_ms": d1["device_ms"],
         "roofline_share": d1["share"], "host_ms": d1["host_ms"],
@@ -1867,6 +2398,9 @@ def main() -> int:
         **{name: {k: dist[name][k] for k in (
             "ms", "device_ms", "bound_ms", "share", "host_ms", "chain", "H",
             "ns_per_row", "cut_ms", "plain_ms")} for name in ("d2", "d3")},
+        "td": {k: td[k] for k in (
+            "ms", "device_ms", "bound_ms", "share", "host_ms", "chain", "H",
+            "ns_per_row", "cut_ms", "plain_ms", "max_abs_err")},
     }, {
         # the same kernel's global-index path (H > 16,384), at D4's shape:
         # ms and bound_ms over one whole batch, plain_ms and cut_ms (the
@@ -1885,6 +2419,9 @@ def main() -> int:
     print(json.dumps({"pipeline": {
         str(d): {k: v for k, v in f.items() if k != "strings"} for d, f in pipe.items()},
         "ingest": ingest}))
+    print(json.dumps({"windows": {
+        name: {"state_bytes": f["state_bytes"], "timer_steps": f["timers"],
+               "batch_steps": f["steps"]["batch"]} for name, f in win.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

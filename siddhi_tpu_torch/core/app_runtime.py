@@ -4,17 +4,20 @@ Counterpart of ``siddhi_tpu/core/app_runtime.py``, reduced to what the
 port runs: stream definitions, queries and value partitions, stream and
 query callbacks, custom extension functions and ``define function``
 scripts, the set-element metadata of OBJECT attributes,
-``@app:name``/``@app:playback``/``@app:precision``, ``@Async`` and
-``@OnError`` streams, ``@source``/``@sink`` transports, the dispatch
-pipeline and the ingest pack pool, and the ``siddhi_tpu.*`` config
-knobs. Tables, named windows, triggers, incremental aggregations and
-``@purge`` are not ported yet and raise ``CompileError`` naming
-themselves, so an app never runs with a part silently missing.
+``@app:name``/``@app:playback`` (with its idle heartbeat)/
+``@app:precision``, the app's scheduler (TIMER chunks of time windows),
+output rate limiters, ``@Async`` and ``@OnError`` streams,
+``@source``/``@sink`` transports, the dispatch pipeline and the ingest
+pack pool, and the ``siddhi_tpu.*`` config knobs. Tables, named
+windows, triggers, incremental aggregations and ``@purge`` are not
+ported yet and raise ``CompileError`` naming themselves, so an app never
+runs with a part silently missing.
 
 The app starts at ``start()`` or at its first send: @Async workers, the
-ingest pool, sinks' connections and sources (each connecting with retry
-on its own thread). ``shutdown`` drains the pipeline, stops sources and
-workers (each delivers what its queue holds first), then drops the
+ingest pool, rate limiters, sinks' connections and sources (each
+connecting with retry on its own thread). ``shutdown`` stops the
+heartbeat, drains the pipeline, stops sources, limiters and workers (each
+delivers what its queue holds first), stops the scheduler, then drops the
 device state.
 """
 
@@ -27,10 +30,13 @@ from siddhi_tpu_torch.compiler.errors import SiddhiAppValidationException
 from siddhi_tpu_torch.core.context import SiddhiAppContext, SiddhiContext
 from siddhi_tpu_torch.core.plan.query_planner import plan_query
 from siddhi_tpu_torch.core.query.callback import QueryCallback
+from siddhi_tpu_torch.core.query.ratelimit import (create_rate_limiter,
+                                                    rate_uses_group_key)
 from siddhi_tpu_torch.core.query.runtime import QueryRuntime
 from siddhi_tpu_torch.core.stream.input.input_handler import InputHandler, InputManager
 from siddhi_tpu_torch.core.stream.junction import StreamJunction
 from siddhi_tpu_torch.core.stream.output.stream_callback import StreamCallback
+from siddhi_tpu_torch.core.util.scheduler import Scheduler
 from siddhi_tpu_torch.ops.expressions import CompileError, set_active_extensions
 from siddhi_tpu_torch.query_api.annotations import find_annotation, find_annotations
 from siddhi_tpu_torch.query_api.definitions import Attribute, AttrType, StreamDefinition
@@ -87,6 +93,26 @@ def _parse_time_ms(s: str) -> float:
     raise SiddhiAppValidationException(f"cannot parse time '{s}'")
 
 
+def _parse_playback_time(s: str, what: str) -> int:
+    """Strict time constant of an @app:playback element: '<int> <unit>'
+    pairs only; a bare number or an empty string fails app creation, as
+    the reference's SiddhiCompiler.parseTimeConstantDefinition does."""
+    from siddhi_tpu_torch.compiler.errors import SiddhiParserException
+    from siddhi_tpu_torch.compiler.tokenizer import is_time_unit, time_unit_ms
+
+    parts = (s or "").split()
+    if not parts or len(parts) % 2 != 0:
+        raise SiddhiParserException(
+            f"Invalid {what} constant '{s}' in playback annotation")
+    total = 0
+    for num, unit in zip(parts[::2], parts[1::2]):
+        if not num.isdigit() or not is_time_unit(unit.lower()):
+            raise SiddhiParserException(
+                f"Invalid {what} constant '{s}' in playback annotation")
+        total += int(num) * time_unit_ms(unit.lower())
+    return total
+
+
 def _default_app_name(siddhi_app: SiddhiApp) -> str:
     import hashlib
 
@@ -99,6 +125,7 @@ class SiddhiAppRuntime:
         self.name = siddhi_app.name or _default_app_name(siddhi_app)
         self.app_context = SiddhiAppContext(siddhi_context, self.name)
         self._barrier = threading.RLock()
+        self.app_context.timestamp_generator.set_heartbeat_barrier(self._barrier)
         self.stream_definitions: Dict[str, StreamDefinition] = dict(
             siddhi_app.stream_definitions)
         self.junctions: Dict[str, StreamJunction] = {}
@@ -115,8 +142,27 @@ class SiddhiAppRuntime:
                             siddhi_app.aggregation_definitions)):
             if defs:
                 raise CompileError(f"{what} are not ported to siddhi_tpu_torch yet")
-        if siddhi_app.app_annotation("playback") is not None:
+        pb = siddhi_app.app_annotation("playback")
+        if pb is not None:
+            # idle.time + increment enable the idle heartbeat
+            # (reference SiddhiAppParser.java:171-212)
+            self.app_context.playback = True
             self.app_context.timestamp_generator.playback = True
+            elems = pb.elements_map()
+            unknown = [k for k in elems if k not in ("idle.time", "increment")]
+            if unknown:
+                raise SiddhiAppValidationException(
+                    "Playback annotation accepts only idle.time and "
+                    f"increment but found {unknown[0]}")
+            idle_s, inc_s = elems.get("idle.time"), elems.get("increment")
+            if (idle_s is None) != (inc_s is None):
+                raise SiddhiAppValidationException(
+                    "Playback annotation requires both idle.time and "
+                    "increment when either is given")
+            if idle_s is not None:
+                self.app_context.timestamp_generator.configure_heartbeat(
+                    _parse_playback_time(idle_s, "idle.time"),
+                    _parse_playback_time(inc_s, "increment"))
         prec = siddhi_app.app_annotation("precision")
         if prec is not None:
             v = (prec.element() or "").lower()
@@ -124,6 +170,7 @@ class SiddhiAppRuntime:
                 raise SiddhiAppValidationException(
                     "@app:precision must be 'exact' or 'fast'")
             self.app_context.precision = v
+        self.app_context.scheduler = Scheduler(self.app_context)
 
         # deployment config: every siddhi_tpu.* key resolves through the
         # typed knob registry (junk spellings raise naming the key)
@@ -293,8 +340,43 @@ class SiddhiAppRuntime:
             tdef.object_multi_attrs = (
                 set(getattr(tdef, "object_multi_attrs", None) or set())
                 | set(sp.object_multi))
+        self._attach_rate_limiter(query, runtime, partition_ctx)
         self.junctions[query.input_stream.unique_stream_id].subscribe(runtime)
         self.query_runtimes[query_name] = runtime
+
+    def _attach_rate_limiter(self, query: Query, runtime: QueryRuntime,
+                             partition_ctx) -> None:
+        """The query's output rate limiter (reference OutputParser): the
+        group variants key on the projected group-by attributes, or on the
+        group id when they are not projected; inside a partition each key
+        is its own query instance, so the limiter is kept per key."""
+        sp = runtime.selector_plan
+        agg_positions = tuple(sp.agg_positions)
+        windowed = (runtime.window_stage is not None
+                    or runtime.host_window is not None)
+        group_key_fn = None
+        if query.selector.group_by_list and rate_uses_group_key(
+                query.output_rate, windowed, agg_positions):
+            gb_names = {v.attribute_name for v in query.selector.group_by_list}
+            positions = tuple(i for i, (n, _t) in enumerate(runtime.output_attrs)
+                              if n in gb_names)
+            if positions:
+                group_key_fn = lambda ev, _p=positions: tuple(  # noqa: E731
+                    ev.data[i] for i in _p)
+            else:
+                # the group key is not projected: it rides the dense group
+                # id into Event.gk (within a partition GK folds the pk in)
+                runtime.limiter_needs_gk = True
+                group_key_fn = lambda ev: ev.gk  # noqa: E731
+        partitioned = partition_ctx is not None and query.output_rate is not None
+        if partitioned:
+            runtime.limiter_needs_pk = True
+        runtime.rate_limiter = create_rate_limiter(
+            query.output_rate, runtime.send_to_callbacks, group_key_fn,
+            partitioned=partitioned, windowed=windowed,
+            agg_positions=agg_positions, out_size=len(runtime.output_attrs),
+            empty_send=runtime.send_empty_to_query_callbacks)
+        runtime.scheduler = self.app_context.scheduler
 
     def _prescan_object_metadata(self, siddhi_app):
         """A first pass over the query ASTs: record which object attributes
@@ -405,6 +487,9 @@ class SiddhiAppRuntime:
                     ctx, workers=ctx.ingest_pool, split_rows=ctx.ingest_split)
             for j in self.junctions.values():
                 j.start_processing()
+            for qr in self.query_runtimes.values():
+                if qr.rate_limiter is not None:
+                    qr.rate_limiter.start(ctx.scheduler)
             for sr in self.sink_runtimes:
                 sr.connect()
             for sr in self.source_runtimes:
@@ -416,6 +501,7 @@ class SiddhiAppRuntime:
 
         ctx = self.app_context
         ctx.stopped = True
+        ctx.timestamp_generator.stop_heartbeat()
         if ctx.completion_pump.has_pending:
             # batches still riding the pipeline emit before teardown
             try:
@@ -425,6 +511,9 @@ class SiddhiAppRuntime:
                     "pipeline flush failed during shutdown")
         for sr in self.source_runtimes:
             sr.shutdown()
+        for qr in self.query_runtimes.values():
+            if qr.rate_limiter is not None:
+                qr.rate_limiter.stop()
         for j in self.junctions.values():
             # an @Async worker delivers its queue, flushes, then exits
             j.stop_processing()
@@ -434,6 +523,8 @@ class SiddhiAppRuntime:
             # after the workers stopped: no pack can be in flight
             ctx.ingest_pack_pool.shutdown()
             ctx.ingest_pack_pool = None
+        if ctx.scheduler is not None:
+            ctx.scheduler.shutdown()
         with self._barrier:
             # drop device state so the app's memory is released now
             for q in self.query_runtimes.values():

@@ -6,6 +6,7 @@ Counterpart of ``siddhi_tpu/core/context.py``. The app context holds the
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict
 
@@ -29,11 +30,21 @@ class SiddhiContext:
 
 class TimestampGenerator:
     """Event/wall clock: live mode returns wall time; playback mode
-    returns the last event timestamp."""
+    returns the last event timestamp. Time-change listeners (the playback
+    scheduler) run inside ``set_current_timestamp``. The
+    ``@app:playback(idle.time, increment)`` heartbeat advances the event
+    clock by ``increment`` when no event arrives for ``idle.time`` of wall
+    time, so time windows keep draining."""
 
     def __init__(self):
         self.playback = False
         self._last_event_ts: int = -1
+        self._increment_listeners = []
+        self._hb_idle_ms: int = 0
+        self._hb_increment_ms: int = 0
+        self._hb_thread = None
+        self._hb_stop = None
+        self._hb_barrier = None
 
     def current_time(self) -> int:
         if self.playback and self._last_event_ts >= 0:
@@ -43,6 +54,71 @@ class TimestampGenerator:
     def set_current_timestamp(self, ts: int):
         if ts > self._last_event_ts:
             self._last_event_ts = ts
+            # a snapshot: one-shot listeners remove themselves mid-iteration
+            for listener in tuple(self._increment_listeners):
+                listener(ts)
+        if self._hb_idle_ms and self._hb_thread is None:
+            self._start_heartbeat()
+
+    def configure_heartbeat(self, idle_ms: int, increment_ms: int):
+        self._hb_idle_ms = int(idle_ms)
+        self._hb_increment_ms = int(increment_ms)
+
+    def set_heartbeat_barrier(self, lock):
+        """The app's ingestion barrier: heartbeat ticks advance the clock
+        under it, so they serialize with ``InputHandler.send``."""
+        self._hb_barrier = lock
+
+    def _start_heartbeat(self):
+        self._hb_stop = threading.Event()
+        stop = self._hb_stop
+        barrier = self._hb_barrier or threading.RLock()
+
+        def _run():
+            seen = self._last_event_ts
+            while not stop.wait(self._hb_idle_ms / 1000.0):
+                with barrier:
+                    cur = self._last_event_ts
+                    if cur == seen and cur >= 0 and not stop.is_set():
+                        # idle: advance the event clock (fires timers)
+                        self.set_current_timestamp(cur + self._hb_increment_ms)
+                    seen = self._last_event_ts
+
+        self._hb_thread = threading.Thread(
+            target=_run, name="playback-heartbeat", daemon=True)
+        self._hb_thread.start()
+
+    def stop_heartbeat(self):
+        # idle_ms goes to 0 first, so the lazy start in
+        # set_current_timestamp never brings a thread back after shutdown
+        self._hb_idle_ms = 0
+        if self._hb_stop is not None:
+            self._hb_stop.set()
+            self._hb_thread = None
+            self._hb_stop = None
+
+    def add_time_change_listener(self, fn):
+        self._increment_listeners.append(fn)
+
+    def remove_time_change_listener(self, fn):
+        try:
+            self._increment_listeners.remove(fn)
+        except ValueError:
+            pass
+
+    def once_first_time(self, fn):
+        """Run ``fn(first_ts)`` when the event clock first advances (the
+        playback anchor of periodic jobs); returns a cancel() callable."""
+        def _listener(ts: int):
+            self.remove_time_change_listener(_listener)
+            fn(ts)
+
+        self.add_time_change_listener(_listener)
+
+        def cancel():
+            self.remove_time_change_listener(_listener)
+
+        return cancel
 
 
 class SiddhiAppContext:
@@ -53,10 +129,19 @@ class SiddhiAppContext:
         self.name = name
         self.device = siddhi_context.device
         self.timestamp_generator = TimestampGenerator()
+        self.playback = False
+        # the app's Scheduler (core/util/scheduler.py), set by the app
+        # runtime: TIMER chunks of time windows and time rate limiters
+        self.scheduler = None
         self.string_dictionary = StringDictionary()
         self.stopped = False
         # key-capacity default for dense state (padded, grows pow2)
         self.initial_key_capacity = 16
+        # ring capacity of the unbounded (time and batch) windows; a ring
+        # that would hold more live rows raises FatalQueryError naming
+        # siddhi_tpu.window_capacity
+        self.window_capacity = 4096
+        self.partition_window_capacity = 256
         # numeric precision of the fused sliding aggregation
         # (ops/fused_agg.py, its one reader): 'exact' = 64-bit accumulators
         # (the reference's double math), 'fast' = float32. The reference

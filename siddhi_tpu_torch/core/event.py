@@ -45,6 +45,12 @@ class Event:
     timestamp: int = -1
     data: Sequence = field(default_factory=list)
     is_expired: bool = False
+    # partition-key id, attached only when a partitioned rate limiter
+    # routes output events per key
+    pk: Optional[int] = None
+    # dense group-key id, attached only when a grouped rate limiter needs
+    # a group key the selection does not project
+    gk: Optional[int] = None
 
     def __repr__(self):
         return f"Event{{timestamp={self.timestamp}, data={list(self.data)}, isExpired={self.is_expired}}}"
@@ -431,12 +437,16 @@ class HostBatch:
     def to_events(self, attr_order: Sequence[tuple],
                   dictionary: StringDictionary,
                   object_meta: Optional[Dict[str, object]] = None,
-                  object_multi: Optional[set] = None) -> List[Event]:
+                  object_multi: Optional[set] = None,
+                  pk_key: Optional[str] = None,
+                  gk_key: Optional[str] = None) -> List[Event]:
         """Decode valid rows into Events. ``object_meta`` maps OBJECT (set-
         valued) attributes to their element AttrType (raw int codes
         without it); ``object_multi`` names the multi-element ones, whose
         decode raises when their '#set' companions were dropped instead
-        of emitting the live count as a singleton."""
+        of emitting the live count as a singleton; ``pk_key``/``gk_key``
+        name a partition-id/group-id column to attach as ``Event.pk``/
+        ``Event.gk``."""
         types = np.asarray(self.cols[TYPE_KEY])
         ts = np.asarray(self.cols[TS_KEY])
         idx = np.nonzero(np.asarray(self.cols[VALID_KEY]))[0]
@@ -466,8 +476,14 @@ class HostBatch:
         ts_l = ts[idx].tolist()
         exp_l = (types[idx] == EXPIRED).tolist()
         rows = zip(*col_lists) if col_lists else ([] for _ in idx)
-        return [Event(timestamp=t, data=list(r), is_expired=e)
-                for t, e, r in zip(ts_l, exp_l, rows)]
+        events = [Event(timestamp=t, data=list(r), is_expired=e)
+                  for t, e, r in zip(ts_l, exp_l, rows)]
+        for key, attr in ((pk_key, "pk"), (gk_key, "gk")):
+            col = self.cols.get(key) if key is not None else None
+            if col is not None:
+                for ev, v in zip(events, np.asarray(col)[idx].tolist()):
+                    setattr(ev, attr, int(v))
+        return events
 
     def _decode_sets(self, key, vals, idx, dictionary, elem_t, multi) -> list:
         """Set values of the rows ``idx``: from the '#set'/'#setm'

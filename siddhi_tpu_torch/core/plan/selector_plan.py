@@ -18,8 +18,9 @@ Semantics reproduced (reference ``QuerySelector.processGroupBy``):
 Set-valued (OBJECT) outputs carry their element type (``object_meta``)
 and, for multi-element sets, their '#set'/'#setm' companions
 (``set_cols``, ``object_multi``); ``uuid()`` outputs are filled on the
-host after the step (``uuid_cols``). Batch-window chunk collapsing is not
-ported yet (no batch window is).
+host after the step (``uuid_cols``). Chunks of a batch window keep only
+the last valid row per (flush epoch, group) when the selection
+aggregates or groups (``processInBatchGroupBy``/``NoGroupBy``).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from siddhi_tpu_torch.ops.expressions import (
     take_object_elem_marker,
     take_uuid_marker,
 )
+from siddhi_tpu_torch.ops.windows import FLUSH_KEY
 from siddhi_tpu_torch.query_api.definitions import AttrType
 from siddhi_tpu_torch.query_api.execution import Selector
 from siddhi_tpu_torch.query_api.expressions import (
@@ -146,6 +148,7 @@ class SelectorPlan:
     order_by: List[Tuple[str, bool, bool]]  # (out col, descending, is_str)
     limit: Optional[int]
     offset: Optional[int]
+    batch_mode: bool = False  # upstream emits batch chunks (batch windows)
     num_keys: int = 16
     # a fused upstream stage (ops/fused_agg.py) already computed the
     # aggregate columns: no state, no scans, just project and filter
@@ -161,6 +164,14 @@ class SelectorPlan:
     # outputs that are multi-element sets (unionSet results): their base
     # column is the live count; a singleton's is the element code
     object_multi: List[str] = field(default_factory=list)
+    # output positions whose projection is an aggregator call: they pick
+    # the snapshot rate limiter's variant
+    # (WrappedSnapshotOutputRateLimiter.java:67-74)
+    agg_positions: List[int] = field(default_factory=list)
+
+    @property
+    def contains_aggregator(self) -> bool:
+        return bool(self.specs)
 
     @property
     def needs_str_rank(self) -> bool:
@@ -189,6 +200,8 @@ class SelectorPlan:
         }
         if PK_KEY in cols:
             out[PK_KEY] = cols[PK_KEY]  # partition id rides along to the edge
+        if FLUSH_KEY in cols:
+            out[FLUSH_KEY] = cols[FLUSH_KEY]
         if OKEY_KEY in cols:
             # device routing: the window's emission-order key rides to the
             # route wrapper's cross-shard merge
@@ -220,6 +233,23 @@ class SelectorPlan:
         valid = cols[VALID_KEY] & type_ok
         if self.having_fn is not None:
             valid = valid & self.having_fn(out, ctx)
+        if self.batch_mode and (self.contains_aggregator or self.group_by):
+            # keep only the last valid row per (flush epoch, group): GK is
+            # the partition id of keyless partitioned queries, so per-key
+            # flushes in one chunk stay apart
+            flush = out.get(FLUSH_KEY)
+            if flush is None:
+                flush = torch.zeros_like(ts, dtype=torch.int32)
+            combo = (flush.to(torch.int64) * (self.num_keys + 1)
+                     + out[GK_KEY].to(torch.int64))
+            combo = torch.where(valid, combo, 2 ** 62)     # invalid rows last
+            order = torch.argsort(combo, stable=True)
+            combo_sorted = combo[order]
+            seg_last = torch.cat([combo_sorted[1:] != combo_sorted[:-1],
+                                  torch.ones(1, dtype=torch.bool, device=ts.device)])
+            is_last_sorted = valid[order] & seg_last
+            valid = torch.zeros_like(valid)
+            valid[order] = is_last_sorted
         out[VALID_KEY] = valid
 
         if self.order_by:
@@ -271,11 +301,16 @@ def _lexsort(keys):
 
 def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
                   resolver: Resolver, output_event_type: str,
-                  dictionary, app_context=None) -> SelectorPlan:
+                  dictionary, app_context=None, batch_mode: bool = False,
+                  internal_names=frozenset()) -> SelectorPlan:
     specs: List[agg_ops.AggSpec] = []
     selections: List[Tuple[str, Expression]] = []
     if selector.select_all or not selector.selection_list:
         for name, _t in input_attrs:
+            if name in internal_names:
+                # the planner's synthetic columns (string-cast LUTs) never
+                # reach `select *` output
+                continue
             selections.append((name, Variable(attribute_name=name)))
     else:
         for oa in selector.selection_list:
@@ -289,10 +324,16 @@ def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
     set_cols: List[Tuple[str, str]] = []
     object_meta: Dict[str, Optional[AttrType]] = {}
     object_multi: List[str] = []
+    agg_positions: List[int] = []
     for name, expr in selections:
         n_specs = len(specs)
         rewritten = _rewrite_aggregators(expr, specs, resolver)
         _augment_synthetic(resolver, specs)
+        if (len(specs) > n_specs and isinstance(rewritten, Variable)
+                and rewritten.attribute_name.startswith("__agg")):
+            # only a top-level aggregator projection counts: `sum(v) + 0`
+            # is a plain output to the snapshot-variant chooser
+            agg_positions.append(len(output_attrs))
         fn, t = compile_expr(rewritten, resolver)
         if take_uuid_marker():
             uuid_cols.append(name)      # the host fills fresh UUIDs
@@ -346,6 +387,8 @@ def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
         order_by=order_by,
         limit=selector.limit,
         offset=selector.offset,
+        batch_mode=batch_mode,
+        agg_positions=agg_positions,
         uuid_cols=uuid_cols,
         set_cols=set_cols,
         object_meta=object_meta,

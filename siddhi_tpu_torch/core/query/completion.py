@@ -105,6 +105,10 @@ class QueryCompletion:
                     f"query '{q.name}': {self.overflow_msg} before "
                     f"creating the runtime")
             q._emit(HostBatch(self.out, size=int(meta[2])))
+            if int(meta[1]) >= 0 and q.scheduler is not None:
+                # the step's wake time reaches the scheduler at drain, as
+                # the reference pump delivers it
+                q.scheduler.notify_at(int(meta[1]), q._timer_cb)
             return None
         finally:
             if self.junction is not None:

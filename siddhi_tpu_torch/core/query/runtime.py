@@ -3,12 +3,31 @@
 Counterpart of ``siddhi_tpu/core/query/runtime.py``: the junction hands
 the runtime a columnar batch, the runtime computes partition- and group-
 key ids host-side (dense dictionaries), moves the columns to its device,
-runs the step (filters + window + selector as torch ops, with the state
-updated in place), pulls the packed ``[overflow, notify, count]`` meta in
-one copy, raises ``FatalQueryError`` on a capacity overflow and emits the
-output rows: columnar into the output stream, decoded to Events for the
-query's ``QueryCallback``s (CURRENT rows as ``in_events``, EXPIRED as
+runs the step (stream-function transforms + filters + window + post-window
+stages + selector as torch ops, with the state updated in place), pulls
+the packed ``[overflow, notify, count]`` meta in one copy, raises
+``FatalQueryError`` on a capacity overflow, hands a wanted wake time to
+the app's scheduler and emits the output rows: columnar into the output
+stream, or decoded to Events for a rate limiter and the query's
+``QueryCallback``s (CURRENT rows as ``in_events``, EXPIRED as
 ``remove_events``), with ``uuid()`` columns filled on the host first.
+
+Host windows (``ops/host_windows.py``: sort, frequent, session, cron,
+expression, ...) run on the host before the device step, as in the
+reference; the step then runs the selector. A timer fires
+``process_timer``: a one-row TIMER chunk stamped at the timer's own time,
+run synchronously after the query's in-flight batches have emitted. On a
+timer thread the chunk enters the app's CUDA device first, so it runs on
+the stream of the query's other steps.
+
+A playback time window asks for a timer at its oldest row's time + t, so
+once it expires it runs one TIMER step per millisecond of event time,
+each a chunk of its own. Where nothing can tell those chunks' order from
+one step's (no order by, limit or offset, no downstream query, no other
+timer due in between), one TIMER step sweeps the whole chain up to the
+clock: each row expires at its own chain time, and the output is split
+back into one chunk per chain time, so callbacks and rate limiters see
+the reference's chunks.
 
 At ``pipeline_depth`` > 1 the step's output rides the app's
 ``CompletionPump`` (``core/query/completion.py``) instead: its meta
@@ -23,6 +42,7 @@ only once the event recorded after its last copy has completed.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import uuid
 from typing import Callable, Dict, List, Optional, Tuple
@@ -31,16 +51,16 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch.core.event import (
-    CURRENT, EXPIRED, Event, HostBatch, LazyColumns, StringDictionary,
+    CURRENT, EXPIRED, TIMER, Event, HostBatch, LazyColumns, StringDictionary,
     encode_key_tuples, pack_pool_of)
 from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY, STR_RANK, SelectorPlan
 from siddhi_tpu_torch.core.query.completion import QueryCompletion, stage_meta
 from siddhi_tpu_torch.core.stream.junction import (
     FatalQueryError, Receiver, current_delivering_junction)
 from siddhi_tpu_torch.ops.expressions import (
-    NUMPY_XP, PK_KEY, TYPE_KEY, VALID_KEY, TorchXP)
+    NUMPY_XP, PK_KEY, TS_KEY, TYPE_KEY, VALID_KEY, TorchXP)
 from siddhi_tpu_torch.ops.types import TORCH_OF_NUMPY
-from siddhi_tpu_torch.ops.windows import conform_cols
+from siddhi_tpu_torch.ops.windows import NOTIFY_KEY, OVERFLOW_KEY, conform_cols
 from siddhi_tpu_torch.query_api.definitions import AttrType, StreamDefinition
 
 
@@ -116,13 +136,28 @@ class QueryRuntime(Receiver):
     def __init__(self, name: str, app_context, input_definition: StreamDefinition,
                  filters: List[Callable], window_stage, selector_plan: SelectorPlan,
                  keyer: Optional[GroupKeyer], dictionary: StringDictionary,
-                 partition_ctx=None, partition_keyer=None, post_filters=None):
+                 partition_ctx=None, partition_keyer=None, transforms=None,
+                 log_stages=None, post_pipeline=None):
         self.name = name
         self.app_context = app_context
         self.device = app_context.device
         self.input_definition = input_definition
         self.filters = filters
-        self.post_filters = post_filters or []  # masks on window-emitted rows
+        self.transforms = transforms or []   # ops/stream_functions stages
+        self.log_stages = log_stages or []   # host #log() taps
+        # ordered post-window stages: ("f", cond) | ("t", transform)
+        self.post_pipeline = post_pipeline or []
+        self.host_transforms = False   # transforms run on the host first
+        self.host_window = None        # ops/host_windows stage, or None
+        self.rate_limiter = None       # core/query/ratelimit, set by the app
+        self.limiter_needs_pk = False  # partitioned limiter routes by pk
+        self.limiter_needs_gk = False  # grouped limiter, key not projected
+        self.scheduler = None          # the app's Scheduler, set by the app
+        # the one timer target of this query: the scheduler dedupes
+        # requests by (target, time), which a fresh bound method per
+        # request would defeat (every batch before the first expiry would
+        # start its own chain of timers)
+        self._timer_cb = self.process_timer
         self.window_stage = window_stage
         self.selector_plan = selector_plan
         self.keyer = keyer
@@ -204,30 +239,53 @@ class QueryRuntime(Receiver):
         """The (state, cols, now) -> (state, out) step of this query. The
         state tensors are updated in place and returned; ``cols`` are
         tensors on the state's device."""
-        filters = list(self.filters)
-        post_filters = list(self.post_filters)
+        # a host window already ran the filters, transforms and post-window
+        # stages on the host; host_transforms ran the transforms there
+        host_pre = self.host_window is not None
+        filters = [] if host_pre else list(self.filters)
+        transforms = ([] if (host_pre or self.host_transforms)
+                      else list(self.transforms))
+        post_pipeline = [] if host_pre else list(self.post_pipeline)
         sel = self.selector_plan
         win = self.window_stage
         xp = TorchXP(self.device)
 
         def step(state, cols, current_time):
-            ctx = {"xp": xp, "current_time": current_time}
+            ctx = {"xp": xp, "current_time": current_time,
+                   "horizon": self._timer_horizon}
             cols = dict(cols)
             strrank = cols.pop(STR_RANK, None)   # window stages rebuild cols
+            for t in transforms:
+                cols = t.apply(cols, ctx)
             valid = cols[VALID_KEY]
-            timer = cols[TYPE_KEY] == 2
+            timer = cols[TYPE_KEY] == TIMER
             for f in filters:
                 valid = valid & (f(cols, ctx) | timer)
             cols[VALID_KEY] = valid
+            notify = overflow = None
             if win is not None:
                 _st, cols = win.apply(state["win"], conform_cols(win, cols), ctx)
                 cols = dict(cols)
-                ptimer = cols[TYPE_KEY] == 2
-                for f in post_filters:
-                    cols[VALID_KEY] = cols[VALID_KEY] & (f(cols, ctx) | ptimer)
+                notify = cols.pop(NOTIFY_KEY, None)
+                overflow = cols.pop(OVERFLOW_KEY, None)
+                # post-window stages transform or mask the emitted rows
+                ptimer = cols[TYPE_KEY] == TIMER
+                for kind, obj in post_pipeline:
+                    if kind == "t":
+                        cols = obj.apply(cols, ctx)
+                    else:
+                        cols[VALID_KEY] = cols[VALID_KEY] & (
+                            obj(cols, ctx) | ptimer)
             if strrank is not None:
                 cols[STR_RANK] = strrank
             _st, out = sel.apply(state["sel"], cols, ctx)
+            if notify is not None:
+                out[NOTIFY_KEY] = notify
+            if overflow is not None:
+                sel_ov = out.get(OVERFLOW_KEY)
+                overflow = torch.as_tensor(overflow).to(torch.int64)
+                out[OVERFLOW_KEY] = overflow if sel_ov is None else torch.maximum(
+                    overflow, torch.as_tensor(sel_ov).to(torch.int64))
             return state, pack_meta(out)
 
         return step
@@ -243,10 +301,156 @@ class QueryRuntime(Receiver):
         backfill_null_masks(batch, self.input_definition)
         self.process_batch(batch, junction=junction)
 
+    _now_override = None   # a timer chunk runs at its scheduled time
+    _timer_horizon = None  # the clock a TIMER step sweeps its chain to
+
     def _now(self) -> int:
+        """The clock of window expiry and stamping: a TIMER chunk's own
+        time while one runs (the playback clock has already moved past
+        queued timers), else the app clock."""
+        if self._now_override is not None:
+            return self._now_override
         return int(self.app_context.timestamp_generator.current_time())
 
+    def process_timer(self, ts: int):
+        """Run a one-row TIMER chunk stamped at ``ts`` (reference
+        ``Scheduler.sendTimerEvents`` + ``EntryValveProcessor``)."""
+        batch = HostBatch.from_events(
+            [Event(timestamp=int(ts),
+                   data=[_zero_value(a.type) for a in self.input_definition.attributes])],
+            self.input_definition, self.dictionary)
+        batch.cols[TYPE_KEY][...] = TIMER
+        # the lock comes before the override: an event batch on another
+        # thread must never see the timer's time as its clock
+        with self._device_scope(), self._lock:
+            # batches in flight were dispatched before this timer fired:
+            # they emit first, and the timer chunk itself runs
+            # synchronously (_now_override gates the pipeline)
+            pump = self.app_context.completion_pump
+            if pump.has_pending:
+                pump.flush_owner(self)
+            self._now_override = int(ts)
+            self._timer_horizon = self._sweep_horizon(int(ts))
+            try:
+                self.process_batch(batch)
+            finally:
+                self._now_override = None
+                self._timer_horizon = None
+
+    def _sweep_horizon(self, ts: int) -> Optional[int]:
+        """How far a TIMER step at ``ts`` may sweep the time window's chain
+        of timers: to the playback clock, but short of any other pending
+        timer (a rate limiter's tick, another query's window), and only
+        where one chunk per chain time can be rebuilt from one step's
+        output and nothing downstream would see the steps interleave
+        otherwise. None: the step runs at ``ts`` alone."""
+        from siddhi_tpu_torch.ops.windows import TimeWindowStage
+
+        win, sp = self.window_stage, self.selector_plan
+        if not (self.app_context.playback and self.scheduler is not None
+                and isinstance(win, TimeWindowStage) and not win.external
+                and not (sp.order_by or sp.batch_mode)
+                and sp.limit is None and sp.offset is None):
+            return None
+        j = self.output_junction
+        if j is not None and any(isinstance(r, QueryRuntime) for r in j.receivers):
+            return None
+        horizon = int(self.app_context.timestamp_generator.current_time())
+        other = self.scheduler.next_due_except(self._timer_cb)
+        if other is not None:
+            horizon = min(horizon, other - 1)
+        return horizon if horizon > ts else None
+
+    def _device_scope(self):
+        """The app's CUDA device on this thread (a timer thread starts on
+        device 0), so a timer's step runs on the stream of the query's
+        other steps; nothing off the card."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _run_log_taps(self, batch: HostBatch):
+        """The host side of ``#log()`` taps: replay each tap's slice of the
+        pre-window pipeline with numpy and log the rows flowing at its
+        position in the handler chain (LogStreamProcessor.java:219-277)."""
+        base_valid = np.asarray(batch.cols[VALID_KEY]) & (
+            np.asarray(batch.cols[TYPE_KEY]) == CURRENT)
+        if not base_valid.any():
+            return
+        ctx = {"xp": NUMPY_XP, "current_time": self._now()}
+        # replay only the transform prefix some tap reads
+        depth = min(max(t.n_transforms for t in self.log_stages),
+                    len(self.transforms))
+        stages = [batch.cols]
+        for t in self.transforms[:depth]:
+            stages.append(t.apply(stages[-1], ctx))
+        for tap in self.log_stages:
+            cols = stages[min(tap.n_transforms, len(stages) - 1)]
+            valid = np.asarray(cols[VALID_KEY]) & (
+                np.asarray(cols[TYPE_KEY]) == CURRENT)
+            for f in self.filters[: tap.n_filters]:
+                valid = valid & np.asarray(f(cols, ctx))
+            idx = np.nonzero(valid)[0]
+            if idx.size == 0:
+                continue
+            attrs = list(self.input_definition.attributes)
+            for t in self.transforms[: tap.n_transforms]:
+                attrs.extend(t.out_attrs)
+            rows, timestamps = [], []
+            ts_col = cols[TS_KEY]
+            for i in idx:
+                row = []
+                for a in attrs:
+                    mcol = cols.get(a.name + "?")
+                    if mcol is not None and bool(mcol[i]):
+                        row.append(None)
+                    elif a.type == AttrType.STRING:
+                        row.append(self.dictionary.decode(int(cols[a.name][i])))
+                    else:
+                        row.append(cols[a.name][i].item())
+                rows.append(tuple(row))
+                timestamps.append(int(ts_col[i]))
+            tap.emit(rows, timestamps)
+
+    def _host_pre(self, batch: HostBatch):
+        """Host stages ahead of the device step: a host window (with the
+        filters, transforms and post-window stages around it, as numpy)
+        or the host transforms. Returns (batch, the host window's wake
+        time or None)."""
+        if self.host_window is not None:
+            now_h = self._now()
+            ctx = {"xp": NUMPY_XP, "current_time": now_h}
+            cols = batch.cols
+            for t in self.transforms:
+                cols = t.apply(cols, ctx)
+            cols = dict(cols)
+            valid = np.asarray(cols[VALID_KEY])
+            timer = np.asarray(cols[TYPE_KEY]) == TIMER
+            for f in self.filters:
+                valid = valid & (np.asarray(f(cols, ctx)) | timer)
+            cols[VALID_KEY] = valid
+            batch, notify = self.host_window.process(HostBatch(cols), now_h)
+            if self.post_pipeline:
+                cols = dict(batch.cols)
+                ptimer = cols[TYPE_KEY] == TIMER
+                for kind, obj in self.post_pipeline:
+                    if kind == "t":
+                        cols = obj.apply(cols, ctx)
+                    else:
+                        cols[VALID_KEY] = cols[VALID_KEY] & (
+                            np.asarray(obj(cols, ctx)) | ptimer)
+                batch = HostBatch(cols)
+            return batch, notify
+        if self.host_transforms:
+            cols = dict(batch.cols)
+            ctx = {"xp": NUMPY_XP, "current_time": self._now()}
+            for t in self.transforms:
+                cols = t.apply(cols, ctx)
+            return HostBatch(cols), None
+        return batch, None
+
     def process_batch(self, batch: HostBatch, junction=None):
+        notify = None
         with self._lock:
             # Event-path deliveries carry no junction parameter: the
             # delivery loop's thread-local names it, so pipelined
@@ -256,6 +460,9 @@ class QueryRuntime(Receiver):
             self._cur_fault_batch = batch if (
                 j is not None and j.on_error_action == "STREAM"
                 and j.fault_junction is not None) else None
+            if self.log_stages:
+                self._run_log_taps(batch)
+            batch, notify = self._host_pre(batch)
             # a re-published batch may hold device tensors: the keyers'
             # reads pull them to the host in one copy, a step without
             # keyers takes them as they are
@@ -285,9 +492,13 @@ class QueryRuntime(Receiver):
                 from siddhi_tpu_torch.parallel.mesh import prepare_routed_batches
 
                 for piece in prepare_routed_batches(self, cols):
-                    self._finish_device_batch(self._step, piece)
+                    notify = _min_notify(
+                        notify, self._finish_device_batch(self._step, piece))
             else:
-                self._finish_device_batch(self._step, cols)
+                notify = _min_notify(
+                    notify, self._finish_device_batch(self._step, cols))
+        if notify is not None and self.scheduler is not None:
+            self.scheduler.notify_at(notify, self._timer_cb)
 
     def route_overflow_msg(self) -> str:
         rl = self._route_layout
@@ -306,11 +517,16 @@ class QueryRuntime(Receiver):
                 for k, v in dict.items(cols)}
 
     def overflow_knob_msg(self) -> str:
-        """The capacity-overflow message naming its knob. Of the ported
-        stages only a distinctCount/unionSet value table can fill (the
-        windows' rings never overflow)."""
-        return ("distinctCount/unionSet value table full — raise "
-                "app_context.distinct_values_capacity")
+        """The capacity-overflow message naming its knobs: a time or batch
+        window's ring (``siddhi_tpu.window_capacity``) or a
+        distinctCount/unionSet value table."""
+        knob = ("siddhi_tpu.partition_window_capacity"
+                if self.partition_ctx is not None
+                else "siddhi_tpu.window_capacity")
+        if any(s.kind in ("distinctcount", "unionset")
+               for s in self.selector_plan.specs or []):
+            knob += " (or app_context.distinct_values_capacity)"
+        return f"window buffer or value table capacity exceeded — raise {knob}"
 
     def decode_meta_suffix(self, meta: np.ndarray) -> None:
         """The routed step's meta carries [ov, notify, count,
@@ -322,11 +538,12 @@ class QueryRuntime(Receiver):
             if int(meta[3]) > 0:
                 raise FatalQueryError(f"query '{self.name}': {self.route_overflow_msg()}")
 
-    def _finish_device_batch(self, step, cols) -> None:
+    def _finish_device_batch(self, step, cols) -> Optional[int]:
         """Run the step on the device, then either hand its output to the
-        pipeline (depth > 1) or pull its meta, raise on overflow (a full
-        value table is never clamped silently) and emit outputs. The
-        ported stages never ask for a timer."""
+        pipeline (depth > 1; the pump hands the wake time to the scheduler
+        at drain) or pull its meta, raise on overflow (a full ring or value
+        table is never clamped silently) and emit outputs. Returns the
+        step's wanted wake time, or None."""
         now = self._now()
         if self.selector_plan.needs_str_rank:
             # string order-by keys sort by lexicographic rank, not by id
@@ -335,24 +552,29 @@ class QueryRuntime(Receiver):
         self._state, out = step(self._state, self._to_device(cols), now)
         out_host = LazyColumns(out)
         pump = self.app_context.completion_pump
-        if pump.depth > 1:
+        if pump.depth > 1 and self._now_override is None:
             meta, event = stage_meta(dict.pop(out_host, "__meta__"))
             pump.submit(QueryCompletion(
                 self, out_host, meta, event, self.overflow_knob_msg(),
                 junction=self._cur_junction, batch=self._cur_fault_batch))
-            return
+            return None
         meta = out_host.pop("__meta__")     # the one sync of the batch
         self.decode_meta_suffix(meta)
         if int(meta[0]) > 0:
             raise FatalQueryError(
                 f"query '{self.name}': {self.overflow_knob_msg()} before "
                 f"creating the runtime")
-        self._emit(HostBatch(out_host, size=int(meta[2])))
+        if self._timer_horizon is not None and int(meta[2]) > 0:
+            for chunk in _chain_chunks(out_host):
+                self._emit(chunk)
+        else:
+            self._emit(HostBatch(out_host, size=int(meta[2])))
+        return int(meta[1]) if int(meta[1]) >= 0 else None
 
     def _emit(self, out: HostBatch):
         """Columnar re-publish into the output stream: no Event objects
         between queries; columns stay on the device until a consumer reads
-        one."""
+        one. A rate limiter takes decoded Events instead."""
         if out.size == 0:
             return
         cols = out.cols
@@ -369,6 +591,17 @@ class QueryRuntime(Receiver):
                 vals = np.asarray(cols[col]).copy()
                 vals[idx] = ids[ci * idx.size:(ci + 1) * idx.size]
                 cols[col] = vals
+        from siddhi_tpu_torch.core.query.ratelimit import PassThroughRateLimiter
+
+        if (self.rate_limiter is not None
+                and type(self.rate_limiter) is not PassThroughRateLimiter):
+            self.rate_limiter.process(out.to_events(
+                self.output_attrs, self.dictionary,
+                object_meta=sp.object_meta or None,
+                object_multi=set(sp.object_multi) or None,
+                pk_key=PK_KEY if self.limiter_needs_pk else None,
+                gk_key=GK_KEY if self.limiter_needs_gk else None))
+            return
         events = None
         if self.query_callbacks:
             # decoded before the EXPIRED -> CURRENT flip of the re-publish
@@ -385,6 +618,28 @@ class QueryRuntime(Receiver):
             remove_events = [e for e in events if e.is_expired] or None
             for cb in self.query_callbacks:
                 cb.receive(events[0].timestamp, in_events, remove_events)
+
+    def send_empty_to_query_callbacks(self):
+        """Snapshot limiters deliver an empty flush to QueryCallbacks as
+        (None, None); stream junctions see nothing."""
+        ts = self.app_context.timestamp_generator.current_time()
+        for cb in self.query_callbacks:
+            cb.receive(ts, None, None)
+
+    def send_to_callbacks(self, events: List[Event]):
+        """A rate limiter's output: re-published as Events (EXPIRED ->
+        CURRENT, InsertIntoStreamCallback.java:52-55) and handed to the
+        query callbacks."""
+        if not events:
+            return
+        if self.output_junction is not None:
+            self.output_junction.send_events([
+                Event(timestamp=e.timestamp, data=e.data) if e.is_expired else e
+                for e in events])
+        for cb in self.query_callbacks:
+            in_events = [e for e in events if not e.is_expired] or None
+            remove_events = [e for e in events if e.is_expired] or None
+            cb.receive(events[0].timestamp, in_events, remove_events)
 
 
 class StagingRing:
@@ -450,16 +705,52 @@ def backfill_null_masks(batch: HostBatch, definition) -> None:
 def pack_meta(out: dict) -> dict:
     """Fold overflow/notify/valid-count into ONE int64 tensor so the host
     pays a single device-to-host copy per batch. The overflow lane carries
-    the selector's ``__overflow__`` (a full distinct value table); the
-    ported stages never ask for a timer, so notify is -1."""
+    a full window ring or distinct value table; notify is the window's
+    next wanted wake time, -1 when it has none."""
     valid = out[VALID_KEY]
-    ov = out.pop("__overflow__", None)
-    ov = (torch.zeros((), dtype=torch.int64, device=valid.device) if ov is None
-          else ov.to(torch.int64).reshape(()))
+    dev = valid.device
+
+    def lane(v, default):
+        if v is None:
+            return torch.full((), default, dtype=torch.int64, device=dev)
+        return torch.as_tensor(v, device=dev).to(torch.int64).reshape(())
+
     out["__meta__"] = torch.stack([
-        ov, torch.full((), -1, dtype=torch.int64, device=valid.device),
+        lane(out.pop(OVERFLOW_KEY, None), 0),
+        lane(out.pop(NOTIFY_KEY, None), -1),
         valid.sum(dtype=torch.int64)])
     return out
+
+
+def _chain_chunks(cols) -> List[HostBatch]:
+    """A swept TIMER step's output as the chunks of the chain steps it
+    stands for: its valid rows, in order, cut where their timestamp (each
+    row's chain time) changes."""
+    valid = np.asarray(cols[VALID_KEY])
+    idx = np.nonzero(valid)[0]
+    ts = np.asarray(cols[TS_KEY])[idx]
+    cuts = np.nonzero(np.diff(ts))[0] + 1
+    chunks = []
+    for part in np.split(idx, cuts):
+        lo, hi = int(part[0]), int(part[-1]) + 1
+        sub = {k: np.asarray(v)[lo:hi] for k, v in cols.items()}
+        sub[VALID_KEY] = valid[lo:hi].copy()
+        chunks.append(HostBatch(sub, size=len(part)))
+    return chunks
+
+
+def _min_notify(a: Optional[int], b: Optional[int]) -> Optional[int]:
+    if a is None:
+        return b
+    return a if b is None else min(a, b)
+
+
+def _zero_value(attr_type: AttrType):
+    if attr_type == AttrType.STRING:
+        return ""
+    if attr_type == AttrType.BOOL:
+        return False
+    return 0
 
 
 def _pow2(needed: int, start: int = 16) -> int:

@@ -6,10 +6,12 @@ kinds:
 
 - ``function:<name>`` (or ``function:<namespace>:<name>``) — a
   :class:`ScalarFunction`;
+- ``streamFunction:<name>`` — a :class:`StreamFunction` (a ``#name(args)``
+  handler appending attributes to the stream);
 - ``source:<type>`` / ``sink:<type>`` — transports;
 - ``sourceMapper:<type>`` / ``sinkMapper:<type>`` — payload mappers.
 
-A bare name matches any kind. Stream functions wait for their module.
+A bare name matches any kind.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from siddhi_tpu_torch.core.stream.input.source import (  # noqa: F401
 )
 from siddhi_tpu_torch.core.stream.output.sink import Sink, SinkMapper  # noqa: F401
 from siddhi_tpu_torch.core.util.transport import InMemoryBroker  # noqa: F401
+from siddhi_tpu_torch.ops.stream_functions import StreamFunction  # noqa: F401
 
 
 class ScalarFunction:

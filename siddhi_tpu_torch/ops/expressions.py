@@ -75,8 +75,9 @@ class TorchXP:
     compiled nodes use, it offers the numpy-named calls an extension
     function or a ``define function`` script body reasonably uses:
     ``asarray``, ``where``, ``maximum``, ``minimum``, ``sqrt``, ``abs``,
-    ``sign``, ``fmod``, ``sum(v, axis=None, dtype=None)``, ``zeros``,
-    ``ones``, ``full``, ``zeros_like``, ``ones_like`` and the dtypes
+    ``sign``, ``fmod``, ``cos``, ``sin``, ``deg2rad``, ``broadcast_to``,
+    ``sum(v, axis=None, dtype=None)``, ``zeros``, ``ones``, ``full``,
+    ``zeros_like``, ``ones_like`` and the dtypes
     ``int32``, ``int64``, ``float32``, ``float64``, ``bool_``. Their
     arguments may be tensors, numpy values or Python scalars; results are
     tensors on the namespace's device."""
@@ -124,6 +125,18 @@ class TorchXP:
     def fmod(self, a, b):
         return torch.fmod(self.asarray(a), self.asarray(b))
 
+    def cos(self, v):
+        return torch.cos(self.asarray(v))
+
+    def sin(self, v):
+        return torch.sin(self.asarray(v))
+
+    def deg2rad(self, v):
+        return torch.deg2rad(self.asarray(v))
+
+    def broadcast_to(self, v, shape):
+        return self.asarray(v).expand(shape)
+
     def sum(self, v, axis=None, dtype=None):
         v = self.asarray(v)
         if axis is None:
@@ -161,6 +174,10 @@ class _NumpyXP:
     abs = staticmethod(np.abs)
     sign = staticmethod(np.sign)
     fmod = staticmethod(np.fmod)
+    cos = staticmethod(np.cos)
+    sin = staticmethod(np.sin)
+    deg2rad = staticmethod(np.deg2rad)
+    broadcast_to = staticmethod(np.broadcast_to)
     sum = staticmethod(np.sum)
     zeros = staticmethod(np.zeros)
     ones = staticmethod(np.ones)
@@ -425,11 +442,13 @@ def _compile_function(expr: AttributeFunction, resolver) -> Compiled:
                 f"{name}() target '{args[1].value}' is not a type name")
         target = _TYPE_NAMES[args[1].value.lower()]
         if AttrType.STRING in (src_t, target) and src_t != target:
-            # the reference's planner rewrites these into host parse and
-            # format stages (query_planner._rewrite_string_casts)
+            # the planner rewrites a cast of a stream attribute into a host
+            # parse or format stage (query_planner._rewrite_string_casts);
+            # any other string<->number cast is refused, as the reference
+            # refuses it
             raise CompileError(
-                f"{name}() between string and {src_t if target == AttrType.STRING else target}"
-                f" runs host-side and is not ported to siddhi_tpu_torch yet")
+                "string<->numeric cast runs host-side; not supported on "
+                "device yet")
 
         if target == AttrType.BOOL and src_t != AttrType.BOOL:
             # numeric -> bool is `value == 1` (ConvertFunctionExecutor:

@@ -228,14 +228,23 @@ def test_invalid_calls_fail_in_both(sel):
 
 
 def test_string_number_cast_is_named_not_ported():
+    """A string<->number cast of a stream attribute runs as a host stage
+    (tests/test_torch_stream_functions.py); one of any other expression
+    is refused by both packages, with the same CompileError."""
+    from siddhi_tpu.ops.expressions import CompileError as JaxCompileError
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch.ops.expressions import CompileError
 
-    m = SiddhiManager(device="cpu")
-    for sel in ("convert(typeS, 'double')", "cast(typeI, 'string')"):
-        with pytest.raises(CompileError, match="not ported"):
-            m.create_siddhi_app_runtime(
-                TYPES + f"from typeStream select {sel} as v insert into O;")
+    for sel in ("convert(ifThenElse(typeB, typeS, 'x'), 'double')",
+                "cast(typeI + 1, 'string')"):
+        app = TYPES + f"from typeStream select {sel} as v insert into O;"
+        m = SiddhiManager(device="cpu")
+        with pytest.raises(CompileError, match="string<->numeric cast runs host-side"):
+            m.create_siddhi_app_runtime(app)
+        jm = _package("jax")[0]
+        with pytest.raises(JaxCompileError, match="string<->numeric cast runs host-side"):
+            jm.create_siddhi_app_runtime(app)
+        jm.shutdown()
 
 
 def test_query_callback_in_and_remove_split():

@@ -158,10 +158,12 @@ def test_unported_constructs_are_named_not_skipped():
     for app, what in [
         ("define stream S (a int); define table T (a int); "
          "from S select a insert into T;", "tables"),
-        ("define stream S (a int); from S#window.time(1 sec) select a "
-         "insert into O;", "time window"),
-        ("define stream S (a int); from S select a output every 5 events "
-         "insert into O;", "rate limiting"),
+        ("define stream S (k string, a int); partition with (k of S) begin "
+         "from S#window.time(1 sec) select a insert into O; end;",
+         "window 'time' inside a partition"),
+        ("define stream S (a int); define stream R (a int); "
+         "from S#window.length(2) join R#window.length(2) on S.a == R.a "
+         "select S.a insert into O;", "JoinInputStream inputs"),
     ]:
         with pytest.raises(CompileError, match=what):
             m.create_siddhi_app_runtime(app)

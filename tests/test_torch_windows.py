@@ -78,7 +78,8 @@ def test_unported_window_is_named():
     from siddhi_tpu_torch.ops.expressions import CompileError
 
     m = SiddhiManager(device="cpu")
-    with pytest.raises(CompileError, match="lengthBatch window is not ported"):
+    with pytest.raises(CompileError,
+                       match="window 'lengthBatch' inside a partition is not ported"):
         m.create_siddhi_app_runtime(
-            "define stream S (a int); from S#window.lengthBatch(4) "
-            "select a insert into O;")
+            "define stream S (k string, a int); partition with (k of S) begin "
+            "from S#window.lengthBatch(4) select a insert into O; end;")

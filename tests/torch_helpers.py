@@ -128,29 +128,59 @@ def fusion(context_module, enabled):
         cls.__init__ = orig
 
 
+def make_query_collector(base):
+    """A QueryCallback recording (timestamp, in rows, remove rows) per call,
+    empty flushes included."""
+    class QueryCollector(base):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def receive(self, timestamp, in_events, remove_events):
+            self.calls.append((
+                timestamp,
+                [(e.timestamp, tuple(e.data), e.is_expired) for e in in_events or []],
+                [(e.timestamp, tuple(e.data), e.is_expired)
+                 for e in remove_events or []]))
+
+    return QueryCollector()
+
+
 class Run:
-    """One app runtime of either package, with its output collector."""
+    """One app runtime of either package, with its output collector (and a
+    QueryCallback collector when ``query_callback``); ``config`` is a dict
+    of ``siddhi_tpu.*`` knobs."""
 
     def __init__(self, pkg, app, out_stream, query, routed_n=None,
-                 rows_per_shard=256, fused=True):
+                 rows_per_shard=256, fused=True, config=None,
+                 query_callback=False):
         if pkg == "jax":
             import siddhi_tpu
             from siddhi_tpu.core import context
+            from siddhi_tpu.core.query.callback import QueryCallback
+            from siddhi_tpu.core.util.config import InMemoryConfigManager
             from siddhi_tpu.parallel.mesh import device_route_query_step, make_mesh
 
             self.manager = siddhi_tpu.SiddhiManager()
             self.collector = make_collector(siddhi_tpu.StreamCallback)
         else:
             import siddhi_tpu_torch
+            from siddhi_tpu_torch import InMemoryConfigManager, QueryCallback
             from siddhi_tpu_torch.core import context
             from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
             self.manager = siddhi_tpu_torch.SiddhiManager(device="cpu")
             self.collector = make_collector(siddhi_tpu_torch.StreamCallback)
+        if config:
+            self.manager.set_config_manager(InMemoryConfigManager(dict(config)))
         with fusion(context, fused):
             self.rt = self.manager.create_siddhi_app_runtime(app)
         self.rt.add_callback(out_stream, self.collector)
         self.query = self.rt.query_runtimes[query]
+        self.query_collector = None
+        if query_callback:
+            self.query_collector = make_query_collector(QueryCallback)
+            self.rt.add_callback(query, self.query_collector)
         if routed_n is not None:
             device_route_query_step(self.query, make_mesh(routed_n),
                                     rows_per_shard=rows_per_shard)
@@ -162,6 +192,65 @@ class Run:
     def close(self):
         self.manager.shutdown()
         return self.collector.rows
+
+
+PLAYBACK_STOCK = ("@app:playback define stream S (symbol string, price double, "
+                  "volume long, ts long);\n")
+
+
+def mixed_feed(seed, n_events=24, n_batches=3, batch=16, n_symbols=4,
+               gaps=(0, 1, 5, 40, 200, 700, 1500), skew=300):
+    """Single events then column batches for PLAYBACK_STOCK's S, with
+    timestamps that stand still, creep and jump (so timers fire between
+    and inside sends) and a ``ts`` attribute within +-``skew`` ms of the
+    event time (a clock that is not monotone)."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([f"S{i}" for i in range(n_symbols)], dtype=object)
+    feed, t = [], 1000
+    for _ in range(n_events):
+        t += int(rng.choice(gaps))
+        feed.append(("event", t, [str(syms[rng.integers(0, n_symbols)]),
+                                  float(np.round(rng.random() * 100, 2)),
+                                  int(rng.integers(1, 100)),
+                                  t + int(rng.integers(-skew, skew + 1))]))
+    for _ in range(n_batches):
+        t += int(rng.choice(gaps))
+        ts = t + np.sort(rng.integers(0, 900, batch)).astype(np.int64)
+        feed.append(("cols", {"symbol": syms[rng.integers(0, n_symbols, batch)],
+                              "price": np.round(rng.random(batch) * 100, 2),
+                              "volume": rng.integers(1, 100, batch),
+                              "ts": ts + rng.integers(-skew, skew + 1, batch)}, ts))
+        t = int(ts.max())
+    return feed
+
+
+def run_both(app, feed, out="O", query="q", stream="S", config=None,
+             query_callback=False):
+    """The same app and feed through the JAX package and the port:
+    ``{pkg: (stream rows, query-callback calls or None)}``."""
+    res = {}
+    for pkg in ("jax", "torch"):
+        r = Run(pkg, app, out, query, config=config,
+                query_callback=query_callback)
+        r.feed(stream, feed)
+        rows = r.close()
+        res[pkg] = (rows, r.query_collector.calls if query_callback else None)
+    return res
+
+
+def assert_both_match(app, feed, **kw):
+    """``run_both``, then the port's rows (and query-callback calls) equal
+    the reference's under the tolerance rule; returns the row count."""
+    res = run_both(app, feed, **kw)
+    assert_rows_match(res["torch"][0], res["jax"][0])
+    if res["jax"][1] is not None:
+        got, want = res["torch"][1], res["jax"][1]
+        assert len(got) == len(want), (len(got), len(want))
+        for (t1, i1, r1), (t2, i2, r2) in zip(got, want):
+            assert t1 == t2, (t1, t2)
+            assert_rows_match(i1, i2)
+            assert_rows_match(r1, r2)
+    return len(res["jax"][0])
 
 
 def assert_rows_match(got, want, rtol=FLOAT_RTOL, atol=0.0):
