@@ -121,9 +121,30 @@ Phases (any failure exits non-zero and prints no result line):
             sec``) == the CPU run. Prints state bytes, steps per batch
             (batch and TIMER), events/s (timer steps included) and a
             profile of T's timer and batch steps;
-18. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
-    a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-    ``{"ok": true, "device": {...}}``.
+18. partitions ``partition with (symbol of StockStream)`` over phase 17's
+            feed (PR: three price ranges): PT (per-symbol ``time(1 min)``
+            avg/sum/count/``distinctCount(volume)``, H = 256, 24 batches)
+            and PET (``externalTime(ts, 1 min)``), every row's n, sum and
+            distinct count == numpy's, avg to 1e-9; one distinct-scan
+            launch per PT step, TIMER steps included, and the kernel at its
+            last batch step == plain and the host oracle, timed; PS
+            (``session(1 sec)`` all events: each CURRENT n == numpy's
+            session rank, each session after its predecessor expired), PLB
+            (``lengthBatch(4)``: n == 4), PR (``length(1000)`` per range:
+            rows == numpy's range matches) and PI (``[volume > 100]`` into
+            ``#Mid``, then ``length(1000)``), 8 batches, the first 2 == the
+            CPU; PT's and PS's queries at 100 ms swept == one TIMER step per
+            tick (3 x 1,024 rows, 64 symbols); keyed timeBatch, hopping,
+            batch, timeLength, delay and the host sort and session(gap,
+            key, latency) == the CPU (2 x 8,192 rows, 64 symbols);
+            ``@purge``: half the keys retired, their ids reused by new keys
+            starting clean, the kept keys == an unpurged run; a
+            ``partition_window_capacity`` of 64 raises ``FatalQueryError``
+            naming it. Prints state bytes, steps per batch, events/s and
+            profiles of PT's swept TIMER and batch steps;
+19. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+    a ``{"partitions": ...}`` line, a ``{"kernels": [...]}`` line, the
+    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -243,6 +264,61 @@ select symbol, x, y, cast(volume, 'string') as vs, convert(symbol, 'long') as sl
 insert into OutStream;"""
 R_APP = TW_HEAD + """from StockStream select symbol, sum(volume) as v
 group by symbol output last every 1 sec insert into OutStream;"""
+# phase 18: partitions over phase 17's feed, one window instance per symbol
+PART_HEAD = """
+@app:playback
+define stream StockStream (symbol string, price float, volume long, ts long);
+partition with (symbol of StockStream)
+begin
+"""
+PT_APP = PART_HEAD + """@info(name = 'bench')
+from StockStream#window.time({T})
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n,
+       distinctCount(volume) as volumes
+insert into OutStream;
+end;"""
+PET_APP = PART_HEAD + """@info(name = 'bench')
+from StockStream#window.externalTime(ts, {T})
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n
+insert into OutStream;
+end;"""
+PS_APP = PART_HEAD + """@info(name = 'bench')
+from StockStream#window.session({G})
+select symbol, count() as n, sum(volume) as totalVolume
+insert all events into OutStream;
+end;"""
+PLB_APP = PART_HEAD + """@info(name = 'bench')
+from StockStream#window.lengthBatch(4)
+select symbol, sum(volume) as totalVolume, count() as n
+insert into OutStream;
+end;"""
+PR_APP = """
+@app:playback
+define stream StockStream (symbol string, price float, volume long, ts long);
+partition with (price < 10.0 as 'penny' or price >= 10.0 and price < 60.0 as 'mid'
+                or price >= 50.0 as 'high' of StockStream)
+begin
+@info(name = 'bench')
+from StockStream#window.length(1000)
+select symbol, avg(price) as avgPrice, count() as n
+insert into OutStream;
+end;"""
+PI_APP = PART_HEAD + """from StockStream[volume > 100]
+select symbol, price, volume insert into #Mid;
+@info(name = 'bench')
+from #Mid#window.length(1000)
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume
+insert into OutStream;
+end;"""
+PART_CUT_APP = PART_HEAD + """@info(name = 'bench')
+from StockStream#window.{W}
+select symbol, sum(volume) as totalVolume, count() as n
+insert all events into OutStream;
+end;"""
+PART_CUT_CONFIG = {"window_capacity": 16_384}
+PART_CUT_WINDOWS = ("timeBatch(1 sec)", "hopping(2 sec, 1 sec)", "batch()",
+                    "timeLength(2 sec, 10)", "delay(1 sec)", "sort(2, price)",
+                    "session(1 sec, symbol, 500 millisec)")
 TW_RATE = 20                    # events per ms of event time
 TW_BASE = 1_700_000_000_000
 TW_BATCHES = 24                 # 78.6 s: a 1-minute window expires from batch 19
@@ -256,6 +332,13 @@ CUT_WINDOW = "10 sec"
 CUT_CAPACITY = 262_144          # 200,000 live rows + a batch
 HFR_BATCH = 8_192
 HFR_RATE = 4                    # 2 s of event time a batch: R flushes
+PT_H = 256                      # distinct volumes of one symbol's minute
+PART_BATCHES = 8                # PS, PLB, PR, PI
+PS_GAP, PS_GAP_MS = "1 sec", 1000
+SWEEP_BATCH = 1024              # the sweep check: 3 batches, 64 symbols,
+SWEEP_RATE = 4                  # 4 events/ms, 100 ms windows
+SWEEP_SYMBOLS = 64
+PURGE_BATCHES = 3
 L_ROWS = 1_000
 L_WAIT_S = 2.0
 D2_H = 1024                     # ~950 symbols are live at a time
@@ -1707,18 +1790,20 @@ def d4_feed(feed):
 
 # ----------------------------------------------- time and batch windows
 
-def tw_feed(seed: int, n_batches: int, batch: int = 0, rate: int = TW_RATE):
+def tw_feed(seed: int, n_batches: int, batch: int = 0, rate: int = TW_RATE,
+            n_symbols: int = 0):
     """make_feed's columns plus ``ts``, the event time: ``TW_BASE + row //
     rate`` ms over the whole feed, which is also each row's timestamp.
     Returns (feed, symbol ids of every row)."""
     import numpy as np
 
     batch = batch or BATCH
+    n_symbols = n_symbols or NUM_SYMBOLS
     rng = np.random.default_rng(seed)
-    syms = np.array([f"S{i}" for i in range(NUM_SYMBOLS)], dtype=object)
+    syms = np.array([f"S{i}" for i in range(n_symbols)], dtype=object)
     feed, ids_all = [], []
     for i in range(n_batches):
-        ids = rng.integers(0, NUM_SYMBOLS, batch, dtype=np.int64)
+        ids = rng.integers(0, n_symbols, batch, dtype=np.int64)
         ts = TW_BASE + (i * batch + np.arange(batch, dtype=np.int64)) // rate
         feed.append(({"symbol": syms[ids],
                       "price": (rng.random(batch) * 100.0).astype(np.float32),
@@ -1729,20 +1814,30 @@ def tw_feed(seed: int, n_batches: int, batch: int = 0, rate: int = TW_RATE):
 
 
 def run_window(device, app: str, feed, capacity=None, key_slots=-1,
-               distinct_h=None, on_start=None, keep=None):
+               distinct_h=None, on_start=None, keep=None, config=None,
+               sweep=True):
     """Drive an app's ``bench`` query through the public API with
-    ``siddhi_tpu.window_capacity`` = ``capacity``, counting its steps:
-    batch steps and TIMER steps (the scheduler's chunks), per send.
-    ``keep(rt, h)`` runs before the runtime shuts down. Returns
-    (per-batch output columns, per-batch seconds, facts)."""
+    ``siddhi_tpu.window_capacity`` = ``capacity`` and the other
+    ``siddhi_tpu.*`` knobs of ``config``, counting its steps: batch steps
+    and TIMER steps (the scheduler's chunks), per send. ``key_slots``
+    (-1: the bench's) sets the selector's key capacity before the first
+    send; ``sweep=False`` makes every TIMER step run at its own tick.
+    ``keep(rt, h, steps)`` runs before the runtime shuts down. Returns
+    (per-emission output columns, per-batch seconds, facts: the emissions
+    after each send and the emitted rows' types before the re-publish
+    turns EXPIRED into CURRENT among them)."""
+    import numpy as np
     import torch
 
     from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
 
     m = SiddhiManager(device=device)
+    knobs = dict(config or {})
     if capacity is not None:
+        knobs["window_capacity"] = capacity
+    if knobs:
         m.set_config_manager(InMemoryConfigManager(
-            {"siddhi_tpu.window_capacity": str(capacity)}))
+            {f"siddhi_tpu.{k}": str(v) for k, v in knobs.items()}))
     rt = m.create_siddhi_app_runtime(app)
     q = rt.query_runtimes["bench"]
     if key_slots is not None:       # -1: the bench's key capacity
@@ -1750,6 +1845,8 @@ def run_window(device, app: str, feed, capacity=None, key_slots=-1,
     if distinct_h is not None:
         for spec in q.selector_plan.specs:
             spec.distinct_capacity = distinct_h
+    if not sweep:
+        q._sweep_horizon = lambda ts: None
     cb = collector()
     rt.add_callback("OutStream", cb)
     steps = {"batch": 0, "timer": 0, "batch_s": 0.0, "timer_s": 0.0}
@@ -1765,10 +1862,22 @@ def run_window(device, app: str, feed, capacity=None, key_slots=-1,
             steps[kind + "_s"] += time.perf_counter() - t0
 
     q._finish_device_batch = counted
+    # the emitted rows' types before the re-publish turns EXPIRED into
+    # CURRENT (one entry per emission, as the collector's batches)
+    types = []
+    orig_emit = q._emit
+
+    def emit(out):
+        if out.size:
+            valid = np.asarray(out.cols["__valid__"])
+            types.append(np.asarray(out.cols["__type__"])[valid].copy())
+        return orig_emit(out)
+
+    q._emit = emit
     if on_start is not None:
         on_start()
     h = rt.get_input_handler("StockStream")
-    seconds, timers = [], []
+    seconds, timers, emitted = [], [], []
     for cols, ts in feed:
         before = steps["timer"]
         t0 = time.perf_counter()
@@ -1777,15 +1886,17 @@ def run_window(device, app: str, feed, capacity=None, key_slots=-1,
             torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         timers.append(steps["timer"] - before)
-    facts = {"stage": type(q.window_stage).__name__, "steps": dict(steps),
-             "timers": timers,
+        emitted.append(len(cb.batches))
+    facts = {"stage": type(q.window_stage or q.host_window).__name__,
+             "steps": dict(steps), "timers": timers, "emitted": emitted,
+             "types": types,
              "state_bytes": sum(t.numel() * t.element_size()
-                                for t in _leaves(q._state))}
-    out = list(cb.batches)
+                                for r in rt.query_runtimes.values()
+                                if r._state is not None for t in _leaves(r._state))}
     if keep is not None:
         facts["kept"] = keep(rt, h, steps)
     m.shutdown()
-    return out, seconds, facts
+    return list(cb.batches), seconds, facts
 
 
 def window_oracle(ids, ts, vol, price, lo):
@@ -1895,21 +2006,18 @@ def recording_batch_step(min_rows: int):
         aggregators.distinct_scan = orig
 
 
-def profile_window_steps(label: str, rt, h, extra, steps, card: str):
-    """Where a time window's time goes on the card, on a runtime that has
-    run the feed: torch.profiler over the send of one more batch (its
-    TIMER steps, then its own step), device time by torch op and the
-    card's busy share of the wall time."""
+def profile_step(label: str, fn, steps, card: str):
+    """torch.profiler over ``fn`` (a clock move that fires TIMER steps, or
+    a send): wall, device busy share and the top device ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cols, ts = extra
     before = dict(steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        h.send_columns(cols, timestamps=ts)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -1920,14 +2028,15 @@ def profile_window_steps(label: str, rt, h, extra, steps, card: str):
                  key=lambda e: -e.self_device_time_total)
     n_timer = steps["timer"] - before["timer"]
     n_batch = steps["batch"] - before["batch"]
-    print(f"[profile] {label}, one more batch ({n_timer} TIMER and {n_batch} batch "
-          f"steps, the TIMER steps' wall {1e3 * (steps['timer_s'] - before['timer_s']):.1f} "
+    print(f"[profile] {label} ({n_timer} TIMER and {n_batch} batch steps, the "
+          f"TIMER steps' wall {1e3 * (steps['timer_s'] - before['timer_s']):.1f} "
           f"ms): wall {wall * 1e3:.1f} ms, device busy {dev_us / 1e3:.3f} ms "
           f"({100 * dev_us / 1e6 / wall:.1f}% of wall) [{card}]", flush=True)
-    for e in ops[:10]:
+    for e in ops[:8]:
         print(f"[profile]   {label} device {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:6d}x  {e.key[:80]}", flush=True)
-    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3}
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+            "timer_steps": n_timer, "batch_steps": n_batch}
 
 
 def phase_windows(device, card: str):
@@ -1964,8 +2073,9 @@ def phase_windows(device, card: str):
     # T: the sliding time window, group by symbol, on the generic path
     t_out, t_s, tf = run_window(
         device, T_APP.format(T=TW_WINDOW), feed, TW_CAPACITY,
-        keep=lambda rt, h, steps: profile_window_steps("T", rt, h, extra, steps,
-                                                      card))
+        keep=lambda rt, h, steps: profile_step(
+            "T, one more batch", lambda: h.send_columns(extra[0], timestamps=extra[1]),
+            steps, card))
     _require(tf["stage"] == "TimeWindowStage", f"T planned on {tf['stage']}")
     fill = TW_MS * TW_RATE // B      # the batches before the first expiry
     _require(sum(tf["timers"][:fill]) == 0 and min(tf["timers"][fill + 1:]) > 0,
@@ -1976,6 +2086,7 @@ def phase_windows(device, card: str):
         last = ts.reshape(-1, B)[:, -1]
         return np.repeat(np.searchsorted(ts, last - TW_MS, side="right"), B)
 
+    t_out = t_out[:tf["emitted"][-1]]     # the profile batch's rows left out
     peak, t_err = check_window_batches(t_out, ids, feed, batch_lo, "T")
     show(f"T time({TW_WINDOW})", tf, t_s, f"; every n, totalVolume == numpy, avgPrice "
          f"within 1e-9 (max abs err {t_err:.3g}; peak {peak} rows of one symbol live)")
@@ -2132,6 +2243,365 @@ def phase_windows(device, card: str):
     return k, td_launches, {"T": tf, "ET": ef, "TD": tdf, "TB": tbf, "LB": lbf}
 
 
+# ------------------------------------------------- partitions (phase 18)
+
+def distinct_oracle(ids, vals, feed, B: int, lo_of):
+    """For every row i of batch b: the distinct ``vals`` among row i's
+    symbol's rows j in [lo_b, i] (lo_of gives each batch's first live
+    row): each (symbol, value) pair counts at its first live occurrence."""
+    import numpy as np
+
+    N = len(ids)
+    idx = np.arange(N)
+    # previous row of the same (symbol, value)
+    o = np.lexsort((idx, vals, ids))
+    prev = np.full(N, -1, np.int64)
+    same = (ids[o][1:] == ids[o][:-1]) & (vals[o][1:] == vals[o][:-1])
+    prev[o[1:][same]] = o[:-1][same]
+    # rows by (symbol, arrival): per-symbol running counts are prefix sums
+    so = np.lexsort((idx, ids))
+    seg = np.concatenate([[True], ids[so][1:] != ids[so][:-1]])
+    seg_start = np.maximum.accumulate(np.where(seg, np.arange(N), 0))
+    out = np.empty(N, np.int64)
+    for b in range(len(feed)):
+        lo, end = lo_of(b), (b + 1) * B
+        first = (prev[so] < lo) & (so >= lo) & (so < end)
+        c = np.cumsum(first)
+        run = c - np.where(seg_start > 0, c[seg_start - 1], 0)
+        mine = (so >= b * B) & (so < end)
+        out[so[mine]] = run[mine]
+    return out
+
+
+def session_ranks(ids, ts, B: int, gap: int):
+    """Each row's 1-based rank in its symbol's session: a session ends
+    where the symbol's next row is more than ``gap`` ms later within one
+    batch, or, across batches, where the clock (the next batch's last ts)
+    has passed the previous row's ts + gap before that batch runs (timers
+    drain idle sessions before each batch)."""
+    import numpy as np
+
+    N = len(ids)
+    batch = np.arange(N) // B
+    now = ts.reshape(-1, B)[:, -1]
+    so = np.lexsort((np.arange(N), ids))
+    s_ids, s_ts, s_b = ids[so], ts[so], batch[so]
+    same = np.concatenate([[False], s_ids[1:] == s_ids[:-1]])
+    p_ts = np.concatenate([[0], s_ts[:-1]])
+    p_b = np.concatenate([[0], s_b[:-1]])
+    new = ~same | np.where(p_b == s_b, s_ts - p_ts > gap, p_ts + gap <= now[s_b])
+    start = np.maximum.accumulate(np.where(new, np.arange(N), 0))
+    rank = np.empty(N, np.int64)
+    rank[so] = np.arange(N) - start + 1
+    return rank
+
+
+def phase_partitions(device, card: str):
+    """Phase 18 (see the module doc): PT, PET, PS, PLB, PR and PI at full
+    width with their checks, the sweep check, the cut windows against the
+    CPU, purge and overflow. Returns (PT's distinct-kernel facts, PT's
+    launches, per-configuration facts)."""
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch.core.stream.junction import FatalQueryError
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    feed, ids = tw_feed(18, TW_BATCHES + 1)
+    extra, feed = feed[-1], feed[:-1]        # PT's profile batch, after the run
+    ids = ids[:TW_BATCHES * BATCH]
+    B = BATCH
+    ts_all = np.concatenate([c["ts"] for c, _t in feed])
+    res = {}
+
+    def show(label, facts, secs, extra_text=""):
+        st = facts["steps"]
+        print(f"[partitions] {label}: {facts['state_bytes']} state bytes on the card, "
+              f"{st['batch']} batch steps and {st['timer']} TIMER steps (per batch: "
+              f"{facts['timers']}), steps' wall: batch {st['batch_s']:.2f} s, TIMER "
+              f"{st['timer_s']:.2f} s; first batch {secs[0] * 1e3:.1f} ms, then "
+              f"{steady_eps(secs, B):.1f} events/s{extra_text} [{card}]", flush=True)
+        res[label.split()[0]] = {
+            "state_bytes": facts["state_bytes"], "timer_steps": facts["timers"],
+            "batch_steps": st["batch"], "first_batch_ms": secs[0] * 1e3,
+            "events_per_s": steady_eps(secs, B)}
+
+    def batch_lo(ts):
+        last = ts.reshape(-1, B)[:, -1]
+        return np.repeat(np.searchsorted(ts, last - TW_MS, side="right"), B)
+
+    # PT: per-key sliding time window with distinctCount, H = 256
+    def reset():
+        distinct_scan.launches = 0
+
+    with recording_batch_step(BATCH) as rec:
+        def profile_pt(rt, h, steps):
+            kept = {"launches": distinct_scan.launches, "steps": dict(steps),
+                    "scan": (rec.args, rec.kwargs)}
+            cols, ts = extra
+            tsg = rt.app_context.timestamp_generator
+            kept["timer"] = profile_step(
+                "PT swept TIMER step",
+                lambda: tsg.set_current_timestamp(int(ts.max())), steps, card)
+            kept["batch"] = profile_step(
+                "PT batch step", lambda: h.send_columns(cols, timestamps=ts),
+                steps, card)
+            return kept
+
+        pt_out, pt_s, ptf = run_window(
+            device, PT_APP.format(T=TW_WINDOW), feed, key_slots=None,
+            distinct_h=PT_H, on_start=reset, keep=profile_pt)
+    kept = ptf["kept"]
+    a, kw = kept["scan"]
+    pt_launches = kept["launches"]
+    steps = kept["steps"]["batch"] + kept["steps"]["timer"]
+    _require(ptf["stage"] == "KeyedTimeWindowStage", f"PT planned on {ptf['stage']}")
+    _require(pt_launches == steps, f"PT: {pt_launches} distinct-scan launches for "
+             f"{steps} steps (TIMER steps included): want one per step")
+    cur = pt_out[:ptf["emitted"][-1]]       # the profile batch's rows left out
+    peak, pt_err = check_window_batches(cur, ids, feed, batch_lo, "PT")
+    lo = batch_lo(ts_all)
+    got = np.concatenate([b["volumes"] for b in cur])
+    vol = np.concatenate([c["volume"] for c, _t in feed])
+    want = distinct_oracle(ids, vol, feed, B, lambda b: int(lo[b * B]))
+    _require(np.array_equal(got, want), f"PT: distinctCount(volume) differs from "
+             f"numpy's at rows {np.nonzero(got != want)[0][:5].tolist()}")
+    show(f"PT time({TW_WINDOW}) per symbol", ptf, pt_s,
+         f"; every n, totalVolume, volumes == numpy's, avgPrice within 1e-9 (max "
+         f"abs err {pt_err:.3g}; peak {peak} rows of one symbol live); "
+         f"{pt_launches} distinct-scan launches for {steps} steps")
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    pt_err_k = check_scan(a, kw, "PT scan", cut=D2_CUT)
+    oracle_s = check_oracle(a, kw, "PT scan")
+    k = {**scan_facts(a, kw), **time_scan(a, kw, scratch, plain_runs=1,
+                                          plain_cut=D2_CUT)}
+    k["share"] = k["bound_ms"] / k["device_ms"]
+    k["ns_per_row"] = k["device_ms"] * 1e6 / k["chain"]
+    k["max_abs_err"] = pt_err_k
+    print(f"[partitions] kernel at PT's last batch step ({k['rows']} rows, "
+          f"{k['groups']} groups, longest chain {k['chain']}, H={k['H']}): == plain "
+          f"on the first {D2_CUT} rows, == the host oracle on the whole call "
+          f"({oracle_s:.2f} s); L2 flushed: kernel {k['ms']:.4f} ms a call (CUDA "
+          f"events), host enqueue {k['host_ms']:.4f} ms, device {k['device_ms']:.4f} "
+          f"ms, {k['ns_per_row']:.1f} ns per chain row, byte bound "
+          f"{k['bound_ms']:.4f} ms, share {k['share']:.6f} [{card}]", flush=True)
+
+    # PET: per-key external clocks, no timers
+    pet_out, pet_s, petf = run_window(device, PET_APP.format(T=TW_WINDOW), feed,
+                                      key_slots=None)
+    _require(petf["steps"]["timer"] == 0, "PET: externalTime asked for a timer")
+    _p, pet_err = check_window_batches(pet_out, ids, feed, lambda ts: np.searchsorted(
+        ts, ts - TW_MS, side="right"), "PET")
+    show(f"PET externalTime(ts, {TW_WINDOW}) per symbol", petf, pet_s,
+         f"; every n, totalVolume == numpy's (row's own cutoff), avgPrice within "
+         f"1e-9 (max abs err {pet_err:.3g})")
+
+    # PS, PLB, PR, PI over 8 batches; their first 2 against the CPU
+    cut = feed[:PART_BATCHES]
+    ids8, ts8 = ids[:PART_BATCHES * B], ts_all[:PART_BATCHES * B]
+    price8 = np.concatenate([c["price"] for c, _t in cut])
+    outs = {}
+
+    def profile_ps(rt, h, steps):
+        # one more batch: its swept TIMER step (the idle sessions), then
+        # its batch step
+        cols, ts = feed[PART_BATCHES]
+        tsg = rt.app_context.timestamp_generator
+        return {"timer": profile_step(
+                    "PS swept TIMER step",
+                    lambda: tsg.set_current_timestamp(int(ts.max())), steps, card),
+                "batch": profile_step(
+                    "PS batch step", lambda: h.send_columns(cols, timestamps=ts),
+                    steps, card)}
+
+    for label, app in (("PS", PS_APP.format(G=PS_GAP)), ("PLB", PLB_APP),
+                       ("PR", PR_APP), ("PI", PI_APP)):
+        out, secs, f = run_window(device, app, cut, key_slots=None,
+                                  keep=profile_ps if label == "PS" else None)
+        out = out[:f["emitted"][-1]]      # the profile batch's rows left out
+        cpu_out, _s, cf = run_window(cpu, app, cut[:CPU_BATCHES], key_slots=None)
+        n2 = f["emitted"][CPU_BATCHES - 1]
+        _require(cf["emitted"][-1] == n2, f"{label}: {n2} emissions on the card in "
+                 f"{CPU_BATCHES} batches, {cf['emitted'][-1]} on the CPU")
+        worst = compare_outputs(out[:n2], cpu_out, f"{label} card vs cpu")
+        outs[label] = (out, secs, f, worst)
+    out, secs, f, worst = outs["PS"]
+    rows = {k: np.concatenate([b[k] for b in out]) for k in ("symbol", "n")}
+    is_cur = np.concatenate(f["types"][:len(out)]) == 0
+    rank = session_ranks(ids8, ts8, B, PS_GAP_MS)
+    _require(is_cur.sum() == len(ids8) and np.array_equal(rows["n"][is_cur], rank),
+             f"PS: CURRENT rows' n differ from numpy's session ranks at "
+             f"{np.nonzero(rows['n'][is_cur] != rank)[0][:5].tolist()}")
+    # per symbol: a session's first row comes after every earlier row expired
+    sym = rows["symbol"]
+    o = np.lexsort((np.arange(len(sym)), sym))
+    seg = np.concatenate([[True], sym[o][1:] != sym[o][:-1]])
+    base = np.maximum.accumulate(np.where(seg, np.arange(len(o)), 0))
+    c_cur = np.cumsum(is_cur[o]) - is_cur[o]
+    c_exp = np.cumsum(~is_cur[o]) - (~is_cur[o])
+    firsts = is_cur[o] & (rows["n"][o] == 1)
+    before_cur = c_cur - np.where(base > 0, c_cur[base], 0)
+    before_exp = c_exp - np.where(base > 0, c_exp[base], 0)
+    _require(np.array_equal(before_cur[firsts], before_exp[firsts]),
+             "PS: a session's first row came before the previous session expired")
+    sessions = int(firsts.sum())
+    show(f"PS session({PS_GAP}) per symbol", f, secs,
+         f"; every CURRENT n == numpy's session rank, {sessions} sessions, each "
+         f"after its predecessor's EXPIRED rows; first {CPU_BATCHES} batches == "
+         f"the CPU (max float rel err {worst:.3g})")
+    out, secs, f, worst = outs["PLB"]
+    n = np.concatenate([b["n"] for b in out])
+    _require(len(n) > 0 and np.all(n == 4), "PLB: a flushed row's n is not 4")
+    show("PLB lengthBatch(4) per symbol", f, secs,
+         f"; {len(n)} flushes, every n == 4; first {CPU_BATCHES} batches == the "
+         f"CPU (max float rel err {worst:.3g})")
+    out, secs, f, worst = outs["PR"]
+    rows_out = sum(len(b["n"]) for b in out)
+    p = price8.astype(np.float64)
+    matches = int((p < 10.0).sum() + ((p >= 10.0) & (p < 60.0)).sum()
+                  + (p >= 50.0).sum())
+    _require(rows_out == matches, f"PR: {rows_out} CURRENT rows, numpy counts "
+             f"{matches} range matches")
+    show("PR range partition (3 ranges)", f, secs,
+         f"; {rows_out} rows == numpy's {matches} range matches (rows in 50-60 "
+         f"twice); first {CPU_BATCHES} batches == the CPU (max float rel err "
+         f"{worst:.3g})")
+    out, secs, f, worst = outs["PI"]
+    show("PI inner #stream -> length(1000) per symbol", f, secs,
+         f"; {sum(len(b['avgPrice']) for b in out)} rows; first {CPU_BATCHES} "
+         f"batches == the CPU (max float rel err {worst:.3g})")
+
+    # sweeps: PT's and PS's queries at 100 ms over a small feed, swept and
+    # one step per tick, on the card
+    small, _ids = tw_feed(19, 3, SWEEP_BATCH, SWEEP_RATE, SWEEP_SYMBOLS)
+    for label, app in (("PT", PT_APP.format(T="100 millisec")),
+                       ("PS", PS_APP.format(G="100 millisec"))):
+        s_out, _s, sf = run_window(device, app, small, key_slots=None,
+                                   distinct_h=PT_H)
+        u_out, _s2, uf = run_window(device, app, small, key_slots=None,
+                                    distinct_h=PT_H, sweep=False)
+        compare_outputs(s_out, u_out, f"{label} swept vs unswept")
+        _require(sf["steps"]["timer"] < uf["steps"]["timer"],
+                 f"{label}: the sweep took {sf['steps']['timer']} TIMER steps, "
+                 f"unswept {uf['steps']['timer']}")
+        print(f"[partitions] {label} at 100 ms, {SWEEP_SYMBOLS} symbols, 3 x "
+              f"{SWEEP_BATCH} rows: swept ({sf['steps']['timer']} TIMER steps, "
+              f"{sf['steps']['timer_s']:.2f} s) == one step per tick "
+              f"({uf['steps']['timer']} TIMER steps, {uf['steps']['timer_s']:.2f} s), "
+              f"{len(s_out)} emitted chunks [{card}]", flush=True)
+
+    # the other keyed windows and the partitioned host windows, cut
+    cut_feed, _ids = tw_feed(20, 2, HFR_BATCH, HFR_RATE, SWEEP_SYMBOLS)
+    for win in PART_CUT_WINDOWS:
+        app = PART_CUT_APP.format(W=win)
+        # delay's ring (window_capacity) holds a whole batch of 8,192 rows
+        c_out, c_s, cf = run_window(device, app, cut_feed, key_slots=None,
+                                    config=PART_CUT_CONFIG)
+        p_out, _s, _f = run_window(cpu, app, cut_feed, key_slots=None,
+                                   config=PART_CUT_CONFIG)
+        _require(sum(len(b["n"]) for b in c_out) > 0, f"{win}: no output")
+        worst = compare_outputs(c_out, p_out, f"{win} card vs cpu")
+        print(f"[partitions] #window.{win} per symbol ({cf['stage']}): card == the "
+              f"port's CPU run over 2 x {HFR_BATCH} rows, {len(c_out)} emissions, "
+              f"{cf['steps']['timer']} TIMER steps (max float rel err {worst:.3g}); "
+              f"{2 * HFR_BATCH} events in {sum(c_s) * 1e3:.1f} ms [{card}]", flush=True)
+
+    # purge: half the keys idle past the period, then one more batch
+    pur = phase_purge(device, feed[:PURGE_BATCHES], card)
+    res["purge"] = pur
+
+    # overflow: 64 rows a key fill within a few batches
+    try:
+        run_window(device, PT_APP.format(T=TW_WINDOW), feed, key_slots=None,
+                   config={"partition_window_capacity": 64}, distinct_h=PT_H)
+        raise Failure("PT at partition_window_capacity 64 did not overflow")
+    except FatalQueryError as e:
+        _require("partition_window_capacity" in str(e), f"overflow names no knob: {e}")
+        print(f"[partitions] PT at partition_window_capacity 64: FatalQueryError "
+              f"'{str(e)[:110]}'", flush=True)
+    res["PT"]["profile"] = {"timer": kept["timer"], "batch": kept["batch"]}
+    res["PS"]["profile"] = outs["PS"][2]["kept"]
+    print(f"[partitions] phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k, pt_launches, res
+
+
+def phase_purge(device, feed, card: str):
+    """PT's app with ``@purge`` over ``feed``: half the keys marked idle
+    past the period (tests/test_partition_purge.py does the same), purged,
+    then one more batch of kept and new symbols. The new keys take the
+    freed ids, every new key's first n and volumes are 1 and its
+    totalVolume its own volume, and the kept keys' rows equal an unpurged
+    run's."""
+    import numpy as np
+
+    half = NUM_SYMBOLS // 2
+    rng = np.random.default_rng(21)
+    pick = rng.integers(0, half, BATCH)
+    new_rows = rng.random(BATCH) < 0.5
+    syms = np.where(new_rows, np.char.add("N", pick.astype(str)),
+                    np.char.add("S", (half + pick).astype(str))).astype(object)
+    ts = int(feed[-1][1][-1]) + 1 + np.arange(BATCH, dtype=np.int64) // TW_RATE
+    vol = rng.integers(1, 1000, BATCH, dtype=np.int64)
+    more = ({"symbol": syms, "price": (rng.random(BATCH) * 100).astype(np.float32),
+             "volume": vol, "ts": ts}, ts)
+    _u, at = np.unique(syms[new_rows], return_index=True)
+    first_new = np.nonzero(new_rows)[0][at]
+    facts = {}
+
+    def purge_half(rt, h, steps):
+        pctx = rt.partition_contexts[0]
+        enc = rt.app_context.string_dictionary.encode
+        ks = pctx.keyspace
+        idle = [ks._map[(enc(f"S{i}"),)] for i in range(half)]
+        old = int(time.time() * 1000) - 2 * 3600_000
+        for i in idle:
+            ks.last_seen[i] = old
+        t0 = time.perf_counter()
+        freed = pctx.purge()
+        facts["purge_ms"] = (time.perf_counter() - t0) * 1e3
+        facts["freed"] = len(freed)
+        _require(sorted(freed) == sorted(idle), "purge retired other ids than "
+                 "the idle keys'")
+        h.send_columns(more[0], timestamps=more[1])
+        new_ids = {ks._map[(enc(f"N{i}"),)] for i in np.unique(pick[new_rows])}
+        facts["reused"] = len(new_ids & set(freed))
+        _require(new_ids <= set(freed), "new keys did not take the freed ids")
+        return facts
+
+    app = PT_APP.format(T=TW_WINDOW)
+    purged = app.replace("partition with", "@purge(enable='true', interval='1 sec', "
+                         "idle.period='1 hour')\npartition with")
+    p_out, _s, pf = run_window(device, purged, feed, key_slots=None,
+                               distinct_h=PT_H, keep=purge_half)
+    u_out, _s, uf = run_window(device, app, feed + [more], key_slots=None,
+                               distinct_h=PT_H)
+
+    def last_rows(out, start):
+        keys = ("n", "totalVolume", "avgPrice", "volumes", "__ts__")
+        rows = {k: np.concatenate([b[k] for b in out[start:]]) for k in keys}
+        _require(len(rows["n"]) == BATCH, f"purge: {len(rows['n'])} rows out of "
+                 f"the last batch's {BATCH}")
+        return rows
+
+    p_last = last_rows(p_out, pf["emitted"][-1])
+    u_last = last_rows(u_out, uf["emitted"][-2])
+    _require(np.all(p_last["n"][first_new] == 1) and np.all(
+        p_last["volumes"][first_new] == 1) and np.array_equal(
+        p_last["totalVolume"][first_new], vol[first_new]),
+        "purge: a new key's first row does not start from a clean state")
+    for k in p_last:
+        a, b = p_last[k][~new_rows], u_last[k][~new_rows]
+        same = (np.allclose(a, b, rtol=FLOAT_RTOL, atol=0) if a.dtype.kind == "f"
+                else np.array_equal(a, b))
+        _require(same, f"purge: kept keys' {k} differ from the unpurged run")
+    print(f"[partitions] purge: {facts['freed']} idle keys retired in "
+          f"{facts['purge_ms']:.1f} ms, {facts['reused']} of their ids taken by "
+          f"the {len(first_new)} new keys of the next batch; every new key's first "
+          f"n and volumes == 1 and totalVolume == its volume; the kept keys' "
+          f"{int((~new_rows).sum())} rows == an unpurged run [{card}]", flush=True)
+    return facts
 def event_rows():
     """A stream callback keeping every event as (timestamp, data, expired)."""
     from siddhi_tpu_torch import StreamCallback
@@ -2365,8 +2835,11 @@ def main() -> int:
     # 17. time and batch windows, TIMER chunks, host stages
     td, td_launches, win = phase_windows(device, card)
     dist["launches"]["TD"] = td_launches
+    # 18. partitions: keyed windows, range partitions, inner streams, purge
+    pt, pt_launches, part = phase_partitions(device, card)
+    dist["launches"]["PT"] = pt_launches
 
-    # 18. result lines
+    # 19. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
@@ -2389,7 +2862,8 @@ def main() -> int:
         "replaces": "siddhi_tpu/ops/aggregators.py:291",
         "launches": sum(dist["launches"].values()),
         "launches_by_run": dist["launches"],
-        "max_abs_err": max(dist["max_abs_err"], td["max_abs_err"]),
+        "max_abs_err": max(dist["max_abs_err"], td["max_abs_err"],
+                           pt["max_abs_err"]),
         "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "device_ms": d1["device_ms"],
         "roofline_share": d1["share"], "host_ms": d1["host_ms"],
@@ -2398,9 +2872,11 @@ def main() -> int:
         **{name: {k: dist[name][k] for k in (
             "ms", "device_ms", "bound_ms", "share", "host_ms", "chain", "H",
             "ns_per_row", "cut_ms", "plain_ms")} for name in ("d2", "d3")},
-        "td": {k: td[k] for k in (
+        **{name: {k: f[k] for k in (
             "ms", "device_ms", "bound_ms", "share", "host_ms", "chain", "H",
-            "ns_per_row", "cut_ms", "plain_ms", "max_abs_err")},
+            "ns_per_row", "cut_ms", "plain_ms", "max_abs_err")}
+           for name, f in (("td", td), ("pt", pt))},
+        "pt_groups": pt["groups"], "pt_rows": pt["rows"],
     }, {
         # the same kernel's global-index path (H > 16,384), at D4's shape:
         # ms and bound_ms over one whole batch, plain_ms and cut_ms (the
@@ -2422,6 +2898,7 @@ def main() -> int:
     print(json.dumps({"windows": {
         name: {"state_bytes": f["state_bytes"], "timer_steps": f["timers"],
                "batch_steps": f["steps"]["batch"]} for name, f in win.items()}}))
+    print(json.dumps({"partitions": part}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """SiddhiAppRuntime: one assembled app — junctions, queries, callbacks.
 
 Counterpart of ``siddhi_tpu/core/app_runtime.py``, reduced to what the
-port runs: stream definitions, queries and value partitions, stream and
+port runs: stream definitions, queries, value and range partitions (with
+inner ``#streams``, partition-local streams and ``@purge``), stream and
 query callbacks, custom extension functions and ``define function``
 scripts, the set-element metadata of OBJECT attributes,
 ``@app:name``/``@app:playback`` (with its idle heartbeat)/
@@ -9,9 +10,9 @@ scripts, the set-element metadata of OBJECT attributes,
 output rate limiters, ``@Async`` and ``@OnError`` streams,
 ``@source``/``@sink`` transports, the dispatch pipeline and the ingest
 pack pool, and the ``siddhi_tpu.*`` config knobs. Tables, named
-windows, triggers, incremental aggregations and ``@purge`` are not
-ported yet and raise ``CompileError`` naming themselves, so an app never
-runs with a part silently missing.
+windows, triggers and incremental aggregations are not ported yet and
+raise ``CompileError`` naming themselves, so an app never runs with a
+part silently missing.
 
 The app starts at ``start()`` or at its first send: @Async workers, the
 ingest pool, rate limiters, sinks' connections and sources (each
@@ -44,6 +45,7 @@ from siddhi_tpu_torch.query_api.execution import (
     InsertIntoStream,
     Partition,
     Query,
+    RangePartitionType,
     ValuePartitionType,
 )
 from siddhi_tpu_torch.query_api.expressions import AttributeFunction, Variable
@@ -111,6 +113,29 @@ def _parse_playback_time(s: str, what: str) -> int:
                 f"Invalid {what} constant '{s}' in playback annotation")
         total += int(num) * time_unit_ms(unit.lower())
     return total
+
+
+_PURGE_UNITS_MS = {
+    "ms": 1, "millisecond": 1, "milliseconds": 1,
+    "sec": 1000, "second": 1000, "seconds": 1000,
+    "min": 60_000, "minute": 60_000, "minutes": 60_000,
+    "h": 3600_000, "hour": 3600_000, "hours": 3600_000,
+    "day": 86_400_000, "days": 86_400_000,
+    "month": 31 * 86_400_000, "months": 31 * 86_400_000,
+    "year": 366 * 86_400_000, "years": 366 * 86_400_000,
+}
+
+
+def _parse_purge_time(s: str) -> int:
+    """``@purge`` interval / idle.period: '10 sec', '1 hour' or a bare
+    number of milliseconds (the reference's retention-time parser)."""
+    s = s.strip().lower()
+    parts = s.split()
+    if len(parts) == 2 and parts[1] in _PURGE_UNITS_MS:
+        return int(float(parts[0]) * _PURGE_UNITS_MS[parts[1]])
+    if s.isdigit():
+        return int(s)
+    raise CompileError(f"cannot parse retention/interval time '{s}'")
 
 
 def _default_app_name(siddhi_app: SiddhiApp) -> str:
@@ -278,26 +303,63 @@ class SiddhiAppRuntime:
         return j
 
     def _add_partition(self, partition: Partition, p_index: int, q_index: int) -> int:
-        from siddhi_tpu_torch.core.partition import PartitionContext, ValuePartitionKeyer
+        """Assemble a ``partition with (...) begin ... end`` block (the
+        role of reference ``PartitionParser`` + ``PartitionRuntimeImpl``),
+        with per-key processor instances replaced by dense keyed state
+        (``ops/keyed_windows.py``)."""
+        from siddhi_tpu_torch.core.partition import (
+            PartitionContext,
+            RangePartitionKeyer,
+            ValuePartitionKeyer,
+        )
         from siddhi_tpu_torch.core.plan.resolvers import SingleStreamResolver
-        from siddhi_tpu_torch.ops.expressions import compile_expr
+        from siddhi_tpu_torch.ops.expressions import compile_condition, compile_expr
 
-        if find_annotation(partition.annotations or [], "purge") is not None:
-            raise CompileError("@purge is not ported to siddhi_tpu_torch yet")
         pctx = PartitionContext(p_index)
         self.partition_contexts.append(pctx)
+        purge_ann = find_annotation(partition.annotations or [], "purge")
+        if purge_ann is not None and (
+                purge_ann.element("enable") or "true").lower() == "true":
+            interval = purge_ann.element("interval")
+            idle = purge_ann.element("idle.period")
+            pctx.purge_interval_ms = (_parse_purge_time(interval)
+                                      if interval else 60_000)
+            pctx.purge_idle_ms = _parse_purge_time(idle) if idle else 3600_000
+            pctx.keyspace.enable_purge_tracking()
         for ptype in partition.partition_types:
             sid = ptype.stream_id
             if sid not in self.stream_definitions:
                 raise SiddhiAppValidationException(
                     f"partition with (... of {sid}): stream '{sid}' is not defined")
-            if not isinstance(ptype, ValuePartitionType):
-                raise CompileError(
-                    "range partitions are not ported to siddhi_tpu_torch yet")
             resolver = SingleStreamResolver(
                 self.stream_definitions[sid], self.app_context.string_dictionary)
-            fn, t = compile_expr(ptype.expression, resolver)
-            pctx.keyers[sid] = ValuePartitionKeyer([(fn, t)], pctx.keyspace)
+            if isinstance(ptype, ValuePartitionType):
+                fn, t = compile_expr(ptype.expression, resolver)
+                pctx.keyers[sid] = ValuePartitionKeyer([(fn, t)], pctx.keyspace)
+            elif isinstance(ptype, RangePartitionType):
+                pctx.keyers[sid] = RangePartitionKeyer([
+                    (rc.partition_key, compile_condition(rc.condition, resolver))
+                    for rc in ptype.conditions])
+            else:
+                raise SiddhiAppValidationException(f"unknown partition type {ptype!r}")
+
+        # streams produced by queries inside this partition (non-inner insert
+        # targets) that a partition-mate consumes: their rows stay in the
+        # producing instance's flow, so they carry its pk (reference
+        # partition flow ids; WindowPartitionTestCase q6 chains `insert
+        # events into OutputStream` -> `from OutputStream`)
+        produced = {
+            q.output_stream.target_id for q in partition.queries
+            if isinstance(q.output_stream, InsertIntoStream)
+            and not q.output_stream.is_inner_stream}
+        consumed = set()
+        for q in partition.queries:
+            ist = q.input_stream
+            for attr in ("stream_id", "unique_stream_id"):
+                sid = getattr(ist, attr, None)
+                if isinstance(sid, str):
+                    consumed.add(sid)
+        pctx.local_streams = produced & consumed
         for query in partition.queries:
             q_index += 1
             self._add_query(query, q_index, partition_ctx=pctx)
@@ -305,44 +367,77 @@ class SiddhiAppRuntime:
 
     def _add_query(self, query: Query, index: int, partition_ctx=None):
         query_name = query.name or f"query_{index}"
-        runtime = plan_query(query, query_name, self.app_context,
-                             dict(self.stream_definitions),
+        definitions = dict(self.stream_definitions)
+        if partition_ctx is not None:
+            definitions.update(partition_ctx.inner_definitions)
+        runtime = plan_query(query, query_name, self.app_context, definitions,
                              partition_ctx=partition_ctx)
         out = query.output_stream
-        if not isinstance(out, InsertIntoStream) or out.is_inner_stream:
+        if not isinstance(out, InsertIntoStream):
             raise CompileError(
                 f"query '{query_name}': only 'insert into <stream>' outputs "
                 f"are ported to siddhi_tpu_torch yet")
         target = out.target_id
-        if target not in self.stream_definitions:
-            # auto-define the output stream (reference OutputParser)
-            sdef = StreamDefinition(
-                id=target,
-                attributes=[Attribute(n, t) for n, t in runtime.output_attrs])
-            self.stream_definitions[target] = sdef
-            self._create_junction(sdef)
+        if out.is_inner_stream:
+            if partition_ctx is None:
+                raise CompileError(
+                    f"query '{query_name}': inner stream '#{target}' outside "
+                    f"a partition")
+            # '#stream' scoped to this partition; its rows carry pk ids
+            inner_id = "#" + target
+            if inner_id not in partition_ctx.inner_definitions:
+                sdef = StreamDefinition(
+                    id=inner_id,
+                    attributes=[Attribute(n, t) for n, t in runtime.output_attrs])
+                partition_ctx.inner_definitions[inner_id] = sdef
+                partition_ctx.inner_junctions[inner_id] = StreamJunction(
+                    sdef, self.app_context)
+            runtime.output_junction = partition_ctx.inner_junctions[inner_id]
+            runtime.attach_pk = True
         else:
-            existing = self.stream_definitions[target]
-            dattrs = [(a.name, a.type) for a in existing.attributes]
-            if list(runtime.output_attrs) != dattrs:
-                raise SiddhiAppValidationException(
-                    f"query '{query_name}' inserts {list(runtime.output_attrs)} "
-                    f"into stream '{target}' defined as {dattrs}")
-        runtime.output_junction = self.junctions[target]
-        # record set-element types and multi-element sets on the target
-        # stream, for later queries (unionSet/sizeOfSet) and event decode
-        sp = runtime.selector_plan
-        ometa = {n: t for n, t in sp.object_meta.items() if t is not None}
-        if ometa or sp.object_multi:
-            tdef = self.stream_definitions[target]
-            tdef.object_elem_types = {
-                **(getattr(tdef, "object_elem_types", None) or {}), **ometa}
-            tdef.object_multi_attrs = (
-                set(getattr(tdef, "object_multi_attrs", None) or set())
-                | set(sp.object_multi))
+            if target not in self.stream_definitions:
+                # auto-define the output stream (reference OutputParser)
+                sdef = StreamDefinition(
+                    id=target,
+                    attributes=[Attribute(n, t) for n, t in runtime.output_attrs])
+                self.stream_definitions[target] = sdef
+                self._create_junction(sdef)
+            else:
+                existing = self.stream_definitions[target]
+                dattrs = [(a.name, a.type) for a in existing.attributes]
+                if list(runtime.output_attrs) != dattrs:
+                    raise SiddhiAppValidationException(
+                        f"query '{query_name}' inserts {list(runtime.output_attrs)} "
+                        f"into stream '{target}' defined as {dattrs}")
+            runtime.output_junction = self.junctions[target]
+            if partition_ctx is not None and target in partition_ctx.local_streams:
+                # a partition-mate consumes this stream: its rows carry the
+                # producing instance's pk
+                runtime.attach_pk = True
+            # record set-element types and multi-element sets on the target
+            # stream, for later queries (unionSet/sizeOfSet) and event decode
+            sp = runtime.selector_plan
+            ometa = {n: t for n, t in sp.object_meta.items() if t is not None}
+            if ometa or sp.object_multi:
+                tdef = self.stream_definitions[target]
+                tdef.object_elem_types = {
+                    **(getattr(tdef, "object_elem_types", None) or {}), **ometa}
+                tdef.object_multi_attrs = (
+                    set(getattr(tdef, "object_multi_attrs", None) or set())
+                    | set(sp.object_multi))
         self._attach_rate_limiter(query, runtime, partition_ctx)
-        self.junctions[query.input_stream.unique_stream_id].subscribe(runtime)
+        in_id = query.input_stream.unique_stream_id
+        if partition_ctx is not None and query.input_stream.is_inner_stream:
+            if in_id not in partition_ctx.inner_junctions:
+                raise SiddhiAppValidationException(
+                    f"inner stream '{in_id}' is consumed before any query "
+                    f"in this partition produces it")
+            partition_ctx.inner_junctions[in_id].subscribe(runtime)
+        else:
+            self.junctions[in_id].subscribe(runtime)
         self.query_runtimes[query_name] = runtime
+        if partition_ctx is not None:
+            partition_ctx.runtimes.append(runtime)
 
     def _attach_rate_limiter(self, query: Query, runtime: QueryRuntime,
                              partition_ctx) -> None:
@@ -490,6 +585,11 @@ class SiddhiAppRuntime:
             for qr in self.query_runtimes.values():
                 if qr.rate_limiter is not None:
                     qr.rate_limiter.start(ctx.scheduler)
+            for pctx in self.partition_contexts:
+                if pctx.purge_interval_ms is not None:
+                    ctx.scheduler.schedule_periodic(
+                        pctx.purge_interval_ms,
+                        lambda _ts, p=pctx: p.purge())  # wall clock, not event time
             for sr in self.sink_runtimes:
                 sr.connect()
             for sr in self.source_runtimes:

@@ -141,6 +141,8 @@ class SiddhiAppContext:
         # that would hold more live rows raises FatalQueryError naming
         # siddhi_tpu.window_capacity
         self.window_capacity = 4096
+        # siddhi_tpu.partition_window_capacity: a keyed window's rows per key
+        self.partition_window_capacity = 256
         self.partition_window_capacity = 256
         # numeric precision of the fused sliding aggregation
         # (ops/fused_agg.py, its one reader): 'exact' = 64-bit accumulators

@@ -3,7 +3,9 @@
 from siddhi_tpu_torch.core.partition.partition import (
     PartitionContext,
     PartitionKeySpace,
+    RangePartitionKeyer,
     ValuePartitionKeyer,
 )
 
-__all__ = ["PartitionContext", "PartitionKeySpace", "ValuePartitionKeyer"]
+__all__ = ["PartitionContext", "PartitionKeySpace", "RangePartitionKeyer",
+           "ValuePartitionKeyer"]

@@ -166,12 +166,21 @@ def plan_query(query: Query, query_name: str, app_context,
         input_def, dictionary, ref_id=input_stream.stream_reference_id, synthetic={})
 
     partition_keyer = None
+    carried_pk = False
     if partition_ctx is not None:
-        if input_stream.is_inner_stream or stream_id not in partition_ctx.keyers:
+        if input_stream.is_inner_stream:
+            carried_pk = True  # '#stream' rows carry their pk id
+        elif stream_id in partition_ctx.keyers:
+            partition_keyer = partition_ctx.keyers[stream_id]
+        elif stream_id in partition_ctx.local_streams:
+            # produced by a query in the same partition: its rows carry the
+            # producing instance's pk (reference partition flow ids)
+            carried_pk = True
+        else:
             raise CompileError(
-                f"query '{query_name}': only partitioned outer streams are "
-                f"ported as partition inputs (stream '{stream_id}')")
-        partition_keyer = partition_ctx.keyers[stream_id]
+                f"query '{query_name}': stream '{stream_id}' is consumed inside a "
+                f"partition but has no partition-with clause and is not an inner stream"
+            )
 
     filters = []
     post_pipeline = []  # after the window: ("f", cond) | ("t", transform)
@@ -297,6 +306,7 @@ def plan_query(query: Query, query_name: str, app_context,
         dictionary=dictionary,
         partition_ctx=partition_ctx,
         partition_keyer=partition_keyer,
+        carried_pk=carried_pk,
         transforms=transforms,
         log_stages=log_stages,
         post_pipeline=post_pipeline,

@@ -14,7 +14,12 @@ stream, or decoded to Events for a rate limiter and the query's
 
 Host windows (``ops/host_windows.py``: sort, frequent, session, cron,
 expression, ...) run on the host before the device step, as in the
-reference; the step then runs the selector. A timer fires
+reference; the step then runs the selector. Inside a partition the
+partition key is attached first, so a ``PartitionedHostWindow`` keeps one
+instance per key. Rows of an inner ``#stream`` (or of a stream a
+partition-mate produces) carry their pk column from the producing query
+(``carried_pk``); ``reset_partition_keys`` restarts the state rows of
+keys ``@purge`` retired. A timer fires
 ``process_timer``: a one-row TIMER chunk stamped at the timer's own time,
 run synchronously after the query's in-flight batches have emitted. On a
 timer thread the chunk enters the app's CUDA device first, so it runs on
@@ -22,12 +27,14 @@ the stream of the query's other steps.
 
 A playback time window asks for a timer at its oldest row's time + t, so
 once it expires it runs one TIMER step per millisecond of event time,
-each a chunk of its own. Where nothing can tell those chunks' order from
+each a chunk of its own; a keyed session window asks for its earliest
+key's last row + gap. Where nothing can tell those chunks' order from
 one step's (no order by, limit or offset, no downstream query, no other
 timer due in between), one TIMER step sweeps the whole chain up to the
 clock: each row expires at its own chain time, and the output is split
-back into one chunk per chain time, so callbacks and rate limiters see
-the reference's chunks.
+back into one chunk per chain step (at each change of the stage's
+``CHUNK_KEY`` lane, or of the timestamp), so callbacks and rate limiters
+see the reference's chunks.
 
 At ``pipeline_depth`` > 1 the step's output rides the app's
 ``CompletionPump`` (``core/query/completion.py``) instead: its meta
@@ -60,7 +67,8 @@ from siddhi_tpu_torch.core.stream.junction import (
 from siddhi_tpu_torch.ops.expressions import (
     NUMPY_XP, PK_KEY, TS_KEY, TYPE_KEY, VALID_KEY, TorchXP)
 from siddhi_tpu_torch.ops.types import TORCH_OF_NUMPY
-from siddhi_tpu_torch.ops.windows import NOTIFY_KEY, OVERFLOW_KEY, conform_cols
+from siddhi_tpu_torch.ops.windows import (
+    CHUNK_KEY, NOTIFY_KEY, OVERFLOW_KEY, conform_cols)
 from siddhi_tpu_torch.query_api.definitions import AttrType, StreamDefinition
 
 
@@ -137,7 +145,7 @@ class QueryRuntime(Receiver):
                  filters: List[Callable], window_stage, selector_plan: SelectorPlan,
                  keyer: Optional[GroupKeyer], dictionary: StringDictionary,
                  partition_ctx=None, partition_keyer=None, transforms=None,
-                 log_stages=None, post_pipeline=None):
+                 log_stages=None, post_pipeline=None, carried_pk: bool = False):
         self.name = name
         self.app_context = app_context
         self.device = app_context.device
@@ -164,6 +172,8 @@ class QueryRuntime(Receiver):
         self.dictionary = dictionary
         self.partition_ctx = partition_ctx
         self.partition_keyer = partition_keyer
+        self.carried_pk = carried_pk   # input is an inner '#stream': rows carry pk
+        self.attach_pk = False         # output feeds a partition-mate
         self._win_keys = 1
         if partition_ctx is not None:
             self._win_keys = max(_pow2(partition_ctx.num_keys()), 16)
@@ -262,12 +272,13 @@ class QueryRuntime(Receiver):
             for f in filters:
                 valid = valid & (f(cols, ctx) | timer)
             cols[VALID_KEY] = valid
-            notify = overflow = None
+            notify = overflow = chunk = None
             if win is not None:
                 _st, cols = win.apply(state["win"], conform_cols(win, cols), ctx)
                 cols = dict(cols)
                 notify = cols.pop(NOTIFY_KEY, None)
                 overflow = cols.pop(OVERFLOW_KEY, None)
+                chunk = cols.pop(CHUNK_KEY, None)
                 # post-window stages transform or mask the emitted rows
                 ptimer = cols[TYPE_KEY] == TIMER
                 for kind, obj in post_pipeline:
@@ -279,6 +290,10 @@ class QueryRuntime(Receiver):
             if strrank is not None:
                 cols[STR_RANK] = strrank
             _st, out = sel.apply(state["sel"], cols, ctx)
+            if chunk is not None:
+                # a swept TIMER step's chain step of each row (the selector
+                # is row-aligned wherever a sweep runs)
+                out[CHUNK_KEY] = chunk
             if notify is not None:
                 out[NOTIFY_KEY] = notify
             if overflow is not None:
@@ -293,11 +308,18 @@ class QueryRuntime(Receiver):
     # ----------------------------------------------------------- processing
 
     def receive(self, events: List[Event]):
-        self.process_batch(HostBatch.from_events(
+        batch = HostBatch.from_events(
             events, self.input_definition, self.dictionary,
-            pool=pack_pool_of(self.app_context)))
+            pool=pack_pool_of(self.app_context))
+        if self.carried_pk:
+            pk = np.zeros(batch.capacity, np.int32)
+            pk[:len(events)] = [e.pk or 0 for e in events]
+            batch.cols[PK_KEY] = pk
+        self.process_batch(batch)
 
     def receive_batch(self, batch: HostBatch, junction=None):
+        if self.carried_pk and PK_KEY not in batch.cols:
+            batch.cols[PK_KEY] = np.zeros(batch.capacity, np.int32)
         backfill_null_masks(batch, self.input_definition)
         self.process_batch(batch, junction=junction)
 
@@ -338,22 +360,29 @@ class QueryRuntime(Receiver):
                 self._timer_horizon = None
 
     def _sweep_horizon(self, ts: int) -> Optional[int]:
-        """How far a TIMER step at ``ts`` may sweep the time window's chain
-        of timers: to the playback clock, but short of any other pending
-        timer (a rate limiter's tick, another query's window), and only
-        where one chunk per chain time can be rebuilt from one step's
-        output and nothing downstream would see the steps interleave
-        otherwise. None: the step runs at ``ts`` alone."""
+        """How far a TIMER step at ``ts`` may sweep its window's chain of
+        timers (a time window's, keyed or not, or a keyed session's): to
+        the playback clock, but short of any other pending timer (a rate
+        limiter's tick, another query's window, a purge), and only where
+        one chunk per chain step can be rebuilt from one step's output and
+        nothing downstream would see the steps interleave otherwise.
+        None: the step runs at ``ts`` alone."""
+        from siddhi_tpu_torch.ops.keyed_windows import (
+            KeyedSessionWindowStage, KeyedTimeWindowStage)
         from siddhi_tpu_torch.ops.windows import TimeWindowStage
 
         win, sp = self.window_stage, self.selector_plan
+        sweepable = (isinstance(win, (TimeWindowStage, KeyedTimeWindowStage))
+                     and not win.external) or isinstance(
+                         win, KeyedSessionWindowStage)
         if not (self.app_context.playback and self.scheduler is not None
-                and isinstance(win, TimeWindowStage) and not win.external
+                and sweepable
                 and not (sp.order_by or sp.batch_mode)
                 and sp.limit is None and sp.offset is None):
             return None
         j = self.output_junction
-        if j is not None and any(isinstance(r, QueryRuntime) for r in j.receivers):
+        if j is not None and (self.attach_pk or any(
+                isinstance(r, QueryRuntime) for r in j.receivers)):
             return None
         horizon = int(self.app_context.timestamp_generator.current_time())
         other = self.scheduler.next_due_except(self._timer_cb)
@@ -462,16 +491,24 @@ class QueryRuntime(Receiver):
                 and j.fault_junction is not None) else None
             if self.log_stages:
                 self._run_log_taps(batch)
+            partitioned = self.partition_ctx is not None
+            pk_done = partitioned and self.host_window is not None
+            if pk_done:
+                # per-key host stages route rows by the pk column, so the
+                # partition key is attached before the window runs (and
+                # rides through its emitted rows)
+                batch = HostBatch(self._attach_pk(LazyColumns(batch.cols)))
             batch, notify = self._host_pre(batch)
             # a re-published batch may hold device tensors: the keyers'
             # reads pull them to the host in one copy, a step without
             # keyers takes them as they are
             cols = LazyColumns(batch.cols)
-            partitioned = self.partition_ctx is not None
             pk = None
             if partitioned:
-                cols, pk = self.partition_keyer.apply(cols)
-                cols = dict(cols)
+                cols = dict(cols) if pk_done else self._attach_pk(cols)
+                pk = cols.get(PK_KEY)
+                if pk is None:
+                    pk = np.zeros(cols[VALID_KEY].shape[0], np.int32)
                 cols[PK_KEY] = np.asarray(pk, np.int32)
             if self.keyer is not None:
                 cols[GK_KEY] = self.keyer(cols, pk=pk if partitioned else None)
@@ -499,6 +536,78 @@ class QueryRuntime(Receiver):
                     notify, self._finish_device_batch(self._step, cols))
         if notify is not None and self.scheduler is not None:
             self.scheduler.notify_at(notify, self._timer_cb)
+
+    def _attach_pk(self, cols) -> dict:
+        """The batch's columns with its partition-key column: computed by
+        the partition keyer (a range keyer expands the batch), or carried
+        by an inner stream's rows (one host read of the whole batch)."""
+        if self.carried_pk:
+            pk = cols.get(PK_KEY)    # a LazyColumns read pulls the batch once
+            cols = dict(cols)
+            cols[PK_KEY] = (np.zeros(cols[VALID_KEY].shape[0], np.int32)
+                            if pk is None else np.asarray(pk, np.int32))
+            return cols
+        cols, pk = self.partition_keyer.apply(cols)
+        cols = dict(cols)
+        cols[PK_KEY] = np.asarray(pk, np.int32)
+        return cols
+
+    def reset_partition_keys(self, ids):
+        """Restart the state rows of partition keys ``@purge`` retired, so
+        their ids can be reused by new keys (reference PartitionRuntimeImpl
+        purge): the window's rows, the selector's rows (reset to the
+        aggregators' INIT values) or, with a group by, the (pk, group)
+        dictionary entries, the per-key rate limiters and host windows.
+        Runs on the purge job's thread: it enters the app's device and the
+        query lock, and drains the query's in-flight batches first."""
+        if self.rate_limiter is not None and hasattr(self.rate_limiter, "reset_keys"):
+            # per-key limiter instances of retired keys must not leak
+            # their counters or pending rows into a recycled pk
+            self.rate_limiter.reset_keys(ids)
+        with self._device_scope(), self._lock:
+            pump = self.app_context.completion_pump
+            if pump.has_pending:
+                pump.flush_owner(self)
+            if self.host_window is not None and hasattr(self.host_window, "reset_keys"):
+                self.host_window.reset_keys(ids)
+            if self._state is None:
+                return
+            rl = self._route_layout
+            ids_np = np.asarray(ids, np.int64)
+            if rl is not None:
+                # routed state is shard-major: global pk id g lives at row
+                # (g % n) * local + g // n of each keyed buffer
+                win_idx = (ids_np % rl.n) * rl.local_win + ids_np // rl.n
+            else:
+                win_idx = ids_np
+            dev = self.device
+            state = self._state
+            if "win" in state and hasattr(self.window_stage, "reset_keys"):
+                self.window_stage.reset_keys(
+                    state["win"], torch.as_tensor(win_idx, device=dev))
+            if self.keyer is None:
+                # gk == pk: selector rows are addressed by partition id. Rows
+                # reset to the aggregator INIT values, gathered from a fresh
+                # state; the key axis is the first axis sized num_keys
+                K = self.selector_plan.num_keys
+                init = self.selector_plan.init_state(dev)
+                sel_idx = init_idx = ids_np
+                if rl is not None:
+                    # init rows are identical per key: gather at the local id
+                    K = K * rl.n
+                    sel_idx = (ids_np % rl.n) * rl.localK + ids_np // rl.n
+                    init_idx = ids_np // rl.n
+                _reset_key_rows(state["sel"], init, K,
+                                torch.as_tensor(sel_idx, device=dev),
+                                torch.as_tensor(init_idx, device=dev))
+            else:
+                # composite (pk, group) keys: drop the purged pks' entries so
+                # a reused id cannot alias old groups (their gk rows become
+                # unreachable; gk ids are never reused)
+                dead = set(int(i) for i in ids_np)
+                self.keyer._map = {k: v for k, v in self.keyer._map.items()
+                                   if int(k[0]) not in dead}
+                self.keyer._lut = np.full(64, -1, np.int32)
 
     def route_overflow_msg(self) -> str:
         rl = self._route_layout
@@ -634,8 +743,8 @@ class QueryRuntime(Receiver):
             return
         if self.output_junction is not None:
             self.output_junction.send_events([
-                Event(timestamp=e.timestamp, data=e.data) if e.is_expired else e
-                for e in events])
+                Event(timestamp=e.timestamp, data=e.data, pk=e.pk)
+                if e.is_expired else e for e in events])
         for cb in self.query_callbacks:
             in_events = [e for e in events if not e.is_expired] or None
             remove_events = [e for e in events if e.is_expired] or None
@@ -724,12 +833,14 @@ def pack_meta(out: dict) -> dict:
 
 def _chain_chunks(cols) -> List[HostBatch]:
     """A swept TIMER step's output as the chunks of the chain steps it
-    stands for: its valid rows, in order, cut where their timestamp (each
-    row's chain time) changes."""
+    stands for: its valid rows, in order, cut where their chain step (the
+    stage's ``CHUNK_KEY`` lane, else the timestamp: each row's chain time)
+    changes."""
     valid = np.asarray(cols[VALID_KEY])
     idx = np.nonzero(valid)[0]
-    ts = np.asarray(cols[TS_KEY])[idx]
-    cuts = np.nonzero(np.diff(ts))[0] + 1
+    step = cols.pop(CHUNK_KEY, None)
+    step = np.asarray(cols[TS_KEY] if step is None else step)[idx]
+    cuts = np.nonzero(np.diff(step))[0] + 1
     chunks = []
     for part in np.split(idx, cuts):
         lo, hi = int(part[0]), int(part[-1]) + 1
@@ -737,6 +848,23 @@ def _chain_chunks(cols) -> List[HostBatch]:
         sub[VALID_KEY] = valid[lo:hi].copy()
         chunks.append(HostBatch(sub, size=len(part)))
     return chunks
+
+
+def _reset_key_rows(state: dict, init: dict, K: int, idx: torch.Tensor,
+                    init_idx: torch.Tensor) -> None:
+    """Copy ``init``'s rows ``init_idx`` into ``state``'s rows ``idx``
+    along the first axis of size ``K`` of every tensor (in place)."""
+    for key, x in state.items():
+        x0 = init.get(key)
+        if isinstance(x, dict):
+            _reset_key_rows(x, x0, K, idx, init_idx)
+            continue
+        if not isinstance(x, torch.Tensor) or x0 is None:
+            continue
+        for ax, size in enumerate(x.shape):
+            if size == K:
+                x.index_copy_(ax, idx, x0.index_select(ax, init_idx).to(x.dtype))
+                break
 
 
 def _min_notify(a: Optional[int], b: Optional[int]) -> Optional[int]:

@@ -760,6 +760,83 @@ class ExpressionBatchWindowStage(_DynamicExprMixin, HostWindowStage):
         self._restore_expr(snap.get("expr_src"))
 
 
+class PartitionedHostWindow(HostWindowStage):
+    """Per-partition-key instances of a host window stage, the analog of
+    the reference PartitionRuntime creating one WindowProcessor instance
+    per key for windows inside ``partition with`` blocks. Rows are split
+    by the ``__pk__`` column in first-encounter order and each key's
+    sub-batch flows through that key's own stage instance; TIMER rows
+    fan out to every live instance."""
+
+    def __init__(self, factory):
+        probe = factory()
+        super().__init__({})
+        self.col_specs = dict(probe.col_specs)
+        self._factory = factory
+        self._stages: Dict[int, HostWindowStage] = {}
+
+    def process(self, batch, now: int):
+        from siddhi_tpu_torch.core.event import HostBatch, _pad_len
+
+        cols = batch.cols
+        valid = np.asarray(cols[VALID_KEY])
+        pk = cols.get("__pk__")
+        pk = np.zeros(len(valid), np.int32) if pk is None else np.asarray(pk)
+        types = np.asarray(cols[TYPE_KEY])
+        is_timer = valid & (types == TIMER)
+        cur_keys = pk[valid & (types == CURRENT)]
+        # first-encounter order of the batch's keys
+        uniq, first = np.unique(cur_keys, return_index=True)
+        targets = [int(k) for k in uniq[np.argsort(first, kind="stable")]]
+        if is_timer.any():
+            seen = set(targets)
+            targets += [k for k in self._stages if k not in seen]
+        out_cols_list, notify = [], None
+        for k in targets:
+            stage = self._stages.get(k)
+            if stage is None:
+                stage = self._stages[k] = self._factory()
+            idx = np.nonzero((valid & (pk == k)) | is_timer)[0]
+            sub = HostBatch({c: np.asarray(v)[idx] for c, v in cols.items()})
+            sub.cols["__pk__"] = np.full(idx.size, k, np.int32)
+            b2, n2 = stage.process(sub, now)
+            v2 = b2.cols[VALID_KEY]
+            if v2.any():
+                out_cols_list.append({c: np.asarray(v)[v2]
+                                      for c, v in b2.cols.items()})
+            if n2 is not None:
+                notify = n2 if notify is None else min(notify, n2)
+        if not out_cols_list:
+            return _emit([], self.col_specs), notify
+        merged = {c: np.concatenate([o[c] for o in out_cols_list])
+                  for c in out_cols_list[0]}
+        n = merged[VALID_KEY].shape[0]
+        cap = _pad_len(n)
+        if cap != n:
+            for c in list(merged):
+                merged[c] = np.concatenate(
+                    [merged[c], np.zeros(cap - n, merged[c].dtype)])
+        return HostBatch(merged), notify
+
+    def reset_keys(self, ids):
+        """@purge: a recycled partition id starts with a fresh instance."""
+        for k in ids:
+            self._stages.pop(int(k), None)
+
+    def _held_rows(self):
+        return [r for s in self._stages.values() for r in s._held_rows()]
+
+    def snapshot(self):
+        return {"keys": {str(k): s.snapshot() for k, s in self._stages.items()}}
+
+    def restore(self, snap):
+        self._stages = {}
+        for k, s in snap.get("keys", {}).items():
+            stage = self._factory()
+            stage.restore(s)
+            self._stages[int(k)] = stage
+
+
 def create_host_window_stage(window, input_def, resolver, app_context) -> HostWindowStage:
     from siddhi_tpu_torch.ops.types import dtype_of
     from siddhi_tpu_torch.ops.windows import _const_param

@@ -57,6 +57,7 @@ CURRENT, EXPIRED, TIMER, RESET = 0, 1, 2, 3
 NOTIFY_KEY = "__notify__"
 OVERFLOW_KEY = "__overflow__"
 FLUSH_KEY = "__flush__"
+CHUNK_KEY = "__chunk__"   # a swept TIMER step's chain step of each row
 
 _BIG = 2 ** 62
 
@@ -68,7 +69,7 @@ def _data_keys(cols: Dict) -> List[str]:
     is buffered, and a downstream unionSet that needs the elements raises."""
     return sorted(k for k in cols
                   if k not in (TYPE_KEY, VALID_KEY, NOTIFY_KEY, OVERFLOW_KEY,
-                               FLUSH_KEY, RIDX_KEY, OKEY_KEY)
+                               FLUSH_KEY, CHUNK_KEY, RIDX_KEY, OKEY_KEY)
                   and "#set" not in k)
 
 
@@ -119,6 +120,18 @@ def _order_emit(parts) -> Tuple[Dict, torch.Tensor]:
     out[TYPE_KEY] = types[order]
     out[VALID_KEY] = valid[order]
     return out, okey[order]
+
+
+def _mask_positions(mask, n: int):
+    """Flat positions of the ``n`` set entries of ``mask`` in order (a
+    compaction sized by the caller's host read: no sync of its own)."""
+    flat = mask.reshape(-1)
+    dev = flat.device
+    rank = torch.cumsum(flat.to(torch.int64), 0) - 1
+    tgt = torch.where(flat, rank, torch.full_like(rank, n))
+    pos = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    pos.scatter_(0, tgt, torch.arange(flat.shape[0], dtype=torch.int64, device=dev))
+    return pos[:n]
 
 
 def _insert_ranks(valid_cur):
@@ -1079,7 +1092,10 @@ class DelayWindowStage(WindowStage):
     """``delay(t)``: events are held for t, then released downstream as
     CURRENT with the release time as timestamp
     (``DelayWindowProcessor.java:135-143``). Nothing is emitted on
-    arrival."""
+    arrival. Where the reference emits all ``capacity`` ring items every
+    step (most of them invalid), a step emits only the released ones, in
+    FIFO order, sized by one host read: a playback delay runs a TIMER
+    step per millisecond of event time, each releasing a few rows."""
 
     def __init__(self, delay_ms: int, col_specs: Dict[str, np.dtype], capacity: int):
         self.delay_ms = delay_ms
@@ -1108,11 +1124,17 @@ class DelayWindowStage(WindowStage):
         j = torch.arange(Wc, dtype=torch.int64, device=dev)
         fifo_seq = rel0 + j
         occupied = fifo_seq < total0
-        rel_rows = {k: v[fifo_seq % Wc] for k, v in buf.items()}
-        release = occupied & (rel_rows[TS_KEY] + d <= now)
-        rel_rows[TS_KEY] = torch.where(release, now, rel_rows[TS_KEY])
+        release = occupied & (buf[TS_KEY][fifo_seq % Wc] + d <= now)
+        n_rel = int(release.sum())
+        # the released FIFO items in order (one invalid row when there is
+        # none: the selector takes no empty chunk)
+        m = max(n_rel, 1)
+        pos = _mask_positions(release, m)
+        rel_rows = {k: v[(rel0 + pos) % Wc] for k, v in buf.items()}
+        rel_rows[TS_KEY] = _full(m, now, torch.int64, dev)
         out, _ = _order_emit([
-            (rel_rows, _full(Wc, CURRENT, torch.int8, dev), release, j)])
+            (rel_rows, _full(m, CURRENT, torch.int8, dev),
+             torch.arange(m, device=dev) < n_rel, pos)])
 
         rank, n_ins = _insert_ranks(valid_cur)
         seq = total0 + rank

@@ -42,9 +42,11 @@ def test_port_imports_and_runs_with_jax_unimportable():
     """With ``jax`` made unimportable, the port still imports (the distinct
     scan, extension and query-callback modules, the pipeline, the ingest
     pool, the wire format, transports and retry included), builds the
-    routed slice's app, a distinctCount/unionSet/extension app and an
+    routed slice's app, a distinctCount/unionSet/extension app, an
     @Async/@OnError app with a sink fed by a wire frame through the pool at
-    depth 4 on the CPU, and answers them."""
+    depth 4, and a range partition with @purge, an inner stream, a
+    partition-local stream and keyed time, session and sort windows on the
+    CPU, and answers them."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -132,6 +134,21 @@ h.send_columns(d)
 m.shutdown()
 assert len(got) == 600 and got[-1] == ["b", 2], got[-1:]
 assert rt.app_context.completion_pump.metas > 0
+rt = SiddhiManager(device="cpu").create_siddhi_app_runtime('''
+@app:playback define stream S (sym string, v long);
+@purge(enable='true', interval='1 sec', idle.period='1 hour')
+partition with (v < 5 as 'lo' or v >= 3 as 'hi' of S)
+begin
+  from S#window.time(100 millisec) select sym, v insert into #Mid;
+  from #Mid#window.session(50 millisec) select sym, count() as n insert into P;
+  @info(name = 'q') from P#window.sort(2, n) select sym, n insert into O;
+end;''')
+c = C(); rt.add_callback("O", c)
+h = rt.get_input_handler("S")
+for i, (s, v) in enumerate([("a", 1), ("b", 4), ("c", 9)]):
+    h.send(1000 + i, [s, v])
+rt.shutdown()
+assert c.rows == [["a", 1], ["b", 2], ["b", 1], ["c", 2]], c.rows
 assert "jax" not in {{k for k, v in sys.modules.items() if v is not None}}
 print("OK")
 """
@@ -158,9 +175,8 @@ def test_unported_constructs_are_named_not_skipped():
     for app, what in [
         ("define stream S (a int); define table T (a int); "
          "from S select a insert into T;", "tables"),
-        ("define stream S (k string, a int); partition with (k of S) begin "
-         "from S#window.time(1 sec) select a insert into O; end;",
-         "window 'time' inside a partition"),
+        ("define stream S (k string, a int); from every e1=S -> e2=S "
+         "select e1.a insert into O;", "StateInputStream inputs"),
         ("define stream S (a int); define stream R (a int); "
          "from S#window.length(2) join R#window.length(2) on S.a == R.a "
          "select S.a insert into O;", "JoinInputStream inputs"),

@@ -177,15 +177,17 @@ def test_time_stage_matches_jax_step_by_step(kind):
             {k: torch.from_numpy(v.copy()) for k, v in cols.items()}),
             {"current_time": now})
         assert set(tout) == set(jout)
-        # the time windows emit the ring only up to its last expiring item:
-        # the valid rows (sorted first) and the control lanes are compared
+        # the time windows emit the ring only up to its last expiring item,
+        # delay only its released items: the valid rows (sorted first) and
+        # the control lanes are compared
         n = int(np.asarray(jout["__valid__"]).sum())
         assert int(tout["__valid__"].sum()) == n
         for k in jout:
             want = np.asarray(jout[k])
             got = tout[k].numpy().reshape(np.shape(want)) if want.ndim == 0 \
                 else tout[k].numpy()
-            if want.ndim and kind.startswith(("time", "ext")) and kind != "time_length":
+            if want.ndim and kind.startswith(("time", "ext", "delay")) \
+                    and kind != "time_length":
                 got, want = got[:n], want[:n]
             assert_arrays_match(got, want, f"step {i} {k}")
         for path, leaf in jax.tree_util.tree_leaves_with_path(jst):

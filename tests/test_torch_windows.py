@@ -78,8 +78,10 @@ def test_unported_window_is_named():
     from siddhi_tpu_torch.ops.expressions import CompileError
 
     m = SiddhiManager(device="cpu")
-    with pytest.raises(CompileError,
-                       match="window 'lengthBatch' inside a partition is not ported"):
+    with pytest.raises(
+            CompileError,
+            match="window 'externalTimeBatch' inside a partition is not implemented"):
         m.create_siddhi_app_runtime(
-            "define stream S (k string, a int); partition with (k of S) begin "
-            "from S#window.lengthBatch(4) select a insert into O; end;")
+            "define stream S (k string, a int, t long); partition with (k of S) "
+            "begin from S#window.externalTimeBatch(t, 1 sec) select a insert into "
+            "O; end;")
