@@ -142,9 +142,38 @@ Phases (any failure exits non-zero and prints no result line):
             ``partition_window_capacity`` of 64 raises ``FatalQueryError``
             naming it. Prints state bytes, steps per batch, events/s and
             profiles of PT's swept TIMER and batch steps;
-19. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
-    a ``{"partitions": ...}`` line, a ``{"kernels": [...]}`` line, the
-    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+19. patterns BASELINE.json config #4 (bench.py ``bench_nfa_p99``: ``every
+            e1=AStream -> e2=BStream[e2.v > e1.v] within 5 sec`` partitioned
+            by ``k``, 10,000 string keys in 16,384 key slots, 8 match slots,
+            pipeline depth 2). N: the bench's warm-up and feed (each A batch
+            followed by a B batch of the same keys and ``v + 1``, 10 ms a
+            pair), p99 per-batch latency at B = 1,024 and events/s at B =
+            4,096; every step on the fast kernel (K4), no slot overflow, the
+            matches == a per-key Python oracle, the first 2 pairs == the
+            CPU run. NX: 24 pairs of 4,096 with B's keys and values drawn
+            anew, 2 s a pair (``within`` expires pendings), one A batch 1.5
+            s late (the host sends it to ``expire_to`` and the generic
+            engine, K5): the matches == the oracle as a multiset, the same
+            feed with ``fast_enabled = False`` (K5 every step) == the K4 run
+            row for row. At 1 s a pair the feed outgrows 8 slots (the
+            oracle holds up to 11 pendings a key): the run raises the slot
+            overflow at the send where the oracle first holds a 9th. NS
+            (``e1=AStream, e2=BStream[e2.v > e1.v]``) and NA
+            (``every e1=AStream -> not BStream[v > e1.v] for 1 sec``, TIMER
+            steps through ``apply_timer``) over 8 of NX's pairs == the CPU
+            run. Cut shapes (64 keys, 2 x 1,024 rows a stream) == the CPU: a
+            count with ``e1[0]``/``e1[last]``, a logical step, a mid-chain
+            ``every (...) within``, a group by over captures with ``sum``;
+            a pattern behind ``@Async`` at depth 4 == the synchronous run;
+            ``@purge`` retiring half the keys, their ids taken by new keys
+            with no pending match. Prints events/s, K4/K5 steps, K5 rounds a
+            step, TIMER steps, state bytes and the card's busy share of each,
+            and one K4 and one K5 step's device ops (torch.profiler), host
+            functions (cProfile) and host syncs;
+20. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+    a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
+    ``{"kernels": [...]}`` line, the nvidia-smi line, and last ``{"ok":
+    true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -2631,6 +2660,602 @@ def require_rows_equal(a, b, what: str):
         _require(ok, f"{what}: row {i} differs: {x} vs {y}")
 
 
+# ------------------------------------------------------------- patterns
+
+NFA_KEYS = 10_000              # config #4: 10k partition keys (bench.py NUM_KEYS)
+NFA_KEY_SLOTS = 16_384         # bench_nfa_p99 pre-sizes the key space
+NFA_SLOTS = 8                  # siddhi_tpu.nfa_slots, as bench_nfa_p99 sets it
+NFA_DEPTH = 2                  # siddhi_tpu.pipeline_depth, as bench_nfa_p99
+NFA_B_LAT = 1_024              # the latency operating point
+NFA_B_THR = 4_096              # the throughput operating point
+NFA_LAT_PAIRS = 120
+NFA_THR_PAIRS = 60
+NFA_STEP_MS = 10
+NFA_T0 = 10_000
+NFA_CPU_PAIRS = 2
+NX_PAIRS = 24
+NX_STEP_MS = 2_000             # at 1 s a pair a key holds up to 11 pendings
+NX_OVERFLOW_STEP_MS = 1_000    # ... and the run must raise the slot overflow
+NX_LATE_AFTER = 12             # the out-of-order A batch follows this pair
+NX_LATE_MS = 1_500             # ... stamped this far below the clock
+NS_PAIRS = 8
+NA_CPU_LIMIT_S = 20.0
+NFA_CUT_KEYS = 64
+NFA_CUT_ROWS = 1_024
+NFA_CUT_PAIRS = 2
+NFA_PROFILE_PAIRS = 8
+
+NFA_APP = """@app:playback
+define stream AStream (k string, v double);
+define stream BStream (k string, v double);
+{purge}partition with (k of AStream, k of BStream)
+begin
+  @info(name = 'nfa')
+  from {pattern}
+  select {select}
+  insert into MatchStream;
+end;
+"""
+N_PATTERN = "every e1=AStream -> e2=BStream[e2.v > e1.v] within 5 sec"
+N_SELECT = "e1.k as k, e1.v as v1, e2.v as v2"
+NFA_CUT_SHAPES = {
+    "count": ("e1=AStream<2:5> -> e2=BStream",
+              "e1[0].v as first, e1[last].v as last, e2.v as v2"),
+    "logical": ("e1=AStream and e2=BStream -> e3=AStream",
+                "e1.v as a, e2.v as b, e3.v as c"),
+    "mid_every": ("every (e1=AStream -> e2=BStream) within 1 sec",
+                  "e1.k as k, e1.v as a, e2.v as b"),
+    "group_sum": ("every e1=AStream -> e2=BStream[e2.v > e1.v] within 1 sec",
+                  "e1.k as k, sum(e2.v) as total, count() as n group by e1.k"),
+}
+NFA_ASYNC_APP = """@app:playback
+{ann}define stream S (src string, k string, v double);
+partition with (k of S)
+begin
+  @info(name = 'nfa')
+  from every e1=S[src == 'A'] -> e2=S[src == 'B' and v > e1.v] within 2 sec
+  select e1.k as k, e1.v as v1, e2.v as v2
+  insert into MatchStream;
+end;
+"""
+
+
+def nfa_app(pattern: str, select: str, purge: bool = False) -> str:
+    return NFA_APP.format(pattern=pattern, select=select, purge=(
+        "@purge(enable='true', interval='1 hour', idle.period='1 hour')\n"
+        if purge else ""))
+
+
+def nfa_warm_feed():
+    """bench_nfa_p99's warm-up: at each batch size, batches of keys in
+    order (K0, K1, ...) arm at v = 0 and match at v = 1 (12,288 keys)."""
+    import numpy as np
+
+    feed = []
+    for B in (NFA_B_LAT, NFA_B_THR):
+        for c0 in range(0, NFA_KEYS, B):
+            keys = np.array([f"K{i}" for i in range(c0, c0 + B)], dtype=object)
+            ts = np.full(B, 1_000, np.int64)
+            feed.append(("AStream", {"k": keys, "v": np.zeros(B)}, ts))
+            feed.append(("BStream", {"k": keys, "v": np.ones(B)}, ts + 1))
+    return feed
+
+
+def nfa_feed(seed: int, B: int, pairs: int, t0: int, step_ms: int,
+             independent: bool, n_keys: int = NFA_KEYS, late_after=None):
+    """Pairs of an A batch then a B batch (``bench_nfa_p99``: the same
+    keys and ``v + 1``; ``independent``: B's keys and values drawn anew),
+    the clock ``step_ms`` further a pair. ``late_after``: one more A batch
+    after that pair, stamped ``NX_LATE_MS`` below the clock."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = np.array([f"K{i}" for i in range(n_keys)], dtype=object)
+    feed, t = [], t0
+    for p in range(pairs):
+        ids = rng.integers(0, n_keys, B)
+        va = rng.random(B) * 100.0
+        ts = np.full(B, t, np.int64)
+        feed.append(("AStream", {"k": names[ids], "v": va}, ts))
+        if independent:
+            feed.append(("BStream", {"k": names[rng.integers(0, n_keys, B)],
+                                     "v": rng.random(B) * 100.0}, ts + 1))
+        else:
+            feed.append(("BStream", {"k": names[ids], "v": va + 1.0}, ts + 1))
+        if late_after is not None and p == late_after:
+            feed.append(("AStream", {"k": names[rng.integers(0, n_keys, B)],
+                                     "v": rng.random(B) * 100.0},
+                         np.full(B, t - NX_LATE_MS, np.int64)))
+        t += step_ms
+    return feed
+
+
+def pattern_oracle(feed, within_ms: int, slots=None):
+    """A per-key Python model of ``every e1=A -> e2=B[e2.v > e1.v] within
+    w``: each A row arms a pending (v1, ts); a B row matches, in arrival
+    order, every live pending of its key with v2 > v1 and consumes it; a
+    pending dies once its key's clock (the highest timestamp seen on
+    either stream, as the engine's per-key expiry) passes ts + w. Returns
+    (matches as (key, v1, v2, ts), the most live pendings a key held);
+    with ``slots``, the index of the first feed item that makes a key hold
+    more than ``slots`` pendings instead (None if none does)."""
+    pend, hwm, matches, most = {}, {}, [], 0
+    for i, (stream, cols, ts) in enumerate(feed):
+        is_a = stream == "AStream"
+        for k, v, t in zip(cols["k"].tolist(), cols["v"].tolist(), ts.tolist()):
+            h = max(hwm.get(k, t), t)
+            hwm[k] = h
+            live = [p for p in pend.get(k, ()) if p[1] + within_ms >= h]
+            if is_a:
+                live.append((v, t))
+                most = max(most, len(live))
+                if slots is not None and most > slots:
+                    return i
+            else:
+                keep = []
+                for p in live:
+                    if v > p[0]:
+                        matches.append((k, p[0], v, t))
+                    else:
+                        keep.append(p)
+                live = keep
+            pend[k] = live
+    return None if slots is not None else (matches, most)
+
+
+def nfa_rows(batches, strings):
+    """(key, v1, v2, ts) of a columnar collector's match batches."""
+    import numpy as np
+
+    out = []
+    for b in batches:
+        keys = np.asarray(strings, dtype=object)[b["k"]] if len(b["k"]) else []
+        out.extend(zip(list(keys), b["v1"].tolist(), b["v2"].tolist(),
+                       b["__ts__"].tolist()))
+    return out
+
+
+def run_nfa(device, app: str, feed, *, slots=None, fast: bool = True,
+            depth=None, warm=(), key_slots=-1,
+            profile_tail: int = 0, card: str = "", label: str = "",
+            keep=None, events: bool = False):
+    """Drive a pattern app through the public API on ``device``: the
+    ``warm`` feed first (not timed), then ``feed`` with each send pair
+    timed (the card synchronised before the clock stops). The last
+    ``profile_tail`` sends run under torch.profiler (the device's busy
+    share). Defaults: ``NFA_SLOTS`` match slots, depth ``NFA_DEPTH``,
+    ``NFA_KEY_SLOTS`` key slots (None: the runtime's own growth). Returns
+    (collector, per-send seconds, facts)."""
+    import torch
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+    slots = NFA_SLOTS if slots is None else slots
+    depth = NFA_DEPTH if depth is None else depth
+    key_slots = NFA_KEY_SLOTS if key_slots == -1 else key_slots
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager({
+        "siddhi_tpu.nfa_slots": str(slots),
+        "siddhi_tpu.pipeline_depth": str(depth)}))
+    rt = m.create_siddhi_app_runtime(app)
+    cb = event_rows() if events else collector()
+    rt.add_callback("MatchStream", cb)
+    q = rt.query_runtimes["nfa"]
+    if key_slots is not None:
+        q._win_keys = key_slots
+        q.selector_plan.num_keys = key_slots
+    stage = q.stage
+    stage.fast_enabled = fast
+    hs = {s: rt.get_input_handler(s) for s in ("AStream", "BStream")}
+    try:
+        for stream, cols, ts in warm:
+            hs[stream].send_columns(cols, timestamps=ts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        warm_out = len(cb.rows) if events else len(cb.batches)
+        for k in ("fast_steps", "generic_steps", "generic_rounds", "timer_steps"):
+            setattr(stage, k, 0)
+        seconds = []
+        main = feed[:len(feed) - profile_tail]
+        for stream, cols, ts in main:
+            t0 = time.perf_counter()
+            hs[stream].send_columns(cols, timestamps=ts)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        facts = {"warm_out": warm_out,
+                 "timed_events": sum(len(c["k"]) for _s, c, _t in main),
+                 "steps": {k: getattr(stage, k) for k in (
+                     "fast_steps", "generic_steps", "generic_rounds", "timer_steps")}}
+        if profile_tail:
+            tail = feed[len(feed) - profile_tail:]
+
+            def send_tail():
+                for stream, cols, ts in tail:
+                    hs[stream].send_columns(cols, timestamps=ts)
+
+            facts["profile"] = profile_block(f"{label} last {profile_tail} sends",
+                                             send_tail, card)
+        if keep is not None:
+            keep(rt, hs)
+        facts["state_bytes"] = sum(t.numel() * t.element_size()
+                                   for t in _leaves(q._state))
+        facts["nfa_state_bytes"] = sum(t.numel() * t.element_size()
+                                       for t in _leaves(q._state["nfa"]))
+        facts["key_slots"] = q._win_keys
+        facts["nfa_overflow"] = int(q._state["nfa"]["nfa_overflow"])
+        facts["strings"] = list(rt.app_context.string_dictionary._to_str)
+    finally:
+        m.shutdown()
+    return cb, seconds, facts
+
+
+def profile_block(label: str, fn, card: str, top: int = 8):
+    """torch.profiler over ``fn``: wall, the card's busy time (device
+    kernels and copies) and share, and the top device ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA)
+    _require(dev_us > 0, f"profile {label}: no device time seen")
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    launches = sum(e.count for e in kernels)
+    print(f"[patterns] profile {label}: wall {wall * 1e3:.2f} ms, device busy "
+          f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}% of wall), "
+          f"{launches} device kernels and copies [{card}]", flush=True)
+    for e in kernels[:top]:
+        print(f"[patterns]   {label}: {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}", flush=True)
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+            "busy_share": dev_us / 1e6 / wall, "device_launches": launches}
+
+
+def host_profile(label: str, fn, card: str, top: int = 8):
+    """cProfile over ``fn`` (the card synchronised at its end): the host's
+    wall and the functions with the most self time."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    torch.cuda.synchronize()
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    wall = time.perf_counter() - t0
+    st = pstats.Stats(pr)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    out = []
+    print(f"[patterns] host {label}: wall {wall * 1e3:.2f} ms under cProfile "
+          f"[{card}]", flush=True)
+    for (path, line, fname), (_cc, nc, tt, ct, _callers) in rows:
+        where = f"{Path(path).name}:{line}({fname})"
+        out.append((where, nc, tt * 1e3, ct * 1e3))
+        print(f"[patterns]   host {label}: self {tt * 1e3:7.3f} ms, cum "
+              f"{ct * 1e3:7.3f} ms, {nc:5d} calls  {where}", flush=True)
+    return out
+
+
+def nfa_pair_stats(seconds, B: int):
+    """bench_nfa_p99's numbers from per-send seconds of A/B pairs: the p99
+    of per-batch latency (a pair's time over two) and events/s."""
+    import numpy as np
+
+    pair = np.asarray(seconds[0::2]) + np.asarray(seconds[1::2])
+    lat = np.sort(pair * 1e3 / 2)
+    p99 = float(lat[min(len(lat) - 1, int(len(lat) * 0.99))])
+    return p99, 2 * B * len(pair) / float(pair.sum())
+
+
+def sorted_rows(rows):
+    return sorted(rows, key=lambda r: (r[0], r[3], r[1], r[2]))
+
+
+def phase_patterns(device, card: str):
+    """Phase 19 (see the module doc): N, NX, NS and NA at config #4's width
+    with their checks, the cut shapes against the CPU, @Async and @purge.
+    Returns the ``{"patterns": ...}`` facts."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    res = {"card": card, "reduced": [
+        f"N: {NFA_LAT_PAIRS} pairs at B = {NFA_B_LAT} and {NFA_THR_PAIRS} at "
+        f"B = {NFA_B_THR} in place of bench_nfa_p99's MEASURE_SECONDS of each, "
+        f"no settle segment",
+        f"NX: {NX_PAIRS} pairs", f"NS, NA: {NS_PAIRS} pairs of NX's feed",
+        f"cut shapes: {NFA_CUT_KEYS} keys, {NFA_CUT_PAIRS} x {NFA_CUT_ROWS} rows "
+        f"a stream"]}
+    n_app = nfa_app(N_PATTERN, N_SELECT)
+
+    def steps_text(f):
+        st = f["steps"]
+        k5 = st["generic_steps"]
+        return (f"K4 steps {st['fast_steps']}, K5 steps {k5} ({st['generic_rounds']} "
+                f"rounds, {st['generic_rounds'] / max(k5, 1):.2f} a step), TIMER "
+                f"steps {st['timer_steps']}")
+
+    def cell(name, f, secs, extra):
+        _require(f["nfa_overflow"] == 0, f"{name}: nfa_overflow {f['nfa_overflow']}")
+        res[name] = {
+            "events_per_s": extra.get("eps", f["timed_events"] / sum(secs)),
+            "state_bytes": f["state_bytes"], "nfa_overflow": f["nfa_overflow"],
+            "nfa_state_bytes": f["nfa_state_bytes"], "key_slots": f["key_slots"],
+            "slots": NFA_SLOTS, **f["steps"],
+            "k5_rounds_per_step": f["steps"]["generic_rounds"] / max(
+                f["steps"]["generic_steps"], 1),
+            "busy_share": f["profile"]["busy_share"] if "profile" in f else None,
+            **{k: v for k, v in extra.items() if k != "eps"}}
+        return res[name]
+
+    # ---- N: bench_nfa_p99's feed, both operating points in one run
+    warm = nfa_warm_feed()
+    lat_feed = nfa_feed(41, NFA_B_LAT, NFA_LAT_PAIRS, NFA_T0, NFA_STEP_MS, False)
+    t_thr = NFA_T0 + NFA_LAT_PAIRS * NFA_STEP_MS
+    thr_feed = nfa_feed(42, NFA_B_THR, NFA_THR_PAIRS, t_thr, NFA_STEP_MS, False)
+    cb_n, secs_n, fn = run_nfa(device, n_app, lat_feed + thr_feed, warm=warm,
+                               profile_tail=2 * NFA_PROFILE_PAIRS, card=card,
+                               label="N (B = 4,096)")
+    n_lat = 2 * NFA_LAT_PAIRS
+    p99, _eps_l = nfa_pair_stats(secs_n[:n_lat], NFA_B_LAT)
+    _p99_t, eps = nfa_pair_stats(secs_n[n_lat:], NFA_B_THR)
+    want, most = pattern_oracle(warm + lat_feed + thr_feed, 5_000)
+    got = nfa_rows(cb_n.batches, fn["strings"])
+    _require(len(got) == len(want), f"N: {len(got)} matches, the per-key oracle "
+             f"{len(want)}")
+    _require(sorted_rows(got) == sorted_rows(want), "N: the matches differ from the "
+             "per-key oracle")
+    _require(fn["steps"]["generic_steps"] == 0,
+             f"N: {fn['steps']['generic_steps']} K5 fallbacks, want every step on K4")
+    _require(most <= NFA_SLOTS, f"N: the oracle holds {most} pendings a key")
+    # the first pairs against the port's CPU run (the same warm-up first)
+    cb_c, _s, fc = run_nfa(cpu, n_app, lat_feed[:2 * NFA_CPU_PAIRS], warm=warm,
+                           depth=1)
+    n_c = len(cb_c.batches) - fc["warm_out"]
+    compare_outputs(cb_n.batches[fn["warm_out"]:fn["warm_out"] + n_c],
+                    cb_c.batches[fc["warm_out"]:],
+                    f"N: card vs cpu (first {NFA_CPU_PAIRS} pairs)")
+    c = cell("N", fn, secs_n, {"eps": eps, "p99_batch_ms_b1024": p99,
+                               "events_per_s_b4096": eps, "matches": len(want),
+                               "most_pending_per_key": most})
+    print(f"[patterns] N (config #4: {NFA_KEYS} keys in {fn['key_slots']} key "
+          f"slots, {NFA_SLOTS} match slots, depth {NFA_DEPTH}): p99 per-batch "
+          f"latency {p99:.3f} ms at B = {NFA_B_LAT} ({NFA_LAT_PAIRS} pairs), "
+          f"{eps:.1f} events/s at B = {NFA_B_THR} ({NFA_THR_PAIRS} pairs, the "
+          f"last {NFA_PROFILE_PAIRS} profiled apart); {steps_text(fn)}; "
+          f"nfa_overflow 0; {len(want)} matches == the per-key oracle (most "
+          f"{most} pendings a key); the first {NFA_CPU_PAIRS} pairs == the CPU "
+          f"run; state {fn['state_bytes']} bytes ([K, S] "
+          f"{fn['nfa_state_bytes']}); busy {100 * c['busy_share']:.1f}% [{card}]",
+          flush=True)
+
+    # ---- NX: expiry and the generic engine at full width
+    nx_feed = nfa_feed(43, NFA_B_THR, NX_PAIRS, NFA_T0, NX_STEP_MS, True,
+                       late_after=NX_LATE_AFTER)
+    cb_x, secs_x, fx = run_nfa(device, n_app, nx_feed, warm=warm,
+                               profile_tail=2 * 2, card=card, label="NX K4")
+    cb_g, secs_g, fg = run_nfa(device, n_app, nx_feed, warm=warm, fast=False,
+                               profile_tail=2 * 2, card=card, label="NX K5 only")
+    want_x, most_x = pattern_oracle(warm + nx_feed, 5_000)
+    got_x = nfa_rows(cb_x.batches, fx["strings"])
+    _require(sorted_rows(got_x) == sorted_rows(want_x),
+             f"NX: {len(got_x)} matches differ from the per-key oracle's "
+             f"{len(want_x)}")
+    compare_outputs(cb_x.batches, cb_g.batches, "NX: K4 run vs K5-only run")
+    _require(fx["steps"]["generic_steps"] >= 1, "NX: the out-of-order batch did "
+             "not force a K5 fallback")
+    _require(most_x <= NFA_SLOTS, f"NX: the oracle holds {most_x} pendings a key")
+    c = cell("NX", fx, secs_x, {"matches": len(want_x),
+                                "most_pending_per_key": most_x,
+                                "k5_only": {**fg["steps"],
+                                            "events_per_s": fg["timed_events"]
+                                            / sum(secs_g),
+                                            "busy_share": fg["profile"]["busy_share"]}})
+    print(f"[patterns] NX ({NX_PAIRS} pairs of {NFA_B_THR}, B drawn anew, "
+          f"{NX_STEP_MS} ms a pair, one A batch {NX_LATE_MS} ms late): "
+          f"{c['events_per_s']:.1f} events/s, {steps_text(fx)}; the K5-only run "
+          f"{c['k5_only']['events_per_s']:.1f} events/s, {steps_text(fg)}; "
+          f"{len(want_x)} matches == the oracle as a multiset, K4 run == K5-only "
+          f"run row for row; most {most_x} pendings a key ({NFA_SLOTS} slots); "
+          f"busy {100 * c['busy_share']:.1f}% (K5 only "
+          f"{100 * c['k5_only']['busy_share']:.1f}%) [{card}]", flush=True)
+
+    # at 1 s a pair the feed outgrows 8 slots: the run must raise the slot
+    # overflow at the send where the oracle first holds a 9th pending
+    ov_feed = nfa_feed(43, NFA_B_THR, NX_PAIRS, NFA_T0, NX_OVERFLOW_STEP_MS, True,
+                       late_after=NX_LATE_AFTER)
+    from siddhi_tpu_torch.core.stream.junction import FatalQueryError
+
+    warm_n = len(warm)
+    at = pattern_oracle(warm + ov_feed, 5_000, slots=NFA_SLOTS)
+    _require(at is not None and at >= warm_n, "NX overflow: the oracle never "
+             f"outgrows {NFA_SLOTS} slots at {NX_OVERFLOW_STEP_MS} ms a pair")
+    raised = []
+    try:
+        run_nfa(device, n_app, ov_feed[:at - warm_n + 1], warm=warm)
+    except FatalQueryError as e:
+        raised.append(str(e))
+    _require(raised and "nfa_slots" in raised[0], "NX overflow: no slot overflow "
+             f"raised by send {at - warm_n} of the {NX_OVERFLOW_STEP_MS} ms feed")
+    try:
+        run_nfa(device, n_app, ov_feed[:at - warm_n], warm=warm)
+    except FatalQueryError as e:
+        raise Failure(f"NX overflow: raised before the oracle's send: {e}")
+    res["NX"]["overflow_at_1s_a_pair"] = {"send": at - warm_n, "pairs": NX_PAIRS}
+    print(f"[patterns] NX at {NX_OVERFLOW_STEP_MS} ms a pair: the oracle first "
+          f"holds {NFA_SLOTS + 1} pendings a key at send {at - warm_n}; the run "
+          f"raises the slot overflow (naming nfa_slots) there and not before "
+          f"[{card}]", flush=True)
+
+    # one K4 step and one K5 step under the profiler, and their host syncs
+    def one_step(fast, label):
+        from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+        m = SiddhiManager(device=device)
+        m.set_config_manager(InMemoryConfigManager({
+            "siddhi_tpu.nfa_slots": str(NFA_SLOTS), "siddhi_tpu.pipeline_depth": "1"}))
+        rt = m.create_siddhi_app_runtime(n_app)
+        rt.add_callback("MatchStream", collector())
+        q = rt.query_runtimes["nfa"]
+        q._win_keys = q.selector_plan.num_keys = NFA_KEY_SLOTS
+        q.stage.fast_enabled = fast
+        hs = {s: rt.get_input_handler(s) for s in ("AStream", "BStream")}
+        for stream, cols, ts in warm + nx_feed[:7]:
+            hs[stream].send_columns(cols, timestamps=ts)
+        stream, cols, ts = nx_feed[7]         # pair 3's B batch
+        prof = profile_block(label, lambda: hs[stream].send_columns(
+            cols, timestamps=ts), card)
+        stream, cols, ts = nx_feed[8]
+        hs[stream].send_columns(cols, timestamps=ts)
+        sync = {}
+        stream, cols, ts = nx_feed[9]
+        with counting_syncs(sync):
+            hs[stream].send_columns(cols, timestamps=ts)
+        stream, cols, ts = nx_feed[10]
+        hs[stream].send_columns(cols, timestamps=ts)
+        stream, cols, ts = nx_feed[11]
+        prof["host_top"] = host_profile(label, lambda: hs[stream].send_columns(
+            cols, timestamps=ts), card)
+        m.shutdown()
+        prof["host_syncs"] = sync["syncs"]
+        prof["sync_sites"] = sync["sync_sites"]
+        print(f"[patterns] {label}: {sync['syncs']} host syncs in one step "
+              f"(sites {sync['sync_sites']})", flush=True)
+        return prof
+
+    res["step_profile"] = {"K4": one_step(True, "one K4 step (B batch, 4,096 rows)"),
+                           "K5": one_step(False, "one K5 step (B batch, 4,096 rows)")}
+
+    # ---- NS (a sequence) and NA (an absent pattern) over NX's feed
+    ns_feed = nx_feed[:2 * NS_PAIRS]
+    for name, pattern, select in (
+            ("NS", "e1=AStream, e2=BStream[e2.v > e1.v]", N_SELECT),
+            ("NA", "every e1=AStream -> not BStream[v > e1.v] for 1 sec",
+             "e1.k as k, e1.v as v1")):
+        app = nfa_app(pattern, select)
+        cb_d, secs_d, fd = run_nfa(device, app, ns_feed, events=True,
+                                   profile_tail=4, card=card, label=name)
+        t0 = time.perf_counter()
+        cut = ns_feed
+        cb_h, _s, fh = run_nfa(cpu, app, cut, depth=1, events=True)
+        cpu_s = time.perf_counter() - t0
+        if cpu_s > NA_CPU_LIMIT_S:
+            cut = ns_feed[:8]
+            cb_h, _s, fh = run_nfa(cpu, app, cut, depth=1, events=True)
+            res.setdefault("reduced", []).append(
+                f"{name}: the CPU comparison over the first 4 pairs")
+        n_cmp = len(cb_h.rows)
+        require_rows_equal(cb_d.rows[:n_cmp], cb_h.rows, f"{name}: card vs cpu")
+        if cut is ns_feed:
+            _require(len(cb_d.rows) == n_cmp, f"{name}: {len(cb_d.rows)} rows on "
+                     f"the card, {n_cmp} on the CPU")
+        _require(n_cmp > 0, f"{name}: no rows")
+        c = cell(name, fd, secs_d, {"matches": len(cb_d.rows), "cpu_s": cpu_s})
+        print(f"[patterns] {name} ({pattern}; {NS_PAIRS} pairs of NX's feed): "
+              f"{c['events_per_s']:.1f} events/s, {steps_text(fd)}; "
+              f"{c['matches']} rows == the CPU run ({cpu_s:.1f} s there); "
+              f"state {fd['state_bytes']} bytes; busy {100 * c['busy_share']:.1f}% "
+              f"[{card}]", flush=True)
+    _require(res["NA"]["timer_steps"] > 0, "NA: no TIMER step fired")
+
+    # ---- the cut shapes against the CPU
+    cut_feed = nfa_feed(44, NFA_CUT_ROWS, NFA_CUT_PAIRS, NFA_T0, 1_500, True,
+                        n_keys=NFA_CUT_KEYS)
+    for i, (_s, _c, ts) in enumerate(cut_feed):
+        ts += np.arange(NFA_CUT_ROWS, dtype=np.int64) // 64   # rows creep in time
+    cuts = {}
+    for name, (pattern, select) in NFA_CUT_SHAPES.items():
+        app = nfa_app(pattern, select)
+        outs = [run_nfa(dev, app, cut_feed, slots=32, depth=1, key_slots=None,
+                        events=True)[0].rows for dev in (device, cpu)]
+        require_rows_equal(outs[0], outs[1], f"cut {name}: card vs cpu")
+        _require(len(outs[0]) > 0, f"cut {name}: no rows")
+        cuts[name] = len(outs[0])
+    # a pattern behind @Async at depth 4 == the synchronous run
+    rng = np.random.default_rng(45)
+    s_feed = []
+    for i in range(8):
+        n = NFA_CUT_ROWS
+        s_feed.append(({"src": np.array(["A", "B"], object)[rng.integers(0, 2, n)],
+                        "k": np.array([f"K{j}" for j in range(NFA_CUT_KEYS)],
+                                      object)[rng.integers(0, NFA_CUT_KEYS, n)],
+                        "v": rng.random(n) * 100.0},
+                       np.full(n, NFA_T0 + 700 * i, np.int64)))
+    async_rows = {}
+    for depth, ann in ((1, ""), (4, "@Async(buffer.size='64', batch.size='1024')\n")):
+        from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+        m = SiddhiManager(device=device)
+        m.set_config_manager(InMemoryConfigManager({
+            "siddhi_tpu.nfa_slots": "32", "siddhi_tpu.pipeline_depth": str(depth)}))
+        rt = m.create_siddhi_app_runtime(NFA_ASYNC_APP.format(ann=ann))
+        cb = event_rows()
+        rt.add_callback("MatchStream", cb)
+        h = rt.get_input_handler("S")
+        for cols, ts in s_feed:
+            h.send_columns(cols, timestamps=ts)
+        m.shutdown()
+        async_rows[depth] = cb.rows
+    require_rows_equal(async_rows[4], async_rows[1], "cut @Async depth 4 vs sync")
+    _require(len(async_rows[1]) > 0, "cut @Async: no rows")
+    cuts["async_depth4"] = len(async_rows[1])
+
+    # @purge: half the keys retired, their ids taken by new keys that start
+    # with no pending match
+    a_only = cut_feed[:1]
+    seen = set(a_only[0][1]["k"].tolist())
+    retire = [k for k in (f"K{i}" for i in range(NFA_CUT_KEYS // 2)) if k in seen]
+    kept = seen - set(retire)
+
+    def purge_half(rt, hs):
+        pctx = rt.partition_contexts[0]
+        enc = rt.app_context.string_dictionary.encode
+        ks = pctx.keyspace
+        idle = sorted(ks._map[(enc(k),)] for k in retire)
+        for i in idle:
+            ks.last_seen[i] = int(time.time() * 1000) - 2 * 3600_000
+        freed = sorted(pctx.purge())
+        _require(freed == idle, "cut purge: other ids retired than the idle keys'")
+        new = [f"N{i}" for i in range(len(retire))]
+        names = np.array(new + sorted(kept), dtype=object)
+        hs["BStream"].send_columns({"k": names, "v": np.full(len(names), 1e9)},
+                                   timestamps=np.full(len(names), NFA_T0 + 2,
+                                                      np.int64))
+        new_ids = sorted(ks._map[(enc(k),)] for k in new)
+        _require(new_ids == freed, "cut purge: the new keys did not take the freed ids")
+
+    cb_p, _s, _f = run_nfa(device, nfa_app(N_PATTERN, N_SELECT, purge=True), a_only,
+                           slots=32, depth=1, key_slots=None, keep=purge_half,
+                           events=True)
+    want_p = sum(1 for k in a_only[0][1]["k"] if k in kept)
+    _require({r[1][0] for r in cb_p.rows} <= kept and len(cb_p.rows) == want_p,
+             f"cut purge: {len(cb_p.rows)} matches, want {want_p}, all of kept keys")
+    cuts["purge_matches"] = len(cb_p.rows)
+    res["cuts"] = cuts
+    print(f"[patterns] cut shapes ({NFA_CUT_KEYS} keys, {NFA_CUT_PAIRS} x "
+          f"{NFA_CUT_ROWS} rows a stream) == the CPU: {cuts}; @Async at depth 4 "
+          f"== the sync run; @purge: {len(retire)} keys retired, their ids "
+          f"reused by new keys with no pending match [{card}]", flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[patterns] phase 19 in {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 def phase_global(device, feed, card: str):
@@ -2838,8 +3463,10 @@ def main() -> int:
     # 18. partitions: keyed windows, range partitions, inner streams, purge
     pt, pt_launches, part = phase_partitions(device, card)
     dist["launches"]["PT"] = pt_launches
+    # 19. patterns and sequences: config #4 at full width, K4 and K5
+    patterns = phase_patterns(device, card)
 
-    # 19. result lines
+    # 20. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
@@ -2899,6 +3526,7 @@ def main() -> int:
         name: {"state_bytes": f["state_bytes"], "timer_steps": f["timers"],
                "batch_steps": f["steps"]["batch"]} for name, f in win.items()}}))
     print(json.dumps({"partitions": part}))
+    print(json.dumps({"patterns": patterns}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

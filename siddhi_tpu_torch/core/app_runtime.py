@@ -7,7 +7,8 @@ query callbacks, custom extension functions and ``define function``
 scripts, the set-element metadata of OBJECT attributes,
 ``@app:name``/``@app:playback`` (with its idle heartbeat)/
 ``@app:precision``, the app's scheduler (TIMER chunks of time windows),
-output rate limiters, ``@Async`` and ``@OnError`` streams,
+output rate limiters, pattern and sequence queries (one proxy receiver
+per consumed stream), ``@Async`` and ``@OnError`` streams,
 ``@source``/``@sink`` transports, the dispatch pipeline and the ingest
 pack pool, and the ``siddhi_tpu.*`` config knobs. Tables, named
 windows, triggers and incremental aggregations are not ported yet and
@@ -46,6 +47,7 @@ from siddhi_tpu_torch.query_api.execution import (
     Partition,
     Query,
     RangePartitionType,
+    StateInputStream,
     ValuePartitionType,
 )
 from siddhi_tpu_torch.query_api.expressions import AttributeFunction, Variable
@@ -426,6 +428,14 @@ class SiddhiAppRuntime:
                     set(getattr(tdef, "object_multi_attrs", None) or set())
                     | set(sp.object_multi))
         self._attach_rate_limiter(query, runtime, partition_ctx)
+        if isinstance(query.input_stream, StateInputStream):
+            # pattern/sequence: one proxy receiver per consumed stream
+            for sid, proxy in runtime.make_proxies().items():
+                self.junctions[sid].subscribe(proxy)
+            self.query_runtimes[query_name] = runtime
+            if partition_ctx is not None:
+                partition_ctx.runtimes.append(runtime)
+            return
         in_id = query.input_stream.unique_stream_id
         if partition_ctx is not None and query.input_stream.is_inner_stream:
             if in_id not in partition_ctx.inner_junctions:
@@ -585,6 +595,8 @@ class SiddhiAppRuntime:
             for qr in self.query_runtimes.values():
                 if qr.rate_limiter is not None:
                     qr.rate_limiter.start(ctx.scheduler)
+                if hasattr(qr, "arm_initial"):
+                    qr.arm_initial()  # head-absent patterns wait from start
             for pctx in self.partition_contexts:
                 if pctx.purge_interval_ms is not None:
                     ctx.scheduler.schedule_periodic(

@@ -175,3 +175,6 @@ class SiddhiAppContext:
         self.shard_exchange = "all_to_all"
         # value slots per group of a distinctCount/unionSet table
         self.distinct_values_capacity = 64
+        # match slots per key of a pattern/sequence query (ops/nfa.py);
+        # set via siddhi_tpu.nfa_slots, overflow raises FatalQueryError
+        self.nfa_slots = 32

@@ -10,9 +10,10 @@ and ``limit``/``offset`` (collapsing batch-window chunks), function calls
 anywhere an expression stands, string<->number casts of stream attributes
 (host parse and format stages) and every ``output`` rate. An unpartitioned
 length window whose aggregators are all invertible takes the fused stage
-(``ops/fused_agg.py``), as the reference decides it. Joins, patterns and
-``in <table>`` probes are not ported yet and raise ``CompileError`` naming
-the construct.
+(``ops/fused_agg.py``), as the reference decides it. Patterns and
+sequences plan through ``plan_nfa_query`` into an ``NFAQueryRuntime``.
+Joins and ``in <table>`` probes are not ported yet and raise
+``CompileError`` naming the construct.
 """
 
 from __future__ import annotations
@@ -30,9 +31,11 @@ from siddhi_tpu_torch.ops.windows import LengthWindowStage, create_window_stage
 from siddhi_tpu_torch.query_api.definitions import AttrType, StreamDefinition
 from siddhi_tpu_torch.query_api.execution import (
     Filter,
+    OutputAttribute,
     Query,
     SingleInputStream,
     SnapshotOutputRate,
+    StateInputStream,
     StreamFunction,
     Window,
 )
@@ -138,6 +141,125 @@ def _rewrite_string_casts(expr, input_def, resolver, transforms, ext_state,
     return Variable(attribute_name=name)
 
 
+def plan_nfa_query(query: Query, query_name: str, app_context,
+                   definitions: Dict[str, StreamDefinition],
+                   partition_ctx=None):
+    """Plan a pattern/sequence query: linearized NFA plan + compiled side
+    filters + selector over capture columns (reference
+    ``StateInputStreamParser.java:76-210`` + ``SelectorParser``)."""
+    from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
+    from siddhi_tpu_torch.ops.nfa import (
+        NFAOutputResolver,
+        NFASideResolver,
+        NFAStage,
+        assign_indexed_captures,
+        build_nfa_plan,
+    )
+
+    state_stream: StateInputStream = query.input_stream
+    dictionary = app_context.string_dictionary
+    plan = build_nfa_plan(state_stream, definitions, app_context.nfa_slots)
+
+    if query.selector.select_all or not query.selector.selection_list:
+        # `select *` on a pattern expands to every attribute of every
+        # pattern element in order (reference SelectorParser over the
+        # MetaStateEvent) — sides without captures (pure absent steps)
+        # project null columns. Duplicate names reject, as the reference's
+        # output-definition validation would.
+        seen_refs = {}
+        for st in plan.steps:
+            for side in st.sides:
+                if side.capture is not None and side.capture.ref_id:
+                    key = side.capture.ref_id      # one entry per ref
+                else:
+                    # capture-less (absent) elements are distinct per STEP
+                    key = (st.index, side.stream_id)
+                seen_refs.setdefault(key, (side.stream_id,
+                                           side.capture is not None))
+        selection = []
+        names = set()
+        for ref, (sid, has_cap) in seen_refs.items():
+            for attr in definitions[sid].attributes:
+                if attr.name in names:
+                    raise CompileError(
+                        f"query '{query_name}': select * is ambiguous — "
+                        f"attribute '{attr.name}' appears in more than one "
+                        f"pattern element; use an explicit select list")
+                names.add(attr.name)
+                expr = (Variable(attribute_name=attr.name, stream_id=ref)
+                        if has_cap else Constant(value=None, type=attr.type))
+                selection.append(OutputAttribute(rename=attr.name,
+                                                 expression=expr))
+        query.selector.selection_list = selection
+        query.selector.select_all = False
+
+    # size indexed capture storage (e1[i].attr) from every expression that
+    # can reference captures: side filters, selections, having, group by
+    idx_exprs = [e for st in plan.steps for side in st.sides
+                 for e in side.filter_exprs]
+    idx_exprs += [oa.expression for oa in query.selector.selection_list]
+    if query.selector.having is not None:
+        idx_exprs.append(query.selector.having)
+    idx_exprs += list(query.selector.group_by_list)
+    assign_indexed_captures(plan, idx_exprs)
+
+    for st in plan.steps:
+        for side in st.sides:
+            if side.filter_exprs:
+                resolver = NFASideResolver(side, plan, dictionary)
+                conds = [compile_condition(e, resolver) for e in side.filter_exprs]
+
+                def combined(ev, ctx, _conds=conds):
+                    r = _conds[0](ev, ctx)
+                    for c in _conds[1:]:
+                        r = r & c(ev, ctx)
+                    return r
+
+                side.cond = combined
+
+    out_resolver = NFAOutputResolver(plan, dictionary)
+    output_event_type = (query.output_stream.output_event_type
+                         if query.output_stream else "current")
+    selector_plan = plan_selector(
+        selector=query.selector,
+        input_attrs=[],
+        resolver=out_resolver,
+        output_event_type=output_event_type,
+        batch_mode=False,
+        dictionary=dictionary,
+        app_context=app_context,
+    )
+    selector_plan.num_keys = app_context.initial_key_capacity
+
+    stream_keyers = {}
+    if partition_ctx is not None:
+        for sid in plan.stream_ids:
+            if sid not in partition_ctx.keyers:
+                raise CompileError(
+                    f"query '{query_name}': pattern stream '{sid}' is consumed "
+                    f"inside a partition but has no partition-with clause")
+            stream_keyers[sid] = partition_ctx.keyers[sid]
+
+    # group-by over capture columns: a host keyer runs between the NFA
+    # emission and the selector step (GroupByKeyGenerator.java:37)
+    out_keyer = None
+    if query.selector.group_by_list:
+        out_keyer = GroupKeyer([compile_expr(var, out_resolver)
+                                for var in query.selector.group_by_list])
+
+    return NFAQueryRuntime(
+        name=query_name,
+        app_context=app_context,
+        stage=NFAStage(plan),
+        input_defs={sid: definitions[sid] for sid in plan.stream_ids},
+        stream_keyers=stream_keyers,
+        selector_plan=selector_plan,
+        dictionary=dictionary,
+        partition_ctx=partition_ctx,
+        out_keyer=out_keyer,
+    )
+
+
 def plan_query(query: Query, query_name: str, app_context,
                definitions: Dict[str, StreamDefinition],
                partition_ctx=None) -> QueryRuntime:
@@ -152,11 +274,13 @@ def plan_query(query: Query, query_name: str, app_context,
                 "As the query is performing snapshot rate limiting, it can "
                 "only insert 'ALL_EVENTS' but it is inserting "
                 f"'{oet.upper()}_EVENTS'!")
+    if isinstance(input_stream, StateInputStream):
+        return plan_nfa_query(query, query_name, app_context, definitions,
+                              partition_ctx)
     if not isinstance(input_stream, SingleInputStream):
         raise CompileError(
             f"query '{query_name}': {type(input_stream).__name__} inputs "
-            f"(joins, patterns, sequences) are not ported to "
-            f"siddhi_tpu_torch yet")
+            f"(joins) are not ported to siddhi_tpu_torch yet")
     stream_id = input_stream.unique_stream_id
     if stream_id not in definitions:
         raise CompileError(f"query '{query_name}': stream '{stream_id}' is not defined")

@@ -555,9 +555,10 @@ class QueryRuntime(Receiver):
     def reset_partition_keys(self, ids):
         """Restart the state rows of partition keys ``@purge`` retired, so
         their ids can be reused by new keys (reference PartitionRuntimeImpl
-        purge): the window's rows, the selector's rows (reset to the
-        aggregators' INIT values) or, with a group by, the (pk, group)
-        dictionary entries, the per-key rate limiters and host windows.
+        purge): the window's rows, a pattern's match slots, the
+        selector's rows (reset to the aggregators' INIT values) or, with a
+        group by, the (pk, group) dictionary entries, the per-key rate
+        limiters and host windows.
         Runs on the purge job's thread: it enters the app's device and the
         query lock, and drains the query's in-flight batches first."""
         if self.rate_limiter is not None and hasattr(self.rate_limiter, "reset_keys"):
@@ -585,6 +586,12 @@ class QueryRuntime(Receiver):
             if "win" in state and hasattr(self.window_stage, "reset_keys"):
                 self.window_stage.reset_keys(
                     state["win"], torch.as_tensor(win_idx, device=dev))
+            if "nfa" in state:
+                # a pattern's retired keys hold no pending match, and their
+                # start states arm afresh
+                idx = torch.as_tensor(ids_np, device=dev)
+                for k in ("active", "consumed", "armed"):
+                    state["nfa"][k].index_fill_(0, idx, False)
             if self.keyer is None:
                 # gk == pk: selector rows are addressed by partition id. Rows
                 # reset to the aggregator INIT values, gathered from a fresh

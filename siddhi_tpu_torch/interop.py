@@ -19,12 +19,16 @@ import torch
 
 def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str],
                          partition_keys: Optional[Dict] = None,
-                         group_keys: Optional[Dict] = None) -> None:
+                         group_keys: Optional[Dict] = None,
+                         nfa_hwm: Optional[np.ndarray] = None) -> None:
     """Install reference state into ``runtime`` (a port ``QueryRuntime``).
 
     ``state_tree``: ``{"sel": {...}, "win": {...}}`` numpy arrays at the
-    reference's capacities. ``dictionary_ids``: the app's strings in id
-    order. ``partition_keys``: the partition key space as
+    reference's capacities; a pattern query's is ``{"sel": {...}, "nfa":
+    {...}}`` (its ``[K, S]`` slot tensors), with the per-key event-time
+    high-water marks the reference keeps for its fast-path dispatch as
+    ``nfa_hwm`` (``NFAQueryRuntime._nfa_hwm_arr``). ``dictionary_ids``:
+    the app's strings in id order. ``partition_keys``: the partition key space as
     ``PartitionKeySpace.snapshot()`` gives it (``{"map", "free", "n"}``).
     ``group_keys``: the group keyer's ``{"map": {key tuple: id}, "next": n}``
     when the query has a ``group by``. An unpartitioned query's window
@@ -51,6 +55,16 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
     win_keys = 1
     if runtime.partition_ctx is not None and "win" in state_tree:
         win_keys = int(np.asarray(state_tree["win"]["total"]).shape[0])
+    if "nfa" in state_tree:
+        nfa = state_tree["nfa"]
+        win_keys, slots = np.asarray(nfa["active"]).shape
+        if slots != runtime.stage.plan.slots:
+            raise ValueError(
+                f"query '{runtime.name}': the reference state holds {slots} "
+                f"match slots a key, the port runtime "
+                f"{runtime.stage.plan.slots} (siddhi_tpu.nfa_slots)")
+        runtime._nfa_hwm_arr = (None if nfa_hwm is None
+                                else np.array(nfa_hwm, np.int64))
     layout = runtime._route_layout
     if layout is not None:
         from siddhi_tpu_torch.parallel.mesh import _install_routed
@@ -62,8 +76,8 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
         st = (state_tree.get("sel") or {}).get(f"a{i}")
         if isinstance(st, dict):       # a value table keeps its width H
             spec.distinct_capacity = int(np.asarray(st["vk"]).shape[1])
-    if runtime.partition_ctx is not None:
-        runtime._win_keys = win_keys
+    if runtime.partition_ctx is not None or "nfa" in state_tree:
+        runtime._win_keys = int(win_keys)
     runtime._state = _to_tensors(state_tree, runtime.device)
     runtime._step = None
 

@@ -231,8 +231,12 @@ def route_ineligibility(runtime) -> Optional[str]:
     """Why this runtime cannot take the routed path (None = it can): the
     ported scope is partitioned queries over keyed length windows (or no
     window), and non-partitioned grouped queries without a window."""
+    from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
     from siddhi_tpu_torch.ops.keyed_windows import KeyedLengthWindowStage
 
+    if isinstance(runtime, NFAQueryRuntime):
+        return ("pattern and sequence queries (an NFA step over a mesh is "
+                "not ported yet)")
     sp = runtime.selector_plan
     if sp.order_by or sp.limit is not None or sp.offset is not None:
         return "order by / limit (batch-global ordering)"

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_helpers import assert_arrays_match
+from torch_helpers import assert_arrays_match, release_jax_programs
 
 from siddhi_tpu.ops import aggregators as jagg
 from siddhi_tpu.query_api.definitions import AttrType as JT

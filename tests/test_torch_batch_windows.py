@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 from torch_helpers import (PLAYBACK_STOCK, assert_arrays_match,
-                           assert_both_match, mixed_feed)
+                           assert_both_match, mixed_feed, release_jax_programs)
 
 from siddhi_tpu_torch.ops import windows as twin
 

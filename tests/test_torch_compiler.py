@@ -14,7 +14,8 @@ import enum
 from pathlib import Path
 
 import pytest
-from torch_helpers import DISTINCT_GK_APP, PARTITIONED_APP
+from torch_helpers import (
+    DISTINCT_GK_APP, PARTITIONED_APP, release_jax_programs)
 
 from siddhi_tpu.compiler import SiddhiCompiler as RefCompiler
 from siddhi_tpu_torch.compiler import SiddhiCompiler as PortCompiler

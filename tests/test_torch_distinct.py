@@ -31,7 +31,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from torch_helpers import Run, assert_arrays_match, assert_rows_match
+from torch_helpers import (
+    Run, assert_arrays_match, assert_rows_match, release_jax_programs)
 
 from siddhi_tpu_torch.ops import aggregators as tagg
 from siddhi_tpu_torch.ops import distinct as tdist

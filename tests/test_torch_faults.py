@@ -7,7 +7,7 @@ seeded feed through the JAX package and the port."""
 
 import numpy as np
 import pytest
-from torch_helpers import Run, assert_rows_match
+from torch_helpers import Run, assert_rows_match, release_jax_programs
 
 DIV_APP = """
 define stream S (a int, b int, c long, d long);

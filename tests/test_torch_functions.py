@@ -16,7 +16,7 @@ import time
 import numpy as np
 import pytest
 import torch_helpers  # noqa: F401 — one torch thread per test process
-from torch_helpers import assert_rows_match
+from torch_helpers import assert_rows_match, release_jax_programs
 
 
 def _package(pkg):

@@ -21,7 +21,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_helpers import Run, assert_arrays_match, assert_rows_match, stock_feed
+from torch_helpers import (
+    Run, assert_arrays_match, assert_rows_match, release_jax_programs,
+    stock_feed)
 
 from siddhi_tpu.ops import aggregators as jagg
 from siddhi_tpu.ops import fused_agg as jfused

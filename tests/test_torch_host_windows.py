@@ -8,7 +8,8 @@ Tolerance (tests/torch_helpers.py): ints, strings, timestamps, types and
 order exact; floats to rtol 1e-12."""
 
 import pytest
-from torch_helpers import PLAYBACK_STOCK, assert_both_match, mixed_feed
+from torch_helpers import (
+    PLAYBACK_STOCK, assert_both_match, mixed_feed, release_jax_programs)
 
 APPS = {
     "sort_desc": "from S#window.sort(3, price, 'desc') select symbol, price "

@@ -10,7 +10,8 @@ import time
 
 import numpy as np
 import pytest
-from torch_helpers import assert_rows_match, make_collector
+from torch_helpers import (
+    assert_rows_match, make_collector, release_jax_programs)
 
 import siddhi_tpu
 import siddhi_tpu_torch

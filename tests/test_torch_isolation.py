@@ -175,8 +175,8 @@ def test_unported_constructs_are_named_not_skipped():
     for app, what in [
         ("define stream S (a int); define table T (a int); "
          "from S select a insert into T;", "tables"),
-        ("define stream S (k string, a int); from every e1=S -> e2=S "
-         "select e1.a insert into O;", "StateInputStream inputs"),
+        ("define stream S (a int); define window W (a int) length(2); "
+         "from S insert into W;", "named windows"),
         ("define stream S (a int); define stream R (a int); "
          "from S#window.length(2) join R#window.length(2) on S.a == R.a "
          "select S.a insert into O;", "JoinInputStream inputs"),

@@ -13,7 +13,7 @@ steps. Tolerance (tests/torch_helpers.py): ints exact, floats to rtol
 
 import numpy as np
 import pytest
-from torch_helpers import Run, assert_rows_match
+from torch_helpers import Run, assert_rows_match, release_jax_programs
 
 from siddhi_tpu_torch.core.query.runtime import QueryRuntime
 

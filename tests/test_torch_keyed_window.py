@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_helpers import assert_arrays_match
+from torch_helpers import assert_arrays_match, release_jax_programs
 
 from siddhi_tpu.ops.keyed_windows import KeyedLengthWindowStage as JaxStage
 from siddhi_tpu_torch.ops.expressions import TorchXP

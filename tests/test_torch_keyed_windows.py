@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_helpers import assert_arrays_match
+from torch_helpers import assert_arrays_match, release_jax_programs
 
 from siddhi_tpu.ops import keyed_windows as jkw
 from siddhi_tpu_torch.ops import keyed_windows as tkw

@@ -8,7 +8,7 @@ raises to the sender. Each case runs in both packages."""
 
 import numpy as np
 import pytest
-from torch_helpers import make_collector
+from torch_helpers import make_collector, release_jax_programs
 
 import siddhi_tpu
 import siddhi_tpu_torch

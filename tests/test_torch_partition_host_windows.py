@@ -7,7 +7,8 @@ calls (one per chunk) compare under ``tests/torch_helpers.py``'s rule:
 ints exact, floats to rtol 1e-12."""
 
 import pytest
-from torch_helpers import PLAYBACK_STOCK, assert_both_match, mixed_feed
+from torch_helpers import (
+    PLAYBACK_STOCK, assert_both_match, mixed_feed, release_jax_programs)
 
 P = "partition with (symbol of S) begin @info(name='q') "
 RANGE = ("partition with (price < 30.0 as 'lo' or price >= 20.0 and price < 70.0 "

@@ -8,7 +8,8 @@ chunk) compare under ``tests/torch_helpers.py``'s rule: ints exact,
 floats to rtol 1e-12."""
 
 import pytest
-from torch_helpers import PLAYBACK_STOCK, assert_both_match, mixed_feed
+from torch_helpers import (
+    PLAYBACK_STOCK, assert_both_match, mixed_feed, release_jax_programs)
 
 P = "partition with (symbol of S) begin @info(name='q') "
 

@@ -12,7 +12,8 @@ import time
 
 import numpy as np
 import pytest
-from torch_helpers import PLAYBACK_STOCK, assert_rows_match, make_collector
+from torch_helpers import (
+    PLAYBACK_STOCK, assert_rows_match, make_collector, release_jax_programs)
 
 P = "partition with (symbol of S) begin @info(name='q') "
 

@@ -14,7 +14,8 @@ import time
 
 import numpy as np
 import pytest
-from torch_helpers import assert_rows_match, make_collector, stock_feed
+from torch_helpers import (
+    assert_rows_match, make_collector, stock_feed, release_jax_programs)
 
 import siddhi_tpu
 import siddhi_tpu_torch

@@ -9,7 +9,8 @@ Tolerance (tests/torch_helpers.py): ints, strings, timestamps, types and
 order exact; floats to rtol 1e-12."""
 
 import pytest
-from torch_helpers import PLAYBACK_STOCK, assert_both_match, mixed_feed
+from torch_helpers import (
+    PLAYBACK_STOCK, assert_both_match, mixed_feed, release_jax_programs)
 
 APPS = {
     "event_all": "from S select symbol, volume output every 3 events insert into O;",

@@ -12,7 +12,8 @@ import time
 
 import numpy as np
 import pytest
-from torch_helpers import make_collector, make_query_collector
+from torch_helpers import (
+    make_collector, make_query_collector, release_jax_programs)
 
 
 def _packages():

@@ -12,7 +12,8 @@ snapshot a window dropped) raise in the port too."""
 import numpy as np
 import pytest
 import torch_helpers  # noqa: F401 — one torch thread per test process
-from torch_helpers import assert_rows_match, make_collector
+from torch_helpers import (
+    assert_rows_match, make_collector, release_jax_programs)
 
 
 def run(pkg, app, stream, sends, outs=("OutStream",), query_callback=None):

@@ -14,6 +14,7 @@ from torch_helpers import (
     assert_rows_match,
     side_feed,
     stock_feed,
+    release_jax_programs,  # an autouse fixture: frees JAX programs per module
 )
 
 APP_W8 = PARTITIONED_APP.format(W=8)

@@ -16,6 +16,7 @@ from torch_helpers import (
     send_feed,
     side_feed,
     stock_feed,
+    release_jax_programs,  # an autouse fixture: frees JAX programs per module
 )
 
 from siddhi_tpu_torch.interop import load_reference_state

@@ -10,7 +10,8 @@ order exact; floats to rtol 1e-12."""
 import logging
 
 import pytest
-from torch_helpers import assert_rows_match, make_collector
+from torch_helpers import (
+    assert_rows_match, make_collector, release_jax_programs)
 
 
 def _run(pkg, app, sends, out="OutStream", extensions=()):

@@ -16,7 +16,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch_helpers import (PLAYBACK_STOCK, assert_arrays_match,
-                           assert_both_match, mixed_feed)
+                           assert_both_match, mixed_feed, release_jax_programs)
 
 from siddhi_tpu_torch.ops import windows as twin
 

@@ -12,7 +12,7 @@ import time
 
 import numpy as np
 import pytest
-from torch_helpers import make_collector
+from torch_helpers import make_collector, release_jax_programs
 
 import siddhi_tpu
 import siddhi_tpu_torch

@@ -7,7 +7,8 @@ rtol 1e-12, everything else exact)."""
 
 import numpy as np
 import pytest
-from torch_helpers import Run, assert_rows_match, send_feed
+from torch_helpers import (
+    Run, assert_rows_match, send_feed, release_jax_programs)
 
 from siddhi_tpu_torch.ops.windows import LengthWindowStage
 

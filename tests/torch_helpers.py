@@ -10,8 +10,11 @@ the port's segmented scan adds in another order than
 """
 
 import contextlib
+import gc
+import sys
 
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -281,3 +284,122 @@ def assert_arrays_match(got, want, what="", rtol=FLOAT_RTOL, atol=0.0):
     else:
         assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
         np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def _free_jax_programs():
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        gc.collect()
+        jax.clear_caches()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_jax_programs():
+    """Free the JAX package's compiled programs before and after a test
+    module. Each XLA:CPU executable keeps memory maps of its own; a test
+    worker that compiles the reference's programs for many modules would
+    reach the kernel's limit of maps a process (``vm.max_map_count``),
+    where the next compile crashes. A module imports this fixture to use
+    it."""
+    _free_jax_programs()
+    yield
+    _free_jax_programs()
+
+
+# ------------------------------------------------- patterns and sequences
+
+def send_multi(rt, feed):
+    """Items ``(stream, ts, row)`` (one event) or ``(stream, cols, ts)``
+    (a column batch with its timestamps) on several streams."""
+    handlers = {}
+    for stream, a, b in feed:
+        h = handlers.get(stream)
+        if h is None:
+            h = handlers[stream] = rt.get_input_handler(stream)
+        if isinstance(a, dict):
+            h.send_columns(a, timestamps=b)
+        else:
+            h.send(a, b)
+
+
+def run_both_multi(app, feed, out="O", query="q", config=None):
+    """``send_multi`` of ``feed`` through the JAX package and the port:
+    ``{pkg: stream rows}``."""
+    res = {}
+    for pkg in ("jax", "torch"):
+        r = Run(pkg, app, out, query, config=config)
+        send_multi(r.rt, feed)
+        res[pkg] = r.close()
+    return res
+
+
+def assert_multi_match(app, feed, **kw):
+    """``run_both_multi``, then the port's rows equal the reference's under
+    the tolerance rule; returns the row count."""
+    res = run_both_multi(app, feed, **kw)
+    assert_rows_match(res["torch"], res["jax"])
+    return len(res["jax"])
+
+
+def two_stream_feed(seed, streams=("A", "B"), n_items=40, n_keys=4):
+    """A seeded interleaving of single events and 8-row column batches on
+    ``streams``, each of schema ``(k string, v double)``: same-key
+    duplicates, clocks that stand still, creep and jump past `within`
+    bounds and absent deadlines. (One batch size keeps the reference to
+    one compile per stream.)"""
+    rng = np.random.default_rng(seed)
+    keys = np.array([f"K{i}" for i in range(n_keys)], dtype=object)
+    feed, t = [], 1000
+    for _ in range(n_items):
+        s = streams[int(rng.integers(0, len(streams)))]
+        t += int(rng.choice((0, 1, 50, 300, 900, 2500)))
+        if rng.random() < 0.3:
+            feed.append((s, t, [str(keys[rng.integers(0, n_keys)]),
+                                float(np.round(rng.random() * 10, 1))]))
+            continue
+        n = 8
+        ts = t + np.sort(rng.integers(0, int(rng.choice([1, 40, 1200])), n)).astype(np.int64)
+        feed.append((s, {"k": keys[rng.integers(0, n_keys, n)],
+                         "v": np.round(rng.random(n) * 10, 1)}, ts))
+        t = int(ts.max())
+    return feed
+
+
+def port_corpus(name):
+    """A reference test module of the pattern corpus, re-bound to the
+    port: its ``SiddhiManager`` makes port managers on the CPU and its
+    ``StreamCallback``, ``CompileError`` and ``InMemoryConfigManager`` are
+    the port's, so each scenario drives the port through the module's own
+    feed and checks the module's own expected rows (the reference's
+    outputs: the module asserts them of the reference). Returns (module,
+    its test function names)."""
+    import functools
+    import inspect
+    import os
+    import types
+
+    import siddhi_tpu_torch
+
+    path = os.path.join(os.path.dirname(__file__), name + ".py")
+    with open(path) as f:
+        src = f.read()
+    for old, new in (
+            ("from siddhi_tpu import", "from siddhi_tpu_torch import"),
+            ("from siddhi_tpu.ops.expressions import",
+             "from siddhi_tpu_torch.ops.expressions import"),
+            ("from siddhi_tpu.core.util.config import", "from siddhi_tpu_torch import")):
+        src = src.replace(old, new)
+    import re
+
+    left = re.findall(r"(?:from|import) siddhi_tpu\b(?!_torch)[.\w]*", src)
+    assert set(left) <= {"from siddhi_tpu.core.manager"}, (name, left)
+    mod = types.ModuleType(name + "_on_port")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)  # noqa: S102 — a repo test module
+    mod.SiddhiManager = functools.partial(siddhi_tpu_torch.SiddhiManager, device="cpu")
+    # a scenario that builds its own reference manager is not the port's
+    tests = sorted(k for k, v in vars(mod).items()
+                   if k.startswith("test_") and callable(v)
+                   and not inspect.signature(v).parameters
+                   and "siddhi_tpu.core.manager" not in inspect.getsource(v))
+    return mod, tests
