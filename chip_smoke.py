@@ -170,10 +170,41 @@ Phases (any failure exits non-zero and prints no result line):
             step, TIMER steps, state bytes and the card's busy share of each,
             and one K4 and one K5 step's device ops (torch.profiler), host
             functions (cProfile) and host syncs;
-20. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+20. joins   J5, BASELINE config #5 at full width under ``@app:playback``:
+            ``StockStream#window.time(10 sec) join
+            TwitterStream#window.length(100) on symbol == company`` with
+            phase 17's Stock feed (10,000 symbols, 65,536-row batches, 20
+            events/ms, a 262,144-row ring: 200,000 rows live) and a
+            256-row Twitter batch after each Stock batch, 112 pairs, on
+            the partitioned engine (K6; auto P = 8 on the card, both sides
+            partitioned). Checks: every send's rows == a numpy hash join of
+            its batch with the other side's live set, built from the feed
+            alone (the Stock rows of the last 10 s of event time, the last
+            100 Twitter rows), as a multiset; every 8th pair the port's
+            window state == those live sets; the engine == the broadcast
+            probe (``join_engine = legacy``) row for row over 4 pairs; a
+            64-symbol cut of 2 pairs == the port's CPU run; no overflow,
+            peak device memory under 40 GB. Prints events/s, p50/p99/max
+            per-send latency of each side over 109 sends, TIMER steps,
+            state bytes, peak memory, host syncs a send, and one Stock and
+            one Twitter step's device ops and busy share. JB, bench.py
+            ``bench_join``'s shape (length(2048) both sides, 512 keys,
+            2,048-row batches, probe and insert mixes): the engine at P in
+            {1, 8} and depth {1, 2} == the broadcast probe row for row;
+            events/s at each point over 256 timed batches (over 1 s each).
+            TJ: a 10,000-row ``@primaryKey`` table filled by ``update or
+            insert into`` (half the feed's symbols), 4 flagship batches
+            through the indexed table join and an ``in SymbolTable`` filter
+            == a dict lookup; the fill's time, and at 1,000 rows the batch
+            insert against the per-event walk (the same table); events/s.
+            A named window
+            as a join side, on-demand find/update/delete and a `start` and
+            an `every` trigger == the CPU run. No TPU kernel lies on this
+            path: nothing here launches a kernel of the port;
+21. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
-    ``{"kernels": [...]}`` line, the nvidia-smi line, and last ``{"ok":
-    true, "device": {...}}``.
+    ``{"joins": ...}`` line, a ``{"kernels": [...]}`` line, the nvidia-smi
+    line, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -2891,9 +2922,10 @@ def run_nfa(device, app: str, feed, *, slots=None, fast: bool = True,
     return cb, seconds, facts
 
 
-def profile_block(label: str, fn, card: str, top: int = 8):
+def profile_block(label: str, fn, card: str, top: int = 8, tag: str = "patterns"):
     """torch.profiler over ``fn``: wall, the card's busy time (device
-    kernels and copies) and share, and the top device ops."""
+    kernels and copies) and share, and the top device ops, printed under
+    ``[tag]``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2911,11 +2943,11 @@ def profile_block(label: str, fn, card: str, top: int = 8):
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     launches = sum(e.count for e in kernels)
-    print(f"[patterns] profile {label}: wall {wall * 1e3:.2f} ms, device busy "
+    print(f"[{tag}] profile {label}: wall {wall * 1e3:.2f} ms, device busy "
           f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}% of wall), "
           f"{launches} device kernels and copies [{card}]", flush=True)
     for e in kernels[:top]:
-        print(f"[patterns]   {label}: {e.self_device_time_total / 1e3:8.3f} ms "
+        print(f"[{tag}]   {label}: {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}", flush=True)
     return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
             "busy_share": dev_us / 1e6 / wall, "device_launches": launches}
@@ -3258,6 +3290,626 @@ def phase_patterns(device, card: str):
 
 # ------------------------------------------------------------------ main
 
+# ----------------------------------------------------------------- joins
+
+J5_APP = """@app:playback
+define stream StockStream (symbol string, price double, volume long);
+define stream TwitterStream (user string, company string);
+@info(name = 'j5')
+from StockStream#window.time(10 sec) join TwitterStream#window.length(100)
+on StockStream.symbol == TwitterStream.company
+select StockStream.symbol as symbol, TwitterStream.user as user, price
+insert into JoinOut;
+"""
+J5_CAPACITY = 262_144           # 200,000 rows live in 10 s at 20 events/ms
+J5_PAIRS = 112                  # Stock batches, each followed by a Twitter one:
+                                # 109 latency samples a side, so p99 is not the max
+J5_TWEETS = 256
+J5_WINDOW_MS = 10_000           # the app's time(10 sec)
+J5_TWITTER_WINDOW = 100         # the app's length(100)
+J5_STATE_EVERY = 8              # pairs between cross-checks of the window state
+J5_USERS = 1_000
+J5_LEGACY_PAIRS = 4
+J5_CUT_SYMBOLS = 64
+J5_CUT_PAIRS = 2
+J5_MEMORY_LIMIT = 40 * 2 ** 30
+JB_APP = """
+define stream L (sym string, lv long);
+define stream R (sym string, rv long);
+@info(name = 'jb') from L#window.length({W}) join R#window.length({W})
+  on L.sym == R.sym
+  select L.sym as sym, L.lv as lv, R.rv as rv insert into JoinOut;
+"""
+JB_WINDOW = 2_048               # bench.py bench_join's defaults
+JB_BATCH = 2_048
+JB_KEYS = 512
+JB_SENDS = 256                  # timed batches a point: over 1 s at every point
+TJ_APP = """@app:playback
+@primaryKey('symbol')
+define table SymbolTable (symbol string, sector string, cap double);
+define stream SymbolFeed (symbol string, sector string, cap double);
+define stream StockStream (symbol string, price double, volume long);
+from SymbolFeed select symbol, sector, cap
+update or insert into SymbolTable on SymbolTable.symbol == symbol;
+@info(name = 'tj') from StockStream join SymbolTable
+on StockStream.symbol == SymbolTable.symbol
+select StockStream.symbol as symbol, SymbolTable.sector as sector, price
+insert into Enriched;
+@info(name = 'tin') from StockStream[(symbol == SymbolTable.symbol) in SymbolTable]
+select symbol, price insert into Known;
+"""
+TJ_ROWS = 10_000                # S0, S2, ..., S19998: half the feed's symbols
+TJ_SECTORS = 11
+TJ_BATCHES = 4
+TJ_WALK_ROWS = 1_000            # the fill walked one event at a time, at a cut
+STORE_APP = """@app:playback
+define stream S (k string, v double);
+define stream R (k string, v double);
+define window W (k string, v double) length(8);
+@primaryKey('k') define table T (k string, v double);
+define trigger Start at 'start';
+define trigger Tick at every 500 millisec;
+from R insert into W;
+from S select k, v update or insert into T on T.k == k;
+@info(name = 'wj') from S#window.length(16) join W on S.k == W.k
+select S.k as k, S.v as sv, W.v as wv insert into WJ;
+from Start select triggered_time as t insert into Starts;
+from Tick select triggered_time as t insert into Ticks;
+"""
+STORE_QUERIES = [
+    "from T on v > 50.0 select k, v",
+    "select 1.5 as nv update T set T.v = nv on T.k == 'K3'",
+    "select 10.0 as lim delete T on T.v < lim",
+    "from T select k, v order by k",
+    "from W select k, v",
+]
+
+
+def j5_feed(seed: int, pairs: int, n_symbols: int = 0):
+    """Phase 17's StockStream feed (``tw_feed``) with a 256-row
+    TwitterStream batch after each Stock batch, stamped at that batch's
+    last timestamp: ``company`` from the same symbols, ``user`` from 1,000
+    strings. Returns (items (stream, columns, timestamps), and for each
+    item its symbol ids: ``symbol``'s of a Stock batch, ``company``'s of a
+    Twitter batch)."""
+    import numpy as np
+
+    n_symbols = n_symbols or NUM_SYMBOLS
+    stock, stock_ids = tw_feed(seed, pairs, n_symbols=n_symbols)
+    rng = np.random.default_rng(seed + 1)
+    syms = np.array([f"S{i}" for i in range(n_symbols)], dtype=object)
+    users = np.array([f"U{i}" for i in range(J5_USERS)], dtype=object)
+    feed, ids = [], []
+    for i, (cols, ts) in enumerate(stock):
+        feed.append(("StockStream", {k: v for k, v in cols.items() if k != "ts"}, ts))
+        ids.append(stock_ids[i * BATCH: (i + 1) * BATCH])
+        company = rng.integers(0, n_symbols, J5_TWEETS)
+        feed.append(("TwitterStream", {
+            "user": users[rng.integers(0, J5_USERS, J5_TWEETS)],
+            "company": syms[company]},
+            np.full(J5_TWEETS, int(ts[-1]), np.int64)))
+        ids.append(company)
+    return feed, ids
+
+
+class J5Oracle:
+    """Config #5's join from the feed alone: the Stock rows of the last
+    10 s of event time (``(now - 10 s, now]``) and the last 100 Twitter
+    rows, each send's rows a numpy hash join of its batch with the other
+    side's live set (symbol ids, then decoded)."""
+
+    def __init__(self, n_symbols: int):
+        import numpy as np
+
+        self.syms = [f"S{i}" for i in range(n_symbols)]
+        self.stock = []         # (symbol ids, prices, timestamps) per batch
+        self.users = np.empty(0, object)
+        self.company = np.empty(0, np.int64)
+
+    def live_stock(self, now: int):
+        """(symbol ids, prices) of the Stock rows live at ``now``."""
+        import numpy as np
+
+        ids, price, ts = (np.concatenate(c) for c in zip(*self.stock))
+        live = ts > now - J5_WINDOW_MS
+        return ids[live], price[live]
+
+    def join(self, stock_ids, price, users, company):
+        """The sorted multiset of (symbol, user, price) of Stock rows
+        joined with Twitter rows on symbol == company."""
+        import numpy as np
+
+        by_company = {}
+        for u, c in zip(users.tolist(), company.tolist()):
+            by_company.setdefault(c, []).append(u)
+        hit = np.nonzero(np.isin(stock_ids, np.fromiter(by_company, np.int64)))[0]
+        return sorted((self.syms[c], u, p)
+                      for c, p in zip(stock_ids[hit].tolist(),
+                                      price[hit].astype(np.float64).tolist())
+                      for u in by_company[c])
+
+    def send(self, stream: str, cols: dict, ts, ids):
+        """The rows a send must emit; the send then joins the live sets."""
+        import numpy as np
+
+        if stream == "StockStream":
+            price = np.asarray(cols["price"])
+            want = self.join(ids, price, self.users, self.company)
+            # batches wholly out of the window are dropped
+            self.stock = [b for b in self.stock if b[2][-1] > ts[-1] - J5_WINDOW_MS]
+            self.stock.append((ids, price, ts))
+            return want
+        want = ([] if not self.stock else
+                self.join(*self.live_stock(int(ts[-1])), cols["user"], ids))
+        self.users = np.concatenate([self.users, cols["user"]])[-J5_TWITTER_WINDOW:]
+        self.company = np.concatenate([self.company, ids])[-J5_TWITTER_WINDOW:]
+        return want
+
+
+def check_live_state(q, oracle: J5Oracle, dictionary, now: int):
+    """The cross-check of the port's own window state: each side's live
+    rows (``contents()`` of its window stage, read to the host) equal the
+    oracle's live sets as multisets."""
+    import numpy as np
+
+    def contents(side):
+        st = q.sides[side]
+        cols, valid = st.window_stage.contents(q._state["lwin" if side == "left" else "rwin"])
+        valid = valid.cpu().numpy()
+        return {a.name: cols[a.name].cpu().numpy()[valid] for a in st.definition.attributes}
+
+    def same(a, b):
+        oa, ob = np.lexsort(a[::-1]), np.lexsort(b[::-1])
+        return all(np.array_equal(x[oa], y[ob]) for x, y in zip(a, b))
+
+    dict_id = np.array([dictionary._to_id.get(s, -2) for s in oracle.syms], np.int64)
+    stock, tweets = contents("left"), contents("right")
+    ids, price = oracle.live_stock(now)
+    _require(same((stock["symbol"].astype(np.int64), stock["price"].astype(np.float64)),
+                  (dict_id[ids], price.astype(np.float64))),
+             f"J5 at {now}: the Stock window holds {int(stock['symbol'].size)} rows, "
+             f"the feed's last 10 s {int(ids.size)}")
+    users = np.array([dictionary._to_id[u] for u in oracle.users.tolist()], np.int64)
+    _require(same((tweets["company"].astype(np.int64), tweets["user"].astype(np.int64)),
+                  (dict_id[oracle.company], users)),
+             f"J5 at {now}: the Twitter window differs from the feed's last "
+             f"{J5_TWITTER_WINDOW} rows")
+
+
+def emitted_rows(batches, strings):
+    rows = []
+    for b in batches:
+        rows.extend(zip(strings[b["symbol"]], strings[b["user"]],
+                        b["price"].astype(float).tolist()))
+    return rows
+
+
+def run_j5(device, feed, card: str, config=None, oracle_ids=None, profile=False):
+    """Drive J5 through the public API: each item through its stream's
+    InputHandler, the card synchronised after each send. Given the feed's
+    symbol ids (``oracle_ids``) each send's rows are held, as a multiset,
+    against ``J5Oracle``'s join over live sets built from the feed alone,
+    and every J5_STATE_EVERY-th pair the port's window state against
+    those live sets. With ``profile`` the last pair's Stock and Twitter
+    steps run under torch.profiler and the pair before under torch's sync
+    debug mode. Returns the facts."""
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+    cuda = device.type == "cuda"
+    m = SiddhiManager(device=device)
+    knobs = {"window_capacity": J5_CAPACITY, **(config or {})}
+    m.set_config_manager(InMemoryConfigManager(
+        {f"siddhi_tpu.{k}": str(v) for k, v in knobs.items()}))
+    rt = m.create_siddhi_app_runtime(J5_APP)
+    q = rt.query_runtimes["j5"]
+    cb = collector()
+    rt.add_callback("JoinOut", cb)
+    timers = {"n": 0}
+    orig_timer = q._timer
+
+    def counted_timer(side_key, ts):
+        timers["n"] += 1
+        return orig_timer(side_key, ts)
+
+    q._timer = counted_timer
+    dictionary = rt.app_context.string_dictionary
+    handlers = {s: rt.get_input_handler(s) for s in ("StockStream", "TwitterStream")}
+    oracle = None
+    if oracle_ids is not None:
+        oracle = J5Oracle(1 + max(int(i.max()) for i in oracle_ids))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    seconds = {"StockStream": [], "TwitterStream": []}
+    per_send, syncs, profiles, state_checks = [], {}, {}, 0
+    for i, (stream, cols, ts) in enumerate(feed):
+        want = None if oracle is None else oracle.send(stream, cols, ts, oracle_ids[i])
+        n0 = len(cb.batches)
+
+        def send(stream=stream, cols=cols, ts=ts):
+            handlers[stream].send_columns(cols, timestamps=ts)
+
+        # the last pair runs under torch.profiler and the one before under
+        # sync debug mode: both stay out of the latency samples
+        last_pair = i >= len(feed) - 2
+        if profile and cuda and last_pair:
+            profiles[stream] = profile_block(f"J5 {stream} step", send, card,
+                                             tag="joins")
+        elif profile and cuda and len(feed) - 4 <= i < len(feed) - 2:
+            out = {}
+            with counting_syncs(out):
+                send()
+                torch.cuda.synchronize()
+            syncs[stream] = out
+        else:
+            t0 = time.perf_counter()
+            send()
+            if cuda:
+                torch.cuda.synchronize()
+            seconds[stream].append(time.perf_counter() - t0)
+        per_send.append(cb.batches[n0:])
+        if want is not None:
+            strings = np.array(dictionary._to_str, dtype=object)
+            got = sorted(emitted_rows(cb.batches[n0:], strings))
+            _require(got == want,
+                     f"J5 send {i} ({stream}): {len(got)} rows, the numpy hash "
+                     f"join over the feed's live sets gives {len(want)}")
+            if (i // 2) % J5_STATE_EVERY == 0 and i % 2 == 1:
+                check_live_state(q, oracle, dictionary, int(ts[-1]))
+                state_checks += 1
+    eng = q.engine
+    facts = {
+        "engine": None if eng is None else {
+            "P": eng.P, "Wp": {k: p.Wp for k, p in eng.plans.items()},
+            "partitioned": {k: p.use_pidx for k, p in eng.plans.items()}},
+        "engine_reason": q.engine_reason,
+        "seconds": seconds, "timer_steps": timers["n"],
+        "state_bytes": sum(t.numel() * t.element_size() for t in _leaves(q._state)),
+        "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+        "syncs": syncs, "profiles": profiles, "seq_breaks": q.seq_breaks,
+        "state_checks": state_checks,
+        "strings": np.array(dictionary._to_str, dtype=object),
+    }
+    m.shutdown()
+    facts["rows"] = [emitted_rows(b, facts["strings"]) for b in per_send]
+    return facts
+
+
+def quantile_ms(seconds, p):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(seconds) * 1e3, p))
+
+
+def jb_run(device, mode: str, P: int, depth: int, mix: str):
+    """bench.py ``bench_join``'s shape: L/R ``#window.length(2048)``, 512
+    keys, 2,048-row batches. ``probe``: R filled to its window once, then
+    L batches probe it; ``insert``: batches alternate sides. Two warm
+    pairs, then JB_SENDS timed batches. Returns (the emitted columns,
+    events/s, the timed seconds)."""
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+    rng = np.random.default_rng(23)
+    syms = np.array([f"S{i}" for i in range(JB_KEYS)], dtype=object)
+
+    def batch(i, side):
+        ids = rng.integers(0, JB_KEYS, JB_BATCH, dtype=np.int64)
+        return side, ({"sym": syms[ids],
+                       ("lv" if side == "L" else "rv"):
+                           rng.integers(0, 1000, JB_BATCH, dtype=np.int64)},
+                      np.arange(i * JB_BATCH, (i + 1) * JB_BATCH, dtype=np.int64))
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager({
+        "siddhi_tpu.join_engine": mode, "siddhi_tpu.join_partitions": str(P),
+        "siddhi_tpu.pipeline_depth": str(depth),
+        "siddhi_tpu.window_capacity": str(JB_WINDOW)}))
+    rt = m.create_siddhi_app_runtime(JB_APP.format(W=JB_WINDOW))
+    cb = collector()
+    rt.add_callback("JoinOut", cb)
+    h = {s: rt.get_input_handler(s) for s in ("L", "R")}
+    warm = [batch(0, "R")] if mix == "probe" else []
+    warm += [batch(1 + j, s) for j, s in enumerate(["L", "R", "L", "R"])]
+    sides = ["L"] * JB_SENDS if mix == "probe" else ["L", "R"] * (JB_SENDS // 2)
+    measured = [batch(5 + j, s) for j, s in enumerate(sides)]
+    for side, (cols, ts) in warm:
+        h[side].send_columns(cols, timestamps=ts)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for side, (cols, ts) in measured:
+        h[side].send_columns(cols, timestamps=ts)
+    rt.app_context.completion_pump.flush()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    engine = rt.query_runtimes["jb"].engine
+    m.shutdown()
+    _require(cb.rows, f"JB {mode} P={P} depth={depth} {mix}: no rows")
+    _require((engine is not None) == (mode == "device"),
+             f"JB {mode}: engine attached = {engine is not None}")
+    cols = {k: np.concatenate([b[k] for b in cb.batches]) for k in ("sym", "lv", "rv")}
+    return cols, JB_SENDS * JB_BATCH / secs, secs
+
+
+def tj_fill(device, n_rows: int, chunk=None):
+    """A TJ app whose symbol table takes ``n_rows`` rows (S0, S2, ...) by
+    ``update or insert into`` in one send. ``chunk`` (None: the table's
+    own) sets the table's ``insert_chunk``: 0 walks every event one at a
+    time, as the reference does. Returns (manager, runtime, the send's
+    seconds, the symbols, their sectors)."""
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    rng = np.random.default_rng(41)
+    tsyms = np.array([f"S{2 * i}" for i in range(n_rows)], dtype=object)
+    sectors = np.array([f"SEC{i % TJ_SECTORS}" for i in range(n_rows)], dtype=object)
+    caps = rng.random(n_rows) * 1e9
+    m = SiddhiManager(device=device)
+    rt = m.create_siddhi_app_runtime(TJ_APP)
+    table = rt.tables["SymbolTable"]
+    if chunk is not None:
+        table.insert_chunk = chunk
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt.get_input_handler("SymbolFeed").send_columns(
+        {"symbol": tsyms, "sector": sectors, "cap": caps},
+        timestamps=np.full(n_rows, TW_BASE - 1, np.int64))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _require(table.count == n_rows, f"TJ: the table holds {table.count} rows")
+    return m, rt, secs, tsyms, sectors
+
+
+def run_tj(device, feed):
+    """TJ: the symbol table filled by ``update or insert into`` (10,000
+    rows, half the feed's symbols), then the flagship feed's batches
+    through the indexed table join and the ``in`` filter, both held
+    against a dict lookup. Returns the row counts, the fill's seconds and
+    events/s."""
+    import numpy as np
+    import torch
+
+    m, rt, fill_s, tsyms, sectors = tj_fill(device, TJ_ROWS)
+    outs = {s: collector() for s in ("Enriched", "Known")}
+    for s, c in outs.items():
+        rt.add_callback(s, c)
+    q = rt.query_runtimes["tj"]
+    _require(q.index_probe is not None and q.index_probe["attr"] == "symbol",
+             "TJ: the table join did not take the indexed probe")
+    h = rt.get_input_handler("StockStream")
+    seconds = []
+    for cols, ts in feed:
+        t0 = time.perf_counter()
+        h.send_columns({k: v for k, v in cols.items() if k != "ts"}, timestamps=ts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    strings = np.array(rt.app_context.string_dictionary._to_str, dtype=object)
+    m.shutdown()
+    sector_of = dict(zip(tsyms.tolist(), sectors.tolist()))
+    want_e, want_k = [], []
+    for cols, _ts in feed:
+        for s, p in zip(cols["symbol"].tolist(), cols["price"].astype(np.float64).tolist()):
+            if s in sector_of:
+                want_e.append((s, sector_of[s], p))
+                want_k.append((s, p))
+    got_e = [r for b in outs["Enriched"].batches for r in zip(
+        strings[b["symbol"]].tolist(), strings[b["sector"]].tolist(),
+        b["price"].astype(float).tolist())]
+    got_k = [r for b in outs["Known"].batches for r in zip(
+        strings[b["symbol"]].tolist(), b["price"].astype(float).tolist())]
+    _require(got_e == want_e, f"TJ: {len(got_e)} enriched rows, the dict lookup "
+             f"gives {len(want_e)}")
+    _require(got_k == want_k, f"TJ: {len(got_k)} `in` rows, the dict lookup "
+             f"gives {len(want_k)}")
+    return {"rows": len(got_e), "known": len(got_k), "fill_s": fill_s,
+            "eps": steady_eps(seconds, BATCH), "seconds": seconds}
+
+
+def run_stores(device):
+    """The cut checks: a named window as a join side, on-demand
+    find/update/delete, a `start` and an `every` trigger. Returns every
+    output and query result (trigger start times dropped: they read the
+    host clock before the first event)."""
+    import numpy as np
+
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+
+    class Rows(StreamCallback):
+        def __init__(self):
+            self.rows = []
+
+        def receive(self, events):
+            self.rows.extend((e.timestamp, tuple(e.data)) for e in events)
+
+    rng = np.random.default_rng(53)
+    m = SiddhiManager(device=device)
+    rt = m.create_siddhi_app_runtime(STORE_APP)
+    outs = {s: Rows() for s in ("WJ", "Starts", "Ticks")}
+    for s, c in outs.items():
+        rt.add_callback(s, c)
+    rt.start()
+    t = 1_000
+    for i in range(60):
+        t += int(rng.choice([0, 40, 300]))
+        stream = "S" if rng.random() < 0.6 else "R"
+        rt.get_input_handler(stream).send(
+            t, [f"K{int(rng.integers(0, 6))}", float(np.round(rng.random() * 100, 2))])
+    found = [[tuple(e.data) for e in rt.query(qs)] for qs in STORE_QUERIES]
+    m.shutdown()
+    return {"WJ": outs["WJ"].rows, "starts": len(outs["Starts"].rows),
+            "Ticks": outs["Ticks"].rows, "queries": found}
+
+
+def phase_joins(device, card: str):
+    """Phase 20: joins, tables, named windows, on-demand queries and
+    triggers. J5, BASELINE config #5 at full width, on the engine (auto
+    P = 8 on the card) against a numpy hash join of every send over live
+    sets built from the feed, against the broadcast probe row for row,
+    and at a 64-symbol cut against the port's CPU run; JB, bench_join's
+    shape, engine == broadcast at P in {1, 8} and depth {1, 2}; TJ, the
+    stream-table enrichment against a dict lookup, and its fill's batch
+    insert against the per-event walk; the cut store checks against the
+    CPU."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    res = {"reduced": [
+        f"J5: {J5_PAIRS} Stock/Twitter batch pairs (depth); the broadcast "
+        f"probe over the first {J5_LEGACY_PAIRS}",
+        f"J5 on the CPU: {J5_CUT_SYMBOLS} symbols, {J5_CUT_PAIRS} pairs",
+        f"JB: {JB_SENDS} timed batches a point in place of bench_join's "
+        f"MEASURE_SECONDS / 2; P in {{1, 8}} of {{1, 2, 4, 8}}",
+        f"TJ: {TJ_BATCHES} flagship batches; the walked fill at {TJ_WALK_ROWS} "
+        f"of {TJ_ROWS} rows"]}
+    cpu = __import__("torch").device("cpu")
+
+    # J5 on the engine, every send against the numpy hash join
+    feed, feed_ids = j5_feed(17, J5_PAIRS)
+    f = run_j5(device, feed, card, oracle_ids=feed_ids, profile=True)
+    eng = f["engine"]
+    _require(eng is not None and eng["P"] == (8 if device.type == "cuda" else 1),
+             f"J5: engine {eng} ({f['engine_reason']})")
+    if device.type == "cuda":
+        _require(all(eng["partitioned"].values()),
+                 f"J5: both sides must take the partitioned probe: {eng}")
+    _require(f["seq_breaks"] == 0, "J5: drain sequence breaks")
+    _require(f["peak_bytes"] < J5_MEMORY_LIMIT,
+             f"J5: peak device memory {f['peak_bytes']} bytes")
+    n_rows = sum(len(r) for r in f["rows"])
+    rows_in = sum(len(ts) for _s, _c, ts in feed)
+    secs = f["seconds"]
+    # timed pairs: all but the first (the card's lazy loading and the
+    # allocator) and the two measured under the profiler and sync mode
+    timed = len(secs["StockStream"]) - 1
+    timed_s = sum(secs["StockStream"][1:]) + sum(secs["TwitterStream"][1:])
+    res["J5"] = {
+        "pairs": J5_PAIRS, "timed_pairs": timed, "rows_in": rows_in,
+        "rows_out": n_rows, "state_checks": f["state_checks"],
+        "first_pair_s": secs["StockStream"][0] + secs["TwitterStream"][0],
+        "events_per_s": timed * (BATCH + J5_TWEETS) / timed_s,
+        "latency_samples": timed,
+        **{f"{k}_{q}_ms": (max(secs[s][1:]) * 1e3 if q == "max"
+                           else quantile_ms(secs[s][1:], int(q[1:])))
+           for k, s in (("stock", "StockStream"), ("twitter", "TwitterStream"))
+           for q in ("p50", "p99", "max")},
+        "timer_steps": f["timer_steps"], "state_bytes": f["state_bytes"],
+        "peak_bytes": f["peak_bytes"], "P": eng["P"], "Wp": eng["Wp"],
+        "syncs": {s: v["syncs"] for s, v in f["syncs"].items()},
+        "sync_sites": {s: v["sync_sites"] for s, v in f["syncs"].items()},
+        "busy_share": {s: v["busy_share"] for s, v in f["profiles"].items()},
+        "profile_ms": {s: {"wall": v["wall_ms"], "device": v["device_ms"]}
+                       for s, v in f["profiles"].items()},
+    }
+    j5 = res["J5"]
+    print(f"[joins] J5 (config #5: time(10 sec) x length(100) on symbol, "
+          f"{NUM_SYMBOLS} symbols, {BATCH}-row Stock + {J5_TWEETS}-row Twitter "
+          f"batches, ring {J5_CAPACITY}): P={eng['P']}, Wp {eng['Wp']}, "
+          f"{rows_in} rows in, {n_rows} rows out, every send == the numpy hash "
+          f"join over the feed's live sets, the window state == those sets at "
+          f"{f['state_checks']} sends; {j5['events_per_s']:.1f} events/s over "
+          f"{timed} timed pairs (the first {j5['first_pair_s']:.2f} s), Stock "
+          f"p50/p99/max {j5['stock_p50_ms']:.2f}/{j5['stock_p99_ms']:.2f}/"
+          f"{j5['stock_max_ms']:.2f} ms, Twitter p50/p99/max "
+          f"{j5['twitter_p50_ms']:.2f}/{j5['twitter_p99_ms']:.2f}/"
+          f"{j5['twitter_max_ms']:.2f} ms over {timed} sends a side, "
+          f"{f['timer_steps']} TIMER steps, state {f['state_bytes']} bytes, peak "
+          f"device memory {f['peak_bytes'] / 2 ** 30:.2f} GiB, host syncs a send "
+          f"{j5['syncs']} [{card}]", flush=True)
+
+    # the broadcast probe on the card, row for row, over the first pairs
+    head = feed[:2 * J5_LEGACY_PAIRS]
+    lg = run_j5(device, head, card, config={"join_engine": "legacy"})
+    _require(lg["engine"] is None, "J5 legacy: an engine attached")
+    _require(lg["rows"] == f["rows"][:len(head)],
+             "J5: the engine's rows differ from the broadcast probe's")
+    ls = lg["seconds"]
+    j5["legacy"] = {
+        "stock_p50_ms": quantile_ms(ls["StockStream"][1:], 50),
+        "twitter_p50_ms": quantile_ms(ls["TwitterStream"][1:], 50),
+        "peak_bytes": lg["peak_bytes"]}
+    print(f"[joins] J5 engine == broadcast probe row for row over "
+          f"{J5_LEGACY_PAIRS} pairs ({sum(len(r) for r in lg['rows'])} rows); "
+          f"broadcast probe Stock p50 {j5['legacy']['stock_p50_ms']:.2f} ms, "
+          f"Twitter p50 {j5['legacy']['twitter_p50_ms']:.2f} ms over "
+          f"{J5_LEGACY_PAIRS - 1} sends a side, peak "
+          f"{lg['peak_bytes'] / 2 ** 30:.2f} GiB [{card}]", flush=True)
+
+    # a 64-symbol cut, the card against the port's CPU run
+    cut, _ids = j5_feed(19, J5_CUT_PAIRS, n_symbols=J5_CUT_SYMBOLS)
+    on_card = run_j5(device, cut, card)
+    on_cpu = run_j5(cpu, cut, card)
+    _require(on_card["rows"] == on_cpu["rows"],
+             "J5 cut: the card's rows differ from the CPU run's")
+    print(f"[joins] J5 at {J5_CUT_SYMBOLS} symbols, {J5_CUT_PAIRS} pairs: card == "
+          f"the port's CPU run ({sum(len(r) for r in on_card['rows'])} rows)",
+          flush=True)
+
+    # JB: bench_join's shape
+    res["JB"] = {}
+    for mix in ("probe", "insert"):
+        ref, ref_eps, ref_s = jb_run(device, "legacy", 1, 1, mix)
+        pts = {"legacy_d1": {"eps": ref_eps, "s": ref_s}}
+        for P in (1, 8):
+            for depth in (1, 2):
+                cols, eps, sec = jb_run(device, "device", P, depth, mix)
+                _require(all(np.array_equal(cols[k], ref[k]) for k in ref),
+                         f"JB {mix} P={P} depth={depth}: engine != broadcast probe")
+                pts[f"P{P}_d{depth}"] = {"eps": eps, "s": sec}
+        res["JB"][mix] = pts
+        print(f"[joins] JB {mix} mix (length({JB_WINDOW}) x2, {JB_KEYS} keys, "
+              f"{JB_BATCH}-row batches, {JB_SENDS} timed sends a point, "
+              f"{ref['sym'].size} rows == broadcast at every point): events/s "
+              + ", ".join(f"{k} {v['eps']:.1f} ({v['s']:.2f} s)" for k, v in pts.items())
+              + f" [{card}]", flush=True)
+
+    # TJ: stream-table enrichment
+    stock = [(c, ts) for _s, c, ts in feed if _s == "StockStream"][:TJ_BATCHES]
+    tj = run_tj(device, stock)
+    res["TJ"] = {k: v for k, v in tj.items() if k != "seconds"}
+    print(f"[joins] TJ: {TJ_ROWS}-row @primaryKey table by update or insert "
+          f"({tj['fill_s'] * 1e3:.2f} ms), {TJ_BATCHES} flagship batches through the "
+          f"indexed table join and `in`: {tj['rows']} enriched and {tj['known']} "
+          f"`in` rows == the dict lookup; {tj['eps']:.1f} events/s [{card}]",
+          flush=True)
+    # the fill's batch insert against the per-event walk, at a cut
+    fills, tables = {}, {}
+    for name, chunk in (("batch", None), ("walk", 0)):
+        m, rt, fills[name], _t, _s = tj_fill(device, TJ_WALK_ROWS, chunk)
+        tables[name] = [tuple(e.data) for e in rt.query(
+            "from SymbolTable select symbol, sector, cap")]
+        m.shutdown()
+    _require(tables["batch"] == tables["walk"],
+             "TJ: the batch insert's table differs from the walk's")
+    res["TJ"]["fill_cut"] = {"rows": TJ_WALK_ROWS, **{f"{k}_s": v for k, v in fills.items()}}
+    print(f"[joins] TJ fill of {TJ_WALK_ROWS} rows: batch insert "
+          f"{fills['batch'] * 1e3:.2f} ms, walked one event at a time "
+          f"{fills['walk'] * 1e3:.2f} ms, the same table [{card}]", flush=True)
+
+    # the cut store checks: the card against the CPU
+    st_card, st_cpu = run_stores(device), run_stores(cpu)
+    _require(st_card == st_cpu, "stores: the card's outputs differ from the CPU run's")
+    _require(st_card["starts"] == 1 and st_card["Ticks"] and st_card["WJ"]
+             and st_card["queries"][0], f"stores: {st_card}")
+    print(f"[joins] named window join ({len(st_card['WJ'])} rows), on-demand "
+          f"find/update/delete ({len(STORE_QUERIES)} queries), `start` and `every` "
+          f"triggers ({len(st_card['Ticks'])} ticks) == the CPU run", flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[joins] phase 20 in {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -3465,8 +4117,10 @@ def main() -> int:
     dist["launches"]["PT"] = pt_launches
     # 19. patterns and sequences: config #4 at full width, K4 and K5
     patterns = phase_patterns(device, card)
+    # 20. joins, tables, named windows, on-demand queries, triggers
+    joins = phase_joins(device, card)
 
-    # 20. result lines
+    # 21. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
@@ -3527,6 +4181,7 @@ def main() -> int:
                "batch_steps": f["steps"]["batch"]} for name, f in win.items()}}))
     print(json.dumps({"partitions": part}))
     print(json.dumps({"patterns": patterns}))
+    print(json.dumps({"joins": joins}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,15 @@ scripts, the set-element metadata of OBJECT attributes,
 ``@app:name``/``@app:playback`` (with its idle heartbeat)/
 ``@app:precision``, the app's scheduler (TIMER chunks of time windows),
 output rate limiters, pattern and sequence queries (one proxy receiver
-per consumed stream), ``@Async`` and ``@OnError`` streams,
+per consumed stream), joins (one proxy receiver per side), tables with
+``insert into``/``delete``/``update``/``update or insert into`` and ``in
+<table>``, named windows, triggers, on-demand queries
+(``SiddhiAppRuntime.query``), ``@Async`` and ``@OnError`` streams,
 ``@source``/``@sink`` transports, the dispatch pipeline and the ingest
-pack pool, and the ``siddhi_tpu.*`` config knobs. Tables, named
-windows, triggers and incremental aggregations are not ported yet and
-raise ``CompileError`` naming themselves, so an app never runs with a
-part silently missing.
+pack pool, and the ``siddhi_tpu.*`` config knobs. Incremental
+aggregations (and joins against them) are not ported yet and raise
+``CompileError`` naming themselves, so an app never runs with a part
+silently missing.
 
 The app starts at ``start()`` or at its first send: @Async workers, the
 ingest pool, rate limiters, sinks' connections and sources (each
@@ -43,11 +46,17 @@ from siddhi_tpu_torch.ops.expressions import CompileError, set_active_extensions
 from siddhi_tpu_torch.query_api.annotations import find_annotation, find_annotations
 from siddhi_tpu_torch.query_api.definitions import Attribute, AttrType, StreamDefinition
 from siddhi_tpu_torch.query_api.execution import (
+    DeleteStream,
+    EventTrigger,
     InsertIntoStream,
+    JoinInputStream,
     Partition,
     Query,
     RangePartitionType,
+    SingleInputStream,
     StateInputStream,
+    UpdateOrInsertStream,
+    UpdateStream,
     ValuePartitionType,
 )
 from siddhi_tpu_torch.query_api.expressions import AttributeFunction, Variable
@@ -146,6 +155,28 @@ def _default_app_name(siddhi_app: SiddhiApp) -> str:
     return "siddhi-app-" + hashlib.md5(repr(siddhi_app).encode()).hexdigest()[:12]
 
 
+def _refuse_aggregations(siddhi_app: SiddhiApp) -> None:
+    """Incremental aggregations wait for ROADMAP A.7: ``define
+    aggregation`` raises, and a join against one names itself first."""
+    aggs = siddhi_app.aggregation_definitions
+    if not aggs:
+        return
+    queries = []   # in the app's order, as query names are numbered
+    for e in siddhi_app.execution_elements:
+        queries.extend(e.queries if isinstance(e, Partition) else [e])
+    for i, q in enumerate(queries, 1):
+        ist = q.input_stream
+        if isinstance(ist, JoinInputStream):
+            for s in (ist.left, ist.right):
+                if s.unique_stream_id in aggs:
+                    raise CompileError(
+                        f"query '{q.name or f'query_{i}'}': joins against incremental "
+                        f"aggregations (join {s.stream_id} within ... per ...) "
+                        f"are not ported to siddhi_tpu_torch yet (ROADMAP A.7)")
+    raise CompileError("incremental aggregations (define aggregation) are not "
+                       "ported to siddhi_tpu_torch yet (ROADMAP A.7)")
+
+
 class SiddhiAppRuntime:
     def __init__(self, siddhi_app: SiddhiApp, siddhi_context: SiddhiContext):
         self.siddhi_app = siddhi_app
@@ -162,13 +193,7 @@ class SiddhiAppRuntime:
         self.sink_runtimes: List = []
         self._started = False
 
-        for what, defs in (("tables", siddhi_app.table_definitions),
-                           ("named windows", siddhi_app.window_definitions),
-                           ("triggers", siddhi_app.trigger_definitions),
-                           ("incremental aggregations",
-                            siddhi_app.aggregation_definitions)):
-            if defs:
-                raise CompileError(f"{what} are not ported to siddhi_tpu_torch yet")
+        _refuse_aggregations(siddhi_app)
         pb = siddhi_app.app_annotation("playback")
         if pb is not None:
             # idle.time + increment enable the idle heartbeat
@@ -217,6 +242,7 @@ class SiddhiAppRuntime:
 
         for sdef in list(self.stream_definitions.values()):
             self._create_junction(sdef)
+        self._define_stores(siddhi_app, siddhi_context)
 
         self.input_manager = InputManager(self.app_context, self.junctions,
                                           self._barrier)
@@ -251,6 +277,45 @@ class SiddhiAppRuntime:
                 self.sink_runtimes.append(sr)
 
     # ------------------------------------------------------------ assembly
+
+    def _define_stores(self, siddhi_app: SiddhiApp, siddhi_context) -> None:
+        """Tables, named windows and triggers (the reference's
+        defineTable/defineWindow/defineTrigger at app assembly)."""
+        from siddhi_tpu_torch.core.table.record_table import create_table
+        from siddhi_tpu_torch.core.trigger import TriggerRuntime
+        from siddhi_tpu_torch.core.window import NamedWindowRuntime
+
+        ctx = self.app_context
+        dictionary = ctx.string_dictionary
+        self.tables = {tid: create_table(tdef, dictionary, siddhi_context.extensions,
+                                         ctx.device)
+                       for tid, tdef in siddhi_app.table_definitions.items()}
+        for t in self.tables.values():
+            cache = getattr(t, "cache", None)
+            if cache is not None:
+                # a row cached before start() stamps the clock the expiry
+                # sweep reads (wall time would make playback rows immortal)
+                cache.now_fn = ctx.timestamp_generator.current_time
+        self.named_windows = {}
+        for wid, wdef in siddhi_app.window_definitions.items():
+            w = NamedWindowRuntime(wdef, ctx, dictionary)
+            w.scheduler = ctx.scheduler
+            self.named_windows[wid] = w
+        ctx.tables = self.tables
+        ctx.named_windows = self.named_windows
+        self.trigger_runtimes = []
+        for tid, tdef in siddhi_app.trigger_definitions.items():
+            if tid in self.junctions:
+                # an explicit `(triggered_time long)` stream may share the
+                # trigger's id (TriggerTestCase testQuery4)
+                junction = self.junctions[tid]
+            else:
+                sdef = StreamDefinition(
+                    id=tid, attributes=[Attribute("triggered_time", AttrType.LONG)])
+                self.stream_definitions[tid] = sdef
+                junction = self._create_junction(sdef)
+            self.trigger_runtimes.append(
+                TriggerRuntime(tdef, junction, ctx, barrier=self._barrier))
 
     def _map_defer_meta(self, explicit_depth) -> None:
         """``siddhi_tpu.defer_meta`` > 1 is deprecated: the dispatch
@@ -370,16 +435,106 @@ class SiddhiAppRuntime:
     def _add_query(self, query: Query, index: int, partition_ctx=None):
         query_name = query.name or f"query_{index}"
         definitions = dict(self.stream_definitions)
+        for wid, w in self.named_windows.items():
+            definitions[wid] = w.definition
+        for tid, t in self.tables.items():
+            definitions[tid] = t.definition
         if partition_ctx is not None:
             definitions.update(partition_ctx.inner_definitions)
+        if (isinstance(query.input_stream, SingleInputStream)
+                and query.input_stream.unique_stream_id in self.tables):
+            raise SiddhiAppValidationException(
+                f"'{query.input_stream.stream_id}' is a table — consume it via a "
+                f"join or an on-demand query (runtime.query(...))")
         runtime = plan_query(query, query_name, self.app_context, definitions,
                              partition_ctx=partition_ctx)
+        self._wire_output(query, query_name, runtime, partition_ctx)
+        self._attach_rate_limiter(query, runtime, partition_ctx)
+        ist = query.input_stream
+        if isinstance(ist, StateInputStream):
+            # pattern/sequence: one proxy receiver per consumed stream
+            for sid, proxy in runtime.make_proxies().items():
+                self.junctions[sid].subscribe(proxy)
+        elif isinstance(ist, JoinInputStream):
+            self._subscribe_join(ist, runtime, partition_ctx)
+        else:
+            in_id = ist.unique_stream_id
+            if partition_ctx is not None and ist.is_inner_stream:
+                if in_id not in partition_ctx.inner_junctions:
+                    raise SiddhiAppValidationException(
+                        f"inner stream '{in_id}' is consumed before any query "
+                        f"in this partition produces it")
+                partition_ctx.inner_junctions[in_id].subscribe(runtime)
+            elif in_id in self.named_windows:
+                # `from W`: the named window's emissions
+                self.named_windows[in_id].out_junction.subscribe(runtime)
+            else:
+                self.junctions[in_id].subscribe(runtime)
+        self.query_runtimes[query_name] = runtime
+        if partition_ctx is not None:
+            partition_ctx.runtimes.append(runtime)
+
+    def _subscribe_join(self, ist: JoinInputStream, runtime, partition_ctx) -> None:
+        """A join's side receivers: a table side has none, a named-window
+        side takes the window's emissions, a stream side its junction."""
+        proxies = runtime.make_proxies()
+        for side_key, s in (("left", ist.left), ("right", ist.right)):
+            if side_key not in proxies:
+                continue
+            sid = s.unique_stream_id
+            if sid in self.named_windows:
+                if ist.left.unique_stream_id == ist.right.unique_stream_id:
+                    # a window joined with itself runs each emission
+                    # through ONE side (reference MultiProcessStreamReceiver
+                    # with processCount 1, JoinInputStreamParser.java:129-135):
+                    # the triggering one
+                    keep = "right" if ist.trigger == EventTrigger.RIGHT else "left"
+                    if side_key != keep:
+                        continue
+                self.named_windows[sid].out_junction.subscribe(proxies[side_key])
+            elif partition_ctx is not None and s.is_inner_stream:
+                if sid not in partition_ctx.inner_junctions:
+                    raise SiddhiAppValidationException(
+                        f"inner stream '{sid}' is consumed before any query "
+                        f"in this partition produces it")
+                partition_ctx.inner_junctions[sid].subscribe(proxies[side_key])
+            else:
+                self.junctions[sid].subscribe(proxies[side_key])
+
+    def _wire_output(self, query: Query, query_name: str, runtime,
+                     partition_ctx) -> None:
+        """The query's output: a table action, a named window, an inner
+        ``#stream`` of its partition, or a stream (auto-defined when the
+        app does not define it)."""
+        from siddhi_tpu_torch.core.query.output_callbacks import create_table_callback
+
         out = query.output_stream
+        dictionary = self.app_context.string_dictionary
+        if isinstance(out, (DeleteStream, UpdateStream, UpdateOrInsertStream)):
+            if out.target_id not in self.tables:
+                raise SiddhiAppValidationException(
+                    f"'{out.target_id}' is not a defined table")
+            runtime.output_action = create_table_callback(
+                out, self.tables[out.target_id], query_name, runtime.output_attrs,
+                dictionary)
+            return
         if not isinstance(out, InsertIntoStream):
-            raise CompileError(
-                f"query '{query_name}': only 'insert into <stream>' outputs "
-                f"are ported to siddhi_tpu_torch yet")
+            raise SiddhiAppValidationException(
+                f"unsupported output action {type(out).__name__}")
         target = out.target_id
+        if target in self.tables and not out.is_inner_stream:
+            runtime.output_action = create_table_callback(
+                out, self.tables[target], query_name, runtime.output_attrs, dictionary)
+            return
+        if target in self.named_windows and not out.is_inner_stream:
+            w = self.named_windows[target]
+            if len(runtime.output_attrs) != len(w.definition.attributes):
+                raise SiddhiAppValidationException(
+                    f"insert into window '{target}': query outputs "
+                    f"{len(runtime.output_attrs)} attributes, window has "
+                    f"{len(w.definition.attributes)}")
+            runtime.output_junction = w
+            return
         if out.is_inner_stream:
             if partition_ctx is None:
                 raise CompileError(
@@ -396,58 +551,37 @@ class SiddhiAppRuntime:
                     sdef, self.app_context)
             runtime.output_junction = partition_ctx.inner_junctions[inner_id]
             runtime.attach_pk = True
-        else:
-            if target not in self.stream_definitions:
-                # auto-define the output stream (reference OutputParser)
-                sdef = StreamDefinition(
-                    id=target,
-                    attributes=[Attribute(n, t) for n, t in runtime.output_attrs])
-                self.stream_definitions[target] = sdef
-                self._create_junction(sdef)
-            else:
-                existing = self.stream_definitions[target]
-                dattrs = [(a.name, a.type) for a in existing.attributes]
-                if list(runtime.output_attrs) != dattrs:
-                    raise SiddhiAppValidationException(
-                        f"query '{query_name}' inserts {list(runtime.output_attrs)} "
-                        f"into stream '{target}' defined as {dattrs}")
-            runtime.output_junction = self.junctions[target]
-            if partition_ctx is not None and target in partition_ctx.local_streams:
-                # a partition-mate consumes this stream: its rows carry the
-                # producing instance's pk
-                runtime.attach_pk = True
-            # record set-element types and multi-element sets on the target
-            # stream, for later queries (unionSet/sizeOfSet) and event decode
-            sp = runtime.selector_plan
-            ometa = {n: t for n, t in sp.object_meta.items() if t is not None}
-            if ometa or sp.object_multi:
-                tdef = self.stream_definitions[target]
-                tdef.object_elem_types = {
-                    **(getattr(tdef, "object_elem_types", None) or {}), **ometa}
-                tdef.object_multi_attrs = (
-                    set(getattr(tdef, "object_multi_attrs", None) or set())
-                    | set(sp.object_multi))
-        self._attach_rate_limiter(query, runtime, partition_ctx)
-        if isinstance(query.input_stream, StateInputStream):
-            # pattern/sequence: one proxy receiver per consumed stream
-            for sid, proxy in runtime.make_proxies().items():
-                self.junctions[sid].subscribe(proxy)
-            self.query_runtimes[query_name] = runtime
-            if partition_ctx is not None:
-                partition_ctx.runtimes.append(runtime)
             return
-        in_id = query.input_stream.unique_stream_id
-        if partition_ctx is not None and query.input_stream.is_inner_stream:
-            if in_id not in partition_ctx.inner_junctions:
-                raise SiddhiAppValidationException(
-                    f"inner stream '{in_id}' is consumed before any query "
-                    f"in this partition produces it")
-            partition_ctx.inner_junctions[in_id].subscribe(runtime)
+        if target not in self.stream_definitions:
+            # auto-define the output stream (reference OutputParser)
+            sdef = StreamDefinition(
+                id=target,
+                attributes=[Attribute(n, t) for n, t in runtime.output_attrs])
+            self.stream_definitions[target] = sdef
+            self._create_junction(sdef)
         else:
-            self.junctions[in_id].subscribe(runtime)
-        self.query_runtimes[query_name] = runtime
-        if partition_ctx is not None:
-            partition_ctx.runtimes.append(runtime)
+            existing = self.stream_definitions[target]
+            dattrs = [(a.name, a.type) for a in existing.attributes]
+            if list(runtime.output_attrs) != dattrs:
+                raise SiddhiAppValidationException(
+                    f"query '{query_name}' inserts {list(runtime.output_attrs)} "
+                    f"into stream '{target}' defined as {dattrs}")
+        runtime.output_junction = self.junctions[target]
+        if partition_ctx is not None and target in partition_ctx.local_streams:
+            # a partition-mate consumes this stream: its rows carry the
+            # producing instance's pk
+            runtime.attach_pk = True
+        # record set-element types and multi-element sets on the target
+        # stream, for later queries (unionSet/sizeOfSet) and event decode
+        sp = runtime.selector_plan
+        ometa = {n: t for n, t in sp.object_meta.items() if t is not None}
+        if ometa or sp.object_multi:
+            tdef = self.stream_definitions[target]
+            tdef.object_elem_types = {
+                **(getattr(tdef, "object_elem_types", None) or {}), **ometa}
+            tdef.object_multi_attrs = (
+                set(getattr(tdef, "object_multi_attrs", None) or set())
+                | set(sp.object_multi))
 
     def _attach_rate_limiter(self, query: Query, runtime: QueryRuntime,
                              partition_ctx) -> None:
@@ -457,7 +591,12 @@ class SiddhiAppRuntime:
         is its own query instance, so the limiter is kept per key."""
         sp = runtime.selector_plan
         agg_positions = tuple(sp.agg_positions)
-        windowed = (runtime.window_stage is not None
+        # every join counts as windowed (QueryParser.java:149), and so does
+        # a named window's consumer
+        windowed = (isinstance(query.input_stream, JoinInputStream)
+                    or getattr(query.input_stream, "unique_stream_id", None)
+                    in self.named_windows
+                    or runtime.window_stage is not None
                     or runtime.host_window is not None)
         group_key_fn = None
         if query.selector.group_by_list and rate_uses_group_key(
@@ -577,9 +716,21 @@ class SiddhiAppRuntime:
 
     removeCallback = remove_callback
 
+    def query(self, on_demand_query: str) -> List:
+        """Run an on-demand (store) query against a table or a named
+        window: a find returns its rows as Events, a mutation returns []
+        (reference ``SiddhiAppRuntimeImpl.query`` +
+        ``OnDemandQueryParser.java``). It holds the app barrier, so it
+        never interleaves with a send."""
+        from siddhi_tpu_torch.core.query.on_demand import run_on_demand_query
+
+        # compiles resolve against this app's registry
+        set_active_extensions(self._extensions)
+        return run_on_demand_query(on_demand_query, self)
+
     def start(self):
-        """Start @Async workers, the ingest pool, sinks and sources (also
-        done by the first send)."""
+        """Start @Async workers, the ingest pool, sinks and sources, table
+        cache sweeps and triggers (also done by the first send)."""
         with self._barrier:   # a lazy start can race concurrent first sends
             if self._started:
                 return
@@ -602,11 +753,19 @@ class SiddhiAppRuntime:
                     ctx.scheduler.schedule_periodic(
                         pctx.purge_interval_ms,
                         lambda _ts, p=pctx: p.purge())  # wall clock, not event time
+            for t in self.tables.values():
+                # cache retention sweeps (reference CacheExpirer)
+                cache = getattr(t, "cache", None)
+                if cache is not None and cache.retention_ms is not None:
+                    ctx.scheduler.schedule_periodic(
+                        cache.purge_interval_ms, lambda _ts, c=cache: c.expire())
             for sr in self.sink_runtimes:
                 sr.connect()
             for sr in self.source_runtimes:
                 # connect with retry/backoff off-thread (Source.java:155-185)
                 threading.Thread(target=sr.connect_with_retry, daemon=True).start()
+            for tr in self.trigger_runtimes:
+                tr.start()
 
     def shutdown(self):
         import logging
@@ -623,6 +782,8 @@ class SiddhiAppRuntime:
                     "pipeline flush failed during shutdown")
         for sr in self.source_runtimes:
             sr.shutdown()
+        for tr in self.trigger_runtimes:
+            tr.stop()
         for qr in self.query_runtimes.values():
             if qr.rate_limiter is not None:
                 qr.rate_limiter.stop()

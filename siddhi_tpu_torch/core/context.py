@@ -143,7 +143,6 @@ class SiddhiAppContext:
         self.window_capacity = 4096
         # siddhi_tpu.partition_window_capacity: a keyed window's rows per key
         self.partition_window_capacity = 256
-        self.partition_window_capacity = 256
         # numeric precision of the fused sliding aggregation
         # (ops/fused_agg.py, its one reader): 'exact' = 64-bit accumulators
         # (the reference's double math), 'fast' = float32. The reference
@@ -178,3 +177,17 @@ class SiddhiAppContext:
         # match slots per key of a pattern/sequence query (ops/nfa.py);
         # set via siddhi_tpu.nfa_slots, overflow raises FatalQueryError
         self.nfa_slots = 32
+        # joins (core/join/): 'device' attaches the partitioned engine to
+        # eligible stream-stream joins, 'legacy' keeps the broadcast probe;
+        # join_partitions 0 = auto (8 on the card, 1 on the CPU), the
+        # sub-window slack over W / P, adaptive sub-window growth, and the
+        # candidate window of an indexed table probe
+        self.join_engine = "device"
+        self.join_partitions = 0
+        self.join_partition_slack = 2
+        self.join_partition_grow = True
+        self.index_probe_width = 64
+        # the app's tables and named windows by id (set by the app
+        # runtime; the planner resolves join sides and `in` probes here)
+        self.tables: Dict = {}
+        self.named_windows: Dict = {}

@@ -1,0 +1,43 @@
+"""The partitioned join engine (see ``engine.py``).
+
+``attach_join_engine`` is the planner's one hook: it classifies a freshly
+built ``JoinQueryRuntime`` (engine-eligible, pipeline-eligible, or the
+broadcast probe), records the reasons on it and attaches the engine to
+the eligible shapes. The reference's join metrics (the partition
+occupancy gauges and the probe/insert histograms) wait for ROADMAP A.10.
+"""
+
+from __future__ import annotations
+
+from siddhi_tpu_torch.core.join.engine import (  # noqa: F401 — public surface
+    ENGINE_STATE_KEYS,
+    PIDX_KEYS,
+    SEQ_KEY,
+    DeviceJoinEngine,
+    engine_ineligibility,
+    extract_partition_keys,
+    hash_partition_dev,
+    hash_partition_np,
+    pipeline_ineligibility,
+)
+
+
+def attach_join_engine(rt, on_expr) -> None:
+    """Classify ``rt`` and attach the engine when it is eligible. With
+    ``siddhi_tpu.join_engine`` = ``legacy`` the runtime keeps the
+    synchronous broadcast probe wholesale (the baseline the engine is held
+    equal to)."""
+    rt.engine = None
+    rt.engine_reason = engine_ineligibility(rt)
+    rt.pipeline_reason = pipeline_ineligibility(rt)
+    mode = str(getattr(rt.app_context, "join_engine", "device") or "device")
+    if mode != "device":
+        rt.engine_reason = rt.engine_reason or "disabled (siddhi_tpu.join_engine=legacy)"
+        rt.pipeline_reason = "siddhi_tpu.join_engine=legacy"
+        return
+    if rt.engine_reason is not None:
+        return
+    pspec = (extract_partition_keys(on_expr, rt.sides["left"], rt.sides["right"],
+                                    rt.dictionary)
+             if on_expr is not None else None)
+    rt.engine = DeviceJoinEngine(rt, pspec)

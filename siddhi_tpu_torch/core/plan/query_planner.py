@@ -12,8 +12,10 @@ anywhere an expression stands, string<->number casts of stream attributes
 length window whose aggregators are all invertible takes the fused stage
 (``ops/fused_agg.py``), as the reference decides it. Patterns and
 sequences plan through ``plan_nfa_query`` into an ``NFAQueryRuntime``.
-Joins and ``in <table>`` probes are not ported yet and raise
-``CompileError`` naming the construct.
+Two-stream joins (stream, table and named-window sides, inside and
+outside partitions) plan through ``plan_join_query`` into a
+``JoinQueryRuntime``; an ``<cond> in <table>`` filter becomes a host
+exists-probe (``ops/stream_functions.InProbeStage``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,10 @@ from siddhi_tpu_torch.ops.keyed_windows import create_keyed_window_stage
 from siddhi_tpu_torch.ops.windows import LengthWindowStage, create_window_stage
 from siddhi_tpu_torch.query_api.definitions import AttrType, StreamDefinition
 from siddhi_tpu_torch.query_api.execution import (
+    EventTrigger,
     Filter,
+    JoinInputStream,
+    JoinType,
     OutputAttribute,
     Query,
     SingleInputStream,
@@ -40,9 +45,12 @@ from siddhi_tpu_torch.query_api.execution import (
     Window,
 )
 from siddhi_tpu_torch.query_api.expressions import (
+    And,
     AttributeFunction,
+    Compare,
     Constant,
     Expression,
+    InOp,
     Variable,
 )
 
@@ -139,6 +147,332 @@ def _rewrite_string_casts(expr, input_def, resolver, transforms, ext_state,
         ext_state["attrs"].extend(stage.out_attrs)
         ext_state["internal"].add(name)
     return Variable(attribute_name=name)
+
+
+def _rewrite_in_conditions(expr, input_def, ref_id, resolver, app_context,
+                           transforms, ext_state):
+    """Replace ``<cond> in Table`` nodes with synthetic bool Variables
+    backed by a host exists-probe over the table's rows
+    (InConditionExpressionExecutor). The inner condition compiles with the
+    table's own resolver (TableConditionResolver + InMemoryTable._match),
+    sharing the binding rules of joins, updates and deletes."""
+    from siddhi_tpu_torch.core.table.in_memory_table import TableConditionResolver
+    from siddhi_tpu_torch.ops.stream_functions import InProbeStage
+
+    if not isinstance(expr, Expression):
+        return expr
+    for attr in ("left", "right", "expression"):
+        child = getattr(expr, attr, None)
+        if isinstance(child, Expression) and not isinstance(expr, InOp):
+            setattr(expr, attr, _rewrite_in_conditions(
+                child, input_def, ref_id, resolver, app_context, transforms,
+                ext_state))
+    if isinstance(expr, AttributeFunction):
+        expr.parameters = [
+            _rewrite_in_conditions(p, input_def, ref_id, resolver, app_context,
+                                   transforms, ext_state)
+            for p in expr.parameters]
+    if not isinstance(expr, InOp):
+        return expr
+    table = app_context.tables.get(expr.source_id)
+    if table is None:
+        raise CompileError(
+            f"'{expr.source_id}' in an `in` condition is not a defined table")
+    pair = TableConditionResolver(table.definition, input_def,
+                                  app_context.string_dictionary, event_ref=ref_id)
+    stage = InProbeStage(f"__in{len(transforms)}__", table,
+                         compile_condition(expr.expression, pair))
+    name = stage.out_attrs[0].name
+    resolver.synthetic[name] = AttrType.BOOL
+    transforms.append(stage)
+    ext_state["attrs"].extend(stage.out_attrs)
+    ext_state["internal"].add(name)
+    return Variable(attribute_name=name)
+
+
+def _selector_has_aggregator(selector) -> bool:
+    """Does a selection or the having clause call an aggregator?"""
+    from siddhi_tpu_torch.ops.aggregators import supported_aggregators
+
+    names = supported_aggregators()
+
+    def scan(expr) -> bool:
+        if not isinstance(expr, Expression):
+            return False
+        if (isinstance(expr, AttributeFunction) and not expr.namespace
+                and expr.name.lower() in names):
+            return True
+        for attr in ("left", "right", "expression"):
+            child = getattr(expr, attr, None)
+            if isinstance(child, Expression) and scan(child):
+                return True
+        return isinstance(expr, AttributeFunction) and any(
+            scan(p) for p in expr.parameters)
+
+    exprs = [oa.expression for oa in (selector.selection_list or [])]
+    if selector.having is not None:
+        exprs.append(selector.having)
+    return any(scan(e) for e in exprs)
+
+
+def _probe_type_safe(attr_t, val_t) -> bool:
+    """An index probe casts the value into the column's dtype: allowed
+    only where that cast cannot change equality against the promoted
+    broadcast compare (the same type, or a widening numeric cast)."""
+    from siddhi_tpu_torch.ops import types as T
+
+    if attr_t == val_t:
+        return True
+    if T.is_numeric(attr_t) and T.is_numeric(val_t):
+        try:
+            return T.promote(attr_t, val_t) == attr_t
+        except Exception:
+            return False
+    return False
+
+
+def _vars_of(e, out):
+    if isinstance(e, Variable):
+        out.append(e)
+    for name in ("left", "right", "expression"):
+        c = getattr(e, name, None)
+        if c is not None and not isinstance(c, (str, int, float, bool)):
+            _vars_of(c, out)
+    if isinstance(e, AttributeFunction):
+        for p in e.parameters:
+            _vars_of(p, out)
+    return out
+
+
+def _extract_join_index_probe(on_expr, left, right, resolver):
+    """``T.attr == <expr over the other side>`` (the whole condition, or
+    one conjunct of a top-level And) where T is an in-memory table side
+    and ``attr`` one of its ``probe_attrs()``: the spec of
+    ``JoinQueryRuntime.index_probe``, or None."""
+    from siddhi_tpu_torch.core.table.in_memory_table import InMemoryTable
+
+    def side_ids(s):
+        return {s.stream_id, s.ref_id} - {None}
+
+    def try_eq(e):
+        if not isinstance(e, Compare) or e.operator != "==":
+            return None
+        for store_side in (left, right):
+            store = store_side.store
+            if not isinstance(store, InMemoryTable):
+                continue
+            other_side = right if store_side is left else left
+            probe_attrs = store.probe_attrs()
+            for tvar, vexpr in ((e.left, e.right), (e.right, e.left)):
+                if not (isinstance(tvar, Variable)
+                        and tvar.stream_id in side_ids(store_side)
+                        and tvar.attribute_name in probe_attrs):
+                    continue
+                # the value expression reads the other side only
+                vs = _vars_of(vexpr, [])
+                if not vs or any(v.stream_id is None
+                                 or v.stream_id in side_ids(store_side)
+                                 or v.stream_id not in side_ids(other_side)
+                                 for v in vs):
+                    continue
+                val_fn, val_t = compile_expr(vexpr, resolver)
+                attr_t = store.definition.attribute(tvar.attribute_name).type
+                if not _probe_type_safe(attr_t, val_t):
+                    # a narrowing cast (double -> long) would change the
+                    # equality the indexed path no longer re-evaluates
+                    continue
+                return {"store_side": store_side.key, "attr": tvar.attribute_name,
+                        "val_fn": val_fn, "residual_fn": None}
+        return None
+
+    hit = try_eq(on_expr)
+    if hit is not None:
+        return hit
+    if isinstance(on_expr, And):
+        for this, rest in ((on_expr.left, on_expr.right),
+                           (on_expr.right, on_expr.left)):
+            hit = try_eq(this)
+            if hit is not None:
+                hit["residual_fn"] = compile_condition(rest, resolver)
+                return hit
+    return None
+
+
+def plan_join_query(query: Query, query_name: str, app_context,
+                    definitions: Dict[str, StreamDefinition],
+                    partition_ctx=None):
+    """Plan a two-stream window join (reference
+    ``JoinInputStreamParser.java:200-348`` + ``JoinProcessor.java``)."""
+    from siddhi_tpu_torch.core.join import attach_join_engine
+    from siddhi_tpu_torch.core.query.join_runtime import (
+        JoinQueryRuntime, JoinResolver, JoinSide)
+    from siddhi_tpu_torch.ops.windows import PassthroughWindowStage, window_col_specs
+
+    join: JoinInputStream = query.input_stream
+    dictionary = app_context.string_dictionary
+    # outputExpectsExpiredEvents (JoinInputStreamParser): `insert into`
+    # joins never drain batch windows' findable queues, so probes keep
+    # seeing the last non-empty batch across empty timer flushes
+    oet = query.output_stream.output_event_type if query.output_stream else "current"
+    side_expired_needed = oet != "current"
+    # EmptyWindowProcessor's per-event [CURRENT, EXPIRED?, RESET] matters
+    # only where the selector aggregates or groups: the RESET rows restart
+    # per-trigger aggregates (and a RESET from a non-triggering side would
+    # wrongly wipe them)
+    needs_reset = (bool(query.selector.group_by_list)
+                   or _selector_has_aggregator(query.selector))
+
+    def side_triggers(key: str) -> bool:
+        return (join.trigger == EventTrigger.ALL
+                or (join.trigger == EventTrigger.LEFT and key == "left")
+                or (join.trigger == EventTrigger.RIGHT and key == "right"))
+
+    def build_side(key: str, s: SingleInputStream) -> JoinSide:
+        sid = s.unique_stream_id
+        if sid in app_context.tables or sid in app_context.named_windows:
+            # a shared store side (reference TableWindowProcessor /
+            # WindowWindowProcessor as the findable side); a named window
+            # also triggers with its emission stream, a table cannot
+            is_window = sid in app_context.named_windows
+            store = (app_context.named_windows if is_window
+                     else app_context.tables)[sid]
+            if s.handlers:
+                raise CompileError(
+                    f"query '{query_name}': handlers on the {sid} store join "
+                    f"side are not supported")
+            stage = (PassthroughWindowStage(window_col_specs(store.definition),
+                                            pass_expired=True)
+                     if is_window else None)
+            return JoinSide(
+                key=key, stream_id=sid, ref_id=s.stream_reference_id,
+                definition=store.definition, window_stage=stage, filters=[],
+                triggers=is_window and side_triggers(key), outer=False,
+                store=store)
+        if sid not in definitions:
+            raise CompileError(f"query '{query_name}': stream '{sid}' is not defined")
+        sdef = definitions[sid]
+        resolver = SingleStreamResolver(sdef, dictionary, ref_id=s.stream_reference_id)
+        # inside a partition every join side keeps per-key window state,
+        # a global (non-partitioned) stream side too: the reference
+        # instantiates the query per key, each instance with its own copy
+        # of the global stream's window, fed only while it exists
+        # (JoinPartitionTestCase test10)
+        side_global = partition_ctx is not None and not (
+            s.is_inner_stream or sid in partition_ctx.keyers
+            or sid in partition_ctx.local_streams)
+        filters, post_filters, transforms = [], [], []
+        window_stage = host_window = None
+        ext_sdef = sdef  # grows as stream functions append attributes
+        for h in s.handlers:
+            if isinstance(h, Filter):
+                (post_filters if window_stage is not None else filters).append(
+                    compile_condition(h.expression, resolver))
+            elif isinstance(h, Window):
+                if window_stage is not None:
+                    raise CompileError("only one #window per join side is allowed")
+                if partition_ctx is not None:
+                    window_stage = create_keyed_window_stage(
+                        h, ext_sdef, resolver, app_context,
+                        expired_needed=side_expired_needed)
+                    if not getattr(window_stage, "keyed", False):
+                        raise CompileError(
+                            f"window '{h.name}' cannot be a join side inside "
+                            f"a partition (no per-key probe surface)")
+                else:
+                    window_stage = create_window_stage(
+                        h, ext_sdef, resolver, app_context,
+                        expired_needed=side_expired_needed)
+                if getattr(window_stage, "host_mode", False):
+                    # sort/frequent/...: the window runs on the host, its
+                    # emissions trigger the join, its contents are probed
+                    host_window = window_stage
+                    window_stage = PassthroughWindowStage(
+                        window_col_specs(ext_sdef), pass_expired=True)
+            else:
+                if window_stage is not None:
+                    raise CompileError(
+                        "post-window stream functions on join sides are not supported")
+                log_stage, ext_sdef = _plan_stream_function_handler(
+                    h, resolver, query_name, filters, transforms, ext_sdef, sdef)
+                if log_stage is not None:
+                    raise CompileError("#log() on a join side is not supported")
+        if window_stage is None:
+            if partition_ctx is not None:
+                raise CompileError(
+                    f"query '{query_name}': joins inside partitions need an "
+                    f"explicit #window on stream side '{sid}'")
+            window_stage = PassthroughWindowStage(
+                window_col_specs(ext_sdef),
+                empty_window=(needs_reset or side_expired_needed) and side_triggers(key),
+                expired_needed=side_expired_needed, emit_reset=needs_reset)
+        outer = ((join.type == JoinType.LEFT_OUTER_JOIN and key == "left")
+                 or (join.type == JoinType.RIGHT_OUTER_JOIN and key == "right")
+                 or join.type == JoinType.FULL_OUTER_JOIN)
+        return JoinSide(
+            key=key, stream_id=sdef.id, ref_id=s.stream_reference_id,
+            definition=ext_sdef, window_stage=window_stage, filters=filters,
+            triggers=side_triggers(key), outer=outer, host_window=host_window,
+            keyer=(partition_ctx.keyers.get(sid)
+                   if partition_ctx is not None else None),
+            transforms=transforms,
+            input_definition=sdef if ext_sdef is not sdef else None,
+            post_filters=post_filters, global_side=side_global,
+            carried_pk=partition_ctx is not None and (
+                s.is_inner_stream or sid in partition_ctx.local_streams))
+
+    left = build_side("left", join.left)
+    right = build_side("right", join.right)
+    for sd in (left, right):
+        if sd.global_side and sd.outer:
+            raise CompileError(
+                f"query '{query_name}': outer join on the non-partitioned "
+                f"side '{sd.stream_id}' inside a partition is not supported")
+    if join.within is not None or join.per is not None:
+        raise CompileError(
+            f"query '{query_name}': `within`/`per` join clauses need an "
+            f"aggregation join side")
+    if left.window_stage is None and right.window_stage is None:
+        raise CompileError(
+            f"query '{query_name}': a join needs an event-driven side — both "
+            f"'{left.stream_id}' and '{right.stream_id}' are tables")
+    if not (left.triggers or right.triggers):
+        # `unidirectional` pointing at a table side: the reference compiles
+        # a query that can never emit; refused here
+        raise CompileError(
+            f"query '{query_name}': no join side can trigger output — the "
+            f"unidirectional/trigger side must be a stream or named window")
+    resolver = JoinResolver(left, right, dictionary)
+    on_cond = (compile_condition(join.on_compare, resolver)
+               if join.on_compare is not None else None)
+    # `on T.attr == <expr over the other side>` against an indexed table
+    # side: a searchsorted over the sorted column instead of the [N, W]
+    # compare (the reference's IndexedEventHolder probe)
+    index_probe = None
+    if join.on_compare is not None and partition_ctx is None:
+        index_probe = _extract_join_index_probe(join.on_compare, left, right, resolver)
+    if query.selector.select_all or not query.selector.selection_list:
+        raise CompileError(
+            f"query '{query_name}': join queries need an explicit select list")
+    # QuerySelector batch-processes every chunk and JoinProcessor makes one
+    # chunk per trigger event, so grouped or aggregated joins collapse to
+    # the last row per (trigger event, group) (JoinTableTestCase query9);
+    # the join step stamps the flush key with the trigger row
+    selector_plan = plan_selector(
+        selector=query.selector, input_attrs=[], resolver=resolver,
+        output_event_type=oet, batch_mode=True, dictionary=dictionary,
+        app_context=app_context)
+    selector_plan.num_keys = app_context.initial_key_capacity
+    group_keyer = None
+    if query.selector.group_by_list:
+        group_keyer = GroupKeyer([compile_expr(v, resolver)
+                                  for v in query.selector.group_by_list])
+    rt = JoinQueryRuntime(
+        name=query_name, app_context=app_context, left=left, right=right,
+        on_cond=on_cond, selector_plan=selector_plan, dictionary=dictionary,
+        partition_ctx=partition_ctx, group_keyer=group_keyer)
+    rt.index_probe = index_probe
+    attach_join_engine(rt, join.on_compare)
+    return rt
 
 
 def plan_nfa_query(query: Query, query_name: str, app_context,
@@ -277,10 +611,9 @@ def plan_query(query: Query, query_name: str, app_context,
     if isinstance(input_stream, StateInputStream):
         return plan_nfa_query(query, query_name, app_context, definitions,
                               partition_ctx)
-    if not isinstance(input_stream, SingleInputStream):
-        raise CompileError(
-            f"query '{query_name}': {type(input_stream).__name__} inputs "
-            f"(joins) are not ported to siddhi_tpu_torch yet")
+    if isinstance(input_stream, JoinInputStream):
+        return plan_join_query(query, query_name, app_context, definitions,
+                               partition_ctx)
     stream_id = input_stream.unique_stream_id
     if stream_id not in definitions:
         raise CompileError(f"query '{query_name}': stream '{stream_id}' is not defined")
@@ -318,11 +651,21 @@ def plan_query(query: Query, query_name: str, app_context,
     # string <-> number casts become host transforms feeding the device a
     # synthetic column (rewrites the filter, selection and having ASTs)
     cast_state = {"casts": {}, "attrs": [], "internal": set()}
+    seen_window = False
     for handler in input_stream.handlers:
+        seen_window = seen_window or isinstance(handler, Window)
         if isinstance(handler, Filter):
             handler.expression = _rewrite_string_casts(
                 handler.expression, input_def, resolver, transforms,
                 cast_state, dictionary)
+            if not seen_window:
+                # a post-window `in` probe would bake ingestion-time table
+                # rows into buffered rows: unsupported (compile_expr
+                # refuses one that survives here)
+                handler.expression = _rewrite_in_conditions(
+                    handler.expression, input_def,
+                    input_stream.stream_reference_id, resolver, app_context,
+                    transforms, cast_state)
     if query.selector is not None:
         for sel in query.selector.selection_list or []:
             sel.expression = _rewrite_string_casts(
@@ -377,6 +720,14 @@ def plan_query(query: Query, query_name: str, app_context,
                 f"query '{query_name}': handler "
                 f"'{getattr(handler, 'name', handler)}' is not ported yet")
 
+    if (window_stage is None and host_window is None
+            and stream_id in app_context.named_windows):
+        # a consumer of a batch-type named window receives its flush
+        # chunks: the selector collapses per chunk as it would reading the
+        # batch window itself (CustomJoinWindowTestCase
+        # testMultipleStreamsToWindow)
+        batch_mode = bool(getattr(app_context.named_windows[stream_id].stage,
+                                  "batch_mode", False))
     output_event_type = (query.output_stream.output_event_type
                          if query.output_stream else "current")
     if isinstance(query.output_rate, SnapshotOutputRate):
@@ -395,10 +746,11 @@ def plan_query(query: Query, query_name: str, app_context,
     )
     selector_plan.num_keys = app_context.initial_key_capacity
 
-    # host-only stages (the casts' lookup tables) take the whole transform
-    # chain to the host; so does a group key on a transform's output,
-    # which the host keyer reads
-    host_transforms = bool(cast_state["casts"])
+    # host-only stages (the casts' lookup tables, table exists-probes)
+    # take the whole transform chain to the host; so does a group key on
+    # a transform's output, which the host keyer reads
+    host_transforms = bool(cast_state["casts"]) or any(
+        getattr(t, "host_only", False) for t in transforms)
     keyer = None
     if selector_plan.group_by:
         fns = []
@@ -413,7 +765,8 @@ def plan_query(query: Query, query_name: str, app_context,
     if (isinstance(window_stage, LengthWindowStage)
             and not post_pipeline  # the fused stage never materializes emitted rows
             and partition_ctx is None
-            and app_context.enable_fusion):
+            and app_context.enable_fusion
+            and stream_id not in app_context.named_windows):
         fused = plan_fused_window("length", [window_stage.length],
                                   selector_plan, app_context)
         if fused is not None:

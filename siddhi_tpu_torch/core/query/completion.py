@@ -62,15 +62,19 @@ class QueryCompletion:
     event that says when the meta has arrived (None off the card)."""
 
     __slots__ = ("owner", "out", "meta", "event", "overflow_msg", "junction",
-                 "batch", "t0", "tid")
+                 "batch", "t0", "tid", "timer_cb")
 
-    def __init__(self, owner, out, meta, event, overflow_msg: str,
+    def __init__(self, owner, out, meta, event, overflow_msg,
                  junction=None, batch=None):
         self.owner = owner
         self.out = out
         self.meta = meta                  # host tensor: pinned on the card
         self.event = event                # torch.cuda.Event, or None
+        # a string, or a callable of the overflow lane (a join's bitmask)
         self.overflow_msg = overflow_msg
+        # the wake-time target: a join side's own timer callback, captured
+        # at submit (the runtime's _cur_timer_cb is per-batch state)
+        self.timer_cb = getattr(owner, "_cur_timer_cb", None) or owner._timer_cb
         self.junction = junction          # delivering junction (or None)
         # the input batch, kept only when the junction routes errors to
         # a fault stream (@OnError(action='stream')): a drain-time error
@@ -101,14 +105,15 @@ class QueryCompletion:
                 # like a capacity overflow
                 return routed_err
             if int(meta[0]) > 0:
+                msg = (self.overflow_msg(int(meta[0])) if callable(self.overflow_msg)
+                       else self.overflow_msg)
                 return FatalQueryError(
-                    f"query '{q.name}': {self.overflow_msg} before "
-                    f"creating the runtime")
+                    f"query '{q.name}': {msg} before creating the runtime")
             q._emit(HostBatch(self.out, size=int(meta[2])))
             if int(meta[1]) >= 0 and q.scheduler is not None:
                 # the step's wake time reaches the scheduler at drain, as
                 # the reference pump delivers it
-                q.scheduler.notify_at(int(meta[1]), q._timer_cb)
+                q.scheduler.notify_at(int(meta[1]), self.timer_cb)
             return None
         finally:
             if self.junction is not None:

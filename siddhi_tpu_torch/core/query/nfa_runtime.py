@@ -358,27 +358,3 @@ class NFAQueryRuntime(QueryRuntime):
             out_host, size = self._host_keyed_select(out_host)
         self._emit(HostBatch(out_host, size=size))
         return notify if notify >= 0 else None
-
-    def _host_keyed_select(self, out_host):
-        """Split-pipeline tail: the group key is computed from the NFA's
-        emitted capture columns, so the keyer runs on the host between the
-        stage and the selector (GroupByKeyGenerator.java:37 over
-        intermediate events)."""
-        cols = {k: out_host[k] for k in list(dict.keys(out_host))}
-        pk = cols.get(PK_KEY) if self.partition_ctx is not None else None
-        cols[GK_KEY] = self.keyer(cols, pk=pk)
-        self._ensure_capacity()
-        if self.selector_plan.needs_str_rank:
-            cols[STR_RANK] = self.dictionary.rank_table()
-        ctx = {"xp": TorchXP(self.device), "current_time": self._now()}
-        self._state["sel"], sel_out = self.selector_plan.apply(
-            self._state["sel"], self._to_device(cols), ctx)
-        out = LazyColumns(pack_meta(sel_out))
-        meta = out.pop("__meta__")
-        if int(meta[0]) != 0:
-            # the selector step's own overflow (distinctCount value-table
-            # saturation) must not be silently clamped on the split path
-            raise FatalQueryError(
-                "selector aggregation overflow — raise "
-                "app_context.distinct_values_capacity")
-        return out, int(meta[2])

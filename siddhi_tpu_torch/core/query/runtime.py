@@ -158,6 +158,9 @@ class QueryRuntime(Receiver):
         self.host_transforms = False   # transforms run on the host first
         self.host_window = None        # ops/host_windows stage, or None
         self.rate_limiter = None       # core/query/ratelimit, set by the app
+        # a table action (core/query/output_callbacks.py) taking the
+        # output Events in place of the output stream
+        self.output_action: Optional[Callable] = None
         self.limiter_needs_pk = False  # partitioned limiter routes by pk
         self.limiter_needs_gk = False  # grouped limiter, key not projected
         self.scheduler = None          # the app's Scheduler, set by the app
@@ -654,12 +657,18 @@ class QueryRuntime(Receiver):
             if int(meta[3]) > 0:
                 raise FatalQueryError(f"query '{self.name}': {self.route_overflow_msg()}")
 
-    def _finish_device_batch(self, step, cols) -> Optional[int]:
+    _pipeline_ok = True   # a join with a store side stays synchronous
+
+    def _finish_device_batch(self, step, cols, overflow_msg=None) -> Optional[int]:
         """Run the step on the device, then either hand its output to the
         pipeline (depth > 1; the pump hands the wake time to the scheduler
         at drain) or pull its meta, raise on overflow (a full ring or value
         table is never clamped silently) and emit outputs. Returns the
-        step's wanted wake time, or None."""
+        step's wanted wake time, or None. ``overflow_msg`` (default: the
+        query's ``overflow_knob_msg()``) may be a callable of the meta's
+        overflow lane: a join decodes its bitmask into the knob to raise."""
+        if overflow_msg is None:
+            overflow_msg = self.overflow_knob_msg()
         now = self._now()
         if self.selector_plan.needs_str_rank:
             # string order-by keys sort by lexicographic rank, not by id
@@ -668,24 +677,49 @@ class QueryRuntime(Receiver):
         self._state, out = step(self._state, self._to_device(cols), now)
         out_host = LazyColumns(out)
         pump = self.app_context.completion_pump
-        if pump.depth > 1 and self._now_override is None:
+        if pump.depth > 1 and self._now_override is None and self._pipeline_ok:
             meta, event = stage_meta(dict.pop(out_host, "__meta__"))
             pump.submit(QueryCompletion(
-                self, out_host, meta, event, self.overflow_knob_msg(),
+                self, out_host, meta, event, overflow_msg,
                 junction=self._cur_junction, batch=self._cur_fault_batch))
             return None
         meta = out_host.pop("__meta__")     # the one sync of the batch
         self.decode_meta_suffix(meta)
         if int(meta[0]) > 0:
+            msg = overflow_msg(int(meta[0])) if callable(overflow_msg) else overflow_msg
             raise FatalQueryError(
-                f"query '{self.name}': {self.overflow_knob_msg()} before "
-                f"creating the runtime")
+                f"query '{self.name}': {msg} before creating the runtime")
         if self._timer_horizon is not None and int(meta[2]) > 0:
             for chunk in _chain_chunks(out_host):
                 self._emit(chunk)
         else:
             self._emit(HostBatch(out_host, size=int(meta[2])))
         return int(meta[1]) if int(meta[1]) >= 0 else None
+
+    def _host_keyed_select(self, out_host):
+        """Split-pipeline tail: the group key is computed from a stage's
+        emitted columns (a pattern's captures, a join's joined rows), so
+        the keyer runs on the host between the stage and the selector
+        (GroupByKeyGenerator.java:37 over intermediate events). Returns
+        (selector output, its row count)."""
+        cols = {k: out_host[k] for k in list(dict.keys(out_host))}
+        pk = cols.get(PK_KEY) if self.partition_ctx is not None else None
+        cols[GK_KEY] = self.keyer(cols, pk=pk)
+        self._ensure_capacity()
+        if self.selector_plan.needs_str_rank:
+            cols[STR_RANK] = self.dictionary.rank_table()
+        ctx = {"xp": TorchXP(self.device), "current_time": self._now()}
+        self._state["sel"], sel_out = self.selector_plan.apply(
+            self._state["sel"], self._to_device(cols), ctx)
+        out = LazyColumns(pack_meta(sel_out))
+        meta = out.pop("__meta__")
+        if int(meta[0]) != 0:
+            # the selector step's own overflow (distinctCount value-table
+            # saturation) must not be silently clamped on the split path
+            raise FatalQueryError(
+                "selector aggregation overflow — raise "
+                "app_context.distinct_values_capacity")
+        return out, int(meta[2])
 
     def _emit(self, out: HostBatch):
         """Columnar re-publish into the output stream: no Event objects
@@ -709,8 +743,15 @@ class QueryRuntime(Receiver):
                 cols[col] = vals
         from siddhi_tpu_torch.core.query.ratelimit import PassThroughRateLimiter
 
-        if (self.rate_limiter is not None
-                and type(self.rate_limiter) is not PassThroughRateLimiter):
+        limited = (self.rate_limiter is not None
+                   and type(self.rate_limiter) is not PassThroughRateLimiter)
+        if self.output_action is not None and not limited:
+            self.send_to_callbacks(out.to_events(
+                self.output_attrs, self.dictionary,
+                object_meta=sp.object_meta or None,
+                object_multi=set(sp.object_multi) or None))
+            return
+        if limited:
             self.rate_limiter.process(out.to_events(
                 self.output_attrs, self.dictionary,
                 object_meta=sp.object_meta or None,
@@ -743,12 +784,15 @@ class QueryRuntime(Receiver):
             cb.receive(ts, None, None)
 
     def send_to_callbacks(self, events: List[Event]):
-        """A rate limiter's output: re-published as Events (EXPIRED ->
-        CURRENT, InsertIntoStreamCallback.java:52-55) and handed to the
+        """Output Events (a rate limiter's, or any query's with a table
+        action): applied to the table, or re-published (EXPIRED ->
+        CURRENT, InsertIntoStreamCallback.java:52-55), then handed to the
         query callbacks."""
         if not events:
             return
-        if self.output_junction is not None:
+        if self.output_action is not None:
+            self.output_action(events)
+        elif self.output_junction is not None:
             self.output_junction.send_events([
                 Event(timestamp=e.timestamp, data=e.data, pk=e.pk)
                 if e.is_expired else e for e in events])

@@ -35,10 +35,20 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
     state (the unkeyed length window's ``buf``/``total``, or the fused
     stage's ring, with an empty ``sel``) is installed as it is.
 
+    A join runtime's tree is ``{"sel", "lwin", "rwin"}`` (a windowless
+    side's ``{"empty"}`` included) without the engine's partition
+    directories and sequence, which the reference strips from its
+    snapshots too (``ENGINE_STATE_KEYS``): they are rebuilt from the rings
+    here. A table (``runtime`` an ``InMemoryTable``) takes ``{"cols",
+    "valid"}`` at the reference's capacity.
+
     An unrouted runtime takes the capacities of the tree; a routed one
     (``device_route_query_step`` already installed) lays the canonical
     tree out over its shards."""
     runtime.dictionary.restore_strings(list(dictionary_ids))
+    if "valid" in state_tree and hasattr(runtime, "probe_attrs"):
+        _install_table(runtime, state_tree)
+        return
     if partition_keys is not None:
         if runtime.partition_ctx is None:
             raise ValueError(f"query '{runtime.name}' is not partitioned")
@@ -53,8 +63,10 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
     # only a keyed window's state has a per-key axis ([K] totals); the
     # unkeyed length window's total is 0-d and the fused stage has none
     win_keys = 1
-    if runtime.partition_ctx is not None and "win" in state_tree:
-        win_keys = int(np.asarray(state_tree["win"]["total"]).shape[0])
+    if runtime.partition_ctx is not None:
+        for key in ("win", "lwin", "rwin"):
+            if key in state_tree:
+                win_keys = int(np.asarray(state_tree[key]["total"]).shape[0])
     if "nfa" in state_tree:
         nfa = state_tree["nfa"]
         win_keys, slots = np.asarray(nfa["active"]).shape
@@ -80,6 +92,19 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
         runtime._win_keys = int(win_keys)
     runtime._state = _to_tensors(state_tree, runtime.device)
     runtime._step = None
+    if hasattr(runtime, "adopt_restored_state"):   # a join runtime
+        runtime.adopt_restored_state()
+
+
+def _install_table(table, tree) -> None:
+    cols = {k: np.asarray(v) for k, v in tree["cols"].items()}
+    valid = np.asarray(tree["valid"], bool)
+    with table._lock:
+        table.state = {"cols": _to_tensors(cols, table.device),
+                       "valid": _to_tensors(valid, table.device)}
+        table.capacity = int(valid.shape[0])
+        table._pk_dirty = True
+        table._idx_dirty = True
 
 
 def _sel_capacity(runtime, state_tree) -> int:

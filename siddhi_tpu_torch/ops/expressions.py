@@ -6,7 +6,8 @@ the function library (``cast``/``convert``, ``ifThenElse``, ``coalesce``,
 ``default``, ``maximum``/``minimum``, ``instanceOf*``,
 ``eventTimestamp``, ``currentTimeMillis``, ``uuid``, ``createSet``,
 ``sizeOfSet``, ``log`` and registered extension functions). ``in
-<table>`` waits for tables and raises ``CompileError``.
+<table>`` is rewritten by the planner into a host exists-probe
+(``ops/stream_functions.InProbeStage``) before compilation.
 
 A compiled node is ``fn(cols, ctx) -> (value, null_mask_or_None)``. The
 reference hands the node an array namespace in ``ctx["xp"]`` (``jnp`` on
@@ -294,7 +295,9 @@ def compile_expr(expr: Expression, resolver: Resolver) -> Compiled:
     if isinstance(expr, AttributeFunction):
         return _compile_function(expr, resolver)
     if isinstance(expr, InOp):
-        raise CompileError("'in <table>' conditions are not ported yet")
+        raise CompileError(
+            "'in <table>' conditions are supported in single-stream filter "
+            "handlers (rewritten to a table exists-probe by the planner)")
     raise CompileError(f"cannot compile expression {expr!r}")
 
 

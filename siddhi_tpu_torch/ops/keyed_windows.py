@@ -32,6 +32,8 @@ stable sort by an order key per emitted row, invalid rows last):
   [EXPIRED(prev), RESET, CURRENT(batch)], as the reference computes them.
 
 The partition key id column is ``PK_KEY`` (host-computed dense ids).
+Every stage is ``keyed``: its ``contents`` is a per-key ``[K, W]`` probe
+surface, so it can be a join side inside a partition.
 """
 
 from __future__ import annotations
@@ -119,6 +121,8 @@ def _ring_buffers(col_specs, n: int, device) -> Dict[str, torch.Tensor]:
 
 class KeyedLengthWindowStage(WindowStage):
     """Sliding length window per partition key."""
+
+    keyed = True
 
     def __init__(self, length: int, col_specs: Dict[str, np.dtype]):
         if length <= 0:
@@ -213,6 +217,8 @@ class KeyedTimeWindowStage(WindowStage):
     ``max_len`` is timeLength: on top of time expiry, each insert beyond
     ``max_len`` live rows evicts its key's oldest row, emitted EXPIRED just
     before the displacing insert (TimeLengthWindowProcessor per key)."""
+
+    keyed = True
 
     def __init__(self, time_ms: int, col_specs: Dict[str, np.dtype], capacity: int,
                  external: bool = False, max_len: int = None,
@@ -451,6 +457,8 @@ class KeyedLengthBatchWindowStage(WindowStage):
     stored partial ring, the stored previous batch, or earlier rows of the
     same chunk by absolute per-key sequence number."""
 
+    keyed = True
+
     batch_mode = True
 
     def __init__(self, length: int, col_specs: Dict[str, np.dtype]):
@@ -577,6 +585,8 @@ class KeyedTimeBatchWindowStage(WindowStage):
     Flushes are checked once per chunk against the chunk clock (arriving
     rows join the flushing batch) and drained compacted: at most D due
     keys per tick, leftovers re-armed at once."""
+
+    keyed = True
 
     batch_mode = True
 
@@ -706,6 +716,8 @@ class KeyedSessionWindowStage(WindowStage):
     its batch rows before i at its first break in the batch, else the
     batch rows since its previous break. A row's slot is its position in
     its session (the last slot when the buffer is full, which raises)."""
+
+    keyed = True
 
     SWEEP_KEYS = 128
 
@@ -909,6 +921,8 @@ class KeyedHoppingWindowStage(WindowStage):
     emits the key's trailing windowTime of events as a batch
     [EXPIRED(prev snapshot), RESET, CURRENT(snapshot)]."""
 
+    keyed = True
+
     batch_mode = True
 
     def __init__(self, window_ms: int, hop_ms: int,
@@ -1036,6 +1050,8 @@ class KeyedBatchWindowStage(WindowStage):
     the reference partition runtime). Per key-in-chunk emission:
     [EXPIRED(prev batch), RESET, CURRENT rows], keys ordered by first
     appearance in the chunk."""
+
+    keyed = True
 
     batch_mode = True
 

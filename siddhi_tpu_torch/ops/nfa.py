@@ -730,7 +730,7 @@ class NFAStage:
         self.generic_rounds = 0
         self.timer_steps = 0
 
-    def init_state(self, num_keys: int = 1, device="cpu") -> dict:
+    def init_state(self, num_keys: int, device) -> dict:
         K, S = num_keys, self.plan.slots
         dev = torch.device(device)
 

@@ -16,7 +16,7 @@ dictionary entry, ``NumericFormatCastStage`` formats a batch's unique
 values once and dictionary-encodes them; the device sees the synthetic
 column. Custom stream functions register through the extension SPI
 (``set_extension("streamFunction:<name>", cls)``). ``<cond> in Table``
-probes wait for tables.
+is ``InProbeStage``, a host stage over the table's contents.
 """
 
 from __future__ import annotations
@@ -281,6 +281,33 @@ class NumericFormatCastStage(TransformStage):
         cols[name] = ids
         cols[name + "?"] = np.asarray(
             cols.get(self._src + "?", np.zeros(vals.shape[0], bool)))
+        return cols
+
+
+class InProbeStage(TransformStage):
+    """``<cond> in Table`` (reference InConditionExpressionExecutor): an
+    exists-probe computing, per batch row, whether ANY table row satisfies
+    the compiled pair condition, as a synthetic bool column the filter
+    reads. The ``[B, C]`` broadcast is the table's own ``_match`` (the
+    machinery and binding rules of join, update and delete probes)."""
+
+    # reads the table's current rows at every batch: the query runs its
+    # transform chain on the host (the planner checks this flag)
+    host_only = True
+
+    def __init__(self, out_name: str, table, cond_fn):
+        self.out_attrs = [Attribute(out_name, AttrType.BOOL)]
+        self._table = table
+        self._cond = cond_fn
+
+    def apply(self, cols, ctx):
+        from siddhi_tpu_torch.core.table.in_memory_table import host
+
+        cols = dict(cols)
+        present = host(self._table._match(self._cond, cols, ctx).any(dim=1))
+        name = self.out_attrs[0].name
+        cols[name] = present
+        cols[name + "?"] = np.zeros(present.shape[0], bool)
         return cols
 
 

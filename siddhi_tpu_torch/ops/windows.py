@@ -7,7 +7,9 @@ tumbling ``lengthBatch``, ``timeBatch``, ``batch`` and
 with ``_order_emit``, ``_row_order_base``, the row-type constants, the
 ring column specs and the ``create_window_stage`` factory (which hands
 sort/frequent/lossyFrequent/session/cron/expression/expressionBatch to
-``ops/host_windows.py``).
+``ops/host_windows.py``), and ``PassthroughWindowStage``, a windowless
+join side. Every stage's ``contents(state)`` is the ``(cols [W], valid
+[W])`` view of its held rows that a join side probes.
 
 A stage is ``apply(state, cols, ctx) -> (state, out_cols)``: ``state`` is
 a dict of tensors the stage updates in place (rings through
@@ -176,6 +178,13 @@ class WindowStage:
     def apply(self, state: dict, cols: Dict, ctx: Dict):
         raise NotImplementedError
 
+    def contents(self, state: dict):
+        """(cols [W], valid [W]) view of the held events: the probe surface
+        of a join side (the role of FindableProcessor.find on window
+        processors, reference ``JoinProcessor.java:134-147``)."""
+        raise CompileError(
+            f"{type(self).__name__} cannot be probed (used as a join side)")
+
 
 def conform_cols(stage, cols: Dict) -> Dict:
     """``stage.conform(cols)`` for any stage-like object: stages that take
@@ -183,6 +192,70 @@ def conform_cols(stage, cols: Dict) -> Dict:
     (``ops/fused_agg.FusedSlidingAggStage``) pass the columns through."""
     fn = getattr(stage, "conform", None)
     return fn(cols) if fn is not None else cols
+
+
+class PassthroughWindowStage(WindowStage):
+    """A join side that retains nothing itself: a bare (window-less) stream
+    side (reference ``EmptyWindowProcessor``; CURRENT only), or a named
+    window's emission stream (``pass_expired=True``: the shared window
+    already emitted typed CURRENT/EXPIRED events).
+
+    ``empty_window`` is EmptyWindowProcessor.java:84: every arriving event
+    becomes [CURRENT, EXPIRED(clone, ts=now) when the output expects
+    expireds, RESET], so per-trigger aggregates of a windowless join
+    restart per event; ``emit_reset=False`` leaves the RESET rows out
+    where the query has no aggregate state to restart."""
+
+    def __init__(self, col_specs: Dict[str, np.dtype], pass_expired: bool = False,
+                 empty_window: bool = False, expired_needed: bool = False,
+                 emit_reset: bool = True):
+        self.col_specs = col_specs
+        self.pass_expired = pass_expired
+        self.empty_window = empty_window
+        self.expired_needed = expired_needed
+        self.emit_reset = emit_reset
+
+    def init_state(self, num_keys: int, device) -> dict:
+        return {"empty": torch.zeros((1,), dtype=torch.int32, device=device)}
+
+    def apply(self, state, cols, ctx):
+        valid = cols[VALID_KEY]
+        dev = valid.device
+        if self.empty_window:
+            keys = _data_keys(cols)
+            B = valid.shape[0]
+            now = int(ctx["current_time"])
+            valid_cur = valid & (cols[TYPE_KEY] == CURRENT)
+            rank, _n = _insert_ranks(valid_cur)
+            parts = [({k: cols[k] for k in keys},
+                      _full(B, CURRENT, torch.int8, dev), valid_cur, rank * 3)]
+            if self.expired_needed:
+                exp = {k: cols[k] for k in keys}
+                exp[TS_KEY] = torch.where(valid_cur, now, cols[TS_KEY])
+                parts.append((exp, _full(B, EXPIRED, torch.int8, dev),
+                              valid_cur, rank * 3 + 1))
+            if self.emit_reset:
+                reset_rows = _zero_rows(cols, B, dev)
+                reset_rows[TS_KEY] = torch.where(
+                    valid_cur, _full(B, now, torch.int64, dev),
+                    torch.zeros_like(cols[TS_KEY]))
+                parts.append((reset_rows, _full(B, RESET, torch.int8, dev),
+                              valid_cur, rank * 3 + 2))
+            out, _ = _order_emit(parts)
+            return state, out
+        out = {k: cols[k] for k in _data_keys(cols)}
+        out[TYPE_KEY] = cols[TYPE_KEY]
+        live = cols[TYPE_KEY] == CURRENT
+        if self.pass_expired:
+            live = live | (cols[TYPE_KEY] == EXPIRED)
+        out[VALID_KEY] = valid & live
+        return state, out
+
+    def contents(self, state):
+        dev = state["empty"].device
+        cols = {k: torch.zeros((1,), dtype=to_torch_dtype(dt), device=dev)
+                for k, dt in self.col_specs.items()}
+        return cols, torch.zeros((1,), dtype=torch.bool, device=dev)
 
 
 class LengthWindowStage(WindowStage):
@@ -250,6 +323,12 @@ class LengthWindowStage(WindowStage):
         ]
         out, _ = _order_emit(parts)
         return state, out
+
+    def contents(self, state):
+        """Join probe surface: (cols [W], valid [W]) of the held rows."""
+        W = self.length
+        j = torch.arange(W, dtype=torch.int64, device=state["total"].device)
+        return dict(state["buf"]), j < torch.clamp(state["total"], max=W)
 
 
 # -------------------------------------------------------------------- time
@@ -430,6 +509,16 @@ class TimeWindowStage(WindowStage):
         state["total"].copy_(new_total)
         state["expired_upto"].copy_(new_exp)
         return state, out
+
+    def contents(self, state):
+        """Join probe surface: slot j holds the newest sequence s < total
+        with s % Wc == j, live when s >= expired_upto."""
+        Wc = self.capacity
+        total = state["total"]
+        j = torch.arange(Wc, dtype=torch.int64, device=total.device)
+        s_j = total - 1 - torch.remainder(total - 1 - j, Wc)
+        valid = (total > 0) & (s_j >= 0) & (s_j >= state["expired_upto"])
+        return dict(state["buf"]), valid
 
 
 def _next_valid_index(valid):
@@ -677,6 +766,19 @@ class LengthBatchWindowStage(WindowStage):
         state["prev_count"] = torch.where(n_flush > 0, W, prev_count0)
         return state, out
 
+    def contents(self, state):
+        """Join/find probes hit the reference's ``expiredEventQueue``
+        (LengthBatchWindowProcessor.java:288-299): the last completed batch
+        in full-batch mode; the current cycle's arrivals in
+        streamCurrentEvents mode."""
+        dev = state["count"].device
+        if self.length == 0:
+            return dict(state["cur"]), torch.zeros((0,), dtype=torch.bool, device=dev)
+        j = torch.arange(self.length, dtype=torch.int64, device=dev)
+        if self.stream_current:
+            return dict(state["cur"]), j < state["count"]
+        return dict(state["prev"]), j < state["prev_count"]
+
 
 # --------------------------------------------------------------- timeBatch
 
@@ -796,6 +898,16 @@ class TimeBatchWindowStage(WindowStage):
         out[OVERFLOW_KEY] = (count > Wc).to(torch.int32)
         return state, out
 
+    def contents(self, state):
+        """Join/find probes hit the reference's ``expiredEventQueue``
+        (TimeBatchWindowProcessor.java:368-380): the last flushed batch in
+        full-batch mode; the arrivals since the last flush in
+        streamCurrentEvents mode."""
+        j = torch.arange(self.capacity, dtype=torch.int64, device=state["count"].device)
+        if self.stream_current:
+            return dict(state["cur"]), j < state["count"]
+        return dict(state["prev"]), j < state["prev_count"]
+
 
 class HoppingWindowStage(WindowStage):
     """``hopping(windowTime, hopTime)``: every hop, emit the events of the
@@ -886,6 +998,14 @@ class HoppingWindowStage(WindowStage):
         out[NOTIFY_KEY] = next_emit
         out[OVERFLOW_KEY] = (total - new_exp > Wc).to(torch.int32)
         return state, out
+
+    def contents(self, state):
+        Wc = self.capacity
+        j = torch.arange(Wc, dtype=torch.int64, device=state["total"].device)
+        fifo_seq = state["expired_upto"] + j
+        flat = fifo_seq % Wc
+        return ({k: v[flat] for k, v in state["buf"].items()},
+                fifo_seq < state["total"])
 
 
 # ------------------------------------------------------------------- batch
@@ -990,6 +1110,11 @@ class BatchWindowStage(WindowStage):
         out[OVERFLOW_KEY] = (n_ins > Wc).to(torch.int32)
         return state, out
 
+    def contents(self, state):
+        j = torch.arange(self.capacity, dtype=torch.int64,
+                         device=state["prev_count"].device)
+        return dict(state["prev"]), j < state["prev_count"]
+
 
 # -------------------------------------------------------------- timeLength
 
@@ -1084,6 +1209,14 @@ class TimeLengthWindowStage(WindowStage):
         state["total"].copy_(new_total)
         state["expired_upto"].copy_(new_exp)
         return state, out
+
+    def contents(self, state):
+        L = self.length
+        total = state["total"]
+        j = torch.arange(L, dtype=torch.int64, device=total.device)
+        s_j = total - 1 - torch.remainder(total - 1 - j, L)
+        valid = (total > 0) & (s_j >= 0) & (s_j >= state["expired_upto"])
+        return dict(state["buf"]), valid
 
 
 # ------------------------------------------------------------------- delay
@@ -1342,6 +1475,10 @@ class ExternalTimeBatchWindowStage(WindowStage):
             state["last_sched"] = new_sched
             out[NOTIFY_KEY] = torch.where(new_sched >= 0, new_sched, -1)
         return state, out
+
+    def contents(self, state):
+        j = torch.arange(self.capacity, dtype=torch.int64, device=state["count"].device)
+        return dict(state["cur"]), j < state["count"]
 
 
 # ----------------------------------------------------------------- factory

@@ -231,12 +231,16 @@ def route_ineligibility(runtime) -> Optional[str]:
     """Why this runtime cannot take the routed path (None = it can): the
     ported scope is partitioned queries over keyed length windows (or no
     window), and non-partitioned grouped queries without a window."""
+    from siddhi_tpu_torch.core.query.join_runtime import JoinQueryRuntime
     from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
     from siddhi_tpu_torch.ops.keyed_windows import KeyedLengthWindowStage
 
     if isinstance(runtime, NFAQueryRuntime):
         return ("pattern and sequence queries (an NFA step over a mesh is "
                 "not ported yet)")
+    if isinstance(runtime, JoinQueryRuntime):
+        return ("join queries (routed joins over a mesh are not ported yet: "
+                "ROADMAP A.9)")
     sp = runtime.selector_plan
     if sp.order_by or sp.limit is not None or sp.offset is not None:
         return "order by / limit (batch-global ordering)"

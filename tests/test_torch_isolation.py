@@ -46,7 +46,10 @@ def test_port_imports_and_runs_with_jax_unimportable():
     @Async/@OnError app with a sink fed by a wire frame through the pool at
     depth 4, and a range partition with @purge, an inner stream, a
     partition-local stream and keyed time, session and sort windows on the
-    CPU, and answers them."""
+    CPU, and a playback app with a join (the partitioned engine's step), a
+    table fed by ``update or insert into`` and probed by ``in`` and a
+    join, a named window, an ``every`` trigger and on-demand finds, and
+    answers them."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -149,6 +152,30 @@ for i, (s, v) in enumerate([("a", 1), ("b", 4), ("c", 9)]):
     h.send(1000 + i, [s, v])
 rt.shutdown()
 assert c.rows == [["a", 1], ["b", 2], ["b", 1], ["c", 2]], c.rows
+rt = SiddhiManager(device="cpu").create_siddhi_app_runtime('''
+@app:playback define stream L (k string, v long); define stream R (k string, v long);
+define trigger T at every 1 sec;
+@primaryKey('k') define table Tb (k string, v long);
+define window W (k string, v long) length(2);
+from R select k, v update or insert into Tb on Tb.k == k;
+from L select k, v insert into W;
+@info(name = 'j') from L#window.length(8) join R#window.time(1 sec) on L.k == R.k
+select L.k as k, L.v as lv, R.v as rv insert into J;
+from L join Tb on L.k == Tb.k select L.k as k, Tb.v as tv insert into TJ;
+from L[(k == Tb.k) in Tb] select k, v insert into IN;
+from T select triggered_time as t insert into TT;''')
+outs = {{}}
+for s in ("J", "TJ", "IN", "TT"):
+    outs[s] = C(); rt.add_callback(s, outs[s])
+hl, hr = rt.get_input_handler("L"), rt.get_input_handler("R")
+hr.send(1000, ["a", 5]); hl.send(1500, ["a", 1]); hl.send(2600, ["b", 2])
+found = rt.query("from Tb on k == 'a' select k, v")
+wrows = rt.query("from W select k, v")
+rt.shutdown()
+assert outs["J"].rows == [["a", 1, 5]], outs["J"].rows
+assert outs["TJ"].rows == [["a", 5]], outs["TJ"].rows
+assert outs["TT"].rows == [[2000]], outs["TT"].rows
+assert [e.data for e in found] == [["a", 5]] and len(wrows) == 2
 assert "jax" not in {{k for k, v in sys.modules.items() if v is not None}}
 print("OK")
 """
@@ -168,18 +195,46 @@ def test_manager_without_device_chooses_cuda():
 
 
 def test_unported_constructs_are_named_not_skipped():
+    """What the port still refuses raises a ``CompileError`` naming it:
+    incremental aggregations and joins against them (ROADMAP A.7), and a
+    join routed over a mesh (A.9). Tables, named windows, triggers and
+    joins run."""
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch.ops.expressions import CompileError
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
     m = SiddhiManager(device="cpu")
+    agg = ("define stream S (a int, b long); define aggregation Agg from S "
+           "select a, sum(b) as t group by a aggregate every sec ... min; ")
     for app, what in [
-        ("define stream S (a int); define table T (a int); "
-         "from S select a insert into T;", "tables"),
-        ("define stream S (a int); define window W (a int) length(2); "
-         "from S insert into W;", "named windows"),
-        ("define stream S (a int); define stream R (a int); "
-         "from S#window.length(2) join R#window.length(2) on S.a == R.a "
-         "select S.a insert into O;", "JoinInputStream inputs"),
+        (agg, r"incremental aggregations \(define aggregation\)"),
+        (agg + "define stream R (a int); from R join Agg on R.a == Agg.a "
+         "within 0L, 10L per 'seconds' select R.a as a, Agg.t as t insert into O;",
+         "joins against incremental aggregations"),
     ]:
         with pytest.raises(CompileError, match=what):
             m.create_siddhi_app_runtime(app)
+    rt = m.create_siddhi_app_runtime(
+        "define stream L (k string, v long); define stream R (k string, v long); "
+        "partition with (k of L, k of R) begin @info(name='j') "
+        "from L#window.length(4) join R#window.length(4) on L.v > R.v "
+        "select L.k as k, R.v as rv insert into O; end;")
+    with pytest.raises(CompileError, match="join queries.*A.9"):
+        device_route_query_step(rt.query_runtimes["j"], make_mesh(2))
+    m.shutdown()
+
+
+def test_nfa_init_state_needs_a_device():
+    """``NFAStage.init_state`` takes the device from its caller: no CPU
+    default to fall back on."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device="cpu")
+    rt = m.create_siddhi_app_runtime(
+        "define stream A (k string, v double); define stream B (k string, v double); "
+        "@info(name='q') from every e1=A -> e2=B select e1.k as k insert into O;")
+    stage = rt.query_runtimes["q"].stage
+    with pytest.raises(TypeError, match="device"):
+        stage.init_state(1)
+    assert stage.init_state(1, torch.device("cpu"))["active"].device.type == "cpu"
+    m.shutdown()

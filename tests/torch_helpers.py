@@ -366,13 +366,15 @@ def two_stream_feed(seed, streams=("A", "B"), n_items=40, n_keys=4):
 
 
 def port_corpus(name):
-    """A reference test module of the pattern corpus, re-bound to the
-    port: its ``SiddhiManager`` makes port managers on the CPU and its
-    ``StreamCallback``, ``CompileError`` and ``InMemoryConfigManager`` are
-    the port's, so each scenario drives the port through the module's own
-    feed and checks the module's own expected rows (the reference's
-    outputs: the module asserts them of the reference). Returns (module,
-    its test function names)."""
+    """A reference test module of a corpus, re-bound to the port: its
+    ``SiddhiManager`` makes port managers on the CPU, and every name it
+    imports from a module the port keeps under the same path
+    (``StreamCallback``, ``QueryCallback``, ``CompileError``, the
+    compiler's exceptions, ``InMemoryConfigManager``, the record-table
+    SPI, ...) is the port's, so each scenario drives the port through the
+    module's own feed and checks the module's own expected rows (the
+    reference's outputs: the module asserts them of the reference).
+    Returns (module, its test function names)."""
     import functools
     import inspect
     import os
@@ -385,12 +387,30 @@ def port_corpus(name):
         src = f.read()
     for old, new in (
             ("from siddhi_tpu import", "from siddhi_tpu_torch import"),
-            ("from siddhi_tpu.ops.expressions import",
-             "from siddhi_tpu_torch.ops.expressions import"),
             ("from siddhi_tpu.core.util.config import", "from siddhi_tpu_torch import")):
         src = src.replace(old, new)
     import re
 
+    # a module the port keeps under the same path is the port's
+    port_root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "siddhi_tpu_torch")
+
+    def rebind(m):
+        mod = m.group(1)
+        if os.path.exists(os.path.join(port_root, *mod.split(".")) + ".py"):
+            return f"from siddhi_tpu_torch.{mod} import"
+        return m.group(0)
+
+    src = re.sub(r"from siddhi_tpu\.([\w.]+) import", rebind, src)
+
+    def rebind_corpus(m):
+        # a name shared from another corpus module comes from its port
+        key = f"_port_corpus_{m.group(1)}"
+        if key not in sys.modules:
+            sys.modules[key] = port_corpus(m.group(1))[0]
+        return f"from {key} import"
+
+    src = re.sub(r"from tests\.(\w+) import", rebind_corpus, src)
     left = re.findall(r"(?:from|import) siddhi_tpu\b(?!_torch)[.\w]*", src)
     assert set(left) <= {"from siddhi_tpu.core.manager"}, (name, left)
     mod = types.ModuleType(name + "_on_port")
