@@ -201,10 +201,40 @@ Phases (any failure exits non-zero and prints no result line):
             as a join side, on-demand find/update/delete and a `start` and
             an `every` trigger == the CPU run. No TPU kernel lies on this
             path: nothing here launches a kernel of the port;
-21. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+21. aggregation and persistence, at full width. AG: Siddhi's documented
+            incremental aggregation (``define aggregation StockAgg ...
+            avg(price), sum(volume), count(), min(price), max(price) group
+            by symbol aggregate by ts every sec ... year``) under
+            ``@app:playback``, with the global flagship on the same stream,
+            fed 4 of phase 17's 65,536-row batches (10,000 symbols, 20,000
+            events/s of event time; 4 batches is a cut of depth: each
+            batch is seconds of host fold). Checks: every duration's bucket
+            store == a numpy oracle built from the feed alone (ints and
+            float sums exact, avg to rtol 1e-12); six on-demand finds
+            (``within ... per`` seconds/minutes/hours/days with group by,
+            having, order by, limit) == the oracle; a 256-row ``Q`` batch
+            joined ``within ... per 'minutes'`` (the probe on the card) ==
+            a numpy hash join over the oracle. The incremental chain: a
+            full revision after batch 1, an incremental one after batch 3
+            (with a ``@primaryKey`` table's insert journal), restored into
+            a fresh runtime: the flagship's rows, the stores and the table
+            after batch 4 == the straight run. P: the routed partitioned
+            flagship x4 (573 MB of state), D1, J5 (12 pairs) and N (16
+            pairs, its revision through a ``FileSystemPersistenceStore``)
+            each run straight and split: persist after half the feed,
+            ``restore_last_revision`` into a fresh runtime, feed the rest.
+            Checks: the restored state byte-equal to the revision, every
+            row after the restore == the straight run bit for bit, the
+            exchange kernel and the distinct scan launching after the
+            restore and == their plain versions on a recorded call; the
+            routed revision restored into the unrouted runtime == the
+            unrouted run. Prints persist and restore ms, snapshot bytes,
+            device-to-host and host-to-device bytes of each cell;
+22. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
-    ``{"joins": ...}`` line, a ``{"kernels": [...]}`` line, the nvidia-smi
-    line, and last ``{"ok": true, "device": {...}}``.
+    ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
+    ``{"aggregation": ...}`` line, a ``{"kernels": [...]}`` line, the
+    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -838,28 +868,33 @@ def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS, main=None):
     """Mean device time of the CUDA kernels whose names hold ``kernel``
     over ``runs`` calls of ``fn``, each after an L2 flush (torch.profiler),
     and how many launches of the call's main kernel (names holding any of
-    ``main``; default ``kernel``) the profiler recorded. The profiler can
-    miss a few launches of a kernel started through ctypes (on an H100 it
-    saw 27 of 30 distinct-scan launches in one run), so the mean is over
-    the launches it saw."""
+    ``main``; default ``kernel``) the profiler recorded, and how many
+    traces it took. The profiler can miss a few launches of a kernel
+    started through ctypes (on an H100 it saw 27 of 30 distinct-scan
+    launches in one run, and none of 10 in one), so the mean is over the
+    launches it saw, and a trace that saw none is taken again, up to three
+    times: a count of traces above 1 is printed beside the launches seen."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     main = (kernel,) if main is None else main
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(runs):
-            flush.fill_(i & 0xFF)
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
-    count = sum(e.count for e in events if any(m in e.key for m in main))
+    for traces in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(runs):
+                flush.fill_(i & 0xFF)
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
+        count = sum(e.count for e in events if any(m in e.key for m in main))
+        if count > 0:
+            break
     _require(0 < count <= runs and us > 0,
              f"profiler saw {count} launches of {main} with {us} us of device "
              f"time for {runs} calls")
-    return us / 1e3 / count, count
+    return us / 1e3 / count, count, traces
 
 
 def check_exchange(device):
@@ -920,7 +955,7 @@ def check_exchange(device):
     for name, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
         out[name + "_warm_l2"] = time_ms(fn)
     out["host_ms"] = host_ms(kernel)
-    out["device_ms"], out["device_seen"] = device_ms(
+    out["device_ms"], out["device_seen"], out["device_traces"] = device_ms(
         kernel, "ring_exchange_cols_kernel", scratch)
     out["bound_ms"] = 2 * nbytes / H100_BYTES_PER_S * 1e3   # read once + write once
     out["roofline_share"] = out["bound_ms"] / out["device_ms"]
@@ -1059,7 +1094,7 @@ def time_scan(args, kwargs, flush, runs=TIMED_RUNS, plain_runs=TIMED_RUNS,
            "plain_ms": time_ms(calls(distinct_scan_plain, plain_runs, plain_cut),
                                runs=plain_runs, flush=flush),
            "host_ms": host_ms(calls(distinct_scan, runs), runs=runs)}
-    out["device_ms"], out["device_seen"] = device_ms(
+    out["device_ms"], out["device_seen"], out["device_traces"] = device_ms(
         calls(distinct_scan, runs), "distinct_scan_", flush, runs=runs,
         main=("distinct_scan_registers", "distinct_scan_hash"))
     out["runs"] = runs
@@ -1133,7 +1168,8 @@ def crossover(args, kwargs, flush):
                     f"crossover H={H}: the hash path differs from registers")
             pool = [[vk_h.clone(), vc_h.clone(), stamp.clone()]
                     for _ in range(CROSSOVER_RUNS + 1)]
-            out[(H, name)], _seen = device_ms(
+            # (ms, launches seen, traces)
+            out[(H, name)] = device_ms(
                 lambda: distinct.launch(*pool.pop(), *rows, emit, path),
                 "distinct_scan_", flush, runs=CROSSOVER_RUNS,
                 main=("distinct_scan_registers", "distinct_scan_hash"))
@@ -1283,7 +1319,8 @@ def one_group(device, feed, label: str, window: int, H: int, flush, card: str,
           f"oracle on the whole batch (state, counts; oracle {oracle_s:.2f} s); "
           f"whole batch, L2 flushed: kernel {k['ms']:.4f} ms; host enqueue "
           f"{k['host_ms']:.4f} ms; device {k['device_ms']:.4f} ms "
-          f"({k['device_seen']} of {k['runs']} launches seen), "
+          f"({k['device_seen']} of {k['runs']} launches seen, "
+          f"{k['device_traces']} traces), "
           f"{k['ns_per_row']:.1f} ns per chain row, against a {k['bound_ms']:.4f} "
           f"ms byte bound, share {k['share']:.6f} [{card}]", flush=True)
     return k, launches, err
@@ -1335,12 +1372,13 @@ def phase_distinct(device, feed, card: str):
           f"== plain; L2 flushed: kernel {k1['ms']:.4f} ms, plain "
           f"{k1['plain_ms']:.4f} ms; host enqueue {k1['host_ms']:.4f} ms; "
           f"device {k1['device_ms']:.4f} ms ({k1['device_seen']} of "
-          f"{k1['runs']} launches seen), {k1['ns_per_row']:.1f} ns per chain "
+          f"{k1['runs']} launches seen, {k1['device_traces']} traces), {k1['ns_per_row']:.1f} ns per chain "
           f"row, against a {k1['bound_ms']:.4f} ms byte bound ({k1['bytes']} "
           f"bytes), share {k1['share']:.4f} [{card}]", flush=True)
     cross = crossover(a1, kw1, scratch)
     for H in CROSSOVER_H:
-        paths = " ".join(f"{name} {ms:.4f}" for (h, name), ms in cross.items()
+        paths = " ".join(f"{name} {ms:.4f} ({seen} seen, {traces} traces)"
+                         for (h, name), (ms, seen, traces) in cross.items()
                          if h == H)
         print(f"[distinct] crossover, D1's rows at H={H}, device ms of the "
               f"launch (L2 flushed, {CROSSOVER_RUNS} runs), every path == registers: "
@@ -3910,6 +3948,687 @@ def phase_joins(device, card: str):
     return res
 
 
+# ------------------------------------------- aggregation and persistence
+
+AG_BATCHES = 4                  # each batch is seconds of host fold: a depth cut
+AG_Q_ROWS = 256
+AG_T0 = TW_BASE
+AG_T1 = TW_BASE + 10 ** 8       # past the feed's last bucket
+# Siddhi's documented incremental aggregation example (TradeAggregation:
+# avg(price), sum(price) group by symbol aggregate by timestamp every sec
+# ... year), widened to sum(volume), count(), min and max; the global
+# flagship on the same stream, a @primaryKey table of each symbol's first
+# trade, and an aggregation join
+AG_APP = """@app:name('stock_agg')
+@app:playback
+define stream StockStream (symbol string, price float, volume long, ts long);
+define stream Q (symbol string, t long);
+@primaryKey('symbol')
+define table FirstTrade (symbol string, price float, volume long);
+define aggregation StockAgg
+from StockStream
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n,
+       min(price) as lo, max(price) as hi
+group by symbol
+aggregate by ts every sec ... year;
+@info(name = 'bench')
+from StockStream#window.length({W})
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume
+group by symbol
+insert into OutStream;
+from StockStream select symbol, price, volume insert into FirstTrade;
+@info(name = 'aggjoin')
+from Q join StockAgg on Q.symbol == StockAgg.symbol
+within {T0}L, {T1}L per 'minutes'
+select Q.symbol as symbol, StockAgg.AGG_TIMESTAMP as bucket,
+       StockAgg.totalVolume as totalVolume, StockAgg.n as n,
+       StockAgg.avgPrice as avgPrice
+insert into AggJoinOut;
+"""
+AG_DURATIONS = ("sec", "min", "hour", "day", "month", "year")
+AG_FINDS = {
+    "sec_all": ("from StockAgg within {T0}L, {T1}L per 'seconds' "
+                "select symbol, avgPrice, totalVolume, n, lo, hi"),
+    "min_top": ("from StockAgg within {T0}L, {T1}L per 'minutes' "
+                "select symbol, totalVolume, n order by totalVolume desc, symbol "
+                "limit 20"),
+    "hour_having": ("from StockAgg within {T0}L, {T1}L per 'hours' "
+                    "select symbol, min(lo) as lo, max(hi) as hi group by symbol "
+                    "having lo < 1.0 order by symbol"),
+    "day_group": ("from StockAgg within {T0}L, {T1}L per 'days' "
+                  "select symbol, sum(totalVolume) as v, sum(n) as c group by symbol "
+                  "having v > {V}L order by v desc, symbol limit 10"),
+    "sec_counts": ("from StockAgg within {T0}L, {T1}L per 'seconds' "
+                   "select symbol, sum(n) as c group by symbol "
+                   "order by c desc, symbol limit 5"),
+    "sec_totals": ("from StockAgg within {T0}L, {TM}L per 'seconds' "
+                   "select AGG_TIMESTAMP as t, sum(totalVolume) as v "
+                   "group by AGG_TIMESTAMP order by t"),
+}
+AG_DAY_VOLUME = 20_000          # day_group's having bound
+J5_P_PAIRS = 12                 # P's J5 cell: split at half
+N_P_PAIRS = 16                  # P's N cell: split at half
+
+
+def sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def concat_rows(batches):
+    """One batch of columns holding every row of ``batches``."""
+    import numpy as np
+
+    batches = [b for b in batches if len(b["__ts__"])]
+    if not batches:
+        return []
+    return [{k: np.concatenate([b[k] for b in batches]) for k in batches[0]}]
+
+
+def agg_oracle(feed):
+    """The bucket stores of StockAgg built from the feed alone: per
+    duration {(bucket, symbol): (avgPrice, totalVolume, n, lo, hi)}. Sums
+    fold in arrival order (``np.add.at`` walks its rows in order), so
+    they equal the runtime's float for float."""
+    import numpy as np
+
+    sym = np.concatenate([c["symbol"] for c, _t in feed])
+    ts = np.concatenate([c["ts"] for c, _t in feed]).astype(np.int64)
+    price = np.concatenate([c["price"] for c, _t in feed]).astype(np.float64)
+    vol = np.concatenate([c["volume"] for c, _t in feed]).astype(np.int64)
+    names, sid = np.unique(sym, return_inverse=True)
+    out = {}
+    for d in AG_DURATIONS:
+        if d in ("month", "year"):
+            unit = "M" if d == "month" else "Y"
+            b = ts.astype("datetime64[ms]").astype(f"datetime64[{unit}]") \
+                .astype("datetime64[ms]").astype(np.int64)
+        else:
+            w = {"sec": 1000, "min": 60_000, "hour": 3_600_000, "day": 86_400_000}[d]
+            b = ts - ts % w
+        key = b * len(names) + sid
+        uk, inv = np.unique(key, return_inverse=True)
+        s = np.zeros(len(uk))
+        np.add.at(s, inv, price)
+        n = np.bincount(inv, minlength=len(uk))
+        tv = np.zeros(len(uk), np.int64)
+        np.add.at(tv, inv, vol)
+        lo = np.full(len(uk), np.inf)
+        np.minimum.at(lo, inv, price)
+        hi = np.full(len(uk), -np.inf)
+        np.maximum.at(hi, inv, price)
+        out[d] = {(int(k // len(names)), str(names[k % len(names)])):
+                  (float(s[i]) / int(n[i]), int(tv[i]), int(n[i]), float(lo[i]),
+                   float(hi[i])) for i, k in enumerate(uk)}
+    return out
+
+
+def rows_close(got, want, what: str, rtol=FLOAT_RTOL):
+    """Lists of row tuples: equal length, ints and strings exact, floats
+    to ``rtol`` (one value, or one per column)."""
+    _require(len(got) == len(want), f"{what}: {len(got)} rows, want {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        _require(len(a) == len(b), f"{what}: row {i} width")
+        tols = rtol if isinstance(rtol, tuple) else (rtol,) * len(b)
+        for x, y, tol in zip(a, b, tols):
+            if isinstance(y, float):
+                _require(abs(x - y) <= tol * abs(y), f"{what}: row {i}: {a} vs {b}")
+            else:
+                _require(x == y, f"{what}: row {i}: {a} vs {b}")
+
+
+def ag_expected_finds(oracle, feed):
+    """What each of AG_FINDS returns, from the oracle alone."""
+    import numpy as np
+
+    tm = AG_T0 + ag_mid_ms(feed)
+    sec = oracle["sec"]
+    want = {"sec_all": sorted((s, *v) for (_b, s), v in sec.items())}
+    mins = [(s, v[1], v[2]) for (_b, s), v in oracle["min"].items()]
+    want["min_top"] = sorted(mins, key=lambda r: (-r[1], r[0]))[:20]
+    hours = {}
+    for (_b, s), v in oracle["hour"].items():
+        lo, hi = hours.get(s, (np.inf, -np.inf))
+        hours[s] = (min(lo, v[3]), max(hi, v[4]))
+    want["hour_having"] = sorted((s, lo, hi) for s, (lo, hi) in hours.items() if lo < 1.0)
+    days = {}
+    for (_b, s), v in oracle["day"].items():
+        a = days.get(s, (0, 0))
+        days[s] = (a[0] + v[1], a[1] + v[2])
+    want["day_group"] = sorted(((s, v, c) for s, (v, c) in days.items()
+                                if v > AG_DAY_VOLUME), key=lambda r: (-r[1], r[0]))[:10]
+    counts = {}
+    for (_b, s), v in sec.items():
+        counts[s] = counts.get(s, 0) + v[2]
+    want["sec_counts"] = sorted(counts.items(), key=lambda r: (-r[1], r[0]))[:5]
+    totals = {}
+    for (b, _s), v in sec.items():
+        if b < tm:
+            totals[b] = totals.get(b, 0) + v[1]
+    want["sec_totals"] = sorted(totals.items())
+    return want
+
+
+def ag_mid_ms(feed) -> int:
+    """sec_totals' upper bound: half the feed's event time."""
+    first, last = int(feed[0][1][0]), int(feed[-1][1][-1])
+    return (last - first) // 2
+
+
+def ag_q_batch(feed, seed: int):
+    """The 256-row Q batch: symbols of the feed's universe, stamped at the
+    feed's last timestamp."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    syms = np.array([f"S{i}" for i in range(NUM_SYMBOLS)], dtype=object)
+    t = int(feed[-1][1][-1])
+    return ({"symbol": syms[rng.integers(0, NUM_SYMBOLS, AG_Q_ROWS)],
+             "t": np.full(AG_Q_ROWS, t, np.int64)}, np.full(AG_Q_ROWS, t, np.int64))
+
+
+def ag_build(device, store):
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device=device)
+    m.set_persistence_store(store)
+    rt = m.create_siddhi_app_runtime(AG_APP.format(W=WINDOW, T0=AG_T0, T1=AG_T1))
+    rt.query_runtimes["bench"].selector_plan.num_keys = KEY_SLOTS
+    cbs = {s: collector() for s in ("OutStream", "AggJoinOut")}
+    for s, cb in cbs.items():
+        rt.add_callback(s, cb)
+    return m, rt, cbs
+
+
+def agg_rows(rt, d: str):
+    """StockAgg's stitched rows of one duration as (bucket, symbol, avg,
+    totalVolume, n, lo, hi), symbols decoded."""
+    from siddhi_tpu_torch.core.aggregation.incremental import parse_duration_name
+
+    agg = rt.aggregations["StockAgg"]
+    dic = rt.app_context.string_dictionary
+    return sorted((r[0], dic.decode(int(r[1])), *r[2:])
+                  for r in agg.rows(parse_duration_name(d)))
+
+
+def phase_aggregation(device, card: str):
+    """AG and the incremental chain (see the module doc). Returns
+    (facts, persistence facts of the chain)."""
+    import pickle
+
+    import numpy as np
+
+    from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+
+    t_phase = time.perf_counter()
+    feed, _ids = tw_feed(17, AG_BATCHES)
+    oracle = agg_oracle(feed)
+    store = InMemoryPersistenceStore()
+    m, rt, cbs = ag_build(device, store)
+    agg = rt.aggregations["StockAgg"]
+    fold_s = []
+    orig = agg._fold_batch
+
+    def timed_fold(cols):
+        t0 = time.perf_counter()
+        orig(cols)
+        fold_s.append(time.perf_counter() - t0)
+
+    agg._fold_batch = timed_fold
+    h = rt.get_input_handler("StockStream")
+    revs, chain = [], {}
+    for i, (cols, ts) in enumerate(feed):
+        h.send_columns(cols, timestamps=ts)
+        sync(device)
+        if i == 0:
+            revs.append(rt.persist())                    # full
+            chain["full_bytes"] = len(store.load(rt.name, revs[-1]))
+        elif i == AG_BATCHES - 2:
+            revs.append(rt.persist_incremental())        # delta of two batches
+            chain["incremental_bytes"] = len(store.load(rt.name, revs[-1]))
+        if i == AG_BATCHES - 2:
+            n_head = len(cbs["OutStream"].batches)
+    _require(pickle.loads(store.load(rt.name, revs[-1])).get("incremental"),
+             "AG: the second revision is not incremental")
+    _require(sum(len(b["__ts__"]) for b in cbs["OutStream"].batches)
+             == AG_BATCHES * BATCH, "AG: the flagship's rows out")
+
+    # the stores against the oracle
+    buckets = {}
+    for d in AG_DURATIONS:
+        got = agg_rows(rt, d)
+        want = sorted((b, s, *v) for (b, s), v in oracle[d].items())
+        # sums fold in arrival order on both sides: only avg may differ,
+        # by its one division
+        rows_close(got, want, f"AG {d} store", rtol=(0, 0, FLOAT_RTOL, 0, 0, 0.0, 0.0))
+        buckets[d] = len({r[0] for r in got})
+    # the finds
+    V = AG_DAY_VOLUME
+    want_finds = ag_expected_finds(oracle, feed)
+    find_ms = {}
+    dic = rt.app_context.string_dictionary
+    for name, text in AG_FINDS.items():
+        q = text.format(T0=AG_T0, T1=AG_T1, TM=AG_T0 + ag_mid_ms(feed), V=V)
+        t0 = time.perf_counter()
+        events = rt.query(q)
+        find_ms[name] = (time.perf_counter() - t0) * 1e3
+        got = [tuple(e.data) for e in events]
+        if name == "sec_all":
+            got = sorted(got)
+        rows_close(got, want_finds[name], f"AG find {name}")
+        _require(len(got) > 0, f"AG find {name}: no rows")
+    # the aggregation join: a numpy hash join over the oracle's minutes
+    qcols, qts = ag_q_batch(feed, 18)
+    by_sym = {}
+    start = AG_T0 - AG_T0 % 60_000       # within's start, truncated to its minute
+    for (b, s), v in oracle["min"].items():
+        if start <= b < AG_T1:
+            by_sym.setdefault(s, []).append((s, b, v[1], v[2], v[0]))
+    want_join = sorted(r for s in qcols["symbol"] for r in by_sym.get(str(s), []))
+    n0 = len(cbs["AggJoinOut"].batches)
+    t0 = time.perf_counter()
+    rt.get_input_handler("Q").send_columns(qcols, timestamps=qts)
+    sync(device)
+    join_ms = (time.perf_counter() - t0) * 1e3
+    strings = np.array(dic._to_str, dtype=object)
+    got_join = sorted(
+        (str(strings[sy]), int(b), int(tv), int(n), float(ap))
+        for out in cbs["AggJoinOut"].batches[n0:]
+        for sy, b, tv, n, ap in zip(out["symbol"], out["bucket"], out["totalVolume"],
+                                    out["n"], out["avgPrice"]))
+    rows_close(got_join, want_join, "AG join")
+    slots = sum(len(g) for dstore in agg.store.values() for g in dstore.values())
+    store_bytes = 8 * len(agg.bases) * slots
+    straight = {"tail": concat_rows(cbs["OutStream"].batches[n_head:]),
+                "stores": {d: agg_rows(rt, d) for d in AG_DURATIONS},
+                "table": sorted(tuple(e.data) for e in rt.tables["FirstTrade"].all_events())}
+    m.shutdown()
+
+    # the incremental chain: full + delta restored into a fresh runtime,
+    # then the last batch
+    m2, rt2, cbs2 = ag_build(device, store)
+    t0 = time.perf_counter()
+    got_rev = rt2.restore_last_revision()
+    sync(device)
+    chain["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    _require(got_rev == revs[-1], "AG chain: restored the wrong revision")
+    chain["h2d_bytes"] = rt2.persistence.snapshot_service.h2d_bytes
+    cols, ts = feed[-1]
+    rt2.get_input_handler("StockStream").send_columns(cols, timestamps=ts)
+    sync(device)
+    require_equal(concat_rows(cbs2["OutStream"].batches), straight["tail"],
+                  "AG chain: the flagship after the restore")
+    for d in AG_DURATIONS:
+        _require(agg_rows(rt2, d) == straight["stores"][d],
+                 f"AG chain: the {d} store after the restore")
+    _require(sorted(tuple(e.data) for e in rt2.tables["FirstTrade"].all_events())
+             == straight["table"], "AG chain: the table after the restore")
+    m2.shutdown()
+
+    facts = {"batches": AG_BATCHES, "rows": AG_BATCHES * BATCH,
+             "fold_ms": [s * 1e3 for s in fold_s], "find_ms": find_ms,
+             "join_ms": join_ms, "join_rows": len(got_join),
+             "buckets": buckets, "slots": slots, "store_bytes": store_bytes,
+             "card": card}
+    chain["revisions"] = len(revs)
+    print(f"[aggregation] AG StockAgg sec...year over {AG_BATCHES} batches of "
+          f"{BATCH} rows ({NUM_SYMBOLS} symbols) with the global flagship on the "
+          f"same sends: fold ms a batch "
+          f"{', '.join(f'{x:.0f}' for x in facts['fold_ms'])} (host); buckets "
+          f"{buckets}, {slots} (bucket, group) slots, {store_bytes} host store "
+          f"bytes; every store == the numpy oracle; {len(AG_FINDS)} finds == the "
+          f"oracle in ms {', '.join(f'{k} {v:.1f}' for k, v in find_ms.items())}; "
+          f"the join of {AG_Q_ROWS} Q rows ({len(got_join)} rows) == a numpy hash "
+          f"join over the oracle in {join_ms:.1f} ms [{card}]", flush=True)
+    print(f"[persistence] incremental chain: full {chain['full_bytes']} bytes, "
+          f"delta {chain['incremental_bytes']} bytes, chain restored in "
+          f"{chain['restore_ms']:.1f} ms; the flagship, the stores and the table "
+          f"after the last batch == the straight run [{card}]", flush=True)
+    facts["phase_s"] = time.perf_counter() - t_phase
+    return facts, chain
+
+
+def captured_queries(rt):
+    """The runtime's state as a snapshot holds it (host numpy)."""
+    from siddhi_tpu_torch.core.util.snapshot import SnapshotService
+
+    return SnapshotService(rt)._capture_common()
+
+
+def require_same_state(blob: bytes, rt, what: str) -> int:
+    """Every state leaf of ``rt`` byte-equal to the revision's, keyer maps,
+    high-water marks and partition key spaces equal. Returns the bytes
+    compared."""
+    import numpy as np
+
+    from siddhi_tpu_torch.core.util.snapshot import safe_loads
+
+    want = safe_loads(blob)
+    got = captured_queries(rt)
+    nbytes = 0
+
+    def walk(a, b, path):
+        nonlocal nbytes
+        if isinstance(b, dict):
+            _require(isinstance(a, dict) and set(a) == set(b),
+                     f"{what}: state keys differ at {path}")
+            for k in b:
+                walk(a[k], b[k], f"{path}/{k}")
+            return
+        a, b = np.asarray(a), np.asarray(b)
+        _require(a.dtype == b.dtype and a.shape == b.shape
+                 and a.tobytes() == b.tobytes(),
+                 f"{what}: state leaf {path} differs after the restore")
+        nbytes += b.nbytes
+
+    for name, q in want["queries"].items():
+        g = got["queries"][name]
+        if q["state"] is not None:
+            walk(g["state"], q["state"], name)
+        _require(g["keyer_map"] == q["keyer_map"], f"{what}: {name} keyer map")
+        _require((g["nfa_hwm"] is None) == (q["nfa_hwm"] is None)
+                 and (q["nfa_hwm"] is None
+                      or np.array_equal(g["nfa_hwm"], q["nfa_hwm"])),
+                 f"{what}: {name} high-water marks")
+    _require(got["partitions"] == want["partitions"], f"{what}: partition key spaces")
+    _require(got["clock"] == want["clock"], f"{what}: event clock")
+    return nbytes
+
+
+class ExchangeRecorder:
+    """Stands in for ``ring_exchange_cols`` in the routed step: every call
+    goes through to the wrapper, and the first call's inputs are cloned
+    for the kernel-vs-plain check."""
+
+    def __init__(self):
+        self.bufs, self.n = None, None
+
+    def __call__(self, bufs, n):
+        from siddhi_tpu_torch.ops.exchange import ring_exchange_cols
+
+        if self.bufs is None:
+            self.bufs, self.n = [b.clone() for b in bufs], n
+        return ring_exchange_cols(bufs, n)
+
+
+@contextlib.contextmanager
+def recording_exchange():
+    from siddhi_tpu_torch.parallel import mesh
+
+    rec = ExchangeRecorder()
+    orig = mesh.ring_exchange_cols
+    mesh.ring_exchange_cols = rec
+    try:
+        yield rec
+    finally:
+        mesh.ring_exchange_cols = orig
+
+
+def check_exchange_call(rec, what: str) -> None:
+    """The recorded call through the kernel and the plain version: equal
+    byte for byte."""
+    import torch
+
+    from siddhi_tpu_torch.ops.exchange import ring_exchange_cols, ring_exchange_cols_plain
+
+    _require(rec.bufs is not None, f"{what}: no exchange call recorded")
+    got = ring_exchange_cols([b.clone() for b in rec.bufs], rec.n)
+    torch.cuda.synchronize()
+    want = ring_exchange_cols_plain([b.clone() for b in rec.bufs], rec.n)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _require(torch.equal(a, b), f"{what}: kernel column {i} differs from plain")
+
+
+def split_cell(device, label: str, build, items, half: int, send, out_stream: str,
+               straight, card: str, build_dst=None, tail_hook=None, store=None,
+               exact: bool = True):
+    """Persist after ``half`` items, restore into a fresh runtime
+    (``build_dst``, else ``build``) with ``restore_last_revision``, feed the
+    rest. The head's outputs equal the straight run's, the restored state
+    is byte-equal to the revision, and every row after the restore equals
+    the straight run's rows after ``half`` items (``straight``: that run's
+    per-batch outputs and its batch count at ``half``). ``tail_hook`` is a
+    context manager around the tail (a kernel recorder). Returns facts."""
+    from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+
+    store = store if store is not None else InMemoryPersistenceStore()
+    m1, rt1, cb1 = build(store)
+    for it in items[:half]:
+        send(rt1, it)
+    sync(device)
+    head = cb1[out_stream].batches
+    s_batches, s_half = straight
+    require_equal(concat_rows(head), concat_rows(s_batches[:s_half]),
+                  f"{label}: head vs the straight run")
+    t0 = time.perf_counter()
+    rev = rt1.persist()
+    sync(device)
+    facts = {"persist_ms": (time.perf_counter() - t0) * 1e3}
+    facts["d2h_bytes"] = rt1.persistence.snapshot_service.d2h_bytes
+    blob = store.load(rt1.name, rev)
+    facts["snapshot_bytes"] = len(blob)
+    facts["state_bytes"] = sum(t.numel() * t.element_size()
+                               for q in rt1.query_runtimes.values()
+                               if q._state is not None for t in _leaves(q._state))
+    m1.shutdown()
+    m2, rt2, cb2 = (build_dst or build)(store)
+    t0 = time.perf_counter()
+    _require(rt2.restore_last_revision() == rev, f"{label}: wrong revision")
+    sync(device)
+    facts["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    facts["h2d_bytes"] = rt2.persistence.snapshot_service.h2d_bytes
+    for q in rt2.query_runtimes.values():
+        for t in _leaves(q._state or {}):
+            _require(t.device.type == device.type,
+                     f"{label}: restored state on {t.device}, not {device}")
+    facts["state_bytes_compared"] = require_same_state(blob, rt2, label)
+    with (tail_hook() if tail_hook is not None else contextlib.nullcontext()) as rec:
+        for it in items[half:]:
+            send(rt2, it)
+        sync(device)
+    facts["recorder"] = rec
+    tail = concat_rows(cb2[out_stream].batches)
+    m2.shutdown()
+    facts["rows_after_restore"] = sum(len(b["__ts__"]) for b in tail)
+    facts["worst"] = require_equal(tail, concat_rows(s_batches[s_half:]),
+                                   f"{label}: after the restore vs the straight run",
+                                   exact_floats=exact)
+    return facts
+
+
+def batches_for_rows(batches, rows: int) -> int:
+    """How many of ``batches`` hold the first ``rows`` rows."""
+    total = 0
+    for i, b in enumerate(batches):
+        if total == rows:
+            return i
+        total += len(b["__ts__"])
+    _require(total == rows, f"no batch boundary at {rows} rows")
+    return len(batches)
+
+
+def send_cols(stream: str):
+    def send(rt, item):
+        cols, ts = item
+        rt.get_input_handler(stream).send_columns(cols, timestamps=ts)
+    return send
+
+
+def send_multi_items(rt, item):
+    stream, cols, ts = item
+    rt.get_input_handler(stream).send_columns(cols, timestamps=ts)
+
+
+def straight_run(device, build, items, half: int, send, out_stream: str):
+    """(per-batch outputs, batch count after ``half`` items)."""
+    from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+
+    m, rt, cbs = build(InMemoryPersistenceStore())
+    n_half = 0
+    for i, it in enumerate(items):
+        send(rt, it)
+        sync(device)
+        if i == half - 1:
+            n_half = len(cbs[out_stream].batches)
+    batches = cbs[out_stream].batches
+    m.shutdown()
+    return batches, n_half
+
+
+def phase_persistence(device, feed, routed, unrouted, d1_out, card: str):
+    """P (see the module doc): each cell straight and split around a
+    persist -> restore into a fresh runtime. Returns the facts."""
+    import tempfile
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+    from siddhi_tpu_torch.core.util.persistence import FileSystemPersistenceStore
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    res = {}
+    items = list(feed)
+    half = len(items) // 2
+
+    # the routed partitioned flagship x4 (phase 4's runs are the straight ones)
+    def flagship(routed_layout: bool):
+        def build(store):
+            m = SiddhiManager(device=device)
+            m.set_config_manager(InMemoryConfigManager(
+                {"siddhi_tpu.shard_exchange": "pallas_ring"}))
+            m.set_persistence_store(store)
+            rt = m.create_siddhi_app_runtime(APP.format(W=WINDOW))
+            q = rt.query_runtimes["bench"]
+            q.selector_plan.num_keys = KEY_SLOTS
+            q._win_keys = KEY_SLOTS
+            if routed_layout:
+                device_route_query_step(q, make_mesh(N_SHARDS, device),
+                                        rows_per_shard=ROWS_PER_SHARD)
+            else:
+                q._state = q._init_state()
+            cb = collector()
+            rt.add_callback("OutStream", cb)
+            return m, rt, {"OutStream": cb}
+        return build
+
+    def count_exchange():
+        ring_exchange.launches = 0
+        return recording_exchange()
+
+    f = split_cell(device, "P routed x4", flagship(True), items, half,
+                   send_cols("StockStream"), "OutStream",
+                   (routed, batches_for_rows(routed, half * BATCH)), card,
+                   tail_hook=count_exchange)
+    f["exchange_launches"] = ring_exchange.launches
+    if cuda:
+        _require(f["exchange_launches"] >= len(items) - half,
+                 f"P routed: {f['exchange_launches']} exchange launches after the "
+                 f"restore for {len(items) - half} batches")
+        check_exchange_call(f["recorder"], "P routed: exchange after the restore")
+    res["routed_x4"] = f
+    # cross-layout: the routed revision into the unrouted runtime
+    f = split_cell(device, "P routed -> unrouted", flagship(True), items, half,
+                   send_cols("StockStream"), "OutStream",
+                   (unrouted, batches_for_rows(unrouted, half * BATCH)), card,
+                   build_dst=flagship(False), exact=False)
+    res["routed_to_unrouted"] = f
+
+    # D1: the [K, H] distinct tables (phase 9's run is the straight one)
+    def d1_build(store):
+        m = SiddhiManager(device=device)
+        m.set_persistence_store(store)
+        rt = m.create_siddhi_app_runtime(D1_APP.format(W=WINDOW))
+        rt.query_runtimes["bench"].selector_plan.num_keys = KEY_SLOTS
+        cb = collector()
+        rt.add_callback("OutStream", cb)
+        return m, rt, {"OutStream": cb}
+
+    def count_scan():
+        distinct_scan.launches = 0
+        return recording(at=0)
+
+    f = split_cell(device, "P D1", d1_build, items, half, send_cols("StockStream"),
+                   "OutStream", (d1_out, batches_for_rows(d1_out, half * BATCH)),
+                   card, tail_hook=count_scan)
+    f["scan_launches"] = distinct_scan.launches
+    if cuda:
+        _require(f["scan_launches"] == len(items) - half,
+                 f"P D1: {f['scan_launches']} distinct-scan launches after the "
+                 f"restore for {len(items) - half} batches")
+        check_scan(f["recorder"].args, f["recorder"].kwargs,
+                   "P D1: distinct scan after the restore")
+    res["D1"] = f
+
+    # J5: config #5, the 262,144-row time ring; the engine's directories
+    # are rebuilt from the rings at the restore
+    j5_items, _ids = j5_feed(23, J5_P_PAIRS)
+
+    def j5_build(store):
+        m = SiddhiManager(device=device)
+        m.set_config_manager(InMemoryConfigManager(
+            {"siddhi_tpu.window_capacity": str(J5_CAPACITY)}))
+        m.set_persistence_store(store)
+        rt = m.create_siddhi_app_runtime(J5_APP)
+        cb = collector()
+        rt.add_callback("JoinOut", cb)
+        return m, rt, {"JoinOut": cb}
+
+    jh = len(j5_items) // 2
+    straight = straight_run(device, j5_build, j5_items, jh, send_multi_items, "JoinOut")
+    f = split_cell(device, "P J5", j5_build, j5_items, jh, send_multi_items,
+                   "JoinOut", straight, card)
+    res["J5"] = f
+
+    # N: config #4, 10,000 partition keys, with the high-water marks; its
+    # revision goes through a FileSystemPersistenceStore
+    n_items = nfa_feed(29, NFA_B_LAT, N_P_PAIRS, TW_BASE, NFA_STEP_MS,
+                       independent=False)
+
+    def n_build(store):
+        m = SiddhiManager(device=device)
+        m.set_config_manager(InMemoryConfigManager({
+            "siddhi_tpu.nfa_slots": str(NFA_SLOTS),
+            "siddhi_tpu.pipeline_depth": str(NFA_DEPTH)}))
+        m.set_persistence_store(store)
+        rt = m.create_siddhi_app_runtime(nfa_app(N_PATTERN, N_SELECT))
+        q = rt.query_runtimes["nfa"]
+        q._win_keys = NFA_KEY_SLOTS
+        q.selector_plan.num_keys = NFA_KEY_SLOTS
+        cb = collector()
+        rt.add_callback("MatchStream", cb)
+        return m, rt, {"MatchStream": cb}
+
+    nh = len(n_items) // 2
+    straight = straight_run(device, n_build, n_items, nh, send_multi_items,
+                            "MatchStream")
+    with tempfile.TemporaryDirectory() as tmp:
+        f = split_cell(device, "P N", n_build, n_items, nh, send_multi_items,
+                       "MatchStream", straight, card,
+                       store=FileSystemPersistenceStore(tmp))
+    res["N"] = f
+
+    for name, f in res.items():
+        f.pop("recorder", None)
+        print(f"[persistence] {name}: {f['state_bytes']} state bytes, snapshot "
+              f"{f['snapshot_bytes']} bytes, persist {f['persist_ms']:.1f} ms "
+              f"({f['d2h_bytes']} bytes device->host), restore "
+              f"{f['restore_ms']:.1f} ms ({f['h2d_bytes']} bytes host->device); "
+              f"restored state byte-equal ({f['state_bytes_compared']} bytes); "
+              f"{f['rows_after_restore']} rows after the restore == the straight "
+              f"run (max float rel err {f['worst']:.3g})"
+              + (f"; {f['exchange_launches']} exchange launches after the restore, "
+                 f"one == plain" if "exchange_launches" in f else "")
+              + (f"; {f['scan_launches']} distinct-scan launches after the "
+                 f"restore, one == plain" if "scan_launches" in f else "")
+              + f" [{card}]", flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -4029,7 +4748,7 @@ def main() -> int:
           f"library {ex['library_ms_warm_l2']:.4f} ms; host enqueue of one "
           f"call {ex['host_ms']:.4f} ms; kernel on the device "
           f"{ex['device_ms']:.4f} ms ({ex['device_seen']} of {TIMED_RUNS} launches "
-          f"seen) against a {ex['bound_ms']:.4f} ms byte "
+          f"seen, {ex['device_traces']} traces) against a {ex['bound_ms']:.4f} ms byte "
           f"bound (share {ex['roofline_share']:.3f}) [{card}]", flush=True)
 
     # 4. the slice
@@ -4119,24 +4838,36 @@ def main() -> int:
     patterns = phase_patterns(device, card)
     # 20. joins, tables, named windows, on-demand queries, triggers
     joins = phase_joins(device, card)
+    # 21. incremental aggregation, then persist -> restore -> continue
+    aggregation, chain = phase_aggregation(device, card)
+    persistence = phase_persistence(device, feed, routed, unrouted, dist["d1_out"], card)
+    persistence["chain"] = chain
+    dist["launches"]["P_D1"] = persistence["D1"]["scan_launches"]
+    print(f"[persistence] phase 21 in {aggregation['phase_s'] + persistence['phase_s']:.1f} s",
+          flush=True)
 
-    # 21. result lines
+    # 22. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    # each run's count is set to 0 just before it and read just after
+    exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
+                     "P_routed": persistence["routed_x4"]["exchange_launches"]}
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
         "replaces": "siddhi_tpu/parallel/mesh.py:1242",
-        "launches": launches, "max_abs_err": ex["max_abs_err"],
+        "launches": sum(exchange_runs.values()), "launches_by_run": exchange_runs,
+        "max_abs_err": ex["max_abs_err"],
         "ms": ex["ms"], "kernel_ms": ex["ms"], "plain_ms": ex["plain_ms"],
         "bound_ms": ex["bound_ms"], "bound_by": "bytes",
         "library_ms": ex["library_ms"], "device_ms": ex["device_ms"],
+        "device_traces": ex["device_traces"],
         "roofline_share": ex["roofline_share"],
+        # phase 4's columns over phase 4's launches
         "columns_per_launch": columns / launches,
         "ms_warm_l2": ex["ms_warm_l2"],
         "plain_ms_warm_l2": ex["plain_ms_warm_l2"],
         "library_ms_warm_l2": ex["library_ms_warm_l2"],
         "host_ms": ex["host_ms"],
-        "launches_pipeline_routed": routed_pipe_launches,
     }, {
         "name": "distinct_scan", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/distinct_scan.cu",
@@ -4147,6 +4878,7 @@ def main() -> int:
                            pt["max_abs_err"]),
         "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "device_ms": d1["device_ms"],
+        "device_traces": d1["device_traces"],
         "roofline_share": d1["share"], "host_ms": d1["host_ms"],
         "chain": d1["chain"], "rows": d1["rows"], "H": d1["H"],
         "ns_per_chain_row": d1["ns_per_row"],
@@ -4182,6 +4914,8 @@ def main() -> int:
     print(json.dumps({"partitions": part}))
     print(json.dumps({"patterns": patterns}))
     print(json.dumps({"joins": joins}))
+    print(json.dumps({"persistence": persistence}))
+    print(json.dumps({"aggregation": aggregation}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,11 @@ invertible aggregators where the reference fuses it), every aggregator
 ``ops/distinct.py``), set-valued attributes, the expression function
 library and extension functions, stream and query callbacks, and
 ``device_route_query_step`` over n logical shards on one card with the
-shard exchange as a hand-written CUDA kernel (``ops/exchange.py``).
+shard exchange as a hand-written CUDA kernel (``ops/exchange.py``); every
+window, partitions, patterns and sequences, joins, tables, named windows,
+on-demand queries and triggers; incremental aggregations
+(``core/aggregation/``); and snapshots with persistence
+(``core/util/snapshot.py``, ``core/util/persistence.py``).
 """
 
 from siddhi_tpu_torch.compiler import SiddhiCompiler

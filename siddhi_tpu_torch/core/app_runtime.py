@@ -13,10 +13,14 @@ per consumed stream), joins (one proxy receiver per side), tables with
 <table>``, named windows, triggers, on-demand queries
 (``SiddhiAppRuntime.query``), ``@Async`` and ``@OnError`` streams,
 ``@source``/``@sink`` transports, the dispatch pipeline and the ingest
-pack pool, and the ``siddhi_tpu.*`` config knobs. Incremental
-aggregations (and joins against them) are not ported yet and raise
-``CompileError`` naming themselves, so an app never runs with a part
-silently missing.
+pack pool, the ``siddhi_tpu.*`` config knobs, incremental aggregations
+(``define aggregation``, with their ``@purge`` schedule), and the
+persistence API (``persist``, ``persist_incremental``,
+``restore_revision``, ``restore_last_revision``, ``clear_all_revisions``,
+``snapshot``, ``restore``: ``core/util/snapshot.py``). The serving tier's
+sharded aggregation stores (``siddhi_tpu.agg_shards`` > 1) are not ported
+yet and raise ``CompileError`` naming themselves, so an app never runs
+with a part silently missing.
 
 The app starts at ``start()`` or at its first send: @Async workers, the
 ingest pool, rate limiters, sinks' connections and sources (each
@@ -155,28 +159,6 @@ def _default_app_name(siddhi_app: SiddhiApp) -> str:
     return "siddhi-app-" + hashlib.md5(repr(siddhi_app).encode()).hexdigest()[:12]
 
 
-def _refuse_aggregations(siddhi_app: SiddhiApp) -> None:
-    """Incremental aggregations wait for ROADMAP A.7: ``define
-    aggregation`` raises, and a join against one names itself first."""
-    aggs = siddhi_app.aggregation_definitions
-    if not aggs:
-        return
-    queries = []   # in the app's order, as query names are numbered
-    for e in siddhi_app.execution_elements:
-        queries.extend(e.queries if isinstance(e, Partition) else [e])
-    for i, q in enumerate(queries, 1):
-        ist = q.input_stream
-        if isinstance(ist, JoinInputStream):
-            for s in (ist.left, ist.right):
-                if s.unique_stream_id in aggs:
-                    raise CompileError(
-                        f"query '{q.name or f'query_{i}'}': joins against incremental "
-                        f"aggregations (join {s.stream_id} within ... per ...) "
-                        f"are not ported to siddhi_tpu_torch yet (ROADMAP A.7)")
-    raise CompileError("incremental aggregations (define aggregation) are not "
-                       "ported to siddhi_tpu_torch yet (ROADMAP A.7)")
-
-
 class SiddhiAppRuntime:
     def __init__(self, siddhi_app: SiddhiApp, siddhi_context: SiddhiContext):
         self.siddhi_app = siddhi_app
@@ -193,7 +175,6 @@ class SiddhiAppRuntime:
         self.sink_runtimes: List = []
         self._started = False
 
-        _refuse_aggregations(siddhi_app)
         pb = siddhi_app.app_annotation("playback")
         if pb is not None:
             # idle.time + increment enable the idle heartbeat
@@ -303,6 +284,7 @@ class SiddhiAppRuntime:
             self.named_windows[wid] = w
         ctx.tables = self.tables
         ctx.named_windows = self.named_windows
+        self._define_aggregations(siddhi_app, siddhi_context)
         self.trigger_runtimes = []
         for tid, tdef in siddhi_app.trigger_definitions.items():
             if tid in self.junctions:
@@ -316,6 +298,35 @@ class SiddhiAppRuntime:
                 junction = self._create_junction(sdef)
             self.trigger_runtimes.append(
                 TriggerRuntime(tdef, junction, ctx, barrier=self._barrier))
+
+    def _define_aggregations(self, siddhi_app: SiddhiApp, siddhi_context) -> None:
+        """Incremental aggregations (reference AggregationParser and
+        AggregationRuntime), each subscribed to its input junction.
+        ``siddhi_tpu.agg_shards`` > 1 selects the serving tier's sharded
+        stores, which are not ported: that raises instead of running
+        unsharded. ``@PartitionById`` keeps the store-stitched shard mode,
+        as in the reference."""
+        from siddhi_tpu_torch.core.aggregation import IncrementalAggregationRuntime
+
+        ctx = self.app_context
+        cm = siddhi_context.config_manager
+        sys_pbi = ((cm.get_property("partitionById") or "")
+                   if cm is not None else "").lower() == "true"
+        n_shards = int(getattr(ctx, "agg_shards", 1) or 1)
+        self.aggregations = {}
+        for aid, adef in siddhi_app.aggregation_definitions.items():
+            pbi = find_annotation(adef.annotations or [], "PartitionById")
+            if n_shards > 1 and pbi is None and not sys_pbi:
+                raise CompileError(
+                    f"aggregation '{aid}': siddhi_tpu.agg_shards = {n_shards} "
+                    f"selects the serving tier's sharded aggregation stores, "
+                    f"which are not ported to siddhi_tpu_torch yet "
+                    f"(ROADMAP A.7(c))")
+            agg = IncrementalAggregationRuntime(
+                adef, ctx, ctx.string_dictionary, self.stream_definitions)
+            self.junctions[agg.input_stream_id].subscribe(agg)
+            self.aggregations[aid] = agg
+        ctx.aggregations = self.aggregations
 
     def _map_defer_meta(self, explicit_depth) -> None:
         """``siddhi_tpu.defer_meta`` > 1 is deprecated: the dispatch
@@ -728,6 +739,63 @@ class SiddhiAppRuntime:
         set_active_extensions(self._extensions)
         return run_on_demand_query(on_demand_query, self)
 
+    # ---------------------------------------------------- persistence API
+
+    @property
+    def persistence(self):
+        from siddhi_tpu_torch.core.util.snapshot import PersistenceManager
+
+        if getattr(self, "_persistence", None) is None:
+            self._persistence = PersistenceManager(self)
+        return self._persistence
+
+    def persist(self) -> str:
+        """Checkpoint all state to the configured persistence store and
+        return the revision id (reference SiddhiAppRuntimeImpl.persist:677).
+        Sources pause around the snapshot, so no event races it."""
+        return self._sources_paused(self.persistence.persist)
+
+    def persist_incremental(self) -> str:
+        """An op-log checkpoint chained to the last revision; a full one
+        when there is none."""
+        return self._sources_paused(self.persistence.persist_incremental)
+
+    def _sources_paused(self, fn):
+        for sr in self.source_runtimes:
+            sr.pause()
+        try:
+            return fn()
+        finally:
+            for sr in self.source_runtimes:
+                sr.resume()
+
+    def restore_revision(self, revision: str):
+        self.persistence.restore_revision(revision)
+
+    restoreRevision = restore_revision
+
+    def restore_last_revision(self):
+        return self.persistence.restore_last_revision()
+
+    restoreLastRevision = restore_last_revision
+
+    def clear_all_revisions(self):
+        self.persistence.clear_all_revisions()
+
+    def snapshot(self) -> bytes:
+        """The app's state as snapshot bytes (reference
+        SiddhiAppRuntime.snapshot)."""
+        from siddhi_tpu_torch.core.util.snapshot import SnapshotService
+
+        with self._barrier:
+            return SnapshotService(self).full_snapshot()
+
+    def restore(self, snapshot: bytes):
+        from siddhi_tpu_torch.core.util.snapshot import SnapshotService
+
+        with self._barrier:
+            SnapshotService(self).restore(snapshot)
+
     def start(self):
         """Start @Async workers, the ingest pool, sinks and sources, table
         cache sweeps and triggers (also done by the first send)."""
@@ -748,6 +816,10 @@ class SiddhiAppRuntime:
                     qr.rate_limiter.start(ctx.scheduler)
                 if hasattr(qr, "arm_initial"):
                     qr.arm_initial()  # head-absent patterns wait from start
+            for agg in self.aggregations.values():
+                if agg.purge_enabled:
+                    ctx.scheduler.schedule_periodic(
+                        agg.purge_interval_ms, lambda ts, a=agg: a.purge(ts))
             for pctx in self.partition_contexts:
                 if pctx.purge_interval_ms is not None:
                     ctx.scheduler.schedule_periodic(
@@ -799,8 +871,11 @@ class SiddhiAppRuntime:
         if ctx.scheduler is not None:
             ctx.scheduler.shutdown()
         with self._barrier:
-            # drop device state so the app's memory is released now
+            # drop device state so the app's memory is released now; under
+            # each query's lock, so a timer that fired before the scheduler
+            # stopped finds `stopped` set and the state gone, never half
             for q in self.query_runtimes.values():
-                q._state = None
-                q._step = None
-                q._staging = None
+                with q._lock:
+                    q._state = None
+                    q._step = None
+                    q._staging = None

@@ -26,6 +26,9 @@ class SiddhiContext:
         # custom extensions by name (SiddhiManager.set_extension), e.g.
         # 'function:custom:plus' -> a ScalarFunction class
         self.extensions: Dict[str, type] = {}
+        # where persist() writes revisions (core/util/persistence.py);
+        # SiddhiManager.set_persistence_store
+        self.persistence_store = None
 
 
 class TimestampGenerator:
@@ -59,6 +62,12 @@ class TimestampGenerator:
                 listener(ts)
         if self._hb_idle_ms and self._hb_thread is None:
             self._start_heartbeat()
+
+    def reset_timestamp(self, ts: int):
+        """Force the event clock (restore, rollback): unlike
+        ``set_current_timestamp`` it may move backward, and it fires no
+        time-change listeners (restored timers re-arm separately)."""
+        self._last_event_ts = int(ts)
 
     def configure_heartbeat(self, idle_ms: int, increment_ms: int):
         self._hb_idle_ms = int(idle_ms)
@@ -172,6 +181,9 @@ class SiddhiAppContext:
         # exchange transport of device-routed queries; on one card both
         # values run the ring_exchange kernel (parallel/mesh.py)
         self.shard_exchange = "all_to_all"
+        # siddhi_tpu.agg_shards > 1 selects the serving tier's sharded
+        # aggregation stores (ROADMAP A.7(c)), which the port refuses
+        self.agg_shards = 1
         # value slots per group of a distinctCount/unionSet table
         self.distinct_values_capacity = 64
         # match slots per key of a pattern/sequence query (ops/nfa.py);
@@ -191,3 +203,4 @@ class SiddhiAppContext:
         # runtime; the planner resolves join sides and `in` probes here)
         self.tables: Dict = {}
         self.named_windows: Dict = {}
+        self.aggregations: Dict = {}

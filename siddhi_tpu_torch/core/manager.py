@@ -58,6 +58,13 @@ class SiddhiManager:
 
     setExtension = set_extension
 
+    def set_persistence_store(self, store):
+        """Where the apps' ``persist()`` writes revisions
+        (``core/util/persistence.py``)."""
+        self.siddhi_context.persistence_store = store
+
+    setPersistenceStore = set_persistence_store
+
     def shutdown(self):
         for rt in list(self.app_runtimes.values()):
             rt.shutdown()

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
+
 from siddhi_tpu_torch.compiler.errors import SiddhiAppValidationException
 from siddhi_tpu_torch.core.plan.resolvers import SingleStreamResolver
 from siddhi_tpu_torch.core.plan.selector_plan import plan_selector
@@ -247,8 +249,10 @@ def _vars_of(e, out):
 def _extract_join_index_probe(on_expr, left, right, resolver):
     """``T.attr == <expr over the other side>`` (the whole condition, or
     one conjunct of a top-level And) where T is an in-memory table side
-    and ``attr`` one of its ``probe_attrs()``: the spec of
+    or an aggregation side (its group attributes) and ``attr`` one of its
+    ``probe_attrs()``: the spec of
     ``JoinQueryRuntime.index_probe``, or None."""
+    from siddhi_tpu_torch.core.query.join_runtime import AggregationJoinStore
     from siddhi_tpu_torch.core.table.in_memory_table import InMemoryTable
 
     def side_ids(s):
@@ -259,7 +263,7 @@ def _extract_join_index_probe(on_expr, left, right, resolver):
             return None
         for store_side in (left, right):
             store = store_side.store
-            if not isinstance(store, InMemoryTable):
+            if not isinstance(store, (InMemoryTable, AggregationJoinStore)):
                 continue
             other_side = right if store_side is left else left
             probe_attrs = store.probe_attrs()
@@ -305,7 +309,7 @@ def plan_join_query(query: Query, query_name: str, app_context,
     ``JoinInputStreamParser.java:200-348`` + ``JoinProcessor.java``)."""
     from siddhi_tpu_torch.core.join import attach_join_engine
     from siddhi_tpu_torch.core.query.join_runtime import (
-        JoinQueryRuntime, JoinResolver, JoinSide)
+        AggregationJoinStore, JoinQueryRuntime, JoinResolver, JoinSide)
     from siddhi_tpu_torch.ops.windows import PassthroughWindowStage, window_col_specs
 
     join: JoinInputStream = query.input_stream
@@ -329,6 +333,20 @@ def plan_join_query(query: Query, query_name: str, app_context,
 
     def build_side(key: str, s: SingleInputStream) -> JoinSide:
         sid = s.unique_stream_id
+        if sid in app_context.aggregations:
+            # an aggregation side: the stitched buckets are the probe store
+            # (AggregationRuntime.java:331-357 + join `within ... per ...`)
+            if s.handlers:
+                raise CompileError(
+                    f"query '{query_name}': handlers on the aggregation join "
+                    f"side '{sid}' are not supported")
+            duration, within, dyn = _agg_join_range(join, query_name)
+            store = AggregationJoinStore(app_context.aggregations[sid], duration, within)
+            store.dynamic_raw = dyn
+            return JoinSide(
+                key=key, stream_id=sid, ref_id=s.stream_reference_id,
+                definition=store.definition, window_stage=None, filters=[],
+                triggers=False, outer=False, store=store)
         if sid in app_context.tables or sid in app_context.named_windows:
             # a shared store side (reference TableWindowProcessor /
             # WindowWindowProcessor as the findable side); a named window
@@ -427,7 +445,8 @@ def plan_join_query(query: Query, query_name: str, app_context,
             raise CompileError(
                 f"query '{query_name}': outer join on the non-partitioned "
                 f"side '{sd.stream_id}' inside a partition is not supported")
-    if join.within is not None or join.per is not None:
+    if (join.within is not None or join.per is not None) and not any(
+            isinstance(sd.store, AggregationJoinStore) for sd in (left, right)):
         raise CompileError(
             f"query '{query_name}': `within`/`per` join clauses need an "
             f"aggregation join side")
@@ -441,6 +460,9 @@ def plan_join_query(query: Query, query_name: str, app_context,
         raise CompileError(
             f"query '{query_name}': no join side can trigger output — the "
             f"unidirectional/trigger side must be a stream or named window")
+    for sd, stream_side in ((left, right), (right, left)):
+        if isinstance(sd.store, AggregationJoinStore) and sd.store.dynamic_raw:
+            _compile_dynamic_agg_range(sd.store, stream_side, dictionary)
     resolver = JoinResolver(left, right, dictionary)
     on_cond = (compile_condition(join.on_compare, resolver)
                if join.on_compare is not None else None)
@@ -473,6 +495,114 @@ def plan_join_query(query: Query, query_name: str, app_context,
     rt.index_probe = index_probe
     attach_join_engine(rt, join.on_compare)
     return rt
+
+
+def _agg_join_range(join: JoinInputStream, query_name: str):
+    """Parse `within .. per ..` of an aggregation join into (Duration | None,
+    (start, end) | None, dynamic_raw | None). Constants (unix-ms longs,
+    'yyyy-MM-dd HH:mm:ss' strings, single wildcard patterns) resolve at
+    plan time; expressions over the stream side (``per i.perValue``) are
+    returned raw for per-event resolution (reference AggregationRuntime's
+    startTimeEndTime/per executors run per matching event)."""
+    from siddhi_tpu_torch.core.aggregation.incremental import parse_duration_name
+    from siddhi_tpu_torch.core.aggregation.within_time import (
+        WithinFormatError, resolve_within_pair, single_within_range)
+    from siddhi_tpu_torch.query_api.expressions import Constant, TimeConstant
+
+    dynamic: dict = {}
+    if join.per is None:
+        raise CompileError(
+            f"query '{query_name}': an aggregation join needs `per '<duration>'`")
+    if isinstance(join.per, Constant) and isinstance(join.per.value, str):
+        duration = parse_duration_name(join.per.value)
+    else:
+        duration = None
+        dynamic["per"] = join.per
+
+    def _const(x):
+        return x.value if isinstance(x, (Constant, TimeConstant)) else None
+
+    w = join.within
+    within = None
+    try:
+        if w is None:
+            pass
+        elif isinstance(w, tuple):
+            a, b = _const(w[0]), _const(w[1])
+            if a is None or b is None:
+                dynamic["within"] = w
+            else:
+                within = resolve_within_pair(a, b)
+        elif isinstance(w, Constant) and isinstance(w.value, str):
+            # single wildcard pattern: the whole calendar unit it names
+            within = single_within_range(w.value)
+        elif isinstance(w, (Constant, TimeConstant)):
+            # single-bound within must be a date-pattern STRING (reference
+            # startTimeEndTime single-arg validation — test36)
+            raise CompileError(
+                f"query '{query_name}': a single within bound must be a "
+                f"date-pattern string ('**' wildcards allowed)")
+        else:
+            dynamic["within"] = (w,)
+    except WithinFormatError as e:
+        raise CompileError(f"query '{query_name}': {e}") from None
+    return duration, within, (dynamic or None)
+
+
+def _compile_dynamic_agg_range(store, stream_side, dictionary):
+    """Compile per-event `within`/`per` expressions of an aggregation join
+    against the STREAM side's row columns; the store resolves them per
+    trigger event at probe time (reference AggregationRuntime per-event
+    startTimeEndTime/per executors — Aggregation1TestCase test6's
+    ``within i.startTime, i.endTime per i.perValue``). The compiled
+    closures return RAW per-row values (strings decoded from the
+    dictionary); parsing happens per row in the store so one bad row
+    can't void a whole batch."""
+    from siddhi_tpu_torch.ops.expressions import VALID_KEY, compile_expr
+    from siddhi_tpu_torch.query_api.definitions import AttrType
+
+    resolver = SingleStreamResolver(
+        stream_side.definition, dictionary, ref_id=stream_side.ref_id)
+
+    def host_values(expr):
+        fn, t = compile_expr(expr, resolver)
+        is_str = t == AttrType.STRING
+
+        def values(cols, ctx):
+            v, _m = fn(cols, ctx)
+            # constant sub-expressions compile to 0-d scalars — broadcast
+            # against the batch before iterating per row
+            v = np.broadcast_to(np.asarray(v), np.shape(cols[VALID_KEY]))
+            if is_str:
+                return [dictionary.decode(int(i)) for i in v]
+            return [int(x) for x in v]
+
+        return values, t
+
+    raw = store.dynamic_raw
+    per_of = None
+    if raw.get("per") is not None:
+        per_of, _t = host_values(raw["per"])
+    within_of = None
+    w = raw.get("within")
+    if w is not None:
+        if isinstance(w, tuple) and len(w) == 2:
+            (b0, _t0), (b1, _t1) = host_values(w[0]), host_values(w[1])
+
+            def within_of(cols, ctx):
+                return list(zip(b0(cols, ctx), b1(cols, ctx)))
+        else:
+            bv, t = host_values(w[0] if isinstance(w, tuple) else w)
+            if t != AttrType.STRING:
+                # same single-bound rule as the static path: must be a
+                # date-pattern string (startTimeEndTime single-arg)
+                raise CompileError(
+                    "a single within bound must be a date-pattern string "
+                    "('**' wildcards allowed)")
+
+            def within_of(cols, ctx):
+                return bv(cols, ctx)
+    store.dynamic = (per_of, within_of)
 
 
 def plan_nfa_query(query: Query, query_name: str, app_context,

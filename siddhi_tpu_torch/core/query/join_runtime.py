@@ -18,7 +18,12 @@ Beyond the plain stream-stream shape:
   host, its ``contents()`` is the probe surface;
 - store sides: a table or a named window, probed through ``contents()``;
   an equality on an indexed table attribute probes a sorted copy of the
-  column with ``searchsorted`` instead (``index_probe``).
+  column with ``searchsorted`` instead (``index_probe``);
+- aggregation sides (``join Agg within ... per ...``): the stitched
+  buckets of one duration (host numpy, ``AggregationJoinStore``) are the
+  probe surface, moved to the device once a step; an equality on a group
+  attribute takes the indexed probe. Per-event ``within``/``per``
+  values group the trigger rows, and each group probes its own buckets.
 
 Eligible stream-stream joins run the partitioned engine of
 ``core/join/engine.py`` instead of the broadcast probe; its rows equal
@@ -31,8 +36,7 @@ the same (trigger row, slot) order: the selector sees the reference's
 valid rows in the reference's order, and a step's memory is its match
 mask, not W+1 copies of every column.
 
-A join against an incremental aggregation waits for ROADMAP A.7 (the
-app refuses ``define aggregation``), routed joins over a mesh for A.9
+Routed joins over a mesh wait for ROADMAP A.9
 (``parallel/mesh.route_ineligibility``).
 """
 
@@ -106,6 +110,96 @@ class JoinSide:
     def probe_external(self) -> bool:
         """The probe columns come from outside the runtime's state."""
         return self.store is not None or self.host_window is not None
+
+
+class AggregationJoinStore:
+    """Probe adapter over an incremental aggregation's stitched buckets
+    (reference ``join AggName within <start>, <end> per '<duration>'``)."""
+
+    def __init__(self, agg, duration, within: Optional[tuple]):
+        self.agg = agg
+        self.duration = duration
+        self.within = within
+        self.definition = agg.output_definition()
+        self.dynamic = None      # (per_of, within_of) raw-value closures
+        self.dynamic_raw = None  # uncompiled expressions (set by the planner)
+
+    def contents(self):
+        _defn, cols, valid = self.agg.contents(self.duration, self.within)
+        return cols, valid
+
+    def probe_attrs(self):
+        """The group attributes: an equality on one probes the stitched
+        buckets through the indexed probe (``JoinQueryRuntime``'s sorted
+        column and ``searchsorted``) instead of the ``[N, W]`` compare."""
+        return {a.name for a in self.agg.group_attrs}
+
+    def max_run(self, cols, valid, attr: str) -> int:
+        """The most valid rows sharing one value of ``attr``: the
+        candidate window an indexed probe over these contents needs, so
+        the probe never saturates (the buckets are host arrays here)."""
+        v = np.asarray(cols[attr])[np.asarray(valid)]
+        if v.size == 0:
+            return 1
+        _u, counts = np.unique(v, return_counts=True)
+        return int(counts.max())
+
+    def resolve_groups(self, cols, ctx):
+        """Group trigger rows by their per-event (duration, within) values
+        (``within i.startTime, i.endTime per i.perValue``); each group
+        probes its own stitched-bucket surface. Timer rows and rows whose
+        values don't parse ride the first group (they only advance window
+        clocks — no probe of their own)."""
+        from siddhi_tpu_torch.core.aggregation.incremental import parse_duration_name
+        from siddhi_tpu_torch.core.aggregation.within_time import (
+            bound_ms, single_within_range)
+
+        per_of, within_of = self.dynamic
+        valid = np.asarray(cols[VALID_KEY])
+        is_timer = np.asarray(cols[TYPE_KEY]) == TIMER
+        n = len(valid)
+        pers = per_of(cols, ctx) if per_of is not None else None
+        wins = within_of(cols, ctx) if within_of is not None else None
+        groups: dict = {}
+        carry = []
+        for i in range(n):
+            if not valid[i]:
+                continue
+            if is_timer[i]:
+                carry.append(i)
+                continue
+            try:
+                dur = parse_duration_name(pers[i]) if pers is not None \
+                    else self.duration
+                if wins is not None:
+                    w = wins[i]
+                    if isinstance(w, tuple):
+                        win = (bound_ms(w[0]), bound_ms(w[1]))
+                        if not win[0] < win[1]:
+                            raise ValueError("within start must be < end")
+                    elif isinstance(w, str):
+                        win = single_within_range(w)
+                    else:
+                        win = (int(w), 2 ** 62)
+                else:
+                    win = self.within
+            except Exception as e:
+                # reference logs at the processor and drops the event
+                _LOG.warning("aggregation join: dropping trigger row with "
+                             "unresolvable within/per: %s", e)
+                continue
+            groups.setdefault((dur, win), []).append(i)
+        if not groups:
+            groups[(self.duration or parse_duration_name("seconds"),
+                    self.within)] = []
+        out = []
+        for gi, ((dur, win), idx) in enumerate(groups.items()):
+            mask = np.zeros(n, bool)
+            mask[idx] = True
+            if gi == 0:
+                mask[carry] = True
+            out.append((mask, dur, win))
+        return out
 
 
 class JoinResolver(Resolver):
@@ -377,6 +471,18 @@ class JoinQueryRuntime(QueryRuntime):
             state.update(self.engine.init_pidx_state())
         return state
 
+    def strip_engine_state(self, state):
+        """A snapshot's form of the state: the engine's partition
+        directories and cross-stream sequence are derived, so a capture
+        keeps only the ``[W]`` rings, and revisions cross-restore between
+        the engine and the broadcast probe (and across
+        ``siddhi_tpu.join_partitions`` values)."""
+        if state is None or self.engine is None:
+            return state
+        from siddhi_tpu_torch.core.join import ENGINE_STATE_KEYS
+
+        return {k: v for k, v in state.items() if k not in ENGINE_STATE_KEYS}
+
     def adopt_restored_state(self):
         """After state is installed from outside (``interop``): the
         engine's partition directories are derived state, rebuilt from
@@ -466,7 +572,9 @@ class JoinQueryRuntime(QueryRuntime):
         probe_width = int(getattr(self.app_context, "index_probe_width", 64))
         xp = TorchXP(self.device)
 
-        def step(state, probe_cols, probe_valid, cols, current_time):
+        def step(state, probe_cols, probe_valid, cols, current_time,
+                 agg_width=None):
+            # agg_width: an aggregation side's indexed-probe window
             ctx = {"xp": xp, "current_time": current_time}
             cols = dict(cols)
             strrank = cols.pop(STR_RANK, None)
@@ -497,7 +605,7 @@ class JoinQueryRuntime(QueryRuntime):
                 vv = torch.as_tensor(v, device=self.device).expand(N, 1)[:, 0].to(pvals.dtype)
                 lo = torch.searchsorted(sk, vv, right=False)
                 hi = torch.searchsorted(sk, vv, right=True)
-                G = min(probe_width, Wfull)
+                G = min(agg_width or probe_width, Wfull)
                 grid = lo[:, None] + torch.arange(G, device=self.device)[None, :]
                 cmask = grid < hi[:, None]
                 if vmask is not None:
@@ -587,29 +695,86 @@ class JoinQueryRuntime(QueryRuntime):
             if step is None:
                 step = self._steps[side_key] = self.build_side_step_fn(side_key)
             other = self.sides["right" if side_key == "left" else "left"]
-            if other.store is not None:
-                probe_cols, probe_valid = other.store.contents()
-            elif other.host_window is not None:
-                probe_cols, probe_valid = other.host_window.contents()
-            else:       # placeholders: the step reads its own state
-                probe_cols, probe_valid = {}, None
-            dev = self.device
-            probe_cols = {k: to_device(v, dev) for k, v in probe_cols.items()}
-            if probe_valid is not None:
-                probe_valid = to_device(probe_valid, dev).to(torch.bool)
-
-            def call(st, c, now):
-                return step(st, probe_cols, probe_valid, c, now)
-
             self._staging = self._side_staging.get(side_key)
             try:
-                notify = self._finish_device_batch(call, cols, self.overflow_knob_msg)
+                if getattr(other.store, "dynamic", None) is not None:
+                    notify = self._probe_dynamic_aggregation(step, other, cols)
+                else:
+                    notify = None
+                    probe = self._probe_surface(other)
+                    if probe is not None:
+                        notify = self._probe_step(step, other, *probe, cols)
             finally:
                 self._side_staging[side_key] = self._staging
         if notify_host is not None:
             notify = notify_host if notify is None else min(notify, notify_host)
         if notify is not None and self.scheduler is not None:
             self.scheduler.notify_at(notify, self._timer_cbs[side_key])
+
+    def _probe_surface(self, other: JoinSide):
+        """The other side's probe columns and valid mask (host arrays or
+        placeholders when the step reads its own state); None when an
+        aggregation side cannot serve the query's duration: the reference
+        logs at the stream processor and drops the trigger events
+        (Aggregation1TestCase test22)."""
+        if other.store is not None:
+            try:
+                return other.store.contents()
+            except CompileError as e:
+                _LOG.error("query '%s': %s — dropping trigger events",
+                           self.name, e)
+                return None
+        if other.host_window is not None:
+            return other.host_window.contents()
+        return {}, None
+
+    def _probe_step(self, step, other: JoinSide, probe_cols, probe_valid, cols):
+        """One side step against the other side's probe surface; returns
+        its notify time. An aggregation side's indexed probe takes a
+        candidate window as wide as its longest run of equal keys."""
+        iprobe = self.index_probe
+        # only this runtime's own step takes the width (the engine's does not)
+        kw = {}
+        if (isinstance(other.store, AggregationJoinStore) and iprobe is not None
+                and iprobe["store_side"] == other.key):
+            kw["agg_width"] = other.store.max_run(probe_cols, probe_valid, iprobe["attr"])
+        dev = self.device
+        probe_cols = {k: to_device(v, dev) for k, v in probe_cols.items()}
+        if probe_valid is not None:
+            probe_valid = to_device(probe_valid, dev).to(torch.bool)
+
+        def call(st, c, now):
+            return step(st, probe_cols, probe_valid, c, now, **kw)
+
+        return self._finish_device_batch(call, cols, self.overflow_knob_msg)
+
+    def _probe_dynamic_aggregation(self, step, other: JoinSide, cols):
+        """Per-event ``within``/``per``: the trigger rows grouped by their
+        resolved (duration, within), each group probing its own stitched
+        buckets; the planner's static view is put back after the batch."""
+        from siddhi_tpu_torch.core.table.in_memory_table import host
+
+        store = other.store
+        hcols = {k: host(v) for k, v in cols.items()}
+        groups = store.resolve_groups(
+            hcols, {"xp": NUMPY_XP, "current_time": self._now()})
+        base_valid = hcols[VALID_KEY]
+        saved = (store.duration, store.within)
+        notify = None
+        try:
+            for mask, dur, win in groups:
+                store.duration, store.within = dur, win
+                probe = self._probe_surface(other)
+                if probe is None:
+                    continue
+                sub = dict(cols)
+                sub[VALID_KEY] = base_valid & mask
+                n = self._probe_step(step, other, *probe, sub)
+                if n is not None:
+                    notify = n if notify is None else min(notify, n)
+        finally:
+            store.duration, store.within = saved
+        return notify
 
     def _partition_rows(self, side: JoinSide, cols: dict, capacity: int) -> dict:
         """A side's rows inside a partition with their pk column: keyed by
@@ -678,6 +843,8 @@ class JoinQueryRuntime(QueryRuntime):
             side.pack_definition, self.dictionary)
         batch.cols[TYPE_KEY][...] = TIMER
         with self._device_scope(), self._lock:
+            if self.app_context.stopped:
+                return    # shutdown has dropped (or is dropping) the state
             pump = self.app_context.completion_pump
             if pump.has_pending:
                 pump.flush_owner(self)

@@ -320,6 +320,8 @@ class NFAQueryRuntime(QueryRuntime):
 
     def process_timer(self, ts: int):
         with self._device_scope(), self._lock:
+            if self.app_context.stopped:
+                return    # shutdown has dropped (or is dropping) the state
             # drain in-flight pipelined batches first: the deadline sweep
             # must observe a fully-emitted timeline (and runs sync itself)
             pump = self.app_context.completion_pump

@@ -6,8 +6,10 @@ update runtime assembly): the store's current contents become one
 columnar batch, the `on` condition a batched mask, and the selector
 (aggregations, group by, having, order by/limit) the same stage streaming
 queries run. A find over an equality on an indexed table attribute
-probes the table's host value -> slots map instead of scanning. A store
-query over an incremental aggregation waits for ROADMAP A.7.
+probes the table's host value -> slots map instead of scanning. A find
+over an incremental aggregation (``within ... per ...``) reads the
+stitched buckets of one duration (``IncrementalAggregationRuntime.contents``)
+as that batch.
 """
 
 from __future__ import annotations
@@ -35,6 +37,53 @@ from siddhi_tpu_torch.ops.expressions import (
 from siddhi_tpu_torch.query_api.definitions import AttrType
 from siddhi_tpu_torch.query_api.execution import OnDemandQuery
 from siddhi_tpu_torch.query_api.expressions import Variable
+
+
+def _aggregation_contents(agg, oq: OnDemandQuery, dictionary):
+    """Synthesize the stitched per-duration rows of an incremental
+    aggregation as a columnar batch (reference OnDemandQuery `within ...
+    per ...` against an aggregation)."""
+    from siddhi_tpu_torch.core.aggregation.incremental import parse_duration_name
+    from siddhi_tpu_torch.query_api.expressions import Constant, TimeConstant
+
+    store = oq.input_store
+    if store.per is None:
+        raise CompileError(
+            f"aggregation '{agg.definition.id}' queries need `per '<duration>'`")
+    if not isinstance(store.per, Constant) or not isinstance(store.per.value, str):
+        raise CompileError("`per` must be a duration string constant")
+    duration = parse_duration_name(store.per.value)
+
+    within = None
+    w = store.within
+    if w is not None:
+        from siddhi_tpu_torch.core.aggregation.within_time import (
+            WithinFormatError, resolve_within_pair, single_within_range)
+
+        def _const(x):
+            if isinstance(x, (Constant, TimeConstant)):
+                return x.value
+            raise CompileError(
+                "within bounds must be constants (unix ms or "
+                "'yyyy-MM-dd HH:mm:ss' date strings)")
+
+        try:
+            if isinstance(w, tuple):
+                within = resolve_within_pair(_const(w[0]), _const(w[1]))
+            elif isinstance(w, Constant) and isinstance(w.value, str):
+                # single wildcard pattern: the whole calendar unit it names
+                # (IncrementalStartTimeEndTimeFunctionExecutor.java:139-200)
+                within = single_within_range(w.value)
+            else:
+                # single-bound within must be a date-pattern STRING
+                # (startTimeEndTime single-arg validation)
+                raise CompileError(
+                    "a single within bound must be a date-pattern string "
+                    "('yyyy-MM-dd HH:mm:ss', '**' wildcards allowed)")
+        except WithinFormatError as e:
+            raise CompileError(str(e)) from None
+
+    return agg.contents(duration, within)
 
 
 def _run_mutation(oq: OnDemandQuery, app_runtime, dictionary) -> List[Event]:
@@ -232,6 +281,8 @@ def run_on_demand_query(source: str, app_runtime) -> List[Event]:
         cache[source] = rt
         if len(cache) > 50:
             cache.popitem(last=False)
+    if rt.agg is not None:
+        return rt.execute()
     with app_runtime._barrier:
         return rt.execute()
 
@@ -257,10 +308,13 @@ class OnDemandFindRuntime:
         store_id = oq.input_store.store_id
         self.table = app_runtime.tables.get(store_id)
         self.window = app_runtime.named_windows.get(store_id)
+        self.agg = app_runtime.aggregations.get(store_id)
         if self.table is not None:
             self.definition = self.table.definition
         elif self.window is not None:
             self.definition = self.window.definition
+        elif self.agg is not None:
+            self.definition = self.agg.output_definition()
         else:
             raise CompileError(
                 f"'{store_id}' is not a defined table/window/aggregation")
@@ -323,19 +377,23 @@ class OnDemandFindRuntime:
     def _execute(self) -> List[Event]:
         table, dictionary = self.table, self.dictionary
         dev = self.app_runtime.app_context.device
-        store = table if table is not None else self.window
-        with getattr(store, "_lock"):
-            probe = self.probe
-            slots = None
-            if probe is not None:
-                # probe and snapshot under one lock: the slots must index
-                # the state the output columns come from
-                attr, const, _residual = probe
-                value = const.value
-                if const.type == AttrType.STRING:
-                    value = dictionary.encode(value)
-                slots = table.index_candidates(attr, value)
-            cols, valid = store.contents()
+        probe = self.probe
+        slots = None
+        if self.agg is not None:
+            _definition, cols, valid = _aggregation_contents(
+                self.agg, self.oq, dictionary)
+        else:
+            store = table if table is not None else self.window
+            with getattr(store, "_lock"):
+                if probe is not None:
+                    # probe and snapshot under one lock: the slots must
+                    # index the state the output columns come from
+                    attr, const, _residual = probe
+                    value = const.value
+                    if const.type == AttrType.STRING:
+                        value = dictionary.encode(value)
+                    slots = table.index_candidates(attr, value)
+                cols, valid = store.contents()
         cols = {k: to_device(v, dev) for k, v in cols.items()}
         valid = to_device(valid, dev).to(torch.bool)
         C = valid.shape[0]

@@ -348,6 +348,8 @@ class QueryRuntime(Receiver):
         # the lock comes before the override: an event batch on another
         # thread must never see the timer's time as its clock
         with self._device_scope(), self._lock:
+            if self.app_context.stopped:
+                return    # shutdown has dropped (or is dropping) the state
             # batches in flight were dispatched before this timer fired:
             # they emit first, and the timer chunk itself runs
             # synchronously (_now_override gates the pipeline)

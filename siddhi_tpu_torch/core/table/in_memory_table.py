@@ -175,6 +175,13 @@ class InMemoryTable:
             self.indexes.append(a)
         self._idx_maps: Dict[str, Dict[object, np.ndarray]] = {}
         self._idx_dirty = True
+        # the incremental snapshot's op log: rows inserted since the last
+        # checkpoint; a delete or update makes the next capture a full one.
+        # Off until persistence is in use (PersistenceManager turns it on),
+        # so an app that never persists copies nothing
+        self.journal_enabled = False
+        self._journal: List[dict] = []
+        self._journal_full = False
 
     # ------------------------------------------------------- primary key map
 
@@ -300,6 +307,13 @@ class InMemoryTable:
             n = int(valid_h.sum())
             if n == 0:
                 return
+            if self.journal_enabled and not self._journal_full:
+                vidx = np.nonzero(valid_h)[0]
+                self._journal.append({
+                    name: (host(batch.cols[name])[vidx].copy()
+                           if name in batch.cols
+                           else np.zeros(vidx.size, self.col_specs[name]))
+                    for name in self.state["cols"]})
             self._ensure_room(n)
             st, C, dev = self.state, self.capacity, self.device
             ar = torch.arange(C, dtype=torch.int64, device=dev)
@@ -358,6 +372,7 @@ class InMemoryTable:
                           "valid": self.state["valid"] & ~m.any(dim=0)}
             self._pk_dirty = True
             self._idx_dirty = True
+            self._journal_full = True
 
     def update(self, cond: Optional[Callable], assignments,
                batch: Optional[HostBatch]) -> torch.Tensor:
@@ -406,6 +421,7 @@ class InMemoryTable:
             self.state = {"cols": new_cols, "valid": self.state["valid"]}
             self._pk_dirty = True
             self._idx_dirty = True
+            self._journal_full = True
             return m
 
     def _pk_update_winners(self, m: torch.Tensor, mats) -> np.ndarray:
@@ -529,6 +545,47 @@ class InMemoryTable:
         return bool(torch.tril(m, diagonal=-1).any())
 
     # ------------------------------------------------------------ decoding
+
+    # ----------------------------------------------- incremental snapshots
+
+    def incremental_snapshot(self) -> dict:
+        """The insert journal since the last checkpoint, or the full state
+        when a delete or update voided it. Pure capture: ``clear_oplog``
+        runs only once the checkpoint is saved."""
+        with self._lock:
+            if self._journal_full:
+                return {"full": {"cols": {k: host(v).copy()
+                                          for k, v in self.state["cols"].items()},
+                                 "valid": host(self.state["valid"]).copy()},
+                        "capacity": self.capacity}
+            return {"journal": list(self._journal)}
+
+    def clear_oplog(self):
+        with self._lock:
+            self._journal = []
+            self._journal_full = False
+
+    def apply_increment(self, snap: dict):
+        """Apply one checkpoint's op log on top of restored state."""
+        if "full" in snap:
+            from siddhi_tpu_torch.core.util.snapshot import install_table_state
+
+            install_table_state(self, snap["full"], snap["capacity"])
+            return
+        # replay without journaling: the restored chain already holds
+        # these rows (journaling them would duplicate on the next restore)
+        was = self.journal_enabled
+        self.journal_enabled = False
+        try:
+            for rows in snap.get("journal", []):
+                n = len(next(iter(rows.values()))) if rows else 0
+                if n == 0:
+                    continue
+                cols = {k: v.copy() for k, v in rows.items()}
+                cols[VALID_KEY] = np.ones(n, bool)
+                self.insert(HostBatch(cols))
+        finally:
+            self.journal_enabled = was
 
     def all_events(self) -> List[Event]:
         cols, valid = self.contents()

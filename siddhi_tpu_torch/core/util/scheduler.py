@@ -49,7 +49,10 @@ class Scheduler:
                 return
         # live mode: wall-clock timer
         delay = max(0.0, (ts - self.app_context.timestamp_generator.current_time()) / 1000.0)
-        timer = threading.Timer(delay, self._fire_live, args=(ts, target, key))
+        timer = threading.Timer(delay, self._fire_live)
+        # the timer removes itself once it fires (the reference keeps every
+        # fired timer in the list, which then grows without bound)
+        timer.args = (ts, target, key, timer)
         timer.daemon = True
         with self._lock:
             self._live_timers.append(timer)
@@ -63,11 +66,18 @@ class Scheduler:
             times = [ts for ts, _seq, tg in self._heap if tg is not target]
         return min(times) if times else None
 
-    def _fire_live(self, ts: int, target, key):
+    def _fire_live(self, ts: int, target, key, timer):
         with self._lock:
+            try:
+                self._live_timers.remove(timer)
+            except ValueError:
+                pass          # clear_pending already dropped it
             if self._stopped:
                 return
             self._scheduled.pop(key, None)
+        # the target may still run after a shutdown that began once the
+        # check above passed: each timer target checks app_context.stopped
+        # under its query's lock before it steps
         target(ts)
 
     def _on_time_change(self, new_ts: int):

@@ -14,7 +14,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import numpy as np
-import torch
+
+from siddhi_tpu_torch.core.util.snapshot import SnapshotService, install_table_state
 
 
 def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str],
@@ -44,67 +45,45 @@ def load_reference_state(runtime, state_tree: Dict, dictionary_ids: Sequence[str
 
     An unrouted runtime takes the capacities of the tree; a routed one
     (``device_route_query_step`` already installed) lays the canonical
-    tree out over its shards."""
+    tree out over its shards. The install is a snapshot restore's
+    (``SnapshotService._restore_query``, ``install_table_state``): a leaf
+    whose dtype differs from the runtime's own raises, naming it."""
     runtime.dictionary.restore_strings(list(dictionary_ids))
     if "valid" in state_tree and hasattr(runtime, "probe_attrs"):
-        _install_table(runtime, state_tree)
+        install_table_state(runtime, state_tree,
+                            int(np.asarray(state_tree["valid"]).shape[0]))
         return
     if partition_keys is not None:
         if runtime.partition_ctx is None:
             raise ValueError(f"query '{runtime.name}' is not partitioned")
         runtime.partition_ctx.keyspace.restore(partition_keys)
-    if group_keys is not None:
-        if runtime.keyer is None:
-            raise ValueError(f"query '{runtime.name}' has no group by")
-        runtime.keyer._map = dict(group_keys["map"])
-        runtime.keyer._next = int(group_keys["next"])
-        runtime.keyer._lut = np.full(64, -1, np.int32)   # re-probe raw ids
-    sel_keys = _sel_capacity(runtime, state_tree)
+    if group_keys is not None and runtime.keyer is None:
+        raise ValueError(f"query '{runtime.name}' has no group by")
     # only a keyed window's state has a per-key axis ([K] totals); the
     # unkeyed length window's total is 0-d and the fused stage has none
-    win_keys = 1
+    win_keys = runtime._win_keys
     if runtime.partition_ctx is not None:
         for key in ("win", "lwin", "rwin"):
             if key in state_tree:
                 win_keys = int(np.asarray(state_tree[key]["total"]).shape[0])
     if "nfa" in state_tree:
-        nfa = state_tree["nfa"]
-        win_keys, slots = np.asarray(nfa["active"]).shape
+        win_keys, slots = np.asarray(state_tree["nfa"]["active"]).shape
         if slots != runtime.stage.plan.slots:
             raise ValueError(
                 f"query '{runtime.name}': the reference state holds {slots} "
                 f"match slots a key, the port runtime "
                 f"{runtime.stage.plan.slots} (siddhi_tpu.nfa_slots)")
-        runtime._nfa_hwm_arr = (None if nfa_hwm is None
-                                else np.array(nfa_hwm, np.int64))
-    layout = runtime._route_layout
-    if layout is not None:
-        from siddhi_tpu_torch.parallel.mesh import _install_routed
-
-        _install_routed(runtime, layout, state_tree, sel_keys, win_keys)
-        return
-    runtime.selector_plan.num_keys = sel_keys
-    for i, spec in enumerate(runtime.selector_plan.specs):
-        st = (state_tree.get("sel") or {}).get(f"a{i}")
-        if isinstance(st, dict):       # a value table keeps its width H
-            spec.distinct_capacity = int(np.asarray(st["vk"]).shape[1])
-    if runtime.partition_ctx is not None or "nfa" in state_tree:
-        runtime._win_keys = int(win_keys)
-    runtime._state = _to_tensors(state_tree, runtime.device)
-    runtime._step = None
-    if hasattr(runtime, "adopt_restored_state"):   # a join runtime
-        runtime.adopt_restored_state()
-
-
-def _install_table(table, tree) -> None:
-    cols = {k: np.asarray(v) for k, v in tree["cols"].items()}
-    valid = np.asarray(tree["valid"], bool)
-    with table._lock:
-        table.state = {"cols": _to_tensors(cols, table.device),
-                       "valid": _to_tensors(valid, table.device)}
-        table.capacity = int(valid.shape[0])
-        table._pk_dirty = True
-        table._idx_dirty = True
+    # one installer for carried state and for snapshots: the per-query
+    # part of a revision, with its dtype checks
+    qsnap = {"state": state_tree,
+             "sel_keys": _sel_capacity(runtime, state_tree),
+             "win_keys": int(win_keys),
+             "keyer_map": None if group_keys is None else group_keys["map"],
+             "host_window": None,
+             "nfa_hwm": nfa_hwm}
+    SnapshotService(None)._restore_query(runtime, qsnap, runtime.device)
+    if group_keys is not None:
+        runtime.keyer._next = int(group_keys["next"])
 
 
 def _sel_capacity(runtime, state_tree) -> int:
@@ -117,9 +96,3 @@ def _sel_capacity(runtime, state_tree) -> int:
     if isinstance(st, dict):
         return int(np.asarray(st["vk"]).shape[0])
     return int(np.asarray(st).shape[-1])
-
-
-def _to_tensors(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_tensors(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)

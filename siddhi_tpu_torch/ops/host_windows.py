@@ -48,6 +48,9 @@ def _emit(rows: List[dict], col_specs: Dict[str, np.dtype]) -> "HostBatch":
 
 
 class HostWindowStage:
+    # restored state re-arms its expiry timer (core/util/snapshot.py)
+    needs_scheduler = False
+
     host_mode = True
     batch_mode = False
 
@@ -285,6 +288,8 @@ class SessionWindowStage(HostWindowStage):
     ``moveCurrentSessionToPreviousSession`` / ``addLateEvent``,
     SessionWindowProcessor.java:228-432)."""
 
+    needs_scheduler = True
+
     def __init__(self, gap_ms: int, key_col: Optional[str], col_specs,
                  latency_ms: int = 0):
         super().__init__(col_specs)
@@ -504,6 +509,8 @@ class CronWindowStage(HostWindowStage):
     """``cron('<expr>')``: collects events and flushes them as a batch at
     each cron fire; the previous batch expires (reference
     CronWindowProcessor)."""
+
+    needs_scheduler = True
 
     batch_mode = True
 
@@ -773,6 +780,7 @@ class PartitionedHostWindow(HostWindowStage):
         super().__init__({})
         self.col_specs = dict(probe.col_specs)
         self._factory = factory
+        self.needs_scheduler = probe.needs_scheduler
         self._stages: Dict[int, HostWindowStage] = {}
 
     def process(self, batch, now: int):

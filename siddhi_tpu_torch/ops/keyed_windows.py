@@ -229,6 +229,7 @@ class KeyedTimeWindowStage(WindowStage):
         self.capacity = max(capacity, max_len) if max_len is not None else capacity
         self.col_specs = col_specs
         self.external = external
+        self.needs_scheduler = not external
         self.max_len = max_len
         self.ts_key = ts_key    # externalTime clock column (attribute)
 
@@ -586,6 +587,8 @@ class KeyedTimeBatchWindowStage(WindowStage):
     rows join the flushing batch) and drained compacted: at most D due
     keys per tick, leftovers re-armed at once."""
 
+    needs_scheduler = True
+
     keyed = True
 
     batch_mode = True
@@ -716,6 +719,8 @@ class KeyedSessionWindowStage(WindowStage):
     its batch rows before i at its first break in the batch, else the
     batch rows since its previous break. A row's slot is its position in
     its session (the last slot when the buffer is full, which raises)."""
+
+    needs_scheduler = True
 
     keyed = True
 
@@ -920,6 +925,8 @@ class KeyedHoppingWindowStage(WindowStage):
     HopingWindowProcessor whose first event arms the schedule); every hop
     emits the key's trailing windowTime of events as a batch
     [EXPIRED(prev snapshot), RESET, CURRENT(snapshot)]."""
+
+    needs_scheduler = True
 
     keyed = True
 

@@ -155,6 +155,9 @@ def _row_order_base(cols: Dict, B: int, device):
 
 
 class WindowStage:
+    # restored state re-arms its expiry timer (core/util/snapshot.py)
+    needs_scheduler = False
+
     batch_mode = False
 
     def init_state(self, num_keys: int, device) -> dict:
@@ -362,6 +365,7 @@ class TimeWindowStage(WindowStage):
         self.capacity = capacity
         self.col_specs = col_specs
         self.external = external
+        self.needs_scheduler = not external
         self.ts_key = ts_key
 
     def init_state(self, num_keys: int, device) -> dict:
@@ -791,6 +795,8 @@ class TimeBatchWindowStage(WindowStage):
     arrival, and each flush emits [EXPIRED(arrivals since the last flush,
     ts=now), RESET] after the currents of the flushing chunk."""
 
+    needs_scheduler = True
+
     batch_mode = True
 
     def __init__(self, time_ms: int, col_specs: Dict[str, np.dtype], capacity: int,
@@ -913,6 +919,8 @@ class HoppingWindowStage(WindowStage):
     """``hopping(windowTime, hopTime)``: every hop, emit the events of the
     trailing windowTime as a batch (reference HopingWindowProcessor: a
     time batch whose emission period is decoupled from its retention)."""
+
+    needs_scheduler = True
 
     batch_mode = True
 
@@ -1126,6 +1134,8 @@ class TimeLengthWindowStage(WindowStage):
     slots suffices. Time expiry inside one chunk is deferred to the timer
     scheduled at once."""
 
+    needs_scheduler = True
+
     def __init__(self, time_ms: int, length: int, col_specs: Dict[str, np.dtype]):
         if length <= 0:
             raise CompileError("timeLength window needs a positive length")
@@ -1230,6 +1240,8 @@ class DelayWindowStage(WindowStage):
     FIFO order, sized by one host read: a playback delay runs a TIMER
     step per millisecond of event time, each releasing a few rows."""
 
+    needs_scheduler = True
+
     def __init__(self, delay_ms: int, col_specs: Dict[str, np.dtype], capacity: int):
         self.delay_ms = delay_ms
         self.capacity = capacity
@@ -1312,6 +1324,7 @@ class ExternalTimeBatchWindowStage(WindowStage):
         self.col_specs = col_specs
         self.start_time = start_time
         self.timeout = timeout
+        self.needs_scheduler = timeout > 0
 
     def init_state(self, num_keys: int, device) -> dict:
         Wc = self.capacity

@@ -196,24 +196,23 @@ def test_manager_without_device_chooses_cuda():
 
 def test_unported_constructs_are_named_not_skipped():
     """What the port still refuses raises a ``CompileError`` naming it:
-    incremental aggregations and joins against them (ROADMAP A.7), and a
-    join routed over a mesh (A.9). Tables, named windows, triggers and
-    joins run."""
-    from siddhi_tpu_torch import SiddhiManager
+    the serving tier's sharded aggregation stores (``siddhi_tpu.agg_shards``
+    > 1, ROADMAP A.7(c)), and a join routed over a mesh (A.9). Incremental
+    aggregations and joins against them run."""
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.ops.expressions import CompileError
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
-    m = SiddhiManager(device="cpu")
     agg = ("define stream S (a int, b long); define aggregation Agg from S "
            "select a, sum(b) as t group by a aggregate every sec ... min; ")
-    for app, what in [
-        (agg, r"incremental aggregations \(define aggregation\)"),
-        (agg + "define stream R (a int); from R join Agg on R.a == Agg.a "
-         "within 0L, 10L per 'seconds' select R.a as a, Agg.t as t insert into O;",
-         "joins against incremental aggregations"),
-    ]:
-        with pytest.raises(CompileError, match=what):
-            m.create_siddhi_app_runtime(app)
+    join = (agg + "define stream R (a int); from R join Agg on R.a == Agg.a "
+            "within 0L, 10L per 'seconds' select R.a as a, Agg.t as t insert into O;")
+    m = SiddhiManager(device="cpu")
+    m.create_siddhi_app_runtime(join)       # builds: A.7 (a) is ported
+    sharded = SiddhiManager(device="cpu")
+    sharded.set_config_manager(InMemoryConfigManager({"siddhi_tpu.agg_shards": "4"}))
+    with pytest.raises(CompileError, match=r"agg_shards = 4.*ROADMAP A\.7\(c\)"):
+        sharded.create_siddhi_app_runtime(agg)
     rt = m.create_siddhi_app_runtime(
         "define stream L (k string, v long); define stream R (k string, v long); "
         "partition with (k of L, k of R) begin @info(name='j') "
@@ -222,6 +221,7 @@ def test_unported_constructs_are_named_not_skipped():
     with pytest.raises(CompileError, match="join queries.*A.9"):
         device_route_query_step(rt.query_runtimes["j"], make_mesh(2))
     m.shutdown()
+    sharded.shutdown()
 
 
 def test_nfa_init_state_needs_a_device():

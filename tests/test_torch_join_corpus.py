@@ -4,9 +4,8 @@
 Every scenario of ``test_joins.py``, ``test_joins_extended.py``,
 ``test_join_partition_corpus.py`` and ``test_custom_join_window_corpus.py``
 drives the port through the module's own feed and checks the module's own
-expected rows (``torch_helpers.port_corpus``). A scenario that joins an
-incremental aggregation (ROADMAP A.7) asserts the port's ``CompileError``
-naming it instead.
+expected rows (``torch_helpers.port_corpus``), the two that join an
+incremental aggregation included.
 """
 
 import pytest
@@ -18,22 +17,7 @@ MODULES = {n: port_corpus(n) for n in (
     "test_custom_join_window_corpus")}
 CASES = [(n, t) for n, (_m, tests) in MODULES.items() for t in tests]
 
-# scenarios that need a construct the port refuses by name
-REFUSED = {
-    ("test_joins_extended", "test_aggregation_join"): "joins against incremental aggregations",
-    ("test_joins_extended", "test_aggregation_join_multiple_buckets"):
-        "joins against incremental aggregations",
-}
-
 
 @pytest.mark.parametrize("module,name", CASES)
 def test_join_corpus_on_port(module, name):
-    fn = getattr(MODULES[module][0], name)
-    why = REFUSED.get((module, name))
-    if why is None:
-        fn()
-        return
-    from siddhi_tpu_torch.ops.expressions import CompileError
-
-    with pytest.raises(CompileError, match=why):
-        fn()
+    getattr(MODULES[module][0], name)()

@@ -1,7 +1,7 @@
 """The partitioned join engine on the port (``core/join/engine.py``), on
 the CPU: the shapes of the reference's ``test_join_engine.py`` that do not
-need snapshots (A.7) or fan-out fusion (A.8), and the partition hash
-against the reference's.
+need snapshots or fan-out fusion (A.8), and the partition hash against the
+reference's. Its snapshot shapes run in ``test_torch_persistence.py``.
 
 - Eligibility and its reasons; the float-key shape keeps the broadcast
   probe and still pipelines.

@@ -316,3 +316,112 @@ def test_timer_requests_are_deduped_with_the_reference_outputs():
     want, ref_steps = _timer_steps("jax")
     assert got == want
     assert steps == 30 < ref_steps
+
+
+# ------------------------------------------ shutdown races (ROADMAP C.4, C.5)
+
+# one live app per timer entry point: a time window's query, a join side's
+# window and an absent pattern step (each target as the scheduler holds it)
+_SHUTDOWN_APPS = {
+    "time_window": ("""
+        define stream S (k string, v double);
+        @info(name = 'q')
+        from S#window.time(50) select k, sum(v) as s insert all events into O;
+        """, ["S"], lambda q: q.process_timer),
+    "join_side": ("""
+        define stream A (k string, v double);
+        define stream B (k string, v double);
+        @info(name = 'q')
+        from A#window.time(50) join B#window.length(4) on A.k == B.k
+        select A.k as k, A.v as a, B.v as b insert all events into O;
+        """, ["A", "B"], lambda q: q._timer_cbs["left"]),
+    "absent_step": ("""
+        define stream A (k string, v double);
+        define stream B (k string, v double);
+        @info(name = 'q')
+        from e1=A -> not B[k == e1.k] for 50 milliseconds
+        select e1.k as k, e1.v as v insert into O;
+        """, ["A"], lambda q: q.process_timer),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_SHUTDOWN_APPS))
+def test_timer_held_across_shutdown_steps_nothing(shape):
+    """A live timer that passed the scheduler's stopped check before
+    ``shutdown()`` and runs its target only after it: the target finds the
+    app stopped under its query's lock, so no step runs, no row reaches the
+    callback and the dropped state stays dropped (C.4)."""
+    import siddhi_tpu_torch
+
+    app, streams, target_of = _SHUTDOWN_APPS[shape]
+    m = siddhi_tpu_torch.SiddhiManager(device="cpu")
+    rt = m.create_siddhi_app_runtime(app)
+    out = make_collector(siddhi_tpu_torch.StreamCallback)
+    rt.add_callback("O", out)
+    q = rt.query_runtimes["q"]
+    for s in streams:
+        rt.get_input_handler(s).send(["K", 1.0])
+    steps = []
+    orig = q._finish_device_batch
+
+    def counting(*a, **kw):
+        steps.append(1)
+        return orig(*a, **kw)
+
+    q._finish_device_batch = counting
+    entered, gate = threading.Event(), threading.Event()
+    target = target_of(q)
+
+    def held(ts):
+        entered.set()
+        gate.wait(10)
+        target(ts)
+
+    sched = rt.app_context.scheduler
+    sched.notify_at(rt.app_context.timestamp_generator.current_time(), held)
+    assert entered.wait(10), "the live timer never fired"
+    rows_before = len(out.rows)
+    steps.clear()
+    m.shutdown()
+    assert q._state is None
+    gate.set()
+    deadline = time.time() + 10
+    while any(t.is_alive() for t in threading.enumerate()
+              if isinstance(t, threading.Timer)) and time.time() < deadline:
+        time.sleep(0.01)
+    assert steps == [], "a timer stepped a query after shutdown"
+    assert len(out.rows) == rows_before
+    assert q._state is None
+
+
+def test_fired_live_timers_leave_the_scheduler():
+    """After N live fires the scheduler holds only timers that have not
+    fired: each fired timer removes itself (C.5)."""
+    import siddhi_tpu_torch
+    from siddhi_tpu_torch.core.util.scheduler import Scheduler
+
+    m = siddhi_tpu_torch.SiddhiManager(device="cpu")
+    rt = m.create_siddhi_app_runtime("define stream S (v int); "
+                                     "from S select v insert into O;")
+    sched = Scheduler(rt.app_context)
+    now = rt.app_context.timestamp_generator.current_time()
+    fired = []
+    n = 40
+    done = threading.Event()
+
+    def target(ts):
+        fired.append(ts)
+        if len(fired) == n:
+            done.set()
+
+    for i in range(n):
+        sched.notify_at(now + i, target)          # due at once
+    sched.notify_at(now + 600_000, target)        # ten minutes out
+    assert done.wait(10), f"{len(fired)} of {n} live timers fired"
+    deadline = time.time() + 5
+    while len(sched._live_timers) > 1 and time.time() < deadline:
+        time.sleep(0.01)
+    assert len(sched._live_timers) == 1
+    assert not sched._live_timers[0].finished.is_set()
+    sched.shutdown()
+    m.shutdown()

@@ -365,7 +365,10 @@ def two_stream_feed(seed, streams=("A", "B"), n_items=40, n_keys=4):
     return feed
 
 
-def port_corpus(name):
+_CPU_PACKAGE = "_siddhi_tpu_torch_on_cpu"
+
+
+def port_corpus(name, unported=()):
     """A reference test module of a corpus, re-bound to the port: its
     ``SiddhiManager`` makes port managers on the CPU, and every name it
     imports from a module the port keeps under the same path
@@ -374,6 +377,9 @@ def port_corpus(name):
     SPI, ...) is the port's, so each scenario drives the port through the
     module's own feed and checks the module's own expected rows (the
     reference's outputs: the module asserts them of the reference).
+    ``unported``: modules of the reference with no port counterpart that
+    the module may still import inside test bodies the port does not run
+    (those scenarios are left out of the returned names).
     Returns (module, its test function names)."""
     import functools
     import inspect
@@ -385,9 +391,18 @@ def port_corpus(name):
     path = os.path.join(os.path.dirname(__file__), name + ".py")
     with open(path) as f:
         src = f.read()
+    # the package's names with a CPU SiddhiManager, so a scenario that
+    # imports SiddhiManager inside its body makes CPU managers too
+    cpu = sys.modules.get(_CPU_PACKAGE)
+    if cpu is None:
+        cpu = types.ModuleType(_CPU_PACKAGE)
+        cpu.__dict__.update(vars(siddhi_tpu_torch))
+        cpu.SiddhiManager = functools.partial(siddhi_tpu_torch.SiddhiManager,
+                                              device="cpu")
+        sys.modules[_CPU_PACKAGE] = cpu
     for old, new in (
-            ("from siddhi_tpu import", "from siddhi_tpu_torch import"),
-            ("from siddhi_tpu.core.util.config import", "from siddhi_tpu_torch import")):
+            ("from siddhi_tpu import", f"from {_CPU_PACKAGE} import"),
+            ("from siddhi_tpu.core.util.config import", f"from {_CPU_PACKAGE} import")):
         src = src.replace(old, new)
     import re
 
@@ -412,7 +427,8 @@ def port_corpus(name):
 
     src = re.sub(r"from tests\.(\w+) import", rebind_corpus, src)
     left = re.findall(r"(?:from|import) siddhi_tpu\b(?!_torch)[.\w]*", src)
-    assert set(left) <= {"from siddhi_tpu.core.manager"}, (name, left)
+    allowed = {"from siddhi_tpu.core.manager"} | {f"from {u}" for u in unported}
+    assert set(left) <= allowed, (name, left)
     mod = types.ModuleType(name + "_on_port")
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)  # noqa: S102 — a repo test module
@@ -421,5 +437,6 @@ def port_corpus(name):
     tests = sorted(k for k, v in vars(mod).items()
                    if k.startswith("test_") and callable(v)
                    and not inspect.signature(v).parameters
-                   and "siddhi_tpu.core.manager" not in inspect.getsource(v))
+                   and "siddhi_tpu.core.manager" not in inspect.getsource(v)
+                   and not any(u in inspect.getsource(v) for u in unported))
     return mod, tests
