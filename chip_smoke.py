@@ -230,11 +230,43 @@ Phases (any failure exits non-zero and prints no result line):
             routed revision restored into the unrouted runtime == the
             unrouted run. Prints persist and restore ms, snapshot bytes,
             device-to-host and host-to-device bytes of each cell;
-22. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+22. serving SV, the serving tier behind its REST front door: one app
+            (phase 21's StockAgg with ``siddhi_tpu.agg_shards = 4``, the
+            global flagship and D1 on the same stream,
+            ``@app:statistics('true')``, ``enable_wal()``) deployed by
+            ``POST /apps`` on a ``SiddhiRestService`` (127.0.0.1, port 0,
+            2 query workers, a queue cap of 4), fed phase 21's 4 batches
+            as wire frames with per-row timestamps through ``POST
+            /ingest/StockStream`` (4 batches: the same cut of depth as
+            phase 21). Checks: every (bucket, symbol) on the shard
+            ``crc32(repr((id,))) % 4`` names, the merged stores == phase
+            21's unsharded stores == the numpy oracle; the six finds via
+            ``POST /query`` == phase 21's; each shard's device view on the
+            card, cached until the next fold, == its rows; one
+            distinct-scan launch a frame, the kernel == plain on the last
+            frame's call, D1 == a run fed by ``send_columns`` without
+            REST; ``checkpoint_shards`` after batch 2, after batch 4 a
+            shard killed and rebuilt from its blob and WAL suffix (2
+            records) == before the kill while four clients query (200 or
+            503 only); ``POST /persist`` after batch 2, ``/restore`` after
+            batch 4: the WAL replays batches 3-4, D1's rows bit-equal to
+            the first pass, the state and stores == before the restore; a
+            storm of 10 clients against the cap with shard 0 gated: 503s
+            with ``"shed": true``, no 500, ``/metrics`` counting them and
+            the rebuild; the statistics' StockStream count == the rows
+            sent, and D1's host syncs a step at ``detail`` == without
+            statistics; ``/programs`` and ``/trace/start`` answer 501.
+            Prints the sharded and unsharded fold, routing, decode and
+            ``/ingest`` ms a batch, ``/query`` p50/p99 under four clients,
+            fan-out and merge ms, rebuild, persist and restore-plus-replay
+            ms, WAL bytes, D1 events/s through the front door and the
+            card's busy share over one frame;
+23. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
-    ``{"aggregation": ...}`` line, a ``{"kernels": [...]}`` line, the
-    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+    ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
+    ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -4155,7 +4187,8 @@ def agg_rows(rt, d: str):
 
 def phase_aggregation(device, card: str):
     """AG and the incremental chain (see the module doc). Returns
-    (facts, persistence facts of the chain)."""
+    (facts, persistence facts of the chain, the straight run's stores and
+    finds)."""
     import pickle
 
     import numpy as np
@@ -4207,7 +4240,7 @@ def phase_aggregation(device, card: str):
     # the finds
     V = AG_DAY_VOLUME
     want_finds = ag_expected_finds(oracle, feed)
-    find_ms = {}
+    find_ms, finds = {}, {}
     dic = rt.app_context.string_dictionary
     for name, text in AG_FINDS.items():
         q = text.format(T0=AG_T0, T1=AG_T1, TM=AG_T0 + ag_mid_ms(feed), V=V)
@@ -4219,6 +4252,7 @@ def phase_aggregation(device, card: str):
             got = sorted(got)
         rows_close(got, want_finds[name], f"AG find {name}")
         _require(len(got) > 0, f"AG find {name}: no rows")
+        finds[name] = got
     # the aggregation join: a numpy hash join over the oracle's minutes
     qcols, qts = ag_q_batch(feed, 18)
     by_sym = {}
@@ -4243,6 +4277,7 @@ def phase_aggregation(device, card: str):
     store_bytes = 8 * len(agg.bases) * slots
     straight = {"tail": concat_rows(cbs["OutStream"].batches[n_head:]),
                 "stores": {d: agg_rows(rt, d) for d in AG_DURATIONS},
+                "finds": finds,
                 "table": sorted(tuple(e.data) for e in rt.tables["FirstTrade"].all_events())}
     m.shutdown()
 
@@ -4287,7 +4322,7 @@ def phase_aggregation(device, card: str):
           f"{chain['restore_ms']:.1f} ms; the flagship, the stores and the table "
           f"after the last batch == the straight run [{card}]", flush=True)
     facts["phase_s"] = time.perf_counter() - t_phase
-    return facts, chain
+    return facts, chain, {"stores": straight["stores"], "finds": straight["finds"]}
 
 
 def captured_queries(rt):
@@ -4629,6 +4664,427 @@ def phase_persistence(device, feed, routed, unrouted, d1_out, card: str):
     return res
 
 
+# ---------------------------------------------------- the serving tier
+
+SV_SHARDS = 4
+SV_CLIENTS = 4                  # /query clients during the rebuild and timed
+SV_CLIENT_QUERIES = 4           # timed requests a client
+SV_STORM = 10                   # clients against the storm's cap
+SV_CAP = 4                      # query_queue_cap, as tests/test_serving.py
+SV_WORKERS = 2                  # query_workers, as tests/test_serving.py
+# phase 21's AG aggregation sharded 4 ways, the global flagship and D1
+# (the flagship's shape with distinctCount(volume), H = 64) on one
+# stream, behind the REST front door, with statistics and the WAL
+SV_APP = """@app:name('serving')
+@app:playback
+@app:statistics('true')
+define stream StockStream (symbol string, price float, volume long, ts long);
+define aggregation StockAgg
+from StockStream
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume, count() as n,
+       min(price) as lo, max(price) as hi
+group by symbol
+aggregate by ts every sec ... year;
+@info(name = 'bench')
+from StockStream#window.length({W})
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume
+group by symbol
+insert into OutStream;
+""" + "@info(name = 'd1')" + D1_APP.split("@info(name = 'bench')")[1].replace(
+    "eventTimestamp() as ts", "eventTimestamp() as ets").replace(
+    "insert into OutStream", "insert into D1Stream")
+SV_D1_APP = """@app:playback
+define stream StockStream (symbol string, price float, volume long, ts long);
+""" + "@info(name = 'd1')" + SV_APP.split("@info(name = 'd1')")[1]
+SV_CLIENT_FIND = "hour_having"   # the timed clients' find: ~10,000 slots
+
+
+def http(port: int, method: str, path: str, body=None, raw=None,
+         ctype: str = "application/json"):
+    """One request to the port's REST service: (status, parsed JSON or
+    text, headers)."""
+    import urllib.error
+    import urllib.request
+
+    data = raw if raw is not None else (
+        json.dumps(body).encode() if body is not None else None)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method,
+                                 headers={"Content-Type": ctype} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, payload, heads = r.status, r.read(), r.headers
+    except urllib.error.HTTPError as e:
+        code, payload, heads = e.code, e.read(), e.headers
+    text = payload.decode()
+    try:
+        return code, json.loads(text), heads
+    except ValueError:
+        return code, text, heads
+
+
+def sv_clients(port: int, query: dict, n: int, until=None, per_client: int = 1):
+    """``n`` threads POSTing ``query`` to /query: each makes
+    ``per_client`` requests, and then more while ``until()`` is false.
+    Returns [(status, seconds, body)], every thread joined."""
+    import threading
+
+    out, lock = [], threading.Lock()
+
+    def client():
+        done = 0
+        while done < per_client or (until is not None and not until()):
+            t0 = time.perf_counter()
+            code, body, _h = http(port, "POST", "/query", query)
+            with lock:
+                out.append((code, time.perf_counter() - t0, body))
+            done += 1
+
+    threads = [threading.Thread(target=client) for _ in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    _require(not any(t.is_alive() for t in threads), "serving: a client hung")
+    return out
+
+
+def sv_d1_run(device, feed, detail: bool):
+    """D1 alone, fed ``feed`` by send_columns (no REST), optionally under
+    ``@app:statistics(level='detail')``; the host syncs of each step after
+    the first. Returns (D1's batches, syncs per step)."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    app = ("@app:statistics(level='detail')\n" if detail else "") + SV_D1_APP.format(W=WINDOW)
+    m = SiddhiManager(device=device)
+    rt = m.create_siddhi_app_runtime(app)
+    rt.query_runtimes["d1"].selector_plan.num_keys = KEY_SLOTS
+    cb = collector()
+    rt.add_callback("D1Stream", cb)
+    h = rt.get_input_handler("StockStream")
+    h.send_columns(feed[0][0], timestamps=feed[0][1])
+    sync(device)
+    counted = {}
+    with (counting_syncs(counted) if device.type == "cuda"
+          else contextlib.nullcontext()):
+        for cols, ts in feed[1:]:
+            h.send_columns(cols, timestamps=ts)
+        sync(device)
+    m.shutdown()
+    return cb.batches, counted.get("syncs", 0) / max(1, len(feed) - 1)
+
+
+def phase_serving(device, straight, card: str):
+    """SV (see the module doc): phase 21's feed as wire frames through the
+    REST front door into the sharded aggregation, the global flagship and
+    D1. Returns (facts, distinct-scan launches by run, the kernel's max
+    error on the recorded call)."""
+    import zlib
+
+    import numpy as np
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+    from siddhi_tpu_torch.core.aggregation.incremental import parse_duration_name
+    from siddhi_tpu_torch.core.stream.input import wire
+    from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+    from siddhi_tpu_torch.service import SiddhiRestService
+
+    t_phase = time.perf_counter()
+    feed, _ids = tw_feed(17, AG_BATCHES)
+    oracle = agg_oracle(feed)
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager(
+        {"siddhi_tpu.agg_shards": str(SV_SHARDS)}))
+    m.set_persistence_store(InMemoryPersistenceStore())
+    svc = SiddhiRestService(m, query_workers=SV_WORKERS,
+                            query_queue_cap=SV_CAP).start()
+    port = svc.port
+    facts, launches = {"card": card}, {}
+    try:
+        code, body, _h = http(port, "POST", "/apps", raw=SV_APP.format(W=WINDOW).encode(),
+                              ctype="text/plain")
+        _require(code == 201, f"serving: POST /apps answered {code}: {body}")
+        name = body["app"]
+        rt = m.get_siddhi_app_runtime(name)
+        for q in ("bench", "d1"):
+            rt.query_runtimes[q].selector_plan.num_keys = KEY_SLOTS
+        wal = rt.enable_wal()
+        agg = rt.aggregations["StockAgg"]
+        _require(type(agg).__name__ == "ShardedIncrementalAggregation"
+                 and agg.n_shards == SV_SHARDS, "serving: StockAgg is not sharded 4 ways")
+        _require(all(s.device == device for s in agg.shards),
+                 "serving: a shard is not on the card")
+        cbs = {s: collector() for s in ("OutStream", "D1Stream")}
+        for s, cb in cbs.items():
+            rt.add_callback(s, cb)
+        fold_s, route_s, decode_s = [], [], []
+        orig_fold, orig_route, orig_decode = agg._fold_batch, agg._route, wire.decode_frame
+
+        def timed(fn, into):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    into.append(time.perf_counter() - t0)
+            return run
+
+        agg._fold_batch = timed(orig_fold, fold_s)
+        agg._route = timed(orig_route, route_s)
+        wire.decode_frame = timed(orig_decode, decode_s)
+        enc = wire.WireEncoder()
+        frames = [enc.encode(cols, timestamps=ts) for cols, ts in feed]
+
+        # ingest: one wire frame a batch; checkpoint and persist after 2
+        ingest_s, blobs, views, rev = [], None, None, None
+        distinct_scan.launches = 0
+        with recording(at=len(feed) - 1) as rec:
+            for i, frame in enumerate(frames):
+                def post(frame=frame):
+                    code, body, _h = http(port, "POST", "/ingest/StockStream",
+                                          raw=frame, ctype="application/octet-stream")
+                    _require(code == 200 and body["accepted"] == BATCH,
+                             f"serving: POST /ingest answered {code}: {body}")
+                t0 = time.perf_counter()
+                if i == len(frames) - 1:
+                    facts["profile"] = profile_block("SV /ingest frame", post, card,
+                                                     tag="serving")
+                else:
+                    post()
+                    sync(device)
+                ingest_s.append(time.perf_counter() - t0)
+                if i == 1:
+                    blobs = agg.checkpoint_shards()
+                    t0 = time.perf_counter()
+                    code, body, _h = http(port, "POST", f"/apps/{name}/persist")
+                    facts["persist_ms"] = (time.perf_counter() - t0) * 1e3
+                    _require(code == 200, f"serving: persist answered {code}")
+                    rev = body["revision"]
+                    d0 = parse_duration_name("sec")
+                    views = [agg.shard_device_contents(k, d0) for k in range(SV_SHARDS)]
+                    _require(all(agg.shard_device_contents(k, d0) is views[k]
+                                 for k in range(SV_SHARDS)),
+                             "serving: a device view was not cached between folds")
+                if i == 2:
+                    _require(all(agg.shard_device_contents(k, d0) is not views[k]
+                                 for k in range(SV_SHARDS)),
+                             "serving: a device view outlived a fold")
+        launches["SV_D1"] = distinct_scan.launches
+        agg._fold_batch, agg._route, wire.decode_frame = orig_fold, orig_route, orig_decode
+        _require(launches["SV_D1"] == len(feed), f"serving: {launches['SV_D1']} "
+                 f"distinct-scan launches for {len(feed)} frames: want one per frame")
+        err = check_scan(rec.args, rec.kwargs, "SV D1 (recorded call)")
+        facts["d1_eps"] = len(feed) * BATCH / sum(ingest_s[:-1] + ingest_s[-1:])
+        facts["fold_ms"] = [x * 1e3 for x in fold_s]
+        facts["route_ms"] = [x * 1e3 for x in route_s]
+        facts["decode_ms"] = [x * 1e3 for x in decode_s]
+        facts["ingest_ms"] = [x * 1e3 for x in ingest_s]
+        stats = http(port, "GET", f"/apps/{name}/statistics")[1]
+        _require(stats["throughput"]["StockStream"]["events"] == len(feed) * BATCH,
+                 f"serving: statistics count {stats['throughput']['StockStream']} "
+                 f"for {len(feed) * BATCH} rows sent")
+
+        # the stores: merged == phase 21's unsharded == the oracle, and
+        # every (bucket, group) on its crc32 owner
+        dic = rt.app_context.string_dictionary
+        slots = 0
+        for s in agg.shards:
+            for d, dstore in s.store.items():
+                for b, groups in dstore.items():
+                    for g in groups:
+                        _require(zlib.crc32(repr(g).encode()) % SV_SHARDS == s.index
+                                 and isinstance(g[0], int),
+                                 f"serving: ({b}, {g}) on shard {s.index}")
+                        slots += 1
+        for d in AG_DURATIONS:
+            got = agg_rows(rt, d)
+            _require(got == straight["stores"][d],
+                     f"serving: the merged {d} store differs from phase 21's unsharded")
+            want = sorted((b, s, *v) for (b, s), v in oracle[d].items())
+            rows_close(got, want, f"serving {d} store",
+                       rtol=(0, 0, FLOAT_RTOL, 0, 0, 0.0, 0.0))
+        facts["slots"] = slots
+        # the device views at the last fold == the columnized rows
+        for k in range(SV_SHARDS):
+            _d, cols, valid = agg.shard_device_contents(k, d0)
+            _d2, want, want_valid = agg._columnize(
+                agg._rows_from_items(agg.shards[k].partials(d0)))
+            _require(valid.device == device and all(t.device == device for t in cols.values()),
+                     f"serving: shard {k}'s view is not on the card")
+            _require(np.array_equal(valid.cpu().numpy(), want_valid)
+                     and all(np.array_equal(cols[c].cpu().numpy(), want[c]) for c in want),
+                     f"serving: shard {k}'s device view differs from its rows")
+
+        # the six finds through POST /query == phase 21's unsharded finds
+        find_ms = {}
+        for fname, text in AG_FINDS.items():
+            q = text.format(T0=AG_T0, T1=AG_T1, TM=AG_T0 + ag_mid_ms(feed), V=AG_DAY_VOLUME)
+            t0 = time.perf_counter()
+            code, body, _h = http(port, "POST", "/query", {"app": name, "query": q})
+            find_ms[fname] = (time.perf_counter() - t0) * 1e3
+            _require(code == 200, f"serving: find {fname} answered {code}: {body}")
+            got = [tuple(r) for r in body["rows"]]
+            if fname == "sec_all":
+                got = sorted(got)
+            _require(got == straight["finds"][fname],
+                     f"serving: find {fname} differs from phase 21's unsharded find")
+        facts["find_ms"] = find_ms
+        client_q = {"app": name, "query": AG_FINDS[SV_CLIENT_FIND].format(
+            T0=AG_T0, T1=AG_T1)}
+        timed_q = sv_clients(port, client_q, SV_CLIENTS, per_client=SV_CLIENT_QUERIES)
+        ok = sorted(sec for code, sec, _b in timed_q if code == 200)
+        _require(len(ok) == len(timed_q), "serving: a timed /query was not answered 200")
+        facts["query_ms"] = {"p50": quantile_ms(ok, 50), "p99": quantile_ms(ok, 99),
+                             "n": len(ok), "clients": SV_CLIENTS}
+
+        # shards: kill one after batch 4 and rebuild it from batch 2's
+        # blob plus its WAL suffix while four clients query
+        k = SV_SHARDS - 1
+        before = agg._ser_store(agg.shards[k].store)
+        suffix = len(agg.shards[k].wal.records_after(blobs[k]["cut"]))
+        agg.kill_shard(k)
+        done = []
+
+        def rebuild():
+            t0 = time.perf_counter()
+            facts["replayed"] = agg.rebuild_shard(k, blobs[k])
+            facts["rebuild_ms"] = (time.perf_counter() - t0) * 1e3
+            done.append(True)
+
+        import threading
+
+        th = threading.Thread(target=rebuild)
+        th.start()
+        during = sv_clients(port, client_q, SV_CLIENTS, until=lambda: bool(done))
+        th.join(600)
+        _require(done, "serving: the rebuild did not finish")
+        codes = {c for c, _s, _b in during}
+        _require(codes <= {200, 503} and 200 in codes,
+                 f"serving: /query during the rebuild answered {sorted(codes)}")
+        _require(facts["replayed"] == suffix == len(feed) - 2,
+                 f"serving: rebuild replayed {facts['replayed']} records, shard {k}'s "
+                 f"WAL holds {suffix} after its cut")
+        _require(agg._ser_store(agg.shards[k].store) == before,
+                 f"serving: shard {k} after its rebuild differs from before the kill")
+
+        # storm: shard 0's partials gated, 10 clients against a cap of 4
+        gate = threading.Event()
+        orig_partials = agg.shards[0].partials
+        agg.shards[0].partials = lambda d: (gate.wait(60), orig_partials(d))[1]
+        storm_q = {"app": name, "query": "from StockAgg within {}L, {}L per 'years' "
+                   "select symbol, n".format(AG_T0, AG_T1)}
+        storm, lock = [], threading.Lock()
+
+        def storm_client():
+            code, body, _h = http(port, "POST", "/query", storm_q)
+            with lock:
+                storm.append((code, 0.0, body))
+
+        threads = [threading.Thread(target=storm_client) for _ in range(SV_STORM)]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 60
+        # the gate opens once every request past the cap has been answered
+        while (sum(c == 503 for c, _s, _b in storm) < SV_STORM - SV_CAP
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        gate.set()
+        for t in threads:
+            t.join(600)
+        _require(not any(t.is_alive() for t in threads), "serving: a storm client hung")
+        agg.shards[0].partials = orig_partials
+        codes = [c for c, _s, _b in storm]
+        _require(set(codes) <= {200, 503} and 503 in codes,
+                 f"serving: the storm answered {sorted(codes)}")
+        _require(all(b.get("shed") is True for c, _s, b in storm if c == 503),
+                 "serving: a 503 without the shed marker")
+        metrics = http(port, "GET", "/metrics?format=json")[1]
+        counters = metrics["apps"][name]["statistics"]["counters"]
+        _require(metrics["process"]["counters"]["serving.sheds"] >= 1
+                 and counters["resilience.query_sheds"] >= 1
+                 and counters["resilience.shard_rebuilds"] == 1,
+                 f"serving: /metrics counters {counters}")
+        text = http(port, "GET", "/metrics")[1]
+        _require("siddhi_aggregation_shards" in text and "siddhi_serving_fanout_ms" in text,
+                 "serving: /metrics lacks the serving families")
+        tel = metrics["apps"][name]["telemetry"]["histograms"]
+        facts["fanout_ms"] = {q: tel["serving.fanout_ms"][q] for q in ("p50", "p99")}
+        facts["merge_ms"] = {q: tel["serving.merge_ms"][q] for q in ("p50", "p99")}
+        facts["storm"] = {"200": codes.count(200), "503": codes.count(503)}
+        for path, item in (("/programs", "A.8"), ("/trace/start", "A.10")):
+            code, body, _h = http(port, "GET" if path == "/programs" else "POST", path,
+                                  None if path == "/programs" else {})
+            _require(code == 501 and f"ROADMAP {item}" in body["error"],
+                     f"serving: {path} answered {code}: {body}")
+
+        # effectively-once: restore batch 2's revision; the WAL replays 3-4
+        facts["wal_bytes"] = sum(np.asarray(v).nbytes for r in wal._log
+                                 for v in list(r.payload.values()) + [r.timestamps])
+        _require(len(wal) == len(feed) - 2, f"serving: the WAL holds {len(wal)} batches")
+        state_before = rt.snapshot()
+        stores_before = {d: agg_rows(rt, d) for d in AG_DURATIONS}
+        n_d1 = len(cbs["D1Stream"].batches)
+        distinct_scan.launches = 0
+        t0 = time.perf_counter()
+        code, body, _h = http(port, "POST", f"/apps/{name}/restore", {"revision": rev})
+        sync(device)
+        facts["restore_replay_ms"] = (time.perf_counter() - t0) * 1e3
+        launches["SV_replay"] = distinct_scan.launches
+        _require(code == 200, f"serving: restore answered {code}: {body}")
+        _require(launches["SV_replay"] == len(feed) - 2,
+                 f"serving: {launches['SV_replay']} distinct-scan launches in the replay")
+        first = concat_rows(cbs["D1Stream"].batches[2:n_d1])
+        again = concat_rows(cbs["D1Stream"].batches[n_d1:])
+        require_equal(again, first, "serving: D1's replayed rows")
+        require_same_state(state_before, rt, "serving: the state after the replay")
+        _require({d: agg_rows(rt, d) for d in AG_DURATIONS} == stores_before,
+                 "serving: the stores after the replay")
+        d1_rest = cbs["D1Stream"].batches[:n_d1]
+    finally:
+        svc.stop()
+        m.shutdown()
+
+    # D1 without REST, and at statistics 'detail': the same rows, and no
+    # host sync added by the statistics hooks
+    d1_plain, syncs = sv_d1_run(device, feed, detail=False)
+    d1_detail, syncs_detail = sv_d1_run(device, feed, detail=True)
+    require_equal(concat_rows(d1_rest), concat_rows(d1_plain),
+                  "serving: D1 through the front door vs send_columns")
+    require_equal(concat_rows(d1_detail), concat_rows(d1_plain),
+                  "serving: D1 at statistics detail")
+    _require(syncs_detail == syncs, f"serving: {syncs_detail} host syncs a D1 step at "
+             f"statistics detail, {syncs} without")
+    facts["d1_syncs_per_step"] = {"plain": syncs, "detail": syncs_detail}
+    facts["phase_s"] = time.perf_counter() - t_phase
+    print(f"[serving] SV: StockAgg over {SV_SHARDS} shards + the global flagship + D1 "
+          f"behind POST /ingest ({len(feed)} wire frames of {BATCH} rows, "
+          f"{NUM_SYMBOLS} symbols): sharded fold ms a batch "
+          f"{', '.join(f'{x:.0f}' for x in facts['fold_ms'])} (host; unsharded, "
+          f"phase 21: {', '.join(f'{x:.0f}' for x in straight['fold_ms'])}), routing ms "
+          f"{', '.join(f'{x:.1f}' for x in facts['route_ms'])}, decode ms "
+          f"{', '.join(f'{x:.1f}' for x in facts['decode_ms'])}, /ingest ms a frame "
+          f"{', '.join(f'{x:.0f}' for x in facts['ingest_ms'])}; D1 through the front "
+          f"door {facts['d1_eps']:.1f} events/s; {slots} (bucket, group) slots, each on "
+          f"its crc32 owner, merged == phase 21 == the oracle; six finds via /query == "
+          f"phase 21 in ms {', '.join(f'{a} {b:.0f}' for a, b in find_ms.items())}; "
+          f"/query ({SV_CLIENT_FIND}) under {SV_CLIENTS} clients p50 "
+          f"{facts['query_ms']['p50']:.1f} ms p99 {facts['query_ms']['p99']:.1f} ms; "
+          f"fan-out p50 {facts['fanout_ms']['p50']:.2f} ms, merge p50 "
+          f"{facts['merge_ms']['p50']:.1f} ms [{card}]", flush=True)
+    print(f"[serving] shard {SV_SHARDS - 1} rebuilt in {facts['rebuild_ms']:.0f} ms "
+          f"replaying {facts['replayed']} records == before the kill, /query during it "
+          f"200/503 only; storm of {SV_STORM} against a cap of {SV_CAP}: "
+          f"{facts['storm']}; persist {facts['persist_ms']:.0f} ms, restore + replay of "
+          f"{len(feed) - 2} batches {facts['restore_replay_ms']:.0f} ms "
+          f"({facts['wal_bytes']} WAL bytes), D1's replayed rows bit-equal, the state "
+          f"and stores == before the restore; D1 == the no-REST run; host syncs a D1 "
+          f"step {syncs:.2f} without statistics, {syncs_detail:.2f} at detail; the "
+          f"distinct scan == plain on the last frame's call; phase {facts['phase_s']:.1f} s "
+          f"[{card}]", flush=True)
+    return facts, launches, err
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -4839,14 +5295,18 @@ def main() -> int:
     # 20. joins, tables, named windows, on-demand queries, triggers
     joins = phase_joins(device, card)
     # 21. incremental aggregation, then persist -> restore -> continue
-    aggregation, chain = phase_aggregation(device, card)
+    aggregation, chain, straight = phase_aggregation(device, card)
     persistence = phase_persistence(device, feed, routed, unrouted, dist["d1_out"], card)
     persistence["chain"] = chain
     dist["launches"]["P_D1"] = persistence["D1"]["scan_launches"]
     print(f"[persistence] phase 21 in {aggregation['phase_s'] + persistence['phase_s']:.1f} s",
           flush=True)
+    # 22. the serving tier behind its REST front door
+    straight["fold_ms"] = aggregation["fold_ms"]
+    serving, sv_launches, sv_err = phase_serving(device, straight, card)
+    dist["launches"].update(sv_launches)
 
-    # 22. result lines
+    # 23. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
@@ -4875,7 +5335,7 @@ def main() -> int:
         "launches": sum(dist["launches"].values()),
         "launches_by_run": dist["launches"],
         "max_abs_err": max(dist["max_abs_err"], td["max_abs_err"],
-                           pt["max_abs_err"]),
+                           pt["max_abs_err"], sv_err),
         "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "device_ms": d1["device_ms"],
         "device_traces": d1["device_traces"],
@@ -4916,6 +5376,7 @@ def main() -> int:
     print(json.dumps({"joins": joins}))
     print(json.dumps({"persistence": persistence}))
     print(json.dumps({"aggregation": aggregation}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

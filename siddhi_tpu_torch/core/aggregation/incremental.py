@@ -19,18 +19,21 @@ to ``Event`` objects and back; it folds the same rows in the same order.
 ``@PartitionById`` shard mode publishes and stitches partial buckets
 through the app's persistence store (``core/util/persistence.py``).
 
-Left out, because their subsystems are not ported (ROADMAP A.10): the
-device-memory budget gate of the fold (``resilience/overload.py``), and
-the per-granularity bucket-count gauges and flush-latency histogram of
-the telemetry registry. The serving tier's sharded stores
-(``siddhi_tpu.agg_shards`` > 1) are ROADMAP A.7(c): the app runtime
-refuses that key by name.
+Each runtime registers per-granularity bucket-count gauges and a
+fold-latency histogram (``aggregation.<id>.flush_ms``) on the app's
+telemetry registry. The serving tier's sharded stores
+(``siddhi_tpu.agg_shards`` > 1, ``serving/sharded_aggregation.py``)
+subclass this runtime: one rollup program, the state split by key.
+
+Left out, because its subsystem is not ported (ROADMAP A.10): the
+device-memory budget gate of the fold (``resilience/overload.py``).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -328,6 +331,23 @@ class IncrementalAggregationRuntime(Receiver):
                     f"configured 'shardId' property")
             self.shard_id = cfg
 
+        # /metrics: per-granularity bucket-count gauges and a fold-latency
+        # histogram, on the app's always-on telemetry registry (the sharded
+        # serving runtime is scraped the same way)
+        self._flush_hist = None
+        tel = getattr(app_context, "telemetry", None)
+        if tel is not None:
+            aid = definition.id
+            for d in self.durations:
+                tel.gauge(f"aggregation.{aid}.{d.value}.buckets",
+                          lambda d=d: self._bucket_count(d))
+            self._flush_hist = tel.histogram(f"aggregation.{aid}.flush_ms")
+
+    def _bucket_count(self, duration: Duration) -> int:
+        """Live bucket count for one granularity (telemetry gauge); the
+        sharded serving runtime sums its shards."""
+        return len(self.store.get(duration, ()))
+
     def purge(self, now: Optional[int] = None) -> int:
         """Drop buckets older than each duration's retention; returns the
         number of purged buckets (reference IncrementalDataPurger run)."""
@@ -404,8 +424,11 @@ class IncrementalAggregationRuntime(Receiver):
         prep = self._prepare_batch(cols)
         if prep is None:
             return
+        t0 = time.perf_counter()
         with self._lock:
             self._fold_rows(self, prep, prep["idx"])
+        if self._flush_hist is not None:
+            self._flush_hist.record((time.perf_counter() - t0) * 1000.0)
 
     def _prepare_batch(self, cols) -> Optional[dict]:
         """Run the compiled rollup program over one batch's host columns:
@@ -482,27 +505,44 @@ class IncrementalAggregationRuntime(Receiver):
             "base_vals": base_vals,
             "base_null": base_null,
             "buckets": {d: bucket_starts(tsv, d) for d in self.durations},
+            # the host columns the program read (the sharded runtime's
+            # per-shard WAL records its rows of them)
+            "cols": cols,
         }
+
+    def _host_lists(self, prep: dict) -> dict:
+        """The prepared columns as Python lists (``tolist`` gives the values
+        ``.item()`` gives), made once a batch: the sharded runtime folds
+        one batch into several shards."""
+        lists = prep.get("lists")
+        if lists is None:
+            base_keys = list(self.bases)
+            lists = prep["lists"] = {
+                "tsv": prep["tsv"].tolist(),
+                "vals": [prep["base_vals"][k].tolist() for k in base_keys],
+                "nulls": [None if prep["base_null"][k] is None
+                          else prep["base_null"][k].tolist() for k in base_keys],
+                "buckets": {d: prep["buckets"][d].tolist() for d in self.durations},
+            }
+        return lists
 
     def _fold_rows(self, holder, prep: dict, rows) -> None:
         """Fold prepared rows into ``holder``'s bucket stores (``store``,
-        ``_dirty``, ``_deleted``); the caller holds the holder's lock. Row
-        by row and base by base in arrival order, as the reference folds
-        (``_fold_rows_inner``); the columns are read as Python lists once
-        (``tolist`` gives the values ``.item()`` gives)."""
+        ``_dirty``, ``_deleted``: this runtime, or one ``AggregationShard``
+        of the serving tier); the caller holds the holder's lock. Row by
+        row and base by base in arrival order, as the reference folds
+        (``_fold_rows_inner``)."""
         base_keys = list(self.bases)
         kinds = [self.bases[k].kind for k in base_keys]
         folds = [self.bases[k].fold for k in base_keys]
-        tsv = prep["tsv"].tolist()
-        vals = [prep["base_vals"][k].tolist() for k in base_keys]
-        nulls = [None if prep["base_null"][k] is None
-                 else prep["base_null"][k].tolist() for k in base_keys]
+        lists = self._host_lists(prep)
+        tsv, vals, nulls = lists["tsv"], lists["vals"], lists["nulls"]
         group_tuples = prep["group_tuples"]
         rows = [int(i) for i in rows]
         nb = len(base_keys)
         dirty, deleted = holder._dirty, holder._deleted
         for d in self.durations:
-            buckets = prep["buckets"][d].tolist()
+            buckets = lists["buckets"][d]
             # setdefault: a restore may have replaced the store with a
             # snapshot keeping fewer granularities — ingest re-creates
             # the declared ones rather than crashing

@@ -17,10 +17,12 @@ pack pool, the ``siddhi_tpu.*`` config knobs, incremental aggregations
 (``define aggregation``, with their ``@purge`` schedule), and the
 persistence API (``persist``, ``persist_incremental``,
 ``restore_revision``, ``restore_last_revision``, ``clear_all_revisions``,
-``snapshot``, ``restore``: ``core/util/snapshot.py``). The serving tier's
-sharded aggregation stores (``siddhi_tpu.agg_shards`` > 1) are not ported
-yet and raise ``CompileError`` naming themselves, so an app never runs
-with a part silently missing.
+``snapshot``, ``restore``: ``core/util/snapshot.py``), the serving
+tier's sharded aggregation stores (``siddhi_tpu.agg_shards`` > 1,
+``serving/``), ``@app:statistics`` (``statistics()``,
+``set_statistics_level``, the console reporter), ``@app:enforceOrder``
+and the ingest WAL (``enable_wal``). What the port lacks raises naming
+itself, so an app never runs with a part silently missing.
 
 The app starts at ``start()`` or at its first send: @Async workers, the
 ingest pool, rate limiters, sinks' connections and sources (each
@@ -196,6 +198,14 @@ class SiddhiAppRuntime:
                 self.app_context.timestamp_generator.configure_heartbeat(
                     _parse_playback_time(idle_s, "idle.time"),
                     _parse_playback_time(inc_s, "increment"))
+        if siddhi_app.app_annotation("enforceOrder") is not None:
+            self.app_context.enforce_order = True
+        if siddhi_app.app_annotation("async") is not None:
+            # reference SiddhiAppParser.java:105-111: @Async is a stream
+            # annotation; the app-level form fails creation
+            raise SiddhiAppValidationException(
+                "@Async not supported in SiddhiApp level, instead use "
+                "@Async with streams")
         prec = siddhi_app.app_annotation("precision")
         if prec is not None:
             v = (prec.element() or "").lower()
@@ -204,6 +214,7 @@ class SiddhiAppRuntime:
                     "@app:precision must be 'exact' or 'fast'")
             self.app_context.precision = v
         self.app_context.scheduler = Scheduler(self.app_context)
+        self._configure_statistics(siddhi_app)
 
         # deployment config: every siddhi_tpu.* key resolves through the
         # typed knob registry (junk spellings raise naming the key)
@@ -259,6 +270,22 @@ class SiddhiAppRuntime:
 
     # ------------------------------------------------------------ assembly
 
+    def _configure_statistics(self, siddhi_app: SiddhiApp) -> None:
+        """``@app:statistics('true')`` or ``@app:statistics(level='detail',
+        reporter='console', interval='5 sec')`` (reference
+        SiddhiStatisticsManager wiring)."""
+        ann = siddhi_app.app_annotation("statistics")
+        if ann is None:
+            return
+        from siddhi_tpu_torch.core.aggregation.incremental import _parse_time_str
+        from siddhi_tpu_torch.core.util.statistics import StatisticsManager, parse_level
+
+        interval = ann.element("interval")
+        self.app_context.statistics_manager = StatisticsManager(
+            level=parse_level(ann.element("level") or ann.element()),
+            reporter=ann.element("reporter"),
+            interval_ms=_parse_time_str(interval) if interval else 60_000)
+
     def _define_stores(self, siddhi_app: SiddhiApp, siddhi_context) -> None:
         """Tables, named windows and triggers (the reference's
         defineTable/defineWindow/defineTrigger at app assembly)."""
@@ -303,9 +330,9 @@ class SiddhiAppRuntime:
         """Incremental aggregations (reference AggregationParser and
         AggregationRuntime), each subscribed to its input junction.
         ``siddhi_tpu.agg_shards`` > 1 selects the serving tier's sharded
-        stores, which are not ported: that raises instead of running
-        unsharded. ``@PartitionById`` keeps the store-stitched shard mode,
-        as in the reference."""
+        stores (``serving/sharded_aggregation.py``); ``@PartitionById``
+        (annotation or system property) keeps the store-stitched shard
+        mode, as in the reference."""
         from siddhi_tpu_torch.core.aggregation import IncrementalAggregationRuntime
 
         ctx = self.app_context
@@ -317,13 +344,14 @@ class SiddhiAppRuntime:
         for aid, adef in siddhi_app.aggregation_definitions.items():
             pbi = find_annotation(adef.annotations or [], "PartitionById")
             if n_shards > 1 and pbi is None and not sys_pbi:
-                raise CompileError(
-                    f"aggregation '{aid}': siddhi_tpu.agg_shards = {n_shards} "
-                    f"selects the serving tier's sharded aggregation stores, "
-                    f"which are not ported to siddhi_tpu_torch yet "
-                    f"(ROADMAP A.7(c))")
-            agg = IncrementalAggregationRuntime(
-                adef, ctx, ctx.string_dictionary, self.stream_definitions)
+                from siddhi_tpu_torch.serving import ShardedIncrementalAggregation
+
+                agg = ShardedIncrementalAggregation(
+                    adef, ctx, ctx.string_dictionary, self.stream_definitions,
+                    n_shards=n_shards, wal_batches=ctx.agg_shard_wal or None)
+            else:
+                agg = IncrementalAggregationRuntime(
+                    adef, ctx, ctx.string_dictionary, self.stream_definitions)
             self.junctions[agg.input_stream_id].subscribe(agg)
             self.aggregations[aid] = agg
         ctx.aggregations = self.aggregations
@@ -359,6 +387,11 @@ class SiddhiAppRuntime:
         anns = sdef.annotations or []
         async_ann = find_annotation(anns, "async")
         if async_ann is not None:
+            if self.app_context.enforce_order:
+                raise SiddhiAppValidationException(
+                    f"@app:enforceOrder is incompatible with @Async on "
+                    f"stream '{sdef.id}': async buffering can interleave "
+                    f"producer batches out of timestamp order")
             max_delay = async_ann.element("max.delay")
             latency_target = async_ann.element("latency.target")
             j.enable_async(
@@ -796,6 +829,91 @@ class SiddhiAppRuntime:
         with self._barrier:
             SnapshotService(self).restore(snapshot)
 
+    # ------------------------------------------------------ statistics API
+
+    def _register_statistic_probes(self):
+        """DETAIL memory and buffered-events probes for every stateful
+        element (reference ``monitorQueryMemoryUsage:757-782`` and
+        ``monitorBufferedEvents:784-821``): a query's state tensors, a
+        table's or named window's, an aggregation's host stores, an
+        @Async junction's queue. Idempotent: probes are keyed by name."""
+        from siddhi_tpu_torch.core.util.statistics import pytree_nbytes
+
+        sm = self.app_context.statistics_manager
+        if sm is None:
+            return
+        # probe sets change only when runtimes are built: a statistics()
+        # polling loop must not rebuild closures per poll
+        sig = (len(self.query_runtimes), len(self.tables),
+               len(self.named_windows), len(self.aggregations),
+               len(self.junctions))
+        if getattr(self, "_probe_sig", None) == sig:
+            return
+        self._probe_sig = sig
+        for name, qr in self.query_runtimes.items():
+            sm.register_memory_probe(
+                f"query.{name}", lambda q=qr: pytree_nbytes(q._state))
+        for name, t in self.tables.items():
+            sm.register_memory_probe(
+                f"table.{name}", lambda tb=t: _element_state_bytes(tb))
+        for name, w in self.named_windows.items():
+            sm.register_memory_probe(
+                f"window.{name}", lambda win=w: _element_state_bytes(win))
+        for name, agg in self.aggregations.items():
+            sm.register_memory_probe(
+                f"aggregation.{name}", lambda a=agg: _agg_store_bytes(a))
+        for sid, j in self.junctions.items():
+            if getattr(j, "_queue", None) is not None:
+                sm.register_buffer_probe(
+                    f"junction.{sid}", lambda jn=j: jn._queue.qsize())
+
+    def statistics(self) -> dict:
+        """Metrics snapshot (reference SiddhiAppRuntime.getStatistics)."""
+        sm = self.app_context.statistics_manager
+        if sm is None:
+            return {"level": "off"}
+        self._register_statistic_probes()   # cover late-built runtimes
+        return sm.report()
+
+    def set_statistics_level(self, level: str):
+        """'off' | 'basic' | 'detail' (reference setStatisticsLevel)."""
+        from siddhi_tpu_torch.core.util.statistics import StatisticsManager, parse_level
+
+        if self.app_context.statistics_manager is None:
+            self.app_context.statistics_manager = StatisticsManager()
+        self.app_context.statistics_manager.set_level(parse_level(level))
+        self._register_statistic_probes()
+
+    setStatisticsLevel = set_statistics_level
+
+    def start_trace(self, log_dir: str):
+        """The reference's device-level profiler trace: ROADMAP A.10 (the
+        instruments move to CUDA events and the torch profiler there)."""
+        raise NotImplementedError(
+            "SiddhiAppRuntime.start_trace: the device profiler trace is "
+            "not ported to siddhi_tpu_torch yet (ROADMAP A.10)")
+
+    def stop_trace(self):
+        raise NotImplementedError(
+            "SiddhiAppRuntime.stop_trace: the device profiler trace is "
+            "not ported to siddhi_tpu_torch yet (ROADMAP A.10)")
+
+    # ------------------------------------------------------ resilience API
+
+    def enable_wal(self, max_batches: int = 4096, max_events=None):
+        """Attach a bounded ingest WAL (``resilience/replay.py``): every
+        accepted batch is recorded until the next checkpoint trims it, and
+        ``restore_revision`` replays the retained suffix, so a checkpoint
+        restore is effectively-once. Idempotent; returns the WAL."""
+        from siddhi_tpu_torch.resilience.replay import IngestWAL, register_wal_gauges
+
+        if self.app_context.ingest_wal is None:
+            self.app_context.ingest_wal = IngestWAL(
+                max_batches=max_batches, max_events=max_events,
+                app_context=self.app_context)
+        register_wal_gauges(self.app_context)
+        return self.app_context.ingest_wal
+
     def start(self):
         """Start @Async workers, the ingest pool, sinks and sources, table
         cache sweeps and triggers (also done by the first send)."""
@@ -820,6 +938,9 @@ class SiddhiAppRuntime:
                 if agg.purge_enabled:
                     ctx.scheduler.schedule_periodic(
                         agg.purge_interval_ms, lambda ts, a=agg: a.purge(ts))
+            if ctx.statistics_manager is not None:
+                ctx.statistics_manager.start_reporting(ctx.scheduler)
+                self._register_statistic_probes()
             for pctx in self.partition_contexts:
                 if pctx.purge_interval_ms is not None:
                     ctx.scheduler.schedule_periodic(
@@ -852,6 +973,8 @@ class SiddhiAppRuntime:
             except RuntimeError:
                 logging.getLogger(__name__).exception(
                     "pipeline flush failed during shutdown")
+        if ctx.statistics_manager is not None:
+            ctx.statistics_manager.stop_reporting(ctx.scheduler)
         for sr in self.source_runtimes:
             sr.shutdown()
         for tr in self.trigger_runtimes:
@@ -879,3 +1002,29 @@ class SiddhiAppRuntime:
                     q._state = None
                     q._step = None
                     q._staging = None
+
+
+def _element_state_bytes(el) -> int:
+    """State footprint of a table or named window: its state tensors, or a
+    host-mode window's stage snapshot."""
+    from siddhi_tpu_torch.core.util.statistics import pytree_nbytes
+
+    st = getattr(el, "state", None)
+    if st is not None:
+        return pytree_nbytes(st)
+    stage = getattr(el, "stage", None)
+    if stage is not None and hasattr(stage, "snapshot"):
+        return pytree_nbytes(stage.snapshot())
+    return 0
+
+
+def _agg_store_bytes(agg) -> int:
+    """State footprint of an incremental aggregation: its stored base
+    values, 8 bytes each (the sharded runtime's in its shards)."""
+    total = 0
+    for holder in (getattr(agg, "shards", None) or [agg]):
+        for dstore in getattr(holder, "store", {}).values():
+            for groups in dstore.values():
+                for vals in groups.values():
+                    total += 8 * len(vals)
+    return total

@@ -1,7 +1,10 @@
 """Per-manager and per-app contexts threaded through the runtime.
 
 Counterpart of ``siddhi_tpu/core/context.py``. The app context holds the
-``torch.device`` every state tensor and step of the app lives on.
+``torch.device`` every state tensor and step of the app lives on, the
+app's always-on telemetry registry (``observability/telemetry.py``), its
+``StatisticsManager`` under ``@app:statistics`` and its ingest WAL once
+``SiddhiAppRuntime.enable_wal`` attaches one.
 """
 
 from __future__ import annotations
@@ -144,6 +147,20 @@ class SiddhiAppContext:
         self.scheduler = None
         self.string_dictionary = StringDictionary()
         self.stopped = False
+        # @app:statistics (core/util/statistics.py); None = not collected
+        self.statistics_manager = None
+        # always-on telemetry registry (observability/telemetry.py):
+        # gauges, counters and histograms scraped by GET /metrics, apart
+        # from statistics_manager, which exists under @app:statistics only
+        from siddhi_tpu_torch.observability.telemetry import TelemetryRegistry
+
+        self.telemetry = TelemetryRegistry()
+        # @app:enforceOrder: a send behind a stream's watermark raises
+        # (core/stream/input/input_handler.py)
+        self.enforce_order = False
+        # the bounded ingest replay log (resilience/replay.py), attached
+        # by SiddhiAppRuntime.enable_wal
+        self.ingest_wal = None
         # key-capacity default for dense state (padded, grows pow2)
         self.initial_key_capacity = 16
         # ring capacity of the unbounded (time and batch) windows; a ring
@@ -181,9 +198,13 @@ class SiddhiAppContext:
         # exchange transport of device-routed queries; on one card both
         # values run the ring_exchange kernel (parallel/mesh.py)
         self.shard_exchange = "all_to_all"
-        # siddhi_tpu.agg_shards > 1 selects the serving tier's sharded
-        # aggregation stores (ROADMAP A.7(c)), which the port refuses
+        # siddhi_tpu.agg_shards > 1 key-partitions every incremental
+        # aggregation's bucket stores across that many in-process shards
+        # (serving/sharded_aggregation.py); @PartitionById aggregations
+        # keep the single-store runtime. siddhi_tpu.agg_shard_wal bounds
+        # each shard's WAL in batches (0 = no shard WALs)
         self.agg_shards = 1
+        self.agg_shard_wal = 1024
         # value slots per group of a distinctCount/unionSet table
         self.distinct_values_capacity = 64
         # match slots per key of a pattern/sequence query (ops/nfa.py);

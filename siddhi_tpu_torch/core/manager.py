@@ -48,6 +48,10 @@ class SiddhiManager:
         self.app_runtimes[runtime.name] = runtime
         return runtime
 
+    def get_siddhi_app_runtime(self, name: str):
+        """The deployed app of that name, or None."""
+        return self.app_runtimes.get(name)
+
     def set_config_manager(self, config_manager):
         self.siddhi_context.config_manager = config_manager
 

@@ -817,6 +817,10 @@ class JoinQueryRuntime(QueryRuntime):
         if self.keyer is None:
             return super()._finish_device_batch(step, cols, overflow_msg)
         # the split (host-keyed) path: synchronous
+        from siddhi_tpu_torch.core.util.statistics import latency_t0, record_elapsed_ms
+
+        sm = self.app_context.statistics_manager
+        t0 = latency_t0(sm)
         now = self._now()
         self._state, out = step(self._state, self._to_device(cols), now)
         out_host = LazyColumns(out)
@@ -826,6 +830,7 @@ class JoinQueryRuntime(QueryRuntime):
             raise FatalQueryError(
                 f"query '{self.name}': {self.overflow_knob_msg(int(meta[0]))} "
                 f"before creating the runtime")
+        record_elapsed_ms(sm, self.name, t0)
         size = int(meta[2])
         if size > 0:
             out_host, size = self._host_keyed_select(out_host)

@@ -340,6 +340,10 @@ class NFAQueryRuntime(QueryRuntime):
         its packed meta (overflow, notify, count) in one copy, raise on a
         slot overflow and emit. With a group-by keyer over captures the
         emission is keyed on the host and the selector runs after."""
+        from siddhi_tpu_torch.core.util.statistics import latency_t0, record_elapsed_ms
+
+        sm = self.app_context.statistics_manager
+        t0 = latency_t0(sm)
         self._state, out = run()
         out_host = LazyColumns(out)
         pump = self.app_context.completion_pump
@@ -347,6 +351,7 @@ class NFAQueryRuntime(QueryRuntime):
             # pipelined dispatch (completion.py): waitish plans are
             # eligible too, the pump hands __notify__ over at drain
             meta, event = stage_meta(dict.pop(out_host, "__meta__"))
+            record_elapsed_ms(sm, self.name, t0)
             pump.submit(QueryCompletion(
                 self, out_host, meta, event, _SLOTS_MSG,
                 junction=self._cur_junction, batch=self._cur_fault_batch))
@@ -356,6 +361,7 @@ class NFAQueryRuntime(QueryRuntime):
         if overflow > 0:
             raise FatalQueryError(
                 f"query '{self.name}': {_SLOTS_MSG} before creating the runtime")
+        record_elapsed_ms(sm, self.name, t0)
         if self.keyer is not None and size > 0:
             out_host, size = self._host_keyed_select(out_host)
         self._emit(HostBatch(out_host, size=size))

@@ -62,6 +62,7 @@ from siddhi_tpu_torch.core.event import (
     encode_key_tuples, pack_pool_of)
 from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY, STR_RANK, SelectorPlan
 from siddhi_tpu_torch.core.query.completion import QueryCompletion, stage_meta
+from siddhi_tpu_torch.core.util.statistics import latency_t0, record_elapsed_ms
 from siddhi_tpu_torch.core.stream.junction import (
     FatalQueryError, Receiver, current_delivering_junction)
 from siddhi_tpu_torch.ops.expressions import (
@@ -671,6 +672,8 @@ class QueryRuntime(Receiver):
         overflow lane: a join decodes its bitmask into the knob to raise."""
         if overflow_msg is None:
             overflow_msg = self.overflow_knob_msg()
+        sm = self.app_context.statistics_manager
+        t0 = latency_t0(sm)
         now = self._now()
         if self.selector_plan.needs_str_rank:
             # string order-by keys sort by lexicographic rank, not by id
@@ -681,6 +684,8 @@ class QueryRuntime(Receiver):
         pump = self.app_context.completion_pump
         if pump.depth > 1 and self._now_override is None and self._pipeline_ok:
             meta, event = stage_meta(dict.pop(out_host, "__meta__"))
+            # the dispatch's latency: the host never waits on the step
+            record_elapsed_ms(sm, self.name, t0)
             pump.submit(QueryCompletion(
                 self, out_host, meta, event, overflow_msg,
                 junction=self._cur_junction, batch=self._cur_fault_batch))
@@ -691,6 +696,7 @@ class QueryRuntime(Receiver):
             msg = overflow_msg(int(meta[0])) if callable(overflow_msg) else overflow_msg
             raise FatalQueryError(
                 f"query '{self.name}': {msg} before creating the runtime")
+        record_elapsed_ms(sm, self.name, t0)
         if self._timer_horizon is not None and int(meta[2]) > 0:
             for chunk in _chain_chunks(out_host):
                 self._emit(chunk)

@@ -21,8 +21,11 @@ runtimes, stream callbacks, sinks) gets them in subscription order.
   always reach the sender, and on an ``@Async`` junction a stored fatal
   error re-raises on every later send.
 
-The reference's overload quotas, ingest WAL, journey tracing, telemetry
-gauges and supervisor hooks are not ported yet (ROADMAP A.10).
+Under ``@app:statistics`` each publish counts its events on the stream's
+throughput tracker, and each @Async delivery's latency lands in the
+``junction.<stream>`` tracker. The reference's overload quotas (with the
+WAL record discards of shed batches), journey tracing, telemetry gauges
+and supervisor hooks are not ported yet (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -172,9 +175,15 @@ class StreamJunction:
 
     # ----------------------------------------------------------- sending
 
+    def _count_throughput(self, n: int):
+        sm = self.app_context.statistics_manager
+        if sm is not None and sm.level >= 1:
+            sm.throughput_tracker(self.definition.id).add(n)
+
     def send_events(self, events: List[Event]):
         if not events:
             return
+        self._count_throughput(len(events))
         if self._fatal is not None:
             # the async worker died on a framework failure: surface it to
             # the producer instead of blocking on a queue nobody drains
@@ -190,6 +199,7 @@ class StreamJunction:
     def send_batch(self, batch):
         """Columnar publish (no Event objects), delivered as one unit;
         @Async junctions enqueue it behind pending event chunks."""
+        self._count_throughput(int(batch.size))
         if self._fatal is not None:
             raise self._fatal
         if self._async and self._running:
@@ -276,7 +286,12 @@ class StreamJunction:
 
     def _adapt(self, elapsed_ms: float):
         """latency.target control loop: average the delivery latency,
-        halve the cap on overshoot, regrow it under half the target."""
+        halve the cap on overshoot, regrow it under half the target. Every
+        @Async delivery's latency also lands in the junction's statistics
+        tracker."""
+        sm = self.app_context.statistics_manager
+        if sm is not None and sm.level >= 1:
+            sm.latency_tracker(f"junction.{self.definition.id}").record(elapsed_ms)
         target = self._latency_target_ms
         if target is None:
             return

@@ -27,10 +27,16 @@ Two rules keep revisions portable and loading them safe:
 numpy onto the runtime's device (never torch's default). Each service
 counts the bytes it moved (``d2h_bytes``, ``h2d_bytes``).
 
+With an ingest WAL attached (``SiddhiAppRuntime.enable_wal``), ``persist``
+drains the @Async queues and cuts the WAL inside the barrier, and trims it
+once the revision is saved; ``restore_revision`` replays the retained
+suffix unless the restored revision precedes the WAL's checkpoint (the
+stale-revision rule). Under ``@app:statistics`` a persist's latency lands
+in the ``snapshot.persist`` tracker.
+
 Left out, each waiting for its subsystem: the multi-process allgather of
-``_to_host`` (ROADMAP A.9); the ``persist`` span, the statistics
-manager's persist latency and the ingest WAL's cut, trim and replay
-(A.10); the fused fan-out groups' ``on_restore`` (A.8).
+``_to_host`` (ROADMAP A.9); the ``persist`` span (A.10); the fused fan-out
+groups' ``on_restore`` (A.8).
 """
 
 from __future__ import annotations
@@ -524,21 +530,38 @@ class PersistenceManager:
     def persist(self, incremental: bool = False) -> str:
         """A full checkpoint, or (``incremental=True``, after a full one)
         an op-log delta chained to the previous revision."""
+        t_start = time.perf_counter()
         rt = self.app_runtime
         store = self._store()
+        wal = rt.app_context.ingest_wal
         with rt._barrier:   # quiesce inputs (ThreadBarrier)
-            self._drain_async_junctions()
+            # accepted-but-queued @Async batches are applied before the
+            # capture, or the WAL cut below would cover them unapplied
+            drained = self._drain_async_junctions()
             if incremental and self._last_revision is not None:
                 data = self.snapshot_service.incremental_snapshot(self._last_revision)
             else:
                 data = self.snapshot_service.full_snapshot()
+            # the cut marks what this snapshot covers; the trim waits for
+            # the save, so a batch accepted after the barrier releases
+            # survives in the log
+            wal_cut = wal.cut() if (wal is not None and drained) else None
         # sortable: ms prefix, then a process-monotonic counter
         revision = (f"{int(time.time() * 1000):020d}_"
                     f"{next(self._seq):06d}_{rt.name}")
         store.save(rt.name, revision, data)
-        # only once the save is done: clear the op logs
+        # only once the save is done: clear the op logs, trim the WAL
         self.snapshot_service.mark_checkpoint()
+        if wal_cut is not None:
+            wal.trim(wal_cut)
+            wal.checkpoint_revision = revision
         self._last_revision = revision
+        sm = rt.app_context.statistics_manager
+        if sm is not None and sm.level >= 1:
+            # a checkpoint stalls ingest for its whole capture: its tail
+            # belongs beside the queries'
+            sm.latency_tracker("snapshot.persist").record(
+                (time.perf_counter() - t_start) * 1000.0)
         return revision
 
     def persist_incremental(self) -> str:
@@ -566,6 +589,22 @@ class PersistenceManager:
             # replayed state must not re-enter the next delta's op log
             svc.mark_checkpoint()
         self._last_revision = revision
+        # effectively-once: re-feed the post-checkpoint ingest suffix in
+        # arrival order, outside the barrier (replay sends re-enter it).
+        # The suffix follows wal.checkpoint_revision: grafted onto an older
+        # revision it would miss the middle, so that case skips the replay
+        # and keeps the log. Revisions sort by their ms prefix
+        wal = rt.app_context.ingest_wal
+        if wal is not None and len(wal):
+            if (wal.checkpoint_revision is None
+                    or revision >= wal.checkpoint_revision):
+                wal.replay(rt)
+            else:
+                log.warning(
+                    "ingest-WAL replay skipped: restored revision %s "
+                    "precedes the WAL's checkpoint %s — the retained "
+                    "suffix does not follow this base",
+                    revision, wal.checkpoint_revision)
 
     def restore_last_revision(self) -> Optional[str]:
         rt = self.app_runtime

@@ -1,20 +1,25 @@
-"""Resilience helpers the port's transports need.
+"""Resilience: the shared retry policy, the ingest WAL and ``stat_count``.
 
-Counterpart of the parts of ``siddhi_tpu/resilience/`` that sources and
-sinks use: the shared backoff policy (``retry.RetryPolicy``) and
-``stat_count``. The supervisor, the ingest WAL, fault injection and
-overload control are not ported yet (ROADMAP A.10).
+Counterpart of the parts of ``siddhi_tpu/resilience/`` the port runs:
+the backoff policy of sources and sinks (``retry.RetryPolicy``), the
+bounded ingest replay log (``replay.IngestWAL``: recorded at the
+``InputHandler``, trimmed at every checkpoint, replayed after
+``restore_revision``; the serving tier's per-shard logs) and
+``stat_count``. The supervisor, fault injection and overload control are
+ROADMAP A.10.
 """
 
+from siddhi_tpu_torch.resilience.replay import IngestWAL, register_wal_gauges
 from siddhi_tpu_torch.resilience.retry import RetryExhausted, RetryPolicy
 
-__all__ = ["RetryExhausted", "RetryPolicy", "stat_count"]
+__all__ = ["IngestWAL", "RetryExhausted", "RetryPolicy", "register_wal_gauges",
+           "stat_count"]
 
 
 def stat_count(app_context, name: str, n: int = 1) -> None:
-    """Bump a recovery counter on the app's StatisticsManager; a no-op
-    when statistics are not configured, as in the reference. The port has
-    no StatisticsManager yet (ROADMAP A.10), so every call is that case."""
+    """Bump a recovery counter on the app's StatisticsManager (a no-op
+    when statistics are not configured). Resilience events are rare and
+    operationally load-bearing, so they count at every level above OFF."""
     sm = getattr(app_context, "statistics_manager", None)
     if sm is not None and getattr(sm, "level", 0) > 0:
         sm.count(name, n)

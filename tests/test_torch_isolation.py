@@ -49,7 +49,9 @@ def test_port_imports_and_runs_with_jax_unimportable():
     CPU, and a playback app with a join (the partitioned engine's step), a
     table fed by ``update or insert into`` and probed by ``in`` and a
     join, a named window, an ``every`` trigger and on-demand finds, and
-    answers them."""
+    answers them; the serving tier, the REST service, statistics, the WAL,
+    metrics export and the utils import too, and a sharded aggregation
+    under ``@app:statistics`` with a WAL runs and is scraped."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -62,6 +64,14 @@ from siddhi_tpu_torch.extension import ScalarFunction
 from siddhi_tpu_torch.ops.distinct import distinct_scan, distinct_scan_plain
 from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 from siddhi_tpu_torch.query_api.definitions import AttrType
+from siddhi_tpu_torch.core.util.statistics import StatisticsManager
+from siddhi_tpu_torch.observability import export
+from siddhi_tpu_torch.resilience import IngestWAL
+from siddhi_tpu_torch.service import SiddhiRestService
+from siddhi_tpu_torch.serving import ShardedIncrementalAggregation
+from siddhi_tpu_torch.serving.cluster_gather import gather_query_rows
+from siddhi_tpu_torch.utils.docgen import generate_docs
+from siddhi_tpu_torch.utils.event_printer import print_events
 APP = '''
 define stream StockStream (symbol string, price float, volume long);
 partition with (symbol of StockStream)
@@ -176,6 +186,16 @@ assert outs["J"].rows == [["a", 1, 5]], outs["J"].rows
 assert outs["TJ"].rows == [["a", 5]], outs["TJ"].rows
 assert outs["TT"].rows == [[2000]], outs["TT"].rows
 assert [e.data for e in found] == [["a", 5]] and len(wrows) == 2
+sm = SiddhiManager(device="cpu")
+sm.set_config_manager(siddhi_tpu_torch.InMemoryConfigManager({{"siddhi_tpu.agg_shards": "2"}}))
+srt = sm.create_siddhi_app_runtime("@app:statistics('true') define stream S (k string, v long); "
+    "define aggregation A from S select k, sum(v) as t group by k aggregate every sec ... min;")
+srt.enable_wal()
+srt.get_input_handler("S").send(["a", 1])
+assert isinstance(srt.aggregations["A"], ShardedIncrementalAggregation)
+assert "siddhi_aggregation_shards" in export.prometheus_text(sm)
+assert srt.statistics()["throughput"]["S"]["events"] == 1
+sm.shutdown()
 assert "jax" not in {{k for k, v in sys.modules.items() if v is not None}}
 print("OK")
 """
@@ -195,13 +215,15 @@ def test_manager_without_device_chooses_cuda():
 
 
 def test_unported_constructs_are_named_not_skipped():
-    """What the port still refuses raises a ``CompileError`` naming it:
-    the serving tier's sharded aggregation stores (``siddhi_tpu.agg_shards``
-    > 1, ROADMAP A.7(c)), and a join routed over a mesh (A.9). Incremental
-    aggregations and joins against them run."""
+    """What the port still refuses raises naming its ROADMAP item: a join
+    routed over a mesh (A.9), the device profiler trace (A.10).
+    Incremental aggregations, joins against them and the serving tier's
+    sharded aggregation stores (``siddhi_tpu.agg_shards`` > 1, ported in
+    A.7(c)) build."""
     from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.ops.expressions import CompileError
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+    from siddhi_tpu_torch.serving import ShardedIncrementalAggregation
 
     agg = ("define stream S (a int, b long); define aggregation Agg from S "
            "select a, sum(b) as t group by a aggregate every sec ... min; ")
@@ -211,8 +233,11 @@ def test_unported_constructs_are_named_not_skipped():
     m.create_siddhi_app_runtime(join)       # builds: A.7 (a) is ported
     sharded = SiddhiManager(device="cpu")
     sharded.set_config_manager(InMemoryConfigManager({"siddhi_tpu.agg_shards": "4"}))
-    with pytest.raises(CompileError, match=r"agg_shards = 4.*ROADMAP A\.7\(c\)"):
-        sharded.create_siddhi_app_runtime(agg)
+    srt = sharded.create_siddhi_app_runtime(agg)
+    assert isinstance(srt.aggregations["Agg"], ShardedIncrementalAggregation)
+    assert srt.aggregations["Agg"].n_shards == 4
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
+        srt.start_trace("trace")
     rt = m.create_siddhi_app_runtime(
         "define stream L (k string, v long); define stream R (k string, v long); "
         "partition with (k of L, k of R) begin @info(name='j') "

@@ -412,7 +412,9 @@ def port_corpus(name, unported=()):
 
     def rebind(m):
         mod = m.group(1)
-        if os.path.exists(os.path.join(port_root, *mod.split(".")) + ".py"):
+        path = os.path.join(port_root, *mod.split("."))
+        if os.path.exists(path + ".py") or os.path.exists(
+                os.path.join(path, "__init__.py")):
             return f"from siddhi_tpu_torch.{mod} import"
         return m.group(0)
 
