@@ -242,14 +242,15 @@ Phases (any failure exits non-zero and prints no result line):
             ``crc32(repr((id,))) % 4`` names, the merged stores == phase
             21's unsharded stores == the numpy oracle; the six finds via
             ``POST /query`` == phase 21's; each shard's device view on the
-            card, cached until the next fold, == its rows; one
-            distinct-scan launch a frame, the kernel == plain on the last
-            frame's call, D1 == a run fed by ``send_columns`` without
-            REST; ``checkpoint_shards`` after batch 2, after batch 4 a
+            card, cached until the next fold, == its rows; the flagship
+            and D1 fuse into one captured fan-out group: one
+            distinct-scan launch a frame (replayed) and one a capture's
+            warm-up, the scan in the graph == plain on the last frame's
+            call, D1 == a run fed by ``send_columns`` without REST; ``checkpoint_shards`` after batch 2, after batch 4 a
             shard killed and rebuilt from its blob and WAL suffix (2
             records) == before the kill while four clients query (200 or
             503 only); ``POST /persist`` after batch 2, ``/restore`` after
-            batch 4: the WAL replays batches 3-4, D1's rows bit-equal to
+            batch 4 (the graph re-captured once): the WAL replays batches 3-4, D1's rows bit-equal to
             the first pass, the state and stores == before the restore; a
             storm of 10 clients against the cap with shard 0 gated: 503s
             with ``"shed": true``, no 500, ``/metrics`` counting them and
@@ -261,12 +262,39 @@ Phases (any failure exits non-zero and prints no result line):
             fan-out and merge ms, rebuild, persist and restore-plus-replay
             ms, WAL bytes, D1 events/s through the front door and the
             card's busy share over one frame;
-23. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+23. fanout FO, fan-out fusion at full width: seven sibling queries on
+            StockStream (the global flagship four times, the twin, D1 with
+            H = 64, and ``[volume > 500]`` with a product) over the
+            phase 4 feed, one fused group with 4 unique programs, captured
+            as a CUDA graph (one replay and one meta pull a batch). Checks:
+            fused and captured == unfused member by member (ints, strings,
+            timestamps, types and order exactly, floats to rtol 1e-12, the
+            max abs difference printed); q0-q3 equal; one dispatch and one
+            meta pull a batch; one compile (the capture) and 7 hits a
+            batch under ``jit["fanout.StockStream.step"]``; the gauges
+            group_size 7, unique_programs 4, captured 1; D1's distinct scan
+            inside the graph == ``distinct_scan_plain`` on a recorded
+            replay (state before, inputs, counts and state after); depth 4
+            (@Async) == depth 1; a revision of the unfused run after batch
+            4 restored into a fused runtime, and the reverse: the rest ==
+            the unfused run, the graph re-captured once. FX (two
+            ``length(1000)`` siblings with ``insert all events`` and
+            ``currentTimeMillis()`` under ``@app:playback``, 3 batches):
+            captured == unfused, the EXPIRED rows' timestamps included
+            (the clock a tensor the replay reads). FJ: JB's join with
+            a plain sibling on L (the L side's proxy fuses, the group runs
+            eagerly: captured 0), 12 pairs: rows == unfused == a numpy hash
+            join a send. Lists the apps of phases 1-22 that now form groups
+            (AG and SV). Prints events/s fused vs unfused at depths 1 and
+            4, host launch calls and device ops a batch under
+            torch.profiler, host syncs a batch, the busy share, capture ms
+            and the graph pool's bytes;
+24. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
-    ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-    ``{"ok": true, "device": {...}}``.
+    ``{"fanout": ...}`` line, a ``{"kernels": [...]}`` line, the
+    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -1029,6 +1057,93 @@ def recording(at: int):
         yield rec
     finally:
         aggregators.distinct_scan = orig
+
+
+class GraphScanRecorder:
+    """The distinct-scan call inside a captured fused step (phases 22 and
+    23). It stands in for ``distinct_scan`` where the aggregators call it
+    and keeps the call made under capture: its argument and result
+    tensors live in the graph's pool, and while they are referenced the
+    capture cannot reuse their memory, so every replay writes that batch's
+    inputs and outputs into them. Around replay ``at`` of the group's
+    graph it clones the state before (the table the replay updates in
+    place), then the inputs, the outputs and the state after."""
+
+    def __init__(self, group, at: int):
+        self.group, self.at, self.replays = group, at, 0
+        self.call = self.args = self.kwargs = self.got = None
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+        out = distinct_scan(*args, **kwargs)
+        if torch.cuda.is_current_stream_capturing():
+            self.call = (args, kwargs, out)
+        return out
+
+    def wrap(self, run):
+        def recorded_run(*a, **k):
+            i = self.replays
+            self.replays += 1
+            if i != self.at:
+                return run(*a, **k)
+            _require(self.call is not None, "graph scan recorder: no captured call "
+                     f"before replay {i}")
+            captures = self.group.graph.captures
+            before = [t.clone() for t in self.call[0][:3]]
+            res = run(*a, **k)
+            _require(self.group.graph.captures == captures,
+                     f"graph scan recorder: replay {i} re-captured the step")
+            args, kwargs, out = self.call
+            self.args = before + [x if x is None else x.clone() for x in args[3:]]
+            self.kwargs = dict(kwargs)
+            self.got = ([x if x is None else x.clone() for x in out],
+                        [t.clone() for t in args[:3]])
+            return res
+        return recorded_run
+
+
+@contextlib.contextmanager
+def graph_recording(group, at: int):
+    """``GraphScanRecorder`` installed for the life of the block."""
+    from siddhi_tpu_torch.ops import aggregators
+
+    rec = GraphScanRecorder(group, at)
+    orig_scan, orig_run = aggregators.distinct_scan, group.graph.run
+    aggregators.distinct_scan = rec
+    group.graph.run = rec.wrap(orig_run)
+    try:
+        yield rec
+    finally:
+        aggregators.distinct_scan = orig_scan
+        del group.graph.run
+
+
+def check_graph_scan(rec, what: str) -> float:
+    """The recorded in-graph call against the plain version on the same
+    inputs and state: counts, snapshots, overflow and the updated state
+    exactly equal; and the eager kernel on them too (``check_scan``).
+    Returns the largest count difference."""
+    import torch
+
+    from siddhi_tpu_torch.ops.distinct import distinct_scan_plain
+
+    _require(rec.got is not None, f"{what}: replay {rec.at} was not recorded")
+    err = check_scan(rec.args, rec.kwargs, what + ", eager kernel")
+    st_p = [t.clone() for t in rec.args[:3]]
+    want = distinct_scan_plain(*st_p, *rec.args[3:], **rec.kwargs)
+    outs, state = rec.got
+    for name, a, b in zip(("counts", "snapshot keys", "snapshot mask", "overflow"),
+                          outs, want):
+        _require((a is None) == (b is None), f"{what}: graph and plain disagree on "
+                 f"whether there are {name}")
+        if a is not None:
+            _require(torch.equal(a, b), f"{what}: the graph's {name} differ from plain")
+    for name, a, b in zip(("vk", "vc", "stamp"), state, st_p):
+        _require(torch.equal(a, b), f"{what}: the graph's state {name} differs from plain")
+    return max(err, float((outs[0] - want[0]).abs().max()) if outs[0].numel() else 0.0)
 
 
 def run_app(device, app: str, feed, streams=("OutStream",), key_slots=KEY_SLOTS,
@@ -4838,8 +4953,15 @@ def phase_serving(device, straight, card: str):
 
         # ingest: one wire frame a batch; checkpoint and persist after 2
         ingest_s, blobs, views, rev = [], None, None, None
+        # the flagship and D1 fuse (fan-out fusion, on by default) into one
+        # step captured as a CUDA graph: D1's scan is recorded in the graph
+        group = rt.query_runtimes["d1"]._fanout_group
+        _require(group is not None and group.captured
+                 and [q.name for q in group.members] == ["bench", "d1"],
+                 "serving: bench and d1 do not run as one captured fan-out group")
+        captures0 = group.graph.captures
         distinct_scan.launches = 0
-        with recording(at=len(feed) - 1) as rec:
+        with graph_recording(group, at=len(feed) - 1) as rec:
             for i, frame in enumerate(frames):
                 def post(frame=frame):
                     code, body, _h = http(port, "POST", "/ingest/StockStream",
@@ -4871,10 +4993,15 @@ def phase_serving(device, straight, card: str):
                                  for k in range(SV_SHARDS)),
                              "serving: a device view outlived a fold")
         launches["SV_D1"] = distinct_scan.launches
+        captures = group.graph.captures - captures0
         agg._fold_batch, agg._route, wire.decode_frame = orig_fold, orig_route, orig_decode
-        _require(launches["SV_D1"] == len(feed), f"serving: {launches['SV_D1']} "
-                 f"distinct-scan launches for {len(feed)} frames: want one per frame")
-        err = check_scan(rec.args, rec.kwargs, "SV D1 (recorded call)")
+        _require(launches["SV_D1"] == len(feed) + captures,
+                 f"serving: {launches['SV_D1']} distinct-scan launches for {len(feed)} "
+                 f"frames and {captures} capture(s): want one a frame (replayed) and "
+                 f"one a capture's warm-up")
+        facts["graph_captures"] = captures
+        facts["graph_replays"] = rec.replays
+        err = check_graph_scan(rec, "SV D1 (recorded call in the graph)")
         facts["d1_eps"] = len(feed) * BATCH / sum(ingest_s[:-1] + ingest_s[-1:])
         facts["fold_ms"] = [x * 1e3 for x in fold_s]
         facts["route_ms"] = [x * 1e3 for x in route_s]
@@ -5026,14 +5153,18 @@ def phase_serving(device, straight, card: str):
         stores_before = {d: agg_rows(rt, d) for d in AG_DURATIONS}
         n_d1 = len(cbs["D1Stream"].batches)
         distinct_scan.launches = 0
+        captures0 = group.graph.captures
         t0 = time.perf_counter()
         code, body, _h = http(port, "POST", f"/apps/{name}/restore", {"revision": rev})
         sync(device)
         facts["restore_replay_ms"] = (time.perf_counter() - t0) * 1e3
         launches["SV_replay"] = distinct_scan.launches
         _require(code == 200, f"serving: restore answered {code}: {body}")
-        _require(launches["SV_replay"] == len(feed) - 2,
-                 f"serving: {launches['SV_replay']} distinct-scan launches in the replay")
+        # the restore replaced the state tensors: the graph is re-captured
+        recaptures = group.graph.captures - captures0
+        _require(recaptures == 1 and launches["SV_replay"] == len(feed) - 2 + recaptures,
+                 f"serving: {launches['SV_replay']} distinct-scan launches and "
+                 f"{recaptures} re-captures in the replay")
         first = concat_rows(cbs["D1Stream"].batches[2:n_d1])
         again = concat_rows(cbs["D1Stream"].batches[n_d1:])
         require_equal(again, first, "serving: D1's replayed rows")
@@ -5080,9 +5211,466 @@ def phase_serving(device, straight, card: str):
           f"({facts['wal_bytes']} WAL bytes), D1's replayed rows bit-equal, the state "
           f"and stores == before the restore; D1 == the no-REST run; host syncs a D1 "
           f"step {syncs:.2f} without statistics, {syncs_detail:.2f} at detail; the "
-          f"distinct scan == plain on the last frame's call; phase {facts['phase_s']:.1f} s "
-          f"[{card}]", flush=True)
+          f"distinct scan in the captured graph (bench + d1 fused, {facts['graph_captures']} "
+          f"capture(s), re-captured once after the restore) == plain on the last "
+          f"frame's call; phase {facts['phase_s']:.1f} s [{card}]", flush=True)
     return facts, launches, err
+
+
+# ------------------------------------------------------- 23. fan-out fusion
+
+FO_OUTS = tuple(f"O{i}" for i in range(7))
+FO_RECORD_AT = 2        # the replay whose distinct-scan call is held against plain
+FO_SPLIT = 4            # batches before the revisions of the restore checks
+FO_DEPTHS = (1, 4)
+FJ_PAIRS = 12           # L and R batches of JB's shape: a cut of depth, as P's J5
+FJ_SIBLING = ("@info(name = 'fj_sib') from L select sym, lv * 2 as dbl "
+              "insert into F1;\n")
+# FX: EXPIRED rows stamped with the clock, which a captured step takes as
+# a tensor (under @app:playback the clock is the event time: both runs
+# see the same one)
+FX_APP = """@app:playback
+define stream StockStream (symbol string, price float, volume long);
+@info(name = 'x0') from StockStream#window.length({W})
+select symbol, price, currentTimeMillis() as t insert all events into X0;
+@info(name = 'x1') from StockStream#window.length({W})
+select symbol, sum(volume) as v group by symbol insert all events into X1;
+"""
+FX_BATCHES = 3
+
+
+def fo_app(async_: bool = False) -> str:
+    """FO: seven sibling queries on StockStream, subscribed in this order:
+    q0-q3 the global flagship (``GLOBAL_APP``, into O0-O3), q4 the twin
+    (``TWIN_APP``), q5 D1 (``D1_APP``, H = 64) and q6 a filter."""
+    flag = GLOBAL_APP.split("@info(name = 'bench')")[1].format(W=WINDOW)
+    twin = TWIN_APP.split("@info(name = 'flagship')")[1]
+    d1 = D1_APP.split("@info(name = 'bench')")[1].format(W=WINDOW)
+    q6 = "\nfrom StockStream[volume > 500] select symbol, price * volume as notional\n" \
+         "insert into OutStream;\n"
+    body = [flag] * 4 + [twin, d1, q6]
+    head = "@Async(buffer.size='64')\n" if async_ else ""
+    return head + "define stream StockStream (symbol string, price float, volume long);\n" \
+        + "".join(f"@info(name = 'q{i}')" + q.replace("insert into OutStream", f"insert into O{i}")
+                  for i, q in enumerate(body))
+
+
+class FoRun:
+    """One FO runtime on ``device``: fused or not, at a pump depth (@Async
+    above 1, so batches really ride in flight), key slots pre-sized as the
+    flagship's; per-output-stream collectors."""
+
+    def __init__(self, device, fused: bool = True, depth: int = 1):
+        from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+        self.device, self.depth = device, depth
+        self.m = SiddhiManager(device=device)
+        self.m.set_config_manager(InMemoryConfigManager({
+            "siddhi_tpu.fuse_fanout": "true" if fused else "false",
+            "siddhi_tpu.pipeline_depth": str(depth)}))
+        self.rt = self.m.create_siddhi_app_runtime(fo_app(async_=depth > 1))
+        for q in self.rt.query_runtimes.values():
+            if q.keyer is not None:
+                q.selector_plan.num_keys = KEY_SLOTS
+        self.cbs = {s: collector() for s in FO_OUTS}
+        for s, cb in self.cbs.items():
+            self.rt.add_callback(s, cb)
+        self.h = self.rt.get_input_handler("StockStream")
+        self.group = (self.rt.fused_fanout_groups[0] if self.rt.fused_fanout_groups
+                      else None)
+        self.sent = 0
+
+    def rows_expected(self, n_batches):
+        return n_batches * BATCH     # q0-q3 and q5 emit a row per row in
+
+    def send(self, batches):
+        """Send ``batches``; per-batch seconds at depth 1 (the card
+        synchronised after each), else the wall from the first send until
+        O0 holds every row (the other outputs are then drained too)."""
+        import torch
+
+        if self.depth == 1:
+            return send_timed(self.h, batches, self.device)
+        t0 = time.perf_counter()
+        for cols, ts in batches:
+            self.h.send_columns(cols, timestamps=ts)
+        self.sent += len(batches)
+        wait_rows(self.cbs["O0"], self.rows_expected(self.sent), "FO @Async")
+        self.rt.app_context.completion_pump.flush()
+        torch.cuda.synchronize()
+        return [time.perf_counter() - t0]
+
+    def outputs(self):
+        return {s: cb.batches for s, cb in self.cbs.items()}
+
+    def close(self):
+        self.m.shutdown()
+        return self.outputs()
+
+
+def fo_compare(a, b, what: str):
+    """FO's outputs member by member: ints, strings, timestamps, types and
+    order exactly, floats to rtol 1e-12. Returns the largest float abs
+    difference (bit-equality is expected)."""
+    import numpy as np
+
+    worst = 0.0
+    for s in FO_OUTS:
+        x, y = concat_rows(a[s]), concat_rows(b[s])
+        compare_outputs(x, y, f"{what} ({s})")
+        for u, v in zip(x, y):
+            for k in u:
+                if u[k].dtype.kind == "f":
+                    worst = max(worst, float(np.max(np.abs(u[k] - v[k]), initial=0.0)))
+    return worst
+
+
+def profile_batch(label: str, fn, card: str):
+    """torch.profiler over one batch: the host's launch calls by CUDA API
+    (a replay is one ``cudaGraphLaunch``), the kernels and copies the card
+    ran, its busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    api = {}
+    for e in events:
+        if e.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpy",
+                             "cudaMemset", "cuLaunchKernel")):
+            api[e.key] = api.get(e.key, 0) + e.count
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in dev)
+    _require(dev_us > 0, f"profile {label}: no device time seen")
+    facts = {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+             "busy_share": dev_us / 1e6 / wall, "device_ops": sum(e.count for e in dev),
+             "host_launch_calls": sum(api.values()), "host_api": api}
+    print(f"[fanout] profile {label}: wall {facts['wall_ms']:.2f} ms, device busy "
+          f"{facts['device_ms']:.3f} ms ({100 * facts['busy_share']:.1f}% of wall), "
+          f"{facts['device_ops']} device kernels and copies, "
+          f"{facts['host_launch_calls']} host launch calls {api} [{card}]", flush=True)
+    return facts
+
+
+def fj_oracle(sends, window: int):
+    """A numpy hash join per send over JB's length windows: the rows of a
+    batch joined with the other side's last ``window`` rows on sym, as a
+    multiset of (sym, lv, rv)."""
+    import collections
+
+    import numpy as np
+
+    held = {"L": [], "R": []}
+    out = []
+    for side, (cols, _ts) in sends:
+        other = held["R" if side == "L" else "L"]
+        by_sym = collections.defaultdict(list)
+        for sym, v in other:
+            by_sym[sym].append(v)
+        vals = cols["lv" if side == "L" else "rv"]
+        rows = collections.Counter()
+        for sym, v in zip(cols["sym"], vals):
+            for w in by_sym.get(sym, ()):
+                rows[(sym, int(v), w) if side == "L" else (sym, w, int(v))] += 1
+        out.append(rows)
+        held[side] = (held[side] + list(zip(cols["sym"], (int(x) for x in vals))))[-window:]
+    return out
+
+
+def fj_run(device, sends, fused: bool):
+    """FJ: JB's app (length windows both sides on the engine) with a plain
+    sibling on L: the L side's proxy fuses with the sibling. Returns (the
+    join's rows a send as multisets, the sibling's columns, facts)."""
+    import collections
+
+    import numpy as np
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager({
+        "siddhi_tpu.fuse_fanout": "true" if fused else "false",
+        "siddhi_tpu.pipeline_depth": "1",
+        "siddhi_tpu.window_capacity": str(JB_WINDOW)}))
+    rt = m.create_siddhi_app_runtime(JB_APP.format(W=JB_WINDOW) + FJ_SIBLING)
+    dic = rt.app_context.string_dictionary
+    jcb, scb = collector(), collector()
+    rt.add_callback("JoinOut", jcb)
+    rt.add_callback("F1", scb)
+    h = {s: rt.get_input_handler(s) for s in ("L", "R")}
+    facts = {}
+    group = rt.fused_fanout_groups[0] if rt.fused_fanout_groups else None
+    if fused:
+        _require(group is not None and [q.name for q in group.members] == ["jb.left", "fj_sib"],
+                 "FJ: the join's L side and the sibling do not form one group")
+        _require(not group.captured and not group.capturable(),
+                 "FJ: a group holding a join side must run eagerly")
+        facts["captured"] = rt.app_context.telemetry.read_gauges()["fanout.L.captured"]
+        _require(facts["captured"] == 0, "FJ: the captured gauge reads a graph")
+    per_send = []
+    t0 = time.perf_counter()
+    for side, (cols, ts) in sends:
+        n0 = len(jcb.batches)
+        h[side].send_columns(cols, timestamps=ts)
+        rows = collections.Counter()
+        for b in jcb.batches[n0:]:
+            syms = [dic.decode(int(i)) for i in b["sym"]]
+            rows.update(zip(syms, (int(x) for x in b["lv"]), (int(x) for x in b["rv"])))
+        per_send.append(rows)
+    sync(device)
+    facts["eps"] = len(sends) * JB_BATCH / (time.perf_counter() - t0)
+    if group is not None:
+        tel = rt.app_context.telemetry.snapshot()
+        facts["dispatches"] = tel["counters"]["fanout.L.dispatches"]
+        facts["meta_pulls"] = tel["counters"]["fanout.L.meta_pulls"]
+    m.shutdown()
+    return per_send, concat_rows(scb.batches), facts
+
+
+def fx_run(device, batches, fused: bool):
+    """FX over ``batches``: ({stream: its rows as one batch of columns},
+    whether the group ran as a graph)."""
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager({
+        "siddhi_tpu.fuse_fanout": "true" if fused else "false",
+        "siddhi_tpu.pipeline_depth": "1"}))
+    rt = m.create_siddhi_app_runtime(FX_APP.format(W=WINDOW))
+    rt.query_runtimes["x1"].selector_plan.num_keys = KEY_SLOTS
+    cbs = {s: collector() for s in ("X0", "X1")}
+    for s, cb in cbs.items():
+        rt.add_callback(s, cb)
+    send_timed(rt.get_input_handler("StockStream"), batches, device)
+    captured = bool(rt.fused_fanout_groups) and rt.fused_fanout_groups[0].captured
+    m.shutdown()
+    return {s: concat_rows(cb.batches) for s, cb in cbs.items()}, captured
+
+
+def earlier_groups(device):
+    """Which apps of phases 1-22 form fan-out groups now that fusion is on
+    by default: {label: [[stream, members...], ...]} of every app that has
+    one (the others form none)."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    apps = {
+        "slice (4)": APP.format(W=WINDOW), "global (5)": GLOBAL_APP.format(W=WINDOW),
+        "twin (6)": TWIN_APP, "pipeline (10)": PIPE_APP.format(W=WINDOW),
+        "D1 (9)": D1_APP.format(W=WINDOW), "D2 (9)": D2_APP.format(W=WINDOW),
+        "S (9)": S_APP.format(W=WINDOW), "D4 (16)": D4_APP.format(W=D4_WINDOW),
+        "T (17)": T_APP.format(T="1 min"), "ET (17)": ET_APP.format(T="1 min"),
+        "TD (17)": TD_APP.format(T="1 min"), "TB (17)": TB_APP, "LB (17)": LB_APP,
+        "L (17)": L_APP, "H (17)": H_APP, "F (17)": F_APP, "R (17)": R_APP,
+        "PT (18)": PT_APP.format(T="1 min"), "PET (18)": PET_APP.format(T="1 min"),
+        "PS (18)": PS_APP.format(G="1 sec"), "PLB (18)": PLB_APP, "PR (18)": PR_APP,
+        "PI (18)": PI_APP, "N (19)": nfa_app(N_PATTERN, N_SELECT),
+        "J5 (20)": J5_APP, "JB (20)": JB_APP.format(W=JB_WINDOW), "TJ (20)": TJ_APP,
+        "store (20)": STORE_APP,
+        "AG (21)": AG_APP.format(W=WINDOW, T0=AG_T0, T1=AG_T1),
+        "SV (22)": SV_APP.format(W=WINDOW), "SV D1 (22)": SV_D1_APP.format(W=WINDOW),
+    }
+    found = {}
+    for label, app in apps.items():
+        m = SiddhiManager(device=device)
+        rt = m.create_siddhi_app_runtime(app)
+        groups = [[g.stream_id] + [q.name for q in g.members]
+                  for g in rt.fused_fanout_groups]
+        if groups:
+            found[label] = groups
+        m.shutdown()
+    return found
+
+
+def phase_fanout(device, feed, card: str):
+    """Phase 23 (see the module doc): FO fused and captured against
+    unfused, the restores across fusion, FJ. Returns (facts, the
+    distinct-scan launches of the main run, the recorded call's max
+    error)."""
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    t_phase = time.perf_counter()
+    facts = {"card": card}
+    facts["earlier_groups"] = earlier_groups(device)
+    print(f"[fanout] earlier phases' apps that form fan-out groups: "
+          f"{facts['earlier_groups']} (every other app of phases 1-22 forms none)",
+          flush=True)
+
+    # FO fused and captured, depth 1: the main path of this slice
+    fo = FoRun(device)
+    g = fo.group
+    _require(g is not None and [q.name for q in g.members] == [f"q{i}" for i in range(7)],
+             "FO: the seven siblings do not form one group")
+    _require(g.captured, "FO: the group does not run as a CUDA graph")
+    distinct_scan.launches = 0
+    with graph_recording(g, at=FO_RECORD_AT) as rec:
+        fused_s = fo.send(feed)
+    main_launches = distinct_scan.launches
+    tel = fo.rt.app_context.telemetry.snapshot()
+    gauges = tel["gauges"]
+    q = fo.rt.query_runtimes
+    facts["group"] = {k: gauges[f"fanout.StockStream.{k}"]
+                      for k in ("group_size", "unique_programs", "captured")}
+    _require(facts["group"] == {"group_size": 7, "unique_programs": 4, "captured": 1},
+             f"FO: gauges {facts['group']}")
+    _require([len(c) for c in g._clusters] == [4, 1, 1, 1]
+             and all(q[f"q{i}"]._state is q["q0"]._state for i in range(4)),
+             f"FO: clusters {g._clusters}")
+    n = len(feed)
+    disp, pulls = (tel["counters"][f"fanout.StockStream.{k}"]
+                   for k in ("dispatches", "meta_pulls"))
+    jit = tel["jit"]["fanout.StockStream.step"]
+    facts.update(dispatches=disp, meta_pulls=pulls, jit=jit, captures=g.graph.captures,
+                 replays=g.graph.replays, capture_ms=g.graph.capture_ms,
+                 pool_bytes=g.graph.pool_bytes, scan_launches=main_launches)
+    _require(disp == pulls == n, f"FO: {disp} dispatches and {pulls} meta pulls "
+             f"for {n} batches")
+    _require(jit["compiles"] == g.graph.captures == 1 and jit["hits"] == 7 * n,
+             f"FO: jit record {jit} for {g.graph.captures} capture(s) of {n} batches")
+    _require(g.graph.replays == n and main_launches == n + g.graph.captures,
+             f"FO: {main_launches} distinct-scan launches for {g.graph.replays} "
+             f"replays and {g.graph.captures} capture(s)")
+    scan_err = check_graph_scan(rec, "FO D1 (recorded call in the graph)")
+    fused1 = fo.close()
+    for s in FO_OUTS[:4] + FO_OUTS[5:6]:
+        _require(sum(len(b["__ts__"]) for b in fused1[s]) == n * BATCH,
+                 f"FO: {s} holds other than one row per row in")
+    for s in FO_OUTS[1:4]:
+        compare_outputs(concat_rows(fused1[s]), concat_rows(fused1["O0"]),
+                        f"FO: {s} vs O0")
+    for s in FO_OUTS:
+        require_finite(fused1[s], f"FO {s}")
+
+    # unfused, depth 1
+    un = FoRun(device, fused=False)
+    _require(un.group is None, "FO: fuse_fanout=false still fused")
+    unfused_s = un.send(feed)
+    unfused1 = un.close()
+    facts["max_abs_diff"] = fo_compare(fused1, unfused1, "FO fused+captured vs unfused")
+    facts["eps"] = {"fused_1": steady_eps(fused_s, BATCH),
+                    "unfused_1": steady_eps(unfused_s, BATCH)}
+
+    # depth 4 (@Async): fused == depth 1; both timed over batches 2..n
+    for fused in (True, False):
+        r = FoRun(device, fused=fused, depth=4)
+        r.send(feed[:1])
+        wall = r.send(feed[1:])[0]
+        if fused:
+            _require(r.group.captured, "FO @Async: the group is not captured")
+            facts["high_water"] = r.rt.app_context.completion_pump.high_water
+        out = r.close()
+        facts["eps"][f"{'fused' if fused else 'unfused'}_4"] = (n - 1) * BATCH / wall
+        if fused:
+            facts["max_abs_diff_depth4"] = fo_compare(out, fused1, "FO depth 4 vs depth 1")
+
+    # FX: the EXPIRED rows' timestamps (the clock) under the capture
+    fx = {fused: fx_run(device, feed[:FX_BATCHES], fused) for fused in (True, False)}
+    _require(fx[True][1], "FX: the group is not captured")
+    fx = {fused: out for fused, (out, _captured) in fx.items()}
+    for s in ("X0", "X1"):
+        compare_outputs(fx[True][s], fx[False][s], f"FX {s} fused+captured vs unfused")
+    x0 = fx[True]["X0"][0]
+    n_rows = FX_BATCHES * BATCH
+    _require(len(x0["__ts__"]) == 2 * n_rows - WINDOW
+             and len(set(x0["t"].tolist())) == FX_BATCHES,
+             f"FX: {len(x0['__ts__'])} rows, clock values {sorted(set(x0['t'].tolist()))}")
+    facts["FX_rows"] = len(x0["__ts__"])
+
+    # launches a batch, host syncs a batch, busy share
+    for fused in (True, False):
+        r = FoRun(device, fused=fused)
+        r.send(feed[:2])
+        label = "fused" if fused else "unfused"
+        facts[f"profile_{label}"] = profile_batch(
+            f"FO {label}, one batch", lambda r=r: r.send(feed[2:3]), card)
+        sy = {}
+        with counting_syncs(sy):
+            r.send(feed[3:5])
+        facts[f"syncs_{label}"] = sy["syncs"] / 2
+        facts[f"sync_sites_{label}"] = sy["sync_sites"]
+        r.close()
+
+    # restores across fusion, each into a runtime that already ran the
+    # head: the unfused revision into the fused one, the fused revision
+    # into the unfused one; the rest of the feed == the straight run
+    restores = {}
+    for src_fused in (False, True):
+        src, dst = FoRun(device, fused=src_fused), FoRun(device, fused=not src_fused)
+        src.send(feed[:FO_SPLIT])
+        dst.send(feed[:FO_SPLIT])
+        blob = src.rt.snapshot()
+        src.close()
+        cap0 = dst.group.graph.captures if dst.group is not None else 0
+        dst.rt.restore(blob)
+        n0 = {s: len(cb.batches) for s, cb in dst.cbs.items()}
+        dst.send(feed[FO_SPLIT:])
+        tail = {s: cb.batches[n0[s]:] for s, cb in dst.cbs.items()}
+        recaptures = (dst.group.graph.captures - cap0) if dst.group is not None else None
+        dst.close()
+        want = {s: b[FO_SPLIT:] for s, b in unfused1.items()}
+        key = "unfused_into_fused" if not src_fused else "fused_into_unfused"
+        restores[key] = {"max_abs_diff": fo_compare(tail, want, f"FO restore {key}"),
+                         "recaptures": recaptures, "revision_bytes": len(blob)}
+        if dst.group is not None:
+            _require(recaptures == 1, f"FO restore {key}: {recaptures} re-captures")
+    facts["restores"] = restores
+
+    # FJ: JB's join with a sibling on L: the group runs eagerly
+    rng = np.random.default_rng(29)
+    syms = np.array([f"S{i}" for i in range(JB_KEYS)], dtype=object)
+    sends = []
+    for i in range(2 * FJ_PAIRS):
+        side = "L" if i % 2 == 0 else "R"
+        sends.append((side, ({"sym": syms[rng.integers(0, JB_KEYS, JB_BATCH)],
+                              ("lv" if side == "L" else "rv"):
+                                  rng.integers(0, 1000, JB_BATCH, dtype=np.int64)},
+                             np.arange(i * JB_BATCH, (i + 1) * JB_BATCH, dtype=np.int64))))
+    fj_f, sib_f, fj_facts = fj_run(device, sends, fused=True)
+    fj_u, sib_u, _ = fj_run(device, sends, fused=False)
+    oracle = fj_oracle(sends, JB_WINDOW)
+    _require(fj_f == fj_u == oracle, "FJ: the fused join's rows differ from the "
+             "unfused run's or from the numpy hash join")
+    compare_outputs(sib_f, sib_u, "FJ sibling fused vs unfused")
+    _require(fj_facts["dispatches"] == fj_facts["meta_pulls"] == FJ_PAIRS,
+             f"FJ: {fj_facts}")
+    fj_facts["rows"] = sum(sum(c.values()) for c in oracle)
+    facts["FJ"] = fj_facts
+    facts["phase_s"] = time.perf_counter() - t_phase
+    e = facts["eps"]
+    pf, pu = facts["profile_fused"], facts["profile_unfused"]
+    print(f"[fanout] FO: seven siblings (4x the global flagship, the twin, D1, a "
+          f"filter) on StockStream, {n} batches of {BATCH} rows, {NUM_SYMBOLS} "
+          f"symbols: one group of {facts['group']['group_size']}, "
+          f"{facts['group']['unique_programs']} unique programs, captured; "
+          f"{disp} dispatches and {pulls} meta pulls; jit {jit}; {facts['captures']} "
+          f"capture in {facts['capture_ms']:.1f} ms, graph pool "
+          f"{facts['pool_bytes']} bytes; fused+captured == unfused member by member "
+          f"(max float abs diff {facts['max_abs_diff']:.3g}), q0-q3 equal; depth 4 == "
+          f"depth 1 (max abs diff {facts['max_abs_diff_depth4']:.3g}); FX's "
+          f"{facts['FX_rows']} rows with EXPIRED ones stamped by the clock == "
+          f"unfused; D1's scan in "
+          f"the graph == plain on replay {FO_RECORD_AT}; events/s fused "
+          f"{e['fused_1']:.1f} vs unfused {e['unfused_1']:.1f} at depth 1, "
+          f"{e['fused_4']:.1f} vs {e['unfused_4']:.1f} at depth 4; a batch: "
+          f"{pf['host_launch_calls']} host launch calls and {pf['device_ops']} device "
+          f"ops fused, {pu['host_launch_calls']} and {pu['device_ops']} unfused; busy "
+          f"share {pf['busy_share']:.3f} fused, {pu['busy_share']:.3f} unfused; host "
+          f"syncs a batch {facts['syncs_fused']:.1f} fused, "
+          f"{facts['syncs_unfused']:.1f} unfused [{card}]", flush=True)
+    print(f"[fanout] restores across fusion after batch {FO_SPLIT}: {restores}; FJ "
+          f"(JB's join + a sibling on L, {FJ_PAIRS} pairs, eager, captured 0): rows "
+          f"== unfused == numpy hash join ({fj_facts['rows']} rows), "
+          f"{fj_facts['dispatches']} dispatches, {fj_facts['eps']:.1f} events/s; "
+          f"phase {facts['phase_s']:.1f} s [{card}]", flush=True)
+    return facts, main_launches, scan_err
 
 
 def phase_global(device, feed, card: str):
@@ -5305,8 +5893,11 @@ def main() -> int:
     straight["fold_ms"] = aggregation["fold_ms"]
     serving, sv_launches, sv_err = phase_serving(device, straight, card)
     dist["launches"].update(sv_launches)
+    # 23. fan-out fusion: seven siblings as one captured step, FJ eager
+    fanout, fo_launches, fo_err = phase_fanout(device, feed, card)
+    dist["launches"]["FO"] = fo_launches
 
-    # 23. result lines
+    # 24. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
@@ -5335,7 +5926,11 @@ def main() -> int:
         "launches": sum(dist["launches"].values()),
         "launches_by_run": dist["launches"],
         "max_abs_err": max(dist["max_abs_err"], td["max_abs_err"],
-                           pt["max_abs_err"], sv_err),
+                           pt["max_abs_err"], sv_err, fo_err),
+        # FO's and SV's launches are graph replays (one a batch) and one
+        # eager warm-up launch a capture
+        "launches_under_replay": {"FO": fanout["replays"],
+                                  "SV_D1": serving["graph_replays"]},
         "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "device_ms": d1["device_ms"],
         "device_traces": d1["device_traces"],
@@ -5377,6 +5972,7 @@ def main() -> int:
     print(json.dumps({"persistence": persistence}))
     print(json.dumps({"aggregation": aggregation}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"fanout": fanout}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -268,6 +268,14 @@ class SiddhiAppRuntime:
                 self.junctions[sid].subscribe(sr)
                 self.sink_runtimes.append(sr)
 
+        # fan-out fusion: contiguous runs of sibling queries on one junction
+        # fuse into ONE step and ONE meta pull a batch, on the card one CUDA
+        # graph replay (core/plan/fanout_plan.py); siddhi_tpu.fuse_fanout
+        # turns it off
+        from siddhi_tpu_torch.core.plan.fanout_plan import plan_fanout_groups
+
+        self.fused_fanout_groups: List = plan_fanout_groups(self)
+
     # ------------------------------------------------------------ assembly
 
     def _configure_statistics(self, siddhi_app: SiddhiApp) -> None:
@@ -492,6 +500,7 @@ class SiddhiAppRuntime:
                 f"join or an on-demand query (runtime.query(...))")
         runtime = plan_query(query, query_name, self.app_context, definitions,
                              partition_ctx=partition_ctx)
+        runtime.query_ast = query   # fan-out fusion's program signature reads it
         self._wire_output(query, query_name, runtime, partition_ctx)
         self._attach_rate_limiter(query, runtime, partition_ctx)
         ist = query.input_stream
@@ -994,6 +1003,8 @@ class SiddhiAppRuntime:
         if ctx.scheduler is not None:
             ctx.scheduler.shutdown()
         with self._barrier:
+            for g in self.fused_fanout_groups:
+                g.close()     # the captured graphs' pools
             # drop device state so the app's memory is released now; under
             # each query's lock, so a timer that fired before the scheduler
             # stopped finds `stopped` set and the state gone, never half

@@ -179,6 +179,10 @@ class SiddhiAppContext:
         # the planner may fuse a global length window into its invertible
         # aggregators (reference core/context.py enable_fusion)
         self.enable_fusion = True
+        # sibling queries on one junction run as one fused step, one meta
+        # pull a batch (core/query/fused_fanout.py); config key
+        # siddhi_tpu.fuse_fanout
+        self.fuse_fanout = True
         # dispatch pipeline depth: up to N batches per query ride in
         # flight while the host packs the next (core/query/completion.py);
         # 1 = fully synchronous. Set via siddhi_tpu.pipeline_depth;

@@ -168,6 +168,15 @@ class SelectorPlan:
     # the snapshot rate limiter's variant
     # (WrappedSnapshotOutputRateLimiter.java:67-74)
     agg_positions: List[int] = field(default_factory=list)
+    # the group-by Variables (fan-out fusion compares them to share one
+    # GroupKeyer across sibling queries: core/plan/fanout_plan.py)
+    group_key_exprs: List = field(default_factory=list)
+
+    # the selector's own ops make no host read (its aggregators and
+    # compiled expressions declare theirs: ``ops/aggregators.capturable``,
+    # ``ops/distinct.capturable``, ``ops/expressions.capturable``), so a
+    # fused fan-out step may hold it inside a CUDA graph
+    capturable = True
 
     @property
     def contains_aggregator(self) -> bool:
@@ -389,6 +398,7 @@ def plan_selector(selector: Selector, input_attrs: List[Tuple[str, AttrType]],
         offset=selector.offset,
         batch_mode=batch_mode,
         agg_positions=agg_positions,
+        group_key_exprs=list(selector.group_by_list),
         uuid_cols=uuid_cols,
         set_cols=set_cols,
         object_meta=object_meta,

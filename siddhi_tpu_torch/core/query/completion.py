@@ -37,8 +37,11 @@ Contract:
 - **Completion latency feedback.** At drain, each entry's true
   dispatch->emit time feeds its junction's ``latency.target`` loop.
 
-``FusedCompletion`` (fan-out fusion) waits for ROADMAP A.8; telemetry
-gauges and the journey tracer for A.10.
+``FusedCompletion`` is one in-flight batch of a fused fan-out group
+(``core/query/fused_fanout.py``): one stacked meta for every member, and
+per-member emission and fault attribution at drain, in the members'
+subscription order. The pipeline's telemetry gauges and the journey
+tracer wait for ROADMAP A.10.
 """
 
 from __future__ import annotations
@@ -118,6 +121,45 @@ class QueryCompletion:
         finally:
             if self.junction is not None:
                 # after emit, as the synchronous path times it
+                self.junction.record_completion(
+                    (time.perf_counter() - self.t0) * 1000.0)
+
+
+class FusedCompletion:
+    """One in-flight junction batch of a fused fan-out group: a single
+    stacked ``[n_clusters, 3+]`` meta (pinned on the card, with its event)
+    covers every member; per-member emission and attribution run in
+    ``FusedFanoutRuntime.complete_entry``."""
+
+    __slots__ = ("owner", "outs", "meta", "event", "members", "cluster_of",
+                 "batch", "junction", "t0", "tid")
+
+    def __init__(self, owner, outs, meta, event, members, cluster_of, batch,
+                 junction=None):
+        self.owner = owner
+        self.outs = outs                  # per-cluster output columns
+        self.meta = meta
+        self.event = event
+        self.members = members            # member list snapshot (ordering)
+        self.cluster_of = cluster_of
+        self.batch = batch                # the input batch, for fault routing
+        self.junction = junction
+        self.t0 = time.perf_counter()
+        self.tid = threading.get_ident()  # submitting thread (scoped flush)
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+    def complete(self) -> Optional[Exception]:
+        try:
+            return self.owner.complete_entry(self, self.meta.numpy())
+        finally:
+            if self.junction is not None:
+                # after per-member emission, as QueryCompletion times it
                 self.junction.record_completion(
                     (time.perf_counter() - self.t0) * 1000.0)
 

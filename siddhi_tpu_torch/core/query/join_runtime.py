@@ -240,7 +240,19 @@ class JoinResolver(Resolver):
 
 
 class JoinSideProxy(Receiver):
-    """The receiver of one side of a join runtime."""
+    """The receiver of one side of a join runtime. Beyond delivery it
+    implements the fused fan-out MEMBER protocol
+    (``core/query/fused_fanout.py``; the reference's
+    ``join_runtime.py:216-420``): an engine-attached side fuses with
+    sibling single-stream queries on a shared junction, its insert and
+    probe run inside the group's one step and its meta rides the group's
+    stacked pull. Its step reads its match count on the host
+    (``materialize_joined``) and the engine's ``prepare_batch`` reads its
+    occupancy mirror, so it is never ``capturable()``: a group holding a
+    join side runs eagerly on the card."""
+
+    _fanout_group = None
+    _own_keyer = None
 
     def __init__(self, runtime: "JoinQueryRuntime", side_key: str):
         self.runtime = runtime
@@ -249,6 +261,132 @@ class JoinSideProxy(Receiver):
     @property
     def name(self) -> str:
         return f"{self.runtime.name}.{self.side_key}"
+
+    # ------------------------------------------------ fused member protocol
+
+    def fusion_ineligibility(self) -> Optional[str]:
+        """Why this side cannot join a fused fan-out group (None =
+        eligible); consulted by ``fanout_plan.fusion_ineligibility``."""
+        from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
+        from siddhi_tpu_torch.core.eligibility import reason
+
+        rt = self.runtime
+        if rt.engine is None:
+            return reason(RC.NO_DEVICE_ENGINE,
+                          f"join side without device engine ({rt.engine_reason})")
+        if rt.keyer is not None:
+            return reason(RC.GROUPED_SELECT,
+                          "grouped join selector (split host-keyed pipeline)")
+        if rt._route_layout is not None:
+            return reason(RC.SHARDED, "routed join")
+        for side in rt.sides.values():
+            if side.window_stage is not None and getattr(
+                    side.window_stage, "needs_scheduler", False):
+                return reason(RC.SCHEDULER_WINDOW, "scheduler-driven join window")
+        if rt.sides["left"].stream_id == rt.sides["right"].stream_id:
+            # both proxies would fuse onto ONE junction sharing one state
+            return reason(RC.SELF_JOIN,
+                          "self-join (both sides share the junction batch)")
+        return None
+
+    def program_signature(self) -> None:
+        """Never clusters: the join's other side steps the same state
+        outside the group, so a shared state object would be stepped
+        twice."""
+        return None
+
+    def capturable(self) -> bool:
+        return False
+
+    @property
+    def app_context(self):
+        return self.runtime.app_context
+
+    @property
+    def device(self):
+        return self.runtime.device
+
+    @property
+    def input_definition(self):
+        return self.runtime.sides[self.side_key].pack_definition
+
+    @property
+    def dictionary(self):
+        return self.runtime.dictionary
+
+    @property
+    def selector_plan(self):
+        return self.runtime.selector_plan
+
+    @property
+    def keyer(self):
+        return self.runtime.keyer
+
+    @keyer.setter
+    def keyer(self, value):
+        self.runtime.keyer = value
+
+    @property
+    def _win_keys(self):
+        return self.runtime._win_keys
+
+    @property
+    def _lock(self):
+        return self.runtime._lock
+
+    @property
+    def _state(self):
+        return self.runtime._state
+
+    @_state.setter
+    def _state(self, value):
+        self.runtime._state = value
+
+    @property
+    def scheduler(self):
+        return self.runtime.scheduler
+
+    @property
+    def _timer_cb(self):
+        # a fused side's wake time re-enters through ITS side's timer
+        return self.runtime._timer_cbs[self.side_key]
+
+    def _ensure_capacity(self):
+        self.runtime._ensure_capacity()
+
+    def _init_state(self):
+        return self.runtime._init_state()
+
+    def prepare_cols(self, cols) -> bool:
+        """The group's pre-dispatch hook: the engine's sub-window growth
+        for this side's batch (as ``process_side_batch`` calls it). True =
+        the state's shapes changed and the group must rebuild its step."""
+        rt = self.runtime
+        if rt._state is None:
+            rt._state = rt._init_state()
+        return rt.engine.prepare_batch(self.side_key, cols)
+
+    def overflow_knob_msg(self, code: Optional[int] = None) -> str:
+        # the overflow lane is a bitmask: the fused drain names its knob
+        return self.runtime.overflow_knob_msg(code)
+
+    def decode_meta_suffix(self, meta) -> None:
+        self.runtime.decode_meta_suffix(meta)
+
+    def _emit(self, out: HostBatch):
+        self.runtime._emit(out)
+
+    def build_step_fn(self):
+        """The side's member step: the engine's probe surfaces live in
+        the state, so the probe arguments of the side step are unused."""
+        step = self.runtime.build_side_step_fn(self.side_key)
+
+        def fn(state, cols, now):
+            return step(state, {}, None, cols, now)
+
+        return fn
+
+    # ---------------------------------------------------------- delivery
 
     def receive(self, events: List[Event]):
         rt = self.runtime
@@ -495,7 +633,14 @@ class JoinQueryRuntime(QueryRuntime):
     def _seq_check(self, seq: int) -> None:
         """Drain-side check of the engine's cross-stream sequence: the
         pump's per-owner FIFO must hand batches back in dispatch order; a
-        gap is an ordering fault, which is logged and counted."""
+        gap is an ordering fault, which is logged and counted. Skipped
+        while a side rides a fused fan-out group: its sequence numbers
+        drain through the GROUP's entries, so this runtime's own FIFO sees
+        gaps (no order is promised across owners)."""
+        if any(p._fanout_group is not None
+               for p in getattr(self, "_proxies", {}).values()):
+            self._drain_seq = None
+            return
         exp = self._drain_seq
         self._drain_seq = seq
         if exp is not None and seq != exp + 1:

@@ -45,11 +45,20 @@ card, host columns reach the step through a ring of ``depth + 1`` pinned
 staging slots per column with ``non_blocking`` copies, so packing the
 next batch never waits behind the card's queue; a slot is written again
 only once the event recorded after its last copy has completed.
+
+A runtime may be a member of a fused fan-out group
+(``core/query/fused_fanout.py``), which then takes its junction slot and
+runs its step: ``_fanout_group`` names the group, ``_own_keyer`` keeps the
+runtime's own ``GroupKeyer`` while it shares a sibling's,
+``program_signature()`` tells identical programs apart and
+``capturable()`` says whether its step may run inside a CUDA graph.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import enum
 import threading
 import uuid
 from typing import Callable, Dict, List, Optional, Tuple
@@ -142,6 +151,13 @@ class GroupKeyer:
 
 
 class QueryRuntime(Receiver):
+    # fan-out fusion (core/query/fused_fanout.py): the group this runtime is
+    # a member of, and its own keyer while it shares a sibling's
+    _fanout_group = None
+    _own_keyer = None
+    # the query's AST, set by the app at assembly (program_signature reads it)
+    query_ast = None
+
     def __init__(self, name: str, app_context, input_definition: StreamDefinition,
                  filters: List[Callable], window_stage, selector_plan: SelectorPlan,
                  keyer: Optional[GroupKeyer], dictionary: StringDictionary,
@@ -309,6 +325,68 @@ class QueryRuntime(Receiver):
 
         return step
 
+    # ------------------------------------------------------- fan-out fusion
+
+    def program_signature(self) -> Optional[tuple]:
+        """A conservative, hashable account of everything that decides
+        what this query's step computes: the query's AST without its name
+        and its output target, the input definition, the planner knobs the
+        plan read (precision, fusion, capacities, each value table's H),
+        the stage the plan chose, the key capacities, the selector's
+        output names and types, and the device. Two members of a fused
+        group with equal signatures (and bit-equal states) run as one
+        computation: the port's stand-in for the reference's jaxpr
+        equality (``siddhi_tpu/core/query/fused_fanout.py:85-131``). None
+        when any part cannot be rendered; None never clusters."""
+        q = self.query_ast
+        if q is None:
+            return None
+        out = q.output_stream
+        try:
+            ast = _render(dataclasses.replace(
+                q, annotations=[a for a in q.annotations if a.name.lower() != "info"],
+                output_stream=(None if out is None
+                               else dataclasses.replace(out, target_id=""))))
+            defn = _render(self.input_definition)
+        except _Unrenderable:
+            return None
+        ctx, sp = self.app_context, self.selector_plan
+        return (ast, defn,
+                (ctx.precision, ctx.enable_fusion, ctx.window_capacity,
+                 ctx.distinct_values_capacity),
+                tuple((spec.kind, spec.distinct_capacity) for spec in sp.specs),
+                type(self.window_stage).__name__, sp.num_keys, self._win_keys,
+                tuple((n, t.name) for n, t in sp.output_attrs), str(self.device))
+
+    def capturable(self) -> bool:
+        """Whether this query's step may run inside a CUDA graph: every
+        stage of the step declares ``capturable`` (no host read, the clock
+        taken as a tensor), as do its aggregators and every function its
+        expressions call (``ops/expressions.capturable``). Host stages and
+        partitions never are."""
+        from siddhi_tpu_torch.ops import aggregators, distinct, expressions
+
+        if (self.host_window is not None or self.host_transforms
+                or self.log_stages or self.partition_ctx is not None
+                or self.query_ast is None):
+            return False
+        stages = list(self.transforms) + [obj for kind, obj in self.post_pipeline
+                                          if kind == "t"]
+        if self.window_stage is not None:
+            stages.append(self.window_stage)
+        stages.append(self.selector_plan)
+        if not all(getattr(st, "capturable", False) for st in stages):
+            return False
+        kinds = {spec.kind for spec in self.selector_plan.specs}
+        if kinds and not aggregators.capturable:
+            return False
+        if kinds & set(aggregators.DISTINCT_KINDS) and not distinct.capturable:
+            return False
+        q = self.query_ast
+        return expressions.capturable(
+            [q.input_stream, q.selector],
+            aggregators=frozenset(aggregators.supported_aggregators()))
+
     # ----------------------------------------------------------- processing
 
     def receive(self, events: List[Event]):
@@ -386,9 +464,12 @@ class QueryRuntime(Receiver):
                 and not (sp.order_by or sp.batch_mode)
                 and sp.limit is None and sp.offset is None):
             return None
+        from siddhi_tpu_torch.core.query.fused_fanout import FusedFanoutRuntime
+
         j = self.output_junction
         if j is not None and (self.attach_pk or any(
-                isinstance(r, QueryRuntime) for r in j.receivers)):
+                isinstance(r, (QueryRuntime, FusedFanoutRuntime))
+                for r in j.receivers)):
             return None
         horizon = int(self.app_context.timestamp_generator.current_time())
         other = self.scheduler.next_due_except(self._timer_cb)
@@ -638,10 +719,11 @@ class QueryRuntime(Receiver):
                     else torch.from_numpy(np.ascontiguousarray(v)))
                 for k, v in dict.items(cols)}
 
-    def overflow_knob_msg(self) -> str:
+    def overflow_knob_msg(self, code: Optional[int] = None) -> str:
         """The capacity-overflow message naming its knobs: a time or batch
         window's ring (``siddhi_tpu.window_capacity``) or a
-        distinctCount/unionSet value table."""
+        distinctCount/unionSet value table. ``code`` (the meta's overflow
+        lane) matters only to a join, whose lane is a bitmask."""
         knob = ("siddhi_tpu.partition_window_capacity"
                 if self.partition_ctx is not None
                 else "siddhi_tpu.window_capacity")
@@ -826,7 +908,11 @@ class StagingRing:
         self._events: List[Optional[torch.cuda.Event]] = []
         self._next = 0
 
-    def put(self, cols: Dict, depth: int) -> Dict[str, torch.Tensor]:
+    def put(self, cols: Dict, depth: int,
+            dst: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """The columns on the device: fresh tensors, or with ``dst`` (a
+        captured step's static inputs, ``core/query/step_graph.py``)
+        copied into its buffers of the same names."""
         while len(self._events) < depth + 1:
             self._events.append(None)
         n_slots = len(self._events)
@@ -834,10 +920,13 @@ class StagingRing:
         self._next += 1
         if self._events[i] is not None:
             self._events[i].synchronize()
-        out = {}
+        out = {} if dst is None else dst
         for k, v in dict.items(cols):
             if isinstance(v, torch.Tensor):
-                out[k] = v.to(self.device, non_blocking=True)
+                if dst is None:
+                    out[k] = v.to(self.device, non_blocking=True)
+                else:
+                    dst[k].copy_(v, non_blocking=True)
                 continue
             a = np.asarray(v)
             dt = TORCH_OF_NUMPY.get(a.dtype)
@@ -854,7 +943,10 @@ class StagingRing:
             # a read-only source (a wire frame's np.frombuffer view) is
             # only read here
             np.copyto(staged.numpy(), a.reshape(-1))
-            out[k] = staged.view(a.shape).to(self.device, non_blocking=True)
+            if dst is None:
+                out[k] = staged.view(a.shape).to(self.device, non_blocking=True)
+            else:
+                dst[k].copy_(staged.view(a.shape), non_blocking=True)
         event = torch.cuda.Event()
         event.record()
         self._events[i] = event
@@ -938,6 +1030,29 @@ def _zero_value(attr_type: AttrType):
     if attr_type == AttrType.BOOL:
         return False
     return 0
+
+
+class _Unrenderable(Exception):
+    pass
+
+
+def _render(obj):
+    """A deterministic, hashable rendering of a query-api tree (dataclasses,
+    enums, containers, scalars); anything else raises ``_Unrenderable``."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return (type(obj).__name__, repr(obj))
+    if isinstance(obj, enum.Enum):
+        return (type(obj).__name__, obj.name)
+    if isinstance(obj, np.generic):
+        return (obj.dtype.str, repr(obj.item()))
+    if isinstance(obj, (list, tuple)):
+        return tuple(_render(x) for x in obj)
+    if isinstance(obj, dict):
+        return tuple(sorted((repr(k), _render(v)) for k, v in obj.items()))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__name__,) + tuple(
+            (f.name, _render(getattr(obj, f.name))) for f in dataclasses.fields(obj))
+    raise _Unrenderable(type(obj).__name__)
 
 
 def _pow2(needed: int, start: int = 16) -> int:

@@ -113,6 +113,16 @@ class StreamJunction:
         if receiver not in self.receivers:
             self.receivers.append(receiver)
 
+    def replace_receivers(self, members: List[Receiver], group: Receiver):
+        """Swap a contiguous run of subscribed receivers for ONE fused
+        receiver at the run's position (fan-out fusion,
+        ``core/plan/fanout_plan.py``): every other subscriber keeps its
+        delivery slot, so callback and sink order is unchanged."""
+        i = self.receivers.index(members[0])
+        for m in members:
+            self.receivers.remove(m)
+        self.receivers.insert(i, group)
+
     # ------------------------------------------------------------ @Async
 
     def enable_async(self, buffer_size: int = 1024, batch_size: int = 256,

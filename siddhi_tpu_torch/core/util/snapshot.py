@@ -34,9 +34,14 @@ suffix unless the restored revision precedes the WAL's checkpoint (the
 stale-revision rule). Under ``@app:statistics`` a persist's latency lands
 in the ``snapshot.persist`` tracker.
 
+A restore writes each query's group-key map into the query's own keyer
+(a fused fan-out member may share a sibling's), then every fused group
+re-derives its sharing and drops its step and captured graphs
+(``FusedFanoutRuntime.on_restore``): the restored tensors are new, and a
+graph binds addresses.
+
 Left out, each waiting for its subsystem: the multi-process allgather of
-``_to_host`` (ROADMAP A.9); the ``persist`` span (A.10); the fused fan-out
-groups' ``on_restore`` (A.8).
+``_to_host`` (ROADMAP A.9); the ``persist`` span (A.10).
 """
 
 from __future__ import annotations
@@ -311,6 +316,10 @@ class SnapshotService:
         dev = rt.app_context.device
         for name, qsnap in obj["queries"].items():
             self._restore_query(rt.query_runtimes[name], qsnap, dev)
+        # fused fan-out groups: sharing re-derived from the restored maps,
+        # the step and its graphs dropped (new tensors, maybe new capacities)
+        for g in getattr(rt, "fused_fanout_groups", ()):
+            g.on_restore()
 
         for tid, tsnap in obj.get("tables", {}).items():
             t = rt.tables.get(tid)
@@ -345,9 +354,16 @@ class SnapshotService:
                 # events after the rollback
                 q.rate_limiter.reset()
             if q.keyer is not None and qsnap["keyer_map"] is not None:
-                q.keyer._map = dict(qsnap["keyer_map"])
-                q.keyer._next = max(q.keyer._map.values(), default=-1) + 1
-                q.keyer._lut = np.full(64, -1, np.int32)   # rebuilt lazily
+                # into the query's OWN keyer: a fused fan-out member may
+                # share a sibling's, and the revision may hold divergent
+                # maps (the group re-derives sharing: on_restore)
+                keyer = getattr(q, "_own_keyer", None)
+                if keyer is None:   # explicit: an empty keyer is falsy
+                    keyer = q.keyer
+                keyer._map = dict(qsnap["keyer_map"])
+                keyer._next = max(keyer._map.values(), default=-1) + 1
+                keyer._lut = np.full(64, -1, np.int32)   # rebuilt lazily
+                q.keyer = keyer
             state = qsnap["state"]
             layout = getattr(q, "_route_layout", None)
             # the runtime's own state gives the keys and dtypes to hold to

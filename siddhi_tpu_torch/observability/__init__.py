@@ -12,7 +12,7 @@ has sources for:
 
 The span tracer (``tracing``), batch journeys (``journey``), program
 costs (``costmodel``) and device instruments (``instruments``) are ROADMAP
-A.8/A.10.
+A.8 (b)/A.10.
 """
 
 from siddhi_tpu_torch.observability.histogram import Histogram

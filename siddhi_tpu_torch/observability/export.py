@@ -18,13 +18,17 @@ happens) so dashboards and alerts can be written before the first failure.
 
 The families the port has sources for: statistics, app and process
 telemetry, the aggregation bucket gauges and fold histograms, the serving
-tier's shard, WAL, pool, counter and latency families, and the wire
-front door's counters; the ingest WAL's gauges render as the generic
-``siddhi_gauge``, as in the reference. The reference's families of
-batch journeys, program costs, device instruments, the program cache and
-the autopilot (ROADMAP A.8/A.10), the cluster fabric and the keyed-shard
-and join-partition gauges (A.9/A.10), fan-out fusion (A.8) and the
-overload quotas (A.10) have no source in the port and are not printed.
+tier's shard, WAL, pool, counter and latency families, the wire front
+door's counters, fan-out fusion (``siddhi_fanout_group_size``,
+``siddhi_fanout_dispatches_total``, ``siddhi_fanout_meta_pulls_total``)
+and the compiled-step records (``siddhi_jit_*``); the ingest WAL's
+gauges and a fused stream's ``unique_programs`` and ``captured`` gauges
+render as the generic ``siddhi_gauge``, as in the reference. The
+reference's families of batch journeys, program costs, device
+instruments, the program cache and the autopilot (ROADMAP A.8 (b)/A.10),
+the cluster fabric and the keyed-shard and join-partition gauges
+(A.9/A.10) and the overload quotas (A.10) have no source in the port and
+are not printed.
 """
 
 from __future__ import annotations
@@ -82,6 +86,10 @@ _SERVING_COUNTER_FAMILY = {
                                "aggregation shards rebuilt from "
                                "checkpoint blob + WAL suffix"),
 }
+# fan-out fusion (core/query/fused_fanout.py)
+_FANOUT_GAUGE = re.compile(r"^fanout\.(?P<stream>.+)\.group_size$")
+_FANOUT_COUNTER = re.compile(r"^fanout\.(?P<stream>.+)\.(?P<kind>"
+                             r"dispatches|meta_pulls)$")
 _SERVING_HIST_FAMILY = {
     "serving.fanout_ms": ("siddhi_serving_fanout_ms",
                           "scatter fan-out time across aggregation "
@@ -210,6 +218,12 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                      {**base, "name": m.group("agg"),
                       "duration": m.group("dur")}, v)
             continue
+        m = _FANOUT_GAUGE.match(name)
+        if m:
+            fams.add("siddhi_fanout_group_size", "gauge",
+                     "queries fused into one dispatch per stream batch",
+                     {**base, "stream": m.group("stream")}, v)
+            continue
         if name in ("serving.pool.pending", "serving.pool.active"):
             kind = name.rsplit(".", 1)[1]
             fams.add(f"siddhi_serving_pool_{kind}", "gauge",
@@ -225,6 +239,15 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                or _INGEST_COUNTER_FAMILY.get(name))
         if fam is not None:
             fams.add(fam[0], "counter", fam[1], base, v)
+            continue
+        m = _FANOUT_COUNTER.match(name)
+        if m:
+            fams.add(f"siddhi_fanout_{m.group('kind')}_total", "counter",
+                     ("fused fan-out device dispatches (one per group "
+                      "per stream batch)"
+                      if m.group("kind") == "dispatches"
+                      else "fused fan-out combined __meta__ round trips"),
+                     {**base, "stream": m.group("stream")}, v)
             continue
         fams.add("siddhi_counter_total", "counter",
                  "named event counter",
@@ -255,6 +278,15 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                     help_ = "registered telemetry histogram (ms)"
                     labels["name"] = name
         _add_histogram(fams, family, help_, labels, snap)
+    for key, rec in sorted(tel_snapshot.get("jit", {}).items()):
+        kl = {**base, "key": key}
+        fams.add("siddhi_jit_compiles_total", "counter",
+                 "jitted step functions compiled", kl, rec["compiles"])
+        fams.add("siddhi_jit_compile_ms_total", "counter",
+                 "wall-clock ms spent in first-call jit compiles", kl,
+                 rec["compile_ms"])
+        fams.add("siddhi_jit_cache_hits_total", "counter",
+                 "jitted step cache hits", kl, rec["hits"])
 
 
 def _add_statistics(fams: _Families, rt):

@@ -18,9 +18,16 @@ One registry per app (``SiddhiAppContext.telemetry``, always present) plus
 one process-global registry (``global_registry()``) for sites with no app
 context; ``export.py`` merges both into every scrape.
 
-The reference's jit-compile events (``InstrumentedJit``, ``record_jit``,
-``instrument_jit``) time ``jax.jit`` compiles; the port's counterpart
-would time kernel builds and CUDA events, and waits for ROADMAP A.10.
+- **jit events**: ``record_jit(key, wall_ms, hit)`` per compiled step.
+  The port's one compiled step is a fused fan-out group's
+  (``core/query/fused_fanout.py``): building it, and on the card
+  capturing it as a CUDA graph, is one compile under
+  ``fanout.<stream>.step`` with its wall ms, and each member counts one
+  hit for every batch the group dispatches. ``snapshot()["jit"]`` holds
+  ``{key: {"compiles", "compile_ms", "hits"}}``.
+
+The reference's ``InstrumentedJit``/``instrument_jit`` wrapper (a jitted
+callable timing its first call) waits for ROADMAP A.8 (b).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ class TelemetryRegistry:
         self.counters: Dict[str, int] = {}
         # name -> observability.histogram.Histogram (ms by convention)
         self.histograms: Dict[str, object] = {}
+        # compiled-step key -> {"compiles", "compile_ms", "hits"}
+        self.jit: Dict[str, dict] = {}
 
     # ------------------------------------------------------------- gauges
 
@@ -80,13 +89,30 @@ class TelemetryRegistry:
                 h = self.histograms[name] = Histogram()
             return h
 
+    # --------------------------------------------------------- jit events
+
+    def record_jit(self, key: str, wall_ms: float = 0.0,
+                   hit: bool = False) -> None:
+        with self._lock:
+            rec = self.jit.get(key)
+            if rec is None:
+                rec = self.jit[key] = {"compiles": 0, "compile_ms": 0.0,
+                                       "hits": 0}
+            if hit:
+                rec["hits"] += 1
+            else:
+                rec["compiles"] += 1
+                rec["compile_ms"] += float(wall_ms)
+
     # ------------------------------------------------------------ reading
 
     def snapshot(self) -> dict:
         with self._lock:
             counters = dict(self.counters)
+            jit = {k: dict(v) for k, v in self.jit.items()}
             hists = {k: h.snapshot() for k, h in self.histograms.items()}
-        out = {"gauges": self.read_gauges(), "counters": counters}
+        out = {"gauges": self.read_gauges(), "counters": counters,
+               "jit": jit}
         if hists:
             out["histograms"] = hists
         return out
@@ -94,6 +120,7 @@ class TelemetryRegistry:
     def reset(self) -> None:
         with self._lock:
             self.counters.clear()
+            self.jit.clear()
             for h in self.histograms.values():
                 h.reset()
 

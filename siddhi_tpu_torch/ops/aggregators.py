@@ -47,6 +47,11 @@ from siddhi_tpu_torch.query_api.definitions import AttrType
 
 CURRENT, EXPIRED, TIMER, RESET = 0, 1, 2, 3
 
+# every aggregator scan here makes no host read (the distinct kinds launch
+# ``ops/distinct``'s kernel, which declares its own), so a fused fan-out
+# step may hold them inside a CUDA graph (core/query/step_graph.py)
+capturable = True
+
 
 @dataclass
 class _AggDef:

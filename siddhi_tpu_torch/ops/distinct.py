@@ -44,6 +44,11 @@ import torch
 
 from siddhi_tpu_torch.ops import _cuda
 
+# a launch on CUDA tensors makes no host read and runs on the current
+# stream, allocating through torch: a CUDA graph may capture it once its
+# library is loaded (core/query/step_graph.py warms up before capturing)
+capturable = True
+
 MAX_H = 16384         # slot ids are 16 bits in the shared-memory hash index
 SMALL_MAX_H = 64      # the register table up to here, hash + bitmap above
 WIDE_MAX_H = 1 << 26  # the global-index path: slot << 5 | lane fits an int

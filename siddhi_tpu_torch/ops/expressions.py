@@ -93,7 +93,13 @@ class TorchXP:
     def asarray(self, v):
         if isinstance(v, torch.Tensor):
             return v
-        return torch.as_tensor(np.asarray(v), device=self.device)
+        a = np.asarray(v)
+        dt = T.TORCH_OF_NUMPY.get(a.dtype)
+        if a.ndim == 0 and dt is not None:
+            # a scalar constant is filled on the device: no host-to-device
+            # copy, which a CUDA graph could not capture
+            return torch.full((), a.item(), dtype=dt, device=self.device)
+        return torch.as_tensor(a, device=self.device)
 
     def astype(self, v, t: AttrType):
         v = self.asarray(v)
@@ -425,6 +431,36 @@ def _mask(xp, m):
     """A null mask as the namespace's array (a typed null literal's mask
     is a numpy scalar)."""
     return None if m is None else xp.asarray(m)
+
+
+# the built-in scalar functions whose compiled form makes no host read
+# (uuid() leaves placeholders the host fills at emit; currentTimeMillis()
+# returns the clock as the step got it, a 0-d tensor inside a captured
+# step). log() prints, so it reads its arguments back; an extension or a
+# `define function` script may do anything, so neither is capturable.
+CAPTURABLE_FUNCTIONS = frozenset({
+    "cast", "convert", "ifthenelse", "coalesce", "default", "maximum",
+    "minimum", "eventtimestamp", "currenttimemillis", "uuid", "createset",
+    "sizeofset", *_INSTANCE_OF})
+
+
+def capturable(expr, aggregators=frozenset()) -> bool:
+    """Whether the compiled form of ``expr`` (any query-api node, walked
+    through its fields) makes no host read, so a fused fan-out step may
+    hold it inside a CUDA graph: every function it calls is a capturable
+    built-in or one of ``aggregators`` (lower-case aggregator names, which
+    the selector plans as scans and declare themselves)."""
+    if isinstance(expr, AttributeFunction):
+        name = (f"{expr.namespace}:{expr.name}" if expr.namespace
+                else expr.name).lower()
+        if name not in CAPTURABLE_FUNCTIONS and name not in aggregators:
+            return False
+    if isinstance(expr, (list, tuple)):
+        return all(capturable(e, aggregators) for e in expr)
+    fields = getattr(expr, "__dataclass_fields__", None)
+    if fields is None:
+        return True
+    return all(capturable(getattr(expr, f), aggregators) for f in fields)
 
 
 def _compile_function(expr: AttributeFunction, resolver) -> Compiled:

@@ -60,6 +60,9 @@ class FusedSlidingAggStage:
     step; its output already carries the aggregate columns, so the
     selector runs in precomputed mode (projection and having only)."""
 
+    # no host read: a fused fan-out step may hold it in a CUDA graph
+    capturable = True
+
     def __init__(self, length: int, specs: List[agg_ops.AggSpec],
                  num_keys_ref, exact: bool):
         self.length = length

@@ -157,6 +157,10 @@ def _row_order_base(cols: Dict, B: int, device):
 class WindowStage:
     # restored state re-arms its expiry timer (core/util/snapshot.py)
     needs_scheduler = False
+    # True: ``apply`` makes no host read and takes ``ctx["current_time"]``
+    # as a tensor too, so a fused fan-out step may hold it inside a CUDA
+    # graph (core/query/step_graph.py). Undeclared stages are not.
+    capturable = False
 
     batch_mode = False
 
@@ -209,6 +213,8 @@ class PassthroughWindowStage(WindowStage):
     restart per event; ``emit_reset=False`` leaves the RESET rows out
     where the query has no aggregate state to restart."""
 
+    capturable = True
+
     def __init__(self, col_specs: Dict[str, np.dtype], pass_expired: bool = False,
                  empty_window: bool = False, expired_needed: bool = False,
                  emit_reset: bool = True):
@@ -227,7 +233,9 @@ class PassthroughWindowStage(WindowStage):
         if self.empty_window:
             keys = _data_keys(cols)
             B = valid.shape[0]
-            now = int(ctx["current_time"])
+            # the clock as a column: a Python int, or a 0-d tensor inside a
+            # captured step
+            now = _full(B, ctx["current_time"], torch.int64, dev)
             valid_cur = valid & (cols[TYPE_KEY] == CURRENT)
             rank, _n = _insert_ranks(valid_cur)
             parts = [({k: cols[k] for k in keys},
@@ -240,8 +248,7 @@ class PassthroughWindowStage(WindowStage):
             if self.emit_reset:
                 reset_rows = _zero_rows(cols, B, dev)
                 reset_rows[TS_KEY] = torch.where(
-                    valid_cur, _full(B, now, torch.int64, dev),
-                    torch.zeros_like(cols[TS_KEY]))
+                    valid_cur, now, torch.zeros_like(cols[TS_KEY]))
                 parts.append((reset_rows, _full(B, RESET, torch.int8, dev),
                               valid_cur, rank * 3 + 2))
             out, _ = _order_emit(parts)
@@ -267,6 +274,8 @@ class LengthWindowStage(WindowStage):
     emits [EXPIRED(oldest, ts=now), CURRENT]. The ring is ``W`` slots per
     buffered column plus a 0-d int64 ``total`` of rows ever inserted,
     written in place."""
+
+    capturable = True
 
     def __init__(self, length: int, col_specs: Dict[str, np.dtype]):
         if length <= 0:
@@ -309,8 +318,9 @@ class LengthWindowStage(WindowStage):
         for k in keys:
             ring_v = state["buf"][k][ring_slot]
             expired[k] = torch.where(from_batch, cols[k][batch_row], ring_v)
-        expired[TS_KEY] = torch.full((B,), int(ctx["current_time"]),
-                                     dtype=torch.int64, device=dev)
+        # EXPIRED rows are stamped with the clock, which a captured step
+        # takes as a 0-d tensor (a Python int would be baked in)
+        expired[TS_KEY] = _full(B, ctx["current_time"], torch.int64, dev)
 
         # write the last min(W, n_ins) inserted rows (unique slots)
         write = valid_cur & (rank >= n_ins - W)
@@ -358,6 +368,10 @@ class TimeWindowStage(WindowStage):
     TIMER step given ``ctx["horizon"]`` stands for the chain of timers up
     to it: the rows with ts + t <= horizon expire, each stamped
     max(now, ts + t), the time its own timer would have fired."""
+
+    # not capturable: the step reads the clock and the emission's length
+    # J on the host (and the scheduled form the FIFO's fill and head)
+    capturable = False
 
     def __init__(self, time_ms: int, col_specs: Dict[str, np.dtype], capacity: int,
                  external: bool = False, ts_key: str = TS_KEY):

@@ -259,6 +259,16 @@ def route_ineligibility(runtime) -> Optional[str]:
     return None
 
 
+def _release_from_fanout(runtime):
+    """A routed step owns the runtime's dispatch: a fused fan-out group
+    (core/query/fused_fanout.py) would keep stepping the member through its
+    unrouted fused step, so hand the member back its own junction
+    subscription before installing the routed one."""
+    group = getattr(runtime, "_fanout_group", None)
+    if group is not None:
+        group.release(runtime)
+
+
 def device_route_query_step(runtime, mesh: Mesh, rows_per_shard: int = 4096,
                             exchange: Optional[str] = None):
     """Install routed execution over ``mesh`` for a keyed query (see the
@@ -283,6 +293,7 @@ def device_route_query_step(runtime, mesh: Mesh, rows_per_shard: int = 4096,
         exchange = getattr(runtime.app_context, "shard_exchange", "all_to_all")
     if exchange not in ("all_to_all", "pallas_ring"):
         raise ValueError(f"unknown shard exchange {exchange!r}")
+    _release_from_fanout(runtime)
     partitioned = runtime.partition_ctx is not None
     use_lut = partitioned and runtime.keyer is not None
 

@@ -53,7 +53,7 @@ _UNPORTED = {
     "profile": ("the critical-path profiler (observability/journey.py, "
                 "costmodel.py) and the device profiler trace are ROADMAP A.10"),
     "programs": ("the compiled-program registry and cache "
-                 "(core/util/program_cache.py) are ROADMAP A.8"),
+                 "(core/util/program_cache.py) are ROADMAP A.8 (b)"),
     "autopilot": "the autopilot (siddhi_tpu/autopilot/) is ROADMAP A.10",
     "cluster": "the cluster fabric (siddhi_tpu/cluster/) is ROADMAP A.10",
 }

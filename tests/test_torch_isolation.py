@@ -50,8 +50,9 @@ def test_port_imports_and_runs_with_jax_unimportable():
     table fed by ``update or insert into`` and probed by ``in`` and a
     join, a named window, an ``every`` trigger and on-demand finds, and
     answers them; the serving tier, the REST service, statistics, the WAL,
-    metrics export and the utils import too, and a sharded aggregation
-    under ``@app:statistics`` with a WAL runs and is scraped."""
+    metrics export, fan-out fusion (its planner, group, graph and reason
+    codes) and the utils import too, and a sharded aggregation under
+    ``@app:statistics`` with a WAL runs and is scraped."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -72,6 +73,10 @@ from siddhi_tpu_torch.serving import ShardedIncrementalAggregation
 from siddhi_tpu_torch.serving.cluster_gather import gather_query_rows
 from siddhi_tpu_torch.utils.docgen import generate_docs
 from siddhi_tpu_torch.utils.event_printer import print_events
+from siddhi_tpu_torch.core.eligibility import code_of
+from siddhi_tpu_torch.core.plan.fanout_plan import plan_fanout_groups
+from siddhi_tpu_torch.core.query.fused_fanout import FusedFanoutRuntime
+from siddhi_tpu_torch.core.query.step_graph import StepGraph
 APP = '''
 define stream StockStream (symbol string, price float, volume long);
 partition with (symbol of StockStream)

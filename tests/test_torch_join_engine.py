@@ -1,7 +1,8 @@
 """The partitioned join engine on the port (``core/join/engine.py``), on
 the CPU: the shapes of the reference's ``test_join_engine.py`` that do not
-need snapshots or fan-out fusion (A.8), and the partition hash against the
-reference's. Its snapshot shapes run in ``test_torch_persistence.py``.
+need snapshots or fan-out fusion, and the partition hash against the
+reference's. Its snapshot shapes run in ``test_torch_persistence.py``, its
+fan-out scenarios in ``test_torch_fanout.py``.
 
 - Eligibility and its reasons; the float-key shape keeps the broadcast
   probe and still pipelines.
