@@ -26,9 +26,13 @@ Phases (any failure exits non-zero and prints no result line):
             ``avg(price)``, ``sum(volume)``; 16,384 key slots, 573 MB of
             window state) routed over 4 logical shards with
             ``shard_exchange: pallas_ring``, fed 65,536-row batches of 10,000
-            string symbols through ``send_columns``. Checks: the exchange
-            kernel launched once per routed dispatch, no route overflow,
-            routed output
+            string symbols through ``send_columns``; the routed step runs as
+            a CUDA graph (the first batch eager, then captured, the other
+            seven replayed). Checks: the exchange kernel launched once per
+            routed dispatch (replays included), one capture and seven
+            replays, the exchange inside replay 2 (batch 3) held against
+            ``ring_exchange_cols_plain`` on its recorded columns, no route
+            overflow, routed output
             equal to an unrouted run on the card, the first two batches equal
             to the port's own CPU run (plain versions), one output row per
             input row, finite values. Prints events/s of both card runs;
@@ -256,7 +260,8 @@ Phases (any failure exits non-zero and prints no result line):
             with ``"shed": true``, no 500, ``/metrics`` counting them and
             the rebuild; the statistics' StockStream count == the rows
             sent, and D1's host syncs a step at ``detail`` == without
-            statistics; ``/programs`` and ``/trace/start`` answer 501.
+            statistics; ``/trace/start`` answers 501, ``/programs`` 200
+            with the group's program-cache entry.
             Prints the sharded and unsharded fold, routing, decode and
             ``/ingest`` ms a batch, ``/query`` p50/p99 under four clients,
             fan-out and merge ms, rebuild, persist and restore-plus-replay
@@ -266,7 +271,8 @@ Phases (any failure exits non-zero and prints no result line):
             StockStream (the global flagship four times, the twin, D1 with
             H = 64, and ``[volume > 500]`` with a product) over the
             phase 4 feed, one fused group with 4 unique programs, captured
-            as a CUDA graph (one replay and one meta pull a batch). Checks:
+            as a CUDA graph (one replay and one meta pull a batch, the
+            capture's batch eager). Checks:
             fused and captured == unfused member by member (ints, strings,
             timestamps, types and order exactly, floats to rtol 1e-12, the
             max abs difference printed); q0-q3 equal; one dispatch and one
@@ -289,12 +295,43 @@ Phases (any failure exits non-zero and prints no result line):
             4, host launch calls and device ops a batch under
             torch.profiler, host syncs a batch, the busy share, capture ms
             and the graph pool's bytes;
-24. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+24. program cache PC, at full width over phase 4's feed generator: four
+            apps of the global flagship and two of D1, each on its own
+            seeded feed of 4 batches (65,536 rows, 10,000 symbols), fed
+            batch by batch in turn, with ``siddhi_tpu.program_cache`` on
+            (the default) and off; app 2 snapshots after its second batch
+            and restores that revision in place. Checks: every app's rows
+            bit-equal cache on vs off (max float abs difference 0); every
+            replay's valid rows, meta and state after == the eager step on
+            a clone of the same state and columns; cache on: 2 entries
+            with refcounts 4 and 2, compiles 1 on the first app of each
+            program and 0 on the others, 2 captures in all, none at the
+            restore; cache off: 6 captures and the restore's re-capture;
+            after every app's shutdown the cache holds nothing more and
+            ``torch.cuda.memory_allocated`` is within 1 MiB of its value
+            before the phase. Prints capture counts and ms, graph pool
+            and slot bytes, copy-in/out ms a batch of the flagship's
+            shared slot (CUDA events), events/s an app cache on vs off, and
+            a flagship batch's and a routed x4 batch's host launch calls
+            and busy share as a graph replay vs eager (``profile_batch``);
+Single query steps run as CUDA graphs since phase 24 was added: every
+capturable step of phases 1-23 (the routed and unrouted flagship, the
+global flagship fused and generic, the twin, D1-D4, S, keyed length
+windows in partitions, the pipelined and served apps) runs its first batch
+of a shape eagerly, is captured, and replays; ``ScanRecorder`` and
+``ExchangeRecorder`` count eager calls and replays alike, so each phase's
+launch counts and recorded-call checks hold as they did.
+25. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
-    ``{"fanout": ...}`` line, a ``{"kernels": [...]}`` line, the
-    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+    ``{"fanout": ...}`` line, a ``{"program_cache": ...}`` line, a
+    ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+    ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --cells ROOT`` instead drives the main path's
+cells with the checkout at ROOT (``cells``): one process a checkout, to
+compare two commits on one card.
 
 Imports nothing of JAX nor of the JAX package ``siddhi_tpu``.
 """
@@ -588,6 +625,10 @@ def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
         facts["route_overflow"] = q._route_layout.route_overflow_rows
         facts["dispatches"] = q._route_layout.dispatches
     facts["key_slots"] = (q.selector_plan.num_keys * (n_shards if routed else 1))
+    facts["captured"] = q.captured
+    graph = getattr(q._step, "graph", None)
+    facts["captures"] = graph.captures if graph is not None else 0
+    facts["replays"] = graph.replays if graph is not None else 0
     m.shutdown()
     return cb.batches, seconds, facts
 
@@ -924,7 +965,8 @@ def host_ms(fn, runs: int = TIMED_RUNS):
     return (t1 - t0) * 1e3 / runs
 
 
-def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS, main=None):
+def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS, main=None,
+              refill=None):
     """Mean device time of the CUDA kernels whose names hold ``kernel``
     over ``runs`` calls of ``fn``, each after an L2 flush (torch.profiler),
     and how many launches of the call's main kernel (names holding any of
@@ -933,7 +975,10 @@ def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS, main=None):
     started through ctypes (on an H100 it saw 27 of 30 distinct-scan
     launches in one run, and none of 10 in one), so the mean is over the
     launches it saw, and a trace that saw none is taken again, up to three
-    times: a count of traces above 1 is printed beside the launches seen."""
+    times: a count of traces above 1 is printed beside the launches seen.
+    A ``fn`` that consumes one prepared input a call (a pool of pre-call
+    states) passes ``refill``, called before each trace after the first to
+    prepare ``runs`` more."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -941,6 +986,8 @@ def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS, main=None):
     fn()
     torch.cuda.synchronize()
     for traces in range(1, 4):
+        if traces > 1 and refill is not None:
+            refill()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for i in range(runs):
                 flush.fill_(i & 0xFF)
@@ -1027,98 +1074,83 @@ def check_exchange(device):
 # -------------------------------------------------------------- distinct
 
 class ScanRecorder:
-    """Stands in for ``distinct_scan`` where the aggregators call it: every
-    call goes through to the wrapper (which launches the kernel and
-    counts), and the arguments of call ``at`` are kept, the state cloned
-    before the call updates it in place, for the kernel's checks and
-    timings at the main path's shapes."""
+    """Stands in for ``distinct_scan`` where the aggregators call it, and
+    watches every ``StepGraph.run``, to keep the scan of batch ``at`` for
+    the kernel's checks and timings at the main path's shapes. Batches are
+    counted as the card runs them: an eager call (the first batch of a
+    captured step's shape is one, and so is every batch of an eager step)
+    or a replay of a graph whose capture recorded a scan. An eager call's
+    arguments are cloned before it updates the tables in place, its
+    results and tables after. Under capture the recorder adds clones of
+    the tables before the scan to the graph and keeps the call's tensors
+    (graph-pool memory that every replay rewrites, and that the capture
+    cannot reuse while they are referenced); after replay ``at`` those
+    are cloned: the tables before, the inputs, the results and the tables
+    after."""
 
     def __init__(self, at: int):
-        self.at, self.calls, self.args, self.kwargs = at, 0, None, None
-
-    def __call__(self, *args, **kwargs):
-        from siddhi_tpu_torch.ops.distinct import distinct_scan
-
-        if self.calls == self.at:
-            self.args = [a.clone() if a is not None else None for a in args]
-            self.kwargs = dict(kwargs)
-        self.calls += 1
-        return distinct_scan(*args, **kwargs)
-
-
-@contextlib.contextmanager
-def recording(at: int):
-    from siddhi_tpu_torch.ops import aggregators
-
-    rec = ScanRecorder(at)
-    orig = aggregators.distinct_scan
-    aggregators.distinct_scan = rec
-    try:
-        yield rec
-    finally:
-        aggregators.distinct_scan = orig
-
-
-class GraphScanRecorder:
-    """The distinct-scan call inside a captured fused step (phases 22 and
-    23). It stands in for ``distinct_scan`` where the aggregators call it
-    and keeps the call made under capture: its argument and result
-    tensors live in the graph's pool, and while they are referenced the
-    capture cannot reuse their memory, so every replay writes that batch's
-    inputs and outputs into them. Around replay ``at`` of the group's
-    graph it clones the state before (the table the replay updates in
-    place), then the inputs, the outputs and the state after."""
-
-    def __init__(self, group, at: int):
-        self.group, self.at, self.replays = group, at, 0
-        self.call = self.args = self.kwargs = self.got = None
+        self.at, self.n, self.replays = at, 0, 0
+        self.args = self.kwargs = self.got = None
+        self.current = None         # the StepGraph whose run is on the stack
+        self.in_graph = {}          # id(graph) -> (tables before, args, kwargs, out)
 
     def __call__(self, *args, **kwargs):
         import torch
 
         from siddhi_tpu_torch.ops.distinct import distinct_scan
 
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            before = [t.clone() for t in args[:3]]
+            out = distinct_scan(*args, **kwargs)
+            self.in_graph[id(self.current)] = (before, args, kwargs, out)
+            return out
+        i, self.n = self.n, self.n + 1
+        if i != self.at:
+            return distinct_scan(*args, **kwargs)
+        self.args = [a.clone() if a is not None else None for a in args]
+        self.kwargs = dict(kwargs)
         out = distinct_scan(*args, **kwargs)
-        if torch.cuda.is_current_stream_capturing():
-            self.call = (args, kwargs, out)
+        self.got = ([x if x is None else x.clone() for x in out],
+                    [t.clone() for t in args[:3]])
         return out
 
-    def wrap(self, run):
-        def recorded_run(*a, **k):
-            i = self.replays
-            self.replays += 1
-            if i != self.at:
-                return run(*a, **k)
-            _require(self.call is not None, "graph scan recorder: no captured call "
-                     f"before replay {i}")
-            captures = self.group.graph.captures
-            before = [t.clone() for t in self.call[0][:3]]
-            res = run(*a, **k)
-            _require(self.group.graph.captures == captures,
-                     f"graph scan recorder: replay {i} re-captured the step")
-            args, kwargs, out = self.call
-            self.args = before + [x if x is None else x.clone() for x in args[3:]]
-            self.kwargs = dict(kwargs)
-            self.got = ([x if x is None else x.clone() for x in out],
-                        [t.clone() for t in args[:3]])
+    def wrap_run(self, run):
+        def recorded_run(graph, *a, **k):
+            prev, self.current = self.current, graph
+            try:
+                res = run(graph, *a, **k)
+            finally:
+                self.current = prev
+            call = self.in_graph.get(id(graph))
+            if res[2] is None and call is not None:     # a replay ran the scan
+                i, self.n = self.n, self.n + 1
+                self.replays += 1
+                if i == self.at:
+                    before, args, kwargs, out = call
+                    self.args = ([t.clone() for t in before]
+                                 + [x if x is None else x.clone() for x in args[3:]])
+                    self.kwargs = dict(kwargs)
+                    self.got = ([x if x is None else x.clone() for x in out],
+                                [t.clone() for t in args[:3]])
             return res
         return recorded_run
 
 
 @contextlib.contextmanager
-def graph_recording(group, at: int):
-    """``GraphScanRecorder`` installed for the life of the block."""
+def recording(at: int):
+    """``ScanRecorder`` installed for the life of the block."""
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
     from siddhi_tpu_torch.ops import aggregators
 
-    rec = GraphScanRecorder(group, at)
-    orig_scan, orig_run = aggregators.distinct_scan, group.graph.run
+    rec = ScanRecorder(at)
+    orig_scan, orig_run = aggregators.distinct_scan, StepGraph.run
     aggregators.distinct_scan = rec
-    group.graph.run = rec.wrap(orig_run)
+    StepGraph.run = rec.wrap_run(orig_run)
     try:
         yield rec
     finally:
         aggregators.distinct_scan = orig_scan
-        del group.graph.run
+        StepGraph.run = orig_run
 
 
 def check_graph_scan(rec, what: str) -> float:
@@ -1130,7 +1162,7 @@ def check_graph_scan(rec, what: str) -> float:
 
     from siddhi_tpu_torch.ops.distinct import distinct_scan_plain
 
-    _require(rec.got is not None, f"{what}: replay {rec.at} was not recorded")
+    _require(rec.got is not None, f"{what}: batch {rec.at} was not recorded")
     err = check_scan(rec.args, rec.kwargs, what + ", eager kernel")
     st_p = [t.clone() for t in rec.args[:3]]
     want = distinct_scan_plain(*st_p, *rec.args[3:], **rec.kwargs)
@@ -1233,17 +1265,29 @@ def time_scan(args, kwargs, flush, runs=TIMED_RUNS, plain_runs=TIMED_RUNS,
     state, rows = args[:3], args[3:]
 
     def calls(fn, n, cut=None):
-        pool = [[t.clone() for t in state] for _ in range(n + 1)]
+        pool = []
+
+        def refill(k=n):
+            pool[:] = [[t.clone() for t in state] for _ in range(k)]
+
+        refill(n + 1)
         r = [a if a is None or cut is None else a[:cut] for a in rows]
-        return lambda: fn(*pool.pop(), *r, **kwargs)
+
+        def call():
+            return fn(*pool.pop(), *r, **kwargs)
+
+        call.refill = refill
+        return call
 
     out = {"ms": time_ms(calls(distinct_scan, runs), runs=runs, flush=flush),
            "plain_ms": time_ms(calls(distinct_scan_plain, plain_runs, plain_cut),
                                runs=plain_runs, flush=flush),
            "host_ms": host_ms(calls(distinct_scan, runs), runs=runs)}
+    scan = calls(distinct_scan, runs)
     out["device_ms"], out["device_seen"], out["device_traces"] = device_ms(
-        calls(distinct_scan, runs), "distinct_scan_", flush, runs=runs,
-        main=("distinct_scan_registers", "distinct_scan_hash"))
+        scan, "distinct_scan_", flush, runs=runs,
+        main=("distinct_scan_registers", "distinct_scan_hash"),
+        refill=scan.refill)
     out["runs"] = runs
     if plain_cut is not None:
         out["cut_ms"] = time_ms(calls(distinct_scan, plain_runs, plain_cut),
@@ -1313,13 +1357,19 @@ def crossover(args, kwargs, flush):
                 _require(torch.equal(got[0], ref[0][0]) and all(
                     torch.equal(a, b) for a, b in zip(st, ref[1])),
                     f"crossover H={H}: the hash path differs from registers")
-            pool = [[vk_h.clone(), vc_h.clone(), stamp.clone()]
-                    for _ in range(CROSSOVER_RUNS + 1)]
+            pool = []
+
+            def refill(k=CROSSOVER_RUNS):
+                pool[:] = [[vk_h.clone(), vc_h.clone(), stamp.clone()]
+                           for _ in range(k)]
+
+            refill(CROSSOVER_RUNS + 1)
             # (ms, launches seen, traces)
             out[(H, name)] = device_ms(
                 lambda: distinct.launch(*pool.pop(), *rows, emit, path),
                 "distinct_scan_", flush, runs=CROSSOVER_RUNS,
-                main=("distinct_scan_registers", "distinct_scan_hash"))
+                main=("distinct_scan_registers", "distinct_scan_hash"),
+                refill=refill)
     return out
 
 
@@ -2235,6 +2285,7 @@ def recording_batch_step(min_rows: int):
     from siddhi_tpu_torch.ops.distinct import distinct_scan
 
     rec = ScanRecorder(at=-1)
+    rec.calls = 0
 
     def call(*args, **kwargs):
         if args[3].numel() >= min_rows:
@@ -4488,37 +4539,75 @@ def require_same_state(blob: bytes, rt, what: str) -> int:
 
 
 class ExchangeRecorder:
-    """Stands in for ``ring_exchange_cols`` in the routed step: every call
-    goes through to the wrapper, and the first call's inputs are cloned
-    for the kernel-vs-plain check."""
+    """Stands in for ``ring_exchange_cols`` in the routed step, and watches
+    every ``StepGraph.run``, to keep exchange call ``at`` (counted as
+    ``ScanRecorder`` counts: eager calls and replays of a graph whose
+    capture recorded an exchange). Every call goes through to the
+    wrapper. An eager call's inputs are cloned; under capture the call's
+    input and output tensors are kept (graph-pool memory each replay
+    rewrites, not reused by the capture while referenced), and after
+    replay ``at`` both are cloned: ``got`` is what the kernel wrote
+    inside the graph."""
 
-    def __init__(self):
-        self.bufs, self.n = None, None
+    def __init__(self, at: int = 0):
+        self.at, self.calls, self.replays = at, 0, 0
+        self.bufs = self.got = self.n = None
+        self.current = None
+        self.in_graph = {}          # id(graph) -> (bufs, outs, n)
 
     def __call__(self, bufs, n):
+        import torch
+
         from siddhi_tpu_torch.ops.exchange import ring_exchange_cols
 
-        if self.bufs is None:
+        out = ring_exchange_cols(bufs, n)
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            self.in_graph[id(self.current)] = (bufs, out, n)
+            return out
+        i, self.calls = self.calls, self.calls + 1
+        if i == self.at:
             self.bufs, self.n = [b.clone() for b in bufs], n
-        return ring_exchange_cols(bufs, n)
+        return out
+
+    def wrap_run(self, run):
+        def recorded_run(graph, *a, **k):
+            prev, self.current = self.current, graph
+            try:
+                res = run(graph, *a, **k)
+            finally:
+                self.current = prev
+            call = self.in_graph.get(id(graph))
+            if res[2] is None and call is not None:
+                i, self.calls = self.calls, self.calls + 1
+                self.replays += 1
+                if i == self.at:
+                    bufs, outs, self.n = call
+                    self.bufs = [b.clone() for b in bufs]
+                    self.got = [o.clone() for o in outs]
+            return res
+        return recorded_run
 
 
 @contextlib.contextmanager
-def recording_exchange():
+def recording_exchange(at: int = 0):
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
     from siddhi_tpu_torch.parallel import mesh
 
-    rec = ExchangeRecorder()
-    orig = mesh.ring_exchange_cols
+    rec = ExchangeRecorder(at)
+    orig, orig_run = mesh.ring_exchange_cols, StepGraph.run
     mesh.ring_exchange_cols = rec
+    StepGraph.run = rec.wrap_run(orig_run)
     try:
         yield rec
     finally:
         mesh.ring_exchange_cols = orig
+        StepGraph.run = orig_run
 
 
-def check_exchange_call(rec, what: str) -> None:
+def check_exchange_call(rec, what: str) -> int:
     """The recorded call through the kernel and the plain version: equal
-    byte for byte."""
+    byte for byte; a call recorded inside a graph also holds what the
+    kernel wrote there equal to plain. Returns the columns compared."""
     import torch
 
     from siddhi_tpu_torch.ops.exchange import ring_exchange_cols, ring_exchange_cols_plain
@@ -4529,6 +4618,9 @@ def check_exchange_call(rec, what: str) -> None:
     want = ring_exchange_cols_plain([b.clone() for b in rec.bufs], rec.n)
     for i, (a, b) in enumerate(zip(got, want)):
         _require(torch.equal(a, b), f"{what}: kernel column {i} differs from plain")
+    for i, (a, b) in enumerate(zip(rec.got or (), want)):
+        _require(torch.equal(a, b), f"{what}: the graph's column {i} differs from plain")
+    return len(want)
 
 
 def split_cell(device, label: str, build, items, half: int, send, out_stream: str,
@@ -4900,6 +4992,7 @@ def phase_serving(device, straight, card: str):
 
     from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.core.aggregation.incremental import parse_duration_name
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
     from siddhi_tpu_torch.core.stream.input import wire
     from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
     from siddhi_tpu_torch.ops.distinct import distinct_scan
@@ -4959,9 +5052,9 @@ def phase_serving(device, straight, card: str):
         _require(group is not None and group.captured
                  and [q.name for q in group.members] == ["bench", "d1"],
                  "serving: bench and d1 do not run as one captured fan-out group")
-        captures0 = group.graph.captures
+        captures0 = StepGraph.total_captures
         distinct_scan.launches = 0
-        with graph_recording(group, at=len(feed) - 1) as rec:
+        with recording(at=len(feed) - 1) as rec:
             for i, frame in enumerate(frames):
                 def post(frame=frame):
                     code, body, _h = http(port, "POST", "/ingest/StockStream",
@@ -4993,12 +5086,13 @@ def phase_serving(device, straight, card: str):
                                  for k in range(SV_SHARDS)),
                              "serving: a device view outlived a fold")
         launches["SV_D1"] = distinct_scan.launches
-        captures = group.graph.captures - captures0
+        captures = StepGraph.total_captures - captures0
         agg._fold_batch, agg._route, wire.decode_frame = orig_fold, orig_route, orig_decode
-        _require(launches["SV_D1"] == len(feed) + captures,
+        _require(launches["SV_D1"] == len(feed) and captures == 1
+                 and rec.replays == len(feed) - captures,
                  f"serving: {launches['SV_D1']} distinct-scan launches for {len(feed)} "
-                 f"frames and {captures} capture(s): want one a frame (replayed) and "
-                 f"one a capture's warm-up")
+                 f"frames, {captures} capture(s), {rec.replays} replays: want one "
+                 f"launch a frame (the capture's frame eager, the others replayed)")
         facts["graph_captures"] = captures
         facts["graph_replays"] = rec.replays
         err = check_graph_scan(rec, "SV D1 (recorded call in the graph)")
@@ -5139,11 +5233,16 @@ def phase_serving(device, straight, card: str):
         facts["fanout_ms"] = {q: tel["serving.fanout_ms"][q] for q in ("p50", "p99")}
         facts["merge_ms"] = {q: tel["serving.merge_ms"][q] for q in ("p50", "p99")}
         facts["storm"] = {"200": codes.count(200), "503": codes.count(503)}
-        for path, item in (("/programs", "A.8"), ("/trace/start", "A.10")):
-            code, body, _h = http(port, "GET" if path == "/programs" else "POST", path,
-                                  None if path == "/programs" else {})
-            _require(code == 501 and f"ROADMAP {item}" in body["error"],
-                     f"serving: {path} answered {code}: {body}")
+        code, body, _h = http(port, "POST", "/trace/start", {})
+        _require(code == 501 and "ROADMAP A.10" in body["error"],
+                 f"serving: /trace/start answered {code}: {body}")
+        # the group's step holds a program-cache entry, served at /programs
+        code, body, _h = http(port, "GET", "/programs")
+        _require(code == 200 and {"programs", "clusters", "cache"} <= set(body)
+                 and any(e["family"] == "fused_fanout" and name in e["shared_by"]
+                         and e["captured"] for e in body["cache"]["entries"]),
+                 f"serving: /programs answered {code}: {body}")
+        facts["programs_entries"] = len(body["cache"]["entries"])
 
         # effectively-once: restore batch 2's revision; the WAL replays 3-4
         facts["wal_bytes"] = sum(np.asarray(v).nbytes for r in wal._log
@@ -5153,16 +5252,17 @@ def phase_serving(device, straight, card: str):
         stores_before = {d: agg_rows(rt, d) for d in AG_DURATIONS}
         n_d1 = len(cbs["D1Stream"].batches)
         distinct_scan.launches = 0
-        captures0 = group.graph.captures
+        captures0 = StepGraph.total_captures
         t0 = time.perf_counter()
         code, body, _h = http(port, "POST", f"/apps/{name}/restore", {"revision": rev})
         sync(device)
         facts["restore_replay_ms"] = (time.perf_counter() - t0) * 1e3
         launches["SV_replay"] = distinct_scan.launches
         _require(code == 200, f"serving: restore answered {code}: {body}")
-        # the restore replaced the state tensors: the graph is re-captured
-        recaptures = group.graph.captures - captures0
-        _require(recaptures == 1 and launches["SV_replay"] == len(feed) - 2 + recaptures,
+        # the restore made the group a new step; its entry had one sharer,
+        # so the new step's graph is captured once (its frame eager)
+        recaptures = StepGraph.total_captures - captures0
+        _require(recaptures == 1 and launches["SV_replay"] == len(feed) - 2,
                  f"serving: {launches['SV_replay']} distinct-scan launches and "
                  f"{recaptures} re-captures in the replay")
         first = concat_rows(cbs["D1Stream"].batches[2:n_d1])
@@ -5219,6 +5319,7 @@ def phase_serving(device, straight, card: str):
 
 # ------------------------------------------------------- 23. fan-out fusion
 
+EX_RECORD_AT = 2        # phase 4: the exchange call (batch 3, a replay) held against plain
 FO_OUTS = tuple(f"O{i}" for i in range(7))
 FO_RECORD_AT = 2        # the replay whose distinct-scan call is held against plain
 FO_SPLIT = 4            # batches before the revisions of the restore checks
@@ -5495,6 +5596,7 @@ def phase_fanout(device, feed, card: str):
     import numpy as np
     import torch
 
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
     from siddhi_tpu_torch.ops.distinct import distinct_scan
 
     t_phase = time.perf_counter()
@@ -5511,7 +5613,7 @@ def phase_fanout(device, feed, card: str):
              "FO: the seven siblings do not form one group")
     _require(g.captured, "FO: the group does not run as a CUDA graph")
     distinct_scan.launches = 0
-    with graph_recording(g, at=FO_RECORD_AT) as rec:
+    with recording(at=FO_RECORD_AT) as rec:
         fused_s = fo.send(feed)
     main_launches = distinct_scan.launches
     tel = fo.rt.app_context.telemetry.snapshot()
@@ -5535,9 +5637,12 @@ def phase_fanout(device, feed, card: str):
              f"for {n} batches")
     _require(jit["compiles"] == g.graph.captures == 1 and jit["hits"] == 7 * n,
              f"FO: jit record {jit} for {g.graph.captures} capture(s) of {n} batches")
-    _require(g.graph.replays == n and main_launches == n + g.graph.captures,
+    # the batch that captures runs eagerly, the others replay: one launch a batch
+    _require(g.graph.replays == n - g.graph.captures and main_launches == n,
              f"FO: {main_launches} distinct-scan launches for {g.graph.replays} "
              f"replays and {g.graph.captures} capture(s)")
+    _require(rec.replays == g.graph.replays, f"FO: {rec.replays} replays ran the "
+             f"recorded scan, of {g.graph.replays}")
     scan_err = check_graph_scan(rec, "FO D1 (recorded call in the graph)")
     fused1 = fo.close()
     for s in FO_OUTS[:4] + FO_OUTS[5:6]:
@@ -5608,12 +5713,15 @@ def phase_fanout(device, feed, card: str):
         dst.send(feed[:FO_SPLIT])
         blob = src.rt.snapshot()
         src.close()
-        cap0 = dst.group.graph.captures if dst.group is not None else 0
+        # the group's program-cache entry has one sharer, so the restore's
+        # new step makes a new entry: its graph is captured once (the
+        # unfused runtime's single steps likewise)
+        cap0 = StepGraph.total_captures
         dst.rt.restore(blob)
         n0 = {s: len(cb.batches) for s, cb in dst.cbs.items()}
         dst.send(feed[FO_SPLIT:])
         tail = {s: cb.batches[n0[s]:] for s, cb in dst.cbs.items()}
-        recaptures = (dst.group.graph.captures - cap0) if dst.group is not None else None
+        recaptures = (StepGraph.total_captures - cap0) if dst.group is not None else None
         dst.close()
         want = {s: b[FO_SPLIT:] for s, b in unfused1.items()}
         key = "unfused_into_fused" if not src_fused else "fused_into_unfused"
@@ -5671,6 +5779,267 @@ def phase_fanout(device, feed, card: str):
           f"{fj_facts['dispatches']} dispatches, {fj_facts['eps']:.1f} events/s; "
           f"phase {facts['phase_s']:.1f} s [{card}]", flush=True)
     return facts, main_launches, scan_err
+
+
+PC_BATCHES = 4                  # each app's seeded feed
+PC_FLAGSHIPS = 4                # global flagship apps; D1 apps: 2
+PC_RESTORE_APP = 1              # app 2 restores its own revision halfway
+PC_SEEDS = (41, 42, 43, 44, 45, 46)
+
+
+def pc_apps(device, cache_on: bool):
+    """Phase 24's six apps on ``device``: four global flagships and two
+    D1s, each under its own name, the program cache on or off; key slots
+    pre-sized as the flagship's. Returns (manager, [(runtime, query,
+    collector)])."""
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager(
+        {"siddhi_tpu.program_cache": "true" if cache_on else "false",
+         "siddhi_tpu.pipeline_depth": "1"}))
+    apps = []
+    for i in range(PC_FLAGSHIPS + 2):
+        body = (GLOBAL_APP if i < PC_FLAGSHIPS else D1_APP).format(W=WINDOW)
+        rt = m.create_siddhi_app_runtime(f"@app:name('pc{i}')\n" + body)
+        q = rt.query_runtimes["bench"]
+        q.selector_plan.num_keys = KEY_SLOTS
+        cb = collector()
+        rt.add_callback("OutStream", cb)
+        apps.append((rt, q, cb))
+    return m, apps
+
+
+@contextlib.contextmanager
+def eager_beside_replays(device, checks: list):
+    """Around every batch of a query step in graph mode (a replay, or the
+    batch that captures): the eager step on a clone of the same state and
+    device copies of the same columns; the batch's valid output rows, its
+    meta and the state after must equal the eager run's bit for bit.
+    Appends one count a checked batch."""
+    import torch
+
+    from siddhi_tpu_torch.core.query.step_graph import clone_tree, device_cols, state_leaves
+    from siddhi_tpu_torch.observability.telemetry import InstrumentedJit
+
+    orig = InstrumentedJit.replay
+
+    def replay(inst, state, cols, now, depth):
+        twin = clone_tree(state)
+        dev = device_cols(cols, device)
+        res = orig(inst, state, cols, now, depth)
+        _st, want = inst._fn(twin, dev, torch.full((), int(now), dtype=torch.int64,
+                                                    device=device))
+        got = res[1]
+        valid = want["__valid__"]
+        _require(torch.equal(got["__valid__"], valid)
+                 and torch.equal(got["__meta__"], want["__meta__"]),
+                 f"PC: {inst.key}: replay's valid rows or meta differ from eager")
+        for k, v in want.items():
+            if k not in ("__valid__", "__meta__") and v.dim() and v.shape[0] == valid.shape[0]:
+                _require(torch.equal(got[k][valid], v[valid]),
+                         f"PC: {inst.key}: replay's column {k} differs from eager")
+        for a, b in zip(state_leaves(state), state_leaves(twin)):
+            _require(torch.equal(a, b), f"PC: {inst.key}: state after the replay "
+                     f"differs from eager")
+        checks.append(1)
+        return res
+
+    InstrumentedJit.replay = replay
+    try:
+        yield
+    finally:
+        InstrumentedJit.replay = orig
+
+
+def pc_run(device, feeds, cache_on: bool, card: str):
+    """The six apps fed their feeds batch by batch, interleaved; app 2
+    snapshots after half its feed and restores that revision in place.
+    Returns facts and the apps' rows."""
+    import torch
+
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
+    from siddhi_tpu_torch.core.util import program_cache
+
+    cache = program_cache.cache()
+    size0, cap0 = cache.size(), StepGraph.total_captures
+    m, apps = pc_apps(device, cache_on)
+    secs = [[] for _ in apps]
+    checks = []
+    facts = {"restore_recaptures": None}
+    cap_ms = []
+    with eager_beside_replays(device, checks):
+        for b in range(PC_BATCHES):
+            for i, (rt, q, _cb) in enumerate(apps):
+                cols, ts = feeds[i][b]
+                c0 = StepGraph.total_captures
+                t0 = time.perf_counter()
+                rt.get_input_handler("StockStream").send_columns(cols, timestamps=ts)
+                torch.cuda.synchronize()
+                secs[i].append(time.perf_counter() - t0)
+                if StepGraph.total_captures > c0:
+                    cap_ms.append(q._step.graph.capture_ms)
+            if b == PC_BATCHES // 2 - 1:
+                rt, q, _cb = apps[PC_RESTORE_APP]
+                blob = rt.snapshot()
+                # every app captured at its first batch: what is captured
+                # from here on is the restore's
+                facts["_restore_c0"] = StepGraph.total_captures
+                rt.restore(blob)
+    c1 = StepGraph.total_captures
+    for i, (rt, q, _cb) in enumerate(apps):
+        _require(q.captured, f"PC: app {i}'s step does not run as a CUDA graph")
+    jits = [rt.app_context.telemetry.snapshot()["jit"]["query.bench.step"]
+            for rt, _q, _cb in apps]
+    snap = cache.snapshot()
+    entries = [e for e in snap["entries"] if any(f"pc{i}" in e["shared_by"]
+                                                  for i in range(len(apps)))]
+    graphs = {id(q._step.graph): q._step.graph for _rt, q, _cb in apps
+              if getattr(q._step, "graph", None) is not None}
+    facts.update({
+        "captures": c1 - cap0,
+        "capture_ms": cap_ms,
+        "compiles": [j["compiles"] for j in jits],
+        "hits": [j["hits"] for j in jits],
+        "entries": [(e["family"], e["refcount"], e["captures"]) for e in entries],
+        "pool_bytes": sum(g.pool_bytes for g in graphs.values()),
+        "slot_bytes": sum(g.slot_bytes for g in graphs.values()),
+        "eager_checks": len(checks),
+        "eps": [steady_eps(x, BATCH) for x in secs],
+        "cache_size": snap["size"] - size0,
+    })
+    facts["restore_recaptures"] = c1 - facts.pop("_restore_c0")
+    rows = [cb.batches for _rt, _q, cb in apps]
+    m.shutdown()
+    _require(cache.size() == size0, f"PC: {cache.size() - size0} cache entries "
+             f"outlive the apps' shutdown")
+    return facts, rows, [g for g in graphs.values()]
+
+
+def phase_program_cache(device, card: str):
+    """Phase 24 (PC, see the module doc). Returns the facts."""
+    import gc
+
+    import torch
+
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
+
+    t_phase = time.perf_counter()
+    feeds = [make_feed(seed, PC_BATCHES, BATCH, NUM_SYMBOLS) for seed in PC_SEEDS]
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(device)
+    on, rows_on, _g = pc_run(device, feeds, True, card)
+    del _g
+    off, rows_off, _g = pc_run(device, feeds, False, card)
+    del _g
+    n_apps = len(PC_SEEDS)
+    # identity: cache on == cache off, bit for bit, each app's own rows
+    worst = 0.0
+    for i in range(n_apps):
+        worst = max(worst, require_equal(concat_rows(rows_on[i]), concat_rows(rows_off[i]),
+                                         f"PC app {i}: cache on vs off"))
+    _require(worst == 0.0, f"PC: max float difference {worst} between cache on and off")
+    _require(on["eager_checks"] == off["eager_checks"] == n_apps * PC_BATCHES,
+             f"PC: {on['eager_checks']} / {off['eager_checks']} graph batches held "
+             f"against eager, want {n_apps * PC_BATCHES} each")
+    _require(on["cache_size"] == 2 and sorted(r for _f, r, _c in on["entries"]) == [2, 4],
+             f"PC: cache entries {on['entries']} (size {on['cache_size']})")
+    _require(on["compiles"] == [1, 0, 0, 0, 1, 0],
+             f"PC: compiles {on['compiles']} with the cache on")
+    want_off = [1] * n_apps
+    want_off[PC_RESTORE_APP] = 2      # its private graph re-captured at the restore
+    _require(off["compiles"] == want_off,
+             f"PC: compiles {off['compiles']} with the cache off, want {want_off}")
+    _require(on["captures"] == 2, f"PC: {on['captures']} captures with the cache on")
+    _require(off["captures"] == n_apps + 1,
+             f"PC: {off['captures']} captures with the cache off (six, and the "
+             f"restore's re-capture of app 2's private graph)")
+    _require(on["restore_recaptures"] == 0,
+             f"PC: the restore re-captured {on['restore_recaptures']} with the cache on")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated(device)
+    _require(abs(mem1 - mem0) <= 1 << 20,
+             f"PC: device memory {mem1 - mem0} bytes off its baseline after shutdown")
+
+    # copy-in/out of the shared graph, and launch calls: graph vs eager
+    m, apps = pc_apps(device, True)
+    (rt, q, _cb), (rt_d1, q_d1, _cb1) = apps[0], apps[PC_FLAGSHIPS]
+    for r in (rt, rt_d1):
+        r.get_input_handler("StockStream").send_columns(*feeds[0][0])
+        r.get_input_handler("StockStream").send_columns(*feeds[0][1])
+    graph = q._step.graph
+    graph.time_copies = True
+    for b in feeds[0][2:4]:
+        rt.get_input_handler("StockStream").send_columns(*b)
+    copies = graph.copy_times()
+    graph.time_copies = False
+    slot_bytes = graph.slot_bytes
+    h = rt.get_input_handler("StockStream")
+    prof_graph = profile_batch("PC flagship, graph", lambda: h.send_columns(*feeds[1][0]), card)
+    q.captured = False
+    prof_eager = profile_batch("PC flagship, eager", lambda: h.send_columns(*feeds[1][1]), card)
+    m.shutdown()
+    routed = pc_routed_profile(device, feeds[0], card)
+    facts = {"card": card, "on": on, "off": off, "max_abs_diff": worst,
+             "memory_delta_bytes": mem1 - mem0,
+             "copy_in_ms": [a for a, _b in copies], "copy_out_ms": [b for _a, b in copies],
+             "slot_bytes_flagship": slot_bytes,
+             "flagship_graph": {k: prof_graph[k] for k in ("host_launch_calls", "busy_share", "device_ms", "wall_ms")},
+             "flagship_eager": {k: prof_eager[k] for k in ("host_launch_calls", "busy_share", "device_ms", "wall_ms")},
+             "routed": routed, "total_captures": StepGraph.total_captures}
+    facts["phase_s"] = time.perf_counter() - t_phase
+    print(f"[program_cache] PC: {PC_FLAGSHIPS} global flagships and 2 D1 apps, "
+          f"{PC_BATCHES} batches each of {BATCH} rows on their own feeds: rows "
+          f"bit-equal cache on vs off (max abs diff {worst}), every replay == "
+          f"the eager step on a clone ({on['eager_checks']} + {off['eager_checks']}); "
+          f"cache on: entries {on['entries']}, compiles {on['compiles']}, "
+          f"{on['captures']} captures ({on['capture_ms']} ms), pool "
+          f"{on['pool_bytes']} bytes + slots {on['slot_bytes']} bytes, the "
+          f"restore re-captured {on['restore_recaptures']}; cache off: "
+          f"compiles {off['compiles']}, {off['captures']} captures "
+          f"({off['capture_ms']} ms), pool {off['pool_bytes']} bytes; memory "
+          f"after shutdown {mem1 - mem0:+d} bytes [{card}]", flush=True)
+    print(f"[program_cache] events/s an app, cache on {[round(x, 1) for x in on['eps']]} "
+          f"vs off {[round(x, 1) for x in off['eps']]}; copy-in/out of the "
+          f"flagship's {slot_bytes}-byte slot a batch (CUDA events): in "
+          f"{facts['copy_in_ms']} ms, out {facts['copy_out_ms']} ms; a flagship "
+          f"batch: {prof_graph['host_launch_calls']} host launch calls, busy "
+          f"{prof_graph['busy_share']:.3f} as a graph vs "
+          f"{prof_eager['host_launch_calls']}, {prof_eager['busy_share']:.3f} "
+          f"eager; routed x{N_SHARDS}: {routed['graph']['host_launch_calls']} vs "
+          f"{routed['eager']['host_launch_calls']} host launch calls, busy "
+          f"{routed['graph']['busy_share']:.3f} vs {routed['eager']['busy_share']:.3f}; "
+          f"phase {facts['phase_s']:.1f} s [{card}]", flush=True)
+    return facts
+
+
+def pc_routed_profile(device, feed, card: str):
+    """The routed flagship x4's captured step: host launch calls and busy
+    share of one batch as a graph replay and one eager."""
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager(
+        {"siddhi_tpu.shard_exchange": "pallas_ring"}))
+    rt = m.create_siddhi_app_runtime(APP.format(W=WINDOW))
+    q = rt.query_runtimes["bench"]
+    q.selector_plan.num_keys = KEY_SLOTS
+    q._win_keys = KEY_SLOTS
+    device_route_query_step(q, make_mesh(N_SHARDS, device), rows_per_shard=ROWS_PER_SHARD)
+    h = rt.get_input_handler("StockStream")
+    for b in feed[:2]:
+        h.send_columns(*b)
+    _require(q.captured and q._step.graph.captures == 1,
+             "PC routed: the routed step is not captured")
+    out = {"graph": profile_batch("PC routed x4, graph", lambda: h.send_columns(*feed[2]), card)}
+    q.captured = False
+    out["eager"] = profile_batch("PC routed x4, eager", lambda: h.send_columns(*feed[3]), card)
+    m.shutdown()
+    return {k: {f: v[f] for f in ("host_launch_calls", "busy_share", "device_ms", "wall_ms")}
+            for k, v in out.items()}
 
 
 def phase_global(device, feed, card: str):
@@ -5802,13 +6171,27 @@ def main() -> int:
         ring_exchange.launches = 0
         ring_exchange.columns = 0
 
-    routed, routed_s, facts = run_slice(device, feed, routed=True,
-                                        on_route=reset_counts)
+    # the routed step runs as a CUDA graph: the exchange the capture
+    # recorded is held against the plain version on replay EX_RECORD_AT
+    with recording_exchange(at=EX_RECORD_AT) as ex_rec:
+        routed, routed_s, facts = run_slice(device, feed, routed=True,
+                                            on_route=reset_counts)
     launches, columns = ring_exchange.launches, ring_exchange.columns
     _require(launches > 0, "routed run launched no ring_exchange kernel")
     _require(launches == facts["dispatches"] >= N_BATCHES,
              f"{launches} exchange launches for {facts['dispatches']} routed "
              f"dispatches of {N_BATCHES} batches: want one per dispatch")
+    _require(facts["captured"] and facts["captures"] == 1
+             and ex_rec.replays == facts["replays"] == N_BATCHES - 1,
+             f"routed: captured {facts['captured']}, {facts['captures']} capture(s), "
+             f"{facts['replays']} replays, {ex_rec.replays} ran the recorded exchange")
+    _require(ex_rec.got is not None, "routed: the exchange inside the graph was not "
+             f"recorded on call {EX_RECORD_AT}")
+    ex_cols = check_exchange_call(ex_rec, "routed: the exchange in the graph")
+    print(f"[slice] routed step captured as a CUDA graph: {facts['captures']} "
+          f"capture, {facts['replays']} replays; the exchange inside replay "
+          f"{EX_RECORD_AT} == ring_exchange_cols_plain on its {ex_cols} columns, "
+          f"and the kernel launched on them eagerly too", flush=True)
     _require(facts["route_overflow"] == 0,
              f"route overflow {facts['route_overflow']} on the routed run")
     rows_out = sum(len(b["__ts__"]) for b in routed)
@@ -5897,7 +6280,10 @@ def main() -> int:
     fanout, fo_launches, fo_err = phase_fanout(device, feed, card)
     dist["launches"]["FO"] = fo_launches
 
-    # 24. result lines
+    # 24. the program cache: six apps, two programs, one graph each
+    program_cache = phase_program_cache(device, card)
+
+    # 25. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
@@ -5912,6 +6298,11 @@ def main() -> int:
         "bound_ms": ex["bound_ms"], "bound_by": "bytes",
         "library_ms": ex["library_ms"], "device_ms": ex["device_ms"],
         "device_traces": ex["device_traces"],
+        # phase 4's launches inside the routed step's graph replays (the
+        # capture's batch launches it eagerly), and the replayed call's
+        # columns held against the plain version
+        "launches_under_replay": {"routed": ex_rec.replays},
+        "in_graph_columns_checked": ex_cols,
         "roofline_share": ex["roofline_share"],
         # phase 4's columns over phase 4's launches
         "columns_per_launch": columns / launches,
@@ -5973,6 +6364,7 @@ def main() -> int:
     print(json.dumps({"aggregation": aggregation}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"fanout": fanout}))
+    print(json.dumps({"program_cache": program_cache}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5980,8 +6372,64 @@ def main() -> int:
     return 0
 
 
+def cells(root: str) -> dict:
+    """``python3 chip_smoke.py --cells ROOT``: the main path's cells driven
+    by the checkout at ROOT (its package and its ``chip_smoke.py``'s
+    helpers, imported in this process) on one card: events/s of the
+    routed and unrouted partitioned flagship, the global flagship and D1
+    over phase 4's feed, and one global-flagship batch under
+    torch.profiler. Run it for two checkouts in one call to compare them
+    on one card (parent, change, change, parent). Prints one ``CELLS``
+    JSON line."""
+    import importlib
+    import os
+
+    import torch
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    other = importlib.import_module("chip_smoke")
+    _require(os.path.dirname(os.path.abspath(other.__file__)) == root,
+             f"--cells: imported {other.__file__}, not {root}'s chip_smoke.py")
+    from siddhi_tpu_torch.ops import _cuda
+
+    _cuda.build(["ring_exchange", "distinct_scan"])
+    dev = torch.device("cuda", 0)
+    feed = other.make_feed(5, other.N_BATCHES, other.BATCH, other.NUM_SYMBOLS)
+    res = {"root": root, "card": other.card_line()}
+    for name, routed in (("routed_eps", True), ("unrouted_eps", False)):
+        _o, secs, _f = other.run_slice(dev, feed, routed=routed)
+        res[name] = other.steady_eps(secs, other.BATCH)
+    _o, secs, _f = other.run_global(dev, other.GLOBAL_APP.format(W=other.WINDOW),
+                                    "bench", feed)
+    res["global_eps"] = other.steady_eps(secs, other.BATCH)
+    _o, secs, _f = other.run_app(dev, other.D1_APP.format(W=other.WINDOW), feed)
+    res["d1_eps"] = other.steady_eps(secs, other.BATCH)
+    m, rt, _q = other.global_runtime(dev, other.GLOBAL_APP.format(W=other.WINDOW), "bench")
+    h = rt.get_input_handler("StockStream")
+    for b in feed[:2]:
+        h.send_columns(*b)
+    prof = other.profile_batch("global, one batch", lambda: h.send_columns(*feed[2]),
+                               res["card"])
+    m.shutdown()
+    res["global_batch"] = {k: prof[k] for k in ("host_launch_calls", "busy_share",
+                                                "device_ms", "wall_ms")}
+    print("CELLS " + json.dumps(res), flush=True)
+    return res
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--cells"] and len(sys.argv) == 3:
+            import torch
+
+            if not torch.cuda.is_available():
+                print("chip_smoke: no CUDA device — --cells runs on the card",
+                      file=sys.stderr)
+                sys.exit(2)
+            cells(sys.argv[2])
+            sys.exit(0)
         sys.exit(main())
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -176,6 +176,7 @@ class SiddhiAppRuntime:
         self.source_runtimes: List = []
         self.sink_runtimes: List = []
         self._started = False
+        self._costs_on = False     # holds one costmodel.enable()
 
         pb = siddhi_app.app_annotation("playback")
         if pb is not None:
@@ -931,6 +932,13 @@ class SiddhiAppRuntime:
                 return
             self._started = True
             ctx = self.app_context
+            if ctx.profile_costs and not self._costs_on:
+                # one refcounted process-wide enable, paired with the
+                # disable in shutdown()
+                from siddhi_tpu_torch.observability import costmodel
+
+                costmodel.enable()
+                self._costs_on = True
             if ctx.ingest_pool > 0 and ctx.ingest_pack_pool is None:
                 from siddhi_tpu_torch.core.stream.input.pack_pool import IngestPackPool
 
@@ -1011,8 +1019,18 @@ class SiddhiAppRuntime:
             for q in self.query_runtimes.values():
                 with q._lock:
                     q._state = None
-                    q._step = None
+                    q.drop_step()
                     q._staging = None
+            # the program cache: this app's refs go, and an entry no other
+            # app holds frees its graphs and slot now
+            from siddhi_tpu_torch.core.util import program_cache
+
+            program_cache.cache().release_owner(ctx.telemetry)
+        if self._costs_on:
+            from siddhi_tpu_torch.observability import costmodel
+
+            costmodel.disable()
+            self._costs_on = False
 
 
 def _element_state_bytes(el) -> int:

@@ -155,6 +155,13 @@ class SiddhiAppContext:
         from siddhi_tpu_torch.observability.telemetry import TelemetryRegistry
 
         self.telemetry = TelemetryRegistry()
+        # bound to this context: the step instrument reads the program
+        # cache's knobs through it, and the registry INSTANCE is the app's
+        # identity-pinned owner token in the process-global program cache
+        # (core/util/program_cache.py): unique per runtime, so a blue/green
+        # replace's old runtime can never release the new runtime's refs
+        self.telemetry.app_context = self
+        self.telemetry.owner_name = name
         # @app:enforceOrder: a send behind a stream's watermark raises
         # (core/stream/input/input_handler.py)
         self.enforce_order = False
@@ -189,6 +196,21 @@ class SiddhiAppContext:
         # SIDDHI_TPU_PIPELINE_DEPTH overrides the process default, 2 as in
         # the reference (a junk spelling raises naming the variable)
         self.pipeline_depth = env_knob("SIDDHI_TPU_PIPELINE_DEPTH", "int", 2)
+        # first-call cost capture of every step program
+        # (observability/costmodel.py): enables the process-wide registry
+        # for this runtime's life. Key siddhi_tpu.profile_costs;
+        # SIDDHI_TPU_PROFILE_COSTS=1 and POST /profile/costs/start turn it
+        # on process-wide without a config. Default off
+        self.profile_costs = False
+        # the process-global program cache (core/util/program_cache.py):
+        # equal capturable step programs are built (and on the card
+        # captured) once and shared across apps, each app's state its own.
+        # Default on; 'false' gives every app its own steps and graphs.
+        # program_cache_max caps live entries. Keys
+        # siddhi_tpu.program_cache / siddhi_tpu.program_cache_max;
+        # SIDDHI_TPU_PROGRAM_CACHE / _MAX set the process defaults
+        self.program_cache = env_knob("SIDDHI_TPU_PROGRAM_CACHE", "bool", True)
+        self.program_cache_max = env_knob("SIDDHI_TPU_PROGRAM_CACHE_MAX", "int", 256)
         # deprecated: values > 1 are mapped onto pipeline_depth at app
         # build (app_runtime.py), as the reference does
         self.defer_meta = 1

@@ -100,6 +100,10 @@ class StringDictionary:
                     self._to_id[s] = i
         return i
 
+    def lookup(self, s: str) -> Optional[int]:
+        """The id of ``s``, or None if it has none: assigns nothing."""
+        return self._to_id.get(s)
+
     def _mirror_insert(self, s: str, i: int):
         try:
             b = s.encode("utf-8")

@@ -11,8 +11,9 @@ stacked ``[n, 3+]`` meta, pulled once a batch.
 
 How the step runs:
 
-- **on the card, as one CUDA graph replay** (``core/query/step_graph.py``)
-  when every member declares its step capturable
+- **on the card, as one CUDA graph replay** (``core/query/step_graph.py``;
+  the batch that captures runs eagerly) when every member declares its
+  step capturable
   (``QueryRuntime.capturable``: each stage makes no host read and takes
   the clock as a tensor). The gauge ``fanout.<stream>.captured`` counts
   the stream's groups in this mode;
@@ -56,9 +57,14 @@ Departures from the reference:
 - each member counts a ``jit`` hit on every batch, the batch that builds
   (or captures) the step included; the reference skips that batch.
 
-Telemetry: building the step, and on the card capturing it, is one compile
-under jit key ``fanout.<stream>.step`` with its wall ms; each member counts
-one hit for every batch the group dispatches. Counters
+Telemetry: the group's step goes through the step instrument
+(``observability/telemetry.InstrumentedJit``, family ``fused_fanout``):
+building it, and on the card capturing it, is one compile under jit key
+``fanout.<stream>.step`` with its wall ms, and an equal group of another
+app (the same members' programs and clusters, the same constants)
+shares its program-cache entry and graphs (``core/util/program_cache.py``)
+and records a hit instead; each member counts one hit for every batch the
+group dispatches. Counters
 ``fanout.<stream>.dispatches`` and ``fanout.<stream>.meta_pulls``, gauges
 ``fanout.<stream>.group_size``, ``unique_programs`` and ``captured``
 (``observability/export.py`` renders them).
@@ -129,10 +135,11 @@ class FusedFanoutRuntime(Receiver):
         self._sig = None          # (slots, per-member key capacities)
         self._clusters: List[List[int]] = []   # member idxs per computation
         self._cluster_of: List[int] = []       # member idx -> cluster idx
-        self._build_ms = 0.0      # build time not yet recorded as a compile
         self._lock = threading.RLock()
         self._staging = None      # eager mode on the card: pinned staging
-        self.graph = StepGraph(self.device) if self.device.type == "cuda" else None
+        # the group's private graphs (the program cache off, or full); a
+        # group whose program is shared replays the cache entry's
+        self._graph = StepGraph(self.device) if self.device.type == "cuda" else None
         self.captured = self.device.type == "cuda" and self.capturable()
         for m in self.members:
             m._fanout_group = self
@@ -155,6 +162,13 @@ class FusedFanoutRuntime(Receiver):
         """Every member's step may run inside a CUDA graph (its stages'
         declarations; on the card the group then runs as one replay)."""
         return bool(self.members) and all(m.capturable() for m in self.members)
+
+    @property
+    def graph(self):
+        """The graphs the group's replays run on: its program-cache
+        entry's when its program is shared, else its own."""
+        graph = getattr(self._step, "graph", None)
+        return graph if graph is not None else self._graph
 
     # ------------------------------------------------------ keyer sharing
 
@@ -193,10 +207,13 @@ class FusedFanoutRuntime(Receiver):
             self.alias_keyers()
 
     def _drop_step(self):
-        self._step = None
+        step, self._step = self._step, None
+        close = getattr(step, "close", None)
+        if close is not None:
+            close()               # its program-cache ref
         self._sig = None
-        if self.graph is not None:
-            self.graph.drop()
+        if self._graph is not None:
+            self._graph.drop()
 
     # --------------------------------------------------------- unwiring
 
@@ -248,8 +265,8 @@ class FusedFanoutRuntime(Receiver):
         with self._lock:
             self._drop_step()
             self._staging = None
-            if self.graph is not None:
-                self.graph.close()
+            if self._graph is not None:
+                self._graph.close()
 
     def _restore_member(self, member, after_group: bool):
         self._unalias(member)
@@ -352,8 +369,11 @@ class FusedFanoutRuntime(Receiver):
         ONE sub-computation whose outputs every cluster member shares, and
         distinct programs sit side by side in the same step."""
         t0 = time.perf_counter()
-        if self.graph is not None:
-            self.graph.drop()
+        close = getattr(self._step, "close", None)
+        if close is not None:
+            close()
+        if self._graph is not None:
+            self._graph.drop()
         members = self.members
         member_fns = [m.build_step_fn() for m in members]
         programs = [m.program_signature() for m in members]
@@ -404,8 +424,23 @@ class FusedFanoutRuntime(Receiver):
                      for m in metas]
             return tuple(outs), torch.stack(metas)
 
-        self._step = fused
-        self._build_ms += (time.perf_counter() - t0) * 1000.0
+        # the group's program: each cluster's member program, side by side
+        # in cluster order, on its group-key slot; None (never shared)
+        # when a member's cannot be rendered
+        leads = [c[0] for c in clusters]
+        program = None
+        if all(programs[i] is not None for i in leads):
+            program = (tuple(programs[i] for i in leads), tuple(map(tuple, clusters)),
+                       tuple(slots), n_slots, self._needs_rank)
+        self._step = self.app_context.telemetry.instrument_jit(
+            fused, f"fanout.{self.stream_id}.step", family="fused_fanout",
+            program=program,
+            consts=([c for i in leads for c in members[i].program_consts()]
+                    if program is not None else ()),
+            capturable=self.capturable(), graph=self._graph if self.captured else None,
+            build_ms=(time.perf_counter() - t0) * 1000.0,
+            # the group counts one hit per member and batch itself
+            count_hits=False)
 
     # the eager step's inputs, staged as a member stages its own: pinned
     # slots on the card, the host arrays as tensors on the CPU
@@ -425,16 +460,9 @@ class FusedFanoutRuntime(Receiver):
         pump = self.app_context.completion_pump
         key = f"fanout.{self.stream_id}.step"
         if self.captured:
-            outs, metas, capture_ms = self.graph.run(
-                self._step, states, cols, now, pump.depth)
-            if capture_ms is not None:
-                tel.record_jit(key, self._build_ms + capture_ms)
-                self._build_ms = 0.0
+            outs, metas = self._step.replay(states, cols, now, pump.depth)
         else:
             outs, metas = self._step(states, self._to_device(cols), now)
-            if self._build_ms:
-                tel.record_jit(key, self._build_ms)
-                self._build_ms = 0.0
         for _m in members:       # member hit-counting: N query-batches
             tel.record_jit(key, hit=True)
         tel.count(f"fanout.{self.stream_id}.dispatches")

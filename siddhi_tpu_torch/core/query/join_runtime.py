@@ -838,7 +838,13 @@ class JoinQueryRuntime(QueryRuntime):
                 self.engine.prepare_batch(side_key, cols)
             step = self._steps.get(side_key)
             if step is None:
-                step = self._steps[side_key] = self.build_side_step_fn(side_key)
+                # the side step through the step instrument: compile
+                # events and costs; it reads its match count back on the
+                # host (materialize_joined), so it stays eager and shares
+                # nothing (analysis/step_registry.py)
+                step = self._steps[side_key] = self.app_context.telemetry.instrument_jit(
+                    self.build_side_step_fn(side_key), f"join.{self.name}.{side_key}",
+                    family=f"device_join.{side_key}")
             other = self.sides["right" if side_key == "left" else "left"]
             self._staging = self._side_staging.get(side_key)
             try:

@@ -184,6 +184,29 @@ class NFAQueryRuntime(QueryRuntime):
 
         return step
 
+    def _instrumented_step(self, stream_id: Optional[str], generic: bool):
+        """The stream step of ``stream_id`` (the timer step for None)
+        through the step instrument (families ``nfa_step`` and
+        ``nfa_timer``): compile events and costs. Eager, and never shared:
+        the host picks K4 or K5 for each batch (``_host_hard_batch``) and
+        lays K5's rounds out, so no one device program exists to share.
+        The steps read the stage and the runtime at each call, so one
+        instrument a (stream, engine) serves the query's life."""
+        steps = self.__dict__.setdefault("_nfa_steps", {})
+        inst = steps.get((stream_id, generic))
+        if inst is None:
+            tel = self.app_context.telemetry
+            if stream_id is None:
+                inst = tel.instrument_jit(self.build_timer_step_fn(),
+                                          f"nfa.{self.name}.timer", family="nfa_timer")
+            else:
+                inst = tel.instrument_jit(
+                    self.build_stream_step_fn(stream_id, force_generic=generic),
+                    f"nfa.{self.name}.{stream_id}" + (".generic" if generic else ""),
+                    family="nfa_step")
+            steps[(stream_id, generic)] = inst
+        return inst
+
     def build_timer_step_fn(self):
         stage = self.stage
         xp = TorchXP(self.device)
@@ -262,7 +285,7 @@ class NFAQueryRuntime(QueryRuntime):
                 cols[STR_RANK] = self.dictionary.rank_table()
             dev_cols = self._to_device(cols)
             rows = dev_cols.pop(_ROWS_KEY, None)
-            step = self.build_stream_step_fn(stream_id, force_generic=force_generic)
+            step = self._instrumented_step(stream_id, force_generic)
             now = int(self.app_context.timestamp_generator.current_time())
             notify = self._run_nfa_step(lambda: step(
                 self._state, dev_cols, now,
@@ -329,7 +352,7 @@ class NFAQueryRuntime(QueryRuntime):
                 pump.flush_owner(self)
             if self._state is None:
                 self._state = self._init_state()
-            step = self.build_timer_step_fn()
+            step = self._instrumented_step(None, False)
             notify = self._run_nfa_step(lambda: step(self._state, int(ts)),
                                         allow_pipeline=False)
         if notify is not None and self.scheduler is not None:

@@ -52,14 +52,29 @@ runs its step: ``_fanout_group`` names the group, ``_own_keyer`` keeps the
 runtime's own ``GroupKeyer`` while it shares a sibling's,
 ``program_signature()`` tells identical programs apart and
 ``capturable()`` says whether its step may run inside a CUDA graph.
+
+Every step goes through the step instrument
+(``observability/telemetry.InstrumentedJit``, family ``query_step``; a
+routed step ``device_routed``): compile events, cost capture and, for a
+capturable step, the process-global program cache
+(``core/util/program_cache.py``), whose witness adds the ids the app's
+dictionary gave the query's string literals (``program_consts``). On the
+card a capturable step runs as a CUDA graph replay (``captured``; the
+gauge ``query.<q>.captured``): the cache entry's shared graph, or with
+``siddhi_tpu.program_cache`` off the runtime's own (``core/query/
+step_graph.py``). The step freezes the plan it was built from (the
+selector's key capacity), so a step another app shares never follows this
+runtime's later growth: a growth builds a new step.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import enum
 import threading
+import time
 import uuid
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -200,6 +215,12 @@ class QueryRuntime(Receiver):
         self.output_junction = None
         self._state: Optional[dict] = None
         self._step = None
+        # on the card, a capturable step replays a CUDA graph: the program
+        # cache entry's when the step shares one, else this private one
+        # (core/query/step_graph.py); ``captured`` says which mode runs
+        self._graph = None
+        self.captured = False
+        self._sel_step = None      # the split path's selector (_host_keyed_select)
         self._route_layout = None  # parallel.mesh.device_route_query_step
         self.query_callbacks: List = []
         self._lock = threading.RLock()
@@ -263,7 +284,46 @@ class QueryRuntime(Receiver):
             from siddhi_tpu_torch.parallel.mesh import routed_step_for
 
             return routed_step_for(self)
-        return self.build_step_fn()
+        t0 = time.perf_counter()
+        fn = self.build_step_fn()
+        return self.instrument_step(fn, f"query.{self.name}.step", family="query_step",
+                                    build_ms=(time.perf_counter() - t0) * 1000.0)
+
+    def instrument_step(self, fn, key: str, family: str, cache_extra: str = "",
+                        build_ms: float = 0.0):
+        """This query's step through the step instrument
+        (``observability/telemetry.InstrumentedJit``): compile events, cost
+        capture and, for a capturable step, the program cache. On the card
+        a capturable step replays a CUDA graph (``captured``; the gauge
+        ``query.<q>.captured``)."""
+        capturable = self.capturable()
+        self.captured = capturable and self.device.type == "cuda"
+        if self.captured:
+            if self._graph is None:
+                from siddhi_tpu_torch.core.query.step_graph import StepGraph
+
+                self._graph = StepGraph(self.device)
+            self._graph.drop()     # a new step is a new program
+        tel = self.app_context.telemetry
+        tel.gauge(f"query.{self.name}.captured",
+                  lambda: 1.0 if self.captured else 0.0)
+        return tel.instrument_jit(
+            fn, key, family=family, cache_extra=cache_extra,
+            program=self.program_signature(), consts=self.program_consts(),
+            capturable=capturable, graph=self._graph if self.captured else None,
+            build_ms=build_ms, packed=True)
+
+    def drop_step(self):
+        """Drop the step: its cache ref is released and its private graphs
+        freed (the app is shutting down)."""
+        step, self._step = self._step, None
+        close = getattr(step, "close", None)
+        if close is not None:
+            close()
+        if self._graph is not None:
+            self._graph.close()
+            self._graph = None
+        self._sel_step = None
 
     def build_step_fn(self):
         """The (state, cols, now) -> (state, out) step of this query. The
@@ -276,8 +336,14 @@ class QueryRuntime(Receiver):
         transforms = ([] if (host_pre or self.host_transforms)
                       else list(self.transforms))
         post_pipeline = [] if host_pre else list(self.post_pipeline)
-        sel = self.selector_plan
+        # the plan as it stands now: a capacity growth builds a new step,
+        # and a step another app shares (core/util/program_cache.py) must
+        # not follow this runtime's later growth
+        sel = copy.copy(self.selector_plan)
         win = self.window_stage
+        if win is not None and hasattr(win, "_num_keys_ref"):
+            win = copy.copy(win)
+            win._num_keys_ref = lambda k=sel.num_keys: k
         xp = TorchXP(self.device)
 
         def step(state, cols, current_time):
@@ -358,17 +424,31 @@ class QueryRuntime(Receiver):
                 type(self.window_stage).__name__, sp.num_keys, self._win_keys,
                 tuple((n, t.name) for n, t in sp.output_attrs), str(self.device))
 
+    def program_consts(self) -> tuple:
+        """The constants this query's step took from app state at plan
+        time: the id the app's string dictionary gave each string literal
+        of the query (``ops/expressions.compile_expr`` compiles ``sym ==
+        'IBM'`` to a comparison with that id). Two apps' dictionaries may
+        give one literal different ids, so the program cache's witness
+        compares these bit for bit. A literal the plan did not encode (a
+        cast's type name) has no id and enters as -1: it is looked up,
+        not encoded, so the dictionary gains nothing."""
+        if self.query_ast is None:
+            return ()
+        ids = (self.dictionary.lookup(v) for v in _string_literals(self.query_ast))
+        return tuple(np.int32(-1 if i is None else i) for i in ids)
+
     def capturable(self) -> bool:
         """Whether this query's step may run inside a CUDA graph: every
         stage of the step declares ``capturable`` (no host read, the clock
         taken as a tensor), as do its aggregators and every function its
-        expressions call (``ops/expressions.capturable``). Host stages and
-        partitions never are."""
+        expressions call (``ops/expressions.capturable``). Host stages never
+        are; inside a partition the keyed window declares its own (the
+        partition and group keys are host-computed input columns)."""
         from siddhi_tpu_torch.ops import aggregators, distinct, expressions
 
         if (self.host_window is not None or self.host_transforms
-                or self.log_stages or self.partition_ctx is not None
-                or self.query_ast is None):
+                or self.log_stages or self.query_ast is None):
             return False
         stages = list(self.transforms) + [obj for kind, obj in self.post_pipeline
                                           if kind == "t"]
@@ -616,6 +696,7 @@ class QueryRuntime(Receiver):
                 from siddhi_tpu_torch.parallel.mesh import prepare_routed_batches
 
                 for piece in prepare_routed_batches(self, cols):
+                    self._route_layout.dispatches += 1
                     notify = _min_notify(
                         notify, self._finish_device_batch(self._step, piece))
             else:
@@ -761,7 +842,11 @@ class QueryRuntime(Receiver):
             # string order-by keys sort by lexicographic rank, not by id
             cols = dict(cols)
             cols[STR_RANK] = self.dictionary.rank_table()
-        self._state, out = step(self._state, self._to_device(cols), now)
+        if self.captured and hasattr(step, "replay"):
+            self._state, out = step.replay(self._state, cols, now,
+                                           self.app_context.completion_pump.depth)
+        else:
+            self._state, out = step(self._state, self._to_device(cols), now)
         out_host = LazyColumns(out)
         pump = self.app_context.completion_pump
         if pump.depth > 1 and self._now_override is None and self._pipeline_ok:
@@ -799,7 +884,11 @@ class QueryRuntime(Receiver):
         if self.selector_plan.needs_str_rank:
             cols[STR_RANK] = self.dictionary.rank_table()
         ctx = {"xp": TorchXP(self.device), "current_time": self._now()}
-        self._state["sel"], sel_out = self.selector_plan.apply(
+        if self._sel_step is None:
+            self._sel_step = self.app_context.telemetry.instrument_jit(
+                lambda st, c, cx: self.selector_plan.apply(st, c, cx),
+                f"query.{self.name}.selector", family="selector")
+        self._state["sel"], sel_out = self._sel_step(
             self._state["sel"], self._to_device(cols), ctx)
         out = LazyColumns(pack_meta(sel_out))
         meta = out.pop("__meta__")
@@ -1030,6 +1119,27 @@ def _zero_value(attr_type: AttrType):
     if attr_type == AttrType.BOOL:
         return False
     return 0
+
+
+def _string_literals(obj, out: Optional[List[str]] = None) -> List[str]:
+    """Every string ``Constant`` of a query-api tree, in walk order."""
+    from siddhi_tpu_torch.query_api.expressions import Constant
+
+    if out is None:
+        out = []
+    if isinstance(obj, Constant):
+        if obj.type == AttrType.STRING and isinstance(obj.value, str):
+            out.append(obj.value)
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            _string_literals(x, out)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            _string_literals(x, out)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            _string_literals(getattr(obj, f.name), out)
+    return out
 
 
 class _Unrenderable(Exception):

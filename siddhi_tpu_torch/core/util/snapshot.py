@@ -38,7 +38,12 @@ A restore writes each query's group-key map into the query's own keyer
 (a fused fan-out member may share a sibling's), then every fused group
 re-derives its sharing and drops its step and captured graphs
 (``FusedFanoutRuntime.on_restore``): the restored tensors are new, and a
-graph binds addresses.
+graph binds addresses. Each query's step is dropped too and rebuilt at
+its next batch. A step that shares a program-cache entry
+(``core/util/program_cache.py``) attaches to it again and captures
+nothing: the entry's graph runs over its own slot, into which the
+restored state is copied at each replay. A private graph (the cache off,
+or an entry with no other sharer) is captured anew.
 
 Left out, each waiting for its subsystem: the multi-process allgather of
 ``_to_host`` (ROADMAP A.9); the ``persist`` span (A.10).

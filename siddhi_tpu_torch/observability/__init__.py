@@ -8,11 +8,13 @@ has sources for:
 - ``telemetry``: gauges, counters and histograms, one registry per app
   plus a process-global one;
 - ``export``: Prometheus text exposition and a JSON snapshot, served at
-  ``GET /metrics[/{app}]`` on the REST service (``service/rest.py``).
+  ``GET /metrics[/{app}]`` on the REST service (``service/rest.py``);
+- ``telemetry.InstrumentedJit``: the step instrument every step goes
+  through (compile events, the program cache, cost capture);
+- ``costmodel``: the step-program cost registry behind ``GET /programs``.
 
-The span tracer (``tracing``), batch journeys (``journey``), program
-costs (``costmodel``) and device instruments (``instruments``) are ROADMAP
-A.8 (b)/A.10.
+The span tracer (``tracing``), batch journeys (``journey``) and device
+instruments (``instruments``) are ROADMAP A.10.
 """
 
 from siddhi_tpu_torch.observability.histogram import Histogram

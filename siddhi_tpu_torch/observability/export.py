@@ -20,12 +20,15 @@ The families the port has sources for: statistics, app and process
 telemetry, the aggregation bucket gauges and fold histograms, the serving
 tier's shard, WAL, pool, counter and latency families, the wire front
 door's counters, fan-out fusion (``siddhi_fanout_group_size``,
-``siddhi_fanout_dispatches_total``, ``siddhi_fanout_meta_pulls_total``)
-and the compiled-step records (``siddhi_jit_*``); the ingest WAL's
-gauges and a fused stream's ``unique_programs`` and ``captured`` gauges
-render as the generic ``siddhi_gauge``, as in the reference. The
-reference's families of batch journeys, program costs, device
-instruments, the program cache and the autopilot (ROADMAP A.8 (b)/A.10),
+``siddhi_fanout_dispatches_total``, ``siddhi_fanout_meta_pulls_total``),
+the step records (``siddhi_jit_*``), the program cache
+(``siddhi_program_cache_{hits,misses,evictions}_total`` and
+``siddhi_program_cache_size``) and the step-program costs
+(``siddhi_jit_cost_*{key}``); the ingest WAL's gauges, a fused stream's
+``unique_programs`` and ``captured`` gauges and a query's ``captured``
+gauge render as the generic ``siddhi_gauge``, as in the reference. The
+reference's families of batch journeys, device instruments and the
+autopilot (ROADMAP A.10),
 the cluster fabric and the keyed-shard and join-partition gauges
 (A.9/A.10) and the overload quotas (A.10) have no source in the port and
 are not printed.
@@ -87,6 +90,44 @@ _SERVING_COUNTER_FAMILY = {
                                "checkpoint blob + WAL suffix"),
 }
 # fan-out fusion (core/query/fused_fanout.py)
+# the process-global program cache (core/util/program_cache.py): counters
+# and the size gauge on the process registry
+PROGRAM_CACHE_SIZE_FAMILY = "siddhi_program_cache_size"
+_PROGRAM_CACHE_COUNTER_FAMILY = {
+    "program_cache.hits": (
+        "siddhi_program_cache_hits_total",
+        "first-call program-cache hits: an equal step program (the "
+        "witness: family, extra, device, columns, state, program, "
+        "constants) was shared instead of built"),
+    "program_cache.misses": (
+        "siddhi_program_cache_misses_total",
+        "first-call program-cache misses: no equal program was live, this "
+        "step registered as the shared program"),
+    "program_cache.evictions": (
+        "siddhi_program_cache_evictions_total",
+        "program-cache entries evicted (refcount zero, the "
+        "program_cache_max cap, or a drain)"),
+}
+# the step-program cost registry (observability/costmodel.py): one gauge
+# per (step key, metric) on the process registry
+_JITCOST_GAUGE = re.compile(
+    r"^jitcost\.(?P<key>.+)\.(?P<metric>flops|bytes_accessed|arg_bytes|"
+    r"out_bytes|temp_bytes|code_bytes|compile_ms)$")
+_JITCOST_HELP = {
+    "flops": ("siddhi_jit_cost_flops",
+              "aten-op output elements of one eager run of the step"),
+    "bytes_accessed": ("siddhi_jit_cost_bytes_accessed",
+                       "aten-op input and output bytes of one eager run"),
+    "arg_bytes": ("siddhi_jit_cost_arg_bytes",
+                  "step argument bytes (state and inputs)"),
+    "out_bytes": ("siddhi_jit_cost_out_bytes", "step output bytes"),
+    "temp_bytes": ("siddhi_jit_cost_temp_bytes",
+                   "device bytes the run allocated beyond its outputs"),
+    "code_bytes": ("siddhi_jit_cost_code_bytes",
+                   "generated code bytes (0: the port compiles no program)"),
+    "compile_ms": ("siddhi_jit_cost_compile_ms",
+                   "wall ms of the capture's eager run"),
+}
 _FANOUT_GAUGE = re.compile(r"^fanout\.(?P<stream>.+)\.group_size$")
 _FANOUT_COUNTER = re.compile(r"^fanout\.(?P<stream>.+)\.(?P<kind>"
                              r"dispatches|meta_pulls)$")
@@ -218,6 +259,16 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                      {**base, "name": m.group("agg"),
                       "duration": m.group("dur")}, v)
             continue
+        if name == "program_cache.size":
+            fams.add(PROGRAM_CACHE_SIZE_FAMILY, "gauge",
+                     "live entries in the process-global program cache",
+                     base, v)
+            continue
+        m = _JITCOST_GAUGE.match(name)
+        if m:
+            family, help_ = _JITCOST_HELP[m.group("metric")]
+            fams.add(family, "gauge", help_, {**base, "key": m.group("key")}, v)
+            continue
         m = _FANOUT_GAUGE.match(name)
         if m:
             fams.add("siddhi_fanout_group_size", "gauge",
@@ -236,7 +287,8 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                  {**base, "name": name}, v)
     for name, v in sorted(tel_snapshot.get("counters", {}).items()):
         fam = (_SERVING_COUNTER_FAMILY.get(name)
-               or _INGEST_COUNTER_FAMILY.get(name))
+               or _INGEST_COUNTER_FAMILY.get(name)
+               or _PROGRAM_CACHE_COUNTER_FAMILY.get(name))
         if fam is not None:
             fams.add(fam[0], "counter", fam[1], base, v)
             continue

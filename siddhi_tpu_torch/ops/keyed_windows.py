@@ -123,6 +123,9 @@ class KeyedLengthWindowStage(WindowStage):
     """Sliding length window per partition key."""
 
     keyed = True
+    # no host read, the clock taken as a tensor: a partitioned step (the
+    # routed flagship's included) may run inside a CUDA graph
+    capturable = True
 
     def __init__(self, length: int, col_specs: Dict[str, np.dtype]):
         if length <= 0:
@@ -164,8 +167,7 @@ class KeyedLengthWindowStage(WindowStage):
         for k in keys:
             ring_v = state["buf"][k][flat]
             expired[k] = torch.where(from_batch, cols[k][batch_row], ring_v)
-        expired[TS_KEY] = torch.full((B,), int(ctx["current_time"]),
-                                     dtype=torch.int64, device=dev)
+        expired[TS_KEY] = _full(B, ctx["current_time"], torch.int64, dev)
 
         # write the last min(W, n_key) arrivals of each key (unique slots)
         write = valid_cur & (occ >= counts[pk] - W)

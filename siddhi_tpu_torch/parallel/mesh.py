@@ -45,6 +45,11 @@ from siddhi_tpu_torch.ops.expressions import (
     OKEY_KEY, PK_KEY, RIDX_KEY, VALID_KEY, CompileError)
 
 GK_KEY = "__gk__"
+# the group-key LUT pair of a routed step with a distinct group key
+# (``RouteLayout.device_luts``), staged before the step as input columns:
+# a captured step reads its static copies, and the LUT is each app's own
+LUT_KEY = "__route_lut__"
+INV_KEY = "__route_inv__"
 _ROUTE_BIG = 2 ** 62
 
 
@@ -130,7 +135,9 @@ class RouteLayout:
         self._lut_dirty = True
         # drained route-overflow lane: rows beyond quota so far
         self.route_overflow_rows = 0
-        # routed step calls (each makes one exchange call when n > 1)
+        # routed step dispatches (each makes one exchange call when n > 1),
+        # counted by the runtime where it dispatches, so a graph replay
+        # counts as its eager step did
         self.dispatches = 0
 
     def _resize_gk(self, cap: int):
@@ -278,9 +285,9 @@ def device_route_query_step(runtime, mesh: Mesh, rows_per_shard: int = 4096,
     beyond quota, only reachable by direct step callers) surfaces as
     ``FatalQueryError`` naming ``rows_per_shard``.
 
-    Returns ``(step3, state)``; ``step3(state, cols, now)`` is also
-    installed as ``runtime._step`` so junction-fed batches take the routed
-    path."""
+    Returns ``(step3, state)``; ``step3(state, cols, now)`` (the step
+    instrument around the routed step) is also installed as
+    ``runtime._step`` so junction-fed batches take the routed path."""
     why = route_ineligibility(runtime)
     if why is not None:
         raise CompileError(
@@ -474,8 +481,25 @@ def _shard_views(layout: RouteLayout, state, s: int):
 
 def routed_step_for(runtime):
     """Build the routed ``step3(state, cols, now)`` for a runtime whose
-    ``_route_layout`` is installed."""
+    ``_route_layout`` is installed, through the step instrument under
+    family ``device_routed`` with the layout as its extra witness: on the
+    card a capturable routed step (a keyed length window or none, and the
+    exchange kernel) replays as one CUDA graph a dispatch, and equal
+    routed programs of two apps share one program-cache entry."""
+    import time
+
+    t0 = time.perf_counter()
     layout = runtime._route_layout
+    fn = _routed_fn(runtime, layout)
+    extra = (f"n={layout.n} quota={layout.quota} localK={layout.localK} "
+             f"local_win={layout.local_win} partitioned={layout.partitioned} "
+             f"use_lut={layout.use_lut}")
+    return runtime.instrument_step(
+        fn, f"query.{runtime.name}.step", family="device_routed",
+        cache_extra=extra, build_ms=(time.perf_counter() - t0) * 1000.0)
+
+
+def _routed_fn(runtime, layout: "RouteLayout"):
     n, Q = layout.n, layout.quota
     localK = layout.localK
     partitioned, use_lut = layout.partitioned, layout.use_lut
@@ -485,8 +509,9 @@ def routed_step_for(runtime):
 
     if n == 1:
         def one_dev(state, cols, now):
-            layout.dispatches += 1
             cols = dict(cols)
+            cols.pop(LUT_KEY, None)     # one shard: local ids are global
+            cols.pop(INV_KEY, None)
             B = cols[VALID_KEY].shape[0]
             cols[RIDX_KEY] = torch.arange(B, dtype=torch.int64, device=dev)
             rows = cols[VALID_KEY].sum(dtype=torch.int64)
@@ -501,8 +526,10 @@ def routed_step_for(runtime):
         return one_dev
 
     def step3(state, cols, now):
-        layout.dispatches += 1
-        lut, inv = layout.device_luts()
+        cols = dict(cols)
+        lut, inv = cols.pop(LUT_KEY, None), cols.pop(INV_KEY, None)
+        if use_lut and lut is None:     # a direct caller: the layout's own
+            lut, inv = layout.device_luts()
         B = cols[VALID_KEY].shape[0]
         Bl = B // n
         valid = cols[VALID_KEY].view(n, Bl)
@@ -621,6 +648,12 @@ def prepare_routed_batches(runtime, cols):
         emit({k: v[half:] for k, v in c.items()})
 
     emit(cols)
+    if layout.use_lut:
+        # refreshed only when the host LUT changed (one copy), then handed
+        # to every piece as input columns
+        lut, inv = layout.device_luts()
+        for piece in pieces:
+            piece[LUT_KEY], piece[INV_KEY] = lut, inv
     return pieces
 
 

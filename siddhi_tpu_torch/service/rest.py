@@ -23,6 +23,11 @@ Endpoints (JSON in/out):
   Retry-After past the cap), malformed frames answer 400 naming the
   defect; landed through ``InputHandler.send_columns`` so the WAL and
   ``@app:enforceOrder`` apply
+- ``GET  /programs``                   — the step-program cost registry
+  (``observability/costmodel.py``: records and fingerprint clusters) plus
+  ``"cache"``, the process-global program cache
+  (``core/util/program_cache.py``: entries, sharers, refcounts, graphs)
+- ``POST /profile/costs/start|stop``   — program cost capture on/off
 - ``GET  /metrics[/<name>]``           — Prometheus text exposition
   (``observability/export.py``); ``?format=json`` or ``Accept:
   application/json`` returns the JSON snapshot
@@ -30,8 +35,9 @@ Endpoints (JSON in/out):
 The reference's routes over modules the port lacks answer ``501`` naming
 their ROADMAP item: the span tracer (``/trace/start|stop``), the device
 profiler trace (``/apps/<name>/trace``; its body is validated first, as
-the reference validates it), the critical-path profiler (``/profile/*``),
-the program registry and cache (``/programs``), the autopilot
+the reference validates it), the critical-path profiler
+(``/profile/critical_path``, ``/profile/journeys/*``,
+``/profile/device/*``), the autopilot
 (``/autopilot``) and the cluster fabric (``/cluster``; the ``cluster=``
 argument raises). Without the overload layer's per-app query quotas
 (ROADMAP A.10) every app uses the endpoint's cap, as the reference does
@@ -50,10 +56,8 @@ from typing import Optional
 # unported routes: first path segment -> what they need and where it waits
 _UNPORTED = {
     "trace": "the span tracer (observability/tracing.py) is ROADMAP A.10",
-    "profile": ("the critical-path profiler (observability/journey.py, "
-                "costmodel.py) and the device profiler trace are ROADMAP A.10"),
-    "programs": ("the compiled-program registry and cache "
-                 "(core/util/program_cache.py) are ROADMAP A.8 (b)"),
+    "profile": ("the critical-path profiler (observability/journey.py) and "
+                "the device profiler trace are ROADMAP A.10"),
     "autopilot": "the autopilot (siddhi_tpu/autopilot/) is ROADMAP A.10",
     "cluster": "the cluster fabric (siddhi_tpu/cluster/) is ROADMAP A.10",
 }
@@ -189,6 +193,14 @@ class SiddhiRestService:
         if len(parts) == 3 and parts[0] == "apps" and parts[2] == "statistics":
             h._send(200, self._rt(parts[1]).statistics())
             return
+        if parts == ["programs"]:
+            from siddhi_tpu_torch.core.util import program_cache
+            from siddhi_tpu_torch.observability import costmodel
+
+            payload = costmodel.registry().snapshot()
+            payload["cache"] = program_cache.cache().snapshot()
+            h._send(200, payload)
+            return
         if parts and parts[0] in _UNPORTED:
             h._send_unported(_UNPORTED[parts[0]])
             return
@@ -249,6 +261,9 @@ class SiddhiRestService:
             events = fut.result()
             h._send(200, {"rows": [list(e.data) for e in events]})
             return
+        if parts[:2] == ["profile", "costs"] and len(parts) == 3:
+            self._post_costs(h, parts[2])
+            return
         if parts and parts[0] in _UNPORTED:
             h._send_unported(_UNPORTED[parts[0]])
             return
@@ -282,6 +297,21 @@ class SiddhiRestService:
                 h._send(200, {"revision": rev})
                 return
         h._send(404, {"error": f"unknown path {h.path}"})
+
+    def _post_costs(self, h, action: str) -> None:
+        """``POST /profile/costs/{start|stop}``: the cost registry's
+        process-wide switch, answered as the reference answers it."""
+        from siddhi_tpu_torch.observability import costmodel
+
+        if action not in ("start", "stop"):
+            h._send(404, {"error": f"unknown path {h.path}"})
+            return
+        if action == "start":
+            costmodel.enable()
+        else:
+            costmodel.disable()
+        h._send(200, {"costs": costmodel.enabled(),
+                      "programs": len(costmodel.registry().programs())})
 
     def _post_app_trace(self, h, body) -> None:
         """``POST /apps/<name>/trace``: the body is validated as the

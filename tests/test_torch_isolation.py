@@ -51,7 +51,9 @@ def test_port_imports_and_runs_with_jax_unimportable():
     join, a named window, an ``every`` trigger and on-demand finds, and
     answers them; the serving tier, the REST service, statistics, the WAL,
     metrics export, fan-out fusion (its planner, group, graph and reason
-    codes) and the utils import too, and a sharded aggregation under
+    codes), the step instrument, the program cache, the cost registry and
+    the step inventory and the utils import too (the routed step shares
+    through the cache), and a sharded aggregation under
     ``@app:statistics`` with a WAL runs and is scraped."""
     code = f"""
 import sys
@@ -77,6 +79,11 @@ from siddhi_tpu_torch.core.eligibility import code_of
 from siddhi_tpu_torch.core.plan.fanout_plan import plan_fanout_groups
 from siddhi_tpu_torch.core.query.fused_fanout import FusedFanoutRuntime
 from siddhi_tpu_torch.core.query.step_graph import StepGraph
+from siddhi_tpu_torch.core.util import program_cache
+from siddhi_tpu_torch.observability import costmodel
+from siddhi_tpu_torch.observability.telemetry import InstrumentedJit
+from siddhi_tpu_torch.analysis import step_registry
+assert all(step_registry.resolve(n) for n in step_registry.JIT_STEP_BUILDERS)
 APP = '''
 define stream StockStream (symbol string, price float, volume long);
 partition with (symbol of StockStream)
@@ -97,6 +104,8 @@ device_route_query_step(rt.query_runtimes["bench"], make_mesh(4), rows_per_shard
 h = rt.get_input_handler("StockStream")
 for i, (s, p, v) in enumerate([("A", 1.0, 1), ("B", 2.0, 2), ("A", 3.0, 3), ("A", 5.0, 4)]):
     h.send(i, [s, p, v])
+assert isinstance(rt.query_runtimes["bench"]._step, InstrumentedJit)
+assert any(e["family"] == "device_routed" for e in program_cache.cache().snapshot()["entries"])
 m.shutdown()
 assert c.rows == [["A", 1.0, 1], ["B", 2.0, 2], ["A", 2.0, 4], ["A", 4.0, 7]], c.rows
 class Q(QueryCallback):

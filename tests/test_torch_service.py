@@ -67,9 +67,7 @@ UNPORTED = [
     ("POST", "/apps/R/trace", {"action": "start", "dir": "t"}, "A.10"),
     ("GET", "/profile/critical_path", None, "A.10"),
     ("POST", "/profile/journeys/start", {}, "A.10"),
-    ("POST", "/profile/costs/start", {}, "A.10"),
     ("POST", "/profile/device/start", {}, "A.10"),
-    ("GET", "/programs", None, "A.8"),
     ("GET", "/autopilot", None, "A.10"),
     ("GET", "/autopilot/R", None, "A.10"),
     ("GET", "/cluster", None, "A.10"),
@@ -84,6 +82,38 @@ def test_unported_route_answers_501_naming_its_item(service, method, path, body,
     assert code == 501, (code, payload)
     err = json.loads(payload)["error"]
     assert f"ROADMAP {item}" in err, err
+
+
+PROGRAM_ROUTES = [("GET", "/programs"), ("POST", "/profile/costs/start"),
+                  ("POST", "/profile/costs/stop")]
+
+
+@pytest.mark.parametrize("method,path", PROGRAM_ROUTES,
+                         ids=[f"{m} {p}" for m, p in PROGRAM_ROUTES])
+def test_program_routes_answer_as_the_reference(service, method, path):
+    """``GET /programs`` serves the cost registry's records and clusters
+    beside the program cache's entries (the app's one query step holds
+    one after a send); the cost switch answers ``{"costs", "programs"}``."""
+    from siddhi_tpu_torch.observability import costmodel
+
+    _m, svc = service
+    try:
+        code, payload = _call(svc.port, "POST", "/apps/R/events",
+                              {"stream": "S", "data": ["a", 1], "timestamp": 5})
+        assert code == 200, payload
+        code, payload = _call(svc.port, method, path, {} if method == "POST" else None)
+        assert code == 200, payload
+        body = json.loads(payload)
+        if path == "/programs":
+            assert {"programs", "clusters", "cache"} <= set(body)
+            entries = body["cache"]["entries"]
+            assert any(e["family"] == "query_step" and e["shared_by"] == ["R"]
+                       for e in entries), entries
+        else:
+            assert body["costs"] is path.endswith("start")
+            assert isinstance(body["programs"], int)
+    finally:
+        costmodel.disable(force=True)
 
 
 def test_cluster_argument_is_refused_by_name():
@@ -152,9 +182,14 @@ def test_metrics_text_and_json(service):
     assert 'siddhi_stream_events_total{app="R",stream="S"} 1' in text
     assert 'siddhi_counter_total{app="R",name="resilience.wal_replayed_batches"} 0' in text
     assert 'siddhi_gauge{app="R",name="wal.batches"} 1' in text
+    # the query's step went through the step instrument and holds a
+    # program-cache entry (ported families, printed since ROADMAP A.8 b)
+    assert 'siddhi_jit_compiles_total{app="R",key="query.' in text
+    assert "siddhi_program_cache_misses_total" in text
+    assert "siddhi_program_cache_size" in text
     # the families of unported sources are not printed, not even as zeros
-    for family in ("siddhi_jit_", "siddhi_stage_", "siddhi_device_instrument",
-                   "siddhi_program_cache", "siddhi_autopilot", "siddhi_cluster",
+    for family in ("siddhi_stage_", "siddhi_device_instrument",
+                   "siddhi_autopilot", "siddhi_cluster",
                    "resilience.worker_restarts", "resilience.shed_events"):
         assert family not in text, family
     code, payload = _call(svc.port, "GET", "/metrics/R?format=json")
