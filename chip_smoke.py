@@ -260,8 +260,9 @@ Phases (any failure exits non-zero and prints no result line):
             with ``"shed": true``, no 500, ``/metrics`` counting them and
             the rebuild; the statistics' StockStream count == the rows
             sent, and D1's host syncs a step at ``detail`` == without
-            statistics; ``/trace/start`` answers 501, ``/programs`` 200
-            with the group's program-cache entry.
+            statistics; ``/autopilot`` answers 501 and
+            ``/profile/critical_path`` 200, ``/programs`` 200 with the
+            group's program-cache entry.
             Prints the sharded and unsharded fold, routing, decode and
             ``/ingest`` ms a batch, ``/query`` p50/p99 under four clients,
             fan-out and merge ms, rebuild, persist and restore-plus-replay
@@ -321,13 +322,43 @@ windows in partitions, the pipelined and served apps) runs its first batch
 of a shape eagerly, is captured, and replays; ``ScanRecorder`` and
 ``ExchangeRecorder`` count eager calls and replays alike, so each phase's
 launch counts and recorded-call checks hold as they did.
-25. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+25. observability OB, the observability tier at full width on phase 4's
+            feed generator (4 batches of 65,536 rows): the global flagship,
+            the routed flagship x4, D1, J5 (4 Stock/Twitter pairs) and N (4
+            pairs at B = 4,096), each run with device instruments and batch
+            journeys off, on, and on with checks. Gates: rows bit-equal; every
+            "off" meta the layout before the instruments, its lanes equal the
+            "on" meta's structural lanes; host syncs a send equal off and on
+            (the capturing first send apart); every lane == its host recomputation from the state pulled after
+            the batch (``win_fill`` the ring's live rows, ``groups`` numpy's
+            distinct symbols, ``shard_rows`` the rows whose partition key
+            mod 4 owns them, ``route_residual`` 4 x quota minus the fullest
+            shard, ``fill.<side>`` the pulled join directory, ``nfa_runs``
+            the pulled ``[K, S]`` live runs); every replay's meta == the
+            eager step's on a clone; a /metrics scrape, the critical-path
+            report and ``partition_occupancy`` make 0 host syncs; the report
+            names ``device`` for D2 at depth 4, ``pack`` for the global
+            flagship under a 50 ms planted pack delay, ``queue`` for the
+            @Async flagship under a 50 ms worker delay; ``rt.start_trace``
+            over two routed batches and one D1 batch writes a trace (under
+            a temporary directory) holding the ring-exchange and
+            distinct-scan kernels by name, as many as their wrappers
+            launched; ``/profile/device`` writes only under ``trace_base``;
+            ``/trace/start|stop`` around a deploy, two sends and a persist
+            gives nested ``jit``, ``query.step``, ``junction.dispatch`` and
+            ``persist`` spans; a breakpoint IN on the captured global
+            flagship suspends its send, ``get_query_state`` == the
+            snapshot's state, and after ``play`` the rows equal a run
+            without the debugger. Records events/s, host launch calls and
+            busy share of the global and routed flagships with instruments
+            and journeys off, each alone, and both on;
+26. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
-    ``{"fanout": ...}`` line, a ``{"program_cache": ...}`` line, a
-    ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-    ``{"ok": true, "device": {...}}``.
+    ``{"fanout": ...}`` line, a ``{"program_cache": ...}`` line, an
+    ``{"observability": ...}`` line, a ``{"kernels": [...]}`` line, the
+    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --cells ROOT`` instead drives the main path's
 cells with the checkout at ROOT (``cells``): one process a checkout, to
@@ -5233,9 +5264,14 @@ def phase_serving(device, straight, card: str):
         facts["fanout_ms"] = {q: tel["serving.fanout_ms"][q] for q in ("p50", "p99")}
         facts["merge_ms"] = {q: tel["serving.merge_ms"][q] for q in ("p50", "p99")}
         facts["storm"] = {"200": codes.count(200), "503": codes.count(503)}
-        code, body, _h = http(port, "POST", "/trace/start", {})
+        # a route of an unported module answers 501 naming its item; the
+        # critical-path report (ported with the observability tier) 200
+        code, body, _h = http(port, "GET", "/autopilot")
         _require(code == 501 and "ROADMAP A.10" in body["error"],
-                 f"serving: /trace/start answered {code}: {body}")
+                 f"serving: /autopilot answered {code}: {body}")
+        code, body, _h = http(port, "GET", f"/profile/critical_path/{name}")
+        _require(code == 200 and name in body["apps"],
+                 f"serving: /profile/critical_path answered {code}: {body}")
         # the group's step holds a program-cache entry, served at /programs
         code, body, _h = http(port, "GET", "/programs")
         _require(code == 200 and {"programs", "clusters", "cache"} <= set(body)
@@ -6042,6 +6078,596 @@ def pc_routed_profile(device, feed, card: str):
             for k, v in out.items()}
 
 
+# ------------------------------------------------- phase 25: observability
+
+OB_BATCHES = 4                  # a cut of depth: each cell's seeded feed
+OB_SEED = 25
+OB_J5_PAIRS = 4                 # J5: Stock/Twitter send pairs
+OB_N_PAIRS = 4                  # N: A/B send pairs at B = 4,096
+OB_DELAY_S = 0.05               # the planted pack and worker delays
+OB_ASYNC_BATCHES = 6
+
+
+class ObsCell:
+    """One app of phase 25 driven through the public API on the card: its
+    emitted batches (``collector``), every meta its query decoded, every
+    data lane it recorded (a list a batch), and the card's host syncs a
+    send (``counting_syncs``)."""
+
+    def __init__(self, device, app: str, query: str, out: str, knobs: dict, prep=None):
+        from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+        self.m = SiddhiManager(device=device)
+        self.m.set_config_manager(InMemoryConfigManager(
+            {f"siddhi_tpu.{k}": str(v) for k, v in knobs.items()}))
+        self.rt = self.m.create_siddhi_app_runtime(app)
+        self.q = self.rt.query_runtimes[query]
+        self.cb = collector()
+        self.rt.add_callback(out, self.cb)
+        if prep is not None:
+            prep(self.rt, self.q)
+        self.metas, self.lanes, self.syncs = [], [], []
+        q = self.q
+        decode, record = q.decode_meta_suffix, q._record_instrument
+
+        def decode_meta(meta):
+            import numpy as np
+
+            self.metas.append(np.asarray(meta).copy())
+            self.lanes.append({})
+            return decode(meta)
+
+        def record_lane(slot, vals, telemetry):
+            import numpy as np
+
+            self.lanes[-1][slot.name] = np.asarray(vals).copy()
+            return record(slot, vals, telemetry)
+
+        q.decode_meta_suffix, q._record_instrument = decode_meta, record_lane
+        self.handlers = {}
+
+    def send(self, stream: str, cols, ts):
+        """One send, its host syncs counted; the card synchronised after."""
+        import torch
+
+        h = self.handlers.get(stream)
+        if h is None:
+            h = self.handlers[stream] = self.rt.get_input_handler(stream)
+        out = {}
+        with counting_syncs(out):
+            h.send_columns(cols, timestamps=ts)
+        torch.cuda.synchronize()
+        self.syncs.append(out["syncs"])
+
+    def close(self):
+        self.m.shutdown()
+
+
+OB_ON = {"profile_device_instruments": "true", "profile_journeys": "true"}
+OB_OFF = {"profile_device_instruments": "false", "profile_journeys": "false"}
+
+
+def ob_pair(device, label: str, app: str, query: str, out: str, items, knobs: dict,
+            prep=None, check=None, pre_layout: int = 3):
+    """Phase 25's gates 1-3 on one cell, in three runs: instruments and
+    journeys off, then on (each send's host syncs counted), then on again
+    with ``check(i, cell)`` after each send (the lanes against the state
+    pulled after the batch) and every replay held against the eager step
+    on a clone (meta and lanes included: ``eager_beside_replays``). Rows
+    bit-equal across the runs, every "off" meta ``pre_layout`` lanes (the
+    layout before the instruments), each "on" meta's structural lanes ==
+    the "off" meta's, host syncs a send equal off and on after the first
+    (capturing) send. Returns (off, on, checked) facts."""
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+
+    runs = {}
+    for name, k in (("off", OB_OFF), ("on", OB_ON), ("checked", OB_ON)):
+        k0 = (ring_exchange.launches, distinct_scan.launches)
+        cell = ObsCell(device, app, query, out, {**knobs, **k}, prep)
+        checks = []
+        with (eager_beside_replays(device, checks) if name == "checked"
+              else contextlib.nullcontext()):
+            for i, (stream, cols, ts) in enumerate(items):
+                cell.send(stream, cols, ts)
+                if name == "checked" and check is not None:
+                    check(i, cell)
+        spec = cell.q.instrument_slots()
+        cell.close()
+        runs[name] = {"batches": cell.cb.batches, "metas": cell.metas,
+                      "lanes": cell.lanes, "syncs": cell.syncs,
+                      "spec": [(s.name, s.width, s.kind) for s in spec],
+                      "captured": cell.q.captured, "eager_checks": len(checks),
+                      # the main path's launches (the checked run's eager
+                      # twins launch the kernels too: not counted)
+                      "launches": (ring_exchange.launches - k0[0],
+                                   distinct_scan.launches - k0[1])}
+    off, on, checked = runs["off"], runs["on"], runs["checked"]
+    on["launches"] = tuple(a + b for a, b in zip(off["launches"], on["launches"]))
+    for other in ("on", "checked"):
+        require_equal(concat_rows(runs[other]["batches"]), concat_rows(off["batches"]),
+                      f"OB {label}: rows, instruments and journeys {other} vs off")
+    _require(len(off["metas"]) == len(on["metas"]) > 0,
+             f"OB {label}: {len(off['metas'])} vs {len(on['metas'])} metas decoded")
+    # the "on" spec's structural slots sit where the "off" layout has them
+    struct, pos = [], 3
+    for name, width, kind in on["spec"]:
+        if kind == "check" or name == "shard_rows":
+            struct.extend(range(pos, pos + width))
+        pos += width
+    for i, (a, b) in enumerate(zip(off["metas"], on["metas"])):
+        _require(a.shape == (pre_layout,),
+                 f"OB {label}: meta {i} off has {a.shape[0]} lanes, want {pre_layout}")
+        _require(b.shape == (pos,), f"OB {label}: meta {i} on has {b.shape[0]} "
+                 f"lanes, its spec {on['spec']} {pos}")
+        _require(a[:3].tolist() == b[:3].tolist()
+                 and a[3:].tolist() == b[struct].tolist(),
+                 f"OB {label}: meta {i}: off {a.tolist()} vs on {b.tolist()}")
+    _require([m.tolist() for m in checked["metas"]] == [m.tolist() for m in on["metas"]],
+             f"OB {label}: the checked run's metas differ from the on run's")
+    # a shape's first batch runs eagerly and captures, and the process's
+    # first capture of a kind pays one-time syncs: the steady batches after
+    # it are compared
+    _require(off["syncs"][1:] == on["syncs"][1:],
+             f"OB {label}: host syncs a send off {off['syncs']} vs on {on['syncs']}")
+    return off, on, checked
+
+
+def ob_pk_rows(q, cols, n: int):
+    """The routed rows per shard of one batch, from the host: the
+    partition key ids the batch's symbols hold (``pk % n`` owns a row)."""
+    import numpy as np
+
+    from siddhi_tpu_torch.core.event import HostBatch, LazyColumns
+
+    hb = HostBatch.from_columns(cols, q.input_definition, q.dictionary)
+    _c, pk = q.partition_keyer.apply(LazyColumns(hb.cols))
+    valid = np.asarray(hb.cols["__valid__"])
+    return np.bincount(np.asarray(pk, np.int64)[valid] % n, minlength=n)
+
+
+def phase_observability(device, card: str):
+    """Phase 25 (see the module doc). Returns the facts."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch.core.debugger import SiddhiDebugger
+    from siddhi_tpu_torch.observability import export, journey
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+    from siddhi_tpu_torch.resilience import FaultInjector
+
+    t_phase = time.perf_counter()
+    feed = make_feed(OB_SEED, OB_BATCHES, BATCH, NUM_SYMBOLS)
+    items = [("StockStream", cols, ts) for cols, ts in feed]
+    facts = {"card": card}
+    syms = [np.asarray(cols["symbol"]) for cols, _ts in feed]
+    launches = {"exchange": 0, "scan": 0}
+
+    def key_slots(_rt, q):
+        q.selector_plan.num_keys = KEY_SLOTS
+
+    # 1-3. the global flagship (fused stage): groups == distinct symbols
+    def global_check(i, cell):
+        got = int(cell.lanes[-1]["groups"][0])
+        _require(got == len(np.unique(syms[i])),
+                 f"OB global: groups {got} vs {len(np.unique(syms[i]))} symbols")
+
+    off, on, checked = ob_pair(device, "global", GLOBAL_APP.format(W=WINDOW), "bench",
+                          "OutStream", items, {"pipeline_depth": 1}, key_slots,
+                          global_check)
+    _require(on["captured"] and checked["eager_checks"] == OB_BATCHES,
+             f"OB global: captured {on['captured']}, {checked['eager_checks']} batches "
+             f"held against eager")
+    facts["global"] = {"spec": on["spec"], "syncs": on["syncs"],
+                       "groups": [int(x["groups"][0]) for x in on["lanes"]]}
+    global_rows = off["batches"]
+
+    # the routed flagship x4 (K8 inside the captured step)
+    def routed_prep(_rt, q):
+        q.selector_plan.num_keys = KEY_SLOTS
+        q._win_keys = KEY_SLOTS
+        device_route_query_step(q, make_mesh(N_SHARDS, device), rows_per_shard=ROWS_PER_SHARD)
+
+    def routed_check(i, cell):
+        lanes, q = cell.lanes[-1], cell.q
+        total = q._state["win"]["total"]
+        fill = int(torch.clamp(total, max=WINDOW).max())
+        want = ob_pk_rows(q, feed[i][0], N_SHARDS)
+        Q = q._route_layout.quota
+        _require(int(lanes["win_fill"][0]) == fill,
+                 f"OB routed: win_fill {lanes['win_fill']} vs the ring's {fill}")
+        _require(int(lanes["groups"][0]) == len(np.unique(syms[i])),
+                 f"OB routed: groups {lanes['groups']} vs {len(np.unique(syms[i]))}")
+        _require(lanes["shard_rows"].tolist() == want.tolist(),
+                 f"OB routed: shard_rows {lanes['shard_rows']} vs {want}")
+        _require(int(lanes["route_residual"][0]) == N_SHARDS * Q - int(want.max()),
+                 f"OB routed: route_residual {lanes['route_residual']} vs "
+                 f"{N_SHARDS * Q} - {int(want.max())}")
+
+    off, on, checked = ob_pair(device, "routed", APP.format(W=WINDOW), "bench", "OutStream",
+                          items, {"shard_exchange": "pallas_ring", "pipeline_depth": 1},
+                          routed_prep, routed_check, pre_layout=4 + N_SHARDS)
+    launches["exchange"] += on["launches"][0]
+    _require(on["launches"][0] == 2 * OB_BATCHES,
+             f"OB routed: {on['launches'][0]} exchange launches off and on for "
+             f"{2 * OB_BATCHES} batches")
+    _require(on["captured"] and checked["eager_checks"] == OB_BATCHES,
+             f"OB routed: captured {on['captured']}, {checked['eager_checks']} checked")
+    facts["routed"] = {"spec": on["spec"], "syncs": on["syncs"],
+                       "lanes": [{k: v.tolist() for k, v in x.items()} for x in on["lanes"]]}
+
+    # D1 (the distinct scan inside the captured step): the generic window
+    def d1_check(i, cell):
+        lanes, q = cell.lanes[-1], cell.q
+        fill = int(torch.clamp(q._state["win"]["total"], max=WINDOW))
+        seen = set(syms[i].tolist())
+        if i > 0:   # the window's rows before the batch expire in it
+            seen |= set(syms[i - 1][-WINDOW:].tolist())
+        _require(int(lanes["win_fill"][0]) == fill,
+                 f"OB D1: win_fill {lanes['win_fill']} vs {fill}")
+        _require(int(lanes["groups"][0]) == len(seen),
+                 f"OB D1: groups {lanes['groups']} vs {len(seen)} symbols among "
+                 f"the batch and the rows it expires")
+
+    off, on, checked = ob_pair(device, "D1", D1_APP.format(W=WINDOW), "bench", "OutStream",
+                          items, {"pipeline_depth": 1}, key_slots, d1_check)
+    launches["scan"] += on["launches"][1]
+    _require(on["launches"][1] == 2 * OB_BATCHES,
+             f"OB D1: {on['launches'][1]} scan launches off and on for "
+             f"{2 * OB_BATCHES} batches")
+    _require(on["captured"] and checked["eager_checks"] == OB_BATCHES,
+             f"OB D1: captured {on['captured']}, {checked['eager_checks']} checked")
+    facts["D1"] = {"spec": on["spec"], "syncs": on["syncs"]}
+
+    # J5 (config #5, the join engine): fill.<side> == the pulled directory
+    j5_items, _ids = j5_feed(OB_SEED, OB_J5_PAIRS)
+
+    def j5_check(i, cell):
+        q = cell.q
+        for side, plan in q.engine.plans.items():
+            if not plan.use_pidx:
+                continue
+            win = q._state[plan.win_key]
+            floor = plan.live_floor_np({k: int(win[k]) for k in ("total", "expired_upto")
+                                        if k in win})
+            gseq = q._state[plan.pidx_key]["gseq"].cpu().numpy()
+            want = ((gseq >= floor) & (gseq >= 0)).sum(axis=1)
+            got = cell.lanes[-1][f"fill.{side}"]
+            _require(got.tolist() == want.tolist(),
+                     f"OB J5: fill.{side} {got.tolist()} vs the directory's {want.tolist()}")
+
+    off, on, checked = ob_pair(device, "J5", J5_APP, "j5", "JoinOut", j5_items,
+                          {"window_capacity": J5_CAPACITY, "join_partitions": 8}, None,
+                          j5_check, pre_layout=4)
+    j5_sides = [n for n, _w2, k in on["spec"] if n.startswith("fill.")]
+    _require(j5_sides, f"OB J5: no partitioned side (spec {on['spec']})")
+    facts["J5"] = {"spec": on["spec"], "syncs": on["syncs"]}
+
+    # N (config #4): nfa_runs == the live match slots of the pulled [K, S] state
+    def n_prep(_rt, q):
+        q._win_keys = NFA_KEY_SLOTS
+        q.selector_plan.num_keys = NFA_KEY_SLOTS
+
+    def n_check(i, cell):
+        live = int(cell.q._state["nfa"]["active"].sum())
+        got = int(cell.lanes[-1]["nfa_runs"][0])
+        _require(got == live, f"OB N: nfa_runs {got} vs {live} live runs in the state")
+
+    n_items = nfa_feed(OB_SEED, NFA_B_THR, OB_N_PAIRS, 10_000, NFA_STEP_MS, False)
+    off, on, checked = ob_pair(device, "N", nfa_app(N_PATTERN, N_SELECT), "nfa", "MatchStream",
+                          n_items, {"nfa_slots": NFA_SLOTS, "pipeline_depth": NFA_DEPTH},
+                          n_prep, n_check)
+    facts["N"] = {"spec": on["spec"], "syncs": on["syncs"],
+                  "nfa_runs": [int(x["nfa_runs"][0]) for x in on["lanes"]]}
+    print(f"[observability] gates 1-3: global flagship, routed x{N_SHARDS}, D1, J5 "
+          f"({OB_J5_PAIRS} pairs), N ({OB_N_PAIRS} pairs) at full width: rows bit-equal "
+          f"with instruments and journeys on vs off, every off meta the layout before "
+          f"the instruments and its lanes equal the on meta's, host syncs a send "
+          f"after the first equal (on: global {facts['global']['syncs']}, "
+          f"routed {facts['routed']['syncs']}, "
+          f"D1 {facts['D1']['syncs']}, J5 {facts['J5']['syncs']}, N {facts['N']['syncs']}); "
+          f"every lane == its host recomputation from the state pulled after the "
+          f"batch; every replay's meta == the eager step's on a clone [{card}]",
+          flush=True)
+
+    # 2 (the scrape is pull-free) and 4 (the critical path on the card)
+    def report(cell):
+        q = journey.critical_path_report(cell.m)["apps"][cell.rt.name]["queries"][cell.q.name]
+        return q["bottleneck"], sorted(q["stages"])
+
+    def d2_prep(_rt, q):
+        for spec in q.selector_plan.specs:
+            spec.distinct_capacity = D2_H
+
+    s0 = distinct_scan.launches
+    d2 = ObsCell(device, D2_APP.format(W=WINDOW), "bench", "OutStream",
+                 {"pipeline_depth": 4, **OB_ON}, d2_prep)
+    d2.send(*items[0])
+    # the first batch of a shape runs eagerly and captures (~0.1-0.3 s of
+    # dispatch): the report reads the batches after it
+    d2.rt.app_context.telemetry.reset()
+    for it in items[1:]:
+        d2.send(*it)
+    launches["scan"] += distinct_scan.launches - s0
+    d2_verdict, d2_stages = report(d2)
+    scrape = {}
+    with counting_syncs(scrape):
+        text = export.prometheus_text(d2.m)
+        journey.critical_path_report(d2.m)
+    d2.close()
+    _require(scrape["syncs"] == 0, f"OB: a scrape made {scrape['syncs']} host syncs "
+             f"({scrape['sync_sites']})")
+    _require("siddhi_device_instrument" in text and "siddhi_stage_ms" in text,
+             "OB: /metrics lacks the device-instrument or stage families")
+    _require(d2_verdict["stage"] == "device",
+             f"OB D2 at depth 4: the report names {d2_verdict}, not device")
+
+    g = ObsCell(device, GLOBAL_APP.format(W=WINDOW), "bench", "OutStream",
+                {"pipeline_depth": 1, **OB_ON}, key_slots)
+    g.send(*items[0])
+    g.rt.app_context.telemetry.reset()
+    inj = FaultInjector()
+    inj.delay_stage("pack", OB_DELAY_S)
+    try:
+        for it in items[1:]:
+            g.send(*it)
+    finally:
+        inj.clear()
+    pack_verdict, _st = report(g)
+    g.close()
+    _require(pack_verdict["stage"] == "pack",
+             f"OB global under a {OB_DELAY_S} s pack delay: the report names {pack_verdict}")
+
+    a = ObsCell(device, PIPE_APP.format(W=WINDOW), "bench", "OutStream",
+                {"pipeline_depth": 1, **OB_ON}, key_slots)
+    a.send(*items[0])
+    wait_rows(a.cb, BATCH, "OB @Async warm-up")
+    a.rt.app_context.telemetry.reset()
+    inj = FaultInjector()
+    inj.delay_worker(a.rt.junctions["StockStream"], OB_DELAY_S, persistent=True)
+    try:
+        for i in range(OB_ASYNC_BATCHES):
+            cols, ts = feed[i % OB_BATCHES]
+            a.rt.get_input_handler("StockStream").send_columns(cols, timestamps=ts)
+        wait_rows(a.cb, BATCH * (1 + OB_ASYNC_BATCHES), "OB @Async under a worker delay")
+    finally:
+        inj.clear()
+    queue_verdict, _st = report(a)
+    a.close()
+    _require(queue_verdict["stage"] == "queue",
+             f"OB @Async flagship under a {OB_DELAY_S} s worker delay: the report "
+             f"names {queue_verdict}")
+    facts["critical_path"] = {"D2_depth4": d2_verdict, "pack_delay": pack_verdict,
+                              "worker_delay": queue_verdict, "D2_stages": d2_stages}
+    print(f"[observability] gate 4: critical path on the card: D2 at depth 4 -> "
+          f"{d2_verdict}; global flagship under a {OB_DELAY_S} s pack delay -> "
+          f"{pack_verdict}; @Async flagship under a {OB_DELAY_S} s worker delay -> "
+          f"{queue_verdict}; a /metrics scrape and the report: "
+          f"{scrape['syncs']} host syncs [{card}]", flush=True)
+
+    # J5's partition occupancy reads the drained lanes: no sync
+    occ = {}
+    j5 = ObsCell(device, J5_APP, "j5", "JoinOut",
+                 {"window_capacity": J5_CAPACITY, "join_partitions": 8, **OB_ON})
+    for it in j5_items[:2]:
+        j5.send(*it)
+    with counting_syncs(occ):
+        for side in j5.q.engine.plans:
+            j5.q.engine.partition_occupancy(side)
+        export.prometheus_text(j5.m)
+    j5.close()
+    _require(occ["syncs"] == 0, f"OB J5: partition_occupancy and a scrape made "
+             f"{occ['syncs']} host syncs ({occ['sync_sites']})")
+
+    # 5. the device trace: two routed batches and one D1 batch
+    out_dir = Path(tempfile.mkdtemp(prefix="phase25_"))
+    r = ObsCell(device, APP.format(W=WINDOW), "bench", "OutStream",
+                {"shard_exchange": "pallas_ring", "pipeline_depth": 1}, routed_prep)
+    d1 = ObsCell(device, D1_APP.format(W=WINDOW), "bench", "OutStream",
+                 {"pipeline_depth": 1}, key_slots)
+    e_start, s_start = ring_exchange.launches, distinct_scan.launches
+    r.send(*items[0])
+    d1.send(*items[0])
+    e0, s0 = ring_exchange.launches, distinct_scan.launches
+    r.rt.start_trace(str(out_dir / "device_trace"))
+    r.send(*items[1])
+    r.send(*items[2])
+    d1.send(*items[1])
+    path = r.rt.stop_trace()
+    de, ds = ring_exchange.launches - e0, distinct_scan.launches - s0
+    launches["exchange"] += ring_exchange.launches - e_start
+    launches["scan"] += distinct_scan.launches - s_start
+    r.close()
+    d1.close()
+    counts = trace_kernel_counts(path, ("ring_exchange_cols_kernel",
+                                        "distinct_scan_registers",
+                                        "distinct_scan_hash"))
+    scans = counts["distinct_scan_registers"] + counts["distinct_scan_hash"]
+    _require((de, ds) == (2, 1), f"OB trace: {de} exchange, {ds} scan launches, want 2, 1")
+    _require(counts["ring_exchange_cols_kernel"] == de and scans == ds,
+             f"OB trace: the trace holds {counts} for {de} exchange and {ds} scan "
+             f"launches ({path})")
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+    from siddhi_tpu_torch.service import SiddhiRestService
+
+    base = tempfile.mkdtemp(prefix="phase25_", dir=str(out_dir))
+    sm = SiddhiManager(device=device)
+    sm.set_persistence_store(InMemoryPersistenceStore())
+    svc = SiddhiRestService(sm, trace_base=base).start()
+    try:
+        code_esc, _b, _h = http(svc.port, "POST", "/profile/device/start", {"dir": "../out"})
+        code_on, body_on, _h = http(svc.port, "POST", "/profile/device/start", {"dir": "dev"})
+        code_off, body_off, _h = http(svc.port, "POST", "/profile/device/stop", {})
+        _require(code_esc == 400 and code_on == 200 and code_off == 200
+                 and body_off["file"].startswith(base + os.sep)
+                 and os.path.exists(body_off["file"]),
+                 f"OB /profile/device: {code_esc}, {code_on} {body_on}, {code_off} {body_off}")
+        # 6. the span trace over REST: deploy, two sends, a persist
+        code, body, _h = http(svc.port, "POST", "/trace/start", {})
+        _require(code == 200, f"OB /trace/start: {code} {body}")
+        code, body, _h = http(svc.port, "POST", "/apps", raw=(
+            "@app:name('obs_spans')\n" + GLOBAL_APP.format(W=WINDOW)).encode(),
+            ctype="text/plain")
+        _require(code == 201, f"OB POST /apps: {code} {body}")
+        srt = sm.get_siddhi_app_runtime("obs_spans")
+        for cols, ts in feed[:2]:
+            srt.get_input_handler("StockStream").send_columns(cols, timestamps=ts)
+        code, body, _h = http(svc.port, "POST", "/apps/obs_spans/persist", {})
+        _require(code == 200, f"OB persist: {code} {body}")
+        code, trace, _h = http(svc.port, "POST", "/trace/stop", {"file": "spans/p25.json"})
+        _require(code == 200 and trace["file"].startswith(base + os.sep),
+                 f"OB /trace/stop: {code} {trace if code != 200 else trace['file']}")
+    finally:
+        svc.stop()
+        sm.shutdown()
+    spans = [e for e in trace["trace"]["traceEvents"] if e.get("ph") == "X"]
+    names = {e["name"] for e in spans}
+    _require({"jit", "query.step", "junction.dispatch", "persist"} <= names,
+             f"OB span trace: names {sorted(names)}")
+    nested = ob_nesting(spans)
+    _require(("junction.dispatch", "query.step") in nested and ("query.step", "jit") in nested,
+             f"OB span trace: nesting {sorted(nested, key=str)}")
+    print(f"[observability] gates 5-6: rt.start_trace over 2 routed batches and 1 D1 "
+          f"batch: the trace holds {counts} for {de} exchange and {ds} scan launches "
+          f"({os.path.getsize(path)} bytes); /profile/device answered 400 outside "
+          f"trace_base and wrote {os.path.basename(body_off['file'])} under it; "
+          f"/trace/stop: {len(spans)} spans, names {sorted(names)}, nested "
+          f"{sorted((p for p in nested if p[0]), key=str)} [{card}]", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # 7. the debugger on the captured global flagship
+    dbg_cell = ObsCell(device, GLOBAL_APP.format(W=WINDOW), "bench", "OutStream",
+                       {"pipeline_depth": 1}, key_slots)
+    for it in items[:2]:
+        dbg_cell.send(*it)
+    _require(dbg_cell.q.captured, "OB debugger: the step is not captured")
+    from siddhi_tpu_torch.core.util.snapshot import safe_loads
+
+    want = safe_loads(dbg_cell.rt.snapshot())["queries"]["bench"]["state"]
+    dbg = dbg_cell.rt.debug()
+    fired = threading.Event()
+    dbg.set_debugger_callback(lambda *_a: fired.set())
+    dbg.acquire_break_point("bench", SiddhiDebugger.QueryTerminal.IN)
+    n_before = len(dbg_cell.cb.batches)
+    cols, ts = feed[2]
+    t = threading.Thread(target=lambda: dbg_cell.rt.get_input_handler(
+        "StockStream").send_columns(cols, timestamps=ts), daemon=True)
+    t.start()
+    _require(fired.wait(60), "OB debugger: the IN breakpoint never fired")
+    time.sleep(0.2)
+    suspended = t.is_alive() and len(dbg_cell.cb.batches) == n_before
+    got = dbg.get_query_state("bench")["state"]
+    dbg.release_all_break_points()
+    dbg.play()
+    t.join(60)
+    _require(suspended and not t.is_alive(), f"OB debugger: suspended {suspended}, "
+             f"thread alive after play {t.is_alive()}")
+    same = ob_leaves(got) == ob_leaves(want)
+    _require(same, "OB debugger: get_query_state differs from the snapshot's state")
+    for it in items[3:]:
+        dbg_cell.send(*it)
+    dbg_cell.close()
+    require_equal(concat_rows(dbg_cell.cb.batches), concat_rows(global_rows),
+                  "OB debugger: rows with the debugger vs without")
+    print(f"[observability] gate 7: a breakpoint IN on the captured global flagship "
+          f"suspended its send; get_query_state == the snapshot's state "
+          f"({len(ob_leaves(want))} leaves); after play the rows equal a run without "
+          f"the debugger [{card}]", flush=True)
+
+    # 8. record: events/s, host launch calls and busy share with the
+    # instruments and journeys on and off
+    record = {}
+    for label, app, prep, knobs in (
+            ("global", GLOBAL_APP.format(W=WINDOW), key_slots, {"pipeline_depth": 1}),
+            ("routed", APP.format(W=WINDOW), routed_prep,
+             {"shard_exchange": "pallas_ring", "pipeline_depth": 1})):
+        for mode, k in (("off", OB_OFF),
+                        ("instruments", {**OB_OFF, "profile_device_instruments": "true"}),
+                        ("journeys", {**OB_OFF, "profile_journeys": "true"}),
+                        ("both", OB_ON)):
+            e0 = ring_exchange.launches
+            c = ObsCell(device, app, "bench", "OutStream", {**knobs, **k}, prep)
+            secs = []
+            for it in items[:3]:
+                t0 = time.perf_counter()
+                c.send(*it)
+                secs.append(time.perf_counter() - t0)
+            h = c.rt.get_input_handler("StockStream")
+            prof = profile_batch(f"OB {label} {mode}", lambda: h.send_columns(
+                *feed[3]), card)
+            c.close()
+            if label == "routed":
+                launches["exchange"] += ring_exchange.launches - e0
+            record[f"{label}_{mode}"] = {
+                "eps": steady_eps(secs, BATCH),
+                **{f: prof[f] for f in ("host_launch_calls", "busy_share", "wall_ms",
+                                        "device_ms")}}
+    facts["record"] = record
+    facts["launches"] = launches
+    facts["phase_s"] = time.perf_counter() - t_phase
+    print(f"[observability] record: " + "; ".join(
+        f"{k} {v['eps']:.1f} events/s, {v['host_launch_calls']} launch calls, busy "
+        f"{v['busy_share']:.3f}" for k, v in record.items())
+        + f"; phase {facts['phase_s']:.1f} s [{card}]", flush=True)
+    return facts
+
+
+def trace_kernel_counts(path: str, names) -> dict:
+    """``{name: launches}``: the device kernel events of a Chrome trace
+    file whose name contains each of ``names``."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {n: 0 for n in names}
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") != "kernel":
+            continue
+        for n in names:
+            if n in str(ev.get("name", "")):
+                out[n] += 1
+    return out
+
+
+def ob_nesting(spans) -> set:
+    """(parent name, name) of every span, per thread by containment."""
+    by_tid = {}
+    for e in spans:
+        by_tid.setdefault(e["tid"], []).append(e)
+    pairs = set()
+    for evs in by_tid.values():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack = []
+        for e in evs:
+            while stack and e["ts"] >= stack[-1]["ts"] + stack[-1]["dur"] - 0.01:
+                stack.pop()
+            if stack:
+                _require(e["ts"] + e["dur"] <= stack[-1]["ts"] + stack[-1]["dur"] + 0.01,
+                         f"OB span {e['name']} escapes its parent {stack[-1]['name']}")
+            pairs.add((stack[-1]["name"] if stack else None, e["name"]))
+            stack.append(e)
+    return pairs
+
+
+def ob_leaves(tree, path=()):
+    """A state tree as sorted (path, dtype, bytes) leaves."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(ob_leaves(tree[k], path + (k,)))
+        return out
+    a = np.asarray(tree)
+    return [(path, a.dtype.str, a.shape, a.tobytes())]
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -6283,11 +6909,16 @@ def main() -> int:
     # 24. the program cache: six apps, two programs, one graph each
     program_cache = phase_program_cache(device, card)
 
-    # 25. result lines
+    # 25. the observability tier: instruments, journeys, traces, debugger
+    observability = phase_observability(device, card)
+    dist["launches"]["OB"] = observability["launches"]["scan"]
+
+    # 26. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
-                     "P_routed": persistence["routed_x4"]["exchange_launches"]}
+                     "P_routed": persistence["routed_x4"]["exchange_launches"],
+                     "OB": observability["launches"]["exchange"]}
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
@@ -6365,6 +6996,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"fanout": fanout}))
     print(json.dumps({"program_cache": program_cache}))
+    print(json.dumps({"observability": observability}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,13 +20,19 @@ persistence API (``persist``, ``persist_incremental``,
 ``snapshot``, ``restore``: ``core/util/snapshot.py``), the serving
 tier's sharded aggregation stores (``siddhi_tpu.agg_shards`` > 1,
 ``serving/``), ``@app:statistics`` (``statistics()``,
-``set_statistics_level``, the console reporter), ``@app:enforceOrder``
-and the ingest WAL (``enable_wal``). What the port lacks raises naming
+``set_statistics_level``, the console reporter), ``@app:enforceOrder``,
+the ingest WAL (``enable_wal``), the debugger (``debug()``,
+``core/debugger.py``; it dissolves the app's fused groups first) and the
+device profiler trace (``start_trace``/``stop_trace``,
+``observability/device_trace.py``). What the port lacks raises naming
 itself, so an app never runs with a part silently missing.
 
 The app starts at ``start()`` or at its first send: @Async workers, the
 ingest pool, rate limiters, sinks' connections and sources (each
-connecting with retry on its own thread). ``shutdown`` stops the
+connecting with retry on its own thread); its knobs
+``siddhi_tpu.profile_journeys``, ``profile_costs`` and
+``profile_device_instruments`` each take one ref on their process-wide
+collector until ``shutdown``. ``shutdown`` stops the
 heartbeat, drains the pipeline, stops sources, limiters and workers (each
 delivers what its queue holds first), stops the scheduler, then drops the
 device state.
@@ -48,6 +54,7 @@ from siddhi_tpu_torch.core.stream.input.input_handler import InputHandler, Input
 from siddhi_tpu_torch.core.stream.junction import StreamJunction
 from siddhi_tpu_torch.core.stream.output.stream_callback import StreamCallback
 from siddhi_tpu_torch.core.util.scheduler import Scheduler
+from siddhi_tpu_torch.observability.tracing import span
 from siddhi_tpu_torch.ops.expressions import CompileError, set_active_extensions
 from siddhi_tpu_torch.query_api.annotations import find_annotation, find_annotations
 from siddhi_tpu_torch.query_api.definitions import Attribute, AttrType, StreamDefinition
@@ -177,6 +184,10 @@ class SiddhiAppRuntime:
         self.sink_runtimes: List = []
         self._started = False
         self._costs_on = False     # holds one costmodel.enable()
+        self._journeys_on = False  # holds one journey.enable()
+        self._instruments_on = False  # holds one instruments.enable()
+        self._tracing = False      # this app started the device trace
+        self._debugger = None
 
         pb = siddhi_app.app_annotation("playback")
         if pb is not None:
@@ -499,8 +510,9 @@ class SiddhiAppRuntime:
             raise SiddhiAppValidationException(
                 f"'{query.input_stream.stream_id}' is a table — consume it via a "
                 f"join or an on-demand query (runtime.query(...))")
-        runtime = plan_query(query, query_name, self.app_context, definitions,
-                             partition_ctx=partition_ctx)
+        with span("plan", query=query_name):
+            runtime = plan_query(query, query_name, self.app_context, definitions,
+                                 partition_ctx=partition_ctx)
         runtime.query_ast = query   # fan-out fusion's program signature reads it
         self._wire_output(query, query_name, runtime, partition_ctx)
         self._attach_rate_limiter(query, runtime, partition_ctx)
@@ -897,16 +909,43 @@ class SiddhiAppRuntime:
     setStatisticsLevel = set_statistics_level
 
     def start_trace(self, log_dir: str):
-        """The reference's device-level profiler trace: ROADMAP A.10 (the
-        instruments move to CUDA events and the torch profiler there)."""
-        raise NotImplementedError(
-            "SiddhiAppRuntime.start_trace: the device profiler trace is "
-            "not ported to siddhi_tpu_torch yet (ROADMAP A.10)")
+        """Start the device profiler trace into ``log_dir``
+        (``observability/device_trace.py``: ``torch.profiler`` with host
+        and, on the card, CUDA activity; each hand-written kernel under its
+        own name, a CUDA-graph replay's included). ``stop_trace`` writes a
+        Chrome trace file there. A second start raises."""
+        from siddhi_tpu_torch.observability import device_trace
+
+        if self._tracing:
+            raise RuntimeError("a trace is already running")
+        device_trace.start(log_dir)
+        self._tracing = True
+        return log_dir
 
     def stop_trace(self):
-        raise NotImplementedError(
-            "SiddhiAppRuntime.stop_trace: the device profiler trace is "
-            "not ported to siddhi_tpu_torch yet (ROADMAP A.10)")
+        """Stop this app's device trace (from the thread that started it);
+        returns the trace file's path. A stop with no trace running
+        raises."""
+        from siddhi_tpu_torch.observability import device_trace
+
+        if not self._tracing:
+            raise RuntimeError("no trace is running")
+        path = device_trace.stop()
+        self._tracing = False
+        return path
+
+    def debug(self):
+        """Attach a SiddhiDebugger (reference SiddhiAppRuntime.debug). Its
+        breakpoints wrap each query runtime's delivery methods, which a
+        fused group bypasses: the app's fused groups dissolve first."""
+        from siddhi_tpu_torch.core.debugger import SiddhiDebugger
+
+        if self._debugger is None:
+            for g in list(self.fused_fanout_groups):
+                g.dissolve()
+            self.fused_fanout_groups = []
+            self._debugger = SiddhiDebugger(self)
+        return self._debugger
 
     # ------------------------------------------------------ resilience API
 
@@ -932,13 +971,23 @@ class SiddhiAppRuntime:
                 return
             self._started = True
             ctx = self.app_context
+            # the profiling knobs: one refcounted process-wide enable each,
+            # paired with the disables in shutdown()
             if ctx.profile_costs and not self._costs_on:
-                # one refcounted process-wide enable, paired with the
-                # disable in shutdown()
                 from siddhi_tpu_torch.observability import costmodel
 
                 costmodel.enable()
                 self._costs_on = True
+            if ctx.profile_journeys and not self._journeys_on:
+                from siddhi_tpu_torch.observability import journey
+
+                journey.enable()
+                self._journeys_on = True
+            if ctx.profile_device_instruments and not self._instruments_on:
+                from siddhi_tpu_torch.observability import instruments
+
+                instruments.enable()
+                self._instruments_on = True
             if ctx.ingest_pool > 0 and ctx.ingest_pack_pool is None:
                 from siddhi_tpu_torch.core.stream.input.pack_pool import IngestPackPool
 
@@ -1031,6 +1080,17 @@ class SiddhiAppRuntime:
 
             costmodel.disable()
             self._costs_on = False
+        from siddhi_tpu_torch.observability import instruments, journey
+
+        # this app's wall tracking dies with it (a redeployed app of the
+        # same name starts a fresh observation window)
+        journey.forget_app(ctx.name)
+        if self._journeys_on:
+            journey.disable()
+            self._journeys_on = False
+        if self._instruments_on:
+            instruments.disable()
+            self._instruments_on = False
 
 
 def _element_state_bytes(el) -> int:

@@ -202,6 +202,20 @@ class SiddhiAppContext:
         # SIDDHI_TPU_PROFILE_COSTS=1 and POST /profile/costs/start turn it
         # on process-wide without a config. Default off
         self.profile_costs = False
+        # batch-journey stage tracing (observability/journey.py): holds
+        # one ref on the process-wide journey collector for this
+        # runtime's life (refcounted across apps). Key
+        # siddhi_tpu.profile_journeys; POST /profile/journeys/start turns
+        # it on process-wide without a config. Default off
+        self.profile_journeys = False
+        # device instruments (observability/instruments.py): each step
+        # appends its declared slots (window ring fill, join partition
+        # fill, NFA active runs, routed-row skew, groups touched) behind
+        # the [overflow, notify, count] meta prefix, computed inside the
+        # step (on the card inside its CUDA graph) and pulled with the
+        # meta. Default on; 'false' keeps the meta layouts of the port
+        # before the instruments. Key siddhi_tpu.profile_device_instruments
+        self.profile_device_instruments = True
         # the process-global program cache (core/util/program_cache.py):
         # equal capturable step programs are built (and on the card
         # captured) once and shared across apps, each app's state its own.

@@ -13,12 +13,17 @@ Set-valued (OBJECT) attributes: a singleton set (a ``createSet`` output)
 is one int64 column holding its element's identity code; a multi-element
 set (a ``unionSet`` output) is its live count plus ``'<name>#set'``
 (element codes) and ``'<name>#setm'`` (live mask) ``[B, H]`` companions.
+
+With batch journeys on (``observability/journey.py``) a batch is stamped
+where it is packed (``HostBatch.journey``): the pack stage's service
+time, the slowest sub-batch plus the serial merge on the ingest pool.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+import time
 import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -26,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from siddhi_tpu_torch.observability import journey
 from siddhi_tpu_torch.ops.expressions import (
     TS_KEY, TYPE_KEY, VALID_KEY, decode_set_element, encode_set_value)
 from siddhi_tpu_torch.ops.types import dtype_of
@@ -239,6 +245,17 @@ def pack_pool_of(app_context):
     return getattr(app_context, "ingest_pack_pool", None)
 
 
+def _journey_t0() -> Optional[float]:
+    """The pack stage's start when batch journeys are on, else None: one
+    flag check a batch. A planted pack delay (``journey.maybe_delay``, the
+    tests' known bottleneck) falls inside the timed window."""
+    if not journey.enabled():
+        return None
+    t0 = time.perf_counter()
+    journey.maybe_delay("pack")
+    return t0
+
+
 def _pad_len(n: int, minimum: int = 8) -> int:
     """Pad batch length to a power of two (the reference's recompile
     bound; kept so batch shapes, and thus outputs, match it row for row)."""
@@ -318,6 +335,9 @@ class HostBatch:
     attribute null masks under ``<key>?``. Columns may be device tensors
     held in a ``LazyColumns`` that pull on first read."""
 
+    # the batch journey stamped at pack (observability/journey.py), or None
+    journey = None
+
     def __init__(self, cols: Dict[str, np.ndarray], size: Optional[int] = None):
         self.cols = cols
         self._size = size        # known valid-row count (avoids a pull)
@@ -345,6 +365,7 @@ class HostBatch:
                 # bit-identical to this inline path
                 return _parallel_from_events(pool, chunks, events, definition,
                                              dictionary, pad_to, event_type)
+        t0 = _journey_t0()
         n = len(events)
         b = pad_to if pad_to is not None else _pad_len(n)
         cols: Dict[str, np.ndarray] = {
@@ -384,7 +405,10 @@ class HostBatch:
                         arr[:n] = col
             cols[attr.name] = arr
             cols[attr.name + "?"] = mask
-        return HostBatch(cols)
+        batch = HostBatch(cols)
+        if t0 is not None:
+            journey.stamp_pack(batch, t0)
+        return batch
 
     @staticmethod
     def from_columns(data: Dict[str, np.ndarray], definition: AbstractDefinition,
@@ -401,6 +425,7 @@ class HostBatch:
                 return _parallel_from_columns(pool, chunks, data, definition,
                                               dictionary, timestamps,
                                               default_ts, pad_to)
+        t0 = _journey_t0()
         first = next(iter(data.values()))
         n = len(first)
         b = pad_to if pad_to is not None else _pad_len(n)
@@ -436,7 +461,10 @@ class HostBatch:
                 mask[:n] |= np.asarray(user_mask, bool)[:n]
             cols[attr.name] = arr
             cols[attr.name + "?"] = mask
-        return HostBatch(cols)
+        batch = HostBatch(cols)
+        if t0 is not None:
+            journey.stamp_pack(batch, t0)
+        return batch
 
     def to_events(self, attr_order: Sequence[tuple],
                   dictionary: StringDictionary,
@@ -564,6 +592,7 @@ def _encode_object_column(cols, arr, mask, name, b, values, definition,
 
 def _parallel_from_events(pool, chunks, events, definition, dictionary,
                           pad_to, event_type) -> HostBatch:
+    jt = journey.enabled()
     n = len(events)
     b = pad_to if pad_to is not None else _pad_len(n)
     cols: Dict[str, np.ndarray] = {
@@ -585,6 +614,8 @@ def _parallel_from_events(pool, chunks, events, definition, dictionary,
             scratch[attr.name] = np.empty(n, np.int64)
 
     def pack_chunk(lo: int, hi: int) -> None:
+        if jt:
+            journey.maybe_delay("pack")   # a planted bottleneck
         m = hi - lo
         sub = events[lo:hi]
         cols[TS_KEY][lo:hi] = np.fromiter(
@@ -608,7 +639,8 @@ def _parallel_from_events(pool, chunks, events, definition, dictionary,
                 else:
                     arrs[attr.name][lo:hi] = col
 
-    pool.run_ordered(chunks, pack_chunk)
+    chunk_ms = pool.run_ordered(chunks, pack_chunk)
+    t_merge = time.perf_counter()
     for attr in attrs:
         if attr.type == AttrType.STRING:
             ids = scratch[attr.name]
@@ -623,11 +655,22 @@ def _parallel_from_events(pool, chunks, events, definition, dictionary,
             arrs[attr.name][:n] = np.where(mask, 0, ids)
         cols[attr.name] = arrs[attr.name]
         cols[attr.name + "?"] = masks[attr.name]
-    return HostBatch(cols)
+    return _stamped(HostBatch(cols), jt, chunk_ms, t_merge)
+
+
+def _stamped(batch: HostBatch, jt: bool, chunk_ms, t_merge: float) -> HostBatch:
+    """A pool-packed batch with its pack stamp: max, not sum (the
+    sub-batches were packed at once), the slowest packer plus the serial
+    merge."""
+    if jt:
+        merge_ms = (time.perf_counter() - t_merge) * 1000.0
+        journey.stamp_pack_ms(batch, max(chunk_ms, default=0.0) + merge_ms)
+    return batch
 
 
 def _parallel_from_columns(pool, chunks, data, definition, dictionary,
                            timestamps, default_ts, pad_to) -> HostBatch:
+    jt = journey.enabled()
     first = next(iter(data.values()))
     n = len(first)
     b = pad_to if pad_to is not None else _pad_len(n)
@@ -662,6 +705,8 @@ def _parallel_from_columns(pool, chunks, data, definition, dictionary,
             scratch[attr.name] = np.empty(n, np.int64)
 
     def pack_chunk(lo: int, hi: int) -> None:
+        if jt:
+            journey.maybe_delay("pack")
         if ts_src is not None:
             ts[lo:hi] = ts_src[lo:hi]
         for attr in attrs:
@@ -677,7 +722,8 @@ def _parallel_from_columns(pool, chunks, data, definition, dictionary,
             else:
                 arrs[attr.name][lo:hi] = src[lo:hi]
 
-    pool.run_ordered(chunks, pack_chunk)
+    chunk_ms = pool.run_ordered(chunks, pack_chunk)
+    t_merge = time.perf_counter()
     for attr in attrs:
         if str_obj[attr.name]:
             ids = scratch[attr.name]
@@ -691,4 +737,4 @@ def _parallel_from_columns(pool, chunks, data, definition, dictionary,
             masks[attr.name][:n] |= np.asarray(user_mask, bool)[:n]
         cols[attr.name] = arrs[attr.name]
         cols[attr.name + "?"] = masks[attr.name]
-    return HostBatch(cols)
+    return _stamped(HostBatch(cols), jt, chunk_ms, t_merge)

@@ -3,8 +3,10 @@
 ``attach_join_engine`` is the planner's one hook: it classifies a freshly
 built ``JoinQueryRuntime`` (engine-eligible, pipeline-eligible, or the
 broadcast probe), records the reasons on it and attaches the engine to
-the eligible shapes. The reference's join metrics (the partition
-occupancy gauges and the probe/insert histograms) wait for ROADMAP A.10.
+the eligible shapes, with the join's metrics: the per-query
+``join.probe_ms.<q>``/``join.insert_ms.<q>`` histograms (recorded by
+``process_side_batch``) and the ``join.partition_rows.<q>.<side>.<p>``
+gauges, which read ``partition_occupancy`` (no device read).
 """
 
 from __future__ import annotations
@@ -41,3 +43,20 @@ def attach_join_engine(rt, on_expr) -> None:
                                     rt.dictionary)
              if on_expr is not None else None)
     rt.engine = DeviceJoinEngine(rt, pspec)
+    rt._instr_spec = None   # the engine's suffix (seq, fills) joins the spec
+    _register_metrics(rt)
+
+
+def _register_metrics(rt) -> None:
+    tel = rt.app_context.telemetry
+    # the probe and insert histograms exist from the app's start, so their
+    # families are on /metrics before the first batch
+    tel.histogram(f"join.probe_ms.{rt.name}")
+    tel.histogram(f"join.insert_ms.{rt.name}")
+    eng = rt.engine
+    for side_key, plan in eng.plans.items():
+        if not plan.use_pidx:
+            continue
+        for p in range(eng.P):
+            tel.gauge(f"join.partition_rows.{rt.name}.{side_key}.{p}",
+                      lambda e=eng, s=side_key, i=p: float(e.partition_occupancy(s)[i]))

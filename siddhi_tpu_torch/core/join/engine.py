@@ -353,12 +353,21 @@ class DeviceJoinEngine:
         return st
 
     def partition_occupancy(self, side_key: str) -> np.ndarray:
-        """Ring slots per partition of one side ([P] int64) from the host
-        mirror: exact for a length ring, an upper bound for a time ring
-        (expired rows hold their slots until overwritten). No device read."""
+        """Live members per partition of one side ([P] int64), with no
+        device read: the last drained ``fill.<side>`` instrument lanes
+        (the step computes them from the directory it holds and ships them
+        on the meta pull it makes anyway); with instruments off, the host
+        mirror of the ring's slots, exact for a length ring and an upper
+        bound for a time ring (expired rows hold their slots until
+        overwritten)."""
         plan = self.plans[side_key]
+        if not plan.use_pidx:
+            return np.zeros(self.P, np.int64)
+        last = self.rt._instr_last.get(f"fill.{side_key}")
+        if last is not None and np.asarray(last).shape[0] == self.P:
+            return np.asarray(last, np.int64)
         mir = self._mirror.get(side_key)
-        if not plan.use_pidx or mir is None:
+        if mir is None:
             return np.zeros(self.P, np.int64)
         ring = mir["ring"]
         return np.bincount(ring[ring >= 0], minlength=self.P).astype(np.int64)[: self.P]
@@ -541,6 +550,7 @@ class DeviceJoinEngine:
         P = self.P
         dev = rt.device
         xp = TorchXP(dev)
+        ins_on = rt._instruments_on()
 
         def partition_of(cols, n, ctx):
             vals, mask = splan.key_fn(cols, ctx)
@@ -647,7 +657,18 @@ class DeviceJoinEngine:
             # every dispatched step (either side) advances ONE sequence;
             # the meta carries it for the drain-order check
             state[SEQ_KEY].add_(1)
+            suffix = [state[SEQ_KEY].clone()]
+            if ins_on:
+                # each partitioned side's live members per partition, from
+                # the directory the step holds (JoinQueryRuntime.
+                # _step_instrument_slots declares the lanes)
+                for plan in (self.plans["left"], self.plans["right"]):
+                    if plan.use_pidx:
+                        gseq = state[plan.pidx_key]["gseq"]
+                        floor = plan.live_floor(state[plan.win_key])
+                        suffix.append(((gseq >= floor) & (gseq >= 0)).sum(
+                            dim=1, dtype=torch.int64))
             return state, finish_step(sel, state, joined, ctx, split, notify,
-                                      ovbits, suffix=(state[SEQ_KEY].clone(),))
+                                      ovbits, suffix=suffix)
 
         return step

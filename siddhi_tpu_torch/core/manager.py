@@ -42,9 +42,13 @@ class SiddhiManager:
         return self.siddhi_context.device
 
     def create_siddhi_app_runtime(self, app: Union[str, SiddhiApp]) -> SiddhiAppRuntime:
+        from siddhi_tpu_torch.observability.tracing import span
+
         if isinstance(app, str):
-            app = SiddhiCompiler.parse(SiddhiCompiler.update_variables(app))
-        runtime = SiddhiAppRuntime(app, self.siddhi_context)
+            with span("compile", chars=len(app)):
+                app = SiddhiCompiler.parse(SiddhiCompiler.update_variables(app))
+        with span("assemble", app=app.name or ""):
+            runtime = SiddhiAppRuntime(app, self.siddhi_context)
         self.app_runtimes[runtime.name] = runtime
         return runtime
 

@@ -40,8 +40,16 @@ Contract:
 ``FusedCompletion`` is one in-flight batch of a fused fan-out group
 (``core/query/fused_fanout.py``): one stacked meta for every member, and
 per-member emission and fault attribution at drain, in the members'
-subscription order. The pipeline's telemetry gauges and the journey
-tracer wait for ROADMAP A.10.
+subscription order.
+
+Telemetry: the counters ``pipeline.pulls`` (drain rounds),
+``pipeline.metas`` (entries drained) and ``pipeline.stalls`` (forced
+drains that waited on the card), beside the pump's own attributes of the
+same names, and one gauge ``pipeline.<label>.inflight`` per owner (a
+query's name, ``fanout.<stream>`` for a fused group). A batch journey
+(``observability/journey.py``) rides its entry: at drain each entry's
+event is queried before the wait (is the card still on it?), the wait
+is the round's pull, and the emit is timed before the journey finishes.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from typing import Dict, List, Optional
 import torch
 
 from siddhi_tpu_torch.core.stream.junction import FatalQueryError
+from siddhi_tpu_torch.observability import journey as journey_mod
 
 log = logging.getLogger(__name__)
 
@@ -65,11 +74,12 @@ class QueryCompletion:
     event that says when the meta has arrived (None off the card)."""
 
     __slots__ = ("owner", "out", "meta", "event", "overflow_msg", "junction",
-                 "batch", "t0", "tid", "timer_cb")
+                 "batch", "t0", "tid", "timer_cb", "journey")
 
     def __init__(self, owner, out, meta, event, overflow_msg,
-                 junction=None, batch=None):
+                 junction=None, batch=None, journey=None):
         self.owner = owner
+        self.journey = journey            # the batch journey, or None
         self.out = out
         self.meta = meta                  # host tensor: pinned on the card
         self.event = event                # torch.cuda.Event, or None
@@ -85,6 +95,10 @@ class QueryCompletion:
         self.batch = batch
         self.t0 = time.perf_counter()
         self.tid = threading.get_ident()  # submitting thread (scoped flush)
+
+    @property
+    def label(self) -> str:
+        return self.owner.name
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -112,7 +126,12 @@ class QueryCompletion:
                        else self.overflow_msg)
                 return FatalQueryError(
                     f"query '{q.name}': {msg} before creating the runtime")
+            jr = self.journey
+            t_e = time.perf_counter() if jr is not None else None
             q._emit(HostBatch(self.out, size=int(meta[2])))
+            if jr is not None:
+                jr.emit_ms = (time.perf_counter() - t_e) * 1000.0
+                jr.finish(q.app_context, (q.name,))
             if int(meta[1]) >= 0 and q.scheduler is not None:
                 # the step's wake time reaches the scheduler at drain, as
                 # the reference pump delivers it
@@ -132,11 +151,12 @@ class FusedCompletion:
     ``FusedFanoutRuntime.complete_entry``."""
 
     __slots__ = ("owner", "outs", "meta", "event", "members", "cluster_of",
-                 "batch", "junction", "t0", "tid")
+                 "batch", "junction", "t0", "tid", "journey")
 
     def __init__(self, owner, outs, meta, event, members, cluster_of, batch,
-                 junction=None):
+                 junction=None, journey=None):
         self.owner = owner
+        self.journey = journey            # one journey for the group batch
         self.outs = outs                  # per-cluster output columns
         self.meta = meta
         self.event = event
@@ -146,6 +166,10 @@ class FusedCompletion:
         self.junction = junction
         self.t0 = time.perf_counter()
         self.tid = threading.get_ident()  # submitting thread (scoped flush)
+
+    @property
+    def label(self) -> str:
+        return f"fanout.{self.owner.stream_id}"
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -189,6 +213,7 @@ class CompletionPump:
         self.metas = 0
         self.stalls = 0
         self.high_water = 0
+        self._gauged: set = set()   # labels with an inflight gauge
 
     # ------------------------------------------------------------- config
 
@@ -207,6 +232,24 @@ class CompletionPump:
         with self._lock:
             dq = self._pending.get(owner)
             return len(dq) if dq is not None else 0
+
+    def _inflight_by_label(self, label: str) -> int:
+        """Entries in flight under one owner label (the gauge reads it; a
+        lock-free count of a snapshot of the FIFOs)."""
+        n = 0
+        for dq in list(self._pending.values()):
+            for e in list(dq):
+                if e.label == label:
+                    n += 1
+        return n
+
+    def _register_gauge(self, label: str) -> None:
+        if label in self._gauged:
+            return
+        self._gauged.add(label)
+        self.app_context.telemetry.gauge(
+            f"pipeline.{label}.inflight",
+            lambda lbl=label: self._inflight_by_label(lbl))
 
     # ------------------------------------------------------------- submit
 
@@ -228,6 +271,7 @@ class CompletionPump:
             # cascades keep producing entries
             self._tls.submitted = getattr(self._tls, "submitted", 0) + 1
             over = len(dq) - self.depth
+        self._register_gauge(entry.label)
         if over > 0:
             self._drain_owner(owner, keep_newest=1, forced=True)
 
@@ -262,14 +306,35 @@ class CompletionPump:
                 del self._pending[owner]
             self.pulls += 1
             self.metas += n
-            if forced and not take[0].ready():
+            stalled = forced and not take[0].ready()
+            if stalled:
                 # the producer really waits on the card here: the pipeline
                 # is too shallow for this pack/step ratio
                 self.stalls += 1
+        tel = self.app_context.telemetry
+        if stalled:
+            tel.count("pipeline.stalls")
+        tel.count("pipeline.pulls")
+        tel.count("pipeline.metas", n)
         draining.add(id(owner))
         try:
+            jt = journey_mod.enabled()
+            if jt:
+                # the device stage's pivot: is the card still on the batch
+                # when the host comes for it (service), or was the output
+                # parked waiting (slack)? An event query, no wait
+                for e in take:
+                    if e.journey is not None:
+                        e.journey.pre_drain(e.ready())
+                t_pull = time.perf_counter()
             for e in take:
                 e.wait()
+            if jt:
+                # one wait serves the round: each entry is given its time
+                pull_ms = (time.perf_counter() - t_pull) * 1000.0
+                for e in take:
+                    if e.journey is not None:
+                        e.journey.drained(pull_ms)
             errors: List[Exception] = []
             for e in take:
                 try:

@@ -87,6 +87,8 @@ from siddhi_tpu_torch.core.query.runtime import QueryRuntime, backfill_null_mask
 from siddhi_tpu_torch.core.query.step_graph import StepGraph, clone_tree
 from siddhi_tpu_torch.core.stream.junction import (
     FatalQueryError, Receiver, current_delivering_junction)
+from siddhi_tpu_torch.observability import journey
+from siddhi_tpu_torch.observability.tracing import span
 from siddhi_tpu_torch.ops.expressions import VALID_KEY
 
 _FGK = "__fgk{}__"   # per-slot shared group-key columns in the fused step
@@ -308,7 +310,8 @@ class FusedFanoutRuntime(Receiver):
     def process_batch(self, batch: HostBatch, junction=None):
         if junction is None:
             junction = current_delivering_junction()
-        with self._lock, contextlib.ExitStack() as stack:
+        with span("fanout.step", stream=self.stream_id, members=len(self.members)), \
+                self._lock, contextlib.ExitStack() as stack:
             # member locks in subscription order (a snapshot takes them one
             # at a time: no cycle)
             for m in self.members:
@@ -455,6 +458,9 @@ class FusedFanoutRuntime(Receiver):
         sm = self.app_context.statistics_manager
         tel = self.app_context.telemetry
         t0 = latency_t0(sm)
+        # one journey a group batch: the shared dispatch and device stages
+        # are recorded under every member's name at finish
+        jr = journey.begin(batch) if journey.enabled() else None
         states, cols = self._prepare(batch)
         now = self._now()
         pump = self.app_context.completion_pump
@@ -463,6 +469,8 @@ class FusedFanoutRuntime(Receiver):
             outs, metas = self._step.replay(states, cols, now, pump.depth)
         else:
             outs, metas = self._step(states, self._to_device(cols), now)
+        if jr is not None:
+            jr.end_dispatch()
         for _m in members:       # member hit-counting: N query-batches
             tel.record_jit(key, hit=True)
         tel.count(f"fanout.{self.stream_id}.dispatches")
@@ -476,14 +484,23 @@ class FusedFanoutRuntime(Receiver):
                 record_elapsed_ms(sm, m.name, t0)
             pump.submit(FusedCompletion(
                 self, outs, meta, event, list(members), list(self._cluster_of),
-                batch, junction=junction))
+                batch, junction=junction, journey=jr))
             return
         # ONE stacked meta pull for the whole group: the single
         # device-to-host round trip this layer exists to amortize
+        if jr is not None:
+            jr.pre_drain(journey.ready_of(metas))
+            t_pull = time.perf_counter()
         metas_host = metas.cpu().numpy()
+        if jr is not None:
+            jr.drained((time.perf_counter() - t_pull) * 1000.0)
         tel.count(f"fanout.{self.stream_id}.meta_pulls")
+        t_e = time.perf_counter() if jr is not None else None
         fatal = self._emit_members(list(members), list(self._cluster_of), outs,
                                    metas_host, batch, t0sm=t0)
+        if jr is not None:
+            jr.emit_ms = (time.perf_counter() - t_e) * 1000.0
+            jr.finish(self.app_context, tuple(m.name for m in members))
         if fatal is not None:
             # surfaced AFTER every member emitted: the junction's
             # handle_error stores it so later sends re-raise, as an unfused
@@ -499,8 +516,14 @@ class FusedFanoutRuntime(Receiver):
         with self._lock, contextlib.ExitStack() as stack:
             for m in entry.members:
                 stack.enter_context(m._lock)
-            return self._emit_members(entry.members, entry.cluster_of, entry.outs,
-                                      np.asarray(metas_host), entry.batch, t0sm=None)
+            jr = entry.journey
+            t_e = time.perf_counter() if jr is not None else None
+            fatal = self._emit_members(entry.members, entry.cluster_of, entry.outs,
+                                       np.asarray(metas_host), entry.batch, t0sm=None)
+            if jr is not None:
+                jr.emit_ms = (time.perf_counter() - t_e) * 1000.0
+                jr.finish(self.app_context, tuple(m.name for m in entry.members))
+            return fatal
 
     def _emit_members(self, members, cluster_of, outs, metas_host, batch,
                       t0sm) -> Optional[Exception]:
@@ -514,7 +537,8 @@ class FusedFanoutRuntime(Receiver):
             try:
                 if row.shape[0] > 3:
                     # the member's meta suffix (zero-padded to the stack's
-                    # width): a join side decodes its sequence lane
+                    # width), decoded by the member's own instrument spec:
+                    # its device.<q>.<slot> lanes, a join side's sequence
                     m.decode_meta_suffix(row)
                 if overflow > 0:
                     raise FatalQueryError(

@@ -43,6 +43,7 @@ Routed joins over a mesh wait for ROADMAP A.9
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -57,6 +58,9 @@ from siddhi_tpu_torch.core.query.runtime import (
 from siddhi_tpu_torch.core.stream.junction import (
     FatalQueryError, Receiver, current_delivering_junction)
 from siddhi_tpu_torch.core.table.in_memory_table import to_device
+from siddhi_tpu_torch.observability import journey
+from siddhi_tpu_torch.observability.instruments import Slot
+from siddhi_tpu_torch.observability.tracing import span
 from siddhi_tpu_torch.ops.expressions import (
     NUMPY_XP, PK_KEY, TS_KEY, TYPE_KEY, VALID_KEY, ColumnRef, CompileError,
     Resolver, TorchXP)
@@ -534,7 +538,8 @@ def finish_step(sel, state: dict, joined: dict, ctx: dict, split: bool,
                 notify, ovbits: torch.Tensor, suffix=()) -> dict:
     """The selector over the joined rows (or, with a host group keyer,
     the joined rows themselves), packed with the meta: [overflow bitmask,
-    notify, count] then ``suffix`` (the engine's sequence lane)."""
+    notify, count] then ``suffix`` (the engine's sequence lane, and with
+    instruments on each partitioned side's per-partition fill)."""
     if split:
         out = joined
     else:
@@ -548,7 +553,7 @@ def finish_step(sel, state: dict, joined: dict, ctx: dict, split: bool,
     out[OVERFLOW_KEY] = ovbits
     out = pack_meta(out)
     if suffix:
-        out["__meta__"] = torch.cat([out["__meta__"]] + [s.reshape(1) for s in suffix])
+        out["__meta__"] = torch.cat([out["__meta__"]] + [s.reshape(-1) for s in suffix])
     return out
 
 
@@ -649,9 +654,34 @@ class JoinQueryRuntime(QueryRuntime):
                        self.name, exp + 1, seq)
             self.seq_breaks += 1
 
-    def decode_meta_suffix(self, meta) -> None:
-        if self.engine is not None and len(meta) > 3:
-            self._seq_check(int(meta[3]))
+    def _step_instrument_slots(self):
+        """The engine side step's meta suffix (``DeviceJoinEngine.
+        build_side_step`` appends exactly these): the structural
+        cross-stream sequence, then with instruments on each partitioned
+        side's per-partition directory fill. The broadcast probe's meta
+        carries none."""
+        if self.engine is None:
+            return []
+        slots = [Slot("seq", kind="check")]
+        if self._instruments_on():
+            for side_key in ("left", "right"):
+                if self.engine.plans[side_key].use_pidx:
+                    slots.append(Slot(f"fill.{side_key}", width=self.engine.P,
+                                      reduce="max"))
+        return slots
+
+    def _consume_check_slot(self, name, vals) -> None:
+        if name == "seq":
+            self._seq_check(int(vals[0]))
+            return
+        super()._consume_check_slot(name, vals)
+
+    def _instrument_capacity(self, name):
+        if name.startswith("fill.") and self.engine is not None:
+            plan = self.engine.plans.get(name[len("fill."):])
+            if plan is not None:
+                return float(plan.Wp)    # growth moves Wp: the gauge follows
+        return super()._instrument_capacity(name)
 
     def _ensure_capacity(self):
         before = (self.selector_plan.num_keys, self._win_keys)
@@ -803,13 +833,19 @@ class JoinQueryRuntime(QueryRuntime):
 
     def process_side_batch(self, side_key: str, batch: HostBatch, junction=None):
         notify_host = None
-        with self._lock:
+        t_host0 = time.perf_counter()
+        with span("query.step", query=self.name, side=side_key), self._lock:
             j = junction or current_delivering_junction()
             self._cur_junction = j
             self._cur_fault_batch = batch if (
                 j is not None and j.on_error_action == "STREAM"
                 and j.fault_junction is not None) else None
             self._cur_timer_cb = self._timer_cbs[side_key]
+            # the batch journey of a side batch: the shared tail
+            # (_finish_device_batch) takes it; the host-keyed tail is
+            # synchronous and takes none
+            self._cur_journey = (journey.begin(batch)
+                                 if journey.enabled() and self.keyer is None else None)
             side = self.sides[side_key]
             cols = LazyColumns(batch.cols)
             if self.partition_ctx is not None:
@@ -847,6 +883,10 @@ class JoinQueryRuntime(QueryRuntime):
                     family=f"device_join.{side_key}")
             other = self.sides["right" if side_key == "left" else "left"]
             self._staging = self._side_staging.get(side_key)
+            tel = self.app_context.telemetry
+            tel.histogram(f"join.insert_ms.{self.name}").record(
+                (time.perf_counter() - t_host0) * 1000.0)
+            t_probe0 = time.perf_counter()
             try:
                 if getattr(other.store, "dynamic", None) is not None:
                     notify = self._probe_dynamic_aggregation(step, other, cols)
@@ -857,6 +897,9 @@ class JoinQueryRuntime(QueryRuntime):
                         notify = self._probe_step(step, other, *probe, cols)
             finally:
                 self._side_staging[side_key] = self._staging
+                self._cur_journey = None
+            tel.histogram(f"join.probe_ms.{self.name}").record(
+                (time.perf_counter() - t_probe0) * 1000.0)
         if notify_host is not None:
             notify = notify_host if notify is None else min(notify, notify_host)
         if notify is not None and self.scheduler is not None:

@@ -26,6 +26,7 @@ the host between the NFA emission and the selector.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -38,6 +39,9 @@ from siddhi_tpu_torch.core.query.runtime import (
     QueryRuntime, backfill_null_masks, pack_meta)
 from siddhi_tpu_torch.core.stream.junction import (
     FatalQueryError, Receiver, current_delivering_junction)
+from siddhi_tpu_torch.observability import journey
+from siddhi_tpu_torch.observability.instruments import Slot
+from siddhi_tpu_torch.observability.tracing import span
 from siddhi_tpu_torch.ops.expressions import PK_KEY, TS_KEY, TYPE_KEY, VALID_KEY, TorchXP
 from siddhi_tpu_torch.ops.nfa import _T0_FAR, NFAStage, round_rows
 from siddhi_tpu_torch.ops.windows import NOTIFY_KEY, OVERFLOW_KEY
@@ -109,6 +113,16 @@ class NFAQueryRuntime(QueryRuntime):
             "sel": self.selector_plan.init_state(self.device),
             "nfa": self.stage.init_state(self._win_keys, self.device),
         }
+
+    def _step_instrument_slots(self):
+        """Every NFA step (a stream's and the timer sweep) appends the live
+        partial-match slots (``_select``)."""
+        return [Slot("nfa_runs")] if self._instruments_on() else []
+
+    def _instrument_capacity(self, name):
+        if name == "nfa_runs":
+            return float(self._win_keys * self.stage.plan.slots)
+        return super()._instrument_capacity(name)
 
     def arm_initial(self):
         """Arm key 0's head wait at app start (reference: absent pre-state
@@ -220,38 +234,48 @@ class NFAQueryRuntime(QueryRuntime):
 
     def _select(self, state, out_cols, ctx):
         """The selector over the NFA emission, with the NFA's overflow and
-        notify lanes packed into the step's meta. A group-by keyer over
-        captures splits the pipeline: the emission goes out unselected and
+        notify lanes packed into the step's meta, and with instruments on
+        the ``nfa_runs`` lane behind them (the live match slots of the
+        state the step holds). A group-by keyer over captures splits the
+        pipeline: the emission goes out unselected and
         ``_host_keyed_select`` runs the selector after the host keys it."""
         out_cols = dict(out_cols)
         overflow = out_cols.pop("__overflow__")
         notify = out_cols.pop("__notify__")
         if out_cols[VALID_KEY].shape[0] == 0:
             # nothing can be emitted: the selector's state stays as it is
-            return state, pack_meta({VALID_KEY: out_cols[VALID_KEY],
-                                     OVERFLOW_KEY: overflow, NOTIFY_KEY: notify})
-        if self.keyer is not None:
+            out = pack_meta({VALID_KEY: out_cols[VALID_KEY],
+                             OVERFLOW_KEY: overflow, NOTIFY_KEY: notify})
+        elif self.keyer is not None:
             out_cols[OVERFLOW_KEY] = overflow
             out_cols[NOTIFY_KEY] = notify
-            return state, pack_meta(out_cols)
-        state["sel"], out = self.selector_plan.apply(state["sel"], out_cols, ctx)
-        sel_ov = out.get(OVERFLOW_KEY)
-        out[OVERFLOW_KEY] = (overflow.to(torch.int64) if sel_ov is None
-                             else torch.maximum(overflow.to(torch.int64),
-                                                torch.as_tensor(sel_ov).to(torch.int64)))
-        out[NOTIFY_KEY] = notify
-        return state, pack_meta(out)
+            out = pack_meta(out_cols)
+        else:
+            state["sel"], out = self.selector_plan.apply(state["sel"], out_cols, ctx)
+            sel_ov = out.get(OVERFLOW_KEY)
+            out[OVERFLOW_KEY] = (overflow.to(torch.int64) if sel_ov is None
+                                 else torch.maximum(overflow.to(torch.int64),
+                                                    torch.as_tensor(sel_ov).to(torch.int64)))
+            out[NOTIFY_KEY] = notify
+            out = pack_meta(out)
+        if self._step_instrument_slots():
+            out["__meta__"] = torch.cat([
+                out["__meta__"],
+                state["nfa"]["active"].sum(dtype=torch.int64).reshape(1)])
+        return state, out
 
     # ----------------------------------------------------------- processing
 
     def process_stream_batch(self, stream_id: str, batch: HostBatch,
                              junction=None):
-        with self._device_scope(), self._lock:
+        with span("query.step", query=self.name, stream=stream_id), \
+                self._device_scope(), self._lock:
             j = junction or current_delivering_junction()
             self._cur_junction = j
             self._cur_fault_batch = batch if (
                 j is not None and j.on_error_action == "STREAM"
                 and j.fault_junction is not None) else None
+            self._cur_journey = journey.begin(batch) if journey.enabled() else None
             lazy = LazyColumns(batch.cols)
             # the host checks read the batch's timestamps and keys: a
             # re-published batch held on the device comes over in one pull
@@ -367,6 +391,7 @@ class NFAQueryRuntime(QueryRuntime):
 
         sm = self.app_context.statistics_manager
         t0 = latency_t0(sm)
+        jr, self._cur_journey = self._cur_journey, None
         self._state, out = run()
         out_host = LazyColumns(out)
         pump = self.app_context.completion_pump
@@ -375,17 +400,31 @@ class NFAQueryRuntime(QueryRuntime):
             # eligible too, the pump hands __notify__ over at drain
             meta, event = stage_meta(dict.pop(out_host, "__meta__"))
             record_elapsed_ms(sm, self.name, t0)
+            if jr is not None:
+                jr.end_dispatch()
             pump.submit(QueryCompletion(
                 self, out_host, meta, event, _SLOTS_MSG,
-                junction=self._cur_junction, batch=self._cur_fault_batch))
+                junction=self._cur_junction, batch=self._cur_fault_batch,
+                journey=jr))
             return None
+        if jr is not None:
+            jr.end_dispatch()
+            jr.pre_drain(journey.ready_of(dict.__getitem__(out_host, "__meta__")))
+            t_pull = time.perf_counter()
         meta = out_host.pop("__meta__")     # the one sync of the batch
+        if jr is not None:
+            jr.drained((time.perf_counter() - t_pull) * 1000.0)
+        self.decode_meta_suffix(meta)
         overflow, notify, size = int(meta[0]), int(meta[1]), int(meta[2])
         if overflow > 0:
             raise FatalQueryError(
                 f"query '{self.name}': {_SLOTS_MSG} before creating the runtime")
         record_elapsed_ms(sm, self.name, t0)
+        t_e = time.perf_counter() if jr is not None else None
         if self.keyer is not None and size > 0:
             out_host, size = self._host_keyed_select(out_host)
         self._emit(HostBatch(out_host, size=size))
+        if jr is not None:
+            jr.emit_ms = (time.perf_counter() - t_e) * 1000.0
+            jr.finish(self.app_context, (self.name,))
         return notify if notify >= 0 else None

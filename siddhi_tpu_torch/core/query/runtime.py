@@ -65,6 +65,16 @@ gauge ``query.<q>.captured``): the cache entry's shared graph, or with
 step_graph.py``). The step freezes the plan it was built from (the
 selector's key capacity), so a step another app shares never follows this
 runtime's later growth: a growth builds a new step.
+
+Observability (ROADMAP A.10 a): each batch is a ``query.step`` span; with
+batch journeys on it carries a ``Journey`` (its dispatch, device and emit
+stages stamped here or at the pump's drain); with device instruments on
+(the default) the step appends its lanes (``instrument_slots()``:
+``win_fill``, ``groups``, the routed step's ``shard_rows`` and
+``route_residual``) behind the meta's ``[overflow, notify, count]``,
+computed inside the step and so inside its CUDA graph, and
+``decode_meta_suffix`` decodes them into ``device.<q>.<slot>``
+telemetry and ``_instr_last``.
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ import contextlib
 import copy
 import dataclasses
 import enum
+import logging
 import threading
 import time
 import uuid
@@ -89,12 +100,17 @@ from siddhi_tpu_torch.core.query.completion import QueryCompletion, stage_meta
 from siddhi_tpu_torch.core.util.statistics import latency_t0, record_elapsed_ms
 from siddhi_tpu_torch.core.stream.junction import (
     FatalQueryError, Receiver, current_delivering_junction)
+from siddhi_tpu_torch.observability import instruments, journey
+from siddhi_tpu_torch.observability.instruments import Slot
+from siddhi_tpu_torch.observability.tracing import span
 from siddhi_tpu_torch.ops.expressions import (
     NUMPY_XP, PK_KEY, TS_KEY, TYPE_KEY, VALID_KEY, TorchXP)
 from siddhi_tpu_torch.ops.types import TORCH_OF_NUMPY
 from siddhi_tpu_torch.ops.windows import (
     CHUNK_KEY, NOTIFY_KEY, OVERFLOW_KEY, conform_cols)
 from siddhi_tpu_torch.query_api.definitions import AttrType, StreamDefinition
+
+_LOG = logging.getLogger(__name__)
 
 
 class GroupKeyer:
@@ -229,6 +245,15 @@ class QueryRuntime(Receiver):
         # input batch when that junction routes errors to a fault stream
         self._cur_junction = None
         self._cur_fault_batch = None
+        # the batch journey of the batch in process (observability/journey.py)
+        self._cur_journey = None
+        # device instruments (observability/instruments.py): the last
+        # drained lanes of each slot (the zero-pull scrape surface), the
+        # host-known capacities, the gauges registered, the cached spec
+        self._instr_last: Dict[str, np.ndarray] = {}
+        self._instr_caps: Dict[str, float] = {}
+        self._instr_gauged: set = set()
+        self._instr_spec: Optional[List[Slot]] = None
 
     # ---------------------------------------------------------------- state
 
@@ -345,6 +370,7 @@ class QueryRuntime(Receiver):
             win = copy.copy(win)
             win._num_keys_ref = lambda k=sel.num_keys: k
         xp = TorchXP(self.device)
+        islots = self._step_instrument_slots()
 
         def step(state, cols, current_time):
             ctx = {"xp": xp, "current_time": current_time,
@@ -373,6 +399,8 @@ class QueryRuntime(Receiver):
                     else:
                         cols[VALID_KEY] = cols[VALID_KEY] & (
                             obj(cols, ctx) | ptimer)
+            lanes = (self._instrument_values(islots, state, cols, win, sel.num_keys)
+                     if islots else None)
             if strrank is not None:
                 cols[STR_RANK] = strrank
             _st, out = sel.apply(state["sel"], cols, ctx)
@@ -387,9 +415,142 @@ class QueryRuntime(Receiver):
                 overflow = torch.as_tensor(overflow).to(torch.int64)
                 out[OVERFLOW_KEY] = overflow if sel_ov is None else torch.maximum(
                     overflow, torch.as_tensor(sel_ov).to(torch.int64))
-            return state, pack_meta(out)
+            out = pack_meta(out)
+            if lanes:
+                # the instrument lanes ride behind [ov, notify, count],
+                # decoded by the spec at drain (decode_meta_suffix)
+                out["__meta__"] = torch.cat([out["__meta__"]] + lanes)
+            return state, out
 
         return step
+
+    # --------------------------------------------------- device instruments
+
+    def _instruments_on(self) -> bool:
+        """The per-app knob ``siddhi_tpu.profile_device_instruments``
+        (default on; off keeps the meta layouts of the port before the
+        instruments). Read when a step is built and at drain, so the
+        layout and its decoder agree."""
+        return instruments.app_instruments_on(self.app_context)
+
+    def instrument_slots(self) -> List[Slot]:
+        """The ordered spec of everything this runtime's meta carries
+        behind ``[overflow, notify, count]``: the routed step's slots first
+        (``route_overflow`` and ``shard_rows`` whatever the knob, then
+        ``route_residual``), then the inner step's
+        (``_step_instrument_slots``). Cached; a route install or an engine
+        attach clears ``_instr_spec``."""
+        if self._instr_spec is not None:
+            return self._instr_spec
+        spec: List[Slot] = []
+        rl = self._route_layout
+        if rl is not None:
+            spec.append(Slot("route_overflow", kind="check"))
+            spec.append(Slot("shard_rows", width=rl.n))
+            if self._instruments_on():
+                spec.append(Slot("route_residual"))
+        spec.extend(self._step_instrument_slots())
+        self._instr_spec = spec
+        return spec
+
+    def _step_instrument_slots(self) -> List[Slot]:
+        """The slots the inner (per-shard) step appends; the join and NFA
+        runtimes declare their own."""
+        if not self._instruments_on():
+            return []
+        slots: List[Slot] = []
+        if self.window_stage is not None and hasattr(self.window_stage, "live_fill"):
+            slots.append(Slot("win_fill", reduce="max"))
+        if self.keyer is not None or self.partition_ctx is not None:
+            slots.append(Slot("groups"))
+        return slots
+
+    def _instrument_values(self, slots: List[Slot], state, cols, win,
+                           num_keys: int) -> List[torch.Tensor]:
+        """The data lanes, as torch ops inside the step (no host read: on
+        the card they run inside the step's CUDA graph) from the state and
+        columns the step holds: ``win_fill`` the window's live rows (the
+        hottest key's for a keyed ring), ``groups`` the distinct group keys
+        among the valid rows the selector takes (a scatter into ``[K + 1]``
+        bools and a sum)."""
+        vals = []
+        for slot in slots:
+            if slot.name == "win_fill":
+                vals.append(win.live_fill(state["win"]).to(torch.int64).reshape(1))
+            elif slot.name == "groups":
+                valid = cols[VALID_KEY]
+                gk = torch.clamp(torch.as_tensor(cols[GK_KEY]).to(torch.int64),
+                                 0, num_keys - 1)
+                idx = torch.where(valid, gk, num_keys)
+                # index_fill_ takes its value as a scalar: no host tensor
+                # enters a captured graph
+                seen = torch.zeros(num_keys + 1, dtype=torch.bool,
+                                   device=valid.device).index_fill_(0, idx, True)
+                vals.append(seen[:num_keys].sum(dtype=torch.int64).reshape(1))
+        return vals
+
+    def _instrument_capacity(self, name: str) -> Optional[float]:
+        """The host-known denominator of one data slot (the report quotes
+        saturation against it); None for a slot without one."""
+        rl = self._route_layout
+        if name == "win_fill":
+            return getattr(self.window_stage, "ring_capacity", None)
+        if name == "groups":
+            k = self.selector_plan.num_keys
+            return float(k * rl.n) if rl is not None else float(k)
+        if name in ("shard_rows", "route_residual"):
+            return float(rl.n * rl.quota) if rl is not None else None
+        return None
+
+    def decode_meta_suffix(self, meta) -> None:
+        """Decode the meta behind its 3-lane prefix by the spec (the
+        synchronous tail, the pump's drain and each fused member share
+        it): data slots feed ``device.<query>.<slot>`` telemetry and the
+        zero-pull ``_instr_last`` cache, then the check slots run (the
+        route overflow raises, the join sequence is verified). Data lands
+        first, so a fatal overflow still leaves the lanes that show it."""
+        spec = self.instrument_slots()
+        meta = np.asarray(meta)
+        if not spec or meta.shape[0] <= 3:
+            return
+        ins_on = self._instruments_on()
+        checks = []
+        i = 3
+        for slot in spec:
+            if i + slot.width > meta.shape[0]:
+                # a meta shorter than its spec: the step and the spec
+                # drifted apart, and the checks left are not decoded
+                if "decode_short" not in self._instr_gauged:
+                    self._instr_gauged.add("decode_short")
+                    _LOG.error("query '%s': meta suffix (%d lanes) shorter than "
+                               "the instrument spec %s", self.name,
+                               meta.shape[0] - 3, [s.name for s in spec])
+                self.app_context.telemetry.count("device.decode_short")
+                break
+            vals = np.asarray(meta[i:i + slot.width], np.int64)
+            i += slot.width
+            if slot.kind == "check":
+                checks.append((slot, vals))
+            else:
+                self._record_instrument(slot, vals, telemetry=ins_on)
+        for slot, vals in checks:
+            self._consume_check_slot(slot.name, vals)
+
+    def _record_instrument(self, slot: Slot, vals, telemetry: bool) -> None:
+        """One data slot's drained lanes: the zero-pull cache, and with
+        instruments on its telemetry (``instruments.record``)."""
+        self._instr_last[slot.name] = vals
+        if telemetry:
+            instruments.record(self, slot, vals,
+                               capacity=self._instrument_capacity(slot.name))
+
+    def _consume_check_slot(self, name: str, vals) -> None:
+        """The structural slots' consumers; the join runtime adds
+        ``seq``."""
+        if name == "route_overflow":
+            self._route_layout.route_overflow_rows += int(vals[0])
+            if int(vals[0]) > 0:
+                raise FatalQueryError(f"query '{self.name}': {self.route_overflow_msg()}")
 
     # ------------------------------------------------------- fan-out fusion
 
@@ -399,8 +560,11 @@ class QueryRuntime(Receiver):
         and its output target, the input definition, the planner knobs the
         plan read (precision, fusion, capacities, each value table's H),
         the stage the plan chose, the key capacities, the selector's
-        output names and types, and the device. Two members of a fused
-        group with equal signatures (and bit-equal states) run as one
+        output names and types, the device, and the instrument spec (the
+        meta's layout: an app with device instruments off never shares a
+        step, or a fused cluster, with one that has them on). Two members
+        of a fused group with equal signatures (and bit-equal states) run
+        as one
         computation: the port's stand-in for the reference's jaxpr
         equality (``siddhi_tpu/core/query/fused_fanout.py:85-131``). None
         when any part cannot be rendered; None never clusters."""
@@ -422,7 +586,8 @@ class QueryRuntime(Receiver):
                  ctx.distinct_values_capacity),
                 tuple((spec.kind, spec.distinct_capacity) for spec in sp.specs),
                 type(self.window_stage).__name__, sp.num_keys, self._win_keys,
-                tuple((n, t.name) for n, t in sp.output_attrs), str(self.device))
+                tuple((n, t.name) for n, t in sp.output_attrs), str(self.device),
+                tuple((s.name, s.width, s.kind) for s in self.instrument_slots()))
 
     def program_consts(self) -> tuple:
         """The constants this query's step took from app state at plan
@@ -647,7 +812,7 @@ class QueryRuntime(Receiver):
 
     def process_batch(self, batch: HostBatch, junction=None):
         notify = None
-        with self._lock:
+        with span("query.step", query=self.name), self._lock:
             # Event-path deliveries carry no junction parameter: the
             # delivery loop's thread-local names it, so pipelined
             # completions keep their error routing and latency feedback
@@ -656,6 +821,10 @@ class QueryRuntime(Receiver):
             self._cur_fault_batch = batch if (
                 j is not None and j.on_error_action == "STREAM"
                 and j.fault_junction is not None) else None
+            # the batch journey: the pack stamp forked, the dispatch stage
+            # (host prep and the step's launch) open; _finish_device_batch
+            # takes it (a routed batch split in pieces: the first piece)
+            self._cur_journey = journey.begin(batch) if journey.enabled() else None
             if self.log_stages:
                 self._run_log_taps(batch)
             partitioned = self.partition_ctx is not None
@@ -813,16 +982,6 @@ class QueryRuntime(Receiver):
             knob += " (or app_context.distinct_values_capacity)"
         return f"window buffer or value table capacity exceeded — raise {knob}"
 
-    def decode_meta_suffix(self, meta: np.ndarray) -> None:
-        """The routed step's meta carries [ov, notify, count,
-        route_overflow, rows_0..rows_n-1]: count the overflowed rows and
-        raise on any (an exchange overflow is fatal for the batch)."""
-        rl = self._route_layout
-        if rl is not None:
-            rl.route_overflow_rows += int(meta[3])
-            if int(meta[3]) > 0:
-                raise FatalQueryError(f"query '{self.name}': {self.route_overflow_msg()}")
-
     _pipeline_ok = True   # a join with a store side stays synchronous
 
     def _finish_device_batch(self, step, cols, overflow_msg=None) -> Optional[int]:
@@ -837,6 +996,7 @@ class QueryRuntime(Receiver):
             overflow_msg = self.overflow_knob_msg()
         sm = self.app_context.statistics_manager
         t0 = latency_t0(sm)
+        jr, self._cur_journey = self._cur_journey, None
         now = self._now()
         if self.selector_plan.needs_str_rank:
             # string order-by keys sort by lexicographic rank, not by id
@@ -853,22 +1013,39 @@ class QueryRuntime(Receiver):
             meta, event = stage_meta(dict.pop(out_host, "__meta__"))
             # the dispatch's latency: the host never waits on the step
             record_elapsed_ms(sm, self.name, t0)
+            if jr is not None:
+                jr.end_dispatch()     # the device and emit stages close at drain
             pump.submit(QueryCompletion(
                 self, out_host, meta, event, overflow_msg,
-                junction=self._cur_junction, batch=self._cur_fault_batch))
+                junction=self._cur_junction, batch=self._cur_fault_batch,
+                journey=jr))
             return None
+        if jr is not None:
+            # the synchronous device stage: the ride is ~0 (the meta is
+            # pulled at once), the blocking pull is the device's service
+            jr.end_dispatch()
+            jr.pre_drain(journey.ready_of(dict.__getitem__(out_host, "__meta__")))
+            t_pull = time.perf_counter()
         meta = out_host.pop("__meta__")     # the one sync of the batch
+        if jr is not None:
+            jr.drained((time.perf_counter() - t_pull) * 1000.0)
         self.decode_meta_suffix(meta)
         if int(meta[0]) > 0:
             msg = overflow_msg(int(meta[0])) if callable(overflow_msg) else overflow_msg
             raise FatalQueryError(
                 f"query '{self.name}': {msg} before creating the runtime")
         record_elapsed_ms(sm, self.name, t0)
-        if self._timer_horizon is not None and int(meta[2]) > 0:
-            for chunk in _chain_chunks(out_host):
-                self._emit(chunk)
-        else:
-            self._emit(HostBatch(out_host, size=int(meta[2])))
+        t_e = time.perf_counter() if jr is not None else None
+        try:
+            if self._timer_horizon is not None and int(meta[2]) > 0:
+                for chunk in _chain_chunks(out_host):
+                    self._emit(chunk)
+            else:
+                self._emit(HostBatch(out_host, size=int(meta[2])))
+        finally:
+            if jr is not None:
+                jr.emit_ms = (time.perf_counter() - t_e) * 1000.0
+                jr.finish(self.app_context, (self.name,))
         return int(meta[1]) if int(meta[1]) >= 0 else None
 
     def _host_keyed_select(self, out_host):

@@ -23,9 +23,19 @@ runtimes, stream callbacks, sinks) gets them in subscription order.
 
 Under ``@app:statistics`` each publish counts its events on the stream's
 throughput tracker, and each @Async delivery's latency lands in the
-``junction.<stream>`` tracker. The reference's overload quotas (with the
-WAL record discards of shed batches), journey tracing, telemetry gauges
-and supervisor hooks are not ported yet (ROADMAP A.10).
+``junction.<stream>`` tracker. Whatever the statistics level, an @Async
+junction registers the gauges ``junction.<s>.queue_depth`` and
+``junction.<s>.inflight_batches``, and counts
+``junction.<s>.backpressure_stalls`` (a producer met a full queue) and
+``junction.<s>.enqueue_timeouts`` (it waited out a timeout). Every
+delivery is a ``junction.dispatch`` span (``observability/tracing.py``);
+with batch journeys on (``observability/journey.py``) a queued unit
+carries its enqueue time, and its receivers read the queue residence
+for the delivery's scope. The worker polls ``fault_hook``
+(``resilience/faults.py``) at the top of each drain iteration: a hook
+may block (a wedge) or raise (the worker dies, and its unit stays parked
+for ``restart_worker``). The reference's overload quotas and supervisor
+are ROADMAP A.10 (b).
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ import traceback
 from typing import List, Optional
 
 from siddhi_tpu_torch.core.event import Event, HostBatch, LazyColumns
+from siddhi_tpu_torch.observability import journey
+from siddhi_tpu_torch.observability.tracing import span
 from siddhi_tpu_torch.query_api.definitions import StreamDefinition
 
 log = logging.getLogger(__name__)
@@ -108,6 +120,12 @@ class StreamJunction:
         self._inflight = _NOTHING
         self._inflight_owner: Optional[threading.Thread] = None
         self._gen = 0
+        # the fault-injection point the drain loop polls
+        # (resilience/faults.py)
+        self.fault_hook = None
+        # batch journeys: queued unit id -> its enqueue time, so the worker
+        # can attribute the queue residence (empty unless journeys are on)
+        self._jt_enq: dict = {}
 
     def subscribe(self, receiver: Receiver):
         if receiver not in self.receivers:
@@ -146,6 +164,13 @@ class StreamJunction:
             self._cur_batch = batch_size
             self._lat_ewma = 0.0
         self._queue = queue.Queue(maxsize=buffer_size)
+        # level-independent: a wedging queue shows whatever the
+        # statistics level
+        tel = self.app_context.telemetry
+        sid = self.definition.id
+        tel.gauge(f"junction.{sid}.queue_depth", self._queue.qsize)
+        tel.gauge(f"junction.{sid}.inflight_batches",
+                  lambda j=self: 0 if j._inflight is _NOTHING else 1)
 
     def start_processing(self):
         self._running = True
@@ -238,11 +263,24 @@ class StreamJunction:
         """Producer side of @Async: a bounded wait on a full queue that
         re-checks the worker's fatal error each slice, so a worker dying
         mid-wait cannot park the producer forever."""
+        if journey.enabled():
+            # the queue-residence stamp, before the put (the worker may pop
+            # the unit at once). At most qsize stamps are live, so past
+            # that bound the oldest are stale: drop those only
+            live_cap = (self._queue.maxsize or 8192) + 256
+            while len(self._jt_enq) > live_cap:
+                try:
+                    self._jt_enq.pop(next(iter(self._jt_enq)), None)
+                except (StopIteration, RuntimeError):
+                    break
+            self._jt_enq[id(item)] = time.perf_counter()
         try:
             self._queue.put_nowait(item)
             return
         except queue.Full:
             pass
+        tel = self.app_context.telemetry
+        tel.count(f"junction.{self.definition.id}.backpressure_stalls")
         waited = 0.0
         while True:
             try:
@@ -251,43 +289,65 @@ class StreamJunction:
             except queue.Full:
                 pass
             if self._fatal is not None:
+                self._jt_enq.pop(id(item), None)
                 raise self._fatal
             waited += _BLOCK_PUT_SLICE_S
             if waited >= _BLOCK_TIMEOUT_S:
                 waited = 0.0
+                tel.count(f"junction.{self.definition.id}.enqueue_timeouts")
+                from siddhi_tpu_torch.resilience import stat_count
+
+                stat_count(self.app_context, "resilience.enqueue_timeouts")
                 log.warning(
                     "producer blocked on full @Async queue of stream '%s': "
                     "the worker is not draining", self.definition.id)
 
     # ---------------------------------------------------------- delivery
 
-    def _deliver(self, events: List[Event]):
-        prev = current_delivering_junction()
-        _DELIVERING.junction = self
-        try:
-            for r in self.receivers:
-                try:
-                    r.receive(events)
-                except Exception as e:  # noqa: BLE001 — per-event fault routing
-                    self.handle_error(events, e)
-        finally:
-            _DELIVERING.junction = prev
+    def _deliver(self, events: List[Event], enq_t=None):
+        with span("junction.dispatch", stream=self.definition.id,
+                  rows=len(events)):
+            prev = current_delivering_junction()
+            _DELIVERING.junction = self
+            jt = journey.enabled()
+            # the queue-residence scope: receivers of THIS delivery read
+            # it; a nested synchronous delivery (an emit cascade) masks it
+            prev_q = journey.push_delivery_queue_wait(enq_t) if jt else None
+            try:
+                for r in self.receivers:
+                    try:
+                        r.receive(events)
+                    except Exception as e:  # noqa: BLE001 — per-event fault routing
+                        self.handle_error(events, e)
+            finally:
+                _DELIVERING.junction = prev
+                if jt:
+                    journey.pop_delivery_queue_wait(prev_q)
 
-    def _deliver_batch(self, batch):
-        prev = current_delivering_junction()
-        _DELIVERING.junction = self
-        try:
-            for r in self.receivers:
-                # receivers mutate batch.cols in place (filters, key
-                # columns): each gets its own dict; LazyColumns keeps
-                # device-held outputs unpulled until read
-                try:
-                    r.receive_batch(HostBatch(LazyColumns(batch.cols),
-                                              size=batch._size), self)
-                except Exception as e:  # noqa: BLE001 — per-event fault routing
-                    self.handle_error(self.decode_events(batch), e)
-        finally:
-            _DELIVERING.junction = prev
+    def _deliver_batch(self, batch, enq_t=None):
+        with span("junction.dispatch", stream=self.definition.id,
+                  rows=int(batch._size) if batch._size is not None else -1):
+            prev = current_delivering_junction()
+            _DELIVERING.junction = self
+            jt = journey.enabled()
+            prev_q = journey.push_delivery_queue_wait(enq_t) if jt else None
+            try:
+                for r in self.receivers:
+                    # receivers mutate batch.cols in place (filters, key
+                    # columns): each gets its own dict; LazyColumns keeps
+                    # device-held outputs unpulled until read
+                    try:
+                        sub = HostBatch(LazyColumns(batch.cols), size=batch._size)
+                        # the pack stamp rides along; each receiver forks
+                        # its own journey (journey.begin)
+                        sub.journey = batch.journey
+                        r.receive_batch(sub, self)
+                    except Exception as e:  # noqa: BLE001 — per-event fault routing
+                        self.handle_error(self.decode_events(batch), e)
+            finally:
+                _DELIVERING.junction = prev
+                if jt:
+                    journey.pop_delivery_queue_wait(prev_q)
 
     def record_completion(self, elapsed_ms: float):
         """The deliver->emit time of a pipelined batch, from the pump at
@@ -321,13 +381,13 @@ class StreamJunction:
         pump = getattr(self.app_context, "completion_pump", None)
         return pump.submits_of(self) if pump is not None else 0
 
-    def _timed(self, deliver, unit):
+    def _timed(self, deliver, unit, enq_t=None):
         """Deliver one unit and feed its latency to the control loop,
         unless it pipelined (its dispatch returned at once;
         ``record_completion`` supplies the true sample at drain)."""
         t0 = time.perf_counter()
         n0 = self._pump_submits()
-        deliver(unit)
+        deliver(unit, enq_t)
         if self._pump_submits() == n0:
             self._adapt((time.perf_counter() - t0) * 1000.0)
 
@@ -347,8 +407,20 @@ class StreamJunction:
 
     def _drain_loop(self, gen: int):
         while True:
+            hook = self.fault_hook
+            if hook is not None:
+                # the fault-injection point: a hook may block (a wedge) or
+                # raise (the worker dies; its unit stays parked for the
+                # replacement worker)
+                try:
+                    hook(self)
+                except Exception as e:  # noqa: BLE001 — an injected death
+                    log.warning("junction '%s' worker killed: %s",
+                                self.definition.id, e)
+                    return
             if gen != self._gen:
                 return     # superseded by restart_worker
+            enq_t = None
             if self._inflight is not _NOTHING:
                 owner = self._inflight_owner
                 if (owner is not None and owner.is_alive()
@@ -362,6 +434,7 @@ class StreamJunction:
             else:
                 try:
                     item = self._queue.get(timeout=_IDLE_POLL_S)
+                    enq_t = self._jt_enq.pop(id(item), None) if self._jt_enq else None
                 except queue.Empty:
                     # idle: drain the batches still riding the pipeline,
                     # which bounds emission lag under trickle load
@@ -379,7 +452,7 @@ class StreamJunction:
                 return
             if not isinstance(item, list):
                 # a columnar batch: one pre-formed unit, never split
-                self._timed(self._deliver_batch, item)
+                self._timed(self._deliver_batch, item, enq_t)
                 self._inflight = _NOTHING
                 if self._queue.empty():
                     self._flush_pipeline()
@@ -390,6 +463,7 @@ class StreamJunction:
                         if self._max_delay_s is not None else None)
             stop_after = False
             follow = None             # a columnar batch that ended coalescing
+            follow_enq = None
             with self._adapt_lock:
                 cap = self._cur_batch
             while len(batch) < cap:
@@ -405,19 +479,22 @@ class StreamJunction:
                     if deadline is None or time.perf_counter() >= deadline:
                         break
                     continue
+                more_enq = self._jt_enq.pop(id(more), None) if self._jt_enq else None
                 if more is None:
                     stop_after = True
                     break
                 if not isinstance(more, list):
-                    follow = more
+                    follow, follow_enq = more, more_enq
                     break
                 batch.extend(more)
             if gen != self._gen and follow is None and not stop_after:
                 return   # superseded while coalescing: the unit stays parked
-            self._timed(self._deliver, batch)
+            # coalesced chunks keep the first chunk's stamp: the unit's
+            # longest residence
+            self._timed(self._deliver, batch, enq_t)
             if follow is not None:
                 self._inflight = follow
-                self._timed(self._deliver_batch, follow)
+                self._timed(self._deliver_batch, follow, follow_enq)
             self._inflight = _NOTHING
             if stop_after or self._queue.empty():
                 self._flush_pipeline()

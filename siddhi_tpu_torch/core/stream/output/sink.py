@@ -203,15 +203,18 @@ class SinkRuntime(Receiver):
                 self.app_context, "resilience.sink_retries"))
 
     def receive(self, events):
-        for e in events:
-            if e.is_expired:
-                continue
-            payload = self.mapper.map(e)
-            if self.strategy is None:
-                self._publish(self.sinks[0], payload)
-            else:
-                for d in self.strategy.destinations_for(e):
-                    self._publish(self.sinks[d], payload)
+        from siddhi_tpu_torch.observability.tracing import span
+
+        with span("sink.publish", stream=self.definition.id, events=len(events)):
+            for e in events:
+                if e.is_expired:
+                    continue
+                payload = self.mapper.map(e)
+                if self.strategy is None:
+                    self._publish(self.sinks[0], payload)
+                else:
+                    for d in self.strategy.destinations_for(e):
+                        self._publish(self.sinks[d], payload)
 
     def receive_batch(self, batch, junction=None):
         # reads the output columns, pulling device-held ones through

@@ -22,7 +22,9 @@ Two steps share an entry only when all of these are equal:
 - **state**: every state leaf's (dtype, shape), in order;
 - **program**: ``program_signature()`` (the query's AST without its name
   and target, the input definition, the planner's knobs, the stage the
-  plan chose, the key capacities, the output names and types);
+  plan chose, the key capacities, the output names and types, and the
+  instrument spec: the meta's layout, so an app with device instruments
+  off never shares with one that has them on);
 - **consts**: every constant the step's closure took from app state,
   compared bit for bit (``values_equal``). Today these are the ids the
   app's string dictionary gave the query's string literals at plan time:

@@ -45,8 +45,9 @@ nothing: the entry's graph runs over its own slot, into which the
 restored state is copied at each replay. A private graph (the cache off,
 or an entry with no other sharer) is captured anew.
 
-Left out, each waiting for its subsystem: the multi-process allgather of
-``_to_host`` (ROADMAP A.9); the ``persist`` span (A.10).
+Each ``persist`` is a ``persist`` span (``observability/tracing.py``).
+Left out, waiting for its subsystem: the multi-process allgather of
+``_to_host`` (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -551,6 +552,12 @@ class PersistenceManager:
     def persist(self, incremental: bool = False) -> str:
         """A full checkpoint, or (``incremental=True``, after a full one)
         an op-log delta chained to the previous revision."""
+        from siddhi_tpu_torch.observability.tracing import span
+
+        with span("persist", app=self.app_runtime.name, incremental=incremental):
+            return self._persist(incremental)
+
+    def _persist(self, incremental: bool) -> str:
         t_start = time.perf_counter()
         rt = self.app_runtime
         store = self._store()

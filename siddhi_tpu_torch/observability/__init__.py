@@ -11,10 +11,16 @@ has sources for:
   ``GET /metrics[/{app}]`` on the REST service (``service/rest.py``);
 - ``telemetry.InstrumentedJit``: the step instrument every step goes
   through (compile events, the program cache, cost capture);
-- ``costmodel``: the step-program cost registry behind ``GET /programs``.
-
-The span tracer (``tracing``), batch journeys (``journey``) and device
-instruments (``instruments``) are ROADMAP A.10.
+- ``costmodel``: the step-program cost registry behind ``GET /programs``;
+- ``tracing``: structured host spans (compile, plan, jit, junction
+  dispatch, query step, sink publish, persist), ring-buffered and
+  exported as Chrome-trace JSON (``POST /trace/start|stop``);
+- ``journey``: batch journeys through pack, queue, dispatch, device and
+  emit, and the critical-path report (``GET /profile/critical_path``);
+- ``instruments``: device instruments, lanes computed inside each step
+  that ride the batch's one meta pull;
+- ``device_trace``: the device profiler trace (``torch.profiler``) behind
+  ``SiddhiAppRuntime.start_trace`` and ``POST /profile/device/*``.
 """
 
 from siddhi_tpu_torch.observability.histogram import Histogram
@@ -22,5 +28,7 @@ from siddhi_tpu_torch.observability.telemetry import (
     TelemetryRegistry,
     global_registry,
 )
+from siddhi_tpu_torch.observability.tracing import TRACER, Tracer, span
 
-__all__ = ["Histogram", "TelemetryRegistry", "global_registry"]
+__all__ = ["Histogram", "TRACER", "TelemetryRegistry", "Tracer",
+           "global_registry", "span"]

@@ -24,14 +24,20 @@ door's counters, fan-out fusion (``siddhi_fanout_group_size``,
 the step records (``siddhi_jit_*``), the program cache
 (``siddhi_program_cache_{hits,misses,evictions}_total`` and
 ``siddhi_program_cache_size``) and the step-program costs
-(``siddhi_jit_cost_*{key}``); the ingest WAL's gauges, a fused stream's
-``unique_programs`` and ``captured`` gauges and a query's ``captured``
-gauge render as the generic ``siddhi_gauge``, as in the reference. The
-reference's families of batch journeys, device instruments and the
-autopilot (ROADMAP A.10),
-the cluster fabric and the keyed-shard and join-partition gauges
-(A.9/A.10) and the overload quotas (A.10) have no source in the port and
-are not printed.
+(``siddhi_jit_cost_*{key}``), the @Async junctions
+(``siddhi_junction_{queue_depth,inflight_batches}``,
+``siddhi_junction_{backpressure_stalls,enqueue_timeouts}_total``), the
+dispatch pipeline (``siddhi_pipeline_depth{query}``,
+``siddhi_pipeline_{stalls,metas,meta_pulls}_total``), the join engine
+(``siddhi_join_partition_rows``, ``siddhi_join_{probe,insert}_ms``), the
+batch journeys (``siddhi_stage_ms``, ``siddhi_stage_queue_ms``) and the
+device instruments (``siddhi_device_instrument{,_capacity,_value}``); the
+ingest WAL's gauges, a fused stream's ``unique_programs`` and
+``captured`` gauges and a query's ``captured`` gauge render as the
+generic ``siddhi_gauge``, as in the reference. The reference's families
+of the autopilot, the overload quotas and the supervisor (ROADMAP A.10),
+the cluster fabric and the keyed-shard gauges (A.9) have no source in
+the port and are not printed.
 """
 
 from __future__ import annotations
@@ -42,6 +48,25 @@ import time
 from typing import Dict, List, Tuple
 
 from siddhi_tpu_torch.observability.telemetry import global_registry
+
+# the data slots a step may declare in its instrument spec
+# (observability/instruments.Slot); the exposition regexes below are built
+# from this tuple
+DEVICE_SLOTS = (
+    "win_fill",        # window ring live rows (keyed: the hottest key)
+    "groups",          # distinct group keys among the batch's rows
+    "nfa_runs",        # live NFA partial-match slots
+    "shard_rows",      # rows routed to each shard (the routed exchange)
+    "route_residual",  # receive capacity left on the fullest shard
+    "fill.left",       # join directory fill per partition
+    "fill.right",
+)
+# structural (kind='check') slots: consumed at drain by a runtime's
+# _consume_check_slot, never rendered as telemetry
+DEVICE_CHECK_SLOTS = (
+    "route_overflow",  # exchange overflow -> FatalQueryError
+    "seq",             # the join's cross-stream sequence check
+)
 
 # operationally load-bearing counters with a source in the port,
 # pre-declared at 0 per app (the reference also declares the supervisor's,
@@ -128,6 +153,46 @@ _JITCOST_HELP = {
     "compile_ms": ("siddhi_jit_cost_compile_ms",
                    "wall ms of the capture's eager run"),
 }
+_JUNCTION_GAUGE = re.compile(r"^junction\.(?P<stream>.+)\.(?P<kind>"
+                             r"queue_depth|inflight_batches)$")
+_JUNCTION_COUNTER = re.compile(r"^junction\.(?P<stream>.+)\.(?P<kind>"
+                               r"backpressure_stalls|enqueue_timeouts)$")
+_JUNCTION_COUNTER_HELP = {
+    "backpressure_stalls": "producer sends that blocked on a full @Async queue",
+    "enqueue_timeouts": "bounded enqueue waits on a full @Async queue that "
+                        "timed out",
+}
+_PIPELINE_GAUGE = re.compile(r"^pipeline\.(?P<query>.+)\.inflight$")
+# pipeline.metas / pipeline.pulls: metas-per-pull batching ratio;
+# pipeline.stalls: forced drains that had to wait on the card
+_PIPELINE_COUNTER_FAMILY = {
+    "pipeline.stalls": ("siddhi_pipeline_stalls_total",
+                        "pipeline drains that blocked on a batch the card "
+                        "had not finished"),
+    "pipeline.metas": ("siddhi_pipeline_metas_total",
+                       "batch metas drained through the dispatch pipeline "
+                       "(divide by pulls for the batching ratio)"),
+    "pipeline.pulls": ("siddhi_pipeline_meta_pulls_total",
+                       "drain rounds of the dispatch pipeline"),
+}
+# the join engine (core/join/): per-partition directory occupancy gauges
+# and the per-query probe and insert host-latency histograms
+_JOIN_PART_ROWS = re.compile(r"^join\.partition_rows\.(?P<query>.+)"
+                             r"\.(?P<side>left|right)\.(?P<part>\d+)$")
+_JOIN_HIST = re.compile(r"^join\.(?P<kind>probe|insert)_ms\.(?P<query>.+)$")
+# batch journeys (observability/journey.py): per-query per-stage service
+# and queueing histograms
+_STAGE_HIST = re.compile(r"^stage\.(?P<query>.+)\.(?P<stage>[a-z_]+)"
+                         r"\.(?P<kind>service|queue)_ms$")
+# device instruments (observability/instruments.py): per-query last value
+# and capacity gauges and per-batch value histograms, the slot anchored to
+# DEVICE_SLOTS (a query name may hold dots: the slot tail is fixed)
+_DEVICE_SLOT_RX = "|".join(
+    re.escape(x) for x in sorted(DEVICE_SLOTS, key=len, reverse=True))
+_DEVICE_GAUGE = re.compile(r"^device\.(?P<query>.+)\.(?P<slot>" + _DEVICE_SLOT_RX
+                           + r")(?P<cap>\.capacity)?$")
+_DEVICE_HIST = re.compile(r"^device\.(?P<query>.+)\.(?P<slot>" + _DEVICE_SLOT_RX
+                          + r")$")
 _FANOUT_GAUGE = re.compile(r"^fanout\.(?P<stream>.+)\.group_size$")
 _FANOUT_COUNTER = re.compile(r"^fanout\.(?P<stream>.+)\.(?P<kind>"
                              r"dispatches|meta_pulls)$")
@@ -237,6 +302,41 @@ def _record_scrape_ms(t0: float) -> None:
 def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
     base = {"app": app} if app else {}
     for name, v in sorted(tel_snapshot.get("gauges", {}).items()):
+        m = _JUNCTION_GAUGE.match(name)
+        if m:
+            fams.add(f"siddhi_junction_{m.group('kind')}", "gauge",
+                     ("@Async junction queue depth"
+                      if m.group("kind") == "queue_depth"
+                      else "@Async junction in-flight delivery units"),
+                     {**base, "stream": m.group("stream")}, v)
+            continue
+        m = _PIPELINE_GAUGE.match(name)
+        if m:
+            fams.add("siddhi_pipeline_depth", "gauge",
+                     "device batches riding the dispatch pipeline",
+                     {**base, "query": m.group("query")}, v)
+            continue
+        m = _JOIN_PART_ROWS.match(name)
+        if m:
+            fams.add("siddhi_join_partition_rows", "gauge",
+                     "live build-side rows per join hash partition (skew "
+                     "shows as imbalance)",
+                     {**base, "query": m.group("query"), "side": m.group("side"),
+                      "partition": m.group("part")}, v)
+            continue
+        m = _DEVICE_GAUGE.match(name)
+        if m:
+            labels = {**base, "query": m.group("query"), "slot": m.group("slot")}
+            if m.group("cap"):
+                fams.add("siddhi_device_instrument_capacity", "gauge",
+                         "capacity denominator of a device-instrument slot "
+                         "(ring size, Wp, rows_per_shard, ...)", labels, v)
+            else:
+                fams.add("siddhi_device_instrument", "gauge",
+                         "last drained device-instrument value (rides the "
+                         "batch's meta pull: no extra device transfer)",
+                         labels, v)
+            continue
         m = _AGG_SHARD_WAL.match(name)
         if m:
             fams.add("siddhi_aggregation_shard_wal_batches", "gauge",
@@ -286,9 +386,16 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
         fams.add("siddhi_gauge", "gauge", "registered telemetry gauge",
                  {**base, "name": name}, v)
     for name, v in sorted(tel_snapshot.get("counters", {}).items()):
+        m = _JUNCTION_COUNTER.match(name)
+        if m:
+            fams.add(f"siddhi_junction_{m.group('kind')}_total", "counter",
+                     _JUNCTION_COUNTER_HELP[m.group("kind")],
+                     {**base, "stream": m.group("stream")}, v)
+            continue
         fam = (_SERVING_COUNTER_FAMILY.get(name)
                or _INGEST_COUNTER_FAMILY.get(name)
-               or _PROGRAM_CACHE_COUNTER_FAMILY.get(name))
+               or _PROGRAM_CACHE_COUNTER_FAMILY.get(name)
+               or _PIPELINE_COUNTER_FAMILY.get(name))
         if fam is not None:
             fams.add(fam[0], "counter", fam[1], base, v)
             continue
@@ -318,6 +425,32 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
             elif name == "scrape.ms":
                 family = "siddhi_scrape_ms"
                 help_ = "/metrics scrape self-timing (ms)"
+            elif _JOIN_HIST.match(name):
+                m = _JOIN_HIST.match(name)
+                family = f"siddhi_join_{m.group('kind')}_ms"
+                help_ = ("host prep time per join side batch (ms)"
+                         if m.group("kind") == "insert"
+                         else "probe dispatch and finish time per join side "
+                              "batch (ms)")
+                labels["query"] = m.group("query")
+            elif _STAGE_HIST.match(name):
+                m = _STAGE_HIST.match(name)
+                if m.group("kind") == "service":
+                    family = "siddhi_stage_ms"
+                    help_ = ("batch-journey per-stage service time (ms): see "
+                             "the stage glossary of observability/journey.py")
+                else:
+                    family = "siddhi_stage_queue_ms"
+                    help_ = "batch-journey per-stage queueing or slack time (ms)"
+                labels["query"] = m.group("query")
+                labels["stage"] = m.group("stage")
+            elif _DEVICE_HIST.match(name):
+                m = _DEVICE_HIST.match(name)
+                family = "siddhi_device_instrument_value"
+                help_ = ("per-batch device-instrument slot value (the slot "
+                         "glossary of observability/instruments.py)")
+                labels["query"] = m.group("query")
+                labels["slot"] = m.group("slot")
             else:
                 m = _SERVING_QUERY_HIST.match(name)
                 if m:

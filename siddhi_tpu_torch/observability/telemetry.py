@@ -26,13 +26,14 @@ context; ``export.py`` merges both into every scrape.
 
 Departures from the reference's instrument: "compile" is building the
 step plus, on the card, capturing its CUDA graph (the reference times
-XLA's trace and compile); the reference's ``span("jit")`` and its
-recompile sanitizer wait for the tracer and the sanitizer (ROADMAP
-A.10).
+XLA's trace and compile), and the first call's ``span("jit", key=...)``
+(``observability/tracing.py``) covers that; the reference's recompile
+sanitizer waits for the rest of ``analysis/`` (ROADMAP A.10 f).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 import time
@@ -101,9 +102,12 @@ class InstrumentedJit:
             if self._count_hits:
                 self._telemetry.record_jit(self._key, hit=True)
             return self._fn(*args, **kwargs)
-        self._first(args, graph=False)
-        t0 = time.perf_counter()
-        out = self._fn(*args, **kwargs)
+        from siddhi_tpu_torch.observability.tracing import span
+
+        with span("jit", key=self._key):
+            self._first(args, graph=False)
+            t0 = time.perf_counter()
+            out = self._fn(*args, **kwargs)
         self._record_first((time.perf_counter() - t0) * 1000.0,
                            built=not self.shared)
         return out
@@ -114,11 +118,15 @@ class InstrumentedJit:
         step, else ``(outs, metas)``."""
         from siddhi_tpu_torch.core.query import step_graph
 
+        from siddhi_tpu_torch.observability.tracing import span
+
         first = not self._compiled
-        if first:
-            self._first((state, cols, now), graph=True)
-        fn = step_graph.packed(self._fn) if self._packed else self._fn
-        outs, metas, capture_ms = self.graph.run(fn, state, cols, now, depth)
+        # the first replay's capture is the step's "compile"
+        with span("jit", key=self._key) if first else contextlib.nullcontext():
+            if first:
+                self._first((state, cols, now), graph=True)
+            fn = step_graph.packed(self._fn) if self._packed else self._fn
+            outs, metas, capture_ms = self.graph.run(fn, state, cols, now, depth)
         if first:
             # a hit whose column spec the entry already holds built nothing
             self._record_first(capture_ms or 0.0,

@@ -138,6 +138,15 @@ class KeyedLengthWindowStage(WindowStage):
                 "total": torch.zeros((num_keys,), dtype=torch.int64,
                                      device=device)}
 
+    @property
+    def ring_capacity(self) -> int:
+        return self.length
+
+    def live_fill(self, state) -> torch.Tensor:
+        """The hottest key's live rows: the ``win_fill`` instrument slot
+        (the max, not the sum: a key's ring is what overflows)."""
+        return torch.clamp(state["total"], max=self.length).max()
+
     def apply(self, state, cols, ctx):
         W = self.length
         total = state["total"]
@@ -239,6 +248,15 @@ class KeyedTimeWindowStage(WindowStage):
         z = torch.zeros((num_keys,), dtype=torch.int64, device=device)
         return {"buf": _ring_buffers(self.col_specs, num_keys * self.capacity, device),
                 "total": z, "expired_upto": z.clone()}
+
+    @property
+    def ring_capacity(self) -> int:
+        return self.capacity
+
+    def live_fill(self, state) -> torch.Tensor:
+        """The hottest key's live (unexpired) rows: the ``win_fill``
+        instrument slot."""
+        return torch.clamp(state["total"] - state["expired_upto"], min=0).max()
 
     def apply(self, state, cols, ctx):
         Wc = self.capacity

@@ -290,6 +290,16 @@ class LengthWindowStage(WindowStage):
         return {"buf": buf,
                 "total": torch.zeros((), dtype=torch.int64, device=device)}
 
+    @property
+    def ring_capacity(self) -> int:
+        return self.length
+
+    def live_fill(self, state) -> torch.Tensor:
+        """Live rows in the ring (a 0-d device tensor): the ``win_fill``
+        instrument slot (``observability/instruments.py``), computed inside
+        the step from the state it holds."""
+        return torch.clamp(state["total"], max=self.length)
+
     def apply(self, state, cols, ctx):
         W = self.length
         keys = _data_keys(cols)
@@ -392,6 +402,16 @@ class TimeWindowStage(WindowStage):
         if not self.external:
             state["mono"] = torch.ones((), dtype=torch.bool, device=device)
         return state
+
+    @property
+    def ring_capacity(self) -> int:
+        return self.capacity
+
+    def live_fill(self, state) -> torch.Tensor:
+        """Live (unexpired) rows in the ring: the ``win_fill`` instrument
+        slot; near ``capacity`` the ring is one skewed batch from
+        overflow."""
+        return torch.clamp(state["total"] - state["expired_upto"], min=0)
 
     def apply(self, state, cols, ctx):
         Wc = self.capacity

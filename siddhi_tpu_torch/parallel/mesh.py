@@ -342,6 +342,7 @@ def _install_routed(runtime, layout: RouteLayout, canonical, Kg: int, Wg: int):
     runtime.selector_plan.num_keys = layout.localK
     runtime._win_keys = layout.local_win
     runtime._route_layout = layout
+    runtime._instr_spec = None  # the route's meta slots join the spec
     runtime._state = None      # release the old layout before allocating
     runtime._state = _canonical_to_routed(runtime, layout, canonical)
     runtime._step = routed_step_for(runtime)
@@ -506,6 +507,13 @@ def _routed_fn(runtime, layout: "RouteLayout"):
     step = runtime.build_step_fn()
     key_name = PK_KEY if partitioned else GK_KEY
     dev = runtime.device
+    # device instruments (observability/instruments.py): the inner step
+    # appends its own lanes a shard; the routed step adds the exchange
+    # residual and folds each inner lane across the shards by its slot's
+    # reduce (sum for counts a shard owns, max for fill levels). Read at
+    # build, so the meta matches runtime.instrument_slots()
+    ins_on = runtime._instruments_on()
+    inner_slots = runtime._step_instrument_slots()
 
     if n == 1:
         def one_dev(state, cols, now):
@@ -519,8 +527,11 @@ def _routed_fn(runtime, layout: "RouteLayout"):
             out = dict(out)
             meta = out.pop("__meta__")
             out.pop(OKEY_KEY, None)   # single shard: already in order
-            out["__meta__"] = torch.cat(
-                [meta[:3], torch.zeros(1, dtype=torch.int64, device=dev), rows[None]])
+            parts = [meta[:3], torch.zeros(1, dtype=torch.int64, device=dev), rows[None]]
+            if ins_on:
+                parts.append(n * Q - rows[None])
+            parts.append(meta[3:])    # the inner step's lanes
+            out["__meta__"] = torch.cat(parts)
             return state, out
 
         return one_dev
@@ -604,8 +615,17 @@ def _routed_fn(runtime, layout: "RouteLayout"):
                           meta[:, 1]).min()
         nt = torch.where(ntb >= _ROUTE_BIG, torch.full_like(ntb, -1), ntb)
         cnt = meta[:, 2].sum()
-        merged["__meta__"] = torch.cat([torch.stack([ov, nt, cnt, route_ov]),
-                                        rows_here])
+        parts = [torch.stack([ov, nt, cnt, route_ov]), rows_here]
+        if ins_on:
+            # the receive capacity left on the fullest shard this batch
+            # (0: one more skewed batch overflows)
+            parts.append(n * Q - rows_here.max().reshape(1))
+        lane = 3
+        for slot in inner_slots:
+            v = meta[:, lane:lane + slot.width]
+            lane += slot.width
+            parts.append(v.max(dim=0).values if slot.reduce == "max" else v.sum(dim=0))
+        merged["__meta__"] = torch.cat(parts)
         return state, merged
 
     return step3

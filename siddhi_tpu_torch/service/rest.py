@@ -27,21 +27,27 @@ Endpoints (JSON in/out):
   (``observability/costmodel.py``: records and fingerprint clusters) plus
   ``"cache"``, the process-global program cache
   (``core/util/program_cache.py``: entries, sharers, refcounts, graphs)
-- ``POST /profile/costs/start|stop``   — program cost capture on/off
+- ``GET  /profile/critical_path[/<name>]`` — the batch journeys'
+  critical-path report (``observability/journey.py``)
+- ``POST /profile/{journeys|costs|device}/start|stop`` — batch journeys,
+  program cost capture, the process's device profiler trace
+  (``observability/device_trace.py``; ``{"dir": <relative name>}``)
+- ``POST /trace/start|stop``           — span tracing
+  (``observability/tracing.py``); stop writes the Chrome trace file
+  (``{"file": <relative name>}``) and returns it
+- ``POST /apps/<name>/trace``          — ``{"action": "start", "dir":
+  <relative name>}`` | ``{"action": "stop"}``: the app's device trace
 - ``GET  /metrics[/<name>]``           — Prometheus text exposition
   (``observability/export.py``); ``?format=json`` or ``Accept:
   application/json`` returns the JSON snapshot
 
-The reference's routes over modules the port lacks answer ``501`` naming
-their ROADMAP item: the span tracer (``/trace/start|stop``), the device
-profiler trace (``/apps/<name>/trace``; its body is validated first, as
-the reference validates it), the critical-path profiler
-(``/profile/critical_path``, ``/profile/journeys/*``,
-``/profile/device/*``), the autopilot
-(``/autopilot``) and the cluster fabric (``/cluster``; the ``cluster=``
-argument raises). Without the overload layer's per-app query quotas
-(ROADMAP A.10) every app uses the endpoint's cap, as the reference does
-when no quota is registered.
+Every trace file and directory is confined under ``trace_base``: a
+client names it relative to that directory, and a name that escapes it
+answers 400. The reference's routes over modules the port lacks answer
+``501`` naming their ROADMAP item: the autopilot (``/autopilot``) and the
+cluster fabric (``/cluster``; the ``cluster=`` argument raises). Without
+the overload layer's per-app query quotas (ROADMAP A.10) every app uses
+the endpoint's cap, as the reference does when no quota is registered.
 """
 
 from __future__ import annotations
@@ -55,14 +61,9 @@ from typing import Optional
 
 # unported routes: first path segment -> what they need and where it waits
 _UNPORTED = {
-    "trace": "the span tracer (observability/tracing.py) is ROADMAP A.10",
-    "profile": ("the critical-path profiler (observability/journey.py) and "
-                "the device profiler trace are ROADMAP A.10"),
     "autopilot": "the autopilot (siddhi_tpu/autopilot/) is ROADMAP A.10",
     "cluster": "the cluster fabric (siddhi_tpu/cluster/) is ROADMAP A.10",
 }
-_APP_TRACE = ("the device profiler trace (SiddhiAppRuntime.start_trace) "
-              "is ROADMAP A.10")
 
 
 class SiddhiRestService:
@@ -149,6 +150,13 @@ class SiddhiRestService:
 
         self._server = ThreadingHTTPServer((host, port), Handler)
         self._thread: Optional[threading.Thread] = None
+        self._device_tracing: Optional[str] = None  # the running profile's dir
+        # torch's profiler is stopped by the thread that started it: every
+        # device-trace start and stop runs on this one thread
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._trace_thread = ThreadPoolExecutor(max_workers=1,
+                                                thread_name_prefix="siddhi-trace")
         # per-encoder dictionary-delta state for POST /ingest/{stream}
         from siddhi_tpu_torch.core.stream.input.wire import DecoderRegistry
 
@@ -173,6 +181,7 @@ class SiddhiRestService:
         if self._thread is not None:
             self._thread.join(timeout=5)
         self.admission.shutdown()
+        self._trace_thread.shutdown(wait=True)
 
     # ------------------------------------------------------------ handlers
 
@@ -200,6 +209,15 @@ class SiddhiRestService:
             payload = costmodel.registry().snapshot()
             payload["cache"] = program_cache.cache().snapshot()
             h._send(200, payload)
+            return
+        if len(parts) in (2, 3) and parts[:2] == ["profile", "critical_path"]:
+            from siddhi_tpu_torch.observability import journey
+
+            app = parts[2] if len(parts) == 3 else None
+            if app is not None and self.manager.get_siddhi_app_runtime(app) is None:
+                h._send(404, {"error": f"app '{app}' is not deployed"})
+                return
+            h._send(200, journey.critical_path_report(self.manager, app))
             return
         if parts and parts[0] in _UNPORTED:
             h._send_unported(_UNPORTED[parts[0]])
@@ -261,8 +279,21 @@ class SiddhiRestService:
             events = fut.result()
             h._send(200, {"rows": [list(e.data) for e in events]})
             return
-        if parts[:2] == ["profile", "costs"] and len(parts) == 3:
-            self._post_costs(h, parts[2])
+        if len(parts) == 3 and parts[0] == "profile":
+            self._post_profile(h, parts[1], parts[2], body)
+            return
+        if parts == ["trace", "start"]:
+            from siddhi_tpu_torch.observability.tracing import TRACER
+
+            if TRACER.enabled:
+                h._send(409, {"error": "span tracing is already running"})
+                return
+            cap = body.get("capacity") if isinstance(body, dict) else None
+            TRACER.start(capacity=int(cap) if cap else None)
+            h._send(200, {"tracing": True, "capacity": TRACER.capacity})
+            return
+        if parts == ["trace", "stop"]:
+            self._post_trace_stop(h, body)
             return
         if parts and parts[0] in _UNPORTED:
             h._send_unported(_UNPORTED[parts[0]])
@@ -286,7 +317,7 @@ class SiddhiRestService:
                 h._send(200, {"revision": rt.persist()})
                 return
             if parts[2] == "trace":
-                self._post_app_trace(h, body)
+                self._post_app_trace(h, rt, body)
                 return
             if parts[2] == "restore":
                 rev = body.get("revision") if isinstance(body, dict) else None
@@ -298,45 +329,126 @@ class SiddhiRestService:
                 return
         h._send(404, {"error": f"unknown path {h.path}"})
 
-    def _post_costs(self, h, action: str) -> None:
-        """``POST /profile/costs/{start|stop}``: the cost registry's
-        process-wide switch, answered as the reference answers it."""
-        from siddhi_tpu_torch.observability import costmodel
+    def _confined(self, name: str, allow_base: bool) -> Optional[str]:
+        """``name`` resolved under ``trace_base``, or None when it escapes
+        it (``allow_base``: the base itself is a valid directory, never a
+        valid file)."""
+        base = os.path.realpath(self.trace_base)
+        target = os.path.realpath(os.path.join(base, name))
+        if target.startswith(base + os.sep) or (allow_base and target == base):
+            return target
+        return None
 
+    def _post_trace_stop(self, h, body) -> None:
+        """``POST /trace/stop``: stop span tracing and write the Chrome
+        trace under ``trace_base``; the target is checked before the stop,
+        so a refused request leaves the trace running."""
+        from siddhi_tpu_torch.observability.tracing import TRACER
+
+        if not TRACER.enabled:
+            h._send(409, {"error": "no span trace is running"})
+            return
+        name = (body.get("file") if isinstance(body, dict) else None) or "spans.trace.json"
+        target = self._confined(name, allow_base=False)
+        if target is None:
+            h._send(400, {"error": "trace file escapes the configured trace base"})
+            return
+        trace = TRACER.stop()
+        os.makedirs(os.path.dirname(target), exist_ok=True)
+        with open(target, "w", encoding="utf-8") as f:
+            json.dump(trace, f)
+        h._send(200, {"tracing": False, "file": target,
+                      "events": len(trace["traceEvents"]), "trace": trace})
+
+    def _post_profile(self, h, what: str, action: str, body) -> None:
+        """``POST /profile/{journeys|costs|device}/{start|stop}``: the
+        process-wide switches of batch journeys, cost capture and the
+        device profiler trace, answered as the reference answers them."""
         if action not in ("start", "stop"):
             h._send(404, {"error": f"unknown path {h.path}"})
             return
-        if action == "start":
-            costmodel.enable()
-        else:
-            costmodel.disable()
-        h._send(200, {"costs": costmodel.enabled(),
-                      "programs": len(costmodel.registry().programs())})
+        if what == "journeys":
+            from siddhi_tpu_torch.observability import journey
 
-    def _post_app_trace(self, h, body) -> None:
-        """``POST /apps/<name>/trace``: the body is validated as the
-        reference validates it (400s, trace directories confined under
-        ``trace_base``); a valid start answers 501, and a stop 409: no
-        device profiler trace can be running."""
+            if action == "start":
+                cap = body.get("capacity") if isinstance(body, dict) else None
+                journey.enable(ring_capacity=int(cap) if cap else None)
+            else:
+                journey.disable()
+            h._send(200, {"journeys": journey.enabled()})
+            return
+        if what == "costs":
+            from siddhi_tpu_torch.observability import costmodel
+
+            if action == "start":
+                costmodel.enable()
+            else:
+                costmodel.disable()
+            h._send(200, {"costs": costmodel.enabled(),
+                          "programs": len(costmodel.registry().programs())})
+            return
+        if what == "device":
+            from siddhi_tpu_torch.observability import device_trace
+
+            if action == "start":
+                if self._device_tracing:
+                    h._send(409, {"error": "a device profile is already running"})
+                    return
+                name = (body.get("dir") if isinstance(body, dict) else None) \
+                    or "device_profile"
+                target = self._confined(name, allow_base=True)
+                if target is None:
+                    h._send(400, {"error": "profile dir escapes the configured "
+                                           "trace base"})
+                    return
+                try:
+                    self._trace_thread.submit(device_trace.start, target).result()
+                except RuntimeError as e:     # an app's trace is running
+                    h._send(409, {"error": str(e)})
+                    return
+                self._device_tracing = target
+                h._send(200, {"device_profile": target})
+            else:
+                if not self._device_tracing:
+                    h._send(409, {"error": "no device profile is running"})
+                    return
+                path = self._trace_thread.submit(device_trace.stop).result()
+                target, self._device_tracing = self._device_tracing, None
+                h._send(200, {"device_profile": None, "dir": target, "file": path})
+            return
+        h._send(404, {"error": f"unknown path {h.path}"})
+
+    def _post_app_trace(self, h, rt, body) -> None:
+        """``POST /apps/<name>/trace``: ``{"action": "start", "dir":
+        <relative name>}`` starts the app's device trace under
+        ``trace_base``; ``{"action": "stop"}`` stops it (409 for a second
+        start or a stop with none running)."""
         if not isinstance(body, dict) or body.get("action") not in (
                 "start", "stop"):
             h._send(400, {"error": "trace expects action=start|stop"})
             return
-        if body["action"] == "stop":
-            h._send(409, {"error": "no trace is running: " + _APP_TRACE})
+        if body["action"] == "start":
+            name = body.get("dir")
+            if not isinstance(name, str) or not name:
+                h._send(400, {"error": "trace start expects a 'dir' "
+                                       "(relative name)"})
+                return
+            target = self._confined(name, allow_base=True)
+            if target is None:
+                h._send(400, {"error": "trace dir escapes the configured "
+                                       "trace base"})
+                return
+            try:
+                h._send(200, {"tracing": self._trace_thread.submit(
+                    rt.start_trace, target).result()})
+            except RuntimeError as e:     # a second start
+                h._send(409, {"error": str(e)})
             return
-        name = body.get("dir")
-        if not isinstance(name, str) or not name:
-            h._send(400, {"error": "trace start expects a 'dir' "
-                                   "(relative name)"})
-            return
-        base = os.path.realpath(self.trace_base)
-        target = os.path.realpath(os.path.join(base, name))
-        if target != base and not target.startswith(base + os.sep):
-            h._send(400, {"error": "trace dir escapes the configured "
-                                   "trace base"})
-            return
-        h._send_unported(_APP_TRACE)
+        try:
+            self._trace_thread.submit(rt.stop_trace).result()
+            h._send(200, {"tracing": None})
+        except RuntimeError as e:         # a stop with no trace running
+            h._send(409, {"error": str(e)})
 
     def _post_ingest(self, h, stream: str, raw: bytes,
                      app: Optional[str]) -> None:

@@ -54,7 +54,10 @@ def test_port_imports_and_runs_with_jax_unimportable():
     codes), the step instrument, the program cache, the cost registry and
     the step inventory and the utils import too (the routed step shares
     through the cache), and a sharded aggregation under
-    ``@app:statistics`` with a WAL runs and is scraped."""
+    ``@app:statistics`` with a WAL runs and is scraped; the observability
+    tier (the span tracer, batch journeys, device instruments, the device
+    trace), the fault injector and the debugger import, and a span trace
+    and a journey of a send are recorded."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -84,6 +87,9 @@ from siddhi_tpu_torch.observability import costmodel
 from siddhi_tpu_torch.observability.telemetry import InstrumentedJit
 from siddhi_tpu_torch.analysis import step_registry
 assert all(step_registry.resolve(n) for n in step_registry.JIT_STEP_BUILDERS)
+from siddhi_tpu_torch.observability import device_trace, instruments, journey, tracing
+from siddhi_tpu_torch.resilience.faults import FaultInjector
+from siddhi_tpu_torch.core.debugger import SiddhiDebugger
 APP = '''
 define stream StockStream (symbol string, price float, volume long);
 partition with (symbol of StockStream)
@@ -102,8 +108,14 @@ rt = m.create_siddhi_app_runtime(APP)
 c = C(); rt.add_callback("OutStream", c)
 device_route_query_step(rt.query_runtimes["bench"], make_mesh(4), rows_per_shard=64)
 h = rt.get_input_handler("StockStream")
+tracing.TRACER.start()
+journey.enable()
 for i, (s, p, v) in enumerate([("A", 1.0, 1), ("B", 2.0, 2), ("A", 3.0, 3), ("A", 5.0, 4)]):
     h.send(i, [s, p, v])
+names = {{e["name"] for e in tracing.TRACER.stop()["traceEvents"]}}
+assert {{"junction.dispatch", "query.step"}} <= names, names
+assert journey.ring() and "shard_rows" in rt.query_runtimes["bench"]._instr_last
+journey.disable(force=True)
 assert isinstance(rt.query_runtimes["bench"]._step, InstrumentedJit)
 assert any(e["family"] == "device_routed" for e in program_cache.cache().snapshot()["entries"])
 m.shutdown()
@@ -230,7 +242,8 @@ def test_manager_without_device_chooses_cuda():
 
 def test_unported_constructs_are_named_not_skipped():
     """What the port still refuses raises naming its ROADMAP item: a join
-    routed over a mesh (A.9), the device profiler trace (A.10).
+    routed over a mesh (A.9), the REST service's cluster fabric (A.10),
+    the fault injector's peer faults (A.9).
     Incremental aggregations, joins against them and the serving tier's
     sharded aggregation stores (``siddhi_tpu.agg_shards`` > 1, ported in
     A.7(c)) build."""
@@ -250,8 +263,13 @@ def test_unported_constructs_are_named_not_skipped():
     srt = sharded.create_siddhi_app_runtime(agg)
     assert isinstance(srt.aggregations["Agg"], ShardedIncrementalAggregation)
     assert srt.aggregations["Agg"].n_shards == 4
+    from siddhi_tpu_torch.resilience import FaultInjector
+    from siddhi_tpu_torch.service import SiddhiRestService
+
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
-        srt.start_trace("trace")
+        SiddhiRestService(sharded, cluster=object())
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
+        FaultInjector().drop_peer()
     rt = m.create_siddhi_app_runtime(
         "define stream L (k string, v long); define stream R (k string, v long); "
         "partition with (k of L, k of R) begin @info(name='j') "

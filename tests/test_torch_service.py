@@ -4,10 +4,12 @@ the CPU. Every service binds port 0 and every thread joins with a timeout.
 
 The four scenarios of ``tests/test_service.py`` drive the port through
 the module's own requests and checks (``torch_helpers.port_corpus``). The
-reference's routes over modules the port lacks answer 501 naming their
-ROADMAP item; a wire frame posted to ``/ingest`` lands as ``send_columns``
-would land it; ``/metrics`` renders the families the port has sources
-for and none of the unported ones.
+span tracer's, the device trace's and the critical-path profiler's routes
+answer as the reference's service answers the same request; the routes
+over modules the port lacks answer 501 naming their ROADMAP item; a wire
+frame posted to ``/ingest`` lands as ``send_columns`` would land it;
+``/metrics`` renders the families the port has sources for and none of
+the unported ones.
 """
 
 import json
@@ -62,15 +64,22 @@ def service():
 
 
 UNPORTED = [
-    ("POST", "/trace/start", {}, "A.10"),
-    ("POST", "/trace/stop", {}, "A.10"),
-    ("POST", "/apps/R/trace", {"action": "start", "dir": "t"}, "A.10"),
-    ("GET", "/profile/critical_path", None, "A.10"),
-    ("POST", "/profile/journeys/start", {}, "A.10"),
-    ("POST", "/profile/device/start", {}, "A.10"),
     ("GET", "/autopilot", None, "A.10"),
     ("GET", "/autopilot/R", None, "A.10"),
     ("GET", "/cluster", None, "A.10"),
+]
+
+# the routes ROADMAP A.10 (a) ported: each request answered as the
+# reference's service answers it (200, or 409 for a stop with nothing
+# running), then the switch it turned on is turned off again
+PORTED = [
+    ("POST", "/trace/start", {}, ("POST", "/trace/stop", {})),
+    ("POST", "/trace/stop", {}, None),
+    ("POST", "/apps/R/trace", {"action": "start", "dir": "t"},
+     ("POST", "/apps/R/trace", {"action": "stop"})),
+    ("GET", "/profile/critical_path", None, None),
+    ("POST", "/profile/journeys/start", {}, ("POST", "/profile/journeys/stop", {})),
+    ("POST", "/profile/device/start", {}, ("POST", "/profile/device/stop", {})),
 ]
 
 
@@ -82,6 +91,45 @@ def test_unported_route_answers_501_naming_its_item(service, method, path, body,
     assert code == 501, (code, payload)
     err = json.loads(payload)["error"]
     assert f"ROADMAP {item}" in err, err
+
+
+def _answer(pkg, tmp, method, path, body, undo):
+    """(status, sorted top-level keys of the JSON answer) of one request to
+    a fresh service of ``pkg`` over the fixture's app; ``undo`` runs after."""
+    if pkg == "jax":
+        from siddhi_tpu import SiddhiManager
+        from siddhi_tpu.service import SiddhiRestService
+        m = SiddhiManager()
+    else:
+        from siddhi_tpu_torch import SiddhiManager
+        from siddhi_tpu_torch.service import SiddhiRestService
+        m = SiddhiManager(device="cpu")
+    svc = SiddhiRestService(m, trace_base=str(tmp / pkg)).start()
+    try:
+        app = ("@app:name('R') @app:playback define stream S (sym string, v long); "
+               "from S select sym, v insert into O;")
+        assert _call(svc.port, "POST", "/apps", raw=app.encode(), ctype="text/plain")[0] == 201
+        code, payload = _call(svc.port, method, path, body)
+        keys = sorted(json.loads(payload))
+        if undo is not None:
+            assert _call(svc.port, *undo)[0] == 200, undo
+        return code, keys
+    finally:
+        svc.stop()
+        m.shutdown()
+
+
+@pytest.mark.parametrize("method,path,body,undo", PORTED,
+                         ids=[f"{m} {p}" for m, p, _b, _u in PORTED])
+def test_ported_route_answers_as_the_reference(tmp_path, method, path, body, undo):
+    """The span tracer's, the device trace's and the critical-path
+    profiler's routes (ROADMAP A.10 a): the same request to the
+    reference's service and to the port's gets the same status and the
+    same answer keys."""
+    want = _answer("jax", tmp_path, method, path, body, undo)
+    got = _answer("torch", tmp_path, method, path, body, undo)
+    assert got == want, (got, want)
+    assert want[0] in (200, 409), want
 
 
 PROGRAM_ROUTES = [("GET", "/programs"), ("POST", "/profile/costs/start"),
@@ -187,7 +235,9 @@ def test_metrics_text_and_json(service):
     assert 'siddhi_jit_compiles_total{app="R",key="query.' in text
     assert "siddhi_program_cache_misses_total" in text
     assert "siddhi_program_cache_size" in text
-    # the families of unported sources are not printed, not even as zeros
+    # the families of unported sources are not printed, not even as zeros;
+    # nor are the journeys' (journeys are off) and the device instruments'
+    # (this app's step declares no slot)
     for family in ("siddhi_stage_", "siddhi_device_instrument",
                    "siddhi_autopilot", "siddhi_cluster",
                    "resilience.worker_restarts", "resilience.shed_events"):

@@ -4,9 +4,10 @@ CPU.
 
 The scenarios of ``tests/test_statistics.py`` drive the port through the
 module's own apps and checks (``torch_helpers.port_corpus``; those that
-take pytest's ``capsys`` get it); ``test_profiler_trace_roundtrip`` stays
-out with ``start_trace`` (ROADMAP A.10), whose refusal is checked here.
-The same app and feed give equal statistics in both packages.
+take pytest's ``capsys`` get it); ``test_profiler_trace_roundtrip`` takes
+pytest's ``tmp_path`` and runs as a case of its own, with the trace file
+it writes read back. The same app and feed give equal statistics in both
+packages.
 """
 
 import inspect
@@ -18,16 +19,15 @@ import torch
 from torch_helpers import port_corpus, release_jax_programs  # noqa: F401 — autouse fixture
 
 MOD, _PLAIN = port_corpus("test_statistics")
-# test_profiler_trace_roundtrip: the device profiler trace, ROADMAP A.10
-LEFT_OUT = ("test_profiler_trace_roundtrip",)
 SCENARIOS = sorted(
     k for k, v in vars(MOD).items()
-    if k.startswith("test_") and inspect.isfunction(v) and k not in LEFT_OUT
+    if k.startswith("test_") and inspect.isfunction(v)
     and set(inspect.signature(v).parameters) <= {"capsys"})
 
 
 def test_every_scenario_is_collected():
-    """The module holds 7 scenarios; all but the profiler trace run."""
+    """The module holds 7 scenarios; all but the profiler trace (which
+    takes ``tmp_path``: ``test_profiler_trace_roundtrip`` below) run here."""
     assert len(SCENARIOS) == 6, SCENARIOS
 
 
@@ -40,16 +40,31 @@ def test_statistics_corpus_on_port(name, capsys):
         fn()
 
 
-def test_profiler_trace_is_refused_by_name():
+def test_profiler_trace_roundtrip(tmp_path):
+    """The reference's roundtrip on the port (``start_trace``, a send,
+    ``stop_trace``: a trace file under the directory), then the file read
+    back: a Chrome trace whose CPU events hold the profiler's own thread
+    (the device trace records its thread's CPU side and every kernel; on
+    the CPU there are no kernels). A second start and a stop with nothing
+    running raise, as the reference's do."""
+    import json
+
     from siddhi_tpu_torch import SiddhiManager
 
+    MOD.test_profiler_trace_roundtrip(tmp_path)
+    files = sorted((tmp_path / "trace").iterdir())
+    assert len(files) == 1 and files[0].suffix == ".json", files
+    trace = json.loads(files[0].read_text())
+    assert isinstance(trace.get("traceEvents"), list)
     m = SiddhiManager(device="cpu")
     rt = m.create_siddhi_app_runtime(
         "define stream S (v int); from S[v > 0] select v insert into O;")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
-        rt.start_trace("trace")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
+    with pytest.raises(RuntimeError, match="no trace is running"):
         rt.stop_trace()
+    rt.start_trace(str(tmp_path / "again"))
+    with pytest.raises(RuntimeError, match="already running"):
+        rt.start_trace(str(tmp_path / "again"))
+    assert rt.stop_trace().startswith(str(tmp_path / "again"))
     m.shutdown()
 
 

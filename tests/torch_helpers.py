@@ -442,3 +442,91 @@ def port_corpus(name, unported=()):
                    and "siddhi_tpu.core.manager" not in inspect.getsource(v)
                    and not any(u in inspect.getsource(v) for u in unported))
     return mod, tests
+
+
+# ----------------------------------------------------- observability tier
+
+def api(pkg):
+    """The public names an observability scenario uses, from the JAX
+    package (``"jax"``) or the port (``"torch"``; its managers on the
+    CPU), so one scenario body runs through both."""
+    import functools
+    import types
+
+    if pkg == "jax":
+        import siddhi_tpu as P
+        from siddhi_tpu.core.event import Event
+        from siddhi_tpu.core.util.config import InMemoryConfigManager
+        from siddhi_tpu.observability import costmodel, export, instruments, journey, tracing
+        from siddhi_tpu.parallel import mesh
+        from siddhi_tpu.resilience import FaultInjector
+        from siddhi_tpu.service import SiddhiRestService
+
+        manager = P.SiddhiManager
+    else:
+        import siddhi_tpu_torch as P
+        from siddhi_tpu_torch import InMemoryConfigManager
+        from siddhi_tpu_torch.core.event import Event
+        from siddhi_tpu_torch.observability import (
+            costmodel, export, instruments, journey, tracing)
+        from siddhi_tpu_torch.parallel import mesh
+        from siddhi_tpu_torch.resilience import FaultInjector
+        from siddhi_tpu_torch.service import SiddhiRestService
+
+        manager = functools.partial(P.SiddhiManager, device="cpu")
+    return types.SimpleNamespace(
+        pkg=pkg, SiddhiManager=manager, StreamCallback=P.StreamCallback,
+        InMemoryConfigManager=InMemoryConfigManager, Event=Event,
+        costmodel=costmodel, export=export, instruments=instruments,
+        journey=journey, tracing=tracing, FaultInjector=FaultInjector,
+        SiddhiRestService=SiddhiRestService,
+        device_route_query_step=mesh.device_route_query_step,
+        make_mesh=mesh.make_mesh)
+
+
+def lane_recorder(runtime):
+    """Record every data lane a runtime decodes, batch by batch: a list
+    of (slot name, lanes as a tuple of ints), from the runtime's
+    ``_record_instrument`` (the one sink of decoded data slots in both
+    packages)."""
+    got = []
+    orig = runtime._record_instrument
+
+    def record(slot, vals, telemetry):
+        got.append((slot.name, tuple(int(x) for x in np.asarray(vals).reshape(-1))))
+        return orig(slot, vals, telemetry)
+
+    runtime._record_instrument = record
+    return got
+
+
+_PULLS = ("numpy", "item", "tolist", "cpu", "__array__", "__int__", "__float__",
+          "__bool__", "__index__")
+
+
+@contextlib.contextmanager
+def no_tensor_reads():
+    """The CPU stand-in for the reference's ``jax.transfer_guard
+    ("disallow")``: inside the block, a read of a tensor's values on the
+    host on THIS thread (``.numpy()``, ``.item()``, ``.cpu()``,
+    ``int(t)``, ``np.asarray(t)``, ...) raises. On the card each of these
+    is a device pull."""
+    import threading
+
+    me = threading.get_ident()
+    saved = {n: getattr(torch.Tensor, n) for n in _PULLS}
+
+    def guard(name, orig):
+        def read(self, *a, **k):
+            if threading.get_ident() == me:
+                raise AssertionError(f"tensor read on the host: Tensor.{name}")
+            return orig(self, *a, **k)
+        return read
+
+    for n, f in saved.items():
+        setattr(torch.Tensor, n, guard(n, f))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(torch.Tensor, n, f)
