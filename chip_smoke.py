@@ -352,13 +352,53 @@ launch counts and recorded-call checks hold as they did.
             without the debugger. Records events/s, host launch calls and
             busy share of the global and routed flagships with instruments
             and journeys off, each alone, and both on;
-26. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+26. overload OL, overload control and the app supervisor at full width
+            (``make_feed``: 65,536-row batches, 10,000 symbols). Gate 1: the
+            global and the routed x4 flagship (depth 1) unregistered keep
+            ``app_context.overload`` None, and with generous quotas give
+            bit-equal rows, equal host syncs a send and equal host launch
+            calls a batch (``profile_batch``); K8 inside the routed step's
+            replay 2 == plain. Gate 2: the routed x4 flagship (16,384 key
+            slots, 574 MB) fed a batch of 20,000 symbols: under
+            ``quota_memory_mb`` 800 the growth to 32,768 keys is denied
+            naming ``siddhi_tpu.quota_memory_mb``, ``resilience.quota_denials``
+            1, the peak after ``reset_peak_memory_stats`` below the
+            footprint plus the projected growth, the state, step and graph
+            kept, and a fresh app deploys and runs after it; under 4,096 MB
+            it grows, charges the grown state's ``pytree_nbytes``,
+            recaptures and gives the unbudgeted run's rows (the ledger
+            against the ``memory_allocated`` delta recorded). Gate 3: the
+            @Async global flagship under queue quota 2, ``shed_oldest`` and
+            ``shed_newest``: 65,536 events flooded by
+            ``FaultInjector.flood_stream`` (half against a wedged worker),
+            events in == rows consumed + ``resilience.shed_events``, the
+            rows == the admitted units fed synchronously; a revision after 5
+            batches of 8,192, 5 more against the quota and a wedged worker,
+            a restore with the WAL replays exactly the 2 not shed, rows
+            bit-equal. Gate 4: the @Async flagship at depth 4 under
+            ``supervise(0.05, 0.4)``: a worker wedged mid-feed replaced
+            once (the released one exits on its generation token, no extra
+            replay), a killed one restarted, rows bit-equal to an unfaulted
+            run; a 1.2 s ``torch.cuda._sleep`` planted before one batch's
+            meta counts ``pump_wedges`` once, rows unchanged; an ingest pool
+            of 4 with a packer killed: re-packed, 4 workers alive, rows ==
+            no pool. Gate 5: D1 (@Async, H = 64) solo and beside the
+            flooded global flagship (quota 2, ``shed_oldest``): rows
+            bit-identical, the flood's accounting exact, D1's per-batch
+            latency recorded, its replayed scan == plain; the global
+            flagship and D1 on two @Async streams at depth 8 under
+            ``quota_pipeline_depth`` 2 (the program cache off for the app,
+            its own graphs): rows bit-equal to unbounded, at
+            most quota + queries - 1 in flight after a submit, D1's
+            replayed scan == plain;
+27. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
     ``{"fanout": ...}`` line, a ``{"program_cache": ...}`` line, an
-    ``{"observability": ...}`` line, a ``{"kernels": [...]}`` line, the
-    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+    ``{"observability": ...}`` line, an ``{"overload": ...}`` line, a
+    ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --cells ROOT`` instead drives the main path's
 cells with the checkout at ROOT (``cells``): one process a checkout, to
@@ -1120,10 +1160,22 @@ class ScanRecorder:
     after."""
 
     def __init__(self, at: int):
+        import threading
+
         self.at, self.n, self.replays = at, 0, 0
         self.args = self.kwargs = self.got = None
-        self.current = None         # the StepGraph whose run is on the stack
+        # the StepGraph whose run is on this thread's stack: per thread,
+        # since @Async workers of several streams run graphs at once
+        self._tls = threading.local()
         self.in_graph = {}          # id(graph) -> (tables before, args, kwargs, out)
+
+    @property
+    def current(self):
+        return getattr(self._tls, "graph", None)
+
+    @current.setter
+    def current(self, graph):
+        self._tls.graph = graph
 
     def __call__(self, *args, **kwargs):
         import torch
@@ -6668,6 +6720,798 @@ def ob_leaves(tree, path=()):
     return [(path, a.dtype.str, a.shape, a.tobytes())]
 
 
+# -------------------------------------------------- phase 26: overload
+
+OL_SEED = 26
+OL_BATCHES = 4                  # gate 1's runs: a cut of depth
+OL_GENEROUS = {"queue_quota": 64, "shed_policy": "shed_oldest", "pipeline_quota": 64,
+               "memory_budget_mb": 65_536, "fair_weight": 1.0, "query_cap": 64}
+OL_GROWTH_SYMBOLS = 20_000      # gate 2: past the routed flagship's 16,384 key slots
+OL_DENY_MB = 800                # under the ~1.15 GB growth
+OL_GROW_MB = 4_096              # above it
+OL_FLOOD_EVENTS = 65_536        # gate 3: events a flood, in sends of
+OL_FLOOD_CHUNK = 4_096
+OL_WAL_BATCH = 8_192            # gate 3's persist/restore feed: 10 batches,
+OL_WAL_BATCHES = 10             # the revision after 5
+OL_WEDGE_S = 0.4                # gate 4's supervisor: wedge_timeout_s
+OL_SPIN_S = 1.2                 # the planted device spin
+OL_SUP_BATCHES = 10
+OL_PQ_BATCHES = 8               # gate 5's pipeline-quota app, each stream
+PQ_APP = """
+@app:name('ol_pq')
+@Async(buffer.size='64')
+define stream StockStream (symbol string, price float, volume long);
+@Async(buffer.size='64')
+define stream DistinctStream (symbol string, price float, volume long);
+@info(name = 'bench')
+from StockStream#window.length({W})
+select symbol, avg(price) as avgPrice, sum(volume) as totalVolume
+group by symbol insert into OutStream;
+@info(name = 'd1')
+from DistinctStream#window.length({W})
+select symbol, distinctCount(volume) as volumes, avg(price) as avgPrice
+group by symbol insert into DistinctOut;
+"""
+
+
+class EventUnits:
+    """A stream callback keeping each delivery of an input stream (the
+    units its queue admitted), as (timestamps, data rows)."""
+
+    def __new__(cls):
+        from siddhi_tpu_torch import StreamCallback
+
+        class Units(StreamCallback):
+            def __init__(self):
+                self.units = []
+
+            def receive(self, events):
+                self.units.append(([e.timestamp for e in events],
+                                   [list(e.data) for e in events]))
+
+        return Units()
+
+
+def wait_units(units, n: int, what: str):
+    """Wait until an ``EventUnits`` holds ``n`` deliveries (it is
+    subscribed after the collector that ``wait_rows`` waits on)."""
+    deadline = time.perf_counter() + PIPE_TIMEOUT_S
+    while len(units.units) < n and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    _require(len(units.units) >= n, f"{what}: {len(units.units)} of {n} deliveries")
+
+
+def ol_manager(device, knobs: dict):
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager(
+        {f"siddhi_tpu.{k}": str(v) for k, v in knobs.items()}))
+    return m
+
+
+def ol_app(device, app: str, knobs: dict, queries=("bench",), outs=("OutStream",),
+           routed: bool = False, store=None):
+    """(manager, runtime, {out: collector}) of an app at the bench's key
+    capacity; ``routed`` lays ``bench`` out over 4 shards as phase 4 does;
+    ``store`` is the manager's persistence store."""
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+
+    m = ol_manager(device, knobs)
+    if store is not None:
+        m.set_persistence_store(store)
+    rt = m.create_siddhi_app_runtime(app)
+    for name in queries:
+        q = rt.query_runtimes[name]
+        q.selector_plan.num_keys = KEY_SLOTS
+        if routed:
+            q._win_keys = KEY_SLOTS
+            device_route_query_step(q, make_mesh(N_SHARDS, device),
+                                    rows_per_shard=ROWS_PER_SHARD)
+    cbs = {o: collector() for o in outs}
+    for o, cb in cbs.items():
+        rt.add_callback(o, cb)
+    return m, rt, cbs
+
+
+def ol_sends(rt, feed, stream: str = "StockStream"):
+    """Send each batch, counting its host syncs; the card synchronised
+    after each. Returns the syncs a send."""
+    import torch
+
+    h = rt.get_input_handler(stream)
+    syncs = []
+    for cols, ts in feed:
+        out = {}
+        with counting_syncs(out):
+            h.send_columns(cols, timestamps=ts)
+        torch.cuda.synchronize()
+        syncs.append(out["syncs"])
+    return syncs
+
+
+def ol_zero_cost(device, feed, card: str):
+    """Gate 1: the global and the routed x4 flagship unregistered and with
+    generous quotas: ``overload`` None when off, rows bit-equal, host syncs
+    a send and host launch calls a batch equal; K8 inside the routed
+    step's replays held against plain."""
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+
+    facts, launches, replays = {}, 0, 0
+    for label, app, knobs in (
+            ("global", GLOBAL_APP.format(W=WINDOW), {"pipeline_depth": 1}),
+            ("routed", APP.format(W=WINDOW),
+             {"pipeline_depth": 1, "shard_exchange": "pallas_ring"})):
+        runs = {}
+        for mode in ("off", "quotas"):
+            k0 = ring_exchange.launches
+            record = label == "routed" and mode == "quotas"
+            with (recording_exchange(at=2) if record else contextlib.nullcontext()) as rec:
+                m, rt, cbs = ol_app(device, app, knobs, routed=label == "routed")
+                if mode == "quotas":
+                    rt.enable_overload(**OL_GENEROUS)
+                registered = rt.app_context.overload is not None
+                syncs = ol_sends(rt, feed[:-1])
+                h = rt.get_input_handler("StockStream")
+                prof = profile_batch(f"OL {label}, quotas {mode}, batch {len(feed)}",
+                                     lambda: h.send_columns(*feed[-1]), card)
+            q = rt.query_runtimes["bench"]
+            runs[mode] = {"batches": cbs["OutStream"].batches, "syncs": syncs,
+                          "calls": prof["host_launch_calls"], "registered": registered,
+                          "captured": q.captured}
+            m.shutdown()
+            launches += ring_exchange.launches - k0
+            if record:
+                replays = rec.replays
+                cols = check_exchange_call(rec, "OL routed with quotas: the exchange "
+                                                "inside replay 2")
+        off, on = runs["off"], runs["quotas"]
+        _require(not off["registered"] and on["registered"],
+                 f"OL {label}: overload registered off {off['registered']}, "
+                 f"with quotas {on['registered']}")
+        require_equal(on["batches"], off["batches"], f"OL {label}: rows with quotas vs off")
+        _require(on["syncs"][1:] == off["syncs"][1:],
+                 f"OL {label}: host syncs a send with quotas {on['syncs']} vs off "
+                 f"{off['syncs']}")
+        _require(on["calls"] == off["calls"],
+                 f"OL {label}: {on['calls']} host launch calls a batch with quotas vs "
+                 f"{off['calls']} off")
+        _require(on["captured"] and off["captured"], f"OL {label}: the step is not captured")
+        facts[label] = {"syncs_off": off["syncs"], "syncs_quotas": on["syncs"],
+                        "launch_calls_off": off["calls"], "launch_calls_quotas": on["calls"]}
+        print(f"[overload] gate 1 {label}: overload None when off; with generous quotas "
+              f"rows bit-equal, host syncs a send {on['syncs']} == {off['syncs']} (after "
+              f"the first), host launch calls a batch {on['calls']} == {off['calls']} "
+              f"[{card}]", flush=True)
+    _require(launches == 2 * len(feed) and replays == len(feed) - 1,
+             f"OL gate 1: {launches} exchange launches for {2 * len(feed)} routed "
+             f"batches, {replays} under replay")
+    facts["exchange_replays_quotas"] = replays
+    facts["exchange_columns_checked"] = cols
+    print(f"[overload] gate 1: K8 launched {launches} times, {replays} inside the "
+          f"routed step's replays with quotas; replay 2's {cols} columns == plain",
+          flush=True)
+    return facts, launches, replays
+
+
+def ol_budget(device, feed, card: str):
+    """Gate 2: the routed x4 flagship's growth to 32,768 global keys denied
+    under 800 MB before anything is allocated, allowed under 4,096 MB."""
+    import re
+
+    import torch
+
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
+    from siddhi_tpu_torch.core.stream.junction import FatalQueryError
+    from siddhi_tpu_torch.core.util.statistics import pytree_nbytes
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+
+    grow = [(c, ts + BATCH) for c, ts in
+            make_feed(OL_SEED + 1, 2, BATCH, OL_GROWTH_SYMBOLS)]
+    items = [feed[0]] + grow
+    knobs = {"pipeline_depth": 1, "shard_exchange": "pallas_ring"}
+    k0 = ring_exchange.launches
+    facts = {}
+
+    # unbudgeted: the rows to hold the budgeted run against
+    m, rt, cbs = ol_app(device, APP.format(W=WINDOW), knobs, routed=True)
+    q = rt.query_runtimes["bench"]
+    ol_sends(rt, items[:1])
+    state0 = pytree_nbytes(q._state)
+    ol_sends(rt, items[1:])
+    keys = q.selector_plan.num_keys * N_SHARDS
+    _require(keys == 2 * KEY_SLOTS, f"OL gate 2: {keys} global key slots after growth")
+    plain = cbs["OutStream"].batches
+    m.shutdown()
+
+    # 800 MB: denied before anything is allocated
+    m, rt, cbs = ol_app(device, APP.format(W=WINDOW), knobs, routed=True)
+    q = rt.query_runtimes["bench"]
+    rt.set_statistics_level("basic")
+    ctl = rt.enable_overload(memory_budget_mb=OL_DENY_MB)
+    ol_sends(rt, items[:1])
+    state, step, graph = q._state, q._step, q._step.graph
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    err = None
+    try:
+        rt.get_input_handler("StockStream").send_columns(*items[1])
+    except FatalQueryError as e:
+        err = str(e)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _require(err is not None and "siddhi_tpu.quota_memory_mb" in err,
+             f"OL gate 2: growth under {OL_DENY_MB} MB not denied naming the knob: {err}")
+    projected = int(re.search(r"needs (\d+) B", err).group(1))
+    counters = rt.statistics().get("counters", {})
+    _require(ctl.quota_denials == 1 and counters.get("resilience.quota_denials") == 1,
+             f"OL gate 2: quota_denials {ctl.quota_denials}, counter "
+             f"{counters.get('resilience.quota_denials')}")
+    _require(peak < base + projected,
+             f"OL gate 2: peak {peak} B past the footprint {base} B plus the projected "
+             f"growth {projected} B")
+    _require(q._state is state and q._step is step and q._step.graph is graph
+             and pytree_nbytes(q._state) == state0,
+             "OL gate 2: the denied growth replaced the state, the step or its graph")
+    facts["deny"] = {"budget_mb": OL_DENY_MB, "projected_bytes": projected,
+                     "footprint_bytes": base, "peak_bytes": peak,
+                     "peak_over_footprint_bytes": peak - base, "message": err}
+    m.shutdown()
+    print(f"[overload] gate 2: routed x4 growth {KEY_SLOTS} -> {2 * KEY_SLOTS} global keys denied "
+          f"under {OL_DENY_MB} MB ({projected} B projected); resilience.quota_denials "
+          f"1; peak {peak} B = footprint {base} B + {peak - base} B (< + {projected} B); "
+          f"state, step and graph kept [{card}]", flush=True)
+
+    # the process lives: a fresh app deploys and runs
+    m, rt, cbs = ol_app(device, GLOBAL_APP.format(W=WINDOW), {"pipeline_depth": 1})
+    ol_sends(rt, feed[:1])
+    _require(cbs["OutStream"].rows == BATCH, "OL gate 2: a fresh app after the denial "
+             f"emitted {cbs['OutStream'].rows} rows")
+    m.shutdown()
+
+    # 4,096 MB: the growth goes through and is charged
+    m, rt, cbs = ol_app(device, APP.format(W=WINDOW), knobs, routed=True)
+    q = rt.query_runtimes["bench"]
+    ctl = rt.enable_overload(memory_budget_mb=OL_GROW_MB)
+    ol_sends(rt, items[:1])
+    caps0, mem0 = StepGraph.total_captures, torch.cuda.memory_allocated()
+    ol_sends(rt, items[1:2])
+    mem1 = torch.cuda.memory_allocated()
+    ol_sends(rt, items[2:])
+    grown = pytree_nbytes(q._state)
+    _require(ctl.quota_denials == 0 and ctl.charged_bytes() == grown,
+             f"OL gate 2: under {OL_GROW_MB} MB {ctl.quota_denials} denials, charged "
+             f"{ctl.charged_bytes()} B vs the grown state's {grown} B")
+    recaptures = StepGraph.total_captures - caps0
+    _require(recaptures >= 1 and q.captured, f"OL gate 2: {recaptures} captures after "
+             f"the growth")
+    require_equal(cbs["OutStream"].batches, plain, "OL gate 2: rows under 4,096 MB vs "
+                  "unbudgeted")
+    m.shutdown()
+    facts["grow"] = {"budget_mb": OL_GROW_MB, "charged_bytes": grown,
+                     "allocated_delta_bytes": mem1 - mem0, "recaptures": recaptures,
+                     "state_bytes_before": state0}
+    launches = ring_exchange.launches - k0
+    print(f"[overload] gate 2: under {OL_GROW_MB} MB the growth charged {grown} B (the "
+          f"grown state's pytree_nbytes) against a memory_allocated delta of "
+          f"{mem1 - mem0} B over the growth batch (the ledger leaves out the graph "
+          f"pool and the cache slot), {recaptures} recapture(s), rows == unbudgeted; "
+          f"K8 launched {launches} times in gate 2 [{card}]", flush=True)
+    return facts, launches
+
+
+def ol_flood(device, feed, policy: str, card: str):
+    """Gate 3a: the @Async global flagship under a queue quota of 2, flooded
+    through ``FaultInjector.flood_stream`` (the first half against a wedged
+    worker): events in == rows consumed + shed, and the consumed units'
+    rows == a synchronous run fed exactly those units."""
+    import numpy as np
+
+    from siddhi_tpu_torch.resilience import FaultInjector
+
+    m, rt, cbs = ol_app(device, PIPE_APP.format(W=WINDOW), {})
+    rt.set_statistics_level("basic")
+    ctl = rt.enable_overload(queue_quota=2, shed_policy=policy)
+    units = EventUnits()
+    rt.add_callback("StockStream", units)
+    cols = feed[0][0]
+    syms, price, vol = cols["symbol"], cols["price"], cols["volume"]
+
+    def row(i):
+        i %= len(syms)
+        return [str(syms[i]), float(price[i]), int(vol[i])]
+
+    rt.start()
+    j = rt.junctions["StockStream"]
+    inj = FaultInjector()
+    half = OL_FLOOD_EVENTS // 2
+    inj.wedge_worker(j)
+    _require(inj.wait_wedged(10.0), "OL gate 3: the worker did not wedge")
+    sent = inj.flood_stream(j, ratio=1.0, base_events=half, make_data=row,
+                            chunk=OL_FLOOD_CHUNK)
+    inj.release()
+    sent += inj.flood_stream(j, ratio=1.0, base_events=half,
+                             make_data=lambda i: row(half + i), chunk=OL_FLOOD_CHUNK)
+    deadline = time.perf_counter() + PIPE_TIMEOUT_S
+    while (sum(len(u[0]) for u in units.units) + ctl.shed_events < sent
+           and time.perf_counter() < deadline):
+        time.sleep(0.01)
+    consumed = sum(len(u[0]) for u in units.units)
+    wait_rows(cbs["OutStream"], consumed, f"OL flood {policy}")
+    inj.clear()
+    tel = rt.app_context.telemetry.snapshot()["counters"]
+    stat = rt.statistics().get("counters", {})
+    m.shutdown()
+    out = cbs["OutStream"]
+    _require(sent == OL_FLOOD_EVENTS and consumed + ctl.shed_events == sent
+             and out.rows == consumed and ctl.shed_events > 0,
+             f"OL gate 3 {policy}: {sent} events in, {consumed} consumed, {out.rows} "
+             f"rows, {ctl.shed_events} shed")
+    _require(tel.get("junction.StockStream.shed_events") == ctl.shed_events
+             == stat.get("resilience.shed_events"),
+             f"OL gate 3 {policy}: shed counters {tel.get('junction.StockStream.shed_events')}"
+             f", {stat.get('resilience.shed_events')} vs {ctl.shed_events}")
+    # the units the queue admitted, fed synchronously as columns
+    m2, rt2, cbs2 = ol_app(device, GLOBAL_APP.format(W=WINDOW), {"pipeline_depth": 1})
+    h = rt2.get_input_handler("StockStream")
+    for ts, rows in units.units:
+        h.send_columns({"symbol": np.array([r[0] for r in rows], dtype=object),
+                        "price": np.array([r[1] for r in rows], np.float32),
+                        "volume": np.array([r[2] for r in rows], np.int64)},
+                       timestamps=np.asarray(ts, np.int64))
+    m2.shutdown()
+    worst = require_equal(out.batches, cbs2["OutStream"].batches,
+                          f"OL gate 3 {policy}: the flooded rows vs the admitted units "
+                          f"fed synchronously", exact_floats=False)
+    print(f"[overload] gate 3 {policy}: {sent} events flooded in {OL_FLOOD_CHUNK}-event "
+          f"sends (half against a wedged worker), {consumed} consumed + "
+          f"{ctl.shed_events} shed ({ctl.shed_units} units) == {sent}; rows == the "
+          f"admitted units fed synchronously (max rel err {worst:.3g}) [{card}]",
+          flush=True)
+    return {"sent": sent, "consumed": consumed, "shed_events": ctl.shed_events,
+            "shed_units": ctl.shed_units, "max_rel_err": worst}
+
+
+def ol_wal(device, policy: str, card: str):
+    """Gate 3b: persist after 5 batches, 5 more against quota 2 and a
+    wedged worker, restore into a fresh runtime with the WAL: the replay
+    gives exactly the live rows of the batches not shed. Rows compare as
+    events (strings decoded): a shed batch was packed before admission,
+    so its new strings took dictionary ids the replay hands out to the
+    next new strings instead."""
+    from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+    from siddhi_tpu_torch.resilience import FaultInjector
+
+    feed = make_feed(OL_SEED + 2, OL_WAL_BATCHES, OL_WAL_BATCH, NUM_SYMBOLS)
+    half = OL_WAL_BATCHES // 2
+    app = "@app:name('ol_wal')\n" + PIPE_APP.format(W=WINDOW)
+    store = InMemoryPersistenceStore()
+    m, rt, cbs = ol_app(device, app, {}, store=store)
+    ctl = rt.enable_overload(queue_quota=2, shed_policy=policy)
+    wal = rt.enable_wal()
+    out = cbs["OutStream"]
+    live_rows = EventUnits()
+    rt.add_callback("OutStream", live_rows)
+    h = rt.get_input_handler("StockStream")
+    for i, (cols, ts) in enumerate(feed[:half]):
+        h.send_columns(cols, timestamps=ts)
+        wait_rows(out, (i + 1) * OL_WAL_BATCH, f"OL WAL {policy} prefix")
+    rt.persist()
+    inj = FaultInjector()
+    inj.wedge_worker(rt.junctions["StockStream"])
+    _require(inj.wait_wedged(10.0), "OL gate 3: the worker did not wedge")
+    for cols, ts in feed[half:]:
+        h.send_columns(cols, timestamps=ts)
+    kept = 2
+    inj.release()
+    wait_rows(out, (half + kept) * OL_WAL_BATCH, f"OL WAL {policy} suffix")
+    wait_units(live_rows, half + kept, f"OL WAL {policy} suffix")
+    inj.clear()
+    live = live_rows.units[half:]
+    held, shed = len(wal), ctl.shed_events
+    m.shutdown()
+    _require(shed == (OL_WAL_BATCHES - half - kept) * OL_WAL_BATCH and held == kept
+             and len(live) == kept,
+             f"OL gate 3 {policy}: {shed} shed, {held} WAL records, {len(live)} live "
+             f"batches after the revision")
+    m2, rt2, cbs2 = ol_app(device, app, {}, store=store)
+    rt2.enable_overload(queue_quota=2, shed_policy=policy)
+    restored_rows = EventUnits()
+    rt2.add_callback("OutStream", restored_rows)
+    rt2.app_context.ingest_wal = wal
+    _require(rt2.restore_last_revision() is not None, "OL gate 3: no revision restored")
+    wait_rows(cbs2["OutStream"], kept * OL_WAL_BATCH, f"OL WAL {policy} replay")
+    wait_units(restored_rows, kept, f"OL WAL {policy} replay")
+    time.sleep(0.3)               # nothing more: shed batches stay shed
+    restored = restored_rows.units
+    m2.shutdown()
+    _require(len(restored) == len(live) and all(
+        a[0] == b[0] and a[1] == b[1] for a, b in zip(restored, live)),
+        f"OL gate 3 {policy}: the restored replay's {len(restored)} batches vs the "
+        f"live rows of the {len(live)} batches not shed (timestamps, strings, "
+        f"ints and floats exactly)")
+    print(f"[overload] gate 3 {policy}: revision after {half} batches of {OL_WAL_BATCH}; "
+          f"{OL_WAL_BATCHES - half} more against quota 2 and a wedged worker: "
+          f"{shed} events shed, {held} WAL records kept; the restore replays them and "
+          f"its rows == the live rows bit for bit [{card}]", flush=True)
+    return {"shed_events": shed, "wal_records": held, "replayed_batches": len(restored)}
+
+
+def spin_cycles(seconds: float) -> int:
+    """``torch.cuda._sleep`` cycles that spin the card for ``seconds``,
+    calibrated with CUDA events."""
+    import torch
+
+    torch.cuda._sleep(1_000_000)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(100_000_000)
+    e.record()
+    e.synchronize()
+    return int(100_000_000 * seconds * 1e3 / s.elapsed_time(e))
+
+
+@contextlib.contextmanager
+def spin_before_meta(at: int, cycles: int):
+    """Plant a device spin on the stream of the query step whose meta is
+    staged ``at``-th (counting from 0): the spin runs before that meta's
+    copy and event, as a hung step would hold them."""
+    import torch
+
+    from siddhi_tpu_torch.core.query import runtime as query_runtime
+
+    orig = query_runtime.stage_meta
+    seen = {"n": 0, "spun": 0}
+
+    def staged(meta):
+        i, seen["n"] = seen["n"], seen["n"] + 1
+        if i == at:
+            torch.cuda._sleep(cycles)
+            seen["spun"] += 1
+        return orig(meta)
+
+    query_runtime.stage_meta = staged
+    try:
+        yield seen
+    finally:
+        query_runtime.stage_meta = orig
+
+
+def graph_replays(q) -> int:
+    graph = getattr(q._step, "graph", None)
+    return graph.replays if graph is not None else 0
+
+
+def ol_supervised(device, feed, fault, card: str):
+    """One run of gate 4's @Async global flagship at depth 4 under
+    ``supervise(0.05, 0.4)``: the first batch alone, then the rest; the
+    fault ("wedge": the worker wedged mid-feed, released after its
+    replacement drained; then a kill; "spin": a device spin before a
+    meta) lands mid-feed. Returns (batches, facts)."""
+    from siddhi_tpu_torch.resilience import FaultInjector
+
+    m, rt, cbs = ol_app(device, PIPE_APP.format(W=WINDOW), {"pipeline_depth": 4})
+    rt.set_statistics_level("basic")
+    out = cbs["OutStream"]
+    sup = rt.supervise(interval_s=0.05, wedge_timeout_s=OL_WEDGE_S)
+    j = rt.junctions["StockStream"]
+    h = rt.get_input_handler("StockStream")
+    inj = FaultInjector()
+    q = rt.query_runtimes["bench"]
+    facts = {}
+    h.send_columns(*feed[0])
+    wait_rows(out, BATCH, "OL supervised first batch")
+    if fault == "spin":
+        # five batches queue up behind a short worker delay (under the wedge
+        # timeout), so the worker dispatches them back to back: the spin
+        # before batch 1's meta holds it, and the fifth submit's forced
+        # drain waits on it while batch 5 rides the pump
+        cycles = spin_cycles(OL_SPIN_S)
+        with spin_before_meta(at=1, cycles=cycles) as seen:
+            inj.delay_worker(j, 0.3)
+            time.sleep(0.15)
+            for cols, ts in feed[1:6]:
+                h.send_columns(cols, timestamps=ts)
+            wait_rows(out, 6 * BATCH, "OL spin")
+        _require(seen["spun"] == 1, f"OL gate 4: {seen['spun']} spins planted")
+        time.sleep(3 * 0.05)
+        facts.update(pump_wedges=sup.pump_wedges, restarts=sup.worker_restarts)
+        stat = rt.statistics().get("counters", {})
+        _require(sup.pump_wedges == 1 == stat.get("resilience.pump_wedges"),
+                 f"OL gate 4: pump_wedges {sup.pump_wedges} (counter "
+                 f"{stat.get('resilience.pump_wedges')}) for one {OL_SPIN_S} s spin")
+    else:
+        for cols, ts in feed[1:4]:
+            h.send_columns(cols, timestamps=ts)
+        if fault == "wedge":
+            wait_rows(out, 4 * BATCH, "OL before the wedge")
+            inj.wedge_worker(j)
+            _require(inj.wait_wedged(10.0), "OL gate 4: the worker did not wedge")
+            stale = j._worker
+        for cols, ts in feed[4:8]:
+            h.send_columns(cols, timestamps=ts)
+        wait_rows(out, 8 * BATCH, "OL supervised")
+        if fault == "wedge":
+            _require(sup.worker_restarts == 1, f"OL gate 4: {sup.worker_restarts} "
+                     f"restarts for one wedge")
+            replays = graph_replays(q)
+            inj.release()
+            stale.join(5.0)
+            time.sleep(0.3)
+            _require(not stale.is_alive() and graph_replays(q) == replays
+                     and out.rows == 8 * BATCH,
+                     f"OL gate 4: the released stale worker alive {stale.is_alive()}, "
+                     f"replays {replays} -> {graph_replays(q)}, rows {out.rows}")
+            killed = j._worker
+            inj.kill_worker(j)
+            deadline = time.perf_counter() + 10.0
+            while sup.worker_restarts < 2 and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            _require(sup.worker_restarts == 2 and not killed.is_alive(),
+                     f"OL gate 4: {sup.worker_restarts} restarts after the kill")
+        for cols, ts in feed[8:]:
+            h.send_columns(cols, timestamps=ts)
+        wait_rows(out, len(feed) * BATCH, "OL supervised tail")
+        facts.update(restarts=sup.worker_restarts, pump_wedges=sup.pump_wedges,
+                     replays=graph_replays(q))
+    stat = rt.statistics().get("counters", {})
+    facts["worker_restarts_counter"] = stat.get("resilience.worker_restarts", 0)
+    inj.clear()
+    m.shutdown()
+    return out.batches, facts
+
+
+def ol_packers(device, feed, card: str):
+    """Gate 4: an ingest pool of 4 under the supervisor, one packer killed
+    mid-pack: its sub-batch re-packed, the pool back to 4 workers, rows
+    == the same feed without the pool."""
+    from siddhi_tpu_torch.resilience import FaultInjector
+
+    rows = {}
+    for pool_n in (0, 4):
+        m, rt, cbs = ol_app(device, PIPE_APP.format(W=WINDOW),
+                            {"pipeline_depth": 4, "ingest_pool": pool_n})
+        rt.start()
+        sup = rt.supervise(interval_s=0.05)
+        inj = FaultInjector()
+        pool = rt.app_context.ingest_pack_pool
+        if pool_n:
+            inj.kill_packer(pool)
+        h = rt.get_input_handler("StockStream")
+        for cols, ts in feed[:2]:
+            h.send_columns(cols, timestamps=ts)
+        wait_rows(cbs["OutStream"], 2 * BATCH, f"OL pool {pool_n}")
+        if pool_n:
+            deadline = time.perf_counter() + 5.0
+            while pool.alive_workers() < pool_n and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            facts = {"deaths": pool.worker_deaths, "alive": pool.alive_workers(),
+                     "repacked": pool.repacked_subbatches, "healed": sup.worker_restarts}
+            _require(facts["deaths"] == 1 and facts["alive"] == pool_n
+                     and facts["repacked"] == 1, f"OL gate 4: the pool after a kill {facts}")
+        rows[pool_n] = cbs["OutStream"].batches
+        inj.clear()
+        m.shutdown()
+    require_equal(rows[4], rows[0], "OL gate 4: rows with a killed packer vs no pool")
+    print(f"[overload] gate 4: ingest pool of 4, one packer killed: its sub-batch "
+          f"re-packed, {facts['alive']} workers alive ({facts['healed']} respawned by "
+          f"the supervisor's heal), rows == no pool [{card}]", flush=True)
+    return facts
+
+
+def ol_tenants(device, feed, card: str):
+    """Gate 5a: D1 (@Async, H = 64, the distinct scan inside its graph) solo,
+    then beside a flooded global flagship (quota 2, shed_oldest) on one
+    card: D1's rows bit-identical, the flood's accounting exact; D1's
+    per-batch latency recorded."""
+    import numpy as np
+
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+    from siddhi_tpu_torch.resilience import FaultInjector, OverloadManager
+
+    d1_app = "@app:name('ol_d1')\n@Async(buffer.size='64')\n" + D1_APP.format(W=WINDOW)
+    fair = OverloadManager.instance().fair
+    yields = {}
+    orig = fair.throttle
+
+    def counted(name, units):
+        d = orig(name, units)
+        if d:
+            yields[name] = yields.get(name, 0) + 1
+        return d
+
+    facts, launches = {}, 0
+    fair.throttle = counted
+    try:
+        runs = {}
+        for mode in ("solo", "flooded"):
+            k0 = distinct_scan.launches
+            stack = contextlib.ExitStack()
+            rec = stack.enter_context(recording(at=3)) if mode == "flooded" else None
+            m, rt, cbs = ol_app(device, d1_app, {})
+            rt.enable_overload(fair_weight=1.0)
+            out = cbs["OutStream"]
+            h = rt.get_input_handler("StockStream")
+            h.send_columns(*feed[0])
+            wait_rows(out, BATCH, f"OL D1 {mode} first batch")
+            if mode == "flooded":
+                mf = ol_manager(device, {})
+                rtf = mf.create_siddhi_app_runtime(
+                    "@app:name('ol_flood')\n" + PIPE_APP.format(W=WINDOW))
+                rtf.query_runtimes["bench"].selector_plan.num_keys = KEY_SLOTS
+                flood_out = collector()
+                rtf.add_callback("OutStream", flood_out)
+                units = EventUnits()
+                rtf.add_callback("StockStream", units)
+                ctl = rtf.enable_overload(queue_quota=2, shed_policy="shed_oldest")
+                rtf.start()
+                cols = feed[1][0]
+                inj = FaultInjector()
+                inj.flood_stream(rtf.junctions["StockStream"], ratio=1.0,
+                                 base_events=OL_FLOOD_EVENTS, chunk=OL_FLOOD_CHUNK,
+                                 make_data=lambda i: [str(cols["symbol"][i % BATCH]),
+                                                      float(cols["price"][i % BATCH]),
+                                                      int(cols["volume"][i % BATCH])],
+                                 block=False)
+            with stack:
+                sends = []
+                for cols_, ts in feed[1:]:
+                    sends.append(time.perf_counter())
+                    h.send_columns(cols_, timestamps=ts)
+                wait_rows(out, len(feed) * BATCH, f"OL D1 {mode}")
+            lat = [(a - s) * 1e3 for a, s in zip(out.arrivals[1:], sends)]
+            runs[mode] = {"batches": out.batches, "latency_ms": lat}
+            if mode == "flooded":
+                inj.clear()          # joins the flood thread
+                deadline = time.perf_counter() + PIPE_TIMEOUT_S
+                while (sum(len(u[0]) for u in units.units) + ctl.shed_events
+                       < OL_FLOOD_EVENTS and time.perf_counter() < deadline):
+                    time.sleep(0.01)
+                consumed = sum(len(u[0]) for u in units.units)
+                wait_rows(flood_out, consumed, "OL flooded tenant")
+                mf.shutdown()
+                _require(consumed + ctl.shed_events == OL_FLOOD_EVENTS
+                         and flood_out.rows == consumed,
+                         f"OL gate 5: the flooded tenant {consumed} consumed + "
+                         f"{ctl.shed_events} shed vs {OL_FLOOD_EVENTS} in, "
+                         f"{flood_out.rows} rows")
+                facts["flood"] = {"consumed": consumed, "shed_events": ctl.shed_events}
+            m.shutdown()
+            # the main path's launches; the check's own launches are not
+            launches += distinct_scan.launches - k0
+            if mode == "flooded":
+                facts["scan_max_abs_err"] = check_graph_scan(
+                    rec, "OL gate 5: D1's distinct scan replayed beside the flood")
+                facts["scan_replays_recorded"] = rec.replays
+    finally:
+        fair.throttle = orig
+    require_equal(runs["flooded"]["batches"], runs["solo"]["batches"],
+                  "OL gate 5: D1 beside the flooded tenant vs solo")
+    for mode in ("solo", "flooded"):
+        lat = sorted(runs[mode]["latency_ms"])
+        facts[f"d1_{mode}_latency_ms"] = {"p50": statistics.median(lat),
+                                          "p99": float(np.percentile(lat, 99)),
+                                          "max": lat[-1]}
+    facts["fair_yields"] = yields
+    _require(launches == 2 * len(feed),
+             f"OL gate 5: {launches} distinct-scan launches for 2 x {len(feed)} D1 batches")
+    print(f"[overload] gate 5: D1 beside a flooded global flagship (quota 2, "
+          f"shed_oldest): rows bit-identical to solo; the flood {facts['flood']['consumed']} "
+          f"consumed + {facts['flood']['shed_events']} shed == {OL_FLOOD_EVENTS}; D1 "
+          f"per-batch latency p50/p99 solo {facts['d1_solo_latency_ms']['p50']:.2f}/"
+          f"{facts['d1_solo_latency_ms']['p99']:.2f} ms, flooded "
+          f"{facts['d1_flooded_latency_ms']['p50']:.2f}/"
+          f"{facts['d1_flooded_latency_ms']['p99']:.2f} ms (host clock, recorded); "
+          f"fair yields {yields}; the replayed scan == plain [{card}]", flush=True)
+    return facts, launches
+
+
+def ol_pipeline_quota(device, feed, card: str):
+    """Gate 5b: the global flagship and D1 on two @Async streams of one app
+    at pipeline_depth 8, unbounded and under quota_pipeline_depth 2: rows
+    bit-equal, the most in flight bounded; D1's replayed scan == plain.
+    The program cache is off for this app, so its steps capture their own
+    graphs (a same-program entry another app holds would replay a graph
+    whose capture the scan recorder never saw)."""
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    facts, runs, launches = {}, {}, 0
+    for quota in (None, 2):
+        k0 = distinct_scan.launches
+        knobs = {"pipeline_depth": 8, "program_cache": "false"}
+        if quota is not None:
+            knobs["quota_pipeline_depth"] = quota
+        stack = contextlib.ExitStack()
+        rec = stack.enter_context(recording(at=4)) if quota else None
+        m, rt, cbs = ol_app(device, PQ_APP.format(W=WINDOW), knobs, queries=("bench", "d1"),
+                            outs=("OutStream", "DistinctOut"))
+        pump = rt.app_context.completion_pump
+        _require((rt.app_context.overload is not None) == (quota is not None),
+                 "OL gate 5: the pipeline quota did not register from its key")
+        most = {"total": 0, "owner": 0}
+        submit = pump.submit
+
+        def watched(entry, _submit=submit, _pump=pump):
+            _submit(entry)
+            most["total"] = max(most["total"], _pump._n_pending)
+            most["owner"] = max(most["owner"], _pump.inflight(entry.owner))
+
+        pump.submit = watched
+        hs, hd = rt.get_input_handler("StockStream"), rt.get_input_handler("DistinctStream")
+        with stack:
+            for cols, ts in feed[:OL_PQ_BATCHES]:
+                hs.send_columns(cols, timestamps=ts)
+                hd.send_columns(cols, timestamps=ts)
+            wait_rows(cbs["OutStream"], OL_PQ_BATCHES * BATCH, "OL pipeline quota")
+            wait_rows(cbs["DistinctOut"], OL_PQ_BATCHES * BATCH, "OL pipeline quota D1")
+        runs[quota] = {o: cb.batches for o, cb in cbs.items()}
+        facts[f"most_in_flight_{quota}"] = most
+        m.shutdown()
+        launches += distinct_scan.launches - k0
+        if quota:
+            facts["scan_max_abs_err"] = check_graph_scan(
+                rec, "OL gate 5: D1's scan replayed under the pipeline quota")
+    for o in ("OutStream", "DistinctOut"):
+        require_equal(runs[2][o], runs[None][o], f"OL gate 5: {o} under quota 2 vs unbounded")
+    bound = 2 + 2 - 1
+    _require(facts["most_in_flight_2"]["total"] <= bound,
+             f"OL gate 5: {facts['most_in_flight_2']['total']} in flight under quota 2 "
+             f"(two queries: at most {bound})")
+    _require(launches == 2 * OL_PQ_BATCHES,
+             f"OL gate 5: {launches} distinct-scan launches for 2 x {OL_PQ_BATCHES} D1 "
+             f"batches")
+    print(f"[overload] gate 5: pipeline quota 2 at depth 8, the global flagship and D1 "
+          f"on two @Async streams: rows bit-equal to unbounded; most in flight after a "
+          f"submit {facts['most_in_flight_2']} (unbounded {facts['most_in_flight_None']}); "
+          f"D1's replayed scan == plain; {launches} distinct-scan launches [{card}]",
+          flush=True)
+    return facts, launches
+
+
+def phase_overload(device, card: str):
+    """Phase 26 (see the module doc). Returns (facts, exchange launches,
+    distinct-scan launches, exchange launches under replay)."""
+    t_phase = time.perf_counter()
+    feed = make_feed(OL_SEED, OL_BATCHES, BATCH, NUM_SYMBOLS)
+    facts = {"card": card}
+    facts["zero_cost"], ex_launches, ex_replays = ol_zero_cost(device, feed, card)
+    facts["budget"], grow_launches = ol_budget(device, feed, card)
+    ex_launches += grow_launches
+    for policy in ("shed_oldest", "shed_newest"):
+        facts[f"flood_{policy}"] = ol_flood(device, feed, policy, card)
+        facts[f"wal_{policy}"] = ol_wal(device, policy, card)
+    sup_feed = make_feed(OL_SEED + 3, OL_SUP_BATCHES, BATCH, NUM_SYMBOLS)
+    plain, plain_facts = ol_supervised(device, sup_feed, None, card)
+    wedged, wedge_facts = ol_supervised(device, sup_feed, "wedge", card)
+    require_equal(wedged, plain, "OL gate 4: rows with a wedged and a killed worker vs "
+                  "unfaulted")
+    _require(plain_facts["restarts"] == 0 and wedge_facts["restarts"] == 2
+             and wedge_facts["replays"] == plain_facts["replays"],
+             f"OL gate 4: unfaulted {plain_facts}, faulted {wedge_facts}")
+    print(f"[overload] gate 4: @Async global flagship at depth 4 supervised: a worker "
+          f"wedged mid-feed replaced once, a killed one restarted; every batch once, in "
+          f"order: rows bit-equal to the unfaulted run; {wedge_facts['replays']} graph "
+          f"replays either way [{card}]", flush=True)
+    spun, spin_facts = ol_supervised(device, sup_feed[:6], "spin", card)
+    require_equal(spun, plain[:6], "OL gate 4: rows with a planted device spin vs "
+                  "unfaulted")
+    print(f"[overload] gate 4: a {OL_SPIN_S} s device spin before one meta: pump_wedges "
+          f"{spin_facts['pump_wedges']} (the worker restarted "
+          f"{spin_facts['restarts']} time(s) while blocked on it), rows unchanged "
+          f"[{card}]", flush=True)
+    facts["supervisor"] = {"plain": plain_facts, "wedge": wedge_facts, "spin": spin_facts,
+                           "packers": ol_packers(device, sup_feed, card)}
+    facts["tenants"], scan_launches = ol_tenants(device, feed, card)
+    facts["pipeline_quota"], pq_launches = ol_pipeline_quota(device, sup_feed, card)
+    scan_launches += pq_launches
+    facts["phase_s"] = time.perf_counter() - t_phase
+    facts["launches"] = {"exchange": ex_launches, "scan": scan_launches}
+    print(f"[overload] phase 26 in {facts['phase_s']:.1f} s: K8 {ex_launches} launches, "
+          f"the distinct scan {scan_launches} [{card}]", flush=True)
+    return facts, ex_launches, scan_launches, ex_replays
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -6913,12 +7757,16 @@ def main() -> int:
     observability = phase_observability(device, card)
     dist["launches"]["OB"] = observability["launches"]["scan"]
 
-    # 26. result lines
+    # 26. overload control and the app supervisor
+    overload, ol_exchange, ol_scan, ol_replays = phase_overload(device, card)
+    dist["launches"]["OL"] = ol_scan
+
+    # 27. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
                      "P_routed": persistence["routed_x4"]["exchange_launches"],
-                     "OB": observability["launches"]["exchange"]}
+                     "OB": observability["launches"]["exchange"], "OL": ol_exchange}
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
@@ -6932,7 +7780,7 @@ def main() -> int:
         # phase 4's launches inside the routed step's graph replays (the
         # capture's batch launches it eagerly), and the replayed call's
         # columns held against the plain version
-        "launches_under_replay": {"routed": ex_rec.replays},
+        "launches_under_replay": {"routed": ex_rec.replays, "OL_quotas": ol_replays},
         "in_graph_columns_checked": ex_cols,
         "roofline_share": ex["roofline_share"],
         # phase 4's columns over phase 4's launches
@@ -6948,7 +7796,9 @@ def main() -> int:
         "launches": sum(dist["launches"].values()),
         "launches_by_run": dist["launches"],
         "max_abs_err": max(dist["max_abs_err"], td["max_abs_err"],
-                           pt["max_abs_err"], sv_err, fo_err),
+                           pt["max_abs_err"], sv_err, fo_err,
+                           overload["tenants"]["scan_max_abs_err"],
+                           overload["pipeline_quota"]["scan_max_abs_err"]),
         # FO's and SV's launches are graph replays (one a batch) and one
         # eager warm-up launch a capture
         "launches_under_replay": {"FO": fanout["replays"],
@@ -6997,6 +7847,7 @@ def main() -> int:
     print(json.dumps({"fanout": fanout}))
     print(json.dumps({"program_cache": program_cache}))
     print(json.dumps({"observability": observability}, default=str))
+    print(json.dumps({"overload": overload}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,8 +25,11 @@ telemetry registry. The serving tier's sharded stores
 (``siddhi_tpu.agg_shards`` > 1, ``serving/sharded_aggregation.py``)
 subclass this runtime: one rollup program, the state split by key.
 
-Left out, because its subsystem is not ported (ROADMAP A.10): the
-device-memory budget gate of the fold (``resilience/overload.py``).
+With a device-memory budget registered (``resilience/overload.py``) the
+fold is gated as the reference gates it: the bucket stores grow a
+(duration, bucket, group) slot for each new key, so a fold is denied
+before it creates slots once the projected slot count passes the app's
+budget, and the store is charged after it.
 """
 
 from __future__ import annotations
@@ -529,9 +532,48 @@ class IncrementalAggregationRuntime(Receiver):
     def _fold_rows(self, holder, prep: dict, rows) -> None:
         """Fold prepared rows into ``holder``'s bucket stores (``store``,
         ``_dirty``, ``_deleted``: this runtime, or one ``AggregationShard``
-        of the serving tier); the caller holds the holder's lock. Row by
-        row and base by base in arrival order, as the reference folds
-        (``_fold_rows_inner``)."""
+        of the serving tier); the caller holds the holder's lock. With a
+        memory budget the fold is gated first and charged after."""
+        ctl = getattr(self.app_context, "overload", None)
+        if ctl is not None and ctl.memory_budget_bytes is not None:
+            # the device-memory budget gate (resilience/overload.py): the
+            # stores grow a (duration, bucket, group) slot a new key, so the
+            # fold is denied before it creates slots once the app's budget
+            # is spent. The O(slots) scan runs only under a budget
+            from siddhi_tpu_torch.resilience.overload import (
+                charge_memory,
+                ensure_memory_budget,
+            )
+
+            comp = self._budget_component(holder)
+            per_slot = 96 + 56 * max(len(self.bases), 1)
+            est = self._approx_store_slots(holder) * per_slot
+            ensure_memory_budget(
+                self.app_context, comp,
+                est + len(rows) * len(self.durations) * per_slot,
+                what=f"aggregation '{self.definition.id}' bucket-store growth")
+            self._fold_rows_inner(holder, prep, rows)
+            charge_memory(self.app_context, comp,
+                          self._approx_store_slots(holder) * per_slot)
+            return
+        self._fold_rows_inner(holder, prep, rows)
+
+    def _budget_component(self, holder) -> str:
+        idx = getattr(holder, "index", None)
+        base = f"aggregation.{self.definition.id}"
+        return base if holder is self or idx is None else f"{base}.shard{idx}"
+
+    @staticmethod
+    def _approx_store_slots(holder) -> int:
+        """(duration, bucket, group) slots: the unit the memory budget
+        charges bucket stores by (approximate: slot boxes dominate the
+        host-dict footprint)."""
+        return sum(len(groups) for dstore in holder.store.values()
+                   for groups in dstore.values())
+
+    def _fold_rows_inner(self, holder, prep: dict, rows) -> None:
+        """Row by row and base by base in arrival order, as the reference
+        folds (``_fold_rows_inner``)."""
         base_keys = list(self.bases)
         kinds = [self.bases[k].kind for k in base_keys]
         folds = [self.bases[k].fold for k in base_keys]

@@ -288,6 +288,81 @@ class SiddhiAppRuntime:
 
         self.fused_fanout_groups: List = plan_fanout_groups(self)
 
+        # overload control (resilience/overload.py): the siddhi_tpu.quota_*
+        # and siddhi_tpu.shed_policy keys register per-app queue quotas,
+        # shed policies, the pipeline quota, a device-memory budget and a
+        # fair-share weight. No key set: app_context.overload stays None
+        cm = siddhi_context.config_manager
+        if cm is not None:
+            self._overload_from_config(cm)
+
+    def _overload_from_config(self, cm) -> None:
+        from siddhi_tpu_torch.core.util.knobs import read_knob
+
+        names = ("quota_queue_depth", "shed_policy", "quota_pipeline_depth",
+                 "quota_memory_mb", "quota_block_timeout_s", "fair_weight",
+                 "quota_query_cap")
+        (queue_quota, policy, pipeline_quota, memory_mb, block_timeout,
+         fair_weight, query_cap) = (read_knob(cm, k) for k in names)
+        per_stream_quota = {}
+        per_stream_policy = {}
+        for sid in self.junctions:
+            v = read_knob(cm, "quota_queue_depth", stream=sid)
+            if v is not None:
+                per_stream_quota[sid] = v
+            v = read_knob(cm, "shed_policy", stream=sid)
+            if v is not None:
+                per_stream_policy[sid] = v
+        # presence, not truthiness: an explicit quota_queue_depth of 0 or
+        # fair_weight of 0 still registers
+        if all(v is None for v in (queue_quota, policy, pipeline_quota,
+                                   memory_mb, block_timeout, fair_weight,
+                                   query_cap)) \
+                and not per_stream_quota and not per_stream_policy:
+            return
+        self.enable_overload(
+            queue_quota=queue_quota,
+            shed_policy=policy if policy else "block",
+            queue_quota_per_stream=per_stream_quota,
+            shed_policy_per_stream=per_stream_policy,
+            pipeline_quota=pipeline_quota,
+            memory_budget_mb=memory_mb,
+            block_timeout_s=block_timeout,
+            fair_weight=fair_weight if fair_weight is not None else 1.0,
+            query_cap=query_cap)
+
+    def enable_overload(self, queue_quota=None, shed_policy="block",
+                        queue_quota_per_stream=None,
+                        shed_policy_per_stream=None, pipeline_quota=None,
+                        memory_budget_mb=None, block_timeout_s=None,
+                        fair_weight=1.0, query_cap=None):
+        """Register this app with the process's overload layer
+        (``resilience/overload.py``): @Async queue quotas with per-stream
+        ``block`` / ``shed_oldest`` / ``shed_newest`` policies, an app-wide
+        pipeline quota, an approximate device-memory budget gating every
+        capacity-growth site, and a weighted fair share against sibling
+        apps. A second call replaces the config; returns the
+        ``AppOverloadControl``."""
+        from siddhi_tpu_torch.resilience.overload import (
+            DEFAULT_BLOCK_TIMEOUT_S,
+            OverloadConfig,
+            OverloadManager,
+        )
+
+        cfg = OverloadConfig(
+            queue_quota=queue_quota,
+            queue_quota_per_stream=dict(queue_quota_per_stream or {}),
+            shed_policy=shed_policy or "block",
+            shed_policy_per_stream=dict(shed_policy_per_stream or {}),
+            pipeline_quota=pipeline_quota,
+            memory_budget_bytes=(int(memory_budget_mb * 1024 * 1024)
+                                 if memory_budget_mb is not None else None),
+            block_timeout_s=(block_timeout_s if block_timeout_s is not None
+                             else DEFAULT_BLOCK_TIMEOUT_S),
+            fair_weight=fair_weight,
+            query_cap=query_cap)
+        return OverloadManager.instance().register(self, cfg)
+
     # ------------------------------------------------------------ assembly
 
     def _configure_statistics(self, siddhi_app: SiddhiApp) -> None:
@@ -319,6 +394,9 @@ class SiddhiAppRuntime:
                                          ctx.device)
                        for tid, tdef in siddhi_app.table_definitions.items()}
         for t in self.tables.values():
+            # tables gate their capacity growth on the app's device-memory
+            # budget (resilience/overload.py)
+            t.app_context = ctx
             cache = getattr(t, "cache", None)
             if cache is not None:
                 # a row cached before start() stamps the clock the expiry
@@ -963,6 +1041,27 @@ class SiddhiAppRuntime:
         register_wal_gauges(self.app_context)
         return self.app_context.ingest_wal
 
+    def supervise(self, interval_s: float = 0.25, wedge_timeout_s: float = 5.0,
+                  peer_recovery=None, peer_monitor=None):
+        """Start an ``AppSupervisor`` (``resilience/supervisor.py``) that
+        heartbeats this app's @Async workers, replacing dead or wedged
+        ones with their queues intact, heals dead ingest packers and
+        watches the pipeline for a wedged step. Idempotent; returns the
+        supervisor. The peer recovery of the multi-process cluster
+        (``peer_recovery``, ``peer_monitor``) is ROADMAP A.9."""
+        if peer_recovery is not None or peer_monitor is not None:
+            raise NotImplementedError(
+                "supervise(peer_recovery=..., peer_monitor=...): the "
+                "multi-process cluster and its peer recovery "
+                "(parallel/distributed.py, PeerMonitor, PeerRecovery) are "
+                "not ported to siddhi_tpu_torch yet (ROADMAP A.9)")
+        from siddhi_tpu_torch.resilience.supervisor import AppSupervisor
+
+        if self.app_context.supervisor is None:
+            AppSupervisor(self, interval_s=interval_s,
+                          wedge_timeout_s=wedge_timeout_s).start()
+        return self.app_context.supervisor
+
     def start(self):
         """Start @Async workers, the ingest pool, sinks and sources, table
         cache sweeps and triggers (also done by the first send)."""
@@ -1031,6 +1130,16 @@ class SiddhiAppRuntime:
 
         ctx = self.app_context
         ctx.stopped = True
+        if ctx.supervisor is not None:
+            ctx.supervisor.stop()
+        if ctx.overload is not None:
+            # the process-wide registration goes (its fair-scheduler slot,
+            # its control), pinned to this app's control: shutting down an
+            # OLD runtime never strips a newer same-named app's quotas
+            from siddhi_tpu_torch.resilience.overload import OverloadManager
+
+            OverloadManager.instance().unregister(ctx.name, ctl=ctx.overload)
+            ctx.overload = None
         ctx.timestamp_generator.stop_heartbeat()
         if ctx.completion_pump.has_pending:
             # batches still riding the pipeline emit before teardown

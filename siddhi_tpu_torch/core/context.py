@@ -235,6 +235,15 @@ class SiddhiAppContext:
         self.ingest_pool = 0
         self.ingest_split = 8192
         self.ingest_pack_pool = None
+        # the app supervisor (resilience/supervisor.py), attached by
+        # SiddhiAppRuntime.supervise
+        self.supervisor = None
+        # overload control (resilience/overload.py): per-app queue quotas
+        # with shed policies, the pipeline quota, the device-memory budget
+        # and the fair-share weight. None = no quotas; set by
+        # OverloadManager.register through the siddhi_tpu.quota_* and
+        # siddhi_tpu.shed_policy keys or rt.enable_overload()
+        self.overload = None
         # exchange transport of device-routed queries; on one card both
         # values run the ring_exchange kernel (parallel/mesh.py)
         self.shard_exchange = "all_to_all"

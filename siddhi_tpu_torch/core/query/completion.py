@@ -36,6 +36,10 @@ Contract:
   and on exit.
 - **Completion latency feedback.** At drain, each entry's true
   dispatch->emit time feeds its junction's ``latency.target`` loop.
+- **Overload control** (``resilience/overload.py``). An app's
+  ``pipeline_quota`` bounds its entries in flight across owners, and
+  each submit is a weighted-fair yield point; ``oldest_age_s`` is the
+  app supervisor's wedge check.
 
 ``FusedCompletion`` is one in-flight batch of a fused fan-out group
 (``core/query/fused_fanout.py``): one stacked meta for every member, and
@@ -74,7 +78,7 @@ class QueryCompletion:
     event that says when the meta has arrived (None off the card)."""
 
     __slots__ = ("owner", "out", "meta", "event", "overflow_msg", "junction",
-                 "batch", "t0", "tid", "timer_cb", "journey")
+                 "batch", "t0", "wall", "tid", "timer_cb", "journey")
 
     def __init__(self, owner, out, meta, event, overflow_msg,
                  junction=None, batch=None, journey=None):
@@ -94,6 +98,7 @@ class QueryCompletion:
         # must publish the failing events there, as the sync path does
         self.batch = batch
         self.t0 = time.perf_counter()
+        self.wall = time.monotonic()      # the supervisor's wedge check
         self.tid = threading.get_ident()  # submitting thread (scoped flush)
 
     @property
@@ -151,7 +156,7 @@ class FusedCompletion:
     ``FusedFanoutRuntime.complete_entry``."""
 
     __slots__ = ("owner", "outs", "meta", "event", "members", "cluster_of",
-                 "batch", "junction", "t0", "tid", "journey")
+                 "batch", "junction", "t0", "wall", "tid", "journey")
 
     def __init__(self, owner, outs, meta, event, members, cluster_of, batch,
                  junction=None, journey=None):
@@ -165,6 +170,7 @@ class FusedCompletion:
         self.batch = batch                # the input batch, for fault routing
         self.junction = junction
         self.t0 = time.perf_counter()
+        self.wall = time.monotonic()      # the supervisor's wedge check
         self.tid = threading.get_ident()  # submitting thread (scoped flush)
 
     @property
@@ -243,6 +249,18 @@ class CompletionPump:
                     n += 1
         return n
 
+    def oldest_age_s(self) -> Optional[float]:
+        """Age of the oldest in-flight entry, or None: the supervisor's
+        wedge check (a meta that never arrives means a hung step)."""
+        with self._lock:
+            oldest = None
+            for dq in self._pending.values():
+                if dq and (oldest is None or dq[0].wall < oldest):
+                    oldest = dq[0].wall
+        if oldest is None:
+            return None
+        return time.monotonic() - oldest
+
     def _register_gauge(self, label: str) -> None:
         if label in self._gauged:
             return
@@ -257,8 +275,20 @@ class CompletionPump:
         """Hand a dispatched batch to the pipeline (owner lock held). When
         the owner would hold more than ``depth`` batches, the older ones
         drain in one round and the newest keeps riding, so the producer
-        goes straight back to packing."""
+        goes straight back to packing.
+
+        With overload quotas registered (``resilience/overload.py``) the
+        app-wide ``pipeline_quota`` also drains this owner down to its one
+        riding entry while the app's total exceeds the quota, which bounds
+        the total at ``max(quota, one per active query)`` (another owner's
+        lock cannot be taken here: its own submits bound it the same way).
+        A fused fan-out group's entry is one entry. Each submit is a
+        weighted-fair yield point, so a flooded tenant's dispatches do not
+        take the card's slots from its siblings."""
         owner = entry.owner
+        ctl = getattr(self.app_context, "overload", None)
+        if ctl is not None:
+            ctl.throttle(0)     # yield only: usage is charged at delivery
         with self._lock:
             dq = self._pending.setdefault(owner, deque())
             dq.append(entry)
@@ -271,6 +301,9 @@ class CompletionPump:
             # cascades keep producing entries
             self._tls.submitted = getattr(self._tls, "submitted", 0) + 1
             over = len(dq) - self.depth
+            pq = ctl.pipeline_quota if ctl is not None else None
+            if pq is not None and over <= 0 and self._n_pending > pq:
+                over = 1
         self._register_gauge(entry.label)
         if over > 0:
             self._drain_owner(owner, keep_newest=1, forced=True)

@@ -97,7 +97,7 @@ from siddhi_tpu_torch.core.event import (
     encode_key_tuples, pack_pool_of)
 from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY, STR_RANK, SelectorPlan
 from siddhi_tpu_torch.core.query.completion import QueryCompletion, stage_meta
-from siddhi_tpu_torch.core.util.statistics import latency_t0, record_elapsed_ms
+from siddhi_tpu_torch.core.util.statistics import latency_t0, pytree_nbytes, record_elapsed_ms
 from siddhi_tpu_torch.core.stream.junction import (
     FatalQueryError, Receiver, current_delivering_junction)
 from siddhi_tpu_torch.observability import instruments, journey
@@ -295,6 +295,20 @@ class QueryRuntime(Receiver):
                 new_w = _pow2(needed_w, start=self._win_keys)
         if new_k == k and new_w == self._win_keys:
             return
+        overload = getattr(self.app_context, "overload", None)
+        if overload is not None and self._state is not None:
+            # the device-memory budget gate (resilience/overload.py), before
+            # anything is allocated or the step dropped: dense state scales
+            # with the grown capacity, so the projection is the current
+            # footprint (tensor metadata, no device read) times the growth
+            from siddhi_tpu_torch.resilience.overload import ensure_memory_budget
+
+            ratio = max(new_k / max(k, 1), new_w / max(self._win_keys, 1))
+            ensure_memory_budget(
+                self.app_context, f"query.{self.name}",
+                int(pytree_nbytes(self._state) * ratio),
+                what=f"query '{self.name}' key-capacity growth "
+                     f"({k}->{new_k} keys)")
         self.selector_plan.num_keys = new_k
         self._win_keys = new_w
         old_state = self._state
@@ -302,6 +316,11 @@ class QueryRuntime(Receiver):
         if old_state is not None:
             _copy_prefix_tree(self._state, old_state)
         self._step = None
+        if overload is not None:
+            from siddhi_tpu_torch.resilience.overload import charge_memory
+
+            charge_memory(self.app_context, f"query.{self.name}",
+                          pytree_nbytes(self._state))
 
     def _make_step(self):
         if self._route_layout is not None:

@@ -48,14 +48,17 @@ device copies of its columns and on the caller's real state (this run is
 the batch's result, and it loads the kernels' libraries and settles the
 allocator, the warm-up a capture needs); then ``torch.cuda.graph``
 records the step over the bound state and the static inputs without
-running it. Nothing host-side may happen inside the step: a host read
-under capture raises, and the failure is raised to the caller (there is
-no eager fallback; the runtime decides the mode from its stages'
+running it, one capture at a time in the process (``torch.cuda.graph``
+captures on one process-wide stream and synchronizes the device as it
+begins, so two threads must not capture at once). Nothing host-side
+may happen inside the step: a host read under capture raises, and the
+failure is raised to the caller (there is no eager fallback; the runtime
+decides the mode from its stages'
 declarations). A kernel wrapper's counter counts Python calls, which a
-replay does not make: the launches recorded under capture are taken back
-from the counters and added again at every replay (``launch_counters``),
-so a wrapper's ``launches`` stays the number of kernel launches the card
-ran.
+replay does not make: the launches a capture records go to its own tally
+(``ops/_cuda.capture_tally``, per thread, so another thread's launches
+meanwhile still count) and are added at every replay, so a wrapper's
+``launches`` stays the number of kernel launches the card ran.
 """
 
 from __future__ import annotations
@@ -67,18 +70,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from siddhi_tpu_torch.ops import _cuda
 from siddhi_tpu_torch.ops.types import TORCH_OF_NUMPY
-
-
-def launch_counters() -> Tuple:
-    """(object, attribute) of every kernel-wrapper counter a graph keeps
-    true under replay: the distinct scan's launches, and the ring
-    exchange's launches and the columns they moved."""
-    from siddhi_tpu_torch.ops.distinct import distinct_scan
-    from siddhi_tpu_torch.ops.exchange import ring_exchange
-
-    return ((distinct_scan, "launches"), (ring_exchange, "launches"),
-            (ring_exchange, "columns"))
 
 
 def state_leaves(tree, out: Optional[List] = None) -> List[torch.Tensor]:
@@ -170,6 +163,11 @@ class StepGraph:
     # captures made by every graph of the process (a graph object may be
     # freed with its cache entry, and its own count with it)
     total_captures = 0
+    # one capture at a time in the process: ``torch.cuda.graph`` captures
+    # on one process-wide stream and enters with a device synchronize, so
+    # a second thread's capture (two @Async streams meeting their first
+    # batch together) would break the first
+    _capture_lock = threading.Lock()
 
     def __init__(self, device: torch.device, shared: bool = False):
         self.device = device
@@ -261,8 +259,8 @@ class StepGraph:
                 ev[1].record()
         cap.graph.replay()
         self.replays += 1
-        for (obj, attr), n in cap.launches:
-            setattr(obj, attr, getattr(obj, attr) + n)
+        for (wrapper, attr), n in cap.launches:
+            _cuda.count(wrapper, attr, n)
         clones: Dict[int, torch.Tensor] = {}   # one clone a tensor
         outs = []
         for out in cap.outs:
@@ -303,20 +301,14 @@ class StepGraph:
                   for k, dt, shape in spec}
         now_c = torch.zeros((), dtype=torch.int64, device=dev)
         mem0 = torch.cuda.memory_allocated(dev)
-        counters = launch_counters()
-        before = [getattr(obj, attr) for obj, attr in counters]
         graph = torch.cuda.CUDAGraph()
         # thread-local: an @Async worker, a timer or a REST handler on
-        # another thread may use the card while this one captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        # another thread may use the card while this one captures; the
+        # launches the capture records go to its tally, not the counters
+        with StepGraph._capture_lock, _cuda.capture_tally() as tally, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             c_outs, c_metas = fn(bound, inputs, now_c)
-        launches = []
-        for (obj, attr), n0 in zip(counters, before):
-            n = getattr(obj, attr) - n0
-            if n:
-                # the capture recorded these launches; it launched nothing
-                setattr(obj, attr, getattr(obj, attr) - n)
-                launches.append(((obj, attr), n))
+        launches = tuple(tally.items())
         in_bytes = sum(t.numel() * t.element_size() for t in inputs.values())
         cap = _Captured(graph, inputs, now_c, c_outs, c_metas, tuple(launches),
                         torch.cuda.memory_allocated(dev) - mem0 + in_bytes)

@@ -82,12 +82,16 @@ class InputHandler:
                         f"a batch on stream '{self.stream_id}'")
                 self._check_order(ts_seq[0], ts_seq[-1])
             # accepted: recorded before delivery, inside the barrier, so a
-            # checkpoint always cuts between batches
+            # checkpoint always cuts between batches. The record's sequence
+            # number rides to the junction: if overload admission sheds the
+            # batch (resilience/overload.py) the record is discarded, and a
+            # replay covers exactly the suffix that was not shed
+            wal_seq = None
             if wal is not None:
-                wal.record_events(self.stream_id, events)
+                wal_seq = wal.record_events(self.stream_id, events)
             for ev in events:
                 tsg.set_current_timestamp(ev.timestamp)
-            self.junction.send_events(events)
+            self.junction.send_events(events, wal_seq=wal_seq)
 
     def send_columns(self, data, timestamps=None):
         """Columnar bulk ingestion: one numpy array per attribute (strings
@@ -120,15 +124,16 @@ class InputHandler:
                         self._check_order(int(ts_arr[0]), int(ts_arr[-1]))
                     tsg.set_current_timestamp(int(ts_arr.min()))
                     tsg.set_current_timestamp(int(ts_arr.max()))
+            wal_seq = None
             if wal is not None:
                 # the raw columns, copied (a replay re-encodes them against
                 # the restored dictionary), with the timestamps resolved: a
                 # default-stamped batch replays at its ingest time
-                wal.record_columns(
+                wal_seq = wal.record_columns(
                     self.stream_id, self._replayable(data),
                     timestamps if timestamps is not None
                     else np.full(int(batch.size), now, np.int64))
-            self.junction.send_batch(batch)
+            self.junction.send_batch(batch, wal_seq=wal_seq)
 
 
     def _replayable(self, data):

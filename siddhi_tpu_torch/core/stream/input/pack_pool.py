@@ -18,8 +18,9 @@ threads as sequence-numbered sub-batch tasks and merges in order:
   order, so the id space is bit-identical to the inline path.
 - **Supervision.** A dead or killed packer's sub-batch is RE-PACKED
   inline by the merging thread (never lost), dead threads respawn on the
-  next submit, and ``fault_hook`` is the point where
-  a test kills or delays one packer.
+  next submit or at the app supervisor's tick (``heal``), each worker
+  bumps ``_beats`` a task, and ``fault_hook`` is the point where a test
+  kills or delays one packer.
 
 The pool engages only when ``siddhi_tpu.ingest_pool`` > 0 (default 0 =
 today's inline single-thread pack, bit-identical by construction) and a
@@ -81,6 +82,7 @@ class IngestPackPool:
         self._threads: List[threading.Thread] = []
         self._gen = 0
         self._stopped = False
+        self._beats = 0          # tasks claimed: a lock-free liveness probe
         self.subbatches = 0
         self.worker_deaths = 0
         self.repacked_subbatches = 0
@@ -117,6 +119,15 @@ class IngestPackPool:
             self._threads.append(t)
             n += 1
         return n
+
+    def heal(self) -> int:
+        """The supervisor's tick (``resilience/supervisor.py``): respawn
+        dead packers now instead of at the next submit. Returns how many
+        were spawned."""
+        if self._stopped:
+            return 0
+        with self._lock:
+            return self._spawn_missing_locked()
 
     def shutdown(self) -> None:
         with self._lock:
@@ -232,6 +243,7 @@ class IngestPackPool:
             task = self._tasks.get()
             if task is None:
                 return
+            self._beats += 1
             hook = self.fault_hook
             if hook is not None:
                 try:

@@ -34,8 +34,19 @@ carries its enqueue time, and its receivers read the queue residence
 for the delivery's scope. The worker polls ``fault_hook``
 (``resilience/faults.py``) at the top of each drain iteration: a hook
 may block (a wedge) or raise (the worker dies, and its unit stays parked
-for ``restart_worker``). The reference's overload quotas and supervisor
-are ROADMAP A.10 (b).
+for ``restart_worker``).
+
+Resilience and overload (``resilience/supervisor.py``,
+``resilience/overload.py``): the worker bumps ``_beats`` each drain
+iteration (the supervisor's heartbeat; an idle worker beats every
+``_IDLE_POLL_S``). With quotas registered (``app_context.overload``), an
+@Async enqueue passes ``admit`` first: past the queue quota the stream's
+shed policy drops a unit and discards its WAL record, whose sequence
+number the input handler hands over (``wal_seq``), or blocks, bounded.
+A producer's blocked put escalates every ``block_timeout_s`` to the
+supervisor, which replaces a dead or wedged worker, with or without
+quotas. Each delivery is a fair-share yield point, and every processing
+error is shown to the supervisor (``notify_error``).
 """
 
 from __future__ import annotations
@@ -64,12 +75,9 @@ _NOTHING = object()
 _DELIVERING = threading.local()
 
 # the worker polls its queue with this bound, so an idle worker drains
-# the pipeline within one poll
+# the pipeline within one poll and beats at least ~10 times a second (the
+# supervisor's wedge timeout is clamped to a multiple of it)
 _IDLE_POLL_S = 0.1
-# a producer blocked on a full @Async queue re-checks the worker's fatal
-# error every slice and logs every timeout (the reference's values)
-_BLOCK_PUT_SLICE_S = 0.25
-_BLOCK_TIMEOUT_S = 5.0
 
 
 def current_delivering_junction() -> Optional["StreamJunction"]:
@@ -120,9 +128,16 @@ class StreamJunction:
         self._inflight = _NOTHING
         self._inflight_owner: Optional[threading.Thread] = None
         self._gen = 0
+        # the supervisor's liveness counter: bumped each drain iteration,
+        # read without a lock
+        self._beats = 0
         # the fault-injection point the drain loop polls
         # (resilience/faults.py)
         self.fault_hook = None
+        # overload control: queued unit id -> its ingest-WAL sequence
+        # number, so a shed unit's record can be discarded (filled only
+        # while units with a WAL record wait in an @Async queue)
+        self._wal_seq_of: dict = {}
         # batch journeys: queued unit id -> its enqueue time, so the worker
         # can attribute the queue residence (empty unless journeys are on)
         self._jt_enq: dict = {}
@@ -215,7 +230,9 @@ class StreamJunction:
         if sm is not None and sm.level >= 1:
             sm.throughput_tracker(self.definition.id).add(n)
 
-    def send_events(self, events: List[Event]):
+    def send_events(self, events: List[Event], wal_seq: Optional[int] = None):
+        """``wal_seq``: the sequence number of the batch's WAL record,
+        discarded if overload admission sheds the batch."""
         if not events:
             return
         self._count_throughput(len(events))
@@ -224,21 +241,21 @@ class StreamJunction:
             # the producer instead of blocking on a queue nobody drains
             raise self._fatal
         if self._async and self._running:
-            self._enqueue(events)
+            self._enqueue(events, wal_seq)
         else:
             self._deliver(events)
             # synchronous sends keep synchronous semantics: batches the
             # receivers pipelined drain before the send returns
             self._flush_pipeline(own_only=True)
 
-    def send_batch(self, batch):
+    def send_batch(self, batch, wal_seq: Optional[int] = None):
         """Columnar publish (no Event objects), delivered as one unit;
         @Async junctions enqueue it behind pending event chunks."""
         self._count_throughput(int(batch.size))
         if self._fatal is not None:
             raise self._fatal
         if self._async and self._running:
-            self._enqueue(batch)
+            self._enqueue(batch, wal_seq)
         else:
             self._deliver_batch(batch)
             self._flush_pipeline(own_only=True)
@@ -259,14 +276,27 @@ class StreamJunction:
             return
         pump.flush(own_only=own_only)
 
-    def _enqueue(self, item):
-        """Producer side of @Async: a bounded wait on a full queue that
-        re-checks the worker's fatal error each slice, so a worker dying
-        mid-wait cannot park the producer forever."""
+    def _enqueue(self, item, wal_seq: Optional[int] = None):
+        """Producer side of @Async. With quotas registered, admission
+        runs first: past the queue quota the stream's shed policy applies
+        (a shed unit is counted and its WAL record discarded; ``block``
+        waits, bounded, escalating to the supervisor). The blocking put
+        that follows is bounded too: it re-checks the worker's fatal
+        error each slice and escalates every ``block_timeout_s``, so a
+        wedged consumer is replaced instead of parking the producer."""
+        from siddhi_tpu_torch.resilience import overload
+
+        ctl = getattr(self.app_context, "overload", None)
+        if ctl is not None and not ctl.admit(self, item, wal_seq):
+            return                  # shed: counted, its WAL record discarded
+        if wal_seq is not None:
+            # mapped before the put: once queued, the worker (or a
+            # shed_oldest eviction) may pop the unit at once
+            self._wal_seq_of[id(item)] = wal_seq
         if journey.enabled():
-            # the queue-residence stamp, before the put (the worker may pop
-            # the unit at once). At most qsize stamps are live, so past
-            # that bound the oldest are stale: drop those only
+            # the queue-residence stamp, before the put. At most qsize
+            # stamps are live, so past that bound the oldest are stale:
+            # drop those only
             live_cap = (self._queue.maxsize or 8192) + 256
             while len(self._jt_enq) > live_cap:
                 try:
@@ -281,26 +311,61 @@ class StreamJunction:
             pass
         tel = self.app_context.telemetry
         tel.count(f"junction.{self.definition.id}.backpressure_stalls")
+        timeout_s = (ctl.block_timeout_s if ctl is not None
+                     else overload.DEFAULT_BLOCK_TIMEOUT_S)
         waited = 0.0
         while True:
             try:
-                self._queue.put(item, timeout=_BLOCK_PUT_SLICE_S)
+                self._queue.put(item, timeout=overload.BLOCK_PUT_SLICE_S)
                 return
             except queue.Full:
                 pass
             if self._fatal is not None:
-                self._jt_enq.pop(id(item), None)
+                self._forget_unit(item)
                 raise self._fatal
-            waited += _BLOCK_PUT_SLICE_S
-            if waited >= _BLOCK_TIMEOUT_S:
+            waited += overload.BLOCK_PUT_SLICE_S
+            if waited >= timeout_s:
                 waited = 0.0
-                tel.count(f"junction.{self.definition.id}.enqueue_timeouts")
-                from siddhi_tpu_torch.resilience import stat_count
+                if ctl is not None:
+                    ctl.escalate(self)
+                else:
+                    self._escalate_default()
 
-                stat_count(self.app_context, "resilience.enqueue_timeouts")
-                log.warning(
-                    "producer blocked on full @Async queue of stream '%s': "
-                    "the worker is not draining", self.definition.id)
+    def _escalate_default(self) -> None:
+        """The bounded wait's escalation for an app without quotas: the
+        blocked producer is counted and logged, and the supervisor gets
+        its chance to replace a wedged consumer."""
+        from siddhi_tpu_torch.resilience import stat_count
+
+        self.app_context.telemetry.count(
+            f"junction.{self.definition.id}.enqueue_timeouts")
+        stat_count(self.app_context, "resilience.enqueue_timeouts")
+        sup = getattr(self.app_context, "supervisor", None)
+        if sup is not None:
+            try:
+                sup.notify_backpressure(self)
+                return
+            except Exception:  # noqa: BLE001 — escalation must not mask
+                log.exception("backpressure escalation failed")
+        log.warning(
+            "producer blocked on full @Async queue of stream '%s': the "
+            "consumer is not draining (a wedged worker? rt.supervise() "
+            "replaces it)", self.definition.id)
+
+    def _forget_unit(self, item) -> Optional[int]:
+        """A queued unit that will never be delivered (shed, or its
+        producer gave up): drop its journey stamp and return its WAL
+        sequence number, if it had one."""
+        if self._jt_enq:
+            self._jt_enq.pop(id(item), None)
+        return self._wal_seq_of.pop(id(item), None) if self._wal_seq_of else None
+
+    def _dequeued(self, item):
+        """The worker took ``item`` for delivery: its WAL record now
+        stands (no shed can reach it) and its journey stamp is read."""
+        if self._wal_seq_of:
+            self._wal_seq_of.pop(id(item), None)
+        return self._jt_enq.pop(id(item), None) if self._jt_enq else None
 
     # ---------------------------------------------------------- delivery
 
@@ -384,7 +449,17 @@ class StreamJunction:
     def _timed(self, deliver, unit, enq_t=None):
         """Deliver one unit and feed its latency to the control loop,
         unless it pipelined (its dispatch returned at once;
-        ``record_completion`` supplies the true sample at drain)."""
+        ``record_completion`` supplies the true sample at drain). With
+        quotas registered the delivery is a weighted-fair yield point: a
+        worker of an app over its fair share yields briefly while a
+        sibling app is backlogged."""
+        ctl = getattr(self.app_context, "overload", None)
+        if ctl is not None:
+            if isinstance(unit, list):
+                ctl.throttle(len(unit))
+            else:
+                n = unit._size    # a known count only: never a pull
+                ctl.throttle(int(n) if n is not None else 1)
         t0 = time.perf_counter()
         n0 = self._pump_submits()
         deliver(unit, enq_t)
@@ -407,6 +482,7 @@ class StreamJunction:
 
     def _drain_loop(self, gen: int):
         while True:
+            self._beats += 1
             hook = self.fault_hook
             if hook is not None:
                 # the fault-injection point: a hook may block (a wedge) or
@@ -434,7 +510,7 @@ class StreamJunction:
             else:
                 try:
                     item = self._queue.get(timeout=_IDLE_POLL_S)
-                    enq_t = self._jt_enq.pop(id(item), None) if self._jt_enq else None
+                    enq_t = self._dequeued(item)
                 except queue.Empty:
                     # idle: drain the batches still riding the pipeline,
                     # which bounds emission lag under trickle load
@@ -478,8 +554,10 @@ class StreamJunction:
                 except queue.Empty:
                     if deadline is None or time.perf_counter() >= deadline:
                         break
+                    # a worker waiting out a long max.delay is healthy
+                    self._beats += 1
                     continue
-                more_enq = self._jt_enq.pop(id(more), None) if self._jt_enq else None
+                more_enq = self._dequeued(more)
                 if more is None:
                     stop_after = True
                     break
@@ -506,6 +584,14 @@ class StreamJunction:
     def handle_error(self, events: List[Event], e: Exception):
         from siddhi_tpu_torch.ops.expressions import CompileError
 
+        supervisor = getattr(self.app_context, "supervisor", None)
+        if supervisor is not None:
+            # the supervisor sees every processing error (it reacts to
+            # cluster-peer failures only, ROADMAP A.9)
+            try:
+                supervisor.notify_error(self, e)
+            except Exception:  # noqa: BLE001 — supervision must not mask
+                log.exception("supervisor notification failed")
         if isinstance(e, (FatalQueryError, CompileError)):
             # framework failures always surface to the sender; on an
             # @Async junction the raise unwinds the worker and the stored

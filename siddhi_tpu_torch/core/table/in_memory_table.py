@@ -134,6 +134,9 @@ class InMemoryTable:
         self.capacity = capacity
         self.state = self._zero_state(capacity)
         self._lock = threading.RLock()
+        # the owning app's context, wired by SiddhiAppRuntime after
+        # construction (the overload layer's budget gates _ensure_room)
+        self.app_context = None
         # @primaryKey: uniqueness + host hash probe (the dense analog of
         # reference IndexEventHolder's primary-key map)
         names = {a.name for a in definition.attributes}
@@ -260,6 +263,9 @@ class InMemoryTable:
     def count(self) -> int:
         return int(self.state["valid"].sum())
 
+    def _row_bytes(self) -> int:
+        return sum(np.dtype(dt).itemsize for dt in self.col_specs.values()) + 1
+
     def _ensure_room(self, n: int):
         needed = self.count + n
         cap = self.capacity
@@ -267,6 +273,21 @@ class InMemoryTable:
             return
         while cap < needed:
             cap *= 2
+        ctx = self.app_context
+        if ctx is not None and getattr(ctx, "overload", None) is not None:
+            # the device-memory budget gate (resilience/overload.py): the
+            # doubled allocation is denied before it happens
+            from siddhi_tpu_torch.resilience.overload import (
+                charge_memory,
+                ensure_memory_budget,
+            )
+
+            comp = f"table.{self.definition.id}"
+            ensure_memory_budget(
+                ctx, comp, cap * self._row_bytes(),
+                what=f"table '{self.definition.id}' capacity growth "
+                     f"({self.capacity}->{cap} rows)")
+            charge_memory(ctx, comp, cap * self._row_bytes())
         new = self._zero_state(cap)
         for name, col in new["cols"].items():
             col[: self.capacity] = self.state["cols"][name]

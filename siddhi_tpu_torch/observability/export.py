@@ -26,7 +26,8 @@ the step records (``siddhi_jit_*``), the program cache
 ``siddhi_program_cache_size``) and the step-program costs
 (``siddhi_jit_cost_*{key}``), the @Async junctions
 (``siddhi_junction_{queue_depth,inflight_batches}``,
-``siddhi_junction_{backpressure_stalls,enqueue_timeouts}_total``), the
+``siddhi_junction_{backpressure_stalls,enqueue_timeouts,shed_events}_total``),
+the overload quotas (``siddhi_quota_utilization{resource[,stream]}``), the
 dispatch pipeline (``siddhi_pipeline_depth{query}``,
 ``siddhi_pipeline_{stalls,metas,meta_pulls}_total``), the join engine
 (``siddhi_join_partition_rows``, ``siddhi_join_{probe,insert}_ms``), the
@@ -34,10 +35,12 @@ batch journeys (``siddhi_stage_ms``, ``siddhi_stage_queue_ms``) and the
 device instruments (``siddhi_device_instrument{,_capacity,_value}``); the
 ingest WAL's gauges, a fused stream's ``unique_programs`` and
 ``captured`` gauges and a query's ``captured`` gauge render as the
-generic ``siddhi_gauge``, as in the reference. The reference's families
-of the autopilot, the overload quotas and the supervisor (ROADMAP A.10),
-the cluster fabric and the keyed-shard gauges (A.9) have no source in
-the port and are not printed.
+generic ``siddhi_gauge``, as in the reference. The resilience counters
+of the supervisor and the overload layer (worker restarts, pump wedges,
+sheds, quota denials, enqueue timeouts) are declared at 0 for every app.
+The reference's families of the autopilot (ROADMAP A.10 c), the cluster
+fabric and the peer counters and keyed-shard gauges (A.9) have no source
+in the port and are not printed.
 """
 
 from __future__ import annotations
@@ -69,9 +72,12 @@ DEVICE_CHECK_SLOTS = (
 )
 
 # operationally load-bearing counters with a source in the port,
-# pre-declared at 0 per app (the reference also declares the supervisor's,
-# the cluster's and the overload layer's, ROADMAP A.10)
+# pre-declared at 0 per app (the reference also declares the peer
+# counters, which come with the multi-process cluster, ROADMAP A.9)
 RESILIENCE_COUNTERS = (
+    # the app supervisor (resilience/supervisor.py)
+    "resilience.worker_restarts",
+    "resilience.pump_wedges",
     "resilience.wal_replayed_batches",
     "resilience.wal_dropped_batches",
     "resilience.source_retries",
@@ -81,6 +87,10 @@ RESILIENCE_COUNTERS = (
     "resilience.shard_rebuilds",
     "resilience.shard_replay_skips",
     "resilience.shard_replay_gaps",
+    # overload control (resilience/overload.py)
+    "resilience.shed_events",
+    "resilience.quota_denials",
+    "resilience.enqueue_timeouts",
 )
 
 # the wire-format front door (POST /ingest/{stream}, service/rest.py)
@@ -156,12 +166,18 @@ _JITCOST_HELP = {
 _JUNCTION_GAUGE = re.compile(r"^junction\.(?P<stream>.+)\.(?P<kind>"
                              r"queue_depth|inflight_batches)$")
 _JUNCTION_COUNTER = re.compile(r"^junction\.(?P<stream>.+)\.(?P<kind>"
-                               r"backpressure_stalls|enqueue_timeouts)$")
+                               r"backpressure_stalls|enqueue_timeouts|"
+                               r"shed_events)$")
 _JUNCTION_COUNTER_HELP = {
     "backpressure_stalls": "producer sends that blocked on a full @Async queue",
     "enqueue_timeouts": "bounded enqueue waits on a full @Async queue that "
-                        "timed out",
+                        "timed out and escalated to the supervisor",
+    "shed_events": "events shed by overload admission (shed_oldest / "
+                   "shed_newest past the queue quota)",
 }
+# overload control (resilience/overload.py): per-app quota utilization
+_QUOTA_GAUGE = re.compile(r"^quota\.(?P<resource>queue|pipeline|memory)"
+                          r"_utilization(?:\.(?P<stream>.+))?$")
 _PIPELINE_GAUGE = re.compile(r"^pipeline\.(?P<query>.+)\.inflight$")
 # pipeline.metas / pipeline.pulls: metas-per-pull batching ratio;
 # pipeline.stalls: forced drains that had to wait on the card
@@ -309,6 +325,16 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                       if m.group("kind") == "queue_depth"
                       else "@Async junction in-flight delivery units"),
                      {**base, "stream": m.group("stream")}, v)
+            continue
+        m = _QUOTA_GAUGE.match(name)
+        if m:
+            labels = {**base, "resource": m.group("resource")}
+            if m.group("stream"):
+                labels["stream"] = m.group("stream")
+            fams.add("siddhi_quota_utilization", "gauge",
+                     "fraction of the app's overload quota in use (queue "
+                     "depth / pipeline entries / device-memory budget)",
+                     labels, v)
             continue
         m = _PIPELINE_GAUGE.match(name)
         if m:

@@ -6,10 +6,16 @@ included, so a build takes seconds. The build runs at first use, into
 ``siddhi_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of
 the source so an edited kernel is rebuilt. ``build(names)`` starts one
 ``nvcc`` per source, all at once, and waits for them together.
+
+A wrapper counts what it launches with ``count``; a CUDA-graph capture
+on the calling thread (``core/query/step_graph.py``) takes those counts
+into its own tally instead (``capture_tally``), since a capture launches
+nothing: the graph adds them at each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +34,35 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOGS: Dict[str, str] = {}
+# the wrappers' counters are bumped from every thread that launches
+_COUNT_LOCK = threading.Lock()
+# this thread's capture tally, while it captures a graph
+_CAPTURING = threading.local()
+
+
+def count(wrapper, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to a kernel wrapper's counter ``wrapper.<attr>`` (its
+    launches, the columns it moved); inside ``capture_tally`` on this
+    thread, to the tally instead."""
+    tally = getattr(_CAPTURING, "tally", None)
+    if tally is not None:
+        tally[(wrapper, attr)] = tally.get((wrapper, attr), 0) + n
+        return
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """While a graph is captured on this thread, its wrappers' counts go
+    to the yielded tally ``{(wrapper, attr): n}``, not to the counters:
+    another thread's launches meanwhile are counted as they happen."""
+    prev = getattr(_CAPTURING, "tally", None)
+    tally = _CAPTURING.tally = {}
+    try:
+        yield tally
+    finally:
+        _CAPTURING.tally = prev
 
 
 def _nvcc() -> str:

@@ -283,7 +283,7 @@ def launch(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m, emit_set,
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.siddhi_distinct_scan(ctypes.byref(args), stream)
     _cuda.check(lib, code, "distinct_scan launch")
-    distinct_scan.launches += 1
+    _cuda.count(distinct_scan)
     return nd, snap_vk, snap_live, overflow
 
 

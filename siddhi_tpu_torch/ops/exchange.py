@@ -130,8 +130,8 @@ def ring_exchange_cols(bufs: Sequence[torch.Tensor], n: int) -> List[torch.Tenso
                   for i in part])
             code = lib.siddhi_ring_exchange_cols(table, len(part), n, stream)
             _cuda.check(lib, code, "ring_exchange launch")
-            ring_exchange.launches += 1
-            ring_exchange.columns += len(part)
+            _cuda.count(ring_exchange)
+            _cuda.count(ring_exchange, "columns", len(part))
     return outs
 
 

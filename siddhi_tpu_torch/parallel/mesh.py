@@ -398,6 +398,24 @@ def _canonical_tensors(runtime):
     return _map_tree(one, runtime._state)
 
 
+def _canonical_nbytes(runtime) -> int:
+    """Bytes of ``_canonical_tensors(runtime)``, from the routed state's
+    metadata alone: a keyed leaf keeps its size, an unkeyed one keeps one
+    shard's row."""
+    layout = runtime._route_layout
+    total = 0
+
+    def one(path, leaf):
+        nonlocal total
+        nb = leaf.nbytes
+        if leaf.dim() and _global_axes(layout, path, leaf) < 0:
+            nb //= leaf.shape[0]
+        total += nb
+
+    _map_tree(one, runtime._state)
+    return total
+
+
 def canonical_route_state(runtime):
     """Routed state -> canonical unsharded layout, host-side numpy (the
     form the reference's snapshots and ``jax.device_get`` produce)."""
@@ -692,11 +710,34 @@ def ensure_routed_capacity(runtime) -> None:
     grow_win = layout.partitioned and needed_win > n * layout.local_win
     if not (grow_sel or grow_win):
         return
-    canonical = _canonical_tensors(runtime) if runtime._state is not None else None
     Kg = n * layout.localK
     while needed_sel > Kg:
         Kg *= 2
     Wg = n * layout.local_win if layout.partitioned else 1
     while layout.partitioned and needed_win > Wg:
         Wg *= 2
+    overload = getattr(runtime.app_context, "overload", None)
+    if overload is not None and runtime._state is not None:
+        # the device-memory budget gate (resilience/overload.py): routed
+        # growth lays the whole state out again at the grown global
+        # capacity, so it is denied before the canonical copy, the new
+        # state or the new step exist. The projection is the canonical
+        # footprint (tensor metadata, no device read) times the growth
+        from siddhi_tpu_torch.resilience.overload import ensure_memory_budget
+
+        ratio = max(Kg / max(n * layout.localK, 1),
+                    (Wg / max(n * layout.local_win, 1)
+                     if layout.partitioned else 1.0))
+        ensure_memory_budget(
+            runtime.app_context, f"query.{runtime.name}",
+            int(_canonical_nbytes(runtime) * ratio),
+            what=f"query '{runtime.name}' routed key-capacity growth "
+                 f"({n * layout.localK}->{Kg} global keys)")
+    canonical = _canonical_tensors(runtime) if runtime._state is not None else None
     _install_routed(runtime, layout, canonical, Kg, Wg)
+    if overload is not None:
+        from siddhi_tpu_torch.core.util.statistics import pytree_nbytes
+        from siddhi_tpu_torch.resilience.overload import charge_memory
+
+        charge_memory(runtime.app_context, f"query.{runtime.name}",
+                      pytree_nbytes(runtime._state))

@@ -1,21 +1,34 @@
-"""Resilience: retry, the ingest WAL, fault injection and ``stat_count``.
+"""Resilience: retry, the ingest WAL, faults, overload and supervision.
 
-Counterpart of the parts of ``siddhi_tpu/resilience/`` the port runs:
-the backoff policy of sources and sinks (``retry.RetryPolicy``), the
-bounded ingest replay log (``replay.IngestWAL``: recorded at the
+Counterpart of ``siddhi_tpu/resilience/`` but for the cluster's peer
+recovery: the backoff policy of sources and sinks (``retry.RetryPolicy``),
+the bounded ingest replay log (``replay.IngestWAL``: recorded at the
 ``InputHandler``, trimmed at every checkpoint, replayed after
 ``restore_revision``; the serving tier's per-shard logs), deterministic
 fault injection (``faults.FaultInjector``: kill, wedge or delay a
 junction worker or an ingest packer, fail sink publishes, flood a
-stream, plant a journey-stage delay) and ``stat_count``. The supervisor
-and overload control are ROADMAP A.10 (b).
+stream, plant a journey-stage delay), overload control
+(``overload``: per-app queue quotas with the shed policies block,
+shed_oldest and shed_newest, the pipeline quota, the device-memory budget
+of every capacity-growth site, weighted fair scheduling), the app
+supervisor (``supervisor.AppSupervisor``: worker heartbeats and
+restarts, dead packers healed, the pipeline's wedge check) and
+``stat_count``. The supervisor's peer recovery (``PeerMonitor``,
+``PeerRecovery``) is ROADMAP A.9.
 """
 
 from siddhi_tpu_torch.resilience.faults import FaultInjector, WorkerKilled
+from siddhi_tpu_torch.resilience.overload import (
+    AppOverloadControl,
+    OverloadConfig,
+    OverloadManager,
+)
 from siddhi_tpu_torch.resilience.replay import IngestWAL, register_wal_gauges
 from siddhi_tpu_torch.resilience.retry import RetryExhausted, RetryPolicy
+from siddhi_tpu_torch.resilience.supervisor import AppSupervisor
 
-__all__ = ["FaultInjector", "IngestWAL", "RetryExhausted", "RetryPolicy",
+__all__ = ["AppOverloadControl", "AppSupervisor", "FaultInjector", "IngestWAL",
+           "OverloadConfig", "OverloadManager", "RetryExhausted", "RetryPolicy",
            "WorkerKilled", "register_wal_gauges", "stat_count"]
 
 

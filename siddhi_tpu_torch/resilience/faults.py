@@ -153,10 +153,8 @@ class FaultInjector:
         junction's @Async buffer size (or ``ratio × base_events``) events
         through ``junction.send_events`` — the exact path real producers
         use, so quota admission, shed policies, and backpressure all
-        engage (the reference's ``resilience/overload.py``; the port's
-        quotas are ROADMAP A.10 b, so a flood here meets the bounded
-        queue and its backpressure). The tests share this one injection
-        path, alongside kill/wedge/delay.
+        engage (``resilience/overload.py``). The tests share this one
+        injection path, alongside kill/wedge/delay.
 
         ``make_data(i)`` supplies each event's data row; the default
         synthesizes one from the stream definition's attribute types.

@@ -71,7 +71,7 @@ def register_wal_gauges(app_context) -> None:
     (``wal.batches`` / ``wal.pending_events`` / ``wal.dropped_batches``
     on GET /metrics). Called wherever a WAL is ATTACHED to a context —
     ``SiddhiAppRuntime.enable_wal`` (the reference also calls it from its
-    peer-recovery rebuild, ROADMAP A.10). Idempotent (gauges are keyed by
+    peer-recovery rebuild, ROADMAP A.9). Idempotent (gauges are keyed by
     name)."""
     wal = getattr(app_context, "ingest_wal", None)
     tel = getattr(app_context, "telemetry", None)
@@ -133,7 +133,7 @@ class IngestWAL:
                       events: List[Event]) -> Optional[int]:
         """Returns the record's sequence number (None when suppressed) —
         the handle ``discard`` takes if admission later sheds the batch
-        (the reference's resilience/overload.py, ROADMAP A.10)."""
+        (``resilience/overload.py``)."""
         if self.in_replay() or not events:
             return None
         copies = [Event(timestamp=e.timestamp, data=list(e.data))
@@ -174,7 +174,7 @@ class IngestWAL:
 
     def discard(self, seq: int) -> bool:
         """Remove one retained record by sequence number — the shed path
-        (the reference's ``resilience/overload.py``): a batch that admission dropped was
+        (``resilience/overload.py``): a batch that admission dropped was
         never processed, so replaying it after a restore would resurrect
         events the live run shed. No-op (False) when the record was
         already trimmed or evicted. Replay iterates records, so the seq

@@ -1,0 +1,219 @@
+"""App supervision: worker heartbeats and the pipeline's wedge check.
+
+Counterpart of the worker half of ``siddhi_tpu/resilience/supervisor.py``.
+``@Async`` junctions run plain host threads, and on the card each one
+drives a stream of CUDA-graph replays into the app's ``CompletionPump``:
+
+- **Worker heartbeats.** Every @Async worker bumps ``_beats`` each drain
+  iteration and polls its queue with a bounded wait, so a healthy worker
+  beats at least ~10 times a second even when idle. A worker whose
+  thread died is restarted at the next tick; one whose beats stalled past
+  ``wedge_timeout_s`` is presumed wedged and REPLACED. The queue and any
+  unit in delivery stay on the junction, and the junction's generation
+  token makes a stale worker that wakes later exit before it touches the
+  queue or the card (``core/stream/junction.py``). Batches already in
+  flight belong to the pump, not to the worker: the replacement drains
+  them in order, without loss or a second emit.
+- **Dead packers.** The tick respawns dead ingest pack workers
+  (``IngestPackPool.heal``); their sub-batches were already re-packed by
+  the merging thread.
+- **The pipeline's wedge check.** A pump entry whose meta never arrives
+  means a hung device step: the producers keep packing while nothing
+  emits, which the worker heartbeats cannot see. ``_check_pump`` counts
+  ``resilience.pump_wedges`` once an episode and logs it; it detects
+  only.
+- **Producer backpressure.** A producer whose bounded enqueue wait timed
+  out calls ``notify_backpressure``, which checks that junction's worker
+  at once instead of at the next tick.
+
+The peer half of the reference (``PeerMonitor``, ``is_peer_failure``,
+``abandon_runtime``, ``PeerRecovery``) needs the multi-process cluster
+(``parallel/distributed.py``'s ``ClusterPeerError``), which is ROADMAP
+A.9: ``SiddhiAppRuntime.supervise`` refuses ``peer_recovery`` and
+``peer_monitor`` naming it, and ``notify_error`` counts nothing until
+then.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Optional
+
+from siddhi_tpu_torch.analysis.guards import guarded
+from siddhi_tpu_torch.analysis.locks import make_lock
+
+log = logging.getLogger(__name__)
+
+
+@guarded
+class AppSupervisor:
+    """Heartbeats one app's @Async junction workers and ingest packers
+    and watches its pipeline. ``SiddhiAppRuntime.supervise()`` is the
+    usual entry."""
+
+    # the tick thread and producers' backpressure escalations (any sender
+    # thread) both read-modify-write the beat table
+    GUARDED_BY = {"_beat_seen": "app_supervisor"}
+
+    def __init__(self, app_runtime, interval_s: float = 0.25,
+                 wedge_timeout_s: float = 5.0):
+        from siddhi_tpu_torch.core.stream.junction import _IDLE_POLL_S
+
+        self.app_runtime = app_runtime
+        self.interval_s = float(interval_s)
+        # below 3 idle polls an IDLE worker (which beats only when its
+        # bounded queue wait times out) would look wedged
+        self.wedge_timeout_s = max(float(wedge_timeout_s), 3.0 * _IDLE_POLL_S)
+        self.worker_restarts = 0
+        self.pump_wedges = 0              # pipeline stalls detected
+        self._pump_wedge_flagged = False  # one count and log an episode
+        self._beat_seen = {}              # junction id -> (beats, t_changed)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = make_lock("app_supervisor")
+
+    # ---------------------------------------------------------- lifecycle
+
+    def start(self) -> "AppSupervisor":
+        if self._thread is not None:
+            return self
+        self.app_runtime.app_context.supervisor = self
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"supervisor-{self.app_runtime.name}")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=5)
+        if getattr(self.app_runtime.app_context, "supervisor", None) is self:
+            self.app_runtime.app_context.supervisor = None
+
+    # --------------------------------------------------------- heartbeats
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self._tick()
+            except Exception:                     # noqa: BLE001
+                log.exception("supervisor tick failed")
+
+    def _tick(self) -> None:
+        from siddhi_tpu_torch.resilience import stat_count
+
+        now = time.monotonic()
+        for sid, j in list(self.app_runtime.junctions.items()):
+            if not (j._async and j._running):
+                continue
+            # the beat table is shared with notify_backpressure: the
+            # read-judge-restart sequence is one atom, or a concurrent
+            # escalation restarts twice
+            with self._lock:
+                worker = j._worker
+                beats = j._beats
+                seen = self._beat_seen.get(sid)
+                if seen is None or seen[0] != beats:
+                    self._beat_seen[sid] = (beats, now)
+                    stalled = False
+                else:
+                    stalled = (now - seen[1]) > self.wedge_timeout_s
+                dead = worker is None or not worker.is_alive()
+                if j._fatal is not None:
+                    continue    # a framework failure reaches the senders:
+                    #             it is not a restartable fault
+                if not (dead or stalled):
+                    continue
+                log.warning("supervisor: restarting %s worker of junction '%s'",
+                            "dead" if dead else "wedged", sid)
+                j.restart_worker()
+                self.worker_restarts += 1
+                self._beat_seen[sid] = (j._beats, now)
+            stat_count(self.app_runtime.app_context, "resilience.worker_restarts")
+        # a dead packer's sub-batch was re-packed by the merging thread
+        # (never lost); the tick respawns the thread so the pool's width
+        # comes back without waiting for the next submit
+        pool = self.app_runtime.app_context.ingest_pack_pool
+        if pool is not None:
+            healed = pool.heal()
+            if healed:
+                log.warning("supervisor: respawned %d dead ingest pack "
+                            "worker(s)", healed)
+                self.worker_restarts += healed
+                stat_count(self.app_runtime.app_context,
+                           "resilience.worker_restarts", healed)
+        self._check_pump()
+
+    def _check_pump(self) -> None:
+        """A pump entry older than ``wedge_timeout_s``: its device step
+        (or the graph replay behind it) has not finished. Counted once an
+        episode; the entries stay with the pump, so a replacement worker
+        drains them in order when they do finish."""
+        from siddhi_tpu_torch.resilience import stat_count
+
+        age = self.app_runtime.app_context.completion_pump.oldest_age_s()
+        if age is not None and age > self.wedge_timeout_s:
+            if not self._pump_wedge_flagged:
+                self._pump_wedge_flagged = True
+                self.pump_wedges += 1
+                log.warning(
+                    "supervisor: completion pump of app '%s' looks wedged: "
+                    "its oldest in-flight batch is %.1fs old and its meta "
+                    "has not arrived (a hung device step)",
+                    self.app_runtime.name, age)
+                stat_count(self.app_runtime.app_context, "resilience.pump_wedges")
+        else:
+            self._pump_wedge_flagged = False
+
+    # ------------------------------------------------- producer backpressure
+
+    def notify_backpressure(self, junction) -> bool:
+        """A producer's bounded enqueue wait timed out: check that
+        junction's worker now and replace it when dead or beat-stalled.
+        True when a restart was issued; a healthy but slow worker is left
+        alone (the wait was backpressure, not a wedge)."""
+        from siddhi_tpu_torch.resilience import stat_count
+
+        if not (junction._async and junction._running):
+            return False
+        if junction._fatal is not None:
+            return False      # reaches the senders; not restartable
+        sid = junction.definition.id
+        with self._lock:
+            now = time.monotonic()
+            worker = junction._worker
+            dead = worker is None or not worker.is_alive()
+            seen = self._beat_seen.get(sid)
+            if seen is None:
+                # first sighting: a baseline, so the next timeout can tell
+                # stalled from slow
+                self._beat_seen[sid] = (junction._beats, now)
+                stalled = False
+            else:
+                stalled = (seen[0] == junction._beats
+                           and (now - seen[1]) > self.wedge_timeout_s)
+            if not (dead or stalled):
+                return False
+            log.warning("supervisor: producer backpressure escalation — "
+                        "restarting %s worker of junction '%s'",
+                        "dead" if dead else "wedged", sid)
+            junction.restart_worker()
+            self.worker_restarts += 1
+            self._beat_seen[sid] = (junction._beats, now)
+        stat_count(self.app_runtime.app_context, "resilience.worker_restarts")
+        return True
+
+    # ------------------------------------------------------ peer recovery
+
+    def notify_error(self, junction, error: Exception) -> None:
+        """Called by ``StreamJunction.handle_error`` for every processing
+        error. The reference reacts to cluster-peer failures here
+        (``is_peer_failure``, then ``PeerRecovery``); the port has no
+        multi-process cluster until ROADMAP A.9, so no error here is a
+        peer failure and nothing is counted."""
+        return None

@@ -45,9 +45,13 @@ Every trace file and directory is confined under ``trace_base``: a
 client names it relative to that directory, and a name that escapes it
 answers 400. The reference's routes over modules the port lacks answer
 ``501`` naming their ROADMAP item: the autopilot (``/autopilot``) and the
-cluster fabric (``/cluster``; the ``cluster=`` argument raises). Without
-the overload layer's per-app query quotas (ROADMAP A.10) every app uses
-the endpoint's cap, as the reference does when no quota is registered.
+cluster fabric (``/cluster``; the ``cluster=`` argument raises). An app
+whose overload control has a ``query_cap`` (``siddhi_tpu.quota_query_cap``,
+``resilience/overload.py``) is admitted to ``/query`` on its own endpoint
+``/query:<app>`` against that cap, so one tenant's query storm sheds 503s
+without taking its siblings' share of the shared ``/query`` cap; every
+other app uses the endpoint's cap. A shed counts
+``resilience.query_sheds``.
 """
 
 from __future__ import annotations
@@ -270,8 +274,15 @@ class SiddhiRestService:
             from siddhi_tpu_torch.serving.query_tier import QueryShedError
 
             rt = self._rt(body["app"])
+            # per-app admission: an app with a query_cap sheds against its
+            # own pending count, never the shared '/query' one
+            ctl = rt.app_context.overload
+            endpoint, cap = "/query", None
+            if ctl is not None and ctl.query_cap is not None:
+                endpoint, cap = f"/query:{rt.name}", ctl.query_cap
             try:
-                fut = self.admission.try_submit("/query", rt.query, body["query"])
+                fut = self.admission.try_submit(endpoint, rt.query, body["query"],
+                                                cap=cap)
             except QueryShedError as e:
                 stat_count(rt.app_context, "resilience.query_sheds")
                 h._send_shed(e)

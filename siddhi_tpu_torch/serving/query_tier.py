@@ -85,11 +85,11 @@ class AdmissionPool:
                    **kwargs) -> Future:
         """Admit or shed: raises ``QueryShedError`` when the endpoint
         already has ``cap`` requests pending (queued + executing).
-        ``cap`` overrides the endpoint's configured cap for this submit —
-        the reference's service edge passes an app's own quota here when
-        the target app registered one with its overload layer
-        (``resilience/overload.py``, ROADMAP A.10), making admission per-TENANT: a
-        ``/query:<app>`` endpoint tracks its own pending count, so one
+        ``cap`` overrides the endpoint's configured cap for this submit:
+        the service edge (``service/rest.py``) passes an app's own
+        ``query_cap`` here when the app registered one with the overload
+        layer (``resilience/overload.py``), making admission per tenant:
+        a ``/query:<app>`` endpoint tracks its own pending count, so one
         app's query storm sheds against its own cap instead of consuming
         the shared pool's."""
         if cap is None:

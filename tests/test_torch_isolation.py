@@ -222,6 +222,25 @@ assert isinstance(srt.aggregations["A"], ShardedIncrementalAggregation)
 assert "siddhi_aggregation_shards" in export.prometheus_text(sm)
 assert srt.statistics()["throughput"]["S"]["events"] == 1
 sm.shutdown()
+from siddhi_tpu_torch.resilience import AppSupervisor, OverloadManager
+from siddhi_tpu_torch.resilience.overload import FairScheduler, ensure_memory_budget
+om = SiddhiManager(device="cpu")
+om.set_config_manager(InMemoryConfigManager({{"siddhi_tpu.quota_queue_depth": "2",
+                                             "siddhi_tpu.shed_policy": "shed_newest",
+                                             "siddhi_tpu.quota_memory_mb": "64"}}))
+ort = om.create_siddhi_app_runtime('''@app:name('iso_ov') @Async(buffer.size='8')
+define stream S (sym string, v long);
+@info(name = 'q') from S select sym, sum(v) as t group by sym insert into O;''')
+oc = C(); ort.add_callback("O", oc)
+sup = ort.supervise(interval_s=0.05)
+assert isinstance(sup, AppSupervisor)
+assert OverloadManager.instance().control_of("iso_ov") is ort.app_context.overload
+octl = ort.app_context.overload
+for i in range(20):
+    ort.get_input_handler("S").send([f"k{{i}}", i])
+om.shutdown()
+ctl_gone = OverloadManager.instance().control_of("iso_ov") is None
+assert ctl_gone and len(oc.rows) + octl.shed_events == 20, (ctl_gone, len(oc.rows))
 assert "jax" not in {{k for k, v in sys.modules.items() if v is not None}}
 print("OK")
 """

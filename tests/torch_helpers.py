@@ -420,6 +420,16 @@ def port_corpus(name, unported=()):
 
     src = re.sub(r"from siddhi_tpu\.([\w.]+) import", rebind, src)
 
+    def rebind_module(m):
+        # `import siddhi_tpu.<mod> as x` (a monkeypatch target) likewise
+        mod = m.group(1)
+        path = os.path.join(port_root, *mod.split("."))
+        if os.path.exists(path + ".py"):
+            return f"import siddhi_tpu_torch.{mod} as"
+        return m.group(0)
+
+    src = re.sub(r"import siddhi_tpu\.([\w.]+) as", rebind_module, src)
+
     def rebind_corpus(m):
         # a name shared from another corpus module comes from its port
         key = f"_port_corpus_{m.group(1)}"
