@@ -260,7 +260,8 @@ Phases (any failure exits non-zero and prints no result line):
             with ``"shed": true``, no 500, ``/metrics`` counting them and
             the rebuild; the statistics' StockStream count == the rows
             sent, and D1's host syncs a step at ``detail`` == without
-            statistics; ``/autopilot`` answers 501 and
+            statistics; ``/autopilot`` answers 200 with the app not
+            registered, ``/autopilot/<app>`` and ``/cluster`` 404, and
             ``/profile/critical_path`` 200, ``/programs`` 200 with the
             group's program-cache entry.
             Prints the sharded and unsharded fold, routing, decode and
@@ -391,12 +392,48 @@ launch counts and recorded-call checks hold as they did.
             its own graphs): rows bit-equal to unbounded, at
             most quota + queries - 1 in flight after a submit, D1's
             replayed scan == plain;
-27. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+27. autopilot AP, the closed-loop controller's actuators on the card (8
+            batches of ``make_feed`` a run). Gate 1: the routed flagship
+            installed over 2 logical shards (``rows_per_shard`` 40,960),
+            ``route_shards`` UP to 4 before batch 3 and DOWN to 2 before
+            batch 6: rows bit-equal to the unactuated run, K8 launched once
+            a batch and 3 captures (one an install), the replay after the
+            4-shard capture held against ``ring_exchange_cols_plain``, and
+            ``torch.cuda.memory_allocated`` after the round trip within one
+            packed batch (the graph's static inputs) of its value before it.
+            Gate 2: ``fuse_fanout`` DOWN before FO's batch 2 and UP before
+            batch 5 (deferred to the delivering thread): rows equal, more
+            captures than fused throughout, the distinct scan once a batch.
+            Gate 3: the @Async global flagship with ``pipeline_depth`` 1 ->
+            2 while batches are pending and ``ingest_pool`` 0 -> 2 -> 0:
+            rows bit-equal. Gate 4: mode off vs ``dry_run`` (the controller
+            thread ticking every 0.05 s) on the global and the routed x4
+            flagship: rows bit-equal, host syncs a send and host launch
+            calls a batch equal, nothing applied, 3 ticks make 0 host syncs.
+            Gate 5: the controller ON every 0.05 s (cooldown 0.2 s) over
+            the routed flagship at 2 shards: rows bit-equal to gate 1's
+            unactuated run; the decision log printed;
+28. cluster CL, the cluster fabric: ``ClusterRuntime(n_workers=2)`` with both
+            worker processes on the card, ``clSplit`` (per-symbol
+            ``#window.length(50)`` with ``distinctCount(volume)``, split by
+            symbol) fed in-process and ``clPinned`` (the global flagship,
+            pinned) fed over the ingest socket, 6 batches of 65,536 rows
+            whose rows are grouped by owning worker; a checkpoint after
+            batch 1, worker 1 killed after batch 3. Checks: each worker
+            reports a cuda device and the card's name (before and after
+            the respawn), the egress rows of both apps equal one process's
+            card run of the same feed before the kill and in whole (ints
+            and strings exactly, floats to rtol 1e-12), worker 1 respawned,
+            the distinct scan launched in each worker. Records the socket
+            ingest's events/s, the egress latency per batch and the
+            recovery time;
+29. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
     ``{"fanout": ...}`` line, a ``{"program_cache": ...}`` line, an
-    ``{"observability": ...}`` line, an ``{"overload": ...}`` line, a
+    ``{"observability": ...}`` line, an ``{"overload": ...}`` line, an
+    ``{"autopilot": ...}`` line, a ``{"cluster": ...}`` line, a
     ``{"kernels": [...]}`` line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -5316,11 +5353,19 @@ def phase_serving(device, straight, card: str):
         facts["fanout_ms"] = {q: tel["serving.fanout_ms"][q] for q in ("p50", "p99")}
         facts["merge_ms"] = {q: tel["serving.merge_ms"][q] for q in ("p50", "p99")}
         facts["storm"] = {"200": codes.count(200), "503": codes.count(503)}
-        # a route of an unported module answers 501 naming its item; the
+        # the autopilot's and the fabric's routes answer as the reference's
+        # (ported since PR 17; 501 before): the report with this app not
+        # registered, 404 for the app, 404 with no fabric attached; the
         # critical-path report (ported with the observability tier) 200
         code, body, _h = http(port, "GET", "/autopilot")
-        _require(code == 501 and "ROADMAP A.10" in body["error"],
+        _require(code == 200 and len(body["actuators"]) == 6 and name not in body["apps"],
                  f"serving: /autopilot answered {code}: {body}")
+        code, body, _h = http(port, "GET", f"/autopilot/{name}")
+        _require(code == 404 and "autopilot control" in body["error"],
+                 f"serving: /autopilot/{name} answered {code}: {body}")
+        code, body, _h = http(port, "GET", "/cluster")
+        _require(code == 404 and "no cluster fabric" in body["error"],
+                 f"serving: /cluster answered {code}: {body}")
         code, body, _h = http(port, "GET", f"/profile/critical_path/{name}")
         _require(code == 200 and name in body["apps"],
                  f"serving: /profile/critical_path answered {code}: {body}")
@@ -7512,6 +7557,550 @@ def phase_overload(device, card: str):
     return facts, ex_launches, scan_launches, ex_replays
 
 
+# ---------------------------------------------------- phase 27: autopilot
+
+AP_SEED = 27
+AP_BATCHES = 8                  # each run: a cut of depth
+AP_SHARDS = 2                   # the routed flagship's install, UP to 4 and back
+AP_ROWS_PER_SHARD = 40_960      # B / 2 * 1.25: every pair's quota holds at 2 and 4
+AP_UP_AT, AP_DOWN_AT = 3, 6     # route_shards UP before batch 3, DOWN before 6
+AP_RECORD_AT = 4                # the exchange call held against plain: batch 4's
+                                # replay, the first after the 4-shard capture
+AP_MEM_AT = 2                   # memory_allocated read after this batch and the last
+AP_FO_DOWN_AT, AP_FO_UP_AT = 2, 5
+AP_INTERVAL_S = 0.05            # the controller thread's cadence under live ingest
+AP_COOLDOWN_S = 0.2
+AP_DRY = {"autopilot": "dry_run", "autopilot_interval_s": AP_INTERVAL_S}
+
+
+def ap_routed(device, knobs=None):
+    """(manager, runtime, collector) of the routed flagship (phase 4's
+    app and key slots) installed over AP_SHARDS logical shards."""
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+
+    m = ol_manager(device, {"shard_exchange": "pallas_ring", "pipeline_depth": 1,
+                            **(knobs or {})})
+    rt = m.create_siddhi_app_runtime(APP.format(W=WINDOW))
+    q = rt.query_runtimes["bench"]
+    q.selector_plan.num_keys = KEY_SLOTS
+    q._win_keys = KEY_SLOTS
+    device_route_query_step(q, make_mesh(AP_SHARDS, device),
+                            rows_per_shard=AP_ROWS_PER_SHARD)
+    cb = collector()
+    rt.add_callback("OutStream", cb)
+    return m, rt, cb
+
+
+def graph_input_bytes(graph) -> int:
+    """Bytes of a step graph's static input columns: one packed batch as
+    the card holds it."""
+    return sum(t.numel() * t.element_size() for cap in graph._graphs.values()
+               for t in cap.inputs.values())
+
+
+def ap_route_run(device, feed, actuate: bool, record_at=None):
+    """The routed flagship at 2 shards over ``feed``; with ``actuate``,
+    ``route_shards`` UP before batch AP_UP_AT and DOWN before AP_DOWN_AT.
+    Returns (rows, facts): K8 launches a batch, shard counts, captures,
+    memory_allocated after batch AP_MEM_AT and after the last, one packed
+    batch's bytes, and the exchange recorder."""
+    import torch
+
+    from siddhi_tpu_torch.autopilot import ACTUATORS
+    from siddhi_tpu_torch.autopilot.actuators import DOWN, UP
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+
+    rec_ctx = recording_exchange(at=record_at) if record_at is not None \
+        else contextlib.nullcontext()
+    facts = {"launches": [], "shards": [], "moves": []}
+    with rec_ctx as rec:
+        m, rt, cb = ap_routed(device)
+        q = rt.query_runtimes["bench"]
+        h = rt.get_input_handler("StockStream")
+        c0 = StepGraph.total_captures
+        for i, (cols, ts) in enumerate(feed):
+            if actuate and i in (AP_UP_AT, AP_DOWN_AT):
+                want = (2, 4) if i == AP_UP_AT else (4, 2)
+                got = ACTUATORS["route_shards"].apply(rt, UP if i == AP_UP_AT else DOWN)
+                _require(got == want, f"AP route_shards before batch {i}: {got}, want {want}")
+                facts["moves"].append(got)
+            k0 = ring_exchange.launches
+            h.send_columns(cols, timestamps=ts)
+            torch.cuda.synchronize()
+            facts["launches"].append(ring_exchange.launches - k0)
+            facts["shards"].append(q._route_layout.n)
+            if i == AP_MEM_AT:
+                facts["mem_start"] = torch.cuda.memory_allocated()
+        facts["mem_end"] = torch.cuda.memory_allocated()
+        facts["packed_batch_bytes"] = graph_input_bytes(q._step.graph)
+        facts["captures"] = StepGraph.total_captures - c0
+        m.shutdown()
+    facts["recorder"] = rec
+    return concat_rows(cb.batches), facts
+
+
+def ap_reshard(device, feed, card: str):
+    """Gate 1: route_shards 2 -> 4 -> 2 on the routed flagship mid-feed."""
+    plain, pf = ap_route_run(device, feed, actuate=False)
+    moved, mf = ap_route_run(device, feed, actuate=True)
+    recorded, rf = ap_route_run(device, feed, actuate=True, record_at=AP_RECORD_AT)
+    require_equal(moved, plain, "AP gate 1: rows with route_shards 2 -> 4 -> 2 vs unactuated")
+    require_equal(recorded, plain, "AP gate 1: the recorded actuated run vs unactuated")
+    want_shards = [2] * AP_UP_AT + [4] * (AP_DOWN_AT - AP_UP_AT) \
+        + [2] * (len(feed) - AP_DOWN_AT)
+    _require(mf["shards"] == want_shards, f"AP gate 1: shard counts {mf['shards']}")
+    _require(mf["launches"] == [1] * len(feed) == pf["launches"],
+             f"AP gate 1: K8 launches a batch actuated {mf['launches']}, "
+             f"unactuated {pf['launches']}: want one a batch")
+    _require(mf["captures"] == 3 and pf["captures"] == 1,
+             f"AP gate 1: captures actuated {mf['captures']} (want 3: one an install), "
+             f"unactuated {pf['captures']}")
+    rec = rf["recorder"]
+    _require(rec.got is not None, f"AP gate 1: exchange call {AP_RECORD_AT} (a replay after "
+             f"the 4-shard re-install) was not recorded")
+    cols = check_exchange_call(rec, "AP gate 1: K8 inside the 4-shard graph's replay")
+    drift = mf["mem_end"] - mf["mem_start"]
+    _require(abs(drift) <= mf["packed_batch_bytes"],
+             f"AP gate 1: memory_allocated {mf['mem_start']} -> {mf['mem_end']} after the "
+             f"2 -> 4 -> 2 round trip, beyond one packed batch ({mf['packed_batch_bytes']} B)")
+    print(f"[autopilot] gate 1: routed flagship at 2 logical shards, route_shards UP before "
+          f"batch {AP_UP_AT} and DOWN before {AP_DOWN_AT}: rows bit-equal to the unactuated "
+          f"run; K8 launched once a batch ({sum(mf['launches'])} launches, 3 captures: one an "
+          f"install), the replay after the 4-shard capture == plain on its {cols} columns; "
+          f"memory_allocated {mf['mem_start']} -> {mf['mem_end']} B (drift {drift} B, one "
+          f"packed batch {mf['packed_batch_bytes']} B) [{card}]", flush=True)
+    launches = sum(mf["launches"]) + sum(pf["launches"]) + sum(rf["launches"])
+    return plain, {"shards": mf["shards"], "launches": mf["launches"],
+                   "captures": mf["captures"], "mem_start": mf["mem_start"],
+                   "mem_end": mf["mem_end"], "mem_drift": drift,
+                   "packed_batch_bytes": mf["packed_batch_bytes"],
+                   "exchange_columns_checked": cols,
+                   "exchange_replays_recorded_run": rec.replays}, launches
+
+
+def ap_fanout(device, feed, card: str):
+    """Gate 2: fuse_fanout DOWN then UP on FO (seven siblings, D1 among
+    them): rows equal, the recaptures counted."""
+    import torch
+
+    from siddhi_tpu_torch.autopilot import ACTUATORS
+    from siddhi_tpu_torch.autopilot.actuators import DOWN, UP
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    out, facts, launches = {}, {}, 0
+    for label in ("plain", "actuated"):
+        c0, k0 = StepGraph.total_captures, distinct_scan.launches
+        run = FoRun(device, fused=True, depth=1)
+        groups = []
+        for i, b in enumerate(feed):
+            if label == "actuated" and i in (AP_FO_DOWN_AT, AP_FO_UP_AT):
+                got = ACTUATORS["fuse_fanout"].apply(run.rt, DOWN if i == AP_FO_DOWN_AT else UP)
+                _require(got is not None, f"AP gate 2: fuse_fanout did not apply before batch {i}")
+            run.send([b])
+            groups.append(len(run.rt.fused_fanout_groups))
+        torch.cuda.synchronize()
+        out[label] = run.close()
+        facts[label] = {"captures": StepGraph.total_captures - c0,
+                        "scan_launches": distinct_scan.launches - k0, "groups": groups}
+        launches += facts[label]["scan_launches"]
+    worst = fo_compare(out["actuated"], out["plain"], "AP gate 2: FO dissolved and re-formed "
+                       "vs fused throughout")
+    a, p = facts["actuated"], facts["plain"]
+    want_groups = [1] * AP_FO_DOWN_AT + [0] * (AP_FO_UP_AT - AP_FO_DOWN_AT) \
+        + [1] * (len(feed) - AP_FO_UP_AT)
+    _require(a["groups"] == want_groups, f"AP gate 2: fused groups a batch {a['groups']}")
+    _require(a["scan_launches"] == p["scan_launches"] == len(feed),
+             f"AP gate 2: distinct-scan launches actuated {a['scan_launches']}, fused "
+             f"throughout {p['scan_launches']}: want one a batch")
+    _require(a["captures"] > p["captures"],
+             f"AP gate 2: {a['captures']} captures actuated vs {p['captures']}: the "
+             f"dissolved members and the re-formed group never recaptured")
+    print(f"[autopilot] gate 2: FO's group dissolved at batch {AP_FO_DOWN_AT} and re-formed "
+          f"at {AP_FO_UP_AT} (groups a batch {a['groups']}): rows equal (max abs float diff "
+          f"{worst:.3g}), {a['captures']} graph captures vs {p['captures']} fused throughout, "
+          f"the distinct scan once a batch [{card}]", flush=True)
+    return {"groups": a["groups"], "captures": a["captures"],
+            "captures_fused_throughout": p["captures"], "max_abs_diff": worst}, launches
+
+
+def ap_async_run(device, feed, actuate: bool):
+    """The @Async global flagship (PIPE_APP) at depth 1; with ``actuate``,
+    pipeline_depth 1 -> 2 with batches pending and ingest_pool 0 -> 2 -> 0
+    between sends. Returns (rows, facts)."""
+    import torch
+
+    from siddhi_tpu_torch.autopilot import ACTUATORS
+    from siddhi_tpu_torch.autopilot.actuators import DOWN, UP
+
+    schedule = {1: ("pipeline_depth", UP), 2: ("ingest_pool", UP), 3: ("ingest_pool", UP),
+                5: ("ingest_pool", DOWN), 6: ("ingest_pool", DOWN)}
+    m, rt, cbs = ol_app(device, PIPE_APP.format(W=WINDOW), {"pipeline_depth": 1})
+    ctx = rt.app_context
+    h = rt.get_input_handler("StockStream")
+    moves, subbatches = [], 0
+    for i, (cols, ts) in enumerate(feed):
+        if actuate and i in schedule:
+            pool = ctx.ingest_pack_pool
+            if pool is not None:
+                subbatches += pool.subbatches
+            name, direction = schedule[i]
+            moves.append((name, ACTUATORS[name].apply(rt, direction)))
+        h.send_columns(cols, timestamps=ts)
+    if ctx.ingest_pack_pool is not None:
+        subbatches += ctx.ingest_pack_pool.subbatches
+    wait_rows(cbs["OutStream"], len(feed) * BATCH, "AP gate 3")
+    ctx.completion_pump.flush()
+    torch.cuda.synchronize()
+    facts = {"moves": moves, "depth": ctx.pipeline_depth,
+             "high_water": ctx.completion_pump.high_water, "pool_subbatches": subbatches}
+    m.shutdown()
+    return concat_rows(cbs["OutStream"].batches), facts
+
+
+def ap_async(device, feed, card: str):
+    """Gate 3: pipeline_depth and ingest_pool actuated behind @Async."""
+    plain, _pf = ap_async_run(device, feed, actuate=False)
+    moved, mf = ap_async_run(device, feed, actuate=True)
+    require_equal(moved, plain, "AP gate 3: rows with depth 1 -> 2 and the pool 0 -> 2 -> 0 "
+                  "vs unactuated")
+    want = [("pipeline_depth", (1, 2)), ("ingest_pool", (0, 1)), ("ingest_pool", (1, 2)),
+            ("ingest_pool", (2, 1)), ("ingest_pool", (1, 0))]
+    _require(mf["moves"] == want, f"AP gate 3: moves {mf['moves']}")
+    _require(mf["pool_subbatches"] >= 2, f"AP gate 3: the pool of 2 packed "
+             f"{mf['pool_subbatches']} sub-batches")
+    print(f"[autopilot] gate 3: @Async global flagship, pipeline_depth 1 -> 2 with batches "
+          f"pending (pump high water {mf['high_water']}), ingest_pool 0 -> 1 -> 2 -> 1 -> 0 "
+          f"({mf['pool_subbatches']} sub-batches pooled): rows bit-equal to unactuated "
+          f"[{card}]", flush=True)
+    return {"moves": mf["moves"], "high_water": mf["high_water"],
+            "pool_subbatches": mf["pool_subbatches"]}
+
+
+def ap_dry_run(device, feed, card: str):
+    """Gate 4: mode off vs dry_run (the controller thread ticking every
+    AP_INTERVAL_S) on the global and the routed x4 flagship: rows
+    bit-equal, host syncs a send and host launch calls a batch equal, no
+    decision applied; a tick makes no host sync."""
+    from siddhi_tpu_torch.autopilot import AutopilotController
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+
+    ctl = AutopilotController.instance()
+    facts, launches = {}, 0
+    for label, app, knobs in (
+            ("global", GLOBAL_APP.format(W=WINDOW), {"pipeline_depth": 1}),
+            ("routed", APP.format(W=WINDOW),
+             {"pipeline_depth": 1, "shard_exchange": "pallas_ring"})):
+        runs = {}
+        for mode in ("off", "dry_run"):
+            k0 = ring_exchange.launches
+            m, rt, cbs = ol_app(device, app, {**knobs, **(AP_DRY if mode == "dry_run" else {})},
+                                routed=label == "routed")
+            syncs = ol_sends(rt, feed[:-1])
+            h = rt.get_input_handler("StockStream")
+            prof = profile_batch(f"AP {label}, autopilot {mode}, batch {len(feed)}",
+                                 lambda: h.send_columns(*feed[-1]), card)
+            run = {"rows": concat_rows(cbs["OutStream"].batches), "syncs": syncs,
+                   "calls": prof["host_launch_calls"]}
+            if mode == "dry_run":
+                tick = {}
+                with counting_syncs(tick):
+                    for _ in range(3):
+                        ctl.tick(rt.name)
+                rep = ctl.report(rt.name)["apps"][rt.name]
+                run.update(tick_syncs=tick["syncs"], ticks=rep["ticks"],
+                           decisions=rep["decisions"],
+                           applied=sum(1 for d in rep["decisions"] if d["applied"]))
+            m.shutdown()
+            launches += ring_exchange.launches - k0
+            runs[mode] = run
+        off, dry = runs["off"], runs["dry_run"]
+        require_equal(dry["rows"], off["rows"], f"AP gate 4 {label}: rows dry_run vs off")
+        _require(dry["syncs"][1:] == off["syncs"][1:],
+                 f"AP gate 4 {label}: host syncs a send dry_run {dry['syncs']} vs off "
+                 f"{off['syncs']}")
+        _require(dry["calls"] == off["calls"], f"AP gate 4 {label}: {dry['calls']} host "
+                 f"launch calls a batch dry_run vs {off['calls']} off")
+        _require(dry["tick_syncs"] == 0, f"AP gate 4 {label}: 3 ticks made "
+                 f"{dry['tick_syncs']} host syncs")
+        _require(dry["applied"] == 0 and dry["ticks"] >= 3,
+                 f"AP gate 4 {label}: dry run applied {dry['applied']} decisions in "
+                 f"{dry['ticks']} ticks")
+        facts[label] = {"syncs_off": off["syncs"], "syncs_dry_run": dry["syncs"],
+                        "launch_calls_off": off["calls"], "launch_calls_dry_run": dry["calls"],
+                        "ticks": dry["ticks"], "decisions": len(dry["decisions"])}
+        print(f"[autopilot] gate 4 {label}: dry_run (ticking every {AP_INTERVAL_S} s, "
+              f"{dry['ticks']} ticks, {len(dry['decisions'])} decisions logged, none applied) "
+              f"vs off: rows bit-equal, host syncs a send {dry['syncs']} == {off['syncs']} "
+              f"(after the first), host launch calls a batch {dry['calls']} == "
+              f"{off['calls']}, 0 syncs in 3 ticks [{card}]", flush=True)
+    return facts, launches
+
+
+def ap_controller(device, feed, plain, card: str):
+    """Gate 5: the controller thread ON (every AP_INTERVAL_S, cooldown
+    AP_COOLDOWN_S) over the routed flagship at 2 shards under live
+    ingest: rows bit-equal to the unactuated run; the decision log."""
+    import torch
+
+    from siddhi_tpu_torch.autopilot import AutopilotController
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+
+    ctl = AutopilotController.instance()
+    k0 = ring_exchange.launches
+    m, rt, cb = ap_routed(device, {"autopilot": "on", "autopilot_interval_s": AP_INTERVAL_S,
+                                   "autopilot_cooldown_s": AP_COOLDOWN_S})
+    h = rt.get_input_handler("StockStream")
+    for cols, ts in feed:
+        h.send_columns(cols, timestamps=ts)
+        torch.cuda.synchronize()
+    rep = ctl.report(rt.name)["apps"][rt.name]
+    shards = rt.query_runtimes["bench"]._route_layout.n
+    m.shutdown()
+    launches = ring_exchange.launches - k0
+    require_equal(concat_rows(cb.batches), plain,
+                  "AP gate 5: rows with the controller ON vs the unactuated run")
+    _require(rep["ticks"] >= 1, f"AP gate 5: the controller thread ticked {rep['ticks']} times")
+    applied = [d for d in rep["decisions"] if d["applied"]]
+    print(f"[autopilot] gate 5: controller ON every {AP_INTERVAL_S} s over {len(feed)} "
+          f"routed batches: {rep['ticks']} ticks, {rep['freezes']} frozen by the compile "
+          f"storm, {len(rep['decisions'])} decisions ({len(applied)} applied), {shards} shards "
+          f"at the end; rows bit-equal to the unactuated run [{card}]", flush=True)
+    for d in rep["decisions"][-12:]:
+        print(f"[autopilot] decision {json.dumps(d)}", flush=True)
+    return {"ticks": rep["ticks"], "freezes": rep["freezes"],
+            "decisions": rep["decisions"][-32:], "applied": len(applied),
+            "shards_at_end": shards}, launches
+
+
+def phase_autopilot(device, card: str):
+    """Phase 27 (see the module doc). Returns (facts, exchange launches,
+    distinct-scan launches)."""
+    t_phase = time.perf_counter()
+    feed = make_feed(AP_SEED, AP_BATCHES, BATCH, NUM_SYMBOLS)
+    facts = {"card": card}
+    plain, facts["reshard"], ex_launches = ap_reshard(device, feed, card)
+    facts["fanout"], scan_launches = ap_fanout(device, feed, card)
+    facts["async"] = ap_async(device, feed, card)
+    facts["dry_run"], dry_launches = ap_dry_run(device, feed, card)
+    facts["controller"], ctl_launches = ap_controller(device, feed, plain, card)
+    ex_launches += dry_launches + ctl_launches
+    facts["phase_s"] = time.perf_counter() - t_phase
+    facts["launches"] = {"exchange": ex_launches, "scan": scan_launches}
+    print(f"[autopilot] phase 27 in {facts['phase_s']:.1f} s: K8 {ex_launches} launches, "
+          f"the distinct scan {scan_launches} [{card}]", flush=True)
+    return facts, ex_launches, scan_launches
+
+
+# ------------------------------------------------ phase 28: cluster fabric
+
+CL_SEED = 28
+CL_BATCHES = 6                  # a cut of depth: each batch crosses the sockets twice
+CL_WORKERS = 2
+CL_CHECKPOINT_AFTER = 1         # a checkpoint barrier after batch 1
+CL_KILL_AFTER = 3               # worker 1 killed after batch 3, mid-feed
+CL_TIMEOUT_S = 300              # every wait of the phase is bounded by it
+# the split app: per-symbol length windows with distinctCount (H = 64 holds
+# a window of 50), so the distinct scan runs in every worker
+CL_SPLIT_APP = """@app:name('clSplit')
+@app:playback
+define stream StockStream (symbol string, price float, volume long);
+partition with (symbol of StockStream)
+begin
+  @info(name = 'bench')
+  from StockStream#window.length(50)
+  select symbol, distinctCount(volume) as volumes, avg(price) as avgPrice,
+         sum(volume) as totalVolume
+  insert into OutStream;
+end;
+"""
+# the pinned app: the global flagship, whole on one worker
+CL_PINNED_APP = "@app:name('clPinned')\n@app:playback\n" + GLOBAL_APP.format(W=WINDOW)
+
+
+def cl_feed():
+    """``make_feed``'s batches with each batch's rows stably grouped by
+    owning worker (``owner_of_key``), so the router splits a batch into one
+    run a worker (random keys would cut it into ~B/2 runs of a few rows,
+    each its own step); timestamps stay ascending."""
+    import numpy as np
+
+    from siddhi_tpu_torch.cluster import owner_of_key
+
+    owner = {}
+    feed = []
+    for cols, ts in make_feed(CL_SEED, CL_BATCHES, BATCH, NUM_SYMBOLS):
+        own = np.array([owner.setdefault(s, owner_of_key(s, CL_WORKERS))
+                        for s in cols["symbol"]], dtype=np.int64)
+        order = np.argsort(own, kind="stable")
+        feed.append(({k: v[order] for k, v in cols.items()}, ts))
+    return feed
+
+
+def cl_rows_single(device, feed):
+    """Both apps in one process on ``device``: {app: [(ts, values)]}."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    from siddhi_tpu_torch.cluster.protocol import py_value
+
+    class Rows(StreamCallback):
+        def __init__(self):
+            self.rows = []
+
+        def receive(self, events):
+            self.rows.extend((int(e.timestamp), tuple(py_value(v) for v in e.data))
+                             for e in events)
+
+    out = {}
+    for name, app in (("clSplit", CL_SPLIT_APP), ("clPinned", CL_PINNED_APP)):
+        m = SiddhiManager(device=device)
+        rt = m.create_siddhi_app_runtime(app)
+        cb = Rows()
+        rt.add_callback("OutStream", cb)
+        h = rt.get_input_handler("StockStream")
+        for cols, ts in feed:
+            h.send_columns(cols, timestamps=ts)
+        m.shutdown()
+        out[name] = cb.rows
+    return out
+
+
+def cl_compare(got, want, what: str) -> float:
+    """Rows in order: ints and strings exactly, floats to rtol 1e-12.
+    Returns the largest float relative difference."""
+    _require(len(got) == len(want), f"{what}: {len(got)} rows vs {len(want)}")
+    if got == want:
+        return 0.0
+    worst = 0.0
+    for i, ((ta, a), (tb, b)) in enumerate(zip(got, want)):
+        _require(ta == tb and len(a) == len(b), f"{what}: row {i} {ta, a} vs {tb, b}")
+        for x, y in zip(a, b):
+            if isinstance(y, float) and isinstance(x, float):
+                rel = abs(x - y) / max(abs(y), 1e-300)
+                _require(rel <= FLOAT_RTOL, f"{what}: row {i} {a} vs {b}")
+                worst = max(worst, rel)
+            else:
+                _require(x == y, f"{what}: row {i} {a} vs {b}")
+    return worst
+
+
+def phase_cluster(device, card: str):
+    """Phase 28 (see the module doc). Returns (facts, distinct-scan
+    launches in the workers)."""
+    import socket
+
+    from siddhi_tpu_torch.cluster import ClusterRuntime
+    from siddhi_tpu_torch.cluster import protocol as P
+    from siddhi_tpu_torch.core.stream.input.wire import (
+        WireEncoder, decode_control, encode_hello)
+
+    import torch
+
+    t_phase = time.perf_counter()
+    # the blocks this process's allocator keeps cached go back to the card:
+    # each worker process opens its own context and allocates there
+    torch.cuda.empty_cache()
+    feed = cl_feed()
+    t0 = time.perf_counter()
+    want = cl_rows_single(device, feed)
+    single_s = time.perf_counter() - t0
+    facts = {"card": card, "single_process_s": single_s}
+    cluster = ClusterRuntime(n_workers=CL_WORKERS, heartbeat_s=0.2, device=device)
+    try:
+        t0 = time.perf_counter()
+        cluster.wait_ready(CL_TIMEOUT_S)
+        cluster.deploy(CL_SPLIT_APP, partition_keys={"StockStream": "symbol"},
+                       sinks=["OutStream"], timeout=CL_TIMEOUT_S)
+        cluster.deploy(CL_PINNED_APP, sinks=["OutStream"], timeout=CL_TIMEOUT_S)
+        facts["up_and_deployed_s"] = time.perf_counter() - t0
+        stats = cluster.worker_stats(reset=True, timeout=CL_TIMEOUT_S)
+        for idx, st in stats.items():
+            _require(st["device"].startswith("cuda") and st["device_name"],
+                     f"CL: worker {idx} runs on {st['device']} ({st['device_name']})")
+        print(f"[cluster] {CL_WORKERS} workers up and both apps deployed in "
+              f"{facts['up_and_deployed_s']:.1f} s: " + ", ".join(
+                  f"worker {i} pid {s['pid']} on {s['device']} ({s['device_name']})"
+                  for i, s in stats.items()) + f"; clSplit split, clPinned on worker "
+              f"{cluster.apps['clPinned'].home} [{card}]", flush=True)
+
+        enc = WireEncoder()
+        ing = P.MessageSocket(socket.create_connection(
+            ("127.0.0.1", cluster.ingest_port), timeout=CL_TIMEOUT_S))
+        ing.send(P.MSG_HELLO, encode_hello())
+        _require(ing.recv()[0] == P.MSG_HELLO, "CL: the ingest link's hello")
+        latencies, ingest_s, last_seq = [], 0.0, 0
+        t_kill = None
+        for i, (cols, ts) in enumerate(feed):
+            t0 = time.perf_counter()
+            cluster.send_columns("clSplit", "StockStream", cols, timestamps=ts)
+            t1 = time.perf_counter()
+            ing.send(P.MSG_INGEST, P.pack_data(0, 0, "clPinned", "StockStream",
+                                               enc.encode(cols, timestamps=ts)))
+            mtype, body = ing.recv()
+            _require(mtype == P.MSG_INGEST_ACK, f"CL: ingest answered {mtype}")
+            seq = decode_control(body).b
+            _require(seq > last_seq, f"CL: ingest seq {seq} after {last_seq}")
+            last_seq = seq
+            ingest_s += time.perf_counter() - t1
+            if t_kill is None:
+                _require(cluster.quiesce(CL_TIMEOUT_S), f"CL: batch {i} never merged")
+                latencies.append(time.perf_counter() - t0)
+            if i == CL_CHECKPOINT_AFTER:
+                cluster.checkpoint(timeout=CL_TIMEOUT_S)
+            if i == CL_KILL_AFTER:
+                head = {a: len(cluster.egress.stream_rows(a, "OutStream"))
+                        for a in ("clSplit", "clPinned")}
+                cluster.supervisor.kill(1)
+                t_kill = time.perf_counter()
+        ing.close()
+        _require(cluster.quiesce(CL_TIMEOUT_S), "CL: the egress never quiesced after the kill")
+        recovery_s = time.perf_counter() - t_kill
+        st = cluster.status()
+        stats = cluster.worker_stats(timeout=CL_TIMEOUT_S)
+    finally:
+        cluster.shutdown()
+    worst = 0.0
+    for app in ("clSplit", "clPinned"):
+        got = [(t, tuple(v)) for t, v in cluster.egress.stream_rows(app, "OutStream")]
+        _require(len(got) == len(feed) * BATCH, f"CL {app}: {len(got)} rows for "
+                 f"{len(feed) * BATCH} in")
+        worst = max(worst, cl_compare(got[:head[app]], want[app][:head[app]],
+                                      f"CL {app}: rows before the kill vs one process"))
+        worst = max(worst, cl_compare(got, want[app], f"CL {app}: every row, the kill "
+                                      f"and recovery included, vs one process"))
+    respawns = st["per_worker"][1]["respawns"]
+    _require(respawns >= 1 and st["live"] == CL_WORKERS,
+             f"CL: worker 1 respawned {respawns} times, {st['live']} live")
+    scans = {i: s["launches"]["distinct_scan"] for i, s in stats.items()}
+    _require(all(n > 0 for n in scans.values()) and len(scans) == CL_WORKERS,
+             f"CL: distinct-scan launches by worker {scans}")
+    for idx, s in stats.items():
+        _require(s["device"].startswith("cuda") and s["device_name"],
+                 f"CL: worker {idx} ran on {s['device']} after the respawn")
+    rows_in = len(feed) * BATCH
+    facts.update({
+        "rows_equal_max_rel_err": worst, "rows_before_kill": head,
+        "respawns": respawns, "duplicate_emits": st["egress"]["duplicate_emits"],
+        "recovery_s": recovery_s, "scan_launches_by_worker": scans,
+        "workers": {i: {"device": s["device"], "device_name": s["device_name"],
+                        "pid": s["pid"]} for i, s in stats.items()},
+        "ingest_events_per_s": rows_in / ingest_s,
+        "egress_latency_ms": [x * 1e3 for x in latencies],
+        "phase_s": time.perf_counter() - t_phase})
+    print(f"[cluster] rows of both apps (every row, worker 1 killed after batch "
+          f"{CL_KILL_AFTER}) == the single-process card run, exactly once (max float rel "
+          f"err {worst:.3g}); recovery {recovery_s:.1f} s, {respawns} respawn, "
+          f"{facts['duplicate_emits']} replayed emissions dropped; the distinct scan "
+          f"launched {scans} times by worker [{card}]", flush=True)
+    print(f"[cluster] socket ingest of clPinned: {facts['ingest_events_per_s']:.1f} "
+          f"events/s (frame sent to seq ack); egress latency per batch (send to merged, "
+          f"both apps' batches of {BATCH} rows): "
+          f"{', '.join(f'{x:.1f}' for x in facts['egress_latency_ms'])} ms; one process "
+          f"ran both apps in {single_s:.1f} s; phase 28 in {facts['phase_s']:.1f} s [{card}]",
+          flush=True)
+    return facts, sum(scans.values())
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -7761,12 +8350,21 @@ def main() -> int:
     overload, ol_exchange, ol_scan, ol_replays = phase_overload(device, card)
     dist["launches"]["OL"] = ol_scan
 
-    # 27. result lines
+    # 27. the autopilot: six actuators live on the card
+    autopilot, ap_exchange, ap_scan = phase_autopilot(device, card)
+    dist["launches"]["AP"] = ap_scan
+
+    # 28. the cluster fabric: two worker processes on the card
+    cluster, cl_scan = phase_cluster(device, card)
+    dist["launches"]["CL_workers"] = cl_scan
+
+    # 29. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
                      "P_routed": persistence["routed_x4"]["exchange_launches"],
-                     "OB": observability["launches"]["exchange"], "OL": ol_exchange}
+                     "OB": observability["launches"]["exchange"], "OL": ol_exchange,
+                     "AP": ap_exchange}
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
@@ -7848,6 +8446,8 @@ def main() -> int:
     print(json.dumps({"program_cache": program_cache}))
     print(json.dumps({"observability": observability}, default=str))
     print(json.dumps({"overload": overload}, default=str))
+    print(json.dumps({"autopilot": autopilot}, default=str))
+    print(json.dumps({"cluster": cluster}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,9 @@ ingest pool, rate limiters, sinks' connections and sources (each
 connecting with retry on its own thread); its knobs
 ``siddhi_tpu.profile_journeys``, ``profile_costs`` and
 ``profile_device_instruments`` each take one ref on their process-wide
-collector until ``shutdown``. ``shutdown`` stops the
+collector until ``shutdown``; with ``siddhi_tpu.autopilot`` armed (or
+``enable_autopilot``) the app registers with the process-wide autopilot
+controller (``autopilot/``), which ``shutdown`` detaches first. ``shutdown`` stops the
 heartbeat, drains the pipeline, stops sources, limiters and workers (each
 delivers what its queue holds first), stops the scheduler, then drops the
 device state.
@@ -41,7 +43,7 @@ device state.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from siddhi_tpu_torch.compiler.errors import SiddhiAppValidationException
 from siddhi_tpu_torch.core.context import SiddhiAppContext, SiddhiContext
@@ -1027,6 +1029,29 @@ class SiddhiAppRuntime:
 
     # ------------------------------------------------------ resilience API
 
+    def enable_autopilot(self, mode: str = "on", interval_s: Optional[float] = None,
+                         cooldown_s: Optional[float] = None):
+        """Arm the closed-loop controller (``autopilot/``): the API spelling
+        of the ``siddhi_tpu.autopilot`` knob. ``mode`` is ``'on'`` or
+        ``'dry_run'`` (decide and log, never actuate). Idempotent; the app
+        registers with the process-wide controller here when it has
+        started, else at ``start()``. Returns the controller."""
+        from siddhi_tpu_torch.autopilot.controller import AutopilotController
+        from siddhi_tpu_torch.core.util.knobs import KNOBS
+
+        self.app_context.autopilot = KNOBS["autopilot"].parse(mode)
+        if self.app_context.autopilot == "off":
+            raise ValueError("enable_autopilot with mode 'off': use the config "
+                             "knob to keep the controller out")
+        if interval_s is not None:
+            self.app_context.autopilot_interval_s = float(interval_s)
+        if cooldown_s is not None:
+            self.app_context.autopilot_cooldown_s = float(cooldown_s)
+        ctl = AutopilotController.instance()
+        if self._started:
+            ctl.register(self)
+        return ctl
+
     def enable_wal(self, max_batches: int = 4096, max_events=None):
         """Attach a bounded ingest WAL (``resilience/replay.py``): every
         accepted batch is recorded until the next checkpoint trims it, and
@@ -1047,14 +1072,14 @@ class SiddhiAppRuntime:
         heartbeats this app's @Async workers, replacing dead or wedged
         ones with their queues intact, heals dead ingest packers and
         watches the pipeline for a wedged step. Idempotent; returns the
-        supervisor. The peer recovery of the multi-process cluster
+        supervisor. The peer recovery of the multi-card mesh
         (``peer_recovery``, ``peer_monitor``) is ROADMAP A.9."""
         if peer_recovery is not None or peer_monitor is not None:
             raise NotImplementedError(
                 "supervise(peer_recovery=..., peer_monitor=...): the "
-                "multi-process cluster and its peer recovery "
-                "(parallel/distributed.py, PeerMonitor, PeerRecovery) are "
-                "not ported to siddhi_tpu_torch yet (ROADMAP A.9)")
+                "multi-card mesh and its peer recovery "
+                "(parallel/distributed.py, PeerRecovery) are not ported to "
+                "siddhi_tpu_torch yet (ROADMAP A.9)")
         from siddhi_tpu_torch.resilience.supervisor import AppSupervisor
 
         if self.app_context.supervisor is None:
@@ -1092,6 +1117,13 @@ class SiddhiAppRuntime:
 
                 ctx.ingest_pack_pool = IngestPackPool(
                     ctx, workers=ctx.ingest_pool, split_rows=ctx.ingest_split)
+            # the closed-loop controller (autopilot/): registered when the
+            # knob is armed; 'off' (the default) keeps the engine free of
+            # any controller thread, observation or actuation
+            if ctx.autopilot != "off":
+                from siddhi_tpu_torch.autopilot.controller import AutopilotController
+
+                AutopilotController.instance().register(self)
             for j in self.junctions.values():
                 j.start_processing()
             for qr in self.query_runtimes.values():
@@ -1130,6 +1162,13 @@ class SiddhiAppRuntime:
 
         ctx = self.app_context
         ctx.stopped = True
+        if ctx.autopilot != "off":
+            # detach FIRST: no actuation may land on a tearing-down app
+            # (pinned to this runtime: an old runtime shutting down never
+            # strips a newer same-named app's registration)
+            from siddhi_tpu_torch.autopilot.controller import AutopilotController
+
+            AutopilotController.instance().unregister(ctx.name, app_runtime=self)
         if ctx.supervisor is not None:
             ctx.supervisor.stop()
         if ctx.overload is not None:

@@ -244,6 +244,17 @@ class SiddhiAppContext:
         # OverloadManager.register through the siddhi_tpu.quota_* and
         # siddhi_tpu.shed_policy keys or rt.enable_overload()
         self.overload = None
+        # the closed-loop controller (autopilot/): 'off' (the default)
+        # registers nothing; 'dry_run' observes, decides and logs, never
+        # actuates; 'on' actuates the live knobs within their bounds. Keys
+        # siddhi_tpu.autopilot / .autopilot_interval_s /
+        # .autopilot_cooldown_s; rt.enable_autopilot() sets them
+        self.autopilot = "off"
+        self.autopilot_interval_s = 0.25
+        self.autopilot_cooldown_s = 5.0
+        # the route_shards actuator's ceiling of logical shards (0 = the
+        # actuator's default, autopilot/actuators.py)
+        self.route_shards = 0
         # exchange transport of device-routed queries; on one card both
         # values run the ring_exchange kernel (parallel/mesh.py)
         self.shard_exchange = "all_to_all"

@@ -21,6 +21,11 @@ threads as sequence-numbered sub-batch tasks and merges in order:
   next submit or at the app supervisor's tick (``heal``), each worker
   bumps ``_beats`` a task, and ``fault_hook`` is the point where a test
   kills or delays one packer.
+- **Live resize.** ``resize`` (the autopilot's ``ingest_pool``
+  actuator) grows the pool at once and retires surplus workers by stop
+  sentinels queued behind the pending sub-batches. The pool's gauges
+  ``ingest.pool.{queue_depth,workers,utilization}`` (removed at
+  ``shutdown``) are what the autopilot reads of it.
 
 The pool engages only when ``siddhi_tpu.ingest_pool`` > 0 (default 0 =
 today's inline single-thread pack, bit-identical by construction) and a
@@ -66,10 +71,11 @@ class IngestPackPool:
 
     Thread contract: ``run_ordered`` may be called from any producer /
     junction-worker thread (several concurrently — tasks interleave on
-    the shared queue, each caller waits only its own). Workers take no
-    lock; the pool's own bookkeeping lock guards ``_threads`` and
-    ``_gen`` and is a leaf (nothing is acquired under it). ``_stopped``
-    is a double-checked shutdown gate, re-verified under the lock."""
+    the shared queue, each caller waits only its own). Workers take the
+    lock only to count themselves busy; the pool's own bookkeeping lock
+    guards ``_threads``, ``_gen`` and ``_busy`` and is a leaf (nothing is
+    acquired under it). ``_stopped`` is a double-checked shutdown gate,
+    re-verified under the lock."""
 
     def __init__(self, app_context, workers: int, split_rows: int = 8192):
         if workers <= 0:
@@ -83,6 +89,7 @@ class IngestPackPool:
         self._gen = 0
         self._stopped = False
         self._beats = 0          # tasks claimed: a lock-free liveness probe
+        self._busy = 0           # packers inside a task (under the lock): utilization
         self.subbatches = 0
         self.worker_deaths = 0
         self.repacked_subbatches = 0
@@ -91,6 +98,12 @@ class IngestPackPool:
         # by the merge thread); a sleeping hook delays one sub-batch,
         # forcing out-of-order completion the ordered merge must absorb
         self.fault_hook = None
+        # what the autopilot's pack_bound rule reads (autopilot/signals.py)
+        self._tel = app_context.telemetry
+        self._tel.gauge("ingest.pool.queue_depth", self._tasks.qsize)
+        self._tel.gauge("ingest.pool.workers", self.alive_workers)
+        self._tel.gauge("ingest.pool.utilization",
+                        lambda p=self: p._busy / max(1, p.workers))
         with self._lock:
             self._spawn_missing_locked()
 
@@ -129,6 +142,29 @@ class IngestPackPool:
         with self._lock:
             return self._spawn_missing_locked()
 
+    def resize(self, workers: int) -> int:
+        """Change the worker count live (the autopilot's ingest actuator).
+        Growth spawns the missing threads; a shrink retires the surplus by
+        queueing one stop sentinel per surplus worker BEHIND the pending
+        tasks, so each finishes real work first, an in-flight
+        ``run_ordered`` is never abandoned and the ordered merge is
+        untouched (a resize changes how many threads pack, never what a
+        pack produces). Returns the new worker count."""
+        workers = int(workers)
+        if workers <= 0:
+            raise ValueError("resize needs workers > 0: use shutdown() to "
+                             "dissolve the pool")
+        with self._lock:
+            if self._stopped:
+                return self.workers
+            surplus = sum(1 for t in self._threads if t.is_alive()) - workers
+            self.workers = workers
+            self._spawn_missing_locked()
+        # the retired threads are pruned at the next submit or heal
+        for _ in range(max(0, surplus)):
+            self._tasks.put(None)
+        return workers
+
     def shutdown(self) -> None:
         with self._lock:
             # under the lock: serializes against a concurrent
@@ -141,6 +177,8 @@ class IngestPackPool:
             self._tasks.put(None)
         for t in threads:
             t.join(timeout=5)
+        for name in ("queue_depth", "workers", "utilization"):
+            self._tel.remove_gauge(f"ingest.pool.{name}")
 
     # ------------------------------------------------------------ planning
 
@@ -256,12 +294,16 @@ class IngestPackPool:
                     log.warning("ingest pack worker killed: %s", e)
                     return
             t0 = time.perf_counter()
+            with self._lock:
+                self._busy += 1
             try:
                 task.fn(task.lo, task.hi)
                 task.elapsed_ms = (time.perf_counter() - t0) * 1000.0
             except Exception as e:  # noqa: BLE001 — surfaced via re-pack
                 task.error = e
             finally:
+                with self._lock:
+                    self._busy -= 1
                 task.done.set()
 
 

@@ -47,6 +47,10 @@ A producer's blocked put escalates every ``block_timeout_s`` to the
 supervisor, which replaces a dead or wedged worker, with or without
 quotas. Each delivery is a fair-share yield point, and every processing
 error is shown to the supervisor (``notify_error``).
+
+The autopilot's fusion actuator rewires the receivers through
+``defer_mutation``: the delivering thread runs the mutation before it
+fans its next batch out, so the receiver list never changes mid-delivery.
 """
 
 from __future__ import annotations
@@ -141,6 +145,27 @@ class StreamJunction:
         # batch journeys: queued unit id -> its enqueue time, so the worker
         # can attribute the queue residence (empty unless journeys are on)
         self._jt_enq: dict = {}
+        # deferred receiver-set mutations (the autopilot's fusion
+        # actuator): drained by the delivering thread before it fans a
+        # batch out, so the receiver list is never rewired mid-iteration
+        self._pending_mutations: List = []
+
+    def defer_mutation(self, fn) -> None:
+        """Schedule ``fn()`` to run on the next delivering thread before it
+        iterates the receivers: the one point where the receiver set may be
+        rewired live (a fused group dissolved or re-formed). A junction
+        that never delivers again never applies it."""
+        self._pending_mutations.append(fn)
+
+    def _drain_mutations(self) -> None:
+        while self._pending_mutations:
+            fn = self._pending_mutations.pop(0)
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — a failed rewire must not
+                # poison the delivery that happened to drain it
+                log.exception("deferred receiver mutation failed on stream '%s'",
+                              self.definition.id)
 
     def subscribe(self, receiver: Receiver):
         if receiver not in self.receivers:
@@ -370,6 +395,8 @@ class StreamJunction:
     # ---------------------------------------------------------- delivery
 
     def _deliver(self, events: List[Event], enq_t=None):
+        if self._pending_mutations:
+            self._drain_mutations()
         with span("junction.dispatch", stream=self.definition.id,
                   rows=len(events)):
             prev = current_delivering_junction()
@@ -390,6 +417,8 @@ class StreamJunction:
                     journey.pop_delivery_queue_wait(prev_q)
 
     def _deliver_batch(self, batch, enq_t=None):
+        if self._pending_mutations:
+            self._drain_mutations()
         with span("junction.dispatch", stream=self.definition.id,
                   rows=int(batch._size) if batch._size is not None else -1):
             prev = current_delivering_junction()

@@ -21,7 +21,8 @@ telemetry, the aggregation bucket gauges and fold histograms, the serving
 tier's shard, WAL, pool, counter and latency families, the wire front
 door's counters, fan-out fusion (``siddhi_fanout_group_size``,
 ``siddhi_fanout_dispatches_total``, ``siddhi_fanout_meta_pulls_total``),
-the step records (``siddhi_jit_*``), the program cache
+the ingest pack pool (``siddhi_ingest_pool_{queue_depth,workers,
+utilization}``), the step records (``siddhi_jit_*``), the program cache
 (``siddhi_program_cache_{hits,misses,evictions}_total`` and
 ``siddhi_program_cache_size``) and the step-program costs
 (``siddhi_jit_cost_*{key}``), the @Async junctions
@@ -38,9 +39,16 @@ ingest WAL's gauges, a fused stream's ``unique_programs`` and
 generic ``siddhi_gauge``, as in the reference. The resilience counters
 of the supervisor and the overload layer (worker restarts, pump wedges,
 sheds, quota denials, enqueue timeouts) are declared at 0 for every app.
-The reference's families of the autopilot (ROADMAP A.10 c), the cluster
-fabric and the peer counters and keyed-shard gauges (A.9) have no source
-in the port and are not printed.
+The autopilot (``autopilot/``) renders ``siddhi_autopilot_mode``,
+``siddhi_autopilot_{ticks,freezes}_total`` and
+``siddhi_autopilot_decisions_total{knob,direction,reason}``; the cluster
+fabric's router (``cluster/router.py``, on the process registry) renders
+``siddhi_cluster_workers_live``, ``siddhi_cluster_worker_{acked_seq,
+wal_batches}{worker}``, the per-worker respawn, replay, gap and link-drop
+counters and the ingest, run, egress, checkpoint and query counters; each
+family prints once its source exists. The reference's peer counters and
+keyed-shard gauges (ROADMAP A.9) have no source in the port and are not
+printed.
 """
 
 from __future__ import annotations
@@ -179,6 +187,12 @@ _JUNCTION_COUNTER_HELP = {
 _QUOTA_GAUGE = re.compile(r"^quota\.(?P<resource>queue|pipeline|memory)"
                           r"_utilization(?:\.(?P<stream>.+))?$")
 _PIPELINE_GAUGE = re.compile(r"^pipeline\.(?P<query>.+)\.inflight$")
+# the ingest pack pool (core/stream/input/pack_pool.py)
+_INGEST_POOL_GAUGE = re.compile(r"^ingest\.pool\.(?P<kind>queue_depth|workers|"
+                                r"utilization)$")
+_INGEST_POOL_HELP = {"queue_depth": "sub-batch tasks queued on the ingest pack pool",
+                     "workers": "live ingest pack-pool worker threads",
+                     "utilization": "fraction of ingest pack workers busy"}
 # pipeline.metas / pipeline.pulls: metas-per-pull batching ratio;
 # pipeline.stalls: forced drains that had to wait on the card
 _PIPELINE_COUNTER_FAMILY = {
@@ -212,6 +226,69 @@ _DEVICE_HIST = re.compile(r"^device\.(?P<query>.+)\.(?P<slot>" + _DEVICE_SLOT_RX
 _FANOUT_GAUGE = re.compile(r"^fanout\.(?P<stream>.+)\.group_size$")
 _FANOUT_COUNTER = re.compile(r"^fanout\.(?P<stream>.+)\.(?P<kind>"
                              r"dispatches|meta_pulls)$")
+# the autopilot (autopilot/): decision counters are dotted
+# autopilot.decisions.<knob>.<direction>.<rule>, whose segments are
+# code-controlled [a-z0-9_] identifiers, so the dotted split is unambiguous
+_AUTOPILOT_DECISION = re.compile(
+    r"^autopilot\.decisions\.(?P<knob>[a-z0-9_]+)"
+    r"\.(?P<direction>up|down)\.(?P<reason>[a-z0-9_]+)$")
+_AUTOPILOT_COUNTER_FAMILY = {
+    "autopilot.ticks": ("siddhi_autopilot_ticks_total",
+                        "autopilot observe/decide cycles run"),
+    "autopilot.freezes": ("siddhi_autopilot_freezes_total",
+                          "autopilot ticks skipped by compile-storm backoff "
+                          "(step builds and graph captures still climbing)"),
+}
+# the cluster fabric (cluster/): the router's gauges live as long as its
+# ClusterRuntime; a per-worker name carries the worker index as a label
+_CLUSTER_WORKER_GAUGE = re.compile(
+    r"^cluster\.worker\.(?P<kind>acked_seq|wal_batches)\.(?P<worker>\d+)$")
+_CLUSTER_WORKER_COUNTER = re.compile(
+    r"^cluster\.worker\.(?P<kind>respawns|replayed_batches|replay_gaps|"
+    r"link_drops)\.(?P<worker>\d+)$")
+_CLUSTER_WORKER_GAUGE_HELP = {
+    "acked_seq": ("siddhi_cluster_worker_acked_seq",
+                  "highest global ingest sequence the worker has acked"),
+    "wal_batches": ("siddhi_cluster_worker_wal_batches",
+                    "retained router-side ingest-WAL batches for the worker "
+                    "(replay suffix; trimmed at checkpoint cuts)"),
+}
+_CLUSTER_WORKER_COUNTER_HELP = {
+    "respawns": ("siddhi_cluster_worker_respawns_total",
+                 "worker processes respawned after peer-death detection"),
+    "replayed_batches": ("siddhi_cluster_worker_replayed_batches_total",
+                         "WAL batches replayed into a recovered worker"),
+    "replay_gaps": ("siddhi_cluster_worker_replay_gaps_total",
+                    "runs unrecoverable at replay (WAL overflow), released "
+                    "as counted gaps, never silent hangs"),
+    "link_drops": ("siddhi_cluster_worker_link_drops_total",
+                   "worker link sessions dropped (EOF/error on the "
+                   "router-worker socket)"),
+}
+_CLUSTER_COUNTER_FAMILY = {
+    "cluster.ingest_batches": ("siddhi_cluster_ingest_batches_total",
+                               "batches sequenced by the router ingest front "
+                               "door"),
+    "cluster.ingest_rows": ("siddhi_cluster_ingest_rows_total",
+                            "rows sequenced by the router ingest front door"),
+    "cluster.runs_sent": ("siddhi_cluster_runs_sent_total",
+                          "contiguous same-owner runs relayed to workers"),
+    "cluster.runs_acked": ("siddhi_cluster_runs_acked_total",
+                           "runs completed (seq-acked) by workers and merged "
+                           "in global order"),
+    "cluster.egress_rows": ("siddhi_cluster_egress_rows_total",
+                            "output rows re-merged into exact global order by "
+                            "the egress stitch"),
+    "cluster.duplicate_emits_dropped": (
+        "siddhi_cluster_duplicate_emits_dropped_total",
+        "replayed emissions for already-merged runs dropped at the egress "
+        "(the effectively-once dedup)"),
+    "cluster.checkpoints": ("siddhi_cluster_checkpoints_total",
+                            "cluster-wide checkpoint barriers completed"),
+    "cluster.queries": ("siddhi_cluster_queries_total",
+                        "scatter-gather on-demand queries served by the "
+                        "cluster router"),
+}
 _SERVING_HIST_FAMILY = {
     "serving.fanout_ms": ("siddhi_serving_fanout_ms",
                           "scatter fan-out time across aggregation "
@@ -401,6 +478,26 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                      "queries fused into one dispatch per stream batch",
                      {**base, "stream": m.group("stream")}, v)
             continue
+        m = _INGEST_POOL_GAUGE.match(name)
+        if m:
+            fams.add(f"siddhi_ingest_pool_{m.group('kind')}", "gauge",
+                     _INGEST_POOL_HELP[m.group("kind")], base, v)
+            continue
+        if name == "autopilot.mode":
+            fams.add("siddhi_autopilot_mode", "gauge",
+                     "closed-loop controller mode per app (0=off, 1=dry_run, "
+                     "2=on)", base, v)
+            continue
+        if name == "cluster.workers.live":
+            fams.add("siddhi_cluster_workers_live", "gauge",
+                     "worker processes with a live attached link (out of "
+                     "cluster_workers)", base, v)
+            continue
+        m = _CLUSTER_WORKER_GAUGE.match(name)
+        if m:
+            family, help_ = _CLUSTER_WORKER_GAUGE_HELP[m.group("kind")]
+            fams.add(family, "gauge", help_, {**base, "worker": m.group("worker")}, v)
+            continue
         if name in ("serving.pool.pending", "serving.pool.active"):
             kind = name.rsplit(".", 1)[1]
             fams.add(f"siddhi_serving_pool_{kind}", "gauge",
@@ -418,10 +515,27 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                      _JUNCTION_COUNTER_HELP[m.group("kind")],
                      {**base, "stream": m.group("stream")}, v)
             continue
+        m = _AUTOPILOT_DECISION.match(name)
+        if m:
+            fams.add("siddhi_autopilot_decisions_total", "counter",
+                     "autopilot policy decisions (dry_run and cooldown- or "
+                     "damping-blocked ones included; every entry of the GET "
+                     "/autopilot decision log counts here once)",
+                     {**base, "knob": m.group("knob"),
+                      "direction": m.group("direction"),
+                      "reason": m.group("reason")}, v)
+            continue
+        m = _CLUSTER_WORKER_COUNTER.match(name)
+        if m:
+            family, help_ = _CLUSTER_WORKER_COUNTER_HELP[m.group("kind")]
+            fams.add(family, "counter", help_, {**base, "worker": m.group("worker")}, v)
+            continue
         fam = (_SERVING_COUNTER_FAMILY.get(name)
                or _INGEST_COUNTER_FAMILY.get(name)
                or _PROGRAM_CACHE_COUNTER_FAMILY.get(name)
-               or _PIPELINE_COUNTER_FAMILY.get(name))
+               or _PIPELINE_COUNTER_FAMILY.get(name)
+               or _CLUSTER_COUNTER_FAMILY.get(name)
+               or _AUTOPILOT_COUNTER_FAMILY.get(name))
         if fam is not None:
             fams.add(fam[0], "counter", fam[1], base, v)
             continue

@@ -314,9 +314,15 @@ def device_route_query_step(runtime, mesh: Mesh, rows_per_shard: int = 4096,
         Wg = runtime._win_keys
         canonical = runtime._state
 
+    # a re-install frees what it replaces: the old routed step's
+    # program-cache ref (its entry's graph and slot at refcount zero)
+    old_step = runtime._step if runtime._route_layout is not None else None
     layout = RouteLayout(mesh, rows_per_shard, exchange, partitioned, use_lut,
                          runtime.device)
     _install_routed(runtime, layout, canonical, Kg, Wg)
+    close = getattr(old_step, "close", None)
+    if close is not None:
+        close()
     return runtime._step, runtime._state
 
 

@@ -12,9 +12,10 @@ stream, plant a journey-stage delay), overload control
 shed_oldest and shed_newest, the pipeline quota, the device-memory budget
 of every capacity-growth site, weighted fair scheduling), the app
 supervisor (``supervisor.AppSupervisor``: worker heartbeats and
-restarts, dead packers healed, the pipeline's wedge check) and
-``stat_count``. The supervisor's peer recovery (``PeerMonitor``,
-``PeerRecovery``) is ROADMAP A.9.
+restarts, dead packers healed, the pipeline's wedge check), the
+peer liveness listener (``supervisor.PeerMonitor``, which the cluster
+fabric's worker supervisor probes) and ``stat_count``. The supervisor's
+peer recovery (``PeerRecovery``) is ROADMAP A.9.
 """
 
 from siddhi_tpu_torch.resilience.faults import FaultInjector, WorkerKilled
@@ -25,10 +26,10 @@ from siddhi_tpu_torch.resilience.overload import (
 )
 from siddhi_tpu_torch.resilience.replay import IngestWAL, register_wal_gauges
 from siddhi_tpu_torch.resilience.retry import RetryExhausted, RetryPolicy
-from siddhi_tpu_torch.resilience.supervisor import AppSupervisor
+from siddhi_tpu_torch.resilience.supervisor import AppSupervisor, PeerMonitor
 
 __all__ = ["AppOverloadControl", "AppSupervisor", "FaultInjector", "IngestWAL",
-           "OverloadConfig", "OverloadManager", "RetryExhausted", "RetryPolicy",
+           "OverloadConfig", "OverloadManager", "PeerMonitor", "RetryExhausted", "RetryPolicy",
            "WorkerKilled", "register_wal_gauges", "stat_count"]
 
 

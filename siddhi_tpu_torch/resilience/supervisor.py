@@ -26,8 +26,13 @@ drives a stream of CUDA-graph replays into the app's ``CompletionPump``:
   out calls ``notify_backpressure``, which checks that junction's worker
   at once instead of at the next tick.
 
-The peer half of the reference (``PeerMonitor``, ``is_peer_failure``,
-``abandon_runtime``, ``PeerRecovery``) needs the multi-process cluster
+- **Peer liveness.** ``PeerMonitor`` is a TCP liveness listener with
+  probes: every process binds one, and a supervisor probes its peers'
+  each tick. The cluster fabric's worker supervisor
+  (``cluster/supervisor.py``) watches its worker processes with it.
+
+The rest of the reference's peer half (``is_peer_failure``,
+``abandon_runtime``, ``PeerRecovery``) needs the multi-card mesh
 (``parallel/distributed.py``'s ``ClusterPeerError``), which is ROADMAP
 A.9: ``SiddhiAppRuntime.supervise`` refuses ``peer_recovery`` and
 ``peer_monitor`` naming it, and ``notify_error`` counts nothing until
@@ -45,6 +50,114 @@ from siddhi_tpu_torch.analysis.guards import guarded
 from siddhi_tpu_torch.analysis.locks import make_lock
 
 log = logging.getLogger(__name__)
+
+
+@guarded
+class PeerMonitor:
+    """Socket liveness heartbeats between processes.
+
+    Every process binds a tiny TCP listener; a supervisor probes its
+    peers' listeners each tick, and a peer that was reachable once and
+    then refuses ``misses`` probes in a row is declared dead (the listener
+    of a process killed outright drops at once, so detection takes about
+    ``misses`` ticks). A peer never reached yet is "not up yet", never
+    dead. Each accepted connection is closed at once: the connect is the
+    beat."""
+
+    # watch/unwatch/rearm run on supervisor threads while poll_dead's
+    # bookkeeping runs on the tick thread; probes happen OUTSIDE the lock
+    # (a slow connect must not block an unwatch)
+    GUARDED_BY = {"_peers": "app_supervisor", "_dead": "app_supervisor"}
+
+    def __init__(self, listen_port: int = 0, probe_timeout_s: float = 1.0,
+                 misses: int = 3):
+        import socket
+
+        self.probe_timeout_s = float(probe_timeout_s)
+        self.misses = int(misses)
+        self._lock = make_lock("app_supervisor")
+        self._peers = {}          # addr -> {"seen": bool, "missed": int}
+        self._dead = set()
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind(("127.0.0.1", listen_port))
+        self._sock.listen(16)
+        self.port = self._sock.getsockname()[1]
+        self._accepting = True
+        threading.Thread(target=self._accept_loop, daemon=True,
+                         name=f"peer-monitor-:{self.port}").start()
+
+    def _accept_loop(self) -> None:
+        while self._accepting:
+            try:
+                conn, _addr = self._sock.accept()
+                conn.close()          # the successful connect IS the beat
+            except OSError:
+                return
+
+    def watch(self, host: str, port: int) -> None:
+        with self._lock:
+            self._peers[(host, int(port))] = {"seen": False, "missed": 0}
+
+    def unwatch(self, host: str, port: int) -> None:
+        """Stop probing an address (a respawned peer binds a NEW port; the
+        old listener must not linger as a perpetual corpse)."""
+        addr = (host, int(port))
+        with self._lock:
+            self._peers.pop(addr, None)
+            self._dead.discard(addr)
+
+    def rearm(self, host: str, port: int) -> None:
+        """Forget a peer's death and watch its address from scratch: the
+        replacement is "not up yet" until its listener is first reached,
+        never at once declared dead again."""
+        addr = (host, int(port))
+        with self._lock:
+            self._dead.discard(addr)
+            self._peers[addr] = {"seen": False, "missed": 0}
+
+    def poll_dead(self) -> list:
+        """Probe every watched peer once; returns the NEWLY dead
+        addresses."""
+        import socket
+
+        with self._lock:
+            targets = [(addr, st) for addr, st in self._peers.items()
+                       if addr not in self._dead]
+        newly = []
+        for addr, st in targets:
+            try:
+                socket.create_connection(addr, self.probe_timeout_s).close()
+                ok = True
+            except OSError:
+                ok = False
+            with self._lock:
+                if self._peers.get(addr) is not st:
+                    continue    # unwatched or rearmed mid-probe: stale result
+                if ok:
+                    st["seen"] = True
+                    st["missed"] = 0
+                elif st["seen"]:
+                    st["missed"] += 1
+                    if st["missed"] >= self.misses:
+                        self._dead.add(addr)
+                        newly.append(addr)
+        return newly
+
+    def close(self) -> None:
+        import socket
+
+        self._accepting = False
+        try:
+            # wakes the accept thread: a listening socket closed under a
+            # blocked accept() would go on accepting
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
 
 
 @guarded

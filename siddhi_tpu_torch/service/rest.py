@@ -41,11 +41,21 @@ Endpoints (JSON in/out):
   (``observability/export.py``); ``?format=json`` or ``Accept:
   application/json`` returns the JSON snapshot
 
+- ``GET  /autopilot[/<name>]``        — the autopilot's report
+  (``autopilot/controller.py``): actuators, decision-log capacity, and per
+  registered app its mode, cadence, cooldown, freeze state and decision
+  log; 404 for an app that is not deployed or not registered
+- ``GET  /cluster``                    — the attached cluster fabric's
+  ``status()`` (``cluster/router.py``), 404 with none attached
+
 Every trace file and directory is confined under ``trace_base``: a
 client names it relative to that directory, and a name that escapes it
-answers 400. The reference's routes over modules the port lacks answer
-``501`` naming their ROADMAP item: the autopilot (``/autopilot``) and the
-cluster fabric (``/cluster``; the ``cluster=`` argument raises). An app
+answers 400. With a fabric attached (``SiddhiRestService(m,
+cluster=ClusterRuntime(...))``), ``/query`` on a cluster-deployed app
+scatter-gathers across the worker processes under the same bounded
+admission, and the ``/metrics`` JSON snapshot carries a ``"cluster"``
+block (the router's ``cluster.*`` telemetry is on the process registry,
+so the Prometheus text needs no routing). An app
 whose overload control has a ``query_cap`` (``siddhi_tpu.quota_query_cap``,
 ``resilience/overload.py``) is admitted to ``/query`` on its own endpoint
 ``/query:<app>`` against that cap, so one tenant's query storm sheds 503s
@@ -63,22 +73,15 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-# unported routes: first path segment -> what they need and where it waits
-_UNPORTED = {
-    "autopilot": "the autopilot (siddhi_tpu/autopilot/) is ROADMAP A.10",
-    "cluster": "the cluster fabric (siddhi_tpu/cluster/) is ROADMAP A.10",
-}
-
 
 class SiddhiRestService:
     def __init__(self, manager, host: str = "127.0.0.1", port: int = 0,
                  trace_base: Optional[str] = None,
                  query_workers: int = 8, query_queue_cap: int = 64,
                  cluster=None):
-        if cluster is not None:
-            raise NotImplementedError(
-                "SiddhiRestService(cluster=...): " + _UNPORTED["cluster"])
         self.manager = manager
+        # the optional cluster fabric (cluster/router.ClusterRuntime)
+        self.cluster = cluster
         # trace directories are confined under this directory; clients
         # supply a relative name, never an absolute filesystem path
         self.trace_base = trace_base or os.path.join(
@@ -122,9 +125,6 @@ class SiddhiRestService:
                 self.send_header("Content-Length", str(len(payload)))
                 self.end_headers()
                 self.wfile.write(payload)
-
-            def _send_unported(self, what: str):
-                self._send(501, {"error": f"{self.path}: {what}"})
 
             def _body(self):
                 n = int(self.headers.get("Content-Length", 0))
@@ -223,8 +223,25 @@ class SiddhiRestService:
                 return
             h._send(200, journey.critical_path_report(self.manager, app))
             return
-        if parts and parts[0] in _UNPORTED:
-            h._send_unported(_UNPORTED[parts[0]])
+        if parts and parts[0] == "autopilot" and len(parts) <= 2:
+            from siddhi_tpu_torch.autopilot import AutopilotController
+
+            app = parts[1] if len(parts) == 2 else None
+            if app is not None and self.manager.get_siddhi_app_runtime(app) is None:
+                h._send(404, {"error": f"app '{app}' is not deployed"})
+                return
+            try:
+                h._send(200, AutopilotController.instance().report(app))
+            except KeyError:
+                # deployed but never registered (the autopilot knob off)
+                h._send(404, {"error": f"app '{app}' is not under "
+                                       f"autopilot control"})
+            return
+        if parts == ["cluster"]:
+            if self.cluster is None:
+                h._send(404, {"error": "no cluster fabric is attached"})
+                return
+            h._send(200, self.cluster.status())
             return
         if parts and parts[0] == "metrics" and len(parts) <= 2:
             from siddhi_tpu_torch.observability import export
@@ -242,6 +259,8 @@ class SiddhiRestService:
                 if app is not None:
                     snap = {"apps": {app: snap["apps"][app]},
                             "process": snap["process"]}
+                if self.cluster is not None:
+                    snap["cluster"] = self.cluster.status()
                 h._send(200, snap)
             else:
                 h._send_text(200, export.prometheus_text(
@@ -273,6 +292,19 @@ class SiddhiRestService:
             from siddhi_tpu_torch.resilience import stat_count
             from siddhi_tpu_torch.serving.query_tier import QueryShedError
 
+            if self.cluster is not None and body["app"] in self.cluster.apps:
+                # a cluster-deployed app: scatter-gather across the worker
+                # processes (the router re-merges), under the same bounded
+                # admission as in-process queries
+                try:
+                    fut = self.admission.try_submit(
+                        "/query", self.cluster.query, body["app"], body["query"])
+                except QueryShedError as e:
+                    h._send_shed(e)
+                    return
+                rows = fut.result()
+                h._send(200, {"rows": [list(vals) for _ts, vals in rows]})
+                return
             rt = self._rt(body["app"])
             # per-app admission: an app with a query_cap sheds against its
             # own pending count, never the shared '/query' one
@@ -305,9 +337,6 @@ class SiddhiRestService:
             return
         if parts == ["trace", "stop"]:
             self._post_trace_stop(h, body)
-            return
-        if parts and parts[0] in _UNPORTED:
-            h._send_unported(_UNPORTED[parts[0]])
             return
         if len(parts) == 3 and parts[0] == "apps":
             rt = self._rt(parts[1])

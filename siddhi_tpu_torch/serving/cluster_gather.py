@@ -1,7 +1,7 @@
 """Scatter-gather merge for cluster on-demand queries.
 
-Counterpart of ``siddhi_tpu/serving/cluster_gather.py``: the pure merge.
-The cluster fabric that calls it is ROADMAP A.10.
+Counterpart of ``siddhi_tpu/serving/cluster_gather.py``: the pure merge
+that ``cluster/router.ClusterRuntime.query`` calls.
 
 A PINNED app answers from its one owner worker — one part, returned
 verbatim, so the result is bit-identical to the single-process runtime.

@@ -57,7 +57,9 @@ def test_port_imports_and_runs_with_jax_unimportable():
     ``@app:statistics`` with a WAL runs and is scraped; the observability
     tier (the span tracer, batch journeys, device instruments, the device
     trace), the fault injector and the debugger import, and a span trace
-    and a journey of a send are recorded."""
+    and a journey of a send are recorded; the autopilot, the cluster
+    fabric (router, egress, protocol, worker) and ``PeerMonitor`` import,
+    and a dry-run tick runs."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -241,12 +243,70 @@ for i in range(20):
 om.shutdown()
 ctl_gone = OverloadManager.instance().control_of("iso_ov") is None
 assert ctl_gone and len(oc.rows) + octl.shed_events == 20, (ctl_gone, len(oc.rows))
-assert "jax" not in {{k for k, v in sys.modules.items() if v is not None}}
+from siddhi_tpu_torch.autopilot import ACTUATORS, AutopilotController
+from siddhi_tpu_torch.cluster import ClusterRuntime, OrderedEgress
+from siddhi_tpu_torch.cluster import protocol, worker
+from siddhi_tpu_torch.resilience import PeerMonitor
+am = SiddhiManager(device="cpu")
+art = am.create_siddhi_app_runtime("@app:name('iso_ap') define stream S (sym string, v long); "
+                                   "from S select sym, v insert into O;")
+art.start()
+art.enable_autopilot(mode="dry_run", interval_s=3600)
+AutopilotController.instance().tick("iso_ap", now=1.0)
+assert AutopilotController.instance().report("iso_ap")["apps"]["iso_ap"]["ticks"] == 1
+am.shutdown()
+assert not any(k == "jax" or k.startswith(("jax.", "siddhi_tpu.")) or k == "siddhi_tpu"
+               for k, v in sys.modules.items() if v is not None)
 print("OK")
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0 and out.stdout.strip() == "OK", out.stderr[-2000:]
+
+
+def test_worker_entry_point_loads_neither_jax_nor_the_reference():
+    """``python -m siddhi_tpu_torch.cluster.worker --help`` in a process
+    where ``jax`` and ``siddhi_tpu`` cannot be imported: it prints its
+    usage, naming ``--device``, and exits 0."""
+    code = f"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["siddhi_tpu"] = None
+sys.path.insert(0, {str(ROOT)!r})
+sys.argv = ["worker", "--help"]
+try:
+    runpy.run_module("siddhi_tpu_torch.cluster.worker", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert not any(k == "jax" or k.startswith(("jax.", "siddhi_tpu.")) or k == "siddhi_tpu"
+               for k, v in sys.modules.items() if v is not None)
+print("OK")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0 and out.stdout.rstrip().endswith("OK"), out.stderr[-2000:]
+    assert "--device" in out.stdout
+
+
+def test_cluster_worker_on_an_absent_card_fails_its_deploy_naming_the_device():
+    """A fabric asked for workers on ``cuda`` where no card is visible: the
+    worker process comes up, its deploy fails naming the device, and
+    ``deploy`` raises; nothing runs on the CPU instead."""
+    from siddhi_tpu_torch.cluster import ClusterRuntime
+
+    if torch.cuda.is_available():
+        pytest.skip("shows the refusal where no CUDA device is visible")
+
+    cluster = ClusterRuntime(n_workers=1, heartbeat_s=0.2, device="cuda")
+    try:
+        cluster.wait_ready(60)
+        assert cluster.status()["device"] == "cuda"
+        with pytest.raises(RuntimeError, match=r"failed to deploy 'c'.*device cuda"):
+            cluster.deploy("@app:name('c') define stream S (v long); "
+                           "from S select v insert into O;", sinks=["O"], timeout=60)
+        assert "c" not in cluster.apps
+    finally:
+        cluster.shutdown()
 
 
 def test_manager_without_device_chooses_cuda():
@@ -261,7 +321,8 @@ def test_manager_without_device_chooses_cuda():
 
 def test_unported_constructs_are_named_not_skipped():
     """What the port still refuses raises naming its ROADMAP item: a join
-    routed over a mesh (A.9), the REST service's cluster fabric (A.10),
+    routed over a mesh (A.9), the supervisor's peer recovery (A.9; the
+    REST service's cluster fabric, refused here until A.10 d, is ported),
     the fault injector's peer faults (A.9).
     Incremental aggregations, joins against them and the serving tier's
     sharded aggregation stores (``siddhi_tpu.agg_shards`` > 1, ported in
@@ -285,8 +346,9 @@ def test_unported_constructs_are_named_not_skipped():
     from siddhi_tpu_torch.resilience import FaultInjector
     from siddhi_tpu_torch.service import SiddhiRestService
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
-        SiddhiRestService(sharded, cluster=object())
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
+        srt.supervise(peer_monitor=object())
+    assert SiddhiRestService(sharded, cluster=object()).cluster is not None
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
         FaultInjector().drop_peer()
     rt = m.create_siddhi_app_runtime(

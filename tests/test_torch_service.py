@@ -4,12 +4,11 @@ the CPU. Every service binds port 0 and every thread joins with a timeout.
 
 The four scenarios of ``tests/test_service.py`` drive the port through
 the module's own requests and checks (``torch_helpers.port_corpus``). The
-span tracer's, the device trace's and the critical-path profiler's routes
-answer as the reference's service answers the same request; the routes
-over modules the port lacks answer 501 naming their ROADMAP item; a wire
-frame posted to ``/ingest`` lands as ``send_columns`` would land it;
-``/metrics`` renders the families the port has sources for and none of
-the unported ones.
+span tracer's, the device trace's, the critical-path profiler's, the
+autopilot's and the cluster fabric's routes answer as the reference's
+service answers the same request; a wire frame posted to ``/ingest``
+lands as ``send_columns`` would land it; ``/metrics`` renders the
+families the port has sources for and none of the unported ones.
 """
 
 import json
@@ -63,10 +62,14 @@ def service():
     assert not svc._thread.is_alive()
 
 
+# the routes that answered 501 until the autopilot and the cluster fabric
+# were ported (ROADMAP A.10 c and d): now each answers as the reference's
+# service answers it with the fixture's app not under autopilot control
+# and no fabric attached (the status and a word its answer names)
 UNPORTED = [
-    ("GET", "/autopilot", None, "A.10"),
-    ("GET", "/autopilot/R", None, "A.10"),
-    ("GET", "/cluster", None, "A.10"),
+    ("GET", "/autopilot", 200, "actuators"),
+    ("GET", "/autopilot/R", 404, "not under autopilot control"),
+    ("GET", "/cluster", 404, "no cluster fabric"),
 ]
 
 # the routes ROADMAP A.10 (a) ported: each request answered as the
@@ -83,14 +86,22 @@ PORTED = [
 ]
 
 
-@pytest.mark.parametrize("method,path,body,item", UNPORTED,
-                         ids=[f"{m} {p}" for m, p, _b, _i in UNPORTED])
-def test_unported_route_answers_501_naming_its_item(service, method, path, body, item):
+@pytest.mark.parametrize("method,path,status,word", UNPORTED,
+                         ids=[f"{m} {p}" for m, p, _s, _w in UNPORTED])
+def test_unported_route_answers_501_naming_its_item(service, method, path, status, word):
+    """Formerly the 501 of an unported route; each route now answers as the
+    reference's does: ``/autopilot`` the controller's report (actuators,
+    log capacity, registered apps), ``/autopilot/R`` 404 for a deployed app
+    the autopilot does not control, ``/cluster`` 404 with no fabric."""
     _m, svc = service
-    code, payload = _call(svc.port, method, path, body)
-    assert code == 501, (code, payload)
-    err = json.loads(payload)["error"]
-    assert f"ROADMAP {item}" in err, err
+    code, payload = _call(svc.port, method, path)
+    assert code == status, (code, payload)
+    body = json.loads(payload)
+    if status == 200:
+        assert word in body and body["decision_log_capacity"] == 256
+        assert "R" not in body["apps"]
+    else:
+        assert word in body["error"], body
 
 
 def _answer(pkg, tmp, method, path, body, undo):
@@ -165,11 +176,36 @@ def test_program_routes_answer_as_the_reference(service, method, path):
 
 
 def test_cluster_argument_is_refused_by_name():
+    """Formerly a refusal naming ROADMAP A.10: the ``cluster=`` argument
+    now attaches a fabric, whose ``status()`` ``GET /cluster`` serves and
+    the ``/metrics`` JSON carries under ``"cluster"``, and whose apps
+    ``POST /query`` scatter-gathers (a stand-in fabric here: the real one
+    runs in ``tests/test_torch_cluster.py``)."""
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch.service import SiddhiRestService
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
-        SiddhiRestService(SiddhiManager(device="cpu"), cluster=object())
+    class Fabric:
+        apps = {"F": object()}
+
+        def status(self):
+            return {"workers": 2, "live": 2, "apps": {"F": {"mode": "split"}}}
+
+        def query(self, app, text):
+            return [(0, ["k", 1]), (0, ["m", 2])]
+
+    m = SiddhiManager(device="cpu")
+    svc = SiddhiRestService(m, cluster=Fabric()).start()
+    try:
+        code, payload = _call(svc.port, "GET", "/cluster")
+        assert code == 200 and json.loads(payload) == Fabric().status()
+        code, payload = _call(svc.port, "GET", "/metrics?format=json")
+        assert code == 200 and json.loads(payload)["cluster"] == Fabric().status()
+        code, payload = _call(svc.port, "POST", "/query",
+                              {"app": "F", "query": "from T select k, n"})
+        assert code == 200 and json.loads(payload) == {"rows": [["k", 1], ["m", 2]]}
+    finally:
+        svc.stop()
+        m.shutdown()
 
 
 def test_ingest_wire_frame_equals_send_columns(service):
@@ -240,10 +276,11 @@ def test_metrics_text_and_json(service):
     for name in ("resilience.worker_restarts", "resilience.shed_events"):
         assert f'siddhi_counter_total{{app="R",name="{name}"}} 0' in text, name
     # the families of unported sources are not printed, not even as zeros;
-    # nor are the journeys' (journeys are off) and the device instruments'
-    # (this app's step declares no slot)
+    # nor are the journeys' (journeys are off), the device instruments'
+    # (this app's step declares no slot) and the autopilot's (the app is
+    # not registered)
     for family in ("siddhi_stage_", "siddhi_device_instrument",
-                   "siddhi_autopilot", "siddhi_cluster",
+                   "siddhi_autopilot",
                    "resilience.peer_failures", "resilience.peer_recoveries"):
         assert family not in text, family
     code, payload = _call(svc.port, "GET", "/metrics/R?format=json")
@@ -251,6 +288,23 @@ def test_metrics_text_and_json(service):
     assert code == 200 and set(snap) == {"apps", "process"}
     assert snap["apps"]["R"]["telemetry"]["gauges"]["wal.batches"] == 1
     assert _call(svc.port, "GET", "/metrics/Nope")[0] == 404
+    # the autopilot's and the cluster fabric's families render once their
+    # source exists (ported in ROADMAP A.10 c and d): a registered app, a
+    # tick, and a router (no worker processes)
+    from siddhi_tpu_torch.autopilot import AutopilotController
+    from siddhi_tpu_torch.cluster import ClusterRuntime
+
+    rt.enable_autopilot(mode="dry_run", interval_s=3600)
+    AutopilotController.instance().tick("R", now=1000.0)
+    cluster = ClusterRuntime(n_workers=1, spawn=False, device="cpu")
+    try:
+        text = _call(svc.port, "GET", "/metrics")[1].decode()
+    finally:
+        cluster.shutdown()
+    assert 'siddhi_autopilot_mode{app="R"} 1' in text
+    assert 'siddhi_autopilot_ticks_total{app="R"} 1' in text
+    assert "siddhi_cluster_workers_live 0" in text
+    assert 'siddhi_cluster_worker_acked_seq{worker="0"} 0' in text
 
 
 def test_query_storm_sheds_503_past_the_cap():
