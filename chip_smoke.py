@@ -427,16 +427,41 @@ launch counts and recorded-call checks hold as they did.
             the distinct scan launched in each worker. Records the socket
             ingest's events/s, the egress latency per batch and the
             recovery time;
-29. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+29. fuzz   FZ, the semantic fuzzer and the runtime sanitizers on the card.
+            Gate 1: the seeded corpus (seed 0, cases 0-7, at most 4 combos
+            a case) through ``fuzz.run_case(device=cuda)``: every variant
+            bit-identical to the baseline on the card, no census findings
+            (the port's ``NOT_PORTED`` gaps listed), routed installs at
+            shards 2 and 4, device joins at P=1 and P=8, fusion, depth 4
+            and pool 2 all run, K8 launched once a routed dispatch, the
+            first replayed routed exchange == plain, and each case's card
+            baseline == the port's CPU baseline (floats to rtol 1e-12).
+            Gate 2: the planted skew (seed 3, case 0, 24 events) caught and
+            shrunk to <= 3 clauses, the fixture equal to the CPU run's.
+            Gate 3: cases 1 and 4 on the autopilot axis, bit-identical;
+            cases 6 and 11 pinned on a 2-worker fabric on the card, equal
+            to one process exactly, both workers reporting ``cuda:0``.
+            Gate 4: ``chip_smoke.py --sanitized`` in a child process with
+            ``SIDDHI_TPU_SANITIZE=1``: the routed flagship x4 (K8), the
+            global flagship and D1 (the distinct scan), each a warm-up
+            batch, ``freeze_compiles()`` and 7 more batches; nothing logged
+            or raised, ``CheckedRLock`` acquisitions counted, the in-graph
+            K8 and scan calls == plain, rows == this process's phase 4, 5
+            and 9 runs; a planted ``.item()`` on the card raises (not
+            inside ``allowed_pull()``), a planted new shape after the
+            freeze raises ``RecompileError`` naming its key;
+30. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
     ``{"fanout": ...}`` line, a ``{"program_cache": ...}`` line, an
     ``{"observability": ...}`` line, an ``{"overload": ...}`` line, an
     ``{"autopilot": ...}`` line, a ``{"cluster": ...}`` line, a
-    ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+    ``{"fuzz": ...}`` line, a ``{"kernels": [...]}`` line, the nvidia-smi
+    line, and last
     ``{"ok": true, "device": {...}}``.
 
+``python3 chip_smoke.py --sanitized OUT`` is phase 29's child (gate 4).
 ``python3 chip_smoke.py --cells ROOT`` instead drives the main path's
 cells with the checkout at ROOT (``cells``): one process a checkout, to
 compare two commits on one card.
@@ -4709,11 +4734,13 @@ class ExchangeRecorder:
 
 
 @contextlib.contextmanager
-def recording_exchange(at: int = 0):
+def recording_exchange(at: int = 0, rec=None):
+    """``rec`` (default ``ExchangeRecorder(at)``) installed for the life of
+    the block."""
     from siddhi_tpu_torch.core.query.step_graph import StepGraph
     from siddhi_tpu_torch.parallel import mesh
 
-    rec = ExchangeRecorder(at)
+    rec = rec if rec is not None else ExchangeRecorder(at)
     orig, orig_run = mesh.ring_exchange_cols, StepGraph.run
     mesh.ring_exchange_cols = rec
     StepGraph.run = rec.wrap_run(orig_run)
@@ -8101,6 +8128,426 @@ def phase_cluster(device, card: str):
     return facts, sum(scans.values())
 
 
+# ------------------------------------- phase 29: the fuzzer and the sanitizers
+
+FZ_SEED = 0
+FZ_CASES = 8                    # seed 0, cases 0-7: every axis value runs
+FZ_MAX_COMBOS = 4               # the coverage-preserving cap a case
+FZ_AP_CASES = (1, 4)            # the autopilot axis: route- and fuse-live cases
+FZ_CLUSTER_CASES = (6, 11)      # the cluster axis: joins and patterns, pinned
+FZ_PLANT_SEED = 3               # tests/test_fuzz.py's planted case
+FZ_PLANT_EVENTS = 24
+FZ_SHRINK_RUNS = 12
+FZ_TIMEOUT_S = 300
+SAN_TIMEOUT_S = 420             # the sanitized child: build, 3 apps, checks
+
+
+class FirstReplayRecorder(ExchangeRecorder):
+    """``ExchangeRecorder`` keeping the first REPLAYED exchange call (the
+    fuzzer's combos capture at different batches, so no fixed index lands
+    on a replay)."""
+
+    def __init__(self):
+        super().__init__(at=-1)
+
+    def wrap_run(self, run):
+        def recorded_run(graph, *a, **k):
+            prev, self.current = self.current, graph
+            try:
+                res = run(graph, *a, **k)
+            finally:
+                self.current = prev
+            call = self.in_graph.get(id(graph))
+            if res[2] is None and call is not None:
+                self.replays += 1
+                if self.got is None:
+                    bufs, outs, self.n = call
+                    self.bufs = [b.clone() for b in bufs]
+                    self.got = [o.clone() for o in outs]
+            return res
+        return recorded_run
+
+
+@contextlib.contextmanager
+def logged_errors(what: str):
+    """Fail the block if the engine logged an error inside it: a junction
+    logs a step's exception and drops its batch, which every strategy
+    would do alike and no row comparison would see."""
+    import logging
+
+    seen = []
+
+    class Errors(logging.Handler):
+        def emit(self, record):
+            exc = record.exc_info[1] if record.exc_info else sys.exc_info()[1]
+            seen.append(f"{type(exc).__name__ if exc else ''}: "
+                        f"{record.getMessage()[:300]}")
+
+    handler = Errors(logging.ERROR)
+    logging.getLogger().addHandler(handler)
+    try:
+        yield seen
+    finally:
+        logging.getLogger().removeHandler(handler)
+    _require(not seen, f"{what}: the engine logged {len(seen)} error(s): {seen[:2]}")
+
+
+def fz_rows_compare(got: dict, want: dict, what: str) -> float:
+    """Every stream's rows (``run_combo``'s shape) through ``cl_compare``."""
+    _require(got.keys() == want.keys(), f"{what}: streams {sorted(got)} vs {sorted(want)}")
+    return max([cl_compare(got[s], want[s], f"{what} {s}") for s in want] or [0.0])
+
+
+def fz_matrix(device, card: str):
+    """Gate 1: the seeded corpus through ``run_case`` on the card. Returns
+    (facts, K8 launches, K8 launches under replay)."""
+    import torch
+
+    from siddhi_tpu_torch.core.query.step_graph import StepGraph
+    from siddhi_tpu_torch.fuzz import CaseGenerator, run_case
+    from siddhi_tpu_torch.fuzz.runner import BASELINE, run_combo
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+    from siddhi_tpu_torch.parallel import mesh
+
+    gen = CaseGenerator(FZ_SEED)
+    installs = []           # (runtime, shards) of every routed install
+    orig_install = mesh.device_route_query_step
+
+    def install(q, m, *a, **k):
+        out = orig_install(q, m, *a, **k)
+        installs.append((q, m.n))
+        return out
+
+    facts = {"seed": FZ_SEED, "cases": FZ_CASES, "max_combos": FZ_MAX_COMBOS,
+             "combos": 0, "pairs": 0, "declared_gaps": [], "per_case_s": []}
+    seen = set()
+    worst_cpu = 0.0
+    ring_exchange.launches = 0
+    mesh.device_route_query_step = install
+    captures0 = StepGraph.total_captures
+    try:
+        with recording_exchange(rec=FirstReplayRecorder()) as rec:
+            for i in range(FZ_CASES):
+                case = gen.case(i)
+                t0 = time.perf_counter()
+                res = run_case(case, max_combos=FZ_MAX_COMBOS, device=device)
+                facts["per_case_s"].append(time.perf_counter() - t0)
+                bad = [(c.label(), d.summary()) for c, d in res.divergences]
+                _require(not bad, f"FZ case {i}: variants differ from the baseline on "
+                         f"the card: {bad[:2]}")
+                _require(not res.census_findings,
+                         f"FZ case {i}: census findings {res.census_findings[:3]}")
+                facts["declared_gaps"] += [f"case {i}: {g}" for g in res.declared_gaps]
+                facts["combos"] += len(res.combos_run)
+                facts["pairs"] += res.pairs_diffed
+                joins = any(q.kind == "join" for q in case.queries)
+                for c in res.plan.combos:
+                    seen |= {("fuse", c.fuse), ("depth", c.depth), ("pool", c.pool)}
+                    if joins and c.join_engine == "device":
+                        seen.add(("join", c.join_partitions))
+                cpu, _census, _errs = run_combo(case, BASELINE, device="cpu")
+                worst_cpu = max(worst_cpu, fz_rows_compare(
+                    res.baseline, cpu, f"FZ case {i}: card baseline vs the port's CPU"))
+    finally:
+        mesh.device_route_query_step = orig_install
+    launches = ring_exchange.launches
+    dispatches = sum(q._route_layout.dispatches for q, _n in installs)
+    routed_shards = sorted({n for _q, n in installs})
+    _require(routed_shards == [2, 4], f"FZ: routed installs at shards {routed_shards}, "
+             f"want 2 and 4")
+    for want in (("fuse", True), ("depth", 4), ("pool", 2), ("join", 1), ("join", 8)):
+        _require(want in seen, f"FZ: the corpus ran no combo with {want}")
+    _require(launches == dispatches > 0, f"FZ: {launches} K8 launches for "
+             f"{dispatches} routed dispatches: want one per dispatch")
+    _require(rec.got is not None and rec.replays > 0,
+             f"FZ: no routed exchange ran inside a replay ({rec.replays} replays)")
+    cols = check_exchange_call(rec, "FZ: the replayed routed exchange")
+    facts.update({
+        "routed_installs": len(installs), "routed_shards": routed_shards,
+        "routed_dispatches": dispatches, "k8_launches": launches,
+        "k8_replays": rec.replays, "replayed_columns_checked": cols,
+        "captures": StepGraph.total_captures - captures0,
+        "card_vs_cpu_max_rel_err": worst_cpu})
+    print(f"[fuzz] FZ matrix: seed {FZ_SEED}, cases 0-{FZ_CASES - 1}, cap "
+          f"{FZ_MAX_COMBOS}: {facts['combos']} combo runs, {facts['pairs']} pairs "
+          f"bit-identical to the baseline on the card, no census findings "
+          f"({len(facts['declared_gaps'])} declared gaps); {len(installs)} routed "
+          f"installs at shards {routed_shards}, {dispatches} routed dispatches, K8 "
+          f"launched {launches} times ({rec.replays} in replays; the first replayed "
+          f"call == plain on {cols} columns); {facts['captures']} captures; every "
+          f"case's card baseline == the port's CPU baseline (max float rel err "
+          f"{worst_cpu:.3g}); {sum(facts['per_case_s']):.1f} s [{card}]", flush=True)
+    return facts, launches, rec.replays
+
+
+def fz_planted(device, card: str) -> dict:
+    """Gate 2: the planted skew caught on the card and shrunk to the
+    fixture the CPU run shrinks to."""
+    import json as _json
+
+    from siddhi_tpu_torch.fuzz import CaseGenerator, run_case, shrink_case
+    from siddhi_tpu_torch.fuzz.shrink import fixture_dict
+
+    def planted(dev):
+        case = CaseGenerator(FZ_PLANT_SEED, events_per_case=FZ_PLANT_EVENTS).case(0)
+        res = run_case(case, max_combos=3, plant=True, stop_on_divergence=True,
+                       device=dev)
+        _require(res.divergences, f"FZ planted on {dev}: the skew was not caught")
+        combo, diff = res.divergences[0]
+        _require(combo.depth > 1 and diff.kind == "rows",
+                 f"FZ planted on {dev}: caught under {combo.label()} ({diff.kind})")
+        s = shrink_case(case, combo, diff, plant=True, max_runs=FZ_SHRINK_RUNS,
+                        device=dev)
+        return s, fixture_dict(s.case, s.combo, s.diff)
+
+    t0 = time.perf_counter()
+    s, card_fx = planted(device)
+    _cpu_s, cpu_fx = planted("cpu")
+    _require(s.case.clause_count() <= 3, f"FZ planted: shrunk to "
+             f"{s.case.clause_count()} clauses ({s.steps})")
+    _require(_json.dumps(card_fx, sort_keys=True) == _json.dumps(cpu_fx, sort_keys=True),
+             "FZ planted: the card's shrunk fixture differs from the CPU's")
+    facts = {"clauses": s.case.clause_count(), "events": len(s.case.events),
+             "combo": s.combo.label(), "runs": s.runs_used, "steps": s.steps,
+             "phase_s": time.perf_counter() - t0}
+    print(f"[fuzz] FZ planted: caught, shrunk in {s.runs_used} runs to "
+          f"{facts['clauses']} clauses / {facts['events']} events under "
+          f"{facts['combo']}; the fixture == the CPU run's [{card}]", flush=True)
+    return facts
+
+
+def fz_axes(device, card: str) -> dict:
+    """Gate 3: two cases on the autopilot axis, two on a 2-worker fabric
+    on the card."""
+    from siddhi_tpu_torch.cluster import ClusterRuntime
+    from siddhi_tpu_torch.fuzz import CaseGenerator, run_case
+    from siddhi_tpu_torch.fuzz.runner import BASELINE, diff_outputs, run_cluster_case, run_combo
+
+    gen = CaseGenerator(FZ_SEED)
+    facts = {"autopilot": {}, "cluster": {}}
+    for i in FZ_AP_CASES:
+        res = run_case(gen.case(i), max_combos=2, autopilot=True, device=device)
+        bad = [(c.label(), d.summary()) for c, d in res.divergences]
+        _require(not bad and not res.census_findings,
+                 f"FZ autopilot case {i}: {bad[:2]} {res.census_findings[:2]}")
+        _require(sum(c.autopilot for c in res.plan.combos) >= 2,
+                 f"FZ autopilot case {i}: plan {[c.label() for c in res.plan.combos]}")
+        facts["autopilot"][i] = res.combos_run
+    t0 = time.perf_counter()
+    cluster = ClusterRuntime(n_workers=2, heartbeat_s=0.2, device=device)
+    try:
+        cluster.wait_ready(FZ_TIMEOUT_S)
+        for i in FZ_CLUSTER_CASES:
+            case = gen.case(i)
+            base, _c, _e = run_combo(case, BASELINE, device=device)
+            got = run_cluster_case(case, cluster, f"fz{i}")
+            d = diff_outputs(base, got)
+            _require(d is None, f"FZ cluster case {i}: {d.summary() if d else ''}")
+            facts["cluster"][i] = sum(len(v) for v in got.values())
+        stats = cluster.worker_stats(timeout=FZ_TIMEOUT_S)
+    finally:
+        cluster.shutdown()
+    for idx, st in stats.items():
+        _require(st["device"] == "cuda:0" and st["device_name"],
+                 f"FZ cluster: worker {idx} reports {st['device']} ({st['device_name']})")
+    facts["workers"] = {i: st["device"] for i, st in stats.items()}
+    facts["cluster_s"] = time.perf_counter() - t0
+    print(f"[fuzz] FZ axes: autopilot cases {list(FZ_AP_CASES)} bit-identical over "
+          f"{sum(len(v) for v in facts['autopilot'].values())} runs; cluster cases "
+          f"{list(FZ_CLUSTER_CASES)} ({facts['cluster']} rows) on 2 workers == one "
+          f"process, exactly; workers on {facts['workers']} [{card}]", flush=True)
+    return facts
+
+
+def send_frozen(h, feed, device):
+    """``send_timed`` with the recapture watchdog frozen after the first
+    batch (the warm-up): a later build or capture raises."""
+    import torch
+
+    from siddhi_tpu_torch.analysis import sanitize
+
+    seconds = []
+    try:
+        for i, (cols, ts) in enumerate(feed):
+            t0 = time.perf_counter()
+            h.send_columns(cols, timestamps=ts)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                sanitize.freeze_compiles()
+    finally:
+        sanitize.thaw_compiles()
+    return seconds
+
+
+def sanitized_child(out_path: str) -> int:
+    """``chip_smoke.py --sanitized OUT`` under ``SIDDHI_TPU_SANITIZE=1``:
+    the routed flagship (x4, K8), the global flagship and D1 (the distinct
+    scan) at full width, each a warm-up batch, ``freeze_compiles()`` and
+    7 more batches, every sanitizer armed; the rows go to OUT (npz) for
+    the parent, the facts to a ``SANITIZED {...}`` line."""
+    import numpy as np
+    import torch
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    from siddhi_tpu_torch import native
+    from siddhi_tpu_torch.analysis import locks, sanitize
+    from siddhi_tpu_torch.analysis.guards import _GuardedField
+    from siddhi_tpu_torch.core.query.completion import CompletionPump
+    from siddhi_tpu_torch.observability.telemetry import TelemetryRegistry
+    from siddhi_tpu_torch.ops import _cuda
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+
+    _require(sanitize.enabled(), "sanitized child: SIDDHI_TPU_SANITIZE is not set")
+    _require(isinstance(vars(CompletionPump)["_pending"], _GuardedField),
+             "sanitized child: the guarded-by descriptors are not installed")
+    _cuda.build(["ring_exchange", "distinct_scan"])
+    native.build_strdict()
+    global send_timed
+    send_timed_orig, send_timed = send_timed, send_frozen
+    device = torch.device("cuda", 0)
+    feed = make_feed(5, N_BATCHES, BATCH, NUM_SYMBOLS)
+    facts, outs = {}, {}
+    acq0 = locks.acquisitions()
+    try:
+        with logged_errors("sanitized child"):
+            ring_exchange.launches = 0
+            with recording_exchange(at=EX_RECORD_AT) as ex_rec:
+                outs["routed"], _s, f = run_slice(device, feed, routed=True)
+            facts["routed"] = {"k8_launches": ring_exchange.launches,
+                               "dispatches": f["dispatches"], "captures": f["captures"],
+                               "replays": f["replays"], "k8_replays": ex_rec.replays}
+            with sanitize.allowed_pull():
+                facts["routed"]["checked_columns"] = check_exchange_call(
+                    ex_rec, "sanitized routed: the exchange in the graph")
+            outs["global"], _s, _f = run_global(device, GLOBAL_APP.format(W=WINDOW), "bench",
+                                                feed)
+            distinct_scan.launches = 0
+            with recording(at=len(feed) - 1) as rec:
+                d1, _s, _f = run_app(device, D1_APP.format(W=WINDOW), feed)
+            outs["d1"] = d1["OutStream"]
+            facts["d1"] = {"scan_launches": distinct_scan.launches, "scan_replays": rec.replays}
+            with sanitize.allowed_pull():
+                facts["d1"]["max_abs_err"] = check_graph_scan(rec, "sanitized D1: the scan")
+    finally:
+        send_timed = send_timed_orig
+    facts["checked_lock_acquisitions"] = locks.acquisitions() - acq0
+    _require(facts["checked_lock_acquisitions"] > 0, "sanitized child: no CheckedRLock "
+             "was acquired")
+    # planted: a scalar pull on the card raises, the same one declared does not
+    t = torch.arange(4, device=device) * 3
+    try:
+        t[1].item()
+        _require(False, "sanitized child: a planted .item() on a cuda tensor did not raise")
+    except sanitize.HostPullError as e:
+        facts["planted_pull"] = str(e)[:120]
+    with sanitize.allowed_pull():
+        _require(t[1].item() == 3, "sanitized child: allowed_pull() read")
+    # planted: a new column spec after the freeze refuses its capture
+    tel = TelemetryRegistry()
+    state = {"acc": torch.zeros((), dtype=torch.float64, device=device)}
+
+    def fn(st, cols, now):
+        st["acc"].add_(cols["x"].sum())
+        return ({"y": cols["x"] * 2},), torch.stack([now, now])
+
+    step = tel.instrument_jit(fn, "chip_smoke.planted_step", capturable=True)
+    for _ in range(3):
+        step.replay(state, {"x": np.ones(BATCH)}, 1, 1)
+    sanitize.freeze_compiles()
+    try:
+        step.replay(state, {"x": np.ones(BATCH)}, 2, 1)
+        step.replay(state, {"x": np.ones(BATCH // 2)}, 3, 1)
+        _require(False, "sanitized child: a new shape after the freeze was captured")
+    except sanitize.RecompileError as e:
+        _require("chip_smoke.planted_step" in str(e), f"sanitized child: {e}")
+        facts["planted_recapture"] = str(e)[:160]
+    finally:
+        sanitize.thaw_compiles()
+    _require(step.graph.captures == 1, f"sanitized child: {step.graph.captures} captures")
+    arrays = {}
+    for app, batches in outs.items():
+        for i, b in enumerate(batches):
+            for k, v in b.items():
+                arrays[f"{app}|{i}|{k}"] = v
+    np.savez(out_path, **arrays)
+    print("SANITIZED " + json.dumps(facts), flush=True)
+    return 0
+
+
+def fz_sanitized(outs: dict, card: str):
+    """Gate 4: ``sanitized_child`` in a process of its own; its rows held
+    against this process's unsanitized runs of the same apps and feed.
+    Returns (facts, K8 launches, K8 replays, scan launches, scan replays)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sanitized.npz")
+        env = dict(os.environ, SIDDHI_TPU_SANITIZE="1")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--sanitized", path], env=env, capture_output=True,
+                              text=True, timeout=SAN_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        _require(proc.returncode == 0, f"FZ sanitized child exited {proc.returncode}:\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("SANITIZED ")]
+        _require(len(line) == 1, f"FZ sanitized child printed no facts:\n{proc.stdout[-2000:]}")
+        facts = json.loads(line[0][len("SANITIZED "):])
+        with np.load(path, allow_pickle=True) as z:
+            got = {}
+            for key in z.files:
+                app, i, col = key.split("|")
+                got.setdefault(app, {}).setdefault(int(i), {})[col] = z[key]
+    worst = 0.0
+    for app, want in outs.items():
+        batches = [got.get(app, {}).get(i, {}) for i in range(len(want))]
+        _require(len(got.get(app, {})) == len(want),
+                 f"FZ sanitized {app}: {len(got.get(app, {}))} batches vs {len(want)}")
+        worst = max(worst, compare_outputs(batches, want, f"FZ sanitized {app} vs unsanitized"))
+    r, d = facts["routed"], facts["d1"]
+    _require(r["k8_launches"] == r["dispatches"] == N_BATCHES and r["captures"] == 1,
+             f"FZ sanitized routed: {r}")
+    _require(d["scan_launches"] == N_BATCHES, f"FZ sanitized D1: {d}")
+    facts.update({"child_s": child_s, "rows_max_rel_err": worst})
+    print(f"[fuzz] FZ sanitized (SIDDHI_TPU_SANITIZE=1, a process of its own, "
+          f"{child_s:.1f} s): routed x{N_SHARDS} (K8 {r['k8_launches']} launches, "
+          f"{r['k8_replays']} in replays, replayed call == plain), the global "
+          f"flagship and D1 (scan {d['scan_launches']} launches, {d['scan_replays']} "
+          f"in replays, == plain) each a warm-up batch, freeze_compiles(), "
+          f"{N_BATCHES - 1} more: no HostPullError, RecompileError, LockOrderError or "
+          f"GuardViolation; {facts['checked_lock_acquisitions']} CheckedRLock "
+          f"acquisitions; rows == the unsanitized runs (max float rel err "
+          f"{worst:.3g}); a planted .item() on the card raised, inside "
+          f"allowed_pull() it did not; a planted new shape after the freeze: "
+          f"{facts['planted_recapture']!r} [{card}]", flush=True)
+    return (facts, r["k8_launches"], r["k8_replays"], d["scan_launches"],
+            d["scan_replays"])
+
+
+def phase_fuzz(device, outs: dict, card: str):
+    """Phase 29 (see the module doc). ``outs``: this process's runs of the
+    routed flagship, the global flagship and D1 on phase 4's feed. Returns
+    (facts, K8 launches, K8 replays, scan launches, scan replays)."""
+    t_phase = time.perf_counter()
+    facts = {"card": card}
+    with logged_errors("FZ gates 1-3"):
+        facts["matrix"], k8, k8_replays = fz_matrix(device, card)
+        facts["planted"] = fz_planted(device, card)
+        facts["axes"] = fz_axes(device, card)
+    facts["sanitized"], s_k8, s_k8_rep, scans, scan_replays = fz_sanitized(outs, card)
+    facts["phase_s"] = time.perf_counter() - t_phase
+    print(f"[fuzz] phase 29 in {facts['phase_s']:.1f} s: K8 {k8 + s_k8} launches "
+          f"({k8_replays + s_k8_rep} in replays), the distinct scan {scans} "
+          f"({scan_replays} in replays) [{card}]", flush=True)
+    return facts, k8 + s_k8, k8_replays + s_k8_rep, scans, scan_replays
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -8358,13 +8805,18 @@ def main() -> int:
     cluster, cl_scan = phase_cluster(device, card)
     dist["launches"]["CL_workers"] = cl_scan
 
-    # 29. result lines
+    # 29. the semantic fuzzer on the card, and the runtime sanitizers
+    fuzz, fz_exchange, fz_ex_replays, fz_scan, fz_scan_replays = phase_fuzz(
+        device, {"routed": routed, "global": fused, "d1": dist["d1_out"]}, card)
+    dist["launches"]["FZ"] = fz_scan
+
+    # 30. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
                      "P_routed": persistence["routed_x4"]["exchange_launches"],
                      "OB": observability["launches"]["exchange"], "OL": ol_exchange,
-                     "AP": ap_exchange}
+                     "AP": ap_exchange, "FZ": fz_exchange}
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
@@ -8378,7 +8830,8 @@ def main() -> int:
         # phase 4's launches inside the routed step's graph replays (the
         # capture's batch launches it eagerly), and the replayed call's
         # columns held against the plain version
-        "launches_under_replay": {"routed": ex_rec.replays, "OL_quotas": ol_replays},
+        "launches_under_replay": {"routed": ex_rec.replays, "OL_quotas": ol_replays,
+                                  "FZ": fz_ex_replays},
         "in_graph_columns_checked": ex_cols,
         "roofline_share": ex["roofline_share"],
         # phase 4's columns over phase 4's launches
@@ -8400,7 +8853,8 @@ def main() -> int:
         # FO's and SV's launches are graph replays (one a batch) and one
         # eager warm-up launch a capture
         "launches_under_replay": {"FO": fanout["replays"],
-                                  "SV_D1": serving["graph_replays"]},
+                                  "SV_D1": serving["graph_replays"],
+                                  "FZ": fz_scan_replays},
         "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "device_ms": d1["device_ms"],
         "device_traces": d1["device_traces"],
@@ -8448,6 +8902,7 @@ def main() -> int:
     print(json.dumps({"overload": overload}, default=str))
     print(json.dumps({"autopilot": autopilot}, default=str))
     print(json.dumps({"cluster": cluster}, default=str))
+    print(json.dumps({"fuzz": fuzz}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -8504,6 +8959,8 @@ def cells(root: str) -> dict:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--sanitized"] and len(sys.argv) == 3:
+            sys.exit(sanitized_child(sys.argv[2]))
         if sys.argv[1:2] == ["--cells"] and len(sys.argv) == 3:
             import torch
 

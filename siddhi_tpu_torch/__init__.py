@@ -24,15 +24,26 @@ shard exchange as a hand-written CUDA kernel (``ops/exchange.py``); every
 window, partitions, patterns and sequences, joins, tables, named windows,
 on-demand queries and triggers; incremental aggregations
 (``core/aggregation/``); and snapshots with persistence
-(``core/util/snapshot.py``, ``core/util/persistence.py``).
+(``core/util/snapshot.py``, ``core/util/persistence.py``); the semantic
+fuzzer (``python -m siddhi_tpu_torch.fuzz``) and the runtime sanitizers
+(``SIDDHI_TPU_SANITIZE=1``, ``analysis/sanitize.py``).
 """
 
-from siddhi_tpu_torch.compiler import SiddhiCompiler
-from siddhi_tpu_torch.core.event import Event
-from siddhi_tpu_torch.core.manager import SiddhiManager
-from siddhi_tpu_torch.core.query.callback import QueryCallback
-from siddhi_tpu_torch.core.stream.output.stream_callback import StreamCallback
-from siddhi_tpu_torch.core.util.config import InMemoryConfigManager
+# SIDDHI_TPU_SANITIZE=1 arms the runtime sanitizers (the host-pull guard,
+# the recapture watchdog, the lock-order and guarded-by checks:
+# analysis/sanitize.py). It patches a class only: CUDA is not initialized
+# here.
+from siddhi_tpu_torch.analysis import sanitize as _sanitize
+
+if _sanitize.enabled():
+    _sanitize.enable()
+
+from siddhi_tpu_torch.compiler import SiddhiCompiler  # noqa: E402
+from siddhi_tpu_torch.core.event import Event  # noqa: E402
+from siddhi_tpu_torch.core.manager import SiddhiManager  # noqa: E402
+from siddhi_tpu_torch.core.query.callback import QueryCallback  # noqa: E402
+from siddhi_tpu_torch.core.stream.output.stream_callback import StreamCallback  # noqa: E402
+from siddhi_tpu_torch.core.util.config import InMemoryConfigManager  # noqa: E402
 
 __all__ = ["Event", "InMemoryConfigManager", "QueryCallback", "SiddhiCompiler",
            "SiddhiManager", "StreamCallback"]

@@ -45,6 +45,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, List, Optional
 
+from siddhi_tpu_torch.analysis.locks import make_lock
 from siddhi_tpu_torch.compiler.errors import SiddhiAppValidationException
 from siddhi_tpu_torch.core.context import SiddhiAppContext, SiddhiContext
 from siddhi_tpu_torch.core.plan.query_planner import plan_query
@@ -175,7 +176,7 @@ class SiddhiAppRuntime:
         self.siddhi_app = siddhi_app
         self.name = siddhi_app.name or _default_app_name(siddhi_app)
         self.app_context = SiddhiAppContext(siddhi_context, self.name)
-        self._barrier = threading.RLock()
+        self._barrier = make_lock("barrier")
         self.app_context.timestamp_generator.set_heartbeat_barrier(self._barrier)
         self.stream_definitions: Dict[str, StreamDefinition] = dict(
             siddhi_app.stream_definitions)
@@ -289,6 +290,16 @@ class SiddhiAppRuntime:
         from siddhi_tpu_torch.core.plan.fanout_plan import plan_fanout_groups
 
         self.fused_fanout_groups: List = plan_fanout_groups(self)
+
+        # eligibility census (core/eligibility.py): every query classified
+        # on every strategy surface (route / fusion / join engine / join
+        # pipeline) with stable reason codes, kept on
+        # self.eligibility_census for tooling (the semantic fuzzer) and
+        # counted as the siddhi_eligibility_total{surface,code,query}
+        # family on /metrics
+        from siddhi_tpu_torch.core.eligibility import register_census
+
+        register_census(self)
 
         # overload control (resilience/overload.py): the siddhi_tpu.quota_*
         # and siddhi_tpu.shed_policy keys register per-app queue quotas,

@@ -1,22 +1,41 @@
-"""Machine-readable eligibility reason codes.
+"""Machine-readable eligibility reason codes and the per-app census.
 
-Counterpart of the first half of ``siddhi_tpu/core/eligibility.py``. The
-engine runs one query under several strategies (fused fan-out, pipelined,
-device-routed, device joins); each strategy's planner hook says WHY a
-runtime cannot take its path. Every such reason is a :class:`Reason`: a
-``str`` subclass (substring asserts and f-string interpolations keep
-working) carrying a stable :class:`ReasonCode`. ``code_of`` normalizes any
-surface value (None = eligible, Reason, bare str) to a code; a bare str
-maps to ``UNKNOWN``.
+Counterpart of ``siddhi_tpu/core/eligibility.py``. The engine runs one
+query under several strategies (fused fan-out, pipelined, device-routed,
+device joins); each strategy's planner hook says WHY a runtime cannot take
+its path (``rt.engine_reason``, ``rt.pipeline_reason``,
+``parallel.mesh.route_ineligibility``,
+``fanout_plan.fusion_ineligibility``). Every such reason is a
+:class:`Reason`: a ``str`` subclass (substring asserts and f-string
+interpolations keep working) carrying a stable :class:`ReasonCode`.
+``code_of`` normalizes any surface value (None = eligible, Reason, bare
+str) to a code; a bare str maps to ``UNKNOWN``, which the semantic fuzzer
+(``siddhi_tpu_torch/fuzz/``) treats as an unexplained fallback.
 
-The per-app census (its surfaces, ``census_of``, ``register_census`` and
-its ``eligibility.<surface>.<code>.<query>`` counters) is ROADMAP A.10.
+``register_census`` walks a freshly built app's query runtimes, records
+each query's classification on every surface into
+``app_runtime.eligibility_census`` and counts it on the app's telemetry
+registry as ``eligibility.<surface>.<code>.<query>`` (exported as the
+``siddhi_eligibility_total{surface,code,query}`` family by
+``observability/export.py``).
+
+One code is the port's own: ``NOT_PORTED``, a shape the reference runs on
+a strategy the port has not ported yet (the planner's text names the
+ROADMAP item). The fuzzer reports such rows as declared gaps.
 """
 
 from __future__ import annotations
 
 from enum import Enum
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
+
+# census surfaces (the strategy axes a query is classified on)
+SURFACE_ROUTE = "route"                  # device-routed mesh sharding
+SURFACE_FUSION = "fusion"                # fan-out fusion membership
+SURFACE_JOIN_ENGINE = "join_engine"      # device join engine
+SURFACE_JOIN_PIPELINE = "join_pipeline"  # join CompletionPump ride
+SURFACES = (SURFACE_ROUTE, SURFACE_FUSION, SURFACE_JOIN_ENGINE,
+            SURFACE_JOIN_PIPELINE)
 
 
 class ReasonCode(str, Enum):
@@ -60,6 +79,10 @@ class ReasonCode(str, Enum):
     NO_DEVICE_ENGINE = "NO_DEVICE_ENGINE"    # join side w/o device engine
     SELF_JOIN = "SELF_JOIN"                  # both sides on one junction
 
+    # the port's own: the reference takes the strategy, the port has not
+    # ported it yet (the reason's text names the ROADMAP item)
+    NOT_PORTED = "NOT_PORTED"
+
 
 class Reason(str):
     """A free-text ineligibility reason carrying its stable code.
@@ -91,3 +114,56 @@ def code_of(value: Optional[str]) -> ReasonCode:
     if isinstance(value, Reason):
         return value.code
     return ReasonCode.UNKNOWN
+
+
+# --------------------------------------------------------------- census
+
+def census_of(app_runtime) -> Dict[str, List[Tuple[str, ReasonCode, str]]]:
+    """Classify every query runtime on every surface it takes part in.
+
+    Returns ``{query_name: [(surface, code, detail), ...]}``. A pure read:
+    it consults the functions the planners do and mutates nothing."""
+    from siddhi_tpu_torch.core.plan.fanout_plan import fusion_ineligibility
+    from siddhi_tpu_torch.parallel.mesh import route_ineligibility
+
+    out: Dict[str, List[Tuple[str, ReasonCode, str]]] = {}
+    for name, q in app_runtime.query_runtimes.items():
+        rows: List[Tuple[str, ReasonCode, str]] = []
+        r = route_ineligibility(q)
+        rows.append((SURFACE_ROUTE, code_of(r), str(r or "")))
+        if getattr(q, "sides", None) is not None:
+            # a join: fusion is decided per side proxy (the junction
+            # receivers), not on the JoinQueryRuntime itself
+            proxies = getattr(q, "_proxies", None)
+            if proxies:
+                for _key, proxy in sorted(proxies.items()):
+                    fr = proxy.fusion_ineligibility()
+                    rows.append((SURFACE_FUSION, code_of(fr), str(fr or "")))
+            else:
+                fr = fusion_ineligibility(q)
+                rows.append((SURFACE_FUSION, code_of(fr), str(fr or "")))
+            er = getattr(q, "engine_reason", None)
+            pr = getattr(q, "pipeline_reason", None)
+            rows.append((SURFACE_JOIN_ENGINE, code_of(er), str(er or "")))
+            rows.append((SURFACE_JOIN_PIPELINE, code_of(pr), str(pr or "")))
+        else:
+            fr = fusion_ineligibility(q)
+            rows.append((SURFACE_FUSION, code_of(fr), str(fr or "")))
+        out[name] = rows
+    return out
+
+
+def register_census(app_runtime) -> None:
+    """Record the build-time census: kept on
+    ``app_runtime.eligibility_census`` for direct reads (the fuzzer) and
+    counted for each (surface, code, query) on the app's telemetry registry
+    for the /metrics family. Called once an app build, right after fan-out
+    planning."""
+    census = census_of(app_runtime)
+    app_runtime.eligibility_census = census
+    tel = getattr(app_runtime.app_context, "telemetry", None)
+    if tel is None:
+        return
+    for qname, rows in census.items():
+        for surface, code, _detail in rows:
+            tel.count(f"eligibility.{surface}.{code.value}.{qname}")

@@ -29,13 +29,17 @@ def attach_join_engine(rt, on_expr) -> None:
     ``siddhi_tpu.join_engine`` = ``legacy`` the runtime keeps the
     synchronous broadcast probe wholesale (the baseline the engine is held
     equal to)."""
+    from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
+    from siddhi_tpu_torch.core.eligibility import reason
+
     rt.engine = None
     rt.engine_reason = engine_ineligibility(rt)
     rt.pipeline_reason = pipeline_ineligibility(rt)
     mode = str(getattr(rt.app_context, "join_engine", "device") or "device")
     if mode != "device":
-        rt.engine_reason = rt.engine_reason or "disabled (siddhi_tpu.join_engine=legacy)"
-        rt.pipeline_reason = "siddhi_tpu.join_engine=legacy"
+        rt.engine_reason = rt.engine_reason or reason(
+            RC.DISABLED, "disabled (siddhi_tpu.join_engine=legacy)")
+        rt.pipeline_reason = reason(RC.DISABLED, "siddhi_tpu.join_engine=legacy")
         return
     if rt.engine_reason is not None:
         return

@@ -66,43 +66,55 @@ _HASHABLE = (AttrType.INT, AttrType.LONG, AttrType.BOOL, AttrType.STRING)
 # ------------------------------------------------------------ eligibility
 
 def engine_ineligibility(rt) -> Optional[str]:
-    """Why this join runtime cannot run the engine (None = it can):
-    unpartitioned stream-stream joins whose sides are length, time or
-    externalTime windows or windowless. Store sides (tables, named
-    windows), host windows and `partition with` joins (a keyed [K, W]
-    ring is partition-local already) keep the broadcast probe."""
+    """Why this join runtime cannot run the engine (None = it can, else a
+    ``core.eligibility.Reason``): unpartitioned stream-stream joins whose
+    sides are length, time or externalTime windows or windowless. Store
+    sides (tables, named windows), host windows and `partition with` joins
+    (a keyed [K, W] ring is partition-local already) keep the broadcast
+    probe."""
+    from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
+    from siddhi_tpu_torch.core.eligibility import reason
+
     if rt.partition_ctx is not None:
-        return "partitioned join (keyed rings are already partition-local)"
+        return reason(RC.PARTITIONED,
+                      "partitioned join (keyed rings are already partition-local)")
     if rt.index_probe is not None:
-        return "indexed table probe"
+        return reason(RC.INDEXED_PROBE, "indexed table probe")
     for side in rt.sides.values():
         if side.store is not None:
-            return f"shared-store side '{side.stream_id}'"
+            return reason(RC.STORE_SIDE, f"shared-store side '{side.stream_id}'")
         if side.host_window is not None:
-            return f"host-mode window side '{side.stream_id}'"
+            return reason(RC.HOST_WINDOW, f"host-mode window side '{side.stream_id}'")
         if not isinstance(side.window_stage, (LengthWindowStage, TimeWindowStage,
                                               PassthroughWindowStage)):
-            return (f"window stage {type(side.window_stage).__name__} on side "
-                    f"'{side.stream_id}' (no partition adapter yet)")
+            return reason(RC.WINDOW_KIND,
+                          f"window stage {type(side.window_stage).__name__} on side "
+                          f"'{side.stream_id}' (no partition adapter yet)")
     return None
 
 
 def pipeline_ineligibility(rt) -> Optional[str]:
     """Why this join runtime's batches may not ride the CompletionPump
-    (None = they may): any join whose probe surfaces live in its own
-    state, without a host group keyer or an indexed table probe."""
+    (None = they may, else a ``core.eligibility.Reason``): any join whose
+    probe surfaces live in its own state, without a host group keyer or an
+    indexed table probe."""
+    from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
+    from siddhi_tpu_torch.core.eligibility import reason
+
     for side in rt.sides.values():
         if side.store is not None:
-            return (f"shared-store probe side '{side.stream_id}' "
-                    f"(host-interleaved contents)")
+            return reason(RC.STORE_SIDE,
+                          f"shared-store probe side '{side.stream_id}' "
+                          f"(host-interleaved contents)")
         if side.host_window is not None:
-            return f"host-mode window side '{side.stream_id}'"
+            return reason(RC.HOST_WINDOW, f"host-mode window side '{side.stream_id}'")
         if side.window_stage is None:
-            return f"side '{side.stream_id}' has no window stage"
+            return reason(RC.NO_WINDOW, f"side '{side.stream_id}' has no window stage")
     if rt.keyer is not None:
-        return "grouped selector (host keyed select between stages)"
+        return reason(RC.GROUPED_SELECT,
+                      "grouped selector (host keyed select between stages)")
     if rt.index_probe is not None:
-        return "indexed table probe"
+        return reason(RC.INDEXED_PROBE, "indexed table probe")
     return None
 
 

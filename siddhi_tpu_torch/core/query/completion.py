@@ -66,6 +66,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from siddhi_tpu_torch.analysis.guards import guarded
+from siddhi_tpu_torch.analysis.locks import make_lock
 from siddhi_tpu_torch.core.stream.junction import FatalQueryError
 from siddhi_tpu_torch.observability import journey as journey_mod
 
@@ -194,19 +196,25 @@ class FusedCompletion:
                     (time.perf_counter() - self.t0) * 1000.0)
 
 
+@guarded
 class CompletionPump:
     """Per-app registry of in-flight device batches (one FIFO per owner).
 
     Thread contract: ``submit`` and ``flush_owner`` are called with the
     owner's ``_lock`` held (``process_batch`` holds it); ``flush`` takes
     each owner's lock itself. Locks are always taken owner first, then
-    the pump's, and the pump's is never held across a wait or an emit.
+    the pump's (ranks ``owner`` -> ``pump``, ``analysis/lockorder.py``),
+    and the pump's is never held across a wait or an emit.
     """
+
+    # `_n_pending` and `_submits_by_j` stay undeclared: both are
+    # lock-free has-work/progress probes read from hot sync paths
+    GUARDED_BY = {"_pending": "pump"}
 
     def __init__(self, app_context):
         self.app_context = app_context
         self._pending: Dict[object, deque] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("pump")
         self._tls = threading.local()
         self._n_pending = 0       # cheap has-work probe for sync senders
         # per delivering junction: lets a worker tell whether ITS delivery
@@ -240,14 +248,10 @@ class CompletionPump:
             return len(dq) if dq is not None else 0
 
     def _inflight_by_label(self, label: str) -> int:
-        """Entries in flight under one owner label (the gauge reads it; a
-        lock-free count of a snapshot of the FIFOs)."""
-        n = 0
-        for dq in list(self._pending.values()):
-            for e in list(dq):
-                if e.label == label:
-                    n += 1
-        return n
+        """Entries in flight under one owner label (the gauge reads it)."""
+        with self._lock:
+            return sum(1 for dq in self._pending.values() for e in dq
+                       if e.label == label)
 
     def oldest_age_s(self) -> Optional[float]:
         """Age of the oldest in-flight entry, or None: the supervisor's

@@ -73,13 +73,13 @@ group dispatches. Counters
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from siddhi_tpu_torch.analysis.locks import make_lock
 from siddhi_tpu_torch.core.event import HostBatch, LazyColumns, pack_pool_of
 from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY, STR_RANK
 from siddhi_tpu_torch.core.query.completion import FusedCompletion, stage_meta
@@ -137,7 +137,7 @@ class FusedFanoutRuntime(Receiver):
         self._sig = None          # (slots, per-member key capacities)
         self._clusters: List[List[int]] = []   # member idxs per computation
         self._cluster_of: List[int] = []       # member idx -> cluster idx
-        self._lock = threading.RLock()
+        self._lock = make_lock("owner")
         self._staging = None      # eager mode on the card: pinned staging
         # the group's private graphs (the program cache off, or full); a
         # group whose program is shared replays the cache entry's

@@ -50,6 +50,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
+from siddhi_tpu_torch.core.eligibility import reason
 from siddhi_tpu_torch.core.event import (
     CURRENT, EXPIRED, RESET, TIMER, Event, HostBatch, LazyColumns, pack_pool_of)
 from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY, STR_RANK
@@ -271,9 +273,6 @@ class JoinSideProxy(Receiver):
     def fusion_ineligibility(self) -> Optional[str]:
         """Why this side cannot join a fused fan-out group (None =
         eligible); consulted by ``fanout_plan.fusion_ineligibility``."""
-        from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
-        from siddhi_tpu_torch.core.eligibility import reason
-
         rt = self.runtime
         if rt.engine is None:
             return reason(RC.NO_DEVICE_ENGINE,
@@ -444,7 +443,7 @@ def materialize_joined(side: JoinSide, other: JoinSide, wout: dict, ev: dict,
     N, S = match.shape
     dev = match.device
     full = torch.cat([match, one_sided[:, None]], dim=1)
-    n = int(full.sum())            # the host read that sizes the rows
+    n = full.sum().tolist()        # the explicit host read that sizes the rows
     m = max(n, 1)                  # an empty probe keeps one invalid row
     pos = (_mask_positions(full, n) if n
            else torch.zeros(1, dtype=torch.int64, device=dev))
@@ -582,8 +581,8 @@ class JoinQueryRuntime(QueryRuntime):
         # the partitioned engine (core/join/), attached by the planner for
         # eligible stream-stream shapes; None keeps the broadcast probe
         self.engine = None
-        self.engine_reason: Optional[str] = "engine not attached"
-        self.pipeline_reason: Optional[str] = "engine not attached"
+        self.engine_reason: Optional[str] = reason(RC.NOT_ATTACHED, "engine not attached")
+        self.pipeline_reason: Optional[str] = reason(RC.NOT_ATTACHED, "engine not attached")
         self._in_timer = False       # timer sweeps run synchronously
         self._drain_seq = None       # last cross-stream seq seen at drain
         self.seq_breaks = 0

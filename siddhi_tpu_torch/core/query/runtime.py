@@ -84,7 +84,6 @@ import copy
 import dataclasses
 import enum
 import logging
-import threading
 import time
 import uuid
 from typing import Callable, Dict, List, Optional, Tuple
@@ -92,6 +91,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from siddhi_tpu_torch.analysis.locks import make_lock
 from siddhi_tpu_torch.core.event import (
     CURRENT, EXPIRED, TIMER, Event, HostBatch, LazyColumns, StringDictionary,
     encode_key_tuples, pack_pool_of)
@@ -239,7 +239,7 @@ class QueryRuntime(Receiver):
         self._sel_step = None      # the split path's selector (_host_keyed_select)
         self._route_layout = None  # parallel.mesh.device_route_query_step
         self.query_callbacks: List = []
-        self._lock = threading.RLock()
+        self._lock = make_lock("owner")  # per-query lock
         self._staging: Optional[StagingRing] = None
         # the delivering junction of the batch in process_batch, and its
         # input batch when that junction routes errors to a fault stream

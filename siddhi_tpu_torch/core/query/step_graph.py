@@ -211,27 +211,34 @@ class StepGraph:
             self._slot_leaves = []
             self._staging = None
 
-    def run(self, fn, states, cols: Dict, now: int, depth: int):
+    def run(self, fn, states, cols: Dict, now: int, depth: int,
+            on_capture=None):
         """One batch through the captured step: ``fn(states, cols, now) ->
         (outs, metas)`` with ``states`` the tree the step updates in
         place. Returns ``(outs, metas, capture_ms)``: ``outs`` cloned,
         ``metas`` valid until the next replay (a shared graph's cloned),
         ``capture_ms`` the wall time of a capture this batch needed (its
-        eager run included), else None."""
+        eager run included), else None. ``on_capture()`` is called before
+        each capture: the step instrument's recapture watchdog
+        (``analysis/sanitize.check_recompile``), which raises to refuse
+        it."""
         if not self.shared:
             bind = tuple(t.data_ptr() for t in state_leaves(states))
             if bind != self._bind:
                 self.drop()
                 self._bind = bind
-            return self._run(fn, states, states, cols, now, depth)
+            return self._run(fn, states, states, cols, now, depth,
+                             on_capture=on_capture)
         with self._lock:
             leaves = state_leaves(states)
             if self._slot is None:
                 self._slot = clone_tree(states)
                 self._slot_leaves = state_leaves(self._slot)
-            return self._run(fn, states, self._slot, cols, now, depth, leaves)
+            return self._run(fn, states, self._slot, cols, now, depth, leaves,
+                             on_capture)
 
-    def _run(self, fn, states, bound, cols, now, depth, leaves=None):
+    def _run(self, fn, states, bound, cols, now, depth, leaves=None,
+             on_capture=None):
         from siddhi_tpu_torch.core.query.runtime import StagingRing
 
         if self._staging is None:
@@ -239,6 +246,8 @@ class StepGraph:
         spec = column_spec(cols)
         cap = self._graphs.get(spec)
         if cap is None:
+            if on_capture is not None:
+                on_capture()
             t0 = time.perf_counter()
             outs, metas, cap = self._capture(fn, states, bound, cols, now, depth, spec)
             self._graphs[spec] = cap

@@ -48,6 +48,8 @@ import threading
 import time
 from typing import Callable, List, Optional, Tuple
 
+from siddhi_tpu_torch.analysis.guards import guarded
+from siddhi_tpu_torch.analysis.locks import make_lock
 from siddhi_tpu_torch.query_api.definitions import AttrType
 
 log = logging.getLogger(__name__)
@@ -66,6 +68,7 @@ class _Task:
         self.elapsed_ms = 0.0
 
 
+@guarded
 class IngestPackPool:
     """Per-app ordered pack pool (see module docstring).
 
@@ -74,8 +77,13 @@ class IngestPackPool:
     the shared queue, each caller waits only its own). Workers take the
     lock only to count themselves busy; the pool's own bookkeeping lock
     guards ``_threads``, ``_gen`` and ``_busy`` and is a leaf (nothing is
-    acquired under it). ``_stopped`` is a double-checked shutdown gate,
-    re-verified under the lock."""
+    acquired under it: rank ``ingest``, ``analysis/lockorder.py``).
+    ``_stopped`` is a double-checked shutdown gate, re-verified under the
+    lock."""
+
+    # `_stopped` stays undeclared: a double-checked shutdown gate; `_busy`
+    # is read lock-free by the utilization gauge
+    GUARDED_BY = {"_threads": "ingest", "_gen": "ingest"}
 
     def __init__(self, app_context, workers: int, split_rows: int = 8192):
         if workers <= 0:
@@ -84,7 +92,7 @@ class IngestPackPool:
         self.workers = int(workers)
         self.split_rows = max(256, int(split_rows))
         self._tasks: "queue.Queue" = queue.Queue()
-        self._lock = threading.RLock()
+        self._lock = make_lock("ingest")
         self._threads: List[threading.Thread] = []
         self._gen = 0
         self._stopped = False

@@ -63,6 +63,8 @@ import time
 import traceback
 from typing import List, Optional
 
+from siddhi_tpu_torch.analysis.guards import guarded
+from siddhi_tpu_torch.analysis.locks import make_lock
 from siddhi_tpu_torch.core.event import Event, HostBatch, LazyColumns
 from siddhi_tpu_torch.observability import journey
 from siddhi_tpu_torch.observability.tracing import span
@@ -106,7 +108,11 @@ class Receiver:
         self.receive(junction.decode_events(batch))
 
 
+@guarded
 class StreamJunction:
+    # the adaptive cap and its latency average (analysis/guards.py)
+    GUARDED_BY = {"_lat_ewma": "adapt", "_cur_batch": "adapt"}
+
     def __init__(self, definition: StreamDefinition, app_context,
                  fault_junction: Optional["StreamJunction"] = None):
         self.definition = definition
@@ -122,7 +128,7 @@ class StreamJunction:
         self._latency_target_ms: Optional[float] = None
         # the adaptive cap and its latency average are read-modify-written
         # by the worker and by whichever thread drains the pump
-        self._adapt_lock = threading.Lock()
+        self._adapt_lock = make_lock("adapt")
         self._cur_batch = 256
         self._lat_ewma = 0.0
         self._running = False

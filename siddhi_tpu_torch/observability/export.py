@@ -29,6 +29,8 @@ utilization}``), the step records (``siddhi_jit_*``), the program cache
 (``siddhi_junction_{queue_depth,inflight_batches}``,
 ``siddhi_junction_{backpressure_stalls,enqueue_timeouts,shed_events}_total``),
 the overload quotas (``siddhi_quota_utilization{resource[,stream]}``), the
+build-time eligibility census
+(``siddhi_eligibility_total{surface,code,query}``), the
 dispatch pipeline (``siddhi_pipeline_depth{query}``,
 ``siddhi_pipeline_{stalls,metas,meta_pulls}_total``), the join engine
 (``siddhi_join_partition_rows``, ``siddhi_join_{probe,insert}_ms``), the
@@ -187,6 +189,10 @@ _JUNCTION_COUNTER_HELP = {
 _QUOTA_GAUGE = re.compile(r"^quota\.(?P<resource>queue|pipeline|memory)"
                           r"_utilization(?:\.(?P<stream>.+))?$")
 _PIPELINE_GAUGE = re.compile(r"^pipeline\.(?P<query>.+)\.inflight$")
+# eligibility.<surface>.<CODE>.<query>: surface spellings are the
+# core/eligibility.py SURFACES tuple, codes its ReasonCode values
+_ELIGIBILITY_COUNTER = re.compile(
+    r"^eligibility\.(?P<surface>[a-z_]+)\.(?P<code>[A-Z0-9_]+)\.(?P<query>.+)$")
 # the ingest pack pool (core/stream/input/pack_pool.py)
 _INGEST_POOL_GAUGE = re.compile(r"^ingest\.pool\.(?P<kind>queue_depth|workers|"
                                 r"utilization)$")
@@ -514,6 +520,16 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
             fams.add(f"siddhi_junction_{m.group('kind')}_total", "counter",
                      _JUNCTION_COUNTER_HELP[m.group("kind")],
                      {**base, "stream": m.group("stream")}, v)
+            continue
+        m = _ELIGIBILITY_COUNTER.match(name)
+        if m:
+            fams.add("siddhi_eligibility_total", "counter",
+                     "build-time strategy-eligibility census: queries "
+                     "classified per surface (route / fusion / join_engine / "
+                     "join_pipeline) with stable reason codes "
+                     "(core/eligibility.py; ELIGIBLE = the strategy applies)",
+                     {**base, "surface": m.group("surface"),
+                      "code": m.group("code"), "query": m.group("query")}, v)
             continue
         m = _AUTOPILOT_DECISION.match(name)
         if m:

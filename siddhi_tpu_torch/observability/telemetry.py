@@ -27,8 +27,16 @@ context; ``export.py`` merges both into every scrape.
 Departures from the reference's instrument: "compile" is building the
 step plus, on the card, capturing its CUDA graph (the reference times
 XLA's trace and compile), and the first call's ``span("jit", key=...)``
-(``observability/tracing.py``) covers that; the reference's recompile
-sanitizer waits for the rest of ``analysis/`` (ROADMAP A.10 f).
+(``observability/tracing.py``) covers that. The recompile watchdog
+(``analysis/sanitize.py``, ``SIDDHI_TPU_SANITIZE=1``) counts the same
+compiles: the first build or capture, each later capture (a new column
+spec, or a private graph re-bound to replaced state), and, for a
+capturable step run eagerly (the CPU's stand-in for its graph) under
+sanitize, each new input spec (the shapes and dtypes a graph would be
+captured for), which telemetry then records as a compile too. A step
+that is not capturable is never captured and compiles once, at its
+build; a program-cache hit builds and captures nothing and counts
+nothing.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ import threading
 import time
 import weakref
 from typing import Callable, Dict
+
+from siddhi_tpu_torch.analysis import sanitize
 
 
 class InstrumentedJit:
@@ -88,6 +98,12 @@ class InstrumentedJit:
         self._count_hits = count_hits
         self._packed = packed
         self._compiled = False
+        # the recapture watchdog (analysis/sanitize.py): compiles of this
+        # step, and under sanitize the eager input specs seen
+        self._sanitize = sanitize.enabled()
+        self._watch_specs = self._sanitize and capturable
+        self._compiles = 0
+        self._specs: set = set()
         self.entry = None           # the program-cache entry, when shared
         self.shared = False         # dispatching through another app's program
         self.fingerprint = None
@@ -99,6 +115,16 @@ class InstrumentedJit:
 
     def __call__(self, *args, **kwargs):
         if self._compiled:
+            if self._watch_specs and self._new_spec(args):
+                # an eager capturable step met a new input spec: the
+                # capture a graph would make, recorded and then judged as
+                # the reference judges a late compile
+                t0 = time.perf_counter()
+                out = self._fn(*args, **kwargs)
+                self._telemetry.record_jit(
+                    self._key, wall_ms=(time.perf_counter() - t0) * 1000.0)
+                self._note_compile(first=False)
+                return out
             if self._count_hits:
                 self._telemetry.record_jit(self._key, hit=True)
             return self._fn(*args, **kwargs)
@@ -106,6 +132,10 @@ class InstrumentedJit:
 
         with span("jit", key=self._key):
             self._first(args, graph=False)
+            if self._watch_specs:
+                self._new_spec(args)
+            if not self.shared:
+                self._note_compile(first=True)
             t0 = time.perf_counter()
             out = self._fn(*args, **kwargs)
         self._record_first((time.perf_counter() - t0) * 1000.0,
@@ -126,7 +156,9 @@ class InstrumentedJit:
             if first:
                 self._first((state, cols, now), graph=True)
             fn = step_graph.packed(self._fn) if self._packed else self._fn
-            outs, metas, capture_ms = self.graph.run(fn, state, cols, now, depth)
+            outs, metas, capture_ms = self.graph.run(
+                fn, state, cols, now, depth,
+                on_capture=lambda: self._note_compile(first=first))
         if first:
             # a hit whose column spec the entry already holds built nothing
             self._record_first(capture_ms or 0.0,
@@ -149,6 +181,24 @@ class InstrumentedJit:
             self._release()
 
     # ----------------------------------------------------------- internals
+
+    def _note_compile(self, first: bool) -> None:
+        """One more build or capture of this step: the watchdog judges it
+        (a first compile only once compiles are frozen)."""
+        self._compiles += 1
+        if self._sanitize and (not first or sanitize.compiles_frozen()):
+            sanitize.check_recompile(self._key, self._compiles)
+
+    def _new_spec(self, args) -> bool:
+        """Record the shapes and dtypes of the call's tensors; True when
+        this instrument has not seen them before."""
+        from siddhi_tpu_torch.core.query.step_graph import state_leaves
+
+        spec = tuple((tuple(t.shape), t.dtype) for t in state_leaves(args))
+        if spec in self._specs:
+            return False
+        self._specs.add(spec)
+        return True
 
     def _first(self, args, graph: bool) -> None:
         from siddhi_tpu_torch.core.query import step_graph

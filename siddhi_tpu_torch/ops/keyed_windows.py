@@ -324,7 +324,7 @@ class KeyedTimeWindowStage(WindowStage):
             n_lring = torch.clamp(jhi - jlo, min=0)
             n1, n2 = torch.stack([n_exp_per_key.sum(), n_lring.sum()]).tolist()
         else:
-            n1 = int(n_exp_per_key.sum())
+            n1 = n_exp_per_key.sum().tolist()   # one explicit host read
         # the expiring ring items, compacted (the reference emits all K*Wc)
         rpos = _mask_positions(expire_ring, n1)      # k*Wc + j, in order
         rslot = fifo_flat.reshape(-1)[rpos]
@@ -412,7 +412,7 @@ class KeyedTimeWindowStage(WindowStage):
         ring_ck = buf[self.ts_key][fifo_flat]
         expire_ring = occupied & (torch.clamp(ring_ck + t, 0, M - 1) <= seg_max[:, None])
         n_exp_per_key = expire_ring.sum(1)
-        n1 = int(n_exp_per_key.sum())
+        n1 = n_exp_per_key.sum().tolist()   # one explicit host read
         rpos = _mask_positions(expire_ring, n1)
         rslot = fifo_flat.reshape(-1)[rpos]
         ring_rows = {c: v[rslot] for c, v in buf.items()}   # timestamps kept

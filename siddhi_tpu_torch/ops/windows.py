@@ -469,7 +469,8 @@ class TimeWindowStage(WindowStage):
             expire_ring = (fifo_seq < total0) & (
                 key_col <= cutoff if self.external else key_col + t <= now)
             n_exp_ring = expire_ring.sum(dtype=torch.int64)
-            J = int(torch.where(expire_ring, j + 1, 0).max())
+            # one explicit device-to-host read sizes the expired prefix
+            J = torch.where(expire_ring, j + 1, 0).max().tolist()
             j, fifo_slot, expire_ring = j[:J], fifo_slot[:J], expire_ring[:J]
         # every ring read happens before the ring is written below
         ring_rows = {k: v[fifo_slot] for k, v in buf.items()}

@@ -235,35 +235,78 @@ class RouteLayout:
 
 
 def route_ineligibility(runtime) -> Optional[str]:
-    """Why this runtime cannot take the routed path (None = it can): the
-    ported scope is partitioned queries over keyed length windows (or no
-    window), and non-partitioned grouped queries without a window."""
-    from siddhi_tpu_torch.core.query.join_runtime import JoinQueryRuntime
+    """Why this runtime cannot take the routed path (None = it can, else a
+    ``core.eligibility.Reason``: free text with a stable ``.code``). The
+    reference's classification, branch for branch and in its order:
+    partitioned queries over keyed length windows (or no window), and
+    non-partitioned grouped queries without a window. Two shapes the
+    reference routes are not ported yet and say so with ``NOT_PORTED``:
+    distinctCount/unionSet selectors and partitioned keyed-length joins
+    (ROADMAP A.9)."""
+    from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
+    from siddhi_tpu_torch.core.eligibility import reason
     from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
     from siddhi_tpu_torch.ops.keyed_windows import KeyedLengthWindowStage
 
+    if getattr(runtime, "sides", None) is not None:
+        return _join_route_ineligibility(runtime)
     if isinstance(runtime, NFAQueryRuntime):
-        return ("pattern and sequence queries (an NFA step over a mesh is "
-                "not ported yet)")
-    if isinstance(runtime, JoinQueryRuntime):
-        return ("join queries (routed joins over a mesh are not ported yet: "
-                "ROADMAP A.9)")
+        return reason(RC.NFA_QUERY, "pattern/sequence (NFA) queries")
+    if runtime.host_window is not None:
+        return reason(RC.HOST_WINDOW, "host-mode windows")
     sp = runtime.selector_plan
     if sp.order_by or sp.limit is not None or sp.offset is not None:
-        return "order by / limit (batch-global ordering)"
-    distinct = [s.kind for s in sp.specs if s.kind in ("distinctcount", "unionset")]
-    if distinct:
-        return (f"{'/'.join(sorted(set(distinct)))} (routing [K, H] value "
-                f"tables over shards is not ported yet)")
+        return reason(RC.ORDER_LIMIT, "order by / limit (batch-global ordering)")
     win = runtime.window_stage
     if win is not None and not isinstance(win, KeyedLengthWindowStage):
-        return (f"window stage {type(win).__name__} (emission-order keys "
-                f"not global-aware yet)")
+        return reason(RC.WINDOW_NOT_GLOBAL_AWARE,
+                      f"window stage {type(win).__name__} (emission-order "
+                      f"keys not global-aware yet)")
     if win is not None and runtime.partition_ctx is None:
-        return "global (non-partitioned) windows"
+        return reason(RC.GLOBAL_WINDOW, "global (non-partitioned) windows")
     if runtime.partition_ctx is None and runtime.keyer is None:
-        return "unkeyed queries (nothing to route by)"
+        return reason(RC.UNKEYED, "unkeyed queries (nothing to route by)")
+    if runtime.carried_pk:
+        return reason(RC.INNER_PARTITION_STREAM, "inner partition '#stream' inputs")
+    distinct = [s.kind for s in sp.specs if s.kind in ("distinctcount", "unionset")]
+    if distinct:
+        return reason(RC.NOT_PORTED,
+                      f"{'/'.join(sorted(set(distinct)))} (routing [K, H] value "
+                      f"tables over shards is not ported yet)")
     return None
+
+
+def _join_route_ineligibility(runtime) -> Optional[str]:
+    """The reference's join classification; the shape it routes (a
+    partitioned keyed-length stream-stream join) is ``NOT_PORTED``."""
+    from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
+    from siddhi_tpu_torch.core.eligibility import reason
+    from siddhi_tpu_torch.ops.keyed_windows import KeyedLengthWindowStage
+
+    if runtime.partition_ctx is None:
+        return reason(RC.JOIN_UNPARTITIONED,
+                      "non-partitioned joins (nothing to route by)")
+    if runtime.keyer is not None:
+        return reason(RC.GROUPED_SELECT,
+                      "grouped join selectors (host keyed select between stages)")
+    sp = runtime.selector_plan
+    if sp.order_by or sp.limit is not None or sp.offset is not None:
+        return reason(RC.ORDER_LIMIT, "join order by / limit (batch-global ordering)")
+    if runtime.index_probe is not None:
+        return reason(RC.INDEXED_PROBE, "indexed join probes")
+    for side in runtime.sides.values():
+        if side.store is not None or side.host_window is not None:
+            return reason(RC.STORE_SIDE,
+                          f"shared-store/host-window join side '{side.stream_id}'")
+        if side.global_side:
+            return reason(RC.GLOBAL_SIDE, "global (non-partitioned) join sides")
+        if not isinstance(side.window_stage, KeyedLengthWindowStage):
+            return reason(RC.WINDOW_NOT_GLOBAL_AWARE,
+                          f"join window stage {type(side.window_stage).__name__} "
+                          f"(emission-order keys not global-aware yet)")
+    return reason(RC.NOT_PORTED,
+                  "join queries (routed joins over a mesh are not ported yet: "
+                  "ROADMAP A.9)")
 
 
 def _release_from_fanout(runtime):

@@ -59,7 +59,9 @@ def test_port_imports_and_runs_with_jax_unimportable():
     trace), the fault injector and the debugger import, and a span trace
     and a journey of a send are recorded; the autopilot, the cluster
     fabric (router, egress, protocol, worker) and ``PeerMonitor`` import,
-    and a dry-run tick runs."""
+    and a dry-run tick runs; the semantic fuzzer and the sanitizer import,
+    and one fuzz case runs its matrix under ``SIDDHI_TPU_SANITIZE=1``
+    (the pull guard, the watchdog and the checked locks armed)."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -255,6 +257,23 @@ art.enable_autopilot(mode="dry_run", interval_s=3600)
 AutopilotController.instance().tick("iso_ap", now=1.0)
 assert AutopilotController.instance().report("iso_ap")["apps"]["iso_ap"]["ticks"] == 1
 am.shutdown()
+import os
+import siddhi_tpu_torch.fuzz
+from siddhi_tpu_torch.analysis import locks, sanitize
+from siddhi_tpu_torch.fuzz import CaseGenerator, run_case
+import logging
+logged = []
+class Errors(logging.Handler):
+    def emit(self, record): logged.append(record.getMessage()[:500])
+logging.getLogger().addHandler(Errors(logging.ERROR))
+os.environ["SIDDHI_TPU_SANITIZE"] = "1"
+sanitize.enable()
+acq = locks.acquisitions()
+res = run_case(CaseGenerator(0).case(1), max_combos=3, device="cpu")
+assert res.pairs_diffed >= 3 and not res.divergences, [d.summary() for _c, d in res.divergences]
+assert not res.census_findings and locks.acquisitions() > acq, res.census_findings
+assert not logged and sum(map(len, res.baseline.values())) > 0, logged[:1]
+del os.environ["SIDDHI_TPU_SANITIZE"]
 assert not any(k == "jax" or k.startswith(("jax.", "siddhi_tpu.")) or k == "siddhi_tpu"
                for k, v in sys.modules.items() if v is not None)
 print("OK")

@@ -207,6 +207,8 @@ def test_pattern_on_a_mesh_is_refused_naming_itself():
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
     r = Run("torch", CONFIG4, "O", "q")
-    with pytest.raises(CompileError, match="pattern and sequence queries"):
+    # the reference's reason and code (NFA_QUERY): neither package routes
+    # an NFA step
+    with pytest.raises(CompileError, match=r"pattern/sequence \(NFA\) queries"):
         device_route_query_step(r.query, make_mesh(2))
     r.close()

@@ -95,14 +95,16 @@ def test_pattern_compiles_and_join_still_refused():
     rt = m.create_siddhi_app_runtime(
         _HEAD + "@info(name='q') from e1=A -> e2=B select e1.v as a insert into O;")
     assert type(rt.query_runtimes["q"]).__name__ == "NFAQueryRuntime"
-    # a join plans into its own runtime now; what stays refused of joins
-    # is routing one over a mesh (ROADMAP A.9)
+    # a join plans into its own runtime now; routing one over a mesh stays
+    # refused: this unpartitioned one for the reference's reason
+    # (JOIN_UNPARTITIONED), a partitioned keyed-length one naming ROADMAP
+    # A.9 (test_torch_isolation.py)
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
     rt = m.create_siddhi_app_runtime(
         _HEAD + "@info(name='j') from A#window.length(2) join B#window.length(2) "
                 "on A.k == B.k select A.v as a insert into O;")
     assert type(rt.query_runtimes["j"]).__name__ == "JoinQueryRuntime"
-    with pytest.raises(CompileError, match="join queries"):
+    with pytest.raises(CompileError, match="non-partitioned joins"):
         device_route_query_step(rt.query_runtimes["j"], make_mesh(2))
     m.shutdown()

@@ -114,6 +114,9 @@ def _killed_worker(ns):
         for i in range(20):
             h.send(10 + i, [f"K{i % 4}", i])
         assert _wait_for(lambda: len(c.rows) == 21), len(c.rows)
+        # the tick adds the statistic after it restarts the worker
+        assert _wait_for(lambda: rt.statistics().get("counters", {}).get(
+            "resilience.worker_restarts", 0) >= 1)
         counters = rt.statistics().get("counters", {})
         return c.rows, sup.worker_restarts, counters.get("resilience.worker_restarts")
     finally:
@@ -188,6 +191,10 @@ def test_heal_respawns_at_the_tick_without_a_submit():
     sup = rt.supervise(interval_s=0.05)
     try:
         assert _wait_for(lambda: pool.alive_workers() == 3, 5.0)
+        # the tick counts the respawn after heal() returns: wait for the
+        # counts, not only for the thread
+        assert _wait_for(lambda: sup.worker_restarts == 1 and rt.statistics()[
+            "counters"].get("resilience.worker_restarts") == 1, 5.0)
         assert sup.worker_restarts == 1
         assert rt.statistics()["counters"]["resilience.worker_restarts"] == 1
         assert pool.heal() == 0
@@ -300,6 +307,9 @@ def _pump_wedge(ns):
         time.sleep(0.2)               # a tick sees the pump empty
         park([4], 2)
         assert _wait_for(lambda: sup.pump_wedges == 2)
+        # the tick logs, then counts the statistic, after pump_wedges
+        assert _wait_for(lambda: rt.statistics()["counters"].get(
+            "resilience.pump_wedges") == 2)
         pump.flush()
         counters = rt.statistics()["counters"]
         steps += [sup.pump_wedges, counters.get("resilience.pump_wedges"),
