@@ -377,10 +377,10 @@ launch counts and recorded-call checks hold as they did.
             batches of 8,192, 5 more against the quota and a wedged worker,
             a restore with the WAL replays exactly the 2 not shed, rows
             bit-equal. Gate 4: the @Async flagship at depth 4 under
-            ``supervise(0.05, 0.4)``: a worker wedged mid-feed replaced
+            ``supervise(0.05, 2.0)``: a worker wedged mid-feed replaced
             once (the released one exits on its generation token, no extra
             replay), a killed one restarted, rows bit-equal to an unfaulted
-            run; a 1.2 s ``torch.cuda._sleep`` planted before one batch's
+            run; a 4.0 s ``torch.cuda._sleep`` planted before one batch's
             meta counts ``pump_wedges`` once, rows unchanged; an ingest pool
             of 4 with a packer killed: re-packed, 4 workers alive, rows ==
             no pool. Gate 5: D1 (@Async, H = 64) solo and beside the
@@ -450,18 +450,34 @@ launch counts and recorded-call checks hold as they did.
             and 9 runs; a planted ``.item()`` on the card raises (not
             inside ``allowed_pull()``), a planted new shape after the
             freeze raises ``RecompileError`` naming its key;
-30. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+30. LN     the static lint and the native ingest loader. Gate 1: ``python
+            -m siddhi_tpu_torch.analysis`` exits 0 over the port's default
+            roots. Gate 2: ``chip_smoke.py --imports`` in a child process
+            imports every module of siddhi_tpu_torch; CUDA stays
+            uninitialized and ``_build/`` gains no file (R1's runtime
+            witness). Gate 3: phase 4's feed (8 batches of 65,536 rows,
+            10,000 symbols) as CSV bytes (~14 MB) and as JSONL bytes, each
+            parsed batch by batch by ``CsvLoader``/``JsonlLoader``
+            (``native/csv_loader.cpp``, g++) and sent into the routed x4
+            flagship (K8 inside its graph) and the global flagship: rows
+            bit-equal to phases 4 and 5's ``send_columns`` runs, K8 launches
+            == routed dispatches, the replayed exchange == plain. Prints
+            parse events/s and end-to-end events/s beside ``send_columns``';
+31. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
     ``{"fanout": ...}`` line, a ``{"program_cache": ...}`` line, an
     ``{"observability": ...}`` line, an ``{"overload": ...}`` line, an
     ``{"autopilot": ...}`` line, a ``{"cluster": ...}`` line, a
-    ``{"fuzz": ...}`` line, a ``{"kernels": [...]}`` line, the nvidia-smi
+    ``{"fuzz": ...}`` line, a ``{"lint_ingest": ...}`` line, a
+    ``{"kernels": [...]}`` line, the nvidia-smi
     line, and last
     ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --sanitized OUT`` is phase 29's child (gate 4).
+``python3 chip_smoke.py --sanitized OUT`` is phase 29's child (gate 4);
+``python3 chip_smoke.py --imports`` is phase 30's (gate 2), and needs no
+card.
 ``python3 chip_smoke.py --cells ROOT`` instead drives the main path's
 cells with the checkout at ROOT (``cells``): one process a checkout, to
 compare two commits on one card.
@@ -726,9 +742,10 @@ def make_feed(seed: int, n_batches: int, batch: int, n_symbols: int):
 
 def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
               key_slots: int = KEY_SLOTS, n_shards: int = N_SHARDS,
-              rows_per_shard: int = ROWS_PER_SHARD, on_route=None):
+              rows_per_shard: int = ROWS_PER_SHARD, on_route=None, send=None):
     """Drive the flagship through the public API on ``device``. Returns
-    (per-batch output column dicts, per-batch seconds, runtime facts)."""
+    (per-batch output column dicts, per-batch seconds, runtime facts).
+    ``send(h, feed, device)`` sends the feed (default ``send_timed``)."""
     from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
@@ -753,7 +770,7 @@ def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
     h = rt.get_input_handler("StockStream")
     if on_route is not None:
         on_route()
-    seconds = send_timed(h, feed, device)
+    seconds = (send or send_timed)(h, feed, device)
     if routed:
         facts["route_overflow"] = q._route_layout.route_overflow_rows
         facts["dispatches"] = q._route_layout.dispatches
@@ -844,16 +861,17 @@ def global_runtime(device, app: str, query: str, fused: bool = True):
     return m, rt, q
 
 
-def run_global(device, app: str, query: str, feed, fused: bool = True):
+def run_global(device, app: str, query: str, feed, fused: bool = True, send=None):
     """Drive an unpartitioned app through the public API on ``device``.
-    Returns (per-batch output column dicts, per-batch seconds, facts)."""
+    Returns (per-batch output column dicts, per-batch seconds, facts).
+    ``send(h, feed, device)`` sends the feed (default ``send_timed``)."""
     m, rt, q = global_runtime(device, app, query, fused)
     cb = collector()
     rt.add_callback("OutStream", cb)
     facts = {"stage": type(q.window_stage).__name__,
              "precision": rt.app_context.precision,
              "exact": getattr(q.window_stage, "exact", None)}
-    seconds = send_timed(rt.get_input_handler("StockStream"), feed, device)
+    seconds = (send or send_timed)(rt.get_input_handler("StockStream"), feed, device)
     facts["state_bytes"] = sum(t.numel() * t.element_size()
                                for t in _leaves(q._state))
     facts["strings"] = list(rt.app_context.string_dictionary._to_str)
@@ -5142,6 +5160,7 @@ def phase_serving(device, straight, card: str):
     from siddhi_tpu_torch.core.query.step_graph import StepGraph
     from siddhi_tpu_torch.core.stream.input import wire
     from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+    from siddhi_tpu_torch.observability import export
     from siddhi_tpu_torch.ops.distinct import distinct_scan
     from siddhi_tpu_torch.service import SiddhiRestService
 
@@ -5374,7 +5393,8 @@ def phase_serving(device, straight, card: str):
                  and counters["resilience.shard_rebuilds"] == 1,
                  f"serving: /metrics counters {counters}")
         text = http(port, "GET", "/metrics")[1]
-        _require("siddhi_aggregation_shards" in text and "siddhi_serving_fanout_ms" in text,
+        _require(export.AGGREGATION_SHARDS_FAMILY in text
+                 and export._SERVING_HIST_FAMILY["serving.fanout_ms"][0] in text,
                  "serving: /metrics lacks the serving families")
         tel = metrics["apps"][name]["telemetry"]["histograms"]
         facts["fanout_ms"] = {q: tel["serving.fanout_ms"][q] for q in ("p50", "p99")}
@@ -6528,7 +6548,7 @@ def phase_observability(device, card: str):
     d2.close()
     _require(scrape["syncs"] == 0, f"OB: a scrape made {scrape['syncs']} host syncs "
              f"({scrape['sync_sites']})")
-    _require("siddhi_device_instrument" in text and "siddhi_stage_ms" in text,
+    _require(export.DEVICE_INSTRUMENT_FAMILY in text and export.STAGE_MS_FAMILY in text,
              "OB: /metrics lacks the device-instrument or stage families")
     _require(d2_verdict["stage"] == "device",
              f"OB D2 at depth 4: the report names {d2_verdict}, not device")
@@ -6805,8 +6825,12 @@ OL_FLOOD_EVENTS = 65_536        # gate 3: events a flood, in sends of
 OL_FLOOD_CHUNK = 4_096
 OL_WAL_BATCH = 8_192            # gate 3's persist/restore feed: 10 batches,
 OL_WAL_BATCHES = 10             # the revision after 5
-OL_WEDGE_S = 0.4                # gate 4's supervisor: wedge_timeout_s
-OL_SPIN_S = 1.2                 # the planted device spin
+# gate 4's supervisor: wedge_timeout_s, above any healthy drain
+# iteration (at 0.4 s an unfaulted run was once restarted: an iteration
+# can hold a new shape's eager run and capture when the @Async worker
+# coalesces queued batches)
+OL_WEDGE_S = 2.0
+OL_SPIN_S = 4.0                 # the planted device spin, past the timeout
 OL_SUP_BATCHES = 10
 OL_PQ_BATCHES = 8               # gate 5's pipeline-quota app, each stream
 PQ_APP = """
@@ -7257,7 +7281,7 @@ def graph_replays(q) -> int:
 
 def ol_supervised(device, feed, fault, card: str):
     """One run of gate 4's @Async global flagship at depth 4 under
-    ``supervise(0.05, 0.4)``: the first batch alone, then the rest; the
+    ``supervise(0.05, 2.0)``: the first batch alone, then the rest; the
     fault ("wedge": the worker wedged mid-feed, released after its
     replacement drained; then a kill; "spin": a device spin before a
     meta) lands mid-feed. Returns (batches, facts)."""
@@ -8477,6 +8501,37 @@ def sanitized_child(out_path: str) -> int:
     return 0
 
 
+def import_witness() -> int:
+    """``chip_smoke.py --imports``: import every module of
+    siddhi_tpu_torch in this fresh process (``pkgutil.walk_packages``,
+    ``__main__`` modules skipped), then print an ``IMPORTS {...}`` line:
+    the modules imported, whether CUDA was initialized and the files
+    ``siddhi_tpu_torch/_build/`` gained (R1's runtime witness). Needs no
+    card."""
+    import importlib
+    import os
+    import pkgutil
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    build = root / "siddhi_tpu_torch" / "_build"
+    before = set(os.listdir(build)) if build.exists() else set()
+    import torch
+
+    import siddhi_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(siddhi_tpu_torch.__path__,
+                                                    "siddhi_tpu_torch.")
+             if not m.name.endswith(".__main__")]
+    for name in names:
+        importlib.import_module(name)
+    after = set(os.listdir(build)) if build.exists() else set()
+    print("IMPORTS " + json.dumps({
+        "modules": len(names), "cuda_initialized": torch.cuda.is_initialized(),
+        "built": sorted(after - before)}), flush=True)
+    return 0
+
+
 def fz_sanitized(outs: dict, card: str):
     """Gate 4: ``sanitized_child`` in a process of its own; its rows held
     against this process's unsanitized runs of the same apps and feed.
@@ -8548,6 +8603,173 @@ def phase_fuzz(device, outs: dict, card: str):
     return facts, k8 + s_k8, k8_replays + s_k8_rep, scans, scan_replays
 
 
+# ------------------------------------------- 30. the lint and the loader
+
+LN_TIMEOUT_S = 300              # the linter's and the import witness's children
+
+
+def feed_bytes(feed, kind: str):
+    """Each batch of ``feed`` as ``CsvLoader`` or ``JsonlLoader`` bytes,
+    with its timestamps. A float32 price is written as the float64 repr
+    of its value, so parsing it back and casting to float32 is exact."""
+    import numpy as np
+
+    out = []
+    for cols, ts in feed:
+        rows = zip(cols["symbol"].tolist(), cols["price"].astype(np.float64).tolist(),
+                   cols["volume"].tolist())
+        if kind == "CsvLoader":
+            text = "".join(f"{s},{p!r},{v}\n" for s, p, v in rows)
+        else:
+            text = "".join(f'{{"symbol": "{s}", "price": {p!r}, "volume": {v}}}\n'
+                           for s, p, v in rows)
+        out.append((text.encode(), ts))
+    return out
+
+
+def bytes_sender(kind: str, parse_s: list):
+    """A ``send`` for ``run_slice``/``run_global``: each batch's bytes
+    parsed by the port's ``kind`` loader (the app's definition and
+    dictionary), then ``send_columns``; per batch seconds of both, the
+    card synchronised before the clock stops; the parse's seconds go to
+    ``parse_s``."""
+    def send(h, blobs, device):
+        import torch
+
+        from siddhi_tpu_torch import native
+
+        loader = getattr(native, kind)(h.junction.definition,
+                                       h.app_context.string_dictionary)
+        seconds = []
+        for data, ts in blobs:
+            t0 = time.perf_counter()
+            cols, n = loader.parse(data)
+            t1 = time.perf_counter()
+            _require(n == len(ts), f"LN {kind}: {n} rows parsed of {len(ts)}")
+            h.send_columns(cols, timestamps=ts)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            parse_s.append(t1 - t0)
+        return seconds
+
+    return send
+
+
+def require_bit_equal(a, b, what: str):
+    """Every emitted batch, every column: the same keys, dtypes and bits."""
+    import numpy as np
+
+    _require(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} emitted batches")
+    for i, (x, y) in enumerate(zip(a, b)):
+        _require(sorted(x) == sorted(y), f"{what}: batch {i} columns {sorted(x)} "
+                 f"vs {sorted(y)}")
+        for k in x:
+            _require(x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+                     and x[k].tobytes() == y[k].tobytes(),
+                     f"{what}: batch {i} column {k} is not bit-equal")
+
+
+def phase_lint_ingest(device, feed, routed, routed_s, fused, fused_s, card: str):
+    """Phase 30 ("LN", see the module doc). ``routed``/``fused`` and their
+    per-batch seconds: phases 4 and 5's ``send_columns`` runs of the same
+    feed. Returns (facts, K8 launches)."""
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    facts = {"card": card}
+    # gate 1: the port's linter over its default roots
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "siddhi_tpu_torch.analysis"], cwd=root,
+                          capture_output=True, text=True, timeout=LN_TIMEOUT_S)
+    _require(proc.returncode == 0, f"LN lint exited {proc.returncode}:\n"
+             f"{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+    facts["lint"] = {"summary": proc.stdout.strip().splitlines()[-1],
+                     "s": time.perf_counter() - t0}
+    print(f"[ingest] LN gate 1: python -m siddhi_tpu_torch.analysis exit 0 in "
+          f"{facts['lint']['s']:.1f} s: {facts['lint']['summary']}", flush=True)
+    # gate 2: importing every module initializes no CUDA, builds nothing
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--imports"],
+                          cwd=root, capture_output=True, text=True, timeout=LN_TIMEOUT_S)
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("IMPORTS ")]
+    _require(proc.returncode == 0 and len(line) == 1, f"LN import witness exited "
+             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    imports = json.loads(line[0][len("IMPORTS "):])
+    _require(imports["cuda_initialized"] is False,
+             "LN: importing siddhi_tpu_torch initialized CUDA")
+    _require(imports["built"] == [], f"LN: importing siddhi_tpu_torch built "
+             f"{imports['built']}")
+    facts["imports"] = {**imports, "s": time.perf_counter() - t0}
+    print(f"[ingest] LN gate 2: a child imported {imports['modules']} modules of "
+          f"siddhi_tpu_torch: torch.cuda.is_initialized() False, _build/ gained "
+          f"no file", flush=True)
+    # gate 3: the feed as bytes through the loaders into both flagships
+    from siddhi_tpu_torch import native
+
+    t0 = time.perf_counter()
+    so = native.build_csv_loader()
+    facts["build_s"] = time.perf_counter() - t0
+    base_eps = {"routed": steady_eps(routed_s, BATCH), "global": steady_eps(fused_s, BATCH)}
+    launches = replays = 0
+    facts["runs"] = {}
+    for kind in ("CsvLoader", "JsonlLoader"):
+        t0 = time.perf_counter()
+        blobs = feed_bytes(feed, kind)
+        nbytes = sum(len(b) for b, _ts in blobs)
+        make_s = time.perf_counter() - t0
+        parse_s = []
+
+        def reset_counts():
+            ring_exchange.launches = 0
+
+        with recording_exchange(at=EX_RECORD_AT) as ex_rec:
+            got, secs, f = run_slice(device, blobs, routed=True, on_route=reset_counts,
+                                     send=bytes_sender(kind, parse_s))
+        k8 = ring_exchange.launches
+        _require(k8 == f["dispatches"] >= N_BATCHES,
+                 f"LN {kind}: {k8} exchange launches for {f['dispatches']} routed "
+                 f"dispatches")
+        _require(f["captures"] == 1 and ex_rec.replays == f["replays"] == N_BATCHES - 1,
+                 f"LN {kind}: {f['captures']} captures, {f['replays']} replays")
+        cols_checked = check_exchange_call(ex_rec, f"LN {kind}: the exchange in the graph")
+        _require(f["route_overflow"] == 0, f"LN {kind}: route overflow")
+        require_bit_equal(got, routed, f"LN {kind} routed x{N_SHARDS} vs send_columns")
+        launches += k8
+        replays += ex_rec.replays
+        routed_parse = list(parse_s)
+        parse_s.clear()
+        got_g, secs_g, _fg = run_global(device, GLOBAL_APP.format(W=WINDOW), "bench", blobs,
+                                        send=bytes_sender(kind, parse_s))
+        require_bit_equal(got_g, fused, f"LN {kind} global vs send_columns")
+        run = {"bytes": nbytes, "make_s": make_s,
+               # both runs' later batches (the first pays the new strings)
+               "parse_eps": BATCH * len(routed_parse[1:] + parse_s[1:])
+               / sum(routed_parse[1:] + parse_s[1:]),
+               "parse_ms_per_batch": [1e3 * x for x in routed_parse + parse_s],
+               "routed_eps": steady_eps(secs, BATCH), "global_eps": steady_eps(secs_g, BATCH),
+               "k8_launches": k8, "k8_replays": ex_rec.replays,
+               "k8_replay_columns_checked": cols_checked}
+        facts["runs"][kind] = run
+        print(f"[ingest] LN gate 3, {kind}: {nbytes} bytes ({N_BATCHES} batches of "
+              f"{BATCH} rows, {NUM_SYMBOLS} symbols); parse {run['parse_eps']:.1f} "
+              f"events/s (mean of later batches); end to end, parse + send: routed "
+              f"x{N_SHARDS} {run['routed_eps']:.1f} events/s against send_columns "
+              f"{base_eps['routed']:.1f}, global {run['global_eps']:.1f} against "
+              f"{base_eps['global']:.1f}; rows bit-equal to send_columns in both; "
+              f"K8 {k8} launches == {f['dispatches']} routed dispatches, "
+              f"{ex_rec.replays} in replays, the replayed call == plain on "
+              f"{cols_checked} columns [{card}]", flush=True)
+    facts["send_columns_eps"] = base_eps
+    facts["loader_library"] = so.name
+    facts["k8_replays"] = replays
+    facts["phase_s"] = time.perf_counter() - t_phase
+    print(f"[ingest] phase 30 in {facts['phase_s']:.1f} s: K8 {launches} launches "
+          f"({replays} in replays) [{card}]", flush=True)
+    return facts, launches
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -8584,7 +8806,7 @@ def phase_global(device, feed, card: str):
                                 "global card vs cpu (first batches)")
     print(f"[global] first {CPU_BATCHES} batches equal the port's CPU run "
           f"(max float rel err {worst_cpu:.3g})", flush=True)
-    return fused, facts["strings"]
+    return fused, facts["strings"], fused_s
 
 
 def phase_twin(device, feed, card: str):
@@ -8724,7 +8946,7 @@ def main() -> int:
           f"(max float rel err {worst_cpu:.3g})", flush=True)
 
     # 5. the global flagship, fused
-    fused, strings = phase_global(device, feed, card)
+    fused, strings, fused_s = phase_global(device, feed, card)
 
     # 6. the twin, generic
     phase_twin(device, feed, card)
@@ -8810,13 +9032,17 @@ def main() -> int:
         device, {"routed": routed, "global": fused, "d1": dist["d1_out"]}, card)
     dist["launches"]["FZ"] = fz_scan
 
-    # 30. result lines
+    # 30. the lint and the native loader: CSV/JSONL bytes into both flagships
+    lint_ingest, ln_exchange = phase_lint_ingest(device, feed, routed, routed_s, fused,
+                                                 fused_s, card)
+
+    # 31. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
                      "P_routed": persistence["routed_x4"]["exchange_launches"],
                      "OB": observability["launches"]["exchange"], "OL": ol_exchange,
-                     "AP": ap_exchange, "FZ": fz_exchange}
+                     "AP": ap_exchange, "FZ": fz_exchange, "LN": ln_exchange}
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
@@ -8831,7 +9057,7 @@ def main() -> int:
         # capture's batch launches it eagerly), and the replayed call's
         # columns held against the plain version
         "launches_under_replay": {"routed": ex_rec.replays, "OL_quotas": ol_replays,
-                                  "FZ": fz_ex_replays},
+                                  "FZ": fz_ex_replays, "LN": lint_ingest["k8_replays"]},
         "in_graph_columns_checked": ex_cols,
         "roofline_share": ex["roofline_share"],
         # phase 4's columns over phase 4's launches
@@ -8903,6 +9129,7 @@ def main() -> int:
     print(json.dumps({"autopilot": autopilot}, default=str))
     print(json.dumps({"cluster": cluster}, default=str))
     print(json.dumps({"fuzz": fuzz}, default=str))
+    print(json.dumps({"lint_ingest": lint_ingest}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -8959,6 +9186,8 @@ def cells(root: str) -> dict:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:] == ["--imports"]:
+            sys.exit(import_witness())
         if sys.argv[1:2] == ["--sanitized"] and len(sys.argv) == 3:
             sys.exit(sanitized_child(sys.argv[2]))
         if sys.argv[1:2] == ["--cells"] and len(sys.argv) == 3:

@@ -6,8 +6,9 @@ ranks, the same edges, the same closure. The hot-path locking discipline
 under the shard lock, WAL record inside it", the app ingestion barrier
 that everything else nests under) is data here, read by the runtime shim
 ``analysis/locks.py``: under ``SIDDHI_TPU_SANITIZE=1`` it asserts the
-order on every acquisition. (The reference's static rule R4 reads the
-same table; the port's lint engine is ROADMAP A.10 f, static half.)
+order on every acquisition; the static rules R4 and R8
+(``analysis/rules_locks.py``, ``rules_guards.py``) read the same table
+and the recognizers below.
 
 ``EDGES`` are "must be acquired before" pairs: ``("owner", "pump")``
 means a thread holding a *pump*-ranked lock may never acquire an
@@ -90,6 +91,29 @@ EDGES: Tuple[Tuple[str, str], ...] = (
     # under its own lock)
     ("router", "cluster_supervisor"),
 )
+
+# Static-rule recognizers (R4, R8): `NAME._lock` / `NAME` in a `with`
+# resolves to a rank when the variable name is one of these (the runtime
+# shim needs no heuristics — the lock object carries its rank). The
+# port's sites: `owner._lock` (core/query/completion.py, the pump's
+# flush), `q._lock` (a QueryRuntime's owner lock: core/app_runtime.py,
+# core/util/snapshot.py), `shard._lock` (serving/sharded_aggregation.py),
+# `link._lock` (cluster/router.py); the others name the reference's.
+VARIABLE_RANKS: Dict[str, str] = {
+    "owner": "owner",
+    "q": "owner",
+    "pump": "pump",
+    "barrier": "barrier",
+    "shard": "shard",
+    "wal": "wal",
+    "pool": "ingest",
+    "link": "link",          # _WorkerLink._lock (cluster/router.py)
+    "egress": "egress",      # OrderedEgress._lock (cluster/egress.py)
+}
+
+# Attribute names that denote the app barrier regardless of receiver
+# (`self._barrier`, `rt._barrier`, `app_runtime._barrier`).
+BARRIER_ATTRS = ("_barrier",)
 
 
 def must_precede() -> FrozenSet[Tuple[str, str]]:

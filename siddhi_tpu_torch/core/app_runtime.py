@@ -171,7 +171,10 @@ def _default_app_name(siddhi_app: SiddhiApp) -> str:
     return "siddhi-app-" + hashlib.md5(repr(siddhi_app).encode()).hexdigest()[:12]
 
 
-class SiddhiAppRuntime:
+class SiddhiAppRuntime:  # graftlint: disable=R8 — the junction/query/
+    # adapter registries are populated during single-threaded wiring
+    # (parse + add_callback before start()); runtime threads only read
+    # them, and lifecycle transitions serialize on the app barrier
     def __init__(self, siddhi_app: SiddhiApp, siddhi_context: SiddhiContext):
         self.siddhi_app = siddhi_app
         self.name = siddhi_app.name or _default_app_name(siddhi_app)
@@ -312,11 +315,13 @@ class SiddhiAppRuntime:
     def _overload_from_config(self, cm) -> None:
         from siddhi_tpu_torch.core.util.knobs import read_knob
 
-        names = ("quota_queue_depth", "shed_policy", "quota_pipeline_depth",
-                 "quota_memory_mb", "quota_block_timeout_s", "fair_weight",
-                 "quota_query_cap")
-        (queue_quota, policy, pipeline_quota, memory_mb, block_timeout,
-         fair_weight, query_cap) = (read_knob(cm, k) for k in names)
+        queue_quota = read_knob(cm, "quota_queue_depth")
+        policy = read_knob(cm, "shed_policy")
+        pipeline_quota = read_knob(cm, "quota_pipeline_depth")
+        memory_mb = read_knob(cm, "quota_memory_mb")
+        block_timeout = read_knob(cm, "quota_block_timeout_s")
+        fair_weight = read_knob(cm, "fair_weight")
+        query_cap = read_knob(cm, "quota_query_cap")
         per_stream_quota = {}
         per_stream_policy = {}
         for sid in self.junctions:

@@ -34,7 +34,10 @@ class SiddhiContext:
         self.persistence_store = None
 
 
-class TimestampGenerator:
+class TimestampGenerator:  # graftlint: disable=R8 — listener list is
+    # mutated at single-threaded wiring time only; the heartbeat thread
+    # iterates a snapshot (tuple) of it, and one-shot listeners remove
+    # themselves inside that same iteration
     """Event/wall clock: live mode returns wall time; playback mode
     returns the last event timestamp. Time-change listeners (the playback
     scheduler) run inside ``set_current_timestamp``. The

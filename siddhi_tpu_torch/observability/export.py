@@ -62,6 +62,61 @@ from typing import Dict, List, Tuple
 
 from siddhi_tpu_torch.observability.telemetry import global_registry
 
+# --- graftlint R3 declarations (metric-registration parity) ----------
+# Every dotted telemetry name registered anywhere in the port
+# (.gauge/.count/.histogram/stat_count) must start with one of these
+# prefixes; each prefix maps to a dedicated family below or renders as
+# the labeled generic siddhi_counter_total/siddhi_gauge on purpose. A
+# registration with an undeclared prefix, and a declared prefix with no
+# registration site left, are both lint findings. The reference's
+# "shard" prefix (its keyed-shard gauges, ROADMAP A.9) has no source in
+# the port; "query" is the port's own (a query's captured gauge).
+TELEMETRY_PREFIXES = (
+    "junction",      # @Async queue depth / stalls / sheds / timeouts
+    "fanout",        # fused fan-out group size, dispatches, captured
+    "pipeline",      # CompletionPump depth + metas/pulls/stalls
+    "aggregation",   # rollup buckets, shards, shard WALs, flush_ms
+    "join",          # device-join partition occupancy, probe/insert_ms
+    "serving",       # admission pool, scatter-gather latency
+    "quota",         # overload quota-utilization gauges
+    "overload",      # always-on overload counters (generic family)
+    "wal",           # ingest-WAL size gauges (generic siddhi_gauge)
+    "cluster",       # the cluster fabric's router (process registry ->
+                     # siddhi_cluster_*)
+    "resilience",    # StatisticsManager recovery counters (stat_count)
+    "stage",         # batch-journey per-stage service/queue histograms
+                     # (observability/journey.py -> siddhi_stage_*)
+    "jitcost",       # step-program cost gauges (observability/
+                     # costmodel.py -> siddhi_jit_cost_*)
+    "program_cache", # process-global program cache: hit/miss/eviction
+                     # counters + live-entry size gauge
+    "scrape",        # /metrics self-timing (siddhi_scrape_ms)
+    "device",        # device-instrument slots riding the meta vector
+                     # (observability/instruments.py -> siddhi_device_*)
+    "ingest",        # pack-pool gauges and wire-frame counters
+                     # (core/stream/input/pack_pool.py, service/rest.py
+                     # -> siddhi_ingest_*)
+    "eligibility",   # build-time eligibility census counters
+                     # (core/eligibility.py -> siddhi_eligibility_total)
+    "autopilot",     # controller mode gauge, tick/freeze and decision
+                     # counters (autopilot/ -> siddhi_autopilot_*)
+    "query",         # a query's captured gauge (generic siddhi_gauge)
+)
+# Gauge templates that live exactly as long as their registry does: each
+# is on an app's TelemetryRegistry and dies with it at shutdown. Every
+# other gauge must have a remove_gauge site, or a dissolved owner pins a
+# dead probe on /metrics (the lint names this list on violation).
+PROCESS_LIFETIME_GAUGES = (
+    "junction.*",             # junctions live with the app
+    "pipeline.*.inflight",    # label-keyed, survives rebuilds
+    "wal.*",                  # registered at WAL attach
+    "aggregation.*",          # both rollup paths register
+    "quota.*",                # overload registration
+    "join.partition_rows.*",  # device-join attach
+    "device.*",               # instrument last-value and capacity gauges
+    "query.*.captured",       # a query's step, rebuilt in place
+)
+
 # the data slots a step may declare in its instrument spec
 # (observability/instruments.Slot); the exposition regexes below are built
 # from this tuple
@@ -138,6 +193,11 @@ _SERVING_COUNTER_FAMILY = {
 # the process-global program cache (core/util/program_cache.py): counters
 # and the size gauge on the process registry
 PROGRAM_CACHE_SIZE_FAMILY = "siddhi_program_cache_size"
+# families a check of the rendered text names (chip_smoke.py): one
+# declaration each, read by the renderer below
+AGGREGATION_SHARDS_FAMILY = "siddhi_aggregation_shards"
+DEVICE_INSTRUMENT_FAMILY = "siddhi_device_instrument"
+STAGE_MS_FAMILY = "siddhi_stage_ms"
 _PROGRAM_CACHE_COUNTER_FAMILY = {
     "program_cache.hits": (
         "siddhi_program_cache_hits_total",
@@ -441,7 +501,7 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                          "capacity denominator of a device-instrument slot "
                          "(ring size, Wp, rows_per_shard, ...)", labels, v)
             else:
-                fams.add("siddhi_device_instrument", "gauge",
+                fams.add(DEVICE_INSTRUMENT_FAMILY, "gauge",
                          "last drained device-instrument value (rides the "
                          "batch's meta pull: no extra device transfer)",
                          labels, v)
@@ -456,7 +516,7 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
             continue
         m = _AGG_SHARDS.match(name)
         if m:
-            fams.add("siddhi_aggregation_shards", "gauge",
+            fams.add(AGGREGATION_SHARDS_FAMILY, "gauge",
                      "in-process key shards of the aggregation "
                      "rollup state",
                      {**base, "name": m.group("agg")}, v)
@@ -592,7 +652,7 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
             elif _STAGE_HIST.match(name):
                 m = _STAGE_HIST.match(name)
                 if m.group("kind") == "service":
-                    family = "siddhi_stage_ms"
+                    family = STAGE_MS_FAMILY
                     help_ = ("batch-journey per-stage service time (ms): see "
                              "the stage glossary of observability/journey.py")
                 else:

@@ -35,6 +35,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from siddhi_tpu_torch.analysis.sanitize import allowed_pull
 from siddhi_tpu_torch.ops import types as T
 from siddhi_tpu_torch.query_api.definitions import AttrType
 from siddhi_tpu_torch.query_api.expressions import (
@@ -696,8 +697,9 @@ def _compile_function(expr: AttributeFunction, resolver) -> Compiled:
         def fn(cols, ctx):
             xp = ctx["xp"]
             vals = [f(cols, ctx)[0] for f, _t in compiled]
-            print("siddhi:", *[np.asarray(v.cpu() if isinstance(v, torch.Tensor)
-                                          else v) for v in vals])
+            with allowed_pull():    # log() is not capturable: a declared read
+                print("siddhi:", *[np.asarray(v.cpu() if isinstance(v, torch.Tensor)
+                                              else v) for v in vals])
             return xp.ones(_shape_of(vals[0] if vals else None, cols),
                            dtype=xp.bool_), None
 
