@@ -431,7 +431,7 @@ launch counts and recorded-call checks hold as they did.
             Gate 1: the seeded corpus (seed 0, cases 0-7, at most 4 combos
             a case) through ``fuzz.run_case(device=cuda)``: every variant
             bit-identical to the baseline on the card, no census findings
-            (the port's ``NOT_PORTED`` gaps listed), routed installs at
+            (the port's ``NOT_PORTED`` gaps listed; there are none), routed installs at
             shards 2 and 4, device joins at P=1 and P=8, fusion, depth 4
             and pool 2 all run, K8 launched once a routed dispatch, the
             first replayed routed exchange == plain, and each case's card
@@ -463,7 +463,37 @@ launch counts and recorded-call checks hold as they did.
             bit-equal to phases 4 and 5's ``send_columns`` runs, K8 launches
             == routed dispatches, the replayed exchange == plain. Prints
             parse events/s and end-to-end events/s beside ``send_columns``';
-31. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+31. DS     the multi-process half on the card's world of one
+            (``parallel/distributed.py``). Gate 1: ``initialize_cluster``
+            joins a process group of one over NCCL on ``127.0.0.1`` and a
+            free port; ``process_info`` printed, an ``all_gather`` exact.
+            Gate 2: ``shard_query_step`` over ``global_mesh()``: the global
+            flagship at full width (8 batches of 65,536 rows, 10,000
+            symbols) == phase 5, and the partitioned pattern of
+            ``tests/test_multihost.py`` == its unsharded run. Gate 3: the
+            routed x4 flagship over ``global_mesh(4)`` (1 process x 4
+            shards) == phase 4, K8 launches == routed dispatches, the
+            replayed exchange == plain. Gate 4: DS, D1's shape inside a
+            partition (``distinctCount(volume)`` and functions, H = 128),
+            routed x4 == unrouted, the distinct scan launched inside the
+            routed step's graph (4 a dispatch) and the replayed call ==
+            plain; the partitioned keyed-length join of
+            ``tests/test_join_engine.py`` routed x4 == unrouted (8 batches
+            of 8,192 rows a side, 1,000 symbols). Gate 5: under
+            ``cluster_step_timeout`` 5 s, ``drop_peer`` makes the routed
+            flagship's doomed batch a labeled ``ClusterPeerError`` on
+            ``!StockStream`` within the bound; ``PeerRecovery`` rebuilds on
+            ``local_survivor_mesh(4)``, restores the revision and replays
+            the WAL; the rows == phase 4; ``resilience.peer_failures`` and
+            ``peer_recoveries`` and the ``siddhi_shard_rows`` gauges on
+            ``/metrics``. Gate 6: that revision, persisted over the global
+            mesh, restores into a routed x2 runtime and the rows after it
+            == phase 4. Gate 7: two ``--routed-child`` processes on the
+            card over gloo (which takes CUDA tensors for
+            ``all_to_all_single`` and ``all_gather`` in this torch), the
+            routed flagship at 2 processes x 2 shards: each process's rows
+            == gate 3's, K8 launched once a dispatch for the local pairs;
+32. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
@@ -471,13 +501,14 @@ launch counts and recorded-call checks hold as they did.
     ``{"observability": ...}`` line, an ``{"overload": ...}`` line, an
     ``{"autopilot": ...}`` line, a ``{"cluster": ...}`` line, a
     ``{"fuzz": ...}`` line, a ``{"lint_ingest": ...}`` line, a
-    ``{"kernels": [...]}`` line, the nvidia-smi
+    ``{"distributed": ...}`` line, a ``{"kernels": [...]}`` line, the nvidia-smi
     line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --sanitized OUT`` is phase 29's child (gate 4);
 ``python3 chip_smoke.py --imports`` is phase 30's (gate 2), and needs no
-card.
+card; ``python3 chip_smoke.py --routed-child PORT P RANK OUT`` is one
+process of phase 31's gate 7.
 ``python3 chip_smoke.py --cells ROOT`` instead drives the main path's
 cells with the checkout at ROOT (``cells``): one process a checkout, to
 compare two commits on one card.
@@ -742,16 +773,19 @@ def make_feed(seed: int, n_batches: int, batch: int, n_symbols: int):
 
 def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
               key_slots: int = KEY_SLOTS, n_shards: int = N_SHARDS,
-              rows_per_shard: int = ROWS_PER_SHARD, on_route=None, send=None):
+              rows_per_shard: int = ROWS_PER_SHARD, on_route=None, send=None,
+              mesh=None, exchange: str = "pallas_ring"):
     """Drive the flagship through the public API on ``device``. Returns
     (per-batch output column dicts, per-batch seconds, runtime facts).
-    ``send(h, feed, device)`` sends the feed (default ``send_timed``)."""
+    ``send(h, feed, device)`` sends the feed (default ``send_timed``);
+    ``mesh`` routes over it (default ``make_mesh(n_shards, device)``) with
+    ``exchange`` (``siddhi_tpu.shard_exchange``)."""
     from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
     m = SiddhiManager(device=device)
     m.set_config_manager(InMemoryConfigManager(
-        {"siddhi_tpu.shard_exchange": "pallas_ring"}))
+        {"siddhi_tpu.shard_exchange": exchange}))
     rt = m.create_siddhi_app_runtime(APP.format(W=window))
     _require(rt.app_context.precision == "exact", "precision is not exact")
     cb = collector()
@@ -761,7 +795,7 @@ def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
     q._win_keys = key_slots
     facts = {}
     if routed:
-        device_route_query_step(q, make_mesh(n_shards, device),
+        device_route_query_step(q, mesh if mesh is not None else make_mesh(n_shards, device),
                                 rows_per_shard=rows_per_shard)
     else:
         q._state = q._init_state()
@@ -1319,26 +1353,35 @@ def recording(at: int):
 def check_graph_scan(rec, what: str) -> float:
     """The recorded in-graph call against the plain version on the same
     inputs and state: counts, snapshots, overflow and the updated state
-    exactly equal; and the eager kernel on them too (``check_scan``).
-    Returns the largest count difference."""
+    exactly equal; and the eager kernel on them too (as ``check_scan``
+    does, against the same one plain run). Returns the largest count
+    difference."""
     import torch
 
-    from siddhi_tpu_torch.ops.distinct import distinct_scan_plain
+    from siddhi_tpu_torch.ops.distinct import distinct_scan, distinct_scan_plain
 
     _require(rec.got is not None, f"{what}: batch {rec.at} was not recorded")
-    err = check_scan(rec.args, rec.kwargs, what + ", eager kernel")
     st_p = [t.clone() for t in rec.args[:3]]
     want = distinct_scan_plain(*st_p, *rec.args[3:], **rec.kwargs)
+    st_k = [t.clone() for t in rec.args[:3]]
+    eager = distinct_scan(*st_k, *rec.args[3:], **rec.kwargs)
+    if st_k[0].is_cuda:
+        torch.cuda.synchronize()
     outs, state = rec.got
-    for name, a, b in zip(("counts", "snapshot keys", "snapshot mask", "overflow"),
-                          outs, want):
-        _require((a is None) == (b is None), f"{what}: graph and plain disagree on "
-                 f"whether there are {name}")
-        if a is not None:
-            _require(torch.equal(a, b), f"{what}: the graph's {name} differ from plain")
-    for name, a, b in zip(("vk", "vc", "stamp"), state, st_p):
-        _require(torch.equal(a, b), f"{what}: the graph's state {name} differs from plain")
-    return max(err, float((outs[0] - want[0]).abs().max()) if outs[0].numel() else 0.0)
+    err = 0.0
+    for who, got, got_state in (("the graph's", outs, state), ("the eager kernel's",
+                                                                eager, st_k)):
+        for name, a, b in zip(("counts", "snapshot keys", "snapshot mask", "overflow"),
+                              got, want):
+            _require((a is None) == (b is None), f"{what}: {who} call and plain "
+                     f"disagree on whether there are {name}")
+            if a is not None:
+                _require(torch.equal(a, b), f"{what}: {who} {name} differ from plain")
+        for name, a, b in zip(("vk", "vc", "stamp"), got_state, st_p):
+            _require(torch.equal(a, b), f"{what}: {who} state {name} differs from plain")
+        if got[0].numel():
+            err = max(err, float((got[0] - want[0]).abs().max()))
+    return err
 
 
 def run_app(device, app: str, feed, streams=("OutStream",), key_slots=KEY_SLOTS,
@@ -8770,6 +8813,531 @@ def phase_lint_ingest(device, feed, routed, routed_s, fused, fused_s, card: str)
     return facts, launches
 
 
+# phase 31: the multi-process half on the card's world of one
+# DS: D1's shape inside a partition (distinctCount with the function
+# library), so the routed step holds the distinct scan
+DS_APP = """
+define stream StockStream (symbol string, price float, volume long);
+partition with (symbol of StockStream)
+begin
+@info(name = 'bench')
+from StockStream#window.length({W})
+select symbol, distinctCount(volume) as volumes, avg(price) as avgPrice,
+       ifThenElse(price > 50.0, 'high', 'low') as band,
+       maximum(cast(volume, 'double'), 500.0) as volFloor,
+       eventTimestamp() as ts
+insert into OutStream;
+end;
+"""
+# tests/test_multihost.py's partitioned pattern
+MH_NFA_APP = """
+@app:playback
+define stream A (k string, v double);
+define stream B (k string, v double);
+partition with (k of A, k of B)
+begin
+  @info(name = 'q')
+  from every e1=A -> e2=B[e2.v > e1.v] within 5 sec
+  select e1.v as v1, e2.v as v2
+  insert into Out;
+end;
+"""
+# tests/test_join_engine.py's partitioned keyed-length join
+PJ_APP = """
+define stream L (sym string, lv long);
+define stream R (sym string, rv long);
+partition with (sym of L, sym of R)
+begin
+  @info(name='pj') from L#window.length(8) join R#window.length(8)
+    on L.lv > R.rv
+    select L.sym as sym, L.lv as lv, R.rv as rv insert into Out;
+end;
+"""
+PJ_BATCHES, PJ_ROWS, PJ_SYMBOLS = 8, 8192, 1000
+PEER_TIMEOUT_S = 5.0            # cluster_step_timeout of gate 5
+DS_H = 128                      # a symbol's window holds up to ~90 of its rows
+SCAN_RECORD_AT = 2              # DS: the scan call held against plain
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def pj_feed(seed: int):
+    """Both sides of PJ: ``PJ_BATCHES`` batches of ``PJ_ROWS`` rows a side,
+    ``PJ_SYMBOLS`` symbols, values U[0, 30)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    syms = np.array([f"S{i}" for i in range(PJ_SYMBOLS)], dtype=object)
+    items, ts = [], 0
+    for _ in range(PJ_BATCHES):
+        for stream, col in (("L", "lv"), ("R", "rv")):
+            items.append((stream, {"sym": syms[rng.integers(0, PJ_SYMBOLS, PJ_ROWS)],
+                                   col: rng.integers(0, 30, PJ_ROWS, dtype=np.int64)},
+                          np.arange(ts, ts + PJ_ROWS, dtype=np.int64)))
+            ts += PJ_ROWS
+    return items
+
+
+def _concat(batches):
+    """Per-batch output columns as one batch (a routed run may split a
+    batch into pieces, each its own emission)."""
+    import numpy as np
+
+    return [{k: np.concatenate([b[k] for b in batches]) for k in batches[0]}]
+
+
+def _run_built(build, drive, out_stream: str):
+    """(per-batch outputs, facts of the query) of ``build()``'s runtime
+    driven by ``drive(rt)``; ``drive`` may return its per-batch seconds
+    (``send_timed``), which the facts then carry."""
+    m, rt, q = build()
+    cb = collector()
+    rt.add_callback(out_stream, cb)
+    seconds = drive(rt)
+    rl = q._route_layout
+    facts = {"dispatches": rl.dispatches if rl is not None else 0,
+             "captured": q.captured,
+             "replays": getattr(getattr(q._step, "graph", None), "replays", 0),
+             "route_overflow": rl.route_overflow_rows if rl is not None else 0}
+    if isinstance(seconds, list) and seconds and isinstance(seconds[0], float):
+        facts["seconds"] = seconds
+        facts["steady_eps"] = steady_eps(seconds, BATCH) if len(seconds) > 1 else None
+    m.shutdown()
+    return cb.batches, facts
+
+
+def phase_distributed(device, feed, routed, fused, card: str):
+    """DS (see the module doc): the process group of one card, the
+    key-sharded step, the routed steps over the global mesh, the bounded
+    pull and peer recovery, a revision across meshes. Returns (facts,
+    exchange launches by run, distinct-scan launches)."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+    from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+    from siddhi_tpu_torch.observability.export import prometheus_text
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+    from siddhi_tpu_torch.ops.exchange import all_gather_same, ring_exchange
+    from siddhi_tpu_torch.parallel import distributed
+    from siddhi_tpu_torch.parallel.mesh import (
+        device_route_query_step, make_mesh, shard_query_step)
+    from siddhi_tpu_torch.resilience import FaultInjector, PeerRecovery
+
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    res, k8 = {"gate_s": {}}, {}
+    items = list(feed)
+    t_lap = [t_phase]
+
+    def lap(gate: int) -> str:
+        """Seconds since the previous gate ended, recorded a gate."""
+        now = time.perf_counter()
+        res["gate_s"][gate] = now - t_lap[0]
+        t_lap[0] = now
+        return f"{res['gate_s'][gate]:.1f}"
+
+    # gate 1: a world of one over NCCL (gloo off the card)
+    t0 = time.perf_counter()
+    distributed.initialize_cluster(f"127.0.0.1:{_free_port()}", 1, 0,
+                                   device=device if not cuda else None)
+    try:
+        info = distributed.process_info()
+        _require(info == {"process_index": 0, "process_count": 1,
+                          "local_devices": 1, "global_devices": 1},
+                 f"DS: process_info {info}")
+        probe = torch.arange(8, device=device)
+        (got,) = all_gather_same([probe])
+        _require(len(got) == 1 and torch.equal(got[0], probe),
+                 "DS: the world of one's all_gather")
+        res["group"] = {"backend": torch.distributed.get_backend(), "info": info,
+                        "init_s": time.perf_counter() - t0}
+        print(f"[distributed] gate 1 ({lap(1)} s): {res['group']['backend']} world of one "
+              f"up in {res['group']['init_s']:.2f} s; process_info {info}; "
+              f"all_gather of 8 ints exact", flush=True)
+
+        # gate 2: the key-sharded step over the global mesh, full width
+        def sharded_global():
+            m, rt, q = global_runtime(device, GLOBAL_APP.format(W=WINDOW), "bench")
+            shard_query_step(q, distributed.global_mesh())
+            _require(q._shard_mesh is not None and q._route_layout is None,
+                     "DS: one process keeps the sharded state whole")
+            return m, rt, q
+
+        sq, sq_f = _run_built(sharded_global, lambda rt: send_timed(
+            rt.get_input_handler("StockStream"), items, device), "OutStream")
+        worst = compare_outputs(sq, fused, "DS: sharded global flagship vs phase 5")
+
+        def nfa(shard):
+            def build():
+                m = SiddhiManager(device=device)
+                rt = m.create_siddhi_app_runtime(MH_NFA_APP)
+                q = rt.query_runtimes["q"]
+                if shard:
+                    shard_query_step(q, distributed.global_mesh())
+                return m, rt, q
+            return build
+
+        def nfa_drive(rt):
+            ha, hb = rt.get_input_handler("A"), rt.get_input_handler("B")
+            t = 1000
+            for i in range(48):
+                k = f"P{(i * 7) % 16}"
+                va = float((i * 3) % 11)
+                ha.send(t, [k, va])
+                hb.send(t + 1, [k, va + (1.0 if i % 3 else -1.0)])
+                t += 50
+
+        n_sh, _ = _run_built(nfa(True), nfa_drive, "Out")
+        n_un, _ = _run_built(nfa(False), nfa_drive, "Out")
+        compare_outputs(n_sh, n_un, "DS: sharded pattern vs unsharded")
+        res["sharded"] = {"global_rows": sum(len(b["__ts__"]) for b in sq),
+                          "global_max_rel_err": worst, "captured": sq_f["captured"],
+                          "global_steady_eps": sq_f.get("steady_eps"),
+                          "nfa_rows": sum(len(b["__ts__"]) for b in n_sh)}
+        print(f"[distributed] gate 2 ({lap(2)} s): shard_query_step over global_mesh(): the "
+              f"global flagship's {res['sharded']['global_rows']} rows == phase 5 "
+              f"(max float rel err {worst:.3g}; {sq_f['steady_eps']:.1f} events/s "
+              f"after the first batch), the multihost pattern's "
+              f"{res['sharded']['nfa_rows']} matches == unsharded [{card}]", flush=True)
+
+        # gate 3: the routed x4 flagship over the global mesh (1 x 4)
+        def routed_global(mesh, app=None, store=None, config=None,
+                          rows_per_shard=None):
+            def build():
+                m = SiddhiManager(device=device)
+                m.set_config_manager(InMemoryConfigManager(
+                    {"siddhi_tpu.shard_exchange": "pallas_ring", **(config or {})}))
+                if store is not None:
+                    m.set_persistence_store(store)
+                rt = m.create_siddhi_app_runtime(app or APP.format(W=WINDOW))
+                q = rt.query_runtimes["bench"]
+                q.selector_plan.num_keys = KEY_SLOTS
+                q._win_keys = KEY_SLOTS
+                device_route_query_step(q, mesh,
+                                        rows_per_shard=rows_per_shard or ROWS_PER_SHARD)
+                return m, rt, q
+            return build
+
+        def send_all(rt, part=None):
+            return send_timed(rt.get_input_handler("StockStream"),
+                              part if part is not None else items, device)
+
+        ring_exchange.launches = 0
+        with recording_exchange(at=EX_RECORD_AT) as rec:
+            gm, gm_f = _run_built(routed_global(distributed.global_mesh(N_SHARDS)),
+                                  send_all, "OutStream")
+        k8["GM"] = ring_exchange.launches
+        compare_outputs(gm, routed, "DS: routed x4 over the global mesh vs phase 4")
+        if cuda:
+            _require(k8["GM"] == gm_f["dispatches"] >= N_BATCHES,
+                     f"DS: {k8['GM']} K8 launches for {gm_f['dispatches']} dispatches")
+            _require(gm_f["captured"] and rec.replays == gm_f["replays"] == N_BATCHES - 1,
+                     f"DS: routed x4 captured {gm_f['captured']}, {gm_f['replays']} "
+                     f"replays, {rec.replays} recorded")
+            check_exchange_call(rec, "DS: the exchange in the global mesh's graph")
+        res["global_mesh_routed"] = {"k8_launches": k8["GM"], **gm_f}
+        print(f"[distributed] gate 3 ({lap(3)} s): routed x{N_SHARDS} over global_mesh({N_SHARDS}) "
+              f"== phase 4; {k8['GM']} K8 launches for {gm_f['dispatches']} "
+              f"dispatches, {gm_f['replays']} replays, replay {EX_RECORD_AT}'s "
+              f"exchange == plain; {gm_f['steady_eps']:.1f} events/s after the "
+              f"first batch [{card}]", flush=True)
+
+        # gate 4a: DS, distinct value tables routed x4, the scan in the graph
+        def ds(route):
+            def build():
+                m = SiddhiManager(device=device)
+                rt = m.create_siddhi_app_runtime(DS_APP.format(W=WINDOW))
+                q = rt.query_runtimes["bench"]
+                q.selector_plan.num_keys = KEY_SLOTS
+                q._win_keys = KEY_SLOTS
+                for spec in q.selector_plan.specs:
+                    spec.distinct_capacity = DS_H
+                if route:
+                    device_route_query_step(q, distributed.global_mesh(N_SHARDS),
+                                            rows_per_shard=ROWS_PER_SHARD)
+                return m, rt, q
+            return build
+
+        ds_plain, ds_pf = _run_built(ds(False), send_all, "OutStream")
+        ring_exchange.launches = 0
+        distinct_scan.launches = 0
+        with recording(at=SCAN_RECORD_AT) as srec:
+            ds_routed, ds_f = _run_built(ds(True), send_all, "OutStream")
+        k8["DS"], ds_scans = ring_exchange.launches, distinct_scan.launches
+        ds_worst = compare_outputs(ds_routed, ds_plain, "DS: routed distinct vs unrouted")
+        if cuda:
+            _require(ds_f["captured"] and ds_f["replays"] == N_BATCHES - 1
+                     and srec.replays == ds_f["replays"],
+                     f"DS: routed distinct captured {ds_f['captured']}, "
+                     f"{ds_f['replays']} replays, {srec.replays} ran the scan")
+            _require(k8["DS"] == ds_f["dispatches"],
+                     f"DS: {k8['DS']} K8 launches for {ds_f['dispatches']} dispatches")
+            _require(ds_scans == N_SHARDS * ds_f["dispatches"],
+                     f"DS: {ds_scans} scan launches for {ds_f['dispatches']} "
+                     f"dispatches of {N_SHARDS} shards")
+            scan_err = check_graph_scan(srec, "DS: the scan in the routed graph")
+        else:
+            scan_err = 0.0
+        res["routed_distinct"] = {"k8_launches": k8["DS"], "scan_launches": ds_scans,
+                                  "scan_max_abs_err": scan_err,
+                                  "unrouted_steady_eps": ds_pf.get("steady_eps"),
+                                  "max_rel_err": ds_worst, **ds_f}
+
+        # gate 4b: the partitioned keyed-length join routed x4
+        pj_items = pj_feed(31)
+
+        def pj(route):
+            def build():
+                m = SiddhiManager(device=device)
+                rt = m.create_siddhi_app_runtime(PJ_APP)
+                q = rt.query_runtimes["pj"]
+                if route:
+                    device_route_query_step(q, distributed.global_mesh(N_SHARDS))
+                return m, rt, q
+            return build
+
+        def pj_drive(rt):
+            t0 = time.perf_counter()
+            for stream, cols, ts in pj_items:
+                rt.get_input_handler(stream).send_columns(cols, timestamps=ts)
+            if cuda:
+                torch.cuda.synchronize()
+            return [time.perf_counter() - t0]
+
+        pj_plain, pj_pf = _run_built(pj(False), pj_drive, "Out")
+        ring_exchange.launches = 0
+        pj_routed, pj_f = _run_built(pj(True), pj_drive, "Out")
+        k8["PJ"] = ring_exchange.launches
+        compare_outputs(pj_routed, pj_plain, "DS: routed join vs unrouted")
+        pj_rows = sum(len(b["__ts__"]) for b in pj_routed)
+        _require(pj_rows > 0, "DS: the routed join emitted nothing")
+        if cuda:
+            _require(k8["PJ"] == pj_f["dispatches"] >= len(pj_items),
+                     f"DS: {k8['PJ']} K8 launches for {pj_f['dispatches']} join "
+                     f"side dispatches")
+        res["routed_join"] = {"rows": pj_rows, "k8_launches": k8["PJ"],
+                              "unrouted_s": pj_pf["seconds"][0], **pj_f}
+        print(f"[distributed] gate 4 ({lap(4)} s): DS routed x{N_SHARDS} == unrouted (max float "
+              f"rel err {ds_worst:.3g}), captured {ds_f['captured']}, "
+              f"{ds_f['replays']} replays, {ds_scans} scan launches ({N_SHARDS} a "
+              f"dispatch), the replayed scan == plain; {ds_f['steady_eps']:.1f} "
+              f"events/s routed, {ds_pf['steady_eps']:.1f} unrouted, after the "
+              f"first batch; the partitioned join routed x{N_SHARDS} == "
+              f"unrouted, {pj_rows} rows, {k8['PJ']} K8 launches for "
+              f"{pj_f['dispatches']} side dispatches, {pj_f['seconds'][0]:.2f} s "
+              f"routed, {pj_pf['seconds'][0]:.2f} s unrouted for "
+              f"{len(pj_items)} side batches [{card}]", flush=True)
+
+        # gate 5: the bounded pull, the fault stream and peer recovery
+        store = InMemoryPersistenceStore()
+        peer_app = ("@app:name('dsPeer')\n@app:statistics('BASIC')\n"
+                    + APP.format(W=WINDOW).replace(
+                        "define stream StockStream",
+                        "@OnError(action='stream')\ndefine stream StockStream", 1))
+        built = {}
+
+        from siddhi_tpu_torch import StreamCallback
+
+        class Faults(StreamCallback):
+            """The fault stream's events: each row's ``_error``."""
+
+            def __init__(self):
+                self.errors = []
+
+            def receive(self, events):
+                self.errors.extend(str(e.data[-1]) for e in events)
+
+        def build_peer(mesh):
+            m, rt, q = routed_global(mesh, app=peer_app, store=store)()
+            cb, fault = collector(), Faults()
+            rt.add_callback("OutStream", cb)
+            rt.add_callback("!StockStream", fault)
+            return m, rt, cb, fault
+
+        m1, rt1, cb1, fault1 = build_peer(distributed.global_mesh(N_SHARDS))
+        rt1.app_context.cluster_step_timeout = PEER_TIMEOUT_S
+        wal = rt1.enable_wal()
+
+        def rebuild():
+            m2, rt2, cb2, _f2 = build_peer(distributed.local_survivor_mesh(N_SHARDS))
+            built.update(m=m2, rt=rt2, cb=cb2)
+            return rt2
+
+        sup = rt1.supervise(interval_s=0.05, peer_recovery=PeerRecovery(rebuild, wal=wal))
+        faults = FaultInjector()
+        try:
+            send_all(rt1, items[:2])
+            rev = rt1.persist()
+            send_all(rt1, items[2:3])
+            faults.drop_peer()
+            t0 = time.perf_counter()
+            send_all(rt1, items[3:4])     # the doomed batch: accepted (WAL), then lost
+            doomed_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result = sup.wait_recovered(300.0)
+            recover_s = time.perf_counter() - t0
+            faults.restore_peer()
+            _require(result is not None, "DS: peer recovery did not run")
+            new_rt, restored = result
+            _require(restored == rev and new_rt is built["rt"],
+                     f"DS: recovery restored {restored}, want {rev}")
+            errs = fault1.errors
+            _require(len(errs) == BATCH and "peer" in errs[0] and "snapshot" in errs[0],
+                     f"DS: {len(errs)} fault-stream rows, first {errs[:1]}")
+            _require(doomed_s < PEER_TIMEOUT_S,
+                     f"DS: the doomed batch took {doomed_s:.2f} s, bound {PEER_TIMEOUT_S} s")
+            send_all(new_rt, items[4:])
+            compare_outputs(cb1.batches[:2], routed[:2], "DS: before the peer fault")
+            compare_outputs(built["cb"].batches, routed[2:],
+                            "DS: recovered (restore + WAL replay + the rest)")
+            text1, text2 = prometheus_text(m1), prometheus_text(built["m"])
+            pf = re.search(r'name="resilience\.peer_failures"\} (\S+)', text1)
+            pr = re.search(r'name="resilience\.peer_recoveries"\} (\S+)', text2)
+            _require(pf and float(pf.group(1)) >= 1 and pr and float(pr.group(1)) == 1,
+                     f"DS: /metrics peer counters {pf and pf.group(0)}, "
+                     f"{pr and pr.group(0)}")
+            rows_m = re.findall(r'siddhi_shard_rows\{[^}]*query="bench"[^}]*\} (\S+)', text2)
+            _require(len(rows_m) == N_SHARDS, f"DS: {len(rows_m)} siddhi_shard_rows gauges")
+            res["peer"] = {"doomed_s": doomed_s, "recover_s": recover_s,
+                           "fault_rows": len(errs), "error": errs[0][:160],
+                           "peer_failures": float(pf.group(1)),
+                           "peer_recoveries": float(pr.group(1)),
+                           "outstanding_pulls": distributed.outstanding_pulls()}
+        finally:
+            faults.clear()
+            sup.stop()
+            m1.shutdown()
+        print(f"[distributed] gate 5 ({lap(5)} s): drop_peer -> ClusterPeerError on the fault "
+              f"stream ({BATCH} rows) in {doomed_s:.3f} s (bound {PEER_TIMEOUT_S} "
+              f"s); PeerRecovery on local_survivor_mesh({N_SHARDS}) restored the "
+              f"revision and replayed the WAL in {recover_s:.2f} s; rows == phase 4; "
+              f"/metrics peer_failures {res['peer']['peer_failures']:.0f}, "
+              f"peer_recoveries {res['peer']['peer_recoveries']:.0f} [{card}]",
+              flush=True)
+
+        # gate 6: the revision persisted over the global mesh into routed x2
+        # (its receive capacity B / 2 * 1.25, as the bench sizes a route)
+        m3, rt3, q3 = routed_global(make_mesh(2, device), app=peer_app, store=store,
+                                    rows_per_shard=BATCH * 5 // 8)()
+        cb3 = collector()
+        rt3.add_callback("OutStream", cb3)
+        try:
+            rt3.restore_revision(rev)
+            _require(rt3.query_runtimes["bench"]._route_layout.n == 2, "DS: x2 layout")
+            send_all(rt3, items[2:])
+        finally:
+            built["m"].shutdown()
+            m3.shutdown()
+        compare_outputs(_concat(cb3.batches), _concat(routed[2:]),
+                        "DS: global-mesh revision into x2")
+        print(f"[distributed] gate 6 ({lap(6)} s): the revision persisted over "
+              f"global_mesh({N_SHARDS}) restored into a routed x2 runtime; the "
+              f"{N_BATCHES - 2} batches after it == phase 4", flush=True)
+    finally:
+        distributed.shutdown_cluster()
+    if cuda:
+        # gate 7: two processes on the card over gloo (this torch's gloo
+        # takes CUDA tensors for all_to_all_single and all_gather), the
+        # routed flagship at 2 processes x 2 shards against gate 3's rows
+        res["two_processes"] = two_process_routed(gm, card)
+        lap(7)
+    _require(not torch.distributed.is_initialized(), "DS: the group outlived the phase")
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[distributed] phase 31 in {res['phase_s']:.1f} s [{card}]", flush=True)
+    return res, k8, ds_scans
+
+
+def routed_child(port: str, n_proc: str, rank: str, out: str) -> int:
+    """``python3 chip_smoke.py --routed-child PORT P RANK OUT``: one process
+    of a gloo group on the card (every process on ``cuda:0``) running the
+    routed flagship over ``global_mesh(N_SHARDS // P)`` on phase 4's feed;
+    its output batches, K8 launches, dispatches and seconds pickled to
+    OUT."""
+    import pickle
+
+    import torch
+
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+    from siddhi_tpu_torch.parallel import distributed
+
+    P = int(n_proc)
+    dev = torch.device("cuda", 0)
+    distributed.initialize_cluster(f"127.0.0.1:{port}", P, int(rank),
+                                   backend="gloo", device=dev)
+    try:
+        feed = make_feed(5, N_BATCHES, BATCH, NUM_SYMBOLS)
+        ring_exchange.launches = 0
+        # across processes the remote pairs take the group's collective
+        # (pallas_ring there is K8 over NVLink, ROADMAP B.10)
+        batches, secs, facts = run_slice(
+            dev, feed, routed=True, mesh=distributed.global_mesh(N_SHARDS // P),
+            exchange="all_to_all")
+        res = {"batches": batches, "seconds": secs, "k8": ring_exchange.launches,
+               "info": distributed.process_info(), **facts}
+    finally:
+        distributed.shutdown_cluster()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def two_process_routed(want, card: str) -> dict:
+    """Gate 7 of phase 31: two ``--routed-child`` processes on the card,
+    each one's rows held against ``want``; both stopped whatever happens."""
+    import os
+    import pickle
+    import tempfile
+
+    P = 2
+    port = _free_port()
+    tmp = tempfile.mkdtemp(prefix="ds_gloo_")
+    outs = [os.path.join(tmp, f"r{r}.pkl") for r in range(P)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--routed-child", str(port), str(P), str(r), outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(P)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=900)
+            logs.append(out[-2000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    res = {"wall_s": wall, "processes": P}
+    for r, (p, path) in enumerate(zip(procs, outs)):
+        _require(p.returncode == 0 and os.path.exists(path),
+                 f"DS gate 7: process {r} exited {p.returncode}:\n{logs[r]}")
+        with open(path, "rb") as f:
+            got = pickle.load(f)
+        compare_outputs(got["batches"], want, f"DS gate 7: process {r} vs gate 3")
+        _require(got["route_overflow"] == 0 and got["k8"] == got["dispatches"],
+                 f"DS gate 7: process {r}: {got['k8']} K8 launches for "
+                 f"{got['dispatches']} dispatches, overflow {got['route_overflow']}")
+        res[f"rank{r}"] = {"k8_launches": got["k8"], "dispatches": got["dispatches"],
+                           "steady_eps": steady_eps(got["seconds"], BATCH),
+                           "state_bytes": got["state_bytes"], "info": got["info"]}
+    print(f"[distributed] gate 7: 2 processes x 2 shards on the card over gloo: "
+          f"both processes' rows == gate 3; K8 {res['rank0']['k8_launches']} and "
+          f"{res['rank1']['k8_launches']} launches (the local pairs, one a "
+          f"dispatch); {res['rank0']['steady_eps']:.1f} events/s after the "
+          f"first batch; {wall:.1f} s with the processes' start [{card}]", flush=True)
+    return res
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -9036,13 +9604,18 @@ def main() -> int:
     lint_ingest, ln_exchange = phase_lint_ingest(device, feed, routed, routed_s, fused,
                                                  fused_s, card)
 
-    # 31. result lines
+    # 31. the multi-process half: the card's world of one over NCCL
+    distributed, ds_exchange, ds_scan = phase_distributed(device, feed, routed, fused, card)
+    dist["launches"]["DS"] = ds_scan
+
+    # 32. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
                      "P_routed": persistence["routed_x4"]["exchange_launches"],
                      "OB": observability["launches"]["exchange"], "OL": ol_exchange,
-                     "AP": ap_exchange, "FZ": fz_exchange, "LN": ln_exchange}
+                     "AP": ap_exchange, "FZ": fz_exchange, "LN": ln_exchange,
+                     "DS": sum(ds_exchange.values())}
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
@@ -9057,7 +9630,9 @@ def main() -> int:
         # capture's batch launches it eagerly), and the replayed call's
         # columns held against the plain version
         "launches_under_replay": {"routed": ex_rec.replays, "OL_quotas": ol_replays,
-                                  "FZ": fz_ex_replays, "LN": lint_ingest["k8_replays"]},
+                                  "FZ": fz_ex_replays, "LN": lint_ingest["k8_replays"],
+                                  "DS_GM": distributed["global_mesh_routed"]["replays"],
+                                  "DS": distributed["routed_distinct"]["replays"]},
         "in_graph_columns_checked": ex_cols,
         "roofline_share": ex["roofline_share"],
         # phase 4's columns over phase 4's launches
@@ -9075,12 +9650,14 @@ def main() -> int:
         "max_abs_err": max(dist["max_abs_err"], td["max_abs_err"],
                            pt["max_abs_err"], sv_err, fo_err,
                            overload["tenants"]["scan_max_abs_err"],
-                           overload["pipeline_quota"]["scan_max_abs_err"]),
+                           overload["pipeline_quota"]["scan_max_abs_err"],
+                           distributed["routed_distinct"]["scan_max_abs_err"]),
         # FO's and SV's launches are graph replays (one a batch) and one
         # eager warm-up launch a capture
         "launches_under_replay": {"FO": fanout["replays"],
                                   "SV_D1": serving["graph_replays"],
-                                  "FZ": fz_scan_replays},
+                                  "FZ": fz_scan_replays,
+                                  "DS": N_SHARDS * distributed["routed_distinct"]["replays"]},
         "ms": d1["ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "device_ms": d1["device_ms"],
         "device_traces": d1["device_traces"],
@@ -9130,6 +9707,8 @@ def main() -> int:
     print(json.dumps({"cluster": cluster}, default=str))
     print(json.dumps({"fuzz": fuzz}, default=str))
     print(json.dumps({"lint_ingest": lint_ingest}, default=str))
+    print(json.dumps({"distributed": {**distributed, "k8_launches": ds_exchange}},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -9190,6 +9769,9 @@ if __name__ == "__main__":
             sys.exit(import_witness())
         if sys.argv[1:2] == ["--sanitized"] and len(sys.argv) == 3:
             sys.exit(sanitized_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--routed-child"] and len(sys.argv) == 6:
+            sys.path.insert(0, str(Path(__file__).resolve().parent))
+            sys.exit(routed_child(*sys.argv[2:6]))
         if sys.argv[1:2] == ["--cells"] and len(sys.argv) == 3:
             import torch
 

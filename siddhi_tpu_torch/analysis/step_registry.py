@@ -26,9 +26,12 @@ JIT_STEP_BUILDERS: Dict[str, Tuple[str, str]] = {
     # fused sibling queries: one step per junction group
     "fused_fanout": ("siddhi_tpu_torch.core.query.fused_fanout",
                      "FusedFanoutRuntime"),
-    # device-side repartitioning: the routed step over n logical shards
+    # device-side repartitioning: the routed step over n shards (one
+    # card, or across processes)
     "device_routed": ("siddhi_tpu_torch.parallel.mesh",
                       "device_route_query_step"),
+    # the key-sharded step with a replicated batch across processes
+    "sharded_step": ("siddhi_tpu_torch.parallel.mesh", "shard_query_step"),
     # the join engine's side step (insert and probe)
     "device_join": ("siddhi_tpu_torch.core.join.engine", "DeviceJoinEngine"),
     # serving tier: the sharded aggregation's on-demand selectors
@@ -37,14 +40,16 @@ JIT_STEP_BUILDERS: Dict[str, Tuple[str, str]] = {
 }
 
 # audit name -> the family tag(s) its code passes to instrument_jit.
-# The reference's ``gspmd_replicated_batch`` and ``shard_map_routed`` have
-# no site in the port and are listed in ``PORT_NO_SITE`` instead.
+# The reference's ``shard_map_routed`` has no site in the port and is
+# listed in ``PORT_NO_SITE`` instead.
 # ``sharded_agg`` is absent, as in the reference: its selectors fold on
 # the host.
 PROGRAM_CACHE_FAMILIES: Dict[str, Tuple[str, ...]] = {
     "query_step": ("query_step", "selector"),
     "fused_fanout": ("fused_fanout",),
+    # a routed join's side steps tag device_routed.left/right
     "device_routed": ("device_routed",),
+    "sharded_step": ("gspmd_replicated_batch",),
     # NFA steps ride QueryRuntime's module family (pattern/sequence queries)
     "nfa_step": ("nfa_step", "nfa_timer"),
     # join sides tag per side at the call site: device_join.left/right
@@ -53,7 +58,7 @@ PROGRAM_CACHE_FAMILIES: Dict[str, Tuple[str, ...]] = {
 
 # family tags above that are PREFIXES of the call-site tag (the call site
 # appends a dynamic suffix, e.g. ``device_join.left``)
-PROGRAM_CACHE_PREFIX_FAMILIES = ("device_join",)
+PROGRAM_CACHE_PREFIX_FAMILIES = ("device_join", "device_routed")
 
 # module of each family's instrument_jit call site in the port. The join
 # engine's side steps (core/join/engine.py) go through the join runtime's
@@ -63,17 +68,14 @@ PROGRAM_CACHE_FAMILY_SITES: Dict[str, str] = {
     "selector": "siddhi_tpu_torch.core.query.runtime",
     "fused_fanout": "siddhi_tpu_torch.core.query.fused_fanout",
     "device_routed": "siddhi_tpu_torch.parallel.mesh",
+    "gspmd_replicated_batch": "siddhi_tpu_torch.parallel.mesh",
     "nfa_step": "siddhi_tpu_torch.core.query.nfa_runtime",
     "nfa_timer": "siddhi_tpu_torch.core.query.nfa_runtime",
     "device_join": "siddhi_tpu_torch.core.query.join_runtime",
 }
 
-# families of the reference with no call site in the port, and why (its
-# mesh is n logical shards on one card, reached only through
-# ``device_routed``)
+# families of the reference with no call site in the port, and why
 PORT_NO_SITE: Dict[str, str] = {
-    "gspmd_replicated_batch": ("the port's mesh is n logical shards on one "
-                               "card: no GSPMD-sharded step exists"),
     "shard_map_routed": ("the host-routed shard_map step has no counterpart; "
                          "routing runs on the card (device_routed)"),
 }
@@ -88,6 +90,10 @@ PORT_EAGER_FAMILIES: Dict[str, str] = {
     "nfa_step": ("the host picks K4 or K5 for each batch and lays K5's "
                  "rounds out (NFAQueryRuntime._host_hard_batch)"),
     "nfa_timer": "the timer step rides the NFA runtime's host dispatch",
+    "gspmd_replicated_batch": ("across processes the step's egress sizes "
+                               "every process's emitted rows on the host "
+                               "(ops/exchange.all_gather_rows); on one "
+                               "process no sharded step exists"),
     "device_join": ("a side step reads its match count back "
                     "(join_runtime.materialize_joined; the engine's "
                     "occupancy mirror in DeviceJoinEngine.prepare_batch)"),

@@ -1087,20 +1087,18 @@ class SiddhiAppRuntime:  # graftlint: disable=R8 — the junction/query/
         """Start an ``AppSupervisor`` (``resilience/supervisor.py``) that
         heartbeats this app's @Async workers, replacing dead or wedged
         ones with their queues intact, heals dead ingest packers and
-        watches the pipeline for a wedged step. Idempotent; returns the
-        supervisor. The peer recovery of the multi-card mesh
-        (``peer_recovery``, ``peer_monitor``) is ROADMAP A.9."""
-        if peer_recovery is not None or peer_monitor is not None:
-            raise NotImplementedError(
-                "supervise(peer_recovery=..., peer_monitor=...): the "
-                "multi-card mesh and its peer recovery "
-                "(parallel/distributed.py, PeerRecovery) are not ported to "
-                "siddhi_tpu_torch yet (ROADMAP A.9)")
+        watches the pipeline for a wedged step, and, when
+        ``peer_recovery`` is given, runs the cluster-peer recovery protocol
+        on a peer failure (a ``ClusterPeerError`` from the bounded pull or
+        a collective, or a lost ``peer_monitor`` heartbeat). Idempotent;
+        returns the supervisor."""
         from siddhi_tpu_torch.resilience.supervisor import AppSupervisor
 
         if self.app_context.supervisor is None:
             AppSupervisor(self, interval_s=interval_s,
-                          wedge_timeout_s=wedge_timeout_s).start()
+                          wedge_timeout_s=wedge_timeout_s,
+                          peer_recovery=peer_recovery,
+                          peer_monitor=peer_monitor).start()
         return self.app_context.supervisor
 
     def start(self):

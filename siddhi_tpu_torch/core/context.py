@@ -261,6 +261,11 @@ class SiddhiAppContext:
         # exchange transport of device-routed queries; on one card both
         # values run the ring_exchange kernel (parallel/mesh.py)
         self.shard_exchange = "all_to_all"
+        # seconds a sharded or routed runtime waits on a pull or a process
+        # group's collective before a peer is presumed dead
+        # (parallel/distributed.guarded_pull); ConfigManager key
+        # siddhi_tpu.cluster_step_timeout. None = unbounded
+        self.cluster_step_timeout = None
         # siddhi_tpu.agg_shards > 1 key-partitions every incremental
         # aggregation's bucket stores across that many in-process shards
         # (serving/sharded_aggregation.py); @PartitionById aggregations

@@ -21,7 +21,10 @@ registry as ``eligibility.<surface>.<code>.<query>`` (exported as the
 
 One code is the port's own: ``NOT_PORTED``, a shape the reference runs on
 a strategy the port has not ported yet (the planner's text names the
-ROADMAP item). The fuzzer reports such rows as declared gaps.
+ROADMAP item). The fuzzer reports such rows as declared gaps. No surface
+gives it today: the routed surface reports the reference's codes for
+every shape (distinct value tables and partitioned keyed-length joins
+route), so the fuzzer's declared gaps are empty.
 """
 
 from __future__ import annotations

@@ -364,8 +364,27 @@ class CompletionPump:
                     if e.journey is not None:
                         e.journey.pre_drain(e.ready())
                 t_pull = time.perf_counter()
-            for e in take:
-                e.wait()
+            try:
+                self._wait(owner, take)
+            except Exception as pull_err:  # noqa: BLE001 — a dead peer
+                # the bounded pull failed (a dead peer's ClusterPeerError
+                # from guarded_pull): route it as a synchronous raise inside
+                # a delivery, through EVERY distinct delivering junction of
+                # the popped entries (a pattern's FIFO can mix junctions),
+                # so each one's supervisor and fault machinery sees it. The
+                # entries are lost either way: ClusterPeerError is terminal
+                # for this runtime (parallel/distributed.guarded_pull)
+                routed = False
+                seen = set()
+                for e in take:
+                    jn = getattr(e, "junction", None)
+                    if jn is None or id(jn) in seen:
+                        continue
+                    seen.add(id(jn))
+                    routed = self._route_error(e, pull_err) or routed
+                if not routed:
+                    raise
+                return
             if jt:
                 # one wait serves the round: each entry is given its time
                 pull_ms = (time.perf_counter() - t_pull) * 1000.0
@@ -387,6 +406,22 @@ class CompletionPump:
                 raise errors[0]
         finally:
             draining.discard(id(owner))
+
+    def _wait(self, owner, take) -> None:
+        """Wait for the round's metas; a runtime with a mesh recorded
+        (``_shard_mesh``) under ``siddhi_tpu.cluster_step_timeout`` waits
+        through ``guarded_pull``, bounded."""
+        timeout = getattr(self.app_context, "cluster_step_timeout", None)
+        if timeout is not None and getattr(owner, "_shard_mesh", None) is not None:
+            from siddhi_tpu_torch.parallel.distributed import guarded_pull
+
+            name = getattr(owner, "name", None) or getattr(owner, "stream_id", "?")
+            guarded_pull([e.meta for e in take], float(timeout),
+                         what=f"query '{name}' pipeline drain",
+                         wait=lambda: [e.wait() for e in take])
+            return
+        for e in take:
+            e.wait()
 
     @staticmethod
     def _route_error(entry, err: Exception) -> bool:

@@ -36,8 +36,10 @@ the same (trigger row, slot) order: the selector sees the reference's
 valid rows in the reference's order, and a step's memory is its match
 mask, not W+1 copies of every column.
 
-Routed joins over a mesh wait for ROADMAP A.9
-(``parallel/mesh.route_ineligibility``).
+A partitioned keyed-length stream-stream join routes over a mesh
+(``parallel/mesh.device_route_query_step``): one routed step a side, each
+shard inserting and probing its own keys' rings, the joined rows merged
+by their trigger row's global order.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from siddhi_tpu_torch.observability import journey
 from siddhi_tpu_torch.observability.instruments import Slot
 from siddhi_tpu_torch.observability.tracing import span
 from siddhi_tpu_torch.ops.expressions import (
-    NUMPY_XP, PK_KEY, TS_KEY, TYPE_KEY, VALID_KEY, ColumnRef, CompileError,
+    NUMPY_XP, OKEY_KEY, PK_KEY, TS_KEY, TYPE_KEY, VALID_KEY, ColumnRef, CompileError,
     Resolver, TorchXP)
 from siddhi_tpu_torch.ops.windows import (
     FLUSH_KEY, NOTIFY_KEY, OVERFLOW_KEY, _mask_positions, conform_cols)
@@ -754,6 +756,9 @@ class JoinQueryRuntime(QueryRuntime):
             strrank = cols.pop(STR_RANK, None)
             wout, notify, overflow = window_out(
                 side, state, win_key, cols, ctx, filters, transforms)
+            # a routed step (parallel/mesh.py): the keyed window's global
+            # emission-order key of each trigger row
+            okey_w = wout.pop(OKEY_KEY, None)
             ovbits = overflow_bit(overflow, self.device)
             N = wout[VALID_KEY].shape[0]
             if not other_external:
@@ -819,9 +824,17 @@ class JoinQueryRuntime(QueryRuntime):
                 else:
                     match = torch.zeros((N, W), dtype=torch.bool, device=self.device)
             one_sided = outer_rows(side, wout, row_live, match)
-            joined, _r, _c, _lone = materialize_joined(
+            joined, r, c, lone = materialize_joined(
                 side, other, wout, ev, match, one_sided,
                 pk=wout[PK_KEY] if partitioned else None)
+            if okey_w is not None:
+                # the joined row's global order: its trigger row's, stridden
+                # by the probe width (the [N, W+1] row-major materialization);
+                # a trigger row is one flush chunk on every shard alike
+                W1 = match.shape[1] + 1
+                tr = okey_w.to(torch.int64)[r]
+                joined[OKEY_KEY] = tr * W1 + torch.where(lone, W1 - 1, c)
+                joined[FLUSH_KEY] = tr.to(torch.int32)
             if strrank is not None:
                 joined[STR_RANK] = strrank
             return state, finish_step(sel, state, joined, ctx, split, notify, ovbits)
@@ -871,8 +884,15 @@ class JoinQueryRuntime(QueryRuntime):
                 # grow the side's partition sub-windows before the step
                 # could overflow them (clears the built steps when it does)
                 self.engine.prepare_batch(side_key, cols)
+            routed = self._route_layout is not None
             step = self._steps.get(side_key)
-            if step is None:
+            if step is None and routed:
+                # a routed join (parallel/mesh.py): the side step runs on
+                # each shard's rows, exchanged by the partition key
+                from siddhi_tpu_torch.parallel.mesh import routed_step_for
+
+                step = self._steps[side_key] = routed_step_for(self, side_key)
+            elif step is None:
                 # the side step through the step instrument: compile
                 # events and costs; it reads its match count back on the
                 # host (materialize_joined), so it stays eager and shares
@@ -887,7 +907,18 @@ class JoinQueryRuntime(QueryRuntime):
                 (time.perf_counter() - t_host0) * 1000.0)
             t_probe0 = time.perf_counter()
             try:
-                if getattr(other.store, "dynamic", None) is not None:
+                if routed:
+                    # pad and pre-check on the host, splitting oversized
+                    # batches, then each piece through the routed side step
+                    from siddhi_tpu_torch.parallel.mesh import prepare_routed_batches
+
+                    notify = None
+                    for piece in prepare_routed_batches(self, cols):
+                        self._route_layout.dispatches += 1
+                        nt = self._finish_device_batch(step, piece, self.overflow_knob_msg)
+                        if nt is not None:
+                            notify = nt if notify is None else min(notify, nt)
+                elif getattr(other.store, "dynamic", None) is not None:
                     notify = self._probe_dynamic_aggregation(step, other, cols)
                 else:
                     notify = None

@@ -210,13 +210,19 @@ class NFAQueryRuntime(QueryRuntime):
         inst = steps.get((stream_id, generic))
         if inst is None:
             tel = self.app_context.telemetry
+            fn = (self.build_timer_step_fn() if stream_id is None
+                  else self.build_stream_step_fn(stream_id, force_generic=generic))
+            if self._route_layout is not None:
+                # key-sharded across processes (parallel/mesh.shard_query_step):
+                # this process's keys, the matches merged across processes
+                from siddhi_tpu_torch.parallel.mesh import sharded_jit_for
+
+                fn = sharded_jit_for(self, fn, timer=stream_id is None)
             if stream_id is None:
-                inst = tel.instrument_jit(self.build_timer_step_fn(),
-                                          f"nfa.{self.name}.timer", family="nfa_timer")
+                inst = tel.instrument_jit(fn, f"nfa.{self.name}.timer", family="nfa_timer")
             else:
                 inst = tel.instrument_jit(
-                    self.build_stream_step_fn(stream_id, force_generic=generic),
-                    f"nfa.{self.name}.{stream_id}" + (".generic" if generic else ""),
+                    fn, f"nfa.{self.name}.{stream_id}" + (".generic" if generic else ""),
                     family="nfa_step")
             steps[(stream_id, generic)] = inst
         return inst
@@ -290,6 +296,15 @@ class NFAQueryRuntime(QueryRuntime):
                     cols[PK_KEY] = np.zeros(cols[VALID_KEY].shape[0], np.int32)
                 cols[GK_KEY] = cols[PK_KEY]
                 self._ensure_capacity()
+                rl = self._route_layout
+                if rl is not None:
+                    # key-sharded across processes: this process's keys
+                    # only, as local ids (global key g is local g // n on
+                    # process g % n), before the host's checks read them
+                    pk = np.asarray(cols[PK_KEY], np.int64)
+                    cols[VALID_KEY] = np.asarray(cols[VALID_KEY]) & (pk % rl.n == rl.first)
+                    cols[PK_KEY] = (pk // rl.n).astype(np.int32)
+                    cols[GK_KEY] = cols[PK_KEY]
             else:
                 cols[GK_KEY] = np.zeros(cols[VALID_KEY].shape[0], np.int32)
             if self._state is None:
@@ -411,7 +426,7 @@ class NFAQueryRuntime(QueryRuntime):
             jr.end_dispatch()
             jr.pre_drain(journey.ready_of(dict.__getitem__(out_host, "__meta__")))
             t_pull = time.perf_counter()
-        meta = out_host.pop("__meta__")     # the one sync of the batch
+        meta = self._pull_meta(out_host)     # the one sync of the batch
         if jr is not None:
             jr.drained((time.perf_counter() - t_pull) * 1000.0)
         self.decode_meta_suffix(meta)

@@ -238,6 +238,9 @@ class QueryRuntime(Receiver):
         self.captured = False
         self._sel_step = None      # the split path's selector (_host_keyed_select)
         self._route_layout = None  # parallel.mesh.device_route_query_step
+        # the mesh of parallel.mesh.shard_query_step or of a route: it bounds
+        # this runtime's pulls under siddhi_tpu.cluster_step_timeout
+        self._shard_mesh = None
         self.query_callbacks: List = []
         self._lock = make_lock("owner")  # per-query lock
         self._staging: Optional[StagingRing] = None
@@ -316,6 +319,11 @@ class QueryRuntime(Receiver):
         if old_state is not None:
             _copy_prefix_tree(self._state, old_state)
         self._step = None
+        if self._shard_mesh is not None:
+            # re-establish the key sharding on the grown state
+            from siddhi_tpu_torch.parallel.mesh import shard_query_step
+
+            shard_query_step(self, self._shard_mesh)
         if overload is not None:
             from siddhi_tpu_torch.resilience.overload import charge_memory
 
@@ -369,10 +377,13 @@ class QueryRuntime(Receiver):
             self._graph = None
         self._sel_step = None
 
-    def build_step_fn(self):
+    def build_step_fn(self, split=None):
         """The (state, cols, now) -> (state, out) step of this query. The
         state tensors are updated in place and returned; ``cols`` are
-        tensors on the state's device."""
+        tensors on the state's device. ``split(cols)``, when given, takes
+        the rows the selector's state holds right before the selector (the
+        key-sharded step across processes behind a global window:
+        ``parallel/mesh.shard_query_step``)."""
         # a host window already ran the filters, transforms and post-window
         # stages on the host; host_transforms ran the transforms there
         host_pre = self.host_window is not None
@@ -418,6 +429,8 @@ class QueryRuntime(Receiver):
                     else:
                         cols[VALID_KEY] = cols[VALID_KEY] & (
                             obj(cols, ctx) | ptimer)
+            if split is not None:
+                cols = split(dict(cols))
             lanes = (self._instrument_values(islots, state, cols, win, sel.num_keys)
                      if islots else None)
             if strrank is not None:
@@ -634,6 +647,8 @@ class QueryRuntime(Receiver):
         if (self.host_window is not None or self.host_transforms
                 or self.log_stages or self.query_ast is None):
             return False
+        if self._route_layout is not None and self._route_layout.P > 1:
+            return False     # the collectives of a process group size rows on the host
         stages = list(self.transforms) + [obj for kind, obj in self.post_pipeline
                                           if kind == "t"]
         if self.window_stage is not None:
@@ -930,11 +945,14 @@ class QueryRuntime(Receiver):
             if self._state is None:
                 return
             rl = self._route_layout
-            ids_np = np.asarray(ids, np.int64)
+            ids_all = ids_np = np.asarray(ids, np.int64)
             if rl is not None:
                 # routed state is shard-major: global pk id g lives at row
-                # (g % n) * local + g // n of each keyed buffer
-                win_idx = (ids_np % rl.n) * rl.local_win + ids_np // rl.n
+                # (g % n - first) * local + g // n of each keyed buffer of
+                # the process that owns shard g % n
+                ids_np = ids_np[(ids_np % rl.n >= rl.first)
+                                & (ids_np % rl.n < rl.first + rl.L)]
+                win_idx = (ids_np % rl.n - rl.first) * rl.local_win + ids_np // rl.n
             else:
                 win_idx = ids_np
             dev = self.device
@@ -945,7 +963,7 @@ class QueryRuntime(Receiver):
             if "nfa" in state:
                 # a pattern's retired keys hold no pending match, and their
                 # start states arm afresh
-                idx = torch.as_tensor(ids_np, device=dev)
+                idx = torch.as_tensor(win_idx, device=dev)
                 for k in ("active", "consumed", "armed"):
                     state["nfa"][k].index_fill_(0, idx, False)
             if self.keyer is None:
@@ -957,8 +975,8 @@ class QueryRuntime(Receiver):
                 sel_idx = init_idx = ids_np
                 if rl is not None:
                     # init rows are identical per key: gather at the local id
-                    K = K * rl.n
-                    sel_idx = (ids_np % rl.n) * rl.localK + ids_np // rl.n
+                    K = K * rl.L
+                    sel_idx = (ids_np % rl.n - rl.first) * rl.localK + ids_np // rl.n
                     init_idx = ids_np // rl.n
                 _reset_key_rows(state["sel"], init, K,
                                 torch.as_tensor(sel_idx, device=dev),
@@ -967,7 +985,7 @@ class QueryRuntime(Receiver):
                 # composite (pk, group) keys: drop the purged pks' entries so
                 # a reused id cannot alias old groups (their gk rows become
                 # unreachable; gk ids are never reused)
-                dead = set(int(i) for i in ids_np)
+                dead = set(int(i) for i in ids_all)   # the keyer is every process's
                 self.keyer._map = {k: v for k, v in self.keyer._map.items()
                                    if int(k[0]) not in dead}
                 self.keyer._lut = np.full(64, -1, np.int32)
@@ -1045,7 +1063,7 @@ class QueryRuntime(Receiver):
             jr.end_dispatch()
             jr.pre_drain(journey.ready_of(dict.__getitem__(out_host, "__meta__")))
             t_pull = time.perf_counter()
-        meta = out_host.pop("__meta__")     # the one sync of the batch
+        meta = self._pull_meta(out_host)     # the one sync of the batch
         if jr is not None:
             jr.drained((time.perf_counter() - t_pull) * 1000.0)
         self.decode_meta_suffix(meta)
@@ -1066,6 +1084,20 @@ class QueryRuntime(Receiver):
                 jr.emit_ms = (time.perf_counter() - t_e) * 1000.0
                 jr.finish(self.app_context, (self.name,))
         return int(meta[1]) if int(meta[1]) >= 0 else None
+
+    def _pull_meta(self, out_host):
+        """Pop and pull the step's packed meta; with a mesh recorded
+        (``_shard_mesh``) and ``siddhi_tpu.cluster_step_timeout`` set the
+        wait is bounded, so a dead peer surfaces as a labeled
+        ``ClusterPeerError`` through the fault machinery instead of hanging
+        the runtime (``parallel/distributed.guarded_pull``)."""
+        timeout = getattr(self.app_context, "cluster_step_timeout", None)
+        if timeout is not None and self._shard_mesh is not None:
+            from siddhi_tpu_torch.parallel.distributed import guarded_pull
+
+            return guarded_pull(dict.pop(out_host, "__meta__"), float(timeout),
+                                what=f"query '{self.name}' step")
+        return out_host.pop("__meta__")
 
     def _host_keyed_select(self, out_host):
         """Split-pipeline tail: the group key is computed from a stage's

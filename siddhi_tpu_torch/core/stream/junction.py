@@ -622,7 +622,7 @@ class StreamJunction:
         supervisor = getattr(self.app_context, "supervisor", None)
         if supervisor is not None:
             # the supervisor sees every processing error (it reacts to
-            # cluster-peer failures only, ROADMAP A.9)
+            # cluster-peer failures only: resilience/supervisor.py)
             try:
                 supervisor.notify_error(self, e)
             except Exception:  # noqa: BLE001 — supervision must not mask

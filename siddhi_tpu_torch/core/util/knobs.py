@@ -113,7 +113,7 @@ KNOBS: Dict[str, Knob] = _declare(
     Knob("autopilot_interval_s", "float", attr="autopilot_interval_s"),
     Knob("autopilot_cooldown_s", "float", attr="autopilot_cooldown_s"),
     Knob("route_shards", "int", attr="route_shards"),
-    Knob("cluster_step_timeout", "float", attr="cluster_step_timeout"),  # graftlint: disable=R2 — read by the multi-process mesh, parallel/distributed.py (ROADMAP A.9); kept so the reference's key is accepted
+    Knob("cluster_step_timeout", "float", attr="cluster_step_timeout"),
     Knob("shard_exchange", "enum", choices=("all_to_all", "pallas_ring"),
          attr="shard_exchange"),
     Knob("join_engine", "enum", choices=("device", "legacy"),

@@ -46,8 +46,17 @@ restored state is copied at each replay. A private graph (the cache off,
 or an entry with no other sharer) is captured anew.
 
 Each ``persist`` is a ``persist`` span (``observability/tracing.py``).
-Left out, waiting for its subsystem: the multi-process allgather of
-``_to_host`` (ROADMAP A.9).
+
+Across processes (``parallel/distributed.py``) a routed or key-sharded
+runtime holds only its own shards' rows: the capture gathers every
+process's rows into the canonical layout (one ``all_gather`` of the
+packed leaves, ``parallel/mesh._canonical_tensors``; every process
+captures at the same point, the multi-controller contract persist runs
+under), so the revision is whole on every process and any survivor can
+restore it. A restore lays the canonical state out on this runtime's
+mesh (``parallel/mesh.adopt_canonical``): a revision persisted at 2
+processes restores into 1 process of 4 shards, into an unrouted runtime
+and into the reference.
 """
 
 from __future__ import annotations
@@ -190,6 +199,12 @@ class SnapshotService:
                     sel_keys = q.selector_plan.num_keys
                     win_keys = q._win_keys
                 hwm = getattr(q, "_nfa_hwm_arr", None)
+                if hwm is not None and rl is not None and rl.P > 1:
+                    # a pattern's per-key marks, key-sharded across
+                    # processes: the canonical [K] array from every process
+                    from siddhi_tpu_torch.parallel.mesh import canonical_key_rows
+
+                    hwm = canonical_key_rows(q, hwm)
                 queries[name] = {
                     "state": state,
                     "sel_keys": sel_keys,
@@ -385,12 +400,12 @@ class SnapshotService:
             if layout is not None:
                 # canonical tree -> this runtime's shard-major layout (the
                 # snapshot may come from another shard count, or unrouted)
-                from siddhi_tpu_torch.parallel.mesh import _install_routed
+                from siddhi_tpu_torch.parallel.mesh import adopt_canonical
 
                 if state is not None:
                     check_state(state, like, what)
                     self.h2d_bytes += _tree_nbytes(state)
-                _install_routed(q, layout, state, qsnap["sel_keys"], qsnap["win_keys"])
+                adopt_canonical(q, state, qsnap["sel_keys"], qsnap["win_keys"])
             else:
                 q.selector_plan.num_keys = qsnap["sel_keys"]
                 q._win_keys = qsnap["win_keys"]
@@ -404,6 +419,8 @@ class SnapshotService:
                 # snapshot marks would route every later batch to the
                 # generic step and feed expire_to from the abandoned timeline
                 hwm = qsnap.get("nfa_hwm")
+                if hwm is not None and layout is not None and layout.P > 1:
+                    hwm = np.asarray(hwm)[layout.first::layout.n]   # this process's keys
                 q._nfa_hwm_arr = np.array(hwm, np.int64) if hwm is not None else None
             if layout is None:
                 q._step = None

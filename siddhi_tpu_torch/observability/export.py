@@ -48,9 +48,12 @@ fabric's router (``cluster/router.py``, on the process registry) renders
 ``siddhi_cluster_workers_live``, ``siddhi_cluster_worker_{acked_seq,
 wal_batches}{worker}``, the per-worker respawn, replay, gap and link-drop
 counters and the ingest, run, egress, checkpoint and query counters; each
-family prints once its source exists. The reference's peer counters and
-keyed-shard gauges (ROADMAP A.9) have no source in the port and are not
-printed.
+family prints once its source exists. The keyed-shard families of the
+routed step (``parallel/mesh.py``) render as the reference renders them:
+``siddhi_shard_rows{query,shard}`` and ``siddhi_shard_exchange_ms{query}``;
+the peer counters of the app supervisor (``resilience.peer_failures``,
+``resilience.peer_recoveries``) are declared at 0 for every app, and the
+bounded pull's ``cluster.outstanding_pulls`` is a process gauge.
 """
 
 from __future__ import annotations
@@ -68,21 +71,22 @@ from siddhi_tpu_torch.observability.telemetry import global_registry
 # prefixes; each prefix maps to a dedicated family below or renders as
 # the labeled generic siddhi_counter_total/siddhi_gauge on purpose. A
 # registration with an undeclared prefix, and a declared prefix with no
-# registration site left, are both lint findings. The reference's
-# "shard" prefix (its keyed-shard gauges, ROADMAP A.9) has no source in
-# the port; "query" is the port's own (a query's captured gauge).
+# registration site left, are both lint findings. "query" is the port's
+# own (a query's captured gauge).
 TELEMETRY_PREFIXES = (
     "junction",      # @Async queue depth / stalls / sheds / timeouts
     "fanout",        # fused fan-out group size, dispatches, captured
     "pipeline",      # CompletionPump depth + metas/pulls/stalls
     "aggregation",   # rollup buckets, shards, shard WALs, flush_ms
+    "shard",         # routed-row skew gauges + exchange_ms
     "join",          # device-join partition occupancy, probe/insert_ms
     "serving",       # admission pool, scatter-gather latency
     "quota",         # overload quota-utilization gauges
     "overload",      # always-on overload counters (generic family)
     "wal",           # ingest-WAL size gauges (generic siddhi_gauge)
     "cluster",       # the cluster fabric's router (process registry ->
-                     # siddhi_cluster_*)
+                     # siddhi_cluster_*) and the bounded pull's
+                     # outstanding_pulls gauge (parallel/distributed.py)
     "resilience",    # StatisticsManager recovery counters (stat_count)
     "stage",         # batch-journey per-stage service/queue histograms
                      # (observability/journey.py -> siddhi_stage_*)
@@ -113,6 +117,8 @@ PROCESS_LIFETIME_GAUGES = (
     "aggregation.*",          # both rollup paths register
     "quota.*",                # overload registration
     "join.partition_rows.*",  # device-join attach
+    "shard.rows.*",           # the routed step's skew gauges (app registry)
+    "cluster.outstanding_pulls",  # process registry, process-lifetime
     "device.*",               # instrument last-value and capacity gauges
     "query.*.captured",       # a query's step, rebuilt in place
 )
@@ -137,8 +143,7 @@ DEVICE_CHECK_SLOTS = (
 )
 
 # operationally load-bearing counters with a source in the port,
-# pre-declared at 0 per app (the reference also declares the peer
-# counters, which come with the multi-process cluster, ROADMAP A.9)
+# pre-declared at 0 per app
 RESILIENCE_COUNTERS = (
     # the app supervisor (resilience/supervisor.py)
     "resilience.worker_restarts",
@@ -147,6 +152,8 @@ RESILIENCE_COUNTERS = (
     "resilience.wal_dropped_batches",
     "resilience.source_retries",
     "resilience.sink_retries",
+    "resilience.peer_failures",
+    "resilience.peer_recoveries",
     # serving tier (siddhi_tpu_torch/serving/)
     "resilience.query_sheds",
     "resilience.shard_rebuilds",
@@ -178,6 +185,10 @@ _AGG_SHARDS = re.compile(r"^aggregation\.(?P<agg>.+)\.shards$")
 _AGG_SHARD_WAL = re.compile(r"^aggregation\.(?P<agg>.+)\.shard"
                             r"(?P<shard>\d+)\.wal_batches$")
 _AGG_FLUSH_HIST = re.compile(r"^aggregation\.(?P<agg>.+)\.flush_ms$")
+# the routed step (parallel/mesh.py): per-shard routed-row gauges and the
+# host's routing prep histogram, scope = the query
+_SHARD_ROWS = re.compile(r"^shard\.rows\.(?P<scope>.+)\.(?P<shard>\d+)$")
+_SHARD_EXCHANGE_HIST = re.compile(r"^shard\.exchange_ms\.(?P<scope>.+)$")
 _SERVING_QUERY_HIST = re.compile(r"^serving\.query\.(?P<dur>[a-z]+)_ms$")
 _SERVING_COUNTER_FAMILY = {
     "serving.queries": ("siddhi_serving_queries_total",
@@ -521,6 +532,14 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                      "rollup state",
                      {**base, "name": m.group("agg")}, v)
             continue
+        m = _SHARD_ROWS.match(name)
+        if m:
+            fams.add("siddhi_shard_rows", "gauge",
+                     "batch rows routed to each key shard (last batch; skew "
+                     "shows as imbalance)",
+                     {**base, "query": m.group("scope"),
+                      "shard": m.group("shard")}, v)
+            continue
         m = _AGG_BUCKETS.match(name)
         if m:
             fams.add("siddhi_aggregation_buckets", "gauge",
@@ -638,6 +657,13 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                 family = "siddhi_aggregation_flush_ms"
                 help_ = "aggregation ingest fold latency per batch (ms)"
                 labels["name"] = m.group("agg")
+            elif _SHARD_EXCHANGE_HIST.match(name):
+                m = _SHARD_EXCHANGE_HIST.match(name)
+                family = "siddhi_shard_exchange_ms"
+                help_ = ("host time spent routing/prepping one batch for the "
+                         "sharded keyed step (ms; the routed path pays only "
+                         "pad and pre-check here)")
+                labels["query"] = m.group("scope")
             elif name == "scrape.ms":
                 family = "siddhi_scrape_ms"
                 help_ = "/metrics scrape self-timing (ms)"

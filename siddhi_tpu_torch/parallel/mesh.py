@@ -1,39 +1,53 @@
-"""Device-side repartitioning of a keyed query over n logical shards.
+"""Key sharding of query state over n shards, on one card or across processes.
 
-Counterpart of the device-routed path of ``siddhi_tpu/parallel/mesh.py``
-(``device_route_query_step`` and what it installs). The reference runs one
-``shard_map`` over a mesh of n chips. This port holds the n shards' state
-side by side on ONE card, in the reference's shard-major layout for its
-global arrays (``_canonical_to_routed``): shard s owns key rows
-``[s*localK, (s+1)*localK)`` of every keyed state tensor. One routed step:
+Counterpart of ``siddhi_tpu/parallel/mesh.py``. A ``Mesh`` is n logical
+shards spread over ``process_count`` processes (``parallel/distributed.py``),
+``n / process_count`` of them on each process's one device; process p owns
+global shards ``[p*L, (p+1)*L)``. ``make_mesh(n)`` is one process with n
+shards. Two ways to shard a query:
 
-ingress   the unrouted batch is cut into n source slices ``[n, B/n]``;
-          ``owner = key % n`` per row, rows bucket per (source, owner)
-          with a per-pair quota of ``rows_per_shard // n`` (over-quota rows
-          are counted, not silently dropped), and one
-          ``ring_exchange_cols`` call (one kernel launch) moves every
-          column's buckets, the row index included, to their owners. Rows
+``device_route_query_step``  the routed step. State is laid out in the
+reference's shard-major layout (``_canonical_to_routed``): shard s owns
+key rows ``[s*localK, (s+1)*localK)`` of every keyed state tensor, and a
+process holds only its own shards' rows. One routed step:
+
+ingress   every process sees the whole (replicated) batch; it cuts its
+          own source slices out of ``[n, B/n]``, ``owner = key % n`` per
+          row, and buckets rows per (source, owner) with a per-pair quota
+          of ``rows_per_shard // n`` (over-quota rows are counted, not
+          silently dropped). One ``ring_exchange_cols`` call (one kernel
+          launch) moves every column's buckets between the process's own
+          shards; the buckets bound for another process travel in one
+          ``all_to_all_single`` (``ops/exchange.all_to_all_cols``). Rows
           arrive source-major, i.e. in original batch order.
 local     partition- and group-key columns become per-shard local ids
           (pk // n; the group key through a host-kept LUT) and each shard
           steps views of its own state slice, in place.
-egress    emitted rows of all shards are concatenated and sorted once by
-          their global emission-order key, which reproduces the unrouted
-          output row for row. The meta is
+egress    emitted rows of all shards (of all processes: one
+          ``all_gather``) are concatenated and sorted once by their global
+          emission-order key, which reproduces the unrouted output row for
+          row. The meta is
           ``[overflow, notify, count, route_overflow, rows_0..rows_n-1]``.
 
-Both values of ``siddhi_tpu.shard_exchange`` (``all_to_all``,
-``pallas_ring``) take this one path on one card: one ``ring_exchange_cols``
-call per dispatch, which launches the CUDA kernel once for all columns.
-The exchange has one transport there; the knob stays parsed so configs
-carry over. Peer copies over NVLink across cards are later work and will
-keep the one-buffer ``ring_exchange(buf, n)`` signature. Unlike the reference, nothing swaps
+``shard_query_step``  the key-sharded step with a replicated batch. On a
+one-process mesh the state stays whole: n logical shards of one card
+share one memory. Across processes each process keeps its own key rows
+(one shard a process, round robin: global key g lives on process g % P as
+local id g // P) and steps the whole batch over its own keys; the emitted
+rows are gathered and merged once in the unsharded order.
+
+On one card both values of ``siddhi_tpu.shard_exchange`` (``all_to_all``,
+``pallas_ring``) take the one ``ring_exchange_cols`` call per dispatch.
+Across processes ``all_to_all`` moves the remote buckets with the group's
+collective; ``pallas_ring`` there would be the exchange kernel over NVLink
+peer copies (ROADMAP B.10) and raises. Unlike the reference, nothing swaps
 the exchange for another off the accelerator: a CPU runtime uses the
 kernel's plain version because its tensors lie on the CPU.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Optional
 
@@ -42,7 +56,7 @@ import torch
 
 from siddhi_tpu_torch.ops.exchange import ring_exchange_cols
 from siddhi_tpu_torch.ops.expressions import (
-    OKEY_KEY, PK_KEY, RIDX_KEY, VALID_KEY, CompileError)
+    OKEY_KEY, PK_KEY, RIDX_KEY, TYPE_KEY, VALID_KEY, CompileError)
 
 GK_KEY = "__gk__"
 # the group-key LUT pair of a routed step with a distinct group key
@@ -55,14 +69,41 @@ _ROUTE_BIG = 2 ** 62
 
 @dataclass(frozen=True)
 class Mesh:
-    """n logical shards on one device (``None``: the runtime's device)."""
+    """n shards over ``process_count`` processes, ``n / process_count`` on
+    each process's device (``None``: the runtime's device). Process p owns
+    global shards ``[p * local, (p + 1) * local)``."""
 
     n: int
     device: Optional[torch.device] = None
+    process_count: int = 1
+    process_index: int = 0
+
+    def __post_init__(self):
+        if self.n < 1 or self.process_count < 1 or self.n % self.process_count:
+            raise ValueError(
+                f"Mesh: {self.n} shards do not split over "
+                f"{self.process_count} processes")
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"Mesh: process index {self.process_index} of "
+                             f"{self.process_count}")
+
+    @property
+    def local(self) -> int:
+        """Shards on this process."""
+        return self.n // self.process_count
+
+    @property
+    def first(self) -> int:
+        """This process's first global shard."""
+        return self.process_index * self.local
 
 
-def make_mesh(n_devices: int, device=None) -> Mesh:
-    """A mesh of ``n_devices`` logical shards co-resident on ``device``."""
+def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
+    """A mesh of ``n_devices`` logical shards co-resident on ``device``
+    (one process; default one shard, the process's one device, as the
+    reference's default is every device)."""
+    if n_devices is None:
+        n_devices = 1
     if int(n_devices) < 1:
         raise ValueError(f"make_mesh: need at least one shard, got {n_devices}")
     return Mesh(int(n_devices), torch.device(device) if device is not None else None)
@@ -80,9 +121,12 @@ def _map_tree(fn, tree, *others, path=()):
 
 def _key_axis_of(path, leaf, num_keys: int, win_keys: int) -> int:
     """Key-axis index of a query-state leaf, or -1 if unkeyed: selector
-    arrays (``"sel"``, shape ``[slots, K]``) by the axis sized
-    ``num_keys``; partitioned window buffers (``"win"``, key-contiguous
-    flat rings ``[Kw*W]`` or per-key ``[Kw]``) along axis 0."""
+    arrays (``"sel"``, shape ``[slots, K]``, and the distinct value tables
+    ``[K, H]`` and their ``[K]`` stamps) by the axis sized ``num_keys``;
+    partitioned window buffers (``"win"``, and a partitioned join's
+    per-side rings ``"lwin"``/``"rwin"``: key-contiguous flat rings
+    ``[Kw*W]`` or per-key ``[Kw]``) along axis 0; NFA slot tensors
+    (``"nfa"``: key-major ``[K, S]`` / per-key ``[K]``) along axis 0."""
     if leaf.dim() == 0:
         return -1
     top = path[0] if path else None
@@ -90,9 +134,33 @@ def _key_axis_of(path, leaf, num_keys: int, win_keys: int) -> int:
         for i, s in enumerate(leaf.shape):
             if s == num_keys:
                 return i
-    if top == "win" and win_keys > 1 and leaf.shape[0] % win_keys == 0:
+    if (top in ("win", "lwin", "rwin") and win_keys > 1
+            and leaf.shape[0] % win_keys == 0):
+        return 0
+    if top == "nfa" and win_keys > 1 and leaf.shape[0] == win_keys:
         return 0
     return -1
+
+
+def state_shardings(state, mesh: Mesh, num_keys: int, win_keys: int = 1):
+    """The tree of key axes of a query-state tree over ``mesh``: each
+    leaf's axis to shard along, or -1 where it stays replicated (unkeyed
+    state, and window or NFA buffers whose key count does not split over
+    the mesh's processes). The port's counterpart of the reference's
+    ``NamedSharding`` tree: ``shard_query_step`` splits the keyed leaves
+    one shard a process."""
+    parts = mesh.process_count
+
+    def one(path, leaf):
+        ax = _key_axis_of(path, leaf, num_keys, win_keys)
+        if ax < 0:
+            return -1
+        if path[0] in ("win", "lwin", "rwin", "nfa") and (
+                leaf.shape[0] % parts or win_keys % parts):
+            return -1
+        return ax
+
+    return _map_tree(one, state)
 
 
 def _leaf_space(path) -> str:
@@ -102,22 +170,31 @@ def _leaf_space(path) -> str:
 def _buffered_id_col(path) -> Optional[str]:
     """'gk'/'pk' when this window-buffer leaf stores key ids whose VALUES
     must translate between local and global id spaces."""
-    if path and path[0] == "win" and path[-1] in (GK_KEY, PK_KEY):
+    if path and path[0] in ("win", "lwin", "rwin") and path[-1] in (GK_KEY, PK_KEY):
         return "gk" if path[-1] == GK_KEY else "pk"
     return None
 
 
 class RouteLayout:
-    """Host-side bookkeeping of one routed query: shard count, receive
-    capacity, and the group-key local-id LUT that carries a distinct GK
-    through the exchange. ``localK``/``local_win`` mirror the runtime's
-    per-shard capacity fields; ``n * localK`` is the global dense-id
-    capacity the keyer allocates into."""
+    """Host-side bookkeeping of one routed query: shard count (``n`` in
+    all, ``L`` on this process from global shard ``first``, over ``P``
+    processes), receive capacity, and the group-key local-id LUT that
+    carries a distinct GK through the exchange. ``localK``/``local_win``
+    mirror the runtime's per-shard capacity fields; ``n * localK`` is the
+    global dense-id capacity the keyer allocates into."""
 
     def __init__(self, mesh: Mesh, rows_per_shard: int, exchange: str,
-                 partitioned: bool, use_lut: bool, device):
+                 partitioned: bool, use_lut: bool, device, split: Optional[str] = None):
         self.mesh = mesh
-        self.n = mesh.n
+        # ``split`` set: the key-sharded step with a replicated batch
+        # (shard_query_step across processes), one shard a process, which
+        # takes its rows at the step's input ("input") or, behind a global
+        # window, at the selector's ("select")
+        self.split = split
+        self.P = mesh.process_count
+        self.n = mesh.process_count if split else mesh.n
+        self.L = 1 if split else mesh.local      # shards on this process
+        self.first = mesh.process_index * self.L  # its first global shard
         self.device = device
         self.rows_per_shard = int(rows_per_shard)
         self.quota = max(1, self.rows_per_shard // self.n)
@@ -238,11 +315,11 @@ def route_ineligibility(runtime) -> Optional[str]:
     """Why this runtime cannot take the routed path (None = it can, else a
     ``core.eligibility.Reason``: free text with a stable ``.code``). The
     reference's classification, branch for branch and in its order:
-    partitioned queries over keyed length windows (or no window), and
-    non-partitioned grouped queries without a window. Two shapes the
-    reference routes are not ported yet and say so with ``NOT_PORTED``:
-    distinctCount/unionSet selectors and partitioned keyed-length joins
-    (ROADMAP A.9)."""
+    partitioned queries over keyed length windows (or no window),
+    non-partitioned grouped queries without a window, and partitioned
+    keyed-length stream-stream joins (``_join_route_ineligibility``).
+    distinctCount/unionSet value tables ``[K, H]`` are keyed leaves and
+    shard by key like the rest."""
     from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
     from siddhi_tpu_torch.core.eligibility import reason
     from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
@@ -268,17 +345,16 @@ def route_ineligibility(runtime) -> Optional[str]:
         return reason(RC.UNKEYED, "unkeyed queries (nothing to route by)")
     if runtime.carried_pk:
         return reason(RC.INNER_PARTITION_STREAM, "inner partition '#stream' inputs")
-    distinct = [s.kind for s in sp.specs if s.kind in ("distinctcount", "unionset")]
-    if distinct:
-        return reason(RC.NOT_PORTED,
-                      f"{'/'.join(sorted(set(distinct)))} (routing [K, H] value "
-                      f"tables over shards is not ported yet)")
     return None
 
 
 def _join_route_ineligibility(runtime) -> Optional[str]:
-    """The reference's join classification; the shape it routes (a
-    partitioned keyed-length stream-stream join) is ``NOT_PORTED``."""
+    """The reference's join classification: a partitioned keyed-length
+    stream-stream join routes. Both sides' keyed rings shard by the
+    partition key through the same exchange, a row's probe surface (the
+    other side's ring rows of ITS OWN key) is local to its owner shard,
+    and the joined rows' emission-order keys (the trigger row's, stridden
+    by the probe width) re-merge exactly."""
     from siddhi_tpu_torch.core.eligibility import ReasonCode as RC
     from siddhi_tpu_torch.core.eligibility import reason
     from siddhi_tpu_torch.ops.keyed_windows import KeyedLengthWindowStage
@@ -304,19 +380,37 @@ def _join_route_ineligibility(runtime) -> Optional[str]:
             return reason(RC.WINDOW_NOT_GLOBAL_AWARE,
                           f"join window stage {type(side.window_stage).__name__} "
                           f"(emission-order keys not global-aware yet)")
-    return reason(RC.NOT_PORTED,
-                  "join queries (routed joins over a mesh are not ported yet: "
-                  "ROADMAP A.9)")
+    return None
 
 
 def _release_from_fanout(runtime):
-    """A routed step owns the runtime's dispatch: a fused fan-out group
-    (core/query/fused_fanout.py) would keep stepping the member through its
-    unrouted fused step, so hand the member back its own junction
-    subscription before installing the routed one."""
+    """A routed or sharded step owns the runtime's dispatch: a fused
+    fan-out group (core/query/fused_fanout.py) would keep stepping the
+    member through its unrouted fused step, so hand the member back its own
+    junction subscription before installing the new one."""
     group = getattr(runtime, "_fanout_group", None)
     if group is not None:
         group.release(runtime)
+
+
+def _check_mesh(runtime, mesh: Mesh) -> None:
+    if mesh.device is not None and mesh.device != runtime.device:
+        raise ValueError(
+            f"mesh device {mesh.device} differs from the runtime's "
+            f"{runtime.device}")
+    if mesh.process_count > 1:
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "a mesh over several processes needs the process group: "
+                "call parallel.distributed.initialize_cluster first")
+        if (dist.get_world_size() != mesh.process_count
+                or dist.get_rank() != mesh.process_index):
+            raise ValueError(
+                f"mesh of {mesh.process_count} processes (this one "
+                f"{mesh.process_index}) does not match the process group "
+                f"({dist.get_world_size()}, rank {dist.get_rank()})")
 
 
 def device_route_query_step(runtime, mesh: Mesh, rows_per_shard: int = 4096,
@@ -330,23 +424,35 @@ def device_route_query_step(runtime, mesh: Mesh, rows_per_shard: int = 4096,
 
     Returns ``(step3, state)``; ``step3(state, cols, now)`` (the step
     instrument around the routed step) is also installed as
-    ``runtime._step`` so junction-fed batches take the routed path."""
+    ``runtime._step`` so junction-fed batches take the routed path. A join
+    builds one routed step a side at its first batch (``step3`` None)."""
     why = route_ineligibility(runtime)
     if why is not None:
         raise CompileError(
             f"query '{runtime.name}': device routing does not support {why}")
-    if mesh.device is not None and mesh.device != runtime.device:
-        raise ValueError(
-            f"mesh device {mesh.device} differs from the runtime's "
-            f"{runtime.device}")
     if exchange is None:
         exchange = getattr(runtime.app_context, "shard_exchange", "all_to_all")
     if exchange not in ("all_to_all", "pallas_ring"):
         raise ValueError(f"unknown shard exchange {exchange!r}")
+    if exchange == "pallas_ring" and mesh.process_count > 1:
+        raise NotImplementedError(
+            f"query '{runtime.name}': shard_exchange 'pallas_ring' across "
+            f"{mesh.process_count} processes is the exchange kernel over "
+            f"NVLink peer copies between cards (ROADMAP B.10); use "
+            f"'all_to_all', the process group's collective")
+    _check_mesh(runtime, mesh)
     _release_from_fanout(runtime)
     partitioned = runtime.partition_ctx is not None
     use_lut = partitioned and runtime.keyer is not None
+    _install(runtime, RouteLayout(mesh, rows_per_shard, exchange, partitioned,
+                                  use_lut, runtime.device))
+    return runtime._step, runtime._state
 
+
+def _install(runtime, layout: "RouteLayout") -> None:
+    """Lay the runtime's live state out for ``layout`` (from its canonical
+    form when it was routed or sharded before) and build its step; a
+    re-install frees what it replaces (the old step's program-cache ref)."""
     if runtime._route_layout is not None:
         canonical = _canonical_tensors(runtime)
         old = runtime._route_layout
@@ -356,22 +462,18 @@ def device_route_query_step(runtime, mesh: Mesh, rows_per_shard: int = 4096,
         Kg = runtime.selector_plan.num_keys
         Wg = runtime._win_keys
         canonical = runtime._state
-
-    # a re-install frees what it replaces: the old routed step's
-    # program-cache ref (its entry's graph and slot at refcount zero)
     old_step = runtime._step if runtime._route_layout is not None else None
-    layout = RouteLayout(mesh, rows_per_shard, exchange, partitioned, use_lut,
-                         runtime.device)
     _install_routed(runtime, layout, canonical, Kg, Wg)
     close = getattr(old_step, "close", None)
     if close is not None:
         close()
-    return runtime._step, runtime._state
 
 
 def _install_routed(runtime, layout: RouteLayout, canonical, Kg: int, Wg: int):
     """Size the per-shard capacities, (re)build the GK LUT, lay the
-    canonical state out shard-major, and build the routed step."""
+    canonical state out shard-major (this process's shards), and build the
+    step. Joins build a routed step a side, and NFAs a step a stream,
+    lazily at their next batch."""
     n = layout.n
     Kg = max(int(Kg), n)
     # floor 16 (the engine's minimum key capacity): a tiny localK would
@@ -391,10 +493,17 @@ def _install_routed(runtime, layout: RouteLayout, canonical, Kg: int, Wg: int):
     runtime.selector_plan.num_keys = layout.localK
     runtime._win_keys = layout.local_win
     runtime._route_layout = layout
+    # the mesh bounds the runtime's pulls under cluster_step_timeout
+    runtime._shard_mesh = layout.mesh
     runtime._instr_spec = None  # the route's meta slots join the spec
     runtime._state = None      # release the old layout before allocating
     runtime._state = _canonical_to_routed(runtime, layout, canonical)
-    runtime._step = routed_step_for(runtime)
+    if getattr(runtime, "sides", None) is not None or hasattr(runtime, "build_timer_step_fn"):
+        runtime._step = None
+        getattr(runtime, "_steps", {}).clear()
+        runtime.__dict__.get("_nfa_steps", {}).clear()
+    else:
+        runtime._step = routed_step_for(runtime)
 
 
 def _pow2_div(total: int, n: int) -> int:
@@ -406,25 +515,139 @@ def _pow2_div(total: int, n: int) -> int:
     return k
 
 
-def _global_axes(layout: RouteLayout, path, leaf) -> int:
-    n, Kl, Wl = layout.n, layout.localK, layout.local_win
-    return _key_axis_of(path, leaf, n * Kl, n * Wl if Wl > 1 else 1)
+def _axes(layout: RouteLayout, path, leaf, shards: int) -> int:
+    """Key axis of a leaf of a routed state holding ``shards`` shards (the
+    process's ``L``, or all ``n`` once gathered); -1: unkeyed, stacked a
+    shard along axis 0."""
+    Kl, Wl = layout.localK, layout.local_win
+    return _key_axis_of(path, leaf, shards * Kl, shards * Wl if Wl > 1 else 1)
+
+
+# ---------------------------------------------------- key-sharded step
+
+def _has_keyed_state(runtime) -> bool:
+    keyed = []
+    K, W = runtime.selector_plan.num_keys, runtime._win_keys
+
+    def one(path, leaf):
+        if _key_axis_of(path, leaf, K, W) >= 0:
+            keyed.append(path)
+
+    _map_tree(one, runtime._state)
+    return bool(keyed)
+
+
+def _split_mode(runtime) -> str:
+    """Where each process takes its own keys' rows in the key-sharded step
+    across processes: at the step's input (partitioned queries, whose
+    whole state is keyed by the partition key) or at the selector's
+    (a keyed selector behind a global window, whose ring every process
+    keeps whole)."""
+    from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
+    from siddhi_tpu_torch.ops.keyed_windows import KeyedLengthWindowStage
+
+    what = None
+    sp = runtime.selector_plan
+    partitioned = runtime.partition_ctx is not None
+    if getattr(runtime, "sides", None) is not None:
+        what = "joins (route them: device_route_query_step)"
+    elif sp.order_by or sp.limit is not None or sp.offset is not None:
+        what = "order by / limit (batch-global ordering)"
+    elif isinstance(runtime, NFAQueryRuntime):
+        if partitioned and runtime.keyer is None:
+            return "input"
+        what = "a pattern's group by over captures (host keyed select)"
+    elif partitioned:
+        win = runtime.window_stage
+        if (runtime.keyer is None and runtime.host_window is None
+                and not runtime.carried_pk
+                and (win is None or isinstance(win, KeyedLengthWindowStage))):
+            return "input"
+        what = ("a partitioned query with a group by, a host window, an "
+                "inner stream or a keyed window other than length")
+    elif runtime.keyer is not None:
+        return "select"
+    raise NotImplementedError(
+        f"query '{runtime.name}': shard_query_step across processes does "
+        f"not split {what or 'this shape'} yet (ROADMAP A.11)")
+
+
+def shard_query_step(runtime, mesh: Mesh, donate: bool = True):
+    """The key-sharded step of a query with a replicated batch (the
+    reference's GSPMD step). Every process sees every event; keyed state
+    shards by key over the mesh's processes, state with no key axis stays
+    whole on each, and every process emits the whole output in the
+    unsharded order. Returns ``(step, state)``.
+
+    On a one-process mesh (``make_mesh(n)``, ``local_survivor_mesh()``)
+    the state stays whole: n logical shards of one card share one memory,
+    so there is nothing to gather (the reference's ``_out_shardings``
+    returning None). The mesh is recorded (``runtime._shard_mesh``), so
+    ``siddhi_tpu.cluster_step_timeout`` bounds the runtime's pulls, and
+    capacity growth re-invokes this function.
+
+    Across processes each process keeps its own keys' rows of every keyed
+    leaf (one shard a process), steps the batch over them, and the emitted
+    rows are gathered (one ``all_gather``) and merged once by a global
+    emission-order key. A query with no keyed state runs whole on every
+    process. ``donate`` is the reference's; the port's steps update their
+    state in place whatever it says."""
+    _check_mesh(runtime, mesh)
+    _release_from_fanout(runtime)
+    if runtime._state is None:
+        runtime._state = runtime._init_state()
+    if mesh.process_count == 1 or (runtime._route_layout is None
+                                   and not _has_keyed_state(runtime)):
+        runtime._shard_mesh = mesh
+        return runtime._step, runtime._state
+    mode = _split_mode(runtime)
+    _install(runtime, RouteLayout(mesh, 4096, "all_to_all",
+                                  runtime.partition_ctx is not None, False,
+                                  runtime.device, split=mode))
+    return runtime._step, runtime._state
 
 
 # -------------------------------------------------------- state relayout
 
+def _gather_shards(layout: RouteLayout, state, timeout_s=None):
+    """This process's shards of a routed state -> all n shards (every
+    process's, in process order: one ``all_gather`` of the packed
+    leaves)."""
+    from siddhi_tpu_torch.ops.exchange import all_gather_same
+
+    paths, leaves = [], []
+
+    def collect(path, leaf):
+        paths.append(path)
+        leaves.append(leaf)
+
+    _map_tree(collect, state)
+    gathered = all_gather_same(leaves, timeout_s, "state gather")
+    full = {}
+    for path, leaf, parts in zip(paths, leaves, gathered):
+        ax = _axes(layout, path, leaf, layout.L)
+        node = full
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.cat(parts, dim=max(ax, 0))
+    return full
+
+
 def _canonical_tensors(runtime):
     """Routed (shard-major) state -> canonical unsharded layout, as
-    tensors on the runtime's device."""
+    tensors on the runtime's device. Across processes every process's
+    shards are gathered first, so every process holds the whole."""
     layout = runtime._route_layout
     n, Kl = layout.n, layout.localK
     dev = runtime.device
+    state = (runtime._state if layout.L == n
+             else _gather_shards(layout, runtime._state, _timeout(runtime)))
     pos_gk = torch.from_numpy(layout.gk_positions()).to(dev)
     inv_gk_vals = (torch.from_numpy(layout.gk_inverse_values()).to(dev)
                    if layout.use_lut else None)
 
     def one(path, leaf):
-        ax = _global_axes(layout, path, leaf)
+        ax = _axes(layout, path, leaf, n)
         if ax < 0:
             return leaf[0].clone() if leaf.dim() else leaf.clone()
         idcol = _buffered_id_col(path)
@@ -442,23 +665,25 @@ def _canonical_tensors(runtime):
             return leaf.index_select(ax, pos_gk)
         keys = n * layout.local_win
         pos = torch.from_numpy(layout.pk_positions(layout.local_win)).to(dev)
-        return leaf.view(keys, -1)[pos].reshape(-1)
+        return leaf.reshape(keys, -1)[pos].reshape(leaf.shape)
 
-    return _map_tree(one, runtime._state)
+    return _map_tree(one, state)
 
 
 def _canonical_nbytes(runtime) -> int:
     """Bytes of ``_canonical_tensors(runtime)``, from the routed state's
-    metadata alone: a keyed leaf keeps its size, an unkeyed one keeps one
-    shard's row."""
+    metadata alone: a keyed leaf grows to all n shards, an unkeyed one
+    keeps one shard's row."""
     layout = runtime._route_layout
     total = 0
 
     def one(path, leaf):
         nonlocal total
         nb = leaf.nbytes
-        if leaf.dim() and _global_axes(layout, path, leaf) < 0:
+        if leaf.dim() and _axes(layout, path, leaf, layout.L) < 0:
             nb //= leaf.shape[0]
+        elif leaf.dim():
+            nb = nb * layout.n // layout.L
         total += nb
 
     _map_tree(one, runtime._state)
@@ -473,8 +698,8 @@ def canonical_route_state(runtime):
 
 def _canonical_to_routed(runtime, layout: RouteLayout, canonical):
     """Canonical state (numpy or tensors, possibly smaller capacity) ->
-    routed shard-major layout at the layout's capacities; missing key rows
-    come from init."""
+    routed shard-major layout at the layout's capacities, this process's
+    shards only; missing key rows come from init."""
     n, Kl, Wl = layout.n, layout.localK, layout.local_win
     dev = runtime.device
     local_init = runtime._init_state()
@@ -487,8 +712,27 @@ def _canonical_to_routed(runtime, layout: RouteLayout, canonical):
 
     routed = _map_tree(stack, local_init)
     del local_init
-    if canonical is None:
+    if canonical is not None:
+        routed = _fill_routed(runtime, layout, routed, canonical)
+    if layout.L == n:
         return routed
+    first, L = layout.first, layout.L
+
+    def mine(path, leaf):
+        ax = _axes(layout, path, leaf, n)
+        if ax < 0:
+            return leaf[first:first + L].clone()
+        size = leaf.shape[ax] // n
+        return leaf.narrow(ax, first * size, L * size).clone()
+
+    return _map_tree(mine, routed)
+
+
+def _fill_routed(runtime, layout: RouteLayout, routed, canonical):
+    """Copy the canonical state's rows into a full (n-shard) routed
+    layout."""
+    n, Kl, Wl = layout.n, layout.localK, layout.local_win
+    dev = runtime.device
     pos_gk_np = layout.gk_positions()
     if layout.use_lut:
         layout._resize_gk(n * Kl)
@@ -496,7 +740,7 @@ def _canonical_to_routed(runtime, layout: RouteLayout, canonical):
     def one(path, out, canon):
         canon = torch.as_tensor(np.asarray(canon) if not isinstance(
             canon, torch.Tensor) else canon).to(dev)
-        ax = _global_axes(layout, path, out)
+        ax = _axes(layout, path, out, n)
         if ax < 0:
             return torch.stack([canon] * n, dim=0)
         if _leaf_space(path) == "gk":
@@ -509,11 +753,13 @@ def _canonical_to_routed(runtime, layout: RouteLayout, canonical):
             dst = torch.from_numpy(pos_gk_np[g]).to(dev)
             out.index_copy_(ax, dst, canon.index_select(ax, src).to(out.dtype))
             return out
+        # key-major rows: a flat ring's [Kw*W] or an NFA's [K, S]
         keys = n * Wl
-        W = out.shape[0] // keys
-        ng = min(canon.shape[0] // max(W, 1), keys)
+        W = out.numel() // keys
+        rows = canon.reshape(-1, W) if W else canon.reshape(canon.shape[0], 0)
+        ng = min(rows.shape[0], keys)
         pos = torch.from_numpy(layout.pk_positions(Wl)[:ng]).to(dev)
-        out.view(keys, W)[pos] = canon[: ng * W].view(ng, W).to(out.dtype)
+        out.view(keys, W)[pos] = rows[:ng].to(out.dtype)
         idcol = _buffered_id_col(path)
         if idcol is not None:
             # buffered GLOBAL key ids -> this layout's locals
@@ -534,44 +780,174 @@ def _canonical_to_routed(runtime, layout: RouteLayout, canonical):
 # ----------------------------------------------------------- routed step
 
 def _shard_views(layout: RouteLayout, state, s: int):
-    """Views of shard ``s``'s slice of every routed state tensor."""
-    n = layout.n
+    """Views of this process's shard ``s`` (local index) of every routed
+    state tensor."""
+    L = layout.L
 
     def view(path, leaf):
-        ax = _global_axes(layout, path, leaf)
+        ax = _axes(layout, path, leaf, L)
         if ax < 0:
             return leaf[s]
-        size = leaf.shape[ax] // n
+        size = leaf.shape[ax] // L
         return leaf.narrow(ax, s * size, size)
 
     return _map_tree(view, state)
 
 
-def routed_step_for(runtime):
+def _write_back(views, new) -> None:
+    """A step that hands back new tensors for state leaves (the NFA's)
+    instead of updating its views in place: copy them into the views."""
+    if isinstance(views, dict):
+        for k, v in views.items():
+            if isinstance(new, dict) and k in new:
+                _write_back(v, new[k])
+        return
+    if isinstance(new, torch.Tensor) and new is not views:
+        views.copy_(new)
+
+
+def _step_on_shard(layout: RouteLayout, step, state, s: int, *args):
+    """``step`` over views of local shard ``s``; state it hands back anew
+    is written into the shard's rows."""
+    views = _shard_views(layout, state, s)
+    held = _map_tree(lambda _p, t: t, views)   # the views, before the step
+    new_state, out = step(views, *args)
+    _write_back(held, new_state)
+    return out
+
+
+def routed_step_for(runtime, side_key: Optional[str] = None):
     """Build the routed ``step3(state, cols, now)`` for a runtime whose
     ``_route_layout`` is installed, through the step instrument under
     family ``device_routed`` with the layout as its extra witness: on the
     card a capturable routed step (a keyed length window or none, and the
     exchange kernel) replays as one CUDA graph a dispatch, and equal
-    routed programs of two apps share one program-cache entry."""
+    routed programs of two apps share one program-cache entry.
+    ``side_key`` builds one side of a routed join (the side's insert and
+    probe step routes like any keyed step: both sides' rings shard by the
+    partition key, so a routed row's probe surface is local to its owner
+    shard). The key-sharded step with a replicated batch
+    (``shard_query_step`` across processes) takes family
+    ``gspmd_replicated_batch``."""
     import time
 
     t0 = time.perf_counter()
     layout = runtime._route_layout
-    fn = _routed_fn(runtime, layout)
     extra = (f"n={layout.n} quota={layout.quota} localK={layout.localK} "
              f"local_win={layout.local_win} partitioned={layout.partitioned} "
-             f"use_lut={layout.use_lut}")
+             f"use_lut={layout.use_lut} processes={layout.P} split={layout.split}")
+    if layout.split:
+        fn = _split_fn(runtime, layout)
+        return runtime.instrument_step(
+            fn, f"query.{runtime.name}.sharded_step",
+            family="gspmd_replicated_batch", cache_extra=extra,
+            build_ms=(time.perf_counter() - t0) * 1000.0)
+    fn = _routed_fn(runtime, layout, side_key)
+    if side_key is not None:
+        # the join's side steps read their match counts back: eager, as
+        # its unrouted side steps (analysis/step_registry.py)
+        return runtime.app_context.telemetry.instrument_jit(
+            fn, f"join.{runtime.name}.{side_key}",
+            family=f"device_routed.{side_key}", cache_extra=extra)
     return runtime.instrument_step(
         fn, f"query.{runtime.name}.step", family="device_routed",
         cache_extra=extra, build_ms=(time.perf_counter() - t0) * 1000.0)
 
 
-def _routed_fn(runtime, layout: "RouteLayout"):
+def _timeout(runtime):
+    """The app's bound on a collective's wait (``siddhi_tpu.
+    cluster_step_timeout``), read at each step; None: unbounded."""
+    return getattr(runtime.app_context, "cluster_step_timeout", None)
+
+
+def _exchange(layout: RouteLayout, sent, timeout_s=None, what="shard exchange"):
+    """Move every column's send buckets to their owners: ``sent[i]`` is
+    ``[L, n*Q, *tail]`` (this process's source shards; segment d bound
+    for global shard d). The pairs between this process's own shards take
+    the exchange kernel (one launch for every column); the buckets of
+    other processes' shards travel in one ``all_to_all_single`` (its own
+    block rides along and is dropped for the kernel's). Returns
+    ``[L, n*Q, *tail]`` per column: this process's shards' receive
+    buffers, source-major over all n sources."""
+    from siddhi_tpu_torch.ops.exchange import all_to_all_cols
+
+    n, L, P = layout.n, layout.L, layout.P
+    if P == 1:
+        return ring_exchange_cols(sent, n)
+    p = layout.first // L
+    Q = sent[0].shape[1] // n
+    tails = [tuple(b.shape[2:]) for b in sent]
+    # [L_src, P, L_dst, Q, *tail]
+    blocks = [b.view((L, P, L, Q) + t) for b, t in zip(sent, tails)]
+    own = [blk[:, p].reshape((L, L * Q) + t) for blk, t in zip(blocks, tails)]
+    own = ring_exchange_cols([o.contiguous() for o in own], L) if L > 1 else own
+    # [P_dst, L_src, L_dst, Q, *tail] -> from every process
+    recv = all_to_all_cols([blk.transpose(0, 1).contiguous() for blk in blocks],
+                           timeout_s, what)
+    out = []
+    for r, o, t in zip(recv, own, tails):
+        full = r.permute((2, 0, 1, 3) + tuple(range(4, 4 + len(t)))).contiguous()
+        full[:, p] = o.view((L, L, Q) + t)     # [L_dst, P, L_src, Q, *tail]
+        out.append(full.reshape((L, n * Q) + t))
+    return out
+
+
+def _egress(layout: RouteLayout, merged: dict, okey, meta, rows_here, route_ov,
+            ins_on: bool, inner_slots, timeout_s=None, what: str = "egress"):
+    """The ordered re-merge and the packed meta: this process's emitted
+    rows (with every other process's: one ``all_gather``) sorted once by
+    their global emission-order key (invalid rows last), and
+    ``[overflow, notify, count, route_overflow, rows_0..rows_n-1,
+    residual?, inner lanes]`` from every shard's meta."""
     n, Q = layout.n, layout.quota
+    if layout.P > 1:
+        from siddhi_tpu_torch.ops.exchange import all_gather_rows, all_gather_same
+
+        names = list(merged)
+        rows = all_gather_rows([merged[k] for k in names] + [okey], timeout_s, what)
+        merged = {k: torch.cat(rows[i]) for i, k in enumerate(names)}
+        okey = torch.cat(rows[-1])
+        metas, counts, ovs = all_gather_same(
+            [meta, rows_here, route_ov.reshape(1)], timeout_s, what)
+        meta = torch.cat(metas)
+        rows_here = torch.cat(counts)
+        route_ov = torch.cat(ovs).sum()
+    order = torch.argsort(okey, stable=True)
+    merged = {k: v[order] for k, v in merged.items()}
+    ov = meta[0, 0]
+    for lane in meta[1:, 0]:
+        ov = ov | lane      # a join's lane is a bitmask of knobs
+    ntb = torch.where(meta[:, 1] < 0, torch.full_like(meta[:, 1], _ROUTE_BIG),
+                      meta[:, 1]).min()
+    nt = torch.where(ntb >= _ROUTE_BIG, torch.full_like(ntb, -1), ntb)
+    cnt = meta[:, 2].sum()
+    parts = [torch.stack([ov, nt, cnt, route_ov.to(torch.int64)]),
+             rows_here.to(torch.int64)]
+    if ins_on:
+        # the receive capacity left on the fullest shard this batch
+        # (0: one more skewed batch overflows)
+        parts.append(n * Q - rows_here.max().reshape(1).to(torch.int64))
+    lane = 3
+    for slot in inner_slots:
+        v = meta[:, lane:lane + slot.width]
+        lane += slot.width
+        parts.append(v.max(dim=0).values if slot.reduce == "max" else v.sum(dim=0))
+    merged["__meta__"] = torch.cat(parts)
+    return merged
+
+
+def _routed_fn(runtime, layout: "RouteLayout", side_key: Optional[str] = None):
+    n, Q, L, first = layout.n, layout.quota, layout.L, layout.first
     localK = layout.localK
     partitioned, use_lut = layout.partitioned, layout.use_lut
-    step = runtime.build_step_fn()
+    if side_key is not None:
+        side_step = runtime.build_side_step_fn(side_key)
+
+        def step(state, cols, now):
+            # the probe surfaces live in the routed state (keyed rings)
+            return side_step(state, {}, None, cols, now)
+    else:
+        step = runtime.build_step_fn()
     key_name = PK_KEY if partitioned else GK_KEY
     dev = runtime.device
     # device instruments (observability/instruments.py): the inner step
@@ -590,8 +966,7 @@ def _routed_fn(runtime, layout: "RouteLayout"):
             B = cols[VALID_KEY].shape[0]
             cols[RIDX_KEY] = torch.arange(B, dtype=torch.int64, device=dev)
             rows = cols[VALID_KEY].sum(dtype=torch.int64)
-            _st, out = step(_shard_views(layout, state, 0), cols, now)
-            out = dict(out)
+            out = dict(_step_on_shard(layout, step, state, 0, cols, now))
             meta = out.pop("__meta__")
             out.pop(OKEY_KEY, None)   # single shard: already in order
             parts = [meta[:3], torch.zeros(1, dtype=torch.int64, device=dev), rows[None]]
@@ -610,35 +985,39 @@ def _routed_fn(runtime, layout: "RouteLayout"):
             lut, inv = layout.device_luts()
         B = cols[VALID_KEY].shape[0]
         Bl = B // n
-        valid = cols[VALID_KEY].view(n, Bl)
-        ridx = torch.arange(B, dtype=torch.int64, device=dev)
+        # this process's source slices of the (replicated) batch
+        lo, hi = first * Bl, (first + L) * Bl
+        valid = cols[VALID_KEY][lo:hi].view(L, Bl)
+        ridx = torch.arange(lo, hi, dtype=torch.int64, device=dev)
         # owner shard per row (invalid rows route nowhere: owner = n)
-        owner = torch.where(valid, cols[key_name].view(n, Bl).to(torch.int64) % n,
-                            torch.full((n, Bl), n, dtype=torch.int64, device=dev))
+        owner = torch.where(valid, cols[key_name][lo:hi].view(L, Bl).to(torch.int64) % n,
+                            torch.full((L, Bl), n, dtype=torch.int64, device=dev))
         dest = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
         maskd = owner[:, None, :] == dest                         # [src, dst, Bl]
         pos = torch.cumsum(maskd.to(torch.int64), dim=2) - 1
         owner_c = torch.clamp(owner, 0, n - 1)
-        pos_row = torch.gather(pos, 1, owner_c[:, None, :]).squeeze(1)  # [n, Bl]
+        pos_row = torch.gather(pos, 1, owner_c[:, None, :]).squeeze(1)  # [L, Bl]
         sendable = owner < n
         sent_row = sendable & (pos_row < Q)
         route_ov = (sendable & ~sent_row).sum(dtype=torch.int64)
-        src = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+        src = torch.arange(L, dtype=torch.int64, device=dev)[:, None]
         # one flat send buffer per column: source s's segment d starts at
         # s*n*Q + d*Q; unsent rows land in one trailing dump slot
         slot = torch.where(sent_row, src * (n * Q) + owner * Q + pos_row,
-                           torch.full_like(pos_row, n * n * Q)).reshape(-1)
+                           torch.full_like(pos_row, L * n * Q)).reshape(-1)
 
         def pack(col):
             tail = tuple(col.shape[1:])
-            buf = torch.zeros((n * n * Q + 1,) + tail, dtype=col.dtype, device=dev)
+            buf = torch.zeros((L * n * Q + 1,) + tail, dtype=col.dtype, device=dev)
             buf[slot] = col
-            return buf[: n * n * Q].view((n, n * Q) + tail)
+            return buf[: L * n * Q].view((L, n * Q) + tail)
 
         # every column and the row index in ONE exchange call
-        sent = [pack(v) for v in cols.values()] + [pack(ridx)]
-        rcols = dict(zip([*cols, RIDX_KEY], ring_exchange_cols(sent, n)))
-        rows_here = rcols[VALID_KEY].sum(dim=1, dtype=torch.int64)   # [n]
+        sent = [pack(v[lo:hi]) for v in cols.values()] + [pack(ridx)]
+        what = f"query '{runtime.name}' routed step"
+        rcols = dict(zip([*cols, RIDX_KEY],
+                         _exchange(layout, sent, _timeout(runtime), what)))
+        rows_here = rcols[VALID_KEY].sum(dim=1, dtype=torch.int64)   # [L]
         # global -> per-shard local ids (two separate dense spaces)
         if partitioned:
             pk = rcols[PK_KEY]
@@ -652,10 +1031,10 @@ def _routed_fn(runtime, layout: "RouteLayout"):
         rcols[GK_KEY] = gl.to(gk.dtype)
 
         outs, okeys, metas = [], [], []
-        for s in range(n):
-            _st, out = step(_shard_views(layout, state, s),
-                            {k: v[s] for k, v in rcols.items()}, now)
-            out = dict(out)
+        for s in range(L):
+            g = first + s             # the shard's global index
+            out = dict(_step_on_shard(layout, step, state, s,
+                                      {k: v[s] for k, v in rcols.items()}, now))
             metas.append(out.pop("__meta__"))
             okey = out.pop(OKEY_KEY).to(torch.int64)
             okeys.append(torch.where(out[VALID_KEY], okey,
@@ -663,46 +1042,159 @@ def _routed_fn(runtime, layout: "RouteLayout"):
             # local -> global ids on the emitted rows
             if partitioned and PK_KEY in out:
                 pko = out[PK_KEY]
-                out[PK_KEY] = (pko.to(torch.int64) * n + s).to(pko.dtype)
+                out[PK_KEY] = (pko.to(torch.int64) * n + g).to(pko.dtype)
             if GK_KEY in out:
                 gko = out[GK_KEY]
                 if use_lut:
-                    gg = inv[s, torch.clamp(gko.to(torch.int64), 0, localK - 1)]
+                    gg = inv[g, torch.clamp(gko.to(torch.int64), 0, localK - 1)]
                 else:
-                    gg = gko.to(torch.int64) * n + s
+                    gg = gko.to(torch.int64) * n + g
                 out[GK_KEY] = gg.to(gko.dtype)
             outs.append(out)
-        # ordered re-merge: sort every shard's emitted rows once by the
-        # global emission-order key (invalid rows sort last)
-        order = torch.argsort(torch.cat(okeys), stable=True)
-        merged = {k: torch.cat([o[k] for o in outs])[order] for k in outs[0]}
-        meta = torch.stack(metas)                                 # [n, 3]
-        ov = meta[:, 0].sum()
-        ntb = torch.where(meta[:, 1] < 0, torch.full_like(meta[:, 1], _ROUTE_BIG),
-                          meta[:, 1]).min()
-        nt = torch.where(ntb >= _ROUTE_BIG, torch.full_like(ntb, -1), ntb)
-        cnt = meta[:, 2].sum()
-        parts = [torch.stack([ov, nt, cnt, route_ov]), rows_here]
-        if ins_on:
-            # the receive capacity left on the fullest shard this batch
-            # (0: one more skewed batch overflows)
-            parts.append(n * Q - rows_here.max().reshape(1))
-        lane = 3
-        for slot in inner_slots:
-            v = meta[:, lane:lane + slot.width]
-            lane += slot.width
-            parts.append(v.max(dim=0).values if slot.reduce == "max" else v.sum(dim=0))
-        merged["__meta__"] = torch.cat(parts)
-        return state, merged
+        merged = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        return state, _egress(layout, merged, torch.cat(okeys), torch.stack(metas),
+                              rows_here, route_ov, ins_on, inner_slots,
+                              _timeout(runtime), what)
 
     return step3
+
+
+def _split_fn(runtime, layout: RouteLayout):
+    """The key-sharded step with a replicated batch, one shard a process:
+    this process's keys' rows (``key % n == first``) take its state, at
+    the step's input or at the selector's (``layout.split``), and the
+    emitted rows merge across processes by their global order (the input
+    rows' positions, which every process shares)."""
+    n, first = layout.n, layout.first
+    partitioned = layout.partitioned
+    dev = runtime.device
+    ins_on = runtime._instruments_on()
+    inner_slots = runtime._step_instrument_slots()
+    select = layout.split == "select"
+
+    def take(cols):
+        # behind a global window: the rows of other processes' groups
+        # skip this process's selector state (they emit there)
+        gk = cols[GK_KEY].to(torch.int64)
+        t = cols[TYPE_KEY]
+        data = (t == 0) | (t == 1)            # CURRENT | EXPIRED
+        cols[VALID_KEY] = cols[VALID_KEY] & ((gk % n == first) | ~data)
+        cols[GK_KEY] = (gk // n).to(cols[GK_KEY].dtype)
+        return cols
+
+    step = runtime.build_step_fn(split=take if select else None)
+    key_name = PK_KEY if partitioned else GK_KEY
+
+    def sharded(state, cols, now):
+        cols = dict(cols)
+        cols.pop(LUT_KEY, None)
+        cols.pop(INV_KEY, None)
+        valid = cols[VALID_KEY]
+        B = valid.shape[0]
+        owner = torch.where(valid, cols[key_name].to(torch.int64) % n,
+                            torch.full((B,), n, dtype=torch.int64, device=dev))
+        rows = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
+            0, owner, torch.ones(B, dtype=torch.int64, device=dev))
+        if not select:
+            cols[VALID_KEY] = valid & (owner == first)
+            for k in (PK_KEY, GK_KEY):
+                if k in cols:
+                    cols[k] = (cols[k].to(torch.int64) // n).to(cols[k].dtype)
+            cols[RIDX_KEY] = torch.arange(B, dtype=torch.int64, device=dev)
+        out = dict(_step_on_shard(layout, step, state, 0, cols, now))
+        meta = out.pop("__meta__")
+        okey = out.pop(OKEY_KEY, None)
+        if select or okey is None:
+            # the selector is row-aligned with the window's emission, which
+            # every process computes alike
+            okey = torch.arange(out[VALID_KEY].shape[0], dtype=torch.int64, device=dev)
+        okey = torch.where(out[VALID_KEY], okey.to(torch.int64),
+                           torch.full_like(okey, _ROUTE_BIG, dtype=torch.int64))
+        for k in (PK_KEY, GK_KEY):
+            if k in out and (k == GK_KEY or not select):
+                out[k] = (out[k].to(torch.int64) * n + first).to(out[k].dtype)
+        return state, _egress(layout, out, okey, meta[None], rows[first:first + 1],
+                              torch.zeros((), dtype=torch.int64, device=dev),
+                              ins_on, inner_slots, _timeout(runtime),
+                              f"query '{runtime.name}' sharded step")
+
+    return sharded
+
+
+def sharded_jit_for(runtime, fn, timer: bool = False):
+    """A pattern's per-stream step (``fn(state, cols, now, rounds)``) or
+    its TIMER sweep (``fn(state, now)``, ``timer``) over the runtime's
+    key-sharded layout across processes: the step runs on this process's
+    partition keys (the host already took its rows and made their keys
+    local: ``NFAQueryRuntime.process_stream_batch``), and the matches of
+    every process merge in the unsharded emission order, event row then
+    slot for a stream step (the ``[B, S+1]`` row-major emission) and key
+    then slot for the sweep (``[K, S]``)."""
+    layout = runtime._route_layout
+    n, first = layout.n, layout.first
+    S = runtime.stage.plan.slots
+    dev = runtime.device
+    ins_on = runtime._instruments_on()
+    inner_slots = runtime._step_instrument_slots()
+
+    def sharded(state, *args, **kw):
+        out = dict(_step_on_shard(layout, fn, state, 0, *args, **kw))
+        meta = out.pop("__meta__")
+        valid = out[VALID_KEY]
+        pos = torch.arange(valid.shape[0], dtype=torch.int64, device=dev)
+        if timer and PK_KEY in out:
+            okey = (out[PK_KEY].to(torch.int64) * n + first) * S + pos % S
+            rows = torch.zeros(1, dtype=torch.int64, device=dev)
+        else:
+            okey = pos
+            rows = args[0][VALID_KEY].sum(dtype=torch.int64).reshape(1)
+        okey = torch.where(valid, okey, torch.full_like(okey, _ROUTE_BIG))
+        for k in (PK_KEY, GK_KEY):
+            if k in out:
+                out[k] = (out[k].to(torch.int64) * n + first).to(out[k].dtype)
+        return state, _egress(layout, out, okey, meta[None], rows,
+                              torch.zeros((), dtype=torch.int64, device=dev),
+                              ins_on, inner_slots, _timeout(runtime),
+                              f"query '{runtime.name}' sharded step")
+
+    return sharded
+
+
+def _record_route_telemetry(telemetry, scope: str, rows, exchange_ms) -> None:
+    """``shard.rows.{scope}.{i}`` gauges (the rows of the last batch bound
+    for each shard) and the ``shard.exchange_ms.{scope}`` histogram (the
+    host's routing prep a batch), on the app's registry with the query as
+    the scope. A re-install onto a LARGER mesh grows the gauge set."""
+    if exchange_ms is not None:
+        telemetry.histogram(f"shard.exchange_ms.{scope}").record(exchange_ms)
+    store = _ROUTE_ROWS.setdefault(telemetry, {})
+    prev = store.get(scope)
+    known = 0 if prev is None else prev.shape[0]
+    store[scope] = np.asarray(rows, np.int64)
+    for i in range(known, len(store[scope])):
+        telemetry.gauge(
+            f"shard.rows.{scope}.{i}",
+            lambda s=scope, j=i, st=store: (
+                float(st[s][j]) if j < st[s].shape[0] else 0.0))
+
+
+# registry -> {scope: np[n] last routed rows}. Weak keys: a dead app's
+# registry must not pin its arrays, and a NEW registry at a recycled
+# address must not inherit the old one's "already registered" state
+_ROUTE_ROWS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def prepare_routed_batches(runtime, cols):
     """Host side of the routed dispatch: pad the batch to a multiple of
     the shard count, pre-check the per-(source, destination) exchange
-    quotas, and SPLIT oversized batches in half until every piece fits.
-    Returns the column dicts to dispatch in order."""
+    quotas, and SPLIT oversized batches in half until every piece fits
+    (every process makes the same pieces: its batch is everyone's). Also
+    records the shard-skew gauges and the host prep's histogram. Returns
+    the column dicts to dispatch in order. The key-sharded step with a
+    replicated batch moves no rows: its batch goes whole."""
+    import time
+
+    t0 = time.perf_counter()
     layout = runtime._route_layout
     n, quota = layout.n, layout.quota
     cols = {k: np.asarray(v) for k, v in dict(cols).items()}
@@ -734,13 +1226,21 @@ def prepare_routed_batches(runtime, cols):
         emit({k: v[:half] for k, v in c.items()})
         emit({k: v[half:] for k, v in c.items()})
 
-    emit(cols)
+    if layout.split:
+        pieces.append(cols)
+    else:
+        emit(cols)
     if layout.use_lut:
         # refreshed only when the host LUT changed (one copy), then handed
         # to every piece as input columns
         lut, inv = layout.device_luts()
         for piece in pieces:
             piece[LUT_KEY], piece[INV_KEY] = lut, inv
+    dest_rows = np.bincount(
+        (np.asarray(cols[key_name], np.int64) % n)[np.asarray(cols[VALID_KEY], bool)],
+        minlength=n)
+    _record_route_telemetry(runtime.app_context.telemetry, runtime.name, dest_rows,
+                            (time.perf_counter() - t0) * 1000.0)
     return pieces
 
 
@@ -790,3 +1290,21 @@ def ensure_routed_capacity(runtime) -> None:
 
         charge_memory(runtime.app_context, f"query.{runtime.name}",
                       pytree_nbytes(runtime._state))
+
+
+def adopt_canonical(runtime, canonical, sel_keys_g: int, win_keys_g: int) -> None:
+    """Snapshot-restore hook: lay the CANONICAL state of a revision (at
+    its global capacities: unsharded, or routed at another shard or
+    process count) out on this runtime's layout."""
+    _install_routed(runtime, runtime._route_layout, canonical, sel_keys_g, win_keys_g)
+
+
+def canonical_key_rows(runtime, arr) -> np.ndarray:
+    """A host-kept per-key array of a runtime key-sharded across processes
+    (one shard a process: row l is global key ``l * n + process``) -> the
+    canonical array over every key (one ``all_gather``)."""
+    from siddhi_tpu_torch.ops.exchange import all_gather_same
+
+    t = torch.from_numpy(np.ascontiguousarray(arr)).to(runtime.device)
+    parts = all_gather_same([t])[0]
+    return torch.stack(parts, dim=1).reshape(-1).cpu().numpy()

@@ -14,8 +14,8 @@ of every capacity-growth site, weighted fair scheduling), the app
 supervisor (``supervisor.AppSupervisor``: worker heartbeats and
 restarts, dead packers healed, the pipeline's wedge check), the
 peer liveness listener (``supervisor.PeerMonitor``, which the cluster
-fabric's worker supervisor probes) and ``stat_count``. The supervisor's
-peer recovery (``PeerRecovery``) is ROADMAP A.9.
+fabric's worker supervisor probes), the peer-death recovery of a
+multi-process cluster (``supervisor.PeerRecovery``) and ``stat_count``.
 """
 
 from siddhi_tpu_torch.resilience.faults import FaultInjector, WorkerKilled
@@ -26,11 +26,13 @@ from siddhi_tpu_torch.resilience.overload import (
 )
 from siddhi_tpu_torch.resilience.replay import IngestWAL, register_wal_gauges
 from siddhi_tpu_torch.resilience.retry import RetryExhausted, RetryPolicy
-from siddhi_tpu_torch.resilience.supervisor import AppSupervisor, PeerMonitor
+from siddhi_tpu_torch.resilience.supervisor import (
+    AppSupervisor, PeerMonitor, PeerRecovery)
 
 __all__ = ["AppOverloadControl", "AppSupervisor", "FaultInjector", "IngestWAL",
-           "OverloadConfig", "OverloadManager", "PeerMonitor", "RetryExhausted", "RetryPolicy",
-           "WorkerKilled", "register_wal_gauges", "stat_count"]
+           "OverloadConfig", "OverloadManager", "PeerMonitor", "PeerRecovery",
+           "RetryExhausted", "RetryPolicy", "WorkerKilled", "register_wal_gauges",
+           "stat_count"]
 
 
 def stat_count(app_context, name: str, n: int = 1) -> None:

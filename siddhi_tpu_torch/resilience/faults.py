@@ -17,9 +17,9 @@ owns — no monkeypatching of framework internals from tests:
 
 All injections are one-shot or counted, so tests are deterministic; the
 injector restores everything it touched on ``clear()``. The peer faults
-(``drop_peer``/``restore_peer``) drive the multi-process cluster
-(``parallel/distributed.py``), which the port does not have yet: they
-raise naming ROADMAP A.9.
+(``drop_peer``/``restore_peer``) arm the fault slot of the bounded cluster
+pull (``parallel/distributed.guarded_pull``): a dead peer without waiting
+out the pull timeout.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ class FaultInjector:  # graftlint: disable=R8 — deterministic test tooling:
         self._wedge_release = threading.Event()
         self._wedged = threading.Event()
         self._patched_sinks = []          # (sink, original_publish)
+        self._peer_fault_armed = False
         self._flood_threads = []          # non-blocking flood producers
         self._delayed_junctions = []      # persistent delay_worker targets
         self._delayed_pools = []          # armed ingest pack pools
@@ -211,19 +212,24 @@ class FaultInjector:  # graftlint: disable=R8 — deterministic test tooling:
     # ------------------------------------------------------ cluster peers
 
     def drop_peer(self, what: str = "injected peer death") -> None:
-        """Make every later cluster pull fail at once, as a dead peer
-        would (the reference's ``guarded_pull`` fault slot). The
-        multi-process cluster is ROADMAP A.9."""
-        raise NotImplementedError(
-            "FaultInjector.drop_peer: the multi-process cluster "
-            "(parallel/distributed.py) is not ported to siddhi_tpu_torch "
-            "yet (ROADMAP A.9)")
+        """Make every later ``guarded_pull`` raise ``ClusterPeerError`` at
+        once — a peer process presumed dead without waiting out the pull
+        timeout. Cleared by ``restore_peer()``/``clear()``."""
+        from siddhi_tpu_torch.parallel import distributed
+
+        def hook(label):
+            raise distributed.ClusterPeerError(
+                f"{label}: {what} — restart the cluster and restore from "
+                f"the last snapshot revision")
+
+        distributed._fault_hook = hook
+        self._peer_fault_armed = True
 
     def restore_peer(self) -> None:
-        raise NotImplementedError(
-            "FaultInjector.restore_peer: the multi-process cluster "
-            "(parallel/distributed.py) is not ported to siddhi_tpu_torch "
-            "yet (ROADMAP A.9)")
+        from siddhi_tpu_torch.parallel import distributed
+
+        distributed._fault_hook = None
+        self._peer_fault_armed = False
 
     # -------------------------------------------------------------- sinks
 
@@ -255,6 +261,8 @@ class FaultInjector:  # graftlint: disable=R8 — deterministic test tooling:
 
     def clear(self) -> None:
         self.release()
+        if self._peer_fault_armed:
+            self.restore_peer()
         for sink, original in self._patched_sinks:
             sink.publish = original
         self._patched_sinks.clear()

@@ -70,8 +70,8 @@ def register_wal_gauges(app_context) -> None:
     """Expose the context's attached WAL on its telemetry registry
     (``wal.batches`` / ``wal.pending_events`` / ``wal.dropped_batches``
     on GET /metrics). Called wherever a WAL is ATTACHED to a context —
-    ``SiddhiAppRuntime.enable_wal`` (the reference also calls it from its
-    peer-recovery rebuild, ROADMAP A.9). Idempotent (gauges are keyed by
+    ``SiddhiAppRuntime.enable_wal`` and the peer-recovery rebuild
+    (``resilience/supervisor.PeerRecovery``). Idempotent (gauges are keyed by
     name)."""
     wal = getattr(app_context, "ingest_wal", None)
     tel = getattr(app_context, "telemetry", None)

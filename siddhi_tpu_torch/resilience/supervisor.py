@@ -29,14 +29,20 @@ drives a stream of CUDA-graph replays into the app's ``CompletionPump``:
 - **Peer liveness.** ``PeerMonitor`` is a TCP liveness listener with
   probes: every process binds one, and a supervisor probes its peers'
   each tick. The cluster fabric's worker supervisor
-  (``cluster/supervisor.py``) watches its worker processes with it.
-
-The rest of the reference's peer half (``is_peer_failure``,
-``abandon_runtime``, ``PeerRecovery``) needs the multi-card mesh
-(``parallel/distributed.py``'s ``ClusterPeerError``), which is ROADMAP
-A.9: ``SiddhiAppRuntime.supervise`` refuses ``peer_recovery`` and
-``peer_monitor`` naming it, and ``notify_error`` counts nothing until
-then.
+  (``cluster/supervisor.py``) watches its worker processes with it; an
+  app supervisor given one folds a lost heartbeat into peer recovery.
+- **Peer recovery.** ``StreamJunction.handle_error`` notifies the
+  supervisor of every processing error; on a peer failure
+  (``is_peer_failure``: ``ClusterPeerError`` from the bounded pull or a
+  collective of the process group, ``parallel/distributed.py``) the
+  supervisor counts ``resilience.peer_failures`` and runs the protocol
+  ``distributed.py`` promises, exactly once: abandon the wedged runtime
+  (collectives cannot be cancelled: the stuck waits stay parked in daemon
+  threads), rebuild on the survivors (caller-supplied: a fresh runtime
+  over ``local_survivor_mesh()`` or a re-formed process group),
+  ``restore_last_revision()`` from the persistence store, replay the
+  ingest WAL suffix, and resume the sources (``PeerRecovery``; the new
+  runtime counts ``resilience.peer_recoveries``).
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 from siddhi_tpu_torch.analysis.guards import guarded
 from siddhi_tpu_torch.analysis.locks import make_lock
@@ -160,6 +166,103 @@ class PeerMonitor:
             pass
 
 
+def is_peer_failure(error: Exception) -> bool:
+    """``ClusterPeerError`` is the bounded pull's timeout and the wrapped
+    failure of a process group's collective (``ops/exchange.py``); a dead
+    peer's transport can also surface as a raw error from
+    ``torch.distributed`` itself ("Connection closed by peer" /
+    "connection reset by peer", gloo noticing the closed socket). Both
+    mean the same for supervision. The substring match is scoped to
+    ``torch.distributed``'s exception types: an app-level socket error (a
+    flaky SINK client also says "reset by peer") must not tear down a
+    healthy runtime."""
+    from siddhi_tpu_torch.parallel.distributed import ClusterPeerError
+
+    if isinstance(error, ClusterPeerError):
+        return True
+    mod = getattr(type(error), "__module__", "") or ""
+    if not mod.startswith("torch.distributed"):
+        return False
+    msg = str(error).lower()
+    return "closed by peer" in msg or "reset by peer" in msg
+
+
+def abandon_runtime(app_runtime) -> None:
+    """Best-effort, non-blocking teardown of a runtime presumed wedged on
+    a dead peer: no drains (they would block on the same dead collective),
+    no worker joins. Stops ingest, sources, triggers and timers."""
+    app_runtime.app_context.stopped = True
+    try:
+        app_runtime.app_context.timestamp_generator.stop_heartbeat()
+    except Exception:  # noqa: BLE001 — best effort
+        pass
+    for sr in getattr(app_runtime, "source_runtimes", []):
+        try:
+            sr.shutdown()
+        except Exception:  # noqa: BLE001 — best effort
+            pass
+    for tr in getattr(app_runtime, "trigger_runtimes", []):
+        try:
+            tr.stop()
+        except Exception:  # noqa: BLE001 — best effort
+            pass
+    for j in app_runtime.junctions.values():
+        j._running = False
+        j._gen += 1          # any parked worker exits on its next wake
+    sched = app_runtime.app_context.scheduler
+    if sched is not None:
+        try:
+            sched.shutdown()
+        except Exception:  # noqa: BLE001 — best effort
+            pass
+
+
+class PeerRecovery:
+    """One execution of the peer-death recovery protocol.
+
+    ``rebuild()`` must return a FRESH ``SiddhiAppRuntime`` for the same
+    app, already wired to the persistence store and with its callbacks
+    re-attached — on the survivor's own device
+    (``distributed.local_survivor_mesh()``) or a re-formed cluster. The
+    old runtime is abandoned, the last revision restored, the WAL suffix
+    replayed, and sources resumed."""
+
+    def __init__(self, rebuild: Callable[[], object], wal=None,
+                 on_recovered: Optional[Callable[[object, Optional[str]], None]] = None):
+        self.rebuild = rebuild
+        self.wal = wal
+        self.on_recovered = on_recovered
+
+    def recover(self, old_runtime=None):
+        """Returns ``(new_runtime, restored_revision)``."""
+        from siddhi_tpu_torch.resilience import stat_count
+
+        if old_runtime is not None:
+            abandon_runtime(old_runtime)
+        new_rt = self.rebuild()
+        if self.wal is not None and getattr(new_rt.app_context, "ingest_wal", None) is None:
+            # the survivor's log guards the NEW incarnation too, gauges
+            # included: after a recovery is when WAL growth must show
+            new_rt.app_context.ingest_wal = self.wal
+            from siddhi_tpu_torch.resilience.replay import register_wal_gauges
+
+            register_wal_gauges(new_rt.app_context)
+        revision = new_rt.restore_last_revision()
+        # restore_last_revision replays the WAL attached to new_rt; replay
+        # here only when ours is another object (or nothing was restored:
+        # a WAL-only recovery still feeds the suffix again)
+        if self.wal is not None and (
+                revision is None
+                or getattr(new_rt.app_context, "ingest_wal", None) is not self.wal):
+            self.wal.replay(new_rt)
+        for sr in getattr(new_rt, "source_runtimes", []):
+            sr.resume()
+        stat_count(new_rt.app_context, "resilience.peer_recoveries")
+        if self.on_recovered is not None:
+            self.on_recovered(new_rt, revision)
+        return new_rt, revision
+
+
 @guarded
 class AppSupervisor:
     """Heartbeats one app's @Async junction workers and ingest packers
@@ -171,10 +274,17 @@ class AppSupervisor:
     GUARDED_BY = {"_beat_seen": "app_supervisor"}
 
     def __init__(self, app_runtime, interval_s: float = 0.25,
-                 wedge_timeout_s: float = 5.0):
+                 wedge_timeout_s: float = 5.0,
+                 peer_recovery: Optional[PeerRecovery] = None,
+                 peer_monitor: Optional[PeerMonitor] = None):
         from siddhi_tpu_torch.core.stream.junction import _IDLE_POLL_S
 
         self.app_runtime = app_runtime
+        self.peer_monitor = peer_monitor
+        self.peer_recovery = peer_recovery
+        self.recovery_result = None       # (new_runtime, revision)
+        self._recovering = threading.Event()
+        self._recovered = threading.Event()
         self.interval_s = float(interval_s)
         # below 3 idle polls an IDLE worker (which beats only when its
         # bounded queue wait times out) would look wedged
@@ -205,6 +315,8 @@ class AppSupervisor:
         t, self._thread = self._thread, None
         if t is not None:
             t.join(timeout=5)
+        if self.peer_monitor is not None:
+            self.peer_monitor.close()
         if getattr(self.app_runtime.app_context, "supervisor", None) is self:
             self.app_runtime.app_context.supervisor = None
 
@@ -220,6 +332,13 @@ class AppSupervisor:
     def _tick(self) -> None:
         from siddhi_tpu_torch.resilience import stat_count
 
+        if self.peer_monitor is not None:
+            from siddhi_tpu_torch.parallel.distributed import ClusterPeerError
+
+            for addr in self.peer_monitor.poll_dead():
+                self.notify_error(None, ClusterPeerError(
+                    f"cluster peer {addr[0]}:{addr[1]} lost its heartbeat — "
+                    f"presumed dead; restore from the last snapshot revision"))
         now = time.monotonic()
         for sid, j in list(self.app_runtime.junctions.items()):
             if not (j._async and j._running):
@@ -325,8 +444,33 @@ class AppSupervisor:
 
     def notify_error(self, junction, error: Exception) -> None:
         """Called by ``StreamJunction.handle_error`` for every processing
-        error. The reference reacts to cluster-peer failures here
-        (``is_peer_failure``, then ``PeerRecovery``); the port has no
-        multi-process cluster until ROADMAP A.9, so no error here is a
-        peer failure and nothing is counted."""
-        return None
+        error; counts ``resilience.peer_failures`` for each peer failure
+        and runs the recovery (once)."""
+        from siddhi_tpu_torch.resilience import stat_count
+
+        if not is_peer_failure(error):
+            return
+        stat_count(self.app_runtime.app_context, "resilience.peer_failures")
+        if self.peer_recovery is None:
+            return
+        with self._lock:
+            if self._recovering.is_set():
+                return
+            self._recovering.set()
+        threading.Thread(target=self._recover, daemon=True,
+                         name=f"peer-recovery-{self.app_runtime.name}").start()
+
+    def _recover(self) -> None:
+        try:
+            self.recovery_result = self.peer_recovery.recover(
+                old_runtime=self.app_runtime)
+        except Exception:                         # noqa: BLE001
+            log.exception("peer recovery failed")
+        finally:
+            self._recovered.set()
+
+    def wait_recovered(self, timeout: Optional[float] = None):
+        """Block until a triggered peer recovery finished; returns the
+        ``(new_runtime, revision)`` result, or None."""
+        self._recovered.wait(timeout)
+        return self.recovery_result

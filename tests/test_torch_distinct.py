@@ -268,14 +268,24 @@ def test_overflow_raises_fatal_naming_the_knob():
     m.shutdown()
 
 
-def test_routed_distinct_is_refused():
-    from siddhi_tpu_torch.ops.expressions import CompileError
-    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
-
-    run = Run("torch", PARTITIONED_DISTINCT, "Out", "q")
-    with pytest.raises(CompileError, match="distinctcount"):
-        device_route_query_step(run.query, make_mesh(4), rows_per_shard=64)
-    run.close()
+@pytest.mark.parametrize("shards", [2, 4])
+def test_routed_distinct_is_refused(shards):
+    """Routed distinct value tables: the partitioned distinctCount app
+    routed at 2 and 4 shards equals the reference's routed run (its
+    ``[K, H]`` tables shard by key like the rest of the state, each
+    shard's scan on its local group ids), and the unrouted run."""
+    feed = _page_feed(5, 3, 96)
+    want = Run("jax", PARTITIONED_DISTINCT, "Out", "q", routed_n=shards,
+               rows_per_shard=96).feed("S", feed).close()
+    run = Run("torch", PARTITIONED_DISTINCT, "Out", "q", routed_n=shards,
+              rows_per_shard=96)
+    layout = run.query._route_layout
+    got = run.feed("S", feed).close()
+    assert layout.n == shards and layout.route_overflow_rows == 0
+    assert len(got) == 3 * 96 + 6
+    assert_rows_match(got, want)
+    assert_rows_match(got, Run("torch", PARTITIONED_DISTINCT, "Out", "q").feed(
+        "S", feed).close())
 
 
 def _scan_inputs(seed, K_, H, R, n_values, cin=0, device="cpu"):

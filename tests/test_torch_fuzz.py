@@ -391,10 +391,9 @@ def _build_census(package, text, join_engine):
 @pytest.mark.parametrize("join_engine", ["device", "legacy"])
 def test_census_rows_equal_the_reference(join_engine):
     """Census rows of every query of 30 generated apps: the reference's
-    surfaces, codes and details, but for the route rows of the shape the
-    port declares NOT_PORTED (a partitioned keyed-length join, which the
-    reference routes)."""
-    gaps = 0
+    surfaces, codes and details, the route rows of case 24's partitioned
+    keyed-length join included (it routes in both packages)."""
+    routed_joins = 0
     for i in range(30):
         text = CaseGenerator(0).case(i).app_text()
         port = _build_census("port", text, join_engine)
@@ -404,28 +403,32 @@ def test_census_rows_equal_the_reference(join_engine):
             assert len(port[q]) == len(ref[q]), (i, q)
             for (ps, pc, pd), (rs, rc, rd) in zip(port[q], ref[q]):
                 assert ps == rs, (i, q)
-                if (ps, pc, rc) == (SURFACE_ROUTE, "NOT_PORTED", "ELIGIBLE"):
-                    assert "ROADMAP A.9" in pd
-                    gaps += 1
-                    continue
+                assert pc != "NOT_PORTED", (i, q, pd)
                 assert (pc, pd) == (rc, rd), (i, q, ps)
-    assert gaps >= 1      # case 24's partitioned join
+                if i == 24 and ps == SURFACE_ROUTE:
+                    routed_joins += pc == "ELIGIBLE"
+    assert routed_joins >= 1      # case 24's partitioned join
 
 
 def test_not_ported_route_is_a_declared_gap_not_a_finding():
-    """The generator expects a partitioned keyed-length join to route; the
-    port declares NOT_PORTED there: the audit lists it as a gap and finds
-    nothing."""
+    """The generator expects a partitioned keyed-length join to route, and
+    it does: the route row is ELIGIBLE and the audit lists no gap and
+    finds nothing. A NOT_PORTED row would still go to the gaps, and a
+    code the planner did not declare stays a finding."""
     case = CaseGenerator(0).case(24)
     (q,) = case.queries
     assert q.kind == "join" and q.partition_key
     assert q.expect[SURFACE_ROUTE] == ReasonCode.ELIGIBLE.value
     _out, census, errs = run_combo(case, BASELINE, device=CPU)
+    route = [c for s_, c, _d in census["q0"] if s_ == SURFACE_ROUTE]
+    assert [getattr(c, "value", c) for c in route] == [ReasonCode.ELIGIBLE.value]
     gaps = []
     assert audit_census(case, census, BASELINE, errs, gaps) == []
-    assert gaps == ["q0/route: join queries (routed joins over a mesh are "
-                    "not ported yet: ROADMAP A.9)"]
-    # a code the planner did not declare stays a finding
+    assert gaps == []
+    declared = {"q0": [(SURFACE_ROUTE, ReasonCode.NOT_PORTED, "a gap")]}
+    gaps = []
+    assert audit_census(case, declared, BASELINE, [], gaps) == []
+    assert gaps == ["q0/route: a gap"]
     bare = {"q0": [(SURFACE_ROUTE, ReasonCode.UNKNOWN, "free text")]}
     assert audit_census(case, bare, BASELINE, [], [])
 

@@ -339,16 +339,20 @@ def test_manager_without_device_chooses_cuda():
 
 
 def test_unported_constructs_are_named_not_skipped():
-    """What the port still refuses raises naming its ROADMAP item: a join
-    routed over a mesh (A.9), the supervisor's peer recovery (A.9; the
-    REST service's cluster fabric, refused here until A.10 d, is ported),
-    the fault injector's peer faults (A.9).
-    Incremental aggregations, joins against them and the serving tier's
-    sharded aggregation stores (``siddhi_tpu.agg_shards`` > 1, ported in
-    A.7(c)) build."""
+    """What the port still refuses raises naming its ROADMAP item: the
+    exchange kernel over NVLink between cards (``shard_exchange
+    pallas_ring`` across processes, B.10). What it refused before runs: a
+    partitioned keyed-length join routes over a mesh, the supervisor takes
+    its peer recovery and peer monitor, the fault injector drops and
+    restores a peer (A.9), as do the REST service's cluster fabric (A.10
+    d), incremental aggregations, joins against them and the serving
+    tier's sharded aggregation stores (``siddhi_tpu.agg_shards`` > 1,
+    A.7(c))."""
     from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
-    from siddhi_tpu_torch.ops.expressions import CompileError
-    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+    from siddhi_tpu_torch.parallel import distributed
+    from siddhi_tpu_torch.parallel.mesh import Mesh, device_route_query_step, make_mesh
+    from siddhi_tpu_torch.resilience import PeerRecovery
+    from siddhi_tpu_torch.resilience.supervisor import PeerMonitor
     from siddhi_tpu_torch.serving import ShardedIncrementalAggregation
 
     agg = ("define stream S (a int, b long); define aggregation Agg from S "
@@ -365,18 +369,28 @@ def test_unported_constructs_are_named_not_skipped():
     from siddhi_tpu_torch.resilience import FaultInjector
     from siddhi_tpu_torch.service import SiddhiRestService
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        srt.supervise(peer_monitor=object())
+    monitor = PeerMonitor()
+    sup = srt.supervise(interval_s=60.0, peer_monitor=monitor,
+                        peer_recovery=PeerRecovery(lambda: None))
+    assert sup.peer_monitor is monitor and sup.peer_recovery is not None
+    sup.stop()
     assert SiddhiRestService(sharded, cluster=object()).cluster is not None
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        FaultInjector().drop_peer()
+    faults = FaultInjector()
+    faults.drop_peer()
+    with pytest.raises(distributed.ClusterPeerError, match="injected peer death"):
+        distributed.guarded_pull(torch.zeros(2), 5.0, what="probe")
+    faults.restore_peer()
+    assert distributed.guarded_pull(torch.ones(2), 5.0).tolist() == [1.0, 1.0]
     rt = m.create_siddhi_app_runtime(
         "define stream L (k string, v long); define stream R (k string, v long); "
         "partition with (k of L, k of R) begin @info(name='j') "
         "from L#window.length(4) join R#window.length(4) on L.v > R.v "
         "select L.k as k, R.v as rv insert into O; end;")
-    with pytest.raises(CompileError, match="join queries.*A.9"):
-        device_route_query_step(rt.query_runtimes["j"], make_mesh(2))
+    q = rt.query_runtimes["j"]
+    with pytest.raises(NotImplementedError, match=r"ROADMAP B\.10"):
+        device_route_query_step(q, Mesh(4, process_count=2), exchange="pallas_ring")
+    device_route_query_step(q, make_mesh(2))
+    assert q._route_layout.n == 2
     m.shutdown()
     sharded.shutdown()
 

@@ -525,7 +525,9 @@ def test_metrics_predeclare_the_counters_and_render_quota_and_shed_families():
     assert 'siddhi_quota_utilization{app="metrics_port",resource="memory"} 0' in text
     assert (f'siddhi_junction_shed_events_total{{app="metrics_port",stream="S"}} '
             f'{ctl.shed_events}') in text and ctl.shed_events == 6
-    assert "resilience.peer_failures" not in text
+    # the supervisor's peer counters are declared at 0 as well
+    for name in ("resilience.peer_failures", "resilience.peer_recoveries"):
+        assert f'siddhi_counter_total{{app="metrics_port",name="{name}"}} 0' in text, name
     inj.clear()
     m.shutdown()
     assert counts["shed_events"] == 41 - len(rows)

@@ -95,10 +95,9 @@ def test_pattern_compiles_and_join_still_refused():
     rt = m.create_siddhi_app_runtime(
         _HEAD + "@info(name='q') from e1=A -> e2=B select e1.v as a insert into O;")
     assert type(rt.query_runtimes["q"]).__name__ == "NFAQueryRuntime"
-    # a join plans into its own runtime now; routing one over a mesh stays
-    # refused: this unpartitioned one for the reference's reason
-    # (JOIN_UNPARTITIONED), a partitioned keyed-length one naming ROADMAP
-    # A.9 (test_torch_isolation.py)
+    # a join plans into its own runtime now; routing this unpartitioned one
+    # over a mesh is refused for the reference's reason (JOIN_UNPARTITIONED);
+    # a partitioned keyed-length one routes (test_torch_isolation.py)
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
     rt = m.create_siddhi_app_runtime(

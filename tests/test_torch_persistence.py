@@ -9,9 +9,9 @@
   8}), a checkpoint with a non-empty pipeline (join and single-stream
   queries), the mesh's routed <-> unrouted layouts, and a purged
   partition's key space across a revision.
-- A routed join revision: the port refuses to route joins (ROADMAP A.9),
-  so the reference persists its routed run and the port's unsharded
-  runtime restores it and continues, equal to the uninterrupted run.
+- A routed join revision across packages: the reference persists its
+  routed run and the port's unsharded runtime restores it and continues,
+  equal to the uninterrupted run.
 """
 
 import inspect

@@ -272,16 +272,16 @@ def test_metrics_text_and_json(service):
     assert "siddhi_program_cache_misses_total" in text
     assert "siddhi_program_cache_size" in text
     # the supervisor's and the overload layer's counters are declared at 0
-    # (ported since ROADMAP A.10 b)
-    for name in ("resilience.worker_restarts", "resilience.shed_events"):
+    # (ported since ROADMAP A.10 b), the supervisor's peer counters too
+    # (since A.9)
+    for name in ("resilience.worker_restarts", "resilience.shed_events",
+                 "resilience.peer_failures", "resilience.peer_recoveries"):
         assert f'siddhi_counter_total{{app="R",name="{name}"}} 0' in text, name
-    # the families of unported sources are not printed, not even as zeros;
-    # nor are the journeys' (journeys are off), the device instruments'
-    # (this app's step declares no slot) and the autopilot's (the app is
-    # not registered)
+    # the journeys' families are not printed (journeys are off), nor the
+    # device instruments' (this app's step declares no slot) nor the
+    # autopilot's (the app is not registered)
     for family in ("siddhi_stage_", "siddhi_device_instrument",
-                   "siddhi_autopilot",
-                   "resilience.peer_failures", "resilience.peer_recoveries"):
+                   "siddhi_autopilot"):
         assert family not in text, family
     code, payload = _call(svc.port, "GET", "/metrics/R?format=json")
     snap = json.loads(payload)

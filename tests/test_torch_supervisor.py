@@ -3,8 +3,8 @@ the reference's observable results: a wedged @Async worker replaced with
 every batch delivered once and in order, a killed worker restarted, dead
 ingest packers healed, a producer's blocked enqueue escalated to the
 supervisor (with and without quotas), the pipeline's wedge check counted
-once an episode, and the peer-recovery arguments refused naming ROADMAP
-A.9. Each scenario body runs through both packages
+once an episode, and the peer half: a peer failure counted and
+recovered once. Each scenario body runs through both packages
 (``torch_helpers.api``); the wedge under CUDA-graph replays needs the
 card (``cuda``)."""
 
@@ -327,22 +327,56 @@ def test_pump_wedge_counted_once_an_episode():
 
 
 def test_peer_recovery_arguments_refused_naming_a9():
-    ns = _ns("torch")
-    m = ns.SiddhiManager()
-    rt = m.create_siddhi_app_runtime(APP_ASYNC)
-    try:
-        for kw in ({"peer_recovery": object()}, {"peer_monitor": object()}):
-            with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-                rt.supervise(**kw)
-        assert rt.app_context.supervisor is None
-        sup = rt.supervise(interval_s=0.05)
-        assert rt.supervise() is sup                # idempotent
-        # no error is a cluster-peer failure until the port has the cluster
-        assert sup.notify_error(rt.junctions["S"], RuntimeError("reset by peer")) is None
-        sup.stop()
-        assert rt.app_context.supervisor is None
-    finally:
-        m.shutdown()
+    """The peer half of the supervisor (it refused its arguments until the
+    port had the cluster): ``supervise`` takes ``peer_recovery`` and
+    ``peer_monitor``; ``notify_error`` counts ``resilience.peer_failures``
+    for a ``ClusterPeerError`` and nothing for an app-level "reset by
+    peer" error, and runs the recovery once; the new runtime counts
+    ``resilience.peer_recoveries``. Both packages give the same counts."""
+    got = {}
+    for pkg in BOTH:
+        ns = _ns(pkg)
+        if pkg == "jax":
+            from siddhi_tpu.core.util.persistence import InMemoryPersistenceStore
+            from siddhi_tpu.parallel.distributed import ClusterPeerError
+            from siddhi_tpu.resilience.supervisor import PeerMonitor, PeerRecovery
+        else:
+            from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+            from siddhi_tpu_torch.parallel.distributed import ClusterPeerError
+            from siddhi_tpu_torch.resilience.supervisor import PeerMonitor, PeerRecovery
+        m = ns.SiddhiManager()
+        m.set_persistence_store(InMemoryPersistenceStore())
+        m.set_config_manager(ns.InMemoryConfigManager(
+            {"siddhi_tpu.statistics": "BASIC"}))
+        rt = m.create_siddhi_app_runtime("@app:statistics('BASIC') " + APP_ASYNC)
+        built = []
+
+        def rebuild(m=m):
+            new = m.create_siddhi_app_runtime("@app:statistics('BASIC') " + APP_ASYNC)
+            built.append(new)
+            return new
+
+        monitor = PeerMonitor()
+        try:
+            sup = rt.supervise(interval_s=60.0, peer_recovery=PeerRecovery(rebuild),
+                               peer_monitor=monitor)
+            assert rt.supervise() is sup                # idempotent
+            assert sup.peer_monitor is monitor
+            j = rt.junctions["S"]
+            assert sup.notify_error(j, RuntimeError("reset by peer")) is None
+            sup.notify_error(j, ClusterPeerError("peer gone"))
+            sup.notify_error(j, ClusterPeerError("peer gone again"))
+            new_rt, revision = sup.wait_recovered(30.0)
+            assert new_rt is built[0] and revision is None and len(built) == 1
+            counters = rt.statistics().get("counters", {})
+            got[pkg] = (counters.get("resilience.peer_failures"),
+                        new_rt.statistics().get("counters", {}).get(
+                            "resilience.peer_recoveries"))
+            sup.stop()
+            assert rt.app_context.supervisor is None
+        finally:
+            m.shutdown()
+    assert got["torch"] == got["jax"] == (2, 1)
 
 
 def test_supervisor_leaves_a_healthy_slow_worker_alone():
