@@ -493,7 +493,24 @@ launch counts and recorded-call checks hold as they did.
             ``all_to_all_single`` and ``all_gather`` in this torch), the
             routed flagship at 2 processes x 2 shards: each process's rows
             == gate 3's, K8 launched once a dispatch for the local pairs;
-32. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+32. split   every shape ``shard_query_step`` splits across processes, at
+            full width (65,536-row batches, 10,000 keys, a batch 1 s of event
+            time; 8 batches a shape, 2 for the keyed windows and the host
+            window, 4 pairs for the pattern). Gate 1: ROADMAP C.11, a partitioned
+            ``externalTime`` query's rows into a ``length`` window outside
+            the partition: its rows == a Python oracle, and the engine logs
+            no error. Gate 2: two ``--split-child`` processes on the card
+            over gloo split each shape over ``global_mesh()`` (a group by
+            other than the partition key, the same with
+            ``distinctCount``, order by / limit over a partitioned and a
+            global window, time/timeBatch/externalTime/session, a host
+            window, an inner stream, a pattern's group by over captures, a
+            partitioned join): each process's rows == one process's on the
+            card; events/s and state bytes a process; the distinct scan's
+            launches on the split path and its last call == plain. Gate 3:
+            the legacy host router and its shim route the partitioned
+            flagship x4 on the card: each key's rows == the unrouted step's;
+33. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
@@ -501,14 +518,16 @@ launch counts and recorded-call checks hold as they did.
     ``{"observability": ...}`` line, an ``{"overload": ...}`` line, an
     ``{"autopilot": ...}`` line, a ``{"cluster": ...}`` line, a
     ``{"fuzz": ...}`` line, a ``{"lint_ingest": ...}`` line, a
-    ``{"distributed": ...}`` line, a ``{"kernels": [...]}`` line, the nvidia-smi
+    ``{"distributed": ...}`` line, a ``{"split": ...}`` line, a
+    ``{"kernels": [...]}`` line, the nvidia-smi
     line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --sanitized OUT`` is phase 29's child (gate 4);
 ``python3 chip_smoke.py --imports`` is phase 30's (gate 2), and needs no
 card; ``python3 chip_smoke.py --routed-child PORT P RANK OUT`` is one
-process of phase 31's gate 7.
+process of phase 31's gate 7, and ``--split-child PORT P RANK OUT`` one
+of phase 32's gate 2.
 ``python3 chip_smoke.py --cells ROOT`` instead drives the main path's
 cells with the checkout at ROOT (``cells``): one process a checkout, to
 compare two commits on one card.
@@ -9338,6 +9357,467 @@ def two_process_routed(want, card: str) -> dict:
     return res
 
 
+# ------------------------------------- phase 32: every shape split across processes
+
+SP_SEED = 32
+SP_BATCHES = 8                  # batches (a side's, for two-stream shapes) a shape
+SP_SPAN_MS = 1_000              # event time a batch spans
+# shapes cut in depth, to keep the phase near 90 s: the keyed windows'
+# TIMER steps (a timeBatch tick drains 64 of the 10,000 keys a step), the
+# host window's Python instance a key, the pattern's host keyed select
+SP_CUT = {"keyed_windows": 2, "host_window": 2, "pattern_group_by": 4}
+SP_SHIM_BATCHES = 4             # gate 3
+SP_TIMEOUT_S = 600
+SP_STREAM = ("@app:playback\ndefine stream S (symbol string, side string, "
+             "price double, volume long, ts long);\n")
+SP_TWO = ("@app:playback\ndefine stream {a} (k string, v double);\n"
+          "define stream {b} (k string, v double);\n")
+# gate 1: ROADMAP C.11, a partitioned query's rows into a length window
+# outside the partition
+SP_C11_APP = SP_STREAM + """
+partition with (symbol of S)
+begin
+  @info(name = 'q0') from S#window.externalTime(ts, 2000 millisec)
+  select symbol, max(price) as mp, avg(price) as ap group by symbol
+  insert into Out0;
+end;
+@info(name = 'q1') from Out0#window.length(4) select symbol, ap insert into Out1;
+"""
+# gate 2's shapes: name -> (app, the queries split, the output streams,
+# the feed: "S" or "AB"/"LR", two streams)
+SP_SHAPES = {
+    "group_by": (SP_STREAM + """
+partition with (symbol of S)
+begin
+  @info(name = 'q') from S#window.length(8)
+  select symbol, side, avg(price) as ap, sum(volume) as tv group by side
+  insert into Out;
+end;""", ["q"], ["Out"], "S"),
+    "group_by_distinct": (SP_STREAM + """
+partition with (symbol of S)
+begin
+  @info(name = 'q') from S#window.length(8)
+  select symbol, side, avg(price) as ap, sum(volume) as tv,
+         distinctCount(volume) as dv group by side
+  insert into Out;
+end;""", ["q"], ["Out"], "S"),
+    "order_limit_partitioned": (SP_STREAM + """
+partition with (symbol of S)
+begin
+  @info(name = 'q') from S#window.length(4)
+  select symbol, avg(price) as ap, sum(volume) as tv
+  having tv > 2500 order by ap desc, symbol limit 100 offset 1
+  insert into Out;
+end;""", ["q"], ["Out"], "S"),
+    "order_limit_batch": (SP_STREAM + """
+@info(name = 'q') from S#window.lengthBatch(4096)
+select symbol, sum(volume) as tv, max(price) as mp group by symbol
+having tv > 1000 order by tv desc, symbol limit 50
+insert into Out;""", ["q"], ["Out"], "S"),
+    "keyed_windows": (SP_STREAM + """
+partition with (symbol of S)
+begin
+  @info(name = 'qt') from S#window.time(1 sec)
+  select symbol, sum(volume) as tv, count() as c insert all events into OT;
+  @info(name = 'qtb') from S#window.timeBatch(1 sec)
+  select symbol, sum(volume) as tv insert into OTB;
+  @info(name = 'qet') from S#window.externalTime(ts, 800 millisec)
+  select symbol, max(price) as mp, avg(price) as ap insert all events into OET;
+  @info(name = 'qs') from S#window.session(500 millisec)
+  select symbol, sum(volume) as tv, count() as c insert all events into OS;
+end;""", ["qt", "qtb", "qet", "qs"], ["OT", "OTB", "OET", "OS"], "S"),
+    "host_window": (SP_STREAM + """
+partition with (symbol of S)
+begin
+  @info(name = 'q') from S#window.sort(3, price)
+  select symbol, sum(volume) as tv, min(price) as lo insert all events into Out;
+end;""", ["q"], ["Out"], "S"),
+    "inner_stream": (SP_STREAM + """
+partition with (symbol of S)
+begin
+  @info(name = 'q1') from S[volume > 5]
+  select symbol, price * 2.0 as p2, volume insert into #T;
+  @info(name = 'q2') from #T#window.length(3)
+  select symbol, sum(p2) as sp, count() as c insert into Out;
+end;""", ["q1", "q2"], ["Out"], "S"),
+    "pattern_group_by": (SP_TWO.format(a="A", b="B") + """
+partition with (k of A, k of B)
+begin
+  @info(name = 'q') from every e1=A -> e2=B[e2.v > e1.v] within 1 sec
+  select e1.v as v1, sum(e2.v) as total, count() as c group by e1.v
+  insert into Out;
+end;""", ["q"], ["Out"], "AB"),
+    "partitioned_join": (SP_TWO.format(a="L", b="R") + """
+partition with (k of L, k of R)
+begin
+  @info(name = 'q') from L#window.length(4) join R#window.time(1 sec)
+    on L.v > R.v
+  select L.k as k, L.v as lv, R.v as rv
+  insert into Out;
+end;""", ["q"], ["Out"], "LR"),
+}
+
+
+def sp_feed(shape_feed: str, n_batches: int):
+    """Phase 32's feed: ``n_batches`` batches of ``BATCH`` rows over
+    ``NUM_SYMBOLS`` keys, each batch ``SP_SPAN_MS`` of event time (so time
+    windows and timers turn over between and inside batches). Prices and values
+    are multiples of 0.25 (exact sums, in any order). ``"S"``: stream S;
+    two letters: batches alternating on those two streams."""
+    import numpy as np
+
+    rng = np.random.default_rng(SP_SEED)
+    syms = np.array([f"S{i}" for i in range(NUM_SYMBOLS)], dtype=object)
+    sides = np.array([f"side{i}" for i in range(5)], dtype=object)
+    items = []
+    for i in range(n_batches):
+        ts = 1_000 + i * SP_SPAN_MS + (np.arange(BATCH, dtype=np.int64)
+                                       * SP_SPAN_MS) // BATCH
+        if shape_feed == "S":
+            items.append(("S", {
+                "symbol": syms[rng.integers(0, NUM_SYMBOLS, BATCH)],
+                "side": sides[rng.integers(0, 5, BATCH)],
+                "price": np.floor(rng.random(BATCH) * 400.0) / 4.0,
+                "volume": rng.integers(1, 1000, BATCH, dtype=np.int64),
+                "ts": ts}, ts))
+            continue
+        for j, stream in enumerate(shape_feed):
+            items.append((stream, {"k": syms[rng.integers(0, NUM_SYMBOLS, BATCH)],
+                                   "v": np.floor(rng.random(BATCH) * 400.0) / 4.0},
+                          ts + j))
+    return items
+
+
+def sp_run(device, name: str, split: bool):
+    """One shape of phase 32 through the public API on ``device``: split
+    over ``global_mesh()`` (the process group's) or in one process.
+    Returns ({stream: its valid rows as columns}, per-item seconds, facts:
+    each split query's split mode and the state bytes of the shape's
+    queries on this process)."""
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.parallel import distributed
+    from siddhi_tpu_torch.parallel.mesh import shard_query_step
+
+    app, queries, streams, feed = SP_SHAPES[name]
+    m = SiddhiManager(device=device)
+    rt = m.create_siddhi_app_runtime(app)
+    cbs = {s: collector() for s in streams}
+    for s, cb in cbs.items():
+        rt.add_callback(s, cb)
+    splits = []
+    if split:
+        for q in queries:
+            qr = rt.query_runtimes[q]
+            shard_query_step(qr, distributed.global_mesh())
+            splits.append(None if qr._route_layout is None else qr._route_layout.split)
+    items = sp_feed(feed, SP_CUT.get(name, SP_BATCHES))
+    handlers = {s: rt.get_input_handler(s) for s in {it[0] for it in items}}
+    seconds = []
+    for stream, cols, ts in items:
+        t0 = time.perf_counter()
+        handlers[stream].send_columns(cols, timestamps=ts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    facts = {"splits": splits, "events": len(items) * BATCH,
+             "state_bytes": sum(t.numel() * t.element_size()
+                                for q in queries
+                                if rt.query_runtimes[q]._state is not None
+                                for t in _leaves(rt.query_runtimes[q]._state))}
+    m.shutdown()
+    rows = {s: ({k: np.concatenate([b[k] for b in cb.batches]) for k in cb.batches[0]}
+                if cb.batches else {}) for s, cb in cbs.items()}
+    return rows, seconds, facts
+
+
+def sp_eps(seconds, per_item: int, items_per_step: int = 1) -> float:
+    """Events/s after the first step (a step: one item, or a pair of a
+    two-stream feed)."""
+    skip = items_per_step
+    return per_item * (len(seconds) - skip) / sum(seconds[skip:])
+
+
+def sp_compare(got: dict, want: dict, what: str) -> float:
+    """Every stream's rows: ints, strings, timestamps, types and order
+    exactly, floats to rtol 1e-12 (``compare_outputs``)."""
+    worst = 0.0
+    _require(set(got) == set(want), f"{what}: streams {sorted(got)} vs {sorted(want)}")
+    for s in want:
+        _require(set(got[s]) == set(want[s]),
+                 f"{what}: {s} columns {sorted(got[s])} vs {sorted(want[s])}")
+        worst = max(worst, compare_outputs([got[s]], [want[s]], f"{what} {s}"))
+    return worst
+
+
+def split_child(port: str, n_proc: str, rank: str, out: str) -> int:
+    """``python3 chip_smoke.py --split-child PORT P RANK OUT``: one process
+    of a gloo group on the card (every process on ``cuda:0``) running
+    every phase-32 shape split over ``global_mesh()``; per shape its rows,
+    seconds and facts, and the group-by-distinct shape's distinct-scan
+    launches with its last call held against the plain version, pickled
+    to OUT."""
+    import pickle
+
+    import torch
+
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+    from siddhi_tpu_torch.parallel import distributed
+
+    dev = torch.device("cuda", 0)
+    distributed.initialize_cluster(f"127.0.0.1:{port}", int(n_proc), int(rank),
+                                   backend="gloo", device=dev)
+    res = {"info": None, "shapes": {}}
+    try:
+        res["info"] = distributed.process_info()
+        for name in SP_SHAPES:
+            if name == "group_by_distinct":
+                distinct_scan.launches = 0
+                with recording(at=SP_BATCHES - 1) as rec:
+                    rows, secs, facts = sp_run(dev, name, split=True)
+                facts["scan_launches"] = distinct_scan.launches
+                facts["scan_max_abs_err"] = check_graph_scan(
+                    rec, f"SP {name}: the split path's last scan call")
+            else:
+                rows, secs, facts = sp_run(dev, name, split=True)
+            res["shapes"][name] = {"rows": rows, "seconds": secs, **facts}
+    finally:
+        distributed.shutdown_cluster()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def sp_children(P: int):
+    """Gate 2's ``--split-child`` processes, each one's pickled results;
+    every process stopped whatever happens."""
+    import os
+    import pickle
+    import tempfile
+
+    port = _free_port()
+    tmp = tempfile.mkdtemp(prefix="sp_gloo_")
+    outs = [os.path.join(tmp, f"r{r}.pkl") for r in range(P)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--split-child", str(port), str(P), str(r), outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(P)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=SP_TIMEOUT_S)
+            logs.append(out[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for r, (p, path) in enumerate(zip(procs, outs)):
+        _require(p.returncode == 0 and os.path.exists(path),
+                 f"SP gate 2: process {r} exited {p.returncode}:\n{logs[r]}")
+        with open(path, "rb") as f:
+            res.append(pickle.load(f))
+    return res, time.perf_counter() - t0
+
+
+def sp_c11(device, card: str) -> dict:
+    """Gate 1: C.11 on the card. The rows of a partitioned query leave the
+    partition into a length window outside it: Out1's rows == a
+    sequential Python oracle's (each key's externalTime window of 2 s by
+    its ``ts``, the window's average; q1 passes them on), and the engine
+    logs no processing error (the reference drops these batches)."""
+    import numpy as np
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    items = sp_feed("S", SP_BATCHES)
+    live, want = {}, {"__ts__": [], "symbol": [], "ap": []}
+    for _s, cols, ts in items:
+        for sym, p, t in zip(cols["symbol"].tolist(), cols["price"].tolist(),
+                             cols["ts"].tolist()):
+            rows = [r for r in live.get(sym, ()) if r[0] + 2_000 > t]
+            rows.append((t, p))
+            live[sym] = rows
+            want["__ts__"].append(t)
+            want["symbol"].append(sym)
+            want["ap"].append(sum(v for _t, v in rows) / len(rows))
+    with logged_errors("SP gate 1") as errors:
+        m = SiddhiManager(device=device)
+        rt = m.create_siddhi_app_runtime(SP_C11_APP)
+        cb = collector()
+        rt.add_callback("Out1", cb)
+        h = rt.get_input_handler("S")
+        t0 = time.perf_counter()
+        for _s, cols, ts in items:
+            h.send_columns(cols, timestamps=ts)
+        secs = time.perf_counter() - t0
+        strings = list(rt.app_context.string_dictionary._to_str)
+        m.shutdown()
+    got = {k: np.concatenate([b[k] for b in cb.batches]) for k in ("__ts__", "symbol", "ap")}
+    got["symbol"] = np.asarray(strings, dtype=object)[got["symbol"]]
+    _require(len(got["__ts__"]) == len(want["__ts__"]) == SP_BATCHES * BATCH,
+             f"SP gate 1: {len(got['__ts__'])} rows out, the oracle "
+             f"{len(want['__ts__'])}")
+    _require(np.array_equal(got["__ts__"], np.asarray(want["__ts__"], np.int64)),
+             "SP gate 1: timestamps differ from the oracle")
+    _require(got["symbol"].tolist() == want["symbol"], "SP gate 1: symbols differ")
+    ap = np.asarray(want["ap"])
+    close = np.isclose(got["ap"], ap, rtol=FLOAT_RTOL, atol=0.0)
+    _require(close.all(), f"SP gate 1: ap differs beyond rtol {FLOAT_RTOL} at rows "
+             f"{np.nonzero(~close)[0][:5].tolist()}")
+    res = {"rows": int(len(ap)), "logged_errors": len(errors), "seconds": secs,
+           "max_rel_err": float(np.max(np.abs(got["ap"] - ap) / np.maximum(np.abs(ap), 1e-300)))}
+    print(f"[split] gate 1: C.11 on the card: {res['rows']} rows out of the "
+          f"partition through length(4) == the Python oracle (max rel err "
+          f"{res['max_rel_err']:.3g}); {res['logged_errors']} logged errors; "
+          f"{secs:.1f} s [{card}]", flush=True)
+    return res
+
+
+def sp_shim(device, card: str) -> dict:
+    """Gate 3: the legacy host router (``route_batch_to_shards``) and its
+    shim (``shard_keyed_query_step``) step the partitioned flagship x4 on
+    the card; each key's rows == the unrouted step's, batch by batch."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY
+    from siddhi_tpu_torch.ops.expressions import PK_KEY, TS_KEY, TYPE_KEY, VALID_KEY
+    from siddhi_tpu_torch.parallel import (
+        make_mesh, route_batch_to_shards, shard_keyed_query_step)
+
+    n = N_SHARDS
+    rng = np.random.default_rng(SP_SEED)
+    batches = []
+    for i in range(SP_SHIM_BATCHES):
+        sym = rng.integers(0, NUM_SYMBOLS, BATCH, dtype=np.int64)
+        batches.append({
+            TS_KEY: np.arange(i * BATCH, (i + 1) * BATCH, dtype=np.int64),
+            TYPE_KEY: np.zeros(BATCH, np.int8), VALID_KEY: np.ones(BATCH, bool),
+            "symbol": sym.astype(np.int32), "symbol?": np.zeros(BATCH, bool),
+            "price": (rng.random(BATCH) * 100).astype(np.float32),
+            "price?": np.zeros(BATCH, bool),
+            "volume": rng.integers(1, 1000, BATCH, dtype=np.int64),
+            "volume?": np.zeros(BATCH, bool),
+            GK_KEY: sym.astype(np.int32), PK_KEY: sym.astype(np.int32)})
+
+    def runtime(keys):
+        m = SiddhiManager(device=device)
+        rt = m.create_siddhi_app_runtime(APP.format(W=WINDOW))
+        q = rt.query_runtimes["bench"]
+        q.selector_plan.num_keys = keys
+        q._win_keys = keys
+        return m, q
+
+    def per_key(out, shards=None):
+        v = out[VALID_KEY].cpu().numpy()
+        key = out[PK_KEY].cpu().numpy().astype(np.int64)
+        if shards is not None:
+            key = key * shards + np.arange(len(v)) // (len(v) // shards)
+        order = np.argsort(key[v], kind="stable")
+        cols = {c: out[c].cpu().numpy()[v][order]
+                for c in (TS_KEY, TYPE_KEY, "avgPrice", "totalVolume")}
+        cols["key"] = key[v][order]
+        return cols
+
+    m, q = runtime(KEY_SLOTS)
+    state, step = q._init_state(), q.build_step_fn()
+    plain = []
+    for i, b in enumerate(batches):
+        state, out = step(state, {k: torch.from_numpy(v).to(device) for k, v in b.items()},
+                          10_000 + i)
+        plain.append(per_key(out))
+    m.shutdown()
+    m, q = runtime(KEY_SLOTS // n)
+    sstep, sstate = shard_keyed_query_step(q, make_mesh(n, device), rows_per_shard=BATCH)
+    routed, secs = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            rb = route_batch_to_shards(b, n, BATCH)
+        sstate, out = sstep(sstate, rb, 10_000 + i)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        routed.append(per_key(out, n))
+    m.shutdown()
+    worst = compare_outputs(routed, plain, "SP gate 3: host-routed shim x4 vs unrouted")
+    rows = sum(len(b["key"]) for b in plain)
+    _require(rows == SP_SHIM_BATCHES * BATCH, f"SP gate 3: {rows} rows out")
+    res = {"rows": rows, "max_rel_err": worst, "steady_eps": steady_eps(secs, BATCH)}
+    print(f"[split] gate 3: the host router and its shim x{n} on the card: "
+          f"{rows} rows, each key's == the unrouted step's (max float rel err "
+          f"{worst:.3g}); {res['steady_eps']:.1f} events/s with the host "
+          f"routing [{card}]", flush=True)
+    return res
+
+
+def phase_split(device, card: str):
+    """Phase 32: gate 1 (C.11), gate 2 (every shape split across two
+    processes on the card over gloo against one process on the card),
+    gate 3 (the host-router shim). Returns (results, the distinct scan's
+    launches by run)."""
+    import torch
+
+    from siddhi_tpu_torch.ops.distinct import distinct_scan
+
+    t_phase = time.perf_counter()
+    res = {"c11": sp_c11(device, card)}
+    # gate 2: each shape in one process on the card, then split over two
+    single, scans = {}, {}
+    for name in SP_SHAPES:
+        if name == "group_by_distinct":
+            distinct_scan.launches = 0
+        rows, secs, facts = sp_run(device, name, split=False)
+        if name == "group_by_distinct":
+            scans["SP_single"] = distinct_scan.launches
+        single[name] = (rows, secs, facts)
+    _require(not torch.distributed.is_initialized(), "SP: a group is up before gate 2")
+    P = 2
+    children, wall = sp_children(P)
+    res["shapes"] = {}
+    for name, (want, secs1, facts1) in single.items():
+        pair = SP_SHAPES[name][3] != "S"
+        shape = {"single_eps": sp_eps(secs1, BATCH, 2 if pair else 1),
+                 "single_state_bytes": facts1["state_bytes"]}
+        for r, child in enumerate(children):
+            got = child["shapes"][name]
+            worst = sp_compare(got["rows"], want, f"SP gate 2 {name}: process {r} vs one")
+            _require(all(s is not None for s in got["splits"][-1:]),
+                     f"SP gate 2 {name}: process {r} split {got['splits']}")
+            shape[f"rank{r}"] = {"eps": sp_eps(got["seconds"], BATCH, 2 if pair else 1),
+                                 "state_bytes": got["state_bytes"],
+                                 "splits": got["splits"], "max_rel_err": worst}
+            if name == "group_by_distinct":
+                _require(got["scan_launches"] >= SP_BATCHES,
+                         f"SP gate 2: process {r} launched the distinct scan "
+                         f"{got['scan_launches']} times on the split path")
+                scans[f"SP_rank{r}"] = got["scan_launches"]
+                shape[f"rank{r}"]["scan_launches"] = got["scan_launches"]
+                shape[f"rank{r}"]["scan_max_abs_err"] = got["scan_max_abs_err"]
+        shape["rows"] = {s: len(c.get("__ts__", ())) for s, c in want.items()}
+        res["shapes"][name] = shape
+        print(f"[split] gate 2 {name}: {shape['rows']} rows; both processes' "
+              f"rows == one process's; events/s a process "
+              f"{shape['rank0']['eps']:.1f} / {shape['rank1']['eps']:.1f} (one "
+              f"process {shape['single_eps']:.1f}); state bytes a process "
+              f"{shape['rank0']['state_bytes']} / {shape['rank1']['state_bytes']} "
+              f"(one process {shape['single_state_bytes']}) [{card}]", flush=True)
+    res["two_processes_wall_s"] = wall
+    res["shim"] = sp_shim(device, card)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[split] phase 32 in {res['phase_s']:.1f} s [{card}]", flush=True)
+    return res, scans
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -9608,7 +10088,12 @@ def main() -> int:
     distributed, ds_exchange, ds_scan = phase_distributed(device, feed, routed, fused, card)
     dist["launches"]["DS"] = ds_scan
 
-    # 32. result lines
+    # 32. every shape of the key-sharded step across processes, C.11 and
+    # the legacy host router
+    split, sp_scans = phase_split(device, card)
+    dist["launches"].update(sp_scans)
+
+    # 33. result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
@@ -9651,7 +10136,9 @@ def main() -> int:
                            pt["max_abs_err"], sv_err, fo_err,
                            overload["tenants"]["scan_max_abs_err"],
                            overload["pipeline_quota"]["scan_max_abs_err"],
-                           distributed["routed_distinct"]["scan_max_abs_err"]),
+                           distributed["routed_distinct"]["scan_max_abs_err"],
+                           *(split["shapes"]["group_by_distinct"][f"rank{r}"]
+                             ["scan_max_abs_err"] for r in range(2))),
         # FO's and SV's launches are graph replays (one a batch) and one
         # eager warm-up launch a capture
         "launches_under_replay": {"FO": fanout["replays"],
@@ -9709,6 +10196,7 @@ def main() -> int:
     print(json.dumps({"lint_ingest": lint_ingest}, default=str))
     print(json.dumps({"distributed": {**distributed, "k8_launches": ds_exchange}},
                      default=str))
+    print(json.dumps({"split": split}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -9772,6 +10260,9 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--routed-child"] and len(sys.argv) == 6:
             sys.path.insert(0, str(Path(__file__).resolve().parent))
             sys.exit(routed_child(*sys.argv[2:6]))
+        if sys.argv[1:2] == ["--split-child"] and len(sys.argv) == 6:
+            sys.path.insert(0, str(Path(__file__).resolve().parent))
+            sys.exit(split_child(*sys.argv[2:6]))
         if sys.argv[1:2] == ["--cells"] and len(sys.argv) == 3:
             import torch
 

@@ -32,6 +32,9 @@ JIT_STEP_BUILDERS: Dict[str, Tuple[str, str]] = {
                       "device_route_query_step"),
     # the key-sharded step with a replicated batch across processes
     "sharded_step": ("siddhi_tpu_torch.parallel.mesh", "shard_query_step"),
+    # the deprecated host-routed shim: each shard's step over its slice
+    "shard_map_routed": ("siddhi_tpu_torch.parallel.mesh",
+                         "shard_keyed_query_step"),
     # the join engine's side step (insert and probe)
     "device_join": ("siddhi_tpu_torch.core.join.engine", "DeviceJoinEngine"),
     # serving tier: the sharded aggregation's on-demand selectors
@@ -40,8 +43,6 @@ JIT_STEP_BUILDERS: Dict[str, Tuple[str, str]] = {
 }
 
 # audit name -> the family tag(s) its code passes to instrument_jit.
-# The reference's ``shard_map_routed`` has no site in the port and is
-# listed in ``PORT_NO_SITE`` instead.
 # ``sharded_agg`` is absent, as in the reference: its selectors fold on
 # the host.
 PROGRAM_CACHE_FAMILIES: Dict[str, Tuple[str, ...]] = {
@@ -50,6 +51,7 @@ PROGRAM_CACHE_FAMILIES: Dict[str, Tuple[str, ...]] = {
     # a routed join's side steps tag device_routed.left/right
     "device_routed": ("device_routed",),
     "sharded_step": ("gspmd_replicated_batch",),
+    "shard_map_routed": ("shard_map_routed",),
     # NFA steps ride QueryRuntime's module family (pattern/sequence queries)
     "nfa_step": ("nfa_step", "nfa_timer"),
     # join sides tag per side at the call site: device_join.left/right
@@ -69,15 +71,10 @@ PROGRAM_CACHE_FAMILY_SITES: Dict[str, str] = {
     "fused_fanout": "siddhi_tpu_torch.core.query.fused_fanout",
     "device_routed": "siddhi_tpu_torch.parallel.mesh",
     "gspmd_replicated_batch": "siddhi_tpu_torch.parallel.mesh",
+    "shard_map_routed": "siddhi_tpu_torch.parallel.mesh",
     "nfa_step": "siddhi_tpu_torch.core.query.nfa_runtime",
     "nfa_timer": "siddhi_tpu_torch.core.query.nfa_runtime",
     "device_join": "siddhi_tpu_torch.core.query.join_runtime",
-}
-
-# families of the reference with no call site in the port, and why
-PORT_NO_SITE: Dict[str, str] = {
-    "shard_map_routed": ("the host-routed shard_map step has no counterpart; "
-                         "routing runs on the card (device_routed)"),
 }
 
 # families that are instrumented (compile events, costs) but hold no
@@ -94,6 +91,9 @@ PORT_EAGER_FAMILIES: Dict[str, str] = {
                                "every process's emitted rows on the host "
                                "(ops/exchange.all_gather_rows); on one "
                                "process no sharded step exists"),
+    "shard_map_routed": ("the deprecated host-routed shim steps each "
+                         "shard in turn over host-routed columns "
+                         "(route_batch_to_shards); it is never captured"),
     "device_join": ("a side step reads its match count back "
                     "(join_runtime.materialize_joined; the engine's "
                     "occupancy mirror in DeviceJoinEngine.prepare_batch)"),

@@ -58,6 +58,8 @@ from siddhi_tpu_torch.query_api.expressions import (
 CURRENT, EXPIRED, TIMER, RESET = 0, 1, 2, 3
 GK_KEY = "__gk__"
 STR_RANK = "__strrank__"   # [dict capacity] lexicographic rank per string id
+# prefix of an order-by input column carried past the step (order_columns)
+ORDER_COL = "__order__"
 
 
 def _rewrite_aggregators(expr: Expression, specs: List[agg_ops.AggSpec],
@@ -260,7 +262,26 @@ class SelectorPlan:
             valid = torch.zeros_like(valid)
             valid[order] = is_last_sorted
         out[VALID_KEY] = valid
+        return state, self.apply_order_limit(out, cols)
 
+    @property
+    def ordered(self) -> bool:
+        """order by, limit or offset: a batch-global ordering."""
+        return bool(self.order_by) or self.limit is not None or self.offset is not None
+
+    def order_columns(self, out: dict, cols: dict) -> dict:
+        """The order-by input columns the selection does not project,
+        under hidden names, for an ordering applied after the step (the
+        key-sharded step across processes orders the merged rows)."""
+        return {ORDER_COL + col: cols[col] for col, _d, _s in self.order_by
+                if col not in out}
+
+    def apply_order_limit(self, out: dict, cols: dict) -> dict:
+        """order by, then offset/limit (QuerySelector.java:192-198) over
+        the selected rows ``out``; ``cols`` holds the order-by input
+        columns the selection does not project (index-aligned with
+        ``out``) and the string rank table."""
+        valid = out[VALID_KEY]
         if self.order_by:
             overflow = out.pop("__overflow__", None)   # 0-d: not row-shaped
             # the last key of _lexsort is the primary one
@@ -294,7 +315,7 @@ class SelectorPlan:
             if self.limit is not None:
                 keep = keep & (rank < lo + self.limit)
             out[VALID_KEY] = valid & keep
-        return state, out
+        return out
 
 
 def _lexsort(keys):

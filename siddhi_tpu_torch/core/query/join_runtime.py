@@ -718,12 +718,14 @@ class JoinQueryRuntime(QueryRuntime):
 
     # ------------------------------------------------------------ the step
 
-    def build_side_step_fn(self, side_key: str):
+    def build_side_step_fn(self, side_key: str, key_split=None):
         """The ``(state, probe_cols, probe_valid, cols, now) -> (state,
         out)`` step of one side: its window insert, then the probe of the
         other side (broadcast, per partition key, or through the indexed
         table probe), then the selector. The engine's step when one is
-        attached."""
+        attached. ``key_split`` (the key-sharded step across processes,
+        ``parallel/mesh.shard_query_step``) has a keyed window order its
+        rows over the global key space."""
         if self.engine is not None:
             return self.engine.build_side_step(side_key)
         side = self.sides[side_key]
@@ -751,7 +753,7 @@ class JoinQueryRuntime(QueryRuntime):
         def step(state, probe_cols, probe_valid, cols, current_time,
                  agg_width=None):
             # agg_width: an aggregation side's indexed-probe window
-            ctx = {"xp": xp, "current_time": current_time}
+            ctx = {"xp": xp, "current_time": current_time, "key_split": key_split}
             cols = dict(cols)
             strrank = cols.pop(STR_RANK, None)
             wout, notify, overflow = window_out(

@@ -377,13 +377,17 @@ class QueryRuntime(Receiver):
             self._graph = None
         self._sel_step = None
 
-    def build_step_fn(self, split=None):
+    def build_step_fn(self, split=None, key_split=None, unordered=False):
         """The (state, cols, now) -> (state, out) step of this query. The
         state tensors are updated in place and returned; ``cols`` are
-        tensors on the state's device. ``split(cols)``, when given, takes
-        the rows the selector's state holds right before the selector (the
-        key-sharded step across processes behind a global window:
-        ``parallel/mesh.shard_query_step``)."""
+        tensors on the state's device. For the key-sharded step across
+        processes (``parallel/mesh.shard_query_step``): ``split(cols)``,
+        when given, takes the rows the selector's state holds right before
+        the selector (behind a global window); ``key_split`` (an
+        ``ops/keyed_windows.KeySplit``) has a keyed window order its rows
+        over the global key space; ``unordered`` leaves the selector's
+        order by / limit / offset to the merged rows (the order-by input
+        columns ride along: ``SelectorPlan.order_columns``)."""
         # a host window already ran the filters, transforms and post-window
         # stages on the host; host_transforms ran the transforms there
         host_pre = self.host_window is not None
@@ -395,6 +399,9 @@ class QueryRuntime(Receiver):
         # and a step another app shares (core/util/program_cache.py) must
         # not follow this runtime's later growth
         sel = copy.copy(self.selector_plan)
+        plan = self.selector_plan
+        if unordered:
+            sel.order_by, sel.limit, sel.offset = [], None, None
         win = self.window_stage
         if win is not None and hasattr(win, "_num_keys_ref"):
             win = copy.copy(win)
@@ -404,7 +411,7 @@ class QueryRuntime(Receiver):
 
         def step(state, cols, current_time):
             ctx = {"xp": xp, "current_time": current_time,
-                   "horizon": self._timer_horizon}
+                   "horizon": self._timer_horizon, "key_split": key_split}
             cols = dict(cols)
             strrank = cols.pop(STR_RANK, None)   # window stages rebuild cols
             for t in transforms:
@@ -429,6 +436,8 @@ class QueryRuntime(Receiver):
                     else:
                         cols[VALID_KEY] = cols[VALID_KEY] & (
                             obj(cols, ctx) | ptimer)
+                if key_split is not None and win.batch_mode:
+                    cols = key_split.with_foreign_resets(cols)
             if split is not None:
                 cols = split(dict(cols))
             lanes = (self._instrument_values(islots, state, cols, win, sel.num_keys)
@@ -436,6 +445,8 @@ class QueryRuntime(Receiver):
             if strrank is not None:
                 cols[STR_RANK] = strrank
             _st, out = sel.apply(state["sel"], cols, ctx)
+            if unordered:
+                out.update(plan.order_columns(out, cols))
             if chunk is not None:
                 # a swept TIMER step's chain step of each row (the selector
                 # is row-aligned wherever a sweep runs)
@@ -896,7 +907,15 @@ class QueryRuntime(Receiver):
                 # routed dispatch: pad/precheck host-side (splitting
                 # oversized batches instead of overflowing) and run each
                 # piece through the routed step in order
-                from siddhi_tpu_torch.parallel.mesh import prepare_routed_batches
+                from siddhi_tpu_torch.parallel.mesh import (
+                    HOST_NOTIFY_KEY, prepare_routed_batches)
+
+                if self._route_layout.split and self.host_window is not None:
+                    # key-sharded across processes: this process's host
+                    # window instances' wake time merges with every other
+                    # process's in the step's meta
+                    cols[HOST_NOTIFY_KEY] = np.asarray(
+                        -1 if notify is None else notify, np.int64)
 
                 for piece in prepare_routed_batches(self, cols):
                     self._route_layout.dispatches += 1
@@ -1116,8 +1135,18 @@ class QueryRuntime(Receiver):
             self._sel_step = self.app_context.telemetry.instrument_jit(
                 lambda st, c, cx: self.selector_plan.apply(st, c, cx),
                 f"query.{self.name}.selector", family="selector")
-        self._state["sel"], sel_out = self._sel_step(
-            self._state["sel"], self._to_device(cols), ctx)
+        rl = self._route_layout
+        if rl is not None and rl.sel_whole:
+            # key-sharded across processes: the selector's state is whole
+            # on every process, held as its one shard of the layout
+            from siddhi_tpu_torch.parallel.mesh import step_on_own_shard
+
+            sel_out = step_on_own_shard(
+                rl, lambda st, c: self._sel_step(st["sel"], c, ctx), self._state,
+                self._to_device(cols))
+        else:
+            self._state["sel"], sel_out = self._sel_step(
+                self._state["sel"], self._to_device(cols), ctx)
         out = LazyColumns(pack_meta(sel_out))
         meta = out.pop("__meta__")
         if int(meta[0]) != 0:
@@ -1176,6 +1205,13 @@ class QueryRuntime(Receiver):
             # EXPIRED -> CURRENT on re-publish (InsertIntoStreamCallback)
             t = cols[TYPE_KEY]
             cols[TYPE_KEY] = np.where(t == EXPIRED, CURRENT, t).astype(np.int8)
+        if self.partition_ctx is not None and not self.attach_pk:
+            # rows leaving the partition for a stream outside it: the
+            # partition and group key ids are this partition's own, and a
+            # window downstream would buffer them as data (an inner
+            # '#stream' or a partition-mate keeps them: attach_pk)
+            for k in (PK_KEY, GK_KEY):
+                dict.pop(cols, k, None)
         self.output_junction.send_batch(HostBatch(cols, size=out._size))
         if events:
             in_events = [e for e in events if not e.is_expired] or None

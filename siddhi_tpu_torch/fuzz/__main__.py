@@ -25,10 +25,12 @@ counts reported). The JSON report also names the device, the card
 wrappers' launch counts over the run, and lists the port's declared gaps
 (``NOT_PORTED`` census rows, ``fuzz/runner.py``).
 
-Exit code 0 iff every diffed pair matched AND the census audit is
-clean. In planted mode (--plant or SIDDHI_TPU_FUZZ_PLANT=1) the
-contract INVERTS: exit 0 iff the deliberately skewed strategy output
-WAS caught and shrunk to a <= 3-clause repro.
+Exit code 0 iff every diffed pair matched, the census audit is clean
+AND no run's junctions logged a processing error (a dropped batch,
+``logged_errors`` in the report). In planted mode (--plant or
+SIDDHI_TPU_FUZZ_PLANT=1) the contract INVERTS: exit 0 iff the
+deliberately skewed strategy output WAS caught and shrunk to a <= 3-clause
+repro.
 """
 
 import argparse
@@ -141,6 +143,7 @@ def main(argv=None) -> int:
         "budget_exhausted": False,
         "divergences": [],
         "census_findings": [],
+        "logged_errors": [],
         "declared_gaps": [],
         "eligibility_census": {},
         "fixtures": [],
@@ -205,6 +208,9 @@ def main(argv=None) -> int:
                 report["census_findings"].append(f)
         for g in res.declared_gaps:
             report["declared_gaps"].append(f"case {i}: {g}")
+        for line in res.logged_errors:
+            report["logged_errors"].append(f"case {i}: {line}")
+            print(f"[fuzz] case {i} LOGGED ERRORS under {line}", flush=True)
         for combo, diff in res.divergences:
             print(f"[fuzz] case {i} DIVERGED under {combo.label()}: "
                   f"{diff.summary()}", flush=True)
@@ -255,6 +261,7 @@ def main(argv=None) -> int:
           f"{report['strategy_pairs_diffed']} pairs diffed, "
           f"{len(report['divergences'])} divergences, "
           f"{len(report['census_findings'])} census findings, "
+          f"{len(report['logged_errors'])} runs with logged errors, "
           f"{len(report['declared_gaps'])} declared gaps "
           f"in {report['elapsed_s']}s on {report['device']}", flush=True)
     for f in report["census_findings"][:10]:
@@ -271,7 +278,7 @@ def main(argv=None) -> int:
               flush=True)
         return 1
     clean = not report["divergences"] and not report["census_findings"] \
-        and not report.get("case_errors")
+        and not report["logged_errors"] and not report.get("case_errors")
     print(f"[fuzz] {'PASS' if clean else 'FAIL'} cross-strategy "
           f"equivalence", flush=True)
     return 0 if clean else 1

@@ -36,6 +36,13 @@ reference takes that strategy, the port has not ported it yet; the
 reason names its ROADMAP item): it is reported in
 ``CaseResult.declared_gaps``, not as a finding.
 
+Logged errors: a batch a query fails on is logged and dropped by its
+junction (``Junction.handle_error``'s LOG branch). Every strategy drops
+it alike, so the differ sees no divergence; each run therefore counts
+the processing errors its junctions log (a handler on the junction's
+logger, ``run_combo(logged=...)``), and a non-zero count is a finding of
+the case (``CaseResult.logged_errors``).
+
 Planted-divergence self-test: with ``SIDDHI_TPU_FUZZ_PLANT=1`` (or
 ``plant=True``) the runner deliberately skews the recorded output of
 every pipelined (depth > 1) variant by duplicating its last emitted
@@ -46,6 +53,7 @@ catches a real ordering/content skew and the shrinker converges.
 from __future__ import annotations
 
 import itertools
+import logging
 import random
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
@@ -156,6 +164,9 @@ class CaseResult:
     # NOT_PORTED rows where the generator expected ELIGIBLE (see the
     # module doc): reported, not findings
     declared_gaps: List[str] = field(default_factory=list)
+    # runs whose junctions logged processing errors (dropped batches):
+    # findings, one line a run
+    logged_errors: List[str] = field(default_factory=list)
     census: Dict[str, List[Tuple[str, str, str]]] = field(
         default_factory=dict)
     # the first device-join-mode run's census (the join surfaces read
@@ -277,10 +288,26 @@ def _chunk_columns(case: CaseSpec, stream: str, rows):
     return data, ts
 
 
+class _LoggedErrors(logging.Handler):
+    """Collects the processing errors a junction logs while attached
+    (``Junction.handle_error``: the batch is logged and dropped)."""
+
+    def __init__(self, sink: List[str]):
+        super().__init__(logging.ERROR)
+        self.sink = sink
+
+    def emit(self, record):
+        if str(record.msg).startswith("error processing events"):
+            self.sink.append(record.getMessage().split("\n", 1)[0])
+
+
 def run_combo(case: CaseSpec, combo: StrategyCombo, plant: bool = False,
-              device=None) -> Tuple[Dict[str, List[Tuple]], Dict, List[str]]:
+              device=None, logged: Optional[List[str]] = None
+              ) -> Tuple[Dict[str, List[Tuple]], Dict, List[str]]:
     """Run the case's feed under one strategy combo on ``device`` (None:
-    the card). Returns ``(outputs, census, install_errors)``."""
+    the card). Returns ``(outputs, census, install_errors)``; ``logged``,
+    when given, receives one line for each processing error a junction
+    logged in the run."""
     from siddhi_tpu_torch.core.manager import SiddhiManager
     from siddhi_tpu_torch.core.stream.output.stream_callback import StreamCallback
     from siddhi_tpu_torch.core.util.config import InMemoryConfigManager
@@ -295,6 +322,9 @@ def run_combo(case: CaseSpec, combo: StrategyCombo, plant: bool = False,
 
     m = SiddhiManager(device)
     install_errors: List[str] = []
+    junction_log = logging.getLogger("siddhi_tpu_torch.core.stream.junction")
+    counter = _LoggedErrors(logged if logged is not None else [])
+    junction_log.addHandler(counter)
     try:
         m.set_config_manager(InMemoryConfigManager(combo.config()))
         rt = m.create_siddhi_app_runtime(case.app_text())
@@ -324,7 +354,10 @@ def run_combo(case: CaseSpec, combo: StrategyCombo, plant: bool = False,
             handlers[stream].send_columns(data, timestamps=ts)
         outputs = {s: list(c.rows) for s, c in sinks.items()}
     finally:
-        m.shutdown()
+        try:
+            m.shutdown()
+        finally:
+            junction_log.removeHandler(counter)
     if plant and combo.depth > 1:
         # the planted skew: duplicate the last emitted row of the first
         # non-empty stream — injected at the COLLECTION layer so the
@@ -477,8 +510,17 @@ def run_case(case: CaseSpec, max_combos: Optional[int] = None,
     plan = enumerate_matrix(case, max_combos=max_combos,
                             max_shards=max_shards, autopilot=autopilot)
     result = CaseResult(plan=plan)
+
+    def note_logged(combo, lines):
+        if lines:
+            result.logged_errors.append(
+                f"{combo.label()}: {len(lines)} processing error(s) logged, "
+                f"the first: {lines[0]}")
+
+    logged: List[str] = []
     base_out, base_census, base_errs = run_combo(
-        case, plan.combos[0], plant=plant, device=device)
+        case, plan.combos[0], plant=plant, device=device, logged=logged)
+    note_logged(plan.combos[0], logged)
     result.baseline = base_out
     result.combos_run.append(plan.combos[0].label())
     result.census = base_census
@@ -487,9 +529,10 @@ def run_case(case: CaseSpec, max_combos: Optional[int] = None,
     for combo in plan.combos[1:]:
         if deadline is not None and _time.monotonic() > deadline:
             break
+        logged = []
         try:
             out, census, errs = run_combo(case, combo, plant=plant,
-                                          device=device)
+                                          device=device, logged=logged)
         except Exception as e:
             result.combos_run.append(combo.label())
             result.pairs_diffed += 1
@@ -501,6 +544,7 @@ def run_case(case: CaseSpec, max_combos: Optional[int] = None,
             continue
         result.combos_run.append(combo.label())
         result.pairs_diffed += 1
+        note_logged(combo, logged)
         if combo.join_engine == "device" and result.census_device is None:
             result.census_device = census
         gaps: List[str] = []

@@ -22,7 +22,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from siddhi_tpu_torch.ops.expressions import TS_KEY, TYPE_KEY, VALID_KEY, CompileError
+from siddhi_tpu_torch.ops.expressions import (
+    OKEY_KEY, TS_KEY, TYPE_KEY, VALID_KEY, CompileError)
 
 CURRENT, EXPIRED, TIMER, RESET = 0, 1, 2, 3
 
@@ -773,7 +774,17 @@ class PartitionedHostWindow(HostWindowStage):
     per key for windows inside ``partition with`` blocks. Rows are split
     by the ``__pk__`` column in first-encounter order and each key's
     sub-batch flows through that key's own stage instance; TIMER rows
-    fan out to every live instance."""
+    fan out to every live instance.
+
+    ``key_split = (n, first)`` (the key-sharded step across processes,
+    ``parallel/mesh.shard_query_step``): this process keeps the instances
+    of its own keys (``pk % n == first``) only, and each emitted row
+    carries its order among every process's rows (``OKEY_KEY``: the key's
+    place in the unsharded instance order, then the row's place in its
+    instance's output), so the merged rows are the unsharded rows."""
+
+    key_split = None
+    _OKEY_SPAN = 1 << 32      # rows one instance emits in one call, at most
 
     def __init__(self, factory):
         probe = factory()
@@ -782,6 +793,10 @@ class PartitionedHostWindow(HostWindowStage):
         self._factory = factory
         self.needs_scheduler = probe.needs_scheduler
         self._stages: Dict[int, HostWindowStage] = {}
+        # under key_split: every key's place in the instance order the
+        # unsharded window would hold (the order of the keys' first rows)
+        self._seen: Dict[int, int] = {}
+        self._seq = 0
 
     def process(self, batch, now: int):
         from siddhi_tpu_torch.core.event import HostBatch, _pad_len
@@ -796,11 +811,22 @@ class PartitionedHostWindow(HostWindowStage):
         # first-encounter order of the batch's keys
         uniq, first = np.unique(cur_keys, return_index=True)
         targets = [int(k) for k in uniq[np.argsort(first, kind="stable")]]
+        split = self.key_split
+        if split is not None:
+            # every process places every key; it runs its own keys only
+            for k in targets:
+                if k not in self._seen:
+                    self._seen[k] = self._seq
+                    self._seq += 1
         if is_timer.any():
             seen = set(targets)
-            targets += [k for k in self._stages if k not in seen]
+            rest = (self._stages if split is None
+                    else sorted(self._seen, key=self._seen.__getitem__))
+            targets += [k for k in rest if k not in seen]
         out_cols_list, notify = [], None
-        for k in targets:
+        for place, k in enumerate(targets):
+            if split is not None and k % split[0] != split[1]:
+                continue
             stage = self._stages.get(k)
             if stage is None:
                 stage = self._stages[k] = self._factory()
@@ -810,12 +836,19 @@ class PartitionedHostWindow(HostWindowStage):
             b2, n2 = stage.process(sub, now)
             v2 = b2.cols[VALID_KEY]
             if v2.any():
-                out_cols_list.append({c: np.asarray(v)[v2]
-                                      for c, v in b2.cols.items()})
+                rows = {c: np.asarray(v)[v2] for c, v in b2.cols.items()}
+                if split is not None:
+                    rows[OKEY_KEY] = (place * self._OKEY_SPAN
+                                      + np.arange(int(v2.sum()), dtype=np.int64))
+                out_cols_list.append(rows)
             if n2 is not None:
                 notify = n2 if notify is None else min(notify, n2)
         if not out_cols_list:
-            return _emit([], self.col_specs), notify
+            empty = _emit([], self.col_specs)
+            if split is not None:
+                empty.cols[OKEY_KEY] = np.zeros(
+                    empty.cols[VALID_KEY].shape[0], np.int64)
+            return empty, notify
         merged = {c: np.concatenate([o[c] for o in out_cols_list])
                   for c in out_cols_list[0]}
         n = merged[VALID_KEY].shape[0]
@@ -830,6 +863,7 @@ class PartitionedHostWindow(HostWindowStage):
         """@purge: a recycled partition id starts with a fresh instance."""
         for k in ids:
             self._stages.pop(int(k), None)
+            self._seen.pop(int(k), None)
 
     def _held_rows(self):
         return [r for s in self._stages.values() for r in s._held_rows()]

@@ -32,6 +32,11 @@ stable sort by an order key per emitted row, invalid rows last):
   [EXPIRED(prev), RESET, CURRENT(batch)], as the reference computes them.
 
 The partition key id column is ``PK_KEY`` (host-computed dense ids).
+Under the key-sharded step across processes (``parallel/mesh.py``
+``shard_query_step``) a stage holds only its process's keys, and
+``ctx["key_split"]`` (a :class:`KeySplit`) has it take its order keys and
+its compaction ranks over the global key space, so every process's
+emitted rows merge into the unsharded order (``split_aware`` stages).
 Every stage is ``keyed``: its ``contents`` is a per-key ``[K, W]`` probe
 surface, so it can be a join side inside a partition.
 """
@@ -64,6 +69,100 @@ from siddhi_tpu_torch.ops.windows import (
     _row_order_base,
     _zero_rows,
 )
+
+
+class KeySplit:
+    """How a keyed stage sees the key-sharded step across processes: it
+    holds the keys ``g = l * n + first`` (local id ``l``) of the ``n``
+    processes' global key space. ``gather(t)`` is every process's copy of
+    ``t`` in process order, ``gather_rows(t)`` the same for a ``t`` whose
+    row count differs between processes (each one collective: every
+    process calls it at the same point of the same step)."""
+
+    def __init__(self, n: int, first: int, gather, gather_rows):
+        self.n = n
+        self.first = first
+        self.gather = gather
+        self.gather_rows = gather_rows
+
+    def keys(self, local: torch.Tensor) -> torch.Tensor:
+        """Global ids of local key ids."""
+        return local * self.n + self.first
+
+    def capacity(self, K: int) -> int:
+        """The global key capacity of ``K`` local keys a process."""
+        return K * self.n
+
+    def due_ranks(self, due: torch.Tensor):
+        """(each local key's rank among every process's ``due`` keys in
+        global key order, the global count of due keys)."""
+        d = torch.stack(self.gather(due.to(torch.int64)))      # [n, K]
+        per_l = d.sum(0)
+        rank = (torch.cumsum(per_l, 0) - per_l) + d[:self.first].sum(0)
+        return rank, d.sum()
+
+    def with_foreign_resets(self, cols: Dict) -> Dict:
+        """A batch window's emission with every other process's RESET rows
+        in their global places (by ``OKEY_KEY``): a RESET restarts every
+        group's aggregates (``ops/aggregators.py``), its own key's or not,
+        so each process's selector sees them all, as the unsharded one
+        does. The RESET rows are never emitted."""
+        okey, valid = cols[OKEY_KEY], cols[VALID_KEY]
+        B = valid.shape[0]
+        mine = okey[valid & (cols[TYPE_KEY] == RESET)]
+        parts = self.gather_rows(mine)
+        foreign = torch.cat([p for q, p in enumerate(parts) if q != self.first])
+        m = foreign.shape[0]
+        if m == 0:
+            return cols
+        out = dict(cols)
+        rows = [k for k, v in cols.items()
+                if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == B]
+        for k in rows:
+            v = cols[k]
+            pad = torch.zeros((m,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+            if k == TYPE_KEY:
+                pad.fill_(RESET)
+            elif k == VALID_KEY:
+                pad.fill_(True)
+            elif k == OKEY_KEY:
+                pad = foreign.to(v.dtype)
+            out[k] = torch.cat([v, pad])
+        order = torch.argsort(torch.where(out[VALID_KEY], out[OKEY_KEY],
+                                          torch.full_like(out[OKEY_KEY], _BIG)),
+                              stable=True)
+        for k in rows:
+            out[k] = out[k][order]
+        return out
+
+
+def _global_keys(ctx, local: torch.Tensor) -> torch.Tensor:
+    """The global ids of local key ids (themselves unless split)."""
+    ks = ctx.get("key_split")
+    return local if ks is None else ks.keys(local)
+
+
+def _global_capacity(ctx, K: int) -> int:
+    ks = ctx.get("key_split")
+    return K if ks is None else ks.capacity(K)
+
+
+def _due_ranks(ctx, due: torch.Tensor):
+    """(rank of each due key among the due keys in global key order, the
+    count of due keys), over every process under a split."""
+    ks = ctx.get("key_split")
+    if ks is None:
+        return torch.cumsum(due.to(torch.int64), 0) - 1, due.sum()
+    return ks.due_ranks(due)
+
+
+def _with_okey(out, okey, cols):
+    """Hand the emission-order keys on where shards merge by them: the
+    routed step and the key-sharded step across processes attach
+    ``RIDX_KEY``."""
+    if RIDX_KEY in cols:
+        out[OKEY_KEY] = okey
+    return out
 
 
 def _per_key_layout(pk, valid_cur, num_keys: int):
@@ -123,6 +222,8 @@ class KeyedLengthWindowStage(WindowStage):
     """Sliding length window per partition key."""
 
     keyed = True
+    # its order keys are batch positions: global wherever rows came from
+    split_aware = True
     # no host read, the clock taken as a tensor: a partitioned step (the
     # routed flagship's included) may run inside a CUDA graph
     capturable = True
@@ -194,9 +295,7 @@ class KeyedLengthWindowStage(WindowStage):
             ({k: cols[k] for k in keys}, cols[TYPE_KEY], valid_cur, 2 * idx + 1),
         ]
         out, okey = _order_emit(parts)
-        if RIDX_KEY in cols:
-            out[OKEY_KEY] = okey   # route wrapper merges shards by this
-        return state, out
+        return state, _with_okey(out, okey, cols)
 
     def contents(self, state):
         """Per-key probe surface: ([K, W] cols, [K, W] valid)."""
@@ -230,6 +329,7 @@ class KeyedTimeWindowStage(WindowStage):
     before the displacing insert (TimeLengthWindowProcessor per key)."""
 
     keyed = True
+    split_aware = True
 
     def __init__(self, time_ms: int, col_specs: Dict[str, np.dtype], capacity: int,
                  external: bool = False, max_len: int = None,
@@ -265,7 +365,6 @@ class KeyedTimeWindowStage(WindowStage):
         total0 = state["total"].clone()
         exp0 = state["expired_upto"].clone()
         K = total0.shape[0]
-        KWc = K * Wc
         keys = _data_keys(cols)
         valid = cols[VALID_KEY]
         B = valid.shape[0]
@@ -286,16 +385,28 @@ class KeyedTimeWindowStage(WindowStage):
 
         order, _inv, occ, counts, start_pos = _per_key_layout(pk, valid_cur, K)
 
+        # order keys over the global key space: ring position g*Wc + j of
+        # global key g (a split's; the local space otherwise)
+        KWc_o = _global_capacity(ctx, K) * Wc
+
+        def gpos(pos):
+            return _global_keys(ctx, pos // Wc) * Wc + pos % Wc
+
         if self.external:
             return self._apply_external(state, cols, keys, valid_cur, pk, order,
-                                        occ, counts, occupied, fifo_flat, B_idx, now)
+                                        occ, counts, occupied, fifo_flat, B_idx, now,
+                                        ctx, KWc_o, gpos)
 
         ring_ts = buf[TS_KEY][fifo_flat]
         horizon = ctx.get("horizon")
         if horizon is not None:
             # a swept chain expires a FIFO prefix of every key at each
-            # tick: it needs every key's live rows in time order
+            # tick: it needs every key's live rows in time order (every
+            # process's keys, under a split)
             in_order = ((ring_ts[:, 1:] >= ring_ts[:, :-1]) | ~occupied[:, 1:]).all()
+            ks = ctx.get("key_split")
+            if ks is not None:
+                in_order = torch.stack(ks.gather(in_order.reshape(1))).all()
             if not bool(in_order):
                 horizon = None
         cut = now if horizon is None else horizon
@@ -308,7 +419,7 @@ class KeyedTimeWindowStage(WindowStage):
         nxt = torch.where(has_next, order[torch.clamp(start_pos + occ + 1, max=B - 1)],
                           torch.full_like(occ, B))
         batch_exp = valid_cur & (ts + t <= now) & (nxt < B)
-        STRIDE_A = KWc + B + 2
+        STRIDE_A = KWc_o + B + 2
 
         if self.max_len is not None:
             # timeLength: drain oldest rows so each key's live count stays
@@ -332,21 +443,21 @@ class KeyedTimeWindowStage(WindowStage):
         ring_rows = {c: v[rslot] for c, v in buf.items()}
         if horizon is None:
             ring_rows[TS_KEY] = _full(n1, now, torch.int64, dev)
-            ring_okey = rpos
+            ring_okey = gpos(rpos)
         else:
             # each row at the tick that would have expired it
             tick = torch.clamp(ring_rows[TS_KEY] + t, min=now)
             ring_rows[TS_KEY] = tick
-            ring_okey = (tick - now) * KWc + rpos
+            ring_okey = (tick - now) * KWc_o + gpos(rpos)
         batch_exp_rows = {c: cols[c] for c in keys}
         batch_exp_rows[TS_KEY] = _full(B, now, torch.int64, dev)
         parts = [
             (ring_rows, _full(n1, EXPIRED, torch.int8, dev),
              torch.ones((n1,), dtype=torch.bool, device=dev), ring_okey),
             (batch_exp_rows, _full(B, EXPIRED, torch.int8, dev), batch_exp,
-             (nxt + 1) * STRIDE_A + KWc + B_idx),
+             (nxt + 1) * STRIDE_A + KWc_o + B_idx),
             ({c: cols[c] for c in keys}, cols[TYPE_KEY], valid_cur,
-             (B_idx + 1) * STRIDE_A + KWc + B + 1),
+             (B_idx + 1) * STRIDE_A + KWc_o + B + 1),
         ]
         if self.max_len is not None:
             lk, lr = _expand(n_lring, n2)
@@ -361,14 +472,15 @@ class KeyedTimeWindowStage(WindowStage):
             parts += [
                 (len_rows, _full(n2, EXPIRED, torch.int8, dev),
                  torch.ones((n2,), dtype=torch.bool, device=dev),
-                 (anchor_r + 1) * STRIDE_A + lk * Wc + lj),
+                 (anchor_r + 1) * STRIDE_A + _global_keys(ctx, lk) * Wc + lj),
                 (batch_exp_rows, _full(B, EXPIRED, torch.int8, dev), len_batch,
-                 (anchor_b + 1) * STRIDE_A + KWc + B_idx),
+                 (anchor_b + 1) * STRIDE_A + KWc_o + B_idx),
             ]
             new_exp = E + n_len        # time drain + length evictions
         else:
             new_exp = exp0 + n_exp_per_key + _per_key_count(batch_exp, pk, K)
-        out, _ = _order_emit(parts)
+        out, okey = _order_emit(parts)
+        _with_okey(out, okey, cols)
         new_total = self._append(state, cols, valid_cur, pk, occ, counts, total0)
         fifo2 = new_exp[:, None] + j[None, :]
         occ2 = fifo2 < new_total[:, None]
@@ -378,14 +490,13 @@ class KeyedTimeWindowStage(WindowStage):
         return self._finish(state, out, new_total, new_exp)
 
     def _apply_external(self, state, cols, keys, valid_cur, pk, order, occ,
-                        counts, occupied, fifo_flat, B_idx, now):
+                        counts, occupied, fifo_flat, B_idx, now, ctx, KWc_o, gpos):
         Wc = self.capacity
         t = self.time_ms
         buf = state["buf"]
         total0 = state["total"].clone()
         exp0 = state["expired_upto"].clone()
         K = total0.shape[0]
-        KWc = K * Wc
         B = valid_cur.shape[0]
         dev = valid_cur.device
         M = 1 << 42      # > any ms epoch until ~2109
@@ -421,17 +532,18 @@ class KeyedTimeWindowStage(WindowStage):
         batch_exp = valid_cur & batch_cov
         # anchor-major order: everything anchored before batch row a sorts
         # between rows a-1 and a
-        STRIDE2 = KWc + B + 2
+        STRIDE2 = KWc_o + B + 2
         parts = [
             (ring_rows, _full(n1, EXPIRED, torch.int8, dev),
              torch.ones((n1,), dtype=torch.bool, device=dev),
-             ring_anchor * STRIDE2 + rpos),
+             ring_anchor * STRIDE2 + gpos(rpos)),
             ({c: cols[c] for c in keys}, _full(B, EXPIRED, torch.int8, dev),
-             batch_exp, nxt * STRIDE2 + KWc + B_idx),
+             batch_exp, nxt * STRIDE2 + KWc_o + B_idx),
             ({c: cols[c] for c in keys}, cols[TYPE_KEY], valid_cur,
-             B_idx * STRIDE2 + KWc + B + 1),
+             B_idx * STRIDE2 + KWc_o + B + 1),
         ]
-        out, _ = _order_emit(parts)
+        out, okey = _order_emit(parts)
+        _with_okey(out, okey, cols)
         new_total = self._append(state, cols, valid_cur, pk, occ, counts, total0)
         new_exp = exp0 + n_exp_per_key + _per_key_count(batch_exp, pk, K)
         out[NOTIFY_KEY] = torch.full((), -1, dtype=torch.int64, device=dev)
@@ -479,6 +591,8 @@ class KeyedLengthBatchWindowStage(WindowStage):
     same chunk by absolute per-key sequence number."""
 
     keyed = True
+    # its order keys are batch positions
+    split_aware = True
 
     batch_mode = True
 
@@ -560,7 +674,8 @@ class KeyedLengthBatchWindowStage(WindowStage):
             (cur_emit, _full(B * N, CURRENT, torch.int8, dev),
              flush[:, None].expand(B, N).reshape(B * N), cur_okey),
         ]
-        out, _ = _order_emit(parts)
+        out, okey = _order_emit(parts)
+        _with_okey(out, okey, cols)
         out[FLUSH_KEY] = torch.zeros_like(out[TS_KEY], dtype=torch.int32)
 
         # ---- state update
@@ -610,6 +725,7 @@ class KeyedTimeBatchWindowStage(WindowStage):
     needs_scheduler = True
 
     keyed = True
+    split_aware = True
 
     batch_mode = True
 
@@ -662,33 +778,38 @@ class KeyedTimeBatchWindowStage(WindowStage):
         ne0 = state["next_emit"]
         next_emit = torch.where((ne0 <= 0) & (counts > 0), now + t, ne0)
 
-        # ---- compacted flush of due keys
-        D = min(64, K)
+        # ---- compacted flush of due keys: the first D in (global) key
+        # order; jD is a flushing key's place among them
+        D = min(64, _global_capacity(ctx, K))
         due = (next_emit > 0) & (now >= next_emit) & (
             (cnt > 0) | (self.expired_needed & (prev_cnt > 0)))
-        kids = torch.argsort((~due).to(torch.int8), stable=True)[:D]
-        ksel = due[kids]
-        jD = torch.arange(D, dtype=torch.int64, device=dev)
+        rank, n_due = _due_ranks(ctx, due)
+        sel = due & (rank < D)
+        Dl = min(D, K)
+        kids = torch.argsort((~sel).to(torch.int8), stable=True)[:Dl]
+        ksel = sel[kids]
+        jD = rank[kids]
         cur_sel = (ksel[:, None] & (jW[None, :] < cnt[kids][:, None])).reshape(-1)
         prev_sel = (ksel[:, None] & (jW[None, :] < prev_cnt[kids][:, None])).reshape(-1)
-        leftover = due.sum() > D
+        leftover = n_due > D
 
         STRIDE = 2 * Wc + 1
-        jwl = jW[None, :].expand(D, Wc)
-        prev_rows = {k: v[kids].reshape(D * Wc) for k, v in prev.items()}
+        jwl = jW[None, :].expand(Dl, Wc)
+        prev_rows = {k: v[kids].reshape(Dl * Wc) for k, v in prev.items()}
         prev_rows[TS_KEY] = torch.where(prev_sel, now, prev_rows[TS_KEY])
-        cur_rows = {k: v[kids].reshape(D * Wc) for k, v in buf.items()}
-        reset_rows = _zero_rows(cur_rows, D, dev)
-        reset_rows[TS_KEY] = _full(D, now, torch.int64, dev)
+        cur_rows = {k: v[kids].reshape(Dl * Wc) for k, v in buf.items()}
+        reset_rows = _zero_rows(cur_rows, Dl, dev)
+        reset_rows[TS_KEY] = _full(Dl, now, torch.int64, dev)
         parts = [
-            (prev_rows, _full(D * Wc, EXPIRED, torch.int8, dev), prev_sel,
+            (prev_rows, _full(Dl * Wc, EXPIRED, torch.int8, dev), prev_sel,
              (jD[:, None] * STRIDE + jwl).reshape(-1)),
-            (reset_rows, _full(D, RESET, torch.int8, dev),
+            (reset_rows, _full(Dl, RESET, torch.int8, dev),
              ksel & (cnt[kids] > 0) & (prev_cnt[kids] > 0), jD * STRIDE + Wc),
-            (cur_rows, _full(D * Wc, CURRENT, torch.int8, dev), cur_sel,
+            (cur_rows, _full(Dl * Wc, CURRENT, torch.int8, dev), cur_sel,
              (jD[:, None] * STRIDE + Wc + 1 + jwl).reshape(-1)),
         ]
-        out, _ = _order_emit(parts)
+        out, okey = _order_emit(parts)
+        _with_okey(out, okey, cols)
         out[FLUSH_KEY] = torch.zeros_like(out[TS_KEY], dtype=torch.int32)
 
         # flushed keys: cur -> prev, roll the boundary past `now`
@@ -743,6 +864,7 @@ class KeyedSessionWindowStage(WindowStage):
     needs_scheduler = True
 
     keyed = True
+    split_aware = True
 
     SWEEP_KEYS = 128
 
@@ -773,7 +895,7 @@ class KeyedSessionWindowStage(WindowStage):
         cnt0 = state["cnt"].to(torch.int64)
         last0 = state["last"].clone()
         K = cnt0.shape[0]
-        D = min(self.SWEEP_KEYS, K)
+        D = min(self.SWEEP_KEYS, _global_capacity(ctx, K))
         keys = _data_keys(cols)
         valid = cols[VALID_KEY]
         B = valid.shape[0]
@@ -818,10 +940,11 @@ class KeyedSessionWindowStage(WindowStage):
         put_where_(last_f, 0, pk, ts, is_last)
         overflow = state["sess_overflow"] + (valid_cur & (q >= W)).sum().to(torch.int32)
         due = (cnt_f > 0) & (last_f + gap <= now)
-        rank = torch.cumsum(due.to(torch.int64), 0) - 1
+        # a due key's place among every due key in (global) key order
+        rank, n_due = _due_ranks(ctx, due)
         swept = due & (rank < D)
         s_cnt = torch.where(swept, torch.clamp(cnt_f, max=W), 0)
-        n_b, n_s, n_due = torch.stack([e_cnt.sum(), s_cnt.sum(), due.sum()]).tolist()
+        n_b, n_s, n_due = torch.stack([e_cnt.sum(), s_cnt.sum(), n_due]).tolist()
 
         # the broken sessions' rows, read before the buffer is written: lane
         # j holds session position j (the last lane the latest position)
@@ -858,7 +981,8 @@ class KeyedSessionWindowStage(WindowStage):
              torch.ones((n_s,), dtype=torch.bool, device=dev),
              B * STRIDE + rank[sk] * W + sj),
         ]
-        out, _ = _order_emit(parts)
+        out, okey = _order_emit(parts)
+        _with_okey(out, okey, cols)
         cnt_f = torch.where(swept, 0, cnt_f)
         live = cnt_f > 0
         if n_due > D:
@@ -893,9 +1017,17 @@ class KeyedSessionWindowStage(WindowStage):
         live = cnt0 > 0
         tick = torch.clamp(last0 + gap, min=now)
         swept = live & (tick <= int(ctx["horizon"]))
-        korder = torch.argsort(torch.where(swept, tick, _BIG), stable=True)
-        tick_s, swept_s = tick[korder], swept[korder]
-        pos = torch.arange(K, dtype=torch.int64, device=dev)
+        # the chain's layout over every key (every process's, under a
+        # split: global key g = l * n + q of process q)
+        tick_g = torch.where(swept, tick, _BIG)
+        ks = ctx.get("key_split")
+        if ks is not None:
+            tick_g = torch.stack(ks.gather(tick_g)).t().reshape(-1)
+            D = min(self.SWEEP_KEYS, ks.capacity(K))
+        korder = torch.argsort(tick_g, stable=True)
+        tick_s = tick_g[korder]
+        swept_s = tick_s < _BIG
+        pos = torch.arange(tick_g.shape[0], dtype=torch.int64, device=dev)
         new_tick = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                               tick_s[1:] != tick_s[:-1]])
         r = pos - torch.cummax(torch.where(new_tick, pos, torch.full_like(pos, -1)),
@@ -905,6 +1037,9 @@ class KeyedSessionWindowStage(WindowStage):
         step[korder] = step_s
         lane = torch.empty_like(r)
         lane[korder] = r % D
+        if ks is not None:
+            mine = ks.keys(torch.arange(K, dtype=torch.int64, device=dev))
+            step, lane = step[mine], lane[mine]
         s_cnt = torch.where(swept, torch.clamp(cnt0, max=W), 0)
         n_s = int(s_cnt.sum())
         sk, sj = _expand(s_cnt, n_s)
@@ -920,6 +1055,7 @@ class KeyedSessionWindowStage(WindowStage):
              torch.full((B,), _BIG - 1, dtype=torch.int64, device=dev)),
         ]
         out, okey = _order_emit(parts)
+        _with_okey(out, okey, cols)
         out[CHUNK_KEY] = torch.where(out[VALID_KEY], torch.div(
             okey, span, rounding_mode="floor"), -1)
         rest = live & ~swept
@@ -949,6 +1085,7 @@ class KeyedHoppingWindowStage(WindowStage):
     needs_scheduler = True
 
     keyed = True
+    split_aware = True
 
     batch_mode = True
 
@@ -1016,6 +1153,7 @@ class KeyedHoppingWindowStage(WindowStage):
         STRIDE = 2 * Wc + 2
         kflat = grid_k.expand(K, Wc).reshape(-1)
         jflat = j.expand(K, Wc).reshape(-1)
+        kglob = _global_keys(ctx, grid_k[:, 0])     # order keys: global key-major
         prev_valid = ((j < prev_count[:, None]) & send[:, None]).reshape(-1)
         prev_rows = dict(prev)
         prev_rows[TS_KEY] = torch.where(prev_valid, now, prev_rows[TS_KEY])
@@ -1024,13 +1162,14 @@ class KeyedHoppingWindowStage(WindowStage):
         reset_rows[TS_KEY] = torch.where(reset_valid, now, 0)
         parts = [
             (prev_rows, _full(K * Wc, EXPIRED, torch.int8, dev), prev_valid,
-             kflat * STRIDE + jflat),
+             kglob[kflat] * STRIDE + jflat),
             (reset_rows, _full(K, RESET, torch.int8, dev), reset_valid,
-             grid_k[:, 0] * STRIDE + Wc),
+             kglob * STRIDE + Wc),
             (cur_rows, _full(K * Wc, CURRENT, torch.int8, dev),
-             in_window.reshape(-1), kflat * STRIDE + Wc + 1 + jflat),
+             in_window.reshape(-1), kglob[kflat] * STRIDE + Wc + 1 + jflat),
         ]
-        out, _ = _order_emit(parts)
+        out, okey = _order_emit(parts)
+        _with_okey(out, okey, cols)
         out[FLUSH_KEY] = torch.zeros_like(out[TS_KEY], dtype=torch.int32)
 
         # the emitted snapshot becomes each flushing key's next expiry batch
@@ -1079,6 +1218,8 @@ class KeyedBatchWindowStage(WindowStage):
     appearance in the chunk."""
 
     keyed = True
+    # its order keys are batch positions
+    split_aware = True
 
     batch_mode = True
 
@@ -1128,7 +1269,8 @@ class KeyedBatchWindowStage(WindowStage):
             ({k: cols[k] for k in keys}, cols[TYPE_KEY], valid_cur,
              first_row[pk] * STRIDE + Wc + 1 + B_idx),
         ]
-        out, _ = _order_emit(parts)
+        out, okey = _order_emit(parts)
+        _with_okey(out, okey, cols)
         out[FLUSH_KEY] = torch.zeros_like(out[TS_KEY], dtype=torch.int32)
 
         clear = in_chunk[grid_k.reshape(-1)]   # wipe only keys in this chunk

@@ -64,6 +64,10 @@ GK_KEY = "__gk__"
 # a captured step reads its static copies, and the LUT is each app's own
 LUT_KEY = "__route_lut__"
 INV_KEY = "__route_inv__"
+# a partitioned host window's wake time on this process, staged as an
+# input column of the key-sharded step across processes (merged like the
+# step's own)
+HOST_NOTIFY_KEY = "__host_notify__"
 _ROUTE_BIG = 2 ** 62
 
 
@@ -142,6 +146,24 @@ def _key_axis_of(path, leaf, num_keys: int, win_keys: int) -> int:
     return -1
 
 
+def key_axis_sharding(mesh: Mesh, arr_ndim: int, key_axis_index: int) -> int:
+    """The layout of one array sharded along its key axis over ``mesh``,
+    the rest replicated: the key axis itself (the form ``state_shardings``
+    gives each keyed leaf; the reference returns a ``NamedSharding``)."""
+    if not 0 <= key_axis_index < arr_ndim:
+        raise ValueError(f"key axis {key_axis_index} of a {arr_ndim}-d array")
+    return int(key_axis_index)
+
+
+def batch_shardings(cols, mesh: Mesh):
+    """The layout of a batch's columns over ``mesh``: every column
+    replicated (-1, as ``state_shardings`` marks unkeyed state). The
+    reference splits each ``[B, ...]`` column along the batch axis for
+    GSPMD; the port's steps take the whole batch on every process, and a
+    routed step cuts its own source slices (``device_route_query_step``)."""
+    return {k: -1 for k in cols}
+
+
 def state_shardings(state, mesh: Mesh, num_keys: int, win_keys: int = 1):
     """The tree of key axes of a query-state tree over ``mesh``: each
     leaf's axis to shard along, or -1 where it stays replicated (unkeyed
@@ -184,13 +206,17 @@ class RouteLayout:
     global dense-id capacity the keyer allocates into."""
 
     def __init__(self, mesh: Mesh, rows_per_shard: int, exchange: str,
-                 partitioned: bool, use_lut: bool, device, split: Optional[str] = None):
+                 partitioned: bool, use_lut: bool, device, split: Optional[str] = None,
+                 sel_whole: bool = False):
         self.mesh = mesh
         # ``split`` set: the key-sharded step with a replicated batch
         # (shard_query_step across processes), one shard a process, which
         # takes its rows at the step's input ("input") or, behind a global
         # window, at the selector's ("select")
         self.split = split
+        # the selector's state whole on every process (a pattern's group by
+        # over captures: the host keys the merged matches, then selects)
+        self.sel_whole = sel_whole
         self.P = mesh.process_count
         self.n = mesh.process_count if split else mesh.n
         self.L = 1 if split else mesh.local      # shards on this process
@@ -429,7 +455,8 @@ def device_route_query_step(runtime, mesh: Mesh, rows_per_shard: int = 4096,
     why = route_ineligibility(runtime)
     if why is not None:
         raise CompileError(
-            f"query '{runtime.name}': device routing does not support {why}")
+            f"query '{runtime.name}': device routing does not support "
+            f"{why} — use shard_query_step for those")
     if exchange is None:
         exchange = getattr(runtime.app_context, "shard_exchange", "all_to_all")
     if exchange not in ("all_to_all", "pallas_ring"):
@@ -490,7 +517,7 @@ def _install_routed(runtime, layout: RouteLayout, canonical, Kg: int, Wg: int):
     while int(layout.gk_counts.max(initial=0)) > layout.localK:
         layout.localK *= 2
         layout._lut_dirty = True
-    runtime.selector_plan.num_keys = layout.localK
+    runtime.selector_plan.num_keys = layout.localK * (n if layout.sel_whole else 1)
     runtime._win_keys = layout.local_win
     runtime._route_layout = layout
     # the mesh bounds the runtime's pulls under cluster_step_timeout
@@ -519,6 +546,8 @@ def _axes(layout: RouteLayout, path, leaf, shards: int) -> int:
     """Key axis of a leaf of a routed state holding ``shards`` shards (the
     process's ``L``, or all ``n`` once gathered); -1: unkeyed, stacked a
     shard along axis 0."""
+    if layout.sel_whole and path and path[0] == "sel":
+        return -1
     Kl, Wl = layout.localK, layout.local_win
     return _key_axis_of(path, leaf, shards * Kl, shards * Wl if Wl > 1 else 1)
 
@@ -540,36 +569,63 @@ def _has_keyed_state(runtime) -> bool:
 def _split_mode(runtime) -> str:
     """Where each process takes its own keys' rows in the key-sharded step
     across processes: at the step's input (partitioned queries, whose
-    whole state is keyed by the partition key) or at the selector's
-    (a keyed selector behind a global window, whose ring every process
-    keeps whole)."""
+    whole state is keyed by the partition key: a keyed window, a host
+    window's per-key instances, the selector's groups, each group within
+    one partition key) or at the selector's (a keyed selector behind a
+    global window, whose ring every process keeps whole). Raises naming
+    ROADMAP A.11 for a shape it does not split yet."""
     from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
-    from siddhi_tpu_torch.ops.keyed_windows import KeyedLengthWindowStage
+    from siddhi_tpu_torch.ops.host_windows import PartitionedHostWindow
 
     what = None
-    sp = runtime.selector_plan
     partitioned = runtime.partition_ctx is not None
     if getattr(runtime, "sides", None) is not None:
-        what = "joins (route them: device_route_query_step)"
-    elif sp.order_by or sp.limit is not None or sp.offset is not None:
-        what = "order by / limit (batch-global ordering)"
+        what = _join_split_ineligibility(runtime)
+        if what is None:
+            return "input"
     elif isinstance(runtime, NFAQueryRuntime):
-        if partitioned and runtime.keyer is None:
+        # a group by over captures keys the merged matches on the host and
+        # selects on every process (its ordering with it)
+        if partitioned and (runtime.keyer is not None or not runtime.selector_plan.ordered):
             return "input"
-        what = "a pattern's group by over captures (host keyed select)"
+        what = "a pattern's order by / limit without a group by"
     elif partitioned:
-        win = runtime.window_stage
-        if (runtime.keyer is None and runtime.host_window is None
-                and not runtime.carried_pk
-                and (win is None or isinstance(win, KeyedLengthWindowStage))):
+        win, host = runtime.window_stage, runtime.host_window
+        if host is not None and not isinstance(host, PartitionedHostWindow):
+            what = f"the host window {type(host).__name__}"
+        elif win is not None and not getattr(win, "split_aware", False):
+            what = f"the window stage {type(win).__name__}"
+        else:
             return "input"
-        what = ("a partitioned query with a group by, a host window, an "
-                "inner stream or a keyed window other than length")
     elif runtime.keyer is not None:
         return "select"
     raise NotImplementedError(
         f"query '{runtime.name}': shard_query_step across processes does "
         f"not split {what or 'this shape'} yet (ROADMAP A.11)")
+
+
+def _join_split_ineligibility(runtime) -> Optional[str]:
+    """What keeps a partitioned join from splitting at the input (None:
+    it splits). Each side's keyed ring shards by the partition key, a
+    row's probe surface (the other side's rows of its own key) is its own
+    process's, and the matches merge by the unsharded (trigger row, slot)
+    order."""
+    sp = runtime.selector_plan
+    if runtime.keyer is not None:
+        return "a partitioned join's group by (host keyed select between stages)"
+    if sp.specs:
+        return "a partitioned join's aggregation (one group across partition keys)"
+    if sp.ordered:
+        return "a partitioned join's order by / limit"
+    if runtime.index_probe is not None:
+        return "indexed join probes"
+    for side in runtime.sides.values():
+        win = side.window_stage
+        if side.store is not None or side.host_window is not None or side.global_side:
+            return f"the store, host-window or global join side '{side.stream_id}'"
+        if not getattr(win, "split_aware", False) or win.batch_mode:
+            return f"the join window stage {type(win).__name__}"
+    return None
 
 
 def shard_query_step(runtime, mesh: Mesh, donate: bool = True):
@@ -590,21 +646,184 @@ def shard_query_step(runtime, mesh: Mesh, donate: bool = True):
     leaf (one shard a process), steps the batch over them, and the emitted
     rows are gathered (one ``all_gather``) and merged once by a global
     emission-order key. A query with no keyed state runs whole on every
-    process. ``donate`` is the reference's; the port's steps update their
-    state in place whatever it says."""
+    process, and so does an unpartitioned join: it has no key axis to
+    split (its rings are the stream's, and a grouped selector keys the
+    joined rows on the host). ``donate`` is the reference's; the port's
+    steps update their state in place whatever it says. A shape it does
+    not split yet raises ``NotImplementedError`` naming ROADMAP A.11."""
+    from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
+
     _check_mesh(runtime, mesh)
     _release_from_fanout(runtime)
     if runtime._state is None:
         runtime._state = runtime._init_state()
-    if mesh.process_count == 1 or (runtime._route_layout is None
-                                   and not _has_keyed_state(runtime)):
+    partitioned = runtime.partition_ctx is not None
+    whole_join = getattr(runtime, "sides", None) is not None and not partitioned
+    if mesh.process_count == 1 or whole_join or (runtime._route_layout is None
+                                                 and not _has_keyed_state(runtime)):
         runtime._shard_mesh = mesh
         return runtime._step, runtime._state
     mode = _split_mode(runtime)
-    _install(runtime, RouteLayout(mesh, 4096, "all_to_all",
-                                  runtime.partition_ctx is not None, False,
-                                  runtime.device, split=mode))
+    # a pattern's group by over captures: the selector runs whole after
+    # the merge; any other group key than the partition key is carried to
+    # the owner's local space through the layout's LUT, as routed
+    sel_whole = isinstance(runtime, NFAQueryRuntime) and runtime.keyer is not None
+    _install(runtime, RouteLayout(mesh, 4096, "all_to_all", partitioned,
+                                  partitioned and runtime.keyer is not None
+                                  and not sel_whole,
+                                  runtime.device, split=mode, sel_whole=sel_whole))
+    if runtime.host_window is not None:
+        runtime.host_window.key_split = (runtime._route_layout.n,
+                                         runtime._route_layout.first)
     return runtime._step, runtime._state
+
+
+# ---------------------------------------------- the legacy host router
+
+def route_batch_to_shards(cols, n_shards: int, rows_per_shard: int):
+    """Host-side all-to-all: scatter batch rows to their owning key shard.
+
+    DEPRECATED — a compatibility shim kept for the legacy
+    ``shard_keyed_query_step`` callers. The host router moves every row
+    through numpy before the step and requires GK == PK; new code should
+    use :func:`device_route_query_step`, which routes rows inside the step
+    (one exchange launch), supports a group-by key distinct from the
+    partition key, and re-merges emitted rows into the exact unsharded
+    order.
+
+    The owner of dense key ``k`` is ``k % n_shards`` and its local id is
+    ``k // n_shards``. Returns a routed column dict of shape
+    ``[n_shards * rows_per_shard]`` where segment ``d`` holds shard
+    ``d``'s rows (original order kept within the shard) padded with
+    invalid rows, and the PK/GK columns rewritten to LOCAL ids."""
+    import time
+    import warnings
+
+    from siddhi_tpu_torch.core.stream.junction import FatalQueryError
+    from siddhi_tpu_torch.observability.telemetry import global_registry
+
+    warnings.warn(
+        "route_batch_to_shards is deprecated: use device_route_query_step "
+        "(on-device repartitioning; lifts the GK == PK restriction)",
+        DeprecationWarning, stacklevel=2)
+    t0 = time.perf_counter()
+    key_col = PK_KEY if PK_KEY in cols else GK_KEY
+    if GK_KEY in cols and PK_KEY in cols and not np.array_equal(
+            np.asarray(cols[GK_KEY]), np.asarray(cols[PK_KEY])):
+        # a group-by key distinct from the partition key lives in its own
+        # dense-id space: the device router carries the two apart
+        raise FatalQueryError(
+            "route_batch_to_shards requires GK == PK (partitioned query "
+            "without a distinct group-by key) — device_route_query_step "
+            "lifts this restriction")
+    valid = np.asarray(cols[VALID_KEY])
+    keep = np.nonzero(valid)[0]  # capacity padding never competes for rows
+    pk = np.asarray(cols[key_col]).astype(np.int64)[keep]
+    owner = pk % n_shards
+    local = pk // n_shards
+    order = np.argsort(owner, kind="stable")
+    counts = np.bincount(owner, minlength=n_shards)
+    if int(counts.max(initial=0)) > rows_per_shard:
+        raise FatalQueryError(
+            f"shard overflow: {int(counts.max())} rows for one shard > "
+            f"rows_per_shard={rows_per_shard} — raise rows_per_shard or "
+            f"split the batch")
+    starts = np.zeros(n_shards, np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    owner_sorted = owner[order]
+    pos = np.arange(keep.shape[0], dtype=np.int64) - starts[owner_sorted]
+    dest = owner_sorted * rows_per_shard + pos
+    src = keep[order]
+
+    N = n_shards * rows_per_shard
+    routed = {}
+    for k, v in cols.items():
+        v = np.asarray(v)
+        if k in (PK_KEY, GK_KEY):
+            buf = np.zeros(N, v.dtype)
+            buf[dest] = local[order].astype(v.dtype)
+        else:
+            buf = np.zeros((N,) + v.shape[1:], v.dtype)
+            buf[dest] = v[src]
+        routed[k] = buf
+    _record_route_telemetry(global_registry(), "host", counts,
+                            (time.perf_counter() - t0) * 1000.0)
+    return routed  # padding rows keep VALID=False (zero-fill)
+
+
+def shard_keyed_query_step(runtime, mesh: Mesh, rows_per_shard: int):
+    """A keyed (partitioned) query's step over ``mesh``'s shards, each
+    stepping its own key slice of the state over its own rows: the
+    deprecated shim behind ``route_batch_to_shards``.
+
+    The runtime is sized to its PER-SHARD key capacity
+    (``selector_plan.num_keys`` / ``_win_keys`` are local values), and
+    batches arrive routed (``[n * rows_per_shard]`` rows carrying local key
+    ids). Global-window queries cannot take this path (their ring
+    semantics need every row in order); use ``shard_query_step`` for
+    those. The mesh's shards share this process's device (the reference's
+    ``shard_map`` over devices); across processes use
+    ``device_route_query_step``.
+
+    Returns ``(step, global_state)``: ``step(state, routed_cols, now)``.
+    Out rows come back shard-segmented (leaf axis 0 = ``n * R_local``);
+    ``"__meta__"`` is ``[n, 3 + lanes]``, one (overflow, notify, count)
+    row per shard, then the step's instrument lanes."""
+    if mesh.process_count > 1:
+        raise ValueError(
+            f"query '{runtime.name}': shard_keyed_query_step steps the shards "
+            f"of one process; across {mesh.process_count} processes use "
+            f"device_route_query_step")
+    _release_from_fanout(runtime)
+    n = mesh.n
+    localK = runtime.selector_plan.num_keys
+    local_win = runtime._win_keys
+    if runtime._state is None:
+        runtime._state = runtime._init_state()
+    step = runtime.build_step_fn()
+    axes = _map_tree(lambda path, leaf: _key_axis_of(path, leaf, localK, local_win),
+                     runtime._state)
+
+    def stack_global(_path, leaf, ax):
+        # an unkeyed leaf: a leading shard axis, every shard its own copy
+        return (torch.stack([leaf] * n, dim=0) if ax < 0
+                else torch.cat([leaf] * n, dim=ax))
+
+    global_state = _map_tree(stack_global, runtime._state, axes)
+
+    def view(_path, leaf, ax, s):
+        if ax < 0:
+            return leaf[s]
+        size = leaf.shape[ax] // n
+        return leaf.narrow(ax, s * size, size)
+
+    def sharded(state, cols, now):
+        outs = []
+        for s in range(n):
+            views = _map_tree(lambda p, leaf, ax: view(p, leaf, ax, s), state, axes)
+            held = _map_tree(lambda _p, t: t, views)
+            rows = {k: v[s * (v.shape[0] // n):(s + 1) * (v.shape[0] // n)]
+                    for k, v in cols.items()}
+            new_state, out = step(views, rows, now)
+            _write_back(held, new_state)
+            outs.append(out)
+        return state, {k: torch.cat([o[k].reshape(1, *o[k].shape) if (
+            k == "__meta__" or o[k].dim() == 0) else o[k] for o in outs])
+            for k in outs[0]}
+
+    jitted = runtime.app_context.telemetry.instrument_jit(
+        sharded, f"query.{runtime.name}.shard_map_step",
+        family="shard_map_routed", cache_extra=str(mesh))
+    dev = runtime.device
+
+    def routed_step(state, cols, now):
+        # the routed batch (the router's host columns, or tensors) on the
+        # runtime's device, before the step
+        cols = {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))).to(dev) for k, v in cols.items()}
+        return jitted(state, cols, int(now))
+
+    return routed_step, global_state
 
 
 # -------------------------------------------------------- state relayout
@@ -622,15 +841,11 @@ def _gather_shards(layout: RouteLayout, state, timeout_s=None):
         leaves.append(leaf)
 
     _map_tree(collect, state)
-    gathered = all_gather_same(leaves, timeout_s, "state gather")
-    full = {}
-    for path, leaf, parts in zip(paths, leaves, gathered):
-        ax = _axes(layout, path, leaf, layout.L)
-        node = full
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = torch.cat(parts, dim=max(ax, 0))
-    return full
+    gathered = dict(zip(paths, all_gather_same(leaves, timeout_s, "state gather")))
+    # mapped over the state itself, so an empty subtree (a selector with
+    # no aggregator) keeps its place
+    return _map_tree(lambda path, leaf: torch.cat(
+        gathered[path], dim=max(_axes(layout, path, leaf, layout.L), 0)), state)
 
 
 def _canonical_tensors(runtime):
@@ -700,12 +915,11 @@ def _canonical_to_routed(runtime, layout: RouteLayout, canonical):
     """Canonical state (numpy or tensors, possibly smaller capacity) ->
     routed shard-major layout at the layout's capacities, this process's
     shards only; missing key rows come from init."""
-    n, Kl, Wl = layout.n, layout.localK, layout.local_win
-    dev = runtime.device
+    n = layout.n
     local_init = runtime._init_state()
 
     def stack(path, leaf):
-        ax = _key_axis_of(path, leaf, Kl, Wl if Wl > 1 else 1)
+        ax = _axes(layout, path, leaf, 1)
         if ax < 0:
             return torch.stack([leaf] * n, dim=0)
         return torch.cat([leaf] * n, dim=ax)
@@ -742,6 +956,13 @@ def _fill_routed(runtime, layout: RouteLayout, routed, canonical):
             canon, torch.Tensor) else canon).to(dev)
         ax = _axes(layout, path, out, n)
         if ax < 0:
+            if layout.sel_whole and path[0] == "sel":
+                # a whole selector state at the layout's capacity: the
+                # canonical rows of its keys, the rest from init
+                whole = out[0].clone()
+                cut = tuple(slice(0, min(a, b)) for a, b in zip(whole.shape, canon.shape))
+                whole[cut] = canon[cut].to(whole.dtype)
+                canon = whole
             return torch.stack([canon] * n, dim=0)
         if _leaf_space(path) == "gk":
             g = np.arange(min(canon.shape[ax], n * Kl))
@@ -816,6 +1037,18 @@ def _step_on_shard(layout: RouteLayout, step, state, s: int, *args):
     return out
 
 
+def step_on_own_shard(layout: RouteLayout, step, state, *args):
+    """``step(views, *args) -> (new sub-state, out)`` over this process's
+    one shard of a key-sharded state across processes (the host keyed
+    select's whole selector state, ``QueryRuntime._host_keyed_select``):
+    ``step`` hands back the state of the tree's ``"sel"`` subtree."""
+    def run(views, *a):
+        new_sel, out = step(views, *a)
+        return {"sel": new_sel}, out
+
+    return _step_on_shard(layout, run, state, 0, *args)
+
+
 def routed_step_for(runtime, side_key: Optional[str] = None):
     """Build the routed ``step3(state, cols, now)`` for a runtime whose
     ``_route_layout`` is installed, through the step instrument under
@@ -837,7 +1070,11 @@ def routed_step_for(runtime, side_key: Optional[str] = None):
              f"local_win={layout.local_win} partitioned={layout.partitioned} "
              f"use_lut={layout.use_lut} processes={layout.P} split={layout.split}")
     if layout.split:
-        fn = _split_fn(runtime, layout)
+        fn = _split_fn(runtime, layout, side_key)
+        if side_key is not None:
+            return runtime.app_context.telemetry.instrument_jit(
+                fn, f"join.{runtime.name}.{side_key}.sharded_step",
+                family="gspmd_replicated_batch", cache_extra=extra)
         return runtime.instrument_step(
             fn, f"query.{runtime.name}.sharded_step",
             family="gspmd_replicated_batch", cache_extra=extra,
@@ -903,15 +1140,18 @@ def _egress(layout: RouteLayout, merged: dict, okey, meta, rows_here, route_ov,
     if layout.P > 1:
         from siddhi_tpu_torch.ops.exchange import all_gather_rows, all_gather_same
 
-        names = list(merged)
-        rows = all_gather_rows([merged[k] for k in names] + [okey], timeout_s, what)
-        merged = {k: torch.cat(rows[i]) for i, k in enumerate(names)}
-        okey = torch.cat(rows[-1])
-        metas, counts, ovs = all_gather_same(
-            [meta, rows_here, route_ov.reshape(1)], timeout_s, what)
+        sig = torch.tensor([_schema_sig(merged)], dtype=torch.int64, device=okey.device)
+        metas, counts, ovs, sigs = all_gather_same(
+            [meta, rows_here, route_ov.reshape(1), sig], timeout_s, what)
         meta = torch.cat(metas)
         rows_here = torch.cat(counts)
         route_ov = torch.cat(ovs).sum()
+        if any(not torch.equal(sg, sigs[0]) for sg in sigs):
+            merged = _union_schema(merged, okey.shape[0])
+        names = sorted(merged)
+        rows = all_gather_rows([merged[k] for k in names] + [okey], timeout_s, what)
+        merged = {k: torch.cat(rows[i]) for i, k in enumerate(names)}
+        okey = torch.cat(rows[-1])
     order = torch.argsort(okey, stable=True)
     merged = {k: v[order] for k, v in merged.items()}
     ov = meta[0, 0]
@@ -934,6 +1174,37 @@ def _egress(layout: RouteLayout, merged: dict, okey, meta, rows_here, route_ov,
         parts.append(v.max(dim=0).values if slot.reduce == "max" else v.sum(dim=0))
     merged["__meta__"] = torch.cat(parts)
     return merged
+
+
+def _schema_of(cols: dict) -> dict:
+    """name -> (dtype, trailing shape) of row-aligned columns."""
+    return {k: (str(v.dtype), tuple(v.shape[1:])) for k, v in cols.items()}
+
+
+def _schema_sig(cols: dict) -> int:
+    """A checksum of the columns' names, dtypes and trailing shapes."""
+    import zlib
+
+    return zlib.crc32(repr(sorted(_schema_of(cols).items())).encode())
+
+
+def _union_schema(cols: dict, rows: int) -> dict:
+    """``cols`` with every column another process emits and this one does
+    not (a stage may emit fewer columns when it emits no row), as zeros of
+    ``rows`` rows: every process's rows then pack alike. One
+    ``all_gather_object`` of the schemas, only when they differ."""
+    import torch.distributed as dist
+
+    schemas = [None] * dist.get_world_size()
+    dist.all_gather_object(schemas, _schema_of(cols))
+    dev = next(iter(cols.values())).device
+    out = dict(cols)
+    for schema in schemas:
+        for k, (dt, tail) in schema.items():
+            if k not in out:
+                out[k] = torch.zeros((rows,) + tuple(tail),
+                                     dtype=getattr(torch, dt.split(".")[-1]), device=dev)
+    return out
 
 
 def _routed_fn(runtime, layout: "RouteLayout", side_key: Optional[str] = None):
@@ -1059,18 +1330,28 @@ def _routed_fn(runtime, layout: "RouteLayout", side_key: Optional[str] = None):
     return step3
 
 
-def _split_fn(runtime, layout: RouteLayout):
+def _split_fn(runtime, layout: RouteLayout, side_key: Optional[str] = None):
     """The key-sharded step with a replicated batch, one shard a process:
     this process's keys' rows (``key % n == first``) take its state, at
     the step's input or at the selector's (``layout.split``), and the
-    emitted rows merge across processes by their global order (the input
-    rows' positions, which every process shares)."""
+    emitted rows merge across processes by their global order: the input
+    rows' positions, a keyed window's order keys over the global key
+    space (``ops/keyed_windows.KeySplit``), or a partitioned host window's
+    (``PartitionedHostWindow.key_split``). An order by / limit / offset
+    runs once, on the merged rows. ``side_key`` builds one side of a
+    partitioned join (its insert and probe split like any keyed step)."""
+    from siddhi_tpu_torch.core.plan.selector_plan import ORDER_COL, STR_RANK
+    from siddhi_tpu_torch.ops.exchange import all_gather_rows, all_gather_same
+    from siddhi_tpu_torch.ops.keyed_windows import KeySplit
+
     n, first = layout.n, layout.first
-    partitioned = layout.partitioned
+    partitioned, use_lut, localK = layout.partitioned, layout.use_lut, layout.localK
     dev = runtime.device
     ins_on = runtime._instruments_on()
     inner_slots = runtime._step_instrument_slots()
     select = layout.split == "select"
+    plan = runtime.selector_plan
+    what = f"query '{runtime.name}' sharded step"
 
     def take(cols):
         # behind a global window: the rows of other processes' groups
@@ -1082,13 +1363,26 @@ def _split_fn(runtime, layout: RouteLayout):
         cols[GK_KEY] = (gk // n).to(cols[GK_KEY].dtype)
         return cols
 
-    step = runtime.build_step_fn(split=take if select else None)
+    key_split = None if select else KeySplit(
+        n, first, lambda t: all_gather_same([t], _timeout(runtime), what)[0],
+        lambda t: all_gather_rows([t], _timeout(runtime), what)[0])
+    if side_key is not None:
+        side_step = runtime.build_side_step_fn(side_key, key_split=key_split)
+
+        def step(state, cols, now):
+            # the probe surfaces live in the state (keyed rings)
+            return side_step(state, {}, None, cols, now)
+    else:
+        step = runtime.build_step_fn(split=take if select else None,
+                                     key_split=key_split, unordered=plan.ordered)
     key_name = PK_KEY if partitioned else GK_KEY
 
     def sharded(state, cols, now):
         cols = dict(cols)
-        cols.pop(LUT_KEY, None)
-        cols.pop(INV_KEY, None)
+        lut, inv = cols.pop(LUT_KEY, None), cols.pop(INV_KEY, None)
+        if use_lut and lut is None:     # a direct caller: the layout's own
+            lut, inv = layout.device_luts()
+        host_notify = cols.pop(HOST_NOTIFY_KEY, None)
         valid = cols[VALID_KEY]
         B = valid.shape[0]
         owner = torch.where(valid, cols[key_name].to(torch.int64) % n,
@@ -1097,12 +1391,25 @@ def _split_fn(runtime, layout: RouteLayout):
             0, owner, torch.ones(B, dtype=torch.int64, device=dev))
         if not select:
             cols[VALID_KEY] = valid & (owner == first)
-            for k in (PK_KEY, GK_KEY):
-                if k in cols:
-                    cols[k] = (cols[k].to(torch.int64) // n).to(cols[k].dtype)
+            if PK_KEY in cols:
+                cols[PK_KEY] = (cols[PK_KEY].to(torch.int64) // n).to(cols[PK_KEY].dtype)
+            if GK_KEY in cols:
+                gk = cols[GK_KEY].to(torch.int64)
+                if use_lut:
+                    gl = torch.clamp(lut[torch.clamp(gk, 0, lut.shape[0] - 1)],
+                                     0, localK - 1)
+                else:
+                    gl = gk // n
+                cols[GK_KEY] = gl.to(cols[GK_KEY].dtype)
             cols[RIDX_KEY] = torch.arange(B, dtype=torch.int64, device=dev)
         out = dict(_step_on_shard(layout, step, state, 0, cols, now))
         meta = out.pop("__meta__")
+        if host_notify is not None:
+            # a host window's wake time joins the step's, so the merged
+            # meta gives every process the same next timer
+            nt = torch.where(meta[1] < 0, host_notify, torch.where(
+                host_notify < 0, meta[1], torch.minimum(meta[1], host_notify)))
+            meta = torch.cat([meta[:1], nt.reshape(1), meta[2:]])
         okey = out.pop(OKEY_KEY, None)
         if select or okey is None:
             # the selector is row-aligned with the window's emission, which
@@ -1110,13 +1417,31 @@ def _split_fn(runtime, layout: RouteLayout):
             okey = torch.arange(out[VALID_KEY].shape[0], dtype=torch.int64, device=dev)
         okey = torch.where(out[VALID_KEY], okey.to(torch.int64),
                            torch.full_like(okey, _ROUTE_BIG, dtype=torch.int64))
-        for k in (PK_KEY, GK_KEY):
-            if k in out and (k == GK_KEY or not select):
-                out[k] = (out[k].to(torch.int64) * n + first).to(out[k].dtype)
-        return state, _egress(layout, out, okey, meta[None], rows[first:first + 1],
-                              torch.zeros((), dtype=torch.int64, device=dev),
-                              ins_on, inner_slots, _timeout(runtime),
-                              f"query '{runtime.name}' sharded step")
+        if PK_KEY in out and not select:
+            pko = out[PK_KEY]
+            out[PK_KEY] = (pko.to(torch.int64) * n + first).to(pko.dtype)
+        if GK_KEY in out:
+            gko = out[GK_KEY]
+            if use_lut:
+                gg = inv[first, torch.clamp(gko.to(torch.int64), 0, localK - 1)]
+            else:
+                gg = gko.to(torch.int64) * n + first
+            out[GK_KEY] = gg.to(gko.dtype)
+        merged = _egress(layout, out, okey, meta[None], rows[first:first + 1],
+                         torch.zeros((), dtype=torch.int64, device=dev),
+                         ins_on, inner_slots, _timeout(runtime), what)
+        if plan.ordered:
+            # one global order, offset and limit over the merged rows
+            meta = merged.pop("__meta__")
+            side = {k[len(ORDER_COL):]: merged.pop(k) for k in list(merged)
+                    if k.startswith(ORDER_COL)}
+            if STR_RANK in cols:
+                side[STR_RANK] = cols[STR_RANK]
+            merged = plan.apply_order_limit(merged, side)
+            meta = meta.clone()
+            meta[2] = merged[VALID_KEY].sum(dtype=torch.int64)
+            merged["__meta__"] = meta
+        return state, merged
 
     return sharded
 

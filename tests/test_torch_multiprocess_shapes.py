@@ -1,0 +1,409 @@
+"""Every shape the key-sharded step splits across processes, on the CPU:
+spawned gloo groups of 2 and of 4 processes (on ``127.0.0.1`` and a free
+port) install ``shard_query_step`` over ``global_mesh()`` on each shape's
+queries, feed every process the same events, and every process's rows
+are held against the reference's single-process rows.
+
+The shapes, one parametrised case each:
+
+- ``group_by``: a partitioned query grouped by a key other than the
+  partition key (``torch_helpers.DISTINCT_GK_APP``): the group ids reach
+  their owner's local space through the layout's LUT;
+- ``group_by_distinct``: the same with ``distinctCount(volume)``, whose
+  value tables shard by group and run the distinct scan on each process;
+- ``order_limit_batch``: having, order by and limit behind a global
+  ``lengthBatch`` (the selector split by group);
+- ``order_limit_partitioned``: having, order by, offset and limit over a
+  partitioned ``length`` window (the ordering runs once, on the merged
+  rows);
+- ``keyed_windows``: ``time``, ``timeBatch``, ``externalTime`` and
+  ``session`` inside one partition, under ``@app:playback`` (their TIMER
+  steps, swept chains included);
+- ``more_keyed_windows``: ``lengthBatch``, ``timeLength``, ``hopping``
+  and ``batch`` inside one partition;
+- ``host_window``: a partitioned ``sort`` window (one host instance a
+  key, each process holding its own keys');
+- ``inner_stream``: a partitioned query feeding a partition-mate through
+  an inner ``#stream`` (rows carry the partition key); the mate splits,
+  the stateless producer runs whole;
+- ``pattern_group_by``: a partitioned pattern grouped by a capture: the
+  match slots split by partition key, and the host keys the merged
+  matches and selects on every process, its selector state whole;
+- ``partitioned_join``: a partitioned join of a ``length`` and a ``time``
+  window, each side split at the input, the matches merged in the
+  unsharded (trigger row, slot) order; its 40 keys grow the layout
+  mid-feed at 2 processes;
+- ``unpartitioned_join``: a grouped join with no partition runs whole on
+  every process (no key axis to split).
+
+The shapes ``shard_query_step`` does not split yet raise naming ROADMAP
+A.11 (checked without a process group).
+
+The children import ``siddhi_tpu_torch`` only, and each asserts at its
+end that neither ``jax`` nor ``siddhi_tpu`` was imported. Tolerance
+(``torch_helpers``): ints, strings, timestamps and order exact; floats to
+rtol 1e-12.
+"""
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import pytest
+import torch
+
+from torch_helpers import (
+    DISTINCT_GK_APP,
+    PLAYBACK_STOCK,
+    assert_rows_match,
+    release_jax_programs,  # noqa: F401 — autouse fixture: frees JAX programs
+)
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+GK_DISTINCT_APP = DISTINCT_GK_APP.replace(
+    "sum(volume) as tv", "sum(volume) as tv, distinctCount(volume) as dv")
+
+ORDER_BATCH_APP = PLAYBACK_STOCK + """
+@info(name = 'q')
+from S#window.lengthBatch(6)
+select symbol, sum(volume) as tv, max(price) as mp
+group by symbol having tv > 20
+order by tv desc, symbol limit 3
+insert into Out;
+"""
+
+ORDER_PARTITIONED_APP = PLAYBACK_STOCK + """
+partition with (symbol of S)
+begin
+  @info(name = 'q')
+  from S#window.length(4)
+  select symbol, avg(price) as ap, sum(volume) as tv
+  having tv > 10
+  order by ap desc limit 5 offset 1
+  insert into Out;
+end;
+"""
+
+WINDOWS_APP = PLAYBACK_STOCK + """
+partition with (symbol of S)
+begin
+  @info(name = 'qt') from S#window.time(1 sec)
+  select symbol, sum(volume) as tv, count() as c insert all events into OT;
+  @info(name = 'qtb') from S#window.timeBatch(1 sec)
+  select symbol, sum(volume) as tv insert into OTB;
+  @info(name = 'qet') from S#window.externalTime(ts, 800 millisec)
+  select symbol, max(price) as mp, avg(price) as ap insert all events into OET;
+  @info(name = 'qs') from S#window.session(500 millisec)
+  select symbol, sum(volume) as tv, count() as c insert all events into OS;
+end;
+"""
+
+MORE_WINDOWS_APP = PLAYBACK_STOCK + """
+partition with (symbol of S)
+begin
+  @info(name = 'qlb') from S#window.lengthBatch(3)
+  select symbol, sum(volume) as tv insert all events into OLB;
+  @info(name = 'qtl') from S#window.timeLength(1 sec, 3)
+  select symbol, sum(volume) as tv insert all events into OTL;
+  @info(name = 'qh') from S#window.hopping(1 sec, 500 millisec)
+  select symbol, count() as c insert into OH;
+  @info(name = 'qb') from S#window.batch()
+  select symbol, max(price) as mp insert into OB;
+end;
+"""
+
+HOST_WINDOW_APP = PLAYBACK_STOCK + """
+partition with (symbol of S)
+begin
+  @info(name = 'q') from S#window.sort(3, price)
+  select symbol, sum(volume) as tv, min(price) as lo insert all events into Out;
+end;
+"""
+
+INNER_STREAM_APP = PLAYBACK_STOCK + """
+partition with (symbol of S)
+begin
+  @info(name = 'q1') from S[volume > 5]
+  select symbol, price * 2.0 as p2, volume insert into #T;
+  @info(name = 'q2') from #T#window.length(3)
+  select symbol, sum(p2) as sp, count() as c insert into Out;
+end;
+"""
+
+PATTERN_GROUP_APP = """
+@app:playback
+define stream A (k string, v double);
+define stream B (k string, v double);
+partition with (k of A, k of B)
+begin
+  @info(name = 'q')
+  from every e1=A -> e2=B[e2.v > e1.v] within 2 sec
+  select e1.v as v1, sum(e2.v) as total, count() as c
+  group by e1.v
+  insert into Out;
+end;
+"""
+
+JOIN_APP = """
+@app:playback
+define stream L (k string, v double);
+define stream R (k string, v double);
+partition with (k of L, k of R)
+begin
+  @info(name = 'q')
+  from L#window.length(4) join R#window.time(1 sec)
+    on L.v > R.v
+  select L.k as k, L.v as lv, R.v as rv
+  insert into Out;
+end;
+"""
+
+GLOBAL_JOIN_APP = """
+@app:playback
+define stream L (k string, v double);
+define stream R (k string, v double);
+@info(name = 'q')
+from L#window.length(4) join R#window.length(4)
+  on L.k == R.k
+select L.k as k, count() as n, max(R.v) as top
+group by L.k
+insert into Out;
+"""
+
+# name -> (app, the queries given to shard_query_step, the output
+# streams, the feed)
+SHAPES = {
+    "group_by": (DISTINCT_GK_APP, ["q"], ["Out"], "side"),
+    "group_by_distinct": (GK_DISTINCT_APP, ["q"], ["Out"], "side"),
+    "order_limit_batch": (ORDER_BATCH_APP, ["q"], ["Out"], "mixed"),
+    "order_limit_partitioned": (ORDER_PARTITIONED_APP, ["q"], ["Out"], "mixed"),
+    "keyed_windows": (WINDOWS_APP, ["qt", "qtb", "qet", "qs"],
+                      ["OT", "OTB", "OET", "OS"], "mixed"),
+    "more_keyed_windows": (MORE_WINDOWS_APP, ["qlb", "qtl", "qh", "qb"],
+                           ["OLB", "OTL", "OH", "OB"], "mixed"),
+    "host_window": (HOST_WINDOW_APP, ["q"], ["Out"], "mixed"),
+    "inner_stream": (INNER_STREAM_APP, ["q1", "q2"], ["Out"], "mixed"),
+    "pattern_group_by": (PATTERN_GROUP_APP, ["q"], ["Out"], "pattern"),
+    "partitioned_join": (JOIN_APP, ["q"], ["Out"], "join"),
+    "unpartitioned_join": (GLOBAL_JOIN_APP, ["q"], ["Out"], "join"),
+}
+
+# where each query of a shape takes its rows: at the input, at the
+# selector, or nowhere (None: a query with no keyed state runs whole)
+SPLITS = {"order_limit_batch": ["select"], "inner_stream": [None, "input"],
+          "unpartitioned_join": [None]}
+
+# the feeds, made from a seed in every process alike (numpy only): a
+# torch_helpers generator, its arguments, and its sender (stream S's
+# ``send_feed`` or the multi-stream ``send_multi``)
+FEEDS = {
+    "side": ("side_feed", dict(seed=2, n_batches=3, batch=64, n_symbols=13,
+                               n_sides=5, n_events=16), "send_feed"),
+    "mixed": ("mixed_feed", dict(seed=3, n_events=20, n_batches=3, batch=16,
+                                 n_symbols=9), "send_feed"),
+    "pattern": ("two_stream_feed", dict(seed=4, streams=("A", "B"), n_items=30,
+                                        n_keys=7), "send_multi"),
+    # 40 keys: past the 2-process layout's 32 key rows, so the join's
+    # capacity grows mid-feed (a state gather and a relayout)
+    "join": ("two_stream_feed", dict(seed=5, streams=("L", "R"), n_items=30,
+                                     n_keys=40), "send_multi"),
+}
+
+WORKER = textwrap.dedent('''
+    import os
+    import pickle
+    import sys
+
+    root, port, P, rank, out = sys.argv[1:6]
+    P, rank = int(P), int(rank)
+    sys.path[:0] = [root, os.path.join(root, "tests")]
+    import torch
+
+    torch.set_num_threads(1)
+    from siddhi_tpu_torch.parallel import distributed
+
+    distributed.initialize_cluster(f"127.0.0.1:{port}", P, rank, device="cpu")
+    import siddhi_tpu_torch
+    import torch_helpers
+    from siddhi_tpu_torch.parallel.mesh import shard_query_step
+
+    SHAPES, FEEDS = pickle.loads(bytes.fromhex(sys.argv[6]))
+    res = {}
+    for name, (app, queries, streams, feed) in SHAPES.items():
+        m = siddhi_tpu_torch.SiddhiManager(device="cpu")
+        rt = m.create_siddhi_app_runtime(app)
+        sinks = {}
+        for s in streams:
+            sinks[s] = torch_helpers.make_collector(siddhi_tpu_torch.StreamCallback)
+            rt.add_callback(s, sinks[s])
+        splits = []
+        for q in queries:
+            qr = rt.query_runtimes[q]
+            shard_query_step(qr, distributed.global_mesh())
+            layout = qr._route_layout       # None: no keyed state, run whole
+            splits.append(None if layout is None else layout.split)
+        torch_helpers.drive(rt, *FEEDS[feed])
+        m.shutdown()
+        res[name] = (splits, {s: c.rows for s, c in sinks.items()})
+    bad = [k for k in sys.modules if k in ("jax", "siddhi_tpu")
+           or k.startswith(("jax.", "siddhi_tpu."))]
+    assert not bad, bad
+    res["imports_clean"] = True
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    os._exit(0)
+''')
+
+PROCESSES = (2, 4)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _shared_dir(tmp_path_factory) -> Path:
+    """A directory every test worker of this session shares: the
+    session's base temp under xdist, this process's own otherwise."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    root = base / "gloo_shapes"
+    root.mkdir(exist_ok=True)
+    return root
+
+
+class _Group:
+    """One gloo group of ``P`` processes running every shape: spawned by
+    the session's first test worker to need it, whose results every
+    worker reads (a worker that runs one shape's case must not start its
+    own groups)."""
+
+    def __init__(self, root: Path, P: int):
+        self.outs = [root / f"shapes{P}_{r}.pkl" for r in range(P)]
+        self.logs = [root / f"shapes{P}_{r}.log" for r in range(P)]
+        self.done = root / f"shapes{P}.done"
+        self.procs = []
+        self._res = None
+        try:
+            os.close(os.open(root / f"shapes{P}.owner",
+                             os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+        except FileExistsError:
+            return          # another worker spawned it
+        port = _free_port()
+        env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+        blob = pickle.dumps((SHAPES, FEEDS)).hex()
+        for r in range(P):
+            with open(self.logs[r], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-c", WORKER, str(ROOT), str(port), str(P),
+                     str(r), str(self.outs[r]), blob],
+                    stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(root)))
+
+    def results(self):
+        if self._res is None:
+            if self.procs:
+                for p in self.procs:
+                    try:
+                        p.wait(timeout=240)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                self.done.touch()
+            else:
+                deadline = time.time() + 300
+                while not self.done.exists():
+                    assert time.time() < deadline, "the spawning worker never finished"
+                    time.sleep(0.5)
+            self._res = {r: (pickle.loads(out.read_bytes()) if out.exists()
+                             else log.read_text()[-3000:])
+                         for r, (out, log) in enumerate(zip(self.outs, self.logs))}
+        for r, v in self._res.items():
+            assert isinstance(v, dict), f"process {r} failed:\n{v}"
+        return self._res
+
+
+@pytest.fixture(scope="session")
+def groups(tmp_path_factory):
+    started = {P: _Group(_shared_dir(tmp_path_factory), P) for P in PROCESSES}
+    yield started
+    for g in started.values():
+        for p in g.procs:
+            if p.poll() is None:
+                p.kill()
+
+
+_REF = {}
+
+
+def _ref_rows(name):
+    """The reference's single-process rows of a shape, by output stream
+    (made while the groups run)."""
+    if name not in _REF:
+        import siddhi_tpu
+        import torch_helpers
+
+        app, _queries, streams, feed = SHAPES[name]
+        m = siddhi_tpu.SiddhiManager()
+        rt = m.create_siddhi_app_runtime(app)
+        sinks = {s: torch_helpers.make_collector(siddhi_tpu.StreamCallback)
+                 for s in streams}
+        for s, c in sinks.items():
+            rt.add_callback(s, c)
+        torch_helpers.drive(rt, *FEEDS[feed])
+        m.shutdown()
+        _REF[name] = {s: c.rows for s, c in sinks.items()}
+    return _REF[name]
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_shape_split_across_processes_equals_the_reference(groups, shape):
+    """The shape at 2 and at 4 processes: every process's rows equal the
+    reference's single-process rows."""
+    want = _ref_rows(shape)
+    assert any(want.values()), shape
+    expect = SPLITS.get(shape, ["input"] * len(SHAPES[shape][1]))
+    for P, g in groups.items():
+        for r, res in g.results().items():
+            splits, got = res[shape]
+            assert splits == expect, (P, r, splits)
+            for stream, rows in want.items():
+                assert_rows_match(got[stream], rows)
+
+
+@pytest.mark.parametrize("app,query", [
+    (JOIN_APP.replace("select L.k as k", "select L.k as k, count() as n").replace(
+        "insert into Out", "group by L.v insert into Out"), "q"),
+    (PATTERN_GROUP_APP.replace("group by e1.v", "order by v1 limit 3").replace(
+        ", sum(e2.v) as total, count() as c", ""), "q"),
+    (PLAYBACK_STOCK + "partition with (symbol of S) begin @info(name = 'q') "
+     "from S#window.delay(1 sec) select symbol, sum(volume) as tv insert into Out; end;",
+     "q"),
+], ids=["join_group_by", "pattern_order_by", "delay_window"])
+def test_shapes_not_split_yet_name_a11(app, query):
+    """The split mode of a shape not split yet raises naming A.11."""
+    import siddhi_tpu_torch
+    from siddhi_tpu_torch.parallel.mesh import _split_mode
+
+    m = siddhi_tpu_torch.SiddhiManager(device="cpu")
+    q = m.create_siddhi_app_runtime(app).query_runtimes[query]
+    try:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.11"):
+            _split_mode(q)
+    finally:
+        m.shutdown()
+
+
+def test_children_import_neither_jax_nor_the_reference(groups):
+    # last: the shapes' references run while the groups do
+    for P, g in groups.items():
+        for r, res in g.results().items():
+            assert res["imports_clean"], (P, r)

@@ -322,6 +322,17 @@ def send_multi(rt, feed):
             h.send(a, b)
 
 
+def drive(rt, fn, kwargs, sender):
+    """Feed ``rt`` the feed this module's generator ``fn`` makes from
+    ``kwargs``, through ``sender``: ``"send_feed"`` (stream S) or
+    ``"send_multi"`` (the streams the feed names)."""
+    feed = globals()[fn](**kwargs)
+    if sender == "send_feed":
+        send_feed(rt, "S", feed)
+    else:
+        send_multi(rt, feed)
+
+
 def run_both_multi(app, feed, out="O", query="q", config=None):
     """``send_multi`` of ``feed`` through the JAX package and the port:
     ``{pkg: stream rows}``."""
