@@ -793,18 +793,20 @@ def make_feed(seed: int, n_batches: int, batch: int, n_symbols: int):
 def run_slice(device, feed, *, routed: bool, window: int = WINDOW,
               key_slots: int = KEY_SLOTS, n_shards: int = N_SHARDS,
               rows_per_shard: int = ROWS_PER_SHARD, on_route=None, send=None,
-              mesh=None, exchange: str = "pallas_ring"):
+              mesh=None, exchange: str = "pallas_ring", knobs=None):
     """Drive the flagship through the public API on ``device``. Returns
     (per-batch output column dicts, per-batch seconds, runtime facts).
     ``send(h, feed, device)`` sends the feed (default ``send_timed``);
     ``mesh`` routes over it (default ``make_mesh(n_shards, device)``) with
-    ``exchange`` (``siddhi_tpu.shard_exchange``)."""
+    ``exchange`` (``siddhi_tpu.shard_exchange``); ``knobs`` adds other
+    ``siddhi_tpu.*`` settings."""
     from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
 
     m = SiddhiManager(device=device)
     m.set_config_manager(InMemoryConfigManager(
-        {"siddhi_tpu.shard_exchange": exchange}))
+        {"siddhi_tpu.shard_exchange": exchange,
+         **{f"siddhi_tpu.{k}": str(v) for k, v in (knobs or {}).items()}}))
     rt = m.create_siddhi_app_runtime(APP.format(W=window))
     _require(rt.app_context.precision == "exact", "precision is not exact")
     cb = collector()
@@ -9272,7 +9274,7 @@ def phase_distributed(device, feed, routed, fused, card: str):
     _require(not torch.distributed.is_initialized(), "DS: the group outlived the phase")
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"[distributed] phase 31 in {res['phase_s']:.1f} s [{card}]", flush=True)
-    return res, k8, ds_scans
+    return res, k8, ds_scans, gm
 
 
 def routed_child(port: str, n_proc: str, rank: str, out: str) -> int:
@@ -9295,8 +9297,9 @@ def routed_child(port: str, n_proc: str, rank: str, out: str) -> int:
     try:
         feed = make_feed(5, N_BATCHES, BATCH, NUM_SYMBOLS)
         ring_exchange.launches = 0
-        # across processes the remote pairs take the group's collective
-        # (pallas_ring there is K8 over NVLink, ROADMAP B.10)
+        # across processes all_to_all moves the remote pairs with the
+        # group's collective (pallas_ring there is K8's peer writes through
+        # CUDA IPC: phase 33)
         batches, secs, facts = run_slice(
             dev, feed, routed=True, mesh=distributed.global_mesh(N_SHARDS // P),
             exchange="all_to_all")
@@ -9365,7 +9368,16 @@ SP_SPAN_MS = 1_000              # event time a batch spans
 # shapes cut in depth, to keep the phase near 90 s: the keyed windows'
 # TIMER steps (a timeBatch tick drains 64 of the 10,000 keys a step), the
 # host window's Python instance a key, the pattern's host keyed select
-SP_CUT = {"keyed_windows": 2, "host_window": 2, "pattern_group_by": 4}
+SP_CUT = {"keyed_windows": 2, "host_window": 2, "pattern_group_by": 4,
+          "pattern_order_by": 4, "join_order_by": 4, "join_group_by": 2,
+          "join_aggregation": 4, "delay_window": 2, "join_batch_window_side": 4,
+          "join_store_side": 2}
+# the delay ring holds a whole batch and the rows still held
+SP_KNOBS = {"delay_window": {"window_capacity": 131_072}}
+# event time a batch spans where it is not SP_SPAN_MS: a playback delay
+# takes a TIMER step a millisecond of event time it releases, so its feed
+# runs at 10 times the rate (the same rows and keys a batch)
+SP_SPAN = {"delay_window": 100}
 SP_SHIM_BATCHES = 4             # gate 3
 SP_TIMEOUT_S = 600
 SP_STREAM = ("@app:playback\ndefine stream S (symbol string, side string, "
@@ -9455,12 +9467,72 @@ begin
   select L.k as k, L.v as lv, R.v as rv
   insert into Out;
 end;""", ["q"], ["Out"], "LR"),
+    # A.11's later shapes: an ordering without a group by, a join's group
+    # by and aggregation, the delay window inside a partition
+    "pattern_order_by": (SP_TWO.format(a="A", b="B") + """
+partition with (k of A, k of B)
+begin
+  @info(name = 'q') from every e1=A -> e2=B[e2.v > e1.v] within 1 sec
+  select e1.v as v1, e2.v as v2 order by v1 limit 100
+  insert into Out;
+end;""", ["q"], ["Out"], "AB"),
+    "join_order_by": (SP_TWO.format(a="L", b="R") + """
+partition with (k of L, k of R)
+begin
+  @info(name = 'q') from L#window.length(4) join R#window.time(1 sec)
+    on L.v > R.v
+  select L.k as k, L.v as lv, R.v as rv order by rv desc, lv limit 100
+  insert into Out;
+end;""", ["q"], ["Out"], "LR"),
+    "join_group_by": (SP_TWO.format(a="L", b="R") + """
+partition with (k of L, k of R)
+begin
+  @info(name = 'q') from L#window.length(4) join R#window.time(1 sec)
+    on L.v > R.v
+  select L.k as k, count() as n group by L.v
+  insert into Out;
+end;""", ["q"], ["Out"], "LR"),
+    "join_aggregation": (SP_TWO.format(a="L", b="R") + """
+partition with (k of L, k of R)
+begin
+  @info(name = 'q') from L#window.length(4) join R#window.time(1 sec)
+    on L.v > R.v
+  select L.k as k, sum(R.v) as total, count() as n
+  insert into Out;
+end;""", ["q"], ["Out"], "LR"),
+    "delay_window": (SP_STREAM + """
+partition with (symbol of S)
+begin
+  @info(name = 'q') from S#window.delay(50 millisec)
+  select symbol, sum(volume) as tv insert into Out;
+end;""", ["q"], ["Out"], "S"),
+    # a join's other sides: a lengthBatch window, and a table (R's rows
+    # under 1.0, about 650 a batch, inserted outside the partition) probed
+    # by key. The global side (each row copied to every one of 10,000
+    # keys) is held on the CPU only (tests/test_torch_multiprocess_shapes.py)
+    "join_batch_window_side": (SP_TWO.format(a="L", b="R") + """
+partition with (k of L, k of R)
+begin
+  @info(name = 'q') from L#window.length(4) join R#window.lengthBatch(4)
+    on L.v > R.v
+  select L.k as k, L.v as lv, R.v as rv
+  insert into Out;
+end;""", ["q"], ["Out"], "LR"),
+    "join_store_side": (SP_TWO.format(a="L", b="R") + """
+define table T (k string, v double);
+from R[v < 1.0] select k, v insert into T;
+partition with (k of L)
+begin
+  @info(name = 'q') from L#window.length(4) join T on L.k == T.k
+  select L.k as k, L.v as lv, T.v as rv
+  insert into Out;
+end;""", ["q"], ["Out"], "LR"),
 }
 
 
-def sp_feed(shape_feed: str, n_batches: int):
+def sp_feed(shape_feed: str, n_batches: int, span_ms: int = SP_SPAN_MS):
     """Phase 32's feed: ``n_batches`` batches of ``BATCH`` rows over
-    ``NUM_SYMBOLS`` keys, each batch ``SP_SPAN_MS`` of event time (so time
+    ``NUM_SYMBOLS`` keys, each batch ``span_ms`` of event time (so time
     windows and timers turn over between and inside batches). Prices and values
     are multiples of 0.25 (exact sums, in any order). ``"S"``: stream S;
     two letters: batches alternating on those two streams."""
@@ -9471,8 +9543,8 @@ def sp_feed(shape_feed: str, n_batches: int):
     sides = np.array([f"side{i}" for i in range(5)], dtype=object)
     items = []
     for i in range(n_batches):
-        ts = 1_000 + i * SP_SPAN_MS + (np.arange(BATCH, dtype=np.int64)
-                                       * SP_SPAN_MS) // BATCH
+        ts = 1_000 + i * span_ms + (np.arange(BATCH, dtype=np.int64)
+                                    * span_ms) // BATCH
         if shape_feed == "S":
             items.append(("S", {
                 "symbol": syms[rng.integers(0, NUM_SYMBOLS, BATCH)],
@@ -9497,12 +9569,15 @@ def sp_run(device, name: str, split: bool):
     import numpy as np
     import torch
 
-    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
     from siddhi_tpu_torch.parallel import distributed
     from siddhi_tpu_torch.parallel.mesh import shard_query_step
 
     app, queries, streams, feed = SP_SHAPES[name]
     m = SiddhiManager(device=device)
+    if name in SP_KNOBS:
+        m.set_config_manager(InMemoryConfigManager(
+            {f"siddhi_tpu.{k}": str(v) for k, v in SP_KNOBS[name].items()}))
     rt = m.create_siddhi_app_runtime(app)
     cbs = {s: collector() for s in streams}
     for s, cb in cbs.items():
@@ -9513,7 +9588,7 @@ def sp_run(device, name: str, split: bool):
             qr = rt.query_runtimes[q]
             shard_query_step(qr, distributed.global_mesh())
             splits.append(None if qr._route_layout is None else qr._route_layout.split)
-    items = sp_feed(feed, SP_CUT.get(name, SP_BATCHES))
+    items = sp_feed(feed, SP_CUT.get(name, SP_BATCHES), SP_SPAN.get(name, SP_SPAN_MS))
     handlers = {s: rt.get_input_handler(s) for s in {it[0] for it in items}}
     seconds = []
     for stream, cols, ts in items:
@@ -9590,9 +9665,11 @@ def split_child(port: str, n_proc: str, rank: str, out: str) -> int:
     return 0
 
 
-def sp_children(P: int):
-    """Gate 2's ``--split-child`` processes, each one's pickled results;
-    every process stopped whatever happens."""
+def sp_children(P: int, beside=None):
+    """Gate 2's ``--split-child`` processes, each one's pickled results,
+    and ``beside()``'s result: it runs in this process while the children
+    run (their outputs go to files); every process stopped whatever
+    happens."""
     import os
     import pickle
     import tempfile
@@ -9600,16 +9677,23 @@ def sp_children(P: int):
     port = _free_port()
     tmp = tempfile.mkdtemp(prefix="sp_gloo_")
     outs = [os.path.join(tmp, f"r{r}.pkl") for r in range(P)]
+    logs = [os.path.join(tmp, f"r{r}.log") for r in range(P)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               "--split-child", str(port), str(P), str(r), outs[r]],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(P)]
-    logs = []
+    procs = []
     try:
+        for r in range(P):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--split-child",
+                     str(port), str(P), str(r), outs[r]],
+                    stdout=log, stderr=subprocess.STDOUT))
+        mine = beside() if beside is not None else None
+        deadline = time.perf_counter() + SP_TIMEOUT_S
         for p in procs:
-            out, _ = p.communicate(timeout=SP_TIMEOUT_S)
-            logs.append(out[-3000:])
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                pass
     finally:
         for p in procs:
             if p.poll() is None:
@@ -9617,11 +9701,13 @@ def sp_children(P: int):
                 p.wait()
     res = []
     for r, (p, path) in enumerate(zip(procs, outs)):
+        with open(logs[r]) as f:
+            tail = f.read()[-3000:]
         _require(p.returncode == 0 and os.path.exists(path),
-                 f"SP gate 2: process {r} exited {p.returncode}:\n{logs[r]}")
+                 f"SP gate 2: process {r} exited {p.returncode}:\n{tail}")
         with open(path, "rb") as f:
             res.append(pickle.load(f))
-    return res, time.perf_counter() - t0
+    return res, mine, time.perf_counter() - t0
 
 
 def sp_c11(device, card: str) -> dict:
@@ -9771,18 +9857,24 @@ def phase_split(device, card: str):
 
     t_phase = time.perf_counter()
     res = {"c11": sp_c11(device, card)}
-    # gate 2: each shape in one process on the card, then split over two
-    single, scans = {}, {}
-    for name in SP_SHAPES:
-        if name == "group_by_distinct":
-            distinct_scan.launches = 0
-        rows, secs, facts = sp_run(device, name, split=False)
-        if name == "group_by_distinct":
-            scans["SP_single"] = distinct_scan.launches
-        single[name] = (rows, secs, facts)
+    # gate 2: each shape split over two processes, and meanwhile in this
+    # one process on the card
+    scans = {}
+
+    def one_process():
+        single = {}
+        for name in SP_SHAPES:
+            if name == "group_by_distinct":
+                distinct_scan.launches = 0
+            rows, secs, facts = sp_run(device, name, split=False)
+            if name == "group_by_distinct":
+                scans["SP_single"] = distinct_scan.launches
+            single[name] = (rows, secs, facts)
+        return single
+
     _require(not torch.distributed.is_initialized(), "SP: a group is up before gate 2")
     P = 2
-    children, wall = sp_children(P)
+    children, single, wall = sp_children(P, beside=one_process)
     res["shapes"] = {}
     for name, (want, secs1, facts1) in single.items():
         pair = SP_SHAPES[name][3] != "S"
@@ -9808,7 +9900,7 @@ def phase_split(device, card: str):
         print(f"[split] gate 2 {name}: {shape['rows']} rows; both processes' "
               f"rows == one process's; events/s a process "
               f"{shape['rank0']['eps']:.1f} / {shape['rank1']['eps']:.1f} (one "
-              f"process {shape['single_eps']:.1f}); state bytes a process "
+              f"process, beside them, {shape['single_eps']:.1f}); state bytes a process "
               f"{shape['rank0']['state_bytes']} / {shape['rank1']['state_bytes']} "
               f"(one process {shape['single_state_bytes']}) [{card}]", flush=True)
     res["two_processes_wall_s"] = wall
@@ -9816,6 +9908,354 @@ def phase_split(device, card: str):
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"[split] phase 32 in {res['phase_s']:.1f} s [{card}]", flush=True)
     return res, scans
+
+
+# ----------------------- phase 33: K8 across processes, peer writes through CUDA IPC
+
+PX_RECORD_AT = 2                # the exchange call held against the plain path
+PX_TIMED = 30                   # timed calls of each exchange (median)
+PX_BAD_TIMEOUT_S = 10.0         # gate 3's cluster_step_timeout
+PX_TIMEOUT_S = 300
+
+
+class PeerRecorder:
+    """Stands in for ``peer_exchange_cols`` in the routed step; every call
+    goes through to the wrapper. Call ``at``'s send buffers are cloned
+    before it and its receive buffers after it (the arena half it returns
+    is rewritten two calls later); ``peer`` keeps its exchange state."""
+
+    def __init__(self, at: int):
+        self.at, self.calls = at, 0
+        self.bufs = self.got = self.peer = None
+
+    def __call__(self, bufs, peer, timeout_s=None, what="shard exchange"):
+        from siddhi_tpu_torch.ops.exchange import peer_exchange_cols
+
+        i, self.calls = self.calls, self.calls + 1
+        if i == self.at:
+            self.bufs = [b.clone() for b in bufs]
+        out = peer_exchange_cols(bufs, peer, timeout_s, what)
+        if i == self.at:
+            self.got, self.peer = [o.clone() for o in out], peer
+        return out
+
+
+def _byte_view(t):
+    import torch
+
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def px_measure(rec, P: int) -> dict:
+    """Gate 1 in one process of the group (every process runs it in step:
+    each call holds collectives): the recorded call's send buffers through
+    the plain path (``ring_exchange_cols`` plus ``all_to_all_cols`` over
+    gloo), held bit for bit against what the kernel wrote; then, on the
+    same buffers, the peer exchange's card ms (CUDA events around a call,
+    median), its host enqueue ms, its kernel's device ms (torch.profiler,
+    L2 flushed before each call), the plain path's ms, and one gloo
+    ``all_to_all_single`` of the same bytes (host clock to its end)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch.ops import exchange as ex
+
+    peer, bufs = rec.peer, rec.bufs
+    n, L, p = peer.n, peer.L, peer.p
+    plain = ex.process_exchange_plain(bufs, n, L, p, 60.0, "PX plain")
+    torch.cuda.synchronize()
+    for i, (k, w) in enumerate(zip(rec.got, plain)):
+        _require(k.dtype == w.dtype and k.shape == w.shape
+                 and torch.equal(_byte_view(k), _byte_view(w)),
+                 f"PX gate 1: process {p} column {i} ({w.dtype} {tuple(w.shape)}) "
+                 f"differs from the plain path")
+    out = {"columns": len(plain), "max_abs_err": 0.0}
+
+    def call():
+        return ex.peer_exchange_cols(bufs, peer, 60.0, "PX timed")
+
+    call()
+    torch.cuda.synchronize()
+    card, host = [], []
+    for _ in range(PX_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        call()
+        b.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.synchronize()
+        card.append(a.elapsed_time(b))
+    out["ms"], out["host_ms"] = statistics.median(card), statistics.median(host)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=bufs[0].device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(PX_TIMED):
+            flush.fill_(i & 0xFF)
+            call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "peer_exchange_cols_kernel" in e.key]
+    seen = sum(e.count for e in events)
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
+    out["device_ms"] = us / 1e3 / seen if seen and us else None
+    out["device_seen"] = seen
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(PX_TIMED):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out["plain_ms"] = timed(lambda: ex.process_exchange_plain(bufs, n, L, p, 60.0, "PX"))
+    # the library call: one all_to_all_single of every column's bytes,
+    # packed once (the packing is the plain path's, not timed here)
+    blocks = [b.view((L, P, L * (b.shape[1] // n)) + tuple(b.shape[2:])).transpose(0, 1)
+              for b in bufs]
+    send, _offs = ex._pack_rows([blk.contiguous() for blk in blocks], P)
+    send = send.contiguous().view(-1)
+    recv = torch.empty_like(send)
+    out["library_ms"] = timed(lambda: dist.all_to_all_single(recv, send))
+    nbytes = sum(b.numel() * b.element_size() for b in bufs)
+    out["bytes"] = nbytes
+    out["cross_bytes"] = nbytes * (n - L) // n
+    # read once and written once, at the HBM rate: the bytes stay in one
+    # card's memory when the processes share it
+    out["bound_ms"] = 2 * nbytes / H100_BYTES_PER_S * 1e3
+    out["cross_bound_ms"] = 2 * out["cross_bytes"] / H100_BYTES_PER_S * 1e3
+    return out
+
+
+def peer_child(port: str, n_proc: str, rank: str, out: str, mode: str) -> int:
+    """``python3 chip_smoke.py --peer-child PORT P RANK OUT MODE``: one
+    process of a gloo group on the card (every process on ``cuda:0``)
+    routing the flagship over ``global_mesh(N_SHARDS // P)`` on phase 4's
+    feed under ``pallas_ring``, the exchange call ``PX_RECORD_AT``
+    recorded. MODE ``run``: then gate 1 (``px_measure``) and the same
+    feed under ``all_to_all``; ``rows``: the rows alone; ``corrupt``:
+    process 1 flips the bytes of process 0's arena handle before opening
+    it, and every process bounds its collectives by ``PX_BAD_TIMEOUT_S``.
+    Pickles to OUT each run's batches, seconds and facts, and the
+    launches of the peer kernel, K8 on one card and ``all_to_all_cols``."""
+    import pickle
+
+    import torch
+
+    from siddhi_tpu_torch.ops import exchange as ex
+    from siddhi_tpu_torch.parallel import distributed
+    from siddhi_tpu_torch.parallel import mesh as mesh_mod
+
+    P, r = int(n_proc), int(rank)
+    dev = torch.device("cuda", 0)
+    distributed.initialize_cluster(f"127.0.0.1:{port}", P, r, backend="gloo", device=dev)
+    res = {"info": distributed.process_info(), "mode": mode}
+    a2a = {"calls": 0}
+    plain_a2a = ex.all_to_all_cols
+
+    def counted_a2a(*a, **k):
+        a2a["calls"] += 1
+        return plain_a2a(*a, **k)
+
+    def zero():
+        ex.peer_exchange_cols.launches = 0
+        ex.ring_exchange.launches = 0
+        a2a["calls"] = 0
+
+    def counts():
+        return {"peer": ex.peer_exchange_cols.launches, "k8": ex.ring_exchange.launches,
+                "all_to_all": a2a["calls"]}
+
+    try:
+        feed = make_feed(5, N_BATCHES, BATCH, NUM_SYMBOLS)
+        mesh = distributed.global_mesh(N_SHARDS // P)
+        knobs = {}
+        if mode == "corrupt":
+            knobs["cluster_step_timeout"] = PX_BAD_TIMEOUT_S
+            if r == 1:
+                trade = ex.PeerExchange._trade
+
+                def corrupt(self, payload, timeout_s, what):
+                    rows = trade(self, payload, timeout_s, what)
+                    H = ex.IPC_HANDLE_BYTES
+                    rows[0] = bytes(b ^ 0xFF for b in rows[0][:H]) + rows[0][H:]
+                    return rows
+
+                ex.PeerExchange._trade = corrupt
+        rec = PeerRecorder(PX_RECORD_AT)
+        mesh_mod.peer_exchange_cols, ex.all_to_all_cols = rec, counted_a2a
+        batches, secs, facts = run_slice(dev, feed, routed=True, mesh=mesh,
+                                         exchange="pallas_ring", on_route=zero, knobs=knobs)
+        res["pallas_ring"] = {"batches": batches, "seconds": secs, **facts, **counts()}
+        mesh_mod.peer_exchange_cols = ex.peer_exchange_cols
+        if mode == "run":
+            res["gate1"] = px_measure(rec, P)
+            batches, secs, facts = run_slice(dev, feed, routed=True, mesh=mesh,
+                                             exchange="all_to_all", on_route=zero)
+            res["all_to_all"] = {"batches": batches, "seconds": secs, **facts, **counts()}
+        if rec.peer is not None:
+            rec.peer.close(60.0)
+    finally:
+        distributed.shutdown_cluster()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def px_children(P: int, mode: str, first_wait: int = PX_TIMEOUT_S):
+    """``--peer-child`` processes; each one's exit code, pickled results
+    (None without) and the tail of its output, and the wall seconds. In
+    ``corrupt`` mode process 1 is waited for first and the rest are given
+    ``4 * PX_BAD_TIMEOUT_S`` more; every process is stopped whatever
+    happens."""
+    import os
+    import pickle
+    import tempfile
+
+    port = _free_port()
+    tmp = tempfile.mkdtemp(prefix="px_gloo_")
+    outs = [os.path.join(tmp, f"r{r}.pkl") for r in range(P)]
+    logs = [os.path.join(tmp, f"r{r}.log") for r in range(P)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(P):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--peer-child", str(port),
+                 str(P), str(r), outs[r], mode], stdout=log, stderr=subprocess.STDOUT))
+    try:
+        order = [1] + [r for r in range(P) if r != 1] if mode == "corrupt" else range(P)
+        for i, r in enumerate(order):
+            try:
+                procs[r].wait(timeout=first_wait if i == 0 else
+                              (4 * PX_BAD_TIMEOUT_S if mode == "corrupt" else PX_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res = []
+    for r in range(P):
+        got = None
+        if os.path.exists(outs[r]):
+            with open(outs[r], "rb") as f:
+                got = pickle.load(f)
+        with open(logs[r]) as f:
+            tail = f.read()[-3000:]
+        res.append((procs[r].returncode, got, tail))
+    return res, time.perf_counter() - t0
+
+
+def phase_peer(device, gm, card: str):
+    """Phase 33: K8 across processes as peer writes through CUDA IPC, two
+    and four processes on the card over gloo. Gate 1: the kernel's
+    received buffers == the plain path's, bit for bit, one launch a
+    dispatch, and the times; gate 2: the routed flagship's rows == phase
+    31's gate 3 rows (``gm``) under ``pallas_ring`` at 2 x 2 and 4 x 1
+    shards and under ``all_to_all``; gate 3: a corrupted handle fails the
+    run. Returns (results, the peer kernel's launches by run)."""
+    t_phase = time.perf_counter()
+    res, launches = {}, {}
+    runs, wall = px_children(2, "run")
+    for r, (code, got, tail) in enumerate(runs):
+        _require(code == 0 and got is not None,
+                 f"PX gates 1-2: process {r} exited {code}:\n{tail}")
+    for r, (_code, got, _tail) in enumerate(runs):
+        pr, aa, g1 = got["pallas_ring"], got["all_to_all"], got["gate1"]
+        _require(pr["peer"] == pr["dispatches"] >= N_BATCHES and pr["k8"] == 0
+                 and pr["all_to_all"] == 0 and pr["route_overflow"] == 0,
+                 f"PX gate 1: process {r}: {pr['peer']} peer launches, {pr['k8']} K8 "
+                 f"and {pr['all_to_all']} all_to_all calls for {pr['dispatches']} "
+                 f"dispatches (overflow {pr['route_overflow']})")
+        _require(aa["peer"] == 0 and aa["all_to_all"] == aa["dispatches"] >= N_BATCHES,
+                 f"PX: process {r}'s all_to_all run: {aa['peer']} peer launches, "
+                 f"{aa['all_to_all']} collectives for {aa['dispatches']} dispatches")
+        require_bit_equal(pr["batches"], gm, f"PX gate 2: process {r} pallas_ring vs DS gate 3")
+        require_bit_equal(aa["batches"], gm, f"PX gate 2: process {r} all_to_all vs DS gate 3")
+        launches[f"PX_rank{r}"] = pr["peer"]
+        res[f"rank{r}"] = {
+            "launches": pr["peer"], "dispatches": pr["dispatches"],
+            "k8_launches_all_to_all": aa["k8"],
+            "eps_pallas_ring": steady_eps(pr["seconds"], BATCH),
+            "eps_all_to_all": steady_eps(aa["seconds"], BATCH),
+            "state_bytes": pr["state_bytes"], "info": got["info"], **g1}
+        print(f"[peer] gate 1: process {r} of 2 (2 shards each): the recorded call's "
+              f"{g1['columns']} receive buffers == the plain path's (ring_exchange_cols "
+              f"+ all_to_all_cols over gloo), bit for bit; {pr['peer']} peer launches "
+              f"for {pr['dispatches']} dispatches, 0 collectives; a call: card "
+              f"{g1['ms']:.4f} ms (CUDA events, median of {PX_TIMED}), host enqueue "
+              f"{g1['host_ms']:.4f} ms, kernel on the device "
+              f"{g1['device_ms'] if g1['device_ms'] is None else round(g1['device_ms'], 4)} "
+              f"ms ({g1['device_seen']} of {PX_TIMED} seen), bound {g1['bound_ms']:.4f} "
+              f"ms ({g1['bytes']} B read and written; {g1['cross_bytes']} B cross "
+              f"processes: {g1['cross_bound_ms']:.4f} ms), plain {g1['plain_ms']:.4f} "
+              f"ms, gloo all_to_all_single {g1['library_ms']:.4f} ms; events/s "
+              f"{res[f'rank{r}']['eps_pallas_ring']:.1f} under pallas_ring, "
+              f"{res[f'rank{r}']['eps_all_to_all']:.1f} under all_to_all [{card}]",
+              flush=True)
+    res["two_wall_s"] = wall
+    print(f"[peer] gate 2: both processes' rows == DS gate 3's, bit for bit, under "
+          f"pallas_ring and all_to_all; {wall:.1f} s with the processes' start [{card}]",
+          flush=True)
+    # gate 3's two processes run beside the four of gate 2 (no timing)
+    import threading
+
+    bad_box = {}
+    bad_thread = threading.Thread(
+        target=lambda: bad_box.update(res=px_children(2, "corrupt", first_wait=120)))
+    bad_thread.start()
+    try:
+        four, wall4 = px_children(4, "rows")
+    finally:
+        bad_thread.join()
+    for r, (code, got, tail) in enumerate(four):
+        _require(code == 0 and got is not None,
+                 f"PX gate 2: process {r} of 4 exited {code}:\n{tail}")
+        pr = got["pallas_ring"]
+        _require(pr["peer"] == pr["dispatches"] >= N_BATCHES and pr["k8"] == 0
+                 and pr["all_to_all"] == 0,
+                 f"PX gate 2: process {r} of 4: {pr['peer']} peer launches for "
+                 f"{pr['dispatches']} dispatches, {pr['all_to_all']} collectives")
+        require_bit_equal(pr["batches"], gm, f"PX gate 2: process {r} of 4 vs DS gate 3")
+        launches[f"PX4_rank{r}"] = pr["peer"]
+        res[f"four_rank{r}"] = {"launches": pr["peer"], "dispatches": pr["dispatches"],
+                                "eps_pallas_ring": steady_eps(pr["seconds"], BATCH)}
+    res["four_wall_s"] = wall4
+    print(f"[peer] gate 2: 4 processes x 1 shard under pallas_ring: every process's "
+          f"rows == DS gate 3's, bit for bit; launches "
+          f"{[res[f'four_rank{r}']['launches'] for r in range(4)]}; events/s a process "
+          f"{[round(res[f'four_rank{r}']['eps_pallas_ring'], 1) for r in range(4)]}; "
+          f"{wall4:.1f} s [{card}]", flush=True)
+    _require("res" in bad_box, "PX gate 3: its processes were not run")
+    bad, wall3 = bad_box["res"]
+    code1, got1, tail1 = bad[1]
+    _require(code1 not in (0, None) and got1 is None
+             and "cudaIpcOpenMemHandle of process 0" in tail1,
+             f"PX gate 3: process 1 with a corrupted handle exited {code1}:\n{tail1}")
+    code0, got0, _tail0 = bad[0]
+    res["corrupt"] = {"exit_codes": [code0, code1], "wall_s": wall3,
+                      "error": next((ln for ln in tail1.splitlines()
+                                     if "cudaIpcOpenMemHandle" in ln), "")[-300:]}
+    if got0 is not None:
+        pr = got0["pallas_ring"]
+        _require(pr["all_to_all"] == 0 and pr["k8"] == 0,
+                 f"PX gate 3: process 0 fell back: {pr['all_to_all']} collectives, "
+                 f"{pr['k8']} K8 launches")
+        res["corrupt"]["rank0"] = {"peer": pr["peer"], "rows": sum(
+            len(b["__ts__"]) for b in pr["batches"]), "all_to_all": pr["all_to_all"]}
+    print(f"[peer] gate 3: a corrupted arena handle in process 1: it exited {code1} "
+          f"raising ({res['corrupt']['error']}); process 0 exited {code0} "
+          f"({res['corrupt'].get('rank0')}); nothing fell back to all_to_all; "
+          f"{wall3:.1f} s [{card}]", flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[peer] phase 33 in {res['phase_s']:.1f} s [{card}]", flush=True)
+    return res, launches
 
 
 def phase_global(device, feed, card: str):
@@ -10085,7 +10525,8 @@ def main() -> int:
                                                  fused_s, card)
 
     # 31. the multi-process half: the card's world of one over NCCL
-    distributed, ds_exchange, ds_scan = phase_distributed(device, feed, routed, fused, card)
+    distributed, ds_exchange, ds_scan, ds_gm = phase_distributed(device, feed, routed,
+                                                                  fused, card)
     dist["launches"]["DS"] = ds_scan
 
     # 32. every shape of the key-sharded step across processes, C.11 and
@@ -10093,14 +10534,19 @@ def main() -> int:
     split, sp_scans = phase_split(device, card)
     dist["launches"].update(sp_scans)
 
-    # 33. result lines
+    # 33. K8 across processes: peer writes through CUDA IPC, two and four
+    # processes on the card
+    peer, px_launches = phase_peer(device, ds_gm, card)
+
+    # result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
     exchange_runs = {"routed": launches, "pipeline_routed": routed_pipe_launches,
                      "P_routed": persistence["routed_x4"]["exchange_launches"],
                      "OB": observability["launches"]["exchange"], "OL": ol_exchange,
                      "AP": ap_exchange, "FZ": fz_exchange, "LN": ln_exchange,
-                     "DS": sum(ds_exchange.values())}
+                     "DS": sum(ds_exchange.values()), **px_launches}
+    px = peer["rank0"]
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/ring_exchange.cu",
@@ -10126,6 +10572,16 @@ def main() -> int:
         "plain_ms_warm_l2": ex["plain_ms_warm_l2"],
         "library_ms_warm_l2": ex["library_ms_warm_l2"],
         "host_ms": ex["host_ms"],
+        # the cross-process form (siddhi_peer_exchange_cols), phase 33's
+        # process 0 of 2: its launches are launches_by_run's PX* entries
+        "across_processes": {
+            "wrapper": "siddhi_tpu_torch/ops/exchange.py peer_exchange_cols",
+            "launches": sum(px_launches.values()), "max_abs_err": px["max_abs_err"],
+            "columns": px["columns"], "ms": px["ms"], "host_ms": px["host_ms"],
+            "device_ms": px["device_ms"], "plain_ms": px["plain_ms"],
+            "bound_ms": px["bound_ms"], "bound_by": "bytes",
+            "cross_bound_ms": px["cross_bound_ms"], "library_ms": px["library_ms"],
+            "library": "gloo all_to_all_single of the same bytes"},
     }, {
         "name": "distinct_scan", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/distinct_scan.cu",
@@ -10197,6 +10653,7 @@ def main() -> int:
     print(json.dumps({"distributed": {**distributed, "k8_launches": ds_exchange}},
                      default=str))
     print(json.dumps({"split": split}, default=str))
+    print(json.dumps({"peer": peer}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -10260,6 +10717,9 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--routed-child"] and len(sys.argv) == 6:
             sys.path.insert(0, str(Path(__file__).resolve().parent))
             sys.exit(routed_child(*sys.argv[2:6]))
+        if sys.argv[1:2] == ["--peer-child"] and len(sys.argv) == 7:
+            sys.path.insert(0, str(Path(__file__).resolve().parent))
+            sys.exit(peer_child(*sys.argv[2:7]))
         if sys.argv[1:2] == ["--split-child"] and len(sys.argv) == 6:
             sys.path.insert(0, str(Path(__file__).resolve().parent))
             sys.exit(split_child(*sys.argv[2:6]))

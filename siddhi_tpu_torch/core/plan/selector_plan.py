@@ -25,6 +25,7 @@ aggregates or groups (``processInBatchGroupBy``/``NoGroupBy``).
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -268,6 +269,13 @@ class SelectorPlan:
     def ordered(self) -> bool:
         """order by, limit or offset: a batch-global ordering."""
         return bool(self.order_by) or self.limit is not None or self.offset is not None
+
+    def unordered(self) -> "SelectorPlan":
+        """A copy of this plan without order by, limit and offset (the
+        key-sharded step across processes orders the merged rows)."""
+        plan = copy.copy(self)
+        plan.order_by, plan.limit, plan.offset = [], None, None
+        return plan
 
     def order_columns(self, out: dict, cols: dict) -> dict:
         """The order-by input columns the selection does not project,

@@ -536,15 +536,19 @@ def outer_rows(side: JoinSide, wout: dict, row_live, match) -> torch.Tensor:
 
 
 def finish_step(sel, state: dict, joined: dict, ctx: dict, split: bool,
-                notify, ovbits: torch.Tensor, suffix=()) -> dict:
+                notify, ovbits: torch.Tensor, suffix=(), order_plan=None) -> dict:
     """The selector over the joined rows (or, with a host group keyer,
     the joined rows themselves), packed with the meta: [overflow bitmask,
     notify, count] then ``suffix`` (the engine's sequence lane, and with
-    instruments on each partitioned side's per-partition fill)."""
+    instruments on each partitioned side's per-partition fill).
+    ``order_plan``: ``sel`` runs unordered, and the order-by columns of
+    that plan ride along for an ordering after the step."""
     if split:
         out = joined
     else:
         _st, out = sel.apply(state["sel"], joined, ctx)
+        if order_plan is not None:
+            out.update(order_plan.order_columns(out, joined))
         sel_ov = out.pop(OVERFLOW_KEY, None)
         if sel_ov is not None:
             ovbits = ovbits | torch.where(
@@ -740,6 +744,12 @@ class JoinQueryRuntime(QueryRuntime):
         transforms = [] if host_pre else side.transforms
         partitioned = self.partition_ctx is not None
         split = self.keyer is not None
+        # key-sharded across processes (parallel/mesh.shard_query_step):
+        # without a group by, the ordering runs once, on the merged rows
+        rl = self._route_layout
+        order_plan = None
+        if rl is not None and rl.split and sel.ordered and not split:
+            order_plan, sel = sel, sel.unordered()
         other_external = other.probe_external
         # the indexed probe: only when THIS side triggers against the
         # indexed table side (a table never triggers)
@@ -839,7 +849,8 @@ class JoinQueryRuntime(QueryRuntime):
                 joined[FLUSH_KEY] = tr.to(torch.int32)
             if strrank is not None:
                 joined[STR_RANK] = strrank
-            return state, finish_step(sel, state, joined, ctx, split, notify, ovbits)
+            return state, finish_step(sel, state, joined, ctx, split, notify, ovbits,
+                                      order_plan=order_plan)
 
         return step
 
@@ -915,9 +926,21 @@ class JoinQueryRuntime(QueryRuntime):
                     from siddhi_tpu_torch.parallel.mesh import prepare_routed_batches
 
                     notify = None
+                    run = step
+                    if other.store is not None:
+                        # key-sharded across processes: the table, whole on
+                        # every process, is each trigger row's probe surface
+                        pc, pv = self._probe_surface(other)
+                        dev = self.device
+                        probe = ({k: to_device(v, dev) for k, v in pc.items()},
+                                 None if pv is None else to_device(pv, dev).to(torch.bool))
+
+                        def run(st, c, now):
+                            return step(st, c, now, probe=probe)
+
                     for piece in prepare_routed_batches(self, cols):
                         self._route_layout.dispatches += 1
-                        nt = self._finish_device_batch(step, piece, self.overflow_knob_msg)
+                        nt = self._finish_device_batch(run, piece, self.overflow_knob_msg)
                         if nt is not None:
                             notify = nt if notify is None else min(notify, nt)
                 elif getattr(other.store, "dynamic", None) is not None:
@@ -1017,7 +1040,10 @@ class JoinQueryRuntime(QueryRuntime):
             # capacity grows before K is read, so growth precedes the tile
             self._ensure_capacity()
             n_active = self.partition_ctx.active_keys()
-            K = self._win_keys
+            rl = self._route_layout
+            # key-sharded across processes: a copy for every GLOBAL key
+            # (the split keeps this process's)
+            K = self._win_keys if rl is None else rl.n * rl.local_win
             lazy = LazyColumns(cols)   # one host read of the batch
             rep = {name: np.repeat(np.asarray(lazy[name]), K, axis=0)
                    for name in list(lazy)}

@@ -257,7 +257,15 @@ class NFAQueryRuntime(QueryRuntime):
             out_cols[NOTIFY_KEY] = notify
             out = pack_meta(out_cols)
         else:
-            state["sel"], out = self.selector_plan.apply(state["sel"], out_cols, ctx)
+            plan = self.selector_plan
+            if self._route_layout is not None and plan.ordered:
+                # key-sharded across processes: the selection runs
+                # unordered here, and its order by / limit once, on every
+                # process's merged rows (parallel/mesh.sharded_jit_for)
+                state["sel"], out = plan.unordered().apply(state["sel"], out_cols, ctx)
+                out.update(plan.order_columns(out, out_cols))
+            else:
+                state["sel"], out = plan.apply(state["sel"], out_cols, ctx)
             sel_ov = out.get(OVERFLOW_KEY)
             out[OVERFLOW_KEY] = (overflow.to(torch.int64) if sel_ov is None
                                  else torch.maximum(overflow.to(torch.int64),

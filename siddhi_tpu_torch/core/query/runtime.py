@@ -398,10 +398,8 @@ class QueryRuntime(Receiver):
         # the plan as it stands now: a capacity growth builds a new step,
         # and a step another app shares (core/util/program_cache.py) must
         # not follow this runtime's later growth
-        sel = copy.copy(self.selector_plan)
         plan = self.selector_plan
-        if unordered:
-            sel.order_by, sel.limit, sel.offset = [], None, None
+        sel = plan.unordered() if unordered else copy.copy(plan)
         win = self.window_stage
         if win is not None and hasattr(win, "_num_keys_ref"):
             win = copy.copy(win)

@@ -34,12 +34,30 @@
 //     whole chunks whose two ends are not aligned alike, are copied as
 //     bytes by the block's other warps in the same kernel.
 //
+// Across processes (siddhi_peer_exchange_cols) the same chunk walk and
+// bulk ring write straight into other processes' receive buffers: the
+// CUDA form of the TPU kernel's make_async_remote_copy. Each process
+// cudaMallocs one receive arena a column layout (siddhi_ipc_alloc), the
+// processes trade its cudaIpcMemHandle once and map each other's arenas
+// (siddhi_ipc_open); every arena has the same layout, so the table holds
+// one base pointer a process and one offset a column (not ncols x P
+// pointers), plus the per-call segment plan: for pair (s, d) of a source
+// shard s of this process and a global destination shard d, the owner
+// process q and the segment index in q's buffer of that column, computed
+// in Python (ops/exchange.py peer_plan). Completion crosses processes
+// only through interprocess events and a host barrier (siddhi_ipc_event_*,
+// siddhi_event_record, siddhi_stream_wait_event): no device-side wait on
+// another process, since without MPS the kernels of two processes on one
+// card time-slice and a spin could wait a whole slice. Bound: bytes, every
+// segment of the process's send buffers read once and written once.
+//
 // Built at first use by siddhi_tpu_torch/ops/_cuda.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes; the C entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -49,6 +67,9 @@ constexpr int STAGES = 4;
 constexpr int THREADS = 128;            // warp 0: bulk copies; warps 1-3: bytes
 constexpr int SMEM_BYTES = STAGES * (int)CHUNK;
 constexpr int MAX_DEVICES = 64;
+constexpr int MAX_PEER_COLS = 32;       // columns one cross-process launch takes
+constexpr int MAX_PROCS = 16;           // processes of a peer exchange
+constexpr int MAX_PAIRS = 512;          // (source, destination) pairs a column
 
 }  // namespace
 
@@ -71,6 +92,30 @@ struct ColTable {
 };
 static_assert(sizeof(ColTable) <= 4000, "kernel parameters are capped at 4 KB");
 
+}  // namespace
+
+// One column across processes: this process's send buffer [L, n*Q, row],
+// the offset of the column's receive buffer [L, n*Q, row] in every
+// process's arena, and the bytes of one segment. Laid out as
+// ops/exchange.py's ctypes _PeerCol.
+struct PeerCol {
+  const void* in;
+  long long out_off;
+  long long seg_bytes;
+};
+
+namespace {
+
+struct PeerTable {
+  PeerCol cols[MAX_PEER_COLS];
+  long long first_chunk[MAX_PEER_COLS + 1];
+  unsigned long long bases[MAX_PROCS];  // each process's arena, mapped here
+  unsigned int plan[MAX_PAIRS];         // pair s*n + d: q << 24 | segment in q
+  long long npairs;
+  int ncols;
+};
+static_assert(sizeof(PeerTable) <= 4000, "kernel parameters are capped at 4 KB");
+
 __host__ __device__ __forceinline__ long long chunks_per_segment(long long seg_bytes) {
   return (seg_bytes + CHUNK - 1) / CHUNK;
 }
@@ -90,6 +135,26 @@ __device__ __forceinline__ void chunk_at(const ColTable& t, long long g,
   len = seg - off < CHUNK ? seg - off : CHUNK;
   src = static_cast<const uint8_t*>(t.cols[c].in) + (s * t.n + d) * seg + off;
   dst = static_cast<uint8_t*>(t.cols[c].out) + (d * t.n + s) * seg + off;
+}
+
+// The same for a cross-process table: pair p of a column reads segment p
+// of the send buffer and writes the plan's segment of its owner's buffer.
+__device__ __forceinline__ void chunk_at(const PeerTable& t, long long g,
+                                         const uint8_t*& src, uint8_t*& dst,
+                                         long long& len) {
+  int c = 0;
+  while (c + 1 < t.ncols && t.first_chunk[c + 1] <= g) ++c;
+  const long long seg = t.cols[c].seg_bytes;
+  const long long per = chunks_per_segment(seg);
+  const long long local = g - t.first_chunk[c];
+  const long long pair = local / per;
+  const long long off = (local - pair * per) * CHUNK;
+  const unsigned int e = t.plan[pair];
+  const long long dseg = (long long)(e & 0xFFFFFFu);
+  len = seg - off < CHUNK ? seg - off : CHUNK;
+  src = static_cast<const uint8_t*>(t.cols[c].in) + pair * seg + off;
+  dst = reinterpret_cast<uint8_t*>(t.bases[e >> 24] + (unsigned long long)t.cols[c].out_off)
+        + dseg * seg + off;
 }
 
 // A chunk's 16-byte aligned body [head, head + body): empty when its two
@@ -116,7 +181,8 @@ struct Body {
 };
 
 // Advance cursor g (this block's chunks) to the next chunk with a bulk body.
-__device__ __forceinline__ bool next_body(const ColTable& t, long long total,
+template <class Table>
+__device__ __forceinline__ bool next_body(const Table& t, long long total,
                                           long long& g, Body& out) {
   for (; g < total; g += gridDim.x) {
     const uint8_t* src;
@@ -166,8 +232,9 @@ __device__ __forceinline__ void bulk_store(uint32_t stage, const Body& b) {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
-ring_exchange_cols_kernel(const __grid_constant__ ColTable t) {
+// One block's share of a table's chunk walk (both kernels below).
+template <class Table>
+__device__ __forceinline__ void exchange_body(const Table& t) {
   extern __shared__ __align__(128) uint8_t stage_mem[];
   __shared__ __align__(8) uint64_t bars[STAGES];
   const long long total = t.first_chunk[t.ncols];
@@ -221,7 +288,47 @@ ring_exchange_cols_kernel(const __grid_constant__ ColTable t) {
   }
 }
 
+// The table is a __grid_constant__ parameter: read in place, never copied.
+__global__ void __launch_bounds__(THREADS)
+ring_exchange_cols_kernel(const __grid_constant__ ColTable t) { exchange_body(t); }
+
+__global__ void __launch_bounds__(THREADS)
+peer_exchange_cols_kernel(const __grid_constant__ PeerTable t) { exchange_body(t); }
+
+// Launch a table's kernel on a grid that stays resident; cache[dev] keeps
+// each device's block count once the 64 KB of dynamic shared memory is
+// allowed.
+template <class Table>
+int launch(void (*kernel)(Table), const Table& t, long long total, int* cache,
+           void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, THREADS, SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    cache[dev] = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  }
+  const long long blocks = total < cache[dev] ? total : cache[dev];
+  kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(t);
+  return (int)cudaGetLastError();
+}
+
 int g_max_blocks[MAX_DEVICES];          // resident blocks per device, 0: unset
+int g_max_blocks_peer[MAX_DEVICES];
+
+static_assert(sizeof(cudaIpcMemHandle_t) == 64, "64-byte memory handles");
+static_assert(sizeof(cudaIpcEventHandle_t) == 64, "64-byte event handles");
 
 }  // namespace
 
@@ -240,29 +347,115 @@ extern "C" int siddhi_ring_exchange_cols(const ExchangeCol* cols, int ncols,
   }
   t.first_chunk[ncols] = total;
   if (total == 0) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (g_max_blocks[dev] == 0) {
-    // once per device: allow the 64 KB of dynamic shared memory, then size
-    // the grid to what stays resident
-    err = cudaFuncSetAttribute(ring_exchange_cols_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ring_exchange_cols_kernel, THREADS, SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    g_max_blocks[dev] = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  return launch(ring_exchange_cols_kernel, t, total, g_max_blocks, stream);
+}
+
+// Every column's npairs segments of this process's send buffers into
+// their owners' receive buffers: bases[q] is process q's arena as mapped
+// here (this process's own for q == its rank), plan[pair] = q << 24 |
+// segment index in q's buffer. One launch; nothing waits on a peer here.
+extern "C" int siddhi_peer_exchange_cols(const PeerCol* cols, int ncols,
+                                         const unsigned long long* bases,
+                                         int nprocs, const unsigned int* plan,
+                                         int npairs, void* stream) {
+  if (ncols < 0 || ncols > MAX_PEER_COLS || nprocs <= 0 || nprocs > MAX_PROCS
+      || npairs <= 0 || npairs > MAX_PAIRS)
+    return (int)cudaErrorInvalidValue;
+  PeerTable t;
+  t.ncols = ncols;
+  t.npairs = npairs;
+  for (int q = 0; q < nprocs; ++q) {
+    if (bases[q] == 0) return (int)cudaErrorInvalidValue;
+    t.bases[q] = bases[q];
   }
-  const long long blocks = total < g_max_blocks[dev] ? total : g_max_blocks[dev];
-  ring_exchange_cols_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES,
-                              static_cast<cudaStream_t>(stream)>>>(t);
-  return (int)cudaGetLastError();
+  for (int i = 0; i < npairs; ++i) {
+    if ((int)(plan[i] >> 24) >= nprocs) return (int)cudaErrorInvalidValue;
+    t.plan[i] = plan[i];
+  }
+  long long total = 0;
+  for (int c = 0; c < ncols; ++c) {
+    if (cols[c].seg_bytes < 0 || cols[c].out_off < 0) return (int)cudaErrorInvalidValue;
+    t.cols[c] = cols[c];
+    t.first_chunk[c] = total;
+    total += (long long)npairs * chunks_per_segment(cols[c].seg_bytes);
+  }
+  t.first_chunk[ncols] = total;
+  if (total == 0) return 0;
+  return launch(peer_exchange_cols_kernel, t, total, g_max_blocks_peer, stream);
+}
+
+// ---- the receive arenas and the events, traded between processes ----
+
+// One receive arena: cudaMalloc (so the handle names exactly this block,
+// not a caching allocator's larger one) and its 64-byte IPC handle.
+extern "C" int siddhi_ipc_alloc(long long bytes, void** ptr, void* handle) {
+  if (bytes <= 0) return (int)cudaErrorInvalidValue;
+  void* p = nullptr;
+  cudaError_t err = cudaMalloc(&p, (size_t)bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaIpcMemHandle_t h;
+  err = cudaIpcGetMemHandle(&h, p);
+  if (err != cudaSuccess) {
+    cudaFree(p);
+    return (int)err;
+  }
+  memcpy(handle, &h, sizeof(h));
+  *ptr = p;
+  return 0;
+}
+
+extern "C" int siddhi_ipc_free(void* ptr) { return (int)cudaFree(ptr); }
+
+// Another process's arena, mapped into this one (peer access enabled on
+// first use where the arena lies on another card).
+extern "C" int siddhi_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int siddhi_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
+
+extern "C" int siddhi_ipc_event_create(void** ev, void* handle) {
+  cudaEvent_t e;
+  cudaError_t err = cudaEventCreateWithFlags(
+      &e, cudaEventInterprocess | cudaEventDisableTiming);
+  if (err != cudaSuccess) return (int)err;
+  cudaIpcEventHandle_t h;
+  err = cudaIpcGetEventHandle(&h, e);
+  if (err != cudaSuccess) {
+    cudaEventDestroy(e);
+    return (int)err;
+  }
+  memcpy(handle, &h, sizeof(h));
+  *ev = e;
+  return 0;
+}
+
+extern "C" int siddhi_ipc_event_open(const void* handle, void** ev) {
+  cudaIpcEventHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  cudaEvent_t e;
+  cudaError_t err = cudaIpcOpenEventHandle(&e, h);
+  if (err != cudaSuccess) return (int)err;
+  *ev = e;
+  return 0;
+}
+
+extern "C" int siddhi_event_destroy(void* ev) {
+  return (int)cudaEventDestroy(static_cast<cudaEvent_t>(ev));
+}
+
+extern "C" int siddhi_event_record(void* ev, void* stream) {
+  return (int)cudaEventRecord(static_cast<cudaEvent_t>(ev),
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The stream waits, on the device, until the event's last record (in any
+// process) has completed; the host does not wait.
+extern "C" int siddhi_stream_wait_event(void* stream, void* ev) {
+  return (int)cudaStreamWaitEvent(static_cast<cudaStream_t>(stream),
+                                  static_cast<cudaEvent_t>(ev), 0);
 }
 
 extern "C" const char* siddhi_cuda_error_string(int code) {

@@ -17,9 +17,12 @@ ingress   every process sees the whole (replicated) batch; it cuts its
           of ``rows_per_shard // n`` (over-quota rows are counted, not
           silently dropped). One ``ring_exchange_cols`` call (one kernel
           launch) moves every column's buckets between the process's own
-          shards; the buckets bound for another process travel in one
-          ``all_to_all_single`` (``ops/exchange.all_to_all_cols``). Rows
-          arrive source-major, i.e. in original batch order.
+          shards; under ``all_to_all`` the buckets bound for another
+          process travel in one ``all_to_all_single``
+          (``ops/exchange.process_exchange_plain``), under ``pallas_ring``
+          one launch of K8 writes every bucket straight into its owner
+          process's receive buffer (``ops/exchange.peer_exchange_cols``).
+          Rows arrive source-major, i.e. in original batch order.
 local     partition- and group-key columns become per-shard local ids
           (pk // n; the group key through a host-kept LUT) and each shard
           steps views of its own state slice, in place.
@@ -39,10 +42,12 @@ rows are gathered and merged once in the unsharded order.
 On one card both values of ``siddhi_tpu.shard_exchange`` (``all_to_all``,
 ``pallas_ring``) take the one ``ring_exchange_cols`` call per dispatch.
 Across processes ``all_to_all`` moves the remote buckets with the group's
-collective; ``pallas_ring`` there would be the exchange kernel over NVLink
-peer copies (ROADMAP B.10) and raises. Unlike the reference, nothing swaps
-the exchange for another off the accelerator: a CPU runtime uses the
-kernel's plain version because its tensors lie on the CPU.
+collective; ``pallas_ring`` runs K8 as peer writes through CUDA IPC (one
+launch a dispatch in each process, into arenas every process maps: the
+processes share one host, and their cards are one card or reach each
+other by peer access). Unlike the reference, nothing swaps the exchange
+for another off the accelerator: a CPU runtime uses the kernel's plain
+version because its tensors lie on the CPU.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from siddhi_tpu_torch.ops.exchange import ring_exchange_cols
+from siddhi_tpu_torch.ops.exchange import (
+    PeerExchange, peer_exchange_cols, process_exchange_plain, ring_exchange_cols)
 from siddhi_tpu_torch.ops.expressions import (
     OKEY_KEY, PK_KEY, RIDX_KEY, TYPE_KEY, VALID_KEY, CompileError)
 
@@ -242,6 +248,22 @@ class RouteLayout:
         # counted by the runtime where it dispatches, so a graph replay
         # counts as its eager step did
         self.dispatches = 0
+        # K8 across processes (``pallas_ring`` with P > 1): the mapped
+        # receive arenas, opened at the first dispatch of a column layout
+        self._peer: Optional[PeerExchange] = None
+
+    def peer_exchange(self) -> PeerExchange:
+        """This layout's cross-process exchange state (made at first use)."""
+        if self._peer is None:
+            self._peer = PeerExchange(self.n, self.L, self.P, self.first // self.L)
+        return self._peer
+
+    def close_peer(self, timeout_s=None) -> None:
+        """Release the mapped arenas behind a barrier (every process of the
+        group re-installs together)."""
+        peer, self._peer = self._peer, None
+        if peer is not None:
+            peer.close(timeout_s)
 
     def _resize_gk(self, cap: int):
         if self.gk_owner.shape[0] >= cap:
@@ -461,12 +483,6 @@ def device_route_query_step(runtime, mesh: Mesh, rows_per_shard: int = 4096,
         exchange = getattr(runtime.app_context, "shard_exchange", "all_to_all")
     if exchange not in ("all_to_all", "pallas_ring"):
         raise ValueError(f"unknown shard exchange {exchange!r}")
-    if exchange == "pallas_ring" and mesh.process_count > 1:
-        raise NotImplementedError(
-            f"query '{runtime.name}': shard_exchange 'pallas_ring' across "
-            f"{mesh.process_count} processes is the exchange kernel over "
-            f"NVLink peer copies between cards (ROADMAP B.10); use "
-            f"'all_to_all', the process group's collective")
     _check_mesh(runtime, mesh)
     _release_from_fanout(runtime)
     partitioned = runtime.partition_ctx is not None
@@ -483,6 +499,7 @@ def _install(runtime, layout: "RouteLayout") -> None:
     if runtime._route_layout is not None:
         canonical = _canonical_tensors(runtime)
         old = runtime._route_layout
+        old.close_peer(_timeout(runtime))
         Kg = old.n * old.localK
         Wg = old.n * old.local_win if old.local_win > 1 else runtime._win_keys
     else:
@@ -502,6 +519,8 @@ def _install_routed(runtime, layout: RouteLayout, canonical, Kg: int, Wg: int):
     step. Joins build a routed step a side, and NFAs a step a stream,
     lazily at their next batch."""
     n = layout.n
+    # a growth or a restore re-installs the same layout: its arenas go too
+    layout.close_peer(_timeout(runtime))
     Kg = max(int(Kg), n)
     # floor 16 (the engine's minimum key capacity): a tiny localK would
     # collide with aggregator slot counts in _key_axis_of's size match
@@ -572,10 +591,13 @@ def _split_mode(runtime) -> str:
     whole state is keyed by the partition key: a keyed window, a host
     window's per-key instances, the selector's groups, each group within
     one partition key) or at the selector's (a keyed selector behind a
-    global window, whose ring every process keeps whole). Raises naming
-    ROADMAP A.11 for a shape it does not split yet."""
+    window whose ring every process keeps whole: a global window, or the
+    ``delay`` window, whose ring has no key axis inside a partition
+    either). Raises naming ROADMAP A.11 for a shape it does not split
+    yet."""
     from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
     from siddhi_tpu_torch.ops.host_windows import PartitionedHostWindow
+    from siddhi_tpu_torch.ops.windows import DelayWindowStage
 
     what = None
     partitioned = runtime.partition_ctx is not None
@@ -585,14 +607,17 @@ def _split_mode(runtime) -> str:
             return "input"
     elif isinstance(runtime, NFAQueryRuntime):
         # a group by over captures keys the merged matches on the host and
-        # selects on every process (its ordering with it)
-        if partitioned and (runtime.keyer is not None or not runtime.selector_plan.ordered):
+        # selects on every process; an ordering without one runs once, on
+        # the merged rows
+        if partitioned:
             return "input"
-        what = "a pattern's order by / limit without a group by"
+        what = "an unpartitioned pattern's group by"
     elif partitioned:
         win, host = runtime.window_stage, runtime.host_window
         if host is not None and not isinstance(host, PartitionedHostWindow):
             what = f"the host window {type(host).__name__}"
+        elif isinstance(win, DelayWindowStage):
+            return "select"
         elif win is not None and not getattr(win, "split_aware", False):
             what = f"the window stage {type(win).__name__}"
         else:
@@ -609,22 +634,24 @@ def _join_split_ineligibility(runtime) -> Optional[str]:
     it splits). Each side's keyed ring shards by the partition key, a
     row's probe surface (the other side's rows of its own key) is its own
     process's, and the matches merge by the unsharded (trigger row, slot)
-    order."""
-    sp = runtime.selector_plan
-    if runtime.keyer is not None:
-        return "a partitioned join's group by (host keyed select between stages)"
-    if sp.specs:
-        return "a partitioned join's aggregation (one group across partition keys)"
-    if sp.ordered:
-        return "a partitioned join's order by / limit"
+    order. An aggregation groups the joined rows by partition key (the
+    step keys them so), so its state splits with the rest; a group by
+    selects on every process with the selector's state whole after the
+    merge; an ordering alone runs once on the merged rows. A global side
+    copies each row to every global key (each process keeps its own keys'
+    copies); a table side is whole on every process, and each trigger row
+    probes it on its owner process."""
+    from siddhi_tpu_torch.core.query.join_runtime import AggregationJoinStore
+
     if runtime.index_probe is not None:
         return "indexed join probes"
     for side in runtime.sides.values():
-        win = side.window_stage
-        if side.store is not None or side.host_window is not None or side.global_side:
-            return f"the store, host-window or global join side '{side.stream_id}'"
-        if not getattr(win, "split_aware", False) or win.batch_mode:
-            return f"the join window stage {type(win).__name__}"
+        if isinstance(side.store, AggregationJoinStore):
+            return f"the aggregation join side '{side.stream_id}'"
+        if side.host_window is not None:
+            return f"the host-window join side '{side.stream_id}'"
+        if side.store is None and not getattr(side.window_stage, "split_aware", False):
+            return f"the join window stage {type(side.window_stage).__name__}"
     return None
 
 
@@ -664,12 +691,17 @@ def shard_query_step(runtime, mesh: Mesh, donate: bool = True):
         runtime._shard_mesh = mesh
         return runtime._step, runtime._state
     mode = _split_mode(runtime)
-    # a pattern's group by over captures: the selector runs whole after
-    # the merge; any other group key than the partition key is carried to
-    # the owner's local space through the layout's LUT, as routed
-    sel_whole = isinstance(runtime, NFAQueryRuntime) and runtime.keyer is not None
-    _install(runtime, RouteLayout(mesh, 4096, "all_to_all", partitioned,
-                                  partitioned and runtime.keyer is not None
+    # a group by over a pattern's captures or a join's joined rows: the
+    # selector runs whole after the merge; any other group key than the
+    # partition key is carried to the owner's local space through the
+    # layout's LUT, as routed. Split at the selector, no input row moves,
+    # and the window keeps no key axis
+    sel_whole = (runtime.keyer is not None
+                 and (isinstance(runtime, NFAQueryRuntime)
+                      or getattr(runtime, "sides", None) is not None))
+    by_input = partitioned and mode == "input"
+    _install(runtime, RouteLayout(mesh, 4096, "all_to_all", by_input,
+                                  by_input and runtime.keyer is not None
                                   and not sel_whole,
                                   runtime.device, split=mode, sel_whole=sel_whole))
     if runtime.host_window is not None:
@@ -1027,12 +1059,12 @@ def _write_back(views, new) -> None:
         views.copy_(new)
 
 
-def _step_on_shard(layout: RouteLayout, step, state, s: int, *args):
+def _step_on_shard(layout: RouteLayout, step, state, s: int, *args, **kwargs):
     """``step`` over views of local shard ``s``; state it hands back anew
     is written into the shard's rows."""
     views = _shard_views(layout, state, s)
     held = _map_tree(lambda _p, t: t, views)   # the views, before the step
-    new_state, out = step(views, *args)
+    new_state, out = step(views, *args, **kwargs)
     _write_back(held, new_state)
     return out
 
@@ -1100,33 +1132,17 @@ def _timeout(runtime):
 def _exchange(layout: RouteLayout, sent, timeout_s=None, what="shard exchange"):
     """Move every column's send buckets to their owners: ``sent[i]`` is
     ``[L, n*Q, *tail]`` (this process's source shards; segment d bound
-    for global shard d). The pairs between this process's own shards take
-    the exchange kernel (one launch for every column); the buckets of
-    other processes' shards travel in one ``all_to_all_single`` (its own
-    block rides along and is dropped for the kernel's). Returns
-    ``[L, n*Q, *tail]`` per column: this process's shards' receive
+    for global shard d). On one process, one ``ring_exchange_cols`` call;
+    across processes K8's peer writes under ``pallas_ring``, else the own
+    pairs through the kernel and the rest through the group's collective.
+    Returns ``[L, n*Q, *tail]`` per column: this process's shards' receive
     buffers, source-major over all n sources."""
-    from siddhi_tpu_torch.ops.exchange import all_to_all_cols
-
-    n, L, P = layout.n, layout.L, layout.P
-    if P == 1:
+    n, L = layout.n, layout.L
+    if layout.P == 1:
         return ring_exchange_cols(sent, n)
-    p = layout.first // L
-    Q = sent[0].shape[1] // n
-    tails = [tuple(b.shape[2:]) for b in sent]
-    # [L_src, P, L_dst, Q, *tail]
-    blocks = [b.view((L, P, L, Q) + t) for b, t in zip(sent, tails)]
-    own = [blk[:, p].reshape((L, L * Q) + t) for blk, t in zip(blocks, tails)]
-    own = ring_exchange_cols([o.contiguous() for o in own], L) if L > 1 else own
-    # [P_dst, L_src, L_dst, Q, *tail] -> from every process
-    recv = all_to_all_cols([blk.transpose(0, 1).contiguous() for blk in blocks],
-                           timeout_s, what)
-    out = []
-    for r, o, t in zip(recv, own, tails):
-        full = r.permute((2, 0, 1, 3) + tuple(range(4, 4 + len(t)))).contiguous()
-        full[:, p] = o.view((L, L, Q) + t)     # [L_dst, P, L_src, Q, *tail]
-        out.append(full.reshape((L, n * Q) + t))
-    return out
+    if layout.exchange == "pallas_ring":
+        return peer_exchange_cols(sent, layout.peer_exchange(), timeout_s, what)
+    return process_exchange_plain(sent, n, L, layout.first // L, timeout_s, what)
 
 
 def _egress(layout: RouteLayout, merged: dict, okey, meta, rows_here, route_ov,
@@ -1338,9 +1354,10 @@ def _split_fn(runtime, layout: RouteLayout, side_key: Optional[str] = None):
     rows' positions, a keyed window's order keys over the global key
     space (``ops/keyed_windows.KeySplit``), or a partitioned host window's
     (``PartitionedHostWindow.key_split``). An order by / limit / offset
-    runs once, on the merged rows. ``side_key`` builds one side of a
-    partitioned join (its insert and probe split like any keyed step)."""
-    from siddhi_tpu_torch.core.plan.selector_plan import ORDER_COL, STR_RANK
+    runs once, on the merged rows, unless the whole selector does
+    (``layout.sel_whole``). ``side_key`` builds one side of a partitioned
+    join (its insert and probe split like any keyed step)."""
+    from siddhi_tpu_torch.core.plan.selector_plan import STR_RANK
     from siddhi_tpu_torch.ops.exchange import all_gather_rows, all_gather_same
     from siddhi_tpu_torch.ops.keyed_windows import KeySplit
 
@@ -1351,6 +1368,7 @@ def _split_fn(runtime, layout: RouteLayout, side_key: Optional[str] = None):
     inner_slots = runtime._step_instrument_slots()
     select = layout.split == "select"
     plan = runtime.selector_plan
+    post_order = plan.ordered and not layout.sel_whole
     what = f"query '{runtime.name}' sharded step"
 
     def take(cols):
@@ -1369,15 +1387,16 @@ def _split_fn(runtime, layout: RouteLayout, side_key: Optional[str] = None):
     if side_key is not None:
         side_step = runtime.build_side_step_fn(side_key, key_split=key_split)
 
-        def step(state, cols, now):
-            # the probe surfaces live in the state (keyed rings)
-            return side_step(state, {}, None, cols, now)
+        def step(state, cols, now, probe=({}, None)):
+            # the probe surfaces live in the state (keyed rings), or come
+            # from a store side, whole on every process
+            return side_step(state, probe[0], probe[1], cols, now)
     else:
         step = runtime.build_step_fn(split=take if select else None,
                                      key_split=key_split, unordered=plan.ordered)
     key_name = PK_KEY if partitioned else GK_KEY
 
-    def sharded(state, cols, now):
+    def sharded(state, cols, now, **probe):
         cols = dict(cols)
         lut, inv = cols.pop(LUT_KEY, None), cols.pop(INV_KEY, None)
         if use_lut and lut is None:     # a direct caller: the layout's own
@@ -1402,7 +1421,7 @@ def _split_fn(runtime, layout: RouteLayout, side_key: Optional[str] = None):
                     gl = gk // n
                 cols[GK_KEY] = gl.to(cols[GK_KEY].dtype)
             cols[RIDX_KEY] = torch.arange(B, dtype=torch.int64, device=dev)
-        out = dict(_step_on_shard(layout, step, state, 0, cols, now))
+        out = dict(_step_on_shard(layout, step, state, 0, cols, now, **probe))
         meta = out.pop("__meta__")
         if host_notify is not None:
             # a host window's wake time joins the step's, so the merged
@@ -1430,20 +1449,30 @@ def _split_fn(runtime, layout: RouteLayout, side_key: Optional[str] = None):
         merged = _egress(layout, out, okey, meta[None], rows[first:first + 1],
                          torch.zeros((), dtype=torch.int64, device=dev),
                          ins_on, inner_slots, _timeout(runtime), what)
-        if plan.ordered:
-            # one global order, offset and limit over the merged rows
-            meta = merged.pop("__meta__")
-            side = {k[len(ORDER_COL):]: merged.pop(k) for k in list(merged)
-                    if k.startswith(ORDER_COL)}
-            if STR_RANK in cols:
-                side[STR_RANK] = cols[STR_RANK]
-            merged = plan.apply_order_limit(merged, side)
-            meta = meta.clone()
-            meta[2] = merged[VALID_KEY].sum(dtype=torch.int64)
-            merged["__meta__"] = meta
+        if post_order:
+            merged = _order_merged(plan, merged, cols.get(STR_RANK))
         return state, merged
 
     return sharded
+
+
+def _order_merged(plan, merged: dict, strrank=None) -> dict:
+    """One global order by, offset and limit over the merged rows of the
+    key-sharded step (the order-by columns the selection does not project
+    ride along under ``ORDER_COL`` names); the meta counts the rows
+    kept."""
+    from siddhi_tpu_torch.core.plan.selector_plan import ORDER_COL, STR_RANK
+
+    meta = merged.pop("__meta__")
+    side = {k[len(ORDER_COL):]: merged.pop(k) for k in list(merged)
+            if k.startswith(ORDER_COL)}
+    if strrank is not None:
+        side[STR_RANK] = strrank
+    merged = plan.apply_order_limit(merged, side)
+    meta = meta.clone()
+    meta[2] = merged[VALID_KEY].sum(dtype=torch.int64)
+    merged["__meta__"] = meta
+    return merged
 
 
 def sharded_jit_for(runtime, fn, timer: bool = False):
@@ -1454,13 +1483,20 @@ def sharded_jit_for(runtime, fn, timer: bool = False):
     local: ``NFAQueryRuntime.process_stream_batch``), and the matches of
     every process merge in the unsharded emission order, event row then
     slot for a stream step (the ``[B, S+1]`` row-major emission) and key
-    then slot for the sweep (``[K, S]``)."""
+    then slot for the sweep (``[K, S]``); an order by / limit without a
+    group by then runs once, on the merged rows."""
+    from siddhi_tpu_torch.core.plan.selector_plan import STR_RANK
+
     layout = runtime._route_layout
     n, first = layout.n, layout.first
     S = runtime.stage.plan.slots
     dev = runtime.device
     ins_on = runtime._instruments_on()
     inner_slots = runtime._step_instrument_slots()
+    plan = runtime.selector_plan
+    # without a group by the selector ran unordered on each process
+    # (NFAQueryRuntime._select): one ordering over the merged rows
+    post_order = plan.ordered and runtime.keyer is None
 
     def sharded(state, *args, **kw):
         out = dict(_step_on_shard(layout, fn, state, 0, *args, **kw))
@@ -1477,10 +1513,18 @@ def sharded_jit_for(runtime, fn, timer: bool = False):
         for k in (PK_KEY, GK_KEY):
             if k in out:
                 out[k] = (out[k].to(torch.int64) * n + first).to(out[k].dtype)
-        return state, _egress(layout, out, okey, meta[None], rows,
-                              torch.zeros((), dtype=torch.int64, device=dev),
-                              ins_on, inner_slots, _timeout(runtime),
-                              f"query '{runtime.name}' sharded step")
+        merged = _egress(layout, out, okey, meta[None], rows,
+                         torch.zeros((), dtype=torch.int64, device=dev),
+                         ins_on, inner_slots, _timeout(runtime),
+                         f"query '{runtime.name}' sharded step")
+        if post_order and merged[VALID_KEY].shape[0]:
+            # (no process's emission had a row: nothing was selected)
+            strrank = None
+            if plan.needs_str_rank:
+                strrank = (args[0][STR_RANK] if not timer else torch.as_tensor(
+                    runtime.dictionary.rank_table(), device=dev))
+            merged = _order_merged(plan, merged, strrank)
+        return state, merged
 
     return sharded
 

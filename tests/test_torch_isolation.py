@@ -338,10 +338,10 @@ def test_manager_without_device_chooses_cuda():
             SiddhiManager()
 
 
-def test_unported_constructs_are_named_not_skipped():
-    """What the port still refuses raises naming its ROADMAP item: the
-    exchange kernel over NVLink between cards (``shard_exchange
-    pallas_ring`` across processes, B.10). What it refused before runs: a
+def test_unported_constructs_are_named_not_skipped(monkeypatch):
+    """What the port refused before runs: ``shard_exchange pallas_ring``
+    across processes (B.10) is accepted (the mesh's process group is the
+    next check) and, on CPU tensors, takes its plain version; a
     partitioned keyed-length join routes over a mesh, the supervisor takes
     its peer recovery and peer monitor, the fault injector drops and
     restores a peer (A.9), as do the REST service's cluster fabric (A.10
@@ -387,8 +387,17 @@ def test_unported_constructs_are_named_not_skipped():
         "from L#window.length(4) join R#window.length(4) on L.v > R.v "
         "select L.k as k, R.v as rv insert into O; end;")
     q = rt.query_runtimes["j"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP B\.10"):
+    with pytest.raises(RuntimeError, match="needs the process group"):
         device_route_query_step(q, Mesh(4, process_count=2), exchange="pallas_ring")
+    from siddhi_tpu_torch.ops import exchange
+
+    taken = []
+    monkeypatch.setattr(exchange, "process_exchange_plain",
+                        lambda sent, n, L, p, *a: taken.append((n, L, p)) or sent)
+    bufs = [torch.arange(16, dtype=torch.int64).view(2, 8)]
+    got = exchange.peer_exchange_cols(bufs, exchange.PeerExchange(4, 2, 2, 1))
+    assert got[0] is bufs[0]
+    assert taken == [(4, 2, 1)] and exchange.peer_exchange_cols.launches == 0
     device_route_query_step(q, make_mesh(2))
     assert q._route_layout.n == 2
     m.shutdown()

@@ -286,6 +286,33 @@ def assert_arrays_match(got, want, what="", rtol=FLOAT_RTOL, atol=0.0):
         np.testing.assert_array_equal(got, want, err_msg=what)
 
 
+# the columns of the cross-process exchange checks: 1-, 4- and 8-byte
+# elements, with and without a trailing row shape
+PEER_COLUMNS = ((torch.bool, ()), (torch.uint8, (3,)), (torch.int32, ()),
+                (torch.float32, (2,)), (torch.int64, ()), (torch.float64, ()))
+
+
+def peer_sends(P, L, Q, p):
+    """Process ``p``'s send buffers ``[L, n*Q, *tail]`` (n = P*L) of every
+    ``PEER_COLUMNS`` column, made from a seed with numpy (the same in
+    every process that asks for them)."""
+    rng = np.random.default_rng([P, L, Q, p])
+    n = P * L
+    out = []
+    for dtype, tail in PEER_COLUMNS:
+        shape = (L, n * Q) + tail
+        if dtype == torch.bool:
+            a = rng.integers(0, 2, shape).astype(bool)
+        elif dtype.is_floating_point:
+            a = rng.standard_normal(shape).astype(str(dtype).split(".")[-1])
+        else:
+            info = torch.iinfo(dtype)
+            a = rng.integers(info.min, info.max, shape, endpoint=True,
+                             dtype=str(dtype).split(".")[-1])
+        out.append(torch.from_numpy(a))
+    return out
+
+
 def _free_jax_programs():
     jax = sys.modules.get("jax")
     if jax is not None:
