@@ -505,12 +505,25 @@ launch counts and recorded-call checks hold as they did.
             ``distinctCount``, order by / limit over a partitioned and a
             global window, time/timeBatch/externalTime/session, a host
             window, an inner stream, a pattern's group by over captures, a
-            partitioned join): each process's rows == one process's on the
-            card; events/s and state bytes a process; the distinct scan's
-            launches on the split path and its last call == plain. Gate 3:
-            the legacy host router and its shim route the partitioned
-            flagship x4 on the card: each key's rows == the unrouted step's;
-33. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
+            partitioned join, its orderings, groupings and other sides, a
+            join against an incremental aggregation with a fixed and a
+            per-event duration, an unpartitioned pattern's group by):
+            each process's rows == one process's on the card, and no
+            process logs an error; events/s and state bytes a process; the
+            distinct scan's launches on the split path and its last call ==
+            plain. Gate 3: the legacy host router and its shim route the
+            partitioned flagship x4 on the card: each key's rows == the
+            unrouted step's;
+33. peer    K8 across processes as peer writes through CUDA IPC, two and
+            four processes on the card;
+34. api     the management API: ``validate_siddhi_app`` of the flagship
+            (nothing registered) and of a broken app (the reference's
+            error); the sandbox of the flagship with kafka transports and
+            an rdbms store == phase 4's unrouted rows; ``persist_all`` /
+            ``restore_last_state`` over the routed and the global flagship
+            in one manager == the unbroken run; ``get_queries`` /
+            ``is_stateful`` == the reference's management corpus;
+35. a ``{"pipeline": ..., "ingest": ...}`` line, a ``{"windows": ...}`` line,
     a ``{"partitions": ...}`` line, a ``{"patterns": ...}`` line, a
     ``{"joins": ...}`` line, a ``{"persistence": ...}`` line, an
     ``{"aggregation": ...}`` line, a ``{"serving": ...}`` line, a
@@ -519,6 +532,7 @@ launch counts and recorded-call checks hold as they did.
     ``{"autopilot": ...}`` line, a ``{"cluster": ...}`` line, a
     ``{"fuzz": ...}`` line, a ``{"lint_ingest": ...}`` line, a
     ``{"distributed": ...}`` line, a ``{"split": ...}`` line, a
+    ``{"peer": ...}`` line, an ``{"api": ...}`` line, a
     ``{"kernels": [...]}`` line, the nvidia-smi
     line, and last
     ``{"ok": true, "device": {...}}``.
@@ -9371,9 +9385,19 @@ SP_SPAN_MS = 1_000              # event time a batch spans
 SP_CUT = {"keyed_windows": 2, "host_window": 2, "pattern_group_by": 4,
           "pattern_order_by": 4, "join_order_by": 4, "join_group_by": 2,
           "join_aggregation": 4, "delay_window": 2, "join_batch_window_side": 4,
-          "join_store_side": 2}
+          "join_store_side": 2, "join_aggregation_side": 4,
+          "join_aggregation_per_event": 4, "pattern_unpartitioned_group_by": 4}
 # the delay ring holds a whole batch and the rows still held
-SP_KNOBS = {"delay_window": {"window_capacity": 131_072}}
+SP_KNOBS = {"delay_window": {"window_capacity": 131_072},
+            "pattern_unpartitioned_group_by": {"nfa_slots": 256}}
+# rows a batch where it is not BATCH: an unpartitioned pattern keyed by a
+# capture emits a dense [rows, slots + 1] match grid that the host pulls
+# whole to key it (65,536 x 4,097 rows ran a 96 GiB host out of memory)
+SP_ROWS = {"pattern_unpartitioned_group_by": 8_192}
+# each batch's rows at one instant: rows of one key at several instants
+# in a batch take the generic NFA engine, whose rounds step that key's
+# rows one at a time (an unpartitioned pattern is one key)
+SP_FLAT = {"pattern_unpartitioned_group_by"}
 # event time a batch spans where it is not SP_SPAN_MS: a playback delay
 # takes a TIMER step a millisecond of event time it releases, so its feed
 # runs at 10 times the rate (the same rows and keys a batch)
@@ -9395,8 +9419,21 @@ begin
 end;
 @info(name = 'q1') from Out0#window.length(4) select symbol, ap insert into Out1;
 """
+SP_AGG = """
+define stream Rs (k string, v double);
+from R[v < 0.5] select k, v insert into Rs;
+define aggregation Agg from Rs select k, sum(v) as t, count() as c
+  group by k aggregate every sec ... min;
+partition with (k of L)
+begin
+  @info(name = 'q') from L#window.length(4) join Agg on L.k == Agg.k
+    within 0L, 100000000L per {per}
+  select L.k as k, L.v as lv, Agg.AGG_TIMESTAMP as at, Agg.t as t, Agg.c as c
+  insert into Out;
+end;"""
 # gate 2's shapes: name -> (app, the queries split, the output streams,
-# the feed: "S" or "AB"/"LR", two streams)
+# the feed: "S", or two streams ("AB", "LR", "RL"; "RLper": L's rows
+# carry a per-event duration, "seconds" or "minutes"))
 SP_SHAPES = {
     "group_by": (SP_STREAM + """
 partition with (symbol of S)
@@ -9527,36 +9564,59 @@ begin
   select L.k as k, L.v as lv, T.v as rv
   insert into Out;
 end;""", ["q"], ["Out"], "LR"),
+    # the last two shapes of A.11: a partitioned join against an
+    # incremental aggregation outside the partition (R's rows under 0.5,
+    # about 330 a batch, folded by second and minute: whole on every
+    # process; the broadcast probe is [65,536, buckets so far]), with a
+    # fixed and a per-event duration; an unpartitioned pattern grouped by
+    # a capture (the NFA whole on every process, the groups split). An
+    # aggregation's own input filter (`from R[v < 0.5]`) folds every row
+    # in the reference and the port alike, so a query filters first
+    "join_aggregation_side": (SP_TWO.format(a="L", b="R") + SP_AGG.format(per="'seconds'"),
+                              ["q"], ["Out"], "RL"),
+    "join_aggregation_per_event": (SP_TWO.format(a="L", b="R").replace(
+        "L (k string, v double)", "L (k string, v double, per string)")
+        + SP_AGG.format(per="L.per"), ["q"], ["Out"], "RLper"),
+    "pattern_unpartitioned_group_by": (SP_TWO.format(a="A", b="B") + """
+@info(name = 'q') from every e1=A[v > 99.0] -> e2=B[e2.v > e1.v] within 1 sec
+select e1.k as k, sum(e2.v) as total, count() as c group by e1.k
+insert into Out;""", ["q"], ["Out"], "AB"),
 }
 
 
-def sp_feed(shape_feed: str, n_batches: int, span_ms: int = SP_SPAN_MS):
-    """Phase 32's feed: ``n_batches`` batches of ``BATCH`` rows over
+def sp_feed(shape_feed: str, n_batches: int, span_ms: int = SP_SPAN_MS,
+            rows: int = BATCH, flat: bool = False):
+    """Phase 32's feed: ``n_batches`` batches of ``rows`` rows over
     ``NUM_SYMBOLS`` keys, each batch ``span_ms`` of event time (so time
-    windows and timers turn over between and inside batches). Prices and values
+    windows and timers turn over between and inside batches; ``flat``:
+    each batch's rows at its first instant). Prices and values
     are multiples of 0.25 (exact sums, in any order). ``"S"``: stream S;
-    two letters: batches alternating on those two streams."""
+    two letters: batches alternating on those two streams (``"RLper"``:
+    R and L, L's rows with a ``per`` of "seconds" or "minutes")."""
     import numpy as np
 
     rng = np.random.default_rng(SP_SEED)
     syms = np.array([f"S{i}" for i in range(NUM_SYMBOLS)], dtype=object)
     sides = np.array([f"side{i}" for i in range(5)], dtype=object)
+    pers = np.array(["seconds", "minutes"], dtype=object)
     items = []
     for i in range(n_batches):
-        ts = 1_000 + i * span_ms + (np.arange(BATCH, dtype=np.int64)
-                                    * span_ms) // BATCH
+        ts = 1_000 + i * span_ms + (np.arange(rows, dtype=np.int64)
+                                    * (0 if flat else span_ms)) // rows
         if shape_feed == "S":
             items.append(("S", {
-                "symbol": syms[rng.integers(0, NUM_SYMBOLS, BATCH)],
-                "side": sides[rng.integers(0, 5, BATCH)],
-                "price": np.floor(rng.random(BATCH) * 400.0) / 4.0,
-                "volume": rng.integers(1, 1000, BATCH, dtype=np.int64),
+                "symbol": syms[rng.integers(0, NUM_SYMBOLS, rows)],
+                "side": sides[rng.integers(0, 5, rows)],
+                "price": np.floor(rng.random(rows) * 400.0) / 4.0,
+                "volume": rng.integers(1, 1000, rows, dtype=np.int64),
                 "ts": ts}, ts))
             continue
-        for j, stream in enumerate(shape_feed):
-            items.append((stream, {"k": syms[rng.integers(0, NUM_SYMBOLS, BATCH)],
-                                   "v": np.floor(rng.random(BATCH) * 400.0) / 4.0},
-                          ts + j))
+        for j, stream in enumerate(shape_feed[:2]):
+            cols = {"k": syms[rng.integers(0, NUM_SYMBOLS, rows)],
+                    "v": np.floor(rng.random(rows) * 400.0) / 4.0}
+            if shape_feed.endswith("per") and stream == "L":
+                cols["per"] = pers[rng.integers(0, 2, rows)]
+            items.append((stream, cols, ts + j))
     return items
 
 
@@ -9588,16 +9648,19 @@ def sp_run(device, name: str, split: bool):
             qr = rt.query_runtimes[q]
             shard_query_step(qr, distributed.global_mesh())
             splits.append(None if qr._route_layout is None else qr._route_layout.split)
-    items = sp_feed(feed, SP_CUT.get(name, SP_BATCHES), SP_SPAN.get(name, SP_SPAN_MS))
+    rows_in = SP_ROWS.get(name, BATCH)
+    items = sp_feed(feed, SP_CUT.get(name, SP_BATCHES), SP_SPAN.get(name, SP_SPAN_MS),
+                    rows_in, name in SP_FLAT)
     handlers = {s: rt.get_input_handler(s) for s in {it[0] for it in items}}
     seconds = []
-    for stream, cols, ts in items:
-        t0 = time.perf_counter()
-        handlers[stream].send_columns(cols, timestamps=ts)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-    facts = {"splits": splits, "events": len(items) * BATCH,
+    with logged_errors(f"SP {name} ({'split' if split else 'one process'})"):
+        for stream, cols, ts in items:
+            t0 = time.perf_counter()
+            handlers[stream].send_columns(cols, timestamps=ts)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    facts = {"splits": splits, "events": len(items) * rows_in,
              "state_bytes": sum(t.numel() * t.element_size()
                                 for q in queries
                                 if rt.query_runtimes[q]._state is not None
@@ -9878,14 +9941,15 @@ def phase_split(device, card: str):
     res["shapes"] = {}
     for name, (want, secs1, facts1) in single.items():
         pair = SP_SHAPES[name][3] != "S"
-        shape = {"single_eps": sp_eps(secs1, BATCH, 2 if pair else 1),
+        rows_in = SP_ROWS.get(name, BATCH)
+        shape = {"single_eps": sp_eps(secs1, rows_in, 2 if pair else 1),
                  "single_state_bytes": facts1["state_bytes"]}
         for r, child in enumerate(children):
             got = child["shapes"][name]
             worst = sp_compare(got["rows"], want, f"SP gate 2 {name}: process {r} vs one")
             _require(all(s is not None for s in got["splits"][-1:]),
                      f"SP gate 2 {name}: process {r} split {got['splits']}")
-            shape[f"rank{r}"] = {"eps": sp_eps(got["seconds"], BATCH, 2 if pair else 1),
+            shape[f"rank{r}"] = {"eps": sp_eps(got["seconds"], rows_in, 2 if pair else 1),
                                  "state_bytes": got["state_bytes"],
                                  "splits": got["splits"], "max_rel_err": worst}
             if name == "group_by_distinct":
@@ -10258,6 +10322,195 @@ def phase_peer(device, gm, card: str):
     return res, launches
 
 
+# ------------------------------------------ phase 34: the management API on the card
+
+API_BROKEN_APP = """
+@app:name('validateTest')
+define stream cseEventStream (symbol string, price float, volume long);
+@info(name = 'query1')
+from cseEventStreamA[symbol is null]
+select symbol, price insert into outputStream;
+"""
+# the reference's error for API_BROKEN_APP (tests/test_managment_corpus.py)
+API_BROKEN_ERROR = "query 'query1': stream 'cseEventStreamA' is not defined"
+# the flagship with transports and a store that would each reach for a
+# server (on this host only: a sandbox never connects)
+API_SANDBOX_APP = APP.replace("define stream StockStream", """
+@source(type='kafka', topic='stocks', bootstrap.servers='localhost:9092',
+        @map(type='json'))
+define stream StockStream""").replace("partition with", """
+@sink(type='kafka', topic='out', bootstrap.servers='localhost:9092', @map(type='json'))
+define stream OutStream (symbol string, avgPrice double, totalVolume long);
+@store(type='rdbms', jdbc.url='jdbc:mysql://localhost:3306/siddhi')
+define table Snapshot (symbol string, avgPrice double);
+partition with""")
+# tests/test_managment_corpus.py stateTest: one stateless query, then a
+# window, an aggregator and a rate limiter
+API_STATE_APP = """
+define stream cseEventStream (symbol string, price float, volume int);
+@info(name = 'query1')
+from cseEventStream select * insert all events into outputStream;
+@info(name = 'query2')
+from cseEventStream#window.timeBatch(1 sec) select * insert all events into outputStream;
+@info(name = 'query3')
+from cseEventStream select sum(price) as total insert all events into outputStream1;
+@info(name = 'query4')
+from cseEventStream select * output every 5 min insert all events into outputStream;
+"""
+API_STATE_FLAGS = [False, True, True, True]
+
+
+def phase_api(device, feed, unrouted, card: str):
+    """Phase 34: the management API on the card. Gate 1:
+    ``validate_siddhi_app`` builds the routed flagship on the card and
+    registers nothing; a query over an undefined stream raises the
+    reference's ``CompileError``. Gate 2: the flagship with a kafka
+    ``@source``/``@sink`` and an rdbms ``@store`` fails to build as it
+    stands, and ``create_sandbox_siddhi_app_runtime`` strips them: its
+    rows over the 8 flagship batches == phase 4's unrouted rows. Gate 3:
+    ``persist_all`` after 4 batches of two apps in one manager (the
+    flagship routed x4 with K8, and the global flagship), 4 more
+    batches, ``restore_last_state``, the same 4 batches again: each
+    app's rows after the restore == its rows of the unbroken run. Gate 4:
+    ``get_queries`` in declaration order, ``query_names`` and
+    ``is_stateful`` == the reference's management corpus. Returns (facts,
+    gate 3's K8 launches)."""
+    from siddhi_tpu_torch import InMemoryConfigManager, SiddhiManager
+    from siddhi_tpu_torch.core.util.persistence import InMemoryPersistenceStore
+    from siddhi_tpu_torch.ops.exchange import ring_exchange
+    from siddhi_tpu_torch.ops.expressions import CompileError
+    from siddhi_tpu_torch.parallel.mesh import device_route_query_step, make_mesh
+
+    t_phase = time.perf_counter()
+    res = {}
+    # gate 1
+    m = SiddhiManager(device=device)
+    t0 = time.perf_counter()
+    m.validate_siddhi_app(APP.format(W=WINDOW))
+    res["validate_ms"] = (time.perf_counter() - t0) * 1e3
+    _require(m.app_runtimes == {} and m.get_siddhi_app_runtime("chip_smoke") is None,
+             f"API gate 1: validate registered {sorted(m.app_runtimes)}")
+    try:
+        m.validateSiddhiApp(API_BROKEN_APP)
+        raise Failure("API gate 1: the broken app validated")
+    except CompileError as e:
+        _require(str(e) == API_BROKEN_ERROR, f"API gate 1: error {e!r}")
+        res["broken_error"] = str(e)
+    m.shutdown()
+    print(f"[api] gate 1: validate_siddhi_app built the flagship on the card in "
+          f"{res['validate_ms']:.1f} ms and registered nothing; the broken app "
+          f"raised CompileError({res['broken_error']!r}) [{card}]", flush=True)
+
+    # gate 2
+    m = SiddhiManager(device=device)
+    try:
+        m.create_siddhi_app_runtime(API_SANDBOX_APP.format(W=WINDOW))
+        raise Failure("API gate 2: the app with kafka and rdbms transports built")
+    except (ValueError, CompileError) as e:
+        res["unsandboxed_error"] = f"{type(e).__name__}: {e}"[:200]
+    m.shutdown()
+    m = SiddhiManager(device=device)
+    rt = m.createSandboxSiddhiAppRuntime(API_SANDBOX_APP.format(W=WINDOW))
+    anns = [a.name.lower() for sd in rt.siddhi_app.stream_definitions.values()
+            for a in sd.annotations or []]
+    _require("source" not in anns and "sink" not in anns and not any(
+        a.name.lower() == "store" for td in rt.siddhi_app.table_definitions.values()
+        for a in td.annotations or []), f"API gate 2: the sandbox kept {anns}")
+    cb = collector()
+    rt.add_callback("OutStream", cb)
+    q = rt.query_runtimes["bench"]
+    q.selector_plan.num_keys = KEY_SLOTS
+    q._win_keys = KEY_SLOTS
+    secs = send_timed(rt.getInputHandler("StockStream"), feed, device)
+    m.shutdown()
+    res["sandbox"] = {"rows": sum(len(b["__ts__"]) for b in cb.batches),
+                      "max_rel_err": compare_outputs(cb.batches, unrouted,
+                                                     "API gate 2: sandbox vs phase 4"),
+                      "eps": steady_eps(secs, BATCH)}
+    _require(res["sandbox"]["rows"] == len(feed) * BATCH,
+             f"API gate 2: {res['sandbox']['rows']} rows out")
+    print(f"[api] gate 2: the flagship with kafka @source/@sink and an rdbms "
+          f"@store fails to build ({res['unsandboxed_error']}); its sandbox "
+          f"runtime's {res['sandbox']['rows']} rows == phase 4's unrouted rows "
+          f"(max float rel err {res['sandbox']['max_rel_err']:.3g}); "
+          f"{res['sandbox']['eps']:.1f} events/s [{card}]", flush=True)
+
+    # gate 3
+    half = len(feed) // 2
+    m = SiddhiManager(device=device)
+    m.set_config_manager(InMemoryConfigManager({"siddhi_tpu.shard_exchange": "pallas_ring"}))
+    m.setPersistenceStore(InMemoryPersistenceStore())
+    apps = {}
+    rt = m.createSiddhiAppRuntime(APP.format(W=WINDOW))
+    q = rt.query_runtimes["bench"]
+    q.selector_plan.num_keys = KEY_SLOTS
+    q._win_keys = KEY_SLOTS
+    device_route_query_step(q, make_mesh(N_SHARDS, device), rows_per_shard=ROWS_PER_SHARD)
+    apps["routed"] = rt
+    rt = m.create_siddhi_app_runtime("@app:name('chip_smoke_global')\n"
+                                     + GLOBAL_APP.format(W=WINDOW))
+    rt.query_runtimes["bench"].selector_plan.num_keys = KEY_SLOTS
+    apps["global"] = rt
+    cbs = {name: collector() for name in apps}
+    for name, rt in apps.items():
+        rt.add_callback("OutStream", cbs[name])
+    ring_exchange.launches = 0
+
+    def send(items):
+        for name, rt in apps.items():
+            send_timed(rt.get_input_handler("StockStream"), items, device)
+
+    send(feed[:half])
+    t0 = time.perf_counter()
+    m.persist_all()
+    persist_ms = (time.perf_counter() - t0) * 1e3
+    marks = {name: len(cb.batches) for name, cb in cbs.items()}
+    send(feed[half:])
+    unbroken = {name: cb.batches[marks[name]:] for name, cb in cbs.items()}
+    marks = {name: len(cb.batches) for name, cb in cbs.items()}
+    t0 = time.perf_counter()
+    m.restoreLastState()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    send(feed[half:])
+    launches = ring_exchange.launches
+    m.shutdown()
+    res["persist"] = {"persist_ms": persist_ms, "restore_ms": restore_ms,
+                      "k8_launches": launches}
+    for name, cb in cbs.items():
+        after = cb.batches[marks[name]:]
+        res["persist"][name] = {
+            "rows_after_restore": sum(len(b["__ts__"]) for b in after),
+            "max_rel_err": compare_outputs(after, unbroken[name],
+                                           f"API gate 3 {name}: after the restore")}
+        _require(res["persist"][name]["rows_after_restore"] == (len(feed) - half) * BATCH,
+                 f"API gate 3 {name}: {res['persist'][name]['rows_after_restore']} rows")
+    _require(launches >= 2 * (len(feed) - half),
+             f"API gate 3: {launches} K8 launches for {2 * (len(feed) - half)} routed "
+             f"batches")
+    print(f"[api] gate 3: persist_all of two apps in {persist_ms:.1f} ms, "
+          f"restore_last_state in {restore_ms:.1f} ms; the routed flagship's "
+          f"{res['persist']['routed']['rows_after_restore']} and the global "
+          f"flagship's {res['persist']['global']['rows_after_restore']} rows after "
+          f"the restore == the unbroken run's; {launches} K8 launches [{card}]",
+          flush=True)
+
+    # gate 4
+    m = SiddhiManager(device=device)
+    rt = m.create_siddhi_app_runtime(API_STATE_APP)
+    flags = [qr.is_stateful() for qr in rt.get_queries()]
+    names = rt.query_names
+    m.shutdown()
+    _require(names == ["query1", "query2", "query3", "query4"],
+             f"API gate 4: query_names {names}")
+    _require(flags == API_STATE_FLAGS, f"API gate 4: is_stateful {flags}")
+    res["stateful"] = dict(zip(names, flags))
+    print(f"[api] gate 4: get_queries in declaration order {names}, is_stateful "
+          f"{flags} == the reference's management corpus [{card}]", flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[api] phase 34 in {res['phase_s']:.1f} s [{card}]", flush=True)
+    return res, launches
+
+
 def phase_global(device, feed, card: str):
     """The global flagship on the fused stage: the card against the CPU
     and against the generic path on the card."""
@@ -10538,6 +10791,10 @@ def main() -> int:
     # processes on the card
     peer, px_launches = phase_peer(device, ds_gm, card)
 
+    # 34. the management API: validate, the sandbox, persist_all /
+    # restore_last_state over two apps, get_queries / is_stateful
+    api, api_exchange = phase_api(device, feed, unrouted, card)
+
     # result lines
     print(f"[time] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     # each run's count is set to 0 just before it and read just after
@@ -10545,7 +10802,8 @@ def main() -> int:
                      "P_routed": persistence["routed_x4"]["exchange_launches"],
                      "OB": observability["launches"]["exchange"], "OL": ol_exchange,
                      "AP": ap_exchange, "FZ": fz_exchange, "LN": ln_exchange,
-                     "DS": sum(ds_exchange.values()), **px_launches}
+                     "DS": sum(ds_exchange.values()), "API": api_exchange,
+                     **px_launches}
     px = peer["rank0"]
     kernels = [{
         "name": "ring_exchange", "route": "cuda",
@@ -10654,6 +10912,7 @@ def main() -> int:
                      default=str))
     print(json.dumps({"split": split}, default=str))
     print(json.dumps({"peer": peer}, default=str))
+    print(json.dumps({"api": api}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -45,5 +45,7 @@ from siddhi_tpu_torch.core.query.callback import QueryCallback  # noqa: E402
 from siddhi_tpu_torch.core.stream.output.stream_callback import StreamCallback  # noqa: E402
 from siddhi_tpu_torch.core.util.config import InMemoryConfigManager  # noqa: E402
 
+__version__ = "0.1.0"
+
 __all__ = ["Event", "InMemoryConfigManager", "QueryCallback", "SiddhiCompiler",
-           "SiddhiManager", "StreamCallback"]
+           "SiddhiManager", "StreamCallback", "__version__"]

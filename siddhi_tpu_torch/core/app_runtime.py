@@ -846,6 +846,8 @@ class SiddhiAppRuntime:  # graftlint: disable=R8 — the junction/query/
     def get_input_handler(self, stream_id: str) -> InputHandler:
         return self.input_manager.get_input_handler(stream_id)
 
+    getInputHandler = get_input_handler
+
     def add_callback(self, id_: str, callback):
         """addCallback(streamId, StreamCallback) or (queryName,
         QueryCallback), the reference SiddhiAppRuntimeImpl overloads."""
@@ -889,6 +891,15 @@ class SiddhiAppRuntime:  # graftlint: disable=R8 — the junction/query/
         # compiles resolve against this app's registry
         set_active_extensions(self._extensions)
         return run_on_demand_query(on_demand_query, self)
+
+    @property
+    def query_names(self) -> List[str]:
+        return list(self.query_runtimes)
+
+    def get_queries(self) -> List:
+        """Query runtimes in declaration order (reference
+        ``SiddhiAppRuntime.getQueries``)."""
+        return list(self.query_runtimes.values())
 
     # ---------------------------------------------------- persistence API
 

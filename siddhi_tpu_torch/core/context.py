@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import threading
 import time
+from dataclasses import dataclass, field
 from typing import Dict
 
 import torch
@@ -293,3 +294,17 @@ class SiddhiAppContext:
         self.tables: Dict = {}
         self.named_windows: Dict = {}
         self.aggregations: Dict = {}
+
+
+@dataclass
+class SiddhiQueryContext:
+    """Per-query context (reference ``core/config/SiddhiQueryContext.java``)."""
+
+    siddhi_app_context: SiddhiAppContext = None
+    name: str = ""
+    partitioned: bool = False
+    _state_counter: int = field(default=0)
+
+    def generate_state_id(self) -> str:
+        self._state_counter += 1
+        return f"{self.name}-s{self._state_counter}"

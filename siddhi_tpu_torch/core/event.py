@@ -43,6 +43,8 @@ EXPIRED = 1
 TIMER = 2
 RESET = 3
 
+TYPE_NAMES = {CURRENT: "CURRENT", EXPIRED: "EXPIRED", TIMER: "TIMER", RESET: "RESET"}
+
 
 @dataclass
 class Event:
@@ -655,15 +657,16 @@ def _parallel_from_events(pool, chunks, events, definition, dictionary,
             arrs[attr.name][:n] = np.where(mask, 0, ids)
         cols[attr.name] = arrs[attr.name]
         cols[attr.name + "?"] = masks[attr.name]
-    return _stamped(HostBatch(cols), jt, chunk_ms, t_merge)
+    return _stamped(pool, HostBatch(cols), jt, chunk_ms, t_merge)
 
 
-def _stamped(batch: HostBatch, jt: bool, chunk_ms, t_merge: float) -> HostBatch:
-    """A pool-packed batch with its pack stamp: max, not sum (the
-    sub-batches were packed at once), the slowest packer plus the serial
-    merge."""
+def _stamped(pool, batch: HostBatch, jt: bool, chunk_ms, t_merge: float) -> HostBatch:
+    """A pool-packed batch, its serial merge recorded on the pool, with
+    its pack stamp: max, not sum (the sub-batches were packed at once),
+    the slowest packer plus the serial merge."""
+    merge_ms = (time.perf_counter() - t_merge) * 1000.0
+    pool.record_merge(merge_ms)
     if jt:
-        merge_ms = (time.perf_counter() - t_merge) * 1000.0
         journey.stamp_pack_ms(batch, max(chunk_ms, default=0.0) + merge_ms)
     return batch
 
@@ -737,4 +740,4 @@ def _parallel_from_columns(pool, chunks, data, definition, dictionary,
             masks[attr.name][:n] |= np.asarray(user_mask, bool)[:n]
         cols[attr.name] = arrs[attr.name]
         cols[attr.name + "?"] = masks[attr.name]
-    return _stamped(HostBatch(cols), jt, chunk_ms, t_merge)
+    return _stamped(pool, HostBatch(cols), jt, chunk_ms, t_merge)

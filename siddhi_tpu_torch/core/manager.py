@@ -8,7 +8,7 @@ quietly running on the CPU.
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -16,6 +16,35 @@ from siddhi_tpu_torch.compiler import SiddhiCompiler
 from siddhi_tpu_torch.core.app_runtime import SiddhiAppRuntime
 from siddhi_tpu_torch.core.context import SiddhiContext
 from siddhi_tpu_torch.query_api.siddhi_app import SiddhiApp
+
+
+def _strip_transports(app: SiddhiApp) -> SiddhiApp:
+    """Sandbox filter (reference ``SiddhiManager.
+    removeSourceSinkAndStoreAnnotations``): drop every @source/@sink whose
+    type is not inMemory from stream definitions, and every @store from
+    table definitions. Definitions are shallow-copied so a caller-owned
+    SiddhiApp object is not mutated."""
+    import dataclasses
+
+    def keep_stream_ann(a) -> bool:
+        if a.name.lower() not in ("source", "sink"):
+            return True
+        return (a.element("type") or "").lower() in ("inmemory", "memory")
+
+    streams = {}
+    for sid, sdef in app.stream_definitions.items():
+        if any(not keep_stream_ann(a) for a in sdef.annotations or []):
+            sdef = dataclasses.replace(
+                sdef, annotations=[a for a in sdef.annotations if keep_stream_ann(a)])
+        streams[sid] = sdef
+    tables = {}
+    for tid, tdef in app.table_definitions.items():
+        if any(a.name.lower() == "store" for a in tdef.annotations or []):
+            tdef = dataclasses.replace(
+                tdef, annotations=[a for a in tdef.annotations
+                                   if a.name.lower() != "store"])
+        tables[tid] = tdef
+    return dataclasses.replace(app, stream_definitions=streams, table_definitions=tables)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,7 +81,34 @@ class SiddhiManager:
         self.app_runtimes[runtime.name] = runtime
         return runtime
 
-    def get_siddhi_app_runtime(self, name: str):
+    createSiddhiAppRuntime = create_siddhi_app_runtime
+
+    def validate_siddhi_app(self, app: Union[str, SiddhiApp]) -> None:
+        """Parse and fully build the app on the manager's device, then
+        discard it: creation-time errors surface, nothing is registered or
+        started (reference ``SiddhiManager.validateSiddhiApp``)."""
+        if isinstance(app, str):
+            app = SiddhiCompiler.parse(SiddhiCompiler.update_variables(app))
+        SiddhiAppRuntime(app, self.siddhi_context).shutdown()
+
+    validateSiddhiApp = validate_siddhi_app
+
+    def create_sandbox_siddhi_app_runtime(
+            self, app: Union[str, SiddhiApp]) -> SiddhiAppRuntime:
+        """A runtime with its external transports and stores stripped
+        (reference ``SiddhiManager.createSandboxSiddhiAppRuntime``): every
+        non-inMemory @source/@sink on a stream and every @store on a table
+        is removed, so the app runs fully in-process: feed it with input
+        handlers or the InMemoryBroker, observe it with callbacks."""
+        if isinstance(app, str):
+            app = SiddhiCompiler.parse(SiddhiCompiler.update_variables(app))
+        runtime = SiddhiAppRuntime(_strip_transports(app), self.siddhi_context)
+        self.app_runtimes[runtime.name] = runtime
+        return runtime
+
+    createSandboxSiddhiAppRuntime = create_sandbox_siddhi_app_runtime
+
+    def get_siddhi_app_runtime(self, name: str) -> Optional[SiddhiAppRuntime]:
         """The deployed app of that name, or None."""
         return self.app_runtimes.get(name)
 
@@ -72,6 +128,21 @@ class SiddhiManager:
         self.siddhi_context.persistence_store = store
 
     setPersistenceStore = set_persistence_store
+
+    def persist_all(self):
+        """Persist every app (reference SiddhiManager.persist)."""
+        for rt in self.app_runtimes.values():
+            rt.persist()
+
+    persistAll = persist_all
+
+    def restore_last_state(self):
+        """Restore every app from its last revision (reference
+        SiddhiManager.restoreLastState)."""
+        for rt in self.app_runtimes.values():
+            rt.restore_last_revision()
+
+    restoreLastState = restore_last_state
 
     def shutdown(self):
         for rt in list(self.app_runtimes.values()):

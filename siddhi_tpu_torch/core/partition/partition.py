@@ -266,6 +266,13 @@ class RangePartitionKeyer:
         pk[:n] = pk_out
         return out, pk
 
+    # the key space is the static list of ranges: no state to keep
+    def snapshot(self) -> dict:
+        return {}
+
+    def restore(self, snap: dict):
+        pass
+
 
 class PartitionContext:
     """Planning context for one ``partition ... begin ... end`` block:

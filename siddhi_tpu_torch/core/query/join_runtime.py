@@ -570,6 +570,10 @@ def overflow_bit(overflow, dev) -> torch.Tensor:
 
 
 class JoinQueryRuntime(QueryRuntime):
+    def is_stateful(self) -> bool:
+        # window and NFA state is always snapshot-relevant
+        return True
+
     def __init__(self, name, app_context, left: JoinSide, right: JoinSide,
                  on_cond: Optional[Callable], selector_plan, dictionary,
                  partition_ctx=None, group_keyer=None):
@@ -920,29 +924,8 @@ class JoinQueryRuntime(QueryRuntime):
                 (time.perf_counter() - t_host0) * 1000.0)
             t_probe0 = time.perf_counter()
             try:
-                if routed:
-                    # pad and pre-check on the host, splitting oversized
-                    # batches, then each piece through the routed side step
-                    from siddhi_tpu_torch.parallel.mesh import prepare_routed_batches
-
-                    notify = None
-                    run = step
-                    if other.store is not None:
-                        # key-sharded across processes: the table, whole on
-                        # every process, is each trigger row's probe surface
-                        pc, pv = self._probe_surface(other)
-                        dev = self.device
-                        probe = ({k: to_device(v, dev) for k, v in pc.items()},
-                                 None if pv is None else to_device(pv, dev).to(torch.bool))
-
-                        def run(st, c, now):
-                            return step(st, c, now, probe=probe)
-
-                    for piece in prepare_routed_batches(self, cols):
-                        self._route_layout.dispatches += 1
-                        nt = self._finish_device_batch(run, piece, self.overflow_knob_msg)
-                        if nt is not None:
-                            notify = nt if notify is None else min(notify, nt)
+                if routed and other.store is None:
+                    notify = self._routed_pieces(step, cols)
                 elif getattr(other.store, "dynamic", None) is not None:
                     notify = self._probe_dynamic_aggregation(step, other, cols)
                 else:
@@ -991,11 +974,33 @@ class JoinQueryRuntime(QueryRuntime):
         probe_cols = {k: to_device(v, dev) for k, v in probe_cols.items()}
         if probe_valid is not None:
             probe_valid = to_device(probe_valid, dev).to(torch.bool)
+        if self._route_layout is not None:
+            # key-sharded across processes: the store, whole on every
+            # process, is each trigger row's probe surface on its owner
+            return self._routed_pieces(step, cols, probe=(probe_cols, probe_valid), **kw)
 
         def call(st, c, now):
             return step(st, probe_cols, probe_valid, c, now, **kw)
 
         return self._finish_device_batch(call, cols, self.overflow_knob_msg)
+
+    def _routed_pieces(self, step, cols, **probe):
+        """The routed side step over the batch: padded and pre-checked on
+        the host, oversized batches split, each piece through the step
+        (``probe``: a store side's surface and width). Returns the
+        earliest notify time."""
+        from siddhi_tpu_torch.parallel.mesh import prepare_routed_batches
+
+        def run(st, c, now):
+            return step(st, c, now, **probe)
+
+        notify = None
+        for piece in prepare_routed_batches(self, cols):
+            self._route_layout.dispatches += 1
+            nt = self._finish_device_batch(run, piece, self.overflow_knob_msg)
+            if nt is not None:
+                notify = nt if notify is None else min(notify, nt)
+        return notify
 
     def _probe_dynamic_aggregation(self, step, other: JoinSide, cols):
         """Per-event ``within``/``per``: the trigger rows grouped by their

@@ -74,6 +74,10 @@ class StreamProxy(Receiver):
 
 
 class NFAQueryRuntime(QueryRuntime):
+    def is_stateful(self) -> bool:
+        # window and NFA state is always snapshot-relevant
+        return True
+
     def __init__(self, name: str, app_context, stage: NFAStage,
                  input_defs: Dict[str, StreamDefinition],
                  stream_keyers: Dict[str, object], selector_plan, dictionary,

@@ -258,6 +258,19 @@ class QueryRuntime(Receiver):
         self._instr_gauged: set = set()
         self._instr_spec: Optional[List[Slot]] = None
 
+    def is_stateful(self) -> bool:
+        """Does this query hold state a snapshot must capture? A window,
+        an aggregator or group by, or a rate limiter that is not
+        pass-through (reference ``QueryRuntimeImpl.isStateful``)."""
+        from siddhi_tpu_torch.core.query.ratelimit import PassThroughRateLimiter
+
+        if self.window_stage is not None or self.host_window is not None:
+            return True
+        if self.selector_plan.contains_aggregator or self.selector_plan.group_by:
+            return True
+        rl = self.rate_limiter
+        return rl is not None and not isinstance(rl, PassThroughRateLimiter)
+
     # ---------------------------------------------------------------- state
 
     @property
@@ -1134,18 +1147,27 @@ class QueryRuntime(Receiver):
                 lambda st, c, cx: self.selector_plan.apply(st, c, cx),
                 f"query.{self.name}.selector", family="selector")
         rl = self._route_layout
-        if rl is not None and rl.sel_whole:
-            # key-sharded across processes: the selector's state is whole
-            # on every process, held as its one shard of the layout
-            from siddhi_tpu_torch.parallel.mesh import step_on_own_shard
+        if rl is not None and rl.split == "select":
+            # key-sharded at the selector across processes (an
+            # unpartitioned pattern's group by): this process's groups, the
+            # selected rows of every process merged
+            from siddhi_tpu_torch.parallel.mesh import select_own_groups
 
-            sel_out = step_on_own_shard(
-                rl, lambda st, c: self._sel_step(st["sel"], c, ctx), self._state,
-                self._to_device(cols))
+            out = LazyColumns(select_own_groups(self, ctx, self._to_device(cols)))
         else:
-            self._state["sel"], sel_out = self._sel_step(
-                self._state["sel"], self._to_device(cols), ctx)
-        out = LazyColumns(pack_meta(sel_out))
+            if rl is not None and rl.sel_whole:
+                # key-sharded across processes: the selector's state is
+                # whole on every process, held as its one shard of the
+                # layout
+                from siddhi_tpu_torch.parallel.mesh import step_on_own_shard
+
+                sel_out = step_on_own_shard(
+                    rl, lambda st, c: self._sel_step(st["sel"], c, ctx), self._state,
+                    self._to_device(cols))
+            else:
+                self._state["sel"], sel_out = self._sel_step(
+                    self._state["sel"], self._to_device(cols), ctx)
+            out = LazyColumns(pack_meta(sel_out))
         meta = out.pop("__meta__")
         if int(meta[0]) != 0:
             # the selector step's own overflow (distinctCount value-table

@@ -112,6 +112,10 @@ class IngestPackPool:
         self._tel.gauge("ingest.pool.workers", self.alive_workers)
         self._tel.gauge("ingest.pool.utilization",
                         lambda p=self: p._busy / max(1, p.workers))
+        # a sub-batch's pack on a worker (or its re-pack), and the serial
+        # merge after the ordered wait
+        self._pack_hist = self._tel.histogram("ingest.pack_ms")
+        self._merge_hist = self._tel.histogram("ingest.merge_ms")
         with self._lock:
             self._spawn_missing_locked()
 
@@ -273,6 +277,8 @@ class IngestPackPool:
                 t0 = time.perf_counter()
                 fn(t.lo, t.hi)
                 t.elapsed_ms = (time.perf_counter() - t0) * 1000.0
+                self._tel.count("ingest.pool.repacks")
+                self._pack_hist.record(t.elapsed_ms)
                 with self._lock:
                     self.repacked_subbatches += 1
                     self._spawn_missing_locked()
@@ -280,6 +286,9 @@ class IngestPackPool:
         with self._lock:
             self.subbatches += len(tasks)
         return out
+
+    def record_merge(self, merge_ms: float) -> None:
+        self._merge_hist.record(merge_ms)
 
     # -------------------------------------------------------------- worker
 
@@ -297,6 +306,7 @@ class IngestPackPool:
                 except Exception as e:  # noqa: BLE001 — injected death
                     with self._lock:
                         self.worker_deaths += 1
+                    self._tel.count("ingest.pool.worker_deaths")
                     task.error = e
                     task.done.set()
                     log.warning("ingest pack worker killed: %s", e)
@@ -307,6 +317,7 @@ class IngestPackPool:
             try:
                 task.fn(task.lo, task.hi)
                 task.elapsed_ms = (time.perf_counter() - t0) * 1000.0
+                self._pack_hist.record(task.elapsed_ms)
             except Exception as e:  # noqa: BLE001 — surfaced via re-pack
                 task.error = e
             finally:

@@ -62,6 +62,14 @@ def to_torch_dtype(dt) -> torch.dtype:
     return TORCH_OF_NUMPY[np.dtype(dt)]
 
 
+def cast_to(xp, arr, t: AttrType):
+    """``arr`` in the dtype of attribute type ``t``: a tensor in its torch
+    dtype, a host array in its numpy dtype."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(torch_dtype_of(t))
+    return np.asarray(arr).astype(dtype_of(t))
+
+
 def is_numeric(t: AttrType) -> bool:
     return t in _NUMERIC_ORDER
 

@@ -52,10 +52,24 @@ The shapes, one parametrised case each:
   keeping its own keys'), with a ``lengthBatch`` window, and with a table
   filled by a query outside the partition (whole on every process, the
   probe surface of each trigger row on its owner process).
+- ``join_aggregation_side`` and ``join_aggregation_per_event``: a
+  partitioned join against an incremental aggregation defined outside the
+  partition, with a fixed ``per 'seconds'`` and with a per-event
+  ``per L.per`` (the trigger rows grouped by their duration, one probe a
+  group): every process folds the whole stream into the same buckets, and
+  each trigger row probes them on its owner process;
+- ``pattern_unpartitioned_group_by``, ``sequence_unpartitioned_group_by``,
+  ``pattern_unpartitioned_group_order`` and
+  ``absent_unpartitioned_group_by``: an unpartitioned pattern, a
+  sequence, a pattern with an order by / limit and an absent pattern
+  (``not ... for``: its TIMER sweeps), each grouped by a capture: the NFA
+  runs whole on every process, each process selects its own groups, and
+  the selected rows merge in the emission's order.
 
-The shapes ``shard_query_step`` does not split yet (a partitioned join
-against an incremental aggregation; an unpartitioned pattern's group by)
-raise naming ROADMAP A.11 (checked without a process group).
+``join_aggregation_unserved`` adds a query asking the aggregation for a
+duration it does not keep: each process drops the trigger rows and logs
+the reference's error as often as the reference does. The split mode of
+the two shapes ROADMAP A.11 closed is checked without a process group.
 
 The children import ``siddhi_tpu_torch`` only, and each asserts at its
 end that neither ``jax`` nor ``siddhi_tpu`` was imported; no shape may
@@ -65,6 +79,7 @@ and drops it, which a comparison of rows can miss). Tolerance
 rtol 1e-12.
 """
 
+import logging
 import os
 import pickle
 import socket
@@ -208,6 +223,59 @@ DELAY_APP = (PLAYBACK_STOCK + "partition with (symbol of S) begin @info(name = '
 # query outside the partition), a global (unpartitioned) stream, a batch
 # window (a host window cannot be a join side inside a partition: it has
 # no per-key probe surface)
+# a partitioned join against an incremental aggregation outside the
+# partition: a fixed duration ({per} a literal) or each trigger row's own
+# ({per} ``L.per``, with ``{lper}`` the column)
+AGG_JOIN = """
+@app:playback
+define stream L (k string, v double{lper});
+define stream R (k string, v double);
+define aggregation Agg from R select k, sum(v) as t, count() as c
+  group by k aggregate every sec ... min;
+partition with (k of L)
+begin
+  @info(name = 'q')
+  from L#window.length(4) join Agg on L.k == Agg.k
+    within 0L, 100000000L per {per}
+  select L.k as k, L.v as lv, Agg.AGG_TIMESTAMP as at, Agg.t as t, Agg.c as c
+  insert into Out;
+end;
+"""
+
+# a second query asks for hours, which 'sec ... min' does not keep
+AGG_JOIN_UNSERVED = AGG_JOIN.format(lper="", per="'seconds'") + """
+partition with (k of L)
+begin
+  @info(name = 'qd')
+  from L#window.length(4) join Agg on L.k == Agg.k
+    within 0L, 100000000L per 'hours'
+  select L.k as k, Agg.t as t insert into OutD;
+end;
+"""
+
+# unpartitioned patterns grouped by a capture
+UNPARTITIONED_PATTERN = """
+@app:playback
+define stream A (k string, v double);
+define stream B (k string, v double);
+@info(name = 'q')
+from {body}
+select e1.k as k, sum(e2.v) as total, count() as c
+group by e1.k {tail}
+insert into Out;
+"""
+
+ABSENT_GROUP_APP = """
+@app:playback
+define stream A (k string, v double);
+define stream B (k string, v double);
+@info(name = 'q')
+from every e1=A[v > 5.0] -> not B[v > e1.v] for 1 sec
+select e1.k as k, count() as c, max(e1.v) as top
+group by e1.k
+insert into Out;
+"""
+
 JOIN_SIDES = """
 @app:playback
 define stream L (k string, v double);
@@ -264,12 +332,37 @@ SHAPES = {
                                                  rname="R"), ["q"], ["Out"], "join"),
     "join_store_side": (JOIN_SIDES.format(pr="", right="T", rname="T"), ["q"], ["Out"],
                         "join"),
+    "join_aggregation_side": (AGG_JOIN.format(lper="", per="'seconds'"), ["q"], ["Out"],
+                              "aggregation"),
+    "join_aggregation_per_event": (AGG_JOIN.format(lper=", per string", per="L.per"),
+                                   ["q"], ["Out"], "aggregation"),
+    "pattern_unpartitioned_group_by": (UNPARTITIONED_PATTERN.format(
+        body="every e1=A -> e2=B[e2.v > e1.v] within 2 sec", tail=""),
+        ["q"], ["Out"], "pattern"),
+    "sequence_unpartitioned_group_by": (UNPARTITIONED_PATTERN.format(
+        body="every e1=A, e2=B", tail=""), ["q"], ["Out"], "pattern"),
+    "pattern_unpartitioned_group_order": (UNPARTITIONED_PATTERN.format(
+        body="every e1=A -> e2=B[e2.v > e1.v] within 2 sec",
+        tail="order by total desc, k limit 3"), ["q"], ["Out"], "pattern"),
+    "absent_unpartitioned_group_by": (ABSENT_GROUP_APP, ["q"], ["Out"], "pattern"),
+}
+
+# shapes whose queries log a processing error by design (each process as
+# the reference does), held by their own test
+ERROR_SHAPES = {
+    "join_aggregation_unserved": (AGG_JOIN_UNSERVED, ["q", "qd"], ["Out", "OutD"],
+                                  "one_trigger"),
 }
 
 # where each query of a shape takes its rows: at the input, at the
 # selector, or nowhere (None: a query with no keyed state runs whole)
 SPLITS = {"order_limit_batch": ["select"], "inner_stream": [None, "input"],
-          "unpartitioned_join": [None], "delay_window": ["select"]}
+          "unpartitioned_join": [None], "delay_window": ["select"],
+          "pattern_unpartitioned_group_by": ["select"],
+          "sequence_unpartitioned_group_by": ["select"],
+          "pattern_unpartitioned_group_order": ["select"],
+          "absent_unpartitioned_group_by": ["select"],
+          "join_aggregation_unserved": ["input", "input"]}
 
 # the feeds, made from a seed in every process alike (numpy only): a
 # torch_helpers generator, its arguments, and its sender (stream S's
@@ -285,6 +378,11 @@ FEEDS = {
     # capacity grows mid-feed (a state gather and a relayout)
     "join": ("two_stream_feed", dict(seed=5, streams=("L", "R"), n_items=30,
                                      n_keys=40), "send_multi"),
+    "aggregation": ("aggregation_join_feed", dict(seed=6, n_items=30, n_keys=7),
+                    "send_multi"),
+    # one send on L: the unservable query logs once
+    "one_trigger": ("aggregation_join_feed", dict(seed=7, n_items=30, n_keys=7,
+                                                  triggers=1), "send_multi"),
 }
 
 WORKER = textwrap.dedent('''
@@ -387,7 +485,7 @@ class _Group:
             return          # another worker spawned it
         port = _free_port()
         env = {**os.environ, "JAX_PLATFORMS": "cpu"}
-        blob = pickle.dumps((SHAPES, FEEDS)).hex()
+        blob = pickle.dumps(({**SHAPES, **ERROR_SHAPES}, FEEDS)).hex()
         for r in range(P):
             with open(self.logs[r], "w") as log:
                 self.procs.append(subprocess.Popen(
@@ -430,24 +528,45 @@ def groups(tmp_path_factory):
 _REF = {}
 
 
-def _ref_rows(name):
-    """The reference's single-process rows of a shape, by output stream
-    (made while the groups run)."""
+class _Errors(logging.Handler):
+    """The processing errors a package logs."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.seen = []
+
+    def emit(self, record):
+        self.seen.append(record.getMessage()[:300])
+
+
+def _ref_run(name):
+    """The reference's single-process rows of a shape, by output stream,
+    and the errors it logged (made while the groups run)."""
     if name not in _REF:
         import siddhi_tpu
         import torch_helpers
 
-        app, _queries, streams, feed = SHAPES[name]
-        m = siddhi_tpu.SiddhiManager()
-        rt = m.create_siddhi_app_runtime(app)
-        sinks = {s: torch_helpers.make_collector(siddhi_tpu.StreamCallback)
-                 for s in streams}
-        for s, c in sinks.items():
-            rt.add_callback(s, c)
-        torch_helpers.drive(rt, *FEEDS[feed])
-        m.shutdown()
-        _REF[name] = {s: c.rows for s, c in sinks.items()}
+        app, _queries, streams, feed = {**SHAPES, **ERROR_SHAPES}[name]
+        errors = _Errors()
+        log = logging.getLogger("siddhi_tpu")
+        log.addHandler(errors)
+        try:
+            m = siddhi_tpu.SiddhiManager()
+            rt = m.create_siddhi_app_runtime(app)
+            sinks = {s: torch_helpers.make_collector(siddhi_tpu.StreamCallback)
+                     for s in streams}
+            for s, c in sinks.items():
+                rt.add_callback(s, c)
+            torch_helpers.drive(rt, *FEEDS[feed])
+            m.shutdown()
+        finally:
+            log.removeHandler(errors)
+        _REF[name] = ({s: c.rows for s, c in sinks.items()}, errors.seen)
     return _REF[name]
+
+
+def _ref_rows(name):
+    return _ref_run(name)[0]
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
@@ -466,8 +585,26 @@ def test_shape_split_across_processes_equals_the_reference(groups, shape):
                 assert_rows_match(got[stream], rows)
 
 
-# what does not split yet: a partitioned join against an incremental
-# aggregation, and an unpartitioned pattern's group by
+def test_unservable_duration_drops_triggers_on_every_process(groups):
+    """A join asking the aggregation for a duration it does not keep
+    drops its trigger rows on every process, each logging the reference's
+    error as often as the reference does (once: one trigger send), while
+    its partition-mate's rows equal the reference's."""
+    name = "join_aggregation_unserved"
+    want, ref_errors = _ref_run(name)
+    assert len(ref_errors) == 1 and "dropping trigger events" in ref_errors[0], ref_errors
+    assert want["Out"] and not want["OutD"]
+    for P, g in groups.items():
+        for r, res in g.results().items():
+            splits, got, errors = res[name]
+            assert splits == SPLITS[name], (P, r, splits)
+            assert errors == ref_errors, (P, r, errors)
+            for stream, rows in want.items():
+                assert_rows_match(got[stream], rows)
+
+
+# the shapes ROADMAP A.11 split last: a partitioned join against an
+# incremental aggregation, and an unpartitioned pattern's group by
 AGG_SIDE_APP = """
 define stream L (k string, v double);
 define stream R (k string, v double);
@@ -481,21 +618,22 @@ end;
 """
 
 
-@pytest.mark.parametrize("app,query", [
-    (AGG_SIDE_APP, "q"),
+@pytest.mark.parametrize("app,query,mode", [
+    (AGG_SIDE_APP, "q", "input"),
     (PATTERN_GROUP_APP.replace("partition with (k of A, k of B)\nbegin\n", "").replace(
-        "end;\n", ""), "q"),
+        "end;\n", ""), "q", "select"),
 ], ids=["join_aggregation_side", "pattern_unpartitioned_group_by"])
-def test_shapes_not_split_yet_name_a11(app, query):
-    """The split mode of a shape not split yet raises naming A.11."""
+def test_a11_shapes_split(app, query, mode):
+    """The split mode of the last two shapes A.11 named: at the input
+    (the aggregation whole on every process) and at the selector (the
+    NFA whole on every process)."""
     import siddhi_tpu_torch
     from siddhi_tpu_torch.parallel.mesh import _split_mode
 
     m = siddhi_tpu_torch.SiddhiManager(device="cpu")
     q = m.create_siddhi_app_runtime(app).query_runtimes[query]
     try:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.11"):
-            _split_mode(q)
+        assert _split_mode(q) == mode
     finally:
         m.shutdown()
 

@@ -403,34 +403,53 @@ def two_stream_feed(seed, streams=("A", "B"), n_items=40, n_keys=4):
     return feed
 
 
+def aggregation_join_feed(seed, n_items=30, n_keys=7, pers=("seconds", "minutes"),
+                          triggers=None):
+    """A seeded interleaving of events on ``R (k string, v double)``,
+    which an incremental aggregation folds, and of trigger rows on
+    ``L (k string, v double, per string)``, each asking for a duration
+    of ``pers``; single events and 8-row batches, clocks that stand
+    still, creep and jump across second and minute buckets. ``triggers``
+    caps the sends on L (the items past it go to R)."""
+    rng = np.random.default_rng(seed)
+    keys = np.array([f"K{i}" for i in range(n_keys)], dtype=object)
+    pers = np.array(pers, dtype=object)
+    feed, t, sent = [], 1000, 0
+    for _ in range(n_items):
+        s = "L" if rng.random() < 0.4 else "R"
+        if s == "L" and triggers is not None:
+            if sent >= triggers:
+                s = "R"
+            else:
+                sent += 1
+        t += int(rng.choice((0, 1, 50, 300, 900, 2500, 61000)))
+        if rng.random() < 0.3:
+            row = [str(keys[rng.integers(0, n_keys)]), float(np.round(rng.random() * 10, 1))]
+            feed.append((s, t, row + [str(pers[rng.integers(0, len(pers))])]
+                         if s == "L" else row))
+            continue
+        n = 8
+        ts = t + np.sort(rng.integers(0, int(rng.choice([1, 40, 1200])), n)).astype(np.int64)
+        cols = {"k": keys[rng.integers(0, n_keys, n)], "v": np.round(rng.random(n) * 10, 1)}
+        if s == "L":
+            cols["per"] = pers[rng.integers(0, len(pers), n)]
+        feed.append((s, cols, ts))
+        t = int(ts.max())
+    return feed
+
+
 _CPU_PACKAGE = "_siddhi_tpu_torch_on_cpu"
 
 
-def port_corpus(name, unported=()):
-    """A reference test module of a corpus, re-bound to the port: its
-    ``SiddhiManager`` makes port managers on the CPU, and every name it
-    imports from a module the port keeps under the same path
-    (``StreamCallback``, ``QueryCallback``, ``CompileError``, the
-    compiler's exceptions, ``InMemoryConfigManager``, the record-table
-    SPI, ...) is the port's, so each scenario drives the port through the
-    module's own feed and checks the module's own expected rows (the
-    reference's outputs: the module asserts them of the reference).
-    ``unported``: modules of the reference with no port counterpart that
-    the module may still import inside test bodies the port does not run
-    (those scenarios are left out of the returned names).
-    Returns (module, its test function names)."""
+def cpu_package():
+    """The port's top-level names with a CPU ``SiddhiManager``, as a module
+    (registered under ``_CPU_PACKAGE``), so code that imports
+    ``SiddhiManager`` makes CPU managers."""
     import functools
-    import inspect
-    import os
     import types
 
     import siddhi_tpu_torch
 
-    path = os.path.join(os.path.dirname(__file__), name + ".py")
-    with open(path) as f:
-        src = f.read()
-    # the package's names with a CPU SiddhiManager, so a scenario that
-    # imports SiddhiManager inside its body makes CPU managers too
     cpu = sys.modules.get(_CPU_PACKAGE)
     if cpu is None:
         cpu = types.ModuleType(_CPU_PACKAGE)
@@ -438,13 +457,22 @@ def port_corpus(name, unported=()):
         cpu.SiddhiManager = functools.partial(siddhi_tpu_torch.SiddhiManager,
                                               device="cpu")
         sys.modules[_CPU_PACKAGE] = cpu
+    return cpu
+
+
+def port_source(src: str) -> str:
+    """Python source that imports the JAX package, re-bound to the port:
+    ``from siddhi_tpu import`` takes ``cpu_package()``'s names, and every
+    ``from siddhi_tpu.<mod> import`` / ``import siddhi_tpu.<mod> as`` of a
+    module the port keeps under the same path takes the port's."""
+    import os
+    import re
+
+    cpu_package()
     for old, new in (
             ("from siddhi_tpu import", f"from {_CPU_PACKAGE} import"),
             ("from siddhi_tpu.core.util.config import", f"from {_CPU_PACKAGE} import")):
         src = src.replace(old, new)
-    import re
-
-    # a module the port keeps under the same path is the port's
     port_root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__))), "siddhi_tpu_torch")
 
@@ -466,7 +494,33 @@ def port_corpus(name, unported=()):
             return f"import siddhi_tpu_torch.{mod} as"
         return m.group(0)
 
-    src = re.sub(r"import siddhi_tpu\.([\w.]+) as", rebind_module, src)
+    return re.sub(r"import siddhi_tpu\.([\w.]+) as", rebind_module, src)
+
+
+def port_corpus(name, unported=()):
+    """A reference test module of a corpus, re-bound to the port: its
+    ``SiddhiManager`` makes port managers on the CPU, and every name it
+    imports from a module the port keeps under the same path
+    (``StreamCallback``, ``QueryCallback``, ``CompileError``, the
+    compiler's exceptions, ``InMemoryConfigManager``, the record-table
+    SPI, ...) is the port's (``port_source``), so each scenario drives the
+    port through the module's own feed and checks the module's own
+    expected rows (the reference's outputs: the module asserts them of the
+    reference). ``unported``: modules of the reference with no port
+    counterpart that the module may still import inside test bodies the
+    port does not run (those scenarios are left out of the returned
+    names). Returns (module, its test function names)."""
+    import functools
+    import inspect
+    import os
+    import re
+    import types
+
+    import siddhi_tpu_torch
+
+    path = os.path.join(os.path.dirname(__file__), name + ".py")
+    with open(path) as f:
+        src = port_source(f.read())
 
     def rebind_corpus(m):
         # a name shared from another corpus module comes from its port
