@@ -9387,17 +9387,18 @@ SP_CUT = {"keyed_windows": 2, "host_window": 2, "pattern_group_by": 4,
           "join_aggregation": 4, "delay_window": 2, "join_batch_window_side": 4,
           "join_store_side": 2, "join_aggregation_side": 4,
           "join_aggregation_per_event": 4, "pattern_unpartitioned_group_by": 4}
-# the delay ring holds a whole batch and the rows still held
+# the delay ring holds a whole batch and the rows still held; the
+# unpartitioned pattern holds up to ~700 live matches (every A row over
+# 99.0 arms one, ~490 a batch, and those at 99.75 wait out their second)
 SP_KNOBS = {"delay_window": {"window_capacity": 131_072},
-            "pattern_unpartitioned_group_by": {"nfa_slots": 256}}
-# rows a batch where it is not BATCH: an unpartitioned pattern keyed by a
-# capture emits a dense [rows, slots + 1] match grid that the host pulls
-# whole to key it (65,536 x 4,097 rows ran a 96 GiB host out of memory)
-SP_ROWS = {"pattern_unpartitioned_group_by": 8_192}
-# each batch's rows at one instant: rows of one key at several instants
-# in a batch take the generic NFA engine, whose rounds step that key's
-# rows one at a time (an unpartitioned pattern is one key)
-SP_FLAT = {"pattern_unpartitioned_group_by"}
+            "pattern_unpartitioned_group_by": {"nfa_slots": 1_024}}
+# two-stream feeds whose streams take turns in event time (each its own
+# half of a batch's span), so the feed is in order: the unpartitioned
+# pattern is one key, and a batch below that key's high-water mark takes
+# the generic NFA engine, one round a row
+SP_STAGGER = {"pattern_unpartitioned_group_by"}
+# the shapes that run whole on every process (no key axis to split)
+SP_WHOLE = {"pattern_unpartitioned_group_by"}
 # event time a batch spans where it is not SP_SPAN_MS: a playback delay
 # takes a TIMER step a millisecond of event time it releases, so its feed
 # runs at 10 times the rate (the same rows and keys a batch)
@@ -9420,9 +9421,7 @@ end;
 @info(name = 'q1') from Out0#window.length(4) select symbol, ap insert into Out1;
 """
 SP_AGG = """
-define stream Rs (k string, v double);
-from R[v < 0.5] select k, v insert into Rs;
-define aggregation Agg from Rs select k, sum(v) as t, count() as c
+define aggregation Agg from R select k, sum(v) as t, count() as c
   group by k aggregate every sec ... min;
 partition with (k of L)
 begin
@@ -9565,13 +9564,11 @@ begin
   insert into Out;
 end;""", ["q"], ["Out"], "LR"),
     # the last two shapes of A.11: a partitioned join against an
-    # incremental aggregation outside the partition (R's rows under 0.5,
-    # about 330 a batch, folded by second and minute: whole on every
-    # process; the broadcast probe is [65,536, buckets so far]), with a
-    # fixed and a per-event duration; an unpartitioned pattern grouped by
-    # a capture (the NFA whole on every process, the groups split). An
-    # aggregation's own input filter (`from R[v < 0.5]`) folds every row
-    # in the reference and the port alike, so a query filters first
+    # incremental aggregation outside the partition (every R row folded
+    # by second and minute, whole on every process: ~10,000 buckets a
+    # second of R, probed by key), with a fixed and a per-event duration;
+    # an unpartitioned pattern grouped by a capture (whole on every
+    # process: its match slots have no key axis)
     "join_aggregation_side": (SP_TWO.format(a="L", b="R") + SP_AGG.format(per="'seconds'"),
                               ["q"], ["Out"], "RL"),
     "join_aggregation_per_event": (SP_TWO.format(a="L", b="R").replace(
@@ -9585,14 +9582,16 @@ insert into Out;""", ["q"], ["Out"], "AB"),
 
 
 def sp_feed(shape_feed: str, n_batches: int, span_ms: int = SP_SPAN_MS,
-            rows: int = BATCH, flat: bool = False):
-    """Phase 32's feed: ``n_batches`` batches of ``rows`` rows over
+            stagger: bool = False):
+    """Phase 32's feed: ``n_batches`` batches of ``BATCH`` rows over
     ``NUM_SYMBOLS`` keys, each batch ``span_ms`` of event time (so time
-    windows and timers turn over between and inside batches; ``flat``:
-    each batch's rows at its first instant). Prices and values
+    windows and timers turn over between and inside batches). Prices and values
     are multiples of 0.25 (exact sums, in any order). ``"S"``: stream S;
-    two letters: batches alternating on those two streams (``"RLper"``:
-    R and L, L's rows with a ``per`` of "seconds" or "minutes")."""
+    two letters: batches alternating on those two streams, the second a
+    millisecond behind the first (``stagger``: the first stream's rows in
+    the first half of the span, the second's in the second half;
+    ``"RLper"``: R and L, L's rows with a ``per`` of "seconds" or
+    "minutes")."""
     import numpy as np
 
     rng = np.random.default_rng(SP_SEED)
@@ -9601,22 +9600,22 @@ def sp_feed(shape_feed: str, n_batches: int, span_ms: int = SP_SPAN_MS,
     pers = np.array(["seconds", "minutes"], dtype=object)
     items = []
     for i in range(n_batches):
-        ts = 1_000 + i * span_ms + (np.arange(rows, dtype=np.int64)
-                                    * (0 if flat else span_ms)) // rows
+        part = span_ms // 2 if stagger else span_ms
+        ts = 1_000 + i * span_ms + (np.arange(BATCH, dtype=np.int64) * part) // BATCH
         if shape_feed == "S":
             items.append(("S", {
-                "symbol": syms[rng.integers(0, NUM_SYMBOLS, rows)],
-                "side": sides[rng.integers(0, 5, rows)],
-                "price": np.floor(rng.random(rows) * 400.0) / 4.0,
-                "volume": rng.integers(1, 1000, rows, dtype=np.int64),
+                "symbol": syms[rng.integers(0, NUM_SYMBOLS, BATCH)],
+                "side": sides[rng.integers(0, 5, BATCH)],
+                "price": np.floor(rng.random(BATCH) * 400.0) / 4.0,
+                "volume": rng.integers(1, 1000, BATCH, dtype=np.int64),
                 "ts": ts}, ts))
             continue
         for j, stream in enumerate(shape_feed[:2]):
-            cols = {"k": syms[rng.integers(0, NUM_SYMBOLS, rows)],
-                    "v": np.floor(rng.random(rows) * 400.0) / 4.0}
+            cols = {"k": syms[rng.integers(0, NUM_SYMBOLS, BATCH)],
+                    "v": np.floor(rng.random(BATCH) * 400.0) / 4.0}
             if shape_feed.endswith("per") and stream == "L":
-                cols["per"] = pers[rng.integers(0, 2, rows)]
-            items.append((stream, cols, ts + j))
+                cols["per"] = pers[rng.integers(0, 2, BATCH)]
+            items.append((stream, cols, ts + j * (part if stagger else 1)))
     return items
 
 
@@ -9648,9 +9647,8 @@ def sp_run(device, name: str, split: bool):
             qr = rt.query_runtimes[q]
             shard_query_step(qr, distributed.global_mesh())
             splits.append(None if qr._route_layout is None else qr._route_layout.split)
-    rows_in = SP_ROWS.get(name, BATCH)
     items = sp_feed(feed, SP_CUT.get(name, SP_BATCHES), SP_SPAN.get(name, SP_SPAN_MS),
-                    rows_in, name in SP_FLAT)
+                    stagger=name in SP_STAGGER)
     handlers = {s: rt.get_input_handler(s) for s in {it[0] for it in items}}
     seconds = []
     with logged_errors(f"SP {name} ({'split' if split else 'one process'})"):
@@ -9660,7 +9658,11 @@ def sp_run(device, name: str, split: bool):
             if device.type == "cuda":
                 torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
-    facts = {"splits": splits, "events": len(items) * rows_in,
+    stages = [rt.query_runtimes[q].stage for q in queries
+              if hasattr(rt.query_runtimes[q], "stage")]
+    facts = {"splits": splits, "events": len(items) * BATCH,
+             "nfa_steps": [(st.fast_steps, st.generic_steps, st.generic_rounds)
+                           for st in stages],
              "state_bytes": sum(t.numel() * t.element_size()
                                 for q in queries
                                 if rt.query_runtimes[q]._state is not None
@@ -9941,15 +9943,19 @@ def phase_split(device, card: str):
     res["shapes"] = {}
     for name, (want, secs1, facts1) in single.items():
         pair = SP_SHAPES[name][3] != "S"
-        rows_in = SP_ROWS.get(name, BATCH)
-        shape = {"single_eps": sp_eps(secs1, rows_in, 2 if pair else 1),
-                 "single_state_bytes": facts1["state_bytes"]}
+        shape = {"single_eps": sp_eps(secs1, BATCH, 2 if pair else 1),
+                 "single_state_bytes": facts1["state_bytes"],
+                 "nfa_steps": facts1["nfa_steps"]}
+        # ROADMAP C.16: one key's head batches spread over several
+        # instants run as K4 steps, never K5's one round a row
+        _require(name not in SP_STAGGER or all(k5 == 0 for _k4, k5, _r in facts1["nfa_steps"]),
+                 f"SP gate 2 {name}: K4, K5 steps and K5 rounds {facts1['nfa_steps']}")
         for r, child in enumerate(children):
             got = child["shapes"][name]
             worst = sp_compare(got["rows"], want, f"SP gate 2 {name}: process {r} vs one")
-            _require(all(s is not None for s in got["splits"][-1:]),
+            _require(all((s is None) == (name in SP_WHOLE) for s in got["splits"][-1:]),
                      f"SP gate 2 {name}: process {r} split {got['splits']}")
-            shape[f"rank{r}"] = {"eps": sp_eps(got["seconds"], rows_in, 2 if pair else 1),
+            shape[f"rank{r}"] = {"eps": sp_eps(got["seconds"], BATCH, 2 if pair else 1),
                                  "state_bytes": got["state_bytes"],
                                  "splits": got["splits"], "max_rel_err": worst}
             if name == "group_by_distinct":
@@ -9966,7 +9972,9 @@ def phase_split(device, card: str):
               f"{shape['rank0']['eps']:.1f} / {shape['rank1']['eps']:.1f} (one "
               f"process, beside them, {shape['single_eps']:.1f}); state bytes a process "
               f"{shape['rank0']['state_bytes']} / {shape['rank1']['state_bytes']} "
-              f"(one process {shape['single_state_bytes']}) [{card}]", flush=True)
+              f"(one process {shape['single_state_bytes']})"
+              + "".join(f"; K4 steps {k4}, K5 steps {k5} ({r} rounds)"
+                        for k4, k5, r in shape["nfa_steps"]) + f" [{card}]", flush=True)
     res["two_processes_wall_s"] = wall
     res["shim"] = sp_shim(device, card)
     res["phase_s"] = time.perf_counter() - t_phase

@@ -70,14 +70,23 @@ class SiddhiManager:
     def device(self) -> torch.device:
         return self.siddhi_context.device
 
-    def create_siddhi_app_runtime(self, app: Union[str, SiddhiApp]) -> SiddhiAppRuntime:
+    @staticmethod
+    def _parse(app: Union[str, SiddhiApp]) -> SiddhiApp:
         from siddhi_tpu_torch.observability.tracing import span
 
         if isinstance(app, str):
             with span("compile", chars=len(app)):
                 app = SiddhiCompiler.parse(SiddhiCompiler.update_variables(app))
+        return app
+
+    def _build(self, app: SiddhiApp) -> SiddhiAppRuntime:
+        from siddhi_tpu_torch.observability.tracing import span
+
         with span("assemble", app=app.name or ""):
-            runtime = SiddhiAppRuntime(app, self.siddhi_context)
+            return SiddhiAppRuntime(app, self.siddhi_context)
+
+    def create_siddhi_app_runtime(self, app: Union[str, SiddhiApp]) -> SiddhiAppRuntime:
+        runtime = self._build(self._parse(app))
         self.app_runtimes[runtime.name] = runtime
         return runtime
 
@@ -87,9 +96,7 @@ class SiddhiManager:
         """Parse and fully build the app on the manager's device, then
         discard it: creation-time errors surface, nothing is registered or
         started (reference ``SiddhiManager.validateSiddhiApp``)."""
-        if isinstance(app, str):
-            app = SiddhiCompiler.parse(SiddhiCompiler.update_variables(app))
-        SiddhiAppRuntime(app, self.siddhi_context).shutdown()
+        self._build(self._parse(app)).shutdown()
 
     validateSiddhiApp = validate_siddhi_app
 
@@ -100,11 +107,7 @@ class SiddhiManager:
         non-inMemory @source/@sink on a stream and every @store on a table
         is removed, so the app runs fully in-process: feed it with input
         handlers or the InMemoryBroker, observe it with callbacks."""
-        if isinstance(app, str):
-            app = SiddhiCompiler.parse(SiddhiCompiler.update_variables(app))
-        runtime = SiddhiAppRuntime(_strip_transports(app), self.siddhi_context)
-        self.app_runtimes[runtime.name] = runtime
-        return runtime
+        return self.create_siddhi_app_runtime(_strip_transports(self._parse(app)))
 
     createSandboxSiddhiAppRuntime = create_sandbox_siddhi_app_runtime
 

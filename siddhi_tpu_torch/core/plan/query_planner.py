@@ -469,9 +469,19 @@ def plan_join_query(query: Query, query_name: str, app_context,
     # `on T.attr == <expr over the other side>` against an indexed table
     # side: a searchsorted over the sorted column instead of the [N, W]
     # compare (the reference's IndexedEventHolder probe)
-    index_probe = None
-    if join.on_compare is not None and partition_ctx is None:
-        index_probe = _extract_join_index_probe(join.on_compare, left, right, resolver)
+    index_probe = agg_probe = None
+    if join.on_compare is not None:
+        probe = _extract_join_index_probe(join.on_compare, left, right, resolver)
+        if partition_ctx is None:
+            index_probe = probe
+        elif probe is not None and isinstance(
+                (left if probe["store_side"] == left.key else right).store,
+                AggregationJoinStore):
+            # inside a partition the reference keeps the [N, W] compare;
+            # an aggregation's stitched buckets (every key's, every
+            # period's) make that [rows, keys x periods], so the port
+            # probes them by group attribute there too
+            agg_probe = probe
     if query.selector.select_all or not query.selector.selection_list:
         raise CompileError(
             f"query '{query_name}': join queries need an explicit select list")
@@ -493,6 +503,7 @@ def plan_join_query(query: Query, query_name: str, app_context,
         on_cond=on_cond, selector_plan=selector_plan, dictionary=dictionary,
         partition_ctx=partition_ctx, group_keyer=group_keyer)
     rt.index_probe = index_probe
+    rt.partition_agg_probe = agg_probe
     attach_join_engine(rt, join.on_compare)
     return rt
 

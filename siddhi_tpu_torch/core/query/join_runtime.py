@@ -587,6 +587,9 @@ class JoinQueryRuntime(QueryRuntime):
         # the planner's indexed-equality probe of a table side (None =
         # broadcast compare): {"store_side", "attr", "val_fn", "residual_fn"}
         self.index_probe = None
+        # the same probe of an aggregation side inside a partition (kept
+        # apart: the reference's eligibility reasons read index_probe)
+        self.partition_agg_probe = None
         self._steps: Dict[str, Callable] = {}
         # the partitioned engine (core/join/), attached by the planner for
         # eligible stream-stream shapes; None keeps the broadcast probe
@@ -757,10 +760,10 @@ class JoinQueryRuntime(QueryRuntime):
         other_external = other.probe_external
         # the indexed probe: only when THIS side triggers against the
         # indexed table side (a table never triggers)
-        iprobe = self.index_probe
+        iprobe = self.index_probe or self.partition_agg_probe
         use_index = (iprobe is not None and side.triggers
                      and iprobe["store_side"] == other.key
-                     and other.store is not None and not partitioned)
+                     and other.store is not None)
         probe_width = int(getattr(self.app_context, "index_probe_width", 64))
         xp = TorchXP(self.device)
 
@@ -964,7 +967,7 @@ class JoinQueryRuntime(QueryRuntime):
         """One side step against the other side's probe surface; returns
         its notify time. An aggregation side's indexed probe takes a
         candidate window as wide as its longest run of equal keys."""
-        iprobe = self.index_probe
+        iprobe = self.index_probe or self.partition_agg_probe
         # only this runtime's own step takes the width (the engine's does not)
         kw = {}
         if (isinstance(other.store, AggregationJoinStore) and iprobe is not None

@@ -14,7 +14,11 @@ per-key high-water marks it keeps (``_host_hard_batch``); a hard batch
 first gets the per-key expiry clears the generic engine would already
 have made (``NFAStage.expire_to``). The generic engine's rounds are laid
 out on the host from the partition keys it already holds
-(``ops/nfa.round_rows``), so the loop costs no device read.
+(``ops/nfa.round_rows``), so the loop costs no device read. A head batch
+that is hard only because a key's rows span several instants may instead
+run as K4 steps over runs of its rows, cut where a live match's `within`
+deadline falls (``_head_runs``): an unpartitioned pattern is one key, and
+K5 would take one round a row.
 
 Absent (`not ... for t`) deadlines drive a scheduler loop: every step
 reports the earliest pending deadline in its meta, the scheduler wakes the
@@ -321,52 +325,65 @@ class NFAQueryRuntime(QueryRuntime):
                 cols[GK_KEY] = np.zeros(cols[VALID_KEY].shape[0], np.int32)
             if self._state is None:
                 self._state = self._init_state()
-            force_generic = self._host_hard_batch(stream_id, cols)
-            generic = force_generic or (
-                (self.stage._fast_side(stream_id) if self.stage.fast_enabled
-                 else None) is None)
-            bounds = None
-            if generic:
-                valid = np.asarray(cols[VALID_KEY]) & (
-                    np.asarray(cols[TYPE_KEY]) == 0)
-                pk = (np.clip(cols[PK_KEY], 0, self._win_keys - 1)
-                      if PK_KEY in cols else np.zeros(valid.shape[0], np.int64))
-                cols[_ROWS_KEY], bounds = round_rows(pk, valid)
-            if self.selector_plan.needs_str_rank:
-                cols[STR_RANK] = self.dictionary.rank_table()
-            dev_cols = self._to_device(cols)
-            rows = dev_cols.pop(_ROWS_KEY, None)
-            step = self._instrumented_step(stream_id, force_generic)
-            now = int(self.app_context.timestamp_generator.current_time())
-            notify = self._run_nfa_step(lambda: step(
-                self._state, dev_cols, now,
-                None if bounds is None else (rows, bounds)))
+            hard = self._host_hard_batch(stream_id, cols)
+            runs = self._head_runs(cols) if hard == "spread" else None
+            if runs is not None:
+                notify = self._run_head_runs(stream_id, cols, runs)
+            else:
+                notify = self._run_batch(stream_id, cols, hard is not None)
         if notify is not None and self.scheduler is not None:
             self.scheduler.notify_at(notify, self._timer_cb)
 
-    def _host_hard_batch(self, stream_id: str, cols) -> bool:
+    def _run_batch(self, stream_id: str, cols, force_generic: bool) -> Optional[int]:
+        """One step over the batch: K4, or K5 with its rounds laid out
+        (``force_generic``, or a plan K4 never takes). Returns its notify
+        time."""
+        generic = force_generic or (
+            (self.stage._fast_side(stream_id) if self.stage.fast_enabled
+             else None) is None)
+        bounds = None
+        if generic:
+            valid = np.asarray(cols[VALID_KEY]) & (
+                np.asarray(cols[TYPE_KEY]) == 0)
+            pk = (np.clip(cols[PK_KEY], 0, self._win_keys - 1)
+                  if PK_KEY in cols else np.zeros(valid.shape[0], np.int64))
+            cols[_ROWS_KEY], bounds = round_rows(pk, valid)
+        if self.selector_plan.needs_str_rank:
+            cols[STR_RANK] = self.dictionary.rank_table()
+        dev_cols = self._to_device(cols)
+        rows = dev_cols.pop(_ROWS_KEY, None)
+        step = self._instrumented_step(stream_id, force_generic)
+        now = int(self.app_context.timestamp_generator.current_time())
+        return self._run_nfa_step(lambda: step(
+            self._state, dev_cols, now,
+            None if bounds is None else (rows, bounds)))
+
+    def _host_hard_batch(self, stream_id: str, cols) -> Optional[str]:
         """Host-side dispatch between the fast two-step kernel and the
-        generic engine, decided from timestamps alone. Hard conditions,
-        each a conservative over-approximation:
-        - out-of-order timestamps (below the row's key's high-water mark,
-          or decreasing in-batch): the fast kernel's lazy `within` expiry
-          is exact only for monotone feeds;
-        - head batches where one key's rows span several timestamps: a
-          `within` deadline could cross inside the batch and re-order the
-          free-slot list between same-key arming rows.
+        generic engine, decided from timestamps alone: None (K4 takes the
+        batch), "order" or "spread" (hard), or "plan" (a plan K4 never
+        takes). Hard conditions, each a conservative over-approximation:
+        - "order", out-of-order timestamps (below the row's key's
+          high-water mark, or decreasing in-batch): the fast kernel's lazy
+          `within` expiry is exact only for monotone feeds;
+        - "spread", head batches where one key's rows span several
+          timestamps: a `within` deadline could cross inside the batch and
+          re-order the free-slot list between same-key arming rows.
         When a batch is hard, the PER-KEY physical expiry clears the
         generic engine would already have made are applied first
         (`expire_to`)."""
         stage = self.stage
         side_kind = (stage._fast_side(stream_id)
                      if stage.fast_enabled else None)
-        if side_kind is None or stage.plan.within is None:
-            return side_kind is None  # ineligible plans: generic always
+        if side_kind is None:
+            return "plan"
+        if stage.plan.within is None:
+            return None
         ts = np.asarray(cols[TS_KEY])
         valid = np.asarray(cols[VALID_KEY]) & (np.asarray(cols[TYPE_KEY]) == 0)
         tsv = ts[valid]
         if tsv.size == 0:
-            return False
+            return None
         K = self._win_keys
         arr = self._nfa_hwm_arr
         if arr is None or arr.shape[0] < K:
@@ -377,12 +394,14 @@ class NFAQueryRuntime(QueryRuntime):
         pk = (np.asarray(cols[PK_KEY], np.int64) if PK_KEY in cols
               else np.zeros(ts.shape[0], np.int64))
         pkv = np.clip(pk[valid], 0, K - 1)
-        hard = bool(np.any(tsv < arr[pkv])) or bool(np.any(np.diff(tsv) < 0))
-        if not hard and side_kind == "head" and tsv.min() != tsv.max():
+        hard = ("order" if bool(np.any(tsv < arr[pkv])) or bool(np.any(np.diff(tsv) < 0))
+                else None)
+        if hard is None and side_kind == "head" and tsv.min() != tsv.max():
             order = np.argsort(pkv, kind="stable")
             same = pkv[order][1:] == pkv[order][:-1]
-            hard = bool(np.any(same & (np.diff(tsv[order]) != 0)))
-        if hard:
+            if np.any(same & (np.diff(tsv[order]) != 0)):
+                hard = "spread"
+        if hard is not None:
             self._state["nfa"] = stage.expire_to(self._state["nfa"], arr)
         if tsv.min() == tsv.max():
             # single-timestamp batch (the steady-state shape): duplicate
@@ -391,6 +410,63 @@ class NFAQueryRuntime(QueryRuntime):
         else:
             np.maximum.at(arr, pkv, tsv)
         return hard
+
+    def _head_runs(self, cols) -> Optional[List[tuple]]:
+        """A head batch, in order, whose keys' rows span several instants,
+        as the row ranges ``[(lo, hi)]`` K4 takes exactly one after
+        another: a run is cut before a row when a live match slot's
+        `within` deadline falls between it and the valid row before it,
+        so inside a run every row of a key sees the same free slots, and
+        a head step arms the lowest ones in row order as K5 would. None
+        when K5 is as cheap (no more rounds than runs), when the batch
+        spans more than `within` (a slot armed in it could expire inside
+        it), or when the query is split across processes (every process
+        must take the same steps). One read of the slots' state."""
+        from siddhi_tpu_torch.core.event import tensors_to_numpy
+
+        w = self.stage.plan.within
+        if self._route_layout is not None:
+            return None
+        valid = np.asarray(cols[VALID_KEY]) & (np.asarray(cols[TYPE_KEY]) == 0)
+        idx = np.nonzero(valid)[0]
+        tsv = np.asarray(cols[TS_KEY])[idx]
+        if tsv[-1] - tsv[0] > w:
+            return None
+        pk = (np.clip(np.asarray(cols[PK_KEY], np.int64)[idx], 0, self._win_keys - 1)
+              if PK_KEY in cols else np.zeros(idx.size, np.int64))
+        rounds = int(np.bincount(pk).max())
+        if rounds <= 2:
+            return None
+        nfa = self._state["nfa"]
+        active, sts = tensors_to_numpy([nfa["active"], nfa["sts"]])
+        deadlines = np.unique(sts[active] + w)
+        # cut before valid row i when a deadline d has t[i-1] <= d < t[i]
+        # (a slot live at t[i-1] is free at t[i])
+        cut = (np.searchsorted(deadlines, tsv[1:], "left")
+               > np.searchsorted(deadlines, tsv[:-1], "left"))
+        starts = idx[1:][cut]
+        if starts.size + 1 >= rounds:
+            return None
+        bounds = np.concatenate([[0], starts, [valid.shape[0]]])
+        return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+    def _run_head_runs(self, stream_id: str, cols, runs) -> Optional[int]:
+        """K4's head step over each run of ``_head_runs`` in turn (the
+        batch staged on the device once, each run a slice of it). A head
+        step emits no match. Returns the last step's notify time."""
+        if self.selector_plan.needs_str_rank:
+            cols[STR_RANK] = self.dictionary.rank_table()
+        dev_cols = self._to_device(cols)
+        n = cols[VALID_KEY].shape[0]
+        step = self._instrumented_step(stream_id, False)
+        now = int(self.app_context.timestamp_generator.current_time())
+        notify = None
+        for lo, hi in runs:
+            piece = {k: (v[lo:hi] if k != STR_RANK and v.dim() > 0 and v.shape[0] == n
+                         else v) for k, v in dev_cols.items()}
+            nt = self._run_nfa_step(lambda: step(self._state, piece, now, None))
+            notify = nt if nt is not None else notify
+        return notify
 
     def process_timer(self, ts: int):
         with self._device_scope(), self._lock:

@@ -1133,8 +1133,20 @@ class QueryRuntime(Receiver):
         """Split-pipeline tail: the group key is computed from a stage's
         emitted columns (a pattern's captures, a join's joined rows), so
         the keyer runs on the host between the stage and the selector
-        (GroupByKeyGenerator.java:37 over intermediate events). Returns
-        (selector output, its row count)."""
+        (GroupByKeyGenerator.java:37 over intermediate events). Only the
+        emitted rows cross to the host: a stage's output is compacted on
+        the device first (a pattern's [rows, slots + 1] match grid is
+        mostly empty). Returns (selector output, its row count)."""
+        raw = {k: dict.__getitem__(out_host, k) for k in dict.keys(out_host)}
+        valid = raw[VALID_KEY]
+        if isinstance(valid, torch.Tensor):
+            n = valid.shape[0]
+            idx = torch.nonzero(valid).squeeze(1)
+            if idx.shape[0] < n:
+                raw = {k: (v[idx] if (k != STR_RANK and isinstance(v, torch.Tensor)
+                                      and v.dim() > 0 and v.shape[0] == n) else v)
+                       for k, v in raw.items()}
+            out_host = LazyColumns(raw)
         cols = {k: out_host[k] for k in list(dict.keys(out_host))}
         pk = cols.get(PK_KEY) if self.partition_ctx is not None else None
         cols[GK_KEY] = self.keyer(cols, pk=pk)
@@ -1147,27 +1159,18 @@ class QueryRuntime(Receiver):
                 lambda st, c, cx: self.selector_plan.apply(st, c, cx),
                 f"query.{self.name}.selector", family="selector")
         rl = self._route_layout
-        if rl is not None and rl.split == "select":
-            # key-sharded at the selector across processes (an
-            # unpartitioned pattern's group by): this process's groups, the
-            # selected rows of every process merged
-            from siddhi_tpu_torch.parallel.mesh import select_own_groups
+        if rl is not None and rl.sel_whole:
+            # key-sharded across processes: the selector's state is whole
+            # on every process, held as its one shard of the layout
+            from siddhi_tpu_torch.parallel.mesh import step_on_own_shard
 
-            out = LazyColumns(select_own_groups(self, ctx, self._to_device(cols)))
+            sel_out = step_on_own_shard(
+                rl, lambda st, c: self._sel_step(st["sel"], c, ctx), self._state,
+                self._to_device(cols))
         else:
-            if rl is not None and rl.sel_whole:
-                # key-sharded across processes: the selector's state is
-                # whole on every process, held as its one shard of the
-                # layout
-                from siddhi_tpu_torch.parallel.mesh import step_on_own_shard
-
-                sel_out = step_on_own_shard(
-                    rl, lambda st, c: self._sel_step(st["sel"], c, ctx), self._state,
-                    self._to_device(cols))
-            else:
-                self._state["sel"], sel_out = self._sel_step(
-                    self._state["sel"], self._to_device(cols), ctx)
-            out = LazyColumns(pack_meta(sel_out))
+            self._state["sel"], sel_out = self._sel_step(
+                self._state["sel"], self._to_device(cols), ctx)
+        out = LazyColumns(pack_meta(sel_out))
         meta = out.pop("__meta__")
         if int(meta[0]) != 0:
             # the selector step's own overflow (distinctCount value-table

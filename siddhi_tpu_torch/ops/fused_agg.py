@@ -60,11 +60,6 @@ class FusedSlidingAggStage:
     step; its output already carries the aggregate columns, so the
     selector runs in precomputed mode (projection and having only)."""
 
-    # a sliding window on the device, driven by no timer
-    batch_mode = False
-    needs_scheduler = False
-    host_mode = False
-    fused = True
     # no host read: a fused fan-out step may hold it in a CUDA graph
     capturable = True
 

@@ -587,7 +587,7 @@ def _has_keyed_state(runtime) -> bool:
     return bool(keyed)
 
 
-def _split_mode(runtime) -> str:
+def _split_mode(runtime) -> Optional[str]:
     """Where each process takes its own keys' rows in the key-sharded step
     across processes: at the step's input (partitioned queries, whose
     whole state is keyed by the partition key: a keyed window, a host
@@ -595,7 +595,9 @@ def _split_mode(runtime) -> str:
     one partition key) or at the selector's (a keyed selector behind a
     window whose ring every process keeps whole: a global window, or the
     ``delay`` window, whose ring has no key axis inside a partition
-    either, or an unpartitioned pattern's group by over captures). Raises
+    either). None: the query runs whole on every process (an
+    unpartitioned join or pattern: its state has no key axis, and a
+    grouped selector keys the joined rows or matches on the host). Raises
     naming ROADMAP A.11 for a shape it cannot tell."""
     from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
     from siddhi_tpu_torch.ops.host_windows import PartitionedHostWindow
@@ -604,16 +606,16 @@ def _split_mode(runtime) -> str:
     what = None
     partitioned = runtime.partition_ctx is not None
     if getattr(runtime, "sides", None) is not None:
+        if not partitioned:
+            return None
         what = _join_split_ineligibility(runtime)
         if what is None:
             return "input"
     elif isinstance(runtime, NFAQueryRuntime):
-        # partitioned: a group by over captures keys the merged matches on
-        # the host and selects on every process; an ordering without one
-        # runs once, on the merged rows. Unpartitioned, the NFA's state has
-        # no key axis: every process runs it whole, and the host keys its
-        # emission and selects its own groups (select_own_groups)
-        return "input" if partitioned else "select"
+        # a group by over captures keys the merged matches on the host and
+        # selects on every process; an ordering without one runs once, on
+        # the merged rows
+        return "input" if partitioned else None
     elif partitioned:
         win, host = runtime.window_stage, runtime.host_window
         if host is not None and not isinstance(host, PartitionedHostWindow):
@@ -645,8 +647,8 @@ def _join_split_ineligibility(runtime) -> Optional[str]:
     outside the partition) is whole on every process, since every process
     sees every event, and each trigger row probes it on its owner process;
     an aggregation's per-event ``within``/``per`` groups the batch's rows
-    alike on every process, one probe a group. The planner sets an indexed
-    probe on unpartitioned joins only, and those run whole."""
+    alike on every process, one probe a group, and its indexed probe's
+    width comes from the whole buckets."""
     for side in runtime.sides.values():
         if side.host_window is not None:
             return f"the host-window join side '{side.stream_id}'"
@@ -673,13 +675,12 @@ def shard_query_step(runtime, mesh: Mesh, donate: bool = True):
     leaf (one shard a process), steps the batch over them, and the emitted
     rows are gathered (one ``all_gather``) and merged once by a global
     emission-order key. A query with no keyed state runs whole on every
-    process, and so does an unpartitioned join: it has no key axis to
-    split (its rings are the stream's, and a grouped selector keys the
-    joined rows on the host), while an unpartitioned pattern's NFA runs
-    whole and its selector's groups split. ``donate`` is the reference's;
-    the port's steps update their state in place whatever it says. A
-    shape it cannot tell raises ``NotImplementedError`` naming ROADMAP
-    A.11."""
+    process, and so does an unpartitioned join or pattern: it has no key
+    axis to split (its rings and match slots are the stream's, and a
+    grouped selector keys the joined rows or matches on the host).
+    ``donate`` is the reference's; the port's steps update their state in
+    place whatever it says. A shape it cannot tell raises
+    ``NotImplementedError`` naming ROADMAP A.11."""
     from siddhi_tpu_torch.core.query.nfa_runtime import NFAQueryRuntime
 
     _check_mesh(runtime, mesh)
@@ -687,20 +688,18 @@ def shard_query_step(runtime, mesh: Mesh, donate: bool = True):
     if runtime._state is None:
         runtime._state = runtime._init_state()
     partitioned = runtime.partition_ctx is not None
-    whole_join = getattr(runtime, "sides", None) is not None and not partitioned
-    if mesh.process_count == 1 or whole_join or (runtime._route_layout is None
-                                                 and not _has_keyed_state(runtime)):
+    mode = (None if mesh.process_count == 1 or (runtime._route_layout is None
+                                                and not _has_keyed_state(runtime))
+            else _split_mode(runtime))
+    if mode is None:
         runtime._shard_mesh = mesh
         return runtime._step, runtime._state
-    mode = _split_mode(runtime)
-    # a partitioned pattern's group by over captures or a partitioned
-    # join's over joined rows: the selector runs whole after the merge (an
-    # unpartitioned pattern's splits its groups at the selector instead:
-    # select_own_groups); any other group key than the
+    # a group by over a pattern's captures or a join's joined rows: the
+    # selector runs whole after the merge; any other group key than the
     # partition key is carried to the owner's local space through the
     # layout's LUT, as routed. Split at the selector, no input row moves,
     # and the window keeps no key axis
-    sel_whole = (runtime.keyer is not None and partitioned
+    sel_whole = (runtime.keyer is not None
                  and (isinstance(runtime, NFAQueryRuntime)
                       or getattr(runtime, "sides", None) is not None))
     by_input = partitioned and mode == "input"
@@ -1154,7 +1153,9 @@ def _egress(layout: RouteLayout, merged: dict, okey, meta, rows_here, route_ov,
     """The ordered re-merge and the packed meta: this process's emitted
     rows (with every other process's: one ``all_gather``) sorted once by
     their global emission-order key (invalid rows last), and
-    ``_route_meta`` of every shard's meta."""
+    ``[overflow, notify, count, route_overflow, rows_0..rows_n-1,
+    residual?, inner lanes]`` from every shard's meta."""
+    n, Q = layout.n, layout.quota
     if layout.P > 1:
         from siddhi_tpu_torch.ops.exchange import all_gather_rows, all_gather_same
 
@@ -1172,16 +1173,6 @@ def _egress(layout: RouteLayout, merged: dict, okey, meta, rows_here, route_ov,
         okey = torch.cat(rows[-1])
     order = torch.argsort(okey, stable=True)
     merged = {k: v[order] for k, v in merged.items()}
-    merged["__meta__"] = _route_meta(layout, meta, rows_here, route_ov, ins_on,
-                                     inner_slots)
-    return merged
-
-
-def _route_meta(layout: RouteLayout, meta, rows_here, route_ov, ins_on: bool,
-                inner_slots):
-    """``[overflow, notify, count, route_overflow, rows_0..rows_n-1,
-    residual?, inner lanes]`` from the shards' metas (``[shards, lanes]``)
-    and the rows bound for each of the n shards."""
     ov = meta[0, 0]
     for lane in meta[1:, 0]:
         ov = ov | lane      # a join's lane is a bitmask of knobs
@@ -1194,13 +1185,14 @@ def _route_meta(layout: RouteLayout, meta, rows_here, route_ov, ins_on: bool,
     if ins_on:
         # the receive capacity left on the fullest shard this batch
         # (0: one more skewed batch overflows)
-        parts.append(layout.n * layout.quota - rows_here.max().reshape(1).to(torch.int64))
+        parts.append(n * Q - rows_here.max().reshape(1).to(torch.int64))
     lane = 3
     for slot in inner_slots:
         v = meta[:, lane:lane + slot.width]
         lane += slot.width
         parts.append(v.max(dim=0).values if slot.reduce == "max" else v.sum(dim=0))
-    return torch.cat(parts)
+    merged["__meta__"] = torch.cat(parts)
+    return merged
 
 
 def _schema_of(cols: dict) -> dict:
@@ -1487,52 +1479,6 @@ def _order_merged(plan, merged: dict, strrank=None) -> dict:
     return merged
 
 
-def select_own_groups(runtime, ctx, cols: dict) -> dict:
-    """The host-keyed selector of a pattern key-sharded at its selector
-    across processes (an unpartitioned pattern's group by over captures;
-    ``cols`` the keyed emission, every process's alike): each process
-    takes the rows of its own groups (global group g is local g // n on
-    process g % n) into its own selector shard, and the selected rows of
-    every process (row-aligned with the emission) merge in the emission's
-    order. An order by / limit / offset runs once, on the merged rows.
-    Returns the merged rows with the layout's meta."""
-    from siddhi_tpu_torch.core.plan.selector_plan import STR_RANK
-    from siddhi_tpu_torch.core.query.runtime import pack_meta
-
-    layout = runtime._route_layout
-    n, first = layout.n, layout.first
-    dev = runtime.device
-    plan = runtime.selector_plan
-    gk = cols[GK_KEY].to(torch.int64)
-    own = gk % n == first
-    cols = dict(cols)
-    cols[VALID_KEY] = cols[VALID_KEY] & own
-    cols[GK_KEY] = (gk // n).to(cols[GK_KEY].dtype)
-    if plan.ordered:
-        unordered = plan.unordered()
-
-        def select(st, c):
-            new, out = unordered.apply(st["sel"], c, ctx)
-            out.update(plan.order_columns(out, c))
-            return new, out
-    else:
-        def select(st, c):
-            return runtime._sel_step(st["sel"], c, ctx)
-
-    out = pack_meta(step_on_own_shard(layout, select, runtime._state, cols))
-    meta = out.pop("__meta__")
-    valid = out[VALID_KEY]
-    okey = torch.where(valid, torch.arange(valid.shape[0], dtype=torch.int64, device=dev),
-                       torch.full(valid.shape, _ROUTE_BIG, dtype=torch.int64, device=dev))
-    merged = _egress(layout, out, okey, meta[None],
-                     cols[VALID_KEY].sum(dtype=torch.int64).reshape(1),
-                     torch.zeros((), dtype=torch.int64, device=dev), False, [],
-                     _timeout(runtime), f"query '{runtime.name}' sharded select")
-    if plan.ordered and merged[VALID_KEY].shape[0]:
-        merged = _order_merged(plan, merged, cols.get(STR_RANK))
-    return merged
-
-
 def sharded_jit_for(runtime, fn, timer: bool = False):
     """A pattern's per-stream step (``fn(state, cols, now, rounds)``) or
     its TIMER sweep (``fn(state, now)``, ``timer``) over the runtime's
@@ -1555,19 +1501,6 @@ def sharded_jit_for(runtime, fn, timer: bool = False):
     # without a group by the selector ran unordered on each process
     # (NFAQueryRuntime._select): one ordering over the merged rows
     post_order = plan.ordered and runtime.keyer is None
-    if layout.split == "select":
-        # an unpartitioned pattern keyed at its selector: every process
-        # runs the NFA whole and emits the whole unselected emission, so
-        # no row moves here; the meta takes the layout's lanes
-        def whole(state, *args, **kw):
-            out = dict(_step_on_shard(layout, fn, state, 0, *args, **kw))
-            out["__meta__"] = _route_meta(
-                layout, out["__meta__"][None], torch.zeros(n, dtype=torch.int64, device=dev),
-                torch.zeros((), dtype=torch.int64, device=dev), ins_on, inner_slots)
-            return state, out
-
-        return whole
-
     def sharded(state, *args, **kw):
         out = dict(_step_on_shard(layout, fn, state, 0, *args, **kw))
         meta = out.pop("__meta__")

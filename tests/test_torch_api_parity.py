@@ -42,6 +42,9 @@ DEPARTURES = {
     "siddhi_tpu.core.util.program_cache.log": "program_cache.log",
     "siddhi_tpu.core.util.program_cache.CacheEntry.matches": "CacheEntry.matches",
 }
+DEPARTURES.update({
+    f"siddhi_tpu.ops.fused_agg.FusedSlidingAggStage.{a}": "FusedSlidingAggStage"
+    for a in ("batch_mode", "needs_scheduler", "host_mode", "fused")})
 
 # the public API this parity closed: never a departure
 NEVER_DEPARTED = ("validate_siddhi_app", "create_sandbox_siddhi_app_runtime",

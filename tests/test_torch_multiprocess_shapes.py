@@ -62,9 +62,9 @@ The shapes, one parametrised case each:
   ``pattern_unpartitioned_group_order`` and
   ``absent_unpartitioned_group_by``: an unpartitioned pattern, a
   sequence, a pattern with an order by / limit and an absent pattern
-  (``not ... for``: its TIMER sweeps), each grouped by a capture: the NFA
-  runs whole on every process, each process selects its own groups, and
-  the selected rows merge in the emission's order.
+  (``not ... for``: its TIMER sweeps), each grouped by a capture: the
+  NFA's match slots have no key axis, so each runs whole on every
+  process, as an unpartitioned join does.
 
 ``join_aggregation_unserved`` adds a query asking the aggregation for a
 duration it does not keep: each process drops the trigger rows and logs
@@ -358,10 +358,10 @@ ERROR_SHAPES = {
 # selector, or nowhere (None: a query with no keyed state runs whole)
 SPLITS = {"order_limit_batch": ["select"], "inner_stream": [None, "input"],
           "unpartitioned_join": [None], "delay_window": ["select"],
-          "pattern_unpartitioned_group_by": ["select"],
-          "sequence_unpartitioned_group_by": ["select"],
-          "pattern_unpartitioned_group_order": ["select"],
-          "absent_unpartitioned_group_by": ["select"],
+          "pattern_unpartitioned_group_by": [None],
+          "sequence_unpartitioned_group_by": [None],
+          "pattern_unpartitioned_group_order": [None],
+          "absent_unpartitioned_group_by": [None],
           "join_aggregation_unserved": ["input", "input"]}
 
 # the feeds, made from a seed in every process alike (numpy only): a
@@ -621,12 +621,12 @@ end;
 @pytest.mark.parametrize("app,query,mode", [
     (AGG_SIDE_APP, "q", "input"),
     (PATTERN_GROUP_APP.replace("partition with (k of A, k of B)\nbegin\n", "").replace(
-        "end;\n", ""), "q", "select"),
+        "end;\n", ""), "q", None),
 ], ids=["join_aggregation_side", "pattern_unpartitioned_group_by"])
 def test_a11_shapes_split(app, query, mode):
     """The split mode of the last two shapes A.11 named: at the input
-    (the aggregation whole on every process) and at the selector (the
-    NFA whole on every process)."""
+    (the aggregation whole on every process), and none (the unpartitioned
+    pattern whole on every process)."""
     import siddhi_tpu_torch
     from siddhi_tpu_torch.parallel.mesh import _split_mode
 

@@ -110,3 +110,43 @@ def test_ineligible_plans_take_generic_path():
         assert stage._fast_side("A") is None, q
         assert stage._fast_side("B") is None, q
         m.shutdown()
+
+
+def _spread_feed(seed, n_pairs=12, a_rows=24, b_rows=3, span=1800, gap=666):
+    """One key: A batches whose rows spread over most of `within` (2 s),
+    each followed by a short B batch, so live matches' deadlines fall
+    between a head batch's rows."""
+    rng = np.random.default_rng(seed)
+    feeds, t = [], 1_000
+    for _ in range(n_pairs):
+        ts = t + np.sort(rng.integers(0, span, a_rows)).astype(np.int64)
+        feeds.append(("A", {"k": np.array(["K0"] * a_rows, object),
+                            "v": np.round(rng.random(a_rows) * 10, 1)}, ts))
+        tb = int(ts.max()) + int(rng.integers(0, 3))
+        tsb = tb + np.sort(rng.integers(0, 40, b_rows)).astype(np.int64)
+        feeds.append(("B", {"k": np.array(["K0"] * b_rows, object),
+                            "v": np.round(rng.random(b_rows) * 10, 1)}, tsb))
+        t = int(tsb.max()) + int(rng.integers(1, gap))
+    return feeds
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spread_head_batches_run_as_k4_steps(seed):
+    """An unpartitioned pattern's head batches spread over several
+    instants run as K4 steps over runs of rows, cut where a live match's
+    deadline falls (``NFAQueryRuntime._head_runs``), not as K5's one round
+    a row: no K5 step, more K4 steps than batches, and the rows equal the
+    reference's."""
+    feeds = _spread_feed(seed)
+    app = PATTERNS["every-pattern-within"].replace("from ", "@info(name='q') from ", 1)
+    r = Run("jax", app, "M", "q", config={"siddhi_tpu.nfa_slots": "64"})
+    send_multi(r.rt, feeds)
+    want = r.close()
+    r = Run("torch", app, "M", "q", config={"siddhi_tpu.nfa_slots": "64"})
+    stage = r.query.stage
+    send_multi(r.rt, feeds)
+    got = r.close()
+    assert len(want) > 100
+    assert_rows_match(got, want)
+    assert stage.generic_steps == 0
+    assert stage.fast_steps > len(feeds) + 12
