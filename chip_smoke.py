@@ -21,7 +21,9 @@ Phases (any failure exits non-zero and prints no result line):
             beside the plain version, one PyTorch library call per column and
             the byte bound; the host time of one call's enqueue; the
             kernel's own device time from torch.profiler and its share of
-            the bound;
+            the bound, its launch shape (blocks, chunks a block), and its
+            device time on a call moving 16 B a segment (the launch's fixed
+            cost);
 4. slice    the partitioned flagship (per-symbol ``#window.length(1000)``,
             ``avg(price)``, ``sum(volume)``; 16,384 key slots, 573 MB of
             window state) routed over 4 logical shards with
@@ -515,7 +517,15 @@ launch counts and recorded-call checks hold as they did.
             partitioned flagship x4 on the card: each key's rows == the
             unrouted step's;
 33. peer    K8 across processes as peer writes through CUDA IPC, two and
-            four processes on the card;
+            four processes on the card, completion on generation words in
+            shared host memory: 7 consecutive calls held bit for bit against
+            the plain path at 2 x 2 and 4 x 1, the call's card ms, host
+            enqueue and its host profile (cProfile), kernel device ms, share
+            and launch shape (and moving 16 B a segment), the routed rows
+            against phase 31's, a corrupted arena handle that fails the
+            run, and a process killed before its second call: the survivor
+            raises ``ClusterPeerError`` within the step's bound, drains and
+            closes;
 34. api     the management API: ``validate_siddhi_app`` of the flagship
             (nothing registered) and of a broken app (the reference's
             error); the sandbox of the flagship with kafka transports and
@@ -762,6 +772,8 @@ ROWS_PER_SHARD = 20_480         # B / n * 1.25, as the flagship bench routes
 CPU_BATCHES = 2
 TIMED_RUNS = 30
 L2_FLUSH_BYTES = 100 * 2 ** 20  # written before each flushed timing (L2: 50 MB)
+EX_CHUNK = 16384                # csrc/ring_exchange.cu CHUNK: bytes a chunk
+EX_SMEM = 4 * EX_CHUNK          # its dynamic shared memory a block (STAGES chunks)
 H100_BYTES_PER_S = 3.35e12      # HBM3 rate of one H100 SXM (data sheet)
 FLOAT_RTOL = 1e-12
 
@@ -1224,6 +1236,35 @@ def device_ms(fn, kernel: str, flush, runs: int = TIMED_RUNS, main=None,
     return us / 1e3 / count, count, traces
 
 
+def launch_shape(segs, pairs: int) -> dict:
+    """An exchange launch's chunks and blocks, as csrc/ring_exchange.cu's
+    ``launch`` sizes them: ``pairs`` x ceil(seg / CHUNK) chunks a column,
+    on min(chunks, resident) blocks, resident being as many blocks of
+    ``EX_SMEM`` bytes (and the 1 KB the card reserves a block) as fit an
+    SM's shared memory, on every SM."""
+    import torch
+
+    prop = torch.cuda.get_device_properties(0)
+    smem = getattr(prop, "shared_memory_per_multiprocessor", 0) or 228 * 1024
+    resident = max(smem // (EX_SMEM + 1024), 1) * prop.multi_processor_count
+    chunks = pairs * sum(-(-seg // EX_CHUNK) for seg in segs)
+    blocks = max(min(chunks, resident), 1)
+    return {"blocks": blocks, "chunks": chunks, "chunks_per_block": chunks / blocks}
+
+
+def ring_floor_ms(device, flush) -> float:
+    """The one-card kernel's device ms on a call that moves almost
+    nothing (one column, 16 bytes a segment): its fixed cost."""
+    import torch
+
+    from siddhi_tpu_torch.ops.exchange import ring_exchange_cols
+
+    n = N_SHARDS
+    tiny = torch.zeros((n, n, 16), dtype=torch.uint8, device=device)
+    return device_ms(lambda: ring_exchange_cols([tiny], n), "ring_exchange_cols_kernel",
+                     flush)[0]
+
+
 def check_exchange(device):
     """Kernel vs plain: every column buffer in one call, the odd-byte call
     and the 65-column call; timings over the column set of one routed batch
@@ -1284,11 +1325,31 @@ def check_exchange(device):
     out["host_ms"] = host_ms(kernel)
     out["device_ms"], out["device_seen"], out["device_traces"] = device_ms(
         kernel, "ring_exchange_cols_kernel", scratch)
+    out["launch"] = launch_shape([b.numel() // (n * n) * b.element_size()
+                                  for b in batch_cols], n * n)
+    out["floor_ms"] = ring_floor_ms(device, scratch)
     out["bound_ms"] = 2 * nbytes / H100_BYTES_PER_S * 1e3   # read once + write once
     out["roofline_share"] = out["bound_ms"] / out["device_ms"]
     out.update(max_abs_err=max_err, bytes_each_way=nbytes,
                columns=len(batch_cols), buffers=len(every))
     return out
+
+
+def exchange_line(ex: dict, card: str) -> str:
+    return (f"[kernel] ring_exchange_cols exact on {ex['buffers']} buffers in one "
+            f"call, on odd-byte segments, and on 65 columns in 2 launches; one "
+            f"batch's {ex['columns']} columns, {ex['bytes_each_way']} bytes each "
+            f"way, L2 flushed: kernel {ex['ms']:.4f} ms, plain {ex['plain_ms']:.4f} "
+            f"ms, library {ex['library_ms']:.4f} ms; warm L2: kernel "
+            f"{ex['ms_warm_l2']:.4f} ms, plain {ex['plain_ms_warm_l2']:.4f} ms, "
+            f"library {ex['library_ms_warm_l2']:.4f} ms; host enqueue of one "
+            f"call {ex['host_ms']:.4f} ms; kernel on the device "
+            f"{ex['device_ms']:.4f} ms ({ex['device_seen']} of {TIMED_RUNS} launches "
+            f"seen, {ex['device_traces']} traces; {ex['launch']['blocks']} blocks, "
+            f"{ex['launch']['chunks_per_block']:.2f} chunks a block of {EX_CHUNK} B) "
+            f"against a {ex['bound_ms']:.4f} ms byte bound (share "
+            f"{ex['roofline_share']:.3f}); the same launch moving 16 B a segment "
+            f"{ex['floor_ms']:.4f} ms [{card}]")
 
 
 # -------------------------------------------------------------- distinct
@@ -9984,31 +10045,44 @@ def phase_split(device, card: str):
 
 # ----------------------- phase 33: K8 across processes, peer writes through CUDA IPC
 
-PX_RECORD_AT = 2                # the exchange call held against the plain path
+PX_RECORD_FROM = 1              # the first exchange call held against the plain path
+PX_RECORD_CALLS = 7             # consecutive calls held (both halves of the arena)
 PX_TIMED = 30                   # timed calls of each exchange (median)
 PX_BAD_TIMEOUT_S = 10.0         # gate 3's cluster_step_timeout
+PX_KILL_AT = 1                  # gate 4: process 1 is killed before this exchange call
+PX_PROFILE_TOP = 6              # functions listed in gate 1's host profile
+PX_KILL_TIMEOUT_S = 5.0         # gate 4's cluster_step_timeout
 PX_TIMEOUT_S = 300
 
 
 class PeerRecorder:
     """Stands in for ``peer_exchange_cols`` in the routed step; every call
-    goes through to the wrapper. Call ``at``'s send buffers are cloned
-    before it and its receive buffers after it (the arena half it returns
-    is rewritten two calls later); ``peer`` keeps its exchange state."""
+    goes through to the wrapper. Calls ``at`` to ``at + count - 1`` have
+    their send buffers cloned before them and their receive buffers after
+    them (the arena half a call returns is rewritten two calls later);
+    ``peer`` keeps the exchange state. ``kill_at``: the process kills
+    itself (SIGKILL) before that call."""
 
-    def __init__(self, at: int):
-        self.at, self.calls = at, 0
-        self.bufs = self.got = self.peer = None
+    def __init__(self, at: int, count: int = 1, kill_at=None):
+        self.at, self.count, self.kill_at, self.calls = at, count, kill_at, 0
+        self.bufs, self.got, self.peer = [], [], None
 
     def __call__(self, bufs, peer, timeout_s=None, what="shard exchange"):
+        import os
+        import signal
+
         from siddhi_tpu_torch.ops.exchange import peer_exchange_cols
 
         i, self.calls = self.calls, self.calls + 1
-        if i == self.at:
-            self.bufs = [b.clone() for b in bufs]
+        self.peer = peer
+        if i == self.kill_at:
+            os.kill(os.getpid(), signal.SIGKILL)
+        keep = self.at <= i < self.at + self.count
+        if keep:
+            self.bufs.append([b.clone() for b in bufs])
         out = peer_exchange_cols(bufs, peer, timeout_s, what)
-        if i == self.at:
-            self.got, self.peer = [o.clone() for o in out], peer
+        if keep:
+            self.got.append([o.clone() for o in out])
         return out
 
 
@@ -10018,31 +10092,81 @@ def _byte_view(t):
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
+def peer_device_ms(call, flush):
+    """The peer kernel's device ms (torch.profiler, L2 flushed before each
+    of ``PX_TIMED`` calls) and the launches the trace saw. Every process
+    of the group runs it in step: each call waits on its peers' calls, so
+    no process may retry a trace (``device_ms`` does): a trace that saw no
+    launch gives None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(PX_TIMED):
+            flush.fill_(i & 0xFF)
+            call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "peer_exchange_cols_kernel" in e.key]
+    seen = sum(e.count for e in events)
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
+    return (us / 1e3 / seen if seen and us else None), seen
+
+
+def px_host_profile(call, runs: int = PX_TIMED) -> dict:
+    """cProfile of ``runs`` calls of ``call``, the card synchronized
+    between them outside the profile: the host ms a call and the
+    ``PX_PROFILE_TOP`` functions by their own (not their callees') ms a
+    call. A function that releases the GIL (a ctypes or torch call) counts
+    here the time it waits to take it back."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    for _ in range(runs):
+        prof.enable()
+        call()
+        prof.disable()
+        torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, f"{Path(f).name}:{line}({fn})") for (f, line, fn), (_cc, _nc, tt, _ct,
+                   _callers) in stats.items()), reverse=True)
+    return {"ms": sum(tt for tt, _ in rows) * 1e3 / runs,
+            "top": [(name, tt * 1e3 / runs) for tt, name in rows[:PX_PROFILE_TOP]]}
+
+
 def px_measure(rec, P: int) -> dict:
     """Gate 1 in one process of the group (every process runs it in step:
-    each call holds collectives): the recorded call's send buffers through
-    the plain path (``ring_exchange_cols`` plus ``all_to_all_cols`` over
-    gloo), held bit for bit against what the kernel wrote; then, on the
-    same buffers, the peer exchange's card ms (CUDA events around a call,
-    median), its host enqueue ms, its kernel's device ms (torch.profiler,
-    L2 flushed before each call), the plain path's ms, and one gloo
-    ``all_to_all_single`` of the same bytes (host clock to its end)."""
+    the plain path holds collectives, and each peer call waits on the
+    peers'): each recorded call's send buffers through the plain path
+    (``ring_exchange_cols`` plus ``all_to_all_cols`` over gloo), held bit
+    for bit against what the kernel wrote; then, on the last recorded
+    call's buffers, the peer exchange's card ms (CUDA events around a
+    call, median), its host enqueue ms and host profile, its kernel's
+    device ms (torch.profiler, L2 flushed before each call) and launch
+    shape, the same launch's device ms moving 16 B a segment, the plain
+    path's ms, and one gloo ``all_to_all_single`` of the same bytes (host
+    clock to its end)."""
     import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
     from siddhi_tpu_torch.ops import exchange as ex
 
-    peer, bufs = rec.peer, rec.bufs
+    peer = rec.peer
     n, L, p = peer.n, peer.L, peer.p
-    plain = ex.process_exchange_plain(bufs, n, L, p, 60.0, "PX plain")
-    torch.cuda.synchronize()
-    for i, (k, w) in enumerate(zip(rec.got, plain)):
-        _require(k.dtype == w.dtype and k.shape == w.shape
-                 and torch.equal(_byte_view(k), _byte_view(w)),
-                 f"PX gate 1: process {p} column {i} ({w.dtype} {tuple(w.shape)}) "
-                 f"differs from the plain path")
-    out = {"columns": len(plain), "max_abs_err": 0.0}
+    _require(len(rec.got) == PX_RECORD_CALLS,
+             f"PX gate 1: process {p} recorded {len(rec.got)} calls, want {PX_RECORD_CALLS}")
+    for j, (bufs, got) in enumerate(zip(rec.bufs, rec.got)):
+        plain = ex.process_exchange_plain(bufs, n, L, p, 60.0, "PX plain")
+        torch.cuda.synchronize()
+        for i, (k, w) in enumerate(zip(got, plain)):
+            _require(k.dtype == w.dtype and k.shape == w.shape
+                     and torch.equal(_byte_view(k), _byte_view(w)),
+                     f"PX gate 1: process {p} call {PX_RECORD_FROM + j} column {i} "
+                     f"({w.dtype} {tuple(w.shape)}) differs from the plain path")
+    bufs = rec.bufs[-1]
+    out = {"columns": len(bufs), "calls_checked": len(rec.got), "max_abs_err": 0.0}
 
     def call():
         return ex.peer_exchange_cols(bufs, peer, 60.0, "PX timed")
@@ -10061,17 +10185,19 @@ def px_measure(rec, P: int) -> dict:
         b.synchronize()
         card.append(a.elapsed_time(b))
     out["ms"], out["host_ms"] = statistics.median(card), statistics.median(host)
+    out["host_profile"] = px_host_profile(call)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=bufs[0].device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(PX_TIMED):
-            flush.fill_(i & 0xFF)
-            call()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "peer_exchange_cols_kernel" in e.key]
-    seen = sum(e.count for e in events)
-    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
-    out["device_ms"] = us / 1e3 / seen if seen and us else None
-    out["device_seen"] = seen
+    out["device_ms"], out["device_seen"] = peer_device_ms(call, flush)
+    out["launch"] = launch_shape([b.numel() // (L * n) * b.element_size() for b in bufs],
+                                 L * n)
+    # the fixed cost: the same launch moving 16 bytes a segment (a column
+    # layout of its own, so its own arena), held against the plain path
+    tiny = [torch.zeros((L, n, 16), dtype=torch.uint8, device=bufs[0].device)]
+    got = ex.peer_exchange_cols(tiny, peer, 60.0, "PX floor")[0].clone()
+    want = ex.process_exchange_plain(tiny, n, L, p, 60.0, "PX floor plain")[0]
+    _require(torch.equal(got, want), "PX gate 1: the 16-byte call differs from the plain path")
+    out["floor_ms"] = peer_device_ms(
+        lambda: ex.peer_exchange_cols(tiny, peer, 60.0, "PX floor"), flush)[0]
 
     def timed(fn):
         fn()
@@ -10100,20 +10226,47 @@ def px_measure(rec, P: int) -> dict:
     # card's memory when the processes share it
     out["bound_ms"] = 2 * nbytes / H100_BYTES_PER_S * 1e3
     out["cross_bound_ms"] = 2 * out["cross_bytes"] / H100_BYTES_PER_S * 1e3
+    out["share"] = (out["bound_ms"] / out["device_ms"]) if out["device_ms"] else None
     return out
+
+
+class PeerErrors:
+    """A logging handler keeping the host clock and message of every
+    logged record that names a ``ClusterPeerError``."""
+
+    def __init__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(inner, record):
+                text = record.getMessage()
+                if record.exc_info:
+                    text += repr(record.exc_info[1])
+                if "ClusterPeerError" in text or "presumed dead" in text:
+                    self.seen.append((time.perf_counter(), text[-600:]))
+                    print(f"[kill] ClusterPeerError logged: {text[-300:]}", flush=True)
+
+        self.seen = []
+        self.handler = Handler()
 
 
 def peer_child(port: str, n_proc: str, rank: str, out: str, mode: str) -> int:
     """``python3 chip_smoke.py --peer-child PORT P RANK OUT MODE``: one
     process of a gloo group on the card (every process on ``cuda:0``)
     routing the flagship over ``global_mesh(N_SHARDS // P)`` on phase 4's
-    feed under ``pallas_ring``, the exchange call ``PX_RECORD_AT``
+    feed under ``pallas_ring``, exchange calls ``PX_RECORD_FROM`` on
     recorded. MODE ``run``: then gate 1 (``px_measure``) and the same
-    feed under ``all_to_all``; ``rows``: the rows alone; ``corrupt``:
+    feed under ``all_to_all``; ``rows``: gate 1 alone; ``corrupt``:
     process 1 flips the bytes of process 0's arena handle before opening
-    it, and every process bounds its collectives by ``PX_BAD_TIMEOUT_S``.
+    it, and every process bounds its collectives by ``PX_BAD_TIMEOUT_S``;
+    ``kill``: process 1 kills itself before exchange call ``PX_KILL_AT``
+    and every process bounds its steps by ``PX_KILL_TIMEOUT_S``; the
+    survivor times each send, keeps the ClusterPeerErrors it logs, then
+    times ``torch.cuda.synchronize()`` and the exchange's ``close()``.
     Pickles to OUT each run's batches, seconds and facts, and the
     launches of the peer kernel, K8 on one card and ``all_to_all_cols``."""
+    import logging
+    import os
     import pickle
 
     import torch
@@ -10145,7 +10298,7 @@ def peer_child(port: str, n_proc: str, rank: str, out: str, mode: str) -> int:
     try:
         feed = make_feed(5, N_BATCHES, BATCH, NUM_SYMBOLS)
         mesh = distributed.global_mesh(N_SHARDS // P)
-        knobs = {}
+        knobs, send = {}, None
         if mode == "corrupt":
             knobs["cluster_step_timeout"] = PX_BAD_TIMEOUT_S
             if r == 1:
@@ -10158,17 +10311,55 @@ def peer_child(port: str, n_proc: str, rank: str, out: str, mode: str) -> int:
                     return rows
 
                 ex.PeerExchange._trade = corrupt
-        rec = PeerRecorder(PX_RECORD_AT)
+        errors = PeerErrors()
+        if mode == "kill":
+            import faulthandler
+
+            knobs["cluster_step_timeout"] = PX_KILL_TIMEOUT_S
+            logging.getLogger("siddhi_tpu_torch").addHandler(errors.handler)
+            # a survivor stuck past its bounds prints every thread's stack
+            faulthandler.dump_traceback_later(10 * PX_KILL_TIMEOUT_S, exit=False)
+            starts = []
+
+            def send(h, feed, device):
+                seconds = []
+                for cols, ts in feed:
+                    t0 = time.perf_counter()
+                    starts.append(t0)
+                    h.send_columns(cols, timestamps=ts)
+                    seconds.append(time.perf_counter() - t0)
+                    print(f"[kill] send {len(seconds) - 1}: {seconds[-1]:.3f} s", flush=True)
+                return seconds
+
+        rec = PeerRecorder(PX_RECORD_FROM, PX_RECORD_CALLS,
+                           kill_at=PX_KILL_AT if mode == "kill" and r == 1 else None)
         mesh_mod.peer_exchange_cols, ex.all_to_all_cols = rec, counted_a2a
-        batches, secs, facts = run_slice(dev, feed, routed=True, mesh=mesh,
+        batches, secs, facts = run_slice(dev, feed, routed=True, mesh=mesh, send=send,
                                          exchange="pallas_ring", on_route=zero, knobs=knobs)
         res["pallas_ring"] = {"batches": batches, "seconds": secs, **facts, **counts()}
         mesh_mod.peer_exchange_cols = ex.peer_exchange_cols
-        if mode == "run":
+        if mode == "kill":
+            res["errors"] = [(t - starts[PX_KILL_AT], msg) for t, msg in errors.seen]
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            res["sync_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec.peer.close(PX_KILL_TIMEOUT_S)
+            res["close_s"] = time.perf_counter() - t0
+            res["broken"] = repr(rec.peer._broken)[:300]
+            with open(out, "wb") as f:
+                pickle.dump(res, f)
+            os._exit(0)     # the group's peer is gone: no teardown
+        if mode in ("run", "rows"):
             res["gate1"] = px_measure(rec, P)
+        if mode == "run":
             batches, secs, facts = run_slice(dev, feed, routed=True, mesh=mesh,
                                              exchange="all_to_all", on_route=zero)
             res["all_to_all"] = {"batches": batches, "seconds": secs, **facts, **counts()}
+            # pallas_ring again, so the two exchanges take turns
+            _b, secs, _f = run_slice(dev, feed, routed=True, mesh=mesh,
+                                     exchange="pallas_ring", on_route=zero)
+            res["pallas_ring_again"] = {"seconds": secs, **counts()}
         if rec.peer is not None:
             rec.peer.close(60.0)
     finally:
@@ -10181,9 +10372,9 @@ def peer_child(port: str, n_proc: str, rank: str, out: str, mode: str) -> int:
 def px_children(P: int, mode: str, first_wait: int = PX_TIMEOUT_S):
     """``--peer-child`` processes; each one's exit code, pickled results
     (None without) and the tail of its output, and the wall seconds. In
-    ``corrupt`` mode process 1 is waited for first and the rest are given
-    ``4 * PX_BAD_TIMEOUT_S`` more; every process is stopped whatever
-    happens."""
+    ``corrupt`` and ``kill`` mode process 1 is waited for first (it fails
+    or is killed) and the rest are given 4 and 12 times the mode's step
+    bound more; every process is stopped whatever happens."""
     import os
     import pickle
     import tempfile
@@ -10199,12 +10390,12 @@ def px_children(P: int, mode: str, first_wait: int = PX_TIMEOUT_S):
             procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--peer-child", str(port),
                  str(P), str(r), outs[r], mode], stdout=log, stderr=subprocess.STDOUT))
+    rest = {"corrupt": 4 * PX_BAD_TIMEOUT_S, "kill": 12 * PX_KILL_TIMEOUT_S}.get(mode)
     try:
-        order = [1] + [r for r in range(P) if r != 1] if mode == "corrupt" else range(P)
+        order = [1] + [r for r in range(P) if r != 1] if rest else range(P)
         for i, r in enumerate(order):
             try:
-                procs[r].wait(timeout=first_wait if i == 0 else
-                              (4 * PX_BAD_TIMEOUT_S if mode == "corrupt" else PX_TIMEOUT_S))
+                procs[r].wait(timeout=first_wait if i == 0 else (rest or PX_TIMEOUT_S))
             except subprocess.TimeoutExpired:
                 pass
     finally:
@@ -10224,14 +10415,82 @@ def px_children(P: int, mode: str, first_wait: int = PX_TIMEOUT_S):
     return res, time.perf_counter() - t0
 
 
+def px_gate1_line(label: str, g1: dict, pr: dict, eps: str, card: str) -> str:
+    prof = g1["host_profile"]
+    top = ", ".join(f"{name} {ms:.4f}" for name, ms in prof["top"])
+    dev = g1["device_ms"]
+    return (f"[peer] gate 1: {label}: {g1['calls_checked']} consecutive calls' "
+            f"{g1['columns']} receive buffers == the plain path's (ring_exchange_cols "
+            f"+ all_to_all_cols over gloo), bit for bit; {pr['peer']} peer launches for "
+            f"{pr['dispatches']} dispatches, 0 collectives; a call: card {g1['ms']:.4f} "
+            f"ms (CUDA events, median of {PX_TIMED}), host enqueue {g1['host_ms']:.4f} ms, "
+            f"kernel on the device {dev if dev is None else round(dev, 4)} ms "
+            f"({g1['device_seen']} of {PX_TIMED} seen; share "
+            f"{g1['share'] if g1['share'] is None else round(g1['share'], 3)}; "
+            f"{g1['launch']['blocks']} blocks, {g1['launch']['chunks_per_block']:.2f} chunks "
+            f"a block of {EX_CHUNK} B), bound {g1['bound_ms']:.4f} ms "
+            f"({g1['bytes']} B read and written; {g1['cross_bytes']} B cross processes: "
+            f"{g1['cross_bound_ms']:.4f} ms; the same launch moving 16 B a segment "
+            f"{g1['floor_ms'] if g1['floor_ms'] is None else round(g1['floor_ms'], 4)} ms), "
+            f"plain {g1['plain_ms']:.4f} ms, gloo "
+            f"all_to_all_single {g1['library_ms']:.4f} ms; host profile of a call "
+            f"{prof['ms']:.4f} ms, by own ms: {top}; {eps} [{card}]")
+
+
+def px_kill(gm, card: str) -> dict:
+    """Gate 4: process 1 of 2 kills itself before exchange call
+    ``PX_KILL_AT``; the survivor must log ``ClusterPeerError`` within the
+    step's bound + 5 s, its rows before the kill must equal ``gm``'s (not
+    compared where ``gm`` is None), and its ``torch.cuda.synchronize()``
+    and ``close()`` must return."""
+    kill, wall_k = px_children(2, "kill", first_wait=120)
+    code1, _got1, tail1 = kill[1]
+    code0, got0, tail0 = kill[0]
+    _require(code1 == -9, f"PX gate 4: process 1 exited {code1}, not killed:\n{tail1}")
+    _require(code0 == 0 and got0 is not None,
+             f"PX gate 4: the survivor exited {code0}:\n{tail0}")
+    pr, errs = got0["pallas_ring"], got0["errors"]
+    _require(errs and errs[0][0] < PX_KILL_TIMEOUT_S + 5.0,
+             f"PX gate 4: the survivor's first ClusterPeerError came "
+             f"{errs[0][0] if errs else None} s after the doomed send (bound "
+             f"{PX_KILL_TIMEOUT_S} + 5 s): {errs[:1]}")
+    _require(len(pr["batches"]) == PX_KILL_AT,
+             f"PX gate 4: the survivor emitted {len(pr['batches'])} batches, "
+             f"not the {PX_KILL_AT} before the kill")
+    if gm is not None:
+        require_bit_equal(pr["batches"], gm[:PX_KILL_AT],
+                          "PX gate 4: the survivor's rows before the kill vs DS gate 3")
+    _require(got0["sync_s"] < 5.0 and got0["close_s"] < 5.0 and pr["all_to_all"] == 0,
+             f"PX gate 4: the survivor's sync {got0['sync_s']:.2f} s, close "
+             f"{got0['close_s']:.2f} s, {pr['all_to_all']} collectives")
+    res = {"exit_codes": [code0, code1], "wall_s": wall_k,
+           "error_after_s": errs[0][0], "errors": len(errs),
+           "error": errs[0][1][-300:], "batches_out": len(pr["batches"]),
+           "send_s": pr["seconds"], "sync_s": got0["sync_s"],
+           "close_s": got0["close_s"], "peer_launches": pr["peer"]}
+    print(f"[peer] gate 4: process 1 killed (SIGKILL) before exchange call {PX_KILL_AT}, "
+          f"so the survivor's call {PX_KILL_AT} reads an arena half the peer never "
+          f"wrote: the survivor logged ClusterPeerError {errs[0][0]:.2f} s after the "
+          f"doomed send began (bound {PX_KILL_TIMEOUT_S} s + 5), {len(errs)} in all "
+          f"(each later batch's at once); its {len(pr['batches'])} batches before "
+          + ("== DS gate 3's" if gm is not None else "(rows not compared)")
+          + f"; torch.cuda.synchronize() {got0['sync_s']:.3f} s, close() "
+          f"{got0['close_s']:.3f} s; sends {[round(x, 3) for x in pr['seconds']]} s; "
+          f"{wall_k:.1f} s [{card}]", flush=True)
+    return res
+
+
 def phase_peer(device, gm, card: str):
     """Phase 33: K8 across processes as peer writes through CUDA IPC, two
-    and four processes on the card over gloo. Gate 1: the kernel's
+    and four processes on the card over gloo. Gate 1: consecutive calls'
     received buffers == the plain path's, bit for bit, one launch a
-    dispatch, and the times; gate 2: the routed flagship's rows == phase
-    31's gate 3 rows (``gm``) under ``pallas_ring`` at 2 x 2 and 4 x 1
-    shards and under ``all_to_all``; gate 3: a corrupted handle fails the
-    run. Returns (results, the peer kernel's launches by run)."""
+    dispatch, and the times at 2 x 2 and 4 x 1; gate 2: the routed
+    flagship's rows == phase 31's gate 3 rows (``gm``) under
+    ``pallas_ring`` at 2 x 2 and 4 x 1 shards and under ``all_to_all``;
+    gate 3: a corrupted arena handle fails the run; gate 4: a process
+    killed mid-feed gives the survivor ``ClusterPeerError`` within the
+    step's bound, its rows before the kill == ``gm``'s, and it drains and
+    closes. Returns (results, the peer kernel's launches by run)."""
     t_phase = time.perf_counter()
     res, launches = {}, {}
     runs, wall = px_children(2, "run")
@@ -10256,26 +10515,20 @@ def phase_peer(device, gm, card: str):
             "k8_launches_all_to_all": aa["k8"],
             "eps_pallas_ring": steady_eps(pr["seconds"], BATCH),
             "eps_all_to_all": steady_eps(aa["seconds"], BATCH),
+            "eps_pallas_ring_again": steady_eps(got["pallas_ring_again"]["seconds"], BATCH),
             "state_bytes": pr["state_bytes"], "info": got["info"], **g1}
-        print(f"[peer] gate 1: process {r} of 2 (2 shards each): the recorded call's "
-              f"{g1['columns']} receive buffers == the plain path's (ring_exchange_cols "
-              f"+ all_to_all_cols over gloo), bit for bit; {pr['peer']} peer launches "
-              f"for {pr['dispatches']} dispatches, 0 collectives; a call: card "
-              f"{g1['ms']:.4f} ms (CUDA events, median of {PX_TIMED}), host enqueue "
-              f"{g1['host_ms']:.4f} ms, kernel on the device "
-              f"{g1['device_ms'] if g1['device_ms'] is None else round(g1['device_ms'], 4)} "
-              f"ms ({g1['device_seen']} of {PX_TIMED} seen), bound {g1['bound_ms']:.4f} "
-              f"ms ({g1['bytes']} B read and written; {g1['cross_bytes']} B cross "
-              f"processes: {g1['cross_bound_ms']:.4f} ms), plain {g1['plain_ms']:.4f} "
-              f"ms, gloo all_to_all_single {g1['library_ms']:.4f} ms; events/s "
-              f"{res[f'rank{r}']['eps_pallas_ring']:.1f} under pallas_ring, "
-              f"{res[f'rank{r}']['eps_all_to_all']:.1f} under all_to_all [{card}]",
-              flush=True)
+        print(px_gate1_line(
+            f"process {r} of 2 (2 shards each)", g1, pr,
+            f"events/s {res[f'rank{r}']['eps_pallas_ring']:.1f} under pallas_ring, "
+            f"{res[f'rank{r}']['eps_all_to_all']:.1f} under all_to_all, "
+            f"{res[f'rank{r}']['eps_pallas_ring_again']:.1f} under pallas_ring again",
+            card), flush=True)
     res["two_wall_s"] = wall
     print(f"[peer] gate 2: both processes' rows == DS gate 3's, bit for bit, under "
           f"pallas_ring and all_to_all; {wall:.1f} s with the processes' start [{card}]",
           flush=True)
-    # gate 3's two processes run beside the four of gate 2 (no timing)
+    # gate 3's two processes run beside the four of gate 2 (their times
+    # are not kept)
     import threading
 
     bad_box = {}
@@ -10289,7 +10542,7 @@ def phase_peer(device, gm, card: str):
     for r, (code, got, tail) in enumerate(four):
         _require(code == 0 and got is not None,
                  f"PX gate 2: process {r} of 4 exited {code}:\n{tail}")
-        pr = got["pallas_ring"]
+        pr, g1 = got["pallas_ring"], got["gate1"]
         _require(pr["peer"] == pr["dispatches"] >= N_BATCHES and pr["k8"] == 0
                  and pr["all_to_all"] == 0,
                  f"PX gate 2: process {r} of 4: {pr['peer']} peer launches for "
@@ -10297,18 +10550,21 @@ def phase_peer(device, gm, card: str):
         require_bit_equal(pr["batches"], gm, f"PX gate 2: process {r} of 4 vs DS gate 3")
         launches[f"PX4_rank{r}"] = pr["peer"]
         res[f"four_rank{r}"] = {"launches": pr["peer"], "dispatches": pr["dispatches"],
-                                "eps_pallas_ring": steady_eps(pr["seconds"], BATCH)}
+                                "eps_pallas_ring": steady_eps(pr["seconds"], BATCH), **g1}
+        print(px_gate1_line(f"process {r} of 4 (1 shard each)", g1, pr,
+                            f"events/s {res[f'four_rank{r}']['eps_pallas_ring']:.1f} under "
+                            f"pallas_ring", card), flush=True)
     res["four_wall_s"] = wall4
     print(f"[peer] gate 2: 4 processes x 1 shard under pallas_ring: every process's "
           f"rows == DS gate 3's, bit for bit; launches "
           f"{[res[f'four_rank{r}']['launches'] for r in range(4)]}; events/s a process "
           f"{[round(res[f'four_rank{r}']['eps_pallas_ring'], 1) for r in range(4)]}; "
-          f"{wall4:.1f} s [{card}]", flush=True)
+          f"{wall4:.1f} s (gate 3's processes beside them) [{card}]", flush=True)
     _require("res" in bad_box, "PX gate 3: its processes were not run")
     bad, wall3 = bad_box["res"]
     code1, got1, tail1 = bad[1]
     _require(code1 not in (0, None) and got1 is None
-             and "cudaIpcOpenMemHandle of process 0" in tail1,
+             and "cudaIpcOpenMemHandle of process 0's receive arena" in tail1,
              f"PX gate 3: process 1 with a corrupted handle exited {code1}:\n{tail1}")
     code0, got0, _tail0 = bad[0]
     res["corrupt"] = {"exit_codes": [code0, code1], "wall_s": wall3,
@@ -10325,6 +10581,8 @@ def phase_peer(device, gm, card: str):
           f"raising ({res['corrupt']['error']}); process 0 exited {code0} "
           f"({res['corrupt'].get('rank0')}); nothing fell back to all_to_all; "
           f"{wall3:.1f} s [{card}]", flush=True)
+    res["kill"] = px_kill(gm, card)
+    launches["PX_kill_rank0"] = res["kill"]["peer_launches"]
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"[peer] phase 33 in {res['phase_s']:.1f} s [{card}]", flush=True)
     return res, launches
@@ -10586,6 +10844,37 @@ def phase_twin(device, feed, card: str):
           f"(max float rel err {worst_cpu:.3g})", flush=True)
 
 
+def exchange_only() -> int:
+    """``python3 chip_smoke.py --exchange``: the exchange kernel's quick
+    check and timing alone, on one card: phases 1-3, then phase 33's gate
+    1 at 2 x 2 and 4 x 1 and its gate 4 (the survivor's rows are not
+    compared: phase 31, which gives them, does not run)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device — --exchange runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from siddhi_tpu_torch.ops import _cuda
+
+    card = card_line()
+    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    _cuda.build(["ring_exchange"])
+    print(exchange_line(check_exchange(torch.device("cuda", 0)), card), flush=True)
+    for P in (2, 4):
+        runs, _wall = px_children(P, "rows")
+        for r, (code, got, tail) in enumerate(runs):
+            _require(code == 0 and got is not None,
+                     f"PX gate 1: process {r} of {P} exited {code}:\n{tail}")
+            pr = got["pallas_ring"]
+            print(px_gate1_line(f"process {r} of {P} ({N_SHARDS // P} shards each)",
+                                got["gate1"], pr, f"events/s "
+                                f"{steady_eps(pr['seconds'], BATCH):.1f} under pallas_ring",
+                                card), flush=True)
+    px_kill(None, card)
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -10629,17 +10918,7 @@ def main() -> int:
 
     # 3. kernels at the flagship's shapes
     ex = check_exchange(device)
-    print(f"[kernel] ring_exchange_cols exact on {ex['buffers']} buffers in one "
-          f"call, on odd-byte segments, and on 65 columns in 2 launches; one "
-          f"batch's {ex['columns']} columns, {ex['bytes_each_way']} bytes each "
-          f"way, L2 flushed: kernel {ex['ms']:.4f} ms, plain {ex['plain_ms']:.4f} "
-          f"ms, library {ex['library_ms']:.4f} ms; warm L2: kernel "
-          f"{ex['ms_warm_l2']:.4f} ms, plain {ex['plain_ms_warm_l2']:.4f} ms, "
-          f"library {ex['library_ms_warm_l2']:.4f} ms; host enqueue of one "
-          f"call {ex['host_ms']:.4f} ms; kernel on the device "
-          f"{ex['device_ms']:.4f} ms ({ex['device_seen']} of {TIMED_RUNS} launches "
-          f"seen, {ex['device_traces']} traces) against a {ex['bound_ms']:.4f} ms byte "
-          f"bound (share {ex['roofline_share']:.3f}) [{card}]", flush=True)
+    print(exchange_line(ex, card), flush=True)
 
     # 4. the slice
     feed = make_feed(5, N_BATCHES, BATCH, NUM_SYMBOLS)
@@ -10837,17 +11116,26 @@ def main() -> int:
         "ms_warm_l2": ex["ms_warm_l2"],
         "plain_ms_warm_l2": ex["plain_ms_warm_l2"],
         "library_ms_warm_l2": ex["library_ms_warm_l2"],
-        "host_ms": ex["host_ms"],
+        "host_ms": ex["host_ms"], "floor_ms": ex["floor_ms"],
         # the cross-process form (siddhi_peer_exchange_cols), phase 33's
         # process 0 of 2: its launches are launches_by_run's PX* entries
         "across_processes": {
             "wrapper": "siddhi_tpu_torch/ops/exchange.py peer_exchange_cols",
             "launches": sum(px_launches.values()), "max_abs_err": px["max_abs_err"],
-            "columns": px["columns"], "ms": px["ms"], "host_ms": px["host_ms"],
-            "device_ms": px["device_ms"], "plain_ms": px["plain_ms"],
+            "columns": px["columns"], "calls_checked": px["calls_checked"],
+            "ms": px["ms"], "host_ms": px["host_ms"],
+            "host_profile_ms": px["host_profile"]["ms"],
+            "device_ms": px["device_ms"], "share": px["share"], "launch": px["launch"],
+            "floor_ms": px["floor_ms"],
+            "plain_ms": px["plain_ms"],
             "bound_ms": px["bound_ms"], "bound_by": "bytes",
             "cross_bound_ms": px["cross_bound_ms"], "library_ms": px["library_ms"],
-            "library": "gloo all_to_all_single of the same bytes"},
+            "library": "gloo all_to_all_single of the same bytes",
+            # process 0 of 4 (one shard each)
+            "four": {k: peer["four_rank0"][k] for k in (
+                "ms", "host_ms", "device_ms", "share", "launch", "plain_ms", "bound_ms",
+                "library_ms")},
+            "kill": {k: peer["kill"][k] for k in ("error_after_s", "sync_s", "close_s")}},
     }, {
         "name": "distinct_scan", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/distinct_scan.cu",
@@ -10990,6 +11278,8 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--split-child"] and len(sys.argv) == 6:
             sys.path.insert(0, str(Path(__file__).resolve().parent))
             sys.exit(split_child(*sys.argv[2:6]))
+        if sys.argv[1:] == ["--exchange"]:
+            sys.exit(exchange_only())
         if sys.argv[1:2] == ["--cells"] and len(sys.argv) == 3:
             import torch
 

@@ -44,20 +44,45 @@
 // pointers), plus the per-call segment plan: for pair (s, d) of a source
 // shard s of this process and a global destination shard d, the owner
 // process q and the segment index in q's buffer of that column, computed
-// in Python (ops/exchange.py peer_plan). Completion crosses processes
-// only through interprocess events and a host barrier (siddhi_ipc_event_*,
-// siddhi_event_record, siddhi_stream_wait_event): no device-side wait on
-// another process, since without MPS the kernels of two processes on one
-// card time-slice and a spin could wait a whole slice. Bound: bytes, every
-// segment of the process's send buffers read once and written once.
+// in Python (ops/exchange.py peer_plan).
+//
+// Completion crosses processes through 64-bit generation words, the CUDA
+// form of the TPU kernel's DMA semaphores. Each process keeps one page of
+// words written[q] per arena in shared host memory (siddhi_words_create: a
+// memfd, mapped by every process of the group through /proc/<pid>/fd and
+// registered with the card): after its kernel of step k a process writes
+// k + 1 into its word in every peer's page, and its stream waits until
+// every peer's word in its own page is at least k + 1 (siddhi_stream_sync:
+// cuStreamBatchMemOp's 64-bit writes and GEQ waits, from the driver
+// through dlopen, so nothing links libcuda). The same waits free the other
+// half for the next step, since a peer reads a step's result before its
+// next call. A wait for "at least step k" is right whenever it is issued,
+// so no host lines the processes up, and it waits in the card's front end:
+// it holds no SM and launches nothing, which matters because without MPS
+// the kernels of two processes on one card time-slice and a spinning
+// kernel could wait a whole slice. Each write carries the stream's
+// system-scope fence, so a peer that sees the word also sees the kernel's
+// stores before it. The schedule of writes and waits is ops/exchange.py
+// peer_schedule. The words live on the host so that a survivor releases
+// its stream after a peer's death with a plain store: a release made with
+// a driver call can block behind the launch queue its own stuck stream
+// filled.
+// Bound: bytes, every segment of the process's send buffers read once and
+// written once.
 //
 // Built at first use by siddhi_tpu_torch/ops/_cuda.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes; the C entry returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <fcntl.h>
 #include <stdint.h>
+#include <stdio.h>
 #include <string.h>
+#include <sys/mman.h>
+#include <unistd.h>
 
 namespace {
 
@@ -70,6 +95,8 @@ constexpr int MAX_DEVICES = 64;
 constexpr int MAX_PEER_COLS = 32;       // columns one cross-process launch takes
 constexpr int MAX_PROCS = 16;           // processes of a peer exchange
 constexpr int MAX_PAIRS = 512;          // (source, destination) pairs a column
+constexpr int MAX_SYNC = 2 * MAX_PROCS; // stream memory operations a batch
+constexpr long long WORDS_BYTES = 4096;  // a page of generation words
 
 }  // namespace
 
@@ -102,6 +129,17 @@ struct PeerCol {
   const void* in;
   long long out_off;
   long long seg_bytes;
+};
+
+// One stream memory operation of the peer schedule: wait == 0 writes value
+// at addr; wait != 0 waits until the 64-bit word at addr is at least value
+// (flush: then flushes remote writes, where the card can). Laid out as
+// ops/exchange.py's ctypes _PeerSync.
+struct PeerSync {
+  unsigned long long addr;
+  unsigned long long value;
+  int wait;
+  int flush;
 };
 
 namespace {
@@ -328,7 +366,49 @@ int g_max_blocks[MAX_DEVICES];          // resident blocks per device, 0: unset
 int g_max_blocks_peer[MAX_DEVICES];
 
 static_assert(sizeof(cudaIpcMemHandle_t) == 64, "64-byte memory handles");
-static_assert(sizeof(cudaIpcEventHandle_t) == 64, "64-byte event handles");
+
+// The driver's stream memory operations, reached through dlopen of the
+// driver library the runtime has already loaded (no link to libcuda).
+typedef CUresult (*BatchMemOpFn)(CUstream, unsigned int, CUstreamBatchMemOpParams*,
+                                 unsigned int);
+typedef CUresult (*DeviceGetFn)(CUdevice*, int);
+typedef CUresult (*DeviceGetAttributeFn)(int*, CUdevice_attribute, CUdevice);
+
+struct Driver {
+  BatchMemOpFn batch;
+  DeviceGetFn device_get;
+  DeviceGetAttributeFn attribute;
+};
+
+const Driver& driver() {
+  static const Driver d = [] {
+    Driver r{};
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    if (lib != nullptr) {
+      r.batch = (BatchMemOpFn)dlsym(lib, "cuStreamBatchMemOp_v2");
+      r.device_get = (DeviceGetFn)dlsym(lib, "cuDeviceGet");
+      r.attribute = (DeviceGetAttributeFn)dlsym(lib, "cuDeviceGetAttribute");
+    }
+    return r;
+  }();
+  return d;
+}
+
+// Register a page of generation words with the card; *dev its address
+// there.
+int register_words(void* host, unsigned long long* dev) {
+  cudaError_t err = cudaHostRegister(host, WORDS_BYTES,
+                                     cudaHostRegisterMapped | cudaHostRegisterPortable);
+  if (err != cudaSuccess) return (int)err;
+  void* d = nullptr;
+  err = cudaHostGetDevicePointer(&d, host, 0);
+  if (err != cudaSuccess) {
+    cudaHostUnregister(host);
+    return (int)err;
+  }
+  *dev = (unsigned long long)(uintptr_t)d;
+  return 0;
+}
 
 }  // namespace
 
@@ -353,7 +433,8 @@ extern "C" int siddhi_ring_exchange_cols(const ExchangeCol* cols, int ncols,
 // Every column's npairs segments of this process's send buffers into
 // their owners' receive buffers: bases[q] is process q's arena as mapped
 // here (this process's own for q == its rank), plan[pair] = q << 24 |
-// segment index in q's buffer. One launch; nothing waits on a peer here.
+// segment index in q's buffer. One launch; nothing waits on a peer here
+// (the caller's siddhi_stream_sync after it does).
 extern "C" int siddhi_peer_exchange_cols(const PeerCol* cols, int ncols,
                                          const unsigned long long* bases,
                                          int nprocs, const unsigned int* plan,
@@ -384,15 +465,23 @@ extern "C" int siddhi_peer_exchange_cols(const PeerCol* cols, int ncols,
   return launch(peer_exchange_cols_kernel, t, total, g_max_blocks_peer, stream);
 }
 
-// ---- the receive arenas and the events, traded between processes ----
+// ---- the receive arenas and the generation words, across processes ----
 
 // One receive arena: cudaMalloc (so the handle names exactly this block,
-// not a caching allocator's larger one) and its 64-byte IPC handle.
+// not a caching allocator's larger one), zeroed before it returns (a half
+// that a dead peer never wrote reads as rows whose flags are all 0, not
+// as whatever the allocation held), and its 64-byte IPC handle.
 extern "C" int siddhi_ipc_alloc(long long bytes, void** ptr, void* handle) {
   if (bytes <= 0) return (int)cudaErrorInvalidValue;
   void* p = nullptr;
   cudaError_t err = cudaMalloc(&p, (size_t)bytes);
   if (err != cudaSuccess) return (int)err;
+  err = cudaMemset(p, 0, (size_t)bytes);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(0);
+  if (err != cudaSuccess) {
+    cudaFree(p);
+    return (int)err;
+  }
   cudaIpcMemHandle_t h;
   err = cudaIpcGetMemHandle(&h, p);
   if (err != cudaSuccess) {
@@ -416,46 +505,101 @@ extern "C" int siddhi_ipc_open(const void* handle, void** ptr) {
 
 extern "C" int siddhi_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
 
-extern "C" int siddhi_ipc_event_create(void** ev, void* handle) {
-  cudaEvent_t e;
-  cudaError_t err = cudaEventCreateWithFlags(
-      &e, cudaEventInterprocess | cudaEventDisableTiming);
-  if (err != cudaSuccess) return (int)err;
-  cudaIpcEventHandle_t h;
-  err = cudaIpcGetEventHandle(&h, e);
-  if (err != cudaSuccess) {
-    cudaEventDestroy(e);
-    return (int)err;
+// This process's page of generation words: a zeroed page of an anonymous
+// shared file (memfd), mapped here at *host and registered with the card
+// at *dev; *fd stays open for the peers to map it (siddhi_words_open).
+extern "C" int siddhi_words_create(int* fd, void** host, unsigned long long* dev) {
+  const int f = memfd_create("siddhi-peer-words", MFD_CLOEXEC);
+  if (f < 0) return (int)cudaErrorOperatingSystem;
+  void* p = MAP_FAILED;
+  if (ftruncate(f, WORDS_BYTES) == 0)
+    p = mmap(nullptr, WORDS_BYTES, PROT_READ | PROT_WRITE, MAP_SHARED, f, 0);
+  if (p == MAP_FAILED) {
+    close(f);
+    return (int)cudaErrorOperatingSystem;
   }
-  memcpy(handle, &h, sizeof(h));
-  *ev = e;
+  const int code = register_words(p, dev);
+  if (code) {
+    munmap(p, WORDS_BYTES);
+    close(f);
+    return code;
+  }
+  *fd = f;
+  *host = p;
   return 0;
 }
 
-extern "C" int siddhi_ipc_event_open(const void* handle, void** ev) {
-  cudaIpcEventHandle_t h;
-  memcpy(&h, handle, sizeof(h));
-  cudaEvent_t e;
-  cudaError_t err = cudaIpcOpenEventHandle(&e, h);
+// Process pid's page of generation words (its memfd fd), mapped here and
+// registered with the card.
+extern "C" int siddhi_words_open(int pid, int fd, void** host, unsigned long long* dev) {
+  char path[64];
+  snprintf(path, sizeof(path), "/proc/%d/fd/%d", pid, fd);
+  const int f = open(path, O_RDWR | O_CLOEXEC);
+  if (f < 0) return (int)cudaErrorOperatingSystem;
+  void* p = mmap(nullptr, WORDS_BYTES, PROT_READ | PROT_WRITE, MAP_SHARED, f, 0);
+  close(f);
+  if (p == MAP_FAILED) return (int)cudaErrorOperatingSystem;
+  const int code = register_words(p, dev);
+  if (code) {
+    munmap(p, WORDS_BYTES);
+    return code;
+  }
+  *host = p;
+  return 0;
+}
+
+extern "C" int siddhi_words_close(void* host) {
+  const cudaError_t err = cudaHostUnregister(host);
+  munmap(host, WORDS_BYTES);
+  return (int)err;
+}
+
+extern "C" int siddhi_fd_close(int fd) {
+  return close(fd) == 0 ? 0 : (int)cudaErrorOperatingSystem;
+}
+
+// Whether the current device takes 64-bit stream memory operations
+// (*ok), and flushes remote writes after a wait (*flush). Returns a CUDA
+// error code where the driver cannot be asked.
+extern "C" int siddhi_stream_memops(int* ok, int* flush) {
+  const Driver& drv = driver();
+  if (drv.batch == nullptr || drv.device_get == nullptr || drv.attribute == nullptr)
+    return (int)cudaErrorSharedObjectSymbolNotFound;
+  int ordinal = 0;
+  cudaError_t err = cudaGetDevice(&ordinal);
   if (err != cudaSuccess) return (int)err;
-  *ev = e;
-  return 0;
+  CUdevice dev;
+  CUresult r = drv.device_get(&dev, ordinal);
+  if (r == CUDA_SUCCESS)
+    r = drv.attribute(ok, CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS, dev);
+  if (r == CUDA_SUCCESS)
+    r = drv.attribute(flush, CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES, dev);
+  return (int)r;
 }
 
-extern "C" int siddhi_event_destroy(void* ev) {
-  return (int)cudaEventDestroy(static_cast<cudaEvent_t>(ev));
-}
-
-extern "C" int siddhi_event_record(void* ev, void* stream) {
-  return (int)cudaEventRecord(static_cast<cudaEvent_t>(ev),
-                              static_cast<cudaStream_t>(stream));
-}
-
-// The stream waits, on the device, until the event's last record (in any
-// process) has completed; the host does not wait.
-extern "C" int siddhi_stream_wait_event(void* stream, void* ev) {
-  return (int)cudaStreamWaitEvent(static_cast<cudaStream_t>(stream),
-                                  static_cast<cudaEvent_t>(ev), 0);
+// The peer schedule's writes and waits, in order, on the caller's stream.
+extern "C" int siddhi_stream_sync(const PeerSync* ops, int n, void* stream) {
+  if (n < 0 || n > MAX_SYNC) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const Driver& drv = driver();
+  if (drv.batch == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  CUstreamBatchMemOpParams p[MAX_SYNC];
+  memset(p, 0, sizeof(p));
+  for (int i = 0; i < n; ++i) {
+    if (ops[i].wait) {
+      p[i].waitValue.operation = CU_STREAM_MEM_OP_WAIT_VALUE_64;
+      p[i].waitValue.address = (CUdeviceptr)ops[i].addr;
+      p[i].waitValue.value64 = ops[i].value;
+      p[i].waitValue.flags = CU_STREAM_WAIT_VALUE_GEQ
+                             | (ops[i].flush ? CU_STREAM_WAIT_VALUE_FLUSH : 0);
+    } else {
+      p[i].writeValue.operation = CU_STREAM_MEM_OP_WRITE_VALUE_64;
+      p[i].writeValue.address = (CUdeviceptr)ops[i].addr;
+      p[i].writeValue.value64 = ops[i].value;
+      p[i].writeValue.flags = CU_STREAM_WRITE_VALUE_DEFAULT;
+    }
+  }
+  return (int)drv.batch((CUstream)stream, (unsigned)n, p, 0);
 }
 
 extern "C" const char* siddhi_cuda_error_string(int code) {

@@ -31,7 +31,10 @@ n shards, and its send buffers are ``[L, n*Q, *tail]``. Two exchanges:
   launch of the kernel writes each (local source, global destination)
   segment of every column straight into its owner's arena, at the offset
   ``peer_plan`` gives. Processes on one host whose cards reach each other
-  (one card, or cards with peer access). Its plain version, for CPU
+  (one card, or cards with peer access). Completion is on 64-bit
+  generation words in shared host memory, written and awaited by the
+  card's stream memory operations in the order ``peer_schedule`` gives:
+  no host barrier and no interprocess event. Its plain version, for CPU
   tensors, is ``process_exchange_plain``; on a card nothing falls back.
 
 ``all_gather_rows`` is the egress: one ``all_gather`` of every process's
@@ -41,12 +44,16 @@ group's, NCCL between cards and gloo between CPU processes.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import math
+import queue
+import threading
+import time
 import weakref
 import zlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -58,7 +65,9 @@ ARENA_ALIGN = 128      # byte alignment of every output in the arena
 MAX_PEER_COLS = 32
 MAX_PEER_PROCS = 16
 MAX_PEER_PAIRS = 512
-IPC_HANDLE_BYTES = 64  # cudaIpcMemHandle_t and cudaIpcEventHandle_t
+IPC_HANDLE_BYTES = 64  # cudaIpcMemHandle_t
+RELEASED = 1 << 62     # a released generation word: every wait on it is met
+WATCH_TICK_S = 0.05    # the watchdog's polling period
 
 
 class _ExchangeCol(ctypes.Structure):
@@ -73,6 +82,13 @@ class _PeerCol(ctypes.Structure):
 
     _fields_ = [("inp", ctypes.c_void_p), ("out_off", ctypes.c_longlong),
                 ("seg_bytes", ctypes.c_longlong)]
+
+
+class _PeerSync(ctypes.Structure):
+    """One stream memory operation (``PeerSync`` in the source)."""
+
+    _fields_ = [("addr", ctypes.c_ulonglong), ("value", ctypes.c_ulonglong),
+                ("wait", ctypes.c_int), ("flush", ctypes.c_int)]
 
 
 def _check_cols(bufs: Sequence[torch.Tensor], n: int) -> None:
@@ -103,18 +119,20 @@ def _bind(lib) -> None:
     # every pointer and the stream as c_void_p: a plain int would be cut
     # to 32 bits
     vp, i32, ptr = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER
-    _declare(lib.siddhi_ring_exchange_cols, ptr(_ExchangeCol), i32, ctypes.c_longlong, vp)
-    _declare(lib.siddhi_peer_exchange_cols, ptr(_PeerCol), i32, ptr(ctypes.c_ulonglong),
-             i32, ptr(ctypes.c_uint), i32, vp)
-    _declare(lib.siddhi_ipc_alloc, ctypes.c_longlong, ptr(vp), ctypes.c_char_p)
+    i64, u64 = ctypes.c_longlong, ctypes.c_ulonglong
+    _declare(lib.siddhi_ring_exchange_cols, ptr(_ExchangeCol), i32, i64, vp)
+    _declare(lib.siddhi_peer_exchange_cols, ptr(_PeerCol), i32, ptr(u64), i32,
+             ptr(ctypes.c_uint), i32, vp)
+    _declare(lib.siddhi_ipc_alloc, i64, ptr(vp), ctypes.c_char_p)
     _declare(lib.siddhi_ipc_free, vp)
     _declare(lib.siddhi_ipc_open, ctypes.c_char_p, ptr(vp))
     _declare(lib.siddhi_ipc_close, vp)
-    _declare(lib.siddhi_ipc_event_create, ptr(vp), ctypes.c_char_p)
-    _declare(lib.siddhi_ipc_event_open, ctypes.c_char_p, ptr(vp))
-    _declare(lib.siddhi_event_destroy, vp)
-    _declare(lib.siddhi_event_record, vp, vp)
-    _declare(lib.siddhi_stream_wait_event, vp, vp)
+    _declare(lib.siddhi_words_create, ptr(i32), ptr(vp), ptr(u64))
+    _declare(lib.siddhi_words_open, i32, i32, ptr(vp), ptr(u64))
+    _declare(lib.siddhi_words_close, vp)
+    _declare(lib.siddhi_fd_close, i32)
+    _declare(lib.siddhi_stream_memops, ptr(i32), ptr(i32))
+    _declare(lib.siddhi_stream_sync, ptr(_PeerSync), i32, vp)
 
 
 def arena_layout(specs: Sequence[Tuple[Tuple[int, ...], torch.dtype]]):
@@ -309,6 +327,50 @@ def peer_plan(n: int, L: int, p: int) -> List[Tuple[int, int]]:
     return [(d // L, (d % L) * n + p * L + s) for s in range(L) for d in range(n)]
 
 
+class SyncOp(NamedTuple):
+    """One stream memory operation of the peer exchange's schedule: a
+    ``"write"`` of ``value`` into process ``owner``'s generation word
+    ``written[index]``, or a ``"wait"`` until that word of this process's
+    own page (``owner`` is this process) is at least ``value``."""
+
+    kind: str       # "write" | "wait"
+    owner: int      # the process whose page holds the word
+    index: int      # the process the word speaks for
+    value: int
+
+
+def peer_schedule(step: int, P: int, p: int) -> List[SyncOp]:
+    """The writes and waits process ``p`` of ``P`` puts on its stream
+    after the kernel of the call at ``step`` (its ``step``-th call on one
+    arena). The call writes half ``b = step % 2`` of every process's arena
+    and returns this process's half b; the caller reads it before its next
+    call on the same stream. Word ``written[q]`` of p's page is 1 + the
+    last step whose kernel q finished; words start at 0 and only grow, so
+    a wait for "at least" is right whenever the stream reaches it.
+
+    First tell every peer q that p's writes of this step are done
+    (``written[p] = step + 1`` in q's page), then wait until every peer
+    has done the same in p's page: every writer of p's half b has
+    finished (read after write), and p's reads may start. The same waits
+    order the next use of the other half (write after read): a peer's
+    ``written`` at ``step + 1`` means its stream ran past its kernel of
+    ``step``, so past its reads of ``step - 1``'s result, which precede
+    that call; p overwrites that half only at ``step + 1``, after these
+    waits. Last, ``written[p] = step + 1`` in p's own page: the call's
+    waits have passed (the watchdog reads it on the host). Nothing waits
+    before the kernel, and nothing waits on the host (the model in
+    ``tests/test_torch_peer_exchange.py`` explores every interleaving)."""
+    peers = [q for q in range(P) if q != p]
+    return ([SyncOp("write", q, p, step + 1) for q in peers]
+            + [SyncOp("wait", p, q, step + 1) for q in peers]
+            + [SyncOp("write", p, p, step + 1)])
+
+
+def word_offset(index: int) -> int:
+    """The byte offset of word ``written[index]`` in a page of words."""
+    return 8 * index
+
+
 def _check_process_cols(bufs: Sequence[torch.Tensor], n: int, L: int) -> None:
     for buf in bufs:
         if buf.dim() < 2 or buf.shape[0] != L or buf.shape[1] % n:
@@ -374,25 +436,29 @@ class _DeviceBytes:
 
 class _Arena:
     """One column layout's receive arena in this process (two halves, by
-    step parity) with its events, and every process's as mapped here."""
+    step parity) and its page of generation words, and every process's as
+    mapped here."""
 
     def __init__(self, specs, offsets, half: int):
         self.specs, self.offsets, self.half = specs, offsets, half
         self.bases = None       # c_ulonglong[P]: each process's arena here
-        self.written = []       # [q][parity]: q's kernel of the step is done
-        self.consumed = []      # [q][parity]: q has read that half
+        self.words = []         # [q]: process q's page of words, on the card
+        self.own = None         # c_ulonglong[P]: this process's page, on the host
         self.views = []         # [parity]: this process's receive buffers
         self.step = 0
 
 
 def _release(res: dict) -> List[str]:
-    """Unmap, destroy and free every recorded handle, newest first;
-    returns the failures' messages."""
+    """Stop the watchdog, then unmap and free every recorded handle,
+    newest first; returns the failures' messages."""
+    watch = res.pop("watch", None)
+    if watch is not None:
+        watch.stop()
     lib, handles, errors = res["lib"], res["handles"], []
     while handles:
         kind, ptr = handles.pop()
         fn = {"close": lib.siddhi_ipc_close, "free": lib.siddhi_ipc_free,
-              "event": lib.siddhi_event_destroy}[kind]
+              "words": lib.siddhi_words_close, "fd": lib.siddhi_fd_close}[kind]
         code = fn(ptr)
         if code:
             errors.append(f"{kind} {ptr:#x}: CUDA error {code} "
@@ -400,48 +466,98 @@ def _release(res: dict) -> List[str]:
     return errors
 
 
+class _Watchdog:
+    """Bounds the waits a peer exchange leaves on its stream. Each call
+    hands it (this process's page of words for the arena, the index of
+    the word the stream writes once the call's waits have passed, the
+    value it writes, a deadline) through a queue nobody blocks on, so the
+    hand-over wakes no thread; a daemon thread polls the queue every
+    ``WATCH_TICK_S``, drops the calls whose words have arrived, oldest
+    first, and calls ``fire()`` once if one is still short at its deadline
+    (a peer that died or stalled past the bound: ``fire`` releases the
+    stream, so no host read or launch hangs behind it). It reads host
+    memory only and makes no CUDA call, which could block behind the
+    launch queue the stuck stream filled."""
+
+    def __init__(self, fire):
+        self._fire = weakref.WeakMethod(fire)
+        self._calls = queue.SimpleQueue()
+        self._stopped = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="siddhi-peer-watchdog")
+        self._thread.start()
+
+    def watch(self, words, index: int, value: int, timeout_s: float) -> None:
+        self._calls.put((words, index, value, time.monotonic() + float(timeout_s)))
+
+    def stop(self) -> None:
+        """Stop the thread and wait for it (the words it reads may be
+        unmapped next)."""
+        self._stopped.set()
+        if self._thread is not threading.current_thread():
+            self._thread.join()
+
+    def _run(self) -> None:
+        pending = collections.deque()       # (words, index, value, deadline), oldest first
+        while not self._stopped.wait(WATCH_TICK_S):
+            with contextlib.suppress(queue.Empty):
+                while True:
+                    pending.append(self._calls.get_nowait())
+            while pending and pending[0][0][pending[0][1]] >= pending[0][2]:
+                pending.popleft()
+            if pending and pending[0][3] <= time.monotonic():
+                fire = self._fire()
+                if fire is not None:
+                    fire()
+                return
+
+
 class PeerExchange:
     """The state of K8 across processes for process ``p`` of ``P``, each
     holding ``L`` of ``n`` shards on its card: per column layout one
     receive arena a process, mapped by every other through CUDA IPC, and
-    the interprocess events that order the writes and reads.
+    a page of generation words a process in shared host memory (a memfd
+    registered with the card), which orders the writes and reads.
 
     Who allocates: each arena is one ``cudaMalloc`` in the C source (an
     IPC handle names the whole allocation, so it must not come from
     torch's caching allocator), sized for every column of the layout at
     ``arena_layout``'s offsets, twice (by step parity). Every process lays
     its arena out alike, so the kernel takes one base a process and one
-    offset a column. The handles (64 bytes each: the arena and four
-    events) are traded with one ``all_gather`` over the group when a
-    layout first crosses (the first dispatch, which every process makes
-    together), and checked to describe the same columns everywhere.
+    offset a column. Beside it each process keeps a page of 64-bit words
+    ``written[q]``, one for every process q, in shared host memory (a
+    memfd, zero at birth, registered with the card), which every process
+    maps through ``/proc/<pid>/fd``: so the processes must share a host
+    and a PID namespace, as CUDA IPC needs them on one host anyway. The
+    arena's IPC handle and the page's pid and fd are traded with one
+    ``all_gather`` over the group when a layout first crosses (the first
+    dispatch, which every process makes together) and checked to describe
+    the same columns everywhere; a barrier then follows, so no process
+    writes before every process has mapped everything. The card must take
+    64-bit stream memory operations (asked once); if it does not, the
+    first call raises ``FatalQueryError``.
 
-    A call (step k, parity b = k % 2), on the caller's stream:
+    A call puts on the caller's stream one launch of the kernel (every
+    column, every pair of ``peer_plan``), then exactly what
+    ``peer_schedule`` gives for the arena's step: its writes into the
+    peers' pages and its waits on its own. It makes no host call that
+    waits: no barrier, no collective, no event. The result is this
+    process's half as tensors, read before the next call on the stream.
 
-    1. wait for every peer's ``consumed[b]``: its reads of half b at step
-       k-2 are done before this kernel overwrites it (write after read);
-       record ``consumed[1-b]`` (this process's reads of step k-1 precede
-       this point on its stream);
-    2. launch the kernel (every column, every pair of ``peer_plan``), then
-       record ``written[b]``;
-    3. a host barrier over the group (gloo, bounded by the app's
-       ``cluster_step_timeout``): a wait on an event not yet recorded
-       would return at once, so every record of step 1–2 precedes every
-       wait of step 4;
-    4. wait for every peer's ``written[b]`` (read after write) and return
-       this process's half b as tensors.
-
-    A barrier also follows the opening of every mapping, so no kernel
-    writes before every process has mapped every arena; after a failed
-    barrier (a dead peer: ``ClusterPeerError``) every later call raises at
-    once, before any device work.
-
-    Double buffering rather than a copy out of the arena: the result is
-    read by the step that follows on the same stream, and the consumed
-    event recorded at the next call covers every such read without a
-    second copy of the columns. Every wait is a stream wait on an event:
-    nothing spins on the device for another process. A failed CUDA call
-    raises ``FatalQueryError``; nothing falls back to the collective."""
+    A dead or stalled peer leaves the stream waiting on a word. The next
+    bounded read catches it: the egress's gathers, a ``guarded_pull``, or
+    the watchdog (``_Watchdog``), which at ``timeout_s`` (the app's
+    ``cluster_step_timeout``, else the group's timeout) after a call
+    whose waits have not passed marks the exchange failed and stores
+    ``RELEASED`` into this process's own words on the host, so its stream
+    drains and no host read or launch hangs behind it. A failed exchange
+    raises ``ClusterPeerError`` at every later call, before any device
+    work, and at ``check`` (the routed step's, after its egress: rows read
+    from a released half are never emitted). Double buffering rather than
+    a copy out of the arena: the result is read by the step that follows
+    on the same stream, and the peers' waits of the next call cover every
+    such read (``peer_schedule``). A failed CUDA call raises
+    ``FatalQueryError``; nothing falls back to the collective."""
 
     def __init__(self, n: int, L: int, P: int, p: int):
         if P * L != n or not 0 <= p < P:
@@ -456,7 +572,8 @@ class PeerExchange:
         self._arenas: Dict[tuple, _Arena] = {}
         self._group = None
         self._device = None
-        self._broken = None     # the failed barrier's error
+        self._flush = None      # the card flushes remote writes after a wait
+        self._broken = None     # the error that failed the exchange
         self._res = {"lib": None, "handles": []}
         self._finalizer = weakref.finalize(self, _release, self._res)
 
@@ -486,18 +603,23 @@ class PeerExchange:
                            else dist.new_group(backend="gloo"))
         return self._group
 
+    def check(self, what: str) -> None:
+        """Raise ``ClusterPeerError`` if the exchange has failed."""
+        if self._broken is not None:
+            from siddhi_tpu_torch.parallel.distributed import ClusterPeerError
+
+            raise ClusterPeerError(
+                f"{what}: the peer exchange of process {self.p} failed at an "
+                f"earlier step ({self._broken})")
+
     def _barrier(self, timeout_s, what: str) -> None:
-        """A host barrier over the group; a failed one leaves the group out
-        of step for good: later calls raise at once, before any device
-        work (no kernel writes into the arena of a peer that is gone)."""
+        """A host barrier over the group (mapping and release only); a
+        failed one fails the exchange for good."""
         import torch.distributed as dist
 
         from siddhi_tpu_torch.parallel.distributed import ClusterPeerError
 
-        if self._broken is not None:
-            raise ClusterPeerError(
-                f"{what}: the peer exchange of process {self.p} failed at an "
-                f"earlier step ({self._broken})")
+        self.check(what)
         try:
             _finish(dist.all_reduce(torch.zeros(1, dtype=torch.int32),
                                     group=self._barrier_group(), async_op=True),
@@ -520,52 +642,69 @@ class PeerExchange:
         self._res["handles"].append((kind, ptr))
         return ptr
 
+    def _check_card(self, lib) -> None:
+        """Once: the card must take 64-bit stream memory operations."""
+        ok, flush = ctypes.c_int(), ctypes.c_int()
+        self._ok(lib.siddhi_stream_memops(ctypes.byref(ok), ctypes.byref(flush)),
+                 "the driver's stream memory operations (cuStreamBatchMemOp_v2, "
+                 "cuDeviceGetAttribute through libcuda.so.1)")
+        if not ok.value:
+            raise _fatal(
+                f"peer exchange: the card {self._device} does not take 64-bit stream "
+                "memory operations (CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS "
+                "is 0), on which the exchange's completion rests; nothing falls back")
+        self._flush = bool(flush.value)
+
     def _open(self, bufs, device, timeout_s, what: str) -> _Arena:
+        import os
+
         lib = self._lib()
+        if self._flush is None:
+            self._check_card(lib)
         specs = [(tuple(b.shape), b.dtype) for b in bufs]
         offsets, end = arena_layout(specs)
         arena = _Arena(specs, offsets, -(-end // ARENA_ALIGN) * ARENA_ALIGN)
+        total = 2 * arena.half
         ptr, mem = ctypes.c_void_p(), ctypes.create_string_buffer(IPC_HANDLE_BYTES)
-        self._ok(lib.siddhi_ipc_alloc(2 * arena.half, ctypes.byref(ptr), mem),
-                 f"cudaMalloc of a {2 * arena.half}-byte receive arena")
+        self._ok(lib.siddhi_ipc_alloc(total, ctypes.byref(ptr), mem),
+                 f"cudaMalloc of a {total}-byte receive arena")
         self._handle("free", ptr.value)
-        own, payload = [], [mem.raw]
-        for _ in range(4):          # written[0, 1], consumed[0, 1]
-            ev, h = ctypes.c_void_p(), ctypes.create_string_buffer(IPC_HANDLE_BYTES)
-            self._ok(lib.siddhi_ipc_event_create(ctypes.byref(ev), h),
-                     "an interprocess event")
-            own.append(self._handle("event", ev.value))
-            payload.append(h.raw)
+        fd, host, dev = ctypes.c_int(), ctypes.c_void_p(), ctypes.c_ulonglong()
+        self._ok(lib.siddhi_words_create(ctypes.byref(fd), ctypes.byref(host),
+                                         ctypes.byref(dev)),
+                 "the page of generation words (memfd_create, mmap, cudaHostRegister)")
+        self._handle("words", host.value)
+        self._handle("fd", fd.value)
+        arena.own = (ctypes.c_ulonglong * self.P).from_address(host.value)
         sig = zlib.crc32(repr([(s, str(d)) for s, d in specs]).encode())
-        payload.append(sig.to_bytes(8, "little") + (2 * arena.half).to_bytes(8, "little"))
-        rows = self._trade(b"".join(payload), timeout_s, what)
+        tag = sig.to_bytes(8, "little") + total.to_bytes(8, "little")
+        page = os.getpid().to_bytes(8, "little") + fd.value.to_bytes(8, "little")
+        rows = self._trade(mem.raw + page + tag, timeout_s, what)
         H = IPC_HANDLE_BYTES
-        bases, arena.written, arena.consumed = [], [], []
+        bases, words = [], []
         for q, row in enumerate(rows):
-            if row[-16:] != payload[-1]:
+            if row[H + 16:] != tag:
                 raise _fatal(f"peer exchange: process {q}'s columns differ from "
                              f"process {self.p}'s ({specs})")
             if q == self.p:
                 bases.append(ptr.value)
-                evs = own
-            else:
-                base = ctypes.c_void_p()
-                self._ok(lib.siddhi_ipc_open(row[:H], ctypes.byref(base)),
-                         f"cudaIpcOpenMemHandle of process {q}'s receive arena")
-                bases.append(self._handle("close", base.value))
-                evs = []
-                for i in range(1, 5):
-                    ev = ctypes.c_void_p()
-                    self._ok(lib.siddhi_ipc_event_open(row[i * H:(i + 1) * H],
-                                                       ctypes.byref(ev)),
-                             f"cudaIpcOpenEventHandle of process {q}'s event {i - 1}")
-                    evs.append(self._handle("event", ev.value))
-            arena.written.append(evs[:2])
-            arena.consumed.append(evs[2:])
+                words.append(dev.value)
+                continue
+            base = ctypes.c_void_p()
+            self._ok(lib.siddhi_ipc_open(row[:H], ctypes.byref(base)),
+                     f"cudaIpcOpenMemHandle of process {q}'s receive arena")
+            bases.append(self._handle("close", base.value))
+            pid, qfd = (int.from_bytes(row[H + i:H + i + 8], "little") for i in (0, 8))
+            qhost, qdev = ctypes.c_void_p(), ctypes.c_ulonglong()
+            self._ok(lib.siddhi_words_open(pid, qfd, ctypes.byref(qhost), ctypes.byref(qdev)),
+                     f"process {q}'s page of generation words (/proc/{pid}/fd/{qfd})")
+            self._handle("words", qhost.value)
+            words.append(qdev.value)
         arena.bases = (ctypes.c_ulonglong * self.P)(*bases)
-        # every process has mapped every arena before any kernel writes
+        arena.words = words
+        # every process has mapped every arena and page before any writes
         self._barrier(timeout_s, what)
-        whole = torch.as_tensor(_DeviceBytes(ptr.value, 2 * arena.half))
+        whole = torch.as_tensor(_DeviceBytes(ptr.value, total))
         if whole.device != device or whole.data_ptr() != ptr.value:
             raise _fatal(f"peer exchange: the arena's view lies at {whole.device} "
                          f"{whole.data_ptr():#x}, not {device} {ptr.value:#x}")
@@ -573,18 +712,61 @@ class PeerExchange:
                               device) for b in (0, 1)]
         return arena
 
+    def _sync(self, arena: _Arena, ops: Sequence[SyncOp], stream) -> None:
+        """Put ``ops`` on ``stream``, in order, as one batch."""
+        if not ops:
+            return
+        flush = int(self._flush)
+        table = (_PeerSync * len(ops))(*[
+            _PeerSync(arena.words[op.owner] + word_offset(op.index), op.value,
+                      op.kind == "wait", flush if op.kind == "wait" else 0)
+            for op in ops])
+        self._ok(self._res["lib"].siddhi_stream_sync(table, len(ops), stream),
+                 "the stream's writes and waits of generation words")
+
+    def _fail(self, error=None) -> None:
+        """Mark the exchange failed and release every wait its stream may
+        be stuck on: ``RELEASED`` stored into each of this process's own
+        words of every arena, on the host (no CUDA call), so the stream
+        drains; rows read from a released half are refused by ``check``."""
+        from siddhi_tpu_torch.parallel.distributed import ClusterPeerError
+
+        if self._broken is None:
+            self._broken = error or ClusterPeerError(
+                f"the peer exchange of process {self.p}: a call's waits on its peers' "
+                f"generation words did not pass within the step's bound — a cluster "
+                f"peer process is presumed dead; this error is terminal for the "
+                f"runtime: abandon it, restart the cluster and restore from the last "
+                f"snapshot revision")
+        for arena in list(self._arenas.values()):
+            for q in range(self.P):
+                if q != self.p:
+                    arena.own[q] = RELEASED
+
+    def _watch(self, arena: _Arena, timeout_s) -> None:
+        """Hand the call just made to the watchdog: its own word reaches
+        ``arena.step + 1`` once its waits have passed."""
+        watch = self._res.get("watch")
+        if watch is None:
+            watch = self._res["watch"] = _Watchdog(self._fail)
+        if timeout_s is None:
+            from siddhi_tpu_torch.parallel.distributed import group_timeout_s
+
+            timeout_s = group_timeout_s()
+        watch.watch(arena.own, self.p, arena.step + 1, timeout_s)
+
     def exchange(self, bufs: Sequence[torch.Tensor], timeout_s=None,
                  what: str = "shard exchange") -> List[torch.Tensor]:
         """This process's receive buffers ``[L, n*Q, *tail]`` of every
-        column (the views of its arena's half for this step; valid until
-        the call after next), from every process's send buffers."""
+        column (the views of its arena's half for this step: read them
+        before the next call on this stream), from every process's send
+        buffers."""
         n, L, P, p = self.n, self.L, self.P, self.p
         device = bufs[0].device
         guard = (torch.cuda.device(device) if device.index != torch.cuda.current_device()
                  else contextlib.nullcontext())
         with guard:
-            if self._broken is not None:
-                self._barrier(timeout_s, what)      # raises: the group is gone
+            self.check(what)
             self._device = device
             sig = tuple((tuple(b.shape), b.dtype) for b in bufs)
             arena = self._arenas.get(sig)
@@ -593,31 +775,21 @@ class PeerExchange:
             lib = self._res["lib"]
             stream = torch.cuda.current_stream(device).cuda_stream
             b = arena.step & 1
-            for q in range(P):
-                if q != p:
-                    self._ok(lib.siddhi_stream_wait_event(stream, arena.consumed[q][b]),
-                             f"a wait on process {q}'s reads")
-            self._ok(lib.siddhi_event_record(arena.consumed[p][b ^ 1], stream),
-                     "the record of this process's reads")
             seg = [t.numel() // (L * n) * t.element_size() for t in bufs]
+            off = b * arena.half
             for lo in range(0, len(bufs), MAX_PEER_COLS):
                 part = range(lo, min(lo + MAX_PEER_COLS, len(bufs)))
                 if not any(seg[i] for i in part):
                     continue            # nothing to move: no launch
                 table = (_PeerCol * len(part))(
-                    *[_PeerCol(bufs[i].data_ptr(), b * arena.half + arena.offsets[i],
-                               seg[i]) for i in part])
+                    *[_PeerCol(bufs[i].data_ptr(), off + arena.offsets[i], seg[i])
+                      for i in part])
                 self._ok(lib.siddhi_peer_exchange_cols(table, len(part), arena.bases, P,
                                                        self._plan, L * n, stream),
                          "the kernel's launch")
                 _cuda.count(peer_exchange_cols)
-            self._ok(lib.siddhi_event_record(arena.written[p][b], stream),
-                     "the record of this process's writes")
-            self._barrier(timeout_s, what)
-            for q in range(P):
-                if q != p:
-                    self._ok(lib.siddhi_stream_wait_event(stream, arena.written[q][b]),
-                             f"a wait on process {q}'s writes")
+            self._sync(arena, peer_schedule(arena.step, P, p), stream)
+            self._watch(arena, timeout_s)
             arena.step += 1
             return arena.views[b]
 
@@ -625,11 +797,18 @@ class PeerExchange:
         """Unmap the peers' arenas and free this process's, behind a
         device sync and a barrier (a re-install: no kernel of any process
         still writes into an arena this one frees or unmaps). Every
-        process of the group calls it together."""
-        if self._arenas and self._broken is None:
-            with torch.cuda.device(self._device):
-                torch.cuda.synchronize()
-            self._barrier(timeout_s, what)
+        process of the group calls it together. After a failure (a dead
+        peer) neither: the stream was released, and the peers are gone."""
+        try:
+            if self._arenas and self._broken is None:
+                with torch.cuda.device(self._device):
+                    torch.cuda.synchronize()
+                if self._broken is None:
+                    self._barrier(timeout_s, what)
+        finally:
+            watch = self._res.pop("watch", None)
+            if watch is not None:
+                watch.stop()
         self._arenas.clear()
         errors = _release(self._res) if self._res["handles"] else []
         if errors:

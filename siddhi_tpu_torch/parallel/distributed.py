@@ -35,6 +35,8 @@ _DEFAULT_MISSING_HEARTBEATS = 10
 # the group's device (a process's one card, or the CPU), set by
 # initialize_cluster; None before it (global_mesh then takes the caller's)
 _group_device = None
+# the group's timeout in seconds, set by initialize_cluster
+_group_timeout_s = None
 
 
 def initialize_cluster(coordinator_address: Optional[str] = None,
@@ -66,7 +68,7 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
     import torch
     import torch.distributed as dist
 
-    global _group_device
+    global _group_device, _group_timeout_s
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -102,6 +104,7 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
     dist.init_process_group(backend=backend, init_method=init,
                             timeout=timeout, **kwargs)
     _group_device = dev
+    _group_timeout_s = timeout.total_seconds()
 
 
 def shutdown_cluster() -> None:
@@ -109,10 +112,23 @@ def shutdown_cluster() -> None:
     this process is in none."""
     import torch.distributed as dist
 
-    global _group_device
+    global _group_device, _group_timeout_s
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _group_device = None
+    _group_timeout_s = None
+
+
+def group_timeout_s() -> float:
+    """The seconds a collective of the group waits on a silent peer
+    (``initialize_cluster``'s ``max_missing_heartbeats`` x 10 s; torch's
+    default for a group made elsewhere): the bound of a device wait on a
+    peer when the app sets no ``cluster_step_timeout``."""
+    if _group_timeout_s is not None:
+        return _group_timeout_s
+    from torch.distributed.constants import default_pg_timeout
+
+    return default_pg_timeout.total_seconds()
 
 
 def _world() -> tuple:

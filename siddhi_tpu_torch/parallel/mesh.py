@@ -260,6 +260,13 @@ class RouteLayout:
             self._peer = PeerExchange(self.n, self.L, self.P, self.first // self.L)
         return self._peer
 
+    def check_peer(self, what: str) -> None:
+        """Raise ``ClusterPeerError`` if this layout's peer exchange has
+        failed: its waits were released after a peer's death, so the
+        step's rows came from a half no peer finished writing."""
+        if self._peer is not None:
+            self._peer.check(what)
+
     def close_peer(self, timeout_s=None) -> None:
         """Release the mapped arenas behind a barrier (every process of the
         group re-installs together)."""
@@ -1342,9 +1349,10 @@ def _routed_fn(runtime, layout: "RouteLayout", side_key: Optional[str] = None):
                 out[GK_KEY] = gg.to(gko.dtype)
             outs.append(out)
         merged = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-        return state, _egress(layout, merged, torch.cat(okeys), torch.stack(metas),
-                              rows_here, route_ov, ins_on, inner_slots,
-                              _timeout(runtime), what)
+        out = _egress(layout, merged, torch.cat(okeys), torch.stack(metas), rows_here,
+                      route_ov, ins_on, inner_slots, _timeout(runtime), what)
+        layout.check_peer(what)
+        return state, out
 
     return step3
 
