@@ -314,8 +314,7 @@ Phases (any failure exits non-zero and prints no result line):
             after every app's shutdown the cache holds nothing more and
             ``torch.cuda.memory_allocated`` is within 1 MiB of its value
             before the phase. Prints capture counts and ms, graph pool
-            and slot bytes, copy-in/out ms a batch of the flagship's
-            shared slot (CUDA events), events/s an app cache on vs off, and
+            and slot bytes, events/s an app cache on vs off, and
             a flagship batch's and a routed x4 batch's host launch calls
             and busy share as a graph replay vs eager (``profile_batch``);
 Single query steps run as CUDA graphs since phase 24 was added: every
@@ -6282,18 +6281,15 @@ def phase_program_cache(device, card: str):
     _require(abs(mem1 - mem0) <= 1 << 20,
              f"PC: device memory {mem1 - mem0} bytes off its baseline after shutdown")
 
-    # copy-in/out of the shared graph, and launch calls: graph vs eager
+    # the shared graph's slot, and launch calls: graph vs eager
     m, apps = pc_apps(device, True)
     (rt, q, _cb), (rt_d1, q_d1, _cb1) = apps[0], apps[PC_FLAGSHIPS]
     for r in (rt, rt_d1):
         r.get_input_handler("StockStream").send_columns(*feeds[0][0])
         r.get_input_handler("StockStream").send_columns(*feeds[0][1])
     graph = q._step.graph
-    graph.time_copies = True
     for b in feeds[0][2:4]:
         rt.get_input_handler("StockStream").send_columns(*b)
-    copies = graph.copy_times()
-    graph.time_copies = False
     slot_bytes = graph.slot_bytes
     h = rt.get_input_handler("StockStream")
     prof_graph = profile_batch("PC flagship, graph", lambda: h.send_columns(*feeds[1][0]), card)
@@ -6303,7 +6299,6 @@ def phase_program_cache(device, card: str):
     routed = pc_routed_profile(device, feeds[0], card)
     facts = {"card": card, "on": on, "off": off, "max_abs_diff": worst,
              "memory_delta_bytes": mem1 - mem0,
-             "copy_in_ms": [a for a, _b in copies], "copy_out_ms": [b for _a, b in copies],
              "slot_bytes_flagship": slot_bytes,
              "flagship_graph": {k: prof_graph[k] for k in ("host_launch_calls", "busy_share", "device_ms", "wall_ms")},
              "flagship_eager": {k: prof_eager[k] for k in ("host_launch_calls", "busy_share", "device_ms", "wall_ms")},
@@ -6321,9 +6316,8 @@ def phase_program_cache(device, card: str):
           f"({off['capture_ms']} ms), pool {off['pool_bytes']} bytes; memory "
           f"after shutdown {mem1 - mem0:+d} bytes [{card}]", flush=True)
     print(f"[program_cache] events/s an app, cache on {[round(x, 1) for x in on['eps']]} "
-          f"vs off {[round(x, 1) for x in off['eps']]}; copy-in/out of the "
-          f"flagship's {slot_bytes}-byte slot a batch (CUDA events): in "
-          f"{facts['copy_in_ms']} ms, out {facts['copy_out_ms']} ms; a flagship "
+          f"vs off {[round(x, 1) for x in off['eps']]}; the flagship's "
+          f"{slot_bytes}-byte slot; a flagship "
           f"batch: {prof_graph['host_launch_calls']} host launch calls, busy "
           f"{prof_graph['busy_share']:.3f} as a graph vs "
           f"{prof_eager['host_launch_calls']}, {prof_eager['busy_share']:.3f} "

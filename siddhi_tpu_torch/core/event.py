@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch.observability import journey
+from siddhi_tpu_torch.observability.tracing import NOOP_SPAN, TRACER, span
 from siddhi_tpu_torch.ops.expressions import (
     TS_KEY, TYPE_KEY, VALID_KEY, decode_set_element, encode_set_value)
 from siddhi_tpu_torch.ops.types import dtype_of
@@ -290,6 +291,14 @@ def tensors_to_numpy(tensors: List[torch.Tensor]) -> List[np.ndarray]:
     return out
 
 
+def _delivering_stream() -> Optional[str]:
+    """The stream whose delivery reads a batch's columns (a span's arg)."""
+    from siddhi_tpu_torch.core.stream.junction import current_delivering_junction
+
+    j = current_delivering_junction()
+    return j.definition.id if j is not None else None
+
+
 class LazyColumns(dict):
     """Column dict whose tensor values become numpy on first access. The
     first touched tensor column pulls every remaining tensor column in one
@@ -308,7 +317,9 @@ class LazyColumns(dict):
                    if isinstance(val, torch.Tensor)]
         if not pending:
             return
-        pulled = tensors_to_numpy([v for _k, v in pending])
+        with span("sync.columns", stream=_delivering_stream(),
+                  columns=len(pending)) if TRACER.enabled else NOOP_SPAN:
+            pulled = tensors_to_numpy([v for _k, v in pending])
         for (key, _v), arr in zip(pending, pulled):
             super().__setitem__(key, arr)
 
@@ -358,59 +369,9 @@ class HostBatch:
     def from_events(events: Sequence[Event], definition: AbstractDefinition,
                     dictionary: StringDictionary, pad_to: Optional[int] = None,
                     event_type: int = CURRENT, pool=None) -> "HostBatch":
-        if pool is not None:
-            chunks = pool.plan_events(len(events), definition)
-            if chunks is not None:
-                # the encode work runs as sequence-numbered sub-batches on
-                # the app's ingest pool (core/stream/input/pack_pool.py);
-                # the ordered merge keeps outputs and dictionary ids
-                # bit-identical to this inline path
-                return _parallel_from_events(pool, chunks, events, definition,
-                                             dictionary, pad_to, event_type)
-        t0 = _journey_t0()
-        n = len(events)
-        b = pad_to if pad_to is not None else _pad_len(n)
-        cols: Dict[str, np.ndarray] = {
-            TS_KEY: np.zeros(b, np.int64),
-            TYPE_KEY: np.full(b, event_type, np.int8),
-            VALID_KEY: np.zeros(b, bool),
-        }
-        cols[VALID_KEY][:n] = True
-        if n:
-            cols[TS_KEY][:n] = np.fromiter(
-                (ev.timestamp for ev in events), np.int64, n)
-            expired = np.fromiter((ev.is_expired for ev in events), bool, n)
-            if expired.any():
-                cols[TYPE_KEY][:n][expired] = EXPIRED
-        rows = [ev.data for ev in events]
-        for pos, attr in enumerate(definition.attributes):
-            arr = np.zeros(b, dtype_of(attr.type))
-            # null masks are always present so the column set is static
-            mask = np.zeros(b, bool)
-            if n and attr.type == AttrType.OBJECT:
-                _encode_object_column(cols, arr, mask, attr.name, b,
-                                      [r[pos] for r in rows], definition,
-                                      dictionary)
-            elif n:
-                col = np.fromiter((r[pos] for r in rows), object, n)
-                if attr.type == AttrType.STRING:
-                    ids = dictionary.encode_array(col)
-                    mask[:n] = ids == StringDictionary.NULL_ID
-                    arr[:n] = np.where(mask[:n], 0, ids)
-                else:
-                    zero = False if attr.type == AttrType.BOOL else 0
-                    nulls = _NONE_MASK(col).astype(bool)
-                    if nulls.any():
-                        mask[:n] = nulls
-                        arr[:n] = np.where(nulls, zero, col)
-                    else:
-                        arr[:n] = col
-            cols[attr.name] = arr
-            cols[attr.name + "?"] = mask
-        batch = HostBatch(cols)
-        if t0 is not None:
-            journey.stamp_pack(batch, t0)
-        return batch
+        with span("input.encode", stream=definition.id, rows=len(events)):
+            return _encode_events(events, definition, dictionary, pad_to,
+                                  event_type, pool)
 
     @staticmethod
     def from_columns(data: Dict[str, np.ndarray], definition: AbstractDefinition,
@@ -421,52 +382,10 @@ class HostBatch:
         """Columnar ingestion: ``data`` maps attribute names to arrays
         (strings as object/str arrays, encoded here, or pre-encoded int
         ids). ``<name>?`` null-mask arrays are optional."""
-        if pool is not None:
-            chunks = pool.plan_columns(data, definition)
-            if chunks is not None:
-                return _parallel_from_columns(pool, chunks, data, definition,
-                                              dictionary, timestamps,
-                                              default_ts, pad_to)
-        t0 = _journey_t0()
-        first = next(iter(data.values()))
-        n = len(first)
-        b = pad_to if pad_to is not None else _pad_len(n)
-        cols: Dict[str, np.ndarray] = {
-            TYPE_KEY: np.full(b, CURRENT, np.int8),
-            VALID_KEY: np.zeros(b, bool),
-        }
-        cols[VALID_KEY][:n] = True
-        ts = np.zeros(b, np.int64)
-        if timestamps is not None:
-            ts[:n] = np.asarray(timestamps, np.int64)[:n]
-        else:
-            ts[:n] = default_ts
-        cols[TS_KEY] = ts
-        for attr in definition.attributes:
-            if attr.name not in data:
-                raise KeyError(f"column '{attr.name}' missing from batch")
-            src = np.asarray(data[attr.name])
-            arr = np.zeros(b, dtype_of(attr.type))
-            mask = np.zeros(b, bool)
-            if attr.type == AttrType.STRING and not np.issubdtype(src.dtype, np.integer):
-                ids = dictionary.encode_array(src)[:n]
-                mask[:n] = ids == StringDictionary.NULL_ID
-                arr[:n] = np.where(mask[:n], 0, ids)
-            elif attr.type == AttrType.STRING:
-                ids = np.asarray(src[:n], np.int64)
-                mask[:n] = ids < 0  # pre-encoded: negative = null
-                arr[:n] = np.where(mask[:n], 0, ids)
-            else:
-                arr[:n] = src[:n]
-            user_mask = data.get(attr.name + "?")
-            if user_mask is not None:
-                mask[:n] |= np.asarray(user_mask, bool)[:n]
-            cols[attr.name] = arr
-            cols[attr.name + "?"] = mask
-        batch = HostBatch(cols)
-        if t0 is not None:
-            journey.stamp_pack(batch, t0)
-        return batch
+        with span("input.encode", stream=definition.id,
+                  rows=len(next(iter(data.values())))):
+            return _encode_columns(data, definition, dictionary, timestamps,
+                                   default_ts, pad_to, pool)
 
     def to_events(self, attr_order: Sequence[tuple],
                   dictionary: StringDictionary,
@@ -539,6 +458,115 @@ class HostBatch:
                 f"project it before windowing")
         return [frozenset([decode_set_element(v, elem_t, dictionary)])
                 for v in vals]
+
+
+def _encode_events(events, definition, dictionary, pad_to, event_type,
+                   pool) -> HostBatch:
+    """``HostBatch.from_events``'s encode, inline or on the ingest pool."""
+    if pool is not None:
+        chunks = pool.plan_events(len(events), definition)
+        if chunks is not None:
+            # the encode work runs as sequence-numbered sub-batches on
+            # the app's ingest pool (core/stream/input/pack_pool.py);
+            # the ordered merge keeps outputs and dictionary ids
+            # bit-identical to this inline path
+            return _parallel_from_events(pool, chunks, events, definition,
+                                         dictionary, pad_to, event_type)
+    t0 = _journey_t0()
+    n = len(events)
+    b = pad_to if pad_to is not None else _pad_len(n)
+    cols: Dict[str, np.ndarray] = {
+        TS_KEY: np.zeros(b, np.int64),
+        TYPE_KEY: np.full(b, event_type, np.int8),
+        VALID_KEY: np.zeros(b, bool),
+    }
+    cols[VALID_KEY][:n] = True
+    if n:
+        cols[TS_KEY][:n] = np.fromiter(
+            (ev.timestamp for ev in events), np.int64, n)
+        expired = np.fromiter((ev.is_expired for ev in events), bool, n)
+        if expired.any():
+            cols[TYPE_KEY][:n][expired] = EXPIRED
+    rows = [ev.data for ev in events]
+    for pos, attr in enumerate(definition.attributes):
+        arr = np.zeros(b, dtype_of(attr.type))
+        # null masks are always present so the column set is static
+        mask = np.zeros(b, bool)
+        if n and attr.type == AttrType.OBJECT:
+            _encode_object_column(cols, arr, mask, attr.name, b,
+                                  [r[pos] for r in rows], definition,
+                                  dictionary)
+        elif n:
+            col = np.fromiter((r[pos] for r in rows), object, n)
+            if attr.type == AttrType.STRING:
+                ids = dictionary.encode_array(col)
+                mask[:n] = ids == StringDictionary.NULL_ID
+                arr[:n] = np.where(mask[:n], 0, ids)
+            else:
+                zero = False if attr.type == AttrType.BOOL else 0
+                nulls = _NONE_MASK(col).astype(bool)
+                if nulls.any():
+                    mask[:n] = nulls
+                    arr[:n] = np.where(nulls, zero, col)
+                else:
+                    arr[:n] = col
+        cols[attr.name] = arr
+        cols[attr.name + "?"] = mask
+    batch = HostBatch(cols)
+    if t0 is not None:
+        journey.stamp_pack(batch, t0)
+    return batch
+
+
+def _encode_columns(data, definition, dictionary, timestamps, default_ts,
+                    pad_to, pool) -> HostBatch:
+    """``HostBatch.from_columns``'s encode, inline or on the ingest pool."""
+    if pool is not None:
+        chunks = pool.plan_columns(data, definition)
+        if chunks is not None:
+            return _parallel_from_columns(pool, chunks, data, definition,
+                                          dictionary, timestamps,
+                                          default_ts, pad_to)
+    t0 = _journey_t0()
+    first = next(iter(data.values()))
+    n = len(first)
+    b = pad_to if pad_to is not None else _pad_len(n)
+    cols: Dict[str, np.ndarray] = {
+        TYPE_KEY: np.full(b, CURRENT, np.int8),
+        VALID_KEY: np.zeros(b, bool),
+    }
+    cols[VALID_KEY][:n] = True
+    ts = np.zeros(b, np.int64)
+    if timestamps is not None:
+        ts[:n] = np.asarray(timestamps, np.int64)[:n]
+    else:
+        ts[:n] = default_ts
+    cols[TS_KEY] = ts
+    for attr in definition.attributes:
+        if attr.name not in data:
+            raise KeyError(f"column '{attr.name}' missing from batch")
+        src = np.asarray(data[attr.name])
+        arr = np.zeros(b, dtype_of(attr.type))
+        mask = np.zeros(b, bool)
+        if attr.type == AttrType.STRING and not np.issubdtype(src.dtype, np.integer):
+            ids = dictionary.encode_array(src)[:n]
+            mask[:n] = ids == StringDictionary.NULL_ID
+            arr[:n] = np.where(mask[:n], 0, ids)
+        elif attr.type == AttrType.STRING:
+            ids = np.asarray(src[:n], np.int64)
+            mask[:n] = ids < 0  # pre-encoded: negative = null
+            arr[:n] = np.where(mask[:n], 0, ids)
+        else:
+            arr[:n] = src[:n]
+        user_mask = data.get(attr.name + "?")
+        if user_mask is not None:
+            mask[:n] |= np.asarray(user_mask, bool)[:n]
+        cols[attr.name] = arr
+        cols[attr.name + "?"] = mask
+    batch = HostBatch(cols)
+    if t0 is not None:
+        journey.stamp_pack(batch, t0)
+    return batch
 
 
 def _encode_object_column(cols, arr, mask, name, b, values, definition,

@@ -46,6 +46,16 @@ Contract:
 per-member emission and fault attribution at drain, in the members'
 subscription order.
 
+Tracing (``observability/tracing.py``): each drain round is a
+``pipeline.drain`` span and each wait on an entry's event a ``sync.meta``
+span. While the tracer is on, a query's dispatch records a timing event
+on its stream before the step (``card_timer``) and the meta's event is a
+timing event: once it has completed, at drain, the step's card time goes
+into the app registry's histogram ``step.card_ms.<query>``, one value a
+dispatch with no wait of its own. It holds the time from the card
+reaching the step to the meta's arrival on the host, gaps inside the step
+included.
+
 Telemetry: the counters ``pipeline.pulls`` (drain rounds),
 ``pipeline.metas`` (entries drained) and ``pipeline.stalls`` (forced
 drains that waited on the card), beside the pump's own attributes of the
@@ -70,6 +80,7 @@ from siddhi_tpu_torch.analysis.guards import guarded
 from siddhi_tpu_torch.analysis.locks import make_lock
 from siddhi_tpu_torch.core.stream.junction import FatalQueryError
 from siddhi_tpu_torch.observability import journey as journey_mod
+from siddhi_tpu_torch.observability.tracing import TRACER, span
 
 log = logging.getLogger(__name__)
 
@@ -80,12 +91,13 @@ class QueryCompletion:
     event that says when the meta has arrived (None off the card)."""
 
     __slots__ = ("owner", "out", "meta", "event", "overflow_msg", "junction",
-                 "batch", "t0", "wall", "tid", "timer_cb", "journey")
+                 "batch", "t0", "wall", "tid", "timer_cb", "journey", "card_t0")
 
     def __init__(self, owner, out, meta, event, overflow_msg,
-                 junction=None, batch=None, journey=None):
+                 junction=None, batch=None, journey=None, card_t0=None):
         self.owner = owner
         self.journey = journey            # the batch journey, or None
+        self.card_t0 = card_t0            # timing event before the step, or None
         self.out = out
         self.meta = meta                  # host tensor: pinned on the card
         self.event = event                # torch.cuda.Event, or None
@@ -121,6 +133,8 @@ class QueryCompletion:
 
         q = self.owner
         meta = self.meta.numpy()
+        if self.card_t0 is not None:
+            record_card_ms(q, self.card_t0, self.event)
         try:
             try:
                 q.decode_meta_suffix(meta)
@@ -327,6 +341,10 @@ class CompletionPump:
         ``owner._lock``). Re-entrant submits for the SAME owner (a query
         feeding its own input stream) queue behind the round in progress
         and the outer flush picks them up."""
+        with span("pipeline.drain") as sp:
+            self._drain_round(owner, keep_newest, forced, sp)
+
+    def _drain_round(self, owner, keep_newest, forced, sp) -> None:
         draining = self._draining()
         if id(owner) in draining:
             return
@@ -343,6 +361,7 @@ class CompletionPump:
                 del self._pending[owner]
             self.pulls += 1
             self.metas += n
+            sp.set(owner=take[0].label, entries=n)
             stalled = forced and not take[0].ready()
             if stalled:
                 # the producer really waits on the card here: the pipeline
@@ -416,12 +435,14 @@ class CompletionPump:
             from siddhi_tpu_torch.parallel.distributed import guarded_pull
 
             name = getattr(owner, "name", None) or getattr(owner, "stream_id", "?")
-            guarded_pull([e.meta for e in take], float(timeout),
-                         what=f"query '{name}' pipeline drain",
-                         wait=lambda: [e.wait() for e in take])
+            with span("sync.meta", query=name, entries=len(take)):
+                guarded_pull([e.meta for e in take], float(timeout),
+                             what=f"query '{name}' pipeline drain",
+                             wait=lambda: [e.wait() for e in take])
             return
         for e in take:
-            e.wait()
+            with span("sync.meta", query=e.label):
+                e.wait()
 
     @staticmethod
     def _route_error(entry, err: Exception) -> bool:
@@ -496,14 +517,34 @@ class CompletionPump:
             self._n_pending = 0
 
 
-def stage_meta(meta: torch.Tensor):
+def stage_meta(meta: torch.Tensor, timed: bool = False):
     """The step's ``__meta__`` on its way to the host: on the card, one
     ``non_blocking`` copy into a fresh pinned buffer and an event recorded
-    after it on the current stream; on the CPU the tensor itself."""
+    after it on the current stream (a timing event where ``timed``: the
+    end of the step's card time); on the CPU the tensor itself."""
     if meta.device.type != "cuda":
         return meta, None
     host = torch.empty(meta.shape, dtype=meta.dtype, pin_memory=True)
     host.copy_(meta, non_blocking=True)
-    ev = torch.cuda.Event()
+    ev = torch.cuda.Event(enable_timing=True) if timed else torch.cuda.Event()
     ev.record()
     return host, ev
+
+
+def card_timer(device) -> Optional["torch.cuda.Event"]:
+    """While the span tracer is on, a timing event recorded now on the
+    current stream of ``device`` (a card); else None, and nothing made."""
+    if not TRACER.enabled or device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def record_card_ms(query, start, end) -> None:
+    """The card time from ``start`` to ``end`` (timing events) into the
+    query's ``step.card_ms.<query>`` histogram, where ``end`` has
+    completed (after the wait for the meta it has: no wait here)."""
+    if end.query():
+        query.app_context.telemetry.histogram(
+            f"step.card_ms.{query.name}").record(start.elapsed_time(end))

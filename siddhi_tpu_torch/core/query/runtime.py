@@ -66,7 +66,13 @@ step_graph.py``). The step freezes the plan it was built from (the
 selector's key capacity), so a step another app shares never follows this
 runtime's later growth: a growth builds a new step.
 
-Observability (ROADMAP A.10 a): each batch is a ``query.step`` span; with
+Observability (ROADMAP A.10 a): each batch is a ``query.step`` span
+holding ``query.key`` (the keyers and the key-capacity check),
+``route.prep`` (a routed step's host prep) and ``step.launch`` (the
+step's call); the blocking calls are ``sync.<site>`` spans (the
+synchronous path's meta pull ``sync.meta``, a staging slot's wait
+``sync.staging``), and while the tracer is on each step's card time goes
+into ``step.card_ms.<query>`` (``completion.card_timer``); with
 batch journeys on it carries a ``Journey`` (its dispatch, device and emit
 stages stamped here or at the pump's drain); with device instruments on
 (the default) the step appends its lanes (``instrument_slots()``:
@@ -96,7 +102,8 @@ from siddhi_tpu_torch.core.event import (
     CURRENT, EXPIRED, TIMER, Event, HostBatch, LazyColumns, StringDictionary,
     encode_key_tuples, pack_pool_of)
 from siddhi_tpu_torch.core.plan.selector_plan import GK_KEY, STR_RANK, SelectorPlan
-from siddhi_tpu_torch.core.query.completion import QueryCompletion, stage_meta
+from siddhi_tpu_torch.core.query.completion import (
+    QueryCompletion, card_timer, record_card_ms, stage_meta)
 from siddhi_tpu_torch.core.util.statistics import latency_t0, pytree_nbytes, record_elapsed_ms
 from siddhi_tpu_torch.core.stream.junction import (
     FatalQueryError, Receiver, current_delivering_junction)
@@ -889,27 +896,29 @@ class QueryRuntime(Receiver):
                 # per-key host stages route rows by the pk column, so the
                 # partition key is attached before the window runs (and
                 # rides through its emitted rows)
-                batch = HostBatch(self._attach_pk(LazyColumns(batch.cols)))
+                with span("query.key", query=self.name):
+                    batch = HostBatch(self._attach_pk(LazyColumns(batch.cols)))
             batch, notify = self._host_pre(batch)
             # a re-published batch may hold device tensors: the keyers'
             # reads pull them to the host in one copy, a step without
             # keyers takes them as they are
             cols = LazyColumns(batch.cols)
             pk = None
-            if partitioned:
-                cols = dict(cols) if pk_done else self._attach_pk(cols)
-                pk = cols.get(PK_KEY)
-                if pk is None:
-                    pk = np.zeros(cols[VALID_KEY].shape[0], np.int32)
-                cols[PK_KEY] = np.asarray(pk, np.int32)
-            if self.keyer is not None:
-                cols[GK_KEY] = self.keyer(cols, pk=pk if partitioned else None)
-            elif partitioned:
-                cols[GK_KEY] = cols[PK_KEY]
-            else:
-                cols[GK_KEY] = np.zeros(cols[VALID_KEY].shape[0], np.int32)
-            if partitioned or self.keyer is not None:
-                self._ensure_capacity()
+            with span("query.key", query=self.name):
+                if partitioned:
+                    cols = dict(cols) if pk_done else self._attach_pk(cols)
+                    pk = cols.get(PK_KEY)
+                    if pk is None:
+                        pk = np.zeros(cols[VALID_KEY].shape[0], np.int32)
+                    cols[PK_KEY] = np.asarray(pk, np.int32)
+                if self.keyer is not None:
+                    cols[GK_KEY] = self.keyer(cols, pk=pk if partitioned else None)
+                elif partitioned:
+                    cols[GK_KEY] = cols[PK_KEY]
+                else:
+                    cols[GK_KEY] = np.zeros(cols[VALID_KEY].shape[0], np.int32)
+                if partitioned or self.keyer is not None:
+                    self._ensure_capacity()
             if self._state is None:
                 self._state = self._init_state()
             if self._step is None:
@@ -1069,15 +1078,19 @@ class QueryRuntime(Receiver):
             # string order-by keys sort by lexicographic rank, not by id
             cols = dict(cols)
             cols[STR_RANK] = self.dictionary.rank_table()
-        if self.captured and hasattr(step, "replay"):
-            self._state, out = step.replay(self._state, cols, now,
-                                           self.app_context.completion_pump.depth)
-        else:
-            self._state, out = step(self._state, self._to_device(cols), now)
+        card_t0 = card_timer(self.device)
+        replay = self.captured and hasattr(step, "replay")
+        with span("step.launch", query=self.name, graph=replay):
+            if replay:
+                self._state, out = step.replay(self._state, cols, now,
+                                               self.app_context.completion_pump.depth)
+            else:
+                self._state, out = step(self._state, self._to_device(cols), now)
         out_host = LazyColumns(out)
         pump = self.app_context.completion_pump
         if pump.depth > 1 and self._now_override is None and self._pipeline_ok:
-            meta, event = stage_meta(dict.pop(out_host, "__meta__"))
+            meta, event = stage_meta(dict.pop(out_host, "__meta__"),
+                                     timed=card_t0 is not None)
             # the dispatch's latency: the host never waits on the step
             record_elapsed_ms(sm, self.name, t0)
             if jr is not None:
@@ -1085,7 +1098,7 @@ class QueryRuntime(Receiver):
             pump.submit(QueryCompletion(
                 self, out_host, meta, event, overflow_msg,
                 junction=self._cur_junction, batch=self._cur_fault_batch,
-                journey=jr))
+                journey=jr, card_t0=card_t0))
             return None
         if jr is not None:
             # the synchronous device stage: the ride is ~0 (the meta is
@@ -1093,7 +1106,10 @@ class QueryRuntime(Receiver):
             jr.end_dispatch()
             jr.pre_drain(journey.ready_of(dict.__getitem__(out_host, "__meta__")))
             t_pull = time.perf_counter()
+        card_t1 = card_timer(self.device) if card_t0 is not None else None
         meta = self._pull_meta(out_host)     # the one sync of the batch
+        if card_t1 is not None:
+            record_card_ms(self, card_t0, card_t1)
         if jr is not None:
             jr.drained((time.perf_counter() - t_pull) * 1000.0)
         self.decode_meta_suffix(meta)
@@ -1122,12 +1138,13 @@ class QueryRuntime(Receiver):
         ``ClusterPeerError`` through the fault machinery instead of hanging
         the runtime (``parallel/distributed.guarded_pull``)."""
         timeout = getattr(self.app_context, "cluster_step_timeout", None)
-        if timeout is not None and self._shard_mesh is not None:
-            from siddhi_tpu_torch.parallel.distributed import guarded_pull
+        with span("sync.meta", query=self.name):
+            if timeout is not None and self._shard_mesh is not None:
+                from siddhi_tpu_torch.parallel.distributed import guarded_pull
 
-            return guarded_pull(dict.pop(out_host, "__meta__"), float(timeout),
-                                what=f"query '{self.name}' step")
-        return out_host.pop("__meta__")
+                return guarded_pull(dict.pop(out_host, "__meta__"), float(timeout),
+                                    what=f"query '{self.name}' step")
+            return out_host.pop("__meta__")
 
     def _host_keyed_select(self, out_host):
         """Split-pipeline tail: the group key is computed from a stage's
@@ -1295,7 +1312,8 @@ class StagingRing:
         i = self._next % n_slots
         self._next += 1
         if self._events[i] is not None:
-            self._events[i].synchronize()
+            with span("sync.staging"):
+                self._events[i].synchronize()
         out = {} if dst is None else dst
         for k, v in dict.items(cols):
             if isinstance(v, torch.Tensor):

@@ -65,7 +65,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -181,10 +181,6 @@ class StepGraph:
         self.captures = 0        # graphs captured over the graph's life
         self.replays = 0
         self.capture_ms = 0.0    # wall ms of the last capture (its eager run included)
-        # shared mode: CUDA events around each replay's copy-in and
-        # copy-out while ``time_copies`` is set (read by ``copy_times``)
-        self.time_copies = False
-        self._copy_events: List[Tuple] = []
 
     @property
     def pool_bytes(self) -> int:
@@ -258,14 +254,8 @@ class StepGraph:
         self._staging.put(cols, depth, dst=cap.inputs)
         cap.now.fill_(int(now))
         # ``leaves`` None: a private graph; empty: a stateless shared step
-        ev = ([torch.cuda.Event(enable_timing=True) for _ in range(4)]
-              if leaves and self.time_copies else None)
         if leaves:
-            if ev:
-                ev[0].record()
             torch._foreach_copy_(self._slot_leaves, leaves)
-            if ev:
-                ev[1].record()
         cap.graph.replay()
         self.replays += 1
         for (wrapper, attr), n in cap.launches:
@@ -284,21 +274,8 @@ class StepGraph:
         if leaves is not None:
             metas = metas.clone()
         if leaves:
-            if ev:
-                ev[2].record()
             torch._foreach_copy_(leaves, self._slot_leaves)
-            if ev:
-                ev[3].record()
-                self._copy_events.append(ev)
         return tuple(outs), metas, None
-
-    def copy_times(self) -> List[Tuple[float, float]]:
-        """(copy-in ms, copy-out ms) of each replay timed since the last
-        call (CUDA events; synchronizes on the last one)."""
-        evs, self._copy_events = self._copy_events, []
-        if evs:
-            evs[-1][3].synchronize()
-        return [(e[0].elapsed_time(e[1]), e[2].elapsed_time(e[3])) for e in evs]
 
     def _capture(self, fn, states, bound, cols, now, depth, spec):
         """The batch eagerly on ``states`` (its result), then a capture of

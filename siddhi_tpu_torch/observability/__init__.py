@@ -12,15 +12,21 @@ has sources for:
 - ``telemetry.InstrumentedJit``: the step instrument every step goes
   through (compile events, the program cache, cost capture);
 - ``costmodel``: the step-program cost registry behind ``GET /programs``;
-- ``tracing``: structured host spans (compile, plan, jit, junction
-  dispatch, query step, sink publish, persist), ring-buffered and
-  exported as Chrome-trace JSON (``POST /trace/start|stop``);
+- ``tracing``: structured host spans, ring-buffered and exported as
+  Chrome-trace JSON (``POST /trace/start|stop``): set-up (compile,
+  assemble, plan, jit, persist), ``input.encode``, ``junction.dispatch``,
+  ``query.step`` with ``query.key``, ``route.prep`` and ``step.launch``
+  inside it, ``fanout.step``, ``pipeline.drain``, ``sink.publish``, and a
+  ``sync.<site>`` span for each call that blocks the host on the card
+  (``sync.meta``, ``sync.columns``, ``sync.staging``, ``sync.lut``); while
+  it is on, each step's card time goes into ``step.card_ms.<query>``;
 - ``journey``: batch journeys through pack, queue, dispatch, device and
   emit, and the critical-path report (``GET /profile/critical_path``);
 - ``instruments``: device instruments, lanes computed inside each step
   that ride the batch's one meta pull;
 - ``device_trace``: the device profiler trace (``torch.profiler``) behind
-  ``SiddhiAppRuntime.start_trace`` and ``POST /profile/device/*``.
+  ``SiddhiAppRuntime.start_trace`` and ``POST /profile/device/*``; its
+  file also holds the span tracer's spans, on the profiler's clock.
 """
 
 from siddhi_tpu_torch.observability.histogram import Histogram

@@ -50,7 +50,11 @@ wal_batches}{worker}``, the per-worker respawn, replay, gap and link-drop
 counters and the ingest, run, egress, checkpoint and query counters; each
 family prints once its source exists. The keyed-shard families of the
 routed step (``parallel/mesh.py``) render as the reference renders them:
-``siddhi_shard_rows{query,shard}`` and ``siddhi_shard_exchange_ms{query}``;
+``siddhi_shard_rows{query,shard}`` and ``siddhi_shard_exchange_ms{query}``,
+which, despite its name, holds the host's routing prep of a batch (the
+``route.prep`` span's time), not the exchange between shards; a step's
+card time while the span tracer is on renders as
+``siddhi_step_card_ms{query}``;
 the peer counters of the app supervisor (``resilience.peer_failures``,
 ``resilience.peer_recoveries``) are declared at 0 for every app, and the
 bounded pull's ``cluster.outstanding_pulls`` is a process gauge.
@@ -105,6 +109,8 @@ TELEMETRY_PREFIXES = (
     "autopilot",     # controller mode gauge, tick/freeze and decision
                      # counters (autopilot/ -> siddhi_autopilot_*)
     "query",         # a query's captured gauge (generic siddhi_gauge)
+    "step",          # a step's card time while tracing, CUDA events
+                     # (core/query/completion.py -> siddhi_step_card_ms)
 )
 # Gauge templates that live exactly as long as their registry does: each
 # is on an app's TelemetryRegistry and dies with it at shutdown. Every
@@ -189,6 +195,7 @@ _AGG_FLUSH_HIST = re.compile(r"^aggregation\.(?P<agg>.+)\.flush_ms$")
 # host's routing prep histogram, scope = the query
 _SHARD_ROWS = re.compile(r"^shard\.rows\.(?P<scope>.+)\.(?P<shard>\d+)$")
 _SHARD_EXCHANGE_HIST = re.compile(r"^shard\.exchange_ms\.(?P<scope>.+)$")
+_STEP_CARD_HIST = re.compile(r"^step\.card_ms\.(?P<query>.+)$")
 _SERVING_QUERY_HIST = re.compile(r"^serving\.query\.(?P<dur>[a-z]+)_ms$")
 _SERVING_COUNTER_FAMILY = {
     "serving.queries": ("siddhi_serving_queries_total",
@@ -664,6 +671,11 @@ def _add_telemetry(fams: _Families, tel_snapshot: dict, app: str):
                          "sharded keyed step (ms; the routed path pays only "
                          "pad and pre-check here)")
                 labels["query"] = m.group("scope")
+            elif _STEP_CARD_HIST.match(name):
+                family = "siddhi_step_card_ms"
+                help_ = ("card time of one step while tracing, from the card "
+                         "reaching it to its meta's arrival (ms, CUDA events)")
+                labels["query"] = _STEP_CARD_HIST.match(name).group("query")
             elif name == "scrape.ms":
                 family = "siddhi_scrape_ms"
                 help_ = "/metrics scrape self-timing (ms)"

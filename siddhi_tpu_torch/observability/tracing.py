@@ -1,12 +1,41 @@
 """Structured tracing spans with Chrome-trace export.
 
 Counterpart of ``siddhi_tpu/observability/tracing.py`` (no device code:
-the same tracer). A span covers one host-side stage of the pipeline
-(compile, plan, jit, junction dispatch, query step, sink publish,
-persist) at batch granularity — the host-side complement of the device
-profiler trace (``SiddhiAppRuntime.start_trace``,
-``observability/device_trace.py``), which sees the card's kernels but
-not the host pipeline between them.
+the same tracer). A span covers one host-side stage of the pipeline at
+batch granularity: the host-side complement of the device profiler
+trace (``SiddhiAppRuntime.start_trace``, ``observability/device_trace.py``),
+which sees the card's kernels but not the host pipeline between them.
+
+The spans, by layer (``args`` in brackets):
+
+- set-up: ``compile`` (chars), ``assemble`` (app), ``plan`` (query),
+  ``jit`` (key: a step's first call), ``persist`` (app, incremental);
+- ``input.encode`` (stream, rows): a sent batch's encode into columns
+  (``core/event.py`` ``HostBatch.from_columns`` and ``from_events``);
+- ``junction.dispatch`` (stream, rows): a stream's delivery to its
+  receivers (``core/stream/junction.py``);
+- ``query.step`` (query; a join's side, a pattern's stream): a query's
+  batch (``core/query/runtime.py`` ``process_batch``), and inside it, for
+  a single-stream query, ``query.key`` (query: the partition keyer, the
+  group keyer and the key-capacity check), ``route.prep`` (query, pieces:
+  a routed step's host prep, ``parallel/mesh.py``) and ``step.launch``
+  (query, graph: the step's call, its staging copies, a graph's replay
+  and output clones, or the eager step); ``fanout.step`` (stream,
+  members) for a fused fan-out group;
+- ``pipeline.drain`` (owner, entries): a drain round of the dispatch
+  pipeline (``core/query/completion.py``), the emits included;
+- ``sync.<site>``: one call that blocks the host on the card, named by
+  its site: ``sync.meta`` (query: the pipeline's wait for a step's meta,
+  or the synchronous path's pull), ``sync.columns`` (stream: the one
+  pull of an output batch's columns, ``LazyColumns``), ``sync.staging``
+  (a staging ring's wait for the slot it reuses) and ``sync.lut`` (rows:
+  a routed step's key table copied to the card when it changed). On the
+  CPU they are recorded where the same calls take no wait;
+- ``sink.publish`` (stream, events).
+
+While the tracer is on, each step of a single-stream query also records
+its card time in the app registry's histogram ``step.card_ms.<query>``
+(``core/query/completion.py`` ``card_timer``).
 
 Design constraints, in priority order:
 
@@ -22,6 +51,12 @@ Design constraints, in priority order:
 3. **Standard output.** ``to_chrome_trace()`` emits the Trace Event
    Format (complete events, ``ph: "X"`` with pid/tid/ts/dur/name/args)
    that ``chrome://tracing`` and Perfetto load directly.
+4. **One clock with the device trace.** Durations are read on
+   ``perf_counter_ns``; ``start()`` reads the Unix clock beside it, and
+   the export states the Unix ns of its ``ts`` 0 (``otherData``
+   ``epoch_unix_ns``), the clock ``torch.profiler`` stamps the card's
+   operations on. ``device_trace.stop()`` lays the spans into its file
+   by it.
 """
 
 from __future__ import annotations
@@ -57,8 +92,11 @@ class _NoopSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **args):
+        """Args known only inside the span; nothing while tracing is off."""
 
-_NOOP = _NoopSpan()
+
+NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
@@ -78,6 +116,10 @@ class _Span:
         self._tracer._record(self.name, self._t0, t1, self.args)
         return False
 
+    def set(self, **args):
+        """Add args known only inside the span (a count of its work)."""
+        self.args.update(args)
+
 
 class Tracer:
     """Ring-buffered span collector (one per process — see ``TRACER``)."""
@@ -91,7 +133,7 @@ class Tracer:
         # hold it only for one append, so contention is one span long
         self._lock = threading.Lock()
         self.dropped = 0
-        self._epoch_ns = time.perf_counter_ns()
+        self._epoch_ns, self.epoch_unix_ns = _epochs()
 
     # ------------------------------------------------------------ control
 
@@ -102,7 +144,7 @@ class Tracer:
                 self.capacity = int(capacity)
             self._buf = deque(maxlen=self.capacity)
             self.dropped = 0
-            self._epoch_ns = time.perf_counter_ns()
+            self._epoch_ns, self.epoch_unix_ns = _epochs()
             self.enabled = True
 
     def stop(self) -> dict:
@@ -122,7 +164,7 @@ class Tracer:
 
     def span(self, name: str, **args):
         if not self.enabled:
-            return _NOOP
+            return NOOP_SPAN
         return _Span(self, name, args)
 
     def _record(self, name: str, t0_ns: int, t1_ns: int, args: dict):
@@ -170,8 +212,18 @@ class Tracer:
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
-            "otherData": {"dropped_spans": dropped},
+            "otherData": {"dropped_spans": dropped,
+                          "epoch_unix_ns": self.epoch_unix_ns},
         }
+
+
+def _epochs():
+    """(``perf_counter_ns``, Unix ns) of one instant: the Unix clock read
+    between two reads of the counter, set at their midpoint."""
+    p0 = time.perf_counter_ns()
+    unix = time.time_ns()
+    p1 = time.perf_counter_ns()
+    return (p0 + p1) // 2, unix
 
 
 def _jsonable(v):
@@ -190,5 +242,5 @@ def span(name: str, **args):
     """``with span("jit", query="q1"): ...`` — records a structured span
     on the global tracer; a shared no-op when tracing is off."""
     if not TRACER.enabled:
-        return _NOOP
+        return NOOP_SPAN
     return _Span(TRACER, name, args)

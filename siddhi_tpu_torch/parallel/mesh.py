@@ -59,6 +59,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from siddhi_tpu_torch.observability.tracing import span
 from siddhi_tpu_torch.ops.exchange import (
     PeerExchange, peer_exchange_cols, process_exchange_plain, ring_exchange_cols)
 from siddhi_tpu_torch.ops.expressions import (
@@ -330,8 +331,12 @@ class RouteLayout:
         else:
             lut = np.zeros(1, np.int64)
             inv = np.zeros((self.n, 1), np.int64)
-        self._lut_dev = (torch.from_numpy(lut).to(self.device),
-                         torch.from_numpy(inv).to(self.device))
+        # two blocking copies from pageable memory, each its own span
+        with span("sync.lut", rows=lut.shape[0]):
+            lut_dev = torch.from_numpy(lut).to(self.device)
+        with span("sync.lut", rows=inv.size):
+            inv_dev = torch.from_numpy(inv).to(self.device)
+        self._lut_dev = (lut_dev, inv_dev)
         self._lut_dirty = False
         return self._lut_dev
 
@@ -1542,9 +1547,12 @@ def sharded_jit_for(runtime, fn, timer: bool = False):
 
 def _record_route_telemetry(telemetry, scope: str, rows, exchange_ms) -> None:
     """``shard.rows.{scope}.{i}`` gauges (the rows of the last batch bound
-    for each shard) and the ``shard.exchange_ms.{scope}`` histogram (the
-    host's routing prep a batch), on the app's registry with the query as
-    the scope. A re-install onto a LARGER mesh grows the gauge set."""
+    for each shard) and the ``shard.exchange_ms.{scope}`` histogram, on the
+    app's registry with the query as the scope. Despite its name, that
+    histogram holds the host's routing prep of a batch (padding, the quota
+    pre-check, the split, the key tables), the time of the ``route.prep``
+    span: not the exchange between shards, which runs on the card inside
+    the step. A re-install onto a LARGER mesh grows the gauge set."""
     if exchange_ms is not None:
         telemetry.histogram(f"shard.exchange_ms.{scope}").record(exchange_ms)
     store = _ROUTE_ROWS.setdefault(telemetry, {})
@@ -1572,6 +1580,13 @@ def prepare_routed_batches(runtime, cols):
     records the shard-skew gauges and the host prep's histogram. Returns
     the column dicts to dispatch in order. The key-sharded step with a
     replicated batch moves no rows: its batch goes whole."""
+    with span("route.prep", query=runtime.name) as sp:
+        pieces = _prepare_routed(runtime, cols)
+        sp.set(pieces=len(pieces))
+    return pieces
+
+
+def _prepare_routed(runtime, cols):
     import time
 
     t0 = time.perf_counter()
