@@ -379,6 +379,13 @@ class QueryRuntime(Receiver):
         tel = self.app_context.telemetry
         tel.gauge(f"query.{self.name}.captured",
                   lambda: 1.0 if self.captured else 0.0)
+        from siddhi_tpu_torch.ops import aggregators, distinct
+
+        kinds = {spec.kind for spec in self.selector_plan.specs}
+        if self.device.type == "cuda" and kinds & set(aggregators.DISTINCT_KINDS):
+            # read on the card at a snapshot only
+            tel.gauge("distinct_scan.fallbacks",
+                      lambda d=self.device: distinct.split_fallbacks(d))
         return tel.instrument_jit(
             fn, key, family=family, cache_extra=cache_extra,
             program=self.program_signature(), consts=self.program_consts(),
@@ -426,10 +433,15 @@ class QueryRuntime(Receiver):
             win._num_keys_ref = lambda k=sel.num_keys: k
         xp = TorchXP(self.device)
         islots = self._step_instrument_slots()
+        # every row in group 0 (no group by, no partition, one process):
+        # the distinct scan may take the group's row of its tables
+        one_group = (self.keyer is None and self.partition_ctx is None
+                     and split is None and key_split is None)
 
         def step(state, cols, current_time):
             ctx = {"xp": xp, "current_time": current_time,
-                   "horizon": self._timer_horizon, "key_split": key_split}
+                   "horizon": self._timer_horizon, "key_split": key_split,
+                   "one_group": one_group}
             cols = dict(cols)
             strrank = cols.pop(STR_RANK, None)   # window stages rebuild cols
             for t in transforms:

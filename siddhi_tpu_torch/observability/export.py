@@ -111,6 +111,8 @@ TELEMETRY_PREFIXES = (
     "query",         # a query's captured gauge (generic siddhi_gauge)
     "step",          # a step's card time while tracing, CUDA events
                      # (core/query/completion.py -> siddhi_step_card_ms)
+    "distinct_scan", # the split chain's fallbacks to the walk on the
+                     # query's card (ops/distinct.py; generic siddhi_gauge)
 )
 # Gauge templates that live exactly as long as their registry does: each
 # is on an app's TelemetryRegistry and dies with it at shutdown. Every
@@ -127,6 +129,7 @@ PROCESS_LIFETIME_GAUGES = (
     "cluster.outstanding_pulls",  # process registry, process-lifetime
     "device.*",               # instrument last-value and capacity gauges
     "query.*.captured",       # a query's step, rebuilt in place
+    "distinct_scan.fallbacks",  # the card's count since the process began
 )
 
 # the data slots a step may declare in its instrument spec

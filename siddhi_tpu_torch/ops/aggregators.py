@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch.ops import types as T
-from siddhi_tpu_torch.ops.distinct import distinct_scan
+from siddhi_tpu_torch.ops.distinct import distinct_scan, split_chain
 from siddhi_tpu_torch.ops.expressions import (
     TYPE_KEY, VALID_KEY, CompileError, _encode_set_element)
 from siddhi_tpu_torch.ops.scatter import put_where_
@@ -313,9 +313,15 @@ def _apply_distinct(spec: AggSpec, st: dict, cols: dict, ctx: dict,
     delta = torch.where(types == CURRENT, 1, -1).to(torch.int32)
     g = torch.clamp(gk, 0, num_keys - 1)
     ep = st["eb"] + epoch_before.to(torch.int64)
+    emit = spec.kind == "unionset"
+    vk, vc, stamp = st["vk"], st["vc"], st["stamp"]
+    if ctx.get("one_group") and split_chain(1, vk.shape[1], set_in, emit):
+        # every row is in group 0: the scan takes that group's row of the
+        # tables (a [1, H] view, updated in place), and with it the split chain
+        vk, vc, stamp = vk[:1], vc[:1], stamp[:1]
     nd, snap_vk, snap_live, overflow = distinct_scan(
-        st["vk"], st["vc"], st["stamp"], g, v, delta, part.expand(R).contiguous(),
-        ep, set_in, set_in_m, emit_set=spec.kind == "unionset")
+        vk, vc, stamp, g, v, delta, part.expand(R).contiguous(),
+        ep, set_in, set_in_m, emit_set=emit)
     st["eb"].add_(final_epoch.to(torch.int64))
     cols[spec.out_key] = nd
     if snap_vk is not None:

@@ -21,24 +21,53 @@ last applied row. Row by row in arrival order, for row i of group g:
   ``set_in_m``) folds its elements into one row, in order.
 
 Rows of different groups are independent. ``distinct_scan`` launches the
-hand-written CUDA kernel (``csrc/distinct_scan.cu``, one warp per group:
-the table in registers up to ``SMALL_MAX_H`` slots, above it in shared
-memory with a hash index of live slots and a free-slot bitmap, up to
-``MAX_H``, and above that with the index and the bitmap in a global-memory
-workspace this wrapper allocates, up to ``WIDE_MAX_H``) for CUDA tensors
+hand-written CUDA kernels (``csrc/distinct_scan.cu``) for CUDA tensors
 and runs ``distinct_scan_plain`` for CPU tensors; there is no fallback
-between them. Both
-update the state IN PLACE and agree with the reference bit for bit,
-state and outputs: the state crosses packages through ``interop.py``,
-and unionSet snapshots expose slot order. ``distinct_scan.launches``
-counts kernel launches.
+between the two. Both update the state IN PLACE and agree with the
+reference bit for bit, state and outputs: the state crosses packages
+through ``interop.py``, and unionSet snapshots expose slot order.
+
+The kernels have two designs, chosen by ``split_chain`` from the call's
+shapes and arguments alone:
+
+- the split chain, for one group (``K == 1``: no ``group by``, so one
+  chain holds every row), distinctCount (no ``emit_set``), one element a
+  row (no ``set_in``) and ``H <= SPLIT_MAX_H``. Phase A works on every row
+  at once: rows sorted by (value, arrival) here (``torch.sort``), an index
+  of the carried table's live keys, a segmented scan of each value's
+  exact count update ``c <- max(c + delta, 0)``, each row classed as an
+  alloc (not live -> live), a free (live -> dead), a touch (an applying
+  row that leaves its value at 0, which still writes the lowest free
+  slot) or nothing, ``nd`` as the carried live count plus a prefix sum of
+  allocs and frees, and the events compacted in arrival order. Phase B,
+  one warp, walks the events only against a free-slot bitmap (the lowest
+  free slot rule), then a parallel commit writes the slots' keys and
+  counts and the stamp. Its preconditions are checked on the card: every
+  row in one epoch (no RESET inside the batch), no carried value live in
+  two slots, no alloc or touch meeting a full table (the walk overflows
+  there). Where one fails, a flag in its workspace makes the commit write
+  nothing and the walk below run the call instead, adding one to the
+  card's count that ``split_fallbacks`` reads;
+- the walk, for every other call and for the split chain's fallbacks: one
+  warp per group walks its rows in arrival order, the table in registers
+  up to ``SMALL_MAX_H`` slots, above it in shared memory with a hash index
+  of live slots and a free-slot bitmap up to ``MAX_H``, and above that
+  with the index and the bitmap in a global-memory workspace this wrapper
+  allocates, up to ``WIDE_MAX_H``.
+
+The walk's kernel is launched after the split chain's every time, and
+returns at once where the chain finished the call: a call is one fixed
+launch sequence with no host read, so it stays capturable in a CUDA
+graph. ``distinct_scan.launches`` counts calls on the card and
+``distinct_scan.split_launches`` those that ran the split chain (both
+through ``_cuda.count``, so graph replays count too).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -54,6 +83,7 @@ SMALL_MAX_H = 64      # the register table up to here, hash + bitmap above
 WIDE_MAX_H = 1 << 26  # the global-index path: slot << 5 | lane fits an int
 PATH_REGISTERS, PATH_HASH, PATH_WIDE = 0, 1, 2   # the kernel's designs
 WIDE_BLOCKS_PER_SM = 2    # resident blocks of the global-index path
+SPLIT_MAX_H = 32 * 32 * 32  # the split chain: a bitmap whose summary is a word a lane
 
 
 def _check(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m) -> None:
@@ -181,7 +211,9 @@ class _ScanArgs(ctypes.Structure):
                 ("nd", ctypes.c_void_p), ("snap_vk", ctypes.c_void_p),
                 ("snap_live", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
                 ("path", ctypes.c_longlong), ("workspace", ctypes.c_void_p),
-                ("ws_blocks", ctypes.c_longlong)]
+                ("ws_blocks", ctypes.c_longlong), ("split", ctypes.c_longlong),
+                ("split_ws", ctypes.c_void_p), ("vsorted", ctypes.c_void_p),
+                ("vorder", ctypes.c_void_p), ("fallbacks", ctypes.c_void_p)]
 
 
 def _bind(lib) -> None:
@@ -189,6 +221,9 @@ def _bind(lib) -> None:
     fn.restype = ctypes.c_int
     # the stream as c_void_p: a plain int would be cut to 32 bits
     fn.argtypes = [ctypes.POINTER(_ScanArgs), ctypes.c_void_p]
+    words = lib.siddhi_distinct_split_words
+    words.restype = ctypes.c_longlong
+    words.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -207,6 +242,44 @@ def kernel_path(H: int) -> int:
     if H <= SMALL_MAX_H:
         return PATH_REGISTERS
     return PATH_HASH if H <= MAX_H else PATH_WIDE
+
+
+def split_chain(K: int, H: int, set_in, emit_set: bool) -> bool:
+    """Whether a call runs the split chain before the walk: one group
+    (no ``group by``, so one chain holds every row), distinctCount (no
+    unionSet snapshots), one element a row, and ``H`` within the bitmap
+    that phase B keeps in shared memory (``SPLIT_MAX_H``)."""
+    return K == 1 and not emit_set and set_in is None and 1 <= H <= SPLIT_MAX_H
+
+
+# device index -> int64 [1]: calls whose split chain fell back to the walk
+_FALLBACKS: Dict[int, torch.Tensor] = {}
+
+
+def _fallback_counter(device) -> torch.Tensor:
+    t = _FALLBACKS.get(device.index)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            # zeros made inside a capture would be zeroed again at every replay
+            raise RuntimeError("distinct_scan: the split chain's first call on "
+                               f"{device} is inside a CUDA graph capture; run "
+                               "one call eagerly first")
+        t = _FALLBACKS.setdefault(device.index,
+                                  torch.zeros(1, dtype=torch.int64, device=device))
+    return t
+
+
+def split_fallbacks(device=None) -> int:
+    """Calls whose split chain failed a precondition on the card and left
+    the call to the walk, on ``device`` (every card when None) since the
+    process started. Reads the card: for snapshots, not for every batch."""
+    if device is None:
+        ts = list(_FALLBACKS.values())
+    else:
+        index = torch.device(device).index
+        index = torch.cuda.current_device() if index is None else index
+        ts = [t for i, t in _FALLBACKS.items() if i == index]
+    return sum(t.tolist()[0] for t in ts)
 
 
 def wide_workspace(K: int, H: int, device) -> Tuple[torch.Tensor, int]:
@@ -243,14 +316,16 @@ def distinct_scan(vk, vc, stamp, g, v, delta, part, ep, set_in=None,
     if device.type != "cuda":
         raise ValueError(f"distinct_scan: unsupported device {device}")
     _check(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m)
+    K, H = vk.shape
     return launch(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m,
-                  emit_set, kernel_path(vk.shape[1]))
+                  emit_set, kernel_path(H), split_chain(K, H, set_in, emit_set))
 
 
 def launch(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m, emit_set,
-           path: int) -> Tuple:
+           path: int, split: bool = False) -> Tuple:
     """One launch of the kernel's ``path`` on checked CUDA tensors (what
-    ``distinct_scan`` does once it has chosen the path)."""
+    ``distinct_scan`` does once it has chosen the path), after the split
+    chain where ``split``."""
     device = vk.device
     K, H = vk.shape
     R = g.shape[0]
@@ -266,9 +341,19 @@ def launch(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m, emit_set,
     v, delta, part, ep = (t.contiguous() for t in (v, delta, part, ep))
     if set_in is not None:
         set_in, set_in_m = set_in.contiguous(), set_in_m.contiguous()
-    # rows in group order (stable, so arrival order within a group); the
-    # kernel reads every row input through ``order``
-    gs, order = torch.sort(g, stable=True)
+    if split:
+        # one group: rows in (value, arrival) order for the chain's count
+        # pass; the walk's row order is the identity, written by the chain
+        # at the head of its workspace
+        vsorted, vorder = torch.sort(v, stable=True)
+        split_ws = torch.empty(lib.siddhi_distinct_split_words(H, R), dtype=torch.int32,
+                               device=device)
+        gs, order, fallbacks = g, split_ws, _fallback_counter(device)
+    else:
+        # rows in group order (stable, so arrival order within a group); the
+        # kernel reads every row input through ``order``
+        gs, order = torch.sort(g, stable=True)
+        vsorted = vorder = split_ws = fallbacks = None
     ws, ws_blocks = (wide_workspace(K, H, device) if path == PATH_WIDE
                      else (None, 0))
     args = _ScanArgs(
@@ -276,7 +361,8 @@ def launch(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m, emit_set,
         _ptr(scratch) + 8 * R, _ptr(v if set_in is None else None), _ptr(delta),
         _ptr(part), _ptr(ep), _ptr(set_in), _ptr(set_in_m),
         0 if set_in is None else set_in.shape[1], _ptr(nd), _ptr(snap_vk),
-        _ptr(snap_live), _ptr(overflow), path, _ptr(ws), ws_blocks)
+        _ptr(snap_live), _ptr(overflow), path, _ptr(ws), ws_blocks, int(split),
+        _ptr(split_ws), _ptr(vsorted), _ptr(vorder), _ptr(fallbacks))
     guard = (torch.cuda.device(device) if device.index != torch.cuda.current_device()
              else contextlib.nullcontext())
     with guard:
@@ -284,7 +370,10 @@ def launch(vk, vc, stamp, g, v, delta, part, ep, set_in, set_in_m, emit_set,
         code = lib.siddhi_distinct_scan(ctypes.byref(args), stream)
     _cuda.check(lib, code, "distinct_scan launch")
     _cuda.count(distinct_scan)
+    if split:
+        _cuda.count(distinct_scan, "split_launches")
     return nd, snap_vk, snap_live, overflow
 
 
 distinct_scan.launches = 0
+distinct_scan.split_launches = 0

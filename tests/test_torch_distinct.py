@@ -336,11 +336,11 @@ def test_plain_scan_is_sequential():
     assert torch.equal(vk, vk0) and torch.equal(vc, vc0) and torch.equal(stamp, st0)
 
 
-def _window_stream(rng, R, W, U, resets_within=None):
+def _window_stream(rng, R, W, U, resets_within=None, resets=3):
     """Types and value ids of a ``#window.length(W)`` emission over ``U``
     values: CURRENT x_t, then EXPIRED x_(t-W) once the window is full, cut
-    to R rows; three RESET rows (among the first ``resets_within``), a few
-    TIMER rows, and some EXPIRED rows of values that were never current
+    to R rows; ``resets`` RESET rows (among the first ``resets_within``), a
+    few TIMER rows, and some EXPIRED rows of values that were never current
     (dead writes)."""
     x = rng.integers(0, U, R)
     x[rng.random(R) < 0.04] = 0                  # 0.0 and -0.0 often
@@ -357,7 +357,7 @@ def _window_stream(rng, R, W, U, resets_within=None):
     types, ids = np.array(types[:R], np.int8), np.array(ids[:R], np.int64)
     dead = (types == 1) & (rng.random(R) < 0.03)
     ids[dead] = U + rng.integers(0, U, int(dead.sum()))
-    types[rng.choice(resets_within or R, 3, replace=False)] = 3   # RESETs
+    types[rng.choice(resets_within or R, resets, replace=False)] = 3   # RESETs
     types[rng.random(R) < 0.01] = 2              # TIMER rows
     return types, ids
 
@@ -479,6 +479,29 @@ def test_chain_oracle_plain_and_reference_agree(case, monkeypatch):
     assert len(np.unique(codes)) > (4 * CHAINS[case][1] if "churn" in case else 0)
 
 
+def test_split_chain_chosen_by_shape():
+    """The split chain runs for one group, distinctCount (no snapshots),
+    one element a row and H within its bitmap; the walk alone for every
+    other call."""
+    sets = torch.zeros((4, 2), dtype=torch.int64)
+    assert tdist.SPLIT_MAX_H >= tdist.MAX_H
+    for H in (1, tdist.SMALL_MAX_H, 8192, tdist.MAX_H, tdist.SPLIT_MAX_H):
+        assert tdist.split_chain(1, H, None, False)
+        assert not tdist.split_chain(1, H, None, True)        # unionSet
+        assert not tdist.split_chain(1, H, sets, False)       # set input
+        assert not tdist.split_chain(1, H, sets, True)
+        for K_ in (2, 64, 9989):                              # group by
+            assert not tdist.split_chain(K_, H, None, False)
+    for H in (tdist.SPLIT_MAX_H + 1, 65536, tdist.WIDE_MAX_H - 1):
+        assert not tdist.split_chain(1, H, None, False)
+    # no device, no read: CPU calls run the plain scan and count nothing
+    before = (distinct_scan.launches, distinct_scan.split_launches)
+    state, rows, _ = _chain_inputs(7, 64, 200, 50, 100, "cpu", resets=0)
+    distinct_scan(*state, *rows)
+    assert (distinct_scan.launches, distinct_scan.split_launches) == before
+    assert tdist.split_fallbacks() == 0
+
+
 def test_kernel_path_by_table_size():
     assert tdist.kernel_path(1) == tdist.kernel_path(tdist.SMALL_MAX_H) == tdist.PATH_REGISTERS
     assert tdist.kernel_path(tdist.SMALL_MAX_H + 1) == tdist.PATH_HASH
@@ -492,11 +515,11 @@ def test_kernel_path_by_table_size():
             tdist.kernel_path(H)
 
 
-def _chain_inputs(seed, H, R, W, U, device, resets_within=None):
+def _chain_inputs(seed, H, R, W, U, device, resets_within=None, resets=3):
     """Scan inputs of a window stream through one group (see
     ``_window_stream``) over a live carried table, on ``device``."""
     rng = np.random.default_rng(seed)
-    types, ids = _window_stream(rng, R, W, U, resets_within)
+    types, ids = _window_stream(rng, R, W, U, resets_within, resets)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     state = (t(rng.integers(0, U, (1, H)).astype(np.int64)),
              t(rng.choice(np.array([-1, 0, 1, 2], np.int32), (1, H),
@@ -609,3 +632,224 @@ def test_cuda_h_above_the_limit_raises_naming_the_knob():
             torch.zeros(4, dtype=torch.int64, device=dev))
     with pytest.raises(ValueError, match="app_context.distinct_values_capacity"):
         distinct_scan(*state, *rows)
+
+
+def _expect_split(state, rows, overflowed):
+    """Whether the split chain finishes a one-group call itself, from its
+    preconditions on the host: every row of one epoch, no row overflows,
+    and (unless the epoch is fresh, which reads the table as empty) no
+    value of the batch live in two carried slots."""
+    vk, vc, stamp = (t.cpu() for t in state)
+    v, ep = rows[1].cpu(), rows[4].cpu()
+    if overflowed or not bool((ep == ep[0]).all()):
+        return False
+    if int(stamp[0]) != int(ep[0]):
+        return True
+    keys, counts = torch.unique(vk[0][vc[0] > 0], return_counts=True)
+    return not bool(torch.isin(v, keys[counts > 1]).any())
+
+
+def _split_equals_plain(state, rows, what):
+    """One call on the card == plain, state and outputs; the split chain
+    ran, and finished the call or fell back exactly as its preconditions
+    say. Returns whether it finished the call."""
+    before = [t.clone() for t in state]
+    split0, fell0 = distinct_scan.split_launches, tdist.split_fallbacks()
+    overflowed = _kernel_equals_plain(state, rows, (None, None), False, what)
+    done = _expect_split(before, rows, overflowed)
+    assert distinct_scan.split_launches == split0 + 1, what
+    assert tdist.split_fallbacks() == fell0 + (0 if done else 1), what
+    return done
+
+
+def _cell_batches(seed, n_batches, events, W, U, device):
+    """The rows of ``#window.length(W)`` over ``U`` uniform values as the
+    benchmark's distinct cell sends them: each event's expiry (from the
+    W-th on) before its arrival, ``2 * events`` rows a batch, one epoch;
+    and an empty table of 8,192 slots that the first batch reads fresh."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, U, n_batches * events + W)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    batches = []
+    for b in range(n_batches):
+        ids, types = [], []
+        for i in range(b * events, (b + 1) * events):
+            if i >= W:
+                ids.append(x[i - W])
+                types.append(1)
+            ids.append(x[i])
+            types.append(0)
+        ids, types = np.array(ids, np.int64), np.array(types)
+        R = len(ids)
+        batches.append((t(np.zeros(R, np.int64)), t(ids),
+                        t(np.where(types == 0, 1, -1).astype(np.int32)),
+                        t(np.ones(R, bool)), t(np.full(R, 4, np.int64))))
+    state = (t(np.zeros((1, 8192), np.int64)), t(np.full((1, 8192), -1, np.int32)),
+             t(np.zeros(1, np.int64)))
+    return state, batches
+
+
+@pytest.mark.cuda
+def test_cuda_split_chain_path_and_fallbacks():
+    """Every one-group shape of the two kernel tests above, as
+    distinctCount: the split chain runs, and finishes the call or falls
+    back to the walk exactly as designed (carried values live in two
+    slots, RESETs within the batch and overflow fall back); then a case of
+    each outcome by design."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ with no CPU mode")
+    dev = torch.device("cuda")
+    seen = set()
+    for seed, (K_, H, R, n_values, cin) in enumerate(
+            [(64, 64, 5000, 40, 0), (16, 4, 800, 12, 0), (3, 100, 3000, 150, 0),
+             (1, 1024, 6000, 1500, 0), (40, 64, 3000, 30, 3), (7, 8, 500, 20, 40),
+             (5, 33, 700, 60, 0), (1, 1, 300, 3, 0), (1, 2048, 6000, 3000, 0),
+             (1, 8192, 5000, 12000, 0), (1, 16384, 2000, 30000, 0),
+             (64, 256, 8000, 300, 0), (3, 1024, 2000, 1500, 4)]):
+        if K_ == 1:      # the seeds of test_cuda_kernel_equals_plain
+            state, rows, _ = _scan_inputs(seed, K_, H, R, n_values, 0, dev)
+            seen.add(_split_equals_plain(state, rows, (K_, H, R, n_values)))
+    for seed, (H, R, W, U, overflows) in enumerate(
+            [(1024, 12000, 500, 60_000, False), (1024, 4000, 2000, 60_000, True),
+             (8192, 8000, 3000, 60_000, False)]):
+        state, rows, _ = _chain_inputs(100 + seed, H, R, W, U, dev,
+                                       300 if overflows else None)
+        seen.add(_split_equals_plain(state, rows, (H, R, W, U)))
+    state, rows, _ = _chain_inputs(300, 32768, 6000, 3000, 60_000, dev)
+    seen.add(_split_equals_plain(state, rows, ("wide churn", 32768)))
+    assert seen == {False}          # every one of them has RESETs within
+
+    cases = {}
+    # no RESET: the chain finishes the call, over dead writes (touches)
+    state, rows, _ = _chain_inputs(500, 2048, 9000, 600, 60_000, dev, resets=0)
+    assert int(((rows[2] < 0) & (rows[1] >= 60_000)).sum()) > 50    # dead writes
+    cases["touch"] = _split_equals_plain(state, rows, "touch")
+    # a fresh epoch: the table reads as empty, the RESET is written
+    state, rows, _ = _chain_inputs(501, 1024, 6000, 500, 3000, dev, resets=0)
+    state[2].fill_(3)
+    cases["fresh"] = _split_equals_plain(state, rows, "fresh")
+    # a fresh epoch whose rows never apply: nothing is written
+    state, rows, _ = _chain_inputs(502, 1024, 600, 100, 300, dev, resets=0)
+    state[2].fill_(3)
+    rows = rows[:3] + (torch.zeros_like(rows[3]),) + rows[4:]
+    cases["fresh_idle"] = _split_equals_plain(state, rows, "fresh idle")
+    # a batch value live in two carried slots
+    state, rows, _ = _chain_inputs(503, 1024, 3000, 300, 600, dev, resets=0)
+    state[0][0, :2] = rows[1][5]
+    state[1][0, :2] = 1
+    cases["dup"] = _split_equals_plain(state, rows, "dup")
+    # a window wider than the table
+    state, rows, _ = _chain_inputs(504, 256, 3000, 1000, 60_000, dev, resets=0)
+    cases["overflow"] = _split_equals_plain(state, rows, "overflow")
+    # a RESET within the batch
+    state, rows, _ = _chain_inputs(505, 1024, 3000, 300, 600, dev, resets=1)
+    cases["reset"] = _split_equals_plain(state, rows, "reset")
+    assert cases == {"touch": True, "fresh": True, "fresh_idle": True, "dup": False,
+                     "overflow": False, "reset": False}
+
+
+@pytest.mark.cuda
+def test_cuda_split_chain_cell_shape_batches():
+    """The benchmark cell's shape: H = 8,192, a 10,000-row window over
+    10,000 values, a first batch that fills the window (fresh), then 4
+    batches of 131,072 chain rows carrying the table: each call == the
+    host oracle (held equal to the plain scan by the chain tests above;
+    the plain scan takes about a minute a batch of this length) and ==
+    the walk on the same state, none falls back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ with no CPU mode")
+    state, batches = _cell_batches(11, 5, 65_536, 10_000, 10_000, torch.device("cuda"))
+    host = [t.cpu().numpy().copy() for t in state]
+    walk = [t.clone() for t in state]
+    fell0, split0 = tdist.split_fallbacks(), distinct_scan.split_launches
+    for b, rows in enumerate(batches):
+        assert rows[1].shape[0] == (121_072 if b == 0 else 131_072)
+        got = distinct_scan(*state, *rows)
+        by_walk = tdist.launch(*walk, *rows, None, None, False,
+                               tdist.kernel_path(8192), split=False)
+        want = _smoke().scan_oracle(*host, *(r.cpu().numpy() for r in rows))
+        assert np.array_equal(got[0].cpu().numpy(), want[0]) and not bool(got[3]), b
+        assert torch.equal(got[0], by_walk[0]) and not want[3], b
+        for a, w, h in zip(state, walk, host):
+            assert torch.equal(a, w) and np.array_equal(a.cpu().numpy(), h), b
+    assert int((state[1] > 0).sum()) > 6000            # ~6,320 live values
+    assert distinct_scan.split_launches == split0 + 5
+    assert tdist.split_fallbacks() == fell0
+
+
+@pytest.mark.cuda
+def test_cuda_split_chain_graph_replays_equal_eager():
+    """One call captured in a CUDA graph and replayed on 3 more batches
+    (state carried in place): each replay == the plain scan, the capture
+    counts one split launch, nothing falls back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ with no CPU mode")
+    from siddhi_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda")
+    state, batches = _cell_batches(12, 5, 8192, 3000, 5000, dev)
+    plain = [t.cpu() for t in state]
+    distinct_scan(*state, *batches[0])             # eager: loads the library
+    distinct_scan_plain(*plain, *(r.cpu() for r in batches[0]))
+    fell0 = tdist.split_fallbacks()
+    static = [r.clone() for r in batches[1]]
+    graph = torch.cuda.CUDAGraph()
+    snap = [t.clone() for t in state]
+    torch.cuda.synchronize()
+    with _cuda.capture_tally() as tally, torch.cuda.graph(graph):
+        out = distinct_scan(*state, *static)
+    assert tally[(distinct_scan, "split_launches")] == 1
+    for a, b in zip(state, snap):                  # a capture runs nothing
+        assert torch.equal(a, b)
+    for b in range(1, 5):
+        for dst, src in zip(static, batches[b]):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = distinct_scan_plain(*plain, *(r.cpu() for r in batches[b]))
+        assert torch.equal(out[0].cpu(), want[0]), b
+        for a, w in zip(state, plain):
+            assert torch.equal(a.cpu(), w), b
+    assert tdist.split_fallbacks() == fell0
+
+
+@pytest.mark.cuda
+def test_cuda_split_chain_app_gauge():
+    """A distinctCount app on the card: every batch's scan runs the split
+    chain, the app's gauge ``distinct_scan.fallbacks`` (the card's count)
+    does not move, and the rows equal the same app on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ with no CPU mode")
+    import siddhi_tpu_torch
+
+    app = ("define stream S (sym long); from S#window.length(1000) "
+           "select distinctCount(sym) as d insert into O;")
+    rng = np.random.default_rng(3)
+    feed = [{"sym": rng.integers(0, 1500, 4096)} for _ in range(4)]
+
+    def run(device):
+        m = siddhi_tpu_torch.SiddhiManager(device=device)
+        rt = m.create_siddhi_app_runtime(app)
+        for spec in next(iter(rt.query_runtimes.values())).selector_plan.specs:
+            spec.distinct_capacity = 2048           # ~750 values live
+        rows = []
+
+        class C(siddhi_tpu_torch.StreamCallback):
+            def receive(self, events):
+                rows.extend(e.data for e in events)
+
+        rt.add_callback("O", C())
+        h = rt.get_input_handler("S")
+        for b, cols in enumerate(feed):
+            h.send_columns(cols, timestamps=np.arange(b * 4096, (b + 1) * 4096))
+        gauges = rt.app_context.telemetry.snapshot()["gauges"]
+        m.shutdown()
+        return rows, gauges
+
+    n0, s0 = distinct_scan.launches, distinct_scan.split_launches
+    fell0 = tdist.split_fallbacks("cuda")      # the card's, since the process began
+    got, gauges = run("cuda")
+    assert distinct_scan.launches - n0 == distinct_scan.split_launches - s0 >= len(feed)
+    assert gauges["distinct_scan.fallbacks"] == fell0
+    want, _ = run("cpu")
+    assert len(got) == 4 * 4096 and got == want
